@@ -1,0 +1,35 @@
+"""deeplearning4j_tpu_torch — the PyTorch/CUDA port of ``deeplearning4j_tpu``.
+
+The port runs on one NVIDIA Hopper card (H100, ``sm_90a``). Its layout and
+names mirror the JAX package so that each module's counterpart is easy to
+find; inside, it is plain PyTorch: explicit ``torch.device``s, explicit
+``torch.Generator``s, eager execution.
+
+Every Pallas kernel of the JAX package that a ported path runs becomes a CUDA
+kernel written by hand (``csrc/``), built at first use with ``nvcc`` into
+``_build/`` and bound with ``ctypes``. Beside each kernel sits a plain PyTorch
+version of the same math; a wrapper takes the plain version only for a tensor
+on the CPU (what the CPU tests run), and for a CUDA tensor launches the kernel
+or raises.
+
+Entry points run on the card unless the caller asks for the CPU
+(``device="cpu"``); without a card and without that request they raise.
+
+Layer map (ported so far; see ROADMAP.md for what follows):
+  common/    environment (device + TF32 policy), dtype table, counters
+  ops/       conv2d, pooling, inference batchnorm, the fused BN epilogue
+  csrc/      hand-written CUDA kernels
+  nn/        activations, weight init, losses (as configuration),
+             layer configs, ComputationGraph (inference)
+  learning/  updater configurations
+  models/    ResNet-50
+  parallel/  ParallelInference (the request micro-batcher)
+  util/      weight carry-over from the JAX package's numpy state
+"""
+
+from .common.dtypes import DataType
+from .common.environment import Environment
+
+__version__ = "0.1.0"
+
+__all__ = ["DataType", "Environment"]

@@ -1,0 +1,5 @@
+from .conf.builder import NeuralNetConfiguration
+from .conf.inputs import InputType
+from .conf import layers
+from .graph import (ComputationGraph, ComputationGraphConfiguration,
+                    ElementWiseVertex, GraphBuilder, MergeVertex)

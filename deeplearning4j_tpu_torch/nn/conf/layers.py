@@ -1,0 +1,295 @@
+"""Layer configurations + their inference runtime.
+
+Counterpart of the core classes of ``deeplearning4j_tpu/nn/conf/layers.py``:
+each dataclass carries its configuration fields plus ``init_params`` and an
+inference ``apply(params, x, state, training) -> (y, state)`` on tensors.
+Parameter layouts are the JAX package's, so parameters carry across by name
+and shape: dense W=[nIn,nOut] applied as ``x @ W``, conv W=[out,in,kH,kW]
+(OIHW), bias=[nOut]; BatchNormalization keeps ``gamma``/``beta`` as
+parameters and ``mean``/``var`` (float32) as state.
+
+Training-mode forward (batch statistics, dropout) arrives with the training
+slice; ``apply(..., training=True)`` raises where it would differ.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
+
+from ...ops import epilogue as _epilogue
+from ...ops import nn as ops
+from ..activations import activation_fn
+from ..losses import ILossFunction, LossMCXENT, loss_from_name
+from ..weights import init_weights
+from .inputs import CNNInput, FFInput, InputType
+
+
+def _pair(v):
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+@dataclass
+class Layer:
+    """Base layer config. Fields that default to None inherit the network's
+    global defaults (``apply_layer_defaults``)."""
+
+    name: Optional[str] = None
+    activation: Optional[str] = None
+    weight_init: Optional[str] = None
+    dropout: Optional[float] = None
+    l1: Optional[float] = None
+    l2: Optional[float] = None
+    n_in: Optional[int] = None
+
+    def set_input_type(self, input_type: InputType) -> InputType:
+        """Infer nIn from the incoming type; return this layer's output type."""
+        return input_type
+
+    def init_params(self, gen: torch.Generator, dtype=torch.float32,
+                    device=None) -> Dict[str, torch.Tensor]:
+        return {}
+
+    def init_state(self, device=None) -> Dict[str, torch.Tensor]:
+        return {}
+
+    def apply(self, params, x, state, training: bool = False):
+        raise NotImplementedError
+
+    @property
+    def has_params(self) -> bool:
+        return True
+
+
+def _no_training(layer: Layer, training: bool) -> None:
+    if training and layer.dropout:
+        raise NotImplementedError("training-mode dropout is not ported yet")
+
+
+@dataclass
+class DenseLayer(Layer):
+    n_out: int = 0
+    has_bias: bool = True
+
+    def set_input_type(self, input_type):
+        if not isinstance(input_type, FFInput):
+            raise ValueError(f"DenseLayer needs FF input, got {input_type}")
+        self.n_in = input_type.size
+        return FFInput(self.n_out)
+
+    def init_params(self, gen, dtype=torch.float32, device=None):
+        p = {"W": init_weights(gen, (self.n_in, self.n_out),
+                               self.weight_init or "xavier", dtype,
+                               device=device)}
+        if self.has_bias:
+            p["b"] = torch.zeros((self.n_out,), dtype=dtype, device=device)
+        return p
+
+    def pre_output(self, params, x):
+        out = x @ params["W"]
+        if self.has_bias:
+            out = out + params["b"]
+        return out
+
+    def apply(self, params, x, state, training=False):
+        _no_training(self, training)
+        return activation_fn(self.activation or "identity")(
+            self.pre_output(params, x)), state
+
+
+@dataclass
+class ConvolutionLayer(Layer):
+    """2D convolution with explicit padding. W=[out,in,kH,kW]."""
+
+    n_out: int = 0
+    kernel_size: Tuple[int, int] = (3, 3)
+    stride: Tuple[int, int] = (1, 1)
+    padding: Tuple[int, int] = (0, 0)
+    dilation: Tuple[int, int] = (1, 1)
+    has_bias: bool = True
+
+    def set_input_type(self, input_type):
+        if not isinstance(input_type, CNNInput):
+            raise ValueError(f"ConvolutionLayer needs CNN input, got "
+                             f"{input_type}")
+        self.n_in = input_type.channels
+        kh, kw = _pair(self.kernel_size)
+        sh, sw = _pair(self.stride)
+        dh, dw = _pair(self.dilation)
+        ph, pw = _pair(self.padding)
+        oh = (input_type.height + 2 * ph - ((kh - 1) * dh + 1)) // sh + 1
+        ow = (input_type.width + 2 * pw - ((kw - 1) * dw + 1)) // sw + 1
+        return CNNInput(self.n_out, oh, ow)
+
+    def init_params(self, gen, dtype=torch.float32, device=None):
+        kh, kw = _pair(self.kernel_size)
+        p = {"W": init_weights(gen, (self.n_out, self.n_in, kh, kw),
+                               self.weight_init or "xavier", dtype,
+                               device=device)}
+        if self.has_bias:
+            p["b"] = torch.zeros((self.n_out,), dtype=dtype, device=device)
+        return p
+
+    def apply(self, params, x, state, training=False):
+        _no_training(self, training)
+        out = ops.conv2d(x, params["W"], params.get("b"),
+                         strides=self.stride, padding=self.padding,
+                         dilation=self.dilation)
+        return activation_fn(self.activation or "identity")(out), state
+
+
+@dataclass
+class SubsamplingLayer(Layer):
+    """Max pooling with explicit padding (avg/pnorm arrive with the models
+    that use them)."""
+
+    pooling_type: str = "max"
+    kernel_size: Tuple[int, int] = (2, 2)
+    stride: Tuple[int, int] = (2, 2)
+    padding: Tuple[int, int] = (0, 0)
+
+    def set_input_type(self, input_type):
+        if not isinstance(input_type, CNNInput):
+            raise ValueError("SubsamplingLayer needs CNN input")
+        if self.pooling_type.lower() != "max":
+            raise NotImplementedError(
+                f"pooling {self.pooling_type!r} is not ported yet")
+        kh, kw = _pair(self.kernel_size)
+        sh, sw = _pair(self.stride)
+        ph, pw = _pair(self.padding)
+        oh = (input_type.height + 2 * ph - kh) // sh + 1
+        ow = (input_type.width + 2 * pw - kw) // sw + 1
+        return CNNInput(input_type.channels, oh, ow)
+
+    def apply(self, params, x, state, training=False):
+        return ops.maxpool2d(x, self.kernel_size, self.stride,
+                             self.padding), state
+
+    @property
+    def has_params(self):
+        return False
+
+
+@dataclass
+class BatchNormalization(Layer):
+    """Per-channel normalization with running mean/var state and trainable
+    gamma/beta."""
+
+    decay: float = 0.9
+    eps: float = 1e-5
+    lock_gamma_beta: bool = False
+    # Fused inference epilogue (ops/epilogue): BN + relu/identity in one
+    # kernel. None → inherit GlobalConf.fused_epilogue (cascaded by
+    # apply_layer_defaults). Opt-in: the folded affine reassociates the
+    # dense ops (tolerance-bounded, not bitwise).
+    fused_epilogue: Optional[bool] = None
+
+    def set_input_type(self, input_type):
+        if isinstance(input_type, CNNInput):
+            self.n_in = input_type.channels
+        elif isinstance(input_type, FFInput):
+            self.n_in = input_type.size
+        else:
+            raise ValueError("BatchNormalization needs FF or CNN input")
+        return input_type
+
+    def init_params(self, gen, dtype=torch.float32, device=None):
+        if self.lock_gamma_beta:
+            return {}
+        return {"gamma": torch.ones((self.n_in,), dtype=dtype, device=device),
+                "beta": torch.zeros((self.n_in,), dtype=dtype, device=device)}
+
+    def init_state(self, device=None):
+        return {"mean": torch.zeros((self.n_in,), dtype=torch.float32,
+                                    device=device),
+                "var": torch.ones((self.n_in,), dtype=torch.float32,
+                                  device=device)}
+
+    def apply(self, params, x, state, training=False):
+        if training:
+            raise NotImplementedError(
+                "training-mode BatchNormalization (batch statistics) is not "
+                "ported yet")
+        gamma, beta = params.get("gamma"), params.get("beta")
+        axis = 1 if x.ndim == 4 else -1
+        mean, var = state["mean"], state["var"]
+        if self.fused_epilogue:
+            fused = _epilogue.bn_act(x, mean, var, gamma, beta,
+                                     epsilon=self.eps, axis=axis,
+                                     act=self.activation)
+            if fused is not None:
+                return fused, state
+        out = ops.batchnorm(x, mean.to(x.dtype), var.to(x.dtype), gamma,
+                            beta, epsilon=self.eps, axis=axis)
+        return activation_fn(self.activation or "identity")(out), state
+
+
+@dataclass
+class ActivationLayer(Layer):
+    # optional slope/shape parameter, forwarded to leakyrelu and elu
+    alpha: Optional[float] = None
+
+    def apply(self, params, x, state, training=False):
+        act = (self.activation or "identity").lower()
+        if self.alpha is not None and act in ("leakyrelu", "elu"):
+            return activation_fn(act)(x, alpha=self.alpha), state
+        return activation_fn(act)(x), state
+
+    @property
+    def has_params(self):
+        return False
+
+
+@dataclass
+class GlobalPoolingLayer(Layer):
+    """Pools CNN spatial dims down to FF."""
+
+    pooling_type: str = "max"
+
+    def set_input_type(self, input_type):
+        if not isinstance(input_type, CNNInput):
+            raise ValueError("GlobalPoolingLayer needs CNN input")
+        return FFInput(input_type.channels)
+
+    def apply(self, params, x, state, training=False):
+        kind = self.pooling_type.lower()
+        if kind == "max":
+            out = torch.amax(x, dim=(2, 3))
+        elif kind in ("avg", "average"):
+            out = ops.global_avgpool(x)
+        elif kind == "sum":
+            out = x.sum(dim=(2, 3))
+        else:
+            raise ValueError(f"unknown pooling {self.pooling_type!r}")
+        return out, state
+
+    @property
+    def has_params(self):
+        return False
+
+
+@dataclass
+class OutputLayer(DenseLayer):
+    """Dense + loss head; the loss is held as configuration."""
+
+    loss: Union[str, ILossFunction, None] = None
+
+    def __post_init__(self):
+        if self.loss is None:
+            self.loss = LossMCXENT()
+        elif isinstance(self.loss, str):
+            self.loss = loss_from_name(self.loss)
+        if self.activation is None:
+            self.activation = "softmax"
+
+    def apply(self, params, x, state, training=False):
+        _no_training(self, training)
+        return activation_fn(self.activation)(self.pre_output(params, x)), \
+            state
+
+
+#: the classes this slice ports (the graph's fusion plan and the
+#: preprocessor insertion test membership against them)
+FF_LIKE: Tuple[Any, ...] = (DenseLayer, OutputLayer)

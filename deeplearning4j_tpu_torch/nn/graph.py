@@ -1,0 +1,420 @@
+"""ComputationGraph — named-vertex DAG models (ResNet-50 et al), inference.
+
+Counterpart of ``deeplearning4j_tpu/nn/graph.py``: the same configuration
+objects (``GraphBuilder``, ``ComputationGraphConfiguration`` with
+``set_input_types``), the same node names and parameter layouts, and the
+same inference walk, including the fused-epilogue plan that collapses the
+resnet block tail ``BN(identity) → add → relu`` into one kernel launch, with
+its dense replay when the gate refuses. PyTorch runs the walk eagerly, node
+by node; there is no trace to cache.
+
+``ComputationGraph.init`` places parameters on the card unless the caller
+asks for another device (``device="cpu"``). ``output`` returns a list of
+tensors, one per network output. Training (``fit``, scores) arrives with the
+training slice.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..common.dtypes import tensor_from_numpy, torch_dtype
+from ..common.environment import resolve_device
+from ..ops.epilogue import bn_act
+from .conf import layers as L
+from .conf.builder import GlobalConf, apply_layer_defaults
+from .conf.inputs import CNNInput, FFInput, InputType, cnn_to_ff
+
+
+# --- graph vertices -----------------------------------------------------------
+
+
+@dataclass
+class GraphVertex:
+    def output_type(self, *input_types: InputType) -> InputType:
+        return input_types[0]
+
+    def apply(self, *inputs):
+        raise NotImplementedError
+
+
+@dataclass
+class MergeVertex(GraphVertex):
+    """Concat along the feature/channel dim."""
+
+    def output_type(self, *ts):
+        t0 = ts[0]
+        if isinstance(t0, CNNInput):
+            return CNNInput(sum(t.channels for t in ts), t0.height, t0.width)
+        if isinstance(t0, FFInput):
+            return FFInput(sum(t.size for t in ts))
+        raise ValueError(f"cannot merge {ts}")
+
+    def apply(self, *inputs):
+        return torch.cat(inputs, dim=1 if inputs[0].ndim == 4 else -1)
+
+
+@dataclass
+class ElementWiseVertex(GraphVertex):
+    """Add/Subtract/Product/Average/Max/Min."""
+
+    op: str = "add"
+
+    def apply(self, *inputs):
+        op = self.op.lower()
+        if op == "add":
+            out = inputs[0]
+            for v in inputs[1:]:
+                out = out + v
+            return out
+        if op == "subtract":
+            if len(inputs) != 2:
+                raise ValueError(f"ElementWiseVertex(subtract) needs exactly "
+                                 f"2 inputs, got {len(inputs)}")
+            return inputs[0] - inputs[1]
+        if op in ("product", "mul"):
+            out = inputs[0]
+            for v in inputs[1:]:
+                out = out * v
+            return out
+        if op in ("average", "avg"):
+            return sum(inputs) / len(inputs)
+        if op == "max":
+            out = inputs[0]
+            for v in inputs[1:]:
+                out = torch.maximum(out, v)
+            return out
+        if op == "min":
+            out = inputs[0]
+            for v in inputs[1:]:
+                out = torch.minimum(out, v)
+            return out
+        raise ValueError(f"unknown elementwise op {self.op!r}")
+
+
+# --- graph node wiring ----------------------------------------------------------
+
+
+@dataclass
+class _Node:
+    name: str
+    kind: str                       # "input" | "layer" | "vertex"
+    layer: Optional[L.Layer] = None
+    vertex: Optional[GraphVertex] = None
+    inputs: List[str] = field(default_factory=list)
+    preprocessors: Dict[int, Any] = field(default_factory=dict)
+
+
+class ComputationGraphConfiguration:
+    def __init__(self, global_conf: GlobalConf):
+        self.global_conf = global_conf
+        self.network_inputs: List[str] = []
+        self.network_outputs: List[str] = []
+        self.nodes: Dict[str, _Node] = {}
+        self.order: List[str] = []
+        self.input_types: Dict[str, InputType] = {}
+        self.node_output_types: Dict[str, InputType] = {}
+
+    @staticmethod
+    def graph_builder(builder=None) -> "GraphBuilder":
+        return GraphBuilder(builder._conf if builder is not None
+                            else GlobalConf())
+
+    def set_input_types(self, *types: InputType) -> None:
+        if len(types) != len(self.network_inputs):
+            raise ValueError("one InputType per network input")
+        self.input_types = dict(zip(self.network_inputs, types))
+        self.node_output_types = {}
+        for name in self.order:
+            node = self.nodes[name]
+            if node.kind == "input":
+                self.node_output_types[name] = self.input_types[name]
+                continue
+            in_types = [self.node_output_types[i] for i in node.inputs]
+            if node.kind == "vertex":
+                self.node_output_types[name] = \
+                    node.vertex.output_type(*in_types)
+                continue
+            # CNN → FF adapter where a conv output feeds a dense layer
+            t = in_types[0]
+            if isinstance(t, CNNInput) and isinstance(node.layer, L.FF_LIKE):
+                node.preprocessors[0] = cnn_to_ff(t)
+                t = node.preprocessors[0].out_type
+            self.node_output_types[name] = node.layer.set_input_type(t)
+
+
+class GraphBuilder:
+    def __init__(self, global_conf: GlobalConf):
+        self._conf = ComputationGraphConfiguration(global_conf)
+        self._pending_types: Sequence[InputType] = ()
+
+    def add_inputs(self, *names: str) -> "GraphBuilder":
+        for n in names:
+            self._conf.network_inputs.append(n)
+            self._conf.nodes[n] = _Node(n, "input")
+            self._conf.order.append(n)
+        return self
+
+    addInputs = add_inputs
+
+    def add_layer(self, name: str, layer: L.Layer,
+                  *inputs: str) -> "GraphBuilder":
+        self._check_inputs(name, inputs)
+        layer.name = name
+        apply_layer_defaults(layer, self._conf.global_conf)
+        self._conf.nodes[name] = _Node(name, "layer", layer=layer,
+                                       inputs=list(inputs))
+        self._conf.order.append(name)
+        return self
+
+    addLayer = add_layer
+
+    def add_vertex(self, name: str, vertex: GraphVertex,
+                   *inputs: str) -> "GraphBuilder":
+        self._check_inputs(name, inputs)
+        self._conf.nodes[name] = _Node(name, "vertex", vertex=vertex,
+                                       inputs=list(inputs))
+        self._conf.order.append(name)
+        return self
+
+    addVertex = add_vertex
+
+    def set_outputs(self, *names: str) -> "GraphBuilder":
+        self._conf.network_outputs = list(names)
+        return self
+
+    setOutputs = set_outputs
+
+    def set_input_types(self, *types: InputType) -> "GraphBuilder":
+        self._pending_types = types
+        return self
+
+    setInputTypes = set_input_types
+
+    def build(self) -> ComputationGraphConfiguration:
+        if not self._conf.network_outputs:
+            raise ValueError("set_outputs(...) required")
+        for out in self._conf.network_outputs:
+            if out not in self._conf.nodes:
+                raise ValueError(f"unknown output node {out!r}")
+        if self._pending_types:
+            self._conf.set_input_types(*self._pending_types)
+        return self._conf
+
+    def _check_inputs(self, name: str, inputs: Sequence[str]) -> None:
+        if name in self._conf.nodes:
+            raise ValueError(f"duplicate node name {name!r}")
+        if not inputs:
+            raise ValueError(f"node {name!r} needs at least one input")
+        for i in inputs:
+            if i not in self._conf.nodes:
+                raise ValueError(f"node {name!r}: unknown input {i!r} "
+                                 f"(declare nodes in topological order)")
+
+
+class ComputationGraph:
+    """Runtime twin of the configuration."""
+
+    def __init__(self, conf: ComputationGraphConfiguration):
+        self.conf = conf
+        self._params: Dict[str, Dict[str, torch.Tensor]] = {}
+        self._states: Dict[str, Dict[str, torch.Tensor]] = {}
+        self._initialized = False
+        self.device: Optional[torch.device] = None
+        self._cast_cache = None
+
+    def init(self, seed: Optional[int] = None,
+             device=None) -> "ComputationGraph":
+        """Create parameters from a seeded ``torch.Generator`` (drawn on the
+        CPU, so a seed gives the same weights on every device) and place
+        them on ``device``: the card unless the caller asks for another."""
+        if not self.conf.node_output_types:
+            raise ValueError("configuration needs set_input_types(...) "
+                             "before init()")
+        self.device = resolve_device(device)
+        gen = torch.Generator()
+        gen.manual_seed(int(seed if seed is not None
+                            else self.conf.global_conf.seed))
+        dtype = torch_dtype(self.conf.global_conf.dtype)
+        for name in self.conf.order:
+            node = self.conf.nodes[name]
+            if node.kind == "layer":
+                self._params[name] = (
+                    node.layer.init_params(gen, dtype, self.device)
+                    if node.layer.has_params else {})
+                self._states[name] = node.layer.init_state(self.device)
+        self._initialized = True
+        return self
+
+    def num_params(self) -> int:
+        return sum(int(t.numel()) for p in self._params.values()
+                   for t in p.values())
+
+    # --- forward -----------------------------------------------------------
+    def _epilogue_fusion_plan(self):
+        """The resnet-block-tail chains ``BN(identity) →
+        ElementWiseVertex(add, 2 inputs) → ActivationLayer(relu)`` that
+        inference ``_forward`` collapses into one fused BN+residual+relu
+        epilogue (ops/epilogue) when ``GlobalConf.fused_epilogue`` is on.
+        Conservative: every interior node must have exactly one consumer
+        (the next link), no preprocessors on the add/act links, and neither
+        interior node may be a network output — so skipping their dense
+        materialization can never change any other node. Returns None when
+        the knob is off or nothing matches; a chain falls back to the dense
+        ops per call if the gate refuses."""
+        if not getattr(self.conf.global_conf, "fused_epilogue", False):
+            return None
+        consumers: Dict[str, set] = {}
+        for name in self.conf.order:
+            for i in self.conf.nodes[name].inputs:
+                consumers.setdefault(i, set()).add(name)
+        outputs = set(self.conf.network_outputs)
+        bn_nodes, add_nodes, act_nodes = set(), {}, {}
+        for name in self.conf.order:
+            node = self.conf.nodes[name]
+            if (node.kind != "layer"
+                    or not isinstance(node.layer, L.ActivationLayer)
+                    or (node.layer.activation or "").lower() != "relu"
+                    or len(node.inputs) != 1 or node.preprocessors):
+                continue
+            add_name = node.inputs[0]
+            add_node = self.conf.nodes.get(add_name)
+            if (add_node is None or add_node.kind != "vertex"
+                    or not isinstance(add_node.vertex, ElementWiseVertex)
+                    or add_node.vertex.op.lower() != "add"
+                    or len(add_node.inputs) != 2
+                    or add_name in outputs
+                    or consumers.get(add_name) != {name}):
+                continue
+            if add_node.inputs[0] == add_node.inputs[1]:
+                # relu(bn(x) + bn(x)): deferring the BN would starve the
+                # "other" operand — leave the degenerate chain dense
+                continue
+            bn_name = None
+            for cand, oth in (add_node.inputs, reversed(add_node.inputs)):
+                bn = self.conf.nodes.get(cand)
+                if (bn is not None and bn.kind == "layer"
+                        and isinstance(bn.layer, L.BatchNormalization)
+                        # honor a per-layer fused_epilogue=False opt-out
+                        # even when the global knob is on
+                        and bn.layer.fused_epilogue
+                        and (bn.layer.activation
+                             or "identity").lower() == "identity"
+                        and cand not in outputs and cand not in bn_nodes
+                        and consumers.get(cand) == {add_name}):
+                    bn_name, other = cand, oth
+                    break
+            if bn_name is None:
+                continue
+            bn_nodes.add(bn_name)
+            add_nodes[add_name] = (bn_name, other)
+            act_nodes[name] = (bn_name, add_name)
+        if not act_nodes:
+            return None
+        return {"bn": bn_nodes, "add": add_nodes, "act": act_nodes}
+
+    def _compute_params(self, params):
+        """Parameters in ``compute_dtype`` (float tensors only), cached
+        until a parameter tensor is replaced or modified in place."""
+        cd = self.conf.global_conf.compute_dtype
+        if not cd:
+            return params
+        leaves = [t for p in params.values() for t in p.values()]
+        key = (cd,) + tuple((id(t), t._version) for t in leaves)
+        cached = self._cast_cache
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        ct = torch_dtype(cd)
+        cast = {n: {k: (t.to(ct) if t.is_floating_point() else t)
+                    for k, t in p.items()} for n, p in params.items()}
+        # the cache holds the source tensors too, so their ids stay unique
+        self._cast_cache = (key, cast, leaves)
+        return cast
+
+    def _forward(self, params, states, inputs: Dict[str, torch.Tensor],
+                 training: bool = False):
+        if training:
+            raise NotImplementedError("training forward is not ported yet")
+        cd = self.conf.global_conf.compute_dtype
+        if cd:
+            ct = torch_dtype(cd)
+            params = self._compute_params(params)
+            inputs = {k: (v.to(ct) if v.is_floating_point() else v)
+                      for k, v in inputs.items()}
+        acts: Dict[str, torch.Tensor] = {}
+        plan = self._epilogue_fusion_plan()
+        pending_bn: Dict[str, Any] = {}
+        pending_add: Dict[str, Any] = {}
+        for name in self.conf.order:
+            node = self.conf.nodes[name]
+            if node.kind == "input":
+                acts[name] = inputs[name]
+                continue
+            if plan is not None and node.kind == "vertex" \
+                    and name in plan["add"]:
+                # fused-epilogue chain: defer the residual add to the relu
+                bn_name, other = plan["add"][name]
+                pending_add[name] = (pending_bn.pop(bn_name), acts[other])
+                continue
+            if plan is not None and name in plan["act"]:
+                # the fused BN+residual+relu launch
+                _, add_name = plan["act"][name]
+                (xbn, bnp, bns, bnl), other = pending_add.pop(add_name)
+                y = bn_act(xbn, bns["mean"], bns["var"], bnp.get("gamma"),
+                           bnp.get("beta"), epsilon=bnl.eps,
+                           axis=1 if xbn.ndim == 4 else -1, act="relu",
+                           residual=other)
+                if y is None:
+                    # gate refused: replay the dense chain verbatim
+                    bn_out, _ = bnl.apply(bnp, xbn, bns, training)
+                    y, _ = node.layer.apply(params.get(name, {}),
+                                            bn_out + other,
+                                            states.get(name, {}), training)
+                acts[name] = y
+                continue
+            ins = [acts[i] for i in node.inputs]
+            if node.kind == "vertex":
+                acts[name] = node.vertex.apply(*ins)
+                continue
+            x = ins[0]
+            if 0 in node.preprocessors:
+                x = node.preprocessors[0](x)
+            if plan is not None and name in plan["bn"]:
+                # head of a fused chain: stash the raw input for the relu
+                pending_bn[name] = (x, params.get(name, {}),
+                                    states.get(name, {}), node.layer)
+                continue
+            y, _ = node.layer.apply(params.get(name, {}), x,
+                                    states.get(name, {}), training)
+            acts[name] = y
+        return acts
+
+    def output(self, *inputs, training: bool = False) -> List[torch.Tensor]:
+        """Inference: one tensor per network output, on the graph's device."""
+        self._check_init()
+        feed = self._bind_inputs(inputs)
+        with torch.inference_mode():
+            acts = self._forward(self._params, self._states, feed, training)
+        return [acts[o] for o in self.conf.network_outputs]
+
+    def _to_device(self, v) -> torch.Tensor:
+        if isinstance(v, torch.Tensor):
+            return v.to(self.device)
+        return tensor_from_numpy(np.asarray(v), self.device)
+
+    def _bind_inputs(self, inputs) -> Dict[str, torch.Tensor]:
+        names = self.conf.network_inputs
+        if len(inputs) == 1 and isinstance(inputs[0], dict):
+            return {k: self._to_device(v) for k, v in inputs[0].items()}
+        if len(inputs) != len(names):
+            raise ValueError(f"expected {len(names)} inputs {names}, got "
+                             f"{len(inputs)}")
+        return {n: self._to_device(v) for n, v in zip(names, inputs)}
+
+    def _check_init(self):
+        if not self._initialized:
+            raise ValueError("call init() first")

@@ -1,0 +1,45 @@
+"""Weight initialization from an explicit ``torch.Generator``.
+
+Counterpart of ``deeplearning4j_tpu/nn/weights.py``: the schemes ResNet-50
+uses, with the same fan conventions (dense W=[nIn,nOut]; conv
+W=[out,in,kH,kW]). The draws come from the generator the caller passes, so a
+seed fixes the weights; they are not the JAX package's threefry numbers
+(tests carry weights across instead).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+
+def _fans(shape: Sequence[int]) -> Tuple[float, float]:
+    shape = tuple(shape)
+    if len(shape) == 2:                      # dense [nIn, nOut]
+        return float(shape[0]), float(shape[1])
+    if len(shape) == 4:                      # conv OIHW [out, in, kh, kw]
+        rf = shape[2] * shape[3]
+        return float(shape[1] * rf), float(shape[0] * rf)
+    raise ValueError(f"no fan convention for shape {shape}")
+
+
+def init_weights(gen: torch.Generator, shape: Sequence[int],
+                 scheme: str = "xavier", dtype=torch.float32,
+                 gain: float = 1.0, device=None) -> torch.Tensor:
+    """Draw a weight tensor from ``gen`` (a CPU generator, so one seed gives
+    the same weights on every device), then move it to ``device``. Schemes:
+    ``xavier`` (normal, std sqrt(2/(fan_in+fan_out))) and ``relu`` (He
+    normal, std sqrt(2/fan_in)); the others arrive with the models that
+    use them."""
+    scheme = scheme.lower()
+    fan_in, fan_out = _fans(shape)
+    if scheme == "xavier":
+        std = gain * np.sqrt(2.0 / (fan_in + fan_out))
+    elif scheme in ("relu", "he", "he_normal"):
+        std = gain * np.sqrt(2.0 / fan_in)
+    else:
+        raise ValueError(f"weight init {scheme!r} is not ported yet")
+    w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32) * std
+    return w.to(device=device, dtype=dtype)

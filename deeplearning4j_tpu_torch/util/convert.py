@@ -1,0 +1,64 @@
+"""Weight carry-over from the JAX package.
+
+``graph_state_from_numpy`` installs the JAX graph's parameters and state,
+given as nested dicts of numpy arrays (``{node: {"W", "b", "gamma",
+"beta"}}`` and ``{node: {"mean", "var"}}``, e.g. ``jax.device_get`` of the
+JAX graph's ``_params`` and ``_states``), into a port graph. The layouts
+agree (conv W OIHW, dense W ``[nIn, nOut]``), so this is a checked copy:
+node names, entry names, shapes and dtypes must match the port graph's own,
+or it raises. Nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from ..common.dtypes import tensor_from_numpy
+
+NumpyTree = Mapping[str, Mapping[str, np.ndarray]]
+
+
+def _checked_copy(kind: str, src: NumpyTree,
+                  dst: Dict[str, Dict[str, torch.Tensor]],
+                  device) -> Dict[str, Dict[str, torch.Tensor]]:
+    src_nodes = {n for n, d in src.items() if len(d)}
+    dst_nodes = {n for n, d in dst.items() if len(d)}
+    if src_nodes != dst_nodes:
+        raise ValueError(
+            f"{kind}: node names differ; only in source "
+            f"{sorted(src_nodes - dst_nodes)}, only in graph "
+            f"{sorted(dst_nodes - src_nodes)}")
+    out: Dict[str, Dict[str, torch.Tensor]] = {n: {} for n in dst}
+    for node in sorted(dst_nodes):
+        s, d = src[node], dst[node]
+        if set(s) != set(d):
+            raise ValueError(f"{kind}[{node!r}]: entries {sorted(s)} != "
+                             f"{sorted(d)}")
+        for key, ref in d.items():
+            a = np.asarray(s[key])
+            t = tensor_from_numpy(a)
+            if tuple(t.shape) != tuple(ref.shape):
+                raise ValueError(f"{kind}[{node!r}][{key!r}]: shape "
+                                 f"{tuple(t.shape)} != {tuple(ref.shape)}")
+            if t.dtype != ref.dtype:
+                raise ValueError(f"{kind}[{node!r}][{key!r}]: dtype "
+                                 f"{t.dtype} != {ref.dtype}")
+            out[node][key] = t.to(device).clone()
+    return out
+
+
+def graph_state_from_numpy(graph, params: NumpyTree, states: NumpyTree,
+                           device=None):
+    """Install ``params``/``states`` into the initialized port ``graph``
+    (on ``device``, default the graph's own) and return the graph."""
+    graph._check_init()
+    device = graph.device if device is None else torch.device(device)
+    new_params = _checked_copy("params", params, graph._params, device)
+    new_states = _checked_copy("states", states, graph._states, device)
+    graph._params, graph._states = new_params, new_states
+    graph.device = device
+    graph._cast_cache = None
+    return graph

@@ -1,0 +1,168 @@
+"""Shared helpers for the port's parity tests (tests/test_torch_*.py).
+
+Both packages are built from one description: ``modules("jax")`` and
+``modules("torch")`` name the same modules in ``deeplearning4j_tpu`` and
+``deeplearning4j_tpu_torch``. Inputs and state are made with numpy from a
+seed and carried across as numpy arrays.
+"""
+
+from __future__ import annotations
+
+import importlib
+from types import SimpleNamespace
+
+import numpy as np
+
+PACKAGES = {"jax": "deeplearning4j_tpu", "torch": "deeplearning4j_tpu_torch"}
+
+
+def modules(which: str) -> SimpleNamespace:
+    root = PACKAGES[which]
+    imp = lambda m: importlib.import_module(f"{root}.{m}")  # noqa: E731
+    return SimpleNamespace(
+        L=imp("nn.conf.layers"),
+        NeuralNetConfiguration=imp("nn.conf.builder").NeuralNetConfiguration,
+        InputType=imp("nn.conf.inputs").InputType,
+        graph=imp("nn.graph"),
+        Sgd=imp("learning.updaters").Sgd,
+        zoo=imp("models.zoo"))
+
+
+def residual_conf(which: str, fused: bool, channels: int = 128, seed: int = 3):
+    """The residual graph of tests/test_precision.py::residual_graph."""
+    m = modules(which)
+    b = m.NeuralNetConfiguration.builder().seed(seed).updater(m.Sgd(0.01))
+    if fused:
+        b = b.fused_epilogue()
+    gb = m.graph.ComputationGraphConfiguration.graph_builder(b) \
+        .add_inputs("in")
+    gb.add_layer("c1", m.L.ConvolutionLayer(
+        n_out=channels, kernel_size=(3, 3), padding=(1, 1), has_bias=False,
+        activation="identity"), "in")
+    gb.add_layer("bn3", m.L.BatchNormalization(activation="identity"), "c1")
+    gb.add_layer("sc", m.L.ConvolutionLayer(
+        n_out=channels, kernel_size=(1, 1), has_bias=False,
+        activation="identity"), "in")
+    gb.add_layer("scbn", m.L.BatchNormalization(activation="identity"), "sc")
+    gb.add_vertex("add", m.graph.ElementWiseVertex(op="add"), "bn3", "scbn")
+    gb.add_layer("relu", m.L.ActivationLayer(activation="relu"), "add")
+    gb.add_layer("out", m.L.OutputLayer(n_out=5, activation="softmax",
+                                        loss="mcxent"), "relu")
+    gb.set_outputs("out")
+    gb.set_input_types(m.InputType.convolutional(8, 8, 4))
+    return gb.build()
+
+
+def self_add_conf(which: str):
+    """relu(bn(x) + bn(x)) (tests/test_precision.py:691-713)."""
+    m = modules(which)
+    b = m.NeuralNetConfiguration.builder().seed(3).updater(m.Sgd(0.01))
+    b = b.fused_epilogue()
+    gb = m.graph.ComputationGraphConfiguration.graph_builder(b) \
+        .add_inputs("in")
+    gb.add_layer("c1", m.L.ConvolutionLayer(
+        n_out=128, kernel_size=(1, 1), has_bias=False,
+        activation="identity"), "in")
+    gb.add_layer("bn3", m.L.BatchNormalization(activation="identity"), "c1")
+    gb.add_vertex("add", m.graph.ElementWiseVertex(op="add"), "bn3", "bn3")
+    gb.add_layer("relu", m.L.ActivationLayer(activation="relu"), "add")
+    gb.add_layer("out", m.L.OutputLayer(n_out=5, activation="softmax",
+                                        loss="mcxent"), "relu")
+    gb.set_outputs("out")
+    gb.set_input_types(m.InputType.convolutional(4, 4, 3))
+    return gb.build()
+
+
+def enable_fused(graph, which: str) -> None:
+    """Post-build enablement as tests/test_precision.py:735-740 does it:
+    the global knob AND the cascade onto the BN layers."""
+    L = modules(which).L
+    graph.conf.global_conf.fused_epilogue = True
+    for name in graph.conf.order:
+        node = graph.conf.nodes[name]
+        if node.kind == "layer" and isinstance(node.layer,
+                                               L.BatchNormalization):
+            node.layer.fused_epilogue = True
+
+
+def numpy_tree(tree):
+    return {n: {k: np.asarray(v) for k, v in d.items()}
+            for n, d in tree.items()}
+
+
+def randomize_bn(params, states, seed: int = 7, stats=None):
+    """Seeded BN state and affine params (numpy trees, modified in place):
+    gamma ~ N(1, 0.1), beta ~ N(0, 0.1); without ``stats``, mean ~ N(0, 0.1)
+    and var ~ U(0.5, 2). With ``stats`` (per-node mean/var calibrated on a
+    batch, with these gamma/beta in place), the draws perturb them gently
+    instead, mean += N(0, 0.05)·std and var *= U(0.8, 1.25), so the
+    activations of a deep net stay of order one."""
+    rng = np.random.default_rng(seed)
+    for name in sorted(states):
+        st = states[name]
+        if "mean" not in st:
+            continue
+        c = st["mean"].shape[0]
+        p = params[name]
+        if "gamma" in p and stats is None:
+            p["gamma"] = rng.normal(1.0, 0.1, c).astype(np.float32)
+            p["beta"] = rng.normal(0.0, 0.1, c).astype(np.float32)
+        if stats is None:
+            st["mean"] = rng.normal(0.0, 0.1, c).astype(np.float32)
+            st["var"] = rng.uniform(0.5, 2.0, c).astype(np.float32)
+        else:
+            mean0, var0 = stats[name]["mean"], stats[name]["var"]
+            st["mean"] = (mean0 + rng.normal(0.0, 0.05, c)
+                          * np.sqrt(var0)).astype(np.float32)
+            st["var"] = (var0 * rng.uniform(0.8, 1.25, c)).astype(np.float32)
+
+
+def install_jax(graph, params, states) -> None:
+    import jax.numpy as jnp
+
+    graph._params = {n: {k: jnp.asarray(v) for k, v in d.items()}
+                     for n, d in params.items()}
+    graph._states = {n: {k: jnp.asarray(v) for k, v in d.items()}
+                     for n, d in states.items()}
+    graph._infer_fn = None
+
+
+def twin_graphs(jax_conf, torch_conf, seed: int = 7, calibrate_x=None,
+                head_scale: float = 1.0):
+    """The JAX graph and its port twin with identical (carried) weights and
+    seeded BN state. With ``calibrate_x`` the BN statistics are then set
+    from that batch (the port's calibrate_batchnorm) and perturbed.
+    ``head_scale`` multiplies the output layer's W: a deep net with random
+    weights amplifies float32 rounding about a thousandfold by its logits
+    (measured on ResNet-50 at 32x32: 5e-5 of the logit scale between two
+    correct implementations), and a smaller head keeps the softmax off
+    saturation and that noise inside the probabilities' tolerance."""
+    from deeplearning4j_tpu.nn.graph import ComputationGraph as JGraph
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph as TGraph
+    from deeplearning4j_tpu_torch.util.calibrate import calibrate_batchnorm
+    from deeplearning4j_tpu_torch.util.convert import graph_state_from_numpy
+
+    jg = JGraph(jax_conf).init()
+    tg = TGraph(torch_conf).init(device="cpu")
+    params, states = numpy_tree(jg._params), numpy_tree(jg._states)
+    if head_scale != 1.0:
+        head = jax_conf.network_outputs[0]
+        params[head]["W"] = (params[head]["W"] * head_scale).astype(
+            params[head]["W"].dtype)
+    graph_state_from_numpy(tg, params, states)
+    randomize_bn(params, states, seed)
+    graph_state_from_numpy(tg, params, states)
+    if calibrate_x is not None:
+        stats = numpy_tree({n: {k: v.numpy() for k, v in d.items()}
+                            for n, d in calibrate_batchnorm(
+                                tg, calibrate_x).items()})
+        randomize_bn(params, states, seed + 1, stats)
+        graph_state_from_numpy(tg, params, states)
+    install_jax(jg, params, states)
+    return jg, tg
+
+
+def f32_ulp_bound(ref: np.ndarray) -> float:
+    """2 float32 ulp of the output scale (FMA contraction allowance; the
+    bound tests/test_precision.py::test_cross_mode_ulp_bound uses)."""
+    return 2.0 ** -22 * (float(np.max(np.abs(ref))) + 1.0)
