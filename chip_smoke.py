@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/H100 port's main path on one NVIDIA card.
+"""Drive the PyTorch/H100 port's main paths on one NVIDIA card.
 
     python3 chip_smoke.py          # from the repository root; needs one card
 
@@ -8,31 +8,53 @@ Phases (each fails the run with a nonzero exit if it fails):
 1. device   -- nvidia-smi's name and power limit, torch's device name, the
                TF32 flags as set by the port's Environment.
 2. build    -- compile every hand-written kernel from csrc/ with nvcc
-               (sm_90a), all sources at once; print the build time.
+               (sm_90a), all sources at once; print the build time and
+               ``-Xptxas -v`` (registers, spills) of each.
 3. kernels  -- each kernel's wrapper against its plain PyTorch version on
-               the card, at every shape the main path gives it (ResNet-50,
-               batch 32) plus ragged shapes, float32 and bfloat16; then the
-               kernel, the plain version and the unfused PyTorch path timed
-               with CUDA events beside the bandwidth bound.
+               the card: bn_act at every shape the serving path gives it
+               (ResNet-50, batch 32) plus ragged shapes, float32 and
+               bfloat16; fused_update for sgd, nesterovs, adam and adamw,
+               float32 state and bfloat16 state with identical random bits
+               (bfloat16 moments must match bitwise), at the main path's
+               bucket (25,557,032 elements), ragged sizes
+               (1, 5, 4097) and views that start 1 element into a buffer
+               (the head path and the scalar variant). Then each kernel, its
+               plain version, the unfused PyTorch path and, where one PyTorch
+               call computes the same function, that call, timed with CUDA
+               events and a cold L2, beside the bandwidth bound.
 4. serving  -- full-size ResNet-50 (224x224x3, 1000 classes, bf16 compute,
                fused epilogue) behind ParallelInference (batched, batch limit
                32, 2 workers): 64 single-image requests from 8 client
                threads, measured after one unmeasured round that warms the
-               pool's worker threads. Checks every answer and that the main path launched
-               the kernel 53 times per batch served, with no fallback.
+               pool's worker threads. Checks every answer and that the path
+               launched bn_act 53 times per batch served, with no fallback.
 5. parity   -- the same model in float32 with TF32 off, batch 8, fused
                epilogue on against off: rtol 1e-4, atol 1e-6.
+6. train    -- full-size ResNet-50 training as bench.py configures it
+               (bf16 compute, float32 master params, Nesterovs(0.1, 0.9),
+               l2 1e-4, fused_update, bf16 updater state with stochastic
+               rounding) through ComputationGraph.fit at batch 128 on a
+               seeded synthetic batch: 2 unmeasured steps, then 10 timed
+               ones. Gates: finite losses, one fused_update launch per step,
+               no fallback, gradients born flat, bf16 state of 51,114,064
+               bytes, parameters changed.
+7. train-parity -- batch 8, float32 compute, TF32 off, deterministic cuDNN,
+               float32 state: one fit step through the kernel against one
+               through the per-leaf apply_updater path from the same
+               parameters; parameters and momentum within 2 float32 ulp.
 
 Then it prints the kernels line (one JSON object) and, last, the device line
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
 beside it, it exits nonzero and prints no result. Weights are random, made
-from a seed; BN statistics are calibrated on a seeded batch and perturbed
-(see deeplearning4j_tpu_torch/util/calibrate.py for why).
+from a seed; for serving, BN statistics are calibrated on a seeded batch and
+perturbed (see deeplearning4j_tpu_torch/util/calibrate.py for why).
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -48,6 +70,11 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12            # H100 SXM float32 outside the tensor cores
 TIMED_RUNS = 30
 WARMUP_RUNS = 5
+TRAIN_BATCH = 128
+IMAGE = 224
+TRAIN_WARMUP = 2
+TRAIN_STEPS = 10
+RESNET50_PARAMS = 25_557_032        # elements of the one float32 bucket
 
 
 class PhaseError(RuntimeError):
@@ -95,9 +122,13 @@ def phase_build():
     for n in names:
         lib = cuda_lib.load(n)
         check(lib is not None, f"{n} did not load")
-        ptxas = [ln.strip() for ln in cuda_lib.BUILD_LOGS.get(n, "").splitlines()
-                 if "registers" in ln or "spill" in ln]
-        log(f"[build] {n}: {times[n]:.2f} s; " + " | ".join(ptxas[:4]))
+        text = cuda_lib.BUILD_LOGS.get(n, "")
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+        spills = sum(int(v) for v in re.findall(
+            r"(\d+) bytes spill (?:stores|loads)", text))
+        log(f"[build] {n}: {times[n]:.2f} s; -Xptxas -v: {len(regs)} "
+            f"kernels, registers {min(regs, default=0)}-"
+            f"{max(regs, default=0)} per thread, {spills} bytes spilled")
     log(f"[build] {len(names)} source(s) in {wall:.2f} s (parallel nvcc)")
     return names
 
@@ -251,6 +282,228 @@ def phase_kernels(smi: str, dev):
             f"{t['bytes']} B at 3.35 TB/s); median of {TIMED_RUNS} "
             f"(CUDA events, cold L2); {smi}")
     return errs, timing
+
+
+# --- phase 3, fused_update -------------------------------------------------------
+
+UPDATE_KINDS = ("sgd", "nesterovs", "adam", "adamw")
+
+
+def _updater(kind: str, state_dtype=None):
+    from deeplearning4j_tpu_torch.learning import updaters as U
+
+    u = {"sgd": lambda: U.Sgd(0.1),
+         "nesterovs": lambda: U.Nesterovs(0.1, momentum=0.9),
+         "adam": lambda: U.Adam(1e-3), "adamw": lambda: U.AdamW(1e-3)}[kind]()
+    u.state_dtype = state_dtype
+    return u
+
+
+def _update_case(kind, n, bf16, dev, gen, offset=(0, 0)):
+    """p, g, slots, bits on the card; ``offset`` = (elements into the
+    buffer for p, for every other tensor)."""
+    from deeplearning4j_tpu_torch.ops import update
+
+    def buf(dtype, fill):
+        t = torch.empty(n + 4, dtype=torch.float32, device=dev)
+        fill(t)
+        return t.to(dtype)
+
+    def view(t, which):
+        o = offset[0] if which == "p" else offset[1]
+        return t[o:o + n]
+
+    p = view(buf(torch.float32, lambda t: t.normal_(generator=gen)), "p")
+    g = view(buf(torch.float32,
+                 lambda t: t.normal_(generator=gen).mul_(0.01)), "g")
+    sdt = torch.bfloat16 if bf16 else torch.float32
+    slots = {}
+    for s in update.SLOTS[kind]:
+        if s == "v" and kind != "nesterovs":
+            fill = lambda t: t.normal_(generator=gen).abs_().mul_(1e-3)  # noqa: E731
+        else:
+            fill = lambda t: t.normal_(generator=gen).mul_(0.1)  # noqa: E731
+        slots[s] = view(buf(sdt, fill), s)
+    bits = None
+    if bf16 and update.SLOTS[kind]:
+        b = torch.randint(-2 ** 31, 2 ** 31, (n + 4,), dtype=torch.int32,
+                          generator=gen, device=dev)
+        bits = view(b, "bits")
+    return p, g, slots, bits
+
+
+def compare_fused_update(kind, n, bf16, dev, gen, offset=(0, 0)):
+    """The kernel (in place) against the plain version on copies of the
+    same inputs: parameters and float32 moments within 2 float32 ulp,
+    bfloat16 moments bitwise. Returns (max param err, max moment err,
+    bitwise)."""
+    from deeplearning4j_tpu_torch.ops import update
+
+    p, g, slots, bits = _update_case(kind, n, bf16, dev, gen, offset)
+    sr = torch.bfloat16 if bf16 else None
+    sc = update._scalars(_updater(kind, "bfloat16" if bf16 else None), kind,
+                         3)
+    want_p, want_s = update.fused_update_reference(kind, sc, p, g, slots,
+                                                   bits, sr)
+    update.fused_update_cuda(kind, sc, p, g, slots, bits, sr)
+    torch.cuda.synchronize()
+    bitwise = torch.equal(p, want_p) and all(
+        torch.equal(slots[k], want_s[k]) for k in slots)
+    perr = (p - want_p).abs().max().item() if n else 0.0
+    # the JAX package's contract between its modes: 2 float32 ulp of the
+    # magnitude for parameters
+    ptol = 2.0 ** -22 * (want_p.abs().max().item() + 1.0) if n else 0.0
+    check(perr <= ptol, f"fused_update {kind} n={n} bf16={bf16} "
+                        f"offset={offset}: param err {perr} > {ptol}")
+    serr = 0.0
+    for k in slots:
+        got, want = slots[k].float(), want_s[k].float()
+        d = (got - want).abs()
+        serr = max(serr, d.max().item() if n else 0.0)
+        if bf16:
+            # stochastic rounding picks one of two bf16 neighbours 1 ulp
+            # apart, so only equal bits check that the kernel read the
+            # right halfword of the right bits
+            ok = torch.equal(slots[k], want_s[k])
+            what = "bitwise equality"
+        else:
+            ok = d.max().item() <= 2.0 ** -22 * (want.abs().max().item()
+                                                 + 1.0)
+            what = "2 f32 ulp"
+        check(ok, f"fused_update {kind} n={n} bf16={bf16} offset={offset}:"
+                  f" moment {k} err {d.max().item()} beyond {what}")
+    return perr, serr, bitwise
+
+
+def resnet50_leaf_shapes():
+    """(node, name, shape) of the 161 parameter leaves of full-size
+    ResNet-50, read off the configuration."""
+    from deeplearning4j_tpu_torch.models import ResNet50
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+
+    conf = ResNet50(num_classes=1000, image_size=224).conf()
+    out = []
+    for name in sorted(conf.nodes):
+        node = conf.nodes[name]
+        if node.kind != "layer":
+            continue
+        layer = node.layer
+        if isinstance(layer, L.ConvolutionLayer):
+            kh, kw = layer.kernel_size
+            shapes = {"W": (layer.n_out, layer.n_in, kh, kw)}
+            if layer.has_bias:
+                shapes["b"] = (layer.n_out,)
+        elif isinstance(layer, L.BatchNormalization):
+            shapes = {"beta": (layer.n_in,), "gamma": (layer.n_in,)}
+        elif isinstance(layer, L.DenseLayer):
+            shapes = {"W": (layer.n_in, layer.n_out)}
+            if layer.has_bias:
+                shapes["b"] = (layer.n_out,)
+        else:
+            continue
+        out += [(name, k, s) for k, s in sorted(shapes.items())]
+    return out
+
+
+def time_fused_update(dev, gen, flush):
+    """At the main path's bucket: Nesterovs with bf16 state (the train
+    path) and Adam with float32 state, each kernel against its plain
+    version; the per-leaf apply_updater over the 161 leaves; drawing the
+    bits; and, for Adam, torch.optim.Adam(fused=True) on the same bucket
+    (a yardstick only: the port never calls it)."""
+    from deeplearning4j_tpu_torch.learning import precision
+    from deeplearning4j_tpu_torch.ops import update
+    from deeplearning4j_tpu_torch.parallel.sharding import Zero1Plan
+
+    n = RESNET50_PARAMS
+    rows = {}
+    for kind, bf16, per_elem in (("nesterovs", True, 20),
+                                 ("adam", False, 28)):
+        p, g, slots, bits = _update_case(kind, n, bf16, dev, gen)
+        sr = torch.bfloat16 if bf16 else None
+        upd = _updater(kind, "bfloat16" if bf16 else None)
+        sc = update._scalars(upd, kind, 3)
+        nbytes = per_elem * n
+        flops = {"nesterovs": 6, "adam": 14}[kind] * n
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / F32_FLOPS_PER_S * 1e3
+        row = {
+            "ms": _time_ms(lambda: update.fused_update_cuda(
+                kind, sc, p, g, slots, bits, sr), flush),
+            "plain_ms": _time_ms(lambda: update.fused_update_reference(
+                kind, sc, p, g, slots, bits, sr), flush),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "library_ms": None}
+        # the per-leaf path over ResNet-50's 161 leaves (views of the same
+        # buckets, as the graph holds them)
+        shapes = resnet50_leaf_shapes()
+        tree = {}
+        for node, name, shape in shapes:
+            tree.setdefault(node, {})[name] = torch.empty(shape,
+                                                          device="meta")
+        plan = Zero1Plan(tree, 1)
+        check(plan.buckets[0].total == n, f"ResNet-50 has "
+              f"{plan.buckets[0].total} parameters, not {n}")
+        pt, gt = plan.unflatten({"flat::float32": p}), \
+            plan.unflatten({"flat::float32": g})
+        st = {k: plan.unflatten({"flat::float32": v})
+              for k, v in slots.items()}
+        lgen = torch.Generator(device=dev)
+        lgen.manual_seed(SEED)
+        row["unfused_ms"] = _time_ms(lambda: precision.apply_updater(
+            upd, gt, st, pt, 3, lgen), flush)
+        if bf16:
+            row["bits_ms"] = _time_ms(lambda: precision.random_bits(
+                n, lgen, dev), flush)
+            row["bits_bound_ms"] = 4 * n / HBM_BYTES_PER_S * 1e3
+        else:
+            lib_p = p.clone()
+            lib_p.grad = g.clone()
+            opt = torch.optim.Adam([lib_p], lr=1e-3, betas=(0.9, 0.999),
+                                   eps=1e-8, fused=True)
+            row["library_ms"] = _time_ms(opt.step, flush)
+        rows[f"{kind}_{'bf16' if bf16 else 'f32'}"] = row
+        del p, g, slots, bits, pt, gt, st
+    return rows
+
+
+def phase_fused_update(smi: str, dev):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    perr = serr = 0.0
+    n_cases = n_bitwise = 0
+    sizes = [RESNET50_PARAMS, 1, 5, 4097]
+    for kind in UPDATE_KINDS:
+        for bf16 in (False, True):
+            cases = [(n, (0, 0)) for n in sizes]
+            # a view 1 element into its buffer: all tensors (head path)
+            # and p alone (the scalar variant)
+            cases += [(4097, (1, 1)), (4097, (1, 0))]
+            for n, off in cases:
+                pe, se, bw = compare_fused_update(kind, n, bf16, dev, gen,
+                                                  off)
+                perr, serr = max(perr, pe), max(serr, se)
+                n_cases += 1
+                n_bitwise += int(bw)
+    log(f"[kernels] fused_update vs plain: {n_cases} comparisons (4 kinds x "
+        f"f32/bf16 state x sizes {sizes} + 2 offset views) ok; "
+        f"{n_bitwise} of {n_cases} bitwise; max param err {perr}, max "
+        f"moment err {serr}")
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    timing = time_fused_update(dev, gen, flush)
+    for name, t in timing.items():
+        extra = (f"bits {t['bits_ms']:.4f} ms (bound {t['bits_bound_ms']:.4f})"
+                 if "bits_ms" in t else
+                 f"torch.optim.Adam(fused=True) {t['library_ms']:.4f} ms")
+        log(f"[kernels] fused_update {name} n={RESNET50_PARAMS}: kernel "
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, per-leaf "
+            f"apply_updater (161 leaves) {t['unfused_ms']:.4f} ms, {extra}, "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}, {t['bytes']} B "
+            f"at 3.35 TB/s); median of {TIMED_RUNS} (CUDA events, cold L2); "
+            f"{smi}")
+    return {"max_err_param": perr, "max_err_moment": serr,
+            "bitwise": n_bitwise, "cases": n_cases}, timing
 
 
 # --- phases 4 and 5 -----------------------------------------------------------
@@ -429,33 +682,188 @@ def phase_parity(model, dev):
         f"{fused.max().item():.4f}")
 
 
+# --- phases 6 and 7 -----------------------------------------------------------
+
+def train_model(dev, fused: bool, compute_dtype, state_dtype):
+    """Full-size ResNet-50 as bench.py trains it (models/zoo.py: Nesterovs
+    0.1/0.9, l2 1e-4), random weights from the seed."""
+    from deeplearning4j_tpu_torch.models import ResNet50
+
+    model = ResNet50(num_classes=1000, image_size=IMAGE, seed=SEED).init(
+        device=dev)
+    gc = model.conf.global_conf
+    gc.compute_dtype = compute_dtype
+    gc.fused_update = fused
+    gc.updater.state_dtype = state_dtype
+    return model
+
+
+def synthetic_batch(batch: int, dev, seed: int):
+    """bench.py's synthetic batch: inputs N(0, 1), one-hot labels, from the
+    seed, placed on the card once."""
+    from deeplearning4j_tpu_torch.data import DataSet
+
+    rng = np.random.RandomState(seed)
+    x = rng.randn(batch, 3, IMAGE, IMAGE).astype(np.float32)
+    y = np.eye(1000, dtype=np.float32)[rng.randint(0, 1000, batch)]
+    return DataSet(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+
+
+def phase_train(smi: str, dev):
+    from deeplearning4j_tpu_torch.common.profiler import OpProfiler
+    from deeplearning4j_tpu_torch.ops import epilogue, update
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = train_model(dev, True, "bfloat16", "bfloat16")
+    ds = synthetic_batch(TRAIN_BATCH, dev, SEED)
+    losses = []
+    for _ in range(TRAIN_WARMUP):
+        model.fit(ds)
+        torch.cuda.synchronize()
+        losses.append(model.score_value)
+    bucket = model._flat.params["flat::float32"]
+    before = bucket.clone()
+    prof = OpProfiler.get()
+    prof.reset()
+    update.reset_launches()
+    epilogue.reset_launches()
+    times = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        model.fit(ds)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(model.score_value)
+    launches = update.fused_update_launches
+    counters = prof.get_counters()
+    peak = torch.cuda.max_memory_allocated()
+    changed = not torch.equal(before, bucket)
+    check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
+    check(launches == TRAIN_STEPS, f"fused_update launched {launches} times "
+          f"in {TRAIN_STEPS} steps (want 1 per step: one float32 bucket)")
+    check(counters.get("precision/fused_buckets_kernel", 0) == TRAIN_STEPS,
+          f"kernel buckets {counters.get('precision/fused_buckets_kernel')}")
+    check(counters.get("precision/fused_fallbacks", 0) == 0,
+          f"fused fallbacks {counters.get('precision/fused_fallbacks')}")
+    check(counters.get("precision/grads_flat_in_step") == 1,
+          "gradients were not born flat")
+    state_bytes = counters.get("precision/updater_state_bytes_bfloat16", 0)
+    check(state_bytes == 2 * RESNET50_PARAMS
+          and counters.get("precision/updater_state_bytes_total") ==
+          state_bytes, f"updater state {state_bytes} B, want "
+          f"{2 * RESNET50_PARAMS} B of bfloat16")
+    check(changed, "parameters did not change")
+    ms = sorted(t * 1e3 for t in times)
+    pct = lambda q: ms[min(len(ms) - 1, int(round(q * (len(ms) - 1))))]  # noqa: E731
+    result = {"images_per_s": TRAIN_BATCH * TRAIN_STEPS / sum(times),
+              "step_ms_median": statistics.median(ms),
+              "step_ms_p10": pct(0.1), "step_ms_p90": pct(0.9),
+              "losses": losses, "peak_bytes": peak,
+              "state_bytes": state_bytes, "launches": launches,
+              "bn_act_launches": epilogue.bn_act_launches,
+              "counters": {k: v for k, v in sorted(counters.items())
+                           if k.startswith("precision/")}}
+    log(f"[train] ResNet-50 {IMAGE}x{IMAGE} 1000 classes, batch "
+        f"{TRAIN_BATCH}, bf16 "
+        f"compute, Nesterovs + l2, fused_update, bf16 state: "
+        f"{result['images_per_s']:.2f} images/s, step ms median "
+        f"{result['step_ms_median']:.2f} p10 {result['step_ms_p10']:.2f} "
+        f"p90 {result['step_ms_p90']:.2f} ({TRAIN_STEPS} steps after "
+        f"{TRAIN_WARMUP} warm-up); peak memory {peak} B; updater state "
+        f"{state_bytes} B; fused_update launches {launches}; {smi}")
+    log(f"[train] losses {losses}")
+    log(f"[train] counters {result['counters']}")
+    del model, ds, before
+    torch.cuda.empty_cache()
+    return result
+
+
+def _f32_ulp_of(v: torch.Tensor) -> torch.Tensor:
+    _, e = torch.frexp(v.abs())
+    return torch.ldexp(torch.ones_like(v), e - 24)
+
+
+def phase_train_parity(dev):
+    """One fit step through the kernel against one through the per-leaf
+    apply_updater path from the same parameters."""
+    from deeplearning4j_tpu_torch.common.environment import Environment
+    from deeplearning4j_tpu_torch.parallel.sharding import leaf_paths
+
+    Environment.get().set_tf32(False)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ds = synthetic_batch(8, dev, SEED + 4)
+        runs = []
+        for fused in (True, False):
+            m = train_model(dev, fused, None, None)
+            m.fit(ds)
+            torch.cuda.synchronize()
+            runs.append(m)
+        a, b = runs
+        worst = {"params": 0.0, "momentum": 0.0}
+        bitwise = True
+        for what, ta, tb in (("params", a._params, b._params),
+                             ("momentum", a._updater_state["v"],
+                              b._updater_state["v"])):
+            for n, k in leaf_paths(tb):
+                x, y = ta[n][k].detach(), tb[n][k].detach()
+                d = (x - y).abs()
+                bitwise = bitwise and torch.equal(x, y)
+                ulps = (d / _f32_ulp_of(torch.maximum(x.abs(), y.abs())
+                                        .clamp_min(2.0 ** -126))).max().item()
+                worst[what] = max(worst[what], ulps)
+        check(worst["params"] <= 2 and worst["momentum"] <= 2,
+              f"fused vs per-leaf step: {worst} f32 ulp (want <= 2)")
+        log(f"[train-parity] batch 8, float32, TF32 off, deterministic "
+            f"cuDNN, float32 state: fused kernel step vs per-leaf step: "
+            f"params within {worst['params']:.2f} ulp, momentum within "
+            f"{worst['momentum']:.2f} ulp (bound 2); bitwise {bitwise}; "
+            f"loss {a.score_value} vs {b.score_value}")
+        del runs, a, b
+        torch.cuda.empty_cache()
+        return {"worst_ulp": worst, "bitwise": bitwise}
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+
 # --- main -----------------------------------------------------------------------
 
-def main() -> int:
+def main(argv=None) -> int:
+    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
+        argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available; the port's main path "
               "runs on the card", file=sys.stderr)
         return 2
     try:
         import deeplearning4j_tpu_torch  # noqa: F401
-        from deeplearning4j_tpu_torch.ops import epilogue
+        from deeplearning4j_tpu_torch.ops import epilogue, update
     except ImportError as e:
         print(f"chip_smoke: the port's package is not beside this script "
               f"({e})", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+    kernels = []
     try:
         smi, name = phase_device()
         phase_build()
         errs, timing = phase_kernels(smi, dev)
+        upd_errs, upd_timing = phase_fused_update(smi, dev)
         model = build_model(dev)
         launches, batches = phase_serving(model, smi, dev)
         phase_parity(model, dev)
+        del model
+        torch.cuda.empty_cache()
+        train = phase_train(smi, dev)
+        tparity = phase_train_parity(dev)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
     bf, f32 = timing[torch.bfloat16], timing[torch.float32]
-    kernels = {"kernels": [{
+    kernels.append({
         "name": "bn_act", "route": "cuda", "source": epilogue.SOURCE,
         "replaces": epilogue.REPLACES, "launches": launches,
         "max_abs_err": max(errs.values()),
@@ -467,8 +875,29 @@ def main() -> int:
         "library_ms": None, "unfused_ms": bf["unfused_ms"],
         "f32": {k: f32[k] for k in ("ms", "plain_ms", "unfused_ms",
                                     "bound_ms")},
-        "batches": batches}]}
-    print(json.dumps(kernels), flush=True)
+        "batches": batches})
+    nb, ad = upd_timing["nesterovs_bf16"], upd_timing["adam_f32"]
+    kernels.append({
+        "name": "fused_update", "route": "cuda", "source": update.SOURCE,
+        "replaces": update.REPLACES, "launches": train["launches"],
+        "max_abs_err": max(upd_errs["max_err_param"],
+                           upd_errs["max_err_moment"]),
+        "max_err_param": upd_errs["max_err_param"],
+        "max_err_moment": upd_errs["max_err_moment"],
+        "bitwise_cases": f"{upd_errs['bitwise']}/{upd_errs['cases']}",
+        "shape": [RESNET50_PARAMS], "kind": "nesterovs",
+        "state_dtype": "bfloat16",
+        "ms": nb["ms"], "plain_ms": nb["plain_ms"],
+        "bound_ms": nb["bound_ms"], "bound_by": nb["bound_by"],
+        "library_ms": None, "unfused_ms": nb["unfused_ms"],
+        "bits_ms": nb["bits_ms"],
+        "adam_f32": {k: ad[k] for k in ("ms", "plain_ms", "unfused_ms",
+                                        "bound_ms", "library_ms")}})
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"train": {k: v for k, v in train.items()
+                                if k != "counters"},
+                      "train_parity": tparity}), flush=True)
+    log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

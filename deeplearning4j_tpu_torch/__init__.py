@@ -17,14 +17,18 @@ Entry points run on the card unless the caller asks for the CPU
 
 Layer map (ported so far; see ROADMAP.md for what follows):
   common/    environment (device + TF32 policy), dtype table, counters
-  ops/       conv2d, pooling, inference batchnorm, the fused BN epilogue
-  csrc/      hand-written CUDA kernels
-  nn/        activations, weight init, losses (as configuration),
-             layer configs, ComputationGraph (inference)
-  learning/  updater configurations
+  ops/       conv2d, pooling, inference and training batchnorm, the fused
+             BN epilogue, the fused flat-bucket weight update
+  csrc/      hand-written CUDA kernels (bn_act, fused_update)
+  nn/        activations, weight init, losses, layer configs,
+             ComputationGraph (inference and fit)
+  learning/  updaters (Sgd, Nesterovs, Adam, AdamW), mixed precision
+             (bf16 updater state with stochastic rounding)
+  data/      DataSet
   models/    ResNet-50
-  parallel/  ParallelInference (the request micro-batcher)
-  util/      weight carry-over from the JAX package's numpy state
+  parallel/  ParallelInference (the request micro-batcher), the flat
+             bucket layout (Zero1Plan)
+  util/      weight and updater-state carry-over from the JAX package
 """
 
 from .common.dtypes import DataType

@@ -48,6 +48,18 @@ def torch_dtype(name) -> torch.dtype:
                         f"{sorted(_TORCH)}") from None
 
 
+_NAMES = {v: k for k, v in _TORCH.items()}
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """The canonical name of a torch dtype ("float32", "bfloat16", ...):
+    numpy's spelling, which the flat bucket keys (``flat::<name>``) use."""
+    try:
+        return _NAMES[dtype]
+    except KeyError:
+        raise TypeError(f"no canonical name for {dtype}") from None
+
+
 def tensor_from_numpy(a: np.ndarray, device=None) -> torch.Tensor:
     """numpy → torch, including ``ml_dtypes.bfloat16`` arrays (which torch
     cannot read directly: they are reinterpreted through uint16)."""

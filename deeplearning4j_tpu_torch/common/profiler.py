@@ -1,8 +1,21 @@
-"""Thread-safe event counters.
+"""Thread-safe event counters and gauges.
 
 The counter part of ``deeplearning4j_tpu/common/profiler.py``'s
-``OpProfiler``, with the same counter names (``precision/epilogue_hits``,
-``precision/epilogue_fallbacks``, ``precision/epilogue_residual_hits``).
+``OpProfiler``, with the same names:
+
+- the fused inference epilogue: ``precision/epilogue_hits``,
+  ``precision/epilogue_fallbacks``, ``precision/epilogue_residual_hits``;
+- the fused weight update: ``precision/fused_hits`` (buckets updated by
+  ``ops/update.fused_apply``), ``precision/fused_buckets_kernel`` (of those,
+  by the CUDA kernel; the JAX package's ``fused_buckets_pallas``),
+  ``precision/fused_buckets_plain`` (by the plain version: CPU tensors or a
+  non-float32 bucket), ``precision/fused_fallbacks`` (an updater without a
+  kernel, or not elementwise), ``precision/sr_draws`` (random 32-bit draws
+  for stochastic rounding);
+- gauges (levels, set not added): ``precision/grads_flat_in_step`` (1 when
+  the step's gradients were born in the flat buckets) and
+  ``precision/updater_state_bytes_<dtype>`` / ``..._total``.
+
 The port runs eagerly, so a counter counts calls, where the JAX package,
 counting at trace time, counts traces.
 """
@@ -31,6 +44,10 @@ class OpProfiler:
     def count(self, name: str, n: int = 1) -> None:
         with self._counter_lock:
             self._counters[name] = self._counters.get(name, 0) + n
+
+    def gauge(self, name: str, value: int) -> None:
+        with self._counter_lock:
+            self._counters[name] = value
 
     def counter_value(self, name: str) -> int:
         with self._counter_lock:

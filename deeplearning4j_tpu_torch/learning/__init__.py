@@ -1,1 +1,1 @@
-from .updaters import Adam, Nesterovs, Sgd
+from .updaters import Adam, AdamW, Nesterovs, Sgd

@@ -35,6 +35,23 @@ class GlobalConf:
     # reassociates the dense ops); gated per call with a dense fallback,
     # counted under precision/epilogue_*.
     fused_epilogue: bool = False
+    # Fused weight update (ops/update): parameters, gradients and updater
+    # state live in Zero1Plan per-dtype flat buckets and the updater runs
+    # as one kernel launch per float32 bucket instead of per leaf. Needs an
+    # elementwise updater (falls back to the per-leaf path, counted under
+    # precision/fused_fallbacks, otherwise). Composes with
+    # updater.state_dtype (bf16 moments, stochastic rounding).
+    fused_update: bool = False
+    # The JAX package's switch between gradients born flat and a dense
+    # gradient tree flattened before the update (the two give the same
+    # bits). Kept for configuration parity; the port does not read it: with
+    # fused_update on, each parameter's .grad is always a view of one flat
+    # gradient bucket, so autograd accumulates straight into the layout the
+    # kernel reads.
+    flat_backward: bool = True
+    # The JAX package's gradient normalization/clipping mode, kept for
+    # configuration parity; not ported yet, and the port does not read it.
+    grad_normalization: Optional[str] = None
 
 
 class NeuralNetConfiguration:
@@ -81,6 +98,13 @@ class Builder:
 
     def compute_dtype(self, dtype: str) -> "Builder":
         self._conf.compute_dtype = dtype
+        return self
+
+    def fused_update(self, v: bool = True) -> "Builder":
+        """Apply the updater over flat per-dtype buckets, one fused kernel
+        launch per float32 bucket (ops/update); see
+        GlobalConf.fused_update."""
+        self._conf.fused_update = bool(v)
         return self
 
     def fused_epilogue(self, v: bool = True) -> "Builder":

@@ -1,15 +1,17 @@
-"""Layer configurations + their inference runtime.
+"""Layer configurations + their runtime.
 
 Counterpart of the core classes of ``deeplearning4j_tpu/nn/conf/layers.py``:
-each dataclass carries its configuration fields plus ``init_params`` and an
-inference ``apply(params, x, state, training) -> (y, state)`` on tensors.
+each dataclass carries its configuration fields plus ``init_params`` and
+``apply(params, x, state, training) -> (y, new_state)`` on tensors.
 Parameter layouts are the JAX package's, so parameters carry across by name
 and shape: dense W=[nIn,nOut] applied as ``x @ W``, conv W=[out,in,kH,kW]
 (OIHW), bias=[nOut]; BatchNormalization keeps ``gamma``/``beta`` as
 parameters and ``mean``/``var`` (float32) as state.
 
-Training-mode forward (batch statistics, dropout) arrives with the training
-slice; ``apply(..., training=True)`` raises where it would differ.
+Training mode: BatchNormalization normalizes with batch statistics
+(``ops/nn.batchnorm_train``) and returns the updated running statistics;
+the other layers compute as in inference, with autograd taking the
+backward. Training-mode dropout is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -208,12 +210,20 @@ class BatchNormalization(Layer):
                                   device=device)}
 
     def apply(self, params, x, state, training=False):
-        if training:
-            raise NotImplementedError(
-                "training-mode BatchNormalization (batch statistics) is not "
-                "ported yet")
         gamma, beta = params.get("gamma"), params.get("beta")
         axis = 1 if x.ndim == 4 else -1
+        if training:
+            # batch statistics with the hand backward; never fused. The
+            # running statistics stay float32: (1 - decay) is a Python
+            # float, rounded once
+            out, mean, var = ops.batchnorm_train(
+                x, gamma, beta, epsilon=self.eps, axis=axis,
+                pivot=state["mean"])
+            new_state = {
+                "mean": self.decay * state["mean"] + (1 - self.decay) * mean,
+                "var": self.decay * state["var"] + (1 - self.decay) * var}
+            return activation_fn(self.activation or "identity")(out), \
+                new_state
         mean, var = state["mean"], state["var"]
         if self.fused_epilogue:
             fused = _epilogue.bn_act(x, mean, var, gamma, beta,

@@ -1,30 +1,43 @@
-"""ComputationGraph — named-vertex DAG models (ResNet-50 et al), inference.
+"""ComputationGraph — named-vertex DAG models (ResNet-50 et al).
 
 Counterpart of ``deeplearning4j_tpu/nn/graph.py``: the same configuration
 objects (``GraphBuilder``, ``ComputationGraphConfiguration`` with
 ``set_input_types``), the same node names and parameter layouts, and the
-same inference walk, including the fused-epilogue plan that collapses the
-resnet block tail ``BN(identity) → add → relu`` into one kernel launch, with
-its dense replay when the gate refuses. PyTorch runs the walk eagerly, node
-by node; there is no trace to cache.
+same walk. Inference collapses the resnet block tail ``BN(identity) → add →
+relu`` into one kernel launch (the fused-epilogue plan, with its dense
+replay when the gate refuses). PyTorch runs the walk eagerly, node by node;
+there is no trace to cache.
+
+Training (``fit``) takes one step per ``DataSet``: the forward with batch
+statistics (no fusion plan), the loss head in float32 under
+``compute_dtype``, l1/l2 regularisation (not on ``b``/``beta``), backward
+through autograd, then the updater. With ``GlobalConf.fused_update`` the
+parameters live in flat per-dtype buckets (``nn/_fused.FlatStore``), the
+gradients are born in a flat bucket, and the update is one launch of the
+``csrc/fused_update.cu`` kernel per float32 bucket; otherwise the per-leaf
+``learning.precision.apply_updater`` runs. Random bits for stochastic
+rounding come from the graph's own ``torch.Generator``.
 
 ``ComputationGraph.init`` places parameters on the card unless the caller
 asks for another device (``device="cpu"``). ``output`` returns a list of
-tensors, one per network output. Training (``fit``, scores) arrives with the
-training slice.
+tensors, one per network output.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from ..common.dtypes import tensor_from_numpy, torch_dtype
 from ..common.environment import resolve_device
+from ..data.dataset import DataSet
+from ..learning.precision import apply_updater, note_state_bytes
 from ..ops.epilogue import bn_act
+from ..parallel.sharding import leaf_paths
+from ._fused import FlatStore, apply_fused_flat, fused_flat_plan
 from .conf import layers as L
 from .conf.builder import GlobalConf, apply_layer_defaults
 from .conf.inputs import CNNInput, FFInput, InputType, cnn_to_ff
@@ -226,6 +239,18 @@ class ComputationGraph:
         self._initialized = False
         self.device: Optional[torch.device] = None
         self._cast_cache = None
+        self._updater_state = None
+        self._iteration = 0
+        self._epoch = 0
+        self._score: Optional[torch.Tensor] = None
+        self._flat: Optional[FlatStore] = None
+        self._generator: Optional[torch.Generator] = None
+
+    @property
+    def score_value(self) -> float:
+        """The loss of the last training step (nan before the first)."""
+        return float(self._score) if self._score is not None \
+            else float("nan")
 
     def init(self, seed: Optional[int] = None,
              device=None) -> "ComputationGraph":
@@ -336,17 +361,27 @@ class ComputationGraph:
         return cast
 
     def _forward(self, params, states, inputs: Dict[str, torch.Tensor],
-                 training: bool = False):
-        if training:
-            raise NotImplementedError("training forward is not ported yet")
+                 training: bool = False, to_preout: bool = False):
+        """The walk: ``(acts, new_states)``. ``training``: batch statistics
+        and no fusion plan, and the compute-dtype cast happens here, inside
+        autograd (the inference cast cache holds inference tensors, which
+        autograd cannot save). ``to_preout``: output layers give their
+        pre-activation, in float32 under ``compute_dtype``."""
         cd = self.conf.global_conf.compute_dtype
         if cd:
             ct = torch_dtype(cd)
-            params = self._compute_params(params)
+            if training:
+                params = {n: {k: (t.to(ct) if t.is_floating_point() else t)
+                              for k, t in p.items()}
+                          for n, p in params.items()}
+            else:
+                params = self._compute_params(params)
             inputs = {k: (v.to(ct) if v.is_floating_point() else v)
                       for k, v in inputs.items()}
         acts: Dict[str, torch.Tensor] = {}
-        plan = self._epilogue_fusion_plan()
+        new_states = dict(states)
+        out_set = set(self.conf.network_outputs)
+        plan = None if training else self._epilogue_fusion_plan()
         pending_bn: Dict[str, Any] = {}
         pending_add: Dict[str, Any] = {}
         for name in self.conf.order:
@@ -388,17 +423,31 @@ class ComputationGraph:
                 pending_bn[name] = (x, params.get(name, {}),
                                     states.get(name, {}), node.layer)
                 continue
-            y, _ = node.layer.apply(params.get(name, {}), x,
-                                    states.get(name, {}), training)
+            if to_preout and name in out_set \
+                    and isinstance(node.layer, L.OutputLayer):
+                head_params = params.get(name, {})
+                if cd:
+                    # the head matmul and the loss in float32 (from the
+                    # compute-dtype copies, as the JAX package does)
+                    head_params = {k: t.to(torch.float32)
+                                   for k, t in head_params.items()}
+                    x = x.to(torch.float32)
+                acts[name] = node.layer.pre_output(head_params, x)
+                continue
+            y, st = node.layer.apply(params.get(name, {}), x,
+                                     states.get(name, {}), training)
             acts[name] = y
-        return acts
+            if st:
+                new_states[name] = st
+        return acts, new_states
 
     def output(self, *inputs, training: bool = False) -> List[torch.Tensor]:
         """Inference: one tensor per network output, on the graph's device."""
         self._check_init()
         feed = self._bind_inputs(inputs)
         with torch.inference_mode():
-            acts = self._forward(self._params, self._states, feed, training)
+            acts, _ = self._forward(self._params, self._states, feed,
+                                    training)
         return [acts[o] for o in self.conf.network_outputs]
 
     def _to_device(self, v) -> torch.Tensor:
@@ -418,3 +467,149 @@ class ComputationGraph:
     def _check_init(self):
         if not self._initialized:
             raise ValueError("call init() first")
+
+    # --- loss --------------------------------------------------------------
+    def _output_names(self) -> List[str]:
+        return [o for o in self.conf.network_outputs
+                if isinstance(self.conf.nodes[o].layer, L.OutputLayer)]
+
+    def _bind_dataset(self, ds: DataSet):
+        if not isinstance(ds, DataSet):
+            raise TypeError(f"expected a DataSet, got {type(ds).__name__}")
+        out = self._output_names()
+        inputs = {self.conf.network_inputs[0]: self._to_device(ds.features)}
+        labels = {out[0]: self._to_device(ds.labels)}
+        masks = {}
+        if ds.labels_mask is not None:
+            masks = {out[0]: self._to_device(ds.labels_mask)}
+        return inputs, labels, masks
+
+    def _loss(self, params, states, inputs, labels, masks,
+              training: bool):
+        """Mean loss over the outputs plus l1/l2 regularisation (leaving
+        out ``b`` and ``beta``), and the new layer states."""
+        acts, new_states = self._forward(params, states, inputs, training,
+                                         to_preout=True)
+        total = 0.0
+        for out_name in self._output_names():
+            layer = self.conf.nodes[out_name].layer
+            pre = acts[out_name]
+            # under reduced-precision compute the loss reduces in float32
+            if self.conf.global_conf.compute_dtype \
+                    and pre.is_floating_point():
+                pre = pre.to(torch.float32)
+            total = total + layer.loss.compute_score(
+                labels[out_name], pre, layer.activation,
+                masks.get(out_name) if masks else None, average=True)
+        gc = self.conf.global_conf
+        reg = 0.0
+        for lname in sorted(params):
+            layer = self.conf.nodes[lname].layer
+            l1 = layer.l1 if layer.l1 is not None else gc.l1
+            l2 = layer.l2 if layer.l2 is not None else gc.l2
+            for pname in sorted(params[lname]):
+                if pname in ("b", "beta"):
+                    continue
+                w = params[lname][pname]
+                if l2:
+                    reg = reg + 0.5 * l2 * torch.sum(w * w)
+                if l1:
+                    reg = reg + l1 * torch.sum(torch.abs(w))
+        return total + reg, new_states
+
+    def score(self, ds: DataSet, training: bool = False) -> float:
+        """The loss on ``ds`` (regularisation included), without a step."""
+        self._check_init()
+        inputs, labels, masks = self._bind_dataset(ds)
+        with torch.no_grad():
+            loss, _ = self._loss(self._params, self._states, inputs, labels,
+                                 masks, training)
+        return float(loss)
+
+    # --- training ----------------------------------------------------------
+    def generator(self) -> torch.Generator:
+        """The graph's own generator for stochastic-rounding bits, on its
+        device, seeded from the configuration's seed."""
+        if self._generator is None:
+            self._generator = torch.Generator(device=self.device)
+            self._generator.manual_seed(int(self.conf.global_conf.seed))
+        return self._generator
+
+    def _fused_store(self) -> Optional[FlatStore]:
+        """The persistent flat buckets behind ``fused_update`` (made, or
+        remade when the parameters or the updater state were replaced), or
+        None on the per-leaf path."""
+        store = self._flat
+        if store is not None and self.conf.global_conf.fused_update \
+                and store.holds(self._params):
+            if self._updater_state is not store.state_views:
+                store.set_state(self._updater_state)
+                self._updater_state = store.state_views
+            return store
+        self._flat = None
+        plan = fused_flat_plan(self.conf, self._params)
+        if plan is None:
+            return None
+        store = FlatStore(plan, self._params, self._updater_state)
+        self._params = store.param_views
+        self._updater_state = store.state_views
+        self._flat = store
+        self._cast_cache = None
+        return store
+
+    def _step(self, store: Optional[FlatStore], inputs, labels,
+              masks) -> torch.Tensor:
+        """One training step: forward, loss, backward, update (through
+        ``store`` on the fused path). Returns the loss (detached)."""
+        updater = self.conf.global_conf.updater
+        params = self._params
+        paths = leaf_paths(params)
+        leaves = [params[n][k] for n, k in paths]
+        if store is None:
+            for t in leaves:
+                if t.is_floating_point() and not t.requires_grad:
+                    t.requires_grad_(True)
+        else:
+            store.bind_grads()
+        with torch.enable_grad():
+            loss, new_states = self._loss(params, self._states, inputs,
+                                          labels, masks, training=True)
+            if store is not None:
+                loss.backward()       # into the store's gradient buckets
+            else:
+                flat_grads = torch.autograd.grad(loss, leaves)
+                grads = {n: {} for n in params}
+                for (n, k), g in zip(paths, flat_grads):
+                    grads[n][k] = g
+        with torch.no_grad():
+            if store is not None:
+                apply_fused_flat(store, updater, self._iteration,
+                                 self.generator())
+            else:
+                new_params, self._updater_state = apply_updater(
+                    updater, grads, self._updater_state, params,
+                    self._iteration, self.generator())
+                for n, k in paths:
+                    params[n][k].copy_(new_params[n][k])
+        self._states = {n: {k: v.detach() for k, v in d.items()}
+                        for n, d in new_states.items()}
+        # the parameters changed in place, behind the cast cache's back
+        self._cast_cache = None
+        return loss.detach()
+
+    def fit(self, data: Union[DataSet, Iterable[DataSet]],
+            epochs: int = 1) -> None:
+        """Train on ``data`` (a DataSet, or an iterable of them), one step
+        per DataSet, for ``epochs`` passes."""
+        self._check_init()
+        gc = self.conf.global_conf
+        if self._updater_state is None:
+            self._updater_state = gc.updater.init(self._params)
+        store = self._fused_store()
+        note_state_bytes(self._updater_state)
+        for _ in range(max(1, epochs)):
+            for ds in ([data] if isinstance(data, DataSet) else data):
+                inputs, labels, masks = self._bind_dataset(ds)
+                self._score = self._step(store, inputs, labels, masks)
+                self._iteration += 1
+            self._epoch += 1

@@ -1,16 +1,22 @@
-"""Neural-net ops on the inference path: convolution, pooling, batchnorm.
+"""Neural-net ops of ResNet-50: convolution, pooling, batchnorm.
 
 Counterpart of the subset of ``deeplearning4j_tpu/ops/nn.py`` that ResNet-50
-inference runs. Layouts are the JAX package's: activations NCHW, conv
-weights OIHW. Convolutions go to ``F.conv2d`` (cuDNN on the card), as the JAX
-package leaves them to XLA outside any Pallas kernel. Padding is explicit
-(``(ph, pw)``); the "same" convolution mode arrives with the models that
-use it.
+inference and training run. Layouts are the JAX package's: activations
+NCHW, conv weights OIHW. Convolutions and pooling go to ``F.conv2d`` and
+``F.max_pool2d`` (cuDNN on the card), backward included through autograd, as
+the JAX package leaves them to XLA outside any Pallas kernel. Padding is
+explicit (``(ph, pw)``); the "same" convolution mode arrives with the models
+that use it.
+
+:func:`batchnorm_train` is the training form with the JAX package's hand
+backward (a ``torch.autograd.Function``), not ``F.batch_norm(training=True)``:
+that one recentres differently and feeds the running variance the unbiased
+batch variance, where the JAX package uses the biased one.
 """
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -62,3 +68,85 @@ def batchnorm(x: torch.Tensor, mean, var, gamma=None, beta=None,
     if beta is not None:
         out = out + beta.reshape(shape)
     return out.to(x.dtype)
+
+
+def _bn_axes_shape(ndim: int, channels: int, axis: int):
+    axis = axis % ndim
+    axes = tuple(i for i in range(ndim) if i != axis)
+    shape = [1] * ndim
+    shape[axis] = channels
+    return axes, shape
+
+
+def _bn_count(x: torch.Tensor, axes) -> float:
+    n = 1.0
+    for a in axes:
+        n *= x.shape[a]
+    return n
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    """Training batchnorm with the JAX package's forward and hand backward
+    (``ops/nn.py:307-359``). Outputs ``(out, batch_mean, batch_var)``; the
+    statistics are float32 and carry no gradient, nor does the pivot."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, pivot, axis: int, epsilon: float):
+        axes, shape = _bn_axes_shape(x.ndim, x.shape[axis], axis)
+        n = _bn_count(x, axes)
+        # one pass of sibling sums about the x-independent pivot (the
+        # running mean), so E[d^2] - E[d]^2 does not cancel when
+        # |mean| >> std; the variance is the biased one
+        d = x.to(torch.float32) - pivot.reshape(shape)
+        s = d.sum(dim=axes)
+        ss = (d * d).sum(dim=axes)
+        del d
+        mean_c = s / n
+        var = torch.clamp_min(ss / n - mean_c * mean_c, 0.0)
+        mean = mean_c + pivot
+        inv = torch.rsqrt(var + epsilon)
+        # the output in x's dtype from x-dtype mean, inv*gamma and beta,
+        # the JAX package's rounding points
+        out = ((x - mean.reshape(shape).to(x.dtype))
+               * (inv * gamma.to(torch.float32)).reshape(shape).to(x.dtype)
+               + beta.reshape(shape).to(x.dtype))
+        ctx.save_for_backward(x, gamma, mean, inv)
+        ctx.axis = axis
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, gamma, mean, inv = ctx.saved_tensors
+        axes, shape = _bn_axes_shape(x.ndim, x.shape[ctx.axis], ctx.axis)
+        n = _bn_count(x, axes)
+        xhat = (x - mean.reshape(shape).to(x.dtype)) \
+            * inv.reshape(shape).to(x.dtype)
+        dy = dy.to(x.dtype)
+        sdy = dy.to(torch.float32).sum(dim=axes)
+        sdyx = (dy * xhat).to(torch.float32).sum(dim=axes)
+        gi = (gamma.to(torch.float32) * inv).reshape(shape).to(x.dtype)
+        dx = gi * (dy
+                   - (sdy / n).reshape(shape).to(x.dtype)
+                   - xhat * (sdyx / n).reshape(shape).to(x.dtype))
+        return dx, sdyx.to(gamma.dtype), sdy.to(gamma.dtype), None, None, None
+
+
+def batchnorm_train(x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
+                    beta: Optional[torch.Tensor] = None,
+                    epsilon: float = 1e-5, axis: int = 1,
+                    pivot: Optional[torch.Tensor] = None):
+    """Training-form batchnorm: returns ``(out, batch_mean, batch_var)``,
+    the statistics float32 and detached. ``pivot`` ([C], x-independent; the
+    BN layer passes its running mean) recentres the single-pass variance
+    and receives no gradient."""
+    c = x.shape[axis]
+    if gamma is None:
+        gamma = torch.ones((c,), dtype=torch.float32, device=x.device)
+    if beta is None:
+        beta = torch.zeros((c,), dtype=torch.float32, device=x.device)
+    if pivot is None:
+        pivot = torch.zeros((c,), dtype=torch.float32, device=x.device)
+    return _BatchNormTrain.apply(x, gamma, beta,
+                                 pivot.to(torch.float32).detach(), axis,
+                                 float(epsilon))

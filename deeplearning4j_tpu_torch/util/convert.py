@@ -7,6 +7,11 @@ JAX graph's ``_params`` and ``_states``), into a port graph. The layouts
 agree (conv W OIHW, dense W ``[nIn, nOut]``), so this is a checked copy:
 node names, entry names, shapes and dtypes must match the port graph's own,
 or it raises. Nothing here imports JAX.
+
+``updater_state_from_numpy`` installs the JAX graph's ``_updater_state`` the
+same way, in either of the JAX package's layouts: the dense tree
+(``{"v": {node: {...}}}``) or the flat ``flat::<dtype>`` buckets of
+``Zero1Plan`` (padded for any shard count).
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import numpy as np
 import torch
 
 from ..common.dtypes import tensor_from_numpy
+from ..parallel.sharding import Zero1Plan, is_flat_state
 
 NumpyTree = Mapping[str, Mapping[str, np.ndarray]]
 
@@ -61,4 +67,25 @@ def graph_state_from_numpy(graph, params: NumpyTree, states: NumpyTree,
     graph._params, graph._states = new_params, new_states
     graph.device = device
     graph._cast_cache = None
+    return graph
+
+
+def updater_state_from_numpy(graph, state, device=None):
+    """Install the JAX graph's updater state (numpy arrays, dense or flat
+    layout) into the initialized port ``graph`` (on ``device``, default the
+    graph's own) and return the graph. Slots, node names, entries, shapes
+    and dtypes must match the state the graph's updater would make (in its
+    ``state_dtype``), or it raises."""
+    graph._check_init()
+    device = graph.device if device is None else torch.device(device)
+    want = graph.conf.global_conf.updater.init(graph._params)
+    state = dict(state or {})
+    if is_flat_state(state):
+        state = Zero1Plan(graph._params, 1).unflatten_state(state)
+    if set(state) != set(want):
+        raise ValueError(f"updater state: slots {sorted(state)} != "
+                         f"{sorted(want)}")
+    graph._updater_state = {k: _checked_copy(f"updater_state[{k!r}]",
+                                             state[k], want[k], device)
+                            for k in want}
     return graph

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Where one ResNet-50 serving forward of the port spends its time, on the card.
+"""Where one ResNet-50 serving forward, or one training step, of the port
+spends its time, on the card.
 
-    python3 profile_port.py        # from the repository root; needs one card
+    python3 profile_port.py          # serving forward; needs one card
+    python3 profile_port.py --train  # training step (chip_smoke phase 6)
 
 Builds the model ``chip_smoke.py`` serves (full-size ResNet-50, seeded random
 weights, calibrated BN statistics, bf16 compute) and prints, beside the
@@ -13,6 +15,13 @@ card's name and power limit:
 - a ``torch.profiler`` trace of 3 forwards at batch 32: the device's busy
   share of the wall time and the kernels that take the most device time.
   The Chrome trace goes to ``chiprun_out/profile_port_trace.json``.
+
+With ``--train`` it builds the model ``chip_smoke.py`` trains (full-size
+ResNet-50, bf16 compute, fused_update, bf16 updater state, batch 128) and
+prints the step time (median of 10 after 2 warm-ups) and a
+``torch.profiler`` trace of 3 steps: device busy share, the kernels that take
+the most device time, and the ``fused_update`` kernel's share. The trace goes
+to ``chiprun_out/profile_port_train_trace.json.gz``.
 
 The last line is one JSON object with the numbers.
 """
@@ -44,12 +53,98 @@ def forward_ms(model, x, runs: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def _device_us(evt) -> float:
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        v = getattr(evt, attr, None)
-        if v is not None:
-            return float(v)
-    return 0.0
+#: kernel-name patterns of the device-time breakdown, first match wins
+CATEGORIES = (("fused_update", ("fused_update",)),
+              ("bn_act", ("bn_act",)),
+              ("cuDNN/cuBLAS (conv, matmul, layout transposes)",
+               ("cudnn", "conv", "xmma", "gemm", "cutlass", "sm90",
+                "nchwToNhwc", "nhwcToNchw")),
+              ("reductions", ("reduce_kernel",)),
+              ("elementwise", ("elementwise",)),
+              ("memcpy/memset", ("Memcpy", "Memset")))
+
+
+def _category(name: str) -> str:
+    for cat, keys in CATEGORIES:
+        if any(k in name for k in keys):
+            return cat
+    return "other"
+
+
+def _profile(step, n: int, label: str, smi: str, trace: str) -> dict:
+    """``n`` calls of ``step`` under torch.profiler: wall time and the
+    device time of the kernels (device-side events only: operator events
+    also carry their kernels' time and would count it twice), per call, by
+    category and by kernel. The Chrome trace goes to
+    ``chiprun_out/<trace>``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), count + 1)
+    device_us = sum(us for us, _ in by_name.values())
+    cats = {}
+    for kname, (us, _) in by_name.items():
+        c = _category(kname)
+        cats[c] = cats.get(c, 0.0) + us / n / 1e3
+    top = [{"name": k[:80], "device_ms": us / n / 1e3,
+            "calls_per_call": c / n}
+           for k, (us, c) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:15]]
+    print(f"[profile] {label}, {n} calls: wall {wall_us / n / 1e3:.3f} "
+          f"ms/call, device busy {device_us / n / 1e3:.3f} ms/call "
+          f"({100 * device_us / wall_us:.1f}% of wall); {smi}", flush=True)
+    for c, ms in sorted(cats.items(), key=lambda kv: -kv[1]):
+        print(f"[profile]   {ms:8.3f} ms  {c}", flush=True)
+    for t in top:
+        print(f"[profile]   {t['device_ms']:8.3f} ms  x{t['calls_per_call']:.0f}"
+              f"  {t['name']}", flush=True)
+    os.makedirs("chiprun_out", exist_ok=True)
+    prof.export_chrome_trace(os.path.join("chiprun_out", trace))
+    return {"profiled_wall_ms": wall_us / 1e3 / n,
+            "device_ms": device_us / 1e3 / n,
+            "device_busy_share": device_us / wall_us if wall_us else None,
+            "device_ms_by_category": cats, "top_kernels": top}
+
+
+def train_main(dev, smi: str, name: str) -> int:
+    model = cs.train_model(dev, True, "bfloat16", "bfloat16")
+    ds = cs.synthetic_batch(cs.TRAIN_BATCH, dev, cs.SEED)
+    for _ in range(2):
+        model.fit(ds)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        model.fit(ds)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    print(f"[train] batch {cs.TRAIN_BATCH} bf16, fused_update, bf16 state: "
+          f"step {ms:.3f} ms ({cs.TRAIN_BATCH / ms * 1e3:.1f} images/s), "
+          f"median of 10; {smi}", flush=True)
+    prof = _profile(lambda: model.fit(ds), 3, f"train step batch "
+                    f"{cs.TRAIN_BATCH}", smi, "profile_port_train_trace.json.gz")
+    upd_ms = prof["device_ms_by_category"].get("fused_update", 0.0)
+    print(f"[profile] fused_update kernel: {upd_ms:.3f} ms per step, "
+          f"{100 * upd_ms / prof['device_ms']:.2f}% of device time; {smi}",
+          flush=True)
+    result = {"device": name, "nvidia_smi": smi, "train_step_ms": ms,
+              "images_per_s": cs.TRAIN_BATCH / ms * 1e3,
+              "fused_update_ms_per_step": upd_ms, **prof}
+    print(json.dumps(result), flush=True)
+    return 0
 
 
 def main() -> int:
@@ -58,6 +153,9 @@ def main() -> int:
         return 2
     dev = torch.device("cuda", 0)
     smi, name = cs.phase_device()
+    if "--train" in sys.argv[1:]:
+        cs.phase_build()
+        return train_main(dev, smi, name)
     model = cs.build_model(dev)
     model.conf.global_conf.compute_dtype = "bfloat16"
     rng = np.random.default_rng(cs.SEED + 3)
@@ -76,35 +174,10 @@ def main() -> int:
           f"({32 / ms * 1e3:.1f} images/s); {smi}", flush=True)
     cs.set_fused(model, True)
 
-    from torch.profiler import ProfilerActivity, profile
-
     forward_ms(model, x32, runs=1, warmup=2)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            model.output(x32)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.key_averages() if _device_us(e) > 0]
-    device_us = sum(_device_us(e) for e in events)
-    events.sort(key=_device_us, reverse=True)
-    top = [{"name": e.key[:80], "device_ms": _device_us(e) / 1e3 / 3,
-            "calls_per_forward": e.count / 3} for e in events[:15]]
-    result.update({"profiled_wall_ms_per_forward": wall_us / 1e3 / 3,
-                   "device_ms_per_forward": device_us / 1e3 / 3,
-                   "device_busy_share": device_us / wall_us if wall_us else
-                   None, "top_kernels": top})
-    print(f"[profile] batch 32 bf16 fused, 3 forwards: wall "
-          f"{wall_us / 3e3:.3f} ms/forward, device busy "
-          f"{device_us / 3e3:.3f} ms/forward "
-          f"({100 * device_us / wall_us:.1f}% of wall); {smi}", flush=True)
-    for t in top:
-        print(f"[profile]   {t['device_ms']:8.3f} ms  x{t['calls_per_forward']:.0f}"
-              f"  {t['name']}", flush=True)
-    os.makedirs("chiprun_out", exist_ok=True)
-    prof.export_chrome_trace(os.path.join("chiprun_out",
-                                          "profile_port_trace.json"))
+    prof = _profile(lambda: model.output(x32), 3, "batch 32 bf16 fused "
+                    "forward", smi, "profile_port_trace.json")
+    result.update(prof)
     print(json.dumps(result), flush=True)
     return 0
 

@@ -68,6 +68,13 @@ def test_import_in_fresh_process_pulls_no_jax():
             "from deeplearning4j_tpu_torch.util.calibrate import "
             "calibrate_batchnorm\n"
             "import deeplearning4j_tpu_torch.ops.epilogue\n"
+            "import deeplearning4j_tpu_torch.ops.update\n"
+            "from deeplearning4j_tpu_torch.data import DataSet\n"
+            "from deeplearning4j_tpu_torch.learning import precision\n"
+            "from deeplearning4j_tpu_torch.parallel import sharding\n"
+            "from deeplearning4j_tpu_torch.nn import _fused\n"
+            "from deeplearning4j_tpu_torch.util import "
+            "updater_state_from_numpy\n"
             "bad = [m for m in sys.modules if m in ('jax', 'jaxlib') or "
             "m == 'deeplearning4j_tpu' or m.startswith(('jax.', "
             "'deeplearning4j_tpu.'))]\n"
@@ -113,9 +120,11 @@ def test_tf32_policy_stated_and_set():
 def test_kernel_build_is_lazy():
     """Importing the kernel modules builds nothing: the build directory
     appears only when a kernel first launches on the card."""
-    from deeplearning4j_tpu_torch.ops import cuda_lib, epilogue  # noqa: F401
+    from deeplearning4j_tpu_torch.ops import (cuda_lib, epilogue,  # noqa: F401
+                                              update)
 
     assert cuda_lib.source_path("bn_act").exists()
+    assert cuda_lib.source_path("fused_update").exists()
     assert "_build" in str(cuda_lib.BUILD_DIR)
     if not torch.cuda.is_available():
         assert not cuda_lib._LIBS

@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from deeplearning4j_tpu_torch.ops import epilogue
+from deeplearning4j_tpu_torch.learning import updaters
+from deeplearning4j_tpu_torch.ops import epilogue, update
 
 
 def _card():
@@ -81,3 +82,87 @@ def test_bn_act_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError):
         epilogue.bn_act_cuda(x, s, s, residual=torch.zeros(2, 8, 3, 4,
                                                            device=dev))
+
+
+_UPDATERS = {"sgd": lambda: updaters.Sgd(0.1),
+             "nesterovs": lambda: updaters.Nesterovs(0.1, momentum=0.9),
+             "adam": lambda: updaters.Adam(1e-3),
+             "adamw": lambda: updaters.AdamW(1e-3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(_UPDATERS))
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("n,offset", [(1, (0, 0)), (5, (0, 0)),
+                                      (4097, (0, 0)), (4097, (1, 1)),
+                                      (4097, (1, 0)), (1 << 20, (0, 0))])
+def test_fused_update_kernel_matches_plain_version(kind, bf16, n, offset):
+    """The kernel (in place) against its plain version on copies of the same
+    inputs, bf16 moments with the same random bits. Bound: the JAX
+    package's contract between its modes, 2 float32 ulp for parameters and
+    float32 moments; bf16 moments bitwise, since stochastic rounding picks
+    between two neighbours 1 bf16 ulp apart and only equal bits show that
+    the kernel rounded each slot with its own halfword."""
+    dev = _card()
+    rng = np.random.default_rng(n + 7)
+
+    def buf(a, dtype, which):
+        o = offset[0] if which == "p" else offset[1]
+        full = np.concatenate([np.zeros(o, np.float32), a,
+                               np.zeros(4, np.float32)])
+        return torch.from_numpy(full).to(dev, dtype)[o:o + n]
+
+    p = buf(rng.normal(size=n).astype(np.float32), torch.float32, "p")
+    g = buf((rng.normal(size=n) * 0.01).astype(np.float32), torch.float32,
+            "g")
+    sdt = torch.bfloat16 if bf16 else torch.float32
+    slots = {}
+    for s in update.SLOTS[kind]:
+        a = rng.normal(size=n).astype(np.float32) * 0.1
+        if s == "v" and kind != "nesterovs":
+            a = np.abs(a) * 0.01
+        slots[s] = buf(a, sdt, s)
+    bits = None
+    if bf16 and slots:
+        raw = rng.integers(0, 2 ** 32, size=n, dtype=np.uint64).astype(
+            np.uint32).view(np.int32)
+        bits = torch.from_numpy(np.concatenate(
+            [np.zeros(offset[1], np.int32), raw,
+             np.zeros(4, np.int32)])).to(dev)[offset[1]:offset[1] + n]
+    sr = torch.bfloat16 if bf16 else None
+    upd = _UPDATERS[kind]()
+    sc = update._scalars(upd, kind, 3)
+    want_p, want_s = update.fused_update_reference(kind, sc, p, g, slots,
+                                                   bits, sr)
+    before = update.fused_update_launches
+    update.fused_update_cuda(kind, sc, p, g, slots, bits, sr)
+    torch.cuda.synchronize()
+    assert update.fused_update_launches == before + 1
+    assert (p - want_p).abs().max().item() <= \
+        2.0 ** -22 * (want_p.abs().max().item() + 1.0)
+    for k, got in slots.items():
+        if bf16:
+            assert torch.equal(got, want_s[k]), k
+        else:
+            d = (got - want_s[k]).abs()
+            assert d.max().item() <= 2.0 ** -22 * (
+                want_s[k].abs().max().item() + 1.0)
+
+
+@pytest.mark.cuda
+def test_fused_update_kernel_refuses_what_it_does_not_take():
+    dev = _card()
+    p = torch.zeros(16, device=dev)
+    v = torch.zeros(16, device=dev)
+    sc = (0.1, 0.9, 1.9)
+    with pytest.raises(TypeError):
+        update.fused_update_cuda("nesterovs", sc, p.half(), p, {"v": v})
+    with pytest.raises(TypeError):      # bf16 state without rounding bits
+        update.fused_update_cuda("nesterovs", sc, p, p, {"v": v.bfloat16()})
+    with pytest.raises(ValueError):
+        update.fused_update_cuda("nesterovs", sc, p, p[:8], {"v": v})
+    with pytest.raises(TypeError):      # rounding into a float32 slot
+        update.fused_update_cuda("nesterovs", sc, p, p, {"v": v},
+                                 bits=torch.zeros(16, dtype=torch.int32,
+                                                  device=dev),
+                                 sr_dtype=torch.bfloat16)

@@ -25,15 +25,22 @@ def modules(which: str) -> SimpleNamespace:
         InputType=imp("nn.conf.inputs").InputType,
         graph=imp("nn.graph"),
         Sgd=imp("learning.updaters").Sgd,
+        Nesterovs=imp("learning.updaters").Nesterovs,
         zoo=imp("models.zoo"))
 
 
-def residual_conf(which: str, fused: bool, channels: int = 128, seed: int = 3):
-    """The residual graph of tests/test_precision.py::residual_graph."""
+def residual_conf(which: str, fused: bool, channels: int = 128, seed: int = 3,
+                  updater=None, l2: float = 0.0, fused_update: bool = False):
+    """The residual graph of tests/test_precision.py::residual_graph.
+    ``updater(m)`` makes the updater from the package's modules ``m``
+    (default ``Sgd(0.01)``); ``l2`` cascades onto every layer."""
     m = modules(which)
-    b = m.NeuralNetConfiguration.builder().seed(seed).updater(m.Sgd(0.01))
+    b = m.NeuralNetConfiguration.builder().seed(seed).updater(
+        updater(m) if updater is not None else m.Sgd(0.01)).l2(l2)
     if fused:
         b = b.fused_epilogue()
+    if fused_update:
+        b = b.fused_update()
     gb = m.graph.ComputationGraphConfiguration.graph_builder(b) \
         .add_inputs("in")
     gb.add_layer("c1", m.L.ConvolutionLayer(
