@@ -18,10 +18,16 @@ Phases (each fails the run with a nonzero exit if it fails):
                (bfloat16 moments must match bitwise), at the main path's
                bucket (25,557,032 elements), ragged sizes
                (1, 5, 4097) and views that start 1 element into a buffer
-               (the head path and the scalar variant). Then each kernel, its
-               plain version, the unfused PyTorch path and, where one PyTorch
-               call computes the same function, that call, timed with CUDA
-               events and a cold L2, beside the bandwidth bound.
+               (the head path and the scalar variant); embedding_bag bitwise
+               at the CBOW path's shape ([8192, 10] bags of a [10000, 100]
+               table) and ragged ones (D 1, 3, 101, 300; W 1; fully masked
+               bags; a table 1 element into its buffer). Then each kernel,
+               its plain version, the unfused PyTorch path and, where one
+               PyTorch call computes the same function, that call, timed
+               with CUDA events and a cold L2 after a 2 ms spin of the card
+               (so the host's launch overhead is not timed), beside the
+               bandwidth bound;
+               embedding_bag also at a wide shape (V 3,000,000, D 300).
 4. serving  -- full-size ResNet-50 (224x224x3, 1000 classes, bf16 compute,
                fused epilogue) behind ParallelInference (batched, batch limit
                32, 2 workers): 64 single-image requests from 8 client
@@ -42,6 +48,15 @@ Phases (each fails the run with a nonzero exit if it fails):
                float32 state: one fit step through the kernel against one
                through the per-leaf apply_updater path from the same
                parameters; parameters and momentum within 2 float32 ulp.
+8. word2vec-cbow -- the word2vec-cbow configuration as bench.py runs it:
+               Word2Vec CBOW with negative sampling, vocabulary 10,000 of a
+               zipf corpus of 200,000 x 20 words (seed 123), layer 100,
+               window 5, 5 negatives, sampling 1e-3, batch 8192, one epoch,
+               fitted twice (cold, then warm). Gates: vocabulary 10,000,
+               8192 examples per round, 384 embedding_bag launches per fit
+               (one per round), tables on the card, finite losses, the last
+               loss below ln 2. Then a CBOW fit of the cluster corpus of
+               tests/test_nlp.py on the card, gated as there.
 
 Then it prints the kernels line (one JSON object) and, last, the device line
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
@@ -70,11 +85,15 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12            # H100 SXM float32 outside the tensor cores
 TIMED_RUNS = 30
 WARMUP_RUNS = 5
+SPIN_CYCLES = 4_000_000             # about 2 ms at the H100's 1.98 GHz
 TRAIN_BATCH = 128
 IMAGE = 224
 TRAIN_WARMUP = 2
 TRAIN_STEPS = 10
 RESNET50_PARAMS = 25_557_032        # elements of the one float32 bucket
+W2V_VOCAB = 10_000                  # bench.py --config word2vec-cbow
+W2V_WORDS = 4_000_000
+W2V_ROUNDS_PER_FIT = 384            # 6 blocks of 64 rounds
 
 
 class PhaseError(RuntimeError):
@@ -207,6 +226,12 @@ def compare_bn_act(shape, act, residual, dtype, dev, gen):
 
 
 def _time_ms(fn, flush) -> float:
+    """Median card time of ``fn`` over TIMED_RUNS runs, each from a cold
+    L2. Before each run the card spins for about 2 ms, so the host has
+    enqueued the whole run before the start event fires: the time is the
+    card's, not the host's launch overhead (which a short kernel would
+    otherwise show as its own time). A function whose host work takes
+    longer than that (the per-leaf updater) still shows part of it."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     for _ in range(WARMUP_RUNS):
@@ -214,6 +239,7 @@ def _time_ms(fn, flush) -> float:
     times = []
     for _ in range(TIMED_RUNS):
         flush.zero_()                     # start each run with a cold L2
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -282,6 +308,134 @@ def phase_kernels(smi: str, dev):
             f"{t['bytes']} B at 3.35 TB/s); median of {TIMED_RUNS} "
             f"(CUDA events, cold L2); {smi}")
     return errs, timing
+
+
+# --- phase 3, embedding_bag -------------------------------------------------------
+
+BAG_PATH = (8192, 10, W2V_VOCAB, 100)   # B, W, V, D of one CBOW round
+
+
+def _bag_case(B, W, V, D, dev, gen, offset=0, dist="uniform", masked=0):
+    """A table (a view ``offset`` elements into its buffer), indices, a 0/1
+    mask with ``masked`` fully masked bags, and the counts. Indices are
+    ``uniform`` over the table, ``zipf`` (the bench corpus's word
+    frequencies, 1/rank) or ``subsampled`` (zipf after word2vec's
+    frequent-word subsampling at 1e-3, keep = sqrt(t/f) + t/f: the
+    distribution of the CBOW path's context words)."""
+    buf = torch.randn(V * D + offset, generator=gen, device=dev)
+    table = buf[offset:].view(V, D)
+    if dist != "uniform":
+        p = 1.0 / torch.arange(1, V + 1, device=dev, dtype=torch.float64)
+        p = p / p.sum()
+        if dist == "subsampled":
+            p = p * ((1e-3 / p).sqrt() + 1e-3 / p).clamp(max=1.0)
+        idx = torch.multinomial(p, B * W, replacement=True, generator=gen)
+    else:
+        idx = torch.randint(0, V, (B * W,), generator=gen, device=dev)
+    idx = idx.view(B, W).to(torch.int32)
+    mask = (torch.rand((B, W), generator=gen, device=dev) < 0.7).float()
+    mask[:masked] = 0.0
+    counts = mask.sum(1).clamp_min(1.0)
+    return table, idx, mask, counts
+
+
+def compare_embedding_bag(B, W, V, D, dev, gen, offset=0, masked=3):
+    from deeplearning4j_tpu_torch.ops import embeddings
+
+    table, idx, mask, counts = _bag_case(B, W, V, D, dev, gen, offset,
+                                         masked=masked)
+    if W:
+        idx[0, 0], idx[-1, -1] = V - 1, V + 5      # the edge, and clamped
+    err = 0.0
+    for mean in (True, False):
+        got = embeddings.embedding_bag_cuda(table, idx, mask, counts, mean)
+        want = embeddings.embedding_bag_reference(table, idx, mask, counts,
+                                                  mean)
+        torch.cuda.synchronize()
+        e = (got - want).abs().max().item() if got.numel() else 0.0
+        check(torch.equal(got, want),
+              f"embedding_bag B={B} W={W} V={V} D={D} offset={offset} "
+              f"mean={mean}: not bitwise (max_abs_err {e})")
+        err = max(err, e)
+    return err
+
+
+def time_embedding_bag(B, W, V, D, dev, gen, flush, dist):
+    """Kernel, plain version, F.embedding_bag (the one PyTorch call for the
+    same function) and the unfused expression at one shape, beside the
+    least bytes: indices, mask, counts, output, each distinct row once."""
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.ops import embeddings
+
+    table, idx, mask, counts = _bag_case(B, W, V, D, dev, gen, dist=dist)
+    c2 = counts[:, None]
+    idx64 = idx.long()
+    kernel = lambda: embeddings.embedding_bag_cuda(  # noqa: E731
+        table, idx, mask, counts, True)
+    plain = lambda: embeddings.embedding_bag_reference(  # noqa: E731
+        table, idx, mask, counts, True)
+    library = lambda: F.embedding_bag(  # noqa: E731
+        idx64, table, per_sample_weights=mask, mode="sum") / c2
+    unfused = lambda: (table[idx64] * mask[..., None]).sum(1) / c2  # noqa: E731
+    check(torch.allclose(library(), kernel(), rtol=1e-5, atol=1e-5),
+          "F.embedding_bag yardstick computes another function")
+    distinct = int(torch.unique(idx).numel())
+    nbytes = 2 * B * W * 4 + B * 4 + B * D * 4 + distinct * D * 4
+    no_reuse = 2 * B * W * 4 + B * 4 + B * D * 4 + B * W * D * 4
+    flops = 2 * B * W * D + B * D
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    out = {"ms": _time_ms(kernel, flush), "plain_ms": _time_ms(plain, flush),
+           "library_ms": _time_ms(library, flush),
+           "unfused_ms": _time_ms(unfused, flush),
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "bytes": nbytes, "bytes_no_reuse": no_reuse,
+           "no_reuse_ms": no_reuse / HBM_BYTES_PER_S * 1e3,
+           "distinct_rows": distinct, "shape": [B, W, V, D],
+           "indices": dist,
+           "hottest_row_share": torch.bincount(idx.view(-1).long()).max()
+           .item() / (B * W)}
+    del table, idx, mask, counts, idx64
+    return out
+
+
+def phase_embedding_bag(smi: str, dev):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    B, W, V, D = BAG_PATH
+    cases = [(B, W, V, D, 0)]
+    cases += [(257, 10, 1000, d, 0) for d in (1, 3, 101, 300)]
+    cases += [(257, 1, 1000, 100, 0), (257, 10, 1000, 100, 1),
+              (257, 10, 1000, 3, 1), (9, 0, 1000, 100, 0)]
+    err = 0.0
+    for b, w, v, d, off in cases:
+        err = max(err, compare_embedding_bag(b, w, v, d, dev, gen, off))
+    log(f"[kernels] embedding_bag vs plain: {2 * len(cases)} comparisons "
+        f"(mean and sum; the CBOW path's [{B},{W}] x [{V},{D}], D 1/3/101/"
+        f"300, W 1 and 0, 3 fully masked bags each, a table 1 element into "
+        f"its buffer) all bitwise; max_abs_err {err}")
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    timing = {"path": time_embedding_bag(B, W, V, D, dev, gen, flush,
+                                         "subsampled"),
+              "path_raw_zipf": time_embedding_bag(B, W, V, D, dev, gen, flush,
+                                                  "zipf"),
+              "wide": time_embedding_bag(B, W, 3_000_000, 300, dev, gen,
+                                         flush, "uniform")}
+    torch.cuda.empty_cache()
+    for name, t in timing.items():
+        log(f"[kernels] embedding_bag {name} {t['shape']} (B, W, V, D; "
+            f"{t['indices']} indices, {t['distinct_rows']} distinct rows, "
+            f"hottest row {100 * t['hottest_row_share']:.2f}% of the "
+            f"lookups): kernel {t['ms']:.4f} ms, "
+            f"plain {t['plain_ms']:.4f} ms, F.embedding_bag/counts "
+            f"{t['library_ms']:.4f} ms, unfused {t['unfused_ms']:.4f} ms, "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}, {t['bytes']} B "
+            f"at 3.35 TB/s; {t['bytes_no_reuse']} B without reuse = "
+            f"{t['no_reuse_ms']:.4f} ms); median of {TIMED_RUNS} (CUDA "
+            f"events, cold L2); {smi}")
+    return err, timing
 
 
 # --- phase 3, fused_update -------------------------------------------------------
@@ -828,6 +982,119 @@ def phase_train_parity(dev):
         torch.backends.cudnn.deterministic = det
 
 
+# --- phase 8 -------------------------------------------------------------------
+
+def zipf_sentences(n_words: int, vocab_size: int = W2V_VOCAB,
+                   sent_len: int = 20, seed: int = 123):
+    """bench.py's word2vec corpus: zipf(1) word ids, 20-word sentences."""
+    rng = np.random.default_rng(seed)
+    n_sent = max(1, n_words // sent_len)
+    p = 1.0 / np.arange(1, vocab_size + 1)
+    p /= p.sum()
+    words = np.array([f"w{i}" for i in range(vocab_size)])
+    ids = rng.choice(vocab_size, size=(n_sent, sent_len), p=p)
+    return [" ".join(row) for row in words[ids]]
+
+
+def cluster_corpus(n_sent: int, sent_len: int = 12, seed: int = 0):
+    """tests/test_nlp.py's corpus: two disjoint 50-word clusters."""
+    rng = np.random.default_rng(seed)
+    A = [f"a{i}" for i in range(50)]
+    B = [f"b{i}" for i in range(50)]
+    return [" ".join(rng.choice(A if rng.random() < .5 else B, size=sent_len))
+            for _ in range(n_sent)]
+
+
+def bench_word2vec(dev, sents):
+    """The word2vec-cbow model of bench.py (bench_word2vec_variant)."""
+    from deeplearning4j_tpu_torch.nlp import Word2Vec
+
+    w2v = Word2Vec(min_word_frequency=5, layer_size=100, window=5,
+                   negative=5, sampling=1e-3, epochs=1, batch_size=8192,
+                   seed=42, algorithm="cbow", device=dev)
+    w2v.set_sentence_iterator(sents)
+    return w2v
+
+
+def phase_word2vec(smi: str, dev):
+    from deeplearning4j_tpu_torch.common.profiler import OpProfiler
+    from deeplearning4j_tpu_torch.ops import embeddings
+
+    t0 = time.perf_counter()
+    sents = zipf_sentences(W2V_WORDS)
+    corpus_s = time.perf_counter() - t0
+    w2v = bench_word2vec(dev, sents)
+    prof = OpProfiler.get()
+    prof.reset()
+    embeddings.reset_launches()
+    fits = []
+    for label in ("cold", "warm"):
+        launches0 = embeddings.embedding_bag_launches
+        rounds0 = prof.counter_value("nlp/w2v_rounds")
+        t0 = time.perf_counter()
+        w2v.fit()
+        wall = time.perf_counter() - t0
+        timing = w2v.last_fit_timing
+        fits.append({
+            "fit": label, "words_per_s": w2v.words_per_sec,
+            "pairs_per_s": w2v.pairs_per_sec, "last_loss": w2v.last_loss,
+            "launches": embeddings.embedding_bag_launches - launches0,
+            "rounds": prof.counter_value("nlp/w2v_rounds") - rounds0,
+            "blocks": timing["blocks"], "wall_s": wall,
+            "prepare_s": timing["prepare"], "train_s": timing["train"],
+            "ms_per_block": timing["train"] / max(timing["blocks"], 1) * 1e3})
+    launches = embeddings.embedding_bag_launches
+    vocab = len(w2v.vocab)
+    syn0, syn1 = w2v.lookup_table.syn0, w2v.lookup_table.syn1neg
+    check(len(w2v.vocab) == W2V_VOCAB, f"vocabulary {len(w2v.vocab)}, want "
+          f"{W2V_VOCAB}")
+    check(w2v._cbow_centers == 8192, f"{w2v._cbow_centers} examples per "
+          f"round, want 8192")
+    check(w2v.table_device is not None and w2v.table_device.type == "cuda",
+          f"tables trained on {w2v.table_device}")
+    for f in fits:
+        check(f["launches"] == f["rounds"] == W2V_ROUNDS_PER_FIT
+              and f["blocks"] * 64 == f["rounds"],
+              f"{f['fit']} fit: {f['launches']} embedding_bag launches, "
+              f"{f['rounds']} rounds, {f['blocks']} blocks (want "
+              f"{W2V_ROUNDS_PER_FIT} launches, one per round)")
+        check(np.isfinite(f["last_loss"]) and f["last_loss"] < np.log(2.0),
+              f"{f['fit']} fit: last loss {f['last_loss']} not finite or "
+              f"not below ln 2")
+    check(bool(np.isfinite(syn0).all() and np.isfinite(syn1).all()),
+          "tables not finite")
+    for f in fits:
+        log(f"[word2vec-cbow] {f['fit']} fit: {f['words_per_s']:.1f} words/s, "
+            f"{f['pairs_per_s']:.1f} examples/s over the train window "
+            f"{f['train_s']:.3f} s ({f['blocks']} blocks, "
+            f"{f['ms_per_block']:.2f} ms per block); host prepare "
+            f"(tokenize, count, encode) {f['prepare_s']:.3f} s of "
+            f"{f['wall_s']:.3f} s fit wall; embedding_bag launches "
+            f"{f['launches']} = rounds {f['rounds']}; last loss "
+            f"{f['last_loss']:.6f}; {smi}")
+    log(f"[word2vec-cbow] vocabulary {len(w2v.vocab)}, corpus "
+        f"{len(sents) * 20} words (made in {corpus_s:.2f} s), 8192 examples "
+        f"per round; similarity(w1, w2) {w2v.similarity('w1', 'w2'):.4f}")
+    del w2v, sents
+    torch.cuda.empty_cache()
+
+    from deeplearning4j_tpu_torch.nlp import Word2Vec
+
+    w = Word2Vec(min_word_frequency=5, layer_size=24, negative=5,
+                 algorithm="cbow", epochs=10, batch_size=256, seed=2,
+                 device=dev)
+    w.set_sentence_iterator(cluster_corpus(1000))
+    w.fit()
+    same = float(np.mean([w.similarity("a0", f"a{i}") for i in range(1, 6)]))
+    diff = float(np.mean([w.similarity("a0", f"b{i}") for i in range(5)]))
+    check(same > diff + 0.4, f"cluster corpus on the card: same {same} not "
+          f"above diff {diff} + 0.4")
+    log(f"[word2vec-cbow] cluster corpus on the card: same {same:.4f}, diff "
+        f"{diff:.4f} (gate same > diff + 0.4), last loss {w.last_loss:.4f}")
+    return {"fits": fits, "launches": launches, "vocab": vocab,
+            "cluster_same": same, "cluster_diff": diff}
+
+
 # --- main -----------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -839,7 +1106,7 @@ def main(argv=None) -> int:
         return 2
     try:
         import deeplearning4j_tpu_torch  # noqa: F401
-        from deeplearning4j_tpu_torch.ops import epilogue, update
+        from deeplearning4j_tpu_torch.ops import embeddings, epilogue, update
     except ImportError as e:
         print(f"chip_smoke: the port's package is not beside this script "
               f"({e})", file=sys.stderr)
@@ -852,6 +1119,7 @@ def main(argv=None) -> int:
         phase_build()
         errs, timing = phase_kernels(smi, dev)
         upd_errs, upd_timing = phase_fused_update(smi, dev)
+        bag_err, bag_timing = phase_embedding_bag(smi, dev)
         model = build_model(dev)
         launches, batches = phase_serving(model, smi, dev)
         phase_parity(model, dev)
@@ -859,6 +1127,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         train = phase_train(smi, dev)
         tparity = phase_train_parity(dev)
+        w2v = phase_word2vec(smi, dev)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -893,10 +1162,26 @@ def main(argv=None) -> int:
         "bits_ms": nb["bits_ms"],
         "adam_f32": {k: ad[k] for k in ("ms", "plain_ms", "unfused_ms",
                                         "bound_ms", "library_ms")}})
+    bp = bag_timing["path"]
+    kernels.append({
+        "name": "embedding_bag", "route": "cuda",
+        "source": embeddings.SOURCE, "replaces": embeddings.REPLACES,
+        "launches": w2v["launches"], "max_abs_err": bag_err,
+        "shape": bp["shape"], "dtype": "float32",
+        "ms": bp["ms"], "plain_ms": bp["plain_ms"],
+        "bound_ms": bp["bound_ms"], "bound_by": bp["bound_by"],
+        "library_ms": bp["library_ms"], "unfused_ms": bp["unfused_ms"],
+        "bytes": bp["bytes"], "bytes_no_reuse": bp["bytes_no_reuse"],
+        "indices": bp["indices"],
+        **{name: {k: bag_timing[name][k] for k in (
+            "shape", "indices", "ms", "plain_ms", "library_ms", "unfused_ms",
+            "bound_ms", "bytes", "bytes_no_reuse")}
+           for name in ("path_raw_zipf", "wide")}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"train": {k: v for k, v in train.items()
                                 if k != "counters"},
-                      "train_parity": tparity}), flush=True)
+                      "train_parity": tparity,
+                      "word2vec_cbow": w2v}), flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

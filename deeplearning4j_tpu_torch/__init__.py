@@ -18,17 +18,20 @@ Entry points run on the card unless the caller asks for the CPU
 Layer map (ported so far; see ROADMAP.md for what follows):
   common/    environment (device + TF32 policy), dtype table, counters
   ops/       conv2d, pooling, inference and training batchnorm, the fused
-             BN epilogue, the fused flat-bucket weight update
-  csrc/      hand-written CUDA kernels (bn_act, fused_update)
+             BN epilogue, the fused flat-bucket weight update, the
+             embedding bag and the CBOW round
+  csrc/      hand-written CUDA kernels (bn_act, fused_update, embedding_bag)
   nn/        activations, weight init, losses, layer configs,
              ComputationGraph (inference and fit)
   learning/  updaters (Sgd, Nesterovs, Adam, AdamW), mixed precision
              (bf16 updater state with stochastic rounding)
   data/      DataSet
   models/    ResNet-50
+  nlp/       Word2Vec (CBOW with negative sampling), tokenizers, vocabulary
   parallel/  ParallelInference (the request micro-batcher), the flat
              bucket layout (Zero1Plan)
-  util/      weight and updater-state carry-over from the JAX package
+  util/      weight, updater-state and Word2Vec carry-over from the JAX
+             package
 """
 
 from .common.dtypes import DataType

@@ -12,6 +12,9 @@ The counter part of ``deeplearning4j_tpu/common/profiler.py``'s
   non-float32 bucket), ``precision/fused_fallbacks`` (an updater without a
   kernel, or not elementwise), ``precision/sr_draws`` (random 32-bit draws
   for stochastic rounding);
+- Word2Vec: ``nlp/w2v_blocks`` and ``nlp/w2v_rounds`` (CBOW blocks and
+  rounds run; each round launches ``embedding_bag`` once, counted beside
+  its wrapper as ``ops/embeddings.embedding_bag_launches``);
 - gauges (levels, set not added): ``precision/grads_flat_in_step`` (1 when
   the step's gradients were born in the flat buckets) and
   ``precision/updater_state_bytes_<dtype>`` / ``..._total``.

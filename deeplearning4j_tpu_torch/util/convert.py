@@ -12,16 +12,22 @@ or it raises. Nothing here imports JAX.
 same way, in either of the JAX package's layouts: the dense tree
 (``{"v": {node: {...}}}``) or the flat ``flat::<dtype>`` buckets of
 ``Zero1Plan`` (padded for any shard count).
+
+``word2vec_state_from_numpy`` carries a JAX Word2Vec's vocabulary (its words
+in index order and their counts) and its ``syn0``/``syn1neg`` tables into a
+port Word2Vec, with the same checks.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
 
 from ..common.dtypes import tensor_from_numpy
+from ..nlp.lookup_table import InMemoryLookupTable
+from ..nlp.vocab import VocabCache, VocabWord
 from ..parallel.sharding import Zero1Plan, is_flat_state
 
 NumpyTree = Mapping[str, Mapping[str, np.ndarray]]
@@ -89,3 +95,36 @@ def updater_state_from_numpy(graph, state, device=None):
                                              state[k], want[k], device)
                             for k in want}
     return graph
+
+
+def word2vec_state_from_numpy(w2v, words: Sequence[str], counts,
+                              syn0: np.ndarray, syn1neg: np.ndarray):
+    """Install a vocabulary (``words`` in index order, their ``counts``) and
+    the ``syn0``/``syn1neg`` tables (numpy, ``[len(words), layer_size]``
+    float32) into the port Word2Vec ``w2v`` and return it; its next ``fit``
+    resumes from them. Raises when the words repeat or the shapes, lengths
+    or dtypes do not match."""
+    words = [str(w) for w in words]
+    counts = np.asarray(counts)
+    V, D = len(words), w2v.layer_size
+    if len(set(words)) != V:
+        raise ValueError("word2vec state: the words repeat")
+    if counts.shape != (V,) or not np.issubdtype(counts.dtype, np.integer):
+        raise ValueError(f"word2vec state: counts must be {V} integers, got "
+                         f"{counts.dtype} {counts.shape}")
+    for name, a in (("syn0", syn0), ("syn1neg", syn1neg)):
+        a = np.asarray(a)
+        if a.shape != (V, D):
+            raise ValueError(f"word2vec state: {name} shape {a.shape} != "
+                             f"{(V, D)}")
+        if a.dtype != np.float32:
+            raise ValueError(f"word2vec state: {name} dtype {a.dtype} != "
+                             f"float32")
+    vocab = VocabCache()
+    for w, c in zip(words, counts.tolist()):
+        vocab.add(VocabWord(w, int(c)))
+    table = InMemoryLookupTable(V, D, seed=w2v.seed)
+    table.syn0 = np.array(syn0, dtype=np.float32)
+    table.syn1neg = np.array(syn1neg, dtype=np.float32)
+    w2v.vocab, w2v.lookup_table = vocab, table
+    return w2v

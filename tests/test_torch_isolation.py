@@ -74,7 +74,13 @@ def test_import_in_fresh_process_pulls_no_jax():
             "from deeplearning4j_tpu_torch.parallel import sharding\n"
             "from deeplearning4j_tpu_torch.nn import _fused\n"
             "from deeplearning4j_tpu_torch.util import "
-            "updater_state_from_numpy\n"
+            "updater_state_from_numpy, word2vec_state_from_numpy\n"
+            "import deeplearning4j_tpu_torch.nlp\n"
+            "from deeplearning4j_tpu_torch.nlp import Word2Vec, "
+            "VocabConstructor, CollectionSentenceIterator\n"
+            "from deeplearning4j_tpu_torch.nlp.word2vec import "
+            "SequenceVectors\n"
+            "import deeplearning4j_tpu_torch.ops.embeddings\n"
             "bad = [m for m in sys.modules if m in ('jax', 'jaxlib') or "
             "m == 'deeplearning4j_tpu' or m.startswith(('jax.', "
             "'deeplearning4j_tpu.'))]\n"
@@ -104,6 +110,19 @@ def test_default_device_is_the_card_and_raises_without_one():
                for t in p.values())
 
 
+def test_word2vec_defaults_to_the_card_and_raises_without_one():
+    from deeplearning4j_tpu_torch.nlp import Word2Vec
+
+    if torch.cuda.is_available():
+        assert Word2Vec(algorithm="cbow").device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Word2Vec(algorithm="cbow")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Word2Vec.builder().elements_learning_algorithm("CBOW").build()
+    assert Word2Vec(algorithm="cbow", device="cpu").device.type == "cpu"
+
+
 def test_tf32_policy_stated_and_set():
     from deeplearning4j_tpu_torch.common.environment import Environment
 
@@ -120,11 +139,12 @@ def test_tf32_policy_stated_and_set():
 def test_kernel_build_is_lazy():
     """Importing the kernel modules builds nothing: the build directory
     appears only when a kernel first launches on the card."""
-    from deeplearning4j_tpu_torch.ops import (cuda_lib, epilogue,  # noqa: F401
-                                              update)
+    from deeplearning4j_tpu_torch.ops import (cuda_lib, embeddings,  # noqa: F401
+                                              epilogue, update)
 
     assert cuda_lib.source_path("bn_act").exists()
     assert cuda_lib.source_path("fused_update").exists()
+    assert cuda_lib.source_path("embedding_bag").exists()
     assert "_build" in str(cuda_lib.BUILD_DIR)
     if not torch.cuda.is_available():
         assert not cuda_lib._LIBS

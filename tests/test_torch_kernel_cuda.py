@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from deeplearning4j_tpu_torch.learning import updaters
-from deeplearning4j_tpu_torch.ops import epilogue, update
+from deeplearning4j_tpu_torch.ops import embeddings, epilogue, update
 
 
 def _card():
@@ -166,3 +166,78 @@ def test_fused_update_kernel_refuses_what_it_does_not_take():
                                  bits=torch.zeros(16, dtype=torch.int32,
                                                   device=dev),
                                  sr_dtype=torch.bfloat16)
+
+
+def _bag_inputs(B, W, V, D, dev, seed, offset=0, masked=()):
+    """table (a view ``offset`` elements into its buffer), indices with the
+    edges V-1 and past the table, a 0/1 mask with fully masked bags."""
+    rng = np.random.default_rng(seed)
+    buf = torch.from_numpy(rng.normal(size=V * D + offset).astype(
+        np.float32)).to(dev)
+    table = buf[offset:].view(V, D)
+    idx = rng.integers(0, V, size=(B, W)).astype(np.int32)
+    if W and B > 1:
+        idx[0, 0] = V - 1
+        idx[1, -1] = V + 7
+    mask = (rng.random((B, W)) < 0.7).astype(np.float32)
+    for b in masked:
+        mask[b] = 0.0
+    mask_t = torch.from_numpy(mask).to(dev)
+    counts = mask_t.sum(1).clamp_min(1.0)
+    return table, torch.from_numpy(idx).to(dev), mask_t, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mean", [True, False])
+@pytest.mark.parametrize("B,W,V,D,offset", [
+    (8192, 10, 10000, 100, 0),       # the CBOW path's shape
+    (33, 10, 50, 1, 0), (33, 10, 50, 3, 0), (33, 10, 50, 101, 0),
+    (33, 10, 50, 300, 0), (40, 1, 50, 64, 0), (40, 7, 50, 64, 1),
+    (5, 0, 50, 8, 0)])
+def test_embedding_bag_kernel_bitwise_against_plain_version(mean, B, W, V,
+                                                            D, offset):
+    """Both add row * mask in W order from zero and divide by the count,
+    each step rounded: bitwise. offset=1 puts the table 1 element into its
+    buffer (the scalar path)."""
+    dev = _card()
+    table, idx, mask, counts = _bag_inputs(B, W, V, D, dev, B + D,
+                                           offset, masked=(2, 4))
+    before = embeddings.embedding_bag_launches
+    got = embeddings.embedding_bag_cuda(table, idx, mask, counts, mean)
+    want = embeddings.embedding_bag_reference(table, idx, mask, counts, mean)
+    torch.cuda.synchronize()
+    assert embeddings.embedding_bag_launches == before + 1
+    assert torch.equal(got, want)
+    if W:
+        assert not got[2].any() and not got[4].any()
+
+
+@pytest.mark.cuda
+def test_embedding_bag_entry_launches_the_kernel_for_cuda_tensors():
+    dev = _card()
+    table, idx, mask, _ = _bag_inputs(64, 6, 30, 12, dev, 5)
+    before = embeddings.embedding_bag_launches
+    got = embeddings.embedding_bag(table, idx.long(), mask, mode="mean")
+    assert embeddings.embedding_bag_launches == before + 1
+    want = embeddings.embedding_bag(table.cpu(), idx.cpu(), mask.cpu())
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_embedding_bag_kernel_refuses_what_it_does_not_take():
+    dev = _card()
+    table, idx, mask, counts = _bag_inputs(4, 3, 10, 8, dev, 6)
+    with pytest.raises(TypeError):
+        embeddings.embedding_bag_cuda(table.bfloat16(), idx, mask, counts,
+                                      True)
+    with pytest.raises(ValueError):
+        embeddings.embedding_bag_cuda(table.t(), idx, mask, counts, True)
+    with pytest.raises(ValueError):
+        embeddings.embedding_bag_cuda(table, idx.long(), mask, counts, True)
+    with pytest.raises(ValueError):
+        embeddings.embedding_bag_cuda(table, idx, mask[:, :2], counts, True)
+    with pytest.raises(ValueError):
+        embeddings.embedding_bag_cuda(table, idx, mask, counts.cpu(), True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        embeddings.embedding_bag_cuda(table.clone().requires_grad_(), idx,
+                                      mask, counts, True)
