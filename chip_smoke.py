@@ -27,7 +27,16 @@ Phases (each fails the run with a nonzero exit if it fails):
                with CUDA events and a cold L2 after a 2 ms spin of the card
                (so the host's launch overhead is not timed), beside the
                bandwidth bound;
-               embedding_bag also at a wide shape (V 3,000,000, D 300).
+               embedding_bag also at a wide shape (V 3,000,000, D 300);
+               flash_attention within 2e-5 at the encoder path's
+               [384, 128, 64] (non-causal, causal, the MHA mask bias, a full
+               [B, H, T, T] bias, a row masked everywhere, which must give
+               0), T 200 (a tail tile) and T 512 with D 32, 64 and 128,
+               timed at the path's shape and at [96, 512, 64] beside
+               F.scaled_dot_product_attention and the unfused matmul +
+               softmax + matmul. Then its gradients (dq, dk, dv, dbias)
+               through the kernel's forward against autograd through dense
+               attention at [8, 256, 64], within 1e-4.
 4. serving  -- full-size ResNet-50 (224x224x3, 1000 classes, bf16 compute,
                fused epilogue) behind ParallelInference (batched, batch limit
                32, 2 workers): 64 single-image requests from 8 client
@@ -57,6 +66,19 @@ Phases (each fails the run with a nonzero exit if it fails):
                (one per round), tables on the card, finite losses, the last
                loss below ln 2. Then a CBOW fit of the cluster corpus of
                tests/test_nlp.py on the card, gated as there.
+9. encoder  -- a BERT-base-width self-attention encoder (vocabulary 30522,
+               512 positions, hidden 768, 12 layers, 12 heads, feed-forward
+               3072, erf GELU, LayerNorm eps 1e-12; 108,854,786 parameters,
+               random from the seed) built with the graph builder, bf16
+               compute and float32 parameters, served through
+               ComputationGraph.output with int32 tokens and positions
+               [B, 128]: 3 warm-ups, then 20 timed batches of 32 and 20 of 1.
+               Gates: 12 flash_attention launches per forward, no dense
+               attention, finite outputs of shape (B, 2) whose rows sum to 1
+               within 1e-2.
+10. encoder-parity -- the same encoder in float32 (TF32 off) at batch 2 on
+               the card (the kernel) against the same weights on the CPU
+               (the plain version): probabilities within 1e-4.
 
 Then it prints the kernels line (one JSON object) and, last, the device line
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
@@ -94,6 +116,16 @@ RESNET50_PARAMS = 25_557_032        # elements of the one float32 bucket
 W2V_VOCAB = 10_000                  # bench.py --config word2vec-cbow
 W2V_WORDS = 4_000_000
 W2V_ROUNDS_PER_FIT = 384            # 6 blocks of 64 rounds
+# BERT-base (google-research/bert uncased_L-12_H-768_A-12/bert_config.json)
+BERT = {"vocab": 30522, "positions": 512, "hidden": 768, "layers": 12,
+        "heads": 12, "ff": 3072}
+BERT_PARAMS = 108_854_786           # read off the configuration below
+SEQ_LEN = 128
+ENC_BATCH = 32
+ENC_WARMUP = 3
+ENC_TIMED = 20
+FA_PATH = (ENC_BATCH * 12, SEQ_LEN, 64)   # B*H, T, D of one encoder layer
+FA_LONG = (8 * 12, 512, 64)               # BERT's 512 positions
 
 
 class PhaseError(RuntimeError):
@@ -436,6 +468,173 @@ def phase_embedding_bag(smi: str, dev):
             f"{t['no_reuse_ms']:.4f} ms); median of {TIMED_RUNS} (CUDA "
             f"events, cold L2); {smi}")
     return err, timing
+
+
+# --- phase 3, flash_attention ----------------------------------------------------
+
+FA_TOL = 2e-5   # flash against dense in tests/test_pallas_attention.py
+
+
+def _fa_case(bh, T, D, dev, gen, bias=None, heads=12):
+    """q, k, v [bh, T, D] of scale 0.3, and a bias over bh = B * heads:
+    None; "mask", a padding mask [B, 1, 1, T] of 0 / -1e9 broadcast to
+    [B, heads, T, T] (a view with zero strides, as the MHA op builds it);
+    "full", [B, heads, T, T] of scale 0.5; "masked_row", "full" with row 3
+    at -inf everywhere."""
+    q, k, v = (torch.randn((bh, T, D), generator=gen, device=dev) * 0.3
+               for _ in range(3))
+    b = bh // heads
+    if bias == "mask":
+        keep = torch.rand((b, 1, 1, T), generator=gen, device=dev) < 0.7
+        keep[..., 0] = True
+        zero = torch.zeros((), device=dev)
+        bias = torch.where(keep, zero, torch.full((), -1e9, device=dev)) \
+            .expand(b, heads, T, T)
+    elif bias in ("full", "masked_row"):
+        kind = bias
+        bias = torch.randn((b, heads, T, T), generator=gen, device=dev) * 0.5
+        if kind == "masked_row":
+            bias[:, :, 3] = float("-inf")
+    return q, k, v, bias
+
+
+def compare_flash(bh, T, D, causal, bias, dev, gen):
+    from deeplearning4j_tpu_torch.ops import attention
+
+    heads = 12
+    q, k, v, b = _fa_case(bh, T, D, dev, gen, bias, heads)
+    scale = D ** -0.5
+    got = attention.flash_attention_cuda(q, k, v, scale, causal, b)
+    want = attention.flash_attention_reference(q, k, v, scale, causal, b)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    check(bool(torch.isfinite(got).all()) and err <= FA_TOL,
+          f"flash_attention [{bh},{T},{D}] causal={causal} bias={bias}: "
+          f"max_abs_err {err} not <= {FA_TOL}")
+    if bias == "masked_row":
+        check(not got.view(bh // heads, heads, T, D)[:, :, 3].any(),
+              "flash_attention: the row masked everywhere is not 0")
+    return err
+
+
+def time_flash(bh, T, D, dev, gen, flush):
+    """Kernel, plain version, F.scaled_dot_product_attention (the one
+    PyTorch call for the same function, on the same float32 tensors) and
+    the unfused matmul + softmax + matmul, beside the least time: the
+    larger of q, k, v read once and out written once over 3.35 TB/s and
+    4*BH*T*T*D float32 operations over 67 TFLOP/s."""
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.ops import attention
+
+    q, k, v, _ = _fa_case(bh, T, D, dev, gen)
+    scale = D ** -0.5
+    q4, k4, v4 = (t.view(bh // 12, 12, T, D) for t in (q, k, v))
+    kernel = lambda: attention.flash_attention_cuda(q, k, v, scale)  # noqa: E731
+    plain = lambda: attention.flash_attention_reference(q, k, v, scale)  # noqa: E731
+    library = lambda: F.scaled_dot_product_attention(q4, k4, v4)  # noqa: E731
+    unfused = lambda: torch.softmax(  # noqa: E731
+        (q @ k.transpose(1, 2)) * scale, dim=-1) @ v
+    want = kernel()
+    for name, fn in (("scaled_dot_product_attention", library),
+                     ("unfused", unfused)):
+        check(torch.allclose(fn().reshape(bh, T, D), want, rtol=0,
+                             atol=1e-4), f"{name} yardstick computes another "
+              f"function")
+    nbytes = 4 * bh * T * D * 4
+    flops = 4 * bh * T * T * D
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    return {"shape": [bh, T, D], "ms": _time_ms(kernel, flush),
+            "plain_ms": _time_ms(plain, flush),
+            "library_ms": _time_ms(library, flush),
+            "unfused_ms": _time_ms(unfused, flush),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def phase_flash_attention(smi: str, dev):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 6)
+    bh, T, D = FA_PATH
+    cases = [(bh, T, D, False, None), (bh, T, D, True, None),
+             (bh, T, D, False, "mask"), (bh, T, D, False, "full"),
+             (bh, T, D, False, "masked_row"), (24, 200, 64, False, "mask"),
+             (24, 200, 64, True, None)]
+    cases += [(24, 512, d, c, None) for d in (32, 64, 128)
+              for c in (False, True)]
+    err = 0.0
+    for case in cases:
+        err = max(err, compare_flash(*case, dev, gen))
+    log(f"[kernels] flash_attention vs plain: {len(cases)} comparisons (the "
+        f"encoder path's [{bh},{T},{D}] non-causal, causal, with the MHA "
+        f"mask bias, a full [B,H,T,T] bias and a row masked everywhere; T 200 "
+        f"(a tail tile); T 512 with D 32/64/128) ok; max_abs_err {err} "
+        f"(<= {FA_TOL}); {smi}")
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    timing = {"path": time_flash(*FA_PATH, dev, gen, flush),
+              "long": time_flash(*FA_LONG, dev, gen, flush)}
+    for name, t in timing.items():
+        log(f"[kernels] flash_attention {name} {t['shape']} (B*H, T, D) "
+            f"float32: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+            f"ms, F.scaled_dot_product_attention {t['library_ms']:.4f} ms, "
+            f"unfused matmul+softmax+matmul {t['unfused_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['flops']} flops at "
+            f"67 TFLOP/s, {t['bytes']} B at 3.35 TB/s); median of "
+            f"{TIMED_RUNS} (CUDA events, cold L2); {smi}")
+    return err, timing
+
+
+def phase_flash_grad(smi: str, dev):
+    """Gradients through the kernel's forward and the blockwise backward
+    against autograd through dense attention, at [8, 256, 64]: dq, dk, dv,
+    and dbias for a full bias and for the MHA mask shape."""
+    from deeplearning4j_tpu_torch.ops import attention
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    B, H, T, D = 2, 4, 256, 64
+    worst = 0.0
+    for causal in (False, True):
+        for kind in (None, "full", "mask"):
+            q, k, v = (t.view(B, H, T, D).clone().requires_grad_()
+                       for t in _fa_case(B * H, T, D, dev, gen)[:3])
+            bias = None
+            if kind == "full":
+                bias = torch.randn((B, H, T, T), generator=gen, device=dev)
+            elif kind == "mask":
+                bias = torch.randn((B, 1, 1, T), generator=gen, device=dev)
+            if bias is not None:
+                bias = (bias * 0.5).requires_grad_()
+            tgt = torch.randn((B, H, T, D), generator=gen, device=dev)
+            before = attention.flash_attention_launches
+            out = attention.flash_attention(q, k, v, causal=causal,
+                                            bias=bias)
+            check(attention.flash_attention_launches == before + 1,
+                  "the gradient phase did not launch the kernel")
+            leaves = [q, k, v] + ([bias] if bias is not None else [])
+            got = torch.autograd.grad((out * tgt).sum(), leaves)
+            s = torch.einsum("bhqd,bhkd->bhqk", q, k) * D ** -0.5
+            if bias is not None:
+                s = s + bias
+            if causal:
+                s = s.masked_fill(torch.ones(T, T, dtype=torch.bool,
+                                             device=dev).triu(1),
+                                  float("-inf"))
+            dense = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1), v)
+            want = torch.autograd.grad((dense * tgt).sum(), leaves)
+            for g, w, n in zip(got, want, ("dq", "dk", "dv", "dbias")):
+                e = (g - w).abs().max().item()
+                check(g.shape == w.shape and e <= 1e-4,
+                      f"flash_attention {n} causal={causal} bias={kind}: "
+                      f"max_abs_err {e} not <= 1e-4")
+                worst = max(worst, e)
+    log(f"[attention-grad] [{B * H},{T},{D}]: dq, dk, dv (and dbias, full "
+        f"and mask-shaped) through the kernel's forward vs autograd through "
+        f"dense attention, causal and not: max_abs_err {worst} (<= 1e-4); "
+        f"{smi}")
+    return worst
 
 
 # --- phase 3, fused_update -------------------------------------------------------
@@ -1095,6 +1294,178 @@ def phase_word2vec(smi: str, dev):
             "cluster_same": same, "cluster_diff": diff}
 
 
+# --- phases 9 and 10 ------------------------------------------------------------
+
+def encoder_conf(vocab=BERT["vocab"], positions=BERT["positions"],
+                 seq_len=SEQ_LEN, hidden=BERT["hidden"], layers=BERT["layers"],
+                 heads=BERT["heads"], ff=BERT["ff"], classes=2,
+                 eps=1e-12, seed=SEED):
+    """BERT-base as a DL4J user builds it from the graph builder's layers:
+    token and position embeddings (EmbeddingSequenceLayer) added and
+    layer-normed, then per layer self-attention (SelfAttentionLayer, no
+    projection bias) + residual + LayerNorm and a GELU (erf) feed-forward of
+    two TimeDistributed dense layers + residual + LayerNorm; an average
+    pool over time and a softmax head over ``classes``. No token-type
+    embeddings, no attention mask, a pooled head in place of [CLS]. Inputs
+    ``tokens`` and ``positions``, int32 [B, seq_len]."""
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.builder import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.graph import (
+        ComputationGraphConfiguration, ElementWiseVertex)
+
+    b = NeuralNetConfiguration.builder().seed(seed).data_type("float32")
+    gb = ComputationGraphConfiguration.graph_builder(b) \
+        .add_inputs("tokens", "positions")
+    gb.add_layer("tok_emb", L.EmbeddingSequenceLayer(n_out=hidden), "tokens")
+    gb.add_layer("pos_emb", L.EmbeddingSequenceLayer(n_out=hidden),
+                 "positions")
+    gb.add_vertex("emb", ElementWiseVertex(op="add"), "tok_emb", "pos_emb")
+    gb.add_layer("emb_ln", L.LayerNormalization(eps=eps), "emb")
+    prev = "emb_ln"
+    for i in range(layers):
+        p = f"l{i}_"
+        gb.add_layer(p + "attn", L.SelfAttentionLayer(
+            n_out=hidden, n_heads=heads, project_input=True), prev)
+        gb.add_vertex(p + "res1", ElementWiseVertex(op="add"), prev,
+                      p + "attn")
+        gb.add_layer(p + "ln1", L.LayerNormalization(eps=eps), p + "res1")
+        gb.add_layer(p + "ff1", L.TimeDistributed(layer=L.DenseLayer(
+            n_out=ff, activation="gelu_exact")), p + "ln1")
+        gb.add_layer(p + "ff2", L.TimeDistributed(layer=L.DenseLayer(
+            n_out=hidden, activation="identity")), p + "ff1")
+        gb.add_vertex(p + "res2", ElementWiseVertex(op="add"), p + "ln1",
+                      p + "ff2")
+        gb.add_layer(p + "ln2", L.LayerNormalization(eps=eps), p + "res2")
+        prev = p + "ln2"
+    gb.add_layer("pool", L.GlobalPoolingLayer(pooling_type="avg"), prev)
+    gb.add_layer("out", L.OutputLayer(n_out=classes, activation="softmax",
+                                      loss="mcxent"), "pool")
+    gb.set_outputs("out")
+    gb.set_input_types(InputType.recurrent(vocab, seq_len),
+                       InputType.recurrent(positions, seq_len))
+    return gb.build()
+
+
+def encoder_inputs(batch: int, seed: int):
+    """Seeded token ids over the vocabulary and positions 0..T-1, int32."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, BERT["vocab"], (batch, SEQ_LEN)).astype(np.int32)
+    positions = np.tile(np.arange(SEQ_LEN, dtype=np.int32), (batch, 1))
+    return tokens, positions
+
+
+def _percentile(ms, q):
+    ms = sorted(ms)
+    return ms[min(len(ms) - 1, int(round(q * (len(ms) - 1))))]
+
+
+def phase_encoder(smi: str, dev):
+    """BERT-base width served through ComputationGraph.output, bf16 compute
+    and float32 parameters: 3 warm-ups, then 20 timed batches of 32 and 20
+    of 1 with every count set to 0 just before them."""
+    from deeplearning4j_tpu_torch.common.profiler import OpProfiler
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.ops import attention
+
+    torch.cuda.empty_cache()
+    model = ComputationGraph(encoder_conf()).init(seed=SEED, device=dev)
+    check(model.num_params() == BERT_PARAMS, f"encoder has "
+          f"{model.num_params()} parameters, want {BERT_PARAMS}")
+    model.conf.global_conf.compute_dtype = "bfloat16"
+    feeds = {b: [tuple(torch.from_numpy(a).to(dev)
+                       for a in encoder_inputs(b, SEED + 10 + i))
+                 for i in range(ENC_TIMED)] for b in (ENC_BATCH, 1)}
+    for _ in range(ENC_WARMUP):
+        model.output(*feeds[ENC_BATCH][0])
+        model.output(*feeds[1][0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prof = OpProfiler.get()
+    prof.reset()
+    attention.reset_launches()
+    times = {}
+    outs = []
+    per_forward = []
+    for b in (ENC_BATCH, 1):
+        times[b] = []
+        for feed in feeds[b]:
+            before = attention.flash_attention_launches
+            t0 = time.perf_counter()
+            out = model.output(*feed)[0]
+            torch.cuda.synchronize()
+            times[b].append((time.perf_counter() - t0) * 1e3)
+            per_forward.append(attention.flash_attention_launches - before)
+            outs.append(out)
+    launches = attention.flash_attention_launches
+    counters = prof.get_counters()
+    peak = torch.cuda.max_memory_allocated()
+    n_fwd = 2 * ENC_TIMED
+    check(per_forward == [BERT["layers"]] * n_fwd, f"flash launches per "
+          f"forward {sorted(set(per_forward))}, want {BERT['layers']}")
+    check(counters.get("attention/mha_flash", 0) == BERT["layers"] * n_fwd
+          and counters.get("attention/mha_dense", 0) == 0,
+          f"attention routes {counters}")
+    for out, b in zip(outs, [ENC_BATCH] * ENC_TIMED + [1] * ENC_TIMED):
+        o = out.float()
+        check(tuple(o.shape) == (b, 2), f"output shape {tuple(o.shape)}")
+        check(bool(torch.isfinite(o).all()), "encoder output not finite")
+        err = (o.sum(1) - 1).abs().max().item()
+        check(err <= 1e-2, f"encoder rows sum to 1 +- {err}")
+    result = {"params": model.num_params(), "peak_bytes": peak,
+              "launches": launches, "launches_per_forward": BERT["layers"]}
+    for b in (ENC_BATCH, 1):
+        ms = times[b]
+        result[f"b{b}"] = {
+            "sequences_per_s": b * len(ms) / sum(ms) * 1e3,
+            "p50_ms": _percentile(ms, 0.5), "p99_ms": _percentile(ms, 0.99)}
+        r = result[f"b{b}"]
+        log(f"[encoder] BERT-base width ({BERT_PARAMS} parameters, "
+            f"{BERT['layers']} layers, hidden {BERT['hidden']}, "
+            f"{BERT['heads']} heads, T {SEQ_LEN}), bf16 compute, float32 "
+            f"parameters, ComputationGraph.output batch {b}: "
+            f"{r['sequences_per_s']:.2f} sequences/s, latency p50 "
+            f"{r['p50_ms']:.3f} ms p99 {r['p99_ms']:.3f} ms ({ENC_TIMED} "
+            f"batches after {ENC_WARMUP} warm-ups); {smi}")
+    log(f"[encoder] flash_attention launches {launches} = {BERT['layers']} "
+        f"per forward x {n_fwd}; peak device memory {peak} B; largest "
+        f"probability {max(o.float().max().item() for o in outs):.4f}; "
+        f"{smi}")
+    return model, result
+
+
+def phase_encoder_parity(model, smi: str, dev):
+    """The same encoder in float32 at batch 2: its output on the card (the
+    kernel) against the same weights on the CPU (the plain version)."""
+    from deeplearning4j_tpu_torch.common.environment import Environment
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.ops import attention
+    from deeplearning4j_tpu_torch.util.convert import graph_state_from_numpy
+
+    Environment.get().set_tf32(False)
+    model.conf.global_conf.compute_dtype = None
+    tokens, positions = encoder_inputs(2, SEED + 9)
+    before = attention.flash_attention_launches
+    card = model.output(tokens, positions)[0].float().cpu()
+    check(attention.flash_attention_launches == before + BERT["layers"],
+          "the float32 encoder did not launch the kernel once per layer")
+    cpu = ComputationGraph(encoder_conf()).init(seed=SEED + 1, device="cpu")
+    graph_state_from_numpy(cpu, {n: {k: t.cpu().numpy() for k, t in d.items()}
+                                 for n, d in model._params.items()}, {})
+    t0 = time.perf_counter()
+    host = cpu.output(tokens, positions)[0]
+    cpu_s = time.perf_counter() - t0
+    check(attention.flash_attention_launches == before + BERT["layers"],
+          "the CPU run launched the kernel")
+    err = (card - host).abs().max().item()
+    check(err <= 1e-4, f"encoder card vs CPU float32: max abs err {err} "
+          f"not <= 1e-4")
+    log(f"[encoder-parity] float32, TF32 off, batch 2: card (flash kernel) "
+        f"vs CPU (plain version) probabilities max abs err {err} (<= 1e-4); "
+        f"CPU forward {cpu_s:.2f} s; {smi}")
+    return err
+
+
 # --- main -----------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -1106,7 +1477,8 @@ def main(argv=None) -> int:
         return 2
     try:
         import deeplearning4j_tpu_torch  # noqa: F401
-        from deeplearning4j_tpu_torch.ops import embeddings, epilogue, update
+        from deeplearning4j_tpu_torch.ops import (attention, embeddings,
+                                                  epilogue, update)
     except ImportError as e:
         print(f"chip_smoke: the port's package is not beside this script "
               f"({e})", file=sys.stderr)
@@ -1120,6 +1492,8 @@ def main(argv=None) -> int:
         errs, timing = phase_kernels(smi, dev)
         upd_errs, upd_timing = phase_fused_update(smi, dev)
         bag_err, bag_timing = phase_embedding_bag(smi, dev)
+        fa_err, fa_timing = phase_flash_attention(smi, dev)
+        fa_grad_err = phase_flash_grad(smi, dev)
         model = build_model(dev)
         launches, batches = phase_serving(model, smi, dev)
         phase_parity(model, dev)
@@ -1128,6 +1502,9 @@ def main(argv=None) -> int:
         train = phase_train(smi, dev)
         tparity = phase_train_parity(dev)
         w2v = phase_word2vec(smi, dev)
+        enc_model, enc = phase_encoder(smi, dev)
+        enc["parity_max_abs_err"] = phase_encoder_parity(enc_model, smi, dev)
+        del enc_model
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -1177,11 +1554,22 @@ def main(argv=None) -> int:
             "shape", "indices", "ms", "plain_ms", "library_ms", "unfused_ms",
             "bound_ms", "bytes", "bytes_no_reuse")}
            for name in ("path_raw_zipf", "wide")}})
+    fp, fl = fa_timing["path"], fa_timing["long"]
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": attention.SOURCE, "replaces": attention.REPLACES,
+        "launches": enc["launches"], "max_abs_err": fa_err,
+        "grad_max_abs_err": fa_grad_err, "shape": fp["shape"],
+        "dtype": "float32", "ms": fp["ms"], "plain_ms": fp["plain_ms"],
+        "bound_ms": fp["bound_ms"], "bound_by": fp["bound_by"],
+        "library_ms": fp["library_ms"], "unfused_ms": fp["unfused_ms"],
+        "long": {k: fl[k] for k in ("shape", "ms", "plain_ms", "library_ms",
+                                    "unfused_ms", "bound_ms", "bound_by")}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"train": {k: v for k, v in train.items()
                                 if k != "counters"},
                       "train_parity": tparity,
-                      "word2vec_cbow": w2v}), flush=True)
+                      "word2vec_cbow": w2v, "encoder": enc}), flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

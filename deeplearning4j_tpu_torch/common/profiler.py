@@ -15,6 +15,11 @@ The counter part of ``deeplearning4j_tpu/common/profiler.py``'s
 - Word2Vec: ``nlp/w2v_blocks`` and ``nlp/w2v_rounds`` (CBOW blocks and
   rounds run; each round launches ``embedding_bag`` once, counted beside
   its wrapper as ``ops/embeddings.embedding_bag_launches``);
+- attention: ``attention/mha_flash`` and ``attention/mha_dense`` (calls of
+  ``ops/nn.multi_head_dot_product_attention`` that took flash attention or
+  the dense path; the flash kernel's launches are counted beside its
+  wrapper as ``ops/attention.flash_attention_launches``). The JAX package
+  counts neither;
 - gauges (levels, set not added): ``precision/grads_flat_in_step`` (1 when
   the step's gradients were born in the flat buckets) and
   ``precision/updater_state_bytes_<dtype>`` / ``..._total``.

@@ -115,7 +115,8 @@ class Builder:
 
 
 def apply_layer_defaults(l: L.Layer, gc: GlobalConf) -> None:
-    """Cascade global defaults onto a layer."""
+    """Cascade global defaults onto a layer, and onto the layer a wrapper
+    (``TimeDistributed``) holds."""
     if l.activation is None and not isinstance(l, L.OutputLayer):
         l.activation = gc.activation
     if l.weight_init is None:
@@ -128,3 +129,6 @@ def apply_layer_defaults(l: L.Layer, gc: GlobalConf) -> None:
         l.l2 = gc.l2
     if l.dropout is None:
         l.dropout = gc.dropout
+    inner = getattr(l, "layer", None)
+    if isinstance(inner, L.Layer):
+        apply_layer_defaults(inner, gc)

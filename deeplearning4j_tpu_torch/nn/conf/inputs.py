@@ -1,20 +1,26 @@
 """Input type system + preprocessors.
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/inputs.py``: CNN activations are
-NCHW, feed-forward activations ``[batch, size]``; the graph builder inserts
-``cnn_to_ff`` where a CNN output feeds a dense layer.
+NCHW, feed-forward activations ``[batch, size]``, recurrent activations
+``[batch, time, size]`` (the JAX package's layout, not DL4J's
+``[batch, size, time]``); the graph builder inserts ``cnn_to_ff`` where a
+CNN output feeds a dense layer.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 
 class InputType:
     @staticmethod
     def feed_forward(size: int) -> "FFInput":
         return FFInput(size)
+
+    @staticmethod
+    def recurrent(size: int, timesteps: Optional[int] = None) -> "RNNInput":
+        return RNNInput(size, timesteps)
 
     @staticmethod
     def convolutional(height: int, width: int, channels: int) -> "CNNInput":
@@ -24,6 +30,12 @@ class InputType:
 @dataclass(frozen=True)
 class FFInput(InputType):
     size: int
+
+
+@dataclass(frozen=True)
+class RNNInput(InputType):
+    size: int
+    timesteps: Optional[int] = None
 
 
 @dataclass(frozen=True)

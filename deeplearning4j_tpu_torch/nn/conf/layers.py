@@ -6,7 +6,10 @@ each dataclass carries its configuration fields plus ``init_params`` and
 Parameter layouts are the JAX package's, so parameters carry across by name
 and shape: dense W=[nIn,nOut] applied as ``x @ W``, conv W=[out,in,kH,kW]
 (OIHW), bias=[nOut]; BatchNormalization keeps ``gamma``/``beta`` as
-parameters and ``mean``/``var`` (float32) as state.
+parameters and ``mean``/``var`` (float32) as state; embedding tables
+W=[vocab, nOut]; self-attention Wq/Wk/Wv=[nIn, H*hs] and Wo=[H*hs, nOut].
+``LayerNormalization`` and ``TimeDistributed`` live in ``layers_ext`` and
+are reachable from here, as in the JAX package.
 
 Training mode: BatchNormalization normalizes with batch statistics
 (``ops/nn.batchnorm_train``) and returns the updated running statistics;
@@ -26,7 +29,7 @@ from ...ops import nn as ops
 from ..activations import activation_fn
 from ..losses import ILossFunction, LossMCXENT, loss_from_name
 from ..weights import init_weights
-from .inputs import CNNInput, FFInput, InputType
+from .inputs import CNNInput, FFInput, InputType, RNNInput
 
 
 def _pair(v):
@@ -90,10 +93,7 @@ class DenseLayer(Layer):
         return p
 
     def pre_output(self, params, x):
-        out = x @ params["W"]
-        if self.has_bias:
-            out = out + params["b"]
-        return out
+        return ops.linear(x, params["W"], params.get("b"))
 
     def apply(self, params, x, state, training=False):
         _no_training(self, training)
@@ -254,23 +254,27 @@ class ActivationLayer(Layer):
 
 @dataclass
 class GlobalPoolingLayer(Layer):
-    """Pools CNN spatial dims down to FF."""
+    """Pools CNN spatial dims, or the time dim of RNN input [B, T, F], down
+    to FF."""
 
     pooling_type: str = "max"
 
     def set_input_type(self, input_type):
-        if not isinstance(input_type, CNNInput):
-            raise ValueError("GlobalPoolingLayer needs CNN input")
-        return FFInput(input_type.channels)
+        if isinstance(input_type, CNNInput):
+            return FFInput(input_type.channels)
+        if isinstance(input_type, RNNInput):
+            return FFInput(input_type.size)
+        raise ValueError("GlobalPoolingLayer needs CNN or RNN input")
 
     def apply(self, params, x, state, training=False):
         kind = self.pooling_type.lower()
+        dims = (2, 3) if x.ndim == 4 else (1,)
         if kind == "max":
-            out = torch.amax(x, dim=(2, 3))
+            out = torch.amax(x, dim=dims)
         elif kind in ("avg", "average"):
-            out = ops.global_avgpool(x)
+            out = ops.global_avgpool(x) if x.ndim == 4 else x.mean(dim=1)
         elif kind == "sum":
-            out = x.sum(dim=(2, 3))
+            out = x.sum(dim=dims)
         else:
             raise ValueError(f"unknown pooling {self.pooling_type!r}")
         return out, state
@@ -300,6 +304,109 @@ class OutputLayer(DenseLayer):
             state
 
 
+@dataclass
+class SelfAttentionLayer(Layer):
+    """Multi-head dot-product self-attention (Q = K = V = the input) over
+    RNN input [B, T, F]. ``project_input=True`` learns Wq/Wk/Wv/Wo (required
+    when n_heads > 1) and runs ``ops/nn.multi_head_dot_product_attention``,
+    which takes flash attention where the gate allows; otherwise raw
+    single-head dense attention over the input, with n_out = n_in. The JAX
+    package's feature mask (``apply_masked``) arrives with the masked path
+    of ``MultiLayerNetwork``."""
+
+    n_out: int = 0
+    n_heads: int = 1
+    head_size: Optional[int] = None
+    project_input: bool = True
+
+    def set_input_type(self, input_type):
+        if not isinstance(input_type, RNNInput):
+            raise ValueError("SelfAttentionLayer needs RNN input [B, T, F]")
+        self.n_in = input_type.size
+        if not self.project_input:
+            if self.n_heads != 1:
+                raise ValueError("project_input=False requires n_heads=1")
+            self.n_out = self.n_in
+        return RNNInput(self.n_out, input_type.timesteps)
+
+    def _hs(self) -> int:
+        return self.head_size or self.n_out // self.n_heads
+
+    def init_params(self, gen, dtype=torch.float32, device=None):
+        if not self.project_input:
+            return {}
+        width = self.n_heads * self._hs()
+        wi = self.weight_init or "xavier"
+        shapes = {"Wq": (self.n_in, width), "Wk": (self.n_in, width),
+                  "Wv": (self.n_in, width), "Wo": (width, self.n_out)}
+        return {k: init_weights(gen, shape, wi, dtype, device=device)
+                for k, shape in shapes.items()}
+
+    def apply(self, params, x, state, training=False):
+        _no_training(self, training)
+        if self.project_input:
+            return ops.multi_head_dot_product_attention(
+                x, x, x, params["Wq"], params["Wk"], params["Wv"],
+                params["Wo"], num_heads=self.n_heads), state
+        return ops.dot_product_attention(x, x, x), state
+
+    @property
+    def has_params(self):
+        return self.project_input
+
+
+@dataclass
+class EmbeddingLayer(Layer):
+    """Integer index [B] (or one-hot [B, vocab]) to [B, nOut]: a row of the
+    table W = [vocab, nOut]. The JAX package's ``table_sharding`` (a mesh
+    axis) is not ported. Indices outside the table raise, where the JAX
+    package's gather fills them."""
+
+    n_out: int = 0
+
+    def set_input_type(self, input_type):
+        self.n_in = input_type.size  # vocabulary size
+        return FFInput(self.n_out)
+
+    def init_params(self, gen, dtype=torch.float32, device=None):
+        return {"W": init_weights(gen, (self.n_in, self.n_out),
+                                  self.weight_init or "xavier", dtype,
+                                  device=device)}
+
+    def _lookup(self, W, idx):
+        return W[idx.to(torch.int64)]
+
+    def apply(self, params, x, state, training=False):
+        _no_training(self, training)
+        if x.is_floating_point() and x.ndim == 2 and x.shape[-1] == self.n_in:
+            idx = torch.argmax(x, dim=-1)  # one-hot form
+        else:
+            idx = x
+            if idx.ndim == 2 and idx.shape[-1] == 1:
+                idx = idx[:, 0]
+        out = self._lookup(params["W"], idx)
+        return activation_fn(self.activation or "identity")(out), state
+
+
+@dataclass
+class EmbeddingSequenceLayer(EmbeddingLayer):
+    """Integer indices [B, T] to RNN [B, T, nOut]."""
+
+    def set_input_type(self, input_type):
+        self.n_in = input_type.size
+        return RNNInput(self.n_out, getattr(input_type, "timesteps", None))
+
+    def apply(self, params, x, state, training=False):
+        _no_training(self, training)
+        idx = x
+        if idx.ndim == 3 and idx.shape[-1] == 1:
+            idx = idx[..., 0]
+        out = self._lookup(params["W"], idx)
+        return activation_fn(self.activation or "identity")(out), state
+
+
 #: the classes this slice ports (the graph's fusion plan and the
 #: preprocessor insertion test membership against them)
 FF_LIKE: Tuple[Any, ...] = (DenseLayer, OutputLayer)
+
+from .layers_ext import LayerNormalization, TimeDistributed  # noqa: E402,F401

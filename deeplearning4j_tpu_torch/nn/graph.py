@@ -19,8 +19,10 @@ gradients are born in a flat bucket, and the update is one launch of the
 rounding come from the graph's own ``torch.Generator``.
 
 ``ComputationGraph.init`` places parameters on the card unless the caller
-asks for another device (``device="cpu"``). ``output`` returns a list of
-tensors, one per network output.
+asks for another device (``device="cpu"``). ``output`` takes one array per
+network input (or a dict by name) and returns a list of tensors, one per
+network output. Under ``compute_dtype`` only floating inputs are cast, so
+integer inputs (token ids, positions) stay integers.
 """
 
 from __future__ import annotations

@@ -1,17 +1,28 @@
-"""Neural-net ops of ResNet-50: convolution, pooling, batchnorm.
+"""Neural-net ops of ResNet-50 and the self-attention encoder: convolution,
+pooling, batchnorm, layer norm, linear, attention.
 
 Counterpart of the subset of ``deeplearning4j_tpu/ops/nn.py`` that ResNet-50
-inference and training run. Layouts are the JAX package's: activations
-NCHW, conv weights OIHW. Convolutions and pooling go to ``F.conv2d`` and
-``F.max_pool2d`` (cuDNN on the card), backward included through autograd, as
-the JAX package leaves them to XLA outside any Pallas kernel. Padding is
-explicit (``(ph, pw)``); the "same" convolution mode arrives with the models
-that use it.
+inference and training and the self-attention encoder run. Layouts are the
+JAX package's: activations NCHW, conv weights OIHW. Convolutions and pooling
+go to ``F.conv2d`` and ``F.max_pool2d`` (cuDNN on the card), backward
+included through autograd, as the JAX package leaves them to XLA outside any
+Pallas kernel. Padding is explicit (``(ph, pw)``); the "same" convolution
+mode arrives with the models that use it.
 
 :func:`batchnorm_train` is the training form with the JAX package's hand
 backward (a ``torch.autograd.Function``), not ``F.batch_norm(training=True)``:
 that one recentres differently and feeds the running variance the unbiased
 batch variance, where the JAX package uses the biased one.
+
+:func:`multi_head_dot_product_attention` keeps the JAX package's dispatch:
+self-attention (``tq == tk``) that the Hopper gate takes goes to
+``ops/attention.flash_attention`` (a mask becomes the additive bias
+``where(mask, 0, -1e9)``), everything else to the dense
+:func:`dot_product_attention`. The JAX package also requires its TPU
+backend there; the port does not look at the device: ``flash_attention``
+launches the kernel for CUDA tensors and runs its plain version for CPU
+tensors. Each call is counted under ``attention/mha_flash`` or
+``attention/mha_dense``.
 """
 
 from __future__ import annotations
@@ -20,6 +31,9 @@ from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+
+from ..common.profiler import OpProfiler
+from .attention import flash_attention, supports_flash
 
 Pair = Union[int, Tuple[int, int]]
 
@@ -150,3 +164,77 @@ def batchnorm_train(x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
     return _BatchNormTrain.apply(x, gamma, beta,
                                  pivot.to(torch.float32).detach(), axis,
                                  float(epsilon))
+
+
+def layer_norm(x: torch.Tensor, gain=None, bias=None, axis: int = -1,
+               epsilon: float = 1e-5) -> torch.Tensor:
+    """``(x - mean) * rsqrt(var + eps) * gain + bias`` over ``axis``, the
+    biased variance, computed in ``x``'s dtype as the JAX package does."""
+    mean = x.mean(dim=axis, keepdim=True)
+    var = x.var(dim=axis, keepdim=True, unbiased=False)
+    out = (x - mean) * torch.rsqrt(var + epsilon)
+    if gain is not None:
+        out = out * gain
+    if bias is not None:
+        out = out + bias
+    return out.to(x.dtype)
+
+
+def linear(x: torch.Tensor, w: torch.Tensor, b=None) -> torch.Tensor:
+    """``x @ W + b`` with the reference layout ``W = [nIn, nOut]``."""
+    out = x @ w
+    if b is not None:
+        out = out + b
+    return out
+
+
+def dot_product_attention(q, k, v, mask=None, scaled: bool = True):
+    """Dense single-head attention over the last two dims: q, k, v
+    ``[..., T, d]``; ``mask`` (nonzero = attend) broadcasts against the
+    ``[..., Tq, Tk]`` scores."""
+    d = q.shape[-1]
+    scores = torch.einsum("...qd,...kd->...qk", q, k)
+    if scaled:
+        scores = scores / torch.sqrt(torch.tensor(float(d), dtype=scores.dtype,
+                                                  device=scores.device))
+    if mask is not None:
+        scores = torch.where(mask.to(torch.bool), scores,
+                             torch.tensor(-1e9, dtype=scores.dtype,
+                                          device=scores.device))
+    weights = torch.softmax(scores, dim=-1)
+    return torch.einsum("...qk,...kd->...qd", weights, v)
+
+
+def multi_head_dot_product_attention(q, k, v, wq, wk, wv, wo, mask=None,
+                                     num_heads: int = 1,
+                                     scaled: bool = True) -> torch.Tensor:
+    """q, k, v ``[B, T, dModel]``; per-head projections ``[dModel, H*dh]``,
+    attention, then ``wo`` ``[H*dh, nOut]``. ``mask`` ``[B, Tk]`` masks keys.
+    Self-attention that :func:`~.attention.supports_flash` takes runs
+    through flash attention, the rest densely (see the module docstring)."""
+    b, tq, _ = q.shape
+    tk = k.shape[1]
+
+    def split_heads(x, w):
+        proj = x @ w                                   # [B, T, H*dh]
+        return proj.reshape(b, x.shape[1], num_heads, -1).permute(0, 2, 1, 3)
+
+    qh, kh, vh = split_heads(q, wq), split_heads(k, wk), split_heads(v, wv)
+    dh = qh.shape[-1]
+    prof = OpProfiler.get()
+    if tq == tk and supports_flash(tq, dh):
+        scale = dh ** -0.5 if scaled else 1.0
+        bias = None
+        if mask is not None:
+            zero = torch.zeros((), dtype=torch.float32, device=qh.device)
+            bias = torch.where(mask.reshape(b, 1, 1, tk).to(torch.bool), zero,
+                               torch.full((), -1e9, dtype=torch.float32,
+                                          device=qh.device))
+        out = flash_attention(qh, kh, vh, sm_scale=scale, bias=bias)
+        prof.count("attention/mha_flash")
+    else:
+        m = mask.reshape(b, 1, 1, tk) if mask is not None else None
+        out = dot_product_attention(qh, kh, vh, m, scaled)   # [B, H, Tq, dh]
+        prof.count("attention/mha_dense")
+    out = out.permute(0, 2, 1, 3).reshape(b, tq, -1)
+    return out @ wo

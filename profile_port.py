@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Where one ResNet-50 serving forward, or one training step, of the port
-spends its time, on the card.
+"""Where one ResNet-50 serving forward, one training step, one CBOW block or
+one encoder forward of the port spends its time, on the card.
 
     python3 profile_port.py          # serving forward; needs one card
     python3 profile_port.py --train  # training step (chip_smoke phase 6)
     python3 profile_port.py --word2vec  # one CBOW block (chip_smoke phase 8)
+    python3 profile_port.py --encoder   # one encoder forward (phase 9)
 
 Builds the model ``chip_smoke.py`` serves (full-size ResNet-50, seeded random
 weights, calibrated BN statistics, bf16 compute) and prints, beside the
@@ -36,6 +37,15 @@ block from the same tables give bitwise equal tables, with ``index_add_``'s
 atomics and with ``torch.use_deterministic_algorithms``. The trace goes to
 ``chiprun_out/profile_port_w2v_trace.json.gz``.
 
+With ``--encoder`` it builds the BERT-base-width encoder ``chip_smoke.py``
+serves (seeded random weights, bf16 compute, float32 parameters) and prints
+the time of one ``ComputationGraph.output`` forward at batch 32 and 1
+(median of 10 after 3 warm-ups) and a ``torch.profiler`` trace of 3
+forwards at batch 32: device busy share of the wall, device time by
+category with the ``flash_attention`` kernel on its own line, and the
+kernels that take the most device time. The trace goes to
+``chiprun_out/profile_port_encoder_trace.json.gz``.
+
 The last line is one JSON object with the numbers.
 """
 
@@ -53,27 +63,28 @@ import torch
 import chip_smoke as cs
 
 
-def forward_ms(model, x, runs: int = 10, warmup: int = 3) -> float:
+def forward_ms(model, *inputs, runs: int = 10, warmup: int = 3) -> float:
     for _ in range(warmup):
-        model.output(x)
+        model.output(*inputs)
     torch.cuda.synchronize()
     times = []
     for _ in range(runs):
         t0 = time.perf_counter()
-        model.output(x)
+        model.output(*inputs)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
 
 
 #: kernel-name patterns of the device-time breakdown, first match wins
-CATEGORIES = (("fused_update", ("fused_update",)),
+CATEGORIES = (("flash_attention", ("flash_fwd_kernel",)),
+              ("fused_update", ("fused_update",)),
               ("bn_act", ("bn_act",)),
               ("embedding_bag", ("embedding_bag",)),
               ("scatter-add (index_add_)", ("indexFunc", "index_add",
                                             "indexing_backward")),
               ("cuDNN/cuBLAS (conv, matmul, layout transposes)",
-               ("cudnn", "conv", "xmma", "gemm", "cutlass", "sm90",
+               ("cudnn", "conv", "xmma", "gemm", "cutlass", "sm90", "nvjet",
                 "nchwToNhwc", "nhwcToNchw")),
               ("reductions", ("reduce_kernel",)),
               ("elementwise", ("elementwise",)),
@@ -252,6 +263,33 @@ def word2vec_main(dev, smi: str, name: str) -> int:
     return 0
 
 
+def encoder_main(dev, smi: str, name: str) -> int:
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    model = ComputationGraph(cs.encoder_conf()).init(seed=cs.SEED, device=dev)
+    model.conf.global_conf.compute_dtype = "bfloat16"
+    result = {"device": name, "nvidia_smi": smi}
+    feeds = {}
+    for b in (cs.ENC_BATCH, 1):
+        feeds[b] = tuple(torch.from_numpy(a).to(dev)
+                         for a in cs.encoder_inputs(b, cs.SEED + 20))
+        ms = forward_ms(model, *feeds[b])
+        result[f"forward_b{b}_ms"] = ms
+        print(f"[encoder] batch {b} bf16: forward {ms:.3f} ms "
+              f"({b / ms * 1e3:.1f} sequences/s), median of 10; {smi}",
+              flush=True)
+    prof = _profile(lambda: model.output(*feeds[cs.ENC_BATCH]), 3,
+                    f"encoder forward batch {cs.ENC_BATCH} bf16", smi,
+                    "profile_port_encoder_trace.json.gz")
+    fa_ms = prof["device_ms_by_category"].get("flash_attention", 0.0)
+    print(f"[profile] flash_attention kernel: {fa_ms:.3f} ms per forward "
+          f"(12 launches), {100 * fa_ms / prof['device_ms']:.2f}% of device "
+          f"time; {smi}", flush=True)
+    result.update({"flash_attention_ms_per_forward": fa_ms, **prof})
+    print(json.dumps(result), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_port: no CUDA card available", file=sys.stderr)
@@ -268,6 +306,9 @@ def main() -> int:
     if "--train" in sys.argv[1:]:
         cs.phase_build()
         return train_main(dev, smi, name)
+    if "--encoder" in sys.argv[1:]:
+        cs.phase_build()
+        return encoder_main(dev, smi, name)
     model = cs.build_model(dev)
     model.conf.global_conf.compute_dtype = "bfloat16"
     rng = np.random.default_rng(cs.SEED + 3)

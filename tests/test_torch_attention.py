@@ -1,0 +1,230 @@
+"""The port's flash attention against the JAX package's, on the CPU.
+
+The port's ``flash_attention`` runs its plain version for CPU tensors; the
+JAX side runs its Pallas kernel in interpret mode (``interpret=True``), as
+tests/test_pallas_attention.py does. Inputs are made with numpy from a seed
+(scale 0.3, as there). Forward within 1e-5; gradients (``dq``, ``dk``,
+``dv``, ``dbias``) against ``jax.grad`` through the interpret-mode op within
+3e-5, the tolerance of tests/test_pallas_attention.py. The losses are
+``sum(out * tgt)``, whose output cotangent is ``tgt`` itself, so every
+gradient is well above the tolerance (the smallest, dq, peaks near 1e-2).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deeplearning4j_tpu.ops import nn as jnn
+from deeplearning4j_tpu.ops import pallas_attention as jfa
+from deeplearning4j_tpu_torch.common.profiler import OpProfiler
+from deeplearning4j_tpu_torch.ops import attention
+from deeplearning4j_tpu_torch.ops import nn as tnn
+
+
+def _arrays(*shapes, seed=0, scale=0.3):
+    rng = np.random.default_rng(seed)
+    return [(rng.normal(size=s) * scale).astype(np.float32) for s in shapes]
+
+
+def _mask_bias(B, T, seed):
+    """A padding mask as the MHA op builds it: [B, 1, 1, T] of 0 / -1e9."""
+    keep = np.random.default_rng(seed).random((B, 1, 1, T)) < 0.7
+    keep[..., 0] = True
+    return np.where(keep, 0.0, -1e9).astype(np.float32)
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+FORWARD_CASES = {
+    # name: (B, H, T, D, causal, bias kind, block_q, block_k)
+    "noncausal": (2, 2, 128, 32, False, None, None, None),
+    "causal": (2, 2, 128, 32, True, None, None, None),
+    "mask_bias": (2, 3, 128, 16, False, "mask", None, None),
+    "full_bias": (1, 2, 128, 32, False, "full", None, None),
+    "full_bias_causal": (1, 2, 128, 32, True, "full", None, None),
+    "k_blocks_64_128": (1, 2, 256, 32, False, None, 64, 128),
+    "k_blocks_causal": (1, 2, 256, 32, True, None, 64, 128),
+}
+
+
+def _bias_for(kind, B, H, T, seed):
+    if kind == "mask":
+        return _mask_bias(B, T, seed)
+    if kind == "full":
+        return _arrays((B, H, T, T), seed=seed, scale=0.5)[0]
+    return None
+
+
+@pytest.mark.parametrize("name", sorted(FORWARD_CASES))
+def test_forward_matches_jax_interpret(name):
+    B, H, T, D, causal, kind, bq, bk = FORWARD_CASES[name]
+    q, k, v = _arrays((B, H, T, D), (B, H, T, D), (B, H, T, D), seed=T + D)
+    bias = _bias_for(kind, B, H, T, seed=5)
+    want = np.asarray(jfa.flash_attention(
+        q, k, v, causal=causal, bias=bias, block_q=bq, block_k=bk,
+        interpret=True))
+    got = attention.flash_attention(
+        *_t(q, k, v), causal=causal,
+        bias=None if bias is None else torch.from_numpy(bias),
+        block_q=bq, block_k=bk).numpy()
+    assert got.shape == want.shape and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def test_three_dim_single_head_matches_jax():
+    q, k, v = _arrays((2, 128, 32), (2, 128, 32), (2, 128, 32), seed=1)
+    want = np.asarray(jfa.flash_attention(q, k, v, interpret=True))
+    got = attention.flash_attention(*_t(q, k, v)).numpy()
+    assert got.shape == (2, 128, 32)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def test_row_masked_everywhere_gives_zero_not_nan():
+    """A row whose bias is -inf everywhere: 0 in both packages (the
+    ``acc / max(l, 1e-30)`` finish)."""
+    q, k, v = _arrays((1, 2, 128, 16), (1, 2, 128, 16), (1, 2, 128, 16),
+                      seed=2)
+    bias = _arrays((1, 2, 128, 128), seed=3)[0]
+    bias[:, :, 5, :] = -np.inf
+    want = np.asarray(jfa.flash_attention(q, k, v, bias=bias,
+                                          interpret=True))
+    got = attention.flash_attention(*_t(q, k, v),
+                                    bias=torch.from_numpy(bias)).numpy()
+    assert np.isfinite(got).all() and not got[:, :, 5].any()
+    assert not want[:, :, 5].any()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def test_bf16_input_computes_in_float32_and_returns_bf16():
+    q, k, v = _arrays((1, 2, 64, 16), (1, 2, 64, 16), (1, 2, 64, 16), seed=4)
+    qb, kb, vb = (t.bfloat16() for t in _t(q, k, v))
+    got = attention.flash_attention(qb, kb, vb)
+    assert got.dtype == torch.bfloat16
+    want = attention.flash_attention(qb.float(), kb.float(), vb.float())
+    assert torch.equal(got, want.bfloat16())
+
+
+GRAD_CASES = {
+    # name: (causal, bias kind, bias shape the gradient sums back to)
+    "plain": (False, None, None),
+    "causal": (True, None, None),
+    "full_bias": (False, "full", (1, 2, 128, 128)),
+    "full_bias_causal": (True, "full", (1, 2, 128, 128)),
+    "mask_bias_sums_back": (False, "mask", (1, 1, 1, 128)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GRAD_CASES))
+def test_gradients_match_jax_grad_through_interpret(name):
+    causal, kind, bshape = GRAD_CASES[name]
+    B, H, T, D = 1, 2, 128, 32
+    q, k, v, tgt = _arrays(*[(B, H, T, D)] * 4, seed=11)
+    bias = _bias_for(kind, B, H, T, seed=12)
+    if kind == "mask":
+        # a learned additive bias of the mask's shape, so dbias sums back
+        bias = bias + _arrays(bias.shape, seed=13)[0]
+    argnums = (0, 1, 2, 3) if bias is not None else (0, 1, 2)
+
+    def loss_jax(q, k, v, b=None):
+        out = jfa.flash_attention(q, k, v, causal=causal, bias=b,
+                                  interpret=True)
+        return jnp.sum(out * tgt)
+
+    args = (q, k, v) + ((bias,) if bias is not None else ())
+    want = jax.grad(loss_jax, argnums=argnums)(*args)
+    leaves = [t.clone().requires_grad_() for t in _t(*args)]
+    out = attention.flash_attention(*leaves[:3], causal=causal,
+                                    bias=leaves[3] if bias is not None
+                                    else None)
+    got = torch.autograd.grad((out * torch.from_numpy(tgt)).sum(), leaves)
+    if bshape is not None:
+        assert tuple(got[3].shape) == bshape
+    for g, w, n in zip(got, want, ("dq", "dk", "dv", "dbias")):
+        w = np.asarray(w)
+        assert np.abs(w).max() > 1e-3, n     # far above the tolerance
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=3e-5,
+                                   err_msg=n)
+
+
+def test_plain_version_is_blocking_invariant():
+    """The k blocking changes the order of the sums only (T 200: a tail
+    block for every block size)."""
+    q, k, v = _t(*_arrays((3, 200, 16), (3, 200, 16), (3, 200, 16), seed=6))
+    ref = attention.flash_attention_reference(q, k, v, 0.25, True, None, 200)
+    for bk in (1, 17, 64, 128):
+        got = attention.flash_attention_reference(q, k, v, 0.25, True, None,
+                                                  bk)
+        assert (got - ref).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("T,d,port,jax_pkg", [
+    (128, 64, True, True),          # the encoder's path: both launch
+    (256, 32, True, True), (1024, 64, True, True),
+    (64, 64, True, False),          # block_k 64 is not a multiple of 128
+    (200, 64, True, False),         # not a multiple of the block
+    (1536, 64, True, False),        # 1536 % 1024
+    (128, 130, False, True),        # head size above 128
+    (128, 6, False, True),          # head size not a multiple of 4
+])
+def test_gate_differs_from_the_tpu_gate_as_documented(T, d, port, jax_pkg):
+    assert attention.supports_flash(T, d) is port
+    assert jfa.supports_flash(T, d) is jax_pkg
+
+
+def test_refused_head_size_raises_and_cpu_runs_no_kernel():
+    q = torch.zeros(1, 2, 32, 6)
+    with pytest.raises(ValueError, match="dot_product_attention"):
+        attention.flash_attention(q, q, q)
+    before = attention.flash_attention_launches
+    x = torch.zeros(1, 2, 32, 8)
+    attention.flash_attention(x, x, x)
+    assert attention.flash_attention_launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        attention.flash_attention_cuda(x[0], x[0], x[0], 0.5)
+
+
+def test_dot_product_attention_matches_jax():
+    q, k, v = _arrays((2, 3, 20, 8), (2, 3, 24, 8), (2, 3, 24, 8), seed=7)
+    mask = np.random.default_rng(8).random((2, 1, 1, 24)) < 0.8
+    for m in (None, mask):
+        want = np.asarray(jnn.dot_product_attention(q, k, v, mask=m))
+        got = tnn.dot_product_attention(
+            *_t(q, k, v), None if m is None else torch.from_numpy(m)).numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("tk,mask,route", [
+    (32, False, "attention/mha_flash"), (32, True, "attention/mha_flash"),
+    (24, False, "attention/mha_dense")])
+def test_mha_matches_jax_dense_and_takes_the_documented_route(tk, mask,
+                                                              route):
+    """The JAX package's CPU path is dense (its flash needs the TPU), the
+    port's self-attention takes flash's plain version: q*scale before the
+    product against scores/sqrt(d) after it, within 1e-5."""
+    B, tq, F, H = 2, 32, 24, 3
+    x, kv, wq, wk, wv, wo = _arrays((B, tq, F), (B, tk, F), (F, F), (F, F),
+                                    (F, F), (F, 16), seed=9, scale=0.5)
+    if tk == tq:
+        kv = x
+    m = (np.random.default_rng(10).random((B, tk)) < 0.75).astype(np.float32)
+    m = m if mask else None
+    want = np.asarray(jnn.multi_head_dot_product_attention(
+        x, kv, kv, wq, wk, wv, wo, mask=m, num_heads=H))
+    OpProfiler.get().reset()
+    got = tnn.multi_head_dot_product_attention(
+        *_t(x, kv, kv, wq, wk, wv, wo),
+        mask=None if m is None else torch.from_numpy(m), num_heads=H).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    assert OpProfiler.get().get_counters() == {route: 1}
+
+
+def test_layer_norm_matches_jax():
+    x, g, b = _arrays((3, 5, 16), (16,), (16,), seed=12, scale=2.0)
+    for eps in (1e-12, 1e-3):
+        want = np.asarray(jnn.layer_norm(x, g, b, epsilon=eps))
+        got = tnn.layer_norm(*_t(x, g, b), epsilon=eps).numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=2e-6)

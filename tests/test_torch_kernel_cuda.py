@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from deeplearning4j_tpu_torch.learning import updaters
-from deeplearning4j_tpu_torch.ops import embeddings, epilogue, update
+from deeplearning4j_tpu_torch.ops import (attention, embeddings, epilogue,
+                                          update)
 
 
 def _card():
@@ -241,3 +242,121 @@ def test_embedding_bag_kernel_refuses_what_it_does_not_take():
     with pytest.raises(RuntimeError, match="forward-only"):
         embeddings.embedding_bag_cuda(table.clone().requires_grad_(), idx,
                                       mask, counts, True)
+
+
+def _qkv(bh, T, D, dev, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy((rng.normal(size=(bh, T, D)) * 0.3).astype(
+        np.float32)).to(dev) for _ in range(3)]
+
+
+def _masked_row(T):
+    return min(3, T - 1)
+
+
+def _bias(kind, B, H, T, dev, seed):
+    """None; a padding mask broadcast from [B, 1, 1, T] as the MHA op builds
+    it; a full [B, H, T, T] bias; or a bias that masks row ``_masked_row(T)``
+    of every (batch, head) to -inf everywhere."""
+    rng = np.random.default_rng(seed)
+    if kind is None:
+        return None
+    if kind == "mask":
+        keep = rng.random((B, 1, 1, T)) < 0.7
+        keep[..., 0] = True
+        b = np.where(keep, 0.0, -1e9).astype(np.float32)
+        return torch.from_numpy(b).to(dev).expand(B, H, T, T)
+    b = (rng.normal(size=(B, H, T, T)) * 0.5).astype(np.float32)
+    if kind == "masked_row":
+        b[:, :, _masked_row(T), :] = -np.inf
+    return torch.from_numpy(b).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,T,D", [
+    (32, 12, 128, 64),               # the encoder path's [384, 128, 64]
+    (2, 3, 200, 64),                 # a tail tile
+    (1, 2, 512, 32), (1, 2, 512, 64), (1, 2, 512, 128),
+    (2, 2, 64, 4), (1, 1, 1, 8), (1, 2, 70, 100)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bias", [None, "mask", "full", "masked_row"])
+def test_flash_attention_kernel_matches_plain_version(B, H, T, D, causal,
+                                                      bias):
+    """2e-5 absolute at inputs of scale 0.3 (the flash-against-dense
+    tolerance of tests/test_pallas_attention.py); a row masked to -inf
+    everywhere gives 0."""
+    dev = _card()
+    q, k, v = _qkv(B * H, T, D, dev, T + D)
+    bt = _bias(bias, B, H, T, dev, T)
+    scale = D ** -0.5
+    before = attention.flash_attention_launches
+    got = attention.flash_attention_cuda(q, k, v, scale, causal, bt)
+    want = attention.flash_attention_reference(q, k, v, scale, causal, bt)
+    torch.cuda.synchronize()
+    assert attention.flash_attention_launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= 2e-5
+    if bias == "masked_row":
+        assert not got.view(B, H, T, D)[:, :, _masked_row(T)].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bias", [None, "full", "mask"])
+def test_flash_attention_gradients_through_the_kernel_match_dense(causal,
+                                                                  bias):
+    """dq, dk, dv (and dbias) through the kernel's forward and the blockwise
+    backward against autograd through the dense attention, within 1e-4.
+    The loss ``sum(out * tgt)`` makes the output's cotangent ``tgt`` itself,
+    so the gradients are of order one."""
+    dev = _card()
+    B, H, T, D = 2, 4, 256, 64
+    q, k, v = (t.view(B, H, T, D).requires_grad_()
+               for t in _qkv(B * H, T, D, dev, 9))
+    bt = _bias(bias, B, H, T, dev, 10)
+    if bt is not None:
+        bt = (bt[:, :1, :1] if bias == "mask" else bt).clone() \
+            .requires_grad_()
+    tgt = torch.randn(B, H, T, D, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(3))
+    before = attention.flash_attention_launches
+    out = attention.flash_attention(q, k, v, causal=causal, bias=bt)
+    assert attention.flash_attention_launches == before + 1
+    leaves = [q, k, v] + ([bt] if bt is not None else [])
+    got = torch.autograd.grad((out * tgt).sum(), leaves)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * D ** -0.5
+    if bt is not None:
+        s = s + bt
+    if causal:
+        s = s.masked_fill(torch.ones(T, T, dtype=torch.bool, device=dev)
+                          .triu(1), float("-inf"))
+    dense = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1), v)
+    want = torch.autograd.grad((dense * tgt).sum(), leaves)
+    assert (out - dense).abs().max().item() <= 2e-5
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert (g - w).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_refuses_what_it_does_not_take():
+    dev = _card()
+    q, k, v = _qkv(4, 32, 16, dev, 1)
+    with pytest.raises(ValueError):
+        attention.flash_attention_cuda(q.double(), k, v, 0.25)
+    with pytest.raises(ValueError):
+        attention.flash_attention_cuda(q.transpose(1, 2), k, v, 0.25)
+    with pytest.raises(ValueError):
+        attention.flash_attention_cuda(q, k[:, :16], v, 0.25)
+    with pytest.raises(ValueError):
+        attention.flash_attention_cuda(q, k, v.cpu(), 0.25)
+    with pytest.raises(ValueError):                  # head size 6
+        attention.flash_attention_cuda(*_qkv(4, 32, 6, dev, 2), 0.25)
+    with pytest.raises(ValueError):                  # head size 132
+        attention.flash_attention_cuda(*_qkv(4, 32, 132, dev, 2), 0.25)
+    with pytest.raises(ValueError):                  # B*H != 4
+        attention.flash_attention_cuda(q, k, v, 0.25, bias=torch.zeros(
+            3, 1, 32, 32, device=dev))
+    with pytest.raises(ValueError):                  # 1 element in: unaligned
+        buf = torch.zeros(4 * 32 * 16 + 1, device=dev)
+        attention.flash_attention_cuda(buf[1:].view(4, 32, 16), k, v, 0.25)

@@ -173,3 +173,52 @@ def f32_ulp_bound(ref: np.ndarray) -> float:
     """2 float32 ulp of the output scale (FMA contraction allowance; the
     bound tests/test_precision.py::test_cross_mode_ulp_bound uses)."""
     return 2.0 ** -22 * (float(np.max(np.abs(ref))) + 1.0)
+
+
+def encoder_conf(which: str, vocab: int = 100, positions: int = 128,
+                 seq_len: int = 128, hidden: int = 32, layers: int = 2,
+                 heads: int = 4, ff: int = 64, classes: int = 2,
+                 eps: float = 1e-12, compute_dtype=None, seed: int = 11):
+    """A BERT-shaped self-attention encoder as a DL4J user builds it with
+    the graph builder (chip_smoke.py's ``encoder_conf`` at full width):
+    token and position embeddings added and layer-normed, ``layers`` blocks
+    of self-attention + residual + LayerNorm and a GELU (erf) feed-forward
+    pair of TimeDistributed dense layers + residual + LayerNorm, an average
+    pool over time and a softmax head. Inputs ``tokens`` and ``positions``,
+    integer ``[B, seq_len]``."""
+    m = modules(which)
+    b = m.NeuralNetConfiguration.builder().seed(seed).data_type("float32")
+    if compute_dtype:
+        b = b.compute_dtype(compute_dtype)
+    gb = m.graph.ComputationGraphConfiguration.graph_builder(b) \
+        .add_inputs("tokens", "positions")
+    gb.add_layer("tok_emb", m.L.EmbeddingSequenceLayer(n_out=hidden),
+                 "tokens")
+    gb.add_layer("pos_emb", m.L.EmbeddingSequenceLayer(n_out=hidden),
+                 "positions")
+    gb.add_vertex("emb", m.graph.ElementWiseVertex(op="add"), "tok_emb",
+                  "pos_emb")
+    gb.add_layer("emb_ln", m.L.LayerNormalization(eps=eps), "emb")
+    prev = "emb_ln"
+    for i in range(layers):
+        p = f"l{i}_"
+        gb.add_layer(p + "attn", m.L.SelfAttentionLayer(
+            n_out=hidden, n_heads=heads, project_input=True), prev)
+        gb.add_vertex(p + "res1", m.graph.ElementWiseVertex(op="add"), prev,
+                      p + "attn")
+        gb.add_layer(p + "ln1", m.L.LayerNormalization(eps=eps), p + "res1")
+        gb.add_layer(p + "ff1", m.L.TimeDistributed(layer=m.L.DenseLayer(
+            n_out=ff, activation="gelu_exact")), p + "ln1")
+        gb.add_layer(p + "ff2", m.L.TimeDistributed(layer=m.L.DenseLayer(
+            n_out=hidden, activation="identity")), p + "ff1")
+        gb.add_vertex(p + "res2", m.graph.ElementWiseVertex(op="add"),
+                      p + "ln1", p + "ff2")
+        gb.add_layer(p + "ln2", m.L.LayerNormalization(eps=eps), p + "res2")
+        prev = p + "ln2"
+    gb.add_layer("pool", m.L.GlobalPoolingLayer(pooling_type="avg"), prev)
+    gb.add_layer("out", m.L.OutputLayer(n_out=classes, activation="softmax",
+                                        loss="mcxent"), "pool")
+    gb.set_outputs("out")
+    gb.set_input_types(m.InputType.recurrent(vocab, seq_len),
+                       m.InputType.recurrent(positions, seq_len))
+    return gb.build()
