@@ -28,15 +28,25 @@ Phases (each fails the run with a nonzero exit if it fails):
                (so the host's launch overhead is not timed), beside the
                bandwidth bound;
                embedding_bag also at a wide shape (V 3,000,000, D 300);
-               flash_attention within 2e-5 at the encoder path's
-               [384, 128, 64] (non-causal, causal, the MHA mask bias, a full
-               [B, H, T, T] bias, a row masked everywhere, which must give
-               0), T 200 (a tail tile) and T 512 with D 32, 64 and 128,
+               flash_attention's float32 kernel within 2e-5 at the encoder
+               path's [384, 128, 64] (non-causal, causal, the MHA mask bias,
+               a full [B, H, T, T] bias, a row masked everywhere, which must
+               give 0), T 200 (a tail tile) and T 512 with D 32, 64 and 128,
                timed at the path's shape and at [96, 512, 64] beside
                F.scaled_dot_product_attention and the unfused matmul +
-               softmax + matmul. Then its gradients (dq, dk, dv, dbias)
-               through the kernel's forward against autograd through dense
-               attention at [8, 256, 64], within 1e-4.
+               softmax + matmul. Its bf16 kernel (wgmma, TMA) against the
+               plain version in float32 on the upcast inputs (``want``) at
+               the path's [32, 12, 128, 64] as the MHA op hands it over
+               (permuted views of [B, T, H, D]; non-causal, causal, mask
+               bias, full bias, masked row) and contiguous, T 200, T 1, D
+               40, T 512 with D 32/64/128: each element within 2^-8 |want|
+               + 2e-5, at least 99% bitwise equal to want rounded to bf16,
+               the log-sum-exp within 1e-5; timed at the path's shape and
+               at [96, 512, 64], strided and contiguous, beside its plain
+               version, SDPA and the unfused path on the same bf16 tensors,
+               and its host time per call. Then the gradients (dq, dk, dv,
+               dbias) through the float32 kernel's forward against autograd
+               through dense attention at [8, 256, 64], within 1e-4.
 4. serving  -- full-size ResNet-50 (224x224x3, 1000 classes, bf16 compute,
                fused epilogue) behind ParallelInference (batched, batch limit
                32, 2 workers): 64 single-image requests from 8 client
@@ -73,12 +83,18 @@ Phases (each fails the run with a nonzero exit if it fails):
                compute and float32 parameters, served through
                ComputationGraph.output with int32 tokens and positions
                [B, 128]: 3 warm-ups, then 20 timed batches of 32 and 20 of 1.
-               Gates: 12 flash_attention launches per forward, no dense
-               attention, finite outputs of shape (B, 2) whose rows sum to 1
-               within 1e-2.
+               Gates: 12 flash_attention launches per forward, all on the
+               bf16 kernel (none on the float32 kernel), no dense attention,
+               finite outputs of shape (B, 2) whose rows sum to 1 within
+               1e-2.
 10. encoder-parity -- the same encoder in float32 (TF32 off) at batch 2 on
-               the card (the kernel) against the same weights on the CPU
-               (the plain version): probabilities within 1e-4.
+               the card (the float32 kernel, 12 launches) against the same
+               weights on the CPU (the plain version): probabilities within
+               1e-4. Then the encoder at a reduced width (hidden 256, 2
+               layers, 4 heads) in bf16 compute: the last hidden states on
+               the card (the bf16 kernel) against the CPU within 2% of their
+               norm, and no further from the float32 states than twice the
+               CPU's bf16 run.
 
 Then it prints the kernels line (one JSON object) and, last, the device line
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
@@ -475,27 +491,43 @@ def phase_embedding_bag(smi: str, dev):
 FA_TOL = 2e-5   # flash against dense in tests/test_pallas_attention.py
 
 
-def _fa_case(bh, T, D, dev, gen, bias=None, heads=12):
-    """q, k, v [bh, T, D] of scale 0.3, and a bias over bh = B * heads:
-    None; "mask", a padding mask [B, 1, 1, T] of 0 / -1e9 broadcast to
-    [B, heads, T, T] (a view with zero strides, as the MHA op builds it);
-    "full", [B, heads, T, T] of scale 0.5; "masked_row", "full" with row 3
+def _fa_bias(kind, b, heads, T, dev, gen):
+    """None; "mask", a padding mask [b, 1, 1, T] of 0 / -1e9 broadcast to
+    [b, heads, T, T] (a view with zero strides, as the MHA op builds it);
+    "full", [b, heads, T, T] of scale 0.5; "masked_row", "full" with row 3
     at -inf everywhere."""
-    q, k, v = (torch.randn((bh, T, D), generator=gen, device=dev) * 0.3
-               for _ in range(3))
-    b = bh // heads
-    if bias == "mask":
+    if kind == "mask":
         keep = torch.rand((b, 1, 1, T), generator=gen, device=dev) < 0.7
         keep[..., 0] = True
         zero = torch.zeros((), device=dev)
-        bias = torch.where(keep, zero, torch.full((), -1e9, device=dev)) \
+        return torch.where(keep, zero, torch.full((), -1e9, device=dev)) \
             .expand(b, heads, T, T)
-    elif bias in ("full", "masked_row"):
-        kind = bias
+    if kind in ("full", "masked_row"):
         bias = torch.randn((b, heads, T, T), generator=gen, device=dev) * 0.5
         if kind == "masked_row":
-            bias[:, :, 3] = float("-inf")
-    return q, k, v, bias
+            bias[:, :, min(3, T - 1)] = float("-inf")
+        return bias
+    return None
+
+
+def _fa_case(bh, T, D, dev, gen, bias=None, heads=12):
+    """q, k, v [bh, T, D] float32 of scale 0.3, and a bias over bh = B *
+    heads (:func:`_fa_bias`)."""
+    q, k, v = (torch.randn((bh, T, D), generator=gen, device=dev) * 0.3
+               for _ in range(3))
+    return q, k, v, _fa_bias(bias, bh // heads, heads, T, dev, gen)
+
+
+def _fa_bf16_case(B, H, T, D, layout, dev, gen, bias=None):
+    """bf16 q, k, v [B, H, T, D] of scale 0.3: "strided" as the MHA op hands
+    them to the kernel (permuted views of [B, T, H, D] projections),
+    "contiguous" as [B, H, T, D] tensors; and a bias (:func:`_fa_bias`)."""
+    qkv = []
+    for _ in range(3):
+        t = (torch.randn((B, T, H, D), generator=gen, device=dev) * 0.3) \
+            .to(torch.bfloat16).permute(0, 2, 1, 3)
+        qkv.append(t.contiguous() if layout == "contiguous" else t)
+    return (*qkv, _fa_bias(bias, B, H, T, dev, gen))
 
 
 def compare_flash(bh, T, D, causal, bias, dev, gen):
@@ -514,7 +546,7 @@ def compare_flash(bh, T, D, causal, bias, dev, gen):
     if bias == "masked_row":
         check(not got.view(bh // heads, heads, T, D)[:, :, 3].any(),
               "flash_attention: the row masked everywhere is not 0")
-    return err
+    return err, (got == want).float().mean().item()
 
 
 def time_flash(bh, T, D, dev, gen, flush):
@@ -564,14 +596,15 @@ def phase_flash_attention(smi: str, dev):
              (24, 200, 64, True, None)]
     cases += [(24, 512, d, c, None) for d in (32, 64, 128)
               for c in (False, True)]
-    err = 0.0
+    err, share = 0.0, 1.0
     for case in cases:
-        err = max(err, compare_flash(*case, dev, gen))
-    log(f"[kernels] flash_attention vs plain: {len(cases)} comparisons (the "
+        e, sh = compare_flash(*case, dev, gen)
+        err, share = max(err, e), min(share, sh)
+    log(f"[kernels] flash_attention float32 vs plain: {len(cases)} comparisons (the "
         f"encoder path's [{bh},{T},{D}] non-causal, causal, with the MHA "
         f"mask bias, a full [B,H,T,T] bias and a row masked everywhere; T 200 "
         f"(a tail tile); T 512 with D 32/64/128) ok; max_abs_err {err} "
-        f"(<= {FA_TOL}); {smi}")
+        f"(<= {FA_TOL}), least bitwise share {share:.4f}; {smi}")
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     timing = {"path": time_flash(*FA_PATH, dev, gen, flush),
               "long": time_flash(*FA_LONG, dev, gen, flush)}
@@ -583,7 +616,154 @@ def phase_flash_attention(smi: str, dev):
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['flops']} flops at "
             f"67 TFLOP/s, {t['bytes']} B at 3.35 TB/s); median of "
             f"{TIMED_RUNS} (CUDA events, cold L2); {smi}")
+    timing["bitwise_share"] = share
     return err, timing
+
+
+# the bf16 kernel against its plain version (float32 on the upcast inputs,
+# unrounded: ``want``): every element within 2^-8 |want| + 2e-5 (half a
+# bf16 ulp for the one rounding, plus the sums' order), at least 99% of the
+# elements bitwise equal to ``want`` rounded to bf16, the log-sum-exp
+# within 1e-5
+FA_BF16_REL = 2.0 ** -8
+FA_BF16_SHARE = 0.99
+FA_LSE_TOL = 1e-5
+BF16_FLOPS_PER_S = 989e12          # H100 SXM bf16 tensor cores, dense
+
+
+def compare_flash_bf16(B, H, T, D, causal, bias, layout, dev, gen):
+    from deeplearning4j_tpu_torch.ops import attention
+
+    q, k, v, b = _fa_bf16_case(B, H, T, D, layout, dev, gen, bias)
+    scale = D ** -0.5
+    got, lse = attention.flash_attention_bf16_cuda(q, k, v, scale, causal, b,
+                                                   with_lse=True)
+    want, want_lse = attention.flash_attention_reference(
+        q.float(), k.float(), v.float(), scale, causal, b, with_lse=True)
+    torch.cuda.synchronize()
+    g = got.float()
+    name = (f"flash_attention bf16 [{B},{H},{T},{D}] {layout} "
+            f"causal={causal} bias={bias}")
+    check(bool(torch.isfinite(g).all()), f"{name}: not finite")
+    excess = ((g - want).abs() - FA_BF16_REL * want.abs()).max().item()
+    check(excess <= 2e-5, f"{name}: |got - want| exceeds 2^-8 |want| by "
+          f"{excess} (> 2e-5)")
+    share = (got == want.bfloat16()).float().mean().item()
+    check(share >= FA_BF16_SHARE, f"{name}: bitwise share {share} < "
+          f"{FA_BF16_SHARE}")
+    lse_err = (lse - want_lse.reshape(B * H, T)).abs().max().item()
+    check(lse_err <= FA_LSE_TOL, f"{name}: lse error {lse_err}")
+    if bias == "masked_row":
+        check(not got[:, :, min(3, T - 1)].any(),
+              f"{name}: the row masked everywhere is not 0")
+    return (g - want).abs().max().item(), share, lse_err
+
+
+def time_flash_bf16(bh, T, D, layout, dev, gen, flush):
+    """The bf16 kernel (as SDPA computes it: q, k, v to out; and as the path
+    calls it, with the log-sum-exp), its plain version, SDPA and the
+    unfused matmul + softmax + matmul, all on the same bf16 tensors, beside
+    the least time: the larger of q, k, v read once and out written once in
+    bf16 over 3.35 TB/s and 4*BH*T*T*D operations over 989 TFLOP/s."""
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.ops import attention
+
+    B, H = bh // 12, 12
+    q, k, v, _ = _fa_bf16_case(B, H, T, D, layout, dev, gen)
+    scale = D ** -0.5
+    kernel = lambda: attention.flash_attention_bf16_cuda(q, k, v, scale)  # noqa: E731
+    with_lse = lambda: attention.flash_attention_bf16_cuda(  # noqa: E731
+        q, k, v, scale, with_lse=True)
+    plain = lambda: attention.flash_attention_reference(q, k, v, scale)  # noqa: E731
+    library = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+    unfused = lambda: torch.softmax(  # noqa: E731
+        (q @ k.transpose(-1, -2)) * scale, dim=-1) @ v
+    want = kernel().float()
+    for name, fn in (("scaled_dot_product_attention", library),
+                     ("unfused", unfused)):
+        check(torch.allclose(fn().float(), want, rtol=2 ** -6, atol=1e-2),
+              f"{name} yardstick computes another function")
+    nbytes = 4 * bh * T * D * 2
+    flops = 4 * bh * T * T * D
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    return {"shape": [bh, T, D], "layout": layout,
+            "ms": _time_ms(kernel, flush),
+            "ms_with_lse": _time_ms(with_lse, flush),
+            "plain_ms": _time_ms(plain, flush),
+            "library_ms": _time_ms(library, flush),
+            "unfused_ms": _time_ms(unfused, flush),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def time_encode_us(dev) -> float:
+    """Host time of one bf16 launch at the path's shape (three tensor maps
+    encoded, the launch enqueued), median of 200, in microseconds."""
+    from deeplearning4j_tpu_torch.ops import attention
+
+    B, H = FA_PATH[0] // 12, 12
+    q, k, v, _ = _fa_bf16_case(B, H, FA_PATH[1], FA_PATH[2], "strided", dev,
+                               torch.Generator(device=dev).manual_seed(1))
+    times = []
+    for _ in range(200):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        attention.flash_attention_bf16_cuda(q, k, v, 0.125, with_lse=True)
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def phase_flash_attention_bf16(smi: str, dev):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 8)
+    B, H, T, D = FA_PATH[0] // 12, 12, FA_PATH[1], FA_PATH[2]
+    cases = [(B, H, T, D, c, b, "strided") for c, b in (
+        (False, None), (True, None), (False, "mask"), (False, "full"),
+        (False, "masked_row"))]
+    cases += [(B, H, T, D, False, None, "contiguous"),
+              (2, 12, 200, 64, False, "mask", "strided"),
+              (2, 12, 200, 64, True, None, "strided"),
+              (2, 12, 1, 64, False, None, "strided"),
+              (2, 12, 128, 40, False, "full", "strided")]
+    cases += [(2, 12, 512, d, c, None, "strided") for d in (32, 64, 128)
+              for c in (False, True)]
+    err, share, lse_err = 0.0, 1.0, 0.0
+    for case in cases:
+        e, sh, le = compare_flash_bf16(*case, dev, gen)
+        err, share, lse_err = max(err, e), min(share, sh), max(lse_err, le)
+    log(f"[kernels] flash_attention bf16 vs plain (float32 on the upcast): "
+        f"{len(cases)} comparisons (the encoder path's [{B},{H},{T},{D}] "
+        f"strided non-causal, causal, the MHA mask bias, a full bias, a row "
+        f"masked everywhere, and contiguous; T 200, T 1, D 40; T 512 with D "
+        f"32/64/128) ok: max_abs_err {err} (each within 2^-8 |want| + 2e-5), "
+        f"least bitwise share {share:.4f} (>= {FA_BF16_SHARE}), lse error "
+        f"{lse_err} (<= {FA_LSE_TOL}); {smi}")
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    timing = {f"{name}_{layout}": time_flash_bf16(*shape, layout, dev, gen,
+                                                  flush)
+              for name, shape in (("path", FA_PATH), ("long", FA_LONG))
+              for layout in ("strided", "contiguous")}
+    for name, t in timing.items():
+        log(f"[kernels] flash_attention bf16 {name} {t['shape']} (B*H, T, D): "
+            f"kernel {t['ms']:.4f} ms ({t['ms_with_lse']:.4f} ms with the "
+            f"log-sum-exp, as the path calls it), plain {t['plain_ms']:.4f} "
+            f"ms, F.scaled_dot_product_attention (same bf16 tensors) "
+            f"{t['library_ms']:.4f} ms, unfused bf16 matmul+softmax+matmul "
+            f"{t['unfused_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
+            f"({t['bound_by']}: {t['bytes']} B at 3.35 TB/s, {t['flops']} "
+            f"flops at 989 TFLOP/s); median of {TIMED_RUNS} (CUDA events, "
+            f"cold L2); {smi}")
+    host_us = time_encode_us(dev)
+    log(f"[kernels] flash_attention bf16 host time per call at the path's "
+        f"shape (three tensor maps encoded, launch enqueued): {host_us:.1f} "
+        f"us, median of 200")
+    timing.update({"max_abs_err": err, "bitwise_share": share,
+                   "lse_err": lse_err, "host_us": host_us})
+    return timing
 
 
 def phase_flash_grad(smi: str, dev):
@@ -1406,6 +1586,9 @@ def phase_encoder(smi: str, dev):
     check(counters.get("attention/mha_flash", 0) == BERT["layers"] * n_fwd
           and counters.get("attention/mha_dense", 0) == 0,
           f"attention routes {counters}")
+    check(counters.get("attention/flash_bf16", 0) == launches
+          and counters.get("attention/flash_f32", 0) == 0,
+          f"flash routes {counters}: every launch must take the bf16 kernel")
     for out, b in zip(outs, [ENC_BATCH] * ENC_TIMED + [1] * ENC_TIMED):
         o = out.float()
         check(tuple(o.shape) == (b, 2), f"output shape {tuple(o.shape)}")
@@ -1413,7 +1596,8 @@ def phase_encoder(smi: str, dev):
         err = (o.sum(1) - 1).abs().max().item()
         check(err <= 1e-2, f"encoder rows sum to 1 +- {err}")
     result = {"params": model.num_params(), "peak_bytes": peak,
-              "launches": launches, "launches_per_forward": BERT["layers"]}
+              "launches": launches, "launches_per_forward": BERT["layers"],
+              "bf16_route_launches": counters.get("attention/flash_bf16", 0)}
     for b in (ENC_BATCH, 1):
         ms = times[b]
         result[f"b{b}"] = {
@@ -1428,7 +1612,7 @@ def phase_encoder(smi: str, dev):
             f"{r['p50_ms']:.3f} ms p99 {r['p99_ms']:.3f} ms ({ENC_TIMED} "
             f"batches after {ENC_WARMUP} warm-ups); {smi}")
     log(f"[encoder] flash_attention launches {launches} = {BERT['layers']} "
-        f"per forward x {n_fwd}; peak device memory {peak} B; largest "
+        f"per forward x {n_fwd}, all on the bf16 kernel; peak device memory {peak} B; largest "
         f"probability {max(o.float().max().item() for o in outs):.4f}; "
         f"{smi}")
     return model, result
@@ -1436,8 +1620,12 @@ def phase_encoder(smi: str, dev):
 
 def phase_encoder_parity(model, smi: str, dev):
     """The same encoder in float32 at batch 2: its output on the card (the
-    kernel) against the same weights on the CPU (the plain version)."""
+    float32 kernel) against the same weights on the CPU (the plain
+    version), within 1e-4; then :func:`bf16_parity`. Returns the float32
+    error, the float32 route's launches in that run, and bf16_parity's
+    numbers."""
     from deeplearning4j_tpu_torch.common.environment import Environment
+    from deeplearning4j_tpu_torch.common.profiler import OpProfiler
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
     from deeplearning4j_tpu_torch.ops import attention
     from deeplearning4j_tpu_torch.util.convert import graph_state_from_numpy
@@ -1445,10 +1633,15 @@ def phase_encoder_parity(model, smi: str, dev):
     Environment.get().set_tf32(False)
     model.conf.global_conf.compute_dtype = None
     tokens, positions = encoder_inputs(2, SEED + 9)
+    prof = OpProfiler.get()
+    prof.reset()
     before = attention.flash_attention_launches
     card = model.output(tokens, positions)[0].float().cpu()
-    check(attention.flash_attention_launches == before + BERT["layers"],
-          "the float32 encoder did not launch the kernel once per layer")
+    f32_launches = prof.counter_value("attention/flash_f32")
+    check(attention.flash_attention_launches == before + BERT["layers"]
+          and f32_launches == BERT["layers"],
+          "the float32 encoder did not launch the float32 kernel once per "
+          "layer")
     cpu = ComputationGraph(encoder_conf()).init(seed=SEED + 1, device="cpu")
     graph_state_from_numpy(cpu, {n: {k: t.cpu().numpy() for k, t in d.items()}
                                  for n, d in model._params.items()}, {})
@@ -1460,10 +1653,81 @@ def phase_encoder_parity(model, smi: str, dev):
     err = (card - host).abs().max().item()
     check(err <= 1e-4, f"encoder card vs CPU float32: max abs err {err} "
           f"not <= 1e-4")
-    log(f"[encoder-parity] float32, TF32 off, batch 2: card (flash kernel) "
-        f"vs CPU (plain version) probabilities max abs err {err} (<= 1e-4); "
-        f"CPU forward {cpu_s:.2f} s; {smi}")
-    return err
+    log(f"[encoder-parity] float32, TF32 off, batch 2: card (float32 flash "
+        f"kernel, {f32_launches} launches) vs CPU (plain version) "
+        f"probabilities max abs err {err} (<= 1e-4); CPU forward "
+        f"{cpu_s:.2f} s; {smi}")
+    return err, f32_launches, bf16_parity(smi, dev)
+
+
+#: bf16 card-against-CPU parity: the last hidden states (unit scale after
+#: LayerNorm) may differ by 2% of their norm: bf16 keeps 8 bits (2^-9
+#: relative per rounding), the card's matmuls (cuBLAS) and the CPU's round
+#: at other places, and the differences compound over the layers; a wrong
+#: kernel errs by the states' own size. The card must also stay as close to
+#: the float32 states as the CPU's bf16 run is (at most twice as far, plus
+#: 1e-3).
+BF16_PARITY_TOL = 2e-2
+BF16_PARITY_WIDTH = {"hidden": 256, "layers": 2, "heads": 4, "ff": 1024,
+                     "vocab": 1000}
+
+
+def bf16_parity(smi: str, dev):
+    """The encoder at a reduced width (BF16_PARITY_WIDTH, head size 64, T
+    128, batch 2) in bf16 compute: the last layer's hidden states on the
+    card (the bf16 kernel) against the same weights on the CPU (the plain
+    version) and against the float32 states on the CPU."""
+    from deeplearning4j_tpu_torch.common.profiler import OpProfiler
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.util.convert import graph_state_from_numpy
+
+    w = BF16_PARITY_WIDTH
+    conf = lambda: encoder_conf(vocab=w["vocab"], hidden=w["hidden"],  # noqa: E731
+                                layers=w["layers"], heads=w["heads"],
+                                ff=w["ff"])
+    card = ComputationGraph(conf()).init(seed=SEED + 2, device=dev)
+    cpu = ComputationGraph(conf()).init(seed=SEED + 3, device="cpu")
+    graph_state_from_numpy(cpu, {n: {k: t.cpu().numpy() for k, t in d.items()}
+                                 for n, d in card._params.items()}, {})
+    rng = np.random.default_rng(SEED + 11)
+    tokens = rng.integers(0, w["vocab"], (2, SEQ_LEN)).astype(np.int32)
+    positions = np.tile(np.arange(SEQ_LEN, dtype=np.int32), (2, 1))
+    last = f"l{w['layers'] - 1}_ln2"
+
+    def hidden(model, compute_dtype):
+        model.conf.global_conf.compute_dtype = compute_dtype
+        with torch.inference_mode():
+            acts, _ = model._forward(model._params, model._states,
+                                     model._bind_inputs((tokens, positions)))
+        return acts[last].float().cpu()
+
+    prof = OpProfiler.get()
+    prof.reset()
+    h_card = hidden(card, "bfloat16")
+    launches = prof.counter_value("attention/flash_bf16")
+    check(launches == w["layers"]
+          and prof.counter_value("attention/flash_f32") == 0,
+          f"bf16 parity: flash routes {prof.get_counters()}")
+    h_cpu = hidden(cpu, "bfloat16")
+    h_f32 = hidden(cpu, None)
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    r_cpu, r_card_f32, r_cpu_f32 = (rel(h_card, h_cpu), rel(h_card, h_f32),
+                                    rel(h_cpu, h_f32))
+    check(r_cpu <= BF16_PARITY_TOL, f"bf16 encoder card vs CPU: relative "
+          f"error {r_cpu} > {BF16_PARITY_TOL}")
+    check(r_card_f32 <= 2 * r_cpu_f32 + 1e-3, f"bf16 encoder on the card is "
+          f"{r_card_f32} from float32, the CPU's bf16 run {r_cpu_f32}")
+    log(f"[encoder-parity] bf16 compute at hidden {w['hidden']}, "
+        f"{w['layers']} layers, {w['heads']} heads, batch 2, T {SEQ_LEN}: "
+        f"last hidden states card (bf16 kernel, {launches} launches) vs CPU "
+        f"(plain version) relative error {r_cpu:.5f} (<= "
+        f"{BF16_PARITY_TOL}); from the float32 states: card {r_card_f32:.5f}, "
+        f"CPU {r_cpu_f32:.5f}; {smi}")
+    return {"rel_err_card_vs_cpu": r_cpu, "rel_err_card_vs_f32": r_card_f32,
+            "rel_err_cpu_vs_f32": r_cpu_f32, "launches": launches}
 
 
 # --- main -----------------------------------------------------------------------
@@ -1493,6 +1757,7 @@ def main(argv=None) -> int:
         upd_errs, upd_timing = phase_fused_update(smi, dev)
         bag_err, bag_timing = phase_embedding_bag(smi, dev)
         fa_err, fa_timing = phase_flash_attention(smi, dev)
+        fa16 = phase_flash_attention_bf16(smi, dev)
         fa_grad_err = phase_flash_grad(smi, dev)
         model = build_model(dev)
         launches, batches = phase_serving(model, smi, dev)
@@ -1503,7 +1768,8 @@ def main(argv=None) -> int:
         tparity = phase_train_parity(dev)
         w2v = phase_word2vec(smi, dev)
         enc_model, enc = phase_encoder(smi, dev)
-        enc["parity_max_abs_err"] = phase_encoder_parity(enc_model, smi, dev)
+        enc["parity_max_abs_err"], f32_launches, enc["bf16_parity"] = \
+            phase_encoder_parity(enc_model, smi, dev)
         del enc_model
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
@@ -1554,11 +1820,29 @@ def main(argv=None) -> int:
             "shape", "indices", "ms", "plain_ms", "library_ms", "unfused_ms",
             "bound_ms", "bytes", "bytes_no_reuse")}
            for name in ("path_raw_zipf", "wide")}})
-    fp, fl = fa_timing["path"], fa_timing["long"]
+    keys = ("shape", "layout", "ms", "ms_with_lse", "plain_ms", "library_ms",
+            "unfused_ms", "bound_ms", "bound_by")
+    bp = fa16["path_strided"]
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": attention.SOURCE, "replaces": attention.REPLACES,
-        "launches": enc["launches"], "max_abs_err": fa_err,
+        "launches": enc["bf16_route_launches"],
+        "max_abs_err": fa16["max_abs_err"],
+        "bitwise_share": fa16["bitwise_share"], "lse_err": fa16["lse_err"],
+        "shape": bp["shape"], "layout": bp["layout"], "dtype": "bfloat16",
+        "ms": bp["ms"], "ms_with_lse": bp["ms_with_lse"],
+        "plain_ms": bp["plain_ms"], "bound_ms": bp["bound_ms"],
+        "bound_by": bp["bound_by"], "library_ms": bp["library_ms"],
+        "unfused_ms": bp["unfused_ms"], "host_us": fa16["host_us"],
+        **{name: {k: fa16[name][k] for k in keys}
+           for name in ("path_contiguous", "long_strided",
+                        "long_contiguous")}})
+    fp, fl = fa_timing["path"], fa_timing["long"]
+    kernels.append({
+        "name": "flash_attention_f32", "route": "cuda",
+        "source": attention.SOURCE, "replaces": attention.REPLACES,
+        "launches": f32_launches, "max_abs_err": fa_err,
+        "bitwise_share": fa_timing["bitwise_share"],
         "grad_max_abs_err": fa_grad_err, "shape": fp["shape"],
         "dtype": "float32", "ms": fp["ms"], "plain_ms": fp["plain_ms"],
         "bound_ms": fp["bound_ms"], "bound_by": fp["bound_by"],

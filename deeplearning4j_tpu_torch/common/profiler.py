@@ -17,9 +17,12 @@ The counter part of ``deeplearning4j_tpu/common/profiler.py``'s
   its wrapper as ``ops/embeddings.embedding_bag_launches``);
 - attention: ``attention/mha_flash`` and ``attention/mha_dense`` (calls of
   ``ops/nn.multi_head_dot_product_attention`` that took flash attention or
-  the dense path; the flash kernel's launches are counted beside its
-  wrapper as ``ops/attention.flash_attention_launches``). The JAX package
-  counts neither;
+  the dense path), and the flash kernel's launches by route:
+  ``attention/flash_bf16`` (the bf16 kernel, bf16 inputs as they lie) and
+  ``attention/flash_f32`` (the float32 kernel, inputs cast to float32);
+  both together are counted beside the wrappers as
+  ``ops/attention.flash_attention_launches``. The JAX package counts none
+  of these;
 - gauges (levels, set not added): ``precision/grads_flat_in_step`` (1 when
   the step's gradients were born in the flat buckets) and
   ``precision/updater_state_bytes_<dtype>`` / ``..._total``.

@@ -20,8 +20,11 @@ self-attention (``tq == tk``) that the Hopper gate takes goes to
 ``where(mask, 0, -1e9)``), everything else to the dense
 :func:`dot_product_attention`. The JAX package also requires its TPU
 backend there; the port does not look at the device: ``flash_attention``
-launches the kernel for CUDA tensors and runs its plain version for CPU
-tensors. Each call is counted under ``attention/mha_flash`` or
+launches a kernel for CUDA tensors and runs its plain version for CPU
+tensors. The heads go to it as views of the projections (``[B, T, H, dh]``
+permuted, no copy; bf16 ones reach the bf16 kernel as they lie), and its
+result is a view of a ``[B, T, H, dh]`` buffer, so merging the heads is a
+view too. Each call is counted under ``attention/mha_flash`` or
 ``attention/mha_dense``.
 """
 

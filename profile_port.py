@@ -6,6 +6,7 @@ one encoder forward of the port spends its time, on the card.
     python3 profile_port.py --train  # training step (chip_smoke phase 6)
     python3 profile_port.py --word2vec  # one CBOW block (chip_smoke phase 8)
     python3 profile_port.py --encoder   # one encoder forward (phase 9)
+    python3 profile_port.py --flash     # the bf16 flash kernel as B*H grows
 
 Builds the model ``chip_smoke.py`` serves (full-size ResNet-50, seeded random
 weights, calibrated BN statistics, bf16 compute) and prints, beside the
@@ -43,8 +44,15 @@ the time of one ``ComputationGraph.output`` forward at batch 32 and 1
 (median of 10 after 3 warm-ups) and a ``torch.profiler`` trace of 3
 forwards at batch 32: device busy share of the wall, device time by
 category with the ``flash_attention`` kernel on its own line, and the
-kernels that take the most device time. The trace goes to
+kernels that take the most device time. Then it counts the copy kernels
+(casts and layout copies) of one whole forward, and lists the kernels of
+one attention op by category: the projections' matmuls, the flash kernel,
+and the casts or copies around it, which should be none. The trace goes to
 ``chiprun_out/profile_port_encoder_trace.json.gz``.
+
+With ``--flash`` it times the bf16 flash kernel beside
+F.scaled_dot_product_attention on the same bf16 tensors at T 128 for B*H
+from 12 to 768, and at [96, 512, 64].
 
 The last line is one JSON object with the numbers.
 """
@@ -76,14 +84,15 @@ def forward_ms(model, *inputs, runs: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+CUBLAS = "cuDNN/cuBLAS (conv, matmul, layout transposes)"
 #: kernel-name patterns of the device-time breakdown, first match wins
-CATEGORIES = (("flash_attention", ("flash_fwd_kernel",)),
+CATEGORIES = (("flash_attention", ("flash_fwd_kernel", "flash_bf16_kernel")),
               ("fused_update", ("fused_update",)),
               ("bn_act", ("bn_act",)),
               ("embedding_bag", ("embedding_bag",)),
               ("scatter-add (index_add_)", ("indexFunc", "index_add",
                                             "indexing_backward")),
-              ("cuDNN/cuBLAS (conv, matmul, layout transposes)",
+              (CUBLAS,
                ("cudnn", "conv", "xmma", "gemm", "cutlass", "sm90", "nvjet",
                 "nchwToNhwc", "nhwcToNchw")),
               ("reductions", ("reduce_kernel",)),
@@ -144,6 +153,55 @@ def _profile(step, n: int, label: str, smi: str, trace: str) -> dict:
             "device_ops_per_call": sum(c for _, c in by_name.values()) / n,
             "device_busy_share": device_us / wall_us if wall_us else None,
             "device_ms_by_category": cats, "top_kernels": top}
+
+
+def _device_kernels(step) -> dict:
+    """Names and counts of the device kernels of one call of ``step``
+    (after a warm-up call), from a torch.profiler trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            counts[e.name] = counts.get(e.name, 0) + 1
+    return counts
+
+
+def attention_op_census(dev, smi: str) -> dict:
+    """The kernels of one encoder attention op (``multi_head_dot_product_
+    attention`` on bf16 [32, 128, 768] with bf16 [768, 768] projections, 12
+    heads, as each encoder layer calls it), by category: the projections'
+    matmuls, the flash kernel, and anything else (the float32 casts and
+    head copies that the float32 route runs around its kernel: 8 per op)."""
+    from deeplearning4j_tpu_torch.ops import nn as ops
+
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    x = torch.randn((cs.ENC_BATCH, cs.SEQ_LEN, 768), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    ws = [(torch.randn((768, 768), generator=gen, device=dev) * 0.03)
+          .to(torch.bfloat16) for _ in range(4)]
+    counts = _device_kernels(lambda: ops.multi_head_dot_product_attention(
+        x, x, x, *ws, num_heads=12))
+    by_cat = {}
+    for kname, n in counts.items():
+        c = _category(kname)
+        by_cat[c] = by_cat.get(c, 0) + n
+    other = {k[:80]: n for k, n in counts.items()
+             if _category(k) not in ("flash_attention", CUBLAS)}
+    n_other = sum(other.values())
+    print(f"[profile] one attention op (bf16, [32, 128, 768], 12 heads): "
+          f"{sum(counts.values())} kernels: {by_cat}; casts, copies and "
+          f"other kernels around flash: {n_other} per op, "
+          f"{n_other * 12} per forward {other}; {smi}", flush=True)
+    return {"kernels_by_category": by_cat, "other_kernels": other,
+            "other_per_forward": n_other * 12}
 
 
 def train_main(dev, smi: str, name: str) -> int:
@@ -285,8 +343,45 @@ def encoder_main(dev, smi: str, name: str) -> int:
     print(f"[profile] flash_attention kernel: {fa_ms:.3f} ms per forward "
           f"(12 launches), {100 * fa_ms / prof['device_ms']:.2f}% of device "
           f"time; {smi}", flush=True)
-    result.update({"flash_attention_ms_per_forward": fa_ms, **prof})
+    copies = sum(n for k, n in _device_kernels(
+        lambda: model.output(*feeds[cs.ENC_BATCH])).items()
+        if "copy" in k.lower())
+    print(f"[profile] copy kernels (casts and layout copies) in one whole "
+          f"forward: {copies}; {smi}", flush=True)
+    result.update({"flash_attention_ms_per_forward": fa_ms,
+                   "copy_kernels_per_forward": copies,
+                   "attention_op": attention_op_census(dev, smi), **prof})
     print(json.dumps(result), flush=True)
+    return 0
+
+
+def flash_main(dev, smi: str, name: str) -> int:
+    """The bf16 flash kernel and F.scaled_dot_product_attention on the same
+    bf16 tensors (the MHA op's strided views, T 128, D 64) as B*H grows,
+    timed as chip_smoke times them (cold L2, the card spun first): what a
+    launch costs at the smallest size, how the time grows per (batch,
+    head), and where the grid needs a second wave (768 blocks of 64 q rows
+    at B*H 384, against 660 resident)."""
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.ops import attention
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    rows = []
+    for bh, T in ((12, 128), (96, 128), (192, 128), (384, 128), (768, 128),
+                  (96, 512)):
+        q, k, v, _ = cs._fa_bf16_case(bh // 12, 12, T, 64, "strided", dev,
+                                      gen)
+        ms = cs._time_ms(lambda: attention.flash_attention_bf16_cuda(
+            q, k, v, 0.125), flush)
+        sdpa = cs._time_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                           flush)
+        rows.append({"bh": bh, "T": T, "ms": ms, "sdpa_ms": sdpa})
+        print(f"[flash] B*H {bh} T {T} D 64 bf16 strided: kernel {ms:.5f} "
+              f"ms, SDPA {sdpa:.5f} ms; {smi}", flush=True)
+    print(json.dumps({"device": name, "nvidia_smi": smi, "flash": rows}),
+          flush=True)
     return 0
 
 
@@ -309,6 +404,9 @@ def main() -> int:
     if "--encoder" in sys.argv[1:]:
         cs.phase_build()
         return encoder_main(dev, smi, name)
+    if "--flash" in sys.argv[1:]:
+        cs.phase_build()
+        return flash_main(dev, smi, name)
     model = cs.build_model(dev)
     model.conf.global_conf.compute_dtype = "bfloat16"
     rng = np.random.default_rng(cs.SEED + 3)

@@ -228,3 +228,129 @@ def test_layer_norm_matches_jax():
         want = np.asarray(jnn.layer_norm(x, g, b, epsilon=eps))
         got = tnn.layer_norm(*_t(x, g, b), epsilon=eps).numpy()
         np.testing.assert_allclose(got, want, rtol=0, atol=2e-6)
+
+
+# --- strided views, the output layout, the log-sum-exp -----------------------
+
+VIEW_CASES = {
+    # name: (B, H, T, D, causal, bias kind)
+    "noncausal": (2, 3, 128, 32, False, None),
+    "causal": (2, 3, 128, 32, True, None),
+    "mask_bias": (2, 3, 128, 16, False, "mask"),
+    "full_bias_causal": (1, 2, 128, 32, True, "full"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(VIEW_CASES))
+def test_permuted_views_match_contiguous_and_jax(name):
+    """q, k, v as the MHA op hands them over (permuted views of [B, T, H,
+    D] buffers) give what contiguous [B, H, T, D] inputs give (within
+    1e-6: the matmuls may sum in another order), and match the JAX
+    package's kernel in interpret mode within 1e-5."""
+    B, H, T, D, causal, kind = VIEW_CASES[name]
+    qkv = _arrays((B, T, H, D), (B, T, H, D), (B, T, H, D), seed=T + 3 * D)
+    views = [torch.from_numpy(a).permute(0, 2, 1, 3) for a in qkv]
+    assert not views[0].is_contiguous()
+    contig = [np.ascontiguousarray(a.transpose(0, 2, 1, 3)) for a in qkv]
+    bias = _bias_for(kind, B, H, T, seed=6)
+    tb = None if bias is None else torch.from_numpy(bias)
+    got = attention.flash_attention(*views, causal=causal, bias=tb)
+    ref = attention.flash_attention(*_t(*contig), causal=causal, bias=tb)
+    assert (got - ref).abs().max().item() <= 1e-6
+    want = np.asarray(jfa.flash_attention(*contig, causal=causal, bias=bias,
+                                          interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_output_is_a_heads_view_so_the_merge_copies_nothing(dtype):
+    """The result is a [B, H, T, D] view of a [B, T, H, D] buffer: the MHA
+    op's head merge (permute back, reshape) is a view of it."""
+    q, k, v = (t.to(dtype) for t in _t(*_arrays(*[(2, 4, 64, 16)] * 3,
+                                                 seed=8)))
+    out = attention.flash_attention(q, k, v)
+    assert out.shape == (2, 4, 64, 16) and out.dtype == dtype
+    merged = out.permute(0, 2, 1, 3)
+    assert merged.is_contiguous()
+    assert merged.reshape(2, 64, 64).data_ptr() == out.data_ptr()
+
+
+LSE_CASES = {
+    # name: (causal, bias kind, block_k)
+    "plain": (False, None, 128),
+    "causal_blocks_64": (True, None, 64),
+    "full_bias": (False, "full", 128),
+    "masked_row": (False, "masked_row", 64),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LSE_CASES))
+def test_lse_matches_jax_row_stats(name):
+    """The plain version's log-sum-exp against the JAX package's
+    ``_row_stats`` (m where finite else 0, and l): ``m + log(max(l,
+    1e-30))`` within 1e-6. A row masked everywhere gives log(1e-30), finite,
+    in both."""
+    causal, kind, bk = LSE_CASES[name]
+    B, H, T, D = 1, 2, 128, 32
+    q, k, v = _arrays(*[(B, H, T, D)] * 3, seed=14)
+    bias = None
+    if kind is not None:
+        bias = _arrays((B, H, T, T), seed=15, scale=0.5)[0]
+        if kind == "masked_row":
+            bias[:, :, 7, :] = -np.inf
+    scale = D ** -0.5
+    _, lse = attention.flash_attention_reference(
+        *_t(q, k, v), scale, causal,
+        None if bias is None else torch.from_numpy(bias), bk, with_lse=True)
+    m, l = jfa._row_stats(q.reshape(B * H, T, D), k.reshape(B * H, T, D),
+                          scale, causal, bk,
+                          None if bias is None else bias.reshape(B * H, T, T))
+    want = np.asarray(m) + np.log(np.maximum(np.asarray(l), 1e-30))
+    got = lse.reshape(B * H, T).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    if kind == "masked_row":
+        assert np.allclose(got[:, 7], np.log(np.float32(1e-30)))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_inputs_give_bf16_gradients_close_to_jax(causal):
+    """bf16 q, k, v: the gradients come back in bf16 (the backward runs on
+    the float32 upcast, as the JAX package's does, and rounds once) and
+    match ``jax.grad`` through the JAX op on the same bf16 inputs within 1%
+    of the largest gradient. They are not bitwise: the port's backward
+    reads the forward's output as rounded to bf16, the JAX package's the
+    float32 output before its cast."""
+    B, H, T, D = 1, 2, 128, 32
+    q, k, v, tgt = _arrays(*[(B, H, T, D)] * 4, seed=16)
+    jb = [jnp.asarray(a, dtype=jnp.bfloat16) for a in (q, k, v)]
+
+    def loss_jax(q, k, v):
+        out = jfa.flash_attention(q, k, v, causal=causal, interpret=True)
+        return jnp.sum(out.astype(jnp.float32) * tgt)
+
+    want = jax.grad(loss_jax, argnums=(0, 1, 2))(*jb)
+    leaves = [t.bfloat16().requires_grad_() for t in _t(q, k, v)]
+    out = attention.flash_attention(*leaves, causal=causal)
+    assert out.dtype == torch.bfloat16
+    got = torch.autograd.grad((out.float() * torch.from_numpy(tgt)).sum(),
+                              leaves)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        w = np.asarray(w.astype(jnp.float32))
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=0,
+                                   atol=1e-2 * np.abs(w).max())
+
+
+def test_backward_takes_the_forwards_lse():
+    """The backward builds p from the saved log-sum-exp: handed a shifted
+    lse, its gradients move (p = exp(s - lse) scales by e), where a
+    backward that recomputed the row statistics would not notice."""
+    q, k, v, do = _t(*_arrays(*[(2, 64, 16)] * 4, seed=17))
+    o, lse = attention.flash_attention_reference(q, k, v, 0.25, with_lse=True)
+    g0 = attention.flash_attention_backward(q, k, v, o, do, lse, 0.25, False,
+                                            64)
+    g1 = attention.flash_attention_backward(q, k, v, o, do, lse - 1.0, 0.25,
+                                            False, 64)
+    assert not torch.allclose(g0[2], g1[2])
+    torch.testing.assert_close(g1[2], g0[2] * np.e, rtol=1e-5, atol=1e-6)

@@ -360,3 +360,184 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError):                  # 1 element in: unaligned
         buf = torch.zeros(4 * 32 * 16 + 1, device=dev)
         attention.flash_attention_cuda(buf[1:].view(4, 32, 16), k, v, 0.25)
+
+
+# --- the bf16 flash kernel (wgmma, TMA) ------------------------------------------
+
+def _bf16_qkv(B, H, T, D, dev, seed, layout):
+    """bf16 q, k, v ``[B, H, T, D]`` of scale 0.3: "strided" as the MHA op
+    hands them over (permuted views of ``[B, T, H, D]`` buffers),
+    "contiguous" as ``[B, H, T, D]`` tensors."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(3):
+        x = (rng.normal(size=(B, T, H, D)) * 0.3).astype(np.float32)
+        t = torch.from_numpy(x).to(dev, torch.bfloat16).permute(0, 2, 1, 3)
+        out.append(t.contiguous() if layout == "contiguous" else t)
+    return out
+
+
+def test_bf16_layout_check_needs_the_card():
+    """Without a card the one-tile check refuses CPU tensors (and the test
+    of it below skips)."""
+    x = torch.zeros(64, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        attention.bf16_layout_check(x, x, x)
+
+
+@pytest.mark.cuda
+def test_flash_bf16_one_tile_register_layout():
+    """S = Q K^T from the SS wgmma, then O = (P_hi + P_lo) V with P taken
+    from the registers that held S as the A operand of the RS wgmma, on one
+    64 x 64 tile, against float64 products of the same bf16 values. bf16
+    products are exact in float32, so S is within float32 summation error
+    (2^-18 of the sum of |terms|); O also carries the hi/lo split's
+    residual (at most 2^-17 of each |p|): 2^-15 of the sum of |terms|. A
+    wrong register layout errs by the values' own size."""
+    dev = _card()
+    rng = np.random.default_rng(21)
+    q, k, v = (torch.from_numpy(rng.normal(size=(64, 64)).astype(
+        np.float32)).to(dev, torch.bfloat16) for _ in range(3))
+    s, o = attention.bf16_layout_check(q, k, v)
+    torch.cuda.synchronize()
+    qd, kd, vd = (t.double() for t in (q, k, v))
+    want_s = qd @ kd.T
+    assert bool(((s.double() - want_s).abs()
+                 <= 2.0 ** -18 * (qd.abs() @ kd.abs().T) + 1e-30).all())
+    want_o = s.double() @ vd
+    assert bool(((o.double() - want_o).abs()
+                 <= 2.0 ** -15 * (s.double().abs() @ vd.abs())).all())
+
+
+BF16_SHAPES = [
+    (32, 12, 128, 64),               # the encoder path's [384, 128, 64]
+    (2, 3, 1, 64), (2, 3, 63, 64), (2, 3, 64, 64),
+    (2, 3, 200, 64),                 # a tail tile
+    (1, 2, 512, 64),
+    (2, 2, 128, 16), (2, 2, 128, 32),
+    (2, 2, 128, 40),                 # the zero fill up to 64
+    (1, 2, 512, 128), (2, 2, 200, 128),
+    (8, 12, 512, 64),                # several items per persistent block
+    (8, 12, 256, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,T,D", BF16_SHAPES)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bias", [None, "mask", "full", "masked_row"])
+@pytest.mark.parametrize("layout", ["strided", "contiguous"])
+def test_flash_bf16_kernel_matches_plain_version(B, H, T, D, causal, bias,
+                                                 layout):
+    """Against the plain version in float32 on the upcast inputs (``want``,
+    unrounded): every element within 2^-8 |want| + 2e-5 (half a bf16 ulp
+    for the final rounding, plus the sums' order); at least 99% of the
+    elements bitwise equal to ``want`` rounded to bf16; a row masked
+    everywhere 0; the log-sum-exp within 1e-5."""
+    dev = _card()
+    q, k, v = _bf16_qkv(B, H, T, D, dev, T + D, layout)
+    bt = _bias(bias, B, H, T, dev, T)
+    scale = D ** -0.5
+    before = attention.flash_attention_launches
+    got, lse = attention.flash_attention_bf16_cuda(q, k, v, scale, causal, bt,
+                                                   with_lse=True)
+    want, want_lse = attention.flash_attention_reference(
+        q.float(), k.float(), v.float(), scale, causal, bt, with_lse=True)
+    torch.cuda.synchronize()
+    assert attention.flash_attention_launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (B, H, T, D)
+    assert got.permute(0, 2, 1, 3).is_contiguous()
+    g = got.float()
+    assert bool(torch.isfinite(g).all())
+    assert bool(((g - want).abs() <= 2.0 ** -8 * want.abs() + 2e-5).all())
+    share = (got == want.bfloat16()).float().mean().item()
+    assert share >= 0.99, share
+    if bias == "masked_row":
+        assert not got[:, :, _masked_row(T)].any()
+    assert lse.shape == (B * H, T)
+    assert (lse - want_lse.reshape(B * H, T)).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_flash_bf16_entry_takes_the_bf16_route_without_copies():
+    """bf16 permuted views through the entry: one launch on the bf16 route,
+    none on the float32 route, and the output's head merge is a view."""
+    from deeplearning4j_tpu_torch.common.profiler import OpProfiler
+
+    dev = _card()
+    q, k, v = _bf16_qkv(2, 4, 128, 64, dev, 5, "strided")
+    OpProfiler.get().reset()
+    out = attention.flash_attention(q, k, v)
+    counters = OpProfiler.get().get_counters()
+    assert counters.get("attention/flash_bf16") == 1
+    assert "attention/flash_f32" not in counters
+    assert out.dtype == torch.bfloat16
+    merged = out.permute(0, 2, 1, 3)
+    assert merged.is_contiguous()
+    assert merged.reshape(2, 128, -1).data_ptr() == out.data_ptr()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bf16_gradients_are_bf16_and_match_dense(causal):
+    """Gradients through the bf16 kernel's forward come back in bf16 and
+    match autograd through dense attention on the float32 upcast within 1%
+    of the largest gradient: the forward's output is rounded to bf16 before
+    it enters the backward's ``sum(dO * O)``, and the gradients are rounded
+    to bf16 (2^-9 relative each)."""
+    dev = _card()
+    B, H, T, D = 2, 4, 256, 64
+    q, k, v = (t.clone().requires_grad_()
+               for t in _bf16_qkv(B, H, T, D, dev, 9, "strided"))
+    tgt = torch.randn(B, H, T, D, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(3))
+    out = attention.flash_attention(q, k, v, causal=causal)
+    got = torch.autograd.grad((out.float() * tgt).sum(), [q, k, v])
+    qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * D ** -0.5
+    if causal:
+        s = s.masked_fill(torch.ones(T, T, dtype=torch.bool, device=dev)
+                          .triu(1), float("-inf"))
+    dense = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1), vf)
+    want = torch.autograd.grad((dense * tgt).sum(), [qf, kf, vf])
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert (g.float() - w).abs().max().item() \
+            <= 1e-2 * w.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_flash_bf16_kernel_refuses_what_it_does_not_take():
+    dev = _card()
+    q, k, v = _bf16_qkv(2, 2, 32, 64, dev, 1, "strided")
+    with pytest.raises(ValueError, match="bfloat16"):       # mixed dtypes
+        attention.flash_attention_bf16_cuda(q, k.float(), v, 0.25)
+    with pytest.raises(ValueError, match="multiple of 8"):  # D > 128
+        attention.flash_attention_bf16_cuda(
+            *_bf16_qkv(1, 2, 32, 136, dev, 2, "strided"), 0.25)
+    with pytest.raises(ValueError, match="multiple of 8"):  # D % 8
+        attention.flash_attention_bf16_cuda(
+            *_bf16_qkv(1, 2, 32, 12, dev, 2, "strided"), 0.25)
+    buf = torch.zeros(2, 2, 32, 68, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="strides"):        # row stride 68
+        attention.flash_attention_bf16_cuda(buf[..., :64], k, v, 0.25)
+    flat = torch.zeros(2 * 2 * 32 * 64 + 1, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="aligned"):        # 2 bytes in
+        attention.flash_attention_bf16_cuda(flat[1:].view(2, 2, 32, 64), k, v,
+                                            0.25)
+    with pytest.raises(ValueError, match="CUDA"):
+        attention.flash_attention_bf16_cuda(q.cpu(), k.cpu(), v.cpu(), 0.25)
+    assert not attention.bf16_kernel_takes(q, k.float(), v)
+    assert attention.bf16_kernel_takes(q, k, v)
+
+
+@pytest.mark.cuda
+def test_flash_bf16_failed_launch_raises(monkeypatch):
+    """A head size the launcher refuses (12), past a gate told to take it:
+    the launch function's error comes back as a RuntimeError."""
+    dev = _card()
+    monkeypatch.setattr(attention, "_bf16_refusal", lambda q, k, v: None)
+    q, k, v = _bf16_qkv(1, 2, 32, 12, dev, 3, "contiguous")
+    before = attention.flash_attention_launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        attention.flash_attention_bf16_cuda(q, k, v, 0.25)
+    assert attention.flash_attention_launches == before
