@@ -21,13 +21,17 @@ Phases (each fails the run with a nonzero exit if it fails):
                (the head path and the scalar variant); embedding_bag bitwise
                at the CBOW path's shape ([8192, 10] bags of a [10000, 100]
                table) and ragged ones (D 1, 3, 101, 300; W 1; fully masked
-               bags; a table 1 element into its buffer). Then each kernel,
+               bags; a table 1 element into its buffer; W 32, 33, 40 and
+               3, 5, 13 for the index chunks and rows in flight; B 8191,
+               1001, 5; indices past both ends). Then each kernel,
                its plain version, the unfused PyTorch path and, where one
                PyTorch call computes the same function, that call, timed
                with CUDA events and a cold L2 after a 2 ms spin of the card
                (so the host's launch overhead is not timed), beside the
                bandwidth bound;
-               embedding_bag also at a wide shape (V 3,000,000, D 300);
+               embedding_bag also warm (the L2 its previous launch left),
+               with its host time per launch, and at a wide shape (V
+               3,000,000, D 300);
                flash_attention's float32 kernel within 2e-5 at the encoder
                path's [384, 128, 64] (non-causal, causal, the MHA mask bias,
                a full [B, H, T, T] bias, a row masked everywhere, which must
@@ -273,20 +277,22 @@ def compare_bn_act(shape, act, residual, dtype, dev, gen):
     return max_err
 
 
-def _time_ms(fn, flush) -> float:
+def _time_ms(fn, flush, cold: bool = True) -> float:
     """Median card time of ``fn`` over TIMED_RUNS runs, each from a cold
-    L2. Before each run the card spins for about 2 ms, so the host has
-    enqueued the whole run before the start event fires: the time is the
-    card's, not the host's launch overhead (which a short kernel would
-    otherwise show as its own time). A function whose host work takes
-    longer than that (the per-leaf updater) still shows part of it."""
+    L2 (``cold=False``: from the L2 the previous run of ``fn`` left). Before
+    each run the card spins for about 2 ms, so the host has enqueued the
+    whole run before the start event fires: the time is the card's, not the
+    host's launch overhead (which a short kernel would otherwise show as its
+    own time). A function whose host work takes longer than that (the
+    per-leaf updater) still shows part of it."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     for _ in range(WARMUP_RUNS):
         fn()
     times = []
     for _ in range(TIMED_RUNS):
-        flush.zero_()                     # start each run with a cold L2
+        if cold:
+            flush.zero_()                 # start each run with a cold L2
         torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
@@ -394,6 +400,7 @@ def compare_embedding_bag(B, W, V, D, dev, gen, offset=0, masked=3):
                                          masked=masked)
     if W:
         idx[0, 0], idx[-1, -1] = V - 1, V + 5      # the edge, and clamped
+        idx[1, W // 2] = -3                        # clamped to row 0
     err = 0.0
     for mean in (True, False):
         got = embeddings.embedding_bag_cuda(table, idx, mask, counts, mean)
@@ -426,6 +433,8 @@ def time_embedding_bag(B, W, V, D, dev, gen, flush, dist):
     library = lambda: F.embedding_bag(  # noqa: E731
         idx64, table, per_sample_weights=mask, mode="sum") / c2
     unfused = lambda: (table[idx64] * mask[..., None]).sum(1) / c2  # noqa: E731
+    check(torch.equal(kernel(), plain()),
+          f"embedding_bag {dist} [{B},{W}] x [{V},{D}]: not bitwise")
     check(torch.allclose(library(), kernel(), rtol=1e-5, atol=1e-5),
           "F.embedding_bag yardstick computes another function")
     distinct = int(torch.unique(idx).numel())
@@ -434,7 +443,10 @@ def time_embedding_bag(B, W, V, D, dev, gen, flush, dist):
     flops = 2 * B * W * D + B * D
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / F32_FLOPS_PER_S * 1e3
-    out = {"ms": _time_ms(kernel, flush), "plain_ms": _time_ms(plain, flush),
+    out = {"ms": _time_ms(kernel, flush),
+           "ms_warm": _time_ms(kernel, flush, cold=False),
+           "host_us": host_us(kernel),
+           "plain_ms": _time_ms(plain, flush),
            "library_ms": _time_ms(library, flush),
            "unfused_ms": _time_ms(unfused, flush),
            "bound_ms": max(bytes_ms, ops_ms),
@@ -457,13 +469,21 @@ def phase_embedding_bag(smi: str, dev):
     cases += [(257, 10, 1000, d, 0) for d in (1, 3, 101, 300)]
     cases += [(257, 1, 1000, 100, 0), (257, 10, 1000, 100, 1),
               (257, 10, 1000, 3, 1), (9, 0, 1000, 100, 0)]
+    # the paths of the kernel's loops: index chunks past 32 lanes (W 32,
+    # 33, 40) at D 100 and 300, each count of rows in flight (W 3, 5, 13,
+    # and 10 and 40 above), B not a multiple of the 8 bags per block (8191,
+    # 1001, 5, and 257 above), the scalar route past 32 indices
+    cases += [(257, w, 1000, d, 0) for w in (32, 33, 40) for d in (100, 300)]
+    cases += [(8191, w, V, D, 0) for w in (3, 5, 13)]
+    cases += [(1001, 33, 1000, 101, 1), (5, 40, 1000, 300, 1)]
     err = 0.0
     for b, w, v, d, off in cases:
         err = max(err, compare_embedding_bag(b, w, v, d, dev, gen, off))
     log(f"[kernels] embedding_bag vs plain: {2 * len(cases)} comparisons "
-        f"(mean and sum; the CBOW path's [{B},{W}] x [{V},{D}], D 1/3/101/"
-        f"300, W 1 and 0, 3 fully masked bags each, a table 1 element into "
-        f"its buffer) all bitwise; max_abs_err {err}")
+        f"(mean and sum; the CBOW path's [{B},{W}] x [{V},{D}], D 1/3/100/"
+        f"101/300, W 0/1/3/5/10/13/32/33/40, B 5/9/257/1001/8191/8192, 3 "
+        f"fully masked bags each, indices past both ends, a table 1 element "
+        f"into its buffer) all bitwise; max_abs_err {err}")
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     timing = {"path": time_embedding_bag(B, W, V, D, dev, gen, flush,
                                          "subsampled"),
@@ -476,9 +496,11 @@ def phase_embedding_bag(smi: str, dev):
         log(f"[kernels] embedding_bag {name} {t['shape']} (B, W, V, D; "
             f"{t['indices']} indices, {t['distinct_rows']} distinct rows, "
             f"hottest row {100 * t['hottest_row_share']:.2f}% of the "
-            f"lookups): kernel {t['ms']:.4f} ms, "
-            f"plain {t['plain_ms']:.4f} ms, F.embedding_bag/counts "
-            f"{t['library_ms']:.4f} ms, unfused {t['unfused_ms']:.4f} ms, "
+            f"lookups): kernel {t['ms']:.4f} ms cold, {t['ms_warm']:.4f} ms "
+            f"warm (L2 as the previous launch left it), host "
+            f"{t['host_us']:.1f} us per launch; plain {t['plain_ms']:.4f} "
+            f"ms, F.embedding_bag/counts {t['library_ms']:.4f} ms, unfused "
+            f"{t['unfused_ms']:.4f} ms, "
             f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}, {t['bytes']} B "
             f"at 3.35 TB/s; {t['bytes_no_reuse']} B without reuse = "
             f"{t['no_reuse_ms']:.4f} ms); median of {TIMED_RUNS} (CUDA "
@@ -699,6 +721,19 @@ def time_flash_bf16(bh, T, D, layout, dev, gen, flush):
             "bytes": nbytes, "flops": flops}
 
 
+def host_us(fn, runs: int = 200) -> float:
+    """Host time of one call of ``fn`` with the card idle (its checks, the
+    launch enqueued), median of ``runs``, in microseconds."""
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def time_encode_us(dev) -> float:
     """Host time of one bf16 launch at the path's shape (three tensor maps
     encoded, the launch enqueued), median of 200, in microseconds."""
@@ -707,14 +742,8 @@ def time_encode_us(dev) -> float:
     B, H = FA_PATH[0] // 12, 12
     q, k, v, _ = _fa_bf16_case(B, H, FA_PATH[1], FA_PATH[2], "strided", dev,
                                torch.Generator(device=dev).manual_seed(1))
-    times = []
-    for _ in range(200):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        attention.flash_attention_bf16_cuda(q, k, v, 0.125, with_lse=True)
-        times.append((time.perf_counter() - t0) * 1e6)
-    torch.cuda.synchronize()
-    return statistics.median(times)
+    return host_us(lambda: attention.flash_attention_bf16_cuda(
+        q, k, v, 0.125, with_lse=True))
 
 
 def phase_flash_attention_bf16(smi: str, dev):
@@ -1811,14 +1840,15 @@ def main(argv=None) -> int:
         "source": embeddings.SOURCE, "replaces": embeddings.REPLACES,
         "launches": w2v["launches"], "max_abs_err": bag_err,
         "shape": bp["shape"], "dtype": "float32",
-        "ms": bp["ms"], "plain_ms": bp["plain_ms"],
+        "ms": bp["ms"], "ms_warm": bp["ms_warm"], "host_us": bp["host_us"],
+        "plain_ms": bp["plain_ms"],
         "bound_ms": bp["bound_ms"], "bound_by": bp["bound_by"],
         "library_ms": bp["library_ms"], "unfused_ms": bp["unfused_ms"],
         "bytes": bp["bytes"], "bytes_no_reuse": bp["bytes_no_reuse"],
         "indices": bp["indices"],
         **{name: {k: bag_timing[name][k] for k in (
-            "shape", "indices", "ms", "plain_ms", "library_ms", "unfused_ms",
-            "bound_ms", "bytes", "bytes_no_reuse")}
+            "shape", "indices", "ms", "ms_warm", "plain_ms", "library_ms",
+            "unfused_ms", "bound_ms", "bytes", "bytes_no_reuse")}
            for name in ("path_raw_zipf", "wide")}})
     keys = ("shape", "layout", "ms", "ms_with_lse", "plain_ms", "library_ms",
             "unfused_ms", "bound_ms", "bound_by")

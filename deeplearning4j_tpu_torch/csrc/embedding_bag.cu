@@ -6,21 +6,47 @@
 // _bag_pallas, entry embedding_bag). Same function, not a block-by-block
 // copy: the TPU kernel runs a sequential (B, W) grid whose index map DMAs one
 // row per step into VMEM and carries the sum in the revisited output block.
-// Here one warp owns one bag and keeps the sum in registers; the W rows are
-// visited by a loop inside the warp, so nothing carries between blocks and
-// the [B, W, D] gather never reaches device memory.
+// Here one warp owns one bag and keeps the sum in registers, so nothing
+// carries between blocks and the [B, W, D] gather never reaches device
+// memory.
 //
 // Bound: memory. Per gathered element one multiply and one add, against 4
 // bytes read; the least traffic is the indices, the mask, the counts, the
 // output and each distinct row once. Rows that recur (a zipf corpus repeats
-// its head words thousands of times per round) are served from L2.
+// its head words thousands of times per round) come from L2 or L1, but a
+// lookup whose SM's L1 does not hold its row moves it from L2: at the CBOW
+// path's shape up to 32.8 MB against the 7.5 MB the bound counts. A warp
+// timeline (profile_port.py --bag --timeline) shows the warps waiting on
+// those rows and, before them, on their indices.
 //
-// Layout of the work: a block of 256 threads is 8 warps, one bag each.
-// Lane l covers row elements [4l, 4l+4) with 16-byte loads when D % 4 == 0
-// and the table and output are 16-byte aligned (then every row is), and
-// element l otherwise, striding by 32 vectors (or elements) for wide rows.
-// All lanes read the bag's W indices and mask values at the same address
-// (one broadcast transaction each).
+// - Indices off the chain. Lane w loads idx[b, w] and mask[b, w] in one
+//   coalesced load (chunks of 32 when W > 32); the warp then
+//   broadcasts them with __shfl_sync, and every lane issues its row loads
+//   for K = 4 indices back to back before it sums them, in W order, from
+//   registers: no index load waits between two row loads.
+// - Occupancy over rows in flight. K rows of float4 take 4K registers a
+//   lane; more rows per warp meant fewer warps per SM and more waves, and
+//   measured slower. K = 4 in 32 registers keeps 64 warps on each SM: the
+//   CBOW path's 8192 bags, one per warp, run in a single wave.
+// - Default caching. Reading the rows under an L2 evict_last policy
+//   (createpolicy + ld.global.nc.L2::cache_hint) and the indices, the mask,
+//   the counts and the output as streaming data (ld/st .cs) made the kernel
+//   alone 10% faster from a cold L2, but the CBOW block's device time rose
+//   by 0.11 ms: the pinned table and the evicted output slowed the round's
+//   other kernels (index_add_ on that table, the ops that read the output),
+//   while the kernel itself ran no faster inside the round. So the rows are
+//   read through the read-only path under the evict_normal policy, and
+//   everything else is cached as usual.
+// - Lanes: lane l covers row elements [4l, 4l+4) with 16-byte loads when
+//   D % 4 == 0 and the table and output are 16-byte aligned (then every row
+//   is), element l otherwise, striding by 32 vectors for wide rows.
+//
+// Measurement builds (profile_port.py --bag --levers, --word2vec
+// --bag-build) override the design's choices with -D: DL4J_BAG_ROWS (rows
+// in flight), DL4J_BAG_VEC (floats per lane load on the vector route, 4 or
+// 2), DL4J_BAG_L2_KEEP_BYTES (the largest table whose rows are read under
+// evict_last; 0: none), DL4J_BAG_STREAM (1: indices, mask, counts and
+// output streamed, .cs), DL4J_BAG_TIMELINE (a warp timeline, below).
 //
 // Numerics: each term is __fadd_rn(acc, __fmul_rn(row, mask)), in W order
 // from acc = 0, then __fdiv_rn(acc, count) for the mean: the same roundings,
@@ -32,81 +58,276 @@
 // Indices are clamped to [0, V-1] and row offsets are 64-bit.
 //
 // The wrapper (ops/embeddings.py, embedding_bag_cuda) allocates out, checks
-// shapes, dtypes, contiguity and alignment, launches on PyTorch's current
-// stream, and raises when the launch function returns a nonzero cudaError_t.
+// shapes, dtypes and contiguity, launches on PyTorch's current stream, and
+// raises when the launch function returns a nonzero cudaError_t.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+#ifndef DL4J_BAG_ROWS
+#define DL4J_BAG_ROWS 4
+#endif
+#ifndef DL4J_BAG_VEC
+#define DL4J_BAG_VEC 4
+#endif
+#ifndef DL4J_BAG_L2_KEEP_BYTES
+#define DL4J_BAG_L2_KEEP_BYTES 0
+#endif
+#ifndef DL4J_BAG_STREAM
+#define DL4J_BAG_STREAM 0
+#endif
+
 constexpr int kWarp = 32;
 constexpr int kThreads = 256;
 constexpr int kBagsPerBlock = kThreads / kWarp;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kRows = DL4J_BAG_ROWS;  // row loads in flight per lane
+constexpr int kVec = DL4J_BAG_VEC;    // floats per lane load, vector route
+constexpr long long kKeepBytes = DL4J_BAG_L2_KEEP_BYTES;
+static_assert(kVec == 4 || kVec == 2, "vector route: float4 or float2");
+static_assert(kRows >= 1, "rows in flight");
 
-__device__ __forceinline__ long long clamp_row(int i, long long V) {
-  long long r = i;
-  return r < 0 ? 0 : (r >= V ? V - 1 : r);
+__device__ __forceinline__ uint64_t l2_policy(bool keep) {
+  uint64_t p;
+  if (keep)
+    asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p));
+  else
+    asm("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;" : "=l"(p));
+  return p;
 }
 
-template <int VEC, bool MEAN>
-__global__ void __launch_bounds__(kThreads)
+// one row vector of VEC floats through the read-only path, with the L2
+// policy ``pol``
+template <int VEC>
+__device__ __forceinline__ void load_row(const float* p, uint64_t pol,
+                                         float (&t)[VEC]) {
+  if constexpr (VEC == 4) {
+    asm("ld.global.nc.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;"
+        : "=f"(t[0]), "=f"(t[1]), "=f"(t[2]), "=f"(t[3])
+        : "l"(p), "l"(pol));
+  } else if constexpr (VEC == 2) {
+    asm("ld.global.nc.L2::cache_hint.v2.f32 {%0, %1}, [%2], %3;"
+        : "=f"(t[0]), "=f"(t[1])
+        : "l"(p), "l"(pol));
+  } else {
+    asm("ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;"
+        : "=f"(t[0])
+        : "l"(p), "l"(pol));
+  }
+}
+
+// data read or written once: streaming (.cs) when DL4J_BAG_STREAM is 1
+template <typename T>
+__device__ __forceinline__ T ld_once(const T* p) {
+  return DL4J_BAG_STREAM ? __ldcs(p) : *p;
+}
+template <typename T>
+__device__ __forceinline__ void st_once(T* p, T v) {
+  if constexpr (DL4J_BAG_STREAM)
+    __stcs(p, v);
+  else
+    *p = v;
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_out(float* p, const float (&a)[VEC]) {
+  if constexpr (VEC == 4) {
+    st_once(reinterpret_cast<float4*>(p),
+            make_float4(a[0], a[1], a[2], a[3]));
+  } else if constexpr (VEC == 2) {
+    st_once(reinterpret_cast<float2*>(p), make_float2(a[0], a[1]));
+  } else {
+    st_once(p, a[0]);
+  }
+}
+
+// lane ``lane``'s entry of the index chunk starting at w0: the clamped row
+// (fits an int: V - 1 is taken only when idx >= V, so V - 1 < 2^31) and the
+// mask value; 0 and 0 past W
+__device__ __forceinline__ void load_chunk(const int* bidx, const float* bmask,
+                                           int w0, int W, int lane,
+                                           long long V, int& r, float& m) {
+  r = 0;
+  m = 0.f;
+  if (w0 + lane < W) {
+    const int i = ld_once(bidx + w0 + lane);
+    r = i < 0 ? 0 : ((long long)i >= V ? (int)(V - 1) : i);
+    m = ld_once(bmask + w0 + lane);
+  }
+}
+
+#ifdef DL4J_BAG_TIMELINE
+// Measurement build only (profile_port.py --bag --timeline): lane 0 of each
+// warp stores %globaltimer at the warp's start, once its first index chunk
+// has arrived, once its rows have arrived and been summed, and after its
+// store, with its SM, into stamps[bag * 5 + 0..4]. DL4J_STAMP_AFTER reads
+// the timer once ``var`` has arrived and ties ``var`` to the reading, so
+// what uses ``var`` (the row loads, the store) comes after it; DL4J_STAMP
+// is ordered against memory accesses.
+__device__ unsigned long long* g_stamps = nullptr;
+
+__device__ __forceinline__ unsigned long long now_after(int& v) {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t), "+r"(v));
+  return t;
+}
+__device__ __forceinline__ unsigned long long now_after(float& v) {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t), "+f"(v));
+  return t;
+}
+__device__ __forceinline__ unsigned long long now() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t) : : "memory");
+  return t;
+}
+__device__ __forceinline__ void put_stamp(long long bag, int lane, int k,
+                                          unsigned long long t) {
+  if (lane == 0 && g_stamps) g_stamps[bag * 5 + k] = t;
+}
+#define DL4J_STAMP(k) put_stamp(bag, lane, k, now())
+#define DL4J_STAMP_AFTER(k, var) put_stamp(bag, lane, k, now_after(var))
+#else
+#define DL4J_STAMP(k) ((void)0)
+#define DL4J_STAMP_AFTER(k, var) ((void)0)
+#endif
+
+// The bag's rows in chunks of kRows: kRows row loads in flight, then the
+// sums in W order. Lane j of the warp holds index j of the chunk (row r,
+// mask m); n of them are live. A source lane past 31 wraps (shuffle
+// semantics) and its value goes unused.
+template <int VEC>
+__device__ __forceinline__ void sum_rows(const float* col, int D,
+                                         uint64_t pol, bool live, int r,
+                                         float m, int n, float (&acc)[VEC]) {
+  for (int k0 = 0; k0 < n; k0 += kRows) {
+    float t[kRows][VEC] = {};
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      const int rk = __shfl_sync(kFull, r, k0 + k);
+      if (live && k0 + k < n)
+        load_row<VEC>(col + (long long)rk * D, pol, t[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      const float mk = __shfl_sync(kFull, m, k0 + k);
+      if (k0 + k < n) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          acc[e] = __fadd_rn(acc[e], __fmul_rn(t[k][e], mk));
+      }
+    }
+  }
+}
+
+// How a bag's work is looped, by W and the vectors per row (D / VEC):
+// kOne, W <= 32 and at most 32 vectors (one index chunk, one pass of the
+// warp: the CBOW path); kPasses, W <= 32 and wider rows (the chunk is
+// loaded once, then one pass per 32 vectors); kChunks, W > 32 (each pass
+// loads its chunks of 32 indices).
+enum Mode { kOne, kPasses, kChunks };
+
+// Registers bound the rows in flight: kRows rows of VEC floats take
+// kRows * VEC registers a lane. The blocks per SM asked of the compiler keep
+// the most warps resident without spills: at 4 rows of float4 the one-pass
+// kernel fits 32 registers a thread, 64 warps on each SM, so the CBOW path's
+// 8192 bags run in one wave. Measurement builds with more rows ask for
+// proportionally fewer blocks.
+template <int VEC>
+constexpr int min_blocks(Mode mode) {
+  const int base = mode == kOne ? 8 : mode == kPasses ? 6 : 4;
+  const int regs = kRows * VEC < 16 ? 16 : kRows * VEC;
+  return base * 16 / regs < 1 ? 1 : base * 16 / regs;
+}
+
+template <int VEC, bool MEAN, Mode MODE>
+__global__ void __launch_bounds__(kThreads, min_blocks<VEC>(MODE))
     embedding_bag_kernel(const float* __restrict__ table,
                          const int* __restrict__ idx,
                          const float* __restrict__ mask,
                          const float* __restrict__ counts,
                          float* __restrict__ out, long long B, int W, int D,
-                         long long V) {
+                         long long V, bool keep) {
   const long long bag =
       (long long)blockIdx.x * kBagsPerBlock + threadIdx.x / kWarp;
-  if (bag >= B) return;
+  if (bag >= B) return;  // the whole warp: shuffles below see all 32 lanes
   const int lane = threadIdx.x % kWarp;
+  DL4J_STAMP(0);
+  const uint64_t pol = l2_policy(keep);
   const int* bidx = idx + bag * W;
   const float* bmask = mask + bag * W;
-  float* orow = out + bag * D;
+  const float count = MEAN ? ld_once(counts + bag) : 1.f;
+  int r = 0;
+  float m = 0.f;
+  if constexpr (MODE != kChunks) {
+    load_chunk(bidx, bmask, 0, W, lane, V, r, m);
+    DL4J_STAMP_AFTER(1, r);
+  }
   const int nvec = D / VEC;
-  for (int v = lane; v < nvec; v += kWarp) {
+  // every lane runs every pass (the shuffles need the whole warp); lanes
+  // past the row's end load and store nothing
+  for (int v = lane; v - lane < nvec; v += kWarp) {
+    const bool live = v < nvec;
+    const float* col = table + (long long)v * VEC;
     float acc[VEC];
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
-#pragma unroll 4
-    for (int w = 0; w < W; ++w) {
-      const float m = bmask[w];
-      const float* row = table + clamp_row(bidx[w], V) * D + (long long)v * VEC;
-      float t[VEC];
-      if constexpr (VEC == 4) {
-        const float4 q = *reinterpret_cast<const float4*>(row);
-        t[0] = q.x;
-        t[1] = q.y;
-        t[2] = q.z;
-        t[3] = q.w;
-      } else {
-        t[0] = row[0];
+    for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+    if constexpr (MODE == kChunks) {
+      for (int w0 = 0; w0 < W; w0 += kWarp) {
+        load_chunk(bidx, bmask, w0, W, lane, V, r, m);
+        sum_rows<VEC>(col, D, pol, live, r, m, min(kWarp, W - w0), acc);
       }
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) acc[k] = __fadd_rn(acc[k], __fmul_rn(t[k], m));
-    }
-    if (MEAN) {
-      const float c = counts[bag];
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) acc[k] = __fdiv_rn(acc[k], c);
-    }
-    if constexpr (VEC == 4) {
-      *reinterpret_cast<float4*>(orow + (long long)v * VEC) =
-          make_float4(acc[0], acc[1], acc[2], acc[3]);
     } else {
-      orow[v] = acc[0];
+      sum_rows<VEC>(col, D, pol, live, r, m, W, acc);
     }
+    DL4J_STAMP_AFTER(2, acc[0]);
+    if (live) {
+      if (MEAN) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[e] = __fdiv_rn(acc[e], count);
+      }
+      store_out<VEC>(out + bag * D + (long long)v * VEC, acc);
+    }
+    if constexpr (MODE == kOne) break;
   }
+  DL4J_STAMP(3);
+#ifdef DL4J_BAG_TIMELINE
+  if (lane == 0 && g_stamps) {
+    unsigned sm;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+    g_stamps[bag * 5 + 4] = sm;
+  }
+#endif
 }
 
-template <int VEC, bool MEAN>
+template <int VEC, Mode MODE>
 void launch(const float* table, const int* idx, const float* mask,
             const float* counts, float* out, long long B, int W, int D,
-            long long V, cudaStream_t stream) {
-  const long long blocks = (B + kBagsPerBlock - 1) / kBagsPerBlock;
-  embedding_bag_kernel<VEC, MEAN><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      table, idx, mask, counts, out, B, W, D, V);
+            long long V, bool mean, bool keep, cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((B + kBagsPerBlock - 1) / kBagsPerBlock);
+  if (mean)
+    embedding_bag_kernel<VEC, true, MODE><<<blocks, kThreads, 0, stream>>>(
+        table, idx, mask, counts, out, B, W, D, V, keep);
+  else
+    embedding_bag_kernel<VEC, false, MODE><<<blocks, kThreads, 0, stream>>>(
+        table, idx, mask, counts, out, B, W, D, V, keep);
+}
+
+template <int VEC>
+void launch_mode(const float* table, const int* idx, const float* mask,
+                 const float* counts, float* out, long long B, int W, int D,
+                 long long V, bool mean, bool keep, cudaStream_t stream) {
+  if (W > kWarp)
+    launch<VEC, kChunks>(table, idx, mask, counts, out, B, W, D, V, mean,
+                         keep, stream);
+  else if (D / VEC > kWarp)
+    launch<VEC, kPasses>(table, idx, mask, counts, out, B, W, D, V, mean,
+                         keep, stream);
+  else
+    launch<VEC, kOne>(table, idx, mask, counts, out, B, W, D, V, mean, keep,
+                      stream);
 }
 
 }  // namespace
@@ -114,30 +335,36 @@ void launch(const float* table, const int* idx, const float* mask,
 extern "C" {
 
 // table [V, D] float32, idx [B, W] int32, mask [B, W] float32, counts [B]
-// float32 (read only when mean), out [B, D] float32; all contiguous. vec: 1
-// when D % 4 == 0 and table and out are 16-byte aligned. Returns the launch's
-// cudaError_t.
+// float32 (read only when mean), out [B, D] float32; all contiguous. The
+// vector route when D is a multiple of the lane's vector and table and out
+// are aligned to it, else the scalar one. Returns the launch's cudaError_t.
 int dl4j_embedding_bag(const void* table, const void* idx, const void* mask,
                        const void* counts, void* out, long long B, int W,
-                       int D, long long V, int mean, int vec, void* stream) {
+                       int D, long long V, int mean, void* stream) {
   if (B <= 0 || D <= 0) return 0;
   if (V <= 0 || W < 0 || B > (long long)0x7FFFFFFF * kBagsPerBlock)
     return (int)cudaErrorInvalidValue;
+  const uintptr_t align = (uintptr_t)table | (uintptr_t)out;
+  const bool keep = V * (long long)D * 4 <= kKeepBytes;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* t = static_cast<const float*>(table);
   const int* i = static_cast<const int*>(idx);
   const float* m = static_cast<const float*>(mask);
   const float* c = static_cast<const float*>(counts);
   float* o = static_cast<float*>(out);
-  if (vec) {
-    if (mean) launch<4, true>(t, i, m, c, o, B, W, D, V, st);
-    else launch<4, false>(t, i, m, c, o, B, W, D, V, st);
-  } else {
-    if (mean) launch<1, true>(t, i, m, c, o, B, W, D, V, st);
-    else launch<1, false>(t, i, m, c, o, B, W, D, V, st);
-  }
+  if (D % kVec == 0 && align % (4 * kVec) == 0)
+    launch_mode<kVec>(t, i, m, c, o, B, W, D, V, mean != 0, keep, st);
+  else
+    launch_mode<1>(t, i, m, c, o, B, W, D, V, mean != 0, keep, st);
   return (int)cudaGetLastError();
 }
+
+#ifdef DL4J_BAG_TIMELINE
+// stamps: [B * 5] 64-bit words on the card, or null to stop stamping
+int dl4j_embedding_bag_stamps(void* stamps) {
+  return (int)cudaMemcpyToSymbol(g_stamps, &stamps, sizeof(stamps));
+}
+#endif
 
 const char* dl4j_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

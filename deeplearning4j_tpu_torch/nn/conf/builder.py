@@ -49,9 +49,10 @@ class GlobalConf:
     # gradient bucket, so autograd accumulates straight into the layout the
     # kernel reads.
     flat_backward: bool = True
-    # The JAX package's gradient normalization/clipping mode, kept for
-    # configuration parity; not ported yet, and the port does not read it.
+    # Gradient normalization/clipping between the backward and the update
+    # (nn/gradnorm.py); None leaves the gradients as they are.
     grad_normalization: Optional[str] = None
+    grad_norm_threshold: float = 1.0
 
 
 class NeuralNetConfiguration:
@@ -90,6 +91,14 @@ class Builder:
 
     def dropout(self, v: float) -> "Builder":
         self._conf.dropout = v
+        return self
+
+    def gradient_normalization(self, mode: str,
+                               threshold: float = 1.0) -> "Builder":
+        """Normalize or clip the gradients before each update (the modes
+        of nn/gradnorm.normalize_gradients_)."""
+        self._conf.grad_normalization = mode
+        self._conf.grad_norm_threshold = threshold
         return self
 
     def data_type(self, dtype: str) -> "Builder":

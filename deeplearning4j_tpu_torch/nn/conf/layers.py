@@ -360,7 +360,8 @@ class EmbeddingLayer(Layer):
     """Integer index [B] (or one-hot [B, vocab]) to [B, nOut]: a row of the
     table W = [vocab, nOut]. The JAX package's ``table_sharding`` (a mesh
     axis) is not ported. Indices outside the table raise, where the JAX
-    package's gather fills them."""
+    package's gather fills them. The layer never applies its dropout, in
+    training or not, as the JAX embedding layers never do."""
 
     n_out: int = 0
 
@@ -377,7 +378,6 @@ class EmbeddingLayer(Layer):
         return W[idx.to(torch.int64)]
 
     def apply(self, params, x, state, training=False):
-        _no_training(self, training)
         if x.is_floating_point() and x.ndim == 2 and x.shape[-1] == self.n_in:
             idx = torch.argmax(x, dim=-1)  # one-hot form
         else:
@@ -397,7 +397,6 @@ class EmbeddingSequenceLayer(EmbeddingLayer):
         return RNNInput(self.n_out, getattr(input_type, "timesteps", None))
 
     def apply(self, params, x, state, training=False):
-        _no_training(self, training)
         idx = x
         if idx.ndim == 3 and idx.shape[-1] == 1:
             idx = idx[..., 0]

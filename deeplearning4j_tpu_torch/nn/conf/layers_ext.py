@@ -21,7 +21,17 @@ from .layers import Layer
 @dataclass
 class LayerNormalization(Layer):
     """Feature-axis layer norm with learned ``gain``/``bias``: FF [B, F] and
-    RNN [B, T, F] over F, CNN [B, C, H, W] over C."""
+    RNN [B, T, F] over F, CNN [B, C, H, W] over C.
+
+    On CNN input the port diverges from the JAX code on purpose. Both
+    normalize over C, and both document gain and bias along C. The JAX
+    layer passes its ``[C]`` vectors unreshaped to ``layer_norm(axis=1)``
+    (``deeplearning4j_tpu/nn/conf/layers_ext.py:540-543``), where they
+    broadcast against the last axis, W: a ``[B, C, H, W]`` input with
+    W != C fails there, and with W == C the gain scales along W. The port
+    reshapes them to ``[1, C, 1, 1]`` and applies them along C, as the
+    documentation says; its tests hold this path to a numpy oracle, not to
+    the JAX output."""
 
     eps: float = 1e-3
 

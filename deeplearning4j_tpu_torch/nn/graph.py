@@ -11,7 +11,8 @@ there is no trace to cache.
 Training (``fit``) takes one step per ``DataSet``: the forward with batch
 statistics (no fusion plan), the loss head in float32 under
 ``compute_dtype``, l1/l2 regularisation (not on ``b``/``beta``), backward
-through autograd, then the updater. With ``GlobalConf.fused_update`` the
+through autograd, the gradient normalization the configuration names
+(``nn/gradnorm.py``), then the updater. With ``GlobalConf.fused_update`` the
 parameters live in flat per-dtype buckets (``nn/_fused.FlatStore``), the
 gradients are born in a flat bucket, and the update is one launch of the
 ``csrc/fused_update.cu`` kernel per float32 bucket; otherwise the per-leaf
@@ -43,6 +44,7 @@ from ._fused import FlatStore, apply_fused_flat, fused_flat_plan
 from .conf import layers as L
 from .conf.builder import GlobalConf, apply_layer_defaults
 from .conf.inputs import CNNInput, FFInput, InputType, cnn_to_ff
+from .gradnorm import normalize_gradients_
 
 
 # --- graph vertices -----------------------------------------------------------
@@ -563,7 +565,7 @@ class ComputationGraph:
               masks) -> torch.Tensor:
         """One training step: forward, loss, backward, update (through
         ``store`` on the fused path). Returns the loss (detached)."""
-        updater = self.conf.global_conf.updater
+        gc = self.conf.global_conf
         params = self._params
         paths = leaf_paths(params)
         leaves = [params[n][k] for n, k in paths]
@@ -583,13 +585,21 @@ class ComputationGraph:
                 grads = {n: {} for n in params}
                 for (n, k), g in zip(paths, flat_grads):
                     grads[n][k] = g
+        if gc.grad_normalization:
+            # after the backward, before the update (the JAX graph's
+            # graph.py:781-786); on the fused path in place on the leaf
+            # views of the gradient bucket
+            tree = store.grad_views if store is not None else grads
+            normalize_gradients_([tree[n][k] for n, k in paths],
+                                 gc.grad_normalization,
+                                 gc.grad_norm_threshold)
         with torch.no_grad():
             if store is not None:
-                apply_fused_flat(store, updater, self._iteration,
+                apply_fused_flat(store, gc.updater, self._iteration,
                                  self.generator())
             else:
                 new_params, self._updater_state = apply_updater(
-                    updater, grads, self._updater_state, params,
+                    gc.updater, grads, self._updater_state, params,
                     self._iteration, self.generator())
                 for n, k in paths:
                     params[n][k].copy_(new_params[n][k])

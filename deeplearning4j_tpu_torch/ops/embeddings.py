@@ -74,41 +74,57 @@ def embedding_bag_reference(table: torch.Tensor, indices: torch.Tensor,
     return acc / counts.reshape(B, 1) if mean else acc
 
 
-def _check_cuda_args(table, indices, mask, counts) -> None:
-    if table.device.type != "cuda":
-        raise ValueError(f"embedding_bag_cuda needs a CUDA table, got "
-                         f"{table.device}")
-    if table.dtype != torch.float32:
+def _check_args(table, indices, mask, counts) -> None:
+    """Raise on what the kernel does not take, the device type aside (the
+    caller checks that first)."""
+    if table.dtype is not torch.float32:
         raise TypeError(f"the embedding_bag kernel takes a float32 table, "
                         f"not {table.dtype}")
-    if table.ndim != 2 or not table.is_contiguous():
+    if table.dim() != 2 or not table.is_contiguous():
         raise ValueError(f"the embedding_bag kernel needs a contiguous "
                          f"[V, D] table, got shape {tuple(table.shape)}")
-    if indices.ndim != 2:
+    if indices.dim() != 2:
         raise ValueError(f"indices must be [B, W], got "
                          f"{tuple(indices.shape)}")
     B, W = indices.shape
+    dev = table.device
     for name, t, dtype, shape in (("indices", indices, torch.int32, (B, W)),
                                   ("mask", mask, torch.float32, (B, W)),
                                   ("counts", counts, torch.float32, (B,))):
-        if (t.dtype != dtype or t.device != table.device
-                or tuple(t.shape) != shape or not t.is_contiguous()):
+        if (t.dtype is not dtype or t.device != dev or t.shape != shape
+                or not t.is_contiguous()):
             raise ValueError(f"the embedding_bag kernel needs {name} as "
-                             f"contiguous {dtype} {shape} on {table.device}, "
-                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if table.shape[0] == 0 and B * W > 0:
+                             f"contiguous {dtype} {shape} on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    V, D = table.shape
+    if V == 0 and B * W > 0:
         raise ValueError("embedding_bag of an empty table")
-    if B * W >= 2 ** 62 or table.numel() >= 2 ** 62 or table.shape[1] >= 2 ** 31:
+    # (B * W and V * D cannot reach 2^61 in a tensor of 4-byte elements)
+    if D >= 2 ** 31 or W >= 2 ** 31:
         raise ValueError("tensor too large for the embedding_bag kernel")
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.dl4j_embedding_bag
-    if fn.argtypes is None:
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, ll, i, i, ll, i, i, p]
-        fn.restype = i
+def bind(fn):
+    """``fn``, the C launch function ``dl4j_embedding_bag`` of a loaded
+    build, with its argument types set."""
+    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    fn.argtypes = [p, p, p, p, p, ll, i, i, ll, i, p]
+    fn.restype = i
     return fn
+
+
+#: the bound launch function and PyTorch's raw current-stream getter, set
+#: at the first launch (neither exists before a card is used)
+_LAUNCHER = None
+
+
+def _launcher():
+    global _LAUNCHER
+    if _LAUNCHER is None:
+        # an int, where torch.cuda.current_stream builds a Stream object
+        _LAUNCHER = (bind(cuda_lib.load(KERNEL_NAME).dl4j_embedding_bag),
+                     torch._C._cuda_getCurrentRawStream)
+    return _LAUNCHER
 
 
 def embedding_bag_cuda(table: torch.Tensor, indices: torch.Tensor,
@@ -116,27 +132,37 @@ def embedding_bag_cuda(table: torch.Tensor, indices: torch.Tensor,
                        mean: bool) -> torch.Tensor:
     """Launch ``csrc/embedding_bag.cu`` on PyTorch's current stream. Raises
     on anything the kernel does not take (a table other than float32, a
-    table that requires grad under grad mode), and when the launch fails."""
+    table that requires grad under grad mode), and when the launch fails.
+
+    The host cost is kept low, since the CBOW round is host-bound: the
+    cheapest checks first, the ctypes function bound once, the raw stream
+    handle, and a device switch only when the table's card is not the
+    current one. The kernel picks its vector width from D and the
+    pointers' alignment."""
     global embedding_bag_launches
     _refuse_grad(table)
-    _check_cuda_args(table, indices, mask, counts)
+    if not table.is_cuda:
+        raise ValueError(f"embedding_bag_cuda needs a CUDA table, got "
+                         f"{table.device}")
+    _check_args(table, indices, mask, counts)
     B, W = indices.shape
     V, D = table.shape
-    out = torch.empty((B, D), dtype=table.dtype, device=table.device)
-    if out.numel() == 0:
+    out = table.new_empty((B, D))
+    if B == 0 or D == 0:
         return out
-    lib = cuda_lib.load(KERNEL_NAME)
-    fn = _bind(lib)
-    vec = int(D % 4 == 0 and table.data_ptr() % 16 == 0
-              and out.data_ptr() % 16 == 0)
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        err = fn(table.data_ptr(), indices.data_ptr(), mask.data_ptr(),
-                 counts.data_ptr(), out.data_ptr(), B, W, D, V, int(mean),
-                 vec, stream)
+    fn, raw_stream = _launcher()
+    device = table.get_device()
+    args = (table.data_ptr(), indices.data_ptr(), mask.data_ptr(),
+            counts.data_ptr(), out.data_ptr(), B, W, D, V, int(mean))
+    if device == torch.cuda.current_device():
+        err = fn(*args, raw_stream(device))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, raw_stream(device))
     if err != 0:
+        msg = cuda_lib.error_string(cuda_lib.load(KERNEL_NAME), err)
         raise RuntimeError(f"embedding_bag kernel launch failed: cudaError "
-                           f"{err} ({cuda_lib.error_string(lib, err)})")
+                           f"{err} ({msg})")
     with _LAUNCH_LOCK:
         embedding_bag_launches += 1
     return out

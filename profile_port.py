@@ -7,6 +7,17 @@ one encoder forward of the port spends its time, on the card.
     python3 profile_port.py --word2vec  # one CBOW block (chip_smoke phase 8)
     python3 profile_port.py --encoder   # one encoder forward (phase 9)
     python3 profile_port.py --flash     # the bf16 flash kernel as B*H grows
+    python3 profile_port.py --bag [--levers] [--timeline]  # embedding_bag
+    python3 profile_port.py --package DIR --bag  # DIR's port, this code
+    python3 profile_port.py --bag-build "-DDL4J_BAG_STREAM=1" --word2vec
+
+``--package DIR`` imports ``deeplearning4j_tpu_torch`` from DIR (a checkout
+of another commit, e.g. ``git archive`` of the parent) instead of from
+beside this script, and builds DIR's kernels into DIR: parent and change are
+then measured by the same code, in turns, in one call. ``--bag-build OPTS``
+builds ``csrc/embedding_bag.cu`` with the -D options OPTS (the measurement
+settings its header lists) and has ``embedding_bag_cuda`` launch that build
+in whatever mode follows.
 
 Builds the model ``chip_smoke.py`` serves (full-size ResNet-50, seeded random
 weights, calibrated BN statistics, bf16 compute) and prints, beside the
@@ -33,7 +44,8 @@ negative pool, and then runs single 64-round CBOW blocks from the stream's
 start: the host time of a block (enqueue, and to completion), a
 ``torch.profiler`` trace of one block (device busy share of the wall, device
 operations per round, device time of the ``embedding_bag`` kernel, of the
-``index_add_`` scatter-adds and of the rest), and whether two runs of the
+``index_add_`` scatter-adds and of the rest, and of every kernel; the host's
+enqueue time per device operation), and whether two runs of the
 block from the same tables give bitwise equal tables, with ``index_add_``'s
 atomics and with ``torch.use_deterministic_algorithms``. The trace goes to
 ``chiprun_out/profile_port_w2v_trace.json.gz``.
@@ -50,6 +62,14 @@ one attention op by category: the projections' matmuls, the flash kernel,
 and the casts or copies around it, which should be none. The trace goes to
 ``chiprun_out/profile_port_encoder_trace.json.gz``.
 
+With ``--bag`` it times the embedding_bag kernel as chip_smoke.py phase 3
+does, at the CBOW path's [8192, 10] x [10000, 100] with subsampled-zipf
+indices and at the wide [8192, 10] x [3,000,000, 300]: cold and warm L2,
+host time per launch, plain version, F.embedding_bag and the bound. With
+``--levers`` also the kernel as each measurement build of BAG_LEVERS (the
+design's levers undone or pushed, one -D option each) computes it, and with
+``--timeline`` the warp timeline of a build stamped with %globaltimer.
+
 With ``--flash`` it times the bf16 flash kernel beside
 F.scaled_dot_product_attention on the same bf16 tensors at T 128 for B*H
 from 12 to 768, and at [96, 512, 64].
@@ -59,9 +79,11 @@ The last line is one JSON object with the numbers.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import statistics
+import subprocess
 import sys
 import time
 
@@ -134,16 +156,16 @@ def _profile(step, n: int, label: str, smi: str, trace: str) -> dict:
     for kname, (us, _) in by_name.items():
         c = _category(kname)
         cats[c] = cats.get(c, 0.0) + us / n / 1e3
-    top = [{"name": k[:80], "device_ms": us / n / 1e3,
-            "calls_per_call": c / n}
-           for k, (us, c) in sorted(by_name.items(),
-                                    key=lambda kv: -kv[1][0])[:15]]
+    kernels = [{"name": k[:80], "device_ms": us / n / 1e3,
+                "calls_per_call": c / n}
+               for k, (us, c) in sorted(by_name.items(),
+                                        key=lambda kv: -kv[1][0])]
     print(f"[profile] {label}, {n} calls: wall {wall_us / n / 1e3:.3f} "
           f"ms/call, device busy {device_us / n / 1e3:.3f} ms/call "
           f"({100 * device_us / wall_us:.1f}% of wall); {smi}", flush=True)
     for c, ms in sorted(cats.items(), key=lambda kv: -kv[1]):
         print(f"[profile]   {ms:8.3f} ms  {c}", flush=True)
-    for t in top:
+    for t in kernels[:15]:
         print(f"[profile]   {t['device_ms']:8.3f} ms  x{t['calls_per_call']:.0f}"
               f"  {t['name']}", flush=True)
     os.makedirs("chiprun_out", exist_ok=True)
@@ -152,7 +174,7 @@ def _profile(step, n: int, label: str, smi: str, trace: str) -> dict:
             "device_ms": device_us / 1e3 / n,
             "device_ops_per_call": sum(c for _, c in by_name.values()) / n,
             "device_busy_share": device_us / wall_us if wall_us else None,
-            "device_ms_by_category": cats, "top_kernels": top}
+            "device_ms_by_category": cats, "kernels": kernels}
 
 
 def _device_kernels(step) -> dict:
@@ -297,6 +319,16 @@ def word2vec_main(dev, smi: str, name: str) -> int:
           f"device operations; embedding_bag {bag_ms / R * 1e3:.2f} us, "
           f"index_add_ {add_ms / R * 1e3:.2f} us, rest "
           f"{rest_ms / R * 1e3:.2f} us of device time; {smi}", flush=True)
+    host_per_op_us = enq_ms * 1e3 / prof["device_ops_per_call"]
+    print(f"[profile] host enqueue per device operation "
+          f"{host_per_op_us:.2f} us ({enq_ms:.3f} ms over "
+          f"{prof['device_ops_per_call']:.0f} operations per block); device "
+          f"busy {prof['device_ms']:.3f} ms per block; {smi}", flush=True)
+    print("[profile] device time of one block by kernel (ms, launches):",
+          flush=True)
+    for k in prof["kernels"]:
+        print(f"[profile]   {k['device_ms']:8.4f} ms  "
+              f"x{k['calls_per_call']:.0f}  {k['name']}", flush=True)
     atomic_bitwise = repeat_is_bitwise()
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
@@ -312,6 +344,7 @@ def word2vec_main(dev, smi: str, name: str) -> int:
     result = {"device": name, "nvidia_smi": smi, "block_ms": block_ms,
               "block_enqueue_ms": enq_ms, "rounds": R,
               "embedding_bag_ms_per_block": bag_ms,
+              "host_us_per_device_op": host_per_op_us,
               "index_add_ms_per_block": add_ms, "rest_ms_per_block": rest_ms,
               "device_ops_per_round": prof["device_ops_per_call"] / R,
               "repeat_bitwise_atomic": atomic_bitwise,
@@ -385,16 +418,223 @@ def flash_main(dev, smi: str, name: str) -> int:
     return 0
 
 
+#: the design's levers undone or pushed one at a time (``--bag --levers``):
+#: each a measurement build of csrc/embedding_bag.cu with these -D options
+BAG_LEVERS = (("chosen (float4, 4 rows in flight, default caching)", ()),
+              ("float2 lanes", ("-DDL4J_BAG_VEC=2",)),
+              ("8 rows in flight", ("-DDL4J_BAG_ROWS=8",)),
+              ("12 rows in flight", ("-DDL4J_BAG_ROWS=12",)),
+              ("16 rows in flight", ("-DDL4J_BAG_ROWS=16",)),
+              ("L2 evict_last", ("-DDL4J_BAG_L2_KEEP_BYTES=26214400",)),
+              ("streaming hints", ("-DDL4J_BAG_STREAM=1",)),
+              ("L2 evict_last and streaming hints",
+               ("-DDL4J_BAG_L2_KEEP_BYTES=26214400", "-DDL4J_BAG_STREAM=1")))
+BAG_WIDE = (8192, 10, 3_000_000, 300)
+
+
+def bag_builds(variants: dict) -> dict:
+    """Build csrc/embedding_bag.cu once for each entry of ``variants`` (a
+    tag and its -D options), all at once, into _build/ as libraries of
+    their own; return each tag's library path."""
+    from deeplearning4j_tpu_torch.ops import cuda_lib
+
+    cuda_lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    running = {}
+    for tag, defines in variants.items():
+        path = str(cuda_lib.BUILD_DIR / f"libembedding_bag_{tag}.so")
+        cmd = cuda_lib._command("embedding_bag", path)
+        running[tag] = (path, subprocess.Popen(
+            cmd[:1] + list(defines) + cmd[1:], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    paths = {}
+    for tag, (path, proc) in running.items():
+        log, _ = proc.communicate()
+        cs.check(proc.returncode == 0, f"embedding_bag build {tag}: {log}")
+        paths[tag] = path
+    return paths
+
+
+def use_bag_build(path):
+    """Make embedding_bag_cuda launch the library at ``path`` (a build of
+    bag_builds), or the package's own build for None; return the loaded
+    library."""
+    from deeplearning4j_tpu_torch.ops import embeddings
+
+    if path is None:
+        embeddings._LAUNCHER = None
+        return None
+    lib = ctypes.CDLL(path)
+    embeddings._LAUNCHER = (embeddings.bind(lib.dl4j_embedding_bag),
+                            torch._C._cuda_getCurrentRawStream)
+    return lib
+
+
+def _bag_inputs(dev, shape, dist):
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 5)
+    return cs._bag_case(*shape, dev, gen, dist=dist)
+
+
+def bag_levers(dev, smi: str, flush) -> list:
+    """The kernel under each build of BAG_LEVERS, cold and warm, through
+    embedding_bag_cuda (bitwise checked), at the CBOW path's shape
+    (subsampled-zipf indices) and at the wide one."""
+    from deeplearning4j_tpu_torch.ops import embeddings
+
+    paths = bag_builds({f"lever{n}": d
+                        for n, (_, d) in enumerate(BAG_LEVERS) if d})
+    rows = []
+    for shape, dist in ((cs.BAG_PATH, "subsampled"), (BAG_WIDE, "uniform")):
+        case = _bag_inputs(dev, shape, dist)
+        want = embeddings.embedding_bag_reference(*case, True)
+        for n, (label, defines) in enumerate(BAG_LEVERS):
+            use_bag_build(paths.get(f"lever{n}"))
+            launch = lambda: embeddings.embedding_bag_cuda(  # noqa: E731
+                *case, True)
+            cs.check(torch.equal(launch(), want), f"{label}: not bitwise")
+            row = {"setting": label, "defines": list(defines),
+                   "shape": list(shape), "ms": cs._time_ms(launch, flush),
+                   "ms_warm": cs._time_ms(launch, flush, cold=False)}
+            rows.append(row)
+            print(f"[bag] {label}: {row['ms']:.5f} ms cold, "
+                  f"{row['ms_warm']:.5f} ms warm at {list(shape)} ({dist}); "
+                  f"{smi}", flush=True)
+        del case, want
+        torch.cuda.empty_cache()
+    use_bag_build(None)
+    return rows
+
+
+def bag_timeline(dev, smi: str, flush) -> list:
+    """One cold launch at the CBOW path's shape of the kernel built with
+    ``-DDL4J_BAG_TIMELINE``: each warp's %globaltimer stamps (start, index
+    chunk arrived, rows arrived and summed, stored) and SM. Prints the
+    kernel's span, how many warps were in flight over it, each phase's
+    duration per warp, and whether bags with hotter rows wait longer (L2
+    hot-spotting), for subsampled-zipf and uniform indices."""
+    from deeplearning4j_tpu_torch.ops import embeddings
+
+    lib = use_bag_build(bag_builds({"timeline": ("-DDL4J_BAG_TIMELINE",)})[
+        "timeline"])
+    lib.dl4j_embedding_bag_stamps.argtypes = [ctypes.c_void_p]
+    B, W, V, D = cs.BAG_PATH
+    rows = []
+    for dist in ("subsampled", "uniform"):
+        case = _bag_inputs(dev, cs.BAG_PATH, dist)
+        launch = lambda: embeddings.embedding_bag_cuda(  # noqa: E731
+            *case, True)
+        stamps = torch.zeros(B * 5, dtype=torch.int64, device=dev)
+        cs.check(lib.dl4j_embedding_bag_stamps(stamps.data_ptr()) == 0,
+                 "timeline: stamps not set")
+        for _ in range(3):
+            launch()
+        flush.zero_()
+        torch.cuda._sleep(cs.SPIN_CYCLES)
+        launch()
+        torch.cuda.synchronize()
+        lib.dl4j_embedding_bag_stamps(None)
+        s = stamps.view(B, 5).cpu().numpy()
+        t = s[:, :4] - s[:, 0].min()
+        start, idx_at, rows_at, end = t.T
+        span = int(end.max())
+        grid = np.linspace(0, span, 21)
+        in_flight = [int(((start <= g) & (end > g)).sum()) for g in grid]
+        hot = np.bincount(case[1].long().view(-1).cpu().numpy(),
+                          minlength=V)[case[1].long().cpu().numpy()].max(1)
+        wait = rows_at - idx_at
+        q = lambda a: [int(np.percentile(a, x)) for x in (10, 50, 90)]  # noqa: E731
+        row = {"indices": dist, "span_ns": span,
+               "warps_in_flight": in_flight,
+               "max_warps_in_flight": max(in_flight),
+               "sms": int(len(np.unique(s[:, 4]))),
+               "start_ns_p10_50_90": q(start),
+               "index_wait_ns_p10_50_90": q(idx_at - start),
+               "rows_wait_ns_p10_50_90": q(wait),
+               "store_ns_p10_50_90": q(end - rows_at),
+               "warp_ns_p10_50_90": q(end - start),
+               "hot_vs_rows_wait_corr": float(np.corrcoef(hot, wait)[0, 1]),
+               "rows_wait_ns_hottest_decile": float(
+                   wait[hot >= np.percentile(hot, 90)].mean()),
+               "rows_wait_ns_coldest_decile": float(
+                   wait[hot <= np.percentile(hot, 10)].mean()),
+               "row_bytes_per_s_over_span": B * W * D * 4 / (span * 1e-9)}
+        rows.append(row)
+        print(f"[timeline] {dist}: span {span} ns on {row['sms']} SMs, at "
+              f"most {row['max_warps_in_flight']} warps in flight; per warp "
+              f"(p10/p50/p90 ns): start {row['start_ns_p10_50_90']}, index "
+              f"wait {row['index_wait_ns_p10_50_90']}, rows wait "
+              f"{row['rows_wait_ns_p10_50_90']}, store "
+              f"{row['store_ns_p10_50_90']}, whole warp "
+              f"{row['warp_ns_p10_50_90']}; rows wait of the bags with the "
+              f"hottest rows {row['rows_wait_ns_hottest_decile']:.0f} ns "
+              f"against the coldest {row['rows_wait_ns_coldest_decile']:.0f}"
+              f" ns (corr {row['hot_vs_rows_wait_corr']:.3f}); row bytes "
+              f"over the span {row['row_bytes_per_s_over_span'] / 1e12:.2f}"
+              f" TB/s; {smi}", flush=True)
+        print(f"[timeline]   warps in flight at 5% steps of the span: "
+              f"{in_flight}", flush=True)
+    use_bag_build(None)
+    return rows
+
+
+def bag_main(dev, smi: str, name: str, levers: bool,
+             timeline: bool) -> int:
+    """embedding_bag_cuda of the package imported (``--package``: another
+    commit's) at the CBOW path's shape with subsampled-zipf indices and at
+    the wide shape, as chip_smoke times it: cold, warm, host time per
+    launch, beside the plain version, F.embedding_bag and the bound. With
+    ``levers`` also the builds of BAG_LEVERS; with ``timeline`` a
+    stamped build's warp timeline (bag_timeline)."""
+    import deeplearning4j_tpu_torch
+    from deeplearning4j_tpu_torch.ops import embeddings
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 5)
+    B, W, V, D = cs.BAG_PATH
+    result = {"device": name, "nvidia_smi": smi,
+              "package": os.path.dirname(deeplearning4j_tpu_torch.__file__)}
+    before = embeddings.embedding_bag_launches
+    for label, shape, dist in (("path", (B, W, V, D), "subsampled"),
+                               ("wide", BAG_WIDE, "uniform")):
+        t = cs.time_embedding_bag(*shape, dev, gen, flush, dist)
+        result[label] = t
+        print(f"[bag] {label} {t['shape']} ({dist}): kernel {t['ms']:.5f} ms "
+              f"cold, {t['ms_warm']:.5f} ms warm, host {t['host_us']:.2f} us "
+              f"per launch; F.embedding_bag/counts {t['library_ms']:.5f} ms; "
+              f"bound {t['bound_ms']:.5f} ms ({t['distinct_rows']} distinct "
+              f"rows), no reuse {t['no_reuse_ms']:.5f} ms; package "
+              f"{result['package']}; {smi}", flush=True)
+    cs.check(embeddings.embedding_bag_launches > before,
+             "the kernel was not launched")
+    if levers:
+        result["levers"] = bag_levers(dev, smi, flush)
+    if timeline:
+        result["timeline"] = bag_timeline(dev, smi, flush)
+    print(json.dumps(result), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_port: no CUDA card available", file=sys.stderr)
         return 2
+    if "--package" in sys.argv[1:]:
+        # another checkout's deeplearning4j_tpu_torch (for parent-against-
+        # change runs), measured by this script's code
+        root = sys.argv[sys.argv.index("--package") + 1]
+        sys.path.insert(0, os.path.abspath(root))
     if "--word2vec" in sys.argv[1:]:
         # cuBLAS's deterministic workspace, for the determinism check; set
         # before the first cuBLAS handle
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     dev = torch.device("cuda", 0)
     smi, name = cs.phase_device()
+    if "--bag-build" in sys.argv[1:]:
+        # a measurement build of embedding_bag.cu launched in place of the
+        # package's own (its -D options in one argument)
+        defines = sys.argv[sys.argv.index("--bag-build") + 1].split()
+        cs.phase_build()
+        use_bag_build(bag_builds({"variant": defines})["variant"])
+        print(f"[bag] embedding_bag built with {defines}", flush=True)
     if "--word2vec" in sys.argv[1:]:
         cs.phase_build()
         return word2vec_main(dev, smi, name)
@@ -407,6 +647,10 @@ def main() -> int:
     if "--flash" in sys.argv[1:]:
         cs.phase_build()
         return flash_main(dev, smi, name)
+    if "--bag" in sys.argv[1:]:
+        cs.phase_build()
+        return bag_main(dev, smi, name, "--levers" in sys.argv[1:],
+                        "--timeline" in sys.argv[1:])
     model = cs.build_model(dev)
     model.conf.global_conf.compute_dtype = "bfloat16"
     rng = np.random.default_rng(cs.SEED + 3)

@@ -224,3 +224,110 @@ def test_neg_round_against_jax():
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=0, atol=1e-6)
     np.testing.assert_allclose(tu.numpy(), np.asarray(ju), rtol=0, atol=1e-6)
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-6)
+
+
+# --- the wrapper's checks --------------------------------------------------------
+
+def _previous_checks(table, indices, mask, counts):
+    """The checks of the wrapper before its launch was made cheaper, as
+    they were, the device type aside (that check comes first in both and is
+    tested below): the oracle for what the kernel must refuse."""
+    if table.dtype != torch.float32:
+        raise TypeError("table dtype")
+    if table.ndim != 2 or not table.is_contiguous():
+        raise ValueError("table shape")
+    if indices.ndim != 2:
+        raise ValueError("indices shape")
+    B, W = indices.shape
+    for t, dtype, shape in ((indices, torch.int32, (B, W)),
+                            (mask, torch.float32, (B, W)),
+                            (counts, torch.float32, (B,))):
+        if (t.dtype != dtype or t.device != table.device
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError("argument")
+    if table.shape[0] == 0 and B * W > 0:
+        raise ValueError("empty table")
+    if B * W >= 2 ** 62 or table.numel() >= 2 ** 62 \
+            or table.shape[1] >= 2 ** 31:
+        raise ValueError("too large")
+
+
+def _args(**change):
+    args = {"table": torch.zeros(7, 5), "indices": torch.zeros(
+        4, 3, dtype=torch.int32), "mask": torch.ones(4, 3),
+        "counts": torch.full((4,), 3.0)}
+    args.update(change)
+    return args
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+CHECK_CASES = {
+    "ok": {},
+    "ok-empty-window": {"indices": torch.zeros(4, 0, dtype=torch.int32),
+                        "mask": torch.ones(4, 0)},
+    "ok-empty-table-empty-window": {
+        "table": torch.zeros(0, 5), "indices": torch.zeros(
+            4, 0, dtype=torch.int32), "mask": torch.ones(4, 0)},
+    "table-float64": {"table": torch.zeros(7, 5, dtype=torch.float64)},
+    "table-bfloat16": {"table": torch.zeros(7, 5, dtype=torch.bfloat16)},
+    "table-int32": {"table": torch.zeros(7, 5, dtype=torch.int32)},
+    "table-1d": {"table": torch.zeros(35)},
+    "table-3d": {"table": torch.zeros(7, 5, 1)},
+    "table-transposed": {"table": torch.zeros(5, 7).t()},
+    "indices-1d": {"indices": torch.zeros(12, dtype=torch.int32)},
+    "indices-3d": {"indices": torch.zeros(4, 3, 1, dtype=torch.int32)},
+    "indices-int64": {"indices": torch.zeros(4, 3, dtype=torch.int64)},
+    "indices-float": {"indices": torch.zeros(4, 3)},
+    "indices-transposed": {"indices": torch.zeros(
+        3, 4, dtype=torch.int32).t()},
+    "mask-float64": {"mask": torch.ones(4, 3, dtype=torch.float64)},
+    "mask-narrow": {"mask": torch.ones(4, 2)},
+    "mask-short": {"mask": torch.ones(3, 3)},
+    "mask-transposed": {"mask": torch.ones(3, 4).t()},
+    "counts-float64": {"counts": torch.ones(4, dtype=torch.float64)},
+    "counts-column": {"counts": torch.ones(4, 1)},
+    "counts-short": {"counts": torch.ones(3)},
+    "counts-strided": {"counts": torch.ones(8)[::2]},
+    "indices-elsewhere": {"indices": _meta(4, 3, dtype=torch.int32)},
+    "mask-elsewhere": {"mask": _meta(4, 3)},
+    "counts-elsewhere": {"counts": _meta(4)},
+    "empty-table": {"table": torch.zeros(0, 5)},
+    "row-too-wide": {"table": _meta(1, 2 ** 31), "indices": _meta(
+        4, 3, dtype=torch.int32), "mask": _meta(4, 3), "counts": _meta(4)},
+}
+
+
+@pytest.mark.parametrize("case", sorted(CHECK_CASES))
+def test_wrapper_checks_refuse_what_they_refused_before(case):
+    """Every input the previous checks refused is refused again, with the
+    same exception type, and every input they took is taken."""
+    args = _args(**CHECK_CASES[case])
+    try:
+        _previous_checks(**args)
+        want = None
+    except (TypeError, ValueError) as e:
+        want = type(e)
+    assert (want is None) == case.startswith("ok")
+    if want is None:
+        temb._check_args(**args)
+    else:
+        with pytest.raises(want):
+            temb._check_args(**args)
+
+
+def test_wrapper_refuses_grad_then_device_first():
+    """The grad refusal, then the device type, come before every other
+    check, as before: a CPU table, even one the kernel could not take for
+    other reasons, is refused for its device."""
+    args = _args(table=torch.zeros(7, 5, dtype=torch.float64))
+    with pytest.raises(ValueError, match="CUDA"):
+        temb.embedding_bag_cuda(mean=True, **args)
+    args = _args(table=torch.zeros(7, 5).requires_grad_())
+    with pytest.raises(RuntimeError, match="forward-only"):
+        temb.embedding_bag_cuda(mean=True, **args)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        temb.embedding_bag_cuda(mean=True, **args)
+    assert temb.embedding_bag_launches == 0

@@ -177,9 +177,10 @@ def _bag_inputs(B, W, V, D, dev, seed, offset=0, masked=()):
         np.float32)).to(dev)
     table = buf[offset:].view(V, D)
     idx = rng.integers(0, V, size=(B, W)).astype(np.int32)
-    if W and B > 1:
+    if W and B > 2:
         idx[0, 0] = V - 1
         idx[1, -1] = V + 7
+        idx[2, W // 2] = -3
     mask = (rng.random((B, W)) < 0.7).astype(np.float32)
     for b in masked:
         mask[b] = 0.0
@@ -194,7 +195,15 @@ def _bag_inputs(B, W, V, D, dev, seed, offset=0, masked=()):
     (8192, 10, 10000, 100, 0),       # the CBOW path's shape
     (33, 10, 50, 1, 0), (33, 10, 50, 3, 0), (33, 10, 50, 101, 0),
     (33, 10, 50, 300, 0), (40, 1, 50, 64, 0), (40, 7, 50, 64, 1),
-    (5, 0, 50, 8, 0)])
+    (5, 0, 50, 8, 0),
+    # index chunks past 32 lanes, at D 100 and 300
+    (33, 32, 50, 100, 0), (33, 33, 50, 100, 0), (33, 40, 50, 100, 0),
+    (33, 32, 50, 300, 0), (33, 33, 50, 300, 0), (33, 40, 50, 300, 0),
+    # each count of rows in flight, B not a multiple of 8 bags per block
+    (8191, 3, 10000, 100, 0), (8191, 5, 10000, 100, 0),
+    (8191, 13, 10000, 100, 0),
+    # the scalar route past 32 indices
+    (1001, 33, 1000, 101, 1), (5, 40, 1000, 300, 1)])
 def test_embedding_bag_kernel_bitwise_against_plain_version(mean, B, W, V,
                                                             D, offset):
     """Both add row * mask in W order from zero and divide by the count,

@@ -262,3 +262,51 @@ def test_resnet50_one_bucket_and_one_fused_step():
     assert np.isfinite(g.score_value)
     assert not torch.equal(w0, g._params["output"]["W"])
     assert tupdate.fused_update_launches == 0      # CPU: the plain version
+
+
+def _embedding_conf(which, sequence):
+    """An embedding layer with a dropout of its own, then layers without
+    one (the global dropout stays 0)."""
+    from torch_parity import modules
+
+    m = modules(which)
+    b = m.NeuralNetConfiguration.builder().seed(5).updater(m.Sgd(0.5))
+    gb = m.graph.ComputationGraphConfiguration.graph_builder(b) \
+        .add_inputs("in")
+    if sequence:
+        gb.add_layer("emb", m.L.EmbeddingSequenceLayer(n_out=8, dropout=0.5),
+                     "in")
+        gb.add_layer("pool", m.L.GlobalPoolingLayer(pooling_type="avg"),
+                     "emb")
+        prev, it = "pool", m.InputType.recurrent(20, 6)
+    else:
+        gb.add_layer("emb", m.L.EmbeddingLayer(n_out=8, dropout=0.5,
+                                               activation="tanh"), "in")
+        prev, it = "emb", m.InputType.feed_forward(20)
+    gb.add_layer("out", m.L.OutputLayer(n_out=3, activation="softmax",
+                                        loss="mcxent"), prev)
+    gb.set_outputs("out")
+    gb.set_input_types(it)
+    return gb.build()
+
+
+@pytest.mark.parametrize("sequence", [False, True])
+def test_embedding_layer_with_dropout_trains_as_jax(sequence):
+    """The JAX embedding layers never apply their dropout, so a graph whose
+    embedding layer has one trains; the port's does too, and matches it
+    from copied parameters (rtol 1e-4 / atol 1e-6, as above)."""
+    jg = JGraph(_embedding_conf("jax", sequence)).init()
+    tg = TGraph(_embedding_conf("torch", sequence)).init(device="cpu")
+    assert tg.conf.nodes["emb"].layer.dropout == 0.5
+    assert tg.conf.nodes["out"].layer.dropout == 0.0
+    graph_state_from_numpy(tg, numpy_tree(jg._params), numpy_tree(jg._states))
+    rng = np.random.default_rng(2)
+    batches = [(rng.integers(0, 20, size=(8, 6) if sequence else (8, 1))
+                .astype(np.int32),
+                np.eye(3, dtype=np.float32)[rng.integers(0, 3, 8)])
+               for _ in range(STEPS)]
+    w0 = tg._params["emb"]["W"].detach().clone()
+    jl, tl = _fit_both(jg, tg, batches)
+    assert np.allclose(tl, jl, rtol=RTOL, atol=ATOL), (tl, jl)
+    _assert_close_trees(tg._params, numpy_tree(jg._params), "params")
+    assert not torch.equal(w0, tg._params["emb"]["W"])
