@@ -100,6 +100,39 @@ Phases (each fails the run with a nonzero exit if it fails):
                norm, and no further from the float32 states than twice the
                CPU's bf16 run.
 
+11. lenet   -- LeNet as bench.py trains it (zoo LeNet: Nesterovs 0.01/0.9,
+               relu, xavier, conv 20/50 5x5, max pools, dense 500, softmax;
+               float32) through MultiLayerNetwork.fit(MnistDataSetIterator(
+               128, flatten=False), batch_size=128) on the synthetic MNIST
+               fallback: 94 steps per epoch, the last padded by wrapping
+               rows; once with a listener that waits for the card after
+               every step (step times), once without (images/s); then
+               evaluate on the 2,000 test images and bench.py's loop
+               (fit(ds) on one batch, 3 warm-ups, 50 timed). Per-leaf, and
+               with fused_update (exactly 1 launch per step, no fallback).
+               Then 10 steps fused against per-leaf (float32, TF32 off,
+               deterministic cuDNN; parameters and momentum within 2 float32
+               ulp, phase 7's contract) and 5 steps on the card against the
+               CPU (losses within 1e-5 relative).
+12. vgg16   -- zoo VGG16 at its published widths (224x224x3, 1000 classes,
+               138,357,544 parameters) training at batch 64: bf16 compute,
+               fused_update, bf16 updater state, dropout 0.5 on both 4096
+               layers, on 8-bit pixels scaled to [0, 1]; 2 warm-ups, 10
+               timed fit(ds) steps. Gates: finite
+               losses, 1 fused_update launch per step, the keep share of
+               dropout's mask on the first dense input within 0.5 +- 0.01.
+13. masked  -- a MultiLayerNetwork at BERT-base widths (embedding 30522 x
+               768, self-attention 768/12 heads, LayerNorm, self-attention,
+               masked average pool, softmax 2; the depth is no published
+               model's) served through output(x, fmask=) in bf16 at batch
+               32, T 128, real lengths uniform in [16, 128]: 2 bf16 flash
+               launches per forward carrying the mask bias as a zero-stride
+               view, no dense attention, rows summing to 1, outputs
+               unchanged when the padded token ids change, and float32 on
+               the card against the CPU at batch 4 within 1e-4. Then
+               fused_update's kernel at LeNet's and VGG16's buckets against
+               its plain version and its bound.
+
 Then it prints the kernels line (one JSON object) and, last, the device line
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
 beside it, it exits nonzero and prints no result. Weights are random, made
@@ -1759,6 +1792,561 @@ def bf16_parity(smi: str, dev):
             "rel_err_cpu_vs_f32": r_cpu_f32, "launches": launches}
 
 
+# --- phases 11-13: MultiLayerNetwork ---------------------------------------------
+
+LENET_BATCH = 128
+LENET_TRAIN = 12_000                # the synthetic MNIST fallback
+LENET_STEPS = 94                    # 12,000 at batch 128, the last padded
+LENET_PARAMS = 431_080
+LENET_BENCH_WARMUP = 3              # bench.py's bench_lenet
+LENET_BENCH_STEPS = 50
+LENET_PARITY_STEPS = 10
+LENET_CPU_STEPS = 5
+VGG_BATCH = 64
+VGG_PARAMS = 138_357_544            # zoo VGG16 at 1000 classes
+VGG_WARMUP = 2
+VGG_STEPS = 10
+VGG_FLAT = 512 * 7 * 7              # the first dense layer's input width
+VGG_PROBE = 8                       # images served before and after the fit
+# the masked path: BERT-base widths (google-research/bert
+# uncased_L-12_H-768_A-12), at a depth of two attention layers that is no
+# published model's: it runs the padding mask at the widths the card sees
+MASKED = {"vocab": 30522, "width": 768, "heads": 12, "seq": 128,
+          "batch": 32, "min_len": 16}
+MASKED_WARMUP = 3
+MASKED_TIMED = 20
+
+
+class StepClock:
+    """A listener that waits for the card after every step and keeps the
+    host clock and the loss: per-step times of a fit over an iterator."""
+
+    def __init__(self):
+        self.stamps = []
+        self.losses = []
+
+    def start(self):
+        torch.cuda.synchronize()
+        self.stamps = [time.perf_counter()]
+
+    def iteration_done(self, model, iteration, score):
+        torch.cuda.synchronize()
+        self.stamps.append(time.perf_counter())
+        self.losses.append(float(score))
+
+    def step_ms(self):
+        return [(b - a) * 1e3 for a, b in zip(self.stamps, self.stamps[1:])]
+
+
+def _ms_stats(ms):
+    return {"step_ms_median": statistics.median(ms),
+            "step_ms_p10": _percentile(ms, 0.1),
+            "step_ms_p90": _percentile(ms, 0.9)}
+
+
+def _ulp_worst(a_tree, b_tree) -> tuple:
+    """Largest difference in float32 ulp between two trees of tensors, and
+    whether they are bitwise equal."""
+    from deeplearning4j_tpu_torch.parallel.sharding import leaf_paths
+
+    worst, bitwise = 0.0, True
+    for n, k in leaf_paths(b_tree):
+        x, y = a_tree[n][k].detach(), b_tree[n][k].detach()
+        bitwise = bitwise and torch.equal(x, y)
+        d = (x - y).abs()
+        ulps = (d / _f32_ulp_of(torch.maximum(x.abs(), y.abs())
+                                .clamp_min(2.0 ** -126))).max().item()
+        worst = max(worst, ulps)
+    return worst, bitwise
+
+
+def lenet_batches(n: int, dev, seed: int = SEED):
+    """``n`` batches of 128 synthetic MNIST images (the iterator's first
+    ones), as DataSets on ``dev``."""
+    from deeplearning4j_tpu_torch.data import DataSet, MnistDataSetIterator
+
+    it = MnistDataSetIterator(LENET_BATCH, train=True,
+                              num_examples=n * LENET_BATCH, seed=seed,
+                              flatten=False)
+    return [DataSet(torch.from_numpy(ds.features).to(dev),
+                    torch.from_numpy(ds.labels).to(dev)) for ds in it]
+
+
+def lenet_bench_loop(net, ds):
+    """bench.py's bench_lenet loop: fit(ds) on one batch, 3 warm-ups, then
+    timed steps, each ending in a wait for the card."""
+    for _ in range(LENET_BENCH_WARMUP):
+        net.fit(ds)
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(LENET_BENCH_STEPS):
+        t0 = time.perf_counter()
+        net.fit(ds)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"images_per_s": LENET_BATCH * len(ms) / sum(ms) * 1e3,
+            **_ms_stats(ms), "last_loss": net.score_value}
+
+
+def phase_lenet(smi: str, dev):
+    """LeNet as bench.py trains it, through MultiLayerNetwork.fit, per-leaf
+    and with fused_update; then fused against per-leaf and the card
+    against the CPU."""
+    from deeplearning4j_tpu_torch.common.environment import Environment
+    from deeplearning4j_tpu_torch.common.profiler import OpProfiler
+    from deeplearning4j_tpu_torch.data import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.models import LeNet
+    from deeplearning4j_tpu_torch.ops import update
+
+    Environment.get().set_tf32(False)
+    train_it = MnistDataSetIterator(LENET_BATCH, train=True, flatten=False)
+    test_it = MnistDataSetIterator(LENET_BATCH, train=False, flatten=False)
+    check(train_it.synthetic and train_it.total_examples() == LENET_TRAIN
+          and test_it.total_examples() == 2000,
+          f"MNIST: synthetic {train_it.synthetic}, "
+          f"{train_it.total_examples()} + {test_it.total_examples()} images")
+    bench_ds = lenet_batches(1, dev)[0]
+    prof = OpProfiler.get()
+    result = {}
+    for fused in (False, True):
+        label = "fused" if fused else "per_leaf"
+        net = LeNet().init(device=dev)
+        net.conf.global_conf.fused_update = fused
+        check(net.num_params() == LENET_PARAMS, f"LeNet has "
+              f"{net.num_params()} parameters, want {LENET_PARAMS}")
+        clock = StepClock()
+        net.set_listeners(clock)
+        prof.reset()
+        update.reset_launches()
+        clock.start()
+        net.fit(train_it, batch_size=LENET_BATCH)
+        torch.cuda.synchronize()
+        step_ms = clock.step_ms()
+        # the same epoch again without the listener's waits: throughput
+        net.set_listeners()
+        t0 = time.perf_counter()
+        net.fit(train_it, batch_size=LENET_BATCH)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counters = prof.get_counters()
+        launches = update.fused_update_launches
+        steps = net._iteration
+        check(steps == 2 * LENET_STEPS, f"{steps} steps in two epochs, want "
+              f"{2 * LENET_STEPS}")
+        check(counters.get("pipeline/padded_batches", 0) == 2,
+              f"padded batches {counters.get('pipeline/padded_batches')}, "
+              f"want 1 per epoch")
+        check(all(np.isfinite(clock.losses)), "non-finite LeNet loss")
+        want = steps if fused else 0
+        check(launches == want, f"LeNet {label}: fused_update launched "
+              f"{launches} times in {steps} steps, want {want}")
+        check(counters.get("precision/fused_fallbacks", 0) == 0,
+              f"fused fallbacks {counters.get('precision/fused_fallbacks')}")
+        if fused:
+            check(counters.get("precision/fused_buckets_kernel", 0) == steps,
+                  f"kernel buckets "
+                  f"{counters.get('precision/fused_buckets_kernel')}")
+        ev = net.evaluate(test_it)
+        bench = lenet_bench_loop(net, bench_ds)
+        r = {"images_per_s": LENET_TRAIN / wall, **_ms_stats(step_ms),
+             "steps_per_epoch": LENET_STEPS, "launches": launches,
+             "last_loss": clock.losses[-1], "first_loss": clock.losses[0],
+             "test_accuracy": ev.accuracy(), "test_examples": ev.count,
+             "bench_loop": bench}
+        result[label] = r
+        log(f"[lenet] {label}: fit(MnistDataSetIterator(128), synthetic "
+            f"{LENET_TRAIN} images, {LENET_STEPS} steps, the last padded): "
+            f"{r['images_per_s']:.2f} images/s; step ms median "
+            f"{r['step_ms_median']:.3f} p10 {r['step_ms_p10']:.3f} p90 "
+            f"{r['step_ms_p90']:.3f} (waiting for the card every step); "
+            f"loss {r['first_loss']:.4f} -> {r['last_loss']:.4f}; test "
+            f"accuracy {r['test_accuracy']:.4f} on {ev.count}; "
+            f"fused_update launches {launches} in {steps} steps; {smi}")
+        log(f"[lenet] {label}: bench.py loop fit(ds) at batch 128: "
+            f"{bench['images_per_s']:.2f} images/s, step ms median "
+            f"{bench['step_ms_median']:.3f} p10 {bench['step_ms_p10']:.3f} "
+            f"p90 {bench['step_ms_p90']:.3f} ({LENET_BENCH_STEPS} steps "
+            f"after {LENET_BENCH_WARMUP} warm-ups); last loss "
+            f"{bench['last_loss']:.4f}; {smi}")
+        del net
+    result["fused_parity"] = lenet_fused_parity(dev)
+    result["cpu_parity"] = lenet_cpu_parity(dev)
+    return result
+
+
+def lenet_fused_parity(dev):
+    """10 steps through the kernel against 10 through the per-leaf path,
+    from the same parameters, float32, TF32 off, deterministic cuDNN.
+    Contract: phase 7's, every parameter and momentum element within 2
+    float32 ulp."""
+    from deeplearning4j_tpu_torch.models import LeNet
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        batches = lenet_batches(LENET_PARITY_STEPS, dev, SEED + 5)
+        nets = []
+        for fused in (True, False):
+            net = LeNet().init(device=dev)
+            net.conf.global_conf.fused_update = fused
+            for ds in batches:
+                net.fit(ds)
+            torch.cuda.synchronize()
+            nets.append(net)
+        a, b = nets
+        wp, bp = _ulp_worst(a._params, b._params)
+        wv, bv = _ulp_worst(a._updater_state["v"], b._updater_state["v"])
+        check(wp <= 2 and wv <= 2, f"LeNet fused vs per-leaf after "
+              f"{LENET_PARITY_STEPS} steps: params {wp}, momentum {wv} f32 "
+              f"ulp (want <= 2)")
+        log(f"[lenet-parity] {LENET_PARITY_STEPS} steps, float32, TF32 off, "
+            f"deterministic cuDNN: fused kernel vs per-leaf: params within "
+            f"{wp:.2f} ulp (bitwise {bp}), momentum within {wv:.2f} ulp "
+            f"(bitwise {bv}); bound 2 ulp; losses {a.score_value} vs "
+            f"{b.score_value}")
+        return {"params_ulp": wp, "momentum_ulp": wv,
+                "bitwise": bool(bp and bv)}
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+
+def lenet_cpu_parity(dev):
+    """Float32 (TF32 off) on the card against the port on the CPU from the
+    same seed: the losses of 5 steps within 1e-5 relative."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.models import LeNet
+
+    batches = lenet_batches(LENET_CPU_STEPS, dev, SEED + 6)
+    card, host = LeNet().init(device=dev), LeNet().init(device="cpu")
+    worst = 0.0
+    pairs = []
+    for ds in batches:
+        card.fit(ds)
+        host.fit(DataSet(ds.features.cpu(), ds.labels.cpu()))
+        a, b = card.score_value, host.score_value
+        pairs.append((a, b))
+        worst = max(worst, abs(a - b) / abs(b))
+    check(worst <= 1e-5, f"LeNet card vs CPU losses {pairs}: relative "
+          f"{worst} > 1e-5")
+    log(f"[lenet-parity] float32, TF32 off: card vs CPU losses of "
+        f"{LENET_CPU_STEPS} steps within {worst:.3e} relative (<= 1e-5): "
+        f"{pairs}")
+    return {"max_rel_err": worst, "losses": pairs}
+
+
+def vgg_batch(dev, seed: int):
+    """A seeded batch of 64 synthetic 8-bit images scaled to [0, 1] by the
+    port's ImagePreProcessingScaler (as a DL4J user feeds a zoo model
+    trained from scratch), with one-hot labels over 1000 classes, placed on
+    the card once. N(0, 1) inputs (phase 6's) drive this configuration's
+    loss to NaN within 4 steps, in float32 as in bf16: zoo VGG16 has no
+    BatchNormalization, and its learning rate of 0.01 overshoots on inputs
+    of that scale (profile_port.py --mln prints the trajectories)."""
+    from deeplearning4j_tpu_torch.data import DataSet, ImagePreProcessingScaler
+
+    rng = np.random.RandomState(seed)
+    ds = DataSet(rng.randint(0, 256, (VGG_BATCH, 3, IMAGE, IMAGE))
+                 .astype(np.uint8),
+                 np.eye(1000, dtype=np.float32)[rng.randint(0, 1000,
+                                                            VGG_BATCH)])
+    ImagePreProcessingScaler().transform(ds)
+    return DataSet(torch.from_numpy(ds.features).to(dev),
+                   torch.from_numpy(ds.labels).to(dev))
+
+
+def phase_vgg16(smi: str, dev):
+    """Zoo VGG16 at its published widths (224x224x3, 1000 classes),
+    training at batch 64: bf16 compute, fused_update, bf16 updater state,
+    dropout 0.5 on both 4096-wide layers; 2 warm-ups (which also measure
+    dropout's keep share), then 10 timed steps. ``output`` on 8 images
+    before and after the steps: the second reads the updated parameters,
+    bitwise as a forward with no cached bf16 copies."""
+    from deeplearning4j_tpu_torch.common.profiler import OpProfiler
+    from deeplearning4j_tpu_torch.models import VGG16
+    from deeplearning4j_tpu_torch.ops import nn as ops
+    from deeplearning4j_tpu_torch.ops import update
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    net = VGG16(seed=SEED).init(device=dev)
+    check(net.num_params() == VGG_PARAMS, f"VGG16 has {net.num_params()} "
+          f"parameters, want {VGG_PARAMS}")
+    gc = net.conf.global_conf
+    gc.compute_dtype = "bfloat16"
+    gc.fused_update = True
+    gc.updater.state_dtype = "bfloat16"
+    ds = vgg_batch(dev, SEED + 20)
+    probe = ds.features[:VGG_PROBE]
+    # output() caches the bf16 copies of the parameters; the fused kernel
+    # writes the bucket behind their versions, so the step must drop them
+    before = net.output(probe).float()
+    shares = []
+    draw = ops.dropout_mask
+
+    def recording_mask(shape, rate, generator, device):
+        keep = draw(shape, rate, generator, device)
+        if tuple(shape) == (VGG_BATCH, VGG_FLAT):
+            shares.append(keep.float().mean().item())
+        return keep
+
+    losses = []
+    ops.dropout_mask = recording_mask
+    try:
+        for _ in range(VGG_WARMUP):
+            net.fit(ds)
+            losses.append(net.score_value)
+    finally:
+        ops.dropout_mask = draw
+    torch.cuda.synchronize()
+    prof = OpProfiler.get()
+    prof.reset()
+    update.reset_launches()
+    ms = []
+    for _ in range(VGG_STEPS):
+        t0 = time.perf_counter()
+        net.fit(ds)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(net.score_value)
+    launches = update.fused_update_launches
+    counters = prof.get_counters()
+    peak = torch.cuda.max_memory_allocated()
+    after = net.output(probe).float()
+    net._cast_cache = None
+    fresh = net.output(probe).float()
+    check(not torch.equal(after, before), "VGG16 output after 12 fused "
+          "steps equals the output before them (stale cast cache)")
+    check(torch.equal(after, fresh), "VGG16 output after the fused steps "
+          "differs from an uncached forward: largest difference "
+          f"{(after - fresh).abs().max().item()}")
+    check(all(np.isfinite(losses)), f"non-finite VGG16 loss: {losses}")
+    check(launches == VGG_STEPS, f"fused_update launched {launches} times "
+          f"in {VGG_STEPS} steps (want 1 per step)")
+    check(counters.get("precision/fused_fallbacks", 0) == 0,
+          f"fused fallbacks {counters.get('precision/fused_fallbacks')}")
+    check(len(shares) == VGG_WARMUP and all(abs(s - 0.5) <= 0.01
+                                           for s in shares),
+          f"dropout keep share on the first dense input {shares}, want "
+          f"0.5 +- 0.01 in each of {VGG_WARMUP} steps")
+    state_bytes = counters.get("precision/updater_state_bytes_bfloat16", 0)
+    result = {"params": VGG_PARAMS, "images_per_s":
+              VGG_BATCH * len(ms) / sum(ms) * 1e3, **_ms_stats(ms),
+              "peak_bytes": peak, "losses": losses, "launches": launches,
+              "keep_shares": shares, "state_bytes": state_bytes,
+              "output_after_fit": "fresh"}
+    log(f"[vgg16] zoo VGG16 ({VGG_PARAMS} parameters, 224x224x3, 1000 "
+        f"classes), batch {VGG_BATCH}, bf16 compute, fused_update, bf16 "
+        f"state, dropout 0.5 x2: {result['images_per_s']:.2f} images/s, "
+        f"step ms median {result['step_ms_median']:.2f} p10 "
+        f"{result['step_ms_p10']:.2f} p90 {result['step_ms_p90']:.2f} "
+        f"({VGG_STEPS} steps after {VGG_WARMUP} warm-ups); peak device "
+        f"memory {peak} B; fused_update launches {launches}; dropout keep "
+        f"share on the [{VGG_BATCH}, {VGG_FLAT}] input {shares}; output "
+        f"after the steps changed and equals an uncached forward; {smi}")
+    log(f"[vgg16] losses {losses}")
+    del net, ds
+    torch.cuda.empty_cache()
+    return result
+
+
+def masked_conf(compute_dtype=None):
+    """The masked path at BERT-base widths: token embedding (30522 x 768)
+    -> self-attention (768, 12 heads) -> LayerNorm -> self-attention ->
+    average pool over the real steps -> softmax over 2 classes. Two
+    attention layers are no published model's depth: the configuration
+    exists to run the padding mask at the widths the card sees."""
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.builder import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+
+    w, h = MASKED["width"], MASKED["heads"]
+    b = NeuralNetConfiguration.builder().seed(SEED)
+    if compute_dtype:
+        b = b.compute_dtype(compute_dtype)
+    return (b.list()
+            .layer(L.EmbeddingSequenceLayer(n_out=w))
+            .layer(L.SelfAttentionLayer(n_out=w, n_heads=h))
+            .layer(L.LayerNormalization())
+            .layer(L.SelfAttentionLayer(n_out=w, n_heads=h))
+            .layer(L.GlobalPoolingLayer(pooling_type="avg"))
+            .layer(L.OutputLayer(n_out=2, loss="mcxent",
+                                 activation="softmax"))
+            .set_input_type(InputType.recurrent(MASKED["vocab"],
+                                                MASKED["seq"]))
+            .build())
+
+
+def masked_inputs(batch: int, seed: int):
+    """Token ids ``[B, T]`` and a feature mask whose real lengths are
+    uniform in [16, T], from the seed."""
+    rng = np.random.default_rng(seed)
+    T = MASKED["seq"]
+    tokens = rng.integers(0, MASKED["vocab"], (batch, T)).astype(np.int32)
+    lengths = rng.integers(MASKED["min_len"], T + 1, batch)
+    fmask = (np.arange(T)[None, :] < lengths[:, None]).astype(np.float32)
+    return tokens, fmask
+
+
+def phase_masked(smi: str, dev):
+    """The masked path served through MultiLayerNetwork.output(x, fmask=)
+    in bf16 compute; padding invariance; float32 card against the CPU."""
+    from deeplearning4j_tpu_torch.common.environment import Environment
+    from deeplearning4j_tpu_torch.common.profiler import OpProfiler
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import attention
+
+    torch.cuda.empty_cache()
+    net = MultiLayerNetwork(masked_conf("bfloat16")).init(seed=SEED,
+                                                          device=dev)
+    B = MASKED["batch"]
+    feeds = [tuple(torch.from_numpy(a).to(dev)
+                   for a in masked_inputs(B, SEED + 30 + i))
+             for i in range(MASKED_TIMED)]
+    for _ in range(MASKED_WARMUP):
+        net.output(feeds[0][0], fmask=feeds[0][1])
+    torch.cuda.synchronize()
+    launch = attention._launch_bf16
+    biases = []
+
+    def recording_launch(q, k, v, scale, causal, bias, with_lse):
+        biases.append(None if bias is None else tuple(bias.stride()))
+        return launch(q, k, v, scale, causal, bias, with_lse)
+
+    prof = OpProfiler.get()
+    prof.reset()
+    attention.reset_launches()
+    outs, ms, per_forward = [], [], []
+    attention._launch_bf16 = recording_launch
+    try:
+        for tokens, fmask in feeds:
+            before = attention.flash_attention_launches
+            t0 = time.perf_counter()
+            out = net.output(tokens, fmask=fmask)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            per_forward.append(attention.flash_attention_launches - before)
+            outs.append(out)
+    finally:
+        attention._launch_bf16 = launch
+    counters = prof.get_counters()
+    launches = attention.flash_attention_launches
+    check(per_forward == [2] * MASKED_TIMED, f"flash launches per forward "
+          f"{sorted(set(per_forward))}, want 2")
+    check(counters.get("attention/flash_bf16", 0) == launches
+          and counters.get("attention/flash_f32", 0) == 0
+          and counters.get("attention/mha_flash", 0) == 2 * MASKED_TIMED
+          and counters.get("attention/mha_dense", 0) == 0,
+          f"attention routes {counters}")
+    # the bias reaches the kernel as the broadcast [B, 1, 1, T] view:
+    # zero strides over heads and query rows, no copy
+    check(len(biases) == launches and all(
+        s is not None and s[1] == 0 and s[2] == 0 for s in biases),
+        f"bias strides at the bf16 kernel {sorted(set(biases))}")
+    for out in outs:
+        o = out.float()
+        check(tuple(o.shape) == (B, 2) and bool(torch.isfinite(o).all()),
+              f"masked output {tuple(o.shape)} not finite")
+        err = (o.sum(1) - 1).abs().max().item()
+        check(err <= 1e-2, f"masked rows sum to 1 +- {err}")
+    # padding invariance: other token ids at the padded steps
+    tokens, fmask = feeds[0]
+    rng = np.random.default_rng(SEED + 40)
+    other = torch.from_numpy(rng.integers(
+        0, MASKED["vocab"], tuple(tokens.shape)).astype(np.int32)).to(dev)
+    swapped = torch.where(fmask > 0, tokens, other)
+    check(bool((swapped != tokens).any()), "no padded token changed")
+    a = net.output(tokens, fmask=fmask).float()
+    b = net.output(swapped, fmask=fmask).float()
+    pad_bitwise = bool(torch.equal(a, b))
+    pad_err = (a - b).abs().max().item()
+    check(pad_err <= 1e-6, f"padded tokens changed the output by {pad_err}")
+    # float32 on the card (TF32 off) against the CPU at batch 4
+    Environment.get().set_tf32(False)
+    net.conf.global_conf.compute_dtype = None
+    tokens4, fmask4 = masked_inputs(4, SEED + 41)
+    prof.reset()
+    card = net.output(tokens4, fmask=fmask4).float().cpu()
+    check(prof.counter_value("attention/flash_f32") == 2,
+          "the float32 masked path did not launch the float32 kernel twice")
+    host = MultiLayerNetwork(masked_conf()).init(seed=SEED + 1, device="cpu")
+    host.set_params(net.params().cpu())
+    want = host.output(tokens4, fmask=fmask4)
+    f32_err = (card - want).abs().max().item()
+    check(f32_err <= 1e-4, f"masked path card vs CPU float32: {f32_err} "
+          f"> 1e-4")
+    result = {"params": net.num_params(), "launches": launches,
+              "launches_per_forward": 2,
+              "sequences_per_s": B * len(ms) / sum(ms) * 1e3,
+              "p50_ms": _percentile(ms, 0.5), "p99_ms": _percentile(ms, 0.99),
+              "pad_bitwise": pad_bitwise, "pad_max_abs_err": pad_err,
+              "f32_card_vs_cpu": f32_err}
+    log(f"[masked] MultiLayerNetwork at BERT-base widths (embedding 30522 "
+        f"x 768, 2 self-attention layers of 12 heads, LayerNorm, masked "
+        f"average pool; {result['params']} parameters), bf16 compute, "
+        f"output(x, fmask) at batch {B}, T {MASKED['seq']}, real lengths "
+        f"uniform in [{MASKED['min_len']}, {MASKED['seq']}]: "
+        f"{result['sequences_per_s']:.2f} sequences/s, latency p50 "
+        f"{result['p50_ms']:.3f} ms p99 {result['p99_ms']:.3f} ms "
+        f"({MASKED_TIMED} batches after {MASKED_WARMUP} warm-ups); "
+        f"flash_attention launches {launches} = 2 per forward, all on the "
+        f"bf16 kernel with the mask bias; {smi}")
+    log(f"[masked] padded token ids changed: outputs bitwise equal "
+        f"{pad_bitwise}, max abs diff {pad_err}; float32 card (float32 "
+        f"kernel) vs CPU at batch 4: max abs err {f32_err} (<= 1e-4)")
+    del net
+    torch.cuda.empty_cache()
+    return result
+
+
+def time_mln_updates(smi: str, dev, flush):
+    """fused_update at the MultiLayerNetwork buckets: LeNet's 431,080
+    elements (Nesterovs, float32 state, as phase 11 trains it) and VGG16's
+    138,357,544 (Nesterovs, bf16 state), kernel against plain version and
+    the bound (20 bytes per element). Before it is timed, the kernel is
+    held against its plain version at each of these sizes (parameters
+    within 2 float32 ulp, float32 moments too, bf16 moments bitwise)."""
+    from deeplearning4j_tpu_torch.ops import update
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 50)
+    rows = {}
+    for name, n, bf16 in (("lenet", LENET_PARAMS, False),
+                          ("vgg16", VGG_PARAMS, True)):
+        perr, serr, bitwise = compare_fused_update("nesterovs", n, bf16, dev,
+                                                   gen)
+        torch.cuda.empty_cache()
+        p, g, slots, bits = _update_case("nesterovs", n, bf16, dev, gen)
+        sr = torch.bfloat16 if bf16 else None
+        sc = update._scalars(_updater("nesterovs",
+                                      "bfloat16" if bf16 else None),
+                             "nesterovs", 3)
+        nbytes = 20 * n
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = 6 * n / F32_FLOPS_PER_S * 1e3
+        rows[name] = {
+            "elements": n, "state_dtype": "bfloat16" if bf16 else "float32",
+            "ms": _time_ms(lambda: update.fused_update_cuda(
+                "nesterovs", sc, p, g, slots, bits, sr), flush),
+            "plain_ms": _time_ms(lambda: update.fused_update_reference(
+                "nesterovs", sc, p, g, slots, bits, sr), flush),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "max_err_param": perr, "max_err_moment": serr,
+            "bitwise": bitwise}
+        r = rows[name]
+        log(f"[kernels] fused_update nesterovs {r['state_dtype']} state at "
+            f"{name}'s bucket (n={n}): against the plain version param err "
+            f"{perr}, moment err {serr}, bitwise {bitwise}; kernel "
+            f"{r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}, {nbytes} B at 3.35 TB/s); median of "
+            f"{TIMED_RUNS} (CUDA events, cold L2); {smi}")
+        del p, g, slots, bits
+    torch.cuda.empty_cache()
+    return rows
+
+
 # --- main -----------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -1800,6 +2388,12 @@ def main(argv=None) -> int:
         enc["parity_max_abs_err"], f32_launches, enc["bf16_parity"] = \
             phase_encoder_parity(enc_model, smi, dev)
         del enc_model
+        lenet = phase_lenet(smi, dev)
+        vgg = phase_vgg16(smi, dev)
+        masked = phase_masked(smi, dev)
+        mln_upd = time_mln_updates(
+            smi, dev, torch.empty(64 * 2 ** 20, dtype=torch.uint8,
+                                  device=dev))
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -1822,7 +2416,9 @@ def main(argv=None) -> int:
         "name": "fused_update", "route": "cuda", "source": update.SOURCE,
         "replaces": update.REPLACES, "launches": train["launches"],
         "max_abs_err": max(upd_errs["max_err_param"],
-                           upd_errs["max_err_moment"]),
+                           upd_errs["max_err_moment"],
+                           *(mln_upd[m][k] for m in ("lenet", "vgg16")
+                             for k in ("max_err_param", "max_err_moment"))),
         "max_err_param": upd_errs["max_err_param"],
         "max_err_moment": upd_errs["max_err_moment"],
         "bitwise_cases": f"{upd_errs['bitwise']}/{upd_errs['cases']}",
@@ -1833,7 +2429,10 @@ def main(argv=None) -> int:
         "library_ms": None, "unfused_ms": nb["unfused_ms"],
         "bits_ms": nb["bits_ms"],
         "adam_f32": {k: ad[k] for k in ("ms", "plain_ms", "unfused_ms",
-                                        "bound_ms", "library_ms")}})
+                                        "bound_ms", "library_ms")},
+        "mln": {"lenet": dict(mln_upd["lenet"],
+                              launches=lenet["fused"]["launches"]),
+                "vgg16": dict(mln_upd["vgg16"], launches=vgg["launches"])}})
     bp = bag_timing["path"]
     kernels.append({
         "name": "embedding_bag", "route": "cuda",
@@ -1864,6 +2463,7 @@ def main(argv=None) -> int:
         "plain_ms": bp["plain_ms"], "bound_ms": bp["bound_ms"],
         "bound_by": bp["bound_by"], "library_ms": bp["library_ms"],
         "unfused_ms": bp["unfused_ms"], "host_us": fa16["host_us"],
+        "masked_launches": masked["launches"],
         **{name: {k: fa16[name][k] for k in keys}
            for name in ("path_contiguous", "long_strided",
                         "long_contiguous")}})
@@ -1883,7 +2483,8 @@ def main(argv=None) -> int:
     print(json.dumps({"train": {k: v for k, v in train.items()
                                 if k != "counters"},
                       "train_parity": tparity,
-                      "word2vec_cbow": w2v, "encoder": enc}), flush=True)
+                      "word2vec_cbow": w2v, "encoder": enc, "lenet": lenet,
+                      "vgg16": vgg, "masked": masked}), flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

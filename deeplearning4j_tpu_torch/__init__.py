@@ -21,17 +21,21 @@ Layer map (ported so far; see ROADMAP.md for what follows):
              BN epilogue, the fused flat-bucket weight update, the
              embedding bag and the CBOW round
   csrc/      hand-written CUDA kernels (bn_act, fused_update, embedding_bag)
-  nn/        activations, weight init, losses, layer configs,
-             ComputationGraph (inference and fit)
+  nn/        activations, weight init, losses, layer configs (dropout,
+             feature masks), ComputationGraph and MultiLayerNetwork
+             (inference and fit)
   learning/  updaters (Sgd, Nesterovs, Adam, AdamW), mixed precision
              (bf16 updater state with stochastic rounding)
-  data/      DataSet
-  models/    ResNet-50
+  data/      DataSet, iterators (MNIST with its synthetic fallback),
+             normalizers, the input pipeline (padded batches, staged feed)
+  eval/      Evaluation, RegressionEvaluation
+  optimize/  training listeners
+  models/    ResNet-50, LeNet, VGG16
   nlp/       Word2Vec (CBOW with negative sampling), tokenizers, vocabulary
   parallel/  ParallelInference (the request micro-batcher), the flat
              bucket layout (Zero1Plan)
   util/      weight, updater-state and Word2Vec carry-over from the JAX
-             package
+             package (graphs and multilayer networks)
 """
 
 from .common.dtypes import DataType

@@ -1,0 +1,182 @@
+"""The input pipeline of the fit loops: shape-stable batches, a staged feed
+to the device, multi-step dispatch.
+
+Counterpart of the part of ``deeplearning4j_tpu/data/pipeline.py`` that
+``MultiLayerNetwork.fit`` runs:
+
+- **shape-stable batches** (:func:`stable_batches`): the final partial batch
+  is padded to the target size by wrapping real rows (``row[i % n]``), with
+  an example-weight vector ``w`` (1 = real, 0 = pad) that the loss folds in
+  as ``sum(w * loss) / max(sum(w), 1)``, so pad rows contribute exactly
+  nothing; ``drop_remainder=True`` skips the partial batch instead. The JAX
+  package does this to compile one step; eager PyTorch compiles nothing,
+  and keeps it for the same loss and the same batch shapes.
+- **the staged feed** (:func:`device_feed`): ``place`` (the network's move
+  to its device: pinned host memory and ``non_blocking`` copies on the card)
+  runs ``depth`` batches ahead of the step that consumes them, so the copy
+  of batch n+1 is queued before step n.
+- **multi-step dispatch** (:func:`chunked`): K batches per dispatch; the
+  network runs them back to back and tells its listeners once per step
+  afterwards (:func:`note_steps`), as the JAX package's ``lax.scan`` chunk
+  does.
+
+Counters (``common/profiler.OpProfiler``): ``pipeline/padded_batches``,
+``pipeline/dropped_batches``. Not ported: the host prefetch thread
+(``host_prefetch``), resuming from a checkpoint cursor (``skip``), fault
+injection, the flight recorder, ``MultiDataSet``.
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from typing import Any, Iterable, Iterator, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..common.profiler import OpProfiler
+from .dataset import DataSet
+
+
+def resolve_batch_size(data: Any, batch_size: Optional[int]) -> Optional[int]:
+    """The target (padded) batch size: an iterator's own ``batch()``, else
+    the explicit ``batch_size`` (which re-batches a DataSet or a tuple),
+    else None (batches pass through unpadded)."""
+    b = getattr(data, "batch", None)
+    if callable(b):
+        try:
+            n = b()
+            if n and n > 0:
+                return int(n)
+        except NotImplementedError:
+            pass
+    return int(batch_size) if batch_size else None
+
+
+def iter_datasets(data: Any,
+                  batch_size: Optional[int] = None) -> Iterator[DataSet]:
+    """The batch sources every fit loop takes: an iterator (reset, then
+    iterated), a DataSet (re-batched by ``batch_size`` when given), or a
+    ``(features, labels)`` tuple."""
+    if isinstance(data, DataSet):
+        if batch_size is None:
+            yield data
+        else:
+            yield from data.batch_by(batch_size)
+        return
+    if hasattr(data, "reset") and hasattr(data, "__iter__"):
+        data.reset()
+        yield from data
+        return
+    if isinstance(data, tuple) and len(data) == 2:
+        yield from iter_datasets(DataSet(data[0], data[1]), batch_size)
+        return
+    raise TypeError(f"cannot iterate data of type {type(data)}")
+
+
+def _wrap_rows(a, idx: np.ndarray):
+    if a is None:
+        return None
+    if isinstance(a, torch.Tensor):
+        return a[torch.as_tensor(idx, device=a.device)]
+    return np.asarray(a)[idx]
+
+
+def pad_dataset(ds: DataSet, target: int) -> Tuple[DataSet, np.ndarray]:
+    """``ds`` padded to ``target`` examples by wrapping real rows, with the
+    example-weight vector ``w`` ([target] float32, 1 = real row)."""
+    n = ds.num_examples()
+    if n > target:
+        raise ValueError(f"batch of {n} examples exceeds the pipeline "
+                         f"target batch size {target}")
+    idx = np.arange(target) % n
+    w = (np.arange(target) < n).astype(np.float32)
+    return DataSet(_wrap_rows(ds.features, idx), _wrap_rows(ds.labels, idx),
+                   _wrap_rows(ds.features_mask, idx),
+                   _wrap_rows(ds.labels_mask, idx)), w
+
+
+def stable_batches(data: Any, batch_size: Optional[int] = None,
+                   pad_partial: bool = True, drop_remainder: bool = False
+                   ) -> Iterator[Tuple[DataSet, np.ndarray, int]]:
+    """``(dataset, w, n_real)`` with one leading size: the target of
+    :func:`resolve_batch_size` (else the first batch's size). Smaller
+    batches are dropped (``drop_remainder``) or padded with zero-weight
+    wrapped rows; larger ones, or all with ``pad_partial=False``, pass
+    through with ones."""
+    target = resolve_batch_size(data, batch_size)
+    prof = OpProfiler.get()
+    for ds in iter_datasets(data, batch_size):
+        n = ds.num_examples()
+        if target is None:
+            target = n
+        if n == target:
+            yield ds, np.ones((n,), np.float32), n
+        elif drop_remainder and n < target:
+            prof.count("pipeline/dropped_batches")
+        elif n > target or not pad_partial:
+            yield ds, np.ones((n,), np.float32), n
+        else:
+            prof.count("pipeline/padded_batches")
+            padded, w = pad_dataset(ds, target)
+            yield padded, w, n
+
+
+def device_feed(batches: Iterable, place, depth: int = 2) -> Iterator:
+    """``place(batch)`` issued ``depth`` batches ahead of the consumer
+    (``depth=0``: placed as consumed)."""
+    src = iter(batches)
+    staged: deque = deque()
+    for b in src:
+        staged.append(place(b))
+        if len(staged) > depth:
+            yield staged.popleft()
+    while staged:
+        yield staged.popleft()
+
+
+def chunked(it: Iterable, k: int) -> Iterator[List]:
+    """Groups of ``k`` items; the last group may be shorter."""
+    if k < 1:
+        raise ValueError(f"steps_per_dispatch must be >= 1, got {k}")
+    group: List = []
+    for item in it:
+        group.append(item)
+        if len(group) == k:
+            yield group
+            group = []
+    if group:
+        yield group
+
+
+def run_epochs(data: Any, epochs: int, batch_size: Optional[int],
+               pad_partial: bool, drop_remainder: bool, prefetch: int,
+               steps_per_dispatch: int, bind, place, dispatch,
+               on_epoch) -> None:
+    """The loop skeleton: per epoch, stable batches are bound
+    (``bind(ds, w)``), placed ``prefetch`` ahead, and dispatched
+    (``dispatch(group)``) in groups of ``steps_per_dispatch`` (the short
+    tail group one by one, as the JAX package runs it); ``on_epoch()``
+    after each epoch."""
+    k = max(1, int(steps_per_dispatch))
+    for _ in range(max(1, epochs)):
+        gen = stable_batches(data, batch_size, pad_partial=pad_partial,
+                             drop_remainder=drop_remainder)
+        feed = device_feed((bind(ds, w) for ds, w, _n in gen), place,
+                           depth=max(0, int(prefetch)))
+        for group in chunked(feed, k):
+            for g in ([group] if len(group) == k else [[b] for b in group]):
+                dispatch(g)
+        on_epoch()
+
+
+def note_steps(holder: Any, listeners: Iterable, losses) -> None:
+    """After a dispatch of ``len(losses)`` steps: per step, advance the
+    holder's iteration counter, publish the step's loss (a device scalar:
+    listeners convert it, and so wait for the card, only when they need
+    the number) and tell every listener."""
+    for loss in losses:
+        holder._iteration += 1
+        holder._score = loss
+        for lst in listeners:
+            lst.iteration_done(holder, holder._iteration, loss)

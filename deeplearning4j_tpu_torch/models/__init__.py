@@ -1,1 +1,1 @@
-from .zoo import ResNet50, ZooModel
+from .zoo import LeNet, ResNet50, VGG16, ZooModel

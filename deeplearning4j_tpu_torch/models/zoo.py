@@ -1,19 +1,27 @@
-"""Model zoo: ResNet-50.
+"""Model zoo: ResNet-50, LeNet and VGG16.
 
-Counterpart of ``deeplearning4j_tpu/models/zoo.py`` (``ZooModel``,
-``ResNet50``): the same architecture and the same node names, so parameters
-carry across from the JAX package by name (``util/convert.py``). Other zoo
-models follow with ``MultiLayerNetwork``.
+Counterpart of ``deeplearning4j_tpu/models/zoo.py``: ``ResNet50`` (a
+``ComputationGraph``, with the JAX package's node names, so parameters carry
+across by name, ``util/convert.py``), ``LeNet`` (``zoo.py:87-110``) and
+``VGG16`` (``zoo.py:172-198``), ``MultiLayerNetwork``s with the JAX
+configurations letter for letter, so parameters carry across by layer.
+``conf()`` builds the configuration without allocating; ``init(device=)``
+the initialized network. AlexNet (``LocalResponseNormalization``),
+SimpleCNN (the network's BatchNormalization) and the other zoo models are
+not ported yet, nor are pretrained weights.
 """
 
 from __future__ import annotations
 
+from typing import Sequence, Tuple
+
 from ..learning.updaters import Nesterovs
 from ..nn.conf import layers as L
-from ..nn.conf.builder import NeuralNetConfiguration
+from ..nn.conf.builder import MultiLayerConfiguration, NeuralNetConfiguration
 from ..nn.conf.inputs import InputType
 from ..nn.graph import (ComputationGraph, ComputationGraphConfiguration,
                         ElementWiseVertex)
+from ..nn.multilayer import MultiLayerNetwork
 
 
 class ZooModel:
@@ -106,3 +114,67 @@ class ResNet50(ZooModel):
         """The initialized graph, on the card unless ``device`` says
         otherwise."""
         return ComputationGraph(self.conf()).init(device=device)
+
+
+class LeNet(ZooModel):
+    """The zoo LeNet (MNIST): conv 20 and 50 5x5, max pools 2x2, dense
+    500, softmax; Nesterovs(0.01, 0.9), relu, xavier (``bench.py``'s
+    ``_lenet_model`` with seed 123)."""
+
+    def __init__(self, num_classes: int = 10, seed: int = 123):
+        self.num_classes = num_classes
+        self.seed = seed
+
+    def conf(self) -> MultiLayerConfiguration:
+        return (NeuralNetConfiguration.builder()
+                .seed(self.seed)
+                .updater(Nesterovs(learning_rate=0.01, momentum=0.9))
+                .activation("relu").weight_init("xavier")
+                .list()
+                .layer(L.ConvolutionLayer(n_out=20, kernel_size=(5, 5)))
+                .layer(L.SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2)))
+                .layer(L.ConvolutionLayer(n_out=50, kernel_size=(5, 5)))
+                .layer(L.SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2)))
+                .layer(L.DenseLayer(n_out=500))
+                .layer(L.OutputLayer(n_out=self.num_classes, loss="mcxent",
+                                     activation="softmax"))
+                .set_input_type(InputType.convolutional(28, 28, 1))
+                .build())
+
+    def init(self, device=None) -> MultiLayerNetwork:
+        return MultiLayerNetwork(self.conf()).init(device=device)
+
+
+class VGG16(ZooModel):
+    """The zoo VGG16 (224x224x3): 13 3x3 convolutions with padding 1 in
+    five blocks, each closed by a 2x2 max pool, two dense 4096 layers with
+    input dropout 0.5, softmax; Nesterovs(0.01, 0.9), relu, He init.
+    138,357,544 parameters at 1000 classes."""
+
+    def __init__(self, num_classes: int = 1000, seed: int = 123):
+        self.num_classes = num_classes
+        self.seed = seed
+
+    def _blocks(self) -> Sequence[Tuple[int, int]]:
+        return [(2, 64), (2, 128), (3, 256), (3, 512), (3, 512)]
+
+    def conf(self) -> MultiLayerConfiguration:
+        lb = (NeuralNetConfiguration.builder()
+              .seed(self.seed)
+              .updater(Nesterovs(learning_rate=1e-2, momentum=0.9))
+              .activation("relu").weight_init("relu")
+              .list())
+        for n_convs, ch in self._blocks():
+            for _ in range(n_convs):
+                lb = lb.layer(L.ConvolutionLayer(n_out=ch, kernel_size=(3, 3),
+                                                 padding=(1, 1)))
+            lb = lb.layer(L.SubsamplingLayer(kernel_size=(2, 2),
+                                             stride=(2, 2)))
+        return (lb.layer(L.DenseLayer(n_out=4096, dropout=0.5))
+                .layer(L.DenseLayer(n_out=4096, dropout=0.5))
+                .layer(L.OutputLayer(n_out=self.num_classes))
+                .set_input_type(InputType.convolutional(224, 224, 3))
+                .build())
+
+    def init(self, device=None) -> MultiLayerNetwork:
+        return MultiLayerNetwork(self.conf()).init(device=device)

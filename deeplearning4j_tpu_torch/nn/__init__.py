@@ -3,3 +3,4 @@ from .conf.inputs import InputType
 from .conf import layers
 from .graph import (ComputationGraph, ComputationGraphConfiguration,
                     ElementWiseVertex, GraphBuilder, MergeVertex)
+from .multilayer import MultiLayerNetwork

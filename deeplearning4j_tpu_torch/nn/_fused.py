@@ -2,7 +2,7 @@
 
 Counterpart of ``_fused_flat_plan`` and ``_apply_fused_flat``
 (``deeplearning4j_tpu/nn/multilayer.py:974-1031``), shared by the networks
-(``ComputationGraph`` now, ``MultiLayerNetwork`` when it is ported).
+(``ComputationGraph`` and ``MultiLayerNetwork``).
 
 Where the JAX step flattens the parameters into buckets inside every
 compiled step and unflattens the result, the port keeps each bucket as one

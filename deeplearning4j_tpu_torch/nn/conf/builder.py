@@ -1,18 +1,38 @@
-"""Network configuration builder: global defaults that cascade onto layers.
+"""Network configuration builders: global defaults that cascade onto layers.
 
-Counterpart of ``deeplearning4j_tpu/nn/conf/builder.py``
-(``NeuralNetConfiguration.builder()`` → ``GlobalConf``). The list builder
-and ``MultiLayerConfiguration`` arrive with ``MultiLayerNetwork``; the graph
-builder (``nn/graph.py``) takes a ``Builder`` here.
+Counterpart of ``deeplearning4j_tpu/nn/conf/builder.py``:
+``NeuralNetConfiguration.builder()`` → ``GlobalConf``, then either the list
+builder (``.list()`` → :class:`ListBuilder` → :class:`MultiLayerConfiguration`,
+for ``MultiLayerNetwork``) or the graph builder (``nn/graph.py``, which takes
+a ``Builder`` here).
+
+``MultiLayerConfiguration.set_input_type`` walks the layers, infers each
+``n_in`` and inserts the shape adapters (``_preprocessor_for``,
+``builder.py:351-372`` of the JAX package). ``to_json``/``from_json`` write
+and read the JAX package's format (``format_version`` 1: every dataclass as
+``{"__class__", "fields"}``, tuples as ``{"__tuple__"}``), so a
+configuration written by one package reads in the other. A field the JAX
+package has and the port does not (an embedding's ``table_sharding``) reads
+only when it is inert (None or False); otherwise ``from_json`` raises.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Any, Dict, List, Optional
 
+import numpy as np
+
+from ...learning import updaters as _updaters
 from ...learning.updaters import GradientUpdater, Sgd
+from .. import losses as _losses
+from ..losses import ILossFunction
+from . import inputs as _inputs
 from . import layers as L
+from .inputs import (CNNFlatInput, CNNInput, InputType, Preprocessor,
+                     RNNInput, cnn_to_ff, flat_to_cnn, rnn_to_ff)
 
 
 @dataclass
@@ -28,6 +48,11 @@ class GlobalConf:
     # Mixed precision: forward compute dtype (e.g. "bfloat16") while the
     # parameters stay in `dtype`; BN running stats stay float32.
     compute_dtype: Optional[str] = None
+    # The JAX package's rematerialization knobs (jax.checkpoint around each
+    # layer). Kept for configuration parity; MultiLayerNetwork.fit refuses
+    # any policy but "none" until rematerialization is ported.
+    gradient_checkpointing: bool = False
+    remat_policy: Any = None
     # Fused inference epilogue (ops/epilogue): inference BatchNormalization
     # + relu/identity run as one kernel, and ComputationGraph also fuses
     # the resnet block tail BN(identity) → ElementWiseVertex(add) → relu
@@ -122,6 +147,72 @@ class Builder:
         self._conf.fused_epilogue = bool(v)
         return self
 
+    def list(self) -> "ListBuilder":
+        return ListBuilder(self._conf)
+
+
+class ListBuilder:
+    """The layer list of a ``MultiLayerNetwork``, in order."""
+
+    def __init__(self, conf: GlobalConf) -> None:
+        self._conf = conf
+        self._layers: List[L.Layer] = []
+        self._input_type: Optional[InputType] = None
+        self._backprop_type = "Standard"
+        self._tbptt_fwd = 20
+        self._tbptt_back = 20
+
+    def layer(self, idx_or_layer,
+              maybe_layer: Optional[L.Layer] = None) -> "ListBuilder":
+        """``layer(l)`` or DL4J's ``layer(index, l)``: appends ``l``."""
+        self._layers.append(maybe_layer if maybe_layer is not None
+                            else idx_or_layer)
+        return self
+
+    def set_input_type(self, input_type: InputType) -> "ListBuilder":
+        self._input_type = input_type
+        return self
+
+    setInputType = set_input_type
+
+    def backprop_type(self, bp: str) -> "ListBuilder":
+        """"Standard" or "TruncatedBPTT" (stored and validated as in the
+        JAX package; ``MultiLayerNetwork.fit`` refuses TBPTT until the
+        recurrent layers are ported)."""
+        if bp not in ("Standard", "TruncatedBPTT"):
+            raise ValueError("backprop_type must be Standard|TruncatedBPTT")
+        self._backprop_type = bp
+        return self
+
+    def tbptt_fwd_length(self, k: int) -> "ListBuilder":
+        self._tbptt_fwd = int(k)
+        return self
+
+    def tbptt_back_length(self, k: int) -> "ListBuilder":
+        self._tbptt_back = int(k)
+        return self
+
+    def tbptt_length(self, k: int) -> "ListBuilder":
+        return self.tbptt_fwd_length(k).tbptt_back_length(k)
+
+    def build(self) -> "MultiLayerConfiguration":
+        if self._backprop_type == "TruncatedBPTT" \
+                and self._tbptt_fwd != self._tbptt_back:
+            # as the JAX package: one segment is both windows
+            raise ValueError(
+                "tbptt_fwd_length must equal tbptt_back_length (use "
+                "tbptt_length(k)); unequal truncation windows are not "
+                "supported")
+        for layer in self._layers:
+            apply_layer_defaults(layer, self._conf)
+        mlc = MultiLayerConfiguration(self._conf, self._layers)
+        mlc.backprop_type = self._backprop_type
+        mlc.tbptt_fwd_length = self._tbptt_fwd
+        mlc.tbptt_back_length = self._tbptt_back
+        if self._input_type is not None:
+            mlc.set_input_type(self._input_type)
+        return mlc
+
 
 def apply_layer_defaults(l: L.Layer, gc: GlobalConf) -> None:
     """Cascade global defaults onto a layer, and onto the layer a wrapper
@@ -141,3 +232,137 @@ def apply_layer_defaults(l: L.Layer, gc: GlobalConf) -> None:
     inner = getattr(l, "layer", None)
     if isinstance(inner, L.Layer):
         apply_layer_defaults(inner, gc)
+
+
+class MultiLayerConfiguration:
+    def __init__(self, global_conf: GlobalConf, layers: List[L.Layer]):
+        self.global_conf = global_conf
+        self.layers = layers
+        self.preprocessors: Dict[int, Preprocessor] = {}
+        self.input_type: Optional[InputType] = None
+        self.layer_output_types: List[InputType] = []
+        self.backprop_type = "Standard"
+        self.tbptt_fwd_length = 20
+        self.tbptt_back_length = 20
+
+    def set_input_type(self, input_type: InputType) -> None:
+        """Infer every layer's ``n_in`` from ``input_type`` and insert the
+        shape adapters between layers."""
+        self.input_type = input_type
+        self.preprocessors = {}
+        self.layer_output_types = []
+        cur = input_type
+        for i, layer in enumerate(self.layers):
+            pre = self._preprocessor_for(cur, layer)
+            if pre is not None:
+                self.preprocessors[i] = pre
+                cur = pre.out_type
+            cur = layer.set_input_type(cur)
+            self.layer_output_types.append(cur)
+
+    @staticmethod
+    def _preprocessor_for(cur: InputType,
+                          layer: L.Layer) -> Optional[Preprocessor]:
+        if isinstance(cur, CNNFlatInput):
+            return flat_to_cnn(cur)
+        if isinstance(cur, CNNInput) and isinstance(layer, L.FF_LIKE):
+            return cnn_to_ff(cur)
+        if isinstance(cur, RNNInput) and isinstance(layer, L.DenseLayer) \
+                and not isinstance(layer, L.OutputLayer):
+            return rnn_to_ff(cur)
+        return None
+
+    # --- serde -------------------------------------------------------------
+    def to_json(self) -> str:
+        return json.dumps({
+            "format_version": 1,
+            "global": _ser_obj(self.global_conf),
+            "layers": [_ser_obj(layer) for layer in self.layers],
+            "input_type": (_ser_obj(self.input_type)
+                           if self.input_type else None),
+            "backprop_type": self.backprop_type,
+            "tbptt_fwd_length": self.tbptt_fwd_length,
+            "tbptt_back_length": self.tbptt_back_length,
+        }, indent=2)
+
+    @staticmethod
+    def from_json(s: str) -> "MultiLayerConfiguration":
+        d = json.loads(s)
+        mlc = MultiLayerConfiguration(_deser_obj(d["global"]),
+                                      [_deser_obj(ld) for ld in d["layers"]])
+        mlc.backprop_type = d.get("backprop_type", "Standard")
+        mlc.tbptt_fwd_length = d.get("tbptt_fwd_length", 20)
+        mlc.tbptt_back_length = d.get("tbptt_back_length", 20)
+        if d.get("input_type"):
+            mlc.set_input_type(_deser_obj(d["input_type"]))
+        return mlc
+
+
+# --- dataclass (de)serialization of configurations ------------------------------
+
+def _registry() -> Dict[str, type]:
+    classes: Dict[str, type] = {"GlobalConf": GlobalConf}
+    for mod in (L, _inputs, _updaters):
+        for name in dir(mod):
+            obj = getattr(mod, name)
+            if isinstance(obj, type) and dataclasses.is_dataclass(obj):
+                classes[name] = obj
+    for name in dir(_losses):
+        obj = getattr(_losses, name)
+        if isinstance(obj, type) and issubclass(obj, ILossFunction) \
+                and obj is not ILossFunction:
+            classes[name] = obj
+    return classes
+
+
+_CLASSES = _registry()
+
+
+def _ser_obj(obj: Any) -> Any:
+    if obj is None or isinstance(obj, (int, float, str, bool)):
+        return obj
+    if isinstance(obj, tuple):
+        return {"__tuple__": [_ser_obj(v) for v in obj]}
+    if isinstance(obj, list):
+        return [_ser_obj(v) for v in obj]
+    if isinstance(obj, np.ndarray):
+        return {"__ndarray__": obj.tolist(), "dtype": str(obj.dtype)}
+    if isinstance(obj, (ILossFunction, GradientUpdater)) \
+            and not dataclasses.is_dataclass(obj):
+        return {"__class__": type(obj).__name__,
+                "fields": {k: _ser_obj(v) for k, v in obj.__dict__.items()}}
+    if dataclasses.is_dataclass(obj):
+        return {"__class__": type(obj).__name__,
+                "fields": {f.name: _ser_obj(getattr(obj, f.name))
+                           for f in dataclasses.fields(obj)}}
+    raise TypeError(f"cannot serialize config object {type(obj)}")
+
+
+def _deser_obj(d: Any) -> Any:
+    if d is None or isinstance(d, (int, float, str, bool)):
+        return d
+    if isinstance(d, list):
+        return [_deser_obj(v) for v in d]
+    if "__tuple__" in d:
+        return tuple(_deser_obj(v) for v in d["__tuple__"])
+    if "__ndarray__" in d:
+        return np.asarray(d["__ndarray__"], dtype=d["dtype"])
+    if "__class__" not in d:
+        return {k: _deser_obj(v) for k, v in d.items()}
+    name = d["__class__"]
+    if name not in _CLASSES:
+        raise NotImplementedError(f"configuration class {name!r} is not "
+                                  f"ported yet")
+    cls = _CLASSES[name]
+    fields = {k: _deser_obj(v) for k, v in d["fields"].items()}
+    if not dataclasses.is_dataclass(cls):
+        obj = cls.__new__(cls)
+        obj.__dict__.update(fields)
+        return obj
+    known = {f.name for f in dataclasses.fields(cls)}
+    extra = {k: v for k, v in fields.items() if k not in known}
+    live = {k: v for k, v in extra.items() if v not in (None, False)}
+    if live:
+        raise NotImplementedError(f"{name}: field(s) {sorted(live)} are not "
+                                  f"ported yet")
+    return cls(**{k: v for k, v in fields.items() if k in known})

@@ -3,8 +3,12 @@
 Counterpart of ``deeplearning4j_tpu/nn/conf/inputs.py``: CNN activations are
 NCHW, feed-forward activations ``[batch, size]``, recurrent activations
 ``[batch, time, size]`` (the JAX package's layout, not DL4J's
-``[batch, size, time]``); the graph builder inserts ``cnn_to_ff`` where a
-CNN output feeds a dense layer.
+``[batch, size, time]``), masks ``[batch, time]``. The builders insert the
+adapters: ``cnn_to_ff`` where a CNN output feeds a dense layer (flattened
+in NCHW order, ``C * H * W``, as ``inputs.py:94-97`` of the JAX package, so
+a dense ``W`` after a convolution carries across unchanged),
+``flat_to_cnn`` after a ``convolutional_flat`` input and ``rnn_to_ff``
+where a sequence feeds a dense layer.
 """
 
 from __future__ import annotations
@@ -26,6 +30,11 @@ class InputType:
     def convolutional(height: int, width: int, channels: int) -> "CNNInput":
         return CNNInput(channels, height, width)
 
+    @staticmethod
+    def convolutional_flat(height: int, width: int,
+                           channels: int) -> "CNNFlatInput":
+        return CNNFlatInput(channels, height, width)
+
 
 @dataclass(frozen=True)
 class FFInput(InputType):
@@ -40,6 +49,15 @@ class RNNInput(InputType):
 
 @dataclass(frozen=True)
 class CNNInput(InputType):
+    channels: int
+    height: int
+    width: int
+
+
+@dataclass(frozen=True)
+class CNNFlatInput(InputType):
+    """Images given flat, ``[batch, C * H * W]`` (MNIST's 784 pixels)."""
+
     channels: int
     height: int
     width: int
@@ -61,3 +79,28 @@ def cnn_to_ff(t: CNNInput) -> Preprocessor:
     size = t.channels * t.height * t.width
     return Preprocessor("CnnToFeedForward",
                         lambda x: x.reshape(x.shape[0], -1), FFInput(size))
+
+
+def ff_to_cnn(t: FFInput, c: int, h: int, w: int) -> Preprocessor:
+    return Preprocessor("FeedForwardToCnn",
+                        lambda x: x.reshape(x.shape[0], c, h, w),
+                        CNNInput(c, h, w))
+
+
+def flat_to_cnn(t: CNNFlatInput) -> Preprocessor:
+    c, h, w = t.channels, t.height, t.width
+    return Preprocessor("CnnFlatToCnn",
+                        lambda x: x.reshape(x.shape[0], c, h, w),
+                        CNNInput(c, h, w))
+
+
+def rnn_to_ff(t: RNNInput) -> Preprocessor:
+    """``[B, T, F]`` to ``[B * T, F]`` (a dense layer at every step)."""
+    return Preprocessor("RnnToFeedForward",
+                        lambda x: x.reshape(-1, x.shape[-1]), FFInput(t.size))
+
+
+def ff_to_rnn(t: FFInput, timesteps: int) -> Preprocessor:
+    return Preprocessor("FeedForwardToRnn",
+                        lambda x: x.reshape(-1, timesteps, x.shape[-1]),
+                        RNNInput(t.size, timesteps))

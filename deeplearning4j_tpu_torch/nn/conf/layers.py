@@ -12,9 +12,24 @@ W=[vocab, nOut]; self-attention Wq/Wk/Wv=[nIn, H*hs] and Wo=[H*hs, nOut].
 are reachable from here, as in the JAX package.
 
 Training mode: BatchNormalization normalizes with batch statistics
-(``ops/nn.batchnorm_train``) and returns the updated running statistics;
-the other layers compute as in inference, with autograd taking the
-backward. Training-mode dropout is not ported yet and raises.
+(``ops/nn.batchnorm_train``) and returns the updated running statistics.
+Dense, Output, Convolution and SelfAttention layers apply inverted dropout
+to their input where the JAX package's ``_maybe_dropout`` does
+(``layers.py:102-108``), with bits from the ``generator`` keyword (the
+network's own ``torch.Generator``); ``DropoutLayer`` drops at its ``rate``.
+The embedding layers never apply their dropout. Otherwise the layers
+compute as in inference, with autograd taking the backward.
+
+``apply_masked(params, x, state, training, fmask)`` is the forward with a
+``[B, T]`` feature mask (1 = a real step), as ``MultiLayerNetwork`` calls
+it: mask-oblivious layers ignore the mask; ``GlobalPoolingLayer`` leaves
+padded steps out of its pooling and ``SelfAttentionLayer`` masks the
+attention keys.
+
+``constraints`` (``layers_ext.MaxNormConstraint`` and kin) are projections
+that ``MultiLayerNetwork`` applies to the weights after each update.
+``weight_noise`` and ``convolution_mode="same"`` exist for configuration
+parity with the JAX package and are refused where they would act.
 """
 
 from __future__ import annotations
@@ -36,6 +51,14 @@ def _pair(v):
     return (v, v) if isinstance(v, int) else tuple(v)
 
 
+def _truncate_only(layer) -> None:
+    if str(layer.convolution_mode).lower() != "truncate":
+        raise NotImplementedError(
+            f"{type(layer).__name__}: convolution_mode "
+            f"{layer.convolution_mode!r} is not ported yet (only "
+            f"'truncate', with explicit padding)")
+
+
 @dataclass
 class Layer:
     """Base layer config. Fields that default to None inherit the network's
@@ -48,6 +71,10 @@ class Layer:
     l1: Optional[float] = None
     l2: Optional[float] = None
     n_in: Optional[int] = None
+    # post-update weight projections (layers_ext.ParamConstraint)
+    constraints: Optional[list] = None
+    # training-time parameter noise: not ported, refused by the network
+    weight_noise: Optional[Any] = None
 
     def set_input_type(self, input_type: InputType) -> InputType:
         """Infer nIn from the incoming type; return this layer's output type."""
@@ -60,17 +87,27 @@ class Layer:
     def init_state(self, device=None) -> Dict[str, torch.Tensor]:
         return {}
 
-    def apply(self, params, x, state, training: bool = False):
+    def apply(self, params, x, state, training: bool = False, *,
+              generator: Optional[torch.Generator] = None):
         raise NotImplementedError
+
+    def apply_masked(self, params, x, state, training, fmask, *,
+                     generator: Optional[torch.Generator] = None):
+        """Forward with a ``[B, T]`` feature mask; mask-oblivious layers
+        ignore it."""
+        return self.apply(params, x, state, training, generator=generator)
+
+    def _maybe_dropout(self, x, training: bool,
+                       generator: Optional[torch.Generator]):
+        """Inverted dropout of the layer's input at rate ``dropout``, in
+        training only (``ops/nn.dropout``)."""
+        if training and self.dropout and self.dropout > 0.0:
+            return ops.dropout(x, self.dropout, generator)
+        return x
 
     @property
     def has_params(self) -> bool:
         return True
-
-
-def _no_training(layer: Layer, training: bool) -> None:
-    if training and layer.dropout:
-        raise NotImplementedError("training-mode dropout is not ported yet")
 
 
 @dataclass
@@ -95,8 +132,8 @@ class DenseLayer(Layer):
     def pre_output(self, params, x):
         return ops.linear(x, params["W"], params.get("b"))
 
-    def apply(self, params, x, state, training=False):
-        _no_training(self, training)
+    def apply(self, params, x, state, training=False, *, generator=None):
+        x = self._maybe_dropout(x, training, generator)
         return activation_fn(self.activation or "identity")(
             self.pre_output(params, x)), state
 
@@ -110,12 +147,14 @@ class ConvolutionLayer(Layer):
     stride: Tuple[int, int] = (1, 1)
     padding: Tuple[int, int] = (0, 0)
     dilation: Tuple[int, int] = (1, 1)
+    convolution_mode: str = "truncate"   # "same" is not ported
     has_bias: bool = True
 
     def set_input_type(self, input_type):
         if not isinstance(input_type, CNNInput):
             raise ValueError(f"ConvolutionLayer needs CNN input, got "
                              f"{input_type}")
+        _truncate_only(self)
         self.n_in = input_type.channels
         kh, kw = _pair(self.kernel_size)
         sh, sw = _pair(self.stride)
@@ -134,8 +173,8 @@ class ConvolutionLayer(Layer):
             p["b"] = torch.zeros((self.n_out,), dtype=dtype, device=device)
         return p
 
-    def apply(self, params, x, state, training=False):
-        _no_training(self, training)
+    def apply(self, params, x, state, training=False, *, generator=None):
+        x = self._maybe_dropout(x, training, generator)
         out = ops.conv2d(x, params["W"], params.get("b"),
                          strides=self.stride, padding=self.padding,
                          dilation=self.dilation)
@@ -151,10 +190,13 @@ class SubsamplingLayer(Layer):
     kernel_size: Tuple[int, int] = (2, 2)
     stride: Tuple[int, int] = (2, 2)
     padding: Tuple[int, int] = (0, 0)
+    convolution_mode: str = "truncate"   # "same" is not ported
+    pnorm: int = 2
 
     def set_input_type(self, input_type):
         if not isinstance(input_type, CNNInput):
             raise ValueError("SubsamplingLayer needs CNN input")
+        _truncate_only(self)
         if self.pooling_type.lower() != "max":
             raise NotImplementedError(
                 f"pooling {self.pooling_type!r} is not ported yet")
@@ -165,7 +207,7 @@ class SubsamplingLayer(Layer):
         ow = (input_type.width + 2 * pw - kw) // sw + 1
         return CNNInput(input_type.channels, oh, ow)
 
-    def apply(self, params, x, state, training=False):
+    def apply(self, params, x, state, training=False, *, generator=None):
         return ops.maxpool2d(x, self.kernel_size, self.stride,
                              self.padding), state
 
@@ -209,7 +251,7 @@ class BatchNormalization(Layer):
                 "var": torch.ones((self.n_in,), dtype=torch.float32,
                                   device=device)}
 
-    def apply(self, params, x, state, training=False):
+    def apply(self, params, x, state, training=False, *, generator=None):
         gamma, beta = params.get("gamma"), params.get("beta")
         axis = 1 if x.ndim == 4 else -1
         if training:
@@ -237,11 +279,27 @@ class BatchNormalization(Layer):
 
 
 @dataclass
+class DropoutLayer(Layer):
+    """Inverted dropout at ``rate`` in training, the identity otherwise."""
+
+    rate: float = 0.5
+
+    def apply(self, params, x, state, training=False, *, generator=None):
+        if training and self.rate > 0:
+            return ops.dropout(x, self.rate, generator), state
+        return x, state
+
+    @property
+    def has_params(self):
+        return False
+
+
+@dataclass
 class ActivationLayer(Layer):
     # optional slope/shape parameter, forwarded to leakyrelu and elu
     alpha: Optional[float] = None
 
-    def apply(self, params, x, state, training=False):
+    def apply(self, params, x, state, training=False, *, generator=None):
         act = (self.activation or "identity").lower()
         if self.alpha is not None and act in ("leakyrelu", "elu"):
             return activation_fn(act)(x, alpha=self.alpha), state
@@ -255,7 +313,9 @@ class ActivationLayer(Layer):
 @dataclass
 class GlobalPoolingLayer(Layer):
     """Pools CNN spatial dims, or the time dim of RNN input [B, T, F], down
-    to FF."""
+    to FF: max, avg, sum or pnorm (the L2 norm, whatever ``pnorm`` the
+    JAX package's SubsamplingLayer carries). With a feature mask
+    (:meth:`apply_masked`) padded steps are left out."""
 
     pooling_type: str = "max"
 
@@ -266,7 +326,7 @@ class GlobalPoolingLayer(Layer):
             return FFInput(input_type.size)
         raise ValueError("GlobalPoolingLayer needs CNN or RNN input")
 
-    def apply(self, params, x, state, training=False):
+    def apply(self, params, x, state, training=False, *, generator=None):
         kind = self.pooling_type.lower()
         dims = (2, 3) if x.ndim == 4 else (1,)
         if kind == "max":
@@ -275,6 +335,31 @@ class GlobalPoolingLayer(Layer):
             out = ops.global_avgpool(x) if x.ndim == 4 else x.mean(dim=1)
         elif kind == "sum":
             out = x.sum(dim=dims)
+        elif kind == "pnorm":
+            out = (x.abs() ** 2).sum(dim=dims) ** 0.5
+        else:
+            raise ValueError(f"unknown pooling {self.pooling_type!r}")
+        return out, state
+
+    def apply_masked(self, params, x, state, training, fmask, *,
+                     generator=None):
+        """Time pooling of ``[B, T, F]`` without the padded steps
+        (``layers.py:580-602`` of the JAX package); other input ignores
+        the mask."""
+        if x.ndim != 3:
+            return self.apply(params, x, state, training)
+        kind = self.pooling_type.lower()
+        m = fmask[..., None].to(x.dtype)
+        if kind == "max":
+            neg = torch.tensor(torch.finfo(x.dtype).min, dtype=x.dtype,
+                               device=x.device)
+            out = torch.amax(torch.where(m > 0, x, neg), dim=1)
+        elif kind in ("avg", "average"):
+            out = (x * m).sum(dim=1) / torch.clamp_min(m.sum(dim=1), 1e-9)
+        elif kind == "sum":
+            out = (x * m).sum(dim=1)
+        elif kind == "pnorm":
+            out = ((x * m).abs() ** 2).sum(dim=1) ** 0.5
         else:
             raise ValueError(f"unknown pooling {self.pooling_type!r}")
         return out, state
@@ -298,8 +383,8 @@ class OutputLayer(DenseLayer):
         if self.activation is None:
             self.activation = "softmax"
 
-    def apply(self, params, x, state, training=False):
-        _no_training(self, training)
+    def apply(self, params, x, state, training=False, *, generator=None):
+        x = self._maybe_dropout(x, training, generator)
         return activation_fn(self.activation)(self.pre_output(params, x)), \
             state
 
@@ -310,9 +395,11 @@ class SelfAttentionLayer(Layer):
     RNN input [B, T, F]. ``project_input=True`` learns Wq/Wk/Wv/Wo (required
     when n_heads > 1) and runs ``ops/nn.multi_head_dot_product_attention``,
     which takes flash attention where the gate allows; otherwise raw
-    single-head dense attention over the input, with n_out = n_in. The JAX
-    package's feature mask (``apply_masked``) arrives with the masked path
-    of ``MultiLayerNetwork``."""
+    single-head dense attention over the input, with n_out = n_in. With a
+    feature mask (:meth:`apply_masked`, ``MultiLayerNetwork``'s masked
+    path) padded steps are masked as attention keys (the additive bias
+    ``where(mask, 0, -1e9)`` of the flash kernel) and the outputs at padded
+    steps are zeroed."""
 
     n_out: int = 0
     n_heads: int = 1
@@ -342,13 +429,25 @@ class SelfAttentionLayer(Layer):
         return {k: init_weights(gen, shape, wi, dtype, device=device)
                 for k, shape in shapes.items()}
 
-    def apply(self, params, x, state, training=False):
-        _no_training(self, training)
+    def _attend(self, params, x, fmask):
         if self.project_input:
             return ops.multi_head_dot_product_attention(
                 x, x, x, params["Wq"], params["Wk"], params["Wv"],
-                params["Wo"], num_heads=self.n_heads), state
-        return ops.dot_product_attention(x, x, x), state
+                params["Wo"], num_heads=self.n_heads, mask=fmask)
+        m = fmask[:, None, :] if fmask is not None else None
+        return ops.dot_product_attention(x, x, x, mask=m)
+
+    def apply(self, params, x, state, training=False, *, generator=None):
+        x = self._maybe_dropout(x, training, generator)
+        return self._attend(params, x, None), state
+
+    def apply_masked(self, params, x, state, training, fmask, *,
+                     generator=None):
+        """Attend with the key mask, then ``y * fmask[:, :, None]``
+        (``layers.py:860-865`` of the JAX package)."""
+        x = self._maybe_dropout(x, training, generator)
+        y = self._attend(params, x, fmask)
+        return y * fmask[:, :, None].to(y.dtype), state
 
     @property
     def has_params(self):
@@ -377,7 +476,7 @@ class EmbeddingLayer(Layer):
     def _lookup(self, W, idx):
         return W[idx.to(torch.int64)]
 
-    def apply(self, params, x, state, training=False):
+    def apply(self, params, x, state, training=False, *, generator=None):
         if x.is_floating_point() and x.ndim == 2 and x.shape[-1] == self.n_in:
             idx = torch.argmax(x, dim=-1)  # one-hot form
         else:
@@ -396,7 +495,7 @@ class EmbeddingSequenceLayer(EmbeddingLayer):
         self.n_in = input_type.size
         return RNNInput(self.n_out, getattr(input_type, "timesteps", None))
 
-    def apply(self, params, x, state, training=False):
+    def apply(self, params, x, state, training=False, *, generator=None):
         idx = x
         if idx.ndim == 3 and idx.shape[-1] == 1:
             idx = idx[..., 0]
@@ -404,8 +503,10 @@ class EmbeddingSequenceLayer(EmbeddingLayer):
         return activation_fn(self.activation or "identity")(out), state
 
 
-#: the classes this slice ports (the graph's fusion plan and the
-#: preprocessor insertion test membership against them)
+#: the layers that take feed-forward input: a CNN output feeding one gets
+#: the ``cnn_to_ff`` adapter (both builders)
 FF_LIKE: Tuple[Any, ...] = (DenseLayer, OutputLayer)
 
-from .layers_ext import LayerNormalization, TimeDistributed  # noqa: E402,F401
+from .layers_ext import (LayerNormalization, MaxNormConstraint,  # noqa: E402,F401
+                         MinMaxNormConstraint, NonNegativeConstraint,
+                         TimeDistributed, UnitNormConstraint)

@@ -1,9 +1,13 @@
-"""Extended layers: layer normalization and the time-distributed wrapper.
+"""Extended layers: layer normalization, the time-distributed wrapper and
+the parameter constraints.
 
-Counterpart of the two classes of ``deeplearning4j_tpu/nn/conf/layers_ext.py``
-that the self-attention encoder uses (``LayerNormalization``,
-``TimeDistributed``); ``nn/conf/layers.py`` re-exports them, as the JAX
-package's does. Sequence activations are ``[B, T, F]``.
+Counterpart of the classes of ``deeplearning4j_tpu/nn/conf/layers_ext.py``
+that the self-attention encoder and ``MultiLayerNetwork`` use
+(``LayerNormalization``, ``TimeDistributed``, and ``MaxNormConstraint``,
+``MinMaxNormConstraint``, ``NonNegativeConstraint``,
+``UnitNormConstraint``, ``layers_ext.py:721-765``); ``nn/conf/layers.py``
+re-exports them, as the JAX package's does. Sequence activations are
+``[B, T, F]``.
 """
 
 from __future__ import annotations
@@ -48,7 +52,7 @@ class LayerNormalization(Layer):
         return {"gain": torch.ones((self.n_in,), dtype=dtype, device=device),
                 "bias": torch.zeros((self.n_in,), dtype=dtype, device=device)}
 
-    def apply(self, params, x, state, training=False):
+    def apply(self, params, x, state, training=False, *, generator=None):
         if x.ndim == 4:
             shape = (1, -1, 1, 1)
             gain, bias = (params[k].reshape(shape) for k in ("gain", "bias"))
@@ -79,12 +83,62 @@ class TimeDistributed(Layer):
     def init_state(self, device=None):
         return self.layer.init_state(device)
 
-    def apply(self, params, x, state, training=False):
+    def apply(self, params, x, state, training=False, *, generator=None):
         b, t, f = x.shape
         out, st = self.layer.apply(params, x.reshape(b * t, f), state,
-                                   training)
+                                   training, generator=generator)
         return out.reshape(b, t, -1), st
 
     @property
     def has_params(self):
         return self.layer.has_params
+
+
+# --- parameter constraints ------------------------------------------------------
+
+
+class ParamConstraint:
+    """A projection of a weight after each update (``MultiLayerNetwork``
+    applies it to every parameter but biases and normalization
+    parameters)."""
+
+    def apply(self, w: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+
+def _norms(w: torch.Tensor, axis: int) -> torch.Tensor:
+    return torch.sqrt(torch.sum(torch.square(w), dim=axis, keepdim=True))
+
+
+class MaxNormConstraint(ParamConstraint):
+    def __init__(self, max_norm: float, axis: int = 0):
+        self.max_norm = max_norm
+        self.axis = axis
+
+    def apply(self, w):
+        scale = torch.clamp(self.max_norm / torch.clamp_min(
+            _norms(w, self.axis), 1e-12), max=1.0)
+        return w * scale
+
+
+class MinMaxNormConstraint(ParamConstraint):
+    def __init__(self, min_norm: float, max_norm: float, axis: int = 0):
+        self.min_norm, self.max_norm, self.axis = min_norm, max_norm, axis
+
+    def apply(self, w):
+        norms = _norms(w, self.axis)
+        clipped = torch.clamp(norms, self.min_norm, self.max_norm)
+        return w * clipped / torch.clamp_min(norms, 1e-12)
+
+
+class NonNegativeConstraint(ParamConstraint):
+    def apply(self, w):
+        return torch.clamp_min(w, 0.0)
+
+
+class UnitNormConstraint(ParamConstraint):
+    def __init__(self, axis: int = 0):
+        self.axis = axis
+
+    def apply(self, w):
+        return w / torch.clamp_min(_norms(w, self.axis), 1e-12)

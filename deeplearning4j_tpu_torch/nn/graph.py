@@ -16,8 +16,8 @@ through autograd, the gradient normalization the configuration names
 parameters live in flat per-dtype buckets (``nn/_fused.FlatStore``), the
 gradients are born in a flat bucket, and the update is one launch of the
 ``csrc/fused_update.cu`` kernel per float32 bucket; otherwise the per-leaf
-``learning.precision.apply_updater`` runs. Random bits for stochastic
-rounding come from the graph's own ``torch.Generator``.
+``learning.precision.apply_updater`` runs. Random bits for dropout and for
+stochastic rounding come from the graph's own ``torch.Generator``.
 
 ``ComputationGraph.init`` places parameters on the card unless the caller
 asks for another device (``device="cpu"``). ``output`` takes one array per
@@ -37,14 +37,13 @@ import torch
 from ..common.dtypes import tensor_from_numpy, torch_dtype
 from ..common.environment import resolve_device
 from ..data.dataset import DataSet
-from ..learning.precision import apply_updater, note_state_bytes
+from ..learning.precision import note_state_bytes
 from ..ops.epilogue import bn_act
-from ..parallel.sharding import leaf_paths
-from ._fused import FlatStore, apply_fused_flat, fused_flat_plan
+from ._fused import FlatStore
+from ._train import TrainableNetwork
 from .conf import layers as L
 from .conf.builder import GlobalConf, apply_layer_defaults
 from .conf.inputs import CNNInput, FFInput, InputType, cnn_to_ff
-from .gradnorm import normalize_gradients_
 
 
 # --- graph vertices -----------------------------------------------------------
@@ -233,28 +232,11 @@ class GraphBuilder:
                                  f"(declare nodes in topological order)")
 
 
-class ComputationGraph:
+class ComputationGraph(TrainableNetwork):
     """Runtime twin of the configuration."""
 
     def __init__(self, conf: ComputationGraphConfiguration):
-        self.conf = conf
-        self._params: Dict[str, Dict[str, torch.Tensor]] = {}
-        self._states: Dict[str, Dict[str, torch.Tensor]] = {}
-        self._initialized = False
-        self.device: Optional[torch.device] = None
-        self._cast_cache = None
-        self._updater_state = None
-        self._iteration = 0
-        self._epoch = 0
-        self._score: Optional[torch.Tensor] = None
-        self._flat: Optional[FlatStore] = None
-        self._generator: Optional[torch.Generator] = None
-
-    @property
-    def score_value(self) -> float:
-        """The loss of the last training step (nan before the first)."""
-        return float(self._score) if self._score is not None \
-            else float("nan")
+        super().__init__(conf)
 
     def init(self, seed: Optional[int] = None,
              device=None) -> "ComputationGraph":
@@ -346,24 +328,6 @@ class ComputationGraph:
             return None
         return {"bn": bn_nodes, "add": add_nodes, "act": act_nodes}
 
-    def _compute_params(self, params):
-        """Parameters in ``compute_dtype`` (float tensors only), cached
-        until a parameter tensor is replaced or modified in place."""
-        cd = self.conf.global_conf.compute_dtype
-        if not cd:
-            return params
-        leaves = [t for p in params.values() for t in p.values()]
-        key = (cd,) + tuple((id(t), t._version) for t in leaves)
-        cached = self._cast_cache
-        if cached is not None and cached[0] == key:
-            return cached[1]
-        ct = torch_dtype(cd)
-        cast = {n: {k: (t.to(ct) if t.is_floating_point() else t)
-                    for k, t in p.items()} for n, p in params.items()}
-        # the cache holds the source tensors too, so their ids stay unique
-        self._cast_cache = (key, cast, leaves)
-        return cast
-
     def _forward(self, params, states, inputs: Dict[str, torch.Tensor],
                  training: bool = False, to_preout: bool = False):
         """The walk: ``(acts, new_states)``. ``training``: batch statistics
@@ -386,6 +350,8 @@ class ComputationGraph:
         new_states = dict(states)
         out_set = set(self.conf.network_outputs)
         plan = None if training else self._epilogue_fusion_plan()
+        # dropout bits in training come from the graph's own generator
+        gen = self.generator() if training else None
         pending_bn: Dict[str, Any] = {}
         pending_add: Dict[str, Any] = {}
         for name in self.conf.order:
@@ -439,7 +405,8 @@ class ComputationGraph:
                 acts[name] = node.layer.pre_output(head_params, x)
                 continue
             y, st = node.layer.apply(params.get(name, {}), x,
-                                     states.get(name, {}), training)
+                                     states.get(name, {}), training,
+                                     generator=gen)
             acts[name] = y
             if st:
                 new_states[name] = st
@@ -467,10 +434,6 @@ class ComputationGraph:
             raise ValueError(f"expected {len(names)} inputs {names}, got "
                              f"{len(inputs)}")
         return {n: self._to_device(v) for n, v in zip(names, inputs)}
-
-    def _check_init(self):
-        if not self._initialized:
-            raise ValueError("call init() first")
 
     # --- loss --------------------------------------------------------------
     def _output_names(self) -> List[str]:
@@ -531,83 +494,15 @@ class ComputationGraph:
         return float(loss)
 
     # --- training ----------------------------------------------------------
-    def generator(self) -> torch.Generator:
-        """The graph's own generator for stochastic-rounding bits, on its
-        device, seeded from the configuration's seed."""
-        if self._generator is None:
-            self._generator = torch.Generator(device=self.device)
-            self._generator.manual_seed(int(self.conf.global_conf.seed))
-        return self._generator
-
-    def _fused_store(self) -> Optional[FlatStore]:
-        """The persistent flat buckets behind ``fused_update`` (made, or
-        remade when the parameters or the updater state were replaced), or
-        None on the per-leaf path."""
-        store = self._flat
-        if store is not None and self.conf.global_conf.fused_update \
-                and store.holds(self._params):
-            if self._updater_state is not store.state_views:
-                store.set_state(self._updater_state)
-                self._updater_state = store.state_views
-            return store
-        self._flat = None
-        plan = fused_flat_plan(self.conf, self._params)
-        if plan is None:
-            return None
-        store = FlatStore(plan, self._params, self._updater_state)
-        self._params = store.param_views
-        self._updater_state = store.state_views
-        self._flat = store
-        self._cast_cache = None
-        return store
-
     def _step(self, store: Optional[FlatStore], inputs, labels,
               masks) -> torch.Tensor:
         """One training step: forward, loss, backward, update (through
         ``store`` on the fused path). Returns the loss (detached)."""
-        gc = self.conf.global_conf
-        params = self._params
-        paths = leaf_paths(params)
-        leaves = [params[n][k] for n, k in paths]
-        if store is None:
-            for t in leaves:
-                if t.is_floating_point() and not t.requires_grad:
-                    t.requires_grad_(True)
-        else:
-            store.bind_grads()
-        with torch.enable_grad():
-            loss, new_states = self._loss(params, self._states, inputs,
-                                          labels, masks, training=True)
-            if store is not None:
-                loss.backward()       # into the store's gradient buckets
-            else:
-                flat_grads = torch.autograd.grad(loss, leaves)
-                grads = {n: {} for n in params}
-                for (n, k), g in zip(paths, flat_grads):
-                    grads[n][k] = g
-        if gc.grad_normalization:
-            # after the backward, before the update (the JAX graph's
-            # graph.py:781-786); on the fused path in place on the leaf
-            # views of the gradient bucket
-            tree = store.grad_views if store is not None else grads
-            normalize_gradients_([tree[n][k] for n, k in paths],
-                                 gc.grad_normalization,
-                                 gc.grad_norm_threshold)
-        with torch.no_grad():
-            if store is not None:
-                apply_fused_flat(store, gc.updater, self._iteration,
-                                 self.generator())
-            else:
-                new_params, self._updater_state = apply_updater(
-                    gc.updater, grads, self._updater_state, params,
-                    self._iteration, self.generator())
-                for n, k in paths:
-                    params[n][k].copy_(new_params[n][k])
-        self._states = {n: {k: v.detach() for k, v in d.items()}
-                        for n, d in new_states.items()}
-        # the parameters changed in place, behind the cast cache's back
-        self._cast_cache = None
-        return loss.detach()
+        loss, self._states = self._train_step(
+            store, lambda p: self._loss(p, self._states, inputs, labels,
+                                        masks, training=True),
+            self._iteration)
+        return loss
 
     def fit(self, data: Union[DataSet, Iterable[DataSet]],
             epochs: int = 1) -> None:
@@ -617,7 +512,7 @@ class ComputationGraph:
         gc = self.conf.global_conf
         if self._updater_state is None:
             self._updater_state = gc.updater.init(self._params)
-        store = self._fused_store()
+        store = self._flat_store()
         note_state_bytes(self._updater_state)
         for _ in range(max(1, epochs)):
             for ds in ([data] if isinstance(data, DataSet) else data):

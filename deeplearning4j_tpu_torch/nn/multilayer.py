@@ -1,0 +1,507 @@
+"""MultiLayerNetwork: a stack of layers, trained and served.
+
+Counterpart of ``deeplearning4j_tpu/nn/multilayer.py``, with its API:
+``init``, ``fit``, ``output``, ``feed_forward``, ``score``,
+``compute_gradient_and_score``, ``evaluate``, ``evaluate_regression``,
+``params``/``set_params``/``num_params``, ``param_table``, ``summary``,
+``clone``, ``set_listeners``.
+
+Parameters are a dict keyed by the layer's zero-padded index (``"0000"``,
+``"0001"``, ...) of per-layer dicts, so the order of the leaves (layer by
+layer, names sorted) is ``jax.tree.flatten``'s on the JAX network's list:
+``params()`` gives the JAX network's vector, and the flat buckets of the
+fused update (``nn/_fused.FlatStore``, shared with ``ComputationGraph``) hold
+the elements in the JAX package's places.
+
+**The loss** (``multilayer.py:274-346``): the forward to the output head's
+input (in ``compute_dtype`` when set), the head's input dropout, the head
+and the loss in float32 from the float32 master parameters, the
+``labels_mask``, and for the input pipeline's batches the example weights
+``w`` (``sum(w * loss) / max(sum(w), 1)``, so the wrapped rows of a padded
+batch count for nothing), plus l1/l2 over every parameter but
+``b``/``beta``/``mean``/``var``.
+
+**The step** (``_step_core``, ``:386-484``): the backward through autograd,
+the gradient normalization (``nn/gradnorm.py``), the update (one launch of
+the ``csrc/fused_update.cu`` kernel per float32 bucket with
+``fused_update``, the per-leaf updater otherwise), then the layers'
+constraints. Dropout bits and stochastic-rounding bits come from the
+network's own ``torch.Generator``, seeded from the configuration.
+
+**A feature mask** (``DataSet.features_mask`` or ``output(x, fmask=)``,
+``[B, T]``) routes every layer through ``apply_masked``
+(``multilayer.py:148-163``): self-attention masks its keys (the flash
+kernel's additive bias) and global pooling leaves padded steps out.
+
+``fit`` takes a DataSet or a ``(features, labels)`` tuple (one step each,
+unpadded: ``bench.py``'s loop), or an iterator or a ``batch_size``, which go
+through the input pipeline (``data/pipeline.py``): the partial last batch is
+padded by wrapping rows, ``prefetch`` batches are placed ahead (pinned
+memory and non-blocking copies on the card), and ``steps_per_dispatch=K``
+runs K steps before the listeners hear of them, as the JAX package's
+``lax.scan`` chunk does.
+
+``init`` places the parameters on the card unless the caller asks for
+another device (``device="cpu"``). Not ported yet, each raising
+``NotImplementedError``: truncated BPTT (``backprop_type="TruncatedBPTT"``)
+and ``rnn_time_step``, ``pretrain``, ``set_remat_policy`` and any
+rematerialization policy, the telemetry listeners and the NaN guard,
+``save``/``load``, ``fit(host_prefetch=, resume_from=)``, weight noise and
+frozen layers. The fleet's per-call ``hyper`` overrides have no entry here.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..common.dtypes import tensor_from_numpy, torch_dtype
+from ..common.environment import resolve_device
+from ..data import pipeline as _pipe
+from ..data.dataset import DataSet
+from ..learning.precision import note_state_bytes
+from ..parallel.sharding import leaf_paths
+from ._fused import FlatStore
+from ._train import TrainableNetwork
+from .conf import layers as L
+from .conf.builder import MultiLayerConfiguration
+
+#: parameter names that take no l1/l2 (biases and normalization)
+_NO_REG = ("b", "beta", "mean", "var")
+#: parameter names that constraints leave alone
+_NO_CONSTRAINT = ("b", "beta", "gamma", "mean", "var", "centers")
+
+
+def layer_key(i: int) -> str:
+    """The dict key of layer ``i``: sorted keys keep the layer order."""
+    return f"{i:04d}"
+
+
+class MultiLayerNetwork(TrainableNetwork):
+    def __init__(self, conf: MultiLayerConfiguration):
+        if len(conf.layers) > 9999:
+            raise ValueError("at most 9999 layers")
+        super().__init__(conf)
+        self.layers = conf.layers
+        self._keys = [layer_key(i) for i in range(len(conf.layers))]
+        self._listeners: List[Any] = []
+        self._last_batch_size: Optional[int] = None
+
+    # --- set-up ------------------------------------------------------------
+    def init(self, seed: Optional[int] = None,
+             device=None) -> "MultiLayerNetwork":
+        """Create the parameters from a seeded ``torch.Generator`` (drawn on
+        the CPU, so a seed gives the same weights on every device) and place
+        them on ``device``: the card unless the caller asks for another."""
+        if self.conf.input_type is None:
+            raise ValueError("configuration needs set_input_type(...) "
+                             "before init()")
+        for layer in self.layers:
+            if layer.weight_noise is not None:
+                raise NotImplementedError(
+                    f"{type(layer).__name__}: weight noise is not ported "
+                    f"yet")
+        self.device = resolve_device(device)
+        gen = torch.Generator()
+        gen.manual_seed(int(seed if seed is not None
+                            else self.conf.global_conf.seed))
+        dtype = torch_dtype(self.conf.global_conf.dtype)
+        self._params, self._states = {}, {}
+        for key, layer in zip(self._keys, self.layers):
+            self._params[key] = (layer.init_params(gen, dtype, self.device)
+                                 if layer.has_params else {})
+            self._states[key] = layer.init_state(self.device)
+        self._updater_state = None
+        self._flat = None
+        self._cast_cache = None
+        self._initialized = True
+        return self
+
+    def set_listeners(self, *listeners) -> None:
+        for lst in listeners:
+            if hasattr(lst, "telemetry_done"):
+                raise NotImplementedError(
+                    f"{type(lst).__name__}: the telemetry listeners (in-step "
+                    f"telemetry aux and the NaN guard) are not ported yet")
+        self._listeners = list(listeners)
+
+    setListeners = set_listeners
+
+    def set_remat_policy(self, policy) -> None:
+        raise NotImplementedError("rematerialization policies are not "
+                                  "ported yet")
+
+    # --- parameter access --------------------------------------------------
+    def _leaves(self) -> List[torch.Tensor]:
+        return [self._params[n][k] for n, k in leaf_paths(self._params)]
+
+    def params(self) -> torch.Tensor:
+        """All parameters as one flat vector, in the JAX network's order."""
+        leaves = self._leaves()
+        if not leaves:
+            return torch.zeros((0,), device=self.device)
+        with torch.no_grad():
+            return torch.cat([t.reshape(-1) for t in leaves])
+
+    def num_params(self) -> int:
+        return sum(int(t.numel()) for t in self._leaves())
+
+    def set_params(self, flat) -> None:
+        """Load a flat vector (numpy or tensor, e.g. the JAX network's
+        ``params()``) into the parameters, in place: the fused update's
+        bucket views stay the parameters."""
+        self._check_init()
+        if not isinstance(flat, torch.Tensor):
+            flat = tensor_from_numpy(np.asarray(flat))
+        flat = flat.reshape(-1).to(self.device)
+        leaves = self._leaves()
+        n = sum(int(t.numel()) for t in leaves)
+        if flat.numel() != n:
+            raise ValueError(f"param vector length {flat.numel()} != model "
+                             f"params {n}")
+        off = 0
+        with torch.no_grad():
+            for t in leaves:
+                k = int(t.numel())
+                t.copy_(flat[off:off + k].reshape(t.shape))
+                off += k
+
+    def param_table(self, layer_idx: int) -> Dict[str, torch.Tensor]:
+        return dict(self._params[self._keys[layer_idx]])
+
+    def summary(self) -> str:
+        lines = [f"{'idx':<4}{'layer':<28}{'out type':<28}{'params':<10}"]
+        total = 0
+        for i, layer in enumerate(self.layers):
+            n = (sum(int(t.numel()) for t in self._params[self._keys[i]]
+                     .values()) if self._initialized else 0)
+            total += n
+            ot = (self.conf.layer_output_types[i]
+                  if i < len(self.conf.layer_output_types) else "?")
+            lines.append(f"{i:<4}{type(layer).__name__:<28}{str(ot):<28}"
+                         f"{n:<10}")
+        lines.append(f"Total params: {total}")
+        return "\n".join(lines)
+
+    def clone(self) -> "MultiLayerNetwork":
+        """A new network with a copy of the configuration and copies of the
+        parameters and layer states (not of the updater state), on the
+        same device."""
+        self._check_init()
+        net = MultiLayerNetwork(copy.deepcopy(self.conf))
+        net.device = self.device
+        with torch.no_grad():
+            net._params = {n: {k: t.detach().clone() for k, t in d.items()}
+                           for n, d in self._params.items()}
+            net._states = {n: {k: t.clone() for k, t in d.items()}
+                           for n, d in self._states.items()}
+        net._initialized = True
+        return net
+
+    # --- forward -----------------------------------------------------------
+    def _cast(self, params, x, training: bool):
+        cd = self.conf.global_conf.compute_dtype
+        if not cd:
+            return params, x
+        ct = torch_dtype(cd)
+        if training:
+            # inside autograd: the gradients flow back to the float32
+            # master parameters through the cast
+            params = {n: {k: (t.to(ct) if t.is_floating_point() else t)
+                          for k, t in d.items()} for n, d in params.items()}
+        else:
+            params = self._compute_params(params)
+        return params, (x.to(ct) if x.is_floating_point() else x)
+
+    def _forward(self, params, states, x, training: bool, fmask=None,
+                 to_preout: bool = False):
+        """``(y, new_states)``. ``to_preout``: stop at the output head's
+        input, after its input dropout (the loss applies the head)."""
+        params, x = self._cast(params, x, training)
+        gen = self.generator() if training else None
+        new_states = dict(states)
+        n_body = len(self.layers) - 1 if to_preout else len(self.layers)
+        for i in range(n_body):
+            layer, key = self.layers[i], self._keys[i]
+            pre = self.conf.preprocessors.get(i)
+            if pre is not None:
+                x = pre(x)
+            if fmask is not None:
+                x, st = layer.apply_masked(params[key], x, states[key],
+                                           training, fmask, generator=gen)
+            else:
+                x, st = layer.apply(params[key], x, states[key], training,
+                                    generator=gen)
+            if st:
+                new_states[key] = st
+        if to_preout:
+            i = len(self.layers) - 1
+            pre = self.conf.preprocessors.get(i)
+            if pre is not None:
+                x = pre(x)
+            x = self.layers[i]._maybe_dropout(x, training, gen)
+        return x, new_states
+
+    def _place(self, arrays: Tuple) -> Tuple:
+        """Arrays (numpy, tensors or None) on the network's device: from
+        pinned host memory with non-blocking copies on the card."""
+        out = []
+        for a in arrays:
+            if a is not None:
+                if not isinstance(a, torch.Tensor):
+                    a = tensor_from_numpy(np.asarray(a))
+                if self.device.type == "cuda" and a.device.type == "cpu":
+                    a = a.pin_memory().to(self.device, non_blocking=True)
+                else:
+                    a = a.to(self.device)
+            out.append(a)
+        return tuple(out)
+
+    def output(self, x, training: bool = False, fmask=None) -> torch.Tensor:
+        """Inference (``training=True``: with dropout and batch
+        statistics, without a step). ``fmask`` ``[B, T]``: the per-step
+        feature mask of sequence inputs."""
+        self._check_init()
+        x, fmask = self._place((x, fmask))
+        with torch.inference_mode():
+            out, _ = self._forward(self._params, self._states, x, training,
+                                   fmask)
+        return out
+
+    def feed_forward(self, x, training: bool = False) -> List[torch.Tensor]:
+        """Every layer's activation, the input first (in the parameters'
+        dtype, as the JAX network's ``feed_forward``)."""
+        self._check_init()
+        (cur,) = self._place((x,))
+        acts = [cur]
+        gen = self.generator() if training else None
+        with torch.inference_mode():
+            for i, layer in enumerate(self.layers):
+                pre = self.conf.preprocessors.get(i)
+                if pre is not None:
+                    cur = pre(cur)
+                cur, _ = layer.apply(self._params[self._keys[i]], cur,
+                                     self._states[self._keys[i]], training,
+                                     generator=gen)
+                acts.append(cur)
+        return acts
+
+    # --- loss --------------------------------------------------------------
+    def _loss(self, params, states, x, labels, mask, training: bool,
+              fmask=None, w=None):
+        out_layer = self.layers[-1]
+        if not isinstance(out_layer, L.OutputLayer):
+            raise ValueError("the last layer must be an OutputLayer to "
+                             "train or score")
+        pre_in, new_states = self._forward(params, states, x, training,
+                                           fmask, to_preout=True)
+        head = params[self._keys[-1]]
+        if self.conf.global_conf.compute_dtype:
+            # the head and the loss in float32, from the master parameters
+            head = {k: t.to(torch.float32) for k, t in head.items()}
+            pre_in = pre_in.to(torch.float32)
+        pre = out_layer.pre_output(head, pre_in)
+        if w is None:
+            data_loss = out_layer.loss.compute_score(
+                labels, pre, out_layer.activation, mask, average=True)
+        else:
+            total = out_layer.loss.compute_score(
+                labels, pre, out_layer.activation, _fold_weights(mask, w),
+                average=False)
+            data_loss = total / torch.clamp_min(w.sum(), 1.0)
+        gc = self.conf.global_conf
+        reg = 0.0
+        for key, layer in zip(self._keys, self.layers):
+            l1 = layer.l1 if layer.l1 is not None else gc.l1
+            l2 = layer.l2 if layer.l2 is not None else gc.l2
+            for name, t in params[key].items():
+                if name in _NO_REG:
+                    continue
+                if l2:
+                    reg = reg + 0.5 * l2 * torch.sum(torch.square(t))
+                if l1:
+                    reg = reg + l1 * torch.sum(torch.abs(t))
+        return data_loss + reg, new_states
+
+    def _bind_dataset(self, ds: DataSet):
+        """``(x, y, mask, fmask)`` of a DataSet, placed."""
+        if not isinstance(ds, DataSet):
+            raise TypeError(f"expected a DataSet, got {type(ds).__name__}")
+        return self._place((ds.features, ds.labels, ds.labels_mask,
+                            ds.features_mask))
+
+    def score(self, dataset: DataSet, training: bool = False) -> float:
+        """The loss on ``dataset`` (regularization included), without a
+        step."""
+        self._check_init()
+        x, y, mask, fmask = self._bind_dataset(dataset)
+        with torch.no_grad():
+            loss, _ = self._loss(self._params, self._states, x, y, mask,
+                                 training, fmask)
+        return float(loss)
+
+    def compute_gradient_and_score(self, dataset: DataSet):
+        """``(gradients, score)`` in inference mode: the gradients as one
+        dict per layer (the JAX network's list)."""
+        self._check_init()
+        x, y, mask, fmask = self._bind_dataset(dataset)
+        paths = leaf_paths(self._params)
+        leaves = [self._params[n][k].detach().requires_grad_(True)
+                  for n, k in paths]
+        params = {n: {} for n in self._params}
+        for (n, k), t in zip(paths, leaves):
+            params[n][k] = t
+        with torch.enable_grad():
+            loss, _ = self._loss(params, self._states, x, y, mask, False,
+                                 fmask)
+            flat = torch.autograd.grad(loss, leaves)
+        grads = {n: {} for n in self._params}
+        for (n, k), g in zip(paths, flat):
+            grads[n][k] = g
+        self._score = loss.detach()
+        return [grads[key] for key in self._keys], float(self._score)
+
+    # --- training ----------------------------------------------------------
+    def _apply_constraints(self) -> None:
+        """Project the weights after the update, in place
+        (``multilayer.py:534-550``)."""
+        for key, layer in zip(self._keys, self.layers):
+            if not layer.constraints:
+                continue
+            for name, t in self._params[key].items():
+                if name in _NO_CONSTRAINT:
+                    continue
+                w = t
+                for c in layer.constraints:
+                    w = c.apply(w)
+                t.copy_(w)
+
+    def _step(self, store: Optional[FlatStore], batch,
+              iteration: int) -> torch.Tensor:
+        """One training step on a placed batch ``(x, y, mask, fmask, w)``:
+        forward, loss, backward, gradient normalization, update (through
+        ``store`` on the fused path), constraints. Returns the loss, a
+        detached device scalar."""
+        x, y, mask, fmask, w = batch
+        loss, self._states = self._train_step(
+            store, lambda p: self._loss(p, self._states, x, y, mask, True,
+                                        fmask, w), iteration)
+        with torch.no_grad():
+            self._apply_constraints()
+        return loss
+
+    def _refuse_unported(self, host_prefetch: int,
+                         resume_from: Optional[str]) -> None:
+        gc = self.conf.global_conf
+        if self.conf.backprop_type == "TruncatedBPTT":
+            raise NotImplementedError("truncated BPTT is not ported yet (it "
+                                      "comes with the recurrent layers)")
+        if gc.gradient_checkpointing or gc.remat_policy not in (None,
+                                                                "none"):
+            raise NotImplementedError("rematerialization policies are not "
+                                      "ported yet")
+        if host_prefetch:
+            raise NotImplementedError("fit(host_prefetch=...) is not ported "
+                                      "yet")
+        if resume_from is not None:
+            raise NotImplementedError("fit(resume_from=...) (checkpoints) is "
+                                      "not ported yet")
+
+    def fit(self, data, epochs: int = 1, batch_size: Optional[int] = None,
+            *, pad_partial: bool = True,
+            drop_remainder: bool = False, prefetch: int = 2,
+            steps_per_dispatch: int = 1, host_prefetch: int = 0,
+            resume_from: Optional[str] = None) -> None:
+        """Train on ``data`` for ``epochs`` passes (see the module
+        docstring for the two loops)."""
+        self._check_init()
+        self._refuse_unported(host_prefetch, resume_from)
+        if self._updater_state is None:
+            self._updater_state = self.conf.global_conf.updater.init(
+                self._params)
+        store = self._flat_store()
+        note_state_bytes(self._updater_state)
+        if isinstance(data, (DataSet, tuple)) and batch_size is None:
+            self._fit_serial(data, epochs, store)
+            return
+
+        def dispatch(group):
+            losses = [self._step(store, b, self._iteration + j)
+                      for j, b in enumerate(group)]
+            _pipe.note_steps(self, self._listeners, losses)
+
+        _pipe.run_epochs(
+            data, epochs, batch_size, pad_partial=pad_partial,
+            drop_remainder=drop_remainder, prefetch=prefetch,
+            steps_per_dispatch=steps_per_dispatch, bind=self._bind_batch,
+            place=self._place, dispatch=dispatch, on_epoch=self._on_epoch)
+
+    def _on_epoch(self) -> None:
+        self._epoch += 1
+        for lst in self._listeners:
+            if hasattr(lst, "epoch_done"):
+                lst.epoch_done(self, self._epoch)
+
+    def _fit_serial(self, data, epochs: int, store) -> None:
+        """One unpadded step per DataSet (the loss's plain mean)."""
+        for _ in range(max(1, epochs)):
+            for ds in _pipe.iter_datasets(data):
+                x, y, mask, fmask = self._bind_dataset(ds)
+                self._last_batch_size = ds.num_examples()
+                loss = self._step(store, (x, y, mask, fmask, None),
+                                  self._iteration)
+                _pipe.note_steps(self, self._listeners, [loss])
+            self._on_epoch()
+
+    def _bind_batch(self, ds: DataSet, w: np.ndarray) -> Tuple:
+        """A pipeline batch as the step's tuple ``(x, y, mask, fmask, w)``,
+        not yet placed."""
+        self._last_batch_size = ds.num_examples()
+        return (ds.features, ds.labels, ds.labels_mask, ds.features_mask, w)
+
+    # --- refused paths ------------------------------------------------------
+    def pretrain(self, data, epochs: int = 1) -> None:
+        raise NotImplementedError("layerwise pretraining is not ported yet")
+
+    def rnn_time_step(self, x):
+        raise NotImplementedError("rnn_time_step is not ported yet (it "
+                                  "comes with the recurrent layers)")
+
+    def save(self, path: str, save_updater: bool = False) -> None:
+        raise NotImplementedError("model serialization is not ported yet")
+
+    @staticmethod
+    def load(path: str, load_updater: bool = False) -> "MultiLayerNetwork":
+        raise NotImplementedError("model serialization is not ported yet")
+
+    # --- evaluation ----------------------------------------------------------
+    def evaluate(self, data, batch_size: Optional[int] = None):
+        from ..eval.evaluation import Evaluation
+
+        ev = Evaluation()
+        for ds in _pipe.iter_datasets(data, batch_size):
+            out = self.output(ds.features, fmask=ds.features_mask)
+            ev.eval(ds.labels, out, ds.labels_mask)
+        return ev
+
+    def evaluate_regression(self, data, batch_size: Optional[int] = None):
+        from ..eval.evaluation import RegressionEvaluation
+
+        ev = RegressionEvaluation()
+        for ds in _pipe.iter_datasets(data, batch_size):
+            ev.eval(ds.labels, self.output(ds.features))
+        return ev
+
+
+def _fold_weights(mask, w):
+    """The example weights ``w`` ``[B]`` folded into an optional loss
+    mask: pad rows carry 0, so their loss terms are exactly 0."""
+    if mask is None:
+        return w
+    wb = w
+    while wb.ndim < mask.ndim:
+        wb = wb[..., None]
+    return mask * wb

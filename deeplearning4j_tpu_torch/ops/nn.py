@@ -1,5 +1,6 @@
-"""Neural-net ops of ResNet-50 and the self-attention encoder: convolution,
-pooling, batchnorm, layer norm, linear, attention.
+"""Neural-net ops of ResNet-50, LeNet, VGG16 and the self-attention
+encoder: convolution, pooling, batchnorm, layer norm, linear, dropout,
+attention.
 
 Counterpart of the subset of ``deeplearning4j_tpu/ops/nn.py`` that ResNet-50
 inference and training and the self-attention encoder run. Layouts are the
@@ -189,6 +190,34 @@ def linear(x: torch.Tensor, w: torch.Tensor, b=None) -> torch.Tensor:
     if b is not None:
         out = out + b
     return out
+
+
+def dropout_mask(shape, rate: float, generator: torch.Generator,
+                 device) -> torch.Tensor:
+    """The keep mask of inverted dropout: ``True`` with probability
+    ``1 - rate``, from ``generator`` (on ``device``). The JAX package draws
+    it with ``jax.random.bernoulli`` (threefry); the bits differ, the law
+    is the same."""
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator] = None,
+            keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Inverted dropout as ``ops/nn.py:419-426`` of the JAX package computes
+    it: ``where(keep, x / (1 - rate), 0)`` in ``x``'s dtype, the keep
+    probability rounded once to that dtype (a weak scalar in JAX; a 0-dim
+    tensor here, so the card divides and does not multiply by a
+    reciprocal). ``keep`` (bool, ``x``'s shape) replaces the draw from
+    ``generator``: the tests inject one mask into both packages."""
+    if keep is None:
+        if generator is None:
+            raise ValueError("training-mode dropout needs a torch.Generator "
+                             "(the network's own)")
+        keep = dropout_mask(x.shape, rate, generator, x.device)
+    p = torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
+    return torch.where(keep, x / p, torch.zeros((), dtype=x.dtype,
+                                                device=x.device))
 
 
 def dot_product_attention(q, k, v, mask=None, scaled: bool = True):

@@ -16,6 +16,14 @@ same way, in either of the JAX package's layouts: the dense tree
 (``{"v": {node: {...}}}``) or the flat ``flat::<dtype>`` buckets of
 ``Zero1Plan`` (padded for any shard count).
 
+``multilayer_state_from_numpy`` does the same for a ``MultiLayerNetwork``:
+the JAX network's ``_params`` and ``_states`` are lists with one dict per
+layer (``{}`` for a layer without any), and its updater state mirrors the
+list (``{"v": [{...}, ...]}``) or is flat. The port network keys its layers
+``"0000"``, ``"0001"``, ... (``nn/multilayer.layer_key``), in the same leaf
+order, so ``set_params`` with the JAX network's ``params()`` vector gives
+the same network too.
+
 ``word2vec_state_from_numpy`` carries a JAX Word2Vec's vocabulary (its words
 in index order and their counts) and its ``syn0``/``syn1neg`` tables into a
 port Word2Vec, with the same checks.
@@ -98,6 +106,33 @@ def updater_state_from_numpy(graph, state, device=None):
                                              state[k], want[k], device)
                             for k in want}
     return graph
+
+
+def _by_layer(tree):
+    """A per-layer list (the JAX network's layout) as the port network's
+    dict keyed by layer; dicts and flat buckets pass through."""
+    from ..nn.multilayer import layer_key
+
+    if isinstance(tree, (list, tuple)):
+        return {layer_key(i): dict(d) for i, d in enumerate(tree)}
+    return tree
+
+
+def multilayer_state_from_numpy(net, params: Sequence[Mapping[str, np.ndarray]],
+                                states: Sequence[Mapping[str, np.ndarray]],
+                                updater_state=None, device=None):
+    """Install the JAX network's per-layer ``params`` and ``states`` (lists
+    of dicts of numpy arrays) and, when given, its ``updater_state`` into
+    the initialized port ``net``, with the checks of
+    :func:`graph_state_from_numpy`; returns ``net``."""
+    if len(params) != len(net.layers) or len(states) != len(net.layers):
+        raise ValueError(f"{len(params)} parameter and {len(states)} state "
+                         f"dicts for {len(net.layers)} layers")
+    graph_state_from_numpy(net, _by_layer(params), _by_layer(states), device)
+    if updater_state is not None:
+        state = {k: _by_layer(v) for k, v in dict(updater_state).items()}
+        updater_state_from_numpy(net, state, device)
+    return net
 
 
 def word2vec_state_from_numpy(w2v, words: Sequence[str], counts,

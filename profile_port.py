@@ -4,6 +4,7 @@ one encoder forward of the port spends its time, on the card.
 
     python3 profile_port.py          # serving forward; needs one card
     python3 profile_port.py --train  # training step (chip_smoke phase 6)
+    python3 profile_port.py --mln    # VGG16 training step (phase 12)
     python3 profile_port.py --word2vec  # one CBOW block (chip_smoke phase 8)
     python3 profile_port.py --encoder   # one encoder forward (phase 9)
     python3 profile_port.py --flash     # the bf16 flash kernel as B*H grows
@@ -36,6 +37,19 @@ prints the step time (median of 10 after 2 warm-ups) and a
 ``torch.profiler`` trace of 3 steps: device busy share, the kernels that take
 the most device time, and the ``fused_update`` kernel's share. The trace goes
 to ``chiprun_out/profile_port_train_trace.json.gz``.
+
+With ``--mln`` it builds the VGG16 ``MultiLayerNetwork`` that
+``chip_smoke.py`` trains (zoo VGG16, 138,357,544 parameters, bf16 compute,
+fused_update, bf16 updater state, dropout 0.5 on both 4096 layers, batch 64
+of 8-bit pixels scaled to [0, 1]) and prints the step time (median of 10
+after 2 warm-ups) and a ``torch.profiler`` trace of 3 steps: device busy
+share of the wall, device time by category (cuDNN/cuBLAS, elementwise,
+reductions, ``fused_update``, the random bits of dropout's masks and of
+stochastic rounding) and the kernels that take the most device time. Then
+the loss of 4 float32 steps from N(0, 1) images (at the zoo's learning
+rate of 0.01 and at 0.001) against 8-bit pixels scaled to [0, 1] (why
+chip_smoke feeds the latter). The trace goes to
+``chiprun_out/profile_port_mln_trace.json.gz``.
 
 With ``--word2vec`` it builds the word2vec-cbow model ``chip_smoke.py`` fits
 (vocabulary 10,000, layer 100, window 5, 5 negatives, 8192 examples per
@@ -110,6 +124,8 @@ CUBLAS = "cuDNN/cuBLAS (conv, matmul, layout transposes)"
 #: kernel-name patterns of the device-time breakdown, first match wins
 CATEGORIES = (("flash_attention", ("flash_fwd_kernel", "flash_bf16_kernel")),
               ("fused_update", ("fused_update",)),
+              ("random bits (dropout masks, stochastic rounding)",
+               ("distribution_elementwise", "uniform_", "random_")),
               ("bn_act", ("bn_act",)),
               ("embedding_bag", ("embedding_bag",)),
               ("scatter-add (index_add_)", ("indexFunc", "index_add",
@@ -251,6 +267,73 @@ def train_main(dev, smi: str, name: str) -> int:
     result = {"device": name, "nvidia_smi": smi, "train_step_ms": ms,
               "images_per_s": cs.TRAIN_BATCH / ms * 1e3,
               "fused_update_ms_per_step": upd_ms, **prof}
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+def mln_main(dev, smi: str, name: str) -> int:
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.models import VGG16
+
+    def vgg(compute_dtype):
+        net = VGG16(seed=cs.SEED).init(device=dev)
+        gc = net.conf.global_conf
+        gc.compute_dtype = compute_dtype
+        gc.fused_update = True
+        gc.updater.state_dtype = "bfloat16"
+        return net
+
+    net = vgg("bfloat16")
+    ds = cs.vgg_batch(dev, cs.SEED + 20)
+    for _ in range(cs.VGG_WARMUP):
+        net.fit(ds)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(cs.VGG_STEPS):
+        t0 = time.perf_counter()
+        net.fit(ds)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    print(f"[mln] VGG16 batch {cs.VGG_BATCH} bf16, fused_update, bf16 state, "
+          f"dropout 0.5 x2: step {ms:.3f} ms ({cs.VGG_BATCH / ms * 1e3:.1f} "
+          f"images/s), median of {cs.VGG_STEPS}; {smi}", flush=True)
+    prof = _profile(lambda: net.fit(ds), 3, f"VGG16 train step batch "
+                    f"{cs.VGG_BATCH}", smi, "profile_port_mln_trace.json.gz")
+    upd_ms = prof["device_ms_by_category"].get("fused_update", 0.0)
+    print(f"[profile] fused_update kernel: {upd_ms:.3f} ms per step, "
+          f"{100 * upd_ms / prof['device_ms']:.2f}% of device time; {smi}",
+          flush=True)
+    del net
+    torch.cuda.empty_cache()
+    # why chip_smoke feeds pixels in [0, 1]: the loss from N(0, 1) images
+    rng = np.random.RandomState(cs.SEED + 20)
+    normal = DataSet(torch.from_numpy(rng.randn(
+        cs.VGG_BATCH, 3, cs.IMAGE, cs.IMAGE).astype(np.float32)).to(dev),
+        ds.labels)
+    inputs = {}
+    # the same N(0, 1) images at a tenth of the zoo's learning rate: a step
+    # that overshoots diverges at 0.01 and not at 0.001, while a fault of
+    # the initialization or of dropout's scale would not depend on it
+    for label, data, lr in (("normal", normal, None),
+                            ("normal_lr1e-3", normal, 1e-3),
+                            ("pixels01", ds, None)):
+        net = vgg(None)
+        if lr is not None:
+            net.conf.global_conf.updater.learning_rate = lr
+        losses = []
+        for _ in range(4):
+            net.fit(data)
+            losses.append(net.score_value)
+        inputs[label] = losses
+        print(f"[mln] float32 VGG16, 4 steps from {label} inputs: losses "
+              f"{losses}; {smi}", flush=True)
+        del net
+        torch.cuda.empty_cache()
+    result = {"device": name, "nvidia_smi": smi, "train_step_ms": ms,
+              "images_per_s": cs.VGG_BATCH / ms * 1e3,
+              "fused_update_ms_per_step": upd_ms, "input_losses": inputs,
+              **prof}
     print(json.dumps(result), flush=True)
     return 0
 
@@ -641,6 +724,9 @@ def main() -> int:
     if "--train" in sys.argv[1:]:
         cs.phase_build()
         return train_main(dev, smi, name)
+    if "--mln" in sys.argv[1:]:
+        cs.phase_build()
+        return mln_main(dev, smi, name)
     if "--encoder" in sys.argv[1:]:
         cs.phase_build()
         return encoder_main(dev, smi, name)

@@ -270,8 +270,13 @@ def test_attention_layer_refuses_training_dropout():
     params = tl.init_params(torch.Generator().manual_seed(0))
     assert {k: tuple(v.shape) for k, v in params.items()} == {
         "Wq": (8, 8), "Wk": (8, 8), "Wv": (8, 8), "Wo": (8, 8)}
-    with pytest.raises(NotImplementedError, match="dropout"):
+    # training-mode dropout needs the network's generator: refused
+    # without one, applied with one, never at inference
+    with pytest.raises(ValueError, match="dropout"):
         tl.apply(params, torch.zeros(1, 4, 8), {}, training=True)
+    y, _ = tl.apply(params, torch.ones(1, 4, 8), {}, training=True,
+                    generator=torch.Generator().manual_seed(0))
+    assert y.shape == (1, 4, 8)
     with pytest.raises(ValueError, match="RNN"):
         TL.SelfAttentionLayer(n_out=8).set_input_type(
             TInputType.feed_forward(8))

@@ -81,6 +81,16 @@ def test_import_in_fresh_process_pulls_no_jax():
             "from deeplearning4j_tpu_torch.nlp.word2vec import "
             "SequenceVectors\n"
             "import deeplearning4j_tpu_torch.ops.embeddings\n"
+            "from deeplearning4j_tpu_torch.nn import MultiLayerNetwork\n"
+            "from deeplearning4j_tpu_torch.models import LeNet, VGG16\n"
+            "from deeplearning4j_tpu_torch.data import (MnistDataSetIterator, "
+            "NormalizerStandardize)\n"
+            "from deeplearning4j_tpu_torch.data import pipeline\n"
+            "from deeplearning4j_tpu_torch.eval import Evaluation\n"
+            "from deeplearning4j_tpu_torch.optimize import "
+            "PerformanceListener\n"
+            "from deeplearning4j_tpu_torch.util import "
+            "multilayer_state_from_numpy\n"
             "bad = [m for m in sys.modules if m in ('jax', 'jaxlib') or "
             "m == 'deeplearning4j_tpu' or m.startswith(('jax.', "
             "'deeplearning4j_tpu.'))]\n"
@@ -102,6 +112,11 @@ def test_default_device_is_the_card_and_raises_without_one():
         return
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ResNet50(num_classes=10, image_size=32).init()
+    from deeplearning4j_tpu_torch.models import LeNet
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LeNet().init()
+    assert LeNet().init(device="cpu").device.type == "cpu"
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"

@@ -550,3 +550,32 @@ def test_flash_bf16_failed_launch_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="launch failed"):
         attention.flash_attention_bf16_cuda(q, k, v, 0.25)
     assert attention.flash_attention_launches == before
+
+
+@pytest.mark.cuda
+def test_output_after_a_fused_fit_reads_the_new_parameters():
+    """bf16 ``compute_dtype`` with ``fused_update``: the kernel writes the
+    parameter bucket through raw pointers, which bumps no tensor version,
+    so the inference cast cache must be dropped by the step itself."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.models import LeNet
+
+    dev = _card()
+    net = LeNet().init(device=dev)
+    gc = net.conf.global_conf
+    gc.compute_dtype = "bfloat16"
+    gc.fused_update = True
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.uniform(size=(16, 1, 28, 28))
+                         .astype(np.float32)).to(dev)
+    y = torch.nn.functional.one_hot(
+        torch.from_numpy(rng.integers(0, 10, size=16)), 10).float().to(dev)
+    before = net.output(x).float()
+    launches = update.fused_update_launches
+    net.fit(DataSet(x, y))
+    assert update.fused_update_launches == launches + 1
+    after = net.output(x).float()
+    net._cast_cache = None
+    fresh = net.output(x).float()
+    assert not torch.equal(after, before)
+    assert torch.equal(after, fresh)

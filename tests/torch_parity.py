@@ -26,6 +26,8 @@ def modules(which: str) -> SimpleNamespace:
         graph=imp("nn.graph"),
         Sgd=imp("learning.updaters").Sgd,
         Nesterovs=imp("learning.updaters").Nesterovs,
+        Adam=imp("learning.updaters").Adam,
+        MultiLayerNetwork=imp("nn.multilayer").MultiLayerNetwork,
         zoo=imp("models.zoo"))
 
 
@@ -222,3 +224,124 @@ def encoder_conf(which: str, vocab: int = 100, positions: int = 128,
     gb.set_input_types(m.InputType.recurrent(vocab, seq_len),
                        m.InputType.recurrent(positions, seq_len))
     return gb.build()
+
+
+def lenet_conf(which: str, fused_update: bool = False, l1: float = 0.0,
+               l2: float = 0.0, grad_norm=None, seed: int = 123):
+    """bench.py's ``_lenet_model`` configuration (bench.py:239-261),
+    letter for letter, with the switches the tests turn: ``fused_update``,
+    l1/l2 and a gradient normalization ``(mode, threshold)``."""
+    m = modules(which)
+    b = (m.NeuralNetConfiguration.builder().seed(seed)
+         .updater(m.Nesterovs(learning_rate=0.01, momentum=0.9))
+         .activation("relu").weight_init("xavier").l1(l1).l2(l2))
+    if fused_update:
+        b = b.fused_update()
+    if grad_norm is not None:
+        b = b.gradient_normalization(*grad_norm)
+    return (b.list()
+            .layer(m.L.ConvolutionLayer(n_out=20, kernel_size=(5, 5)))
+            .layer(m.L.SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2)))
+            .layer(m.L.ConvolutionLayer(n_out=50, kernel_size=(5, 5)))
+            .layer(m.L.SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2)))
+            .layer(m.L.DenseLayer(n_out=500))
+            .layer(m.L.OutputLayer(n_out=10, loss="mcxent",
+                                   activation="softmax"))
+            .set_input_type(m.InputType.convolutional(28, 28, 1))
+            .build())
+
+
+#: zoo VGG16's widths (models/zoo.py:172-198 of the JAX package)
+VGG16_WIDTHS = {"blocks": ((2, 64), (2, 128), (3, 256), (3, 512),
+                           (3, 512)),
+                "dense": 4096, "classes": 1000, "image": 224}
+
+
+def vgg_conf(which: str, widths=None, dropout: float = 0.5,
+             compute_dtype=None):
+    """Zoo VGG16's configuration at ``widths`` (``blocks`` of (convs,
+    channels), ``dense``, ``classes``, ``image``; VGG16_WIDTHS by
+    default). ``dropout`` is the two dense layers' input dropout."""
+    w = dict(VGG16_WIDTHS, **(widths or {}))
+    m = modules(which)
+    b = (m.NeuralNetConfiguration.builder().seed(123)
+         .updater(m.Nesterovs(learning_rate=1e-2, momentum=0.9))
+         .activation("relu").weight_init("relu"))
+    if compute_dtype:
+        b = b.compute_dtype(compute_dtype)
+    lb = b.list()
+    for n_convs, ch in w["blocks"]:
+        for _ in range(n_convs):
+            lb = lb.layer(m.L.ConvolutionLayer(n_out=ch, kernel_size=(3, 3),
+                                               padding=(1, 1)))
+        lb = lb.layer(m.L.SubsamplingLayer(kernel_size=(2, 2),
+                                           stride=(2, 2)))
+    return (lb.layer(m.L.DenseLayer(n_out=w["dense"], dropout=dropout))
+            .layer(m.L.DenseLayer(n_out=w["dense"], dropout=dropout))
+            .layer(m.L.OutputLayer(n_out=w["classes"]))
+            .set_input_type(m.InputType.convolutional(w["image"], w["image"],
+                                                      3))
+            .build())
+
+
+def masked_conf(which: str, width: int = 32, heads: int = 4,
+                vocab: int = 50, seq_len: int = 16, classes: int = 2,
+                compute_dtype=None, updater=None):
+    """The masked sequence path of chip_smoke.py at ``width``: token
+    embedding → self-attention → LayerNorm → self-attention → average
+    pool over time → softmax head, trained and served with a ``[B, T]``
+    feature mask. The depth is chip_smoke's, not a published model's.
+    ``updater(m)`` makes the updater (default Nesterovs(0.1, 0.9): its step
+    is proportional to the gradient, where Adam divides a tiny gradient by
+    its own root mean square and so turns float32 rounding of a 1e-8
+    gradient into a difference of up to its learning rate)."""
+    m = modules(which)
+    b = (m.NeuralNetConfiguration.builder().seed(7)
+         .updater(updater(m) if updater is not None
+                  else m.Nesterovs(0.1, momentum=0.9)))
+    if compute_dtype:
+        b = b.compute_dtype(compute_dtype)
+    return (b.list()
+            .layer(m.L.EmbeddingSequenceLayer(n_out=width))
+            .layer(m.L.SelfAttentionLayer(n_out=width, n_heads=heads))
+            .layer(m.L.LayerNormalization())
+            .layer(m.L.SelfAttentionLayer(n_out=width, n_heads=heads))
+            .layer(m.L.GlobalPoolingLayer(pooling_type="avg"))
+            .layer(m.L.OutputLayer(n_out=classes, loss="mcxent",
+                                   activation="softmax"))
+            .set_input_type(m.InputType.recurrent(vocab, seq_len))
+            .build())
+
+
+def mln_twins(jax_conf, torch_conf, seed: int = 0):
+    """The JAX MultiLayerNetwork and its port twin (on the CPU) with the
+    JAX network's parameters and states carried across."""
+    from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork as JNet
+    from deeplearning4j_tpu_torch.nn.multilayer import (
+        MultiLayerNetwork as TNet)
+    from deeplearning4j_tpu_torch.util.convert import (
+        multilayer_state_from_numpy)
+
+    jn = JNet(jax_conf).init(seed)
+    tn = TNet(torch_conf).init(device="cpu")
+    multilayer_state_from_numpy(
+        tn, [{k: np.asarray(v) for k, v in d.items()} for d in jn._params],
+        [{k: np.asarray(v) for k, v in d.items()} for d in jn._states])
+    return jn, tn
+
+
+def conf_param_count(conf) -> int:
+    """Parameters of a Conv/Dense/Output stack, read off the layer shapes
+    (no allocation), for either package's configuration."""
+    n = 0
+    for layer in conf.layers:
+        kind = type(layer).__name__
+        if kind == "ConvolutionLayer":
+            kh, kw = layer.kernel_size
+            n += layer.n_out * layer.n_in * kh * kw
+        elif kind in ("DenseLayer", "OutputLayer"):
+            n += layer.n_in * layer.n_out
+        else:
+            continue
+        n += layer.n_out if layer.has_bias else 0
+    return n
