@@ -23,15 +23,19 @@ Phases (each fails the run with a nonzero exit if it fails):
                table) and ragged ones (D 1, 3, 101, 300; W 1; fully masked
                bags; a table 1 element into its buffer; W 32, 33, 40 and
                3, 5, 13 for the index chunks and rows in flight; B 8191,
-               1001, 5; indices past both ends). Then each kernel,
+               1001, 5; indices past both ends), and its bf16 route bitwise
+               at [8192, 10] and PV-DM's [8192, 11] bags of a [10000, 100]
+               bf16 table and at D 1, 3, 102, 128, 256, 300 (each vector
+               width), W 0, 13, 33, 40, offset tables. Then each kernel,
                its plain version, the unfused PyTorch path and, where one
                PyTorch call computes the same function, that call, timed
                with CUDA events and a cold L2 after a 2 ms spin of the card
                (so the host's launch overhead is not timed), beside the
                bandwidth bound;
                embedding_bag also warm (the L2 its previous launch left),
-               with its host time per launch, and at a wide shape (V
-               3,000,000, D 300);
+               with its host time per launch, at a wide shape (V
+               3,000,000, D 300), and on its bf16 route at the CBOW path's
+               and PV-DM's shapes beside F.embedding_bag on the bf16 table;
                flash_attention's float32 kernel within 2e-5 at the encoder
                path's [384, 128, 64] (non-causal, causal, the MHA mask bias,
                a full [B, H, T, T] bias, a row masked everywhere, which must
@@ -132,6 +136,35 @@ Phases (each fails the run with a nonzero exit if it fails):
                the card against the CPU at batch 4 within 1e-4. Then
                fused_update's kernel at LeNet's and VGG16's buckets against
                its plain version and its bound.
+14. skipgram -- bench.py --config word2vec: Word2Vec skip-gram with negative
+               sampling (min frequency 5, layer 100, window 5, 5 negatives,
+               sampling 1e-3, batch 8192, seed 42, 1 epoch) over phase 8's
+               4,000,000-word corpus, cold and warm. Gates: B 8190 pairs per
+               round, S 87,360 positions and C 876,330 pairs per block;
+               rounds = sum of ceil(count / B) over the blocks, with each
+               block's count as the card computed it; one count readback
+               per block; no embedding_bag launch; finite tables on the
+               card; the last loss below the first block's. Then the
+               cluster corpus on the card, gated as tests/test_nlp.py:255.
+15. word2vec-hs -- skip-gram and CBOW with hierarchical softmax at
+               bench.py's word2vec-hs hyperparameters on the corpus's first
+               400,000 words (HS rounds hold 128 pairs: the corpus is cut,
+               not the widths). Gates: 128 pairs or centers per round,
+               rounds as in phase 14 (skip-gram) or one f32 embedding_bag
+               launch per round (CBOW), finite tables; the cluster corpus
+               gates of tests/test_nlp.py:282 and :301 on the card.
+16. cbow-bf16 -- the word2vec-cbow configuration on bf16 tables: 384 launches
+               of the bag's bf16 route per fit (one per round), finite
+               tables, the last loss below ln 2; the cluster corpus on bf16
+               tables (CBOW, and skip-gram as tests/test_nlp.py:268), gated
+               at 0.3.
+17. paragraph-vectors -- PV-DBOW (with the skip-gram word pass) and PV-DM at
+               layer 100, window 5, 5 negatives, sampling 1e-3, batch 8192
+               on the first 400,000 words as 20,000 documents labelled
+               DOC_i: documents/s and words/s; PV-DM launches the bag (2W +
+               1 = 11 columns) once per round. Then the document-cluster
+               and infer_vector gates of tests/test_nlp.py:426-460 on the
+               card.
 
 Then it prints the kernels line (one JSON object) and, last, the device line
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
@@ -448,15 +481,56 @@ def compare_embedding_bag(B, W, V, D, dev, gen, offset=0, masked=3):
     return err
 
 
-def time_embedding_bag(B, W, V, D, dev, gen, flush, dist):
+def _to_bf16_route(table, mask, offset=0):
+    """A bag case's table and mask rounded to bf16 (the table ``offset``
+    elements into its buffer), and the counts in bf16: the bf16 route's
+    inputs."""
+    V, D = table.shape
+    buf = torch.empty(V * D + offset, dtype=torch.bfloat16,
+                      device=table.device)
+    t16 = buf[offset:].view(V, D)
+    t16.copy_(table)
+    m16 = mask.to(torch.bfloat16)
+    return t16, m16, m16.float().sum(1).clamp_min(1.0).to(torch.bfloat16)
+
+
+def compare_embedding_bag_bf16(B, W, V, D, dev, gen, offset=0, masked=3):
+    """The bf16 route against its plain version, bitwise, mean and sum."""
+    from deeplearning4j_tpu_torch.ops import embeddings
+
+    table, idx, mask, _ = _bag_case(B, W, V, D, dev, gen, masked=masked)
+    if W:
+        idx[0, 0], idx[-1, -1] = V - 1, V + 5
+    t16, m16, c16 = _to_bf16_route(table, mask, offset)
+    err = 0.0
+    for mean in (True, False):
+        got = embeddings.embedding_bag_cuda(t16, idx, m16, c16, mean)
+        want = embeddings.embedding_bag_reference(t16, idx, m16, c16, mean)
+        torch.cuda.synchronize()
+        e = (got.float() - want.float()).abs().max().item() \
+            if got.numel() else 0.0
+        check(got.dtype == torch.bfloat16 and torch.equal(got, want),
+              f"embedding_bag bf16 B={B} W={W} V={V} D={D} offset={offset} "
+              f"mean={mean}: not bitwise (max_abs_err {e})")
+        err = max(err, e)
+    return err
+
+
+def time_embedding_bag(B, W, V, D, dev, gen, flush, dist, bf16=False):
     """Kernel, plain version, F.embedding_bag (the one PyTorch call for the
     same function) and the unfused expression at one shape, beside the
-    least bytes: indices, mask, counts, output, each distinct row once."""
+    least bytes: indices, mask, counts, output, each distinct row once.
+    ``bf16``: the bf16 route (table, mask, counts and output in bf16; the
+    arithmetic in float32 registers, so the float32 peak bounds it)."""
     import torch.nn.functional as F
 
     from deeplearning4j_tpu_torch.ops import embeddings
 
     table, idx, mask, counts = _bag_case(B, W, V, D, dev, gen, dist=dist)
+    esize = 4
+    if bf16:
+        table, mask, counts = _to_bf16_route(table, mask)
+        esize = 2
     c2 = counts[:, None]
     idx64 = idx.long()
     kernel = lambda: embeddings.embedding_bag_cuda(  # noqa: E731
@@ -467,12 +541,18 @@ def time_embedding_bag(B, W, V, D, dev, gen, flush, dist):
         idx64, table, per_sample_weights=mask, mode="sum") / c2
     unfused = lambda: (table[idx64] * mask[..., None]).sum(1) / c2  # noqa: E731
     check(torch.equal(kernel(), plain()),
-          f"embedding_bag {dist} [{B},{W}] x [{V},{D}]: not bitwise")
-    check(torch.allclose(library(), kernel(), rtol=1e-5, atol=1e-5),
+          f"embedding_bag {dist} [{B},{W}] x [{V},{D}] bf16={bf16}: not "
+          f"bitwise")
+    # the library call sums in float32 and rounds once: W bf16 ulp apart
+    tol = (2 ** -8 * W * table.float().abs().max().item() if bf16 else 1e-5)
+    check(torch.allclose(library().float(), kernel().float(),
+                         rtol=0 if bf16 else 1e-5, atol=tol),
           "F.embedding_bag yardstick computes another function")
     distinct = int(torch.unique(idx).numel())
-    nbytes = 2 * B * W * 4 + B * 4 + B * D * 4 + distinct * D * 4
-    no_reuse = 2 * B * W * 4 + B * 4 + B * D * 4 + B * W * D * 4
+    nbytes = (B * W * (4 + esize) + B * esize + B * D * esize
+              + distinct * D * esize)
+    no_reuse = (B * W * (4 + esize) + B * esize + B * D * esize
+                + B * W * D * esize)
     flops = 2 * B * W * D + B * D
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / F32_FLOPS_PER_S * 1e3
@@ -487,7 +567,7 @@ def time_embedding_bag(B, W, V, D, dev, gen, flush, dist):
            "bytes": nbytes, "bytes_no_reuse": no_reuse,
            "no_reuse_ms": no_reuse / HBM_BYTES_PER_S * 1e3,
            "distinct_rows": distinct, "shape": [B, W, V, D],
-           "indices": dist,
+           "indices": dist, "dtype": "bfloat16" if bf16 else "float32",
            "hottest_row_share": torch.bincount(idx.view(-1).long()).max()
            .item() / (B * W)}
     del table, idx, mask, counts, idx64
@@ -517,16 +597,38 @@ def phase_embedding_bag(smi: str, dev):
         f"101/300, W 0/1/3/5/10/13/32/33/40, B 5/9/257/1001/8191/8192, 3 "
         f"fully masked bags each, indices past both ends, a table 1 element "
         f"into its buffer) all bitwise; max_abs_err {err}")
+    # the bf16 route: the CBOW path's shape, PV-DM's 2W + 1 = 11 columns,
+    # and each vector width (D % 8, % 4, % 2, odd; an offset table)
+    cases16 = [(B, W, V, D, 0), (B, 2 * 5 + 1, V, D, 0)]
+    cases16 += [(257, 10, 1000, d, 0) for d in (1, 3, 102, 128, 300)]
+    cases16 += [(257, 10, 1000, 128, 1), (257, 10, 1000, 100, 2),
+                (257, 33, 1000, 128, 0), (257, 40, 1000, 256, 0),
+                (8191, 13, V, D, 0), (9, 0, 1000, 100, 0)]
+    err16 = 0.0
+    for b, w, v, d, off in cases16:
+        err16 = max(err16, compare_embedding_bag_bf16(b, w, v, d, dev, gen,
+                                                      off))
+    log(f"[kernels] embedding_bag bf16 route vs plain: {2 * len(cases16)} "
+        f"comparisons (mean and sum; [{B},{W}] and PV-DM's [{B},11] x "
+        f"[{V},{D}], D 1/3/100/102/128/256/300 (16-, 8-, 4- and 2-byte "
+        f"vectors), W 0/10/11/13/33/40, offset tables) all bitwise; "
+        f"max_abs_err {err16}")
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     timing = {"path": time_embedding_bag(B, W, V, D, dev, gen, flush,
                                          "subsampled"),
               "path_raw_zipf": time_embedding_bag(B, W, V, D, dev, gen, flush,
                                                   "zipf"),
               "wide": time_embedding_bag(B, W, 3_000_000, 300, dev, gen,
-                                         flush, "uniform")}
+                                         flush, "uniform"),
+              "bf16": time_embedding_bag(B, W, V, D, dev, gen, flush,
+                                         "subsampled", bf16=True),
+              "bf16_pv_dm": time_embedding_bag(B, 11, V, D, dev, gen, flush,
+                                               "subsampled", bf16=True)}
+    timing["bf16"]["max_abs_err"] = err16
     torch.cuda.empty_cache()
     for name, t in timing.items():
-        log(f"[kernels] embedding_bag {name} {t['shape']} (B, W, V, D; "
+        log(f"[kernels] embedding_bag {name} {t['dtype']} {t['shape']} (B, W, "
+            f"V, D; "
             f"{t['indices']} indices, {t['distinct_rows']} distinct rows, "
             f"hottest row {100 * t['hottest_row_share']:.2f}% of the "
             f"lookups): kernel {t['ms']:.4f} ms cold, {t['ms_warm']:.4f} ms "
@@ -1536,6 +1638,315 @@ def phase_word2vec(smi: str, dev):
             "cluster_same": same, "cluster_diff": diff}
 
 
+# --- phases 14-17: skip-gram, hierarchical softmax, bf16 tables, PV --------------
+
+#: HS and ParagraphVectors run on this cut of the corpus (HS rounds hold
+#: 128 pairs, so they are many and round-bound); widths stay bench.py's
+W2V_CUT_WORDS = 400_000
+SG_ROUND_PAIRS = 8190                 # bench.py word2vec's B
+SG_SPAN, SG_CAPACITY = 87_360, 876_330
+HS_ROUND = 128                        # HS_MAX_ROUND
+
+
+def w2v_model(dev, **kw):
+    """bench.py's _w2v_model (skip-gram with negative sampling: min
+    frequency 5, layer 100, window 5, 5 negatives, sampling 1e-3, 1 epoch,
+    batch 8192, seed 42), with ``kw`` on top."""
+    from deeplearning4j_tpu_torch.nlp import Word2Vec
+
+    cfg = dict(min_word_frequency=5, layer_size=100, window=5, negative=5,
+               sampling=1e-3, epochs=1, batch_size=8192, seed=42)
+    cfg.update(kw)
+    return Word2Vec(device=dev, **cfg)
+
+
+def fit_counted(model, label: str) -> dict:
+    """One fit with every count set to 0 just before it and read just
+    after: the bag's launches (both routes, and the bf16 route's), the
+    rounds and blocks counters, and each skip-gram block's pair count as
+    the card computed it (so that rounds can be held to sum(ceil(count /
+    B)))."""
+    from deeplearning4j_tpu_torch.common.profiler import OpProfiler
+    from deeplearning4j_tpu_torch.ops import embeddings
+
+    counts = []
+    sg_block = type(model)._sg_block
+
+    def recording(*a):
+        counts.append(a[4])
+        return sg_block(model, *a)
+
+    model._sg_block = recording
+    prof = OpProfiler.get()
+    prof.reset()
+    embeddings.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        model.fit()
+    finally:
+        del model._sg_block
+    wall = time.perf_counter() - t0
+    timing = model.last_fit_timing
+    B = model._round_pairs
+    return {
+        "fit": label, "words_per_s": model.words_per_sec,
+        "pairs_per_s": model.pairs_per_sec, "first_loss": model.first_loss,
+        "last_loss": model.last_loss, "wall_s": wall,
+        "prepare_s": timing["prepare"], "train_s": timing["train"],
+        "blocks": timing["blocks"], "readbacks": timing["readbacks"],
+        "readback_wait_s": timing["readback_wait"],
+        "ms_per_block": timing["train"] / max(timing["blocks"], 1) * 1e3,
+        "rounds": prof.counter_value("nlp/w2v_rounds"),
+        "sg_blocks": len(counts),
+        "sum_ceil_count_over_b": sum(-(-c // B) for c in counts),
+        "sg_pairs": sum(counts),
+        "launches": embeddings.embedding_bag_launches,
+        "bf16_launches": embeddings.embedding_bag_bf16_launches}
+
+
+def check_tables(model, what: str) -> None:
+    lt = model.lookup_table
+    out = lt.syn1 if model.use_hs else lt.syn1neg
+    check(model.table_device is not None
+          and model.table_device.type == "cuda",
+          f"{what}: tables trained on {model.table_device}")
+    check(lt.syn0.dtype == np.float32 and bool(np.isfinite(lt.syn0).all())
+          and bool(np.isfinite(out).all()), f"{what}: tables not finite "
+          f"float32")
+
+
+def cluster_gate(dev, what: str, margin: float, n_sent: int,
+                 near: bool = False, **kw) -> dict:
+    """A fit of tests/test_nlp.py's cluster corpus on the card, gated as
+    there: mean similarity of a0 to a1..a5 above that to b0..b4 plus
+    ``margin``; with ``near``, 8 of a0's 10 nearest words from cluster a."""
+    from deeplearning4j_tpu_torch.nlp import Word2Vec
+
+    w = Word2Vec(min_word_frequency=5, device=dev, **kw)
+    w.set_sentence_iterator(cluster_corpus(n_sent))
+    w.fit()
+    same = float(np.mean([w.similarity("a0", f"a{i}") for i in range(1, 6)]))
+    diff = float(np.mean([w.similarity("a0", f"b{i}") for i in range(5)]))
+    check(w.table_device.type == "cuda", f"{what}: not on the card")
+    check(same > diff + margin, f"{what} cluster corpus on the card: same "
+          f"{same} not above diff {diff} + {margin}")
+    out = {"same": same, "diff": diff, "margin": margin}
+    if near:
+        out["near_a"] = sum(n.startswith("a")
+                            for n in w.words_nearest("a0", 10))
+        check(out["near_a"] >= 8, f"{what}: {out['near_a']} of a0's 10 "
+              f"nearest words from its cluster, want >= 8")
+    log(f"[{what}] cluster corpus on the card: same {same:.4f}, diff "
+        f"{diff:.4f} (gate same > diff + {margin})"
+        + (f", {out['near_a']} of 10 nearest from cluster a" if near else ""))
+    return out
+
+
+def _log_fit(tag: str, f: dict, smi: str) -> None:
+    log(f"[{tag}] {f['fit']} fit: {f['words_per_s']:.1f} words/s, "
+        f"{f['pairs_per_s']:.1f} pairs/s over the train window "
+        f"{f['train_s']:.3f} s ({f['blocks']} blocks, {f['ms_per_block']:.2f} "
+        f"ms per block, {f['rounds']} rounds; {f['readbacks']} count "
+        f"readbacks waiting {1e3 * f['readback_wait_s']:.3f} ms in all); "
+        f"host prepare {f['prepare_s']:.3f} s of {f['wall_s']:.3f} s fit "
+        f"wall; embedding_bag launches {f['launches']} (bf16 route "
+        f"{f['bf16_launches']}); first block's loss {f['first_loss']:.6f}, "
+        f"last loss {f['last_loss']:.6f}; {smi}")
+
+
+def phase_skipgram(smi: str, dev, sents):
+    """Phase 14: skip-gram with negative sampling at bench.py --config
+    word2vec, cold and warm, and the cluster corpus on the card."""
+    w = w2v_model(dev)
+    w.set_sentence_iterator(sents)
+    fits = [fit_counted(w, label) for label in ("cold", "warm")]
+    check((w._round_pairs, w._window_span, w._pack_capacity)
+          == (SG_ROUND_PAIRS, SG_SPAN, SG_CAPACITY),
+          f"B, S, C = {w._round_pairs}, {w._window_span}, "
+          f"{w._pack_capacity}, want {SG_ROUND_PAIRS}, {SG_SPAN}, "
+          f"{SG_CAPACITY}")
+    check_tables(w, "skipgram")
+    for f in fits:
+        check(f["rounds"] == f["sum_ceil_count_over_b"] > 0
+              and f["sg_blocks"] == f["blocks"] == f["readbacks"],
+              f"{f['fit']} fit: {f['rounds']} rounds against sum(ceil("
+              f"count/B)) = {f['sum_ceil_count_over_b']} over "
+              f"{f['sg_blocks']} blocks ({f['blocks']} blocks, "
+              f"{f['readbacks']} readbacks)")
+        check(f["launches"] == 0, f"{f['fit']} fit: {f['launches']} "
+              f"embedding_bag launches, skip-gram has no bag")
+        check(np.isfinite(f["last_loss"])
+              and f["last_loss"] < fits[0]["first_loss"],
+              f"{f['fit']} fit: last loss {f['last_loss']} not below the "
+              f"first block's {fits[0]['first_loss']}")
+        _log_fit("skipgram", f, smi)
+    log(f"[skipgram] vocabulary {len(w.vocab)}, B {w._round_pairs} pairs per "
+        f"round, S {w._window_span} positions and C {w._pack_capacity} pairs "
+        f"per block; pairs per fit {fits[0]['sg_pairs']}; similarity(w1, "
+        f"w2) {w.similarity('w1', 'w2'):.4f}")
+    del w
+    cluster = cluster_gate(dev, "skipgram", 0.4, 1500, near=True,
+                           layer_size=32, seed=42, window=3, negative=5,
+                           epochs=3, batch_size=256)
+    return {"fits": fits, "cluster": cluster}
+
+
+def phase_hs(smi: str, dev, sents):
+    """Phase 15: skip-gram and CBOW with hierarchical softmax at the
+    word2vec-hs hyperparameters, on the corpus's first 400,000 words, and
+    the cluster corpus on the card for each."""
+    cut = sents[:W2V_CUT_WORDS // 20]
+    out = {}
+    for alg in ("skipgram", "cbow"):
+        w = w2v_model(dev, negative=0, use_hierarchic_softmax=True,
+                      algorithm=alg)
+        w.set_sentence_iterator(cut)
+        f = fit_counted(w, "cold")
+        size = w._round_pairs if alg == "skipgram" else w._cbow_centers
+        check(size == HS_ROUND, f"hs {alg}: {size} per round, want "
+              f"{HS_ROUND}")
+        check(w.negative == 0 and w.lookup_table.syn1neg is None,
+              f"hs {alg}: negative sampling tables present")
+        check_tables(w, f"hs {alg}")
+        if alg == "skipgram":
+            check(f["rounds"] == f["sum_ceil_count_over_b"] > 0
+                  and f["launches"] == 0, f"hs skipgram: {f['rounds']} "
+                  f"rounds, sum(ceil(count/B)) "
+                  f"{f['sum_ceil_count_over_b']}, {f['launches']} launches")
+        else:
+            check(f["launches"] == f["rounds"] == 64 * f["blocks"] > 0
+                  and f["bf16_launches"] == 0, f"hs cbow: {f['launches']} "
+                  f"launches for {f['rounds']} rounds")
+        check(np.isfinite(f["last_loss"]), f"hs {alg}: loss not finite")
+        _log_fit(f"hs-{alg}", f, smi)
+        out[alg] = f
+        del w
+    out["cluster_skipgram"] = cluster_gate(
+        dev, "hs-skipgram", 0.4, 1000, layer_size=24, negative=0,
+        use_hierarchic_softmax=True, epochs=3, batch_size=256, seed=1)
+    out["cluster_cbow"] = cluster_gate(
+        dev, "hs-cbow", 0.3, 1000, layer_size=24, negative=0,
+        use_hierarchic_softmax=True, algorithm="cbow", epochs=8,
+        batch_size=256, seed=6)
+    return out
+
+
+def phase_cbow_bf16(smi: str, dev, sents):
+    """Phase 16: the word2vec-cbow configuration on bf16 tables (the bag's
+    bf16 route, one launch per round), and the cluster corpus on bf16
+    tables, CBOW and skip-gram."""
+    w = w2v_model(dev, algorithm="cbow", table_dtype="bfloat16")
+    w.set_sentence_iterator(sents)
+    f = fit_counted(w, "cold")
+    check(f["bf16_launches"] == f["launches"] == f["rounds"]
+          == W2V_ROUNDS_PER_FIT, f"cbow bf16: {f['bf16_launches']} bf16 "
+          f"launches of {f['launches']}, {f['rounds']} rounds, want "
+          f"{W2V_ROUNDS_PER_FIT}")
+    check_tables(w, "cbow-bf16")
+    check(np.isfinite(f["last_loss"]) and f["last_loss"] < np.log(2.0),
+          f"cbow bf16: last loss {f['last_loss']} not below ln 2")
+    _log_fit("cbow-bf16", f, smi)
+    del w
+    return {"fit": f,
+            "cluster_cbow": cluster_gate(
+                dev, "cbow-bf16", 0.3, 1000, layer_size=24, negative=5,
+                algorithm="cbow", epochs=10, batch_size=256, seed=2,
+                table_dtype="bfloat16"),
+            "cluster_skipgram": cluster_gate(
+                dev, "skipgram-bf16", 0.3, 1500, layer_size=32, seed=42,
+                window=3, negative=5, epochs=3, batch_size=256,
+                table_dtype="bfloat16")}
+
+
+def cluster_docs(n_docs=80, doc_len=30, seed=0, zipf=False):
+    """tests/test_nlp.py's documents: even ones from cluster a, odd ones
+    from cluster b."""
+    rng = np.random.default_rng(seed)
+    A = [f"a{i}" for i in range(50)]
+    B = [f"b{i}" for i in range(50)]
+    p = None
+    if zipf:
+        p = 1.0 / np.arange(1, 51)
+        p /= p.sum()
+    return [" ".join(rng.choice(A if i % 2 == 0 else B, size=doc_len, p=p))
+            for i in range(n_docs)]
+
+
+def phase_paragraph_vectors(smi: str, dev, sents):
+    """Phase 17: PV-DBOW (with the word pass) and PV-DM at layer 100,
+    window 5, 5 negatives, sampling 1e-3, batch 8192 on the corpus's first
+    400,000 words as 20,000 documents; then tests/test_nlp.py's document
+    clusters on the card."""
+    from deeplearning4j_tpu_torch.nlp import (LabelAwareIterator,
+                                              ParagraphVectors)
+
+    docs = sents[:W2V_CUT_WORDS // 20]
+    labels = [f"DOC_{i}" for i in range(len(docs))]
+    out = {}
+    for dm in (False, True):
+        tag = "pv-dm" if dm else "pv-dbow"
+        pv = (ParagraphVectors.builder().min_word_frequency(5)
+              .layer_size(100).window_size(5).negative_sample(5)
+              .sampling(1e-3).epochs(1).batch_size(8192).seed(42).dm(dm)
+              .device(dev).iterate(LabelAwareIterator(docs, labels)).build())
+        f = fit_counted(pv, "cold")
+        f["docs_per_s"] = len(docs) / f["train_s"]
+        check_tables(pv, tag)
+        check(np.isfinite(f["last_loss"]), f"{tag}: loss not finite")
+        if dm:
+            check(f["launches"] == f["rounds"] == 64 * f["blocks"] > 0,
+                  f"pv-dm: {f['launches']} bag launches for {f['rounds']} "
+                  f"rounds")
+        else:
+            dbow = f["blocks"] - f["sg_blocks"]
+            check(f["launches"] == 0 and f["sg_blocks"] == f["readbacks"] > 0
+                  and f["rounds"] == 64 * dbow + f["sum_ceil_count_over_b"],
+                  f"pv-dbow: {f['rounds']} rounds over {dbow} DBOW and "
+                  f"{f['sg_blocks']} skip-gram blocks, {f['launches']} bag "
+                  f"launches")
+        _log_fit(tag, f, smi)
+        log(f"[{tag}] {f['docs_per_s']:.1f} documents/s ({len(docs)} "
+            f"documents of 20 words); {smi}")
+        out["dm" if dm else "dbow"] = f
+        del pv
+
+    def doc_gate(pv, margin):
+        same = float(np.mean([pv.similarity("DOC_0", f"DOC_{i}")
+                              for i in (2, 4, 6, 8)]))
+        diff = float(np.mean([pv.similarity("DOC_0", f"DOC_{i}")
+                              for i in (1, 3, 5, 7)]))
+        check(same > diff + margin, f"document clusters on the card: same "
+              f"{same} not above diff {diff} + {margin}")
+        return {"same": same, "diff": diff, "margin": margin}
+
+    small = [f"DOC_{i}" for i in range(80)]
+    pv = (ParagraphVectors.builder().min_word_frequency(1).layer_size(24)
+          .epochs(10).negative_sample(5).batch_size(256).seed(3).device(dev)
+          .iterate(LabelAwareIterator(cluster_docs(), small)).build())
+    pv.fit()
+    out["cluster_dbow"] = doc_gate(pv, 0.3)
+    rng = np.random.default_rng(7)
+    near = pv.nearest_labels(pv.infer_vector(" ".join(
+        f"a{i}" for i in rng.integers(0, 50, size=25))), 5)
+    out["infer_even"] = sum(int(lb.split("_")[1]) % 2 == 0 for lb in near)
+    check(out["infer_even"] >= 4, f"infer_vector on the card: nearest "
+          f"labels {near}, want >= 4 from cluster a")
+    pv = (ParagraphVectors.builder().min_word_frequency(1).layer_size(24)
+          .epochs(20).negative_sample(5).batch_size(128).seed(3).dm(True)
+          .learning_rate(0.05).device(dev)
+          .iterate(LabelAwareIterator(cluster_docs(zipf=True), small))
+          .build())
+    pv.fit()
+    out["cluster_dm"] = doc_gate(pv, 0.2)
+    log(f"[paragraph-vectors] document clusters on the card: DBOW same "
+        f"{out['cluster_dbow']['same']:.4f} diff "
+        f"{out['cluster_dbow']['diff']:.4f} (gate +0.3), infer_vector "
+        f"{out['infer_even']} of 5 nearest labels from cluster a, DM same "
+        f"{out['cluster_dm']['same']:.4f} diff "
+        f"{out['cluster_dm']['diff']:.4f} (gate +0.2)")
+    return out
+
+
 # --- phases 9 and 10 ------------------------------------------------------------
 
 def encoder_conf(vocab=BERT["vocab"], positions=BERT["positions"],
@@ -2394,6 +2805,12 @@ def main(argv=None) -> int:
         mln_upd = time_mln_updates(
             smi, dev, torch.empty(64 * 2 ** 20, dtype=torch.uint8,
                                   device=dev))
+        sents = zipf_sentences(W2V_WORDS)
+        sg = phase_skipgram(smi, dev, sents)
+        hs = phase_hs(smi, dev, sents)
+        cbow16 = phase_cbow_bf16(smi, dev, sents)
+        pv = phase_paragraph_vectors(smi, dev, sents)
+        del sents
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -2445,10 +2862,24 @@ def main(argv=None) -> int:
         "library_ms": bp["library_ms"], "unfused_ms": bp["unfused_ms"],
         "bytes": bp["bytes"], "bytes_no_reuse": bp["bytes_no_reuse"],
         "indices": bp["indices"],
+        "launches_by_path": {
+            "word2vec_cbow": w2v["launches"],
+            "cbow_hs": hs["cbow"]["launches"],
+            "cbow_bf16": cbow16["fit"]["launches"],
+            "pv_dm": pv["dm"]["launches"]},
         **{name: {k: bag_timing[name][k] for k in (
             "shape", "indices", "ms", "ms_warm", "plain_ms", "library_ms",
             "unfused_ms", "bound_ms", "bytes", "bytes_no_reuse")}
-           for name in ("path_raw_zipf", "wide")}})
+           for name in ("path_raw_zipf", "wide")},
+        "bf16": dict(
+            {k: bag_timing["bf16"][k] for k in (
+                "shape", "indices", "ms", "ms_warm", "host_us", "plain_ms",
+                "library_ms", "unfused_ms", "bound_ms", "bound_by", "bytes",
+                "max_abs_err")},
+            launches=cbow16["fit"]["bf16_launches"],
+            pv_dm_width=bag_timing["bf16_pv_dm"]["shape"],
+            pv_dm_ms=bag_timing["bf16_pv_dm"]["ms"],
+            pv_dm_bound_ms=bag_timing["bf16_pv_dm"]["bound_ms"])})
     keys = ("shape", "layout", "ms", "ms_with_lse", "plain_ms", "library_ms",
             "unfused_ms", "bound_ms", "bound_by")
     bp = fa16["path_strided"]
@@ -2484,7 +2915,9 @@ def main(argv=None) -> int:
                                 if k != "counters"},
                       "train_parity": tparity,
                       "word2vec_cbow": w2v, "encoder": enc, "lenet": lenet,
-                      "vgg16": vgg, "masked": masked}), flush=True)
+                      "vgg16": vgg, "masked": masked, "skipgram": sg,
+                      "word2vec_hs": hs, "cbow_bf16": cbow16,
+                      "paragraph_vectors": pv}), flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -55,12 +55,29 @@
 // nvcc from contracting the multiply-add into an FMA. Masked terms are
 // computed as well (row * 0), as the plain version does.
 //
+// The bf16 route (dl4j_embedding_bag_bf16): a bf16 table, mask and counts,
+// bf16 output, as the Pallas kernel runs in the table's dtype. The sum stays
+// in float registers but holds bf16 values: each product and each sum is
+// rounded to bf16 (round to nearest even) before the next step, and so is
+// the quotient, as PyTorch's bf16 operations in the plain version round
+// them. A product of two bf16 values is exact in float; a float sum or
+// quotient of bf16 values rounded once more to bf16 is the correctly
+// rounded bf16 result (the float result never lands on a bf16 tie that the
+// exact one is not on), so kernel and plain version agree bit for bit.
+// Rows are read as 16-byte vectors of 8 bf16 values when D % 8 == 0 and the
+// table and output are 16-byte aligned, else 8-byte vectors of 4 (D % 4 ==
+// 0: the CBOW path's D = 100, whose 200-byte rows are only 8-byte aligned),
+// 4-byte pairs or single values, kept packed (two bf16 a 32-bit register)
+// until they are summed. The index chunk, the rows in flight and the passes
+// are the float route's.
+//
 // Indices are clamped to [0, V-1] and row offsets are 64-bit.
 //
 // The wrapper (ops/embeddings.py, embedding_bag_cuda) allocates out, checks
 // shapes, dtypes and contiguity, launches on PyTorch's current stream, and
 // raises when the launch function returns a nonzero cudaError_t.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -118,6 +135,43 @@ __device__ __forceinline__ void load_row(const float* p, uint64_t pol,
   }
 }
 
+// one row vector of VEC bf16 values (their bits, uint16_t) through the
+// read-only path, kept packed: two values a 32-bit word, the lower address
+// in the low half
+template <int VEC>
+__device__ __forceinline__ void load_row(const uint16_t* p, uint64_t pol,
+                                         uint32_t (&t)[(VEC + 1) / 2]) {
+  if constexpr (VEC == 8) {
+    asm("ld.global.nc.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;"
+        : "=r"(t[0]), "=r"(t[1]), "=r"(t[2]), "=r"(t[3])
+        : "l"(p), "l"(pol));
+  } else if constexpr (VEC == 4) {
+    asm("ld.global.nc.L2::cache_hint.v2.u32 {%0, %1}, [%2], %3;"
+        : "=r"(t[0]), "=r"(t[1])
+        : "l"(p), "l"(pol));
+  } else if constexpr (VEC == 2) {
+    asm("ld.global.nc.L2::cache_hint.u32 %0, [%1], %2;"
+        : "=r"(t[0])
+        : "l"(p), "l"(pol));
+  } else {
+    unsigned short h;
+    asm("ld.global.nc.L2::cache_hint.u16 %0, [%1], %2;"
+        : "=h"(h)
+        : "l"(p), "l"(pol));
+    t[0] = h;
+  }
+}
+
+// a bf16 value (its bits) as a float: exact
+__device__ __forceinline__ float bf16_bits_to_float(uint32_t bits16) {
+  return __uint_as_float(bits16 << 16);
+}
+
+// x rounded to the nearest bf16 value (ties to even), as a float
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // data read or written once: streaming (.cs) when DL4J_BAG_STREAM is 1
 template <typename T>
 __device__ __forceinline__ T ld_once(const T* p) {
@@ -143,10 +197,82 @@ __device__ __forceinline__ void store_out(float* p, const float (&a)[VEC]) {
   }
 }
 
+// two bf16-valued floats packed into a word, the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return (__float_as_uint(lo) >> 16) | (__float_as_uint(hi) & 0xffff0000u);
+}
+
+// VEC bf16-valued floats (every one already rounded to bf16, so the low 16
+// bits are zero) stored as bf16
+template <int VEC>
+__device__ __forceinline__ void store_out(uint16_t* p, const float (&a)[VEC]) {
+  if constexpr (VEC == 8) {
+    st_once(reinterpret_cast<uint4*>(p),
+            make_uint4(pack_bf16(a[0], a[1]), pack_bf16(a[2], a[3]),
+                       pack_bf16(a[4], a[5]), pack_bf16(a[6], a[7])));
+  } else if constexpr (VEC == 4) {
+    st_once(reinterpret_cast<uint2*>(p),
+            make_uint2(pack_bf16(a[0], a[1]), pack_bf16(a[2], a[3])));
+  } else if constexpr (VEC == 2) {
+    st_once(reinterpret_cast<unsigned int*>(p), pack_bf16(a[0], a[1]));
+  } else {
+    st_once(reinterpret_cast<unsigned short*>(p),
+            (unsigned short)(__float_as_uint(a[0]) >> 16));
+  }
+}
+
+// The arithmetic of each route on one lane's vector of VEC elements: the
+// registers a row vector takes (Word x kWords), element e of it as a float,
+// one term of the sum and the quotient. The float route rounds each step to
+// float, the bf16 route each step to bf16 (see Numerics above).
+template <typename T, int VEC>
+struct Lane;
+
+template <int VEC>
+struct Lane<float, VEC> {
+  using Word = float;
+  static constexpr int kWords = VEC;
+  static __device__ __forceinline__ float elem(const float (&t)[VEC],
+                                               int e) {
+    return t[e];
+  }
+  static __device__ __forceinline__ float add(float acc, float x, float m) {
+    return __fadd_rn(acc, __fmul_rn(x, m));
+  }
+  static __device__ __forceinline__ float div(float a, float c) {
+    return __fdiv_rn(a, c);
+  }
+};
+
+template <int VEC>
+struct Lane<uint16_t, VEC> {
+  using Word = uint32_t;
+  static constexpr int kWords = (VEC + 1) / 2;
+  static __device__ __forceinline__ float elem(const uint32_t (&t)[kWords],
+                                               int e) {
+    const uint32_t w = t[e / 2];
+    return (e & 1) ? __uint_as_float(w & 0xffff0000u)
+                   : __uint_as_float(w << 16);
+  }
+  static __device__ __forceinline__ float add(float acc, float x, float m) {
+    return round_bf16(__fadd_rn(acc, round_bf16(__fmul_rn(x, m))));
+  }
+  static __device__ __forceinline__ float div(float a, float c) {
+    return round_bf16(__fdiv_rn(a, c));
+  }
+};
+
+// a mask or count value as a float: float as it is, bf16 (its bits) exactly
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(uint16_t v) {
+  return bf16_bits_to_float(v);
+}
+
 // lane ``lane``'s entry of the index chunk starting at w0: the clamped row
 // (fits an int: V - 1 is taken only when idx >= V, so V - 1 < 2^31) and the
 // mask value; 0 and 0 past W
-__device__ __forceinline__ void load_chunk(const int* bidx, const float* bmask,
+template <typename T>
+__device__ __forceinline__ void load_chunk(const int* bidx, const T* bmask,
                                            int w0, int W, int lane,
                                            long long V, int& r, float& m) {
   r = 0;
@@ -154,7 +280,7 @@ __device__ __forceinline__ void load_chunk(const int* bidx, const float* bmask,
   if (w0 + lane < W) {
     const int i = ld_once(bidx + w0 + lane);
     r = i < 0 ? 0 : ((long long)i >= V ? (int)(V - 1) : i);
-    m = ld_once(bmask + w0 + lane);
+    m = to_float(ld_once(bmask + w0 + lane));
   }
 }
 
@@ -198,12 +324,13 @@ __device__ __forceinline__ void put_stamp(long long bag, int lane, int k,
 // sums in W order. Lane j of the warp holds index j of the chunk (row r,
 // mask m); n of them are live. A source lane past 31 wraps (shuffle
 // semantics) and its value goes unused.
-template <int VEC>
-__device__ __forceinline__ void sum_rows(const float* col, int D,
-                                         uint64_t pol, bool live, int r,
-                                         float m, int n, float (&acc)[VEC]) {
+template <typename T, int VEC>
+__device__ __forceinline__ void sum_rows(const T* col, int D, uint64_t pol,
+                                         bool live, int r, float m, int n,
+                                         float (&acc)[VEC]) {
+  using L = Lane<T, VEC>;
   for (int k0 = 0; k0 < n; k0 += kRows) {
-    float t[kRows][VEC] = {};
+    typename L::Word t[kRows][L::kWords] = {};
 #pragma unroll
     for (int k = 0; k < kRows; ++k) {
       const int rk = __shfl_sync(kFull, r, k0 + k);
@@ -216,7 +343,7 @@ __device__ __forceinline__ void sum_rows(const float* col, int D,
       if (k0 + k < n) {
 #pragma unroll
         for (int e = 0; e < VEC; ++e)
-          acc[e] = __fadd_rn(acc[e], __fmul_rn(t[k][e], mk));
+          acc[e] = L::add(acc[e], L::elem(t[k], e), mk);
       }
     }
   }
@@ -234,21 +361,26 @@ enum Mode { kOne, kPasses, kChunks };
 // the most warps resident without spills: at 4 rows of float4 the one-pass
 // kernel fits 32 registers a thread, 64 warps on each SM, so the CBOW path's
 // 8192 bags run in one wave. Measurement builds with more rows ask for
-// proportionally fewer blocks.
-template <int VEC>
+// proportionally fewer blocks. The bf16 route counts its packed row words
+// and the accumulators its wider vectors add (16-byte rows: 16 + 8 words).
+template <typename T, int VEC>
 constexpr int min_blocks(Mode mode) {
   const int base = mode == kOne ? 8 : mode == kPasses ? 6 : 4;
-  const int regs = kRows * VEC < 16 ? 16 : kRows * VEC;
+  const int words = sizeof(T) == 4 ? kRows * VEC
+                                   : kRows * ((VEC + 1) / 2) + VEC;
+  const int regs = words < 16 ? 16 : words;
   return base * 16 / regs < 1 ? 1 : base * 16 / regs;
 }
 
-template <int VEC, bool MEAN, Mode MODE>
-__global__ void __launch_bounds__(kThreads, min_blocks<VEC>(MODE))
-    embedding_bag_kernel(const float* __restrict__ table,
+// T: float (the float32 route) or uint16_t (the bits of bf16 values, the
+// bf16 route) for the table, the mask, the counts and the output
+template <typename T, int VEC, bool MEAN, Mode MODE>
+__global__ void __launch_bounds__(kThreads, min_blocks<T, VEC>(MODE))
+    embedding_bag_kernel(const T* __restrict__ table,
                          const int* __restrict__ idx,
-                         const float* __restrict__ mask,
-                         const float* __restrict__ counts,
-                         float* __restrict__ out, long long B, int W, int D,
+                         const T* __restrict__ mask,
+                         const T* __restrict__ counts,
+                         T* __restrict__ out, long long B, int W, int D,
                          long long V, bool keep) {
   const long long bag =
       (long long)blockIdx.x * kBagsPerBlock + threadIdx.x / kWarp;
@@ -257,8 +389,8 @@ __global__ void __launch_bounds__(kThreads, min_blocks<VEC>(MODE))
   DL4J_STAMP(0);
   const uint64_t pol = l2_policy(keep);
   const int* bidx = idx + bag * W;
-  const float* bmask = mask + bag * W;
-  const float count = MEAN ? ld_once(counts + bag) : 1.f;
+  const T* bmask = mask + bag * W;
+  const float count = MEAN ? to_float(ld_once(counts + bag)) : 1.f;
   int r = 0;
   float m = 0.f;
   if constexpr (MODE != kChunks) {
@@ -270,23 +402,24 @@ __global__ void __launch_bounds__(kThreads, min_blocks<VEC>(MODE))
   // past the row's end load and store nothing
   for (int v = lane; v - lane < nvec; v += kWarp) {
     const bool live = v < nvec;
-    const float* col = table + (long long)v * VEC;
+    const T* col = table + (long long)v * VEC;
     float acc[VEC];
 #pragma unroll
     for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
     if constexpr (MODE == kChunks) {
       for (int w0 = 0; w0 < W; w0 += kWarp) {
         load_chunk(bidx, bmask, w0, W, lane, V, r, m);
-        sum_rows<VEC>(col, D, pol, live, r, m, min(kWarp, W - w0), acc);
+        sum_rows<T, VEC>(col, D, pol, live, r, m, min(kWarp, W - w0),
+                         acc);
       }
     } else {
-      sum_rows<VEC>(col, D, pol, live, r, m, W, acc);
+      sum_rows<T, VEC>(col, D, pol, live, r, m, W, acc);
     }
     DL4J_STAMP_AFTER(2, acc[0]);
     if (live) {
       if (MEAN) {
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[e] = __fdiv_rn(acc[e], count);
+        for (int e = 0; e < VEC; ++e) acc[e] = Lane<T, VEC>::div(acc[e], count);
       }
       store_out<VEC>(out + bag * D + (long long)v * VEC, acc);
     }
@@ -302,32 +435,34 @@ __global__ void __launch_bounds__(kThreads, min_blocks<VEC>(MODE))
 #endif
 }
 
-template <int VEC, Mode MODE>
-void launch(const float* table, const int* idx, const float* mask,
-            const float* counts, float* out, long long B, int W, int D,
-            long long V, bool mean, bool keep, cudaStream_t stream) {
+template <typename T, int VEC, Mode MODE>
+void launch(const T* table, const int* idx, const T* mask, const T* counts,
+            T* out, long long B, int W, int D, long long V, bool mean,
+            bool keep, cudaStream_t stream) {
   const unsigned blocks = (unsigned)((B + kBagsPerBlock - 1) / kBagsPerBlock);
   if (mean)
-    embedding_bag_kernel<VEC, true, MODE><<<blocks, kThreads, 0, stream>>>(
-        table, idx, mask, counts, out, B, W, D, V, keep);
+    embedding_bag_kernel<T, VEC, true, MODE>
+        <<<blocks, kThreads, 0, stream>>>(table, idx, mask, counts, out, B,
+                                          W, D, V, keep);
   else
-    embedding_bag_kernel<VEC, false, MODE><<<blocks, kThreads, 0, stream>>>(
-        table, idx, mask, counts, out, B, W, D, V, keep);
+    embedding_bag_kernel<T, VEC, false, MODE>
+        <<<blocks, kThreads, 0, stream>>>(table, idx, mask, counts, out, B,
+                                          W, D, V, keep);
 }
 
-template <int VEC>
-void launch_mode(const float* table, const int* idx, const float* mask,
-                 const float* counts, float* out, long long B, int W, int D,
+template <typename T, int VEC>
+void launch_mode(const T* table, const int* idx, const T* mask,
+                 const T* counts, T* out, long long B, int W, int D,
                  long long V, bool mean, bool keep, cudaStream_t stream) {
   if (W > kWarp)
-    launch<VEC, kChunks>(table, idx, mask, counts, out, B, W, D, V, mean,
-                         keep, stream);
+    launch<T, VEC, kChunks>(table, idx, mask, counts, out, B, W, D, V, mean,
+                            keep, stream);
   else if (D / VEC > kWarp)
-    launch<VEC, kPasses>(table, idx, mask, counts, out, B, W, D, V, mean,
-                         keep, stream);
+    launch<T, VEC, kPasses>(table, idx, mask, counts, out, B, W, D, V, mean,
+                            keep, stream);
   else
-    launch<VEC, kOne>(table, idx, mask, counts, out, B, W, D, V, mean, keep,
-                      stream);
+    launch<T, VEC, kOne>(table, idx, mask, counts, out, B, W, D, V, mean,
+                         keep, stream);
 }
 
 }  // namespace
@@ -353,9 +488,41 @@ int dl4j_embedding_bag(const void* table, const void* idx, const void* mask,
   const float* c = static_cast<const float*>(counts);
   float* o = static_cast<float*>(out);
   if (D % kVec == 0 && align % (4 * kVec) == 0)
-    launch_mode<kVec>(t, i, m, c, o, B, W, D, V, mean != 0, keep, st);
+    launch_mode<float, kVec>(t, i, m, c, o, B, W, D, V, mean != 0, keep, st);
   else
-    launch_mode<1>(t, i, m, c, o, B, W, D, V, mean != 0, keep, st);
+    launch_mode<float, 1>(t, i, m, c, o, B, W, D, V, mean != 0, keep, st);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 route: table [V, D], mask [B, W], counts [B] (read only when
+// mean) and out [B, D] bf16, idx [B, W] int32; all contiguous. Rows in
+// 16-byte vectors of 8 values when D % 8 == 0 and table and out are 16-byte
+// aligned, else the widest of 8, 4 or 2 bytes that D and the alignment
+// allow. Returns the launch's cudaError_t.
+int dl4j_embedding_bag_bf16(const void* table, const void* idx,
+                            const void* mask, const void* counts, void* out,
+                            long long B, int W, int D, long long V, int mean,
+                            void* stream) {
+  if (B <= 0 || D <= 0) return 0;
+  if (V <= 0 || W < 0 || B > (long long)0x7FFFFFFF * kBagsPerBlock)
+    return (int)cudaErrorInvalidValue;
+  const uintptr_t align = (uintptr_t)table | (uintptr_t)out;
+  const bool keep = V * (long long)D * 2 <= kKeepBytes;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint16_t* t = static_cast<const uint16_t*>(table);
+  const int* i = static_cast<const int*>(idx);
+  const uint16_t* m = static_cast<const uint16_t*>(mask);
+  const uint16_t* c = static_cast<const uint16_t*>(counts);
+  uint16_t* o = static_cast<uint16_t*>(out);
+  const bool md = mean != 0;
+  if (D % 8 == 0 && align % 16 == 0)
+    launch_mode<uint16_t, 8>(t, i, m, c, o, B, W, D, V, md, keep, st);
+  else if (D % 4 == 0 && align % 8 == 0)
+    launch_mode<uint16_t, 4>(t, i, m, c, o, B, W, D, V, md, keep, st);
+  else if (D % 2 == 0 && align % 4 == 0)
+    launch_mode<uint16_t, 2>(t, i, m, c, o, B, W, D, V, md, keep, st);
+  else
+    launch_mode<uint16_t, 1>(t, i, m, c, o, B, W, D, V, md, keep, st);
   return (int)cudaGetLastError();
 }
 

@@ -2,8 +2,8 @@
 
 Counterpart of ``deeplearning4j_tpu/nlp/text.py`` (the reference's
 ``TokenizerFactory``, ``DefaultTokenizer``, ``CommonPreprocessor``,
-``SentenceIterator`` SPIs), the part the Word2Vec path uses. Pure Python, on
-the host: the per-token work is trivial and never belongs on the card.
+``SentenceIterator`` SPIs and ``LabelAwareIterator``), the part the
+Word2Vec and ParagraphVectors paths use. Pure Python, on the host: the per-token work is trivial and never belongs on the card.
 """
 
 from __future__ import annotations
@@ -107,3 +107,26 @@ class LineSentenceIterator(SentenceIterator):
                 line = line.strip()
                 if line:
                     yield line
+
+
+class LabelAwareIterator(SentenceIterator):
+    """A sentence stream with a document label per sentence, for
+    ParagraphVectors; the labels default to ``DOC_<i>``."""
+
+    def __init__(self, sentences: Sequence[str],
+                 labels: Optional[Sequence[str]] = None):
+        if labels is not None and len(labels) != len(sentences):
+            raise ValueError("labels and sentences must align")
+        self._sentences = list(sentences)
+        self._labels = (list(labels) if labels is not None
+                        else [f"DOC_{i}" for i in range(len(sentences))])
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self._sentences)
+
+    def labeled(self) -> Iterator[tuple]:
+        return iter(zip(self._labels, self._sentences))
+
+    @property
+    def labels(self) -> List[str]:
+        return list(self._labels)

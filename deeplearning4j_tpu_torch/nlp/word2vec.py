@@ -1,43 +1,64 @@
-"""Word2Vec, CBOW with negative sampling, trained on the device.
+"""Word2Vec, skip-gram and CBOW, with negative sampling or hierarchical
+softmax, trained on the device.
 
 Counterpart of ``deeplearning4j_tpu/nlp/word2vec.py`` (the reference's
-``SequenceVectors`` engine and ``Word2Vec`` front), the part that the
-``word2vec-cbow`` configuration runs: the device-windowed CBOW path with
-negative sampling. The statistical procedure is the JAX package's:
-count-pruned vocabulary, frequent-word subsampling with stream compaction on
-the device, a reduced window b ~ U[1, W] per position, negatives from a
-pre-drawn pool of the unigram^0.75 table walked at a prime stride, the exact
-gradient of the mean-forward loss, and a learning rate that decays linearly
-with corpus words consumed.
+``SequenceVectors`` engine and ``Word2Vec`` front): its device-windowed
+paths. The statistical procedure is the JAX package's: count-pruned
+vocabulary, frequent-word subsampling with stream compaction on the device,
+a reduced window b ~ U[1, W] per position, negatives from a pre-drawn pool
+of the unigram^0.75 table walked at a prime stride or the words' Huffman
+paths, the exact gradient of CBOW's mean-forward loss, and a learning rate
+that decays linearly with corpus words consumed.
 
 One fit:
 
-1. the vocabulary and tables (host, numpy), the encoded corpus;
+1. the vocabulary and tables (host, numpy; the Huffman tree for
+   hierarchical softmax), the encoded corpus;
 2. the corpus uploaded once into a padded device buffer (ids and sentence
-   ids, ``[W pads][stream][pads]``), the negative pool drawn on the device;
+   ids, ``[W pads][stream][pads]``), the negative pool drawn on the device
+   (or the Huffman ``points``/``codes``/``mask`` tables uploaded), both
+   once per vocabulary;
 3. per epoch, subsampling and compaction on the device
    (:func:`_subsample`: cumsum plus a scatter into a fixed buffer; the kept
    count stays on the device);
-4. blocks of ``MAX_BLOCK_ROUNDS`` = 64 rounds (:meth:`SequenceVectors.
-   _cbow_block`), each round one :func:`ops.embeddings.cbow`, so one
-   ``embedding_bag`` kernel launch. The JAX block is one jitted ``lax.scan``;
-   here it is a Python loop that enqueues work and never waits for the
-   device: losses and pair counts stay on the device, and the learning rates
-   of every round of the fit are computed on the host up front and uploaded
-   once;
+4. blocks, each the counterpart of one jitted JAX block:
+
+   - CBOW (:meth:`SequenceVectors._cbow_block`): ``MAX_BLOCK_ROUNDS`` = 64
+     rounds over ``_cbow_centers * 64`` positions, each round one
+     :func:`ops.embeddings.cbow` (or ``cbow_hs``), so one ``embedding_bag``
+     kernel launch. The learning rates of every round of the fit are
+     computed on the host up front and uploaded once; nothing waits for the
+     device.
+   - skip-gram (:meth:`SequenceVectors._sg_pack` and ``_sg_block``): the
+     span's (center, context) pairs are derived and compacted densely into
+     a buffer of capacity C (:func:`_pack_span`), then ``ceil(count / B)``
+     rounds of B pairs train, each one :func:`ops.embeddings.skipgram` (or
+     ``skipgram_hs``). The JAX block runs a ``lax.while_loop`` to that
+     count, which exists only on the device; here the count comes to the
+     host through a non-blocking copy into pinned memory and an event, one
+     per block, and the next block's span is packed before this block's
+     rounds are enqueued, so by the time the host reads a count the card
+     has long computed it: the host never waits for the rounds. Each
+     round's learning rate is then computed on the host in float32 in the
+     JAX package's order of operations, ``lr0 + (lr1 - lr0) * (r*B) /
+     max(count, 1)``, and uploaded once per block;
 5. one readback at the end (the timed window for ``words_per_sec`` runs from
    before the corpus upload to that readback, as in the JAX package).
 
-Random draws are arguments of the math (:func:`_derive_windows` takes the
-reduced windows ``b``, :func:`_subsample` the uniforms, :func:`negpool_from_bits`
-the bits), drawn from ``torch.Generator``s on the device seeded from
-``seed``. They cannot match JAX's threefry draws; the tests hand the JAX
-package's draws to these functions instead.
+``table_dtype="bfloat16"`` keeps the tables on the device in bf16 (CBOW's
+window mean then runs the bf16 route of the ``embedding_bag`` kernel); they
+are cast back to float32 into the lookup table after the fit.
 
-Not ported here, and refused with an error rather than substituted:
-skip-gram (the JAX package's default algorithm), hierarchical softmax,
-bfloat16 tables, sharded tables (``mesh=``) and the host pair path
-(``device_corpus = False``). ROADMAP.md lists them in order.
+Random draws are arguments of the math (:func:`_derive_windows` and
+:func:`_pack_span` take the reduced windows ``b``, :func:`_subsample` the
+uniforms, :func:`negpool_from_bits` the bits), drawn from
+``torch.Generator``s on the device seeded from ``seed``. They cannot match
+JAX's threefry draws; the tests hand the JAX package's draws to these
+functions instead.
+
+Not ported here, and refused with an error rather than substituted: sharded
+tables (``mesh=``) and the host pair path (``device_corpus = False``).
+ROADMAP.md lists them.
 """
 
 from __future__ import annotations
@@ -54,8 +75,8 @@ from ..ops import embeddings as E
 from .lookup_table import InMemoryLookupTable
 from .text import (CollectionSentenceIterator, DefaultTokenizerFactory,
                    SentenceIterator, TokenizerFactory)
-from .vocab import (VocabCache, VocabConstructor, subsample_keep_probs,
-                    unigram_int_table)
+from .vocab import (VocabCache, VocabConstructor, build_huffman,
+                    huffman_arrays, subsample_keep_probs, unigram_int_table)
 
 #: sentence id of the pad slots; real ids travel modulo 65535, which keeps
 #: the boundary check exact (it compares positions at most W < 65535 apart)
@@ -66,8 +87,8 @@ _U32 = 0xFFFFFFFF
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to deeplearning4j_tpu_torch yet: this port "
-        f"trains Word2Vec as CBOW with negative sampling, float32 tables on "
-        f"one device (see ROADMAP.md, 'Still to port')")
+        f"trains on one device from the device-resident corpus (see "
+        f"ROADMAP.md, 'Modules to port')")
 
 
 class WordVectors:
@@ -136,14 +157,20 @@ class WordVectors:
 
 
 class SequenceVectors(WordVectors):
-    """The training engine behind :class:`Word2Vec`."""
+    """The training engine behind :class:`Word2Vec` and
+    :class:`~.paragraph_vectors.ParagraphVectors`."""
 
-    #: training rounds per block (the JAX package's scan length)
+    #: training rounds per CBOW block (the JAX package's scan length), and
+    #: the skip-gram block's expected rounds
     MAX_BLOCK_ROUNDS = 64
     #: the corpus buffer is padded to a multiple of this
     CORPUS_BUCKET = 1 << 16
     #: entries of the pre-drawn negative pool (int32, 32 MB)
     NEG_POOL_SIZE = 1 << 23
+    #: hierarchical softmax's cap on a round: every pair's path reaches the
+    #: Huffman root, so one round sums that many updates into its row (the
+    #: JAX package's stability cap; larger rounds reach NaN there)
+    HS_MAX_ROUND = 128
 
     def __init__(self, *, layer_size: int = 100, window: int = 5,
                  learning_rate: float = 0.025, min_learning_rate: float = 1e-4,
@@ -155,22 +182,25 @@ class SequenceVectors(WordVectors):
                  mesh=None, table_sharding_axis: str = "model",
                  special_tokens: Sequence[str] = (), device=None):
         if use_hierarchic_softmax:
-            raise _not_ported("hierarchical softmax "
-                              "(use_hierarchic_softmax=True)")
-        if negative <= 0:
+            # one output path per fit, as in the JAX package: the
+            # constructor's default of 5 negatives turns into 0, any other
+            # positive count is refused rather than dropped
+            if negative == 5:
+                negative = 0
+            elif negative > 0:
+                raise ValueError(
+                    "combined hierarchical-softmax + negative-sampling "
+                    "training is not implemented; set negative=0 with "
+                    "use_hierarchic_softmax=True (or disable HS)")
+        elif negative <= 0:
             raise ValueError("need negative sampling (negative>0) or "
                              "use_hierarchic_softmax=True")
         self.algorithm = algorithm.lower()
         if self.algorithm not in ("skipgram", "cbow"):
             raise ValueError(f"unknown algorithm {algorithm!r}")
-        if self.algorithm == "skipgram":
-            raise _not_ported("skip-gram (algorithm='skipgram', the default; "
-                              "pass algorithm='cbow')")
         if table_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"table_dtype must be float32|bfloat16, "
                              f"got {table_dtype!r}")
-        if table_dtype == "bfloat16":
-            raise _not_ported("table_dtype='bfloat16'")
         if mesh is not None:
             raise _not_ported("sharded tables (mesh=...)")
         if not 0 < window < SENT_PAD:
@@ -181,6 +211,7 @@ class SequenceVectors(WordVectors):
         self.learning_rate = learning_rate
         self.min_learning_rate = min_learning_rate
         self.negative = negative
+        self.use_hs = use_hierarchic_softmax
         self.sampling = sampling
         self.min_word_frequency = min_word_frequency
         self.iterations = iterations
@@ -199,14 +230,18 @@ class SequenceVectors(WordVectors):
         self.words_per_sec: float = 0.0
         self.pairs_per_sec: float = 0.0
         self.last_loss: float = 0.0
+        #: the first block's mean loss in the last fit
+        self.first_loss: float = 0.0
         #: device the tables were trained on in the last fit
         self.table_device: Optional[torch.device] = None
-        #: seconds of the last fit: "prepare" (tokenizing, counting,
-        #: encoding; host) and "train" (the words_per_sec window), and the
-        #: blocks it ran
+        #: the last fit: seconds of "prepare" (tokenizing, counting,
+        #: encoding; host) and "train" (the words_per_sec window), its
+        #: "blocks", the skip-gram counts read back ("readbacks") and the
+        #: host's seconds waiting for them ("readback_wait")
         self.last_fit_timing = {}
         self._corpus_dev_cache = None
         self._negpool_cache = None
+        self._hs_cache = None
         super().__init__(VocabCache(), InMemoryLookupTable(0, layer_size))
 
     # -- corpus --------------------------------------------------------------
@@ -223,28 +258,79 @@ class SequenceVectors(WordVectors):
         self.vocab = VocabConstructor(
             self.min_word_frequency,
             special_tokens=self._special_tokens).build(token_seqs)
+        if self.use_hs:
+            build_huffman(self.vocab)
         self.lookup_table = InMemoryLookupTable(
             len(self.vocab), self.layer_size, seed=self.seed)
-        self.lookup_table.reset_weights(False, True)
+        self.lookup_table.reset_weights(self.use_hs, self.negative > 0)
+
+    # -- round sizes ---------------------------------------------------------
+    @property
+    def _window_centers(self) -> int:
+        """Centers per skip-gram round, sized so that one round trains about
+        ``batch_size`` (center, context) slots."""
+        return max(1, self.batch_size // (2 * self.window))
+
+    @property
+    def _round_pairs(self) -> int:
+        """Dense pairs per skip-gram round: ``_window_centers * 2W``, capped
+        at 8 V (the scatter-add sums colliding updates, and a tiny
+        vocabulary with a big round diverges) and, under hierarchical
+        softmax, at ``HS_MAX_ROUND``; never below 2W."""
+        B = self._window_centers * 2 * self.window
+        cap = min(B, 8 * max(len(self.vocab), 1))
+        floor = max(2 * self.window, 2)
+        if self.use_hs:
+            return min(max(floor, cap), self.HS_MAX_ROUND)
+        return max(floor, cap)
+
+    @property
+    def _window_span(self) -> int:
+        """Corpus positions per skip-gram block, sized so that the expected
+        pair count (at most W + 1 per position) fills ``MAX_BLOCK_ROUNDS``
+        rounds."""
+        return max(1, (self._round_pairs * self.MAX_BLOCK_ROUNDS)
+                   // (self.window + 1))
+
+    @property
+    def _pack_capacity(self) -> int:
+        """C, the skip-gram block's pair buffer: every position realizing
+        its whole 2W window, rounded up to whole rounds, so no pair is ever
+        dropped."""
+        B = self._round_pairs
+        return -(-(self._window_span * 2 * self.window) // B) * B
 
     @property
     def _cbow_centers(self) -> int:
-        """Examples per round: ``batch_size``, capped at 8 V so that a tiny
-        vocabulary does not sum too many updates into one row per round."""
-        return max(1, min(self.batch_size, 8 * max(len(self.vocab), 1)))
+        """Examples per CBOW round: ``batch_size``, capped at 8 V so that a
+        tiny vocabulary does not sum too many updates into one row per
+        round, and at ``HS_MAX_ROUND`` under hierarchical softmax."""
+        cap = min(self.batch_size, 8 * max(len(self.vocab), 1))
+        if self.use_hs:
+            cap = min(cap, self.HS_MAX_ROUND)
+        return max(1, cap)
 
-    def _negpool(self) -> torch.Tensor:
+    # -- device tables -------------------------------------------------------
+    def _vocab_key(self):
+        counts = np.ascontiguousarray(self.vocab.counts())
+        return (len(self.vocab), hash(counts.tobytes()), str(self.device))
+
+    def _negpool(self, round_size: Optional[int] = None) -> torch.Tensor:
         """The pre-drawn negative pool on the device, drawn once per
-        vocabulary and configuration."""
-        round_negs = self._cbow_centers * self.negative
+        vocabulary and configuration. A round's ``round_size * negative``
+        window of the pool must fit in it; ``round_size`` is the examples
+        per round, by default the algorithm's own (``_cbow_centers`` for
+        CBOW, ``_round_pairs`` for skip-gram)."""
+        if round_size is None:
+            round_size = (self._cbow_centers if self.algorithm == "cbow"
+                          else self._round_pairs)
+        round_negs = round_size * self.negative
         if round_negs >= self.NEG_POOL_SIZE:
             raise ValueError(
                 f"negatives per round ({round_negs}) must be below "
                 f"NEG_POOL_SIZE={self.NEG_POOL_SIZE}; lower batch_size/"
                 "negative or raise NEG_POOL_SIZE")
-        counts = np.ascontiguousarray(self.vocab.counts())
-        key = (len(self.vocab), hash(counts.tobytes()), self.negative,
-               self.seed, str(self.device))
+        key = self._vocab_key() + (self.negative, self.seed)
         if self._negpool_cache is None or self._negpool_cache[0] != key:
             ntable = torch.from_numpy(unigram_int_table(self.vocab)).to(
                 self.device)
@@ -255,6 +341,51 @@ class SequenceVectors(WordVectors):
                                  device=self.device)
             self._negpool_cache = (key, negpool_from_bits(ntable, bits))
         return self._negpool_cache[1]
+
+    def _hs_tables(self):
+        """The Huffman ``(points, codes, mask)`` tables ``[V, L]`` on the
+        device (int32, int32, float32), uploaded once per vocabulary."""
+        key = self._vocab_key()
+        if self._hs_cache is None or self._hs_cache[0] != key:
+            codes, points, mask = huffman_arrays(self.vocab)
+            self._hs_cache = (key, tuple(
+                torch.from_numpy(a).to(self.device)
+                for a in (points, codes, mask)))
+        return self._hs_cache[1]
+
+    def _round_inputs(self, n: int):
+        """(labels, hs) for rounds of ``n`` examples: the positives-first
+        labels ``[n, 1 + K]`` for negative sampling, or the Huffman tables
+        for hierarchical softmax (the other one None)."""
+        if self.use_hs:
+            return None, self._hs_tables()
+        lab = torch.zeros((n, 1 + self.negative), dtype=torch.float32,
+                          device=self.device)
+        lab[:, 0] = 1.0
+        return lab, None
+
+    def _tables_to_device(self):
+        """syn0 and the output table (syn1 under hierarchical softmax, else
+        syn1neg) on the device, in the table dtype."""
+        tdt = (torch.bfloat16 if self.table_dtype == "bfloat16"
+               else torch.float32)
+        out = (self.lookup_table.syn1 if self.use_hs
+               else self.lookup_table.syn1neg)
+        return tuple(
+            torch.from_numpy(np.array(t, dtype=np.float32)).to(self.device,
+                                                                tdt)
+            for t in (self.lookup_table.syn0, out))
+
+    def _tables_from_device(self, syn0: torch.Tensor,
+                            syn1: torch.Tensor) -> None:
+        """The trained tables back into the lookup table, as float32."""
+        self.table_device = syn0.device
+        self.lookup_table.syn0 = syn0.float().cpu().numpy()
+        out = syn1.float().cpu().numpy()
+        if self.use_hs:
+            self.lookup_table.syn1 = out
+        else:
+            self.lookup_table.syn1neg = out
 
     def _device_corpus(self, corpus: List[np.ndarray], span: int):
         """The encoded corpus as two int32 device buffers, ids and sentence
@@ -279,11 +410,23 @@ class SequenceVectors(WordVectors):
                 torch.from_numpy(sent).to(self.device)))
         return flat, self._corpus_dev_cache[1]
 
-    # -- one block -----------------------------------------------------------
+    def _expected_stream(self, flat: np.ndarray, keep: np.ndarray):
+        """(n_exp, n_loop): the expected kept count, which paces the
+        learning rate, and the bound of the block loop, both without
+        reading the device's count back: the real count exceeds E + 6 sigma
+        with probability ~1e-9."""
+        if self.sampling <= 0:
+            return float(flat.size), flat.size
+        kf = keep[flat]
+        n_exp = float(kf.sum())
+        return n_exp, min(flat.size, int(n_exp + 6.0 * np.sqrt(
+            max(float((kf * (1.0 - kf)).sum()), 1.0)) + 1))
+
+    # -- one CBOW block ------------------------------------------------------
     def _cbow_block(self, syn0: torch.Tensor, syn1: torch.Tensor,
                     ids: torch.Tensor, sent: torch.Tensor, n_valid,
-                    negpool: torch.Tensor, p0: int, lrs: torch.Tensor,
-                    b: torch.Tensor, blk_id: int):
+                    negpool: Optional[torch.Tensor], p0: int,
+                    lrs: torch.Tensor, b: torch.Tensor, blk_id: int):
         """``MAX_BLOCK_ROUNDS`` CBOW rounds over the span of
         ``_cbow_centers * MAX_BLOCK_ROUNDS`` positions from ``p0``; updates
         ``syn0``/``syn1`` in place and returns the pair-weighted mean loss
@@ -291,31 +434,136 @@ class SequenceVectors(WordVectors):
 
         ``lrs`` [R] float32 holds each round's learning rate, ``b`` [S] the
         reduced windows, ``n_valid`` the stream length (an int or a 0-dim
-        device tensor). Nothing here waits for the device."""
-        V, K, W = len(self.vocab), self.negative, self.window
+        device tensor); ``negpool`` is None under hierarchical softmax.
+        Nothing here waits for the device."""
+        W = self.window
         B_C, R = self._cbow_centers, self.MAX_BLOCK_ROUNDS
         c_ids, ctx_all, valid, live = _derive_windows(ids, sent, n_valid, p0,
                                                       B_C * R, W, b)
         cm_all = valid.to(torch.float32)
         # the JAX block's per-round (live & window nonempty), for all rounds
         pm_all = (live & (cm_all.sum(dim=1) > 0)).to(torch.float32)
-        lab = torch.zeros((B_C, 1 + K), dtype=torch.float32,
-                          device=syn0.device)
-        lab[:, 0] = 1.0
+        losses = self._cbow_rounds(syn0, syn1, c_ids, ctx_all, cm_all, pm_all,
+                                   negpool, lrs, blk_id)
+        return self._block_result(losses, pm_all.view(R, B_C).sum(dim=1))
+
+    def _cbow_rounds(self, syn0, syn1, c_ids, ctx_all, cm_all, pm_all,
+                     negpool, lrs, blk_id: int) -> List[torch.Tensor]:
+        """The ``MAX_BLOCK_ROUNDS`` CBOW rounds (negative sampling or
+        hierarchical softmax) of ``_cbow_centers`` examples each over a
+        block's windows: centers ``c_ids`` [S], contexts ``ctx_all`` and
+        their mask ``cm_all`` [S, W'], pair mask ``pm_all`` [S]; returns
+        the rounds' losses."""
+        V, K = len(self.vocab), self.negative
+        B_C = self._cbow_centers
+        lab, hs = self._round_inputs(B_C)
         losses = []
-        for r in range(R):
+        for r in range(self.MAX_BLOCK_ROUNDS):
             sl = slice(r * B_C, (r + 1) * B_C)
             c = c_ids[sl]
+            if hs is not None:
+                points, codes, pmask = hs
+                losses.append(E.cbow_hs(syn0, syn1, ctx_all[sl], cm_all[sl],
+                                        points[c], codes[c], pmask[c],
+                                        lrs[r], pm_all[sl]))
+                continue
             negs = _pool_negs(negpool, blk_id, r, B_C, K, V, c)
             tgt = torch.cat([c[:, None], negs], dim=1)
             losses.append(E.cbow(syn0, syn1, ctx_all[sl], cm_all[sl], tgt, lab,
                                  lrs[r], pm_all[sl]))
+        return losses
+
+    def _block_result(self, losses: List[torch.Tensor], ns: torch.Tensor):
+        """A fixed-length block's counters, its pair-weighted mean loss and
+        its examples (0-dim tensors), ``ns`` the examples of each round."""
         prof = OpProfiler.get()
         prof.count("nlp/w2v_blocks")
-        prof.count("nlp/w2v_rounds", R)
-        ns = pm_all.view(R, B_C).sum(dim=1)
-        mean_loss = (torch.stack(losses) * ns).sum() / ns.sum().clamp_min(1.0)
-        return mean_loss, ns.sum()
+        prof.count("nlp/w2v_rounds", len(losses))
+        return ((torch.stack(losses) * ns).sum() / ns.sum().clamp_min(1.0),
+                ns.sum())
+
+    # -- one skip-gram block -------------------------------------------------
+    def _sg_pack(self, ids: torch.Tensor, sent: torch.Tensor, n_valid,
+                 p0: int, b: torch.Tensor):
+        """The span of ``_window_span`` positions from ``p0`` derived and
+        compacted (:func:`_pack_span`): ([C] centers, [C] contexts, the
+        count on its way to the host as a :class:`PendingCount`)."""
+        packed_c, packed_x, count = _pack_span(
+            ids, sent, n_valid, p0, self._window_span, self.window,
+            self._pack_capacity, b)
+        return packed_c, packed_x, PendingCount(count)
+
+    def _sg_block(self, syn0: torch.Tensor, syn1: torch.Tensor,
+                  packed_c: torch.Tensor, packed_x: torch.Tensor, count: int,
+                  negpool: Optional[torch.Tensor], lr0, lr1, blk_id: int):
+        """``ceil(count / B)`` dense skip-gram rounds of B = ``_round_pairs``
+        pairs over a packed span (the JAX block's ``while_loop``); updates
+        ``syn0``/``syn1`` in place and returns the pair-weighted mean loss
+        (a 0-dim device tensor) and the pairs trained (``count``).
+
+        Each round's learning rate is :func:`sg_round_rates`'s, and its pair
+        mask zeroes the slots past ``count``."""
+        B = self._round_pairs
+        rounds = -(-count // B)
+        dev = syn0.device
+        lab, hs = self._round_inputs(B)
+        lrs = torch.from_numpy(sg_round_rates(lr0, lr1, B, count)).to(dev)
+        ones = torch.ones(B, dtype=torch.float32, device=dev)
+        losses = []
+        for r in range(rounds):
+            sl = slice(r * B, (r + 1) * B)
+            live = count - r * B
+            pm = ones if live >= B else (
+                torch.arange(B, device=dev) < live).to(torch.float32)
+            losses.append(self._sg_round(syn0, syn1, packed_c[sl],
+                                         packed_x[sl], lab, hs, negpool,
+                                         lrs[r], pm, blk_id, r))
+        prof = OpProfiler.get()
+        prof.count("nlp/w2v_blocks")
+        prof.count("nlp/w2v_rounds", rounds)
+        if not rounds:
+            return torch.zeros((), dtype=torch.float32, device=dev), 0
+        ns = torch.from_numpy(np.minimum(
+            count - np.arange(rounds) * B, B).astype(np.float32)).to(dev)
+        return (torch.stack(losses) * ns).sum() / max(count, 1), count
+
+    def _sg_round(self, syn0, syn1, c, x, lab, hs, negpool, lr, pm,
+                  blk_id: int, r: int) -> torch.Tensor:
+        """One skip-gram round of centers ``c`` against contexts ``x``, by
+        negative sampling (``lab``, ``negpool``) or along the contexts'
+        Huffman paths (``hs``); returns its loss."""
+        if hs is not None:
+            points, codes, pmask = hs
+            return E.skipgram_hs(syn0, syn1, c, points[x], codes[x],
+                                 pmask[x], lr, pm)
+        negs = _pool_negs(negpool, blk_id, r, c.shape[0], self.negative,
+                          len(self.vocab), x)
+        tgt = torch.cat([x[:, None], negs], dim=1)
+        return E.skipgram(syn0, syn1, c, tgt, lab, lr, pm)
+
+    def _sg_pass(self, syn0, syn1, ids, sent, n_valid, negpool, gen,
+                 blocks, stats: "_FitStats") -> None:
+        """The skip-gram blocks of one pass over the stream, ``blocks`` a
+        list of (p0, lr0, lr1, blk_id): each block's span is packed before
+        the previous block's rounds are enqueued, so reading its count back
+        never waits for training."""
+        W, S = self.window, self._window_span
+        dev = syn0.device
+
+        def pack(p0):
+            b = torch.randint(1, W + 1, (S,), generator=gen, device=dev)
+            return self._sg_pack(ids, sent, n_valid, p0, b)
+
+        nxt = pack(blocks[0][0]) if blocks else None
+        for i, (_p0, lr0, lr1, blk_id) in enumerate(blocks):
+            packed_c, packed_x, pending = nxt
+            nxt = pack(blocks[i + 1][0]) if i + 1 < len(blocks) else None
+            t0 = time.perf_counter()
+            count = pending.get()
+            stats.readback_wait += time.perf_counter() - t0
+            stats.readbacks += 1
+            stats.add(*self._sg_block(syn0, syn1, packed_c, packed_x, count,
+                                      negpool, lr0, lr1, blk_id))
 
     # -- the fit -------------------------------------------------------------
     def _train_windowed(self, corpus: List[np.ndarray],
@@ -329,15 +577,13 @@ class SequenceVectors(WordVectors):
         if total_words is None:
             total_words = raw_words * self.epochs * self.iterations
         W, R = self.window, self.MAX_BLOCK_ROUNDS
-        span = self._cbow_centers * R
-        negpool = self._negpool()
+        is_cbow = self.algorithm == "cbow"
+        span = self._cbow_centers * R if is_cbow else self._window_span
         gen = torch.Generator(device=dev)
         gen.manual_seed(self.seed)
-        syn0 = torch.from_numpy(np.array(self.lookup_table.syn0,
-                                         dtype=np.float32)).to(dev)
-        syn1 = torch.from_numpy(np.array(self.lookup_table.syn1neg,
-                                         dtype=np.float32)).to(dev)
-        losses, pair_counts = [], []
+        syn0, syn1 = self._tables_to_device()
+        negpool = None if self.use_hs else self._negpool()
+        stats = _FitStats()
         n_blocks = 0
         t0 = time.perf_counter()
 
@@ -345,20 +591,12 @@ class SequenceVectors(WordVectors):
         n_raw = flat.size
         if self.sampling > 0:
             keep_dev = torch.from_numpy(keep.astype(np.float32)).to(dev)
-            # the expected kept count paces the learning rate and bounds the
-            # block loop without reading the device's count back: the real
-            # count exceeds E + 6 sigma with probability ~1e-9
-            kf = keep[flat]
-            n_exp = float(kf.sum())
-            n_loop = min(n_raw, int(n_exp + 6.0 * np.sqrt(
-                max(float((kf * (1.0 - kf)).sum()), 1.0)) + 1))
-        else:
-            n_exp = float(n_raw)
-            n_loop = n_raw
-        lrs_all = torch.from_numpy(lr_schedule(
-            self.learning_rate, self.min_learning_rate, self.epochs,
-            self.iterations, n_loop, span, n_exp, raw_words, total_words,
-            R)).to(dev)
+        n_exp, n_loop = self._expected_stream(flat, keep)
+        ends = lr_endpoints(self.learning_rate, self.min_learning_rate,
+                            self.epochs, self.iterations, n_loop, span, n_exp,
+                            raw_words, total_words)
+        if is_cbow:
+            lrs_all = torch.from_numpy(interpolate_rates(ends, R)).to(dev)
 
         for _epoch in range(self.epochs):
             if self.sampling > 0:
@@ -368,58 +606,147 @@ class SequenceVectors(WordVectors):
             else:
                 ids_dev, sent_dev, n_valid = ids_full, sent_full, n_raw
             for _it in range(self.iterations):
-                for p0 in range(0, n_loop, span):
+                starts = list(range(0, n_loop, span))
+                if not is_cbow:
+                    self._sg_pass(syn0, syn1, ids_dev, sent_dev, n_valid,
+                                  negpool, gen,
+                                  [(p0, *ends[n_blocks + i], n_blocks + i)
+                                   for i, p0 in enumerate(starts)], stats)
+                    n_blocks += len(starts)
+                    continue
+                for p0 in starts:
                     b = torch.randint(1, W + 1, (span,), generator=gen,
                                       device=dev)
-                    loss, n_pairs = self._cbow_block(
+                    stats.add(*self._cbow_block(
                         syn0, syn1, ids_dev, sent_dev, n_valid, negpool, p0,
-                        lrs_all[n_blocks], b, n_blocks)
+                        lrs_all[n_blocks], b, n_blocks))
                     n_blocks += 1
-                    losses.append(loss)
-                    pair_counts.append(n_pairs)
-        words_seen = raw_words * self.epochs * self.iterations
-        # the one readback: values that depend on the whole chain
-        last = (torch.stack(losses[-50:]).cpu().numpy() if losses
-                else np.zeros(1, np.float32))
-        pairs_seen = (float(torch.stack(pair_counts).sum().item())
-                      if pair_counts else 0.0)
+        self._finish_fit(stats, raw_words * self.epochs * self.iterations,
+                         t0, n_blocks, syn0, syn1)
+
+    def _finish_fit(self, stats: "_FitStats", words_seen: int, t0: float,
+                    n_blocks: int, syn0: torch.Tensor,
+                    syn1: torch.Tensor) -> None:
+        """The one readback of a fit, its rates and timing, and the tables
+        back into the lookup table."""
+        first, last, pairs_seen = stats.read()
         dt = time.perf_counter() - t0
         self.words_per_sec = words_seen / max(dt, 1e-9)
         self.pairs_per_sec = pairs_seen / max(dt, 1e-9)
-        self.last_loss = float(last.mean()) if losses else 0.0
-        self.last_fit_timing.update(train=dt, blocks=n_blocks)
-        self.table_device = syn0.device
-        self.lookup_table.syn0 = syn0.cpu().numpy()
-        self.lookup_table.syn1neg = syn1.cpu().numpy()
+        self.first_loss, self.last_loss = first, last
+        self.last_fit_timing.update(train=dt, blocks=n_blocks,
+                                    readbacks=stats.readbacks,
+                                    readback_wait=stats.readback_wait)
+        self._tables_from_device(syn0, syn1)
 
 
-def lr_schedule(learning_rate: float, min_learning_rate: float, epochs: int,
-                iterations: int, n_loop: int, span: int, n_exp: float,
-                raw_words: int, total_words: int, rounds: int) -> np.ndarray:
-    """float32 ``[blocks, rounds]``: every round's learning rate of one fit,
-    as the JAX package computes it. Each block interpolates between the
-    rates at its span's start and end, ``lr0 + (lr1 - lr0) * r / rounds``,
-    in float32; each rate decays linearly with corpus words consumed, from
-    ``learning_rate`` to the floor ``min_learning_rate``."""
+class PendingCount:
+    """A 0-dim device count on its way to the host: on the card a
+    non-blocking copy into pinned memory and an event recorded after it, so
+    that :meth:`get` waits for the count alone, not for work enqueued after
+    it; on the CPU the value itself."""
+
+    def __init__(self, count: torch.Tensor):
+        self._event = None
+        if count.is_cuda:
+            self._host = torch.empty((), dtype=count.dtype, pin_memory=True)
+            self._host.copy_(count, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = count
+
+    def get(self) -> int:
+        if self._event is not None:
+            self._event.synchronize()
+        return int(self._host)
+
+
+class _FitStats:
+    """A fit's block losses and pair counts (0-dim device tensors, or host
+    numbers for skip-gram's counts), read back once at the end, and the
+    skip-gram counts read back on the way."""
+
+    def __init__(self) -> None:
+        self.losses: List[torch.Tensor] = []
+        self.pairs_dev: List[torch.Tensor] = []
+        self.pairs_host = 0.0
+        self.readbacks = 0
+        self.readback_wait = 0.0
+
+    def add(self, loss: torch.Tensor, pairs) -> None:
+        self.losses.append(loss)
+        if torch.is_tensor(pairs):
+            self.pairs_dev.append(pairs)
+        else:
+            self.pairs_host += pairs
+
+    def read(self):
+        """(the first block's loss, the mean of the last 50 blocks' losses,
+        the pairs trained), in one readback of values that depend on the
+        whole chain."""
+        if not self.losses:
+            return 0.0, 0.0, self.pairs_host
+        tail = self.losses[-50:]
+        n = len(tail)
+        vals = torch.stack([self.losses[0]] + tail + [
+            p.to(torch.float32) for p in self.pairs_dev]).cpu().numpy()
+        return (float(vals[0]), float(vals[1:1 + n].mean()),
+                self.pairs_host + float(vals[1 + n:].sum()))
+
+
+def span_rates(learning_rate: float, min_learning_rate: float,
+               words_seen: int, p0: int, span: int, n_loop: int,
+               n_exp: float, raw_words: int, total_words: int):
+    """(lr0, lr1) float32: the learning rates at the start and the end of
+    the span ``[p0, p0 + span)`` of a pass that begins after ``words_seen``
+    corpus words, as the JAX package computes them on the host. The rate
+    decays linearly with corpus words consumed (a compacted position p maps
+    to p / n_exp of the pass's ``raw_words``), from ``learning_rate`` to the
+    floor ``min_learning_rate``."""
 
     def lr_at(frac: float) -> np.float32:
         return np.float32(max(learning_rate * (1.0 - min(frac, 1.0)),
                               min_learning_rate))
 
-    r = np.arange(rounds, dtype=np.float32)
+    return (lr_at((words_seen + p0 / max(n_exp, 1.0) * raw_words)
+                  / max(total_words, 1)),
+            lr_at((words_seen + min(p0 + span, n_loop) / max(n_exp, 1.0)
+                   * raw_words) / max(total_words, 1)))
+
+
+def lr_endpoints(learning_rate: float, min_learning_rate: float, epochs: int,
+                 iterations: int, n_loop: int, span: int, n_exp: float,
+                 raw_words: int, total_words: int) -> np.ndarray:
+    """float32 ``[blocks, 2]``: :func:`span_rates` of every block of a fit
+    whose passes (``epochs * iterations``) each run the blocks of ``span``
+    positions over ``n_loop``."""
     rows = []
-    words_seen = 0
-    for _epoch in range(epochs):
-        for _it in range(iterations):
-            for p0 in range(0, n_loop, span):
-                lr0 = lr_at((words_seen + p0 / max(n_exp, 1.0) * raw_words)
-                            / max(total_words, 1))
-                lr1 = lr_at((words_seen + min(p0 + span, n_loop)
-                             / max(n_exp, 1.0) * raw_words)
-                            / max(total_words, 1))
-                rows.append(lr0 + (lr1 - lr0) * r / np.float32(rounds))
-            words_seen += raw_words
-    return np.asarray(rows, dtype=np.float32).reshape(-1, rounds)
+    for k in range(epochs * iterations):
+        rows += [span_rates(learning_rate, min_learning_rate, k * raw_words,
+                            p0, span, n_loop, n_exp, raw_words, total_words)
+                 for p0 in range(0, n_loop, span)]
+    return np.asarray(rows, dtype=np.float32).reshape(-1, 2)
+
+
+def interpolate_rates(ends: np.ndarray, rounds: int) -> np.ndarray:
+    """float32 ``[blocks, rounds]``: ``lr0 + (lr1 - lr0) * r / rounds`` per
+    block, as a fixed-length JAX block (CBOW, ParagraphVectors) computes
+    each round's rate."""
+    r = np.arange(rounds, dtype=np.float32)
+    lr0, lr1 = ends[:, :1], ends[:, 1:]
+    return (lr0 + (lr1 - lr0) * r / np.float32(rounds)).astype(np.float32)
+
+
+def sg_round_rates(lr0, lr1, B: int, count: int) -> np.ndarray:
+    """float32 ``[ceil(count / B)]``: the skip-gram block's rate of each
+    round, ``lr0 + (lr1 - lr0) * (r*B) / max(count, 1)``, in float32 and in
+    the JAX block's order of operations."""
+    lr0, lr1 = np.float32(lr0), np.float32(lr1)
+    rounds = -(-count // B)
+    rb = (np.arange(rounds, dtype=np.int32) * np.int32(B)).astype(np.float32)
+    countf = np.float32(max(count, 1))
+    return (lr0 + (lr1 - lr0) * rb / countf).astype(np.float32)
 
 
 def negpool_from_bits(ntable: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
@@ -429,26 +756,38 @@ def negpool_from_bits(ntable: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     return ntable[(bits & (T - 1)).long()]
 
 
-def _subsample(ids: torch.Tensor, sent: torch.Tensor, keep: torch.Tensor,
-               n_full: int, u: torch.Tensor, W: int):
-    """Frequent-word subsampling and stream compaction on the device.
-
-    The stream occupies buffer slots ``[W, W + n_full)``; position i is kept
-    when ``u[i] < keep[ids[i]]``. Kept positions move, in order, to slots
-    from W on (cumsum, then a scatter into a fixed buffer); the rest of the
-    buffer gets id 0 and the pad sentence id. Returns (ids', sent', count),
-    the count a 0-dim device tensor: nothing is read back."""
+def _subsample_slots(ids: torch.Tensor, keep: torch.Tensor, n_full: int,
+                     u: torch.Tensor, W: int):
+    """Frequent-word subsampling's stream compaction on the device: the
+    stream occupies buffer slots ``[W, W + n_full)``; position i is kept
+    when ``u[i] < keep[ids[i]]``, and kept positions move, in order, to
+    slots from W on (cumsum). Returns (the destination slot of every
+    position, N for a dropped one; the kept count, a 0-dim device
+    tensor)."""
     N = ids.shape[0]
     iota = torch.arange(N, device=ids.device)
     vf = (u < keep[ids]) & (iota >= W) & (iota < W + n_full)
     dest = torch.cumsum(vf.to(torch.int32), dim=0, dtype=torch.int32) - 1
-    slot = torch.where(vf, dest + W, N).long()
-    ids_sub = torch.zeros(N + 1, dtype=ids.dtype, device=ids.device)
-    ids_sub.scatter_(0, slot, ids)
-    sent_sub = torch.full((N + 1,), SENT_PAD, dtype=sent.dtype,
-                          device=sent.device)
-    sent_sub.scatter_(0, slot, sent)
-    return ids_sub[:N], sent_sub[:N], dest[-1] + 1
+    return torch.where(vf, dest + W, N).long(), dest[-1] + 1
+
+
+def _compact(x: torch.Tensor, slot: torch.Tensor, fill: int) -> torch.Tensor:
+    """``x`` scattered into a fixed buffer of its length at ``slot``
+    (:func:`_subsample_slots`); the rest of the buffer gets ``fill``."""
+    N = x.shape[0]
+    out = torch.full((N + 1,), fill, dtype=x.dtype, device=x.device)
+    out.scatter_(0, slot, x)
+    return out[:N]
+
+
+def _subsample(ids: torch.Tensor, sent: torch.Tensor, keep: torch.Tensor,
+               n_full: int, u: torch.Tensor, W: int):
+    """Frequent-word subsampling and stream compaction on the device
+    (:func:`_subsample_slots`); the freed slots get id 0 and the pad
+    sentence id. Returns (ids', sent', count), the count a 0-dim device
+    tensor: nothing is read back."""
+    slot, count = _subsample_slots(ids, keep, n_full, u, W)
+    return _compact(ids, slot, 0), _compact(sent, slot, SENT_PAD), count
 
 
 def _derive_windows(ids: torch.Tensor, sent: torch.Tensor, n_valid, p0: int,
@@ -476,6 +815,27 @@ def _derive_windows(ids: torch.Tensor, sent: torch.Tensor, n_valid, p0: int,
             live)
 
 
+def _pack_span(ids: torch.Tensor, sent: torch.Tensor, n_valid, p0: int,
+               S: int, W: int, C: int, b: torch.Tensor):
+    """A span's skip-gram pairs derived (:func:`_derive_windows`) and
+    compacted densely, in corpus order, into buffers of capacity C: the
+    order-preserving cumsum, then a scatter of each valid (center, context)
+    slot to its rank. Returns ([C] centers, [C] contexts, count), int32, the
+    count a 0-dim device tensor (at most C). Slots past the count hold 0."""
+    c_ids, x_ids, valid, _ = _derive_windows(ids, sent, n_valid, p0, S, W, b)
+    vf = valid.reshape(-1)
+    dest = torch.cumsum(vf.to(torch.int32), dim=0, dtype=torch.int32) - 1
+    count = torch.clamp(dest[-1] + 1, max=C)
+    slot = torch.where(vf, dest, C).long()
+    packed = []
+    for src in (c_ids[:, None].expand(S, 2 * W).reshape(-1),
+                x_ids.reshape(-1)):
+        buf = torch.zeros(C + 1, dtype=torch.int32, device=ids.device)
+        buf.scatter_(0, slot, src)
+        packed.append(buf[:C])
+    return packed[0], packed[1], count
+
+
 def _pool_negs(negpool: torch.Tensor, blk_id: int, r: int, B: int, K: int,
                V: int, positives: torch.Tensor) -> torch.Tensor:
     """The [B, K] window of the pool for round ``r`` of block ``blk_id``,
@@ -489,7 +849,8 @@ def _pool_negs(negpool: torch.Tensor, blk_id: int, r: int, B: int, K: int,
 
 
 class Word2Vec(SequenceVectors):
-    """Word2Vec over a sentence corpus (CBOW with negative sampling)."""
+    """Word2Vec over a sentence corpus: skip-gram (the default) or CBOW, with
+    negative sampling or hierarchical softmax."""
 
     class Builder:
         def __init__(self) -> None:

@@ -25,20 +25,21 @@ order, so ``set_params`` with the JAX network's ``params()`` vector gives
 the same network too.
 
 ``word2vec_state_from_numpy`` carries a JAX Word2Vec's vocabulary (its words
-in index order and their counts) and its ``syn0``/``syn1neg`` tables into a
+in index order and their counts) and its ``syn0`` and output tables
+(``syn1neg`` for negative sampling, ``syn1`` for hierarchical softmax) into a
 port Word2Vec, with the same checks.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..common.dtypes import tensor_from_numpy
 from ..nlp.lookup_table import InMemoryLookupTable
-from ..nlp.vocab import VocabCache, VocabWord
+from ..nlp.vocab import VocabCache, VocabWord, build_huffman
 from ..parallel.sharding import Zero1Plan, is_flat_state
 
 NumpyTree = Mapping[str, Mapping[str, np.ndarray]]
@@ -136,12 +137,17 @@ def multilayer_state_from_numpy(net, params: Sequence[Mapping[str, np.ndarray]],
 
 
 def word2vec_state_from_numpy(w2v, words: Sequence[str], counts,
-                              syn0: np.ndarray, syn1neg: np.ndarray):
+                              syn0: np.ndarray,
+                              syn1neg: Optional[np.ndarray] = None,
+                              syn1: Optional[np.ndarray] = None):
     """Install a vocabulary (``words`` in index order, their ``counts``) and
-    the ``syn0``/``syn1neg`` tables (numpy, ``[len(words), layer_size]``
-    float32) into the port Word2Vec ``w2v`` and return it; its next ``fit``
-    resumes from them. Raises when the words repeat or the shapes, lengths
-    or dtypes do not match."""
+    the tables (numpy, ``[len(words), layer_size]`` float32) into the port
+    Word2Vec ``w2v`` and return it; its next ``fit`` resumes from them.
+    ``syn1neg`` is the negative-sampling output table (needed when
+    ``w2v.negative > 0``), ``syn1`` the hierarchical-softmax one (needed
+    when ``w2v.use_hs``; the Huffman tree is rebuilt from the counts, as
+    the JAX package builds it). Raises when the words repeat, a needed
+    table is missing, or the shapes, lengths or dtypes do not match."""
     words = [str(w) for w in words]
     counts = np.asarray(counts)
     V, D = len(words), w2v.layer_size
@@ -150,7 +156,15 @@ def word2vec_state_from_numpy(w2v, words: Sequence[str], counts,
     if counts.shape != (V,) or not np.issubdtype(counts.dtype, np.integer):
         raise ValueError(f"word2vec state: counts must be {V} integers, got "
                          f"{counts.dtype} {counts.shape}")
-    for name, a in (("syn0", syn0), ("syn1neg", syn1neg)):
+    tables = {"syn0": syn0, "syn1neg": syn1neg, "syn1": syn1}
+    for name, need in (("syn1neg", w2v.negative > 0), ("syn1", w2v.use_hs)):
+        if need and tables[name] is None:
+            raise ValueError(f"word2vec state: this model needs {name}")
+        if not need:
+            tables[name] = None
+    for name, a in tables.items():
+        if a is None:
+            continue
         a = np.asarray(a)
         if a.shape != (V, D):
             raise ValueError(f"word2vec state: {name} shape {a.shape} != "
@@ -161,8 +175,11 @@ def word2vec_state_from_numpy(w2v, words: Sequence[str], counts,
     vocab = VocabCache()
     for w, c in zip(words, counts.tolist()):
         vocab.add(VocabWord(w, int(c)))
+    if w2v.use_hs:
+        build_huffman(vocab)
     table = InMemoryLookupTable(V, D, seed=w2v.seed)
-    table.syn0 = np.array(syn0, dtype=np.float32)
-    table.syn1neg = np.array(syn1neg, dtype=np.float32)
+    for name, a in tables.items():
+        setattr(table, name, None if a is None
+                else np.array(a, dtype=np.float32))
     w2v.vocab, w2v.lookup_table = vocab, table
     return w2v

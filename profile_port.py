@@ -5,7 +5,7 @@ one encoder forward of the port spends its time, on the card.
     python3 profile_port.py          # serving forward; needs one card
     python3 profile_port.py --train  # training step (chip_smoke phase 6)
     python3 profile_port.py --mln    # VGG16 training step (phase 12)
-    python3 profile_port.py --word2vec  # one CBOW block (chip_smoke phase 8)
+    python3 profile_port.py --word2vec  # one skip-gram and one CBOW block
     python3 profile_port.py --encoder   # one encoder forward (phase 9)
     python3 profile_port.py --flash     # the bf16 flash kernel as B*H grows
     python3 profile_port.py --bag [--levers] [--timeline]  # embedding_bag
@@ -51,11 +51,16 @@ rate of 0.01 and at 0.001) against 8-bit pixels scaled to [0, 1] (why
 chip_smoke feeds the latter). The trace goes to
 ``chiprun_out/profile_port_mln_trace.json.gz``.
 
-With ``--word2vec`` it builds the word2vec-cbow model ``chip_smoke.py`` fits
-(vocabulary 10,000, layer 100, window 5, 5 negatives, 8192 examples per
-round), fits it once to make the vocabulary, tables, corpus buffers and
-negative pool, and then runs single 64-round CBOW blocks from the stream's
-start: the host time of a block (enqueue, and to completion), a
+With ``--word2vec`` it first builds bench.py's word2vec model (skip-gram,
+negative sampling; chip_smoke phase 14), fits it once and profiles one
+skip-gram block from the stream's start: the pack (derive, compact, the
+count's readback) and the ceil(count / B) rounds of 8190 pairs, with the
+same report as the CBOW block's below (trace
+``chiprun_out/profile_port_sg_trace.json.gz``). Then it builds the
+word2vec-cbow model ``chip_smoke.py`` fits (vocabulary 10,000, layer 100,
+window 5, 5 negatives, 8192 examples per round), fits it once to make the
+vocabulary, tables, corpus buffers and negative pool, and then runs single
+64-round CBOW blocks from the stream's start: the host time of a block (enqueue, and to completion), a
 ``torch.profiler`` trace of one block (device busy share of the wall, device
 operations per round, device time of the ``embedding_bag`` kernel, of the
 ``index_add_`` scatter-adds and of the rest, and of every kernel; the host's
@@ -338,14 +343,12 @@ def mln_main(dev, smi: str, name: str) -> int:
     return 0
 
 
-def word2vec_main(dev, smi: str, name: str) -> int:
+def _stream(w2v, dev, span: int):
+    """The fitted model's corpus buffers, subsampled on the card with the
+    model's seed: (ids, sentence ids, kept count, generator)."""
     from deeplearning4j_tpu_torch.nlp.vocab import subsample_keep_probs
     from deeplearning4j_tpu_torch.nlp.word2vec import _subsample
 
-    w2v = cs.bench_word2vec(dev, cs.zipf_sentences(cs.W2V_WORDS))
-    w2v.fit()
-    R, W = w2v.MAX_BLOCK_ROUNDS, w2v.window
-    span = w2v._cbow_centers * R
     corpus = w2v._encode_corpus(w2v._token_stream())
     flat, (ids, sent) = w2v._device_corpus(corpus, span)
     keep = torch.from_numpy(subsample_keep_probs(
@@ -353,17 +356,14 @@ def word2vec_main(dev, smi: str, name: str) -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(w2v.seed)
     u = torch.rand(ids.shape[0], generator=gen, device=dev)
-    ids, sent, n_valid = _subsample(ids, sent, keep, flat.size, u, W)
-    b = torch.randint(1, W + 1, (span,), generator=gen, device=dev)
-    negpool = w2v._negpool()
-    lrs = torch.full((R,), 0.0125, dtype=torch.float32, device=dev)
-    start = [torch.from_numpy(w2v.lookup_table.syn0).to(dev),
-             torch.from_numpy(w2v.lookup_table.syn1neg).to(dev)]
-    tables = [t.clone() for t in start]
+    return (*_subsample(ids, sent, keep, flat.size, u, w2v.window), gen)
 
-    def block():
-        return w2v._cbow_block(tables[0], tables[1], ids, sent, n_valid,
-                               negpool, 0, lrs, b, 0)
+
+def _block_report(label: str, block, rounds: int, smi: str, trace: str):
+    """Host enqueue and completion times of ``block`` (median of 5), a
+    torch.profiler trace of one call: device busy, operations per round,
+    the bag's and index_add_'s device time, host time per device
+    operation."""
 
     def timed_runs(n: int):
         enq, full = [], []
@@ -376,6 +376,95 @@ def word2vec_main(dev, smi: str, name: str) -> int:
             full.append((time.perf_counter() - t0) * 1e3)
         return statistics.median(enq), statistics.median(full)
 
+    block()
+    torch.cuda.synchronize()
+    enq_ms, block_ms = timed_runs(5)
+    print(f"[word2vec] {label}: host enqueue {enq_ms:.3f} ms, to completion "
+          f"{block_ms:.3f} ms, median of 5; {smi}", flush=True)
+    prof = _profile(block, 1, label, smi, trace)
+    cats = prof["device_ms_by_category"]
+    bag_ms = cats.get("embedding_bag", 0.0)
+    add_ms = cats.get("scatter-add (index_add_)", 0.0)
+    rest_ms = prof["device_ms"] - bag_ms - add_ms
+    host_per_op_us = enq_ms * 1e3 / prof["device_ops_per_call"]
+    print(f"[profile] {label}, per round: "
+          f"{prof['device_ops_per_call'] / rounds:.1f} device operations; "
+          f"embedding_bag {bag_ms / rounds * 1e3:.2f} us, index_add_ "
+          f"{add_ms / rounds * 1e3:.2f} us ({100 * add_ms / prof['device_ms']:.1f}"
+          f"% of the device time), rest {rest_ms / rounds * 1e3:.2f} us; "
+          f"host enqueue per device operation {host_per_op_us:.2f} us "
+          f"({enq_ms:.3f} ms over {prof['device_ops_per_call']:.0f} "
+          f"operations); device busy {prof['device_ms']:.3f} ms of "
+          f"{block_ms:.3f} ms; {smi}", flush=True)
+    print(f"[profile] {label}, device time by kernel (ms, launches):",
+          flush=True)
+    for k in prof["kernels"]:
+        print(f"[profile]   {k['device_ms']:8.4f} ms  "
+              f"x{k['calls_per_call']:.0f}  {k['name']}", flush=True)
+    return {"block_ms": block_ms, "block_enqueue_ms": enq_ms,
+            "rounds": rounds, "embedding_bag_ms_per_block": bag_ms,
+            "host_us_per_device_op": host_per_op_us,
+            "index_add_ms_per_block": add_ms, "rest_ms_per_block": rest_ms,
+            "index_add_share": add_ms / prof["device_ms"],
+            "device_ops_per_round": prof["device_ops_per_call"] / rounds,
+            **prof}, timed_runs
+
+
+def skipgram_block(dev, smi: str, sents) -> dict:
+    """One skip-gram block of bench.py's word2vec model from the stream's
+    start (after a fit that makes the vocabulary, tables, buffers and
+    pool): the pack (derive and compact, then the count's readback) and
+    the ceil(count / B) rounds, each profiled."""
+    w = cs.w2v_model(dev)
+    w.set_sentence_iterator(sents)
+    w.fit()
+    S = w._window_span
+    ids, sent, n_valid, gen = _stream(w, dev, S)
+    b = torch.randint(1, w.window + 1, (S,), generator=gen, device=dev)
+    negpool = w._negpool()
+    packed_c, packed_x, pending = w._sg_pack(ids, sent, n_valid, 0, b)
+    count = pending.get()
+    B = w._round_pairs
+    rounds = -(-count // B)
+    tables = [torch.from_numpy(t).to(dev) for t in (
+        w.lookup_table.syn0, w.lookup_table.syn1neg)]
+
+    def pack():
+        return w._sg_pack(ids, sent, n_valid, 0, b)[2].get()
+
+    def block():
+        return w._sg_block(tables[0], tables[1], packed_c, packed_x, count,
+                           negpool, 0.0125, 0.0124, 0)
+
+    pack_prof = _profile(pack, 3, "skip-gram pack and count readback", smi,
+                         "profile_port_sg_pack_trace.json.gz")
+    out, _ = _block_report(f"one skip-gram block ({rounds} rounds of {B} "
+                           f"pairs, {count} pairs)", block, rounds, smi,
+                           "profile_port_sg_trace.json.gz")
+    out.update(count=count, pairs_per_round=B, pack_wall_ms=pack_prof[
+        "profiled_wall_ms"], pack_device_ms=pack_prof["device_ms"])
+    return out
+
+
+def word2vec_main(dev, smi: str, name: str) -> int:
+    sents = cs.zipf_sentences(cs.W2V_WORDS)
+    sg = skipgram_block(dev, smi, sents)
+    w2v = cs.bench_word2vec(dev, sents)
+    w2v.fit()
+    R, W = w2v.MAX_BLOCK_ROUNDS, w2v.window
+    span = w2v._cbow_centers * R
+    ids, sent, n_valid, gen = _stream(w2v, dev, span)
+    b = torch.randint(1, W + 1, (span,), generator=gen, device=dev)
+    negpool = w2v._negpool()
+    lrs = torch.full((R,), 0.0125, dtype=torch.float32, device=dev)
+    start = [torch.from_numpy(w2v.lookup_table.syn0).to(dev),
+             torch.from_numpy(w2v.lookup_table.syn1neg).to(dev)]
+    tables = [t.clone() for t in start]
+
+    def block():
+        return w2v._cbow_block(tables[0], tables[1], ids, sent, n_valid,
+                               negpool, 0, lrs, b, 0)
+
     def repeat_is_bitwise():
         outs = []
         for _ in range(2):
@@ -386,32 +475,10 @@ def word2vec_main(dev, smi: str, name: str) -> int:
             outs.append([t.clone() for t in tables])
         return all(torch.equal(a, b) for a, b in zip(*outs))
 
-    block()
-    torch.cuda.synchronize()
-    enq_ms, block_ms = timed_runs(5)
-    print(f"[word2vec] one CBOW block (64 rounds of 8192): host enqueue "
-          f"{enq_ms:.3f} ms, to completion {block_ms:.3f} ms, median of 5; "
-          f"{smi}", flush=True)
-    prof = _profile(block, 1, "one CBOW block", smi,
-                    "profile_port_w2v_trace.json.gz")
-    cats = prof["device_ms_by_category"]
-    bag_ms = cats.get("embedding_bag", 0.0)
-    add_ms = cats.get("scatter-add (index_add_)", 0.0)
-    rest_ms = prof["device_ms"] - bag_ms - add_ms
-    print(f"[profile] per round: {prof['device_ops_per_call'] / R:.1f} "
-          f"device operations; embedding_bag {bag_ms / R * 1e3:.2f} us, "
-          f"index_add_ {add_ms / R * 1e3:.2f} us, rest "
-          f"{rest_ms / R * 1e3:.2f} us of device time; {smi}", flush=True)
-    host_per_op_us = enq_ms * 1e3 / prof["device_ops_per_call"]
-    print(f"[profile] host enqueue per device operation "
-          f"{host_per_op_us:.2f} us ({enq_ms:.3f} ms over "
-          f"{prof['device_ops_per_call']:.0f} operations per block); device "
-          f"busy {prof['device_ms']:.3f} ms per block; {smi}", flush=True)
-    print("[profile] device time of one block by kernel (ms, launches):",
-          flush=True)
-    for k in prof["kernels"]:
-        print(f"[profile]   {k['device_ms']:8.4f} ms  "
-              f"x{k['calls_per_call']:.0f}  {k['name']}", flush=True)
+    cbow, timed_runs = _block_report("one CBOW block (64 rounds of 8192)",
+                                     block, R, smi,
+                                     "profile_port_w2v_trace.json.gz")
+    block_ms = cbow["block_ms"]
     atomic_bitwise = repeat_is_bitwise()
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
@@ -424,15 +491,11 @@ def word2vec_main(dev, smi: str, name: str) -> int:
           f"torch.use_deterministic_algorithms bitwise {det_bitwise}, block "
           f"{det_block_ms:.3f} ms (enqueue {det_enq_ms:.3f} ms) against "
           f"{block_ms:.3f} ms; {smi}", flush=True)
-    result = {"device": name, "nvidia_smi": smi, "block_ms": block_ms,
-              "block_enqueue_ms": enq_ms, "rounds": R,
-              "embedding_bag_ms_per_block": bag_ms,
-              "host_us_per_device_op": host_per_op_us,
-              "index_add_ms_per_block": add_ms, "rest_ms_per_block": rest_ms,
-              "device_ops_per_round": prof["device_ops_per_call"] / R,
+    result = {"device": name, "nvidia_smi": smi, **cbow,
               "repeat_bitwise_atomic": atomic_bitwise,
               "repeat_bitwise_deterministic": det_bitwise,
-              "deterministic_block_ms": det_block_ms, **prof}
+              "deterministic_block_ms": det_block_ms,
+              "skipgram": {k: v for k, v in sg.items() if k != "kernels"}}
     print(json.dumps(result), flush=True)
     return 0
 

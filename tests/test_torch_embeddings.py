@@ -331,3 +331,301 @@ def test_wrapper_refuses_grad_then_device_first():
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
         temb.embedding_bag_cuda(mean=True, **args)
     assert temb.embedding_bag_launches == 0
+
+
+# --- the skip-gram and hierarchical-softmax rounds ---------------------------------
+
+def _t(*arrays):
+    return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+def _path_case(B, L, V, seed):
+    """Huffman-like paths [B, L]: inner-node points, 0/1 codes and a ragged
+    path mask (each path at least 1 long)."""
+    rng = np.random.default_rng(seed)
+    points = rng.integers(0, V, size=(B, L)).astype(np.int32)
+    codes = rng.integers(0, 2, size=(B, L)).astype(np.int32)
+    lens = rng.integers(1, L + 1, size=B)
+    mask = (np.arange(L)[None, :] < lens[:, None]).astype(np.float32)
+    return points, codes, mask
+
+
+def _sg_case(B=12, K=4, V=9, D=8, seed=5):
+    """A skip-gram round on a small vocabulary: duplicate centers and
+    targets within the round, two pairs with a zero pair mask."""
+    rng = np.random.default_rng(seed)
+    syn0 = rng.normal(scale=0.5, size=(V, D)).astype(np.float32)
+    syn1 = rng.normal(scale=0.5, size=(V, D)).astype(np.float32)
+    centers = rng.integers(0, V, size=B).astype(np.int32)
+    tgt = rng.integers(0, V, size=(B, 1 + K)).astype(np.int32)
+    lab = np.zeros((B, 1 + K), np.float32)
+    lab[:, 0] = 1.0
+    pm = np.ones(B, np.float32)
+    pm[[2, B - 1]] = 0.0
+    return syn0, syn1, centers, tgt, lab, np.float32(0.05), pm
+
+
+def _round_pair(name, args, table_dtype=np.float32):
+    """Run the round ``name`` in both packages on copies of the same numpy
+    inputs (the first two are the tables, in ``table_dtype`` where it is
+    bf16); return (port syn0, port syn1, port loss, JAX syn0, JAX syn1, JAX
+    loss) as float32 numpy."""
+    jt = [jnp.asarray(a) for a in args]
+    tt = _t(*args)
+    if table_dtype != np.float32:
+        jt[:2] = [a.astype(jnp.bfloat16) for a in jt[:2]]
+        tt[:2] = [a.to(torch.bfloat16) for a in tt[:2]]
+    tt[len(args) - 2] = torch.tensor(args[-2])          # lr, 0-dim
+    j0, j1, jl = getattr(jemb, name)(*jt)
+    tl = getattr(temb, name)(*tt)
+    return (tt[0].float().numpy(), tt[1].float().numpy(), float(tl),
+            np.asarray(j0.astype(jnp.float32)),
+            np.asarray(j1.astype(jnp.float32)), float(jl))
+
+
+def test_skipgram_round_against_jax():
+    """Duplicate rows sum (scatter-add), masked pairs contribute nothing;
+    1e-6 absolute on the tables and relative on the loss, as the CBOW
+    round."""
+    args = _sg_case()
+    assert len(np.unique(args[2])) < args[2].size
+    t0, t1, tl, j0, j1, jl = _round_pair("skipgram", args)
+    np.testing.assert_allclose(t0, j0, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(t1, j1, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(tl, jl, rtol=1e-6)
+    assert not np.array_equal(t0, args[0]) and not np.array_equal(t1, args[1])
+    untouched = np.setdiff1d(np.arange(args[0].shape[0]), args[2])
+    np.testing.assert_array_equal(t0[untouched], args[0][untouched])
+
+
+@pytest.mark.parametrize("name", ["skipgram", "skipgram_hs", "cbow_hs"])
+def test_zero_pair_mask_changes_nothing(name):
+    rng = np.random.default_rng(8)
+    B, V, D = 6, 7, 4
+    syn0 = rng.normal(size=(V, D)).astype(np.float32)
+    syn1 = rng.normal(size=(V, D)).astype(np.float32)
+    pm = np.zeros(B, np.float32)
+    if name == "skipgram":
+        rest = _sg_case(B=B, V=V, D=D, seed=9)[2:5]
+    else:
+        points, codes, mask = _path_case(B, 3, V, 10)
+        first = ([rng.integers(0, V, size=B).astype(np.int32)]
+                 if name == "skipgram_hs" else
+                 [rng.integers(0, V, size=(B, 4)).astype(np.int32),
+                  np.ones((B, 4), np.float32)])
+        rest = (*first, points, codes, mask)
+    t0, t1 = torch.from_numpy(syn0.copy()), torch.from_numpy(syn1.copy())
+    loss = getattr(temb, name)(t0, t1, *_t(*rest), torch.tensor(
+        np.float32(0.5)), torch.from_numpy(pm))
+    np.testing.assert_array_equal(t0.numpy(), syn0)
+    np.testing.assert_array_equal(t1.numpy(), syn1)
+    assert float(loss) == 0.0
+
+
+def test_skipgram_hs_round_against_jax():
+    """Paths of different lengths on a small table (duplicate inner nodes
+    and centers), labels 1 - code, the path mask on u and on grad_u."""
+    rng = np.random.default_rng(11)
+    B, L, V, D = 10, 5, 7, 6
+    syn0 = rng.normal(scale=0.5, size=(V, D)).astype(np.float32)
+    syn1 = rng.normal(scale=0.5, size=(V, D)).astype(np.float32)
+    centers = rng.integers(0, V, size=B).astype(np.int32)
+    points, codes, mask = _path_case(B, L, V, 12)
+    pm = np.ones(B, np.float32)
+    pm[3] = 0.0
+    args = (syn0, syn1, centers, points, codes, mask, np.float32(0.1), pm)
+    t0, t1, tl, j0, j1, jl = _round_pair("skipgram_hs", args)
+    np.testing.assert_allclose(t0, j0, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(t1, j1, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(tl, jl, rtol=1e-6)
+    # a point only under the masked tail of every path stays as it was
+    live = np.unique(points[mask > 0])
+    dead = np.setdiff1d(np.arange(V), live)
+    np.testing.assert_array_equal(t1[dead], syn1[dead])
+
+
+def test_cbow_hs_round_against_jax():
+    rng = np.random.default_rng(13)
+    B, W, L, V, D = 9, 6, 4, 8, 5
+    syn0 = rng.normal(scale=0.5, size=(V, D)).astype(np.float32)
+    syn1 = rng.normal(scale=0.5, size=(V, D)).astype(np.float32)
+    ctx = rng.integers(0, V, size=(B, W)).astype(np.int32)
+    cm = (rng.random((B, W)) < 0.8).astype(np.float32)
+    cm[2] = 0.0                                   # an empty window
+    points, codes, mask = _path_case(B, L, V, 14)
+    pm = np.ones(B, np.float32)
+    pm[5] = 0.0
+    args = (syn0, syn1, ctx, cm, points, codes, mask, np.float32(0.1), pm)
+    t0, t1, tl, j0, j1, jl = _round_pair("cbow_hs", args)
+    np.testing.assert_allclose(t0, j0, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(t1, j1, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(tl, jl, rtol=1e-6)
+
+
+def test_round_goldens_of_the_jax_tests():
+    """tests/test_nlp.py's hand-computed rounds (skip-gram's first update,
+    duplicate sums, the HS label sign, CBOW-HS, the logit clamp), on the
+    port."""
+    def run(name, syn0, syn1, *rest, lr=1.0):
+        s0, s1 = torch.tensor(syn0), torch.tensor(syn1)
+        loss = getattr(temb, name)(s0, s1, *_t(*rest[:-1]),
+                                   torch.tensor(np.float32(lr)),
+                                   torch.from_numpy(rest[-1]))
+        return s0.numpy(), s1.numpy(), float(loss)
+
+    s0, s1, loss = run("skipgram", np.eye(4, 3, dtype=np.float32),
+                       np.zeros((4, 3), np.float32), np.array([0], np.int32),
+                       np.array([[1, 2]], np.int32),
+                       np.array([[1.0, 0.0]], np.float32),
+                       np.ones(1, np.float32))
+    np.testing.assert_allclose(s1[1], [0.5, 0, 0], atol=1e-6)
+    np.testing.assert_allclose(s1[2], [-0.5, 0, 0], atol=1e-6)
+    np.testing.assert_allclose(s0[0], [1, 0, 0], atol=1e-6)
+    np.testing.assert_allclose(loss, -np.log(0.5), rtol=1e-5)
+    s0, _, _ = run("skipgram", np.ones((3, 2), np.float32),
+                   np.full((3, 2), 0.5, np.float32), np.array([0, 0], np.int32),
+                   np.array([[1], [1]], np.int32), np.ones((2, 1), np.float32),
+                   np.ones(2, np.float32), lr=0.1)
+    g = (1 - 1 / (1 + np.exp(-1.0))) * 0.1
+    np.testing.assert_allclose(s0[0], 1 + 2 * g * 0.5, rtol=1e-5)
+    for code, sign in ((0, 1.0), (1, -1.0)):
+        _, s1, _ = run("skipgram_hs", np.eye(2, 2, dtype=np.float32),
+                       np.zeros((2, 2), np.float32), np.array([0], np.int32),
+                       np.array([[0]], np.int32), np.array([[code]], np.int32),
+                       np.ones((1, 1), np.float32), np.ones(1, np.float32))
+        np.testing.assert_allclose(s1[0], [sign * 0.5, 0], atol=1e-6)
+    syn0 = np.array([[1, 0], [0, 1], [0, 0]], np.float32)
+    s0, s1, loss = run("cbow_hs", syn0, np.ones((3, 2), np.float32),
+                       np.array([[0, 1]], np.int32), np.ones((1, 2), np.float32),
+                       np.array([[0]], np.int32), np.array([[0]], np.int32),
+                       np.ones((1, 1), np.float32), np.ones(1, np.float32))
+    g = 1 - 1 / (1 + np.exp(-1.0))
+    np.testing.assert_allclose(s1[0], 1 + g * np.array([.5, .5]), rtol=1e-5)
+    np.testing.assert_allclose(s0[0], [1, 0] + g * np.array([1, 1]) / 2,
+                               rtol=1e-5)
+    assert np.isfinite(loss)
+    s0, _, loss = run("skipgram", np.full((2, 4), 100.0, np.float32),
+                      np.full((2, 4), 100.0, np.float32),
+                      np.array([0], np.int32), np.array([[1]], np.int32),
+                      np.zeros((1, 1), np.float32), np.ones(1, np.float32),
+                      lr=0.025)
+    assert np.isfinite(s0).all() and np.isfinite(loss)
+
+
+@pytest.mark.parametrize("name", ["skipgram", "cbow"])
+def test_bf16_table_rounds_against_jax(name):
+    """Both rounds on bf16 tables: the dot in bf16, the gradients in
+    float32, the scatter-add in bf16, as the JAX package promotes. Tables
+    within 1 bf16 ulp of their magnitude (2^-7 relative, with 2^-9 absolute
+    for values near 0): the bf16 dot rounds once in both, after sums taken
+    in different orders, and one flipped rounding moves an update by an
+    ulp; the loss within 1e-2 relative."""
+    if name == "skipgram":
+        args = _sg_case(seed=15)
+    else:
+        args = _round_case(seed=16)
+    t0, t1, tl, j0, j1, jl = _round_pair(name, args, table_dtype="bf16")
+    for t, j, start in ((t0, j0, args[0]), (t1, j1, args[1])):
+        np.testing.assert_allclose(t, j, rtol=2 ** -7, atol=2 ** -9)
+        assert not np.array_equal(t, _bf16(start))     # the round trained
+    np.testing.assert_allclose(tl, jl, rtol=1e-2)
+
+
+def _bf16(a):
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+# --- the bf16 route of the bag ----------------------------------------------------
+
+def _bf16_case(B, W, D, V=13, seed=0, fully_masked=()):
+    """A bf16 table (the float32 draws rounded), indices and a 0/1 mask."""
+    table, idx, mask = _bag_case(B, W, D, V=V, seed=seed,
+                                 fully_masked=fully_masked)
+    return (torch.from_numpy(table).to(torch.bfloat16), idx, mask)
+
+
+def _jax_bf16(table, idx, mask, mode, impl):
+    out = jemb.embedding_bag(jnp.asarray(table.float().numpy()).astype(
+        jnp.bfloat16), jnp.asarray(idx), jnp.asarray(mask), mode=mode,
+        impl=impl)
+    assert out.dtype == jnp.bfloat16
+    return np.asarray(out.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("mode", ["mean", "sum"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_bf16_embedding_bag_bitwise_against_interpret(case, mode):
+    """The plain bf16 version against the Pallas kernel in interpret mode,
+    bit for bit for 0/1 masks: both round each ``acc + row * mask`` and the
+    quotient to bf16, in W order (the product of a bf16 value and 0 or 1 is
+    exact)."""
+    B, W, D, extra = CASES[case]
+    table, idx, mask = _bf16_case(B, W, D, seed=3, **extra)
+    got = temb.embedding_bag(table, torch.from_numpy(idx),
+                             torch.from_numpy(mask), mode=mode)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  _jax_bf16(table, idx, mask, mode,
+                                            "interpret"))
+
+
+@pytest.mark.parametrize("mode", ["mean", "sum"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_bf16_embedding_bag_against_xla(case, mode):
+    """Against the JAX package's ``xla`` lowering, which sums the masked
+    bf16 rows as one reduction (XLA may carry it in float32 and round
+    once): each rounding of the sequential sum is within half a bf16 ulp
+    of its partial sum, so the two differ by at most W ulp of the largest
+    partial sum: here 2^-8 * W * max|row| (and a mean is no further)."""
+    B, W, D, extra = CASES[case]
+    table, idx, mask = _bf16_case(B, W, D, seed=4, **extra)
+    got = temb.embedding_bag(table, torch.from_numpy(idx),
+                             torch.from_numpy(mask), mode=mode)
+    bound = 2 ** -8 * W * float(table.float().abs().max())
+    np.testing.assert_allclose(got.float().numpy(),
+                               _jax_bf16(table, idx, mask, mode, "xla"),
+                               rtol=0, atol=bound)
+
+
+def test_bf16_embedding_bag_is_the_rounded_sequential_sum():
+    """The plain bf16 version rounds every product, sum and quotient to
+    bf16: a numpy loop that does so (float32 arithmetic of bf16 values,
+    then rounding) gives the same bits; float32 accumulation would not."""
+    table, idx, mask = _bf16_case(64, 11, 100, V=50, seed=6)
+    got = temb.embedding_bag(table, torch.from_numpy(idx),
+                             torch.from_numpy(mask)).float().numpy()
+
+    def rnd(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(
+            torch.bfloat16).float().numpy()
+
+    t = table.float().numpy()
+    acc = np.zeros((64, 100), np.float32)
+    for w in range(11):
+        acc = rnd(acc + rnd(t[idx[:, w]] * mask[:, w, None]))
+    counts = np.maximum(mask.sum(1, keepdims=True), 1).astype(np.float32)
+    np.testing.assert_array_equal(got, rnd(acc / counts))
+    f32 = (t[idx] * mask[..., None]).sum(1) / counts
+    assert not np.array_equal(got, f32)
+
+
+def test_wrapper_checks_take_the_bf16_route():
+    """A bf16 table with a bf16 mask and counts passes the checks; a bf16
+    table with float32 ones, or a float16 table, is refused."""
+    args = _args(table=torch.zeros(7, 5, dtype=torch.bfloat16),
+                 mask=torch.ones(4, 3, dtype=torch.bfloat16),
+                 counts=torch.full((4,), 3.0, dtype=torch.bfloat16))
+    temb._check_args(**args)
+    with pytest.raises(TypeError, match="bf16"):
+        temb._check_args(**dict(args, mask=torch.ones(4, 3)))
+    with pytest.raises(TypeError, match="bf16"):
+        temb._check_args(**dict(args, counts=torch.ones(4)))
+    with pytest.raises(TypeError):
+        temb._check_args(**dict(args, table=torch.zeros(
+            7, 5, dtype=torch.float16)))
+    with pytest.raises(ValueError):
+        temb._check_args(**dict(args, mask=torch.ones(
+            4, 2, dtype=torch.bfloat16)))
+    with pytest.raises(ValueError, match="CUDA"):
+        temb.embedding_bag_cuda(mean=True, **args)
+    assert temb.embedding_bag_bf16_launches == 0

@@ -80,6 +80,9 @@ def test_import_in_fresh_process_pulls_no_jax():
             "VocabConstructor, CollectionSentenceIterator\n"
             "from deeplearning4j_tpu_torch.nlp.word2vec import "
             "SequenceVectors\n"
+            "from deeplearning4j_tpu_torch.nlp import ParagraphVectors, "
+            "LabelAwareIterator\n"
+            "import deeplearning4j_tpu_torch.nlp.paragraph_vectors\n"
             "import deeplearning4j_tpu_torch.ops.embeddings\n"
             "from deeplearning4j_tpu_torch.nn import MultiLayerNetwork\n"
             "from deeplearning4j_tpu_torch.models import LeNet, VGG16\n"
@@ -136,6 +139,13 @@ def test_word2vec_defaults_to_the_card_and_raises_without_one():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Word2Vec.builder().elements_learning_algorithm("CBOW").build()
     assert Word2Vec(algorithm="cbow", device="cpu").device.type == "cpu"
+    from deeplearning4j_tpu_torch.nlp import ParagraphVectors
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Word2Vec()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ParagraphVectors.builder().dm(True).build()
+    assert ParagraphVectors(device="cpu").device.type == "cpu"
 
 
 def test_tf32_policy_stated_and_set():

@@ -253,6 +253,53 @@ def test_embedding_bag_kernel_refuses_what_it_does_not_take():
                                       mask, counts, True)
 
 
+def _bf16_bag_inputs(B, W, V, D, dev, seed, offset=0, masked=()):
+    """_bag_inputs rounded to bf16: the table (``offset`` elements into a
+    bf16 buffer), the mask and the counts."""
+    table, idx, mask, _ = _bag_inputs(B, W, V, D, dev, seed, masked=masked)
+    buf = torch.empty(V * D + offset, dtype=torch.bfloat16, device=dev)
+    t16 = buf[offset:].view(V, D)
+    t16.copy_(table)
+    m16 = mask.to(torch.bfloat16)
+    return t16, idx, m16, m16.float().sum(1).clamp_min(1.0).bfloat16()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mean", [True, False])
+@pytest.mark.parametrize("B,W,V,D,offset", [
+    (8192, 10, 10000, 100, 0),       # the bf16 CBOW path's shape
+    (8192, 11, 10000, 100, 0),       # PV-DM's label column
+    (33, 10, 50, 1, 0), (33, 10, 50, 3, 0), (33, 10, 50, 102, 0),
+    (33, 10, 50, 128, 0), (33, 10, 50, 128, 1), (33, 10, 50, 300, 0),
+    (33, 33, 50, 128, 0), (33, 40, 50, 256, 0), (5, 0, 50, 8, 0)])
+def test_embedding_bag_bf16_route_bitwise_against_plain_version(mean, B, W,
+                                                                V, D,
+                                                                offset):
+    """The bf16 route rounds every product, sum and quotient to bf16, as
+    PyTorch's bf16 operations in the plain version do: bitwise, at each
+    vector width (16-, 8-, 4-byte and single values)."""
+    dev = _card()
+    table, idx, mask, counts = _bf16_bag_inputs(B, W, V, D, dev, B + D,
+                                                offset, masked=(2, 4))
+    before = embeddings.embedding_bag_bf16_launches
+    got = embeddings.embedding_bag_cuda(table, idx, mask, counts, mean)
+    want = embeddings.embedding_bag_reference(table, idx, mask, counts, mean)
+    torch.cuda.synchronize()
+    assert embeddings.embedding_bag_bf16_launches == before + 1
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_embedding_bag_entry_takes_the_bf16_route_for_bf16_tables():
+    dev = _card()
+    table, idx, mask, _ = _bf16_bag_inputs(64, 6, 30, 12, dev, 5)
+    before = embeddings.embedding_bag_bf16_launches
+    got = embeddings.embedding_bag(table, idx.long(), mask, mode="mean")
+    assert embeddings.embedding_bag_bf16_launches == before + 1
+    want = embeddings.embedding_bag(table.cpu(), idx.cpu(), mask.cpu())
+    assert torch.equal(got.cpu(), want)
+
+
 def _qkv(bh, T, D, dev, seed):
     rng = np.random.default_rng(seed)
     return [torch.from_numpy((rng.normal(size=(bh, T, D)) * 0.3).astype(

@@ -1,5 +1,6 @@
-"""The port's Word2Vec (CBOW with negative sampling) against the JAX
-package, on the CPU.
+"""The port's Word2Vec (skip-gram and CBOW, negative sampling or
+hierarchical softmax, float32 or bf16 tables) against the JAX package, on
+the CPU.
 
 Corpora are made with numpy from a seed. Random draws cannot match (JAX's
 threefry against ``torch.Generator``), so every function that draws takes its
@@ -9,13 +10,20 @@ folded key), the subsampling uniforms and the negative pool's bits.
 
 Tolerances, and why:
 - vocabulary, unigram table, keep probabilities, initial syn0, window
-  derivation, pool offsets, subsampling: bitwise (the same numpy code, or
-  integer and comparison work on the same inputs).
-- one whole 64-round block: 2e-6 absolute on the tables, 1e-5 relative on
+  derivation, pool offsets, subsampling, skip-gram's packed pairs and
+  count, the round sizes, skip-gram's per-round learning rates: bitwise
+  (the same numpy code, integer and comparison work on the same inputs, or
+  the same float32 operations in the same order).
+- one whole block (CBOW with negative sampling or hierarchical softmax,
+  skip-gram with either): 2e-6 absolute on the tables, 1e-5 relative on
   the mean loss. Each round's dot products go through different matrix
   kernels, duplicate rows are summed in another order, and XLA may fuse a
-  multiply-add; the differences of 64 rounds stay at a few float32 ulp of
-  the O(1) table values.
+  multiply-add; the differences over a block's rounds stay at a few
+  float32 ulp of the O(1) table values.
+- one skip-gram block on bf16 tables: 2^-6 relative plus 2^-8 absolute,
+  90% of the elements equal (see the test: one flipped bf16 rounding is an
+  ulp, and the rounds carry it).
+- the fits: the learning gates of tests/test_nlp.py:255-310.
 - the query surface on carried-over tables: equal answers (the same numpy
   code on the same arrays).
 """
@@ -225,8 +233,8 @@ def test_negpool_from_jax_bits():
 def test_lr_schedule_is_the_jax_interpolation():
     """Every round's rate: lr_at() at the span's ends, then
     lr0 + (lr1 - lr0) * r / R in float32, as the JAX block computes it."""
-    sched = tw2v.lr_schedule(0.025, 1e-4, 2, 1, 1000, 300, 900.0, 1200,
-                             2400, 64)
+    sched = tw2v.interpolate_rates(tw2v.lr_endpoints(
+        0.025, 1e-4, 2, 1, 1000, 300, 900.0, 1200, 2400), 64)
     assert sched.shape == (8, 64) and sched.dtype == np.float32
     r = jnp.arange(64, dtype=jnp.int32)
     for blk, p0 in enumerate(list(range(0, 1000, 300)) * 2):
@@ -380,18 +388,47 @@ def test_state_carry_over_refuses_mismatches():
                                   syn.astype(np.float64))
 
 
-@pytest.mark.parametrize("kw,match", [
-    ({}, "skip-gram"),
-    ({"algorithm": "skipgram"}, "skip-gram"),
-    ({"algorithm": "cbow", "use_hierarchic_softmax": True, "negative": 0},
-     "hierarchical softmax"),
-    ({"algorithm": "cbow", "table_dtype": "bfloat16"}, "bfloat16"),
-    ({"algorithm": "cbow", "mesh": object()}, "mesh"),
-])
-def test_unported_configurations_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match) as e:
-        tw2v.Word2Vec(device="cpu", **kw)
-    assert "ROADMAP" in str(e.value)
+def _pv_docs():
+    from deeplearning4j_tpu_torch.nlp import LabelAwareIterator
+
+    return LabelAwareIterator(_cluster_corpus(40), None)
+
+
+def _host_path_pv():
+    from deeplearning4j_tpu_torch.nlp import ParagraphVectors
+
+    pv = ParagraphVectors(device="cpu")
+    pv._doc_iter = _pv_docs()
+    pv.device_corpus = False
+    pv.fit()
+
+
+def _host_path_sg():
+    w = tw2v.Word2Vec(device="cpu")
+    w.device_corpus = False
+    w.set_sentence_iterator(_cluster_corpus(50))
+    w.fit()
+
+
+@pytest.mark.parametrize("make,exc,match", [
+    (_host_path_sg, NotImplementedError, "host pair path"),
+    (_host_path_pv, NotImplementedError, "host pair path"),
+    (lambda: tw2v.Word2Vec(device="cpu", mesh=object()),
+     NotImplementedError, "mesh"),
+    (lambda: tw2v.Word2Vec(algorithm="cbow", device="cpu", mesh=object()),
+     NotImplementedError, "mesh"),
+    (lambda: tw2v.Word2Vec(device="cpu", use_hierarchic_softmax=True,
+                           negative=3), ValueError, "negative=0"),
+], ids=["skipgram-host-path", "pv-host-path", "skipgram-mesh", "cbow-mesh",
+        "hs-with-negative-3"])
+def test_unported_configurations_raise(make, exc, match):
+    """What stays unported is refused by name, pointing at ROADMAP; HS with
+    negatives other than the default 5 is refused as the JAX package
+    refuses it."""
+    with pytest.raises(exc, match=match) as e:
+        make()
+    if exc is NotImplementedError:
+        assert "ROADMAP" in str(e.value)
 
 
 def test_host_pair_path_and_bad_configurations_raise():
@@ -412,3 +449,343 @@ def test_host_pair_path_and_bad_configurations_raise():
     w.set_sentence_iterator(["a b c"])
     with pytest.raises(ValueError, match="empty vocabulary"):
         w.fit()
+
+
+# --- skip-gram, hierarchical softmax, bf16 tables -----------------------------
+
+def _prepared(sents, **kw):
+    """Both models with their vocabulary built, the encoded corpus, its
+    buffers (with room for one skip-gram span) and the stream length."""
+    j, t = _pair(sents, **kw)
+    j.build_vocab(j._token_stream())
+    t.build_vocab(t._token_stream())
+    corpus = j._encode_corpus(j._token_stream())
+    flat = np.concatenate(corpus)
+    lens = np.array([c.size for c in corpus])
+    span = (j._cbow_centers * j.MAX_BLOCK_ROUNDS
+            if j.algorithm == "cbow" else j._window_span)
+    ids, sent = _buffers(flat, lens, j.window, span)
+    return j, t, flat, ids, sent
+
+
+def _b_of(base, blk_id, S, W):
+    """The reduced windows the JAX block draws for block ``blk_id``."""
+    return np.array(jax.random.randint(jax.random.fold_in(base, blk_id),
+                                       (S,), 1, W + 1))
+
+
+@pytest.mark.parametrize("tail", [False, True])
+def test_pack_span_bitwise(tail):
+    """The order-preserving compaction of a span's pairs: the packed
+    centers, contexts and the count, bitwise, with the JAX draws of b; with
+    ``tail`` the span runs past the stream's end."""
+    rng = np.random.default_rng(21)
+    lens = rng.integers(1, 12, size=60)
+    flat = rng.integers(0, 40, size=int(lens.sum()))
+    W, S = 3, 120
+    C = -(-(S * 2 * W) // 50) * 50
+    ids, sent = _buffers(flat, lens, W, S)
+    p0 = flat.size - 40 if tail else 7
+    key = jax.random.PRNGKey(9)
+    want = jw2v._pack_span(jnp.asarray(ids), jnp.asarray(sent),
+                           np.int32(flat.size), np.int32(p0), S, W, C, key)
+    b = np.array(jax.random.randint(key, (S,), 1, W + 1))
+    got = tw2v._pack_span(torch.from_numpy(ids.astype(np.int32)),
+                          torch.from_numpy(sent.astype(np.int32)), flat.size,
+                          p0, S, W, C, torch.from_numpy(b))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    assert int(got[2]) == int(want[2]) > 0
+    assert got[2].dtype == torch.int32 and int(got[2]) < S * 2 * W
+
+
+def test_round_sizes_match_the_jax_package():
+    """B, S and C of the skip-gram block, the CBOW round with its HS cap and
+    the HS round cap, at bench.py's configuration (a 10,000-word
+    vocabulary) and on a tiny one."""
+    vocab = jvocab.VocabConstructor(1).build(
+        [[f"w{i}" for i in range(10_000)]])
+    for kw in ({}, {"use_hierarchic_softmax": True, "negative": 0},
+               {"algorithm": "cbow"},
+               {"algorithm": "cbow", "use_hierarchic_softmax": True}):
+        j = jw2v.Word2Vec(window=5, batch_size=8192, **kw)
+        t = tw2v.Word2Vec(window=5, batch_size=8192, device="cpu", **kw)
+        j.vocab = t.vocab = vocab
+        assert t._round_pairs == j._round_pairs
+        assert t._window_span == j._window_span
+        assert t._cbow_centers == j._cbow_centers
+        assert t.negative == j.negative
+    t = tw2v.Word2Vec(window=5, batch_size=8192, device="cpu")
+    t.vocab = vocab
+    assert (t._round_pairs, t._window_span, t._pack_capacity) == \
+        (8190, 87360, 876330)
+    assert t._pack_capacity // t._round_pairs == 107
+    t.vocab = jvocab.VocabConstructor(1).build([["a", "b", "c"]])
+    assert t._round_pairs == 24 and t._cbow_centers == 24
+
+
+def test_skipgram_round_rates_are_the_jax_block_rates():
+    """The host's float32 rates equal the JAX block's expression, bit for
+    bit, for counts that do and do not fill the last round."""
+    rate = jax.jit(lambda lr0, lr1, r, B, count: lr0 + (lr1 - lr0) * (
+        r * B).astype(jnp.float32) / jnp.maximum(
+        count.astype(jnp.float32), 1.0))
+    for lr0, lr1, B, count in ((0.025, 0.0243, 8190, 434_177),
+                               (0.0125, 0.0117, 128, 5_000),
+                               (0.02, 0.019, 50, 1), (0.02, 0.019, 50, 0)):
+        got = tw2v.sg_round_rates(np.float32(lr0), np.float32(lr1), B, count)
+        assert got.shape == (-(-count // B),) and got.dtype == np.float32
+        want = [float(rate(np.float32(lr0), np.float32(lr1), np.int32(r),
+                           np.int32(B), np.int32(count)))
+                for r in range(got.size)]
+        np.testing.assert_array_equal(got, np.asarray(want, np.float32))
+
+
+def _jax_hs_dev(j):
+    codes, points, mask = jvocab.huffman_arrays(j.vocab)
+    return tuple(jnp.asarray(a) for a in (points, codes, mask))
+
+
+@pytest.mark.parametrize("hs", [False, True], ids=["ns", "hs"])
+def test_one_skipgram_block_against_the_jax_block(hs):
+    """One skip-gram block of ``_make_window_block`` against the port's
+    ``_sg_pack`` + ``_sg_block`` from the same tables, with JAX's reduced
+    windows and negative pool: the same count and rounds; the loss within
+    1e-5 relative; the tables within 2e-6, as the CBOW block (the dots go
+    through different matrix kernels and XLA may fuse a multiply-add, a
+    few float32 ulp of the O(1) values over the block's rounds)."""
+    kw = ({"use_hierarchic_softmax": True, "negative": 0} if hs else {})
+    j, t, flat, ids, sent = _prepared(_cluster_corpus(300, sent_len=10,
+                                                      seed=5),
+                                      algorithm="skipgram", batch_size=60,
+                                      **kw)
+    W, S, B = j.window, j._window_span, j._round_pairs
+    assert (t._window_span, t._round_pairs) == (S, B)
+    ntable = jnp.asarray(jvocab.unigram_int_table(j.vocab))
+    block = j._make_window_block(hs_dev=_jax_hs_dev(j) if hs else None,
+                                 ntable_dev=None if hs else ntable)
+    negpool = np.array(j._win_negpool)
+    syn1_np = j.lookup_table.syn1 if hs else j.lookup_table.syn1neg
+    lr0, lr1, blk_id, p0 = np.float32(0.025), np.float32(0.021), 2, 11
+    base = jax.random.PRNGKey(j.seed)
+    s0, s1, jloss, jn = block(
+        jnp.asarray(j.lookup_table.syn0), jnp.asarray(syn1_np),
+        jnp.asarray(ids), jnp.asarray(sent), np.int32(flat.size),
+        jnp.asarray(negpool), np.int32(p0), (lr0, lr1), base,
+        np.int32(blk_id))
+    t0 = torch.from_numpy(t.lookup_table.syn0.copy())
+    t1 = torch.from_numpy((t.lookup_table.syn1 if hs
+                           else t.lookup_table.syn1neg).copy())
+    prof = OpProfiler.get()
+    rounds = prof.counter_value("nlp/w2v_rounds")
+    packed_c, packed_x, pending = t._sg_pack(
+        torch.from_numpy(ids.astype(np.int32)),
+        torch.from_numpy(sent.astype(np.int32)), flat.size, p0,
+        torch.from_numpy(_b_of(base, blk_id, S, W)))
+    count = pending.get()
+    tloss, tn = t._sg_block(t0, t1, packed_c, packed_x, count,
+                            None if hs else torch.from_numpy(negpool),
+                            lr0, lr1, blk_id)
+    assert count == tn == float(jn) and count > 40 * B
+    assert prof.counter_value("nlp/w2v_rounds") == rounds + -(-count // B)
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
+    np.testing.assert_allclose(t0.numpy(), np.asarray(s0), rtol=0, atol=2e-6)
+    np.testing.assert_allclose(t1.numpy(), np.asarray(s1), rtol=0, atol=2e-6)
+    assert np.abs(t1.numpy()).max() > 1e-3
+
+
+def test_one_cbow_hs_block_against_the_jax_block():
+    """One 64-round CBOW block with hierarchical softmax
+    (``_make_cbow_window_block`` with the Huffman tables) against the
+    port's, with JAX's reduced windows: as the NS block, 2e-6 on the
+    tables and 1e-5 relative on the loss."""
+    j, t, flat, ids, sent = _prepared(
+        _cluster_corpus(300, sent_len=8, seed=6), algorithm="cbow",
+        use_hierarchic_softmax=True, negative=0, batch_size=24)
+    W, R, B_C = j.window, j.MAX_BLOCK_ROUNDS, j._cbow_centers
+    S = B_C * R
+    assert S <= flat.size and t._cbow_centers == B_C
+    block = j._make_cbow_window_block(hs_dev=_jax_hs_dev(j))
+    lr0, lr1, blk_id, p0 = np.float32(0.025), np.float32(0.02), 1, 0
+    base = jax.random.PRNGKey(j.seed)
+    s0, s1, jloss, jn = block(
+        jnp.asarray(j.lookup_table.syn0), jnp.asarray(j.lookup_table.syn1),
+        jnp.asarray(ids), jnp.asarray(sent), np.int32(flat.size),
+        jnp.asarray(j._win_negpool), np.int32(p0), (lr0, lr1), base,
+        np.int32(blk_id))
+    lrs = lr0 + (lr1 - lr0) * np.arange(R, dtype=np.float32) / np.float32(R)
+    t0 = torch.from_numpy(t.lookup_table.syn0.copy())
+    t1 = torch.from_numpy(t.lookup_table.syn1.copy())
+    assert t.lookup_table.syn1neg is None
+    tloss, tn = t._cbow_block(
+        t0, t1, torch.from_numpy(ids.astype(np.int32)),
+        torch.from_numpy(sent.astype(np.int32)), flat.size, None, p0,
+        torch.from_numpy(lrs), torch.from_numpy(_b_of(base, blk_id, S, W)),
+        blk_id)
+    assert float(tn) == float(jn) > 0.9 * S
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
+    np.testing.assert_allclose(t0.numpy(), np.asarray(s0), rtol=0, atol=2e-6)
+    np.testing.assert_allclose(t1.numpy(), np.asarray(s1), rtol=0, atol=2e-6)
+
+
+def test_one_bf16_skipgram_block_against_the_jax_block():
+    """The skip-gram block on bf16 tables. The bf16 dot rounds once after
+    sums taken in different orders and the bf16 scatter-add rounds every
+    addition, so one flipped rounding moves an element by a bf16 ulp and
+    the rounds carry it on: the tables within 2^-6 of their magnitude
+    (2 bf16 ulp) plus 2^-8, and at least 90% of the elements equal; the
+    count exact, the loss within 1e-2 relative."""
+    j, t, flat, ids, sent = _prepared(_cluster_corpus(300, sent_len=10,
+                                                      seed=7),
+                                      algorithm="skipgram", batch_size=60,
+                                      table_dtype="bfloat16")
+    W, S = j.window, j._window_span
+    block = j._make_window_block(ntable_dev=jnp.asarray(
+        jvocab.unigram_int_table(j.vocab)))
+    negpool = np.array(j._win_negpool)
+    lr0, lr1, blk_id, p0 = np.float32(0.025), np.float32(0.021), 0, 0
+    base = jax.random.PRNGKey(j.seed)
+    s0, s1, jloss, jn = block(
+        jnp.asarray(j.lookup_table.syn0, jnp.bfloat16),
+        jnp.asarray(j.lookup_table.syn1neg, jnp.bfloat16),
+        jnp.asarray(ids), jnp.asarray(sent), np.int32(flat.size),
+        jnp.asarray(negpool), np.int32(p0), (lr0, lr1), base,
+        np.int32(blk_id))
+    t0, t1 = t._tables_to_device()
+    assert t0.dtype == t1.dtype == torch.bfloat16
+    packed_c, packed_x, pending = t._sg_pack(
+        torch.from_numpy(ids.astype(np.int32)),
+        torch.from_numpy(sent.astype(np.int32)), flat.size, p0,
+        torch.from_numpy(_b_of(base, blk_id, S, W)))
+    count = pending.get()
+    tloss, _ = t._sg_block(t0, t1, packed_c, packed_x, count,
+                           torch.from_numpy(negpool), lr0, lr1, blk_id)
+    assert count == float(jn)
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-2)
+    for got, want in ((t0, s0), (t1, s1)):
+        g = got.float().numpy()
+        w = np.asarray(want.astype(jnp.float32))
+        np.testing.assert_allclose(g, w, rtol=2 ** -6, atol=2 ** -8)
+        assert np.mean(g == w) > 0.9
+
+
+def _gates(w, margin):
+    same = _mean_sim(w, [("a0", f"a{i}") for i in range(1, 6)])
+    diff = _mean_sim(w, [("a0", f"b{i}") for i in range(5)])
+    assert same > diff + margin, (same, diff)
+    return same, diff
+
+
+@pytest.mark.parametrize("cfg,sents,margin,near", [
+    # tests/test_nlp.py::test_skipgram_ns_learns_cluster_structure
+    (dict(layer_size=32, seed=42, window=3, negative=5, epochs=3,
+          batch_size=256), 1500, 0.4, True),
+    # ::test_skipgram_bfloat16_tables_learn
+    (dict(layer_size=32, seed=42, window=3, negative=5, epochs=3,
+          batch_size=256, table_dtype="bfloat16"), 1500, 0.3, False),
+    # ::test_hierarchical_softmax_learns
+    (dict(layer_size=24, negative=0, use_hierarchic_softmax=True, epochs=3,
+          batch_size=256, seed=1), 1000, 0.4, False),
+    # ::test_cbow_hierarchical_softmax_learns
+    (dict(layer_size=24, negative=0, use_hierarchic_softmax=True,
+          algorithm="cbow", epochs=8, batch_size=256, seed=6), 1000, 0.3,
+     False),
+    # the CBOW configuration of ::test_cbow_learns on bf16 tables, gated at
+    # the bf16 test's margin
+    (dict(layer_size=24, negative=5, algorithm="cbow", epochs=10,
+          batch_size=256, seed=2, table_dtype="bfloat16"), 1000, 0.3, False),
+], ids=["skipgram-ns", "skipgram-bf16", "skipgram-hs", "cbow-hs",
+        "cbow-bf16"])
+def test_cpu_fits_learn_cluster_structure(cfg, sents, margin, near):
+    """The learning gates of tests/test_nlp.py:255-310 on the port's CPU
+    fits: skip-gram's rounds count equals the sum of ceil(count / B) over
+    its blocks, no bag kernel launches on the CPU, tables stored back as
+    float32."""
+    w = tw2v.Word2Vec(min_word_frequency=5, device="cpu", **cfg)
+    w.set_sentence_iterator(_cluster_corpus(sents))
+    counts = []
+    sg_block = w._sg_block
+
+    def recording(*a, **k):
+        counts.append(a[4])
+        return sg_block(*a, **k)
+
+    w._sg_block = recording
+    prof = OpProfiler.get()
+    rounds = prof.counter_value("nlp/w2v_rounds")
+    launches = temb.embedding_bag_launches
+    w.fit()
+    _gates(w, margin)
+    if near:
+        assert sum(n.startswith("a")
+                   for n in w.words_nearest("a0", 10)) >= 8
+    done = prof.counter_value("nlp/w2v_rounds") - rounds
+    if w.algorithm == "skipgram":
+        B = w._round_pairs
+        assert done == sum(-(-c // B) for c in counts) > 0
+        assert len(counts) == w.last_fit_timing["blocks"] \
+            == w.last_fit_timing["readbacks"]
+    else:
+        assert done == 64 * w.last_fit_timing["blocks"] and not counts
+    assert temb.embedding_bag_launches == launches
+    assert w.lookup_table.syn0.dtype == np.float32
+    assert (w.lookup_table.syn1 is not None) == w.use_hs
+    assert (w.lookup_table.syn1neg is not None) == (not w.use_hs)
+    assert np.isfinite(w.last_loss) and w.last_loss < w.first_loss
+
+
+def test_skipgram_default_resumes_and_reuses_device_state():
+    """``Word2Vec()``'s default algorithm is skip-gram with negative
+    sampling; a second fit resumes from the tables and reuses the corpus
+    buffers and the negative pool."""
+    w = tw2v.Word2Vec(min_word_frequency=5, layer_size=16, window=3,
+                      batch_size=128, sampling=1e-2, seed=3, device="cpu")
+    assert w.algorithm == "skipgram" and w.negative == 5 and not w.use_hs
+    w.set_sentence_iterator(_cluster_corpus(300))
+    w.fit()
+    first = w.lookup_table.syn0.copy()
+    pool, corpus = w._negpool_cache[1], w._corpus_dev_cache[1]
+    w.fit()
+    assert w._negpool_cache[1] is pool and w._corpus_dev_cache[1] is corpus
+    assert not np.array_equal(first, w.lookup_table.syn0)
+    assert np.isfinite(w.lookup_table.syn0).all()
+
+
+def test_hs_state_carry_over_and_resume():
+    """A JAX-trained hierarchical-softmax model (syn1, no syn1neg) carried
+    into the port answers the same queries and resumes training there."""
+    sents = _cluster_corpus(300)
+    j = jw2v.Word2Vec(min_word_frequency=5, layer_size=16, negative=0,
+                      use_hierarchic_softmax=True, epochs=1, batch_size=128,
+                      seed=4)
+    j.set_sentence_iterator(sents)
+    j.fit()
+    assert j.lookup_table.syn1neg is None
+    t = tw2v.Word2Vec(layer_size=16, use_hierarchic_softmax=True, epochs=1,
+                      batch_size=128, seed=4, device="cpu")
+    with pytest.raises(ValueError, match="syn1"):
+        word2vec_state_from_numpy(t, j.vocab.words(), j.vocab.counts(),
+                                  np.asarray(j.lookup_table.syn0))
+    word2vec_state_from_numpy(t, j.vocab.words(), j.vocab.counts(),
+                              np.asarray(j.lookup_table.syn0),
+                              syn1=np.asarray(j.lookup_table.syn1))
+    assert t.lookup_table.syn1neg is None
+    for x, y in zip(jvocab.huffman_arrays(j.vocab),
+                    tvocab.huffman_arrays(t.vocab)):
+        np.testing.assert_array_equal(x, y)
+    assert t.words_nearest("a0", 7) == j.words_nearest("a0", 7)
+    t.set_sentence_iterator(sents)
+    t.fit()
+    assert not np.array_equal(t.lookup_table.syn1,
+                              np.asarray(j.lookup_table.syn1))
+    assert np.isfinite(t.lookup_table.syn1).all()
+
+
+def test_nlp_refuses_the_unported_models_by_name():
+    import deeplearning4j_tpu_torch.nlp as tnlp
+
+    for name in ("FastText", "Glove", "DeepWalk", "read_word2vec_model"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            getattr(tnlp, name)
+    with pytest.raises(AttributeError):
+        tnlp.NoSuchThing
