@@ -166,6 +166,24 @@ Phases (each fails the run with a nonzero exit if it fails):
                and infer_vector gates of tests/test_nlp.py:426-460 on the
                card.
 
+18. samediff-bert -- bench.py --config bert (BASELINE.json configs[2]) at
+               full width and depth, nothing cut: the BERT-base frozen
+               GraphDef (hidden 768, 12 layers, 12 heads, FF 3072, vocab
+               30522, 512 positions, batch 32, T 128) written by the port
+               (imports/tf_fixtures.py, no TensorFlow), imported on the
+               card (import_frozen_tf), 199 frozen tensors of 109,187,328
+               elements promoted and a [768, 3] head grafted on; served
+               (sd.output of the pooled output, 2 warm-ups, 20 timed
+               batches: sequences/s, p50/p99) and fine-tuned through
+               SameDiff.fit on dict batches (Adam(2e-5), float32, TF32 off;
+               2 warm-ups, 10 timed steps each ended by a synchronize:
+               samples/s, step median/p10/p90, peak memory, first and last
+               loss; the loss finite and falling); every kernel count 0 on
+               this path (profile_port.py --bert breaks the step down). Then
+               the card against the CPU at full width, 2 layers, batch 2,
+               from the same bytes (SD_PARITY): the pooled output, the loss
+               and every gradient.
+
 Then it prints the kernels line (one JSON object) and, last, the device line
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
 beside it, it exits nonzero and prints no result. Weights are random, made
@@ -2760,6 +2778,258 @@ def time_mln_updates(smi: str, dev, flush):
 
 # --- main -----------------------------------------------------------------------
 
+# --- phase 18: SameDiff BERT-base (TF frozen-graph import) --------------------
+
+#: bench.py --config bert (BASELINE.json configs[2]): BERT-base imported from
+#: a frozen GraphDef, a [768, 3] head, Adam(2e-5), float32, batch 32, T 128
+SD_BATCH = 32
+SD_CLASSES = 3
+SD_SERVE_WARMUP, SD_SERVE_TIMED = 2, 20
+SD_FIT_WARMUP, SD_FIT_TIMED = 2, 10
+#: frozen tensors promoted to variables: the word, type and position tables,
+#: 16 per layer, the embedding LayerNorm's 2 and the pooler's 2 (199)
+SD_PROMOTED = 3 + 16 * BERT["layers"] + 4
+SD_HEAD = BERT["hidden"] * SD_CLASSES + SD_CLASSES
+#: the card against the CPU, float32 with TF32 off, at full width, 2 layers,
+#: batch 2 (stated before the first card run): the pooled output (tanh, in
+#: [-1, 1]) within 1e-4 absolute, the loss within 1e-4 relative, every
+#: gradient within 1e-4 of its own largest magnitude on the CPU (a float32
+#: product over K = 3072 errs by about sqrt(K) * 2^-24 = 3e-6 of its
+#: scale; two layers forward and back stay well inside 1e-4); the key
+#: projections' biases, whose gradient is zero in exact arithmetic (the
+#: softmax ignores a shift shared by a row), within 1e-6 of the largest
+#: gradient of the graph
+SD_PARITY = {"layers": 2, "batch": 2, "pooled_abs": 1e-4, "loss_rel": 1e-4,
+             "grad_rel": 1e-4, "zero_grad_rel": 1e-6}
+
+
+def _kernel_counts():
+    from deeplearning4j_tpu_torch.ops import (attention, embeddings,
+                                              epilogue, update)
+
+    return {"bn_act": epilogue.bn_act_launches,
+            "fused_update": update.fused_update_launches,
+            "embedding_bag": embeddings.embedding_bag_launches,
+            "flash_attention": attention.flash_attention_launches}
+
+
+def _reset_kernel_counts():
+    from deeplearning4j_tpu_torch.ops import (attention, embeddings,
+                                              epilogue, update)
+
+    for m in (attention, embeddings, epilogue, update):
+        m.reset_launches()
+
+
+def bert_dims(batch: int, **over):
+    """build_bert_frozen_graph's arguments at BERT-base's widths."""
+    return dict(dict(batch=batch, seq=SEQ_LEN, hidden=BERT["hidden"],
+                     layers=BERT["layers"], heads=BERT["heads"],
+                     intermediate=BERT["ff"], vocab=BERT["vocab"],
+                     max_pos=BERT["positions"]), **over)
+
+
+def bert_fine_tune_graph(sd, hidden: int, batch: int, seed: int):
+    """bench.py's _bert_training graph on an imported SameDiff: the frozen
+    weights promoted, a [hidden, 3] head (values from ``seed``, the same on
+    every device), softmax cross-entropy, Adam(2e-5). Returns the promoted
+    names."""
+    from deeplearning4j_tpu_torch.autodiff.samediff import TrainingConfig
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+
+    promoted = sd.convert_to_variables()
+    pooled = sd.get_variable(sd.tf_outputs[0])
+    rng = np.random.RandomState(seed)
+    w = sd.var("cls_w", init=(rng.normal(size=(hidden, SD_CLASSES))
+                              * np.sqrt(2.0 / (hidden + SD_CLASSES)))
+               .astype(np.float32))
+    b = sd.var("cls_b", shape=(SD_CLASSES,), init="zeros")
+    pooled.mmul(w).add(b).rename("logits")
+    sd.placeholder("labels", shape=(batch, SD_CLASSES))
+    sd.ops.softmax_cross_entropy(sd.get_variable("logits"),
+                                 sd.get_variable("labels"), name="loss")
+    sd.set_loss_variables("loss")
+    sd.set_training_config(TrainingConfig(updater=Adam(2e-5),
+                                          loss_name="loss"))
+    return promoted
+
+
+def bert_feed(names, batch: int, dev, seed: int = 0):
+    from deeplearning4j_tpu_torch.imports.tf_fixtures import make_bert_batch
+
+    ids, types, mask, y = make_bert_batch(batch, SEQ_LEN, BERT["vocab"],
+                                          SD_CLASSES, seed)
+    feed = {k: torch.from_numpy(v).to(dev)
+            for k, v in zip(names, (ids, types, mask))}
+    return feed, torch.from_numpy(y).to(dev)
+
+
+def phase_samediff_bert(smi: str, dev):
+    """bench.py --config bert through the port's entry points at full
+    width and depth: write the frozen GraphDef, import it on the card,
+    serve the pooled output, fine-tune through SameDiff.fit; then the card
+    against the CPU at 2 layers. Every kernel count is 0 on this path (its
+    attention arrives as BatchMatMul ops)."""
+    from deeplearning4j_tpu_torch.imports import import_frozen_tf
+    from deeplearning4j_tpu_torch.imports.tf_fixtures import \
+        build_bert_frozen_graph
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    data, names, n_params = build_bert_frozen_graph(**bert_dims(SD_BATCH))
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sd = import_frozen_tf(data, device=dev)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    n_bytes = len(data)
+    del data
+    promoted = bert_fine_tune_graph(sd, BERT["hidden"], SD_BATCH, SEED)
+    elems = sum(sd._vars[n].value.numel() for n in promoted)
+    want_elems = n_params - (BERT["positions"] - SEQ_LEN) * BERT["hidden"]
+    check(len(promoted) == SD_PROMOTED and elems == want_elems,
+          f"promoted {len(promoted)} tensors of {elems} elements, want "
+          f"{SD_PROMOTED} of {want_elems}")
+    check(sd.variables()[-2:] == ["cls_w", "cls_b"] and
+          sum(sd._vars[n].value.numel() for n in sd.variables()) ==
+          elems + SD_HEAD, "the head's variables")
+    check(all(sd._vars[n].value.device == dev for n in sd.variables()),
+          "variables not on the card")
+    pooled = sd.tf_outputs[0]
+    ops_fwd = len(sd._plan((pooled,)))
+    ops_loss = len(sd._plan(("loss",)))
+    log(f"[samediff-bert] BERT-base GraphDef ({BERT['layers']} layers, "
+        f"hidden {BERT['hidden']}, {BERT['heads']} heads, FF {BERT['ff']}, "
+        f"vocab {BERT['vocab']}, {BERT['positions']} positions; {n_params} "
+        f"parameters): written in {build_s:.2f} s, {n_bytes} bytes; "
+        f"imported on the card in {import_s:.2f} s; {len(promoted)} tensors "
+        f"of {elems} elements promoted, head {SD_HEAD}; {ops_fwd} graph ops "
+        f"per pooled forward, {ops_loss} to the loss")
+
+    feed, labels = bert_feed(names, SD_BATCH, dev)
+    _reset_kernel_counts()
+    # serving: the pooled output at batch 32
+    for _ in range(SD_SERVE_WARMUP):
+        sd.output(feed, [pooled])
+    torch.cuda.synchronize()
+    serve_ms, outs = [], None
+    for _ in range(SD_SERVE_TIMED):
+        t0 = time.perf_counter()
+        outs = sd.output(feed, [pooled])[pooled]
+        torch.cuda.synchronize()
+        serve_ms.append((time.perf_counter() - t0) * 1e3)
+    check(tuple(outs.shape) == (SD_BATCH, BERT["hidden"]) and
+          bool(torch.isfinite(outs).all()), "pooled output shape or values")
+    serve = {"sequences_per_s": SD_BATCH * len(serve_ms) / sum(serve_ms)
+             * 1e3, "p50_ms": _percentile(serve_ms, 0.5),
+             "p99_ms": _percentile(serve_ms, 0.99)}
+    log(f"[samediff-bert] serve sd.output(pooled), float32, batch "
+        f"{SD_BATCH}, T {SEQ_LEN}: {serve['sequences_per_s']:.2f} "
+        f"sequences/s, latency p50 {serve['p50_ms']:.3f} ms p99 "
+        f"{serve['p99_ms']:.3f} ms ({SD_SERVE_TIMED} batches after "
+        f"{SD_SERVE_WARMUP} warm-ups); {smi}")
+
+    # fine-tune: SameDiff.fit on dict batches
+    batch = dict(feed, labels=labels)
+    losses = []
+    for _ in range(SD_FIT_WARMUP):
+        losses.append(sd.fit(batch).final_loss())
+        torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(SD_FIT_TIMED):
+        t0 = time.perf_counter()
+        hist = sd.fit(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(hist.final_loss())
+    peak = torch.cuda.max_memory_allocated()
+    counts = _kernel_counts()
+    check(all(np.isfinite(losses)), f"non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(sd._iteration == SD_FIT_WARMUP + SD_FIT_TIMED, "iterations")
+    ms = [t * 1e3 for t in times]
+    fit = {"samples_per_s": SD_BATCH * len(times) / sum(times),
+           **_ms_stats(ms), "peak_bytes": peak, "first_loss": losses[0],
+           "last_loss": losses[-1], "losses": losses}
+    log(f"[samediff-bert] fine-tune SameDiff.fit, Adam(2e-5), float32 "
+        f"(TF32 off), batch {SD_BATCH}, T {SEQ_LEN}, "
+        f"{len(sd.variables())} variables: {fit['samples_per_s']:.2f} "
+        f"samples/s, step ms median {fit['step_ms_median']:.2f} p10 "
+        f"{fit['step_ms_p10']:.2f} p90 {fit['step_ms_p90']:.2f} "
+        f"({SD_FIT_TIMED} steps after {SD_FIT_WARMUP} warm-ups); peak "
+        f"device memory {peak} B; loss {losses[0]:.6f} -> {losses[-1]:.6f}; "
+        f"{smi}")
+    log(f"[samediff-bert] losses {losses}")
+    log(f"[samediff-bert] kernel launches on this path (serving and fit): "
+        f"{counts}")
+    del sd, feed, labels, batch, outs
+    torch.cuda.empty_cache()
+    parity = samediff_bert_parity(dev)
+    seconds = time.perf_counter() - t_phase
+    log(f"[samediff-bert] phase {seconds:.1f} s")
+    return {"graph_bytes": n_bytes, "build_s": build_s, "import_s": import_s,
+            "promoted": len(promoted), "promoted_elements": elems,
+            "ops_per_forward": ops_fwd, "ops_to_loss": ops_loss,
+            "serve": serve, "fit": fit, "launches": counts,
+            "parity": parity, "seconds": seconds}
+
+
+def samediff_bert_parity(dev):
+    """The fine-tune graph at full width, 2 layers, batch 2, float32 with
+    TF32 off, from the same bytes on the card and on the CPU: the pooled
+    output, the loss, and every gradient (SD_PARITY)."""
+    from deeplearning4j_tpu_torch.common.environment import Environment
+    from deeplearning4j_tpu_torch.imports import import_frozen_tf
+    from deeplearning4j_tpu_torch.imports.tf_fixtures import \
+        build_bert_frozen_graph
+
+    Environment.get().set_tf32(False)
+    L, B = SD_PARITY["layers"], SD_PARITY["batch"]
+    data, names, _ = build_bert_frozen_graph(**bert_dims(B, layers=L))
+    res = []
+    for where in (dev, torch.device("cpu")):
+        sd = import_frozen_tf(data, device=where)
+        bert_fine_tune_graph(sd, BERT["hidden"], B, SEED)
+        feed, labels = bert_feed(names, B, where, seed=7)
+        batch = dict(feed, labels=labels)
+        out = sd.output(batch, [sd.tf_outputs[0], "loss"])
+        grads = sd.calculate_gradients(batch, "loss")
+        res.append(({k: v.float().cpu() for k, v in out.items()},
+                    {k: v.cpu() for k, v in grads.items()}))
+        del sd
+    (co, cg), (ho, hg) = res
+    pooled = next(k for k in co if k != "loss")
+    p_err = (co[pooled] - ho[pooled]).abs().max().item()
+    l_rel = abs(co["loss"].item() - ho["loss"].item()) / abs(ho["loss"].item())
+    top = max(g.abs().max().item() for g in hg.values())
+    key_biases = {f"add_{5 + 14 * i}/y_0" for i in range(L)}
+    worst, worst_name, worst_zero = 0.0, None, 0.0
+    for n, g in hg.items():
+        err = (cg[n] - g).abs().max().item()
+        if n in key_biases:
+            worst_zero = max(worst_zero, err / top)
+            continue
+        rel = err / g.abs().max().item()
+        if rel > worst:
+            worst, worst_name = rel, n
+    check(p_err <= SD_PARITY["pooled_abs"], f"pooled card vs CPU {p_err}")
+    check(l_rel <= SD_PARITY["loss_rel"], f"loss card vs CPU {l_rel}")
+    check(worst <= SD_PARITY["grad_rel"], f"gradient {worst_name} card vs "
+          f"CPU {worst} of its largest magnitude")
+    check(worst_zero <= SD_PARITY["zero_grad_rel"], f"key-bias gradients "
+          f"card vs CPU {worst_zero} of the largest gradient")
+    log(f"[samediff-bert] card vs CPU, float32, TF32 off, full width, {L} "
+        f"layers, batch {B}: pooled max abs err {p_err} (<= 1e-4), loss rel "
+        f"err {l_rel} (<= 1e-4), {len(hg)} gradients: worst {worst} of its "
+        f"largest magnitude ({worst_name}; <= 1e-4), key biases {worst_zero} "
+        f"of the largest gradient (<= 1e-6)")
+    return {"pooled_max_abs_err": p_err, "loss_rel_err": l_rel,
+            "grad_worst_rel": worst, "grad_worst": worst_name,
+            "key_bias_rel": worst_zero, "gradients": len(hg)}
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
@@ -2811,6 +3081,7 @@ def main(argv=None) -> int:
         cbow16 = phase_cbow_bf16(smi, dev, sents)
         pv = phase_paragraph_vectors(smi, dev, sents)
         del sents
+        bert = phase_samediff_bert(smi, dev)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -2827,7 +3098,8 @@ def main(argv=None) -> int:
         "library_ms": None, "unfused_ms": bf["unfused_ms"],
         "f32": {k: f32[k] for k in ("ms", "plain_ms", "unfused_ms",
                                     "bound_ms")},
-        "batches": batches})
+        "batches": batches,
+        "launches_samediff_bert": bert["launches"]["bn_act"]})
     nb, ad = upd_timing["nesterovs_bf16"], upd_timing["adam_f32"]
     kernels.append({
         "name": "fused_update", "route": "cuda", "source": update.SOURCE,
@@ -2849,7 +3121,8 @@ def main(argv=None) -> int:
                                         "bound_ms", "library_ms")},
         "mln": {"lenet": dict(mln_upd["lenet"],
                               launches=lenet["fused"]["launches"]),
-                "vgg16": dict(mln_upd["vgg16"], launches=vgg["launches"])}})
+                "vgg16": dict(mln_upd["vgg16"], launches=vgg["launches"])},
+        "launches_samediff_bert": bert["launches"]["fused_update"]})
     bp = bag_timing["path"]
     kernels.append({
         "name": "embedding_bag", "route": "cuda",
@@ -2866,7 +3139,8 @@ def main(argv=None) -> int:
             "word2vec_cbow": w2v["launches"],
             "cbow_hs": hs["cbow"]["launches"],
             "cbow_bf16": cbow16["fit"]["launches"],
-            "pv_dm": pv["dm"]["launches"]},
+            "pv_dm": pv["dm"]["launches"],
+            "samediff_bert": bert["launches"]["embedding_bag"]},
         **{name: {k: bag_timing[name][k] for k in (
             "shape", "indices", "ms", "ms_warm", "plain_ms", "library_ms",
             "unfused_ms", "bound_ms", "bytes", "bytes_no_reuse")}
@@ -2895,6 +3169,7 @@ def main(argv=None) -> int:
         "bound_by": bp["bound_by"], "library_ms": bp["library_ms"],
         "unfused_ms": bp["unfused_ms"], "host_us": fa16["host_us"],
         "masked_launches": masked["launches"],
+        "launches_samediff_bert": bert["launches"]["flash_attention"],
         **{name: {k: fa16[name][k] for k in keys}
            for name in ("path_contiguous", "long_strided",
                         "long_contiguous")}})
@@ -2905,6 +3180,7 @@ def main(argv=None) -> int:
         "launches": f32_launches, "max_abs_err": fa_err,
         "bitwise_share": fa_timing["bitwise_share"],
         "grad_max_abs_err": fa_grad_err, "shape": fp["shape"],
+        "launches_samediff_bert": bert["launches"]["flash_attention"],
         "dtype": "float32", "ms": fp["ms"], "plain_ms": fp["plain_ms"],
         "bound_ms": fp["bound_ms"], "bound_by": fp["bound_by"],
         "library_ms": fp["library_ms"], "unfused_ms": fp["unfused_ms"],
@@ -2917,7 +3193,9 @@ def main(argv=None) -> int:
                       "word2vec_cbow": w2v, "encoder": enc, "lenet": lenet,
                       "vgg16": vgg, "masked": masked, "skipgram": sg,
                       "word2vec_hs": hs, "cbow_bf16": cbow16,
-                      "paragraph_vectors": pv}), flush=True)
+                      "paragraph_vectors": pv,
+                      "samediff_bert": {k: v for k, v in bert.items()
+                                        if k != "launches"}}), flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -17,8 +17,16 @@ Entry points run on the card unless the caller asks for the CPU
 
 Layer map (ported so far; see ROADMAP.md for what follows):
   common/    environment (device + TF32 policy), dtype table, counters
-  ops/       conv2d, pooling, inference and training batchnorm, the fused
-             BN epilogue, the fused flat-bucket weight update, the
+  imports/   TF frozen-GraphDef import into SameDiff (the 21 TF ops of a
+             frozen BERT encoder), a protobuf wire-format GraphDef reader
+             and writer (no TensorFlow, no protobuf), the BERT GraphDef
+             writer that bench.py --config bert imports
+  autodiff/  SameDiff: graphs of registered ops walked eagerly on the
+             device, autograd gradients, fit with the port's updaters
+  ops/       the op registry (the 20 ops the imported BERT graph and its
+             fine-tune head reach; the rest of the JAX registry raises by
+             name), conv2d, pooling, inference and training batchnorm, the
+             fused BN epilogue, the fused flat-bucket weight update, the
              embedding bag and the CBOW round
   csrc/      hand-written CUDA kernels (bn_act, fused_update, embedding_bag)
   nn/        activations, weight init, losses, layer configs (dropout,
@@ -35,7 +43,7 @@ Layer map (ported so far; see ROADMAP.md for what follows):
   parallel/  ParallelInference (the request micro-batcher), the flat
              bucket layout (Zero1Plan)
   util/      weight, updater-state and Word2Vec carry-over from the JAX
-             package (graphs and multilayer networks)
+             package (graphs, multilayer networks and SameDiff graphs)
 """
 
 from .common.dtypes import DataType

@@ -8,6 +8,7 @@ Counterpart of ``deeplearning4j_tpu/common/dtypes.py``. The canonical names
 from __future__ import annotations
 
 import enum
+import warnings
 
 import numpy as np
 import torch
@@ -61,13 +62,22 @@ def dtype_name(dtype: torch.dtype) -> str:
 
 
 def tensor_from_numpy(a: np.ndarray, device=None) -> torch.Tensor:
-    """numpy → torch, including ``ml_dtypes.bfloat16`` arrays (which torch
-    cannot read directly: they are reinterpreted through uint16)."""
-    a = np.ascontiguousarray(a)
-    if not a.flags.writeable:
+    """numpy → torch (on ``device`` when given), including
+    ``ml_dtypes.bfloat16`` arrays (which torch cannot read directly: they
+    are reinterpreted through uint16). A 0-d array stays 0-d. Read-only
+    memory (e.g. a view of a graph's bytes) is copied once: into a CPU
+    tensor of its own, or straight to the card."""
+    a = np.asarray(a)
+    if not a.flags.c_contiguous:
+        a = np.ascontiguousarray(a)
+    on_cpu = device is None or torch.device(device).type == "cpu"
+    if not a.flags.writeable and on_cpu:
         a = a.copy()      # torch tensors over read-only memory are unsafe
-    if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(a)
+    bf16 = a.dtype.name == "bfloat16"
+    with warnings.catch_warnings():
+        # read-only memory bound for the card: the copy there only reads it
+        warnings.simplefilter("ignore", UserWarning)
+        t = torch.from_numpy(a.view(np.uint16) if bf16 else a)
+    if bf16:
+        t = t.view(torch.bfloat16)
     return t.to(device) if device is not None else t

@@ -1,2 +1,3 @@
 from .convert import (graph_state_from_numpy, multilayer_state_from_numpy,
-                      updater_state_from_numpy, word2vec_state_from_numpy)
+                      samediff_state_from_numpy, updater_state_from_numpy,
+                      word2vec_state_from_numpy)

@@ -24,6 +24,10 @@ list (``{"v": [{...}, ...]}``) or is flat. The port network keys its layers
 order, so ``set_params`` with the JAX network's ``params()`` vector gives
 the same network too.
 
+``samediff_state_from_numpy`` carries a JAX SameDiff's variable values
+(``{name: ndarray}``) and its updater state into a port SameDiff, checked
+against the port graph's own variables.
+
 ``word2vec_state_from_numpy`` carries a JAX Word2Vec's vocabulary (its words
 in index order and their counts) and its ``syn0`` and output tables
 (``syn1neg`` for negative sampling, ``syn1`` for hierarchical softmax) into a
@@ -183,3 +187,34 @@ def word2vec_state_from_numpy(w2v, words: Sequence[str], counts,
                 else np.array(a, dtype=np.float32))
     w2v.vocab, w2v.lookup_table = vocab, table
     return w2v
+
+
+def samediff_state_from_numpy(sd, params: Mapping[str, np.ndarray],
+                              updater_state=None):
+    """Install a JAX SameDiff's trainable values (``{name: ndarray}``, e.g.
+    ``jax.device_get(jax_sd._params())``) and, when given, its updater
+    state (``{slot: {name: ndarray}}``, e.g. Adam's ``{"m": ..., "v":
+    ...}``) into the port SameDiff ``sd``, on ``sd.device``; returns
+    ``sd``. The names must be ``sd.variables()`` exactly, with the same
+    shapes and dtypes, and the slots those ``sd``'s training config's
+    updater makes, or it raises."""
+    from ..autodiff.samediff import TREE
+
+    want = {n: sd._vars[n].value for n in sd.variables()}
+    values = _checked_copy("samediff params", {TREE: params}, {TREE: want},
+                           sd.device)[TREE]
+    if updater_state is not None:
+        if sd._training_config is None:
+            raise ValueError("samediff updater state: call "
+                             "set_training_config first")
+        ref = sd._training_config.updater.init({TREE: want})
+        state = dict(updater_state)
+        if set(state) != set(ref):
+            raise ValueError(f"samediff updater state: slots {sorted(state)}"
+                             f" != {sorted(ref)}")
+        sd._updater_state = {k: _checked_copy(
+            f"samediff updater_state[{k!r}]", {TREE: state[k]}, ref[k],
+            sd.device) for k in ref}
+    for n, t in values.items():
+        sd._vars[n].value = t
+    return sd

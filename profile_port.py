@@ -8,6 +8,7 @@ one encoder forward of the port spends its time, on the card.
     python3 profile_port.py --word2vec  # one skip-gram and one CBOW block
     python3 profile_port.py --encoder   # one encoder forward (phase 9)
     python3 profile_port.py --flash     # the bf16 flash kernel as B*H grows
+    python3 profile_port.py --bert      # one SameDiff BERT-base step
     python3 profile_port.py --bag [--levers] [--timeline]  # embedding_bag
     python3 profile_port.py --package DIR --bag  # DIR's port, this code
     python3 profile_port.py --bag-build "-DDL4J_BAG_STREAM=1" --word2vec
@@ -89,6 +90,19 @@ host time per launch, plain version, F.embedding_bag and the bound. With
 design's levers undone or pushed, one -D option each) computes it, and with
 ``--timeline`` the warp timeline of a build stamped with %globaltimer.
 
+With ``--bert`` it imports the BERT-base frozen graph ``chip_smoke.py``
+phase 18 fine-tunes (``bench.py --config bert``: batch 32, T 128, float32,
+TF32 off, Adam(2e-5), the [768, 3] head) and profiles one serving forward
+of the pooled output and one fine-tune step (the step ``SameDiff.fit``
+runs: forward and backward by autograd over the graph walk, then the
+per-leaf Adam), each after warm-ups: the host's enqueue time, the wall to
+completion, device busy share, device time by class (GEMM, elementwise,
+reductions, softmax, the embedding gather and its backward scatter-add,
+copies), launches per call and host time per launch; then the per-leaf
+Adam alone (its kernels, launches and device time), whose share of the
+step's elementwise time it names. Traces go to
+``chiprun_out/profile_port_bert_{forward,step}_trace.json.gz``.
+
 With ``--flash`` it times the bf16 flash kernel beside
 F.scaled_dot_product_attention on the same bf16 tensors at T 128 for B*H
 from 12 to 768, and at [96, 512, 64].
@@ -143,14 +157,30 @@ CATEGORIES = (("flash_attention", ("flash_fwd_kernel", "flash_bf16_kernel")),
               ("memcpy/memset", ("Memcpy", "Memset")))
 
 
-def _category(name: str) -> str:
-    for cat, keys in CATEGORIES:
-        if any(k in name for k in keys):
+#: the SameDiff BERT step's classes (lower-case patterns, first match wins)
+BERT_CATEGORIES = (("GEMM (cuBLAS)", ("gemm", "cutlass", "sm90", "nvjet",
+                                      "xmma")),
+                   ("softmax", ("softmax",)),
+                   ("gather (index_select)", ("indexselect", "index_select")),
+                   ("scatter-add (gather backward)", ("indexfunc",
+                                                      "index_add",
+                                                      "indexing_backward")),
+                   ("reductions", ("reduce_kernel",)),
+                   ("elementwise", ("elementwise",)),
+                   ("copies (memcpy/memset, layout)", ("memcpy", "memset",
+                                                       "copy")))
+
+
+def _category(name: str, table=CATEGORIES, lower: bool = False) -> str:
+    key = name.lower() if lower else name
+    for cat, keys in table:
+        if any(k in key for k in keys):
             return cat
     return "other"
 
 
-def _profile(step, n: int, label: str, smi: str, trace: str) -> dict:
+def _profile(step, n: int, label: str, smi: str, trace: str,
+             categorize=_category) -> dict:
     """``n`` calls of ``step`` under torch.profiler: wall time and the
     device time of the kernels (device-side events only: operator events
     also carry their kernels' time and would count it twice), per call, by
@@ -175,7 +205,7 @@ def _profile(step, n: int, label: str, smi: str, trace: str) -> dict:
     device_us = sum(us for us, _ in by_name.values())
     cats = {}
     for kname, (us, _) in by_name.items():
-        c = _category(kname)
+        c = categorize(kname)
         cats[c] = cats.get(c, 0.0) + us / n / 1e3
     kernels = [{"name": k[:80], "device_ms": us / n / 1e3,
                 "calls_per_call": c / n}
@@ -339,6 +369,105 @@ def mln_main(dev, smi: str, name: str) -> int:
               "images_per_s": cs.VGG_BATCH / ms * 1e3,
               "fused_update_ms_per_step": upd_ms, "input_losses": inputs,
               **prof}
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+def _bert_category(name: str) -> str:
+    return _category(name, BERT_CATEGORIES, lower=True)
+
+
+def _host_and_wall(fn, runs: int = 5):
+    """Medians of the host's enqueue time of ``fn`` (it must not wait for
+    the card) and of its wall time to completion, in ms."""
+    host, wall = [], []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        host.append((t1 - t0) * 1e3)
+        wall.append((t2 - t0) * 1e3)
+    return statistics.median(host), statistics.median(wall)
+
+
+def bert_main(dev, smi: str, name: str) -> int:
+    from deeplearning4j_tpu_torch.autodiff.samediff import TREE
+    from deeplearning4j_tpu_torch.imports import import_frozen_tf
+    from deeplearning4j_tpu_torch.imports.tf_fixtures import \
+        build_bert_frozen_graph
+
+    data, names, _ = build_bert_frozen_graph(**cs.bert_dims(cs.SD_BATCH))
+    sd = import_frozen_tf(data, device=dev)
+    del data
+    cs.bert_fine_tune_graph(sd, cs.BERT["hidden"], cs.SD_BATCH, cs.SEED)
+    feed, labels = cs.bert_feed(names, cs.SD_BATCH, dev)
+    batch = dict(feed, labels=labels)
+    pooled = sd.tf_outputs[0]
+    result = {"device": name, "nvidia_smi": smi,
+              "graph_ops_per_forward": len(sd._plan((pooled,))),
+              "graph_ops_to_loss": len(sd._plan(("loss",)))}
+
+    def forward():
+        sd.output(feed, [pooled])
+
+    step_fn = sd._train_step_fn("loss")
+    upd = sd._training_config.updater
+    state = {"s": upd.init({TREE: sd._params()})}
+    feeds = sd._feeds(batch)
+
+    def step():
+        # the step SameDiff.fit runs, without fit's loss readback
+        params, state["s"], _ = step_fn(sd._params(), state["s"], feeds,
+                                        sd._iteration)
+        for n, t in params.items():
+            sd._vars[n].value = t
+        sd._iteration += 1
+
+    for label, fn, trace in (
+            ("serving forward (pooled, batch 32)", forward,
+             "profile_port_bert_forward_trace.json.gz"),
+            ("fine-tune step (batch 32)", step,
+             "profile_port_bert_step_trace.json.gz")):
+        for _ in range(2):
+            fn()
+        host, wall = _host_and_wall(fn)
+        prof = _profile(fn, 3, f"SameDiff BERT-base {label}", smi, trace,
+                        _bert_category)
+        ops = prof["device_ops_per_call"]
+        print(f"[bert] {label}: host enqueue {host:.3f} ms, wall {wall:.3f} "
+              f"ms, {ops:.0f} device operations, {host / ops * 1e3:.2f} us "
+              f"of host time per launch; {smi}", flush=True)
+        key = "forward" if fn is forward else "step"
+        result[key] = {"host_ms": host, "wall_ms": wall,
+                       "host_us_per_launch": host / ops * 1e3, **prof}
+    params = {TREE: sd._params()}
+    grads = {TREE: {n: torch.full_like(p, 1e-3)
+                    for n, p in params[TREE].items()}}
+    n = sum(p.numel() for p in params[TREE].values())
+
+    def adam_step():
+        upd.apply(grads, state["s"], params, 5)
+
+    host, wall = _host_and_wall(adam_step)
+    adam = _profile(adam_step, 3, f"per-leaf Adam alone "
+                    f"({len(params[TREE])} leaves)", smi,
+                    "profile_port_bert_adam_trace.json.gz", _bert_category)
+    # its bytes bound: each leaf reads p, g, m, v once and writes p, m, v
+    bound = 7 * 4 * n / cs.HBM_BYTES_PER_S * 1e3
+    step_elem = result["step"]["device_ms_by_category"].get("elementwise", 0)
+    print(f"[bert] per-leaf Adam over {n} elements: host enqueue {host:.3f} "
+          f"ms, wall {wall:.3f} ms, {adam['device_ops_per_call']:.0f} "
+          f"launches ({host / adam['device_ops_per_call'] * 1e3:.2f} us of "
+          f"host time each), {adam['device_ms']:.3f} ms of device time "
+          f"(bytes bound {bound:.3f} ms): "
+          f"{100 * adam['device_ms'] / result['step']['device_ms']:.1f}% of "
+          f"the step's device time, {100 * adam['device_ms'] / step_elem:.1f}"
+          f"% of its elementwise time; {smi}", flush=True)
+    result["adam"] = {"host_ms": host, "wall_ms": wall, "elements": n,
+                      "bound_ms": bound, **adam}
     print(json.dumps(result), flush=True)
     return 0
 
@@ -796,6 +925,8 @@ def main() -> int:
     if "--flash" in sys.argv[1:]:
         cs.phase_build()
         return flash_main(dev, smi, name)
+    if "--bert" in sys.argv[1:]:
+        return bert_main(dev, smi, name)
     if "--bag" in sys.argv[1:]:
         cs.phase_build()
         return bag_main(dev, smi, name, "--levers" in sys.argv[1:],

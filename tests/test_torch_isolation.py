@@ -1,5 +1,6 @@
-"""The port stands alone: it never imports JAX or the JAX package, and it
-runs on the card unless the caller asks for the CPU."""
+"""The port stands alone: it never imports JAX or the JAX package, nor
+TensorFlow or protobuf (it reads and writes GraphDefs itself), and it runs
+on the card unless the caller asks for the CPU."""
 
 import ast
 import os
@@ -12,7 +13,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "deeplearning4j_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "deeplearning4j_tpu")
+FORBIDDEN = ("jax", "jaxlib", "deeplearning4j_tpu", "tensorflow",
+             "google.protobuf")
 
 
 def _forbidden(module: str) -> bool:
@@ -54,9 +56,14 @@ def test_scanner_catches_forbidden_imports(tmp_path):
     p.write_text("import os\nfrom jax import numpy\n"
                  "import deeplearning4j_tpu.nn\n"
                  "from deeplearning4j_tpu_torch import ops\n"
-                 "importlib.import_module('jax.numpy')\n")
+                 "importlib.import_module('jax.numpy')\n"
+                 "import tensorflow as tf\n"
+                 "from google.protobuf import message\n"
+                 "import google.protobufx\n")
     found = [m for _, m in _imports(p) if _forbidden(m)]
-    assert found == ["jax", "deeplearning4j_tpu.nn", "jax.numpy"]
+    # (ast.walk visits the statements before the call inside one)
+    assert found == ["jax", "deeplearning4j_tpu.nn", "tensorflow",
+                     "google.protobuf", "jax.numpy"]
 
 
 def test_import_in_fresh_process_pulls_no_jax():
@@ -94,9 +101,18 @@ def test_import_in_fresh_process_pulls_no_jax():
             "PerformanceListener\n"
             "from deeplearning4j_tpu_torch.util import "
             "multilayer_state_from_numpy\n"
-            "bad = [m for m in sys.modules if m in ('jax', 'jaxlib') or "
-            "m == 'deeplearning4j_tpu' or m.startswith(('jax.', "
-            "'deeplearning4j_tpu.'))]\n"
+            "from deeplearning4j_tpu_torch.imports import import_frozen_tf\n"
+            "from deeplearning4j_tpu_torch.imports import graphdef, "
+            "tf_fixtures\n"
+            "from deeplearning4j_tpu_torch.autodiff import SameDiff\n"
+            "from deeplearning4j_tpu_torch.ops import registry\n"
+            "registry.all_ops()\n"
+            "from deeplearning4j_tpu_torch.util import "
+            "samediff_state_from_numpy\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', "
+            "'tensorflow') or m == 'deeplearning4j_tpu' or m.startswith(("
+            "'jax.', 'deeplearning4j_tpu.', 'tensorflow.', "
+            "'google.protobuf'))]\n"
             "assert not bad, bad\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -146,6 +162,25 @@ def test_word2vec_defaults_to_the_card_and_raises_without_one():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ParagraphVectors.builder().dm(True).build()
     assert ParagraphVectors(device="cpu").device.type == "cpu"
+
+
+def test_import_frozen_tf_defaults_to_the_card_and_raises_without_one():
+    from deeplearning4j_tpu_torch.imports import import_frozen_tf
+    from deeplearning4j_tpu_torch.imports.tf_fixtures import \
+        build_bert_frozen_graph
+
+    data, _, _ = build_bert_frozen_graph(batch=1, seq=4, hidden=8, layers=1,
+                                         heads=2, intermediate=16, vocab=11,
+                                         max_pos=8)
+    if torch.cuda.is_available():
+        assert import_frozen_tf(data).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        import_frozen_tf(data)
+    sd = import_frozen_tf(data, device="cpu")
+    assert sd.device.type == "cpu"
+    assert all(v.value.device.type == "cpu" for v in sd._vars.values()
+               if v.value is not None)
 
 
 def test_tf32_policy_stated_and_set():
