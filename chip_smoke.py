@@ -184,6 +184,55 @@ Phases (each fails the run with a nonzero exit if it fails):
                from the same bytes (SD_PARITY): the pooled output, the loss
                and every gradient.
 
+19. w2v-host -- the host pair path (device_corpus = False) at phase 14's
+               hyperparameters on the corpus's first 400,000 words: the
+               native helper built with g++ first (a failed build fails the
+               run), then skip-gram (pairs from native.sg_pairs), CBOW and
+               PV-DM on 20,000 documents. Gates: the helper made the
+               skip-gram pairs; 64 rounds per block; no bag launch for
+               skip-gram and one per CBOW and PV-DM round; finite tables on
+               the card; skip-gram's last loss below its first block's
+               (CBOW's and PV-DM's examples fit one flush, made after the
+               producer consumed every word, so it trains at
+               min_learning_rate: the gate is a loss below ln 2 and a
+               trained syn1neg); then the host-path gates of
+               tests/test_nlp.py (skip-gram clusters, :312, :592) on the
+               card. Prints words/s and the consumer's wait on the producer.
+20. fasttext -- bench.py --config fasttext (400,000 words, min frequency 5,
+               layer 100, window 5, 5 negatives, 1 epoch, batch 8192, seed
+               42, bucket 100,000, minn 3, maxn 6): one cold fit as it
+               stands, logged and not gated (without subsampling it reaches
+               NaN, as the JAX package does); then with fastText's default
+               subsampling t = 1e-4, cold and warm. Gates: tables [V +
+               100,000, 100]; one embedding_bag launch per round, each on
+               the round's [8190, G] bags of that table; finite tables; the
+               loss falling; bucket rows trained; the cluster, OOV and
+               subword-cluster gates of tests/test_nlp_breadth.py on the
+               card. Then the bag bitwise against its plain version (mean
+               and sum) and timed, beside its bound, at the path's [8190,
+               15] x [108163, 100] (corpus centers' subword rows) and at
+               G = 39 (words of 3 to 11 letters).
+21. glove   -- bench.py --config glove (1,000,000 words, min frequency 5,
+               layer 100, window 5, 5 epochs, batch 8192, seed 42, x_max
+               100, alpha 0.75, lr 0.05): words/s with and without the host
+               co-occurrence count, rounds, losses. Gates: finite tables on
+               the card, the last loss below the first block's, the cluster
+               gate of tests/test_nlp_breadth.py:47 on the card.
+22. deepwalk -- DeepWalk at BlogCatalog's published setting (Perozzi et al.
+               2014, section 6: 10,312 vertices, 333,983 edges, 39 groups;
+               walk length 40, window 10, dimension 128) on a seeded
+               stochastic block model of that size, walks per vertex CUT
+               from 80 to 2 (the walk sampler is a Python loop). Walk time
+               and the fit's words/s apart. Gates: within-group cosine above
+               across-group, half of each vertex's 10 nearest from its
+               group; then Node2Vec (p 0.5, q 2) on the two-community graph
+               of tests/test_nlp_breadth.py:145, gated as there.
+23. serializer -- phase 19's skip-gram and phase 20's FastText written as
+               text, binary and the model zip and read back onto the card:
+               binary and zip bitwise with the same nearest words, text
+               within its six digits; a fit resumed from the skip-gram zip
+               starts below the first fit's first block's loss.
+
 Then it prints the kernels line (one JSON object) and, last, the device line
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
 beside it, it exits nonzero and prints no result. Weights are random, made
@@ -534,17 +583,21 @@ def compare_embedding_bag_bf16(B, W, V, D, dev, gen, offset=0, masked=3):
     return err
 
 
-def time_embedding_bag(B, W, V, D, dev, gen, flush, dist, bf16=False):
+def time_embedding_bag(B, W, V, D, dev, gen, flush, dist, bf16=False,
+                       case=None):
     """Kernel, plain version, F.embedding_bag (the one PyTorch call for the
     same function) and the unfused expression at one shape, beside the
     least bytes: indices, mask, counts, output, each distinct row once.
     ``bf16``: the bf16 route (table, mask, counts and output in bf16; the
-    arithmetic in float32 registers, so the float32 peak bounds it)."""
+    arithmetic in float32 registers, so the float32 peak bounds it).
+    ``case``: a (table, indices, mask, counts) to time instead of a random
+    one drawn as ``dist``."""
     import torch.nn.functional as F
 
     from deeplearning4j_tpu_torch.ops import embeddings
 
-    table, idx, mask, counts = _bag_case(B, W, V, D, dev, gen, dist=dist)
+    table, idx, mask, counts = (case if case is not None else
+                                _bag_case(B, W, V, D, dev, gen, dist=dist))
     esize = 4
     if bf16:
         table, mask, counts = _to_bf16_route(table, mask)
@@ -1734,14 +1787,17 @@ def check_tables(model, what: str) -> None:
 
 
 def cluster_gate(dev, what: str, margin: float, n_sent: int,
-                 near: bool = False, **kw) -> dict:
+                 near: bool = False, device_corpus: bool = True,
+                 sent_len: int = 12, **kw) -> dict:
     """A fit of tests/test_nlp.py's cluster corpus on the card, gated as
     there: mean similarity of a0 to a1..a5 above that to b0..b4 plus
-    ``margin``; with ``near``, 8 of a0's 10 nearest words from cluster a."""
+    ``margin``; with ``near``, 8 of a0's 10 nearest words from cluster a.
+    ``device_corpus`` False fits through the host pair path."""
     from deeplearning4j_tpu_torch.nlp import Word2Vec
 
     w = Word2Vec(min_word_frequency=5, device=dev, **kw)
-    w.set_sentence_iterator(cluster_corpus(n_sent))
+    w.device_corpus = device_corpus
+    w.set_sentence_iterator(cluster_corpus(n_sent, sent_len))
     w.fit()
     same = float(np.mean([w.similarity("a0", f"a{i}") for i in range(1, 6)]))
     diff = float(np.mean([w.similarity("a0", f"b{i}") for i in range(5)]))
@@ -3030,6 +3086,611 @@ def samediff_bert_parity(dev):
             "key_bias_rel": worst_zero, "gradients": len(hg)}
 
 
+# --- phases 19-23: the host pair path, FastText, GloVe, DeepWalk, serializer ----
+
+FT_WORDS = 400_000                    # bench.py --config fasttext
+FT_BUCKET = 100_000
+#: fastText's default subsampling threshold (its -t), which bench.py's
+#: configuration leaves out: without it both packages diverge to NaN
+FT_SAMPLING = 1e-4
+FT_LONG_G = 39                        # a word of 11 characters: 4 * 11 - 5
+GLOVE_WORDS = 1_000_000               # bench.py --config glove
+#: BlogCatalog as DeepWalk's paper uses it (Perozzi et al. 2014, section 6):
+#: 10,312 vertices, 333,983 edges, 39 groups; walk length 40, window 10,
+#: dimension 128. Walks per vertex cut from the paper's 80 to 2: the walk
+#: sampler is a Python loop on the host (nlp/graph_vectors.random_walks).
+BLOG = {"vertices": 10_312, "edges": 333_983, "groups": 39,
+        "walk_length": 40, "window": 10, "dim": 128, "walks": 2,
+        "published_walks": 80}
+#: the stochastic block model that stands in for BlogCatalog's graph: this
+#: share of each vertex's edges stays inside its group
+SBM_WITHIN = 0.8
+DW_PAIRS = 2000                       # vertex pairs per similarity mean
+DW_QUERIES = 500                      # vertices whose neighbours are read
+
+
+def breadth_corpus(n=1200, vocab_half=20, seed=0):
+    """tests/test_nlp_breadth.py's corpus: even sentences from a0..a19, odd
+    ones from b0..b19."""
+    rng = np.random.default_rng(seed)
+    return [" ".join(f"{'a' if i % 2 == 0 else 'b'}{j}"
+                     for j in rng.integers(0, vocab_half, 12))
+            for i in range(n)]
+
+
+def _mean_sim(m, pairs):
+    return float(np.mean([m.similarity(x, y) for x, y in pairs]))
+
+
+def phase_w2v_host(smi: str, dev, sents):
+    """Phase 19: the host pair path (device_corpus = False) at phase 14's
+    hyperparameters on the corpus's first 400,000 words: skip-gram (pairs
+    from the native helper), CBOW, and PV-DM on 20,000 documents; then the
+    host-path gates of tests/test_nlp.py on the card."""
+    from deeplearning4j_tpu_torch import native
+    from deeplearning4j_tpu_torch.nlp import (LabelAwareIterator,
+                                              ParagraphVectors)
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    native.load()          # raises with g++'s output when the build fails
+    build_s = time.perf_counter() - t0
+    log(f"[w2v-host] native helper {native.LIBRARY.name} built and loaded "
+        f"in {build_s:.2f} s (g++ -O3)")
+    cut = sents[:W2V_CUT_WORDS // 20]
+    out = {"native_build_s": build_s}
+    models = {}
+    docs_labels = [f"DOC_{i}" for i in range(len(cut))]
+    for tag in ("skipgram", "cbow", "pv-dm"):
+        if tag == "pv-dm":
+            m = (ParagraphVectors.builder().min_word_frequency(5)
+                 .layer_size(100).window_size(5).negative_sample(5)
+                 .sampling(1e-3).epochs(1).batch_size(8192).seed(42).dm(True)
+                 .device(dev).iterate(LabelAwareIterator(cut, docs_labels))
+                 .build())
+        else:
+            m = w2v_model(dev, algorithm=tag)
+            m.set_sentence_iterator(cut)
+        m.device_corpus = False
+        calls0 = native.sg_pairs_calls
+        f = fit_counted(m, "cold")
+        f["native_calls"] = native.sg_pairs_calls - calls0
+        f["producer_wait_s"] = m.last_fit_timing["producer_wait"]
+        check_tables(m, f"w2v-host {tag}")
+        check(np.isfinite(f["last_loss"]), f"w2v-host {tag}: loss not "
+              f"finite")
+        check(f["rounds"] == 64 * f["blocks"] > 0 and f["readbacks"] == 0,
+              f"w2v-host {tag}: {f['rounds']} rounds in {f['blocks']} "
+              f"blocks of 64")
+        if tag == "skipgram":
+            check(f["native_calls"] > 0, "w2v-host skipgram: the native "
+                  "helper made no pairs")
+            check(f["launches"] == 0, f"w2v-host skipgram: {f['launches']} "
+                  f"bag launches, skip-gram has no bag")
+            check(f["blocks"] >= 2 and f["last_loss"] < f["first_loss"],
+                  f"w2v-host skipgram: last loss {f['last_loss']} not below "
+                  f"the first block's {f['first_loss']} ({f['blocks']} "
+                  f"blocks)")
+        else:
+            # the examples fit one flush, made after the producer consumed
+            # every word, so it trains at min_learning_rate (the JAX host
+            # path's schedule): one block, the loss close to its start of
+            # ln 2 (syn1neg starts at 0); the gate is that the rounds ran
+            # and moved the output table
+            check(f["launches"] == f["rounds"] and f["bf16_launches"] == 0,
+                  f"w2v-host {tag}: {f['launches']} embedding_bag launches "
+                  f"for {f['rounds']} rounds, want one per round")
+            check(f["last_loss"] < np.log(2.0)
+                  and np.abs(m.lookup_table.syn1neg).max() > 0,
+                  f"w2v-host {tag}: loss {f['last_loss']} not below ln 2 or "
+                  f"syn1neg untrained")
+        _log_fit(f"w2v-host {tag}", f, smi)
+        log(f"[w2v-host {tag}] {f['words_per_s']:.1f} words/s; consumer "
+            f"waited {f['producer_wait_s']:.3f} s of {f['train_s']:.3f} s "
+            f"for the producer thread; {f['native_calls']} native "
+            f"sg_pairs calls; {smi}")
+        out[tag] = f
+        models[tag] = m
+    del models["pv-dm"], models["cbow"]
+    out["cluster_skipgram"] = cluster_gate(
+        dev, "w2v-host skipgram", 0.4, 1000, device_corpus=False,
+        layer_size=24, epochs=3, batch_size=256, seed=2)
+    w = w2v_model(dev, algorithm="cbow", min_word_frequency=5, layer_size=16,
+                  negative=3, epochs=2, batch_size=128, seed=2, sampling=0.0)
+    w.device_corpus = False
+    w.set_sentence_iterator(cluster_corpus(300, 8))
+    w.fit()
+    check(np.isfinite(w.last_loss) and w.table_device.type == "cuda",
+          "tests/test_nlp.py:312 (CBOW host path) on the card: loss not "
+          "finite")
+    small = [f"DOC_{i}" for i in range(80)]
+    pv = (ParagraphVectors.builder().min_word_frequency(1).layer_size(24)
+          .epochs(10).negative_sample(5).batch_size(256).seed(3).device(dev)
+          .iterate(LabelAwareIterator(cluster_docs(), small)).build())
+    pv.device_corpus = False
+    pv.fit()
+    same = _mean_sim(pv, [("DOC_0", f"DOC_{i}") for i in (2, 4, 6, 8)])
+    diff = _mean_sim(pv, [("DOC_0", f"DOC_{i}") for i in (1, 3, 5, 7)])
+    check(same > diff + 0.3, f"PV host path document clusters on the card "
+          f"(tests/test_nlp.py:592): same {same} not above diff {diff} + 0.3")
+    out["pv_host_cluster"] = {"same": same, "diff": diff, "margin": 0.3}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[w2v-host] CBOW host gate (tests/test_nlp.py:312) loss "
+        f"{w.last_loss:.4f}; PV-DBOW host document clusters same "
+        f"{same:.4f} diff {diff:.4f} (gate +0.3); phase {out['seconds']:.1f} "
+        f"s; {smi}")
+    return out, models["skipgram"]
+
+
+def fasttext_bag_cases(ft, sents, dev, gen):
+    """The bag at FastText's path: (1) 8190 centers drawn from the corpus
+    stream, their subword rows and mask, on the trained table; (2) the same
+    table with 8190 words of 3 to 11 letters (G = 39 columns, shorter
+    words padded), their own rows and hashed n-grams."""
+    from deeplearning4j_tpu_torch.nlp.fasttext import char_ngrams
+
+    table = torch.from_numpy(ft.lookup_table.syn0).to(dev)
+    B = ft._round_pairs
+    flat = np.concatenate(ft._encode_corpus(
+        [s.split() for s in sents[:5000]]))
+    rng = np.random.default_rng(SEED)
+    c = flat[rng.integers(0, flat.size, B)]
+    idx = torch.from_numpy(ft._subword_ids[c]).to(dev)
+    mask = torch.from_numpy(ft._subword_mask[c]).to(dev)
+    path = (table, idx, mask, mask.sum(1).clamp_min(1.0))
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    V = len(ft.vocab)
+    rows = np.zeros((B, FT_LONG_G), np.int32)
+    lmask = np.zeros((B, FT_LONG_G), np.float32)
+    for b in range(B):
+        L = 11 if b % 4 == 0 else int(rng.integers(3, 12))
+        word = "".join(rng.choice(letters, L))
+        ids = ft.subword_row_ids(word, int(rng.integers(0, V)))
+        check(len(ids) == 4 * L - 5 <= FT_LONG_G, f"{len(ids)} rows for a "
+              f"word of {L} letters")
+        rows[b, :len(ids)] = ids
+        lmask[b, :len(ids)] = 1.0
+    check(len(char_ngrams("a" * 11, 3, 6)) + 1 == FT_LONG_G, "G 39")
+    lm = torch.from_numpy(lmask).to(dev)
+    long = (table, torch.from_numpy(rows).to(dev), lm,
+            lm.sum(1).clamp_min(1.0))
+    return path, long
+
+
+def phase_fasttext(smi: str, dev, sents):
+    """Phase 20: bench.py --config fasttext (400,000 words, min frequency
+    5, layer 100, window 5, 5 negatives, 1 epoch, batch 8192, seed 42,
+    bucket 100,000, minn 3, maxn 6): once as it stands (logged), then with
+    subsampling at FT_SAMPLING, cold and warm, gated; the gates of
+    tests/test_nlp_breadth.py on the card; then the bag bitwise against its
+    plain version and timed at the path's shape and at G = 39."""
+    from deeplearning4j_tpu_torch.nlp import FastText
+    from deeplearning4j_tpu_torch.ops import embeddings
+
+    t_phase = time.perf_counter()
+    cut = sents[:FT_WORDS // 20]
+
+    def bench_fasttext(sampling):
+        ft = (FastText.builder().min_word_frequency(5).layer_size(100)
+              .negative_sample(5).epochs(1).batch_size(8192).seed(42)
+              .bucket(FT_BUCKET).minn(3).maxn(6).device(dev).iterate(cut)
+              .build())
+        ft.sampling = sampling
+        return ft
+
+    # bench.py's configuration as it stands leaves subsampling off; the JAX
+    # package reaches NaN there on the CPU, and the port is expected to do
+    # the same: one cold fit, logged and not gated
+    raw = bench_fasttext(0.0)
+    raw_fit = fit_counted(raw, "bench.py as is")
+    raw_fit["finite"] = bool(np.isfinite(raw.lookup_table.syn0).all())
+    _log_fit("fasttext", raw_fit, smi)
+    log(f"[fasttext] bench.py's configuration as is (no subsampling): "
+        f"tables finite {raw_fit['finite']}, last loss "
+        f"{raw_fit['last_loss']} (not gated); the gated fits below add "
+        f"fastText's own default subsampling t = {FT_SAMPLING}")
+    del raw
+    ft = bench_fasttext(FT_SAMPLING)
+    shapes = []
+    real_launch = embeddings.embedding_bag_cuda
+
+    def recording(table, indices, mask, counts, mean):
+        shapes.append((tuple(indices.shape), tuple(table.shape)))
+        return real_launch(table, indices, mask, counts, mean)
+
+    init = {}
+    real_build = ft.build_vocab
+
+    def keep_init(tokens):
+        real_build(tokens)
+        init["syn0"] = ft.lookup_table.syn0.copy()
+
+    ft.build_vocab = keep_init
+    embeddings.embedding_bag_cuda = recording
+    try:
+        fits = []
+        for label in ("cold", "warm"):
+            n0 = len(shapes)
+            f = fit_counted(ft, label)
+            f["bag_shapes"] = sorted(set(shapes[n0:]))
+            fits.append(f)
+    finally:
+        embeddings.embedding_bag_cuda = real_launch
+        del ft.build_vocab
+    V = len(ft.vocab)
+    B, G = ft._round_pairs, ft._subword_ids.shape[1]
+    lt = ft.lookup_table
+    check(lt.syn0.shape == lt.syn1neg.shape == (V + FT_BUCKET, 100),
+          f"tables {lt.syn0.shape} and {lt.syn1neg.shape}, want "
+          f"[{V} + {FT_BUCKET}, 100]")
+    check_tables(ft, "fasttext")
+    for f in fits:
+        check(f["launches"] == f["rounds"] == f["sum_ceil_count_over_b"] > 0
+              and f["bf16_launches"] == 0, f"fasttext {f['fit']}: "
+              f"{f['launches']} bag launches for {f['rounds']} rounds "
+              f"(sum ceil(count/B) {f['sum_ceil_count_over_b']})")
+        check(f["bag_shapes"] == [((B, G), (V + FT_BUCKET, 100))],
+              f"fasttext {f['fit']}: bag shapes {f['bag_shapes']}, want "
+              f"[{B}, {G}] of [{V + FT_BUCKET}, 100]")
+        check(np.isfinite(f["last_loss"])
+              and f["last_loss"] < fits[0]["first_loss"],
+              f"fasttext {f['fit']}: last loss {f['last_loss']} not below "
+              f"the cold fit's first block's {fits[0]['first_loss']}")
+        _log_fit("fasttext", f, smi)
+    moved = int((np.abs(lt.syn0[V:] - init["syn0"][V:]).sum(1) > 0).sum())
+    check(moved > 1000, f"fasttext: {moved} bucket rows trained")
+    log(f"[fasttext] vocabulary {V}, G {G} subword columns, table "
+        f"[{V + FT_BUCKET}, 100], B {B} pairs per round; {moved} of "
+        f"{FT_BUCKET} bucket rows trained; similarity(w1, w2) "
+        f"{ft.similarity('w1', 'w2'):.4f}; OOV w99999 vector norm "
+        f"{np.linalg.norm(ft.get_word_vector('w99999')):.4f}; {smi}")
+    gates = {}
+    c = FastText.builder().min_word_frequency(3).layer_size(24).epochs(4) \
+        .negative_sample(5).batch_size(512).seed(2).bucket(4096).device(dev) \
+        .iterate(breadth_corpus()).build()
+    c.fit()
+    gates["same"] = _mean_sim(c, [("a0", f"a{i}") for i in range(1, 6)])
+    gates["diff"] = _mean_sim(c, [("a0", f"b{i}") for i in range(5)])
+    gates["oov_a"] = _mean_sim(c, [("a00", f"a{i}") for i in range(5)])
+    gates["oov_b"] = _mean_sim(c, [("a00", f"b{i}") for i in range(5)])
+    v = c.get_word_vector("a0a1")
+    check(gates["same"] > gates["diff"] + 0.2, f"fasttext cluster gate on "
+          f"the card: {gates}")
+    check(gates["oov_a"] > gates["oov_b"], f"fasttext OOV gate: {gates}")
+    check(v.shape == (24,) and np.isfinite(v).all() and np.abs(v).sum() > 0,
+          "fasttext OOV vector")
+    rng = np.random.default_rng(4)
+    pools = {0: [f"app{i}le" for i in range(8)],
+             1: [f"zur{i}ich" for i in range(8)]}
+    dsents = [" ".join(rng.choice(pools[int(rng.integers(0, 2))], size=10))
+              for _ in range(240)]
+    d = FastText.builder().min_word_frequency(1).layer_size(24) \
+        .negative_sample(5).epochs(8).batch_size(256).seed(3).bucket(2000) \
+        .device(dev).iterate(dsents).build()
+    d.fit()
+    mat = d.get_word_vector_matrix()
+    mat = mat / np.maximum(np.linalg.norm(mat, axis=1, keepdims=True), 1e-12)
+    words = list(d.vocab.words())
+    a = [i for i, w in enumerate(words) if w.startswith("app")]
+    z = [i for i, w in enumerate(words) if w.startswith("zur")]
+    gates["within"] = float(np.mean([mat[i] @ mat[k] for i in a for k in a
+                                     if i != k]))
+    gates["across"] = float(np.mean([mat[i] @ mat[k] for i in a for k in z]))
+    check(gates["within"] > gates["across"] + 0.2, f"fasttext device-path "
+          f"subword clusters on the card: {gates}")
+    check(np.linalg.norm(d.get_word_vector("app9le")) > 0, "OOV app9le")
+    log(f"[fasttext] gates on the card (tests/test_nlp_breadth.py): cluster "
+        f"same {gates['same']:.4f} diff {gates['diff']:.4f} (+0.2), OOV a00 "
+        f"to a {gates['oov_a']:.4f} to b {gates['oov_b']:.4f}, subword "
+        f"clusters within {gates['within']:.4f} across "
+        f"{gates['across']:.4f} (+0.2)")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 20)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    bag = {}
+    for name, case in zip(("path", "long"),
+                          fasttext_bag_cases(ft, cut, dev, gen)):
+        table, idx, mask, counts = case
+        for mean in (True, False):
+            got = embeddings.embedding_bag_cuda(table, idx, mask, counts,
+                                                mean)
+            want = embeddings.embedding_bag_reference(table, idx, mask,
+                                                      counts, mean)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"fasttext bag {name} mean={mean}"
+                  f": not bitwise its plain version (max "
+                  f"{(got - want).abs().max().item()})")
+        Bc, Wc = idx.shape
+        t = time_embedding_bag(Bc, Wc, table.shape[0], table.shape[1], dev,
+                               gen, flush, "fasttext " + name, case=case)
+        t["max_abs_err"] = 0.0
+        bag[name] = t
+        log(f"[fasttext] embedding_bag {name} [{Bc}, {Wc}] x "
+            f"{list(table.shape)} ({t['distinct_rows']} distinct rows, "
+            f"bitwise mean and sum): kernel {t['ms']:.4f} ms cold, "
+            f"{t['ms_warm']:.4f} ms warm, host {t['host_us']:.1f} us; plain "
+            f"{t['plain_ms']:.4f} ms, F.embedding_bag/counts "
+            f"{t['library_ms']:.4f} ms, unfused {t['unfused_ms']:.4f} ms, "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}, {t['bytes']} B); "
+            f"median of {TIMED_RUNS} (CUDA events, cold L2); {smi}")
+    del flush
+    out = {"fits": fits, "bench_as_is": raw_fit, "sampling": FT_SAMPLING,
+           "vocab": V, "G": G, "bucket_rows_trained": moved,
+           "gates": gates, "bag": bag,
+           "seconds": time.perf_counter() - t_phase}
+    log(f"[fasttext] phase {out['seconds']:.1f} s")
+    return out, ft
+
+
+def phase_glove(smi: str, dev, sents):
+    """Phase 21: bench.py --config glove (1,000,000 words, min frequency 5,
+    layer 100, window 5, 5 epochs, batch 8192, seed 42, x_max 100, alpha
+    0.75, lr 0.05); then tests/test_nlp_breadth.py's cluster gate on the
+    card."""
+    from deeplearning4j_tpu_torch.nlp import Glove
+
+    t_phase = time.perf_counter()
+    cut = sents[:GLOVE_WORDS // 20]
+    g = (Glove.builder().min_word_frequency(5).layer_size(100)
+         .window_size(5).epochs(5).batch_size(8192).seed(42).x_max(100.0)
+         .alpha(0.75).learning_rate(0.05).device(dev).iterate(cut).build())
+    t0 = time.perf_counter()
+    g.fit()
+    wall = time.perf_counter() - t0
+    tm = g.last_fit_timing
+    check(g.table_device.type == "cuda", "glove: not on the card")
+    check(bool(np.isfinite(g.lookup_table.syn0).all()), "glove: tables not "
+          "finite")
+    check(tm["rounds"] == 64 * tm["blocks"] > 0, f"glove: {tm}")
+    check(np.isfinite(g.last_loss) and g.last_loss < g.first_loss,
+          f"glove: last loss {g.last_loss} not below the first block's "
+          f"{g.first_loss}")
+    train_wps = tm["words"] / tm["train"]
+    log(f"[glove] vocabulary {len(g.vocab)}, {tm['nnz']} co-occurrence "
+        f"triplets, {tm['rounds']} rounds in {tm['blocks']} blocks; "
+        f"{g.words_per_sec:.1f} words/s with the host co-occurrence count "
+        f"({tm['cooccur']:.3f} s) and {tm['train']:.3f} s on the card, "
+        f"{train_wps:.1f} words/s over the training alone; "
+        f"{1e3 * tm['train'] / tm['rounds']:.3f} ms per round; first "
+        f"block's loss {g.first_loss:.4f}, last loss {g.last_loss:.4f}; fit "
+        f"wall {wall:.3f} s; {smi}")
+    c = (Glove.builder().min_word_frequency(3).layer_size(24).window_size(8)
+         .epochs(30).learning_rate(0.05).batch_size(1024).seed(1).device(dev)
+         .iterate(breadth_corpus()).build())
+    c.fit()
+    same = _mean_sim(c, [("a0", f"a{i}") for i in range(1, 6)])
+    diff = _mean_sim(c, [("a0", f"b{i}") for i in range(5)])
+    check(same > diff + 0.3, f"glove cluster gate on the card: same {same} "
+          f"diff {diff}")
+    out = {"words_per_s": g.words_per_sec, "train_words_per_s": train_wps,
+           "timing": tm, "first_loss": g.first_loss,
+           "last_loss": g.last_loss, "vocab": len(g.vocab),
+           "cluster": {"same": same, "diff": diff, "margin": 0.3},
+           "seconds": time.perf_counter() - t_phase}
+    log(f"[glove] cluster corpus on the card (tests/test_nlp_breadth.py:47): "
+        f"same {same:.4f} diff {diff:.4f} (gate +0.3); phase "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
+def blogcatalog_sbm(seed: int):
+    """A stochastic block model at BlogCatalog's size: 10,312 vertices in
+    39 groups of near-equal size, 333,983 distinct undirected edges without
+    loops, SBM_WITHIN of them inside a group (their endpoints uniform over
+    the group), the rest uniform over the graph. Returns (Graph, group of
+    each vertex)."""
+    from deeplearning4j_tpu_torch.nlp import Graph
+
+    n, m, k = BLOG["vertices"], BLOG["edges"], BLOG["groups"]
+    rng = np.random.default_rng(seed)
+    group = rng.permutation(np.arange(n) % k)
+    order = np.argsort(group, kind="stable")
+    sizes = np.bincount(group, minlength=k)
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    keys = np.empty(0, np.int64)
+    while keys.size < m:
+        need = int((m - keys.size) * 1.3) + 16
+        a = rng.integers(0, n, need)
+        g = group[a]
+        inside = order[starts[g] + (rng.random(need) * sizes[g])
+                       .astype(np.int64)]
+        b = np.where(rng.random(need) < SBM_WITHIN, inside,
+                     rng.integers(0, n, need))
+        lo, hi = np.minimum(a, b), np.maximum(a, b)
+        new = (lo * n + hi)[lo != hi]
+        keys = np.unique(np.concatenate([keys, new]))
+    keys = rng.permutation(keys)[:m]
+    graph = Graph(n)
+    for key in keys.tolist():
+        graph.add_edge(key // n, key % n)
+    return graph, group
+
+
+def two_communities(k=8, bridge=1):
+    """tests/test_nlp_breadth.py's graph: two k-cliques and a bridge."""
+    from deeplearning4j_tpu_torch.nlp import Graph
+
+    g = Graph(2 * k)
+    for base in (0, k):
+        for i in range(k):
+            for j in range(i + 1, k):
+                g.add_edge(base + i, base + j)
+    for b in range(bridge):
+        g.add_edge(b, k + b)
+    return g
+
+
+def phase_deepwalk(smi: str, dev):
+    """Phase 22: DeepWalk at BlogCatalog's published setting (BLOG), with
+    2 walks per vertex; then Node2Vec (p 0.5, q 2) on
+    tests/test_nlp_breadth.py's two-community graph, gated as there."""
+    from deeplearning4j_tpu_torch.nlp import DeepWalk, Node2Vec
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    graph, group = blogcatalog_sbm(SEED)
+    graph_s = time.perf_counter() - t0
+    edges = sum(len(graph.neighbors(v)) for v in range(graph.n)) // 2
+    check(edges == BLOG["edges"], f"{edges} edges")
+    dw = (DeepWalk.builder().window_size(BLOG["window"])
+          .vector_size(BLOG["dim"]).walk_length(BLOG["walk_length"])
+          .num_walks(BLOG["walks"]).seed(42).device(dev).build())
+    t0 = time.perf_counter()
+    dw.fit(graph)
+    wall = time.perf_counter() - t0
+    w2v = dw._w2v
+    check(w2v.table_device.type == "cuda", "deepwalk: not on the card")
+    check(len(w2v.vocab) == BLOG["vertices"], f"{len(w2v.vocab)} vertices "
+          f"in the vocabulary")
+    check(bool(np.isfinite(w2v.lookup_table.syn0).all()), "deepwalk: tables "
+          "not finite")
+    norm = w2v.lookup_table.normalized()
+    row = np.array([w2v.vocab.index_of(str(v)) for v in range(graph.n)])
+    rng = np.random.default_rng(SEED)
+    a = rng.integers(0, graph.n, 4 * DW_PAIRS)
+    b = rng.integers(0, graph.n, 4 * DW_PAIRS)
+    keep = a != b
+    a, b = a[keep], b[keep]
+    sims = (norm[row[a]] * norm[row[b]]).sum(1)
+    same_g = group[a] == group[b]
+    # the same-group pairs: partners drawn from the first vertex's group
+    members = [np.flatnonzero(group == k) for k in range(BLOG["groups"])]
+    sa = rng.integers(0, graph.n, DW_PAIRS)
+    sb = np.array([rng.choice(members[group[v]]) for v in sa])
+    keep = sa != sb
+    within = float((norm[row[sa[keep]]] * norm[row[sb[keep]]]).sum(1).mean())
+    across = float(sims[~same_g][:DW_PAIRS].mean())
+    check(within > across, f"deepwalk: within-group similarity {within} not "
+          f"above across-group {across}")
+    # the raw cosines share a common direction (all near 1): the nearest
+    # neighbours say more, 10 of each of DW_QUERIES vertices, against
+    # 1/39 from the same group by chance
+    q = rng.integers(0, graph.n, DW_QUERIES)
+    sims = norm[row[q]] @ norm[row].T
+    sims[np.arange(DW_QUERIES), q] = -2.0
+    top = np.argsort(-sims, axis=1)[:, :10]
+    share = float((group[top] == group[q][:, None]).mean())
+    check(share >= 0.5, f"deepwalk: {share:.3f} of the 10 nearest vertices "
+          f"in the query's group, want >= 0.5 (chance "
+          f"{1 / BLOG['groups']:.3f})")
+    fit_s = w2v.last_fit_timing["train"]
+    out = {"graph_s": graph_s, "walk_s": dw.walk_seconds,
+           "fit_wall_s": wall, "train_s": fit_s,
+           "words_per_s": w2v.words_per_sec, "pairs_per_s":
+           w2v.pairs_per_sec, "within": within, "across": across,
+           "nearest10_same_group": share,
+           "walks": BLOG["walks"], "published_walks": BLOG["published_walks"],
+           "first_loss": w2v.first_loss, "last_loss": w2v.last_loss,
+           "blocks": w2v.last_fit_timing["blocks"]}
+    log(f"[deepwalk] BlogCatalog-size SBM ({graph.n} vertices, {edges} "
+        f"edges, {BLOG['groups']} groups, {SBM_WITHIN:.0%} of edges within "
+        f"a group; built in {graph_s:.2f} s); walk length "
+        f"{BLOG['walk_length']}, window {BLOG['window']}, dimension "
+        f"{BLOG['dim']}; walks per vertex CUT from {BLOG['published_walks']} "
+        f"to {BLOG['walks']} (the Python sampler): walks "
+        f"{dw.walk_seconds:.2f} s on the host, fit {w2v.words_per_sec:.1f} "
+        f"words/s ({w2v.pairs_per_sec:.1f} pairs/s) over {fit_s:.3f} s on "
+        f"the card, {out['blocks']} blocks, first block's loss "
+        f"{w2v.first_loss:.4f}, last {w2v.last_loss:.4f}; cosine within a "
+        f"group {within:.4f}, across {across:.4f}; {share:.3f} of 10 nearest "
+        f"vertices from the query's group (chance "
+        f"{1 / BLOG['groups']:.3f}, gate 0.5); {smi}")
+    g = two_communities()
+    n2v = Node2Vec(window_size=4, vector_size=16, walk_length=30,
+                   num_walks=12, epochs=3, seed=1, p=0.5, q=2.0, device=dev)
+    n2v.fit(g)
+    same = float(np.mean([n2v.similarity(1, j) for j in range(2, 6)]))
+    diff = float(np.mean([n2v.similarity(1, 8 + j) for j in range(2, 6)]))
+    check(same > diff + 0.3, f"node2vec on the card: same {same} diff "
+          f"{diff}")
+    out["node2vec"] = {"same": same, "diff": diff, "margin": 0.3}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[deepwalk] Node2Vec p 0.5 q 2 on the two-community graph "
+        f"(tests/test_nlp_breadth.py:145): same {same:.4f} diff {diff:.4f} "
+        f"(gate +0.3); phase {out['seconds']:.1f} s")
+    return out
+
+
+def phase_serializer(smi: str, dev, sg, ft, sents):
+    """Phase 23: phase 19's skip-gram and phase 20's FastText written as
+    text, binary and the model zip, read back onto the card: tables bitwise
+    after the zip, text within its six digits, binary bitwise, the same
+    nearest words; a fit resumed from the skip-gram zip starts below the
+    first fit's first block."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.nlp import (read_word2vec_model,
+                                              read_word_vectors,
+                                              write_word2vec_model,
+                                              write_word_vectors)
+
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name, m in (("skipgram", sg), ("fasttext", ft)):
+            want = m.get_word_vector_matrix()
+            sizes = {}
+            for fmt in ("text", "binary"):
+                p = f"{d}/{name}.{fmt}"
+                write_word_vectors(m, p, binary=fmt == "binary")
+                sizes[fmt] = len(open(p, "rb").read())
+                r = read_word_vectors(p, binary=fmt == "binary")
+                got = r.lookup_table.syn0
+                check(r.vocab.words() == m.vocab.words(), f"{name} {fmt}: "
+                      f"words")
+                near = r.words_nearest("w1", 10) == m.words_nearest("w1", 10)
+                if fmt == "binary":
+                    check(np.array_equal(got, want), f"{name} binary: not "
+                          f"bitwise")
+                    check(near, f"{name} binary: words_nearest differs")
+                else:
+                    # six significant digits; the nearest words are logged,
+                    # not gated: a near tie may flip at the sixth digit
+                    check(bool(np.all(np.abs(got - want)
+                                      <= 5.1e-6 * np.abs(want))),
+                          f"{name} text: beyond six significant digits")
+                    sizes["text_nearest_equal"] = near
+            p = f"{d}/{name}.zip"
+            write_word2vec_model(m, p)
+            sizes["zip"] = len(open(p, "rb").read())
+            z = read_word2vec_model(p, device=dev)
+            check(z.device == dev or z.device.type == "cuda", "zip model "
+                  "not on the card")
+            for t in ("syn0", "syn1", "syn1neg"):
+                a, b = (getattr(z.lookup_table, t),
+                        getattr(m.lookup_table, t))
+                check((a is None) == (b is None)
+                      and (a is None or np.array_equal(a, b)),
+                      f"{name} zip: {t} not bitwise")
+            if name == "skipgram":
+                # (FastText's zip reads back as a Word2Vec over all V +
+                # bucket rows; its composed vectors are the files' above)
+                check(z.words_nearest("w1", 10) == m.words_nearest("w1", 10),
+                      f"{name} zip: words_nearest differs")
+            out[name] = {"bytes": sizes}
+            log(f"[serializer] {name}: text {sizes['text']} B, binary "
+                f"{sizes['binary']} B, zip {sizes['zip']} B; binary and zip "
+                f"bitwise with equal words_nearest, text within 6 digits "
+                f"(words_nearest equal: {sizes['text_nearest_equal']})")
+        z = read_word2vec_model(f"{d}/skipgram.zip", device=dev)
+    restored = z.lookup_table.syn0.copy()
+    z.set_sentence_iterator(sents[:W2V_CUT_WORDS // 20])
+    z.fit()
+    check(z.vocab.words() == sg.vocab.words()
+          and not np.array_equal(z.lookup_table.syn0, restored)
+          and z.table_device.type == "cuda", "resumed fit")
+    check(z.first_loss < sg.first_loss, f"resumed fit: first block's loss "
+          f"{z.first_loss} not below the first fit's {sg.first_loss}")
+    out["resume"] = {"first_loss": z.first_loss, "last_loss": z.last_loss,
+                     "fresh_first_loss": sg.first_loss}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[serializer] fit resumed from the skip-gram zip on the card: first "
+        f"block's loss {z.first_loss:.4f} (the first fit's "
+        f"{sg.first_loss:.4f}), last {z.last_loss:.4f}; phase "
+        f"{out['seconds']:.1f} s; {smi}")
+    return out
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
@@ -3080,8 +3741,14 @@ def main(argv=None) -> int:
         hs = phase_hs(smi, dev, sents)
         cbow16 = phase_cbow_bf16(smi, dev, sents)
         pv = phase_paragraph_vectors(smi, dev, sents)
-        del sents
         bert = phase_samediff_bert(smi, dev)
+        torch.cuda.empty_cache()
+        host, host_sg = phase_w2v_host(smi, dev, sents)
+        ft, ft_model = phase_fasttext(smi, dev, sents)
+        glove = phase_glove(smi, dev, sents)
+        deepwalk = phase_deepwalk(smi, dev)
+        ser = phase_serializer(smi, dev, host_sg, ft_model, sents)
+        del sents, host_sg, ft_model
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -3140,7 +3807,15 @@ def main(argv=None) -> int:
             "cbow_hs": hs["cbow"]["launches"],
             "cbow_bf16": cbow16["fit"]["launches"],
             "pv_dm": pv["dm"]["launches"],
-            "samediff_bert": bert["launches"]["embedding_bag"]},
+            "samediff_bert": bert["launches"]["embedding_bag"],
+            "host_cbow": host["cbow"]["launches"],
+            "host_pv_dm": host["pv-dm"]["launches"],
+            "fasttext_cold": ft["fits"][0]["launches"],
+            "fasttext_warm": ft["fits"][1]["launches"]},
+        **{f"fasttext_{name}": {k: ft["bag"][name][k] for k in (
+            "shape", "ms", "ms_warm", "host_us", "plain_ms", "library_ms",
+            "unfused_ms", "bound_ms", "bound_by", "bytes", "max_abs_err")}
+           for name in ("path", "long")},
         **{name: {k: bag_timing[name][k] for k in (
             "shape", "indices", "ms", "ms_warm", "plain_ms", "library_ms",
             "unfused_ms", "bound_ms", "bytes", "bytes_no_reuse")}
@@ -3195,7 +3870,12 @@ def main(argv=None) -> int:
                       "word2vec_hs": hs, "cbow_bf16": cbow16,
                       "paragraph_vectors": pv,
                       "samediff_bert": {k: v for k, v in bert.items()
-                                        if k != "launches"}}), flush=True)
+                                        if k != "launches"},
+                      "w2v_host": host,
+                      "fasttext": {k: v for k, v in ft.items()
+                                   if k != "bag"},
+                      "glove": glove, "deepwalk": deepwalk,
+                      "serializer": ser}, default=str), flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,22 +1,36 @@
 """NLP: Word2Vec (skip-gram and CBOW, negative sampling or hierarchical
-softmax) and ParagraphVectors (PV-DBOW, PV-DM), trained on the device.
+softmax), ParagraphVectors (PV-DBOW, PV-DM), FastText, GloVe and the graph
+vectors (DeepWalk, Node2Vec), trained on the device.
 
 - ``text``               tokenizers, sentence iterators, LabelAwareIterator
 - ``vocab``              VocabCache/VocabConstructor, Huffman, unigram table,
                          subsampling
 - ``lookup_table``       InMemoryLookupTable (syn0/syn1/syn1neg, numpy
                          between fits)
-- ``word2vec``           SequenceVectors engine and the Word2Vec builder front
+- ``word2vec``           SequenceVectors engine and the Word2Vec builder
+                         front: the device-windowed paths and the host pair
+                         path (``device_corpus = False``)
 - ``paragraph_vectors``  ParagraphVectors: PV-DBOW / PV-DM + infer_vector
+- ``fasttext``           FastText: subword (character n-gram) vectors, OOV
+                         queries
+- ``glove``              Glove: co-occurrence counting + AdaGrad
+- ``graph_vectors``      DeepWalk / Node2Vec over random walks
+- ``serializer``         WordVectorSerializer: text, word2vec.c binary, the
+                         model zip
 
-The training rounds and the ``embedding_bag`` kernel that CBOW and PV-DM
-launch live in ``ops/embeddings.py``. FastText, GloVe, the graph vectors
-(DeepWalk, Node2Vec) and the serializer are not ported: asking for one of
-them raises ``NotImplementedError``.
+The training rounds and the ``embedding_bag`` kernel that CBOW, PV-DM and
+FastText launch live in ``ops/embeddings.py``. Sharded tables (``mesh=``)
+are not ported: asking for them raises ``NotImplementedError``.
 """
 
+from .fasttext import FastText, char_ngrams, fasttext_hash
+from .glove import Glove
+from .graph_vectors import DeepWalk, Graph, Node2Vec, random_walks
 from .lookup_table import InMemoryLookupTable
 from .paragraph_vectors import ParagraphVectors
+from .serializer import (read_paragraph_vectors, read_word2vec_model,
+                         read_word_vectors, write_paragraph_vectors,
+                         write_word2vec_model, write_word_vectors)
 from .text import (CollectionSentenceIterator, CommonPreprocessor,
                    DefaultTokenizerFactory, LabelAwareIterator,
                    LineSentenceIterator, LowCasePreProcessor, SentenceIterator,
@@ -27,33 +41,15 @@ from .vocab import (VocabCache, VocabConstructor, VocabWord, build_huffman,
 from .word2vec import SequenceVectors, Word2Vec, WordVectors
 
 __all__ = [
-    "CollectionSentenceIterator", "CommonPreprocessor",
-    "DefaultTokenizerFactory", "InMemoryLookupTable", "LabelAwareIterator",
-    "LineSentenceIterator", "LowCasePreProcessor", "ParagraphVectors",
-    "SentenceIterator", "SequenceVectors", "TokenPreProcess", "Tokenizer",
-    "TokenizerFactory", "VocabCache", "VocabConstructor", "VocabWord",
-    "Word2Vec", "WordVectors", "build_huffman", "huffman_arrays",
-    "subsample_keep_probs", "unigram_int_table", "unigram_table",
+    "CollectionSentenceIterator", "CommonPreprocessor", "DeepWalk",
+    "DefaultTokenizerFactory", "FastText", "Glove", "Graph",
+    "InMemoryLookupTable", "LabelAwareIterator", "LineSentenceIterator",
+    "LowCasePreProcessor", "Node2Vec", "ParagraphVectors", "SentenceIterator",
+    "SequenceVectors", "TokenPreProcess", "Tokenizer", "TokenizerFactory",
+    "VocabCache", "VocabConstructor", "VocabWord", "Word2Vec", "WordVectors",
+    "build_huffman", "char_ngrams", "fasttext_hash", "huffman_arrays",
+    "random_walks", "read_paragraph_vectors", "read_word2vec_model",
+    "read_word_vectors", "subsample_keep_probs", "unigram_int_table",
+    "unigram_table", "write_paragraph_vectors", "write_word2vec_model",
+    "write_word_vectors",
 ]
-
-#: the JAX package's NLP names that the port has not ported, by module
-_NOT_PORTED = {
-    **dict.fromkeys(("FastText", "char_ngrams", "fasttext_hash"),
-                    "FastText (nlp/fasttext.py)"),
-    "Glove": "GloVe (nlp/glove.py)",
-    **dict.fromkeys(("DeepWalk", "Node2Vec", "Graph", "random_walks"),
-                    "the graph vectors (nlp/graph_vectors.py)"),
-    **dict.fromkeys(("read_word2vec_model", "write_word2vec_model",
-                     "read_word_vectors", "write_word_vectors",
-                     "read_paragraph_vectors", "write_paragraph_vectors"),
-                    "the serializer (nlp/serializer.py)"),
-}
-
-
-def __getattr__(name: str):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{name}: {_NOT_PORTED[name]} is not ported to "
-            f"deeplearning4j_tpu_torch yet (see ROADMAP.md, 'Modules to "
-            f"port')")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -24,8 +24,11 @@ once; subsampling compacts all three with one slot map on the device.
 the frozen tables with ``torch.autograd``, its negatives drawn from
 ``np.random.default_rng(seed)`` as in the JAX package, so the two agree.
 
-Not ported: the host pair path (``device_corpus = False``), refused at fit
-time.
+With ``device_corpus = False`` the documents go through the host pair path
+(``SequenceVectors._train_encoded``) as a custom stream, document by
+document in corpus order: PV-DM as CBOW windows with the label as the extra
+column, PV-DBOW as (label, word) pairs for every kept word, followed by the
+document's skip-gram pairs when ``train_word_vectors``.
 """
 
 from __future__ import annotations
@@ -40,8 +43,8 @@ from ..ops import embeddings as E
 from .text import DefaultTokenizerFactory, LabelAwareIterator, TokenizerFactory
 from .vocab import huffman_arrays, subsample_keep_probs, unigram_table
 from .word2vec import (SENT_PAD, SequenceVectors, _FitStats, _compact,
-                       _derive_windows, _not_ported, _subsample_slots,
-                       interpolate_rates, span_rates)
+                       _derive_windows, _subsample_slots, interpolate_rates,
+                       span_rates)
 
 
 class ParagraphVectors(SequenceVectors):
@@ -111,11 +114,10 @@ class ParagraphVectors(SequenceVectors):
     # -- training ------------------------------------------------------------
     def fit(self) -> None:
         """Build the vocabulary (labels first) and fresh tables, then train
-        on the device."""
+        on the device: from the device-resident corpus, or through the host
+        pair path when ``device_corpus`` is False."""
         if self._doc_iter is None:
             raise ValueError("no corpus: call iterate() first")
-        if not self.device_corpus:
-            raise _not_ported("the host pair path (device_corpus=False)")
         t0 = time.perf_counter()
         labels = self._doc_iter.labels
         docs_tokens = [self._tokenizer.create(s).get_tokens()
@@ -134,7 +136,40 @@ class ParagraphVectors(SequenceVectors):
                 doc_labels.append(lbl)
         total = sum(len(s) for s in corpus) * self.epochs * self.iterations
         self.last_fit_timing = {"prepare": time.perf_counter() - t0}
-        self._train_windowed_pv(corpus, doc_labels, total)
+        if self.device_corpus:
+            return self._train_windowed_pv(corpus, doc_labels, total)
+        self._train_encoded(corpus, stream_factory=self._host_stream(
+            corpus, doc_labels), total_words=total)
+
+    def _host_stream(self, corpus: List[np.ndarray], doc_labels: List[int]):
+        """The host stream of the documents (see the module docstring), a
+        function of (rng, keep) yielding (document words, *examples)."""
+        def stream(rng, keep):
+            for lbl, ids in zip(doc_labels, corpus):
+                if self.dm:
+                    wins = self._sentence_windows(ids, rng, keep)
+                    if wins is None:
+                        continue
+                    c, ctx, cmask = wins
+                    ctx = np.concatenate(
+                        [ctx, np.full((c.size, 1), lbl, dtype=np.int32)],
+                        axis=1)
+                    cmask = np.concatenate(
+                        [cmask, np.ones((c.size, 1), np.float32)], axis=1)
+                    yield ids.size, c, ctx, cmask
+                    continue
+                kept = (ids[rng.random(ids.size) < keep[ids]]
+                        if self.sampling > 0 else ids)
+                if kept.size == 0:
+                    continue
+                centers = np.full(kept.size, lbl, dtype=np.int32)
+                if self.train_word_vectors:
+                    pairs = self._sentence_pairs(ids, rng, keep)
+                    if pairs is not None:
+                        centers = np.concatenate([centers, pairs[0]])
+                        kept = np.concatenate([kept, pairs[1]])
+                yield ids.size, centers, kept
+        return stream
 
     @property
     def _dbow_pairs(self) -> int:
@@ -375,7 +410,7 @@ class ParagraphVectors(SequenceVectors):
             return xe.mean()
 
         for s in range(steps):
-            tgt, lab = _neg_targets(ids, rng, cdf, V, K)
+            tgt, lab = self._neg_targets(ids, rng, cdf, V, K)
             v = step(v, ns_loss, learning_rate * (1 - s / steps),
                      torch.from_numpy(tgt).to(dev),
                      torch.from_numpy(lab).to(dev))
@@ -390,16 +425,3 @@ def _pos_map(n_valid, u: torch.Tensor) -> torch.Tensor:
     rank = torch.where(iota < n_valid, u, 2.0 + iota.to(torch.float32))
     return torch.argsort(rank, stable=True).to(torch.int32)
 
-
-def _neg_targets(pos: np.ndarray, rng: np.random.Generator, cdf: np.ndarray,
-                 V: int, K: int):
-    """[N, 1+K] targets (column 0 the positive) and labels, negatives drawn
-    from the unigram^0.75 CDF, a collision with the positive shifted by
-    one, as the JAX package draws them."""
-    B = pos.shape[0]
-    negs = np.searchsorted(cdf, rng.random((B, K))).astype(np.int32)
-    negs = np.where(negs == pos[:, None], (negs + 1) % V, negs)
-    targets = np.concatenate([pos[:, None], negs], axis=1)
-    labels = np.zeros((B, 1 + K), dtype=np.float32)
-    labels[:, 0] = 1.0
-    return targets, labels

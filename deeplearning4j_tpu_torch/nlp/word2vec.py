@@ -56,9 +56,23 @@ uniforms, :func:`negpool_from_bits` the bits), drawn from
 JAX's threefry draws; the tests hand the JAX package's draws to these
 functions instead.
 
+**The host pair path** (``device_corpus = False``, and every custom stream:
+ParagraphVectors' and FastText's host streams), :meth:`SequenceVectors.
+_train_encoded`. A producer thread (:func:`common.background.prefetch_iter`)
+makes the pairs on the host (skip-gram: :func:`native.sg_pairs`, the C++
+helper, seeded from ``np.random.default_rng(seed)`` as in the JAX package, so
+the pairs match it bit for bit; CBOW: :meth:`SequenceVectors.
+_sentence_windows` in numpy), buffers them into flushes of whole blocks of
+``MAX_BLOCK_ROUNDS`` rounds of ``batch_size`` examples (ids as uint16 when the
+table has at most 2^16 rows, else int32), computes each flush's learning rate
+from the corpus words it has consumed, and stages each block's columns to the
+device from pinned memory. The consumer (:meth:`SequenceVectors.
+_host_block`) draws the block's negatives on the device (:func:`
+bulk_targets`) and runs its rounds: skip-gram or CBOW (one ``embedding_bag``
+launch per round), negative sampling or hierarchical softmax.
+
 Not ported here, and refused with an error rather than substituted: sharded
-tables (``mesh=``) and the host pair path (``device_corpus = False``).
-ROADMAP.md lists them.
+tables (``mesh=``). ROADMAP.md lists them.
 """
 
 from __future__ import annotations
@@ -69,6 +83,8 @@ from typing import Iterable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import native
+from ..common.background import prefetch_iter
 from ..common.environment import resolve_device
 from ..common.profiler import OpProfiler
 from ..ops import embeddings as E
@@ -223,8 +239,8 @@ class SequenceVectors(WordVectors):
         self.workers = workers
         self.table_dtype = table_dtype
         self._special_tokens = list(special_tokens)
-        #: the JAX package's switch to its host pair path; only the device
-        #: path is ported, so False is refused at fit time
+        #: False trains through the host pair path (``_train_encoded``), as
+        #: in the JAX package
         self.device_corpus = True
         self.device = resolve_device(device)
         self.words_per_sec: float = 0.0
@@ -237,9 +253,12 @@ class SequenceVectors(WordVectors):
         #: the last fit: seconds of "prepare" (tokenizing, counting,
         #: encoding; host) and "train" (the words_per_sec window), its
         #: "blocks", the skip-gram counts read back ("readbacks") and the
-        #: host's seconds waiting for them ("readback_wait")
+        #: host's seconds waiting for them ("readback_wait"); on the host
+        #: pair path also the consumer's seconds waiting for the producer
+        #: ("producer_wait")
         self.last_fit_timing = {}
         self._corpus_dev_cache = None
+        self._ntable_cache = None
         self._negpool_cache = None
         self._hs_cache = None
         super().__init__(VocabCache(), InMemoryLookupTable(0, layer_size))
@@ -332,8 +351,7 @@ class SequenceVectors(WordVectors):
                 "negative or raise NEG_POOL_SIZE")
         key = self._vocab_key() + (self.negative, self.seed)
         if self._negpool_cache is None or self._negpool_cache[0] != key:
-            ntable = torch.from_numpy(unigram_int_table(self.vocab)).to(
-                self.device)
+            ntable = self._ntable()
             gen = torch.Generator(device=self.device)
             gen.manual_seed((self.seed ^ 0x5DEECE66) & 0x7FFFFFFF)
             bits = torch.randint(-2 ** 31, 2 ** 31, (self.NEG_POOL_SIZE,),
@@ -341,6 +359,15 @@ class SequenceVectors(WordVectors):
                                  device=self.device)
             self._negpool_cache = (key, negpool_from_bits(ntable, bits))
         return self._negpool_cache[1]
+
+    def _ntable(self) -> torch.Tensor:
+        """The 2^20-slot unigram^0.75 table on the device (int32), uploaded
+        once per vocabulary."""
+        key = self._vocab_key()
+        if self._ntable_cache is None or self._ntable_cache[0] != key:
+            self._ntable_cache = (key, torch.from_numpy(
+                unigram_int_table(self.vocab)).to(self.device))
+        return self._ntable_cache[1]
 
     def _hs_tables(self):
         """The Huffman ``(points, codes, mask)`` tables ``[V, L]`` on the
@@ -568,9 +595,8 @@ class SequenceVectors(WordVectors):
     # -- the fit -------------------------------------------------------------
     def _train_windowed(self, corpus: List[np.ndarray],
                         total_words: Optional[int] = None) -> None:
-        """Train the tables over the encoded corpus on ``self.device``."""
-        if not self.device_corpus:
-            raise _not_ported("the host pair path (device_corpus=False)")
+        """Train the tables over the encoded corpus on ``self.device``, the
+        corpus resident there."""
         dev = self.device
         keep = subsample_keep_probs(self.vocab, self.sampling)
         raw_words = sum(len(s) for s in corpus)
@@ -638,6 +664,288 @@ class SequenceVectors(WordVectors):
                                     readbacks=stats.readbacks,
                                     readback_wait=stats.readback_wait)
         self._tables_from_device(syn0, syn1)
+
+    # -- the host pair path --------------------------------------------------
+    def _reduced_windows(self, ids: np.ndarray, rng: np.random.Generator,
+                         keep: np.ndarray):
+        """One sentence after frequent-word subsampling, with a reduced
+        window b ~ U[1, W] drawn per position (the JAX package's numpy
+        draws, in its order): (ids [n], neighbour positions [n, 2W] clipped
+        to the sentence, valid [n, 2W]), or None when fewer than two words
+        survive."""
+        if self.sampling > 0:
+            ids = ids[rng.random(ids.size) < keep[ids]]
+        n = ids.size
+        if n < 2:
+            return None
+        W = self.window
+        b = rng.integers(1, W + 1, size=n)
+        offs = np.concatenate([np.arange(-W, 0), np.arange(1, W + 1)])
+        pos = np.arange(n)[:, None] + offs[None, :]
+        valid = ((np.abs(offs)[None, :] <= b[:, None])
+                 & (pos >= 0) & (pos < n))
+        return ids, np.clip(pos, 0, n - 1), valid
+
+    def _sentence_pairs(self, ids: np.ndarray, rng: np.random.Generator,
+                        keep: np.ndarray):
+        """Skip-gram's (centers, contexts) int32 of one sentence, or
+        None."""
+        win = self._reduced_windows(ids, rng, keep)
+        if win is None:
+            return None
+        ids, pos, valid = win
+        return np.broadcast_to(ids[:, None], valid.shape)[valid], \
+            ids[pos][valid]
+
+    def _sentence_windows(self, ids: np.ndarray, rng: np.random.Generator,
+                          keep: np.ndarray):
+        """CBOW's examples of one sentence, or None: (centers [n], contexts
+        [n, 2W] int32, their mask [n, 2W] float32), each center's whole
+        reduced window."""
+        win = self._reduced_windows(ids, rng, keep)
+        if win is None:
+            return None
+        ids, pos, valid = win
+        return (ids, (ids[pos] * valid).astype(np.int32),
+                valid.astype(np.float32))
+
+    def _host_bits(self, shape, blk_id: int,
+                   gen: torch.Generator) -> torch.Tensor:
+        """The random bits (int32, uint32 patterns) of one host block's
+        negatives, ``shape`` = [R, B, K], drawn on the device. (The JAX
+        block draws them from its key folded with ``blk_id``; tests hand
+        those bits in here.)"""
+        return torch.randint(-2 ** 31, 2 ** 31, tuple(shape),
+                             dtype=torch.int32, generator=gen,
+                             device=self.device)
+
+    def _host_block(self, syn0: torch.Tensor, syn1: torch.Tensor, cols,
+                    bits: Optional[torch.Tensor]):
+        """One host block, the counterpart of the JAX package's
+        ``_make_block``: R rounds of B = ``batch_size`` examples, updating
+        ``syn0``/``syn1`` in place. ``cols`` are the staged columns, for
+        skip-gram (centers, contexts, valid count per round, learning rate
+        per round), for CBOW (contexts [R, B, W'], their 0/1 mask, centers,
+        valid counts, rates); ids int32 or uint16 carried as int16.
+        ``bits`` [R, B, K] are the negatives' bits (None under
+        hierarchical softmax). Returns the pair-weighted mean loss and the
+        examples trained (0-dim device tensors)."""
+        is_cbow = self.algorithm == "cbow"
+        if is_cbow:
+            ctx, cm, c, nv, lrs = cols
+            ctx, cm = _widen(ctx), cm.to(torch.float32)
+        else:
+            c, x, nv, lrs = cols
+            x = _widen(x)
+        c = _widen(c)
+        R, B = c.shape
+        pm_all = (torch.arange(B, device=c.device)[None, :]
+                  < nv[:, None]).to(torch.float32)
+        lab, hs = self._round_inputs(B)
+        if hs is None:
+            tgt_all = bulk_targets(self._ntable(), bits,
+                                   c if is_cbow else x, len(self.vocab))
+        losses = []
+        for r in range(R):
+            if is_cbow and hs is not None:
+                points, codes, pmask = hs
+                cr = c[r]
+                losses.append(E.cbow_hs(syn0, syn1, ctx[r], cm[r],
+                                        points[cr], codes[cr], pmask[cr],
+                                        lrs[r], pm_all[r]))
+            elif is_cbow:
+                losses.append(E.cbow(syn0, syn1, ctx[r], cm[r], tgt_all[r],
+                                     lab, lrs[r], pm_all[r]))
+            elif hs is not None:
+                points, codes, pmask = hs
+                xr = x[r]
+                losses.append(E.skipgram_hs(syn0, syn1, c[r], points[xr],
+                                            codes[xr], pmask[xr], lrs[r],
+                                            pm_all[r]))
+            else:
+                losses.append(E.skipgram(syn0, syn1, c[r], tgt_all[r], lab,
+                                         lrs[r], pm_all[r]))
+        return self._block_result(losses, nv.to(torch.float32))
+
+    def _default_stream(self, corpus: List[np.ndarray]):
+        """The host stream of a plain fit, a function of (rng, keep)
+        yielding (corpus words consumed, *examples): CBOW windows from
+        :meth:`_sentence_windows`; skip-gram pairs from the native helper,
+        one call per chunk of 2048 sentences, each seeded from ``rng``."""
+        def stream(rng, keep):
+            if self.algorithm == "cbow":
+                for ids in corpus:
+                    wins = self._sentence_windows(ids, rng, keep)
+                    if wins is not None:
+                        yield (ids.size,) + wins
+                return
+            chunk_sents = 2048
+            keep_arr = keep if self.sampling > 0 else None
+            for s0 in range(0, len(corpus), chunk_sents):
+                chunk = corpus[s0:s0 + chunk_sents]
+                offsets = np.zeros(len(chunk) + 1, np.int64)
+                np.cumsum([a.size for a in chunk], out=offsets[1:])
+                c, x = native.sg_pairs(np.concatenate(chunk), offsets,
+                                       self.window, keep_arr,
+                                       int(rng.integers(1, 2 ** 63 - 1)))
+                if c.size:
+                    yield int(offsets[-1]), c, x
+        return stream
+
+    def _train_encoded(self, corpus: List[np.ndarray], stream_factory=None,
+                       total_words: Optional[int] = None) -> None:
+        """The fit over an encoded corpus. A plain fit with
+        ``device_corpus`` takes the device-windowed path
+        (:meth:`_train_windowed`); a custom stream (``stream_factory(rng,
+        keep)`` yielding (words consumed, centers, contexts) for skip-gram
+        or (words consumed, centers, contexts, mask) for CBOW), or
+        ``device_corpus = False``, the host pair path: a producer thread
+        makes, buffers and stages the blocks, this thread trains them."""
+        if stream_factory is None and self.device_corpus:
+            return self._train_windowed(corpus, total_words)
+        if stream_factory is None:
+            stream_factory = self._default_stream(corpus)
+        dev = self.device
+        rng = np.random.default_rng(self.seed)
+        keep = subsample_keep_probs(self.vocab, self.sampling)
+        B, R = self.batch_size, self.MAX_BLOCK_ROUNDS
+        K = self.negative
+        if total_words is None:
+            total_words = (sum(len(s) for s in corpus)
+                           * self.epochs * self.iterations)
+        n_rows = self.lookup_table.vocab_size or len(self.vocab)
+        idx_dt = np.uint16 if n_rows <= (1 << 16) else np.int32
+        is_cbow = self.algorithm == "cbow"
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(self.seed)
+        syn0, syn1 = self._tables_to_device()
+        if not self.use_hs:
+            self._ntable()
+        stats = _FitStats()
+        prod = {"words_seen": 0}
+        t0 = time.perf_counter()
+
+        def lr_now() -> np.float32:
+            # linear decay by corpus words consumed, computed when a flush
+            # is made
+            frac = min(prod["words_seen"] / max(total_words, 1), 1.0)
+            return np.float32(max(self.learning_rate * (1 - frac),
+                                  self.min_learning_rate))
+
+        def flush(examples):
+            """The blocks of a flush: the examples padded to whole blocks,
+            the valid count of each round, the flush's learning rate."""
+            n = examples[0].shape[0]
+            pad = (-n) % (B * R)
+            rounds = (n + pad) // B
+            nv = np.minimum(np.maximum(n - np.arange(rounds) * B, 0),
+                            B).astype(np.int32)
+            lr = lr_now()
+            shaped = []
+            for a in examples:
+                a = a.astype(np.uint8 if a.dtype == np.float32 else idx_dt)
+                a = np.pad(a, ((0, pad),) + ((0, 0),) * (a.ndim - 1))
+                shaped.append(a.reshape((rounds, B) + a.shape[1:]))
+            if is_cbow:          # the JAX block's column order
+                c3, ctx3, cm3 = shaped
+                shaped = [ctx3, cm3, c3]
+            for r in range(0, rounds, R):
+                sl = slice(r, r + R)
+                yield _stage([a[sl] for a in shaped]
+                             + [nv[sl], np.full(R, lr, np.float32)], dev)
+
+        def work_items():
+            # mid-fit flushes emit whole blocks only and carry the rest
+            # forward, across epochs too; one padded tail runs at the end
+            chunk = R * B
+            buf, buffered = [], 0
+            for _epoch in range(self.epochs):
+                for item in stream_factory(rng, keep):
+                    nwords, ex = item[0], item[1:]
+                    prod["words_seen"] += nwords * self.iterations
+                    for _ in range(self.iterations):
+                        buf.append(ex)
+                        buffered += ex[0].shape[0]
+                    if buffered >= chunk:
+                        cat = [np.concatenate([e[i] for e in buf])
+                               for i in range(len(ex))]
+                        n_full = (cat[0].shape[0] // chunk) * chunk
+                        yield from flush([a[:n_full] for a in cat])
+                        buf = [tuple(a[n_full:] for a in cat)]
+                        buffered = cat[0].shape[0] - n_full
+            if buffered:
+                yield from flush([np.concatenate([e[i] for e in buf])
+                                  for i in range(len(buf[0]))])
+
+        n_blocks = 0
+        wait = 0.0
+        blocks = prefetch_iter(work_items(), maxsize=8)
+        try:
+            while True:
+                tw = time.perf_counter()
+                cols = next(blocks, None)
+                wait += time.perf_counter() - tw
+                if cols is None:
+                    break
+                bits = None
+                if not self.use_hs:
+                    bits = self._host_bits((R, B, K), n_blocks, gen)
+                stats.add(*self._host_block(syn0, syn1, cols, bits))
+                n_blocks += 1
+        finally:
+            blocks.close()
+        self.last_fit_timing["producer_wait"] = wait
+        self._finish_fit(stats, prod["words_seen"], t0, n_blocks, syn0, syn1)
+
+    @staticmethod
+    def _neg_targets(pos: np.ndarray, rng: np.random.Generator,
+                     cdf: np.ndarray, V: int, K: int):
+        """[N, 1+K] targets (column 0 the positive) and labels, negatives
+        drawn from the unigram^0.75 CDF, a collision with the positive
+        shifted by one, as the JAX package draws them."""
+        B = pos.shape[0]
+        negs = np.searchsorted(cdf, rng.random((B, K))).astype(np.int32)
+        negs = np.where(negs == pos[:, None], (negs + 1) % V, negs)
+        targets = np.concatenate([pos[:, None], negs], axis=1)
+        labels = np.zeros((B, 1 + K), dtype=np.float32)
+        labels[:, 0] = 1.0
+        return targets, labels
+
+
+def _stage(arrays, device: torch.device):
+    """A host block's columns on ``device``: uint16 ids carried as int16
+    (:func:`_widen` restores them there), on the card copied from pinned
+    memory without blocking. PyTorch's pinned-memory allocator records the
+    copy and hands the block out again only after it has completed, so the
+    host buffer outlives its copy."""
+    out = []
+    for a in arrays:
+        t = torch.from_numpy(np.ascontiguousarray(
+            a.view(np.int16) if a.dtype == np.uint16 else a))
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        out.append(t)
+    return out
+
+
+def _widen(ids: torch.Tensor) -> torch.Tensor:
+    """int32 ids from their wire type: int32 as they are, uint16 carried as
+    int16 masked back to [0, 65535] (a plain widening would turn ids from
+    2^15 on negative)."""
+    if ids.dtype == torch.int16:
+        return ids.to(torch.int32) & 0xFFFF
+    return ids.to(torch.int32)
+
+
+def bulk_targets(ntable: torch.Tensor, bits: torch.Tensor, pos: torch.Tensor,
+                 V: int) -> torch.Tensor:
+    """A host block's targets [R, B, 1+K] int32: column 0 the positives
+    ``pos`` [R, B], then negatives ``ntable[bits & (T - 1)]`` from the
+    block's bits [R, B, K], a negative equal to its positive shifted to
+    ``(neg + 1) % V`` (the JAX block's ``bulk_targets``)."""
+    negs = negpool_from_bits(ntable, bits)
+    negs = torch.where(negs == pos[..., None], (negs + 1) % V, negs)
+    return torch.cat([pos[..., None], negs], dim=-1)
 
 
 class PendingCount:
@@ -935,4 +1243,4 @@ class Word2Vec(SequenceVectors):
                                  "min_word_frequency or supply more text")
         corpus = self._encode_corpus(self._token_stream())
         self.last_fit_timing = {"prepare": time.perf_counter() - t0}
-        self._train_windowed(corpus)
+        self._train_encoded(corpus)

@@ -31,7 +31,9 @@ against the port graph's own variables.
 ``word2vec_state_from_numpy`` carries a JAX Word2Vec's vocabulary (its words
 in index order and their counts) and its ``syn0`` and output tables
 (``syn1neg`` for negative sampling, ``syn1`` for hierarchical softmax) into a
-port Word2Vec, with the same checks.
+port Word2Vec, with the same checks; ``fasttext_state_from_numpy`` does the
+same for FastText (tables of V + bucket rows, the subword tables rebuilt from
+the words) and ``glove_state_from_numpy`` for GloVe (w, w~ and the biases).
 """
 
 from __future__ import annotations
@@ -140,6 +142,65 @@ def multilayer_state_from_numpy(net, params: Sequence[Mapping[str, np.ndarray]],
     return net
 
 
+def _vocab_from(kind: str, words: Sequence[str], counts) -> VocabCache:
+    """A vocabulary of ``words`` in index order with their integer
+    ``counts``; raises when the words repeat or the counts do not fit."""
+    words = [str(w) for w in words]
+    counts = np.asarray(counts)
+    V = len(words)
+    if len(set(words)) != V:
+        raise ValueError(f"{kind} state: the words repeat")
+    if counts.shape != (V,) or not np.issubdtype(counts.dtype, np.integer):
+        raise ValueError(f"{kind} state: counts must be {V} integers, got "
+                         f"{counts.dtype} {counts.shape}")
+    vocab = VocabCache()
+    for w, c in zip(words, counts.tolist()):
+        vocab.add(VocabWord(w, int(c)))
+    return vocab
+
+
+def _checked_tables(kind: str, tables: Mapping[str, Optional[np.ndarray]],
+                    shapes: Mapping[str, tuple]) -> Dict[str, np.ndarray]:
+    """float32 copies of the given ``tables``, each of its ``shapes``
+    entry; raises on another shape or dtype."""
+    out = {}
+    for name, a in tables.items():
+        if a is None:
+            continue
+        a = np.asarray(a)
+        if a.shape != shapes[name]:
+            raise ValueError(f"{kind} state: {name} shape {a.shape} != "
+                             f"{shapes[name]}")
+        if a.dtype != np.float32:
+            raise ValueError(f"{kind} state: {name} dtype {a.dtype} != "
+                             f"float32")
+        out[name] = np.array(a, dtype=np.float32)
+    return out
+
+
+def _install_tables(model, kind: str, words, counts, rows: int,
+                    tables: Mapping[str, Optional[np.ndarray]]) -> None:
+    """The shared part of the Word2Vec-family installs: vocabulary, the
+    needed output tables present, every table ``[rows, layer_size]``."""
+    vocab = _vocab_from(kind, words, counts)
+    D = model.layer_size
+    tables = dict(tables)
+    for name, need in (("syn1neg", model.negative > 0),
+                       ("syn1", model.use_hs)):
+        if need and tables.get(name) is None:
+            raise ValueError(f"{kind} state: this model needs {name}")
+        if not need:
+            tables[name] = None
+    checked = _checked_tables(kind, tables,
+                              dict.fromkeys(tables, (rows, D)))
+    if model.use_hs:
+        build_huffman(vocab)
+    table = InMemoryLookupTable(rows, D, seed=model.seed)
+    for name in ("syn0", "syn1neg", "syn1"):
+        setattr(table, name, checked.get(name))
+    model.vocab, model.lookup_table = vocab, table
+
+
 def word2vec_state_from_numpy(w2v, words: Sequence[str], counts,
                               syn0: np.ndarray,
                               syn1neg: Optional[np.ndarray] = None,
@@ -152,41 +213,42 @@ def word2vec_state_from_numpy(w2v, words: Sequence[str], counts,
     when ``w2v.use_hs``; the Huffman tree is rebuilt from the counts, as
     the JAX package builds it). Raises when the words repeat, a needed
     table is missing, or the shapes, lengths or dtypes do not match."""
-    words = [str(w) for w in words]
-    counts = np.asarray(counts)
-    V, D = len(words), w2v.layer_size
-    if len(set(words)) != V:
-        raise ValueError("word2vec state: the words repeat")
-    if counts.shape != (V,) or not np.issubdtype(counts.dtype, np.integer):
-        raise ValueError(f"word2vec state: counts must be {V} integers, got "
-                         f"{counts.dtype} {counts.shape}")
-    tables = {"syn0": syn0, "syn1neg": syn1neg, "syn1": syn1}
-    for name, need in (("syn1neg", w2v.negative > 0), ("syn1", w2v.use_hs)):
-        if need and tables[name] is None:
-            raise ValueError(f"word2vec state: this model needs {name}")
-        if not need:
-            tables[name] = None
-    for name, a in tables.items():
-        if a is None:
-            continue
-        a = np.asarray(a)
-        if a.shape != (V, D):
-            raise ValueError(f"word2vec state: {name} shape {a.shape} != "
-                             f"{(V, D)}")
-        if a.dtype != np.float32:
-            raise ValueError(f"word2vec state: {name} dtype {a.dtype} != "
-                             f"float32")
-    vocab = VocabCache()
-    for w, c in zip(words, counts.tolist()):
-        vocab.add(VocabWord(w, int(c)))
-    if w2v.use_hs:
-        build_huffman(vocab)
-    table = InMemoryLookupTable(V, D, seed=w2v.seed)
-    for name, a in tables.items():
-        setattr(table, name, None if a is None
-                else np.array(a, dtype=np.float32))
-    w2v.vocab, w2v.lookup_table = vocab, table
+    _install_tables(w2v, "word2vec", words, counts, len(words),
+                    {"syn0": syn0, "syn1neg": syn1neg, "syn1": syn1})
     return w2v
+
+
+def fasttext_state_from_numpy(ft, words: Sequence[str], counts,
+                              syn0: np.ndarray,
+                              syn1neg: Optional[np.ndarray] = None,
+                              syn1: Optional[np.ndarray] = None):
+    """As :func:`word2vec_state_from_numpy` for the port FastText ``ft``:
+    the tables have ``len(words) + ft.bucket`` rows (the words', then the
+    hashed n-grams'), and the subword tables are built from the words, so
+    queries (out-of-vocabulary words too) and a resumed ``fit`` follow."""
+    _install_tables(ft, "fasttext", words, counts, len(words) + ft.bucket,
+                    {"syn0": syn0, "syn1neg": syn1neg, "syn1": syn1})
+    ft.build_subwords()
+    return ft
+
+
+def glove_state_from_numpy(glove, words: Sequence[str], counts,
+                           w: np.ndarray, wc: np.ndarray, b: np.ndarray,
+                           bc: np.ndarray):
+    """Install a JAX Glove's vocabulary and its trained ``w``, ``w~``
+    (``[V, layer_size]``) and biases (``[V]``), float32, into the port
+    ``glove``: the query table is ``w + w~``, as after a fit. Returns
+    ``glove``."""
+    vocab = _vocab_from("glove", words, counts)
+    V, D = len(vocab), glove.layer_size
+    t = _checked_tables("glove", {"w": w, "wc": wc, "b": b, "bc": bc},
+                        {"w": (V, D), "wc": (V, D), "b": (V,), "bc": (V,)})
+    table = InMemoryLookupTable(V, D, seed=glove.seed)
+    table.syn0 = t["w"] + t["wc"]
+    glove.vocab, glove.lookup_table = vocab, table
+    glove._w, glove._wc, glove._bias, glove._bias_c = (
+        t["w"], t["wc"], t["b"], t["bc"])
+    return glove
 
 
 def samediff_state_from_numpy(sd, params: Mapping[str, np.ndarray],

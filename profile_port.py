@@ -6,6 +6,8 @@ one encoder forward of the port spends its time, on the card.
     python3 profile_port.py --train  # training step (chip_smoke phase 6)
     python3 profile_port.py --mln    # VGG16 training step (phase 12)
     python3 profile_port.py --word2vec  # one skip-gram and one CBOW block
+    python3 profile_port.py --fasttext  # one FastText block (phase 20)
+    python3 profile_port.py --glove     # one GloVe block (phase 21)
     python3 profile_port.py --encoder   # one encoder forward (phase 9)
     python3 profile_port.py --flash     # the bf16 flash kernel as B*H grows
     python3 profile_port.py --bert      # one SameDiff BERT-base step
@@ -69,6 +71,15 @@ enqueue time per device operation), and whether two runs of the
 block from the same tables give bitwise equal tables, with ``index_add_``'s
 atomics and with ``torch.use_deterministic_algorithms``. The trace goes to
 ``chiprun_out/profile_port_w2v_trace.json.gz``.
+
+With ``--fasttext`` it fits chip_smoke phase 20's FastText once and
+profiles one block from the stream's start (pack, then the rounds of 8190
+pairs, each one embedding_bag launch on [8190, G] bags of the [V + 100,000,
+100] table), and with ``--glove`` it counts phase 21's co-occurrences on the
+host (timed) and profiles the first block of 64 AdaGrad rounds; both with the
+``--word2vec`` report (device busy share, device time by class, device
+operations per round, host time per operation; traces
+``chiprun_out/profile_port_{fasttext,glove}_trace.json.gz``).
 
 With ``--encoder`` it builds the BERT-base-width encoder ``chip_smoke.py``
 serves (seeded random weights, bf16 compute, float32 parameters) and prints
@@ -629,6 +640,86 @@ def word2vec_main(dev, smi: str, name: str) -> int:
     return 0
 
 
+def fasttext_main(dev, smi: str, name: str) -> int:
+    """chip_smoke phase 20's FastText (bench.py --config fasttext with
+    subsampling at cs.FT_SAMPLING), fitted once; then one block from the
+    stream's start profiled: the pack and the ceil(count / B) rounds, each
+    a CBOW round of the centers' subword rows (one embedding_bag launch)."""
+    from deeplearning4j_tpu_torch.nlp import FastText
+
+    sents = cs.zipf_sentences(cs.FT_WORDS)
+    ft = (FastText.builder().min_word_frequency(5).layer_size(100)
+          .negative_sample(5).epochs(1).batch_size(8192).seed(42)
+          .bucket(cs.FT_BUCKET).device(dev).iterate(sents).build())
+    ft.sampling = cs.FT_SAMPLING
+    t0 = time.perf_counter()
+    ft.fit()
+    fit_s = time.perf_counter() - t0
+    ft.algorithm = "skipgram"          # the windowed loop's sizing, as fit
+    S = ft._window_span
+    ids, sent, n_valid, gen = _stream(ft, dev, S)
+    b = torch.randint(1, ft.window + 1, (S,), generator=gen, device=dev)
+    negpool = ft._negpool()
+    packed_c, packed_x, pending = ft._sg_pack(ids, sent, n_valid, 0, b)
+    count = pending.get()
+    B, G = ft._round_pairs, ft._subword_ids.shape[1]
+    rounds = -(-count // B)
+    tables = [torch.from_numpy(t).to(dev) for t in (
+        ft.lookup_table.syn0, ft.lookup_table.syn1neg)]
+
+    def block():
+        return ft._sg_block(tables[0], tables[1], packed_c, packed_x, count,
+                            negpool, 0.0125, 0.0124, 0)
+
+    out, _ = _block_report(
+        f"one FastText block ({rounds} rounds of {B} pairs, bags [{B}, {G}] "
+        f"of [{tables[0].shape[0]}, 100])", block, rounds, smi,
+        "profile_port_fasttext_trace.json.gz")
+    out.update(count=count, pairs_per_round=B, G=G, fit_s=fit_s,
+               fit_words_per_s=ft.words_per_sec, vocab=len(ft.vocab))
+    result = {"device": name, "nvidia_smi": smi,
+              **{k: v for k, v in out.items() if k != "kernels"}}
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+def glove_main(dev, smi: str, name: str) -> int:
+    """chip_smoke phase 21's GloVe (bench.py --config glove): the host
+    co-occurrence count timed, then the first epoch's first block of 64
+    AdaGrad rounds profiled from the initial tables."""
+    from deeplearning4j_tpu_torch.nlp import Glove
+
+    sents = cs.zipf_sentences(cs.GLOVE_WORDS)
+    g = (Glove.builder().min_word_frequency(5).layer_size(100).window_size(5)
+         .epochs(5).batch_size(8192).seed(42).device(dev).iterate(sents)
+         .build())
+    corpus = g._encoded_corpus()
+    t0 = time.perf_counter()
+    host_trip = g._triplets(corpus)
+    count_s = time.perf_counter() - t0
+    rng = np.random.default_rng(g.seed)
+    init = g._initial_tables(rng)
+    tables = [torch.from_numpy(a).to(dev) for a in init]
+    trip = [torch.from_numpy(a).to(dev) for a in host_trip]
+    R = g.MAX_BLOCK_ROUNDS
+    cols = [c[:R] for c in g._epoch_columns(trip, rng)]
+    print(f"[glove] vocabulary {len(g.vocab)}, {host_trip[0].size} "
+          f"triplets counted on the host in {count_s:.3f} s "
+          f"({sum(c.size for c in corpus)} words); {smi}", flush=True)
+
+    def block():
+        return g._block(tables, *cols)
+
+    out, _ = _block_report(f"one GloVe block ({R} rounds of {g.batch_size} "
+                           f"triplets)", block, R, smi,
+                           "profile_port_glove_trace.json.gz")
+    result = {"device": name, "nvidia_smi": smi, "cooccur_s": count_s,
+              "nnz": int(host_trip[0].size), "vocab": len(g.vocab),
+              **{k: v for k, v in out.items() if k != "kernels"}}
+    print(json.dumps(result), flush=True)
+    return 0
+
+
 def encoder_main(dev, smi: str, name: str) -> int:
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 
@@ -913,6 +1004,11 @@ def main() -> int:
     if "--word2vec" in sys.argv[1:]:
         cs.phase_build()
         return word2vec_main(dev, smi, name)
+    if "--fasttext" in sys.argv[1:]:
+        cs.phase_build()
+        return fasttext_main(dev, smi, name)
+    if "--glove" in sys.argv[1:]:
+        return glove_main(dev, smi, name)
     if "--train" in sys.argv[1:]:
         cs.phase_build()
         return train_main(dev, smi, name)

@@ -109,6 +109,16 @@ def test_import_in_fresh_process_pulls_no_jax():
             "registry.all_ops()\n"
             "from deeplearning4j_tpu_torch.util import "
             "samediff_state_from_numpy\n"
+            "from deeplearning4j_tpu_torch.nlp import (FastText, Glove, "
+            "DeepWalk, Node2Vec, Graph, random_walks, char_ngrams, "
+            "fasttext_hash, read_word2vec_model, write_word2vec_model, "
+            "read_word_vectors, write_word_vectors, read_paragraph_vectors, "
+            "write_paragraph_vectors)\n"
+            "from deeplearning4j_tpu_torch.util import "
+            "fasttext_state_from_numpy, glove_state_from_numpy\n"
+            "from deeplearning4j_tpu_torch import native\n"
+            "from deeplearning4j_tpu_torch.common.background import "
+            "prefetch_iter\n"
             "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', "
             "'tensorflow') or m == 'deeplearning4j_tpu' or m.startswith(("
             "'jax.', 'deeplearning4j_tpu.', 'tensorflow.', "
@@ -162,6 +172,37 @@ def test_word2vec_defaults_to_the_card_and_raises_without_one():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ParagraphVectors.builder().dm(True).build()
     assert ParagraphVectors(device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("name", ["FastText", "Glove", "DeepWalk",
+                                  "Node2Vec"])
+def test_nlp_models_default_to_the_card_and_raise_without_one(name):
+    import deeplearning4j_tpu_torch.nlp as tnlp
+
+    cls = getattr(tnlp, name)
+    if torch.cuda.is_available():
+        assert cls().device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cls()
+    if hasattr(cls, "builder") and name != "Node2Vec":
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cls.builder().build()
+        assert cls.builder().device("cpu").build().device.type == "cpu"
+    assert cls(device="cpu").device.type == "cpu"
+
+
+def test_native_helper_is_the_ports_own_source():
+    """The port builds its own copy of the C++ helper, into its own build
+    directory, never a file of the JAX package; importing it builds
+    nothing."""
+    from deeplearning4j_tpu_torch import native
+
+    src = native.SOURCE.resolve()
+    assert src.exists() and src.suffix == ".cpp"
+    assert src.is_relative_to(PORT.resolve())
+    assert not src.is_relative_to((ROOT / "deeplearning4j_tpu").resolve())
+    assert native.LIBRARY.resolve().parent == (PORT / "_build").resolve()
 
 
 def test_import_frozen_tf_defaults_to_the_card_and_raises_without_one():

@@ -388,43 +388,19 @@ def test_state_carry_over_refuses_mismatches():
                                   syn.astype(np.float64))
 
 
-def _pv_docs():
-    from deeplearning4j_tpu_torch.nlp import LabelAwareIterator
-
-    return LabelAwareIterator(_cluster_corpus(40), None)
-
-
-def _host_path_pv():
-    from deeplearning4j_tpu_torch.nlp import ParagraphVectors
-
-    pv = ParagraphVectors(device="cpu")
-    pv._doc_iter = _pv_docs()
-    pv.device_corpus = False
-    pv.fit()
-
-
-def _host_path_sg():
-    w = tw2v.Word2Vec(device="cpu")
-    w.device_corpus = False
-    w.set_sentence_iterator(_cluster_corpus(50))
-    w.fit()
-
-
 @pytest.mark.parametrize("make,exc,match", [
-    (_host_path_sg, NotImplementedError, "host pair path"),
-    (_host_path_pv, NotImplementedError, "host pair path"),
     (lambda: tw2v.Word2Vec(device="cpu", mesh=object()),
      NotImplementedError, "mesh"),
     (lambda: tw2v.Word2Vec(algorithm="cbow", device="cpu", mesh=object()),
      NotImplementedError, "mesh"),
     (lambda: tw2v.Word2Vec(device="cpu", use_hierarchic_softmax=True,
                            negative=3), ValueError, "negative=0"),
-], ids=["skipgram-host-path", "pv-host-path", "skipgram-mesh", "cbow-mesh",
-        "hs-with-negative-3"])
+], ids=["skipgram-mesh", "cbow-mesh", "hs-with-negative-3"])
 def test_unported_configurations_raise(make, exc, match):
-    """What stays unported is refused by name, pointing at ROADMAP; HS with
-    negatives other than the default 5 is refused as the JAX package
-    refuses it."""
+    """What stays unported (sharded tables) is refused by name, pointing at
+    ROADMAP; HS with negatives other than the default 5 is refused as the
+    JAX package refuses it. (The host pair path is ported:
+    tests/test_torch_word2vec_host.py.)"""
     with pytest.raises(exc, match=match) as e:
         make()
     if exc is NotImplementedError:
@@ -432,11 +408,13 @@ def test_unported_configurations_raise(make, exc, match):
 
 
 def test_host_pair_path_and_bad_configurations_raise():
+    """The host pair path trains (no longer refused); bad configurations
+    raise as in the JAX package."""
     w = tw2v.Word2Vec(algorithm="cbow", device="cpu")
     w.device_corpus = False
     w.set_sentence_iterator(_cluster_corpus(50))
-    with pytest.raises(NotImplementedError, match="host pair path"):
-        w.fit()
+    w.fit()
+    assert np.isfinite(w.last_loss) and w.last_fit_timing["blocks"] >= 1
     with pytest.raises(ValueError, match="unknown algorithm"):
         tw2v.Word2Vec(algorithm="glove", device="cpu")
     with pytest.raises(ValueError, match="negative"):
@@ -782,10 +760,19 @@ def test_hs_state_carry_over_and_resume():
 
 
 def test_nlp_refuses_the_unported_models_by_name():
+    """Every NLP name of the JAX package imports from the port now; only
+    sharded tables (``mesh=``) are refused, by name."""
+    import deeplearning4j_tpu.nlp as jnlp
     import deeplearning4j_tpu_torch.nlp as tnlp
 
-    for name in ("FastText", "Glove", "DeepWalk", "read_word2vec_model"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(tnlp, name)
+    for name in ("FastText", "Glove", "DeepWalk", "Node2Vec", "Graph",
+                 "random_walks", "char_ngrams", "fasttext_hash",
+                 "read_word2vec_model", "write_word2vec_model",
+                 "read_word_vectors", "write_word_vectors",
+                 "read_paragraph_vectors", "write_paragraph_vectors"):
+        assert name in jnlp.__all__ and name in tnlp.__all__
+        assert callable(getattr(tnlp, name))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tnlp.Word2Vec(device="cpu", mesh=object())
     with pytest.raises(AttributeError):
         tnlp.NoSuchThing

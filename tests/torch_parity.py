@@ -12,6 +12,7 @@ import importlib
 from types import SimpleNamespace
 
 import numpy as np
+import pytest
 
 PACKAGES = {"jax": "deeplearning4j_tpu", "torch": "deeplearning4j_tpu_torch"}
 
@@ -345,3 +346,72 @@ def conf_param_count(conf) -> int:
             continue
         n += layer.n_out if layer.has_bias else 0
     return n
+
+
+def jax_block_bits(seed: int, blk_id: int, shape) -> np.ndarray:
+    """The uint32 bits (as int32) the JAX package's host block draws for
+    its negatives: ``jax.random.bits`` under ``PRNGKey(seed)`` folded with
+    the block id."""
+    import jax
+    import jax.numpy as jnp
+
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), blk_id)
+    return np.array(jax.random.bits(key, tuple(shape), jnp.uint32)).view(
+        np.int32)
+
+
+def inject_jax_bits(model) -> None:
+    """Have the port's host blocks of ``model`` draw the JAX block's bits
+    (``SequenceVectors._host_bits``)."""
+    import torch
+
+    model._host_bits = lambda shape, blk_id, gen: torch.from_numpy(
+        jax_block_bits(model.seed, blk_id, shape))
+
+
+def record_host_blocks(jax_model, torch_model):
+    """Record the columns of every host block both models train, as numpy
+    (the port's uint16 ids carried as int16 widened back): returns the two
+    lists, filled as the models fit."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nlp.word2vec import _widen
+
+    jcols, tcols = [], []
+    real_make = jax_model._make_block
+
+    def make(hs_dev=None, ntable_dev=None):
+        blk = real_make(hs_dev, ntable_dev)
+
+        def rec(syn0, syn1, cols, key, blk_id):
+            jcols.append([np.asarray(c) for c in cols])
+            return blk(syn0, syn1, cols, key, blk_id)
+        return rec
+
+    jax_model._make_block = make
+    real_block = torch_model._host_block
+
+    def trec(syn0, syn1, cols, bits):
+        tcols.append([(_widen(c) if c.dtype == torch.int16 else c)
+                      .numpy().copy() for c in cols])
+        return real_block(syn0, syn1, cols, bits)
+
+    torch_model._host_block = trec
+    return jcols, tcols
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Module-scoped autouse fixture (import it into a test module): PyTorch's
+    intra-op threads set to 1 for the module's tests and restored after. The NLP
+    parity tests run thousands of small eager operations; with several
+    test workers on one host, each worker's thread pool spinning on every
+    core makes them tens of times slower."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
