@@ -52,9 +52,14 @@ Phases (each fails the run with a nonzero exit if it fails):
                the log-sum-exp within 1e-5; timed at the path's shape and
                at [96, 512, 64], strided and contiguous, beside its plain
                version, SDPA and the unfused path on the same bf16 tensors,
-               and its host time per call. Then the gradients (dq, dk, dv,
-               dbias) through the float32 kernel's forward against autograd
-               through dense attention at [8, 256, 64], within 1e-4.
+               and its host time per call, and with the float32 output
+               that autograd's forward asks for. Then the gradients (dq,
+               dk, dv, dbias) through the float32 kernel's forward against
+               autograd through dense attention at [8, 256, 64], within
+               1e-4; and bf16 gradients through the bf16 kernel (its
+               float32 output saved for the backward) against the plain
+               version at the path's [32, 12, 128, 64], within 1 bf16 ulp
+               + 2^-16 of the largest.
 4. serving  -- full-size ResNet-50 (224x224x3, 1000 classes, bf16 compute,
                fused epilogue) behind ParallelInference (batched, batch limit
                32, 2 workers): 64 single-image requests from 8 client
@@ -75,6 +80,27 @@ Phases (each fails the run with a nonzero exit if it fails):
                float32 state: one fit step through the kernel against one
                through the per-leaf apply_updater path from the same
                parameters; parameters and momentum within 2 float32 ulp.
+7b. resnet50-pipeline -- phase 6's model through ComputationGraph.fit over
+               an unshuffled NDArrayDataSetIterator of 300 seeded synthetic
+               images at batch 128 (per epoch two full batches and one of
+               44 padded to 128), 3 epochs, with bench.py's
+               ScoreIterationListener(10) and a CheckpointListener (every 3
+               iterations, keep 2; deterministic cuDNN). Gates: 9 fused
+               launches, 3 padded batches, finite losses, 2 checkpoints
+               committed; a fresh model resumed from the iteration-6 file
+               ends with parameters, BN states and bf16 moments bitwise the
+               uninterrupted run's; ComputationGraph.load of the last file
+               serves 32 images through 53 bn_act launches, bitwise as the
+               trained model; evaluate gives one accuracy on both. Prints
+               images/s beside phase 6's, step times with and without a
+               checkpoint, snapshot ms, serialize-and-commit s, bytes,
+               restore s.
+7c. core     -- the card against the CPU, float32, TF32 off: the 15 losses
+               (value and gradient through an OutputLayer, masked and
+               example-weighted; 1e-5 of the largest), the 11 updaters (3
+               steps) and the 8 rates (constant and 7 schedules) under
+               Nesterovs (2 float32 ulp), the 10 vertices (1e-5), and a
+               two-input, two-output MultiDataSet fit (rtol 1e-4).
 8. word2vec-cbow -- the word2vec-cbow configuration as bench.py runs it:
                Word2Vec CBOW with negative sampling, vocabulary 10,000 of a
                zipf corpus of 200,000 x 20 words (seed 123), layer 100,
@@ -182,7 +208,8 @@ Phases (each fails the run with a nonzero exit if it fails):
                this path (profile_port.py --bert breaks the step down). Then
                the card against the CPU at full width, 2 layers, batch 2,
                from the same bytes (SD_PARITY): the pooled output, the loss
-               and every gradient.
+               and every gradient; that 2-layer graph saved and loaded
+               on the card, the pooled output bitwise ([samediff-save]).
 
 19. w2v-host -- the host pair path (device_corpus = False) at phase 14's
                hyperparameters on the corpus's first 400,000 words: the
@@ -244,6 +271,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -903,6 +931,9 @@ def time_flash_bf16(bh, T, D, layout, dev, gen, flush):
     kernel = lambda: attention.flash_attention_bf16_cuda(q, k, v, scale)  # noqa: E731
     with_lse = lambda: attention.flash_attention_bf16_cuda(  # noqa: E731
         q, k, v, scale, with_lse=True)
+    # as autograd's forward calls it: the float32 output for the backward
+    with_f32 = lambda: attention.flash_attention_bf16_cuda(  # noqa: E731
+        q, k, v, scale, with_lse=True, with_f32=True)
     plain = lambda: attention.flash_attention_reference(q, k, v, scale)  # noqa: E731
     library = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
     unfused = lambda: torch.softmax(  # noqa: E731
@@ -919,6 +950,7 @@ def time_flash_bf16(bh, T, D, layout, dev, gen, flush):
     return {"shape": [bh, T, D], "layout": layout,
             "ms": _time_ms(kernel, flush),
             "ms_with_lse": _time_ms(with_lse, flush),
+            "ms_with_f32": _time_ms(with_f32, flush),
             "plain_ms": _time_ms(plain, flush),
             "library_ms": _time_ms(library, flush),
             "unfused_ms": _time_ms(unfused, flush),
@@ -985,7 +1017,9 @@ def phase_flash_attention_bf16(smi: str, dev):
     for name, t in timing.items():
         log(f"[kernels] flash_attention bf16 {name} {t['shape']} (B*H, T, D): "
             f"kernel {t['ms']:.4f} ms ({t['ms_with_lse']:.4f} ms with the "
-            f"log-sum-exp, as the path calls it), plain {t['plain_ms']:.4f} "
+            f"log-sum-exp, as the path calls it; {t['ms_with_f32']:.4f} ms "
+            f"with the float32 output too, as autograd's forward calls it), "
+            f"plain {t['plain_ms']:.4f} "
             f"ms, F.scaled_dot_product_attention (same bf16 tensors) "
             f"{t['library_ms']:.4f} ms, unfused bf16 matmul+softmax+matmul "
             f"{t['unfused_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
@@ -1049,6 +1083,55 @@ def phase_flash_grad(smi: str, dev):
         f"and mask-shaped) through the kernel's forward vs autograd through "
         f"dense attention, causal and not: max_abs_err {worst} (<= 1e-4); "
         f"{smi}")
+    return worst, flash_grad_bf16(smi, dev, gen)
+
+
+def flash_grad_bf16(smi: str, dev, gen):
+    """bf16 q, k, v at the encoder path's shape, as the MHA op hands them
+    over: the gradients through the bf16 kernel, whose forward also writes
+    the float32 output that the backward reads (D = sum(dO * O), as the JAX
+    package's backward takes it), against the plain version's forward and
+    the same backward on the same inputs. Each element within 1 bf16 ulp of
+    itself plus 2^-16 of the largest gradient: the kernel's exp2 and its
+    reciprocal leave O and the log-sum-exp float32 ulps from the plain
+    version's, which the backward's sums carry before the one rounding to
+    bf16."""
+    from deeplearning4j_tpu_torch.ops import attention
+
+    B, H, T, D = FA_PATH[0] // 12, 12, FA_PATH[1], FA_PATH[2]
+    scale = D ** -0.5
+    worst = 0.0
+    for causal in (False, True):
+        base = [(torch.randn((B, T, H, D), generator=gen, device=dev) * 0.3)
+                .to(torch.bfloat16).requires_grad_() for _ in range(3)]
+        q, k, v = (t.permute(0, 2, 1, 3) for t in base)
+        tgt = torch.randn((B, H, T, D), generator=gen, device=dev)
+        before = attention.flash_attention_launches
+        out = attention.flash_attention(q, k, v, causal=causal)
+        check(attention.flash_attention_launches == before + 1
+              and out.dtype == torch.bfloat16,
+              "the bf16 gradient case did not launch the bf16 kernel")
+        got = torch.autograd.grad((out.float() * tgt).sum(), base)
+        got = [g.permute(0, 2, 1, 3) for g in got]
+        qd, kd, vd = (t.detach() for t in (q, k, v))
+        _, lse, o32 = attention.flash_attention_reference(
+            qd, kd, vd, scale, causal, None, attention.DEFAULT_BLOCK_K,
+            with_lse=True, with_f32=True)
+        want = attention.flash_attention_backward(
+            qd, kd, vd, o32, tgt.to(torch.bfloat16), lse, scale, causal,
+            attention.DEFAULT_BLOCK_K)
+        for g, w, n in zip(got, want, ("dq", "dk", "dv")):
+            g, w = g.float(), w.float()
+            ulp = torch.where(w == 0, torch.zeros_like(w), _bf16_ulp(w))
+            bound = ulp + 2.0 ** -16 * w.abs().max()
+            excess = ((g - w).abs() - bound).max().item()
+            check(excess <= 0, f"flash_attention bf16 {n} causal={causal}: "
+                  f"exceeds 1 bf16 ulp + 2^-16 of the largest by {excess}")
+            worst = max(worst, (g - w).abs().max().item())
+    log(f"[attention-grad] bf16 [{B},{H},{T},{D}] strided, causal and not: "
+        f"dq, dk, dv through the bf16 kernel (float32 O saved for the "
+        f"backward) vs the plain version: max_abs_err {worst} (each element "
+        f"within 1 bf16 ulp + 2^-16 of the largest gradient); {smi}")
     return worst
 
 
@@ -1177,8 +1260,13 @@ def time_fused_update(dev, gen, flush):
     """At the main path's bucket: Nesterovs with bf16 state (the train
     path) and Adam with float32 state, each kernel against its plain
     version; the per-leaf apply_updater over the 161 leaves; drawing the
-    bits; and, for Adam, torch.optim.Adam(fused=True) on the same bucket
-    (a yardstick only: the port never calls it)."""
+    bits; and the PyTorch optimizer that computes each step on the same
+    bucket (a yardstick only: the port never calls it):
+    torch.optim.Adam(fused=True) for Adam, and for Nesterovs
+    torch.optim.SGD(momentum=0.9, nesterov=True, fused=True), which keeps
+    its momentum in float32 (not bf16: it moves 24 B/elem where the kernel
+    moves 20) and scales the buffer by lr (the same step up to that
+    rescaling)."""
     from deeplearning4j_tpu_torch.learning import precision
     from deeplearning4j_tpu_torch.ops import update
     from deeplearning4j_tpu_torch.parallel.sharding import Zero1Plan
@@ -1225,6 +1313,15 @@ def time_fused_update(dev, gen, flush):
             row["bits_ms"] = _time_ms(lambda: precision.random_bits(
                 n, lgen, dev), flush)
             row["bits_bound_ms"] = 4 * n / HBM_BYTES_PER_S * 1e3
+            lib_p = p.clone()
+            lib_p.grad = g.clone()
+            opt = torch.optim.SGD([lib_p], lr=0.1, momentum=0.9,
+                                  nesterov=True, fused=True)
+            opt.step()               # makes its float32 momentum buffer
+            row["library_ms"] = _time_ms(opt.step, flush)
+            row["library"] = ("torch.optim.SGD(momentum=0.9, nesterov=True, "
+                              "fused=True), float32 momentum")
+            del opt, lib_p
         else:
             lib_p = p.clone()
             lib_p.grad = g.clone()
@@ -1261,7 +1358,8 @@ def phase_fused_update(smi: str, dev):
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     timing = time_fused_update(dev, gen, flush)
     for name, t in timing.items():
-        extra = (f"bits {t['bits_ms']:.4f} ms (bound {t['bits_bound_ms']:.4f})"
+        extra = (f"bits {t['bits_ms']:.4f} ms (bound {t['bits_bound_ms']:.4f}"
+                 f"), {t['library']} {t['library_ms']:.4f} ms"
                  if "bits_ms" in t else
                  f"torch.optim.Adam(fused=True) {t['library_ms']:.4f} ms")
         log(f"[kernels] fused_update {name} n={RESNET50_PARAMS}: kernel "
@@ -1594,6 +1692,478 @@ def phase_train_parity(dev):
         return {"worst_ulp": worst, "bitwise": bitwise}
     finally:
         torch.backends.cudnn.deterministic = det
+
+
+# --- phases 7b-7c: the pipeline, checkpoints and the core ---------------------
+
+#: phase 7b: an unshuffled iterator over PIPE_IMAGES seeded synthetic images
+#: at TRAIN_BATCH: per epoch two full batches and one of 44 padded to 128
+PIPE_IMAGES = 300
+PIPE_EPOCHS = 3
+PIPE_CKPT_EVERY = 3
+PIPE_PROBE = 32                       # images served from the checkpoint
+BN_ACT_PER_FORWARD = 53
+
+
+class _StepClock:
+    """A listener that records when each step's work has finished on the
+    device (it waits for it). Placed last, so a step's time includes what
+    the listeners before it did on the training thread."""
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.t = []
+
+    def iteration_done(self, model, iteration, score):
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize()
+        self.t.append(time.perf_counter())
+
+
+def _same_bits(a, b) -> bool:
+    """Two ``{node: {name: tensor}}`` trees hold the same bits."""
+    from deeplearning4j_tpu_torch.parallel.sharding import leaf_paths
+
+    return leaf_paths(a) == leaf_paths(b) and all(
+        torch.equal(a[n][k], b[n][k]) for n, k in leaf_paths(a))
+
+
+def stage_breakdown(model, data, dev) -> dict:
+    """Host time of the pipeline's staging of one epoch's batches (bind,
+    pad, pin, enqueue the copy; then wait for the copies), batch by batch,
+    and of its parts on the first batch: pinning, the copy from pinned
+    memory, the copy from pageable memory."""
+    from deeplearning4j_tpu_torch.data import pipeline as pipe
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    per_batch = []
+    for ds, w, _n in pipe.stable_batches(data):
+        sync()
+        t0 = time.perf_counter()
+        model._place_batch(model._bind_batch(ds, w))
+        sync()
+        per_batch.append((time.perf_counter() - t0) * 1e3)
+    first = torch.from_numpy(np.asarray(next(iter(data)).features))
+    sync()
+    t0 = time.perf_counter()
+    pinned = first.pin_memory() if dev.type == "cuda" else first
+    t1 = time.perf_counter()
+    pinned.to(dev, non_blocking=True)
+    sync()
+    t2 = time.perf_counter()
+    first.to(dev)
+    sync()
+    t3 = time.perf_counter()
+    return {"batch_ms": per_batch, "pin_ms": (t1 - t0) * 1e3,
+            "copy_pinned_ms": (t2 - t1) * 1e3,
+            "copy_pageable_ms": (t3 - t2) * 1e3,
+            "batch_bytes": first.numel() * first.element_size()}
+
+
+def checkpoint_bytes_reckoned(model) -> int:
+    """The arrays one checkpoint of ``model`` holds: float32 parameters,
+    the updater state as stored, the BN statistics."""
+    from deeplearning4j_tpu_torch.util.model_serializer import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in
+               tree_leaves(model._params) + tree_leaves(model._states)
+               + tree_leaves(model._updater_state))
+
+
+def phase_resnet_pipeline(smi: str, dev, train_ips: float,
+                          image: int = IMAGE, n_images: int = PIPE_IMAGES,
+                          batch: int = TRAIN_BATCH):
+    """Full-size ResNet-50 as bench.py trains it, through
+    ComputationGraph.fit over the input pipeline with bench.py's
+    ScoreIterationListener and a CheckpointListener (every 3 iterations,
+    keep 2); a fresh model resumed from the iteration-6 checkpoint must end
+    bitwise where the uninterrupted run ends; the last checkpoint, loaded,
+    serves through bn_act bitwise as the trained model does."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.common.profiler import OpProfiler
+    from deeplearning4j_tpu_torch.data import NDArrayDataSetIterator
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.ops import epilogue, update
+    from deeplearning4j_tpu_torch.optimize import (
+        CheckpointListener, CollectScoresIterationListener,
+        ScoreIterationListener)
+    from deeplearning4j_tpu_torch.util import checkpoint as ckpt
+
+    on_card = dev.type == "cuda"
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True       # the resume is bitwise
+    rng = np.random.RandomState(SEED + 11)
+    x = rng.randn(n_images, 3, image, image).astype(np.float32)
+    y = np.eye(1000, dtype=np.float32)[rng.randint(0, 1000, n_images)]
+    data = NDArrayDataSetIterator(x, y, batch_size=batch)
+    steps = PIPE_EPOCHS * -(-n_images // batch)
+    tmp = tempfile.TemporaryDirectory(prefix="dl4j_ckpt_")
+    try:
+        if on_card:
+            torch.cuda.empty_cache()
+        a = train_model(dev, True, "bfloat16", "bfloat16")
+        ck = CheckpointListener(tmp.name,
+                                save_every_n_iterations=PIPE_CKPT_EVERY,
+                                keep_last=2)
+        scores, clock = CollectScoresIterationListener(), _StepClock(dev)
+        a.set_listeners(ScoreIterationListener(print_iterations=10), ck,
+                        scores, clock)
+        prof = OpProfiler.get()
+        prof.reset()
+        update.reset_launches()
+        t0 = time.perf_counter()
+        a.fit(data, epochs=PIPE_EPOCHS)
+        wall = clock.t[-1] - t0
+        launches = update.fused_update_launches
+        padded = prof.counter_value("pipeline/padded_batches")
+        saved = [p.rsplit("/", 1)[-1] for p in ck.saved]     # flushes
+        ck.close()
+        losses = [s for _, s in scores.scores]
+        check(not ck.errors(), f"checkpoint writes failed: {ck.errors()}")
+        hits = prof.counter_value("precision/fused_hits")
+        check(launches == (steps if on_card else 0) and hits == steps
+              and a._iteration == steps,
+              f"fused_update launched {launches} times ({hits} fused "
+              f"updates) in {a._iteration} steps (want {steps}, one per "
+              f"step)")
+        check(padded == PIPE_EPOCHS, f"{padded} padded batches (want "
+              f"{PIPE_EPOCHS}, one per epoch)")
+        check(len(losses) == steps and all(np.isfinite(losses)),
+              f"losses {losses}")
+        check(saved == [f"checkpoint_iter_{steps - PIPE_CKPT_EVERY}.zip",
+                        f"checkpoint_iter_{steps}.zip"],
+              f"committed checkpoints {saved}")
+        ends = [t0] + clock.t
+        step_ms = [(t1 - t2) * 1e3 for t1, t2 in zip(ends[1:], ends)]
+        ck_steps = [step_ms[i - 1] for i in range(PIPE_CKPT_EVERY, steps + 1,
+                                                  PIPE_CKPT_EVERY)]
+        plain_steps = [ms for i, ms in enumerate(step_ms, 1)
+                       if i > 1 and i % PIPE_CKPT_EVERY]
+        mid = os.path.join(tmp.name, saved[0])
+        last = os.path.join(tmp.name, saved[1])
+        nbytes = os.path.getsize(last)
+        staging = stage_breakdown(a, data, dev)
+
+        # (b) a fresh model resumed from the middle checkpoint
+        b = train_model(dev, True, "bfloat16", "bfloat16")
+        t1 = time.perf_counter()
+        cursor = ckpt.restore_training_state(b, mid)    # timed alone; the
+        restore_s = time.perf_counter() - t1             # fit restores again
+        bclock = _StepClock(dev)
+        b.set_listeners(ScoreIterationListener(print_iterations=10), bclock)
+        t1 = time.perf_counter()
+        b.fit(data, epochs=PIPE_EPOCHS, resume_from=mid)
+        bends = [t1] + bclock.t
+        resumed_ms = [(u - v) * 1e3 for u, v in zip(bends[1:], bends)]
+        check(b._iteration == steps, f"resumed run ended at {b._iteration}")
+        bitwise = {"params": _same_bits(a._params, b._params),
+                   "states": _same_bits(a._states, b._states),
+                   "moments": _same_bits(a._updater_state["v"],
+                                         b._updater_state["v"])}
+        check(all(bitwise.values()), f"resumed run vs uninterrupted run: "
+              f"bitwise {bitwise}")
+        v_dtypes = {t.dtype for d in b._updater_state["v"].values()
+                    for t in d.values()}
+        check(v_dtypes == {torch.bfloat16}, f"moments {v_dtypes}")
+        del b
+
+        # (c) the last checkpoint, loaded, serves through bn_act
+        d = ComputationGraph.load(last, device=dev)
+        set_fused(d, True)
+        set_fused(a, True)
+        probe = x[:PIPE_PROBE]
+        epilogue.reset_launches()
+        got = d.output(probe)[0]
+        served = epilogue.bn_act_launches
+        want = a.output(probe)[0]
+        if on_card:
+            check(served == BN_ACT_PER_FORWARD, f"the loaded model launched "
+                  f"bn_act {served} times per forward (want "
+                  f"{BN_ACT_PER_FORWARD})")
+        check(bool(torch.isfinite(got).all()) and torch.equal(got, want),
+              "the loaded checkpoint does not serve what the trained model "
+              "serves, bit for bit")
+        # (d) the same accuracy over the iterator
+        acc = (a.evaluate(data).accuracy(), d.evaluate(data).accuracy())
+        check(acc[0] == acc[1], f"evaluate: {acc[0]} vs {acc[1]}")
+        reckoned = checkpoint_bytes_reckoned(a)
+    finally:
+        torch.backends.cudnn.deterministic = det
+        tmp.cleanup()
+    commit_s = ck.commit_seconds
+    result = {
+        "steps": steps, "launches": launches, "padded_batches": padded,
+        "losses": losses,
+        "images_per_s": n_images * PIPE_EPOCHS / wall,
+        "padded_images_per_s": batch * steps / wall,
+        "given_dataset_images_per_s": train_ips,
+        "step_ms": step_ms,
+        "step_ms_checkpoint_steps": statistics.mean(ck_steps),
+        "step_ms_other_steps": statistics.mean(plain_steps),
+        "resumed_step_ms": resumed_ms,
+        "snapshot_ms": ck.snapshot_ms, "commit_s": commit_s,
+        "checkpoint_bytes": nbytes, "checkpoint_array_bytes": reckoned,
+        "restore_s": restore_s, "cursor": cursor, "bitwise": bitwise,
+        "staging": staging,
+        "bn_act_launches_per_forward": served, "accuracy": acc[0]}
+    log(f"[resnet50-pipeline] ResNet-50 {image}x{image}, bf16 compute, "
+        f"fused_update, bf16 Nesterovs state, through fit(iterator) with "
+        f"ScoreIterationListener(10) and CheckpointListener(every "
+        f"{PIPE_CKPT_EVERY}, keep 2): {n_images} images at batch {batch}, "
+        f"{PIPE_EPOCHS} epochs, {steps} steps ({padded} padded), "
+        f"{launches} fused_update launches; {result['images_per_s']:.2f} "
+        f"images/s through the pipeline ({result['padded_images_per_s']:.2f}"
+        f" counting pad rows) against {train_ips:.2f} for fit(ds) in phase "
+        f"6; step ms {['%.2f' % t for t in step_ms]}: with a checkpoint "
+        f"{result['step_ms_checkpoint_steps']:.2f}, without "
+        f"{result['step_ms_other_steps']:.2f} (steps 2 on); {smi}")
+    log(f"[resnet50-pipeline] staging one epoch's batches on the host "
+        f"(bind, pad, pin, copy; card waited for): ms "
+        f"{['%.2f' % t for t in staging['batch_ms']]}; the first batch's "
+        f"{staging['batch_bytes']} B: pin_memory {staging['pin_ms']:.2f} "
+        f"ms, copy from pinned {staging['copy_pinned_ms']:.2f} ms, copy from "
+        f"pageable {staging['copy_pageable_ms']:.2f} ms; {smi}")
+    log(f"[resnet50-pipeline] checkpoints: snapshot (one readback) ms "
+        f"{['%.2f' % t for t in ck.snapshot_ms]}; serialize + commit off "
+        f"the training thread s {['%.3f' % t for t in commit_s]}; "
+        f"{nbytes} B per file ({reckoned} B of arrays); restore "
+        f"{restore_s:.3f} s; cursor {cursor}; {smi}")
+    log(f"[resnet50-pipeline] resumed from iteration "
+        f"{steps - PIPE_CKPT_EVERY}: bitwise {bitwise}, steps ms "
+        f"{['%.2f' % t for t in resumed_ms]} (no checkpoint listener; the "
+        f"first includes the restore and the replay); the loaded last "
+        f"checkpoint serves {PIPE_PROBE} images through {served} bn_act "
+        f"launches, bitwise as the trained model; accuracy {acc[0]} on "
+        f"both; losses {losses}")
+    del a, d
+    if on_card:
+        torch.cuda.empty_cache()
+    return result
+
+
+#: phase 7c: the port's core on the card against the port on the CPU
+CORE_LOSSES = {
+    # name: (constructor kwargs, activation, n_out, labels)
+    "LossMCXENT": ({}, "softmax", 4, "onehot"),
+    "LossSparseMCXENT": ({}, "softmax", 4, "index"),
+    "LossBinaryXENT": ({}, "sigmoid", 4, "binary"),
+    "LossMSE": ({}, "identity", 4, "real"),
+    "LossL2": ({}, "tanh", 4, "real"),
+    "LossMAE": ({}, "identity", 4, "real"),
+    "LossL1": ({}, "identity", 4, "real"),
+    "LossHinge": ({}, "identity", 4, "binary"),
+    "LossSquaredHinge": ({}, "identity", 4, "binary"),
+    "LossKLD": ({}, "softmax", 4, "onehot"),
+    "LossPoisson": ({}, "softplus", 4, "count"),
+    "LossCosineProximity": ({}, "identity", 4, "real"),
+    "LossWasserstein": ({}, "identity", 4, "real"),
+    "LossFMeasure": ({"beta": 2.0}, "sigmoid", 2, "onehot"),
+    "LossMixtureDensity": ({"mixtures": 2, "labels_width": 3}, "identity",
+                           10, "real3"),
+}
+CORE_UPDATERS = {
+    "Sgd": {"learning_rate": 0.05}, "NoOp": {},
+    "Nesterovs": {"learning_rate": 0.05, "momentum": 0.9},
+    "AdaGrad": {"learning_rate": 0.05}, "AdaDelta": {},
+    "RmsProp": {"learning_rate": 0.01}, "Adam": {"learning_rate": 0.01},
+    "AdamW": {"learning_rate": 0.01, "weight_decay": 0.05},
+    "AdaMax": {"learning_rate": 0.01}, "Nadam": {"learning_rate": 0.01},
+    "AMSGrad": {"learning_rate": 0.01}}
+CORE_SCHEDULES = {
+    "constant": None,
+    "FixedSchedule": {"value": 0.05},
+    "StepSchedule": {"initial_value": 0.1, "decay_rate": 0.5, "step": 2},
+    "ExponentialSchedule": {"initial_value": 0.1, "gamma": 0.9},
+    "PolySchedule": {"initial_value": 0.1, "power": 2.0, "max_iter": 5},
+    "InverseSchedule": {"initial_value": 0.1, "gamma": 0.3, "power": 0.75},
+    "SigmoidSchedule": {"initial_value": 0.1, "gamma": 0.7, "step_size": 2},
+    "CycleSchedule": {"initial_value": 0.01, "max_value": 0.1,
+                      "cycle_length": 4, "annealing_cycles": 0.5}}
+CORE_VERTICES = {
+    "MergeVertex": ({}, [(4, 3, 4, 4), (4, 2, 4, 4)]),
+    "ElementWiseVertex": ({"op": "max"}, [(4, 6)] * 3),
+    "DotProductVertex": ({"normalize": True}, [(4, 6)] * 2),
+    "SubsetVertex": ({"from_idx": 1, "to_idx": 3}, [(4, 5, 2, 2)]),
+    "ScaleVertex": ({"scale": 0.3}, [(4, 6)]),
+    "ShiftVertex": ({"shift": -1.5}, [(4, 6)]),
+    "L2NormalizeVertex": ({}, [(4, 3, 2, 2)]),
+    "StackVertex": ({}, [(4, 6)] * 2),
+    "UnstackVertex": ({"from_idx": 1, "stack_size": 2}, [(4, 6)]),
+    "ReshapeVertex": ({"shape": (2, 3)}, [(4, 6)])}
+#: the tolerances of phase 7c, card against CPU, float32 with TF32 off:
+#: losses, gradients and vertices within 1e-5 of each quantity's largest
+#: magnitude (sums and reductions run in another order on the card);
+#: updater steps within 2 float32 ulp of each leaf's largest magnitude
+#: (elementwise IEEE operations; a library exp or log may differ by an
+#: ulp); the MultiDataSet fit within rtol 1e-4 / atol 1e-6 (the graph
+#: training bound of tests/test_torch_train.py)
+CORE_REL = 1e-5
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)
+            ).item()
+
+
+def _core_loss(name, dev):
+    from deeplearning4j_tpu_torch.nn import losses as Ls
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+
+    kw, act, n_out, kind = CORE_LOSSES[name]
+    rng = np.random.default_rng(sorted(CORE_LOSSES).index(name))
+    B = 6
+    labels = {"onehot": lambda: np.eye(n_out)[rng.integers(0, n_out, B)],
+              "index": lambda: rng.integers(0, n_out, (B, 1)),
+              "binary": lambda: rng.integers(0, 2, (B, n_out)),
+              "count": lambda: rng.integers(0, 4, (B, n_out)),
+              "real3": lambda: rng.normal(size=(B, 3)),
+              "real": lambda: rng.normal(size=(B, n_out))}[kind]()
+    arrays = [rng.normal(size=(B, 5)), rng.normal(size=(5, n_out)) * 0.5,
+              rng.normal(size=(n_out,)) * 0.1, labels,
+              (rng.random(B) < 0.8) * 1.0, np.r_[np.ones(B - 1), 0.0]]
+    res = []
+    for where in (dev, torch.device("cpu")):
+        xx, W, bb, lab, mask, w = (torch.tensor(a, dtype=torch.float32,
+                                                device=where)
+                                   for a in arrays)
+        W.requires_grad_()
+        bb.requires_grad_()
+        layer = L.OutputLayer(n_in=5, n_out=n_out, activation=act,
+                              loss=getattr(Ls, name)(**kw))
+        pre = layer.pre_output({"W": W, "b": bb}, xx)
+        v = layer.loss.compute_score(lab, pre, act, mask * w,
+                                     average=False) / w.sum().clamp_min(1.0)
+        res.append((v,) + torch.autograd.grad(v, [W, bb]))
+    return max(_rel_err(g, c) for g, c in zip(*res))
+
+
+def _core_updater(name, schedule, dev):
+    from deeplearning4j_tpu_torch.learning import schedules as S
+    from deeplearning4j_tpu_torch.learning import updaters as U
+
+    kw = dict(CORE_UPDATERS[name])
+    if schedule is not None:
+        skw = CORE_SCHEDULES[schedule]
+        kw["learning_rate"] = 0.05 if skw is None else getattr(
+            S, schedule)(**skw)
+    rng = np.random.default_rng(len(name))
+    p0 = {"a": {"W": rng.normal(size=(3, 5)), "b": rng.normal(size=(5,))}}
+    grads = [{"a": {k: rng.normal(size=v.shape) * 0.5 for k, v in
+                    p0["a"].items()}} for _ in range(3)]
+    out = []
+    for where in (dev, torch.device("cpu")):
+        t = lambda tree: {n: {k: torch.tensor(v, dtype=torch.float32,  # noqa: E731
+                                              device=where)
+                              for k, v in d.items()} for n, d in tree.items()}
+        upd = getattr(U, name)(**kw)
+        p = t(p0)
+        st = upd.init(p)
+        for i in range(3):
+            p, st = upd.apply(t(grads[i]), st, p, i)
+        out.append([p] + [st[s] for s in sorted(st)])
+    worst = 0.0
+    for card, cpu in zip(*out):
+        for n, d in cpu.items():
+            for k, w in d.items():
+                g = card[n][k].cpu()
+                ulps = ((g - w).abs().max() / np.spacing(np.float32(
+                    w.abs().max().item()))).item()
+                worst = max(worst, ulps)
+    return worst
+
+
+def multi_io_conf():
+    """Two inputs and two outputs (softmax/mcxent, identity/mse) around a
+    MergeVertex: the MultiDataSet path of phase 7c."""
+    from deeplearning4j_tpu_torch.learning.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.nn import graph as G
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.builder import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+
+    b = (NeuralNetConfiguration.builder().seed(9)
+         .updater(Nesterovs(0.05, momentum=0.9)).activation("tanh"))
+    gb = G.ComputationGraphConfiguration.graph_builder(b).add_inputs("a",
+                                                                     "b")
+    gb.add_layer("da", L.DenseLayer(n_out=8), "a")
+    gb.add_layer("db", L.DenseLayer(n_out=8), "b")
+    gb.add_vertex("m", G.MergeVertex(), "da", "db")
+    gb.add_layer("cls", L.OutputLayer(n_out=3, loss="mcxent",
+                                      activation="softmax"), "m")
+    gb.add_layer("reg", L.OutputLayer(n_out=2, loss="mse",
+                                      activation="identity"), "m")
+    gb.set_outputs("cls", "reg")
+    gb.set_input_types(InputType.feed_forward(5), InputType.feed_forward(4))
+    return gb.build()
+
+
+def _core_multidataset(dev):
+    from deeplearning4j_tpu_torch.data import MultiDataSet
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    rng = np.random.default_rng(5)
+    arrays = (rng.normal(size=(10, 5)), rng.normal(size=(10, 4)),
+              np.eye(3)[rng.integers(0, 3, 10)], rng.normal(size=(10, 2)))
+    arrays = [a.astype(np.float32) for a in arrays]
+    batches = [MultiDataSet([a[i:i + 4] for a in arrays[:2]],
+                            [a[i:i + 4] for a in arrays[2:]])
+               for i in range(0, 10, 4)]
+    nets = []
+    for where in (dev, torch.device("cpu")):
+        net = ComputationGraph(multi_io_conf()).init(device=where)
+        net.fit(batches, epochs=2)
+        nets.append(net)
+    card, cpu = nets
+    check(card._iteration == 6, f"MultiDataSet fit: {card._iteration} steps")
+    return max(_rel_err(card._params[n][k], t) for n, d in cpu._params.items()
+               for k, t in d.items())
+
+
+def phase_core(smi: str, dev):
+    from deeplearning4j_tpu_torch.common.environment import Environment
+    from deeplearning4j_tpu_torch.nn import graph as G
+
+    Environment.get().set_tf32(False)
+    loss_err = {n: _core_loss(n, dev) for n in CORE_LOSSES}
+    upd_ulps = {n: _core_updater(n, None, dev) for n in CORE_UPDATERS}
+    sched_ulps = {s: _core_updater("Nesterovs", s, dev)
+                  for s in CORE_SCHEDULES}
+    vert_err = {}
+    for name, (kw, shapes) in CORE_VERTICES.items():
+        rng = np.random.default_rng(len(name))
+        xs = [rng.normal(size=s).astype(np.float32) for s in shapes]
+        v = getattr(G, name)(**kw)
+        vert_err[name] = _rel_err(
+            v.apply(*[torch.from_numpy(a).to(dev) for a in xs]),
+            v.apply(*[torch.from_numpy(a) for a in xs]))
+    mds_err = _core_multidataset(dev)
+    for what, errs, bound in (("loss", loss_err, CORE_REL),
+                              ("vertex", vert_err, CORE_REL),
+                              ("updater", upd_ulps, 2),
+                              ("schedule", sched_ulps, 2)):
+        bad = {k: e for k, e in errs.items() if not e <= bound}
+        check(not bad, f"core on the card vs the CPU: {what} {bad} > {bound}")
+    check(mds_err <= 1e-4, f"MultiDataSet fit card vs CPU {mds_err}")
+    log(f"[core] the card vs the CPU, float32, TF32 off: {len(loss_err)} "
+        f"losses (value and gradient through an OutputLayer, masked and "
+        f"example-weighted) worst {max(loss_err.values())} of the largest "
+        f"magnitude (<= {CORE_REL}); {len(upd_ulps)} updaters x 3 steps worst "
+        f"{max(upd_ulps.values())} ulp, {len(sched_ulps)} schedules under "
+        f"Nesterovs worst {max(sched_ulps.values())} ulp (<= 2); "
+        f"{len(vert_err)} vertices worst {max(vert_err.values())} "
+        f"(<= {CORE_REL}); a two-input, two-output MultiDataSet fit (6 "
+        f"steps) params within {mds_err} of their scale (<= 1e-4); {smi}")
+    return {"loss_worst_rel": max(loss_err.values()),
+            "updater_worst_ulp": max(upd_ulps.values()),
+            "schedule_worst_ulp": max(sched_ulps.values()),
+            "vertex_worst_rel": max(vert_err.values()),
+            "multidataset_rel": mds_err}
 
 
 # --- phase 8 -------------------------------------------------------------------
@@ -3022,7 +3592,7 @@ def phase_samediff_bert(smi: str, dev):
         f"{counts}")
     del sd, feed, labels, batch, outs
     torch.cuda.empty_cache()
-    parity = samediff_bert_parity(dev)
+    parity = samediff_bert_parity(dev, smi)
     seconds = time.perf_counter() - t_phase
     log(f"[samediff-bert] phase {seconds:.1f} s")
     return {"graph_bytes": n_bytes, "build_s": build_s, "import_s": import_s,
@@ -3032,10 +3602,39 @@ def phase_samediff_bert(smi: str, dev):
             "parity": parity, "seconds": seconds}
 
 
-def samediff_bert_parity(dev):
+def samediff_save_check(sd, batch, pooled: str, smi: str):
+    """SameDiff save/load on the card at the parity size (full width, 2
+    layers, batch 2): the loaded graph's pooled output bitwise the saved
+    graph's."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.autodiff.samediff import SameDiff
+
+    with tempfile.TemporaryDirectory(prefix="dl4j_sd_") as d:
+        path = os.path.join(d, "bert.zip")
+        t0 = time.perf_counter()
+        sd.save(path)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        back = SameDiff.load(path, device=sd.device)
+        load_s = time.perf_counter() - t0
+    same = torch.equal(sd.output(batch, [pooled])[pooled],
+                       back.output(batch, [pooled])[pooled])
+    check(same, "SameDiff save/load: the loaded graph's pooled output is "
+          "not the saved graph's, bit for bit")
+    log(f"[samediff-save] BERT fine-tune graph, full width, 2 layers, batch "
+        f"2, on the card: save {save_s:.3f} s ({nbytes} B), load "
+        f"{load_s:.3f} s; the loaded graph's pooled output bitwise the "
+        f"saved graph's; {smi}")
+    return {"bytes": nbytes, "save_s": save_s, "load_s": load_s}
+
+
+def samediff_bert_parity(dev, smi: str):
     """The fine-tune graph at full width, 2 layers, batch 2, float32 with
     TF32 off, from the same bytes on the card and on the CPU: the pooled
-    output, the loss, and every gradient (SD_PARITY)."""
+    output, the loss, and every gradient (SD_PARITY); and the card's graph
+    saved and loaded (:func:`samediff_save_check`)."""
     from deeplearning4j_tpu_torch.common.environment import Environment
     from deeplearning4j_tpu_torch.imports import import_frozen_tf
     from deeplearning4j_tpu_torch.imports.tf_fixtures import \
@@ -3054,6 +3653,8 @@ def samediff_bert_parity(dev):
         grads = sd.calculate_gradients(batch, "loss")
         res.append(({k: v.float().cpu() for k, v in out.items()},
                     {k: v.cpu() for k, v in grads.items()}))
+        if where == dev:
+            saved = samediff_save_check(sd, batch, sd.tf_outputs[0], smi)
         del sd
     (co, cg), (ho, hg) = res
     pooled = next(k for k in co if k != "loss")
@@ -3081,7 +3682,8 @@ def samediff_bert_parity(dev):
         f"err {l_rel} (<= 1e-4), {len(hg)} gradients: worst {worst} of its "
         f"largest magnitude ({worst_name}; <= 1e-4), key biases {worst_zero} "
         f"of the largest gradient (<= 1e-6)")
-    return {"pooled_max_abs_err": p_err, "loss_rel_err": l_rel,
+    return {"save": saved, "pooled_max_abs_err": p_err,
+            "loss_rel_err": l_rel,
             "grad_worst_rel": worst, "grad_worst": worst_name,
             "key_bias_rel": worst_zero, "gradients": len(hg)}
 
@@ -3717,7 +4319,7 @@ def main(argv=None) -> int:
         bag_err, bag_timing = phase_embedding_bag(smi, dev)
         fa_err, fa_timing = phase_flash_attention(smi, dev)
         fa16 = phase_flash_attention_bf16(smi, dev)
-        fa_grad_err = phase_flash_grad(smi, dev)
+        fa_grad_err, fa_grad_bf16_err = phase_flash_grad(smi, dev)
         model = build_model(dev)
         launches, batches = phase_serving(model, smi, dev)
         phase_parity(model, dev)
@@ -3725,6 +4327,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         train = phase_train(smi, dev)
         tparity = phase_train_parity(dev)
+        pipe = phase_resnet_pipeline(smi, dev, train["images_per_s"])
+        core = phase_core(smi, dev)
         w2v = phase_word2vec(smi, dev)
         enc_model, enc = phase_encoder(smi, dev)
         enc["parity_max_abs_err"], f32_launches, enc["bf16_parity"] = \
@@ -3782,8 +4386,9 @@ def main(argv=None) -> int:
         "state_dtype": "bfloat16",
         "ms": nb["ms"], "plain_ms": nb["plain_ms"],
         "bound_ms": nb["bound_ms"], "bound_by": nb["bound_by"],
-        "library_ms": None, "unfused_ms": nb["unfused_ms"],
-        "bits_ms": nb["bits_ms"],
+        "library_ms": nb["library_ms"], "library": nb["library"],
+        "unfused_ms": nb["unfused_ms"], "bits_ms": nb["bits_ms"],
+        "launches_resnet50_pipeline": pipe["launches"],
         "adam_f32": {k: ad[k] for k in ("ms", "plain_ms", "unfused_ms",
                                         "bound_ms", "library_ms")},
         "mln": {"lenet": dict(mln_upd["lenet"],
@@ -3829,7 +4434,8 @@ def main(argv=None) -> int:
             pv_dm_width=bag_timing["bf16_pv_dm"]["shape"],
             pv_dm_ms=bag_timing["bf16_pv_dm"]["ms"],
             pv_dm_bound_ms=bag_timing["bf16_pv_dm"]["bound_ms"])})
-    keys = ("shape", "layout", "ms", "ms_with_lse", "plain_ms", "library_ms",
+    keys = ("shape", "layout", "ms", "ms_with_lse", "ms_with_f32", "plain_ms",
+            "library_ms",
             "unfused_ms", "bound_ms", "bound_by")
     bp = fa16["path_strided"]
     kernels.append({
@@ -3838,6 +4444,8 @@ def main(argv=None) -> int:
         "launches": enc["bf16_route_launches"],
         "max_abs_err": fa16["max_abs_err"],
         "bitwise_share": fa16["bitwise_share"], "lse_err": fa16["lse_err"],
+        "bf16_grad_max_abs_err": fa_grad_bf16_err,
+        "ms_with_f32": bp["ms_with_f32"],
         "shape": bp["shape"], "layout": bp["layout"], "dtype": "bfloat16",
         "ms": bp["ms"], "ms_with_lse": bp["ms_with_lse"],
         "plain_ms": bp["plain_ms"], "bound_ms": bp["bound_ms"],
@@ -3865,6 +4473,8 @@ def main(argv=None) -> int:
     print(json.dumps({"train": {k: v for k, v in train.items()
                                 if k != "counters"},
                       "train_parity": tparity,
+                      "resnet50_pipeline": pipe, "core": core,
+
                       "word2vec_cbow": w2v, "encoder": enc, "lenet": lenet,
                       "vgg16": vgg, "masked": masked, "skipgram": sg,
                       "word2vec_hs": hs, "cbow_bf16": cbow16,

@@ -23,13 +23,21 @@ with its inputs and static kwargs. Running it differs:
   package re-uploads its numpy parameters on every call and writes them
   back after every fit).
 
+``save``/``load`` write and read the JAX package's zip (``graph.json``,
+``vars.npz``, ``updater.npz``, format version 2) with ``TrainingConfig``'s
+JSON, so a graph saved by one package loads in the other, every array
+bitwise.
+
 Not ported yet (each raises ``NotImplementedError`` naming ROADMAP.md):
-``cond``/``while_loop``, ``save``/``load``, and every op that the port's
-registry lacks (among them the random ops and dropout).
+``cond``/``while_loop`` (and so a file holding their subgraphs), and every
+op that the port's registry lacks (among them the random ops and dropout).
 """
 
 from __future__ import annotations
 
+import io
+import json
+import zipfile
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -44,6 +52,8 @@ from ..ops.registry import get_op
 #: the single node under which the flat ``{name: tensor}`` parameters sit
 #: in the port updaters' ``{node: {name: tensor}}`` trees
 TREE = "samediff"
+#: the JAX package's SameDiff file format
+_FORMAT_VERSION = 2
 
 
 class VariableType:
@@ -698,12 +708,104 @@ class SameDiff:
         return history
 
     # --- serialization ---------------------------------------------------
-    def save(self, *args, **kwargs) -> None:
-        _not_ported("save")
+    def save(self, path: str, save_updater: bool = False,
+             save_updater_state: bool = False) -> None:
+        """The JAX package's zip: ``graph.json`` (variables, nodes, the loss
+        variable, iteration, epoch, the training configuration),
+        ``vars.npz`` (every variable and constant value by name) and, with
+        ``save_updater`` (or its SameDiff spelling ``save_updater_state``),
+        ``updater.npz`` (the updater state's leaves in ``jax.tree.flatten``
+        order)."""
+        from ..util.model_serializer import savez_leaves, tree_leaves
+
+        arrays: Dict[str, np.ndarray] = {}
+        for n, v in self._vars.items():
+            if v.value is not None:
+                if v.value.dtype == torch.bfloat16:
+                    raise ValueError(f"variable {n!r} is bfloat16, which the "
+                                     f"SameDiff file format cannot hold")
+                arrays[n] = v.value.detach().cpu().numpy()
+        nodes = [{"id": n.id, "op": n.op_name, "inputs": n.inputs,
+                  "kwargs": _jsonify(n.kwargs), "outputs": n.outputs,
+                  "n_outputs": n.n_outputs,
+                  "arg_spec": [[k, _jsonify({"v": v})["v"]]
+                               for k, v in n.arg_spec]}
+                 for n in self._nodes]
+        graph = {
+            "format_version": _FORMAT_VERSION,
+            "variables": [
+                {"name": v.name, "type": v.vtype, "shape": v.shape,
+                 "dtype": v.dtype, "producer": v.producer,
+                 "out_index": v.out_index}
+                for v in self._vars.values()],
+            "nodes": nodes,
+            "loss_var": self._loss_var,
+            "iteration": self._iteration,
+            "epoch": self._epoch,
+            "training_config": (self._training_config.to_json()
+                                if self._training_config else None),
+        }
+        # stored, not deflated (float values do not compress; the JAX
+        # package deflates, and either package reads either)
+        with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as zf:
+            zf.writestr("graph.json", json.dumps(graph))
+            buf = io.BytesIO()
+            np.savez(buf, **arrays)
+            zf.writestr("vars.npz", buf.getvalue())
+            if (save_updater or save_updater_state) \
+                    and self._updater_state is not None:
+                zf.writestr("updater.npz",
+                            savez_leaves(tree_leaves(self._updater_state)))
 
     @staticmethod
-    def load(*args, **kwargs) -> "SameDiff":
-        _not_ported("load")
+    def load(path: str, device=None) -> "SameDiff":
+        """A graph from :meth:`save`'s zip (either package's), its values on
+        ``device``: the card unless the caller asks for another."""
+        from ..util.model_serializer import load_leaves, tree_leaves
+
+        sd = SameDiff(device)
+        with zipfile.ZipFile(path) as zf:
+            graph = json.loads(zf.read("graph.json"))
+            if graph["format_version"] > _FORMAT_VERSION:
+                raise ValueError("file written by a newer format version")
+            arrays = np.load(io.BytesIO(zf.read("vars.npz")))
+            for v in graph["variables"]:
+                value = arrays[v["name"]] if v["name"] in arrays.files \
+                    else None
+                sd._vars[v["name"]] = _Var(
+                    v["name"], v["type"],
+                    tuple(v["shape"]) if v["shape"] else None, v["dtype"],
+                    None if value is None else _upload(value, sd.device),
+                    v["producer"], v["out_index"])
+            for n in graph["nodes"]:
+                if n.get("control") is not None:
+                    _not_ported("cond/while_loop subgraphs")
+                get_op(n["op"])     # an unported op raises here by name
+                spec = n.get("arg_spec")
+                spec = ([(k, tuple(a) if isinstance(a, list) and k == "s"
+                          else a) for k, a in spec] if spec is not None
+                        else [("v", i) for i in n["inputs"]])
+                sd._nodes.append(_Node(n["id"], n["op"], n["inputs"],
+                                       n["kwargs"], n["outputs"],
+                                       n["n_outputs"], spec))
+            sd._loss_var = graph.get("loss_var")
+            sd._iteration = graph.get("iteration", 0)
+            sd._epoch = graph.get("epoch", 0)
+            tc = graph.get("training_config")
+            if tc:
+                sd._training_config = TrainingConfig.from_json(tc)
+            if "updater.npz" in zf.namelist() \
+                    and sd._training_config is not None:
+                params = {n: t.to("meta") for n, t in sd._params().items()}
+                template = sd._training_config.updater.init({TREE: params})
+                want = tree_leaves(template)
+                got = load_leaves(zf.read("updater.npz"), "updater state",
+                                  len(want))
+                it = iter(t.to(sd.device) for t in got)
+                sd._updater_state = {
+                    slot: {TREE: {k: next(it) for k in sorted(d[TREE])}}
+                    for slot, d in sorted(template.items())}
+        return sd
 
     def summary(self) -> str:
         lines = [f"SameDiff: {len(self._vars)} vars, {len(self._nodes)} ops"]
@@ -725,6 +827,57 @@ class TrainingConfig:
     l2: float = 0.0
     loss_name: Optional[str] = None
     grad_clip_value: Optional[float] = None
+
+    def to_json(self) -> Dict[str, Any]:
+        """The JAX package's dict: the updater's class name and its scalar
+        fields (a schedule as ``{"__schedule__", "config"}``)."""
+        import dataclasses
+
+        from ..learning.schedules import ISchedule
+
+        cfg = {}
+        for k, v in self.updater.__dict__.items():
+            if isinstance(v, ISchedule):
+                cfg[k] = {"__schedule__": type(v).__name__,
+                          "config": dataclasses.asdict(v)}
+            elif isinstance(v, (int, float, str, bool)):
+                cfg[k] = v
+        return {"updater": type(self.updater).__name__,
+                "updater_config": cfg, "l1": self.l1, "l2": self.l2,
+                "loss_name": self.loss_name,
+                "grad_clip_value": self.grad_clip_value}
+
+    @staticmethod
+    def from_json(d: Dict[str, Any]) -> "TrainingConfig":
+        from ..learning import schedules as _sched
+        from ..learning.updaters import _BY_NAME
+
+        cfg = {}
+        for k, v in d.get("updater_config", {}).items():
+            if isinstance(v, dict) and "__schedule__" in v:
+                cfg[k] = getattr(_sched, v["__schedule__"])(**v["config"])
+            else:
+                cfg[k] = v
+        return TrainingConfig(
+            updater=_BY_NAME[d["updater"].lower()](**cfg),
+            l1=d.get("l1", 0.0), l2=d.get("l2", 0.0),
+            loss_name=d.get("loss_name"),
+            grad_clip_value=d.get("grad_clip_value"))
+
+
+def _jsonify(kwargs: Dict[str, Any]) -> Dict[str, Any]:
+    """Static op arguments as JSON values (tuples as lists, arrays as
+    nested lists), as the JAX package writes them."""
+    out = {}
+    for k, v in kwargs.items():
+        if isinstance(v, (np.ndarray, torch.Tensor)):
+            out[k] = np.asarray(v.cpu() if isinstance(v, torch.Tensor)
+                                else v).tolist()
+        elif isinstance(v, tuple):
+            out[k] = list(v)
+        else:
+            out[k] = v
+    return out
 
 
 def _initialize(shape: Tuple[int, ...], init: str, dtype: str,

@@ -53,7 +53,12 @@
 //      .to(bfloat16) of the float32 result gives), written through the
 //      output's strides (the wrapper's [B, T, H, D] buffer, so the head
 //      merge is a view);
-//      lse = safe + log(max(l, 1e-30)) in float32 [B*H, T].
+//      lse = safe + log(max(l, 1e-30)) in float32 [B*H, T];
+//      out_f32 (optional, null when unused): the same quotient before the
+//      bf16 rounding, float32 [B*H, T, D] contiguous. Autograd's forward
+//      asks for it, so the backward takes D = sum(dO * O) from the float32
+//      O as the JAX package's does (its residual is the float32 output of
+//      the upcast); serving passes null and writes no extra byte.
 //    Work split: at D <= 64 a block (one warpgroup, 128 threads) takes
 //    two 64-row q tiles of one (batch, head) and walks the k tiles once
 //    for both: each k/v tile is loaded once and serves both q tiles in
@@ -538,6 +543,7 @@ struct Out {
   __nv_bfloat16* ptr;
   long long sb, sh, st;             // element strides of the [B, H, T, D] output view
   float* lse;                       // null, or [B*H, T]
+  float* f32;                       // null, or the unrounded output, [B*H, T, D]
 };
 
 size_t smem_bytes(int nc, int qt) {
@@ -650,7 +656,8 @@ __device__ __forceinline__ void attend_tile(float (&o)[NC][32], float (&m)[2], f
 
 // o / max(l, 1e-30) of one q tile (as o times the reciprocal, within a
 // float32 ulp), rounded once to bf16 and written through the output's
-// strides; the log-sum-exp per row.
+// strides; the log-sum-exp per row; the unrounded quotient too when the
+// caller gave a float32 output.
 template <int NC>
 __device__ __forceinline__ void store_tile(const float (&o)[NC][32], const float (&m)[2],
                                            const float (&l)[2], const Out& out, long long bh,
@@ -663,14 +670,17 @@ __device__ __forceinline__ void store_tile(const float (&o)[NC][32], const float
     const float den = fmaxf(l[i], 1e-30f);
     const float inv = 1.f / den;
     __nv_bfloat16* orow = out.ptr + b * out.sb + h * out.sh + row * out.st;
+    float* frow = out.f32 != nullptr ? out.f32 + (bh * T + row) * D : nullptr;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
         const int col = c * kChunk + 8 * n + cp;
-        if (col < D)
-          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-              __floats2bfloat162_rn(o[c][4 * n + 2 * i] * inv, o[c][4 * n + 2 * i + 1] * inv);
+        if (col < D) {
+          const float2 v = make_float2(o[c][4 * n + 2 * i] * inv, o[c][4 * n + 2 * i + 1] * inv);
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(v.x, v.y);
+          if (frow != nullptr) *reinterpret_cast<float2*>(frow + col) = v;
+        }
       }
     }
     if (out.lse != nullptr && lse_lane)
@@ -983,12 +993,15 @@ int dl4j_flash_attention_fwd(const void* q, const void* k, const void* v, const 
 // [8, 128]. geom: B, H, T, D, then the strides of q, k, v and out (3
 // each). out: bf16, written through its strides. bias: null, or float32
 // read at b*sb + h*sh + i*sq + j*sk. lse: null, or float32 [B*H, T].
+// out_f32: null, or float32 [B*H, T, D] contiguous, 8-byte aligned, that
+// receives the output before its rounding to bf16.
 // Returns the launch's cudaError_t, or 10000 + the CUresult of a tensor
 // map that could not be encoded.
 int dl4j_flash_attention_bf16_fwd(const void* q, const void* k, const void* v,
                                   const long long* geom, const void* bias, long long sb,
                                   long long sh, long long sq, long long sk, void* out,
-                                  void* lse, float scale, int causal, void* stream) {
+                                  void* lse, void* out_f32, float scale, int causal,
+                                  void* stream) {
   const long long B = geom[0], H = geom[1], T = geom[2], D = geom[3];
   if (B <= 0 || H <= 0 || T <= 0) return 0;
   if (D < 8 || D > kMaxD || D % 8 != 0 || T >= (1LL << 31) ||
@@ -1002,7 +1015,7 @@ int dl4j_flash_attention_bf16_fwd(const void* q, const void* k, const void* v,
   if (err == 0) err = bf16::encode(&tv, &maps.v, v, sizes, geom + 10, (int)D);
   if (err != 0) return err;
   bf16::Out o{static_cast<__nv_bfloat16*>(out), geom[13], geom[14], geom[15],
-              static_cast<float*>(lse)};
+              static_cast<float*>(lse), static_cast<float*>(out_f32)};
   Bias b{static_cast<const float*>(bias), sb, sh, sq, sk, (int)H};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long BH = B * H;

@@ -1,4 +1,4 @@
-from .dataset import DataSet
+from .dataset import DataSet, MultiDataSet
 from .iterators import (DataSetIterator, ExistingDataSetIterator,
                         MnistDataSetIterator, MultipleEpochsIterator,
                         NDArrayDataSetIterator)

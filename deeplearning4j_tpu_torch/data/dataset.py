@@ -1,6 +1,6 @@
-"""DataSet: features + labels, with optional feature and label masks.
+"""DataSet and MultiDataSet: features + labels, with optional masks.
 
-Counterpart of ``deeplearning4j_tpu/data/dataset.py`` (``DataSet``): what the
+Counterpart of ``deeplearning4j_tpu/data/dataset.py``: what the
 fit loops, the input pipeline and the iterators read. Arrays stay as given,
 numpy arrays or tensors; the networks move them to their device when they
 bind a batch. ``features_mask`` is ``[batch, time]`` (1 = a real step),
@@ -9,8 +9,10 @@ bind a batch. ``features_mask`` is ``[batch, time]`` (1 = a real step),
 ``shuffle(seed)`` draws its permutation from ``np.random.RandomState(seed)``
 as the JAX package does, so one seed gives the same order in both packages;
 without a seed it draws from a fresh, unseeded ``RandomState`` (never from
-numpy's global one). Serialization (``save``/``load``) and ``MultiDataSet``
-are not ported yet.
+numpy's global one). ``MultiDataSet`` holds N feature arrays and M label
+arrays, with optional mask lists, for a ``ComputationGraph`` with several
+inputs or outputs. DataSet serialization (``save``/``load``) is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -87,3 +89,25 @@ class DataSet:
         f = tuple(self.features.shape) if self.features is not None else None
         lab = tuple(self.labels.shape) if self.labels is not None else None
         return f"DataSet(features={f}, labels={lab})"
+
+
+class MultiDataSet:
+    """N features + M labels (the reference MultiDataSet, for
+    ``ComputationGraph``), in the graph's input and output order."""
+
+    def __init__(self, features: Sequence, labels: Sequence,
+                 features_masks: Optional[Sequence] = None,
+                 labels_masks: Optional[Sequence] = None):
+        self.features = list(features)
+        self.labels = list(labels)
+        self.features_masks = list(features_masks) if features_masks \
+            else None
+        self.labels_masks = list(labels_masks) if labels_masks else None
+
+    def num_examples(self) -> int:
+        return int(self.features[0].shape[0])
+
+    def __repr__(self) -> str:
+        f = [tuple(a.shape) for a in self.features]
+        lab = [tuple(a.shape) for a in self.labels]
+        return f"MultiDataSet(features={f}, labels={lab})"

@@ -10,7 +10,17 @@ round to float32 once against float32 tensors; here they are 0-dim float32
 tensors on the parameters' device (:func:`f32_scalars`), which rounds them
 the same way and keeps a division a true division on the card (PyTorch
 turns division by a Python scalar into a multiplication by its reciprocal
-there). The other updaters of the JAX package are not ported yet.
+there).
+
+The per-leaf updaters without a fused kernel, ``NoOp``, ``AdaGrad``,
+``AdaDelta``, ``RmsProp``, ``AdaMax``, ``Nadam`` and ``AMSGrad`` (JAX
+``updaters.py:101-295``), follow the same rules. ``AdaMax``, ``Nadam`` and
+``AMSGrad`` subclass ``Adam`` as in the JAX package; the fused kernel's kind
+table matches on the exact type (``ops/update._KINDS``), so under
+``fused_update`` they run this math on the flat buckets, counted under
+``precision/fused_fallbacks``, where the JAX package falls back too.
+``updater_from_name`` makes one by its lower-case name. A learning rate may
+be a schedule (``learning/schedules.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +37,8 @@ Tree = Dict[str, Dict[str, torch.Tensor]]
 
 
 def _lr_at(lr: Union[float, object], iteration: int) -> float:
+    """The rate at ``iteration``: a schedule's value (a Python float, the
+    JAX step's float64), or the constant."""
     if hasattr(lr, "value_at"):
         return lr.value_at(iteration)
     return lr
@@ -182,3 +194,172 @@ class AdamW(Adam):
         lr, eps, bc1, bc2, wd = sc[0], sc[3], sc[4], sc[5], sc[8]
         return lr * ((m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
                      + wd * p)
+
+
+def _map_leaves(fn, params: Tree, grads: Tree, *slots: Tree):
+    """``fn(p, g, *slot_leaves) -> (new_p, *new_slot_leaves)`` over every
+    leaf; returns ``(new_params, [new_slot_tree, ...])``."""
+    new_p: Tree = {n: {} for n in params}
+    new_s = [{n: {} for n in params} for _ in slots]
+    for n, d in params.items():
+        for k, p in d.items():
+            out = fn(p, grads[n][k], *(s[n][k] for s in slots))
+            new_p[n][k] = out[0]
+            for tree, leaf in zip(new_s, out[1:]):
+                tree[n][k] = leaf
+    return new_p, new_s
+
+
+@dataclass
+class NoOp(GradientUpdater):
+    elementwise = True
+    learning_rate: float = 0.0
+
+    def apply(self, grads, state, params, iteration):
+        return params, state
+
+
+@dataclass
+class AdaGrad(GradientUpdater):
+    elementwise = True
+    learning_rate: float = 1e-1
+    epsilon: float = 1e-6
+
+    def init(self, params):
+        return {"h": self._zeros_like(params)}
+
+    def apply(self, grads, state, params, iteration):
+        lr, eps = f32_scalars([_lr_at(self.learning_rate, iteration),
+                               self.epsilon], _device_of(params))
+
+        def upd(p, g, h):
+            h_new = h + g * g
+            return p - lr * g / (torch.sqrt(h_new) + eps), h_new
+
+        new_p, (h,) = _map_leaves(upd, params, grads, state["h"])
+        return new_p, {"h": h}
+
+
+@dataclass
+class AdaDelta(GradientUpdater):
+    elementwise = True
+    rho: float = 0.95
+    epsilon: float = 1e-6
+    learning_rate: float = 1.0  # AdaDelta is LR-free
+
+    def init(self, params):
+        return {"msg": self._zeros_like(params),
+                "msdx": self._zeros_like(params)}
+
+    def apply(self, grads, state, params, iteration):
+        rho, eps, omr = f32_scalars([self.rho, self.epsilon, 1 - self.rho],
+                                    _device_of(params))
+
+        def upd(p, g, msg, msdx):
+            msg_new = rho * msg + omr * (g * g)
+            dx = -torch.sqrt(msdx + eps) / torch.sqrt(msg_new + eps) * g
+            msdx_new = rho * msdx + omr * (dx * dx)
+            return p + dx, msg_new, msdx_new
+
+        new_p, (msg, msdx) = _map_leaves(upd, params, grads, state["msg"],
+                                         state["msdx"])
+        return new_p, {"msg": msg, "msdx": msdx}
+
+
+@dataclass
+class RmsProp(GradientUpdater):
+    elementwise = True
+    learning_rate: float = 1e-1
+    rms_decay: float = 0.95
+    epsilon: float = 1e-8
+
+    def init(self, params):
+        return {"g2": self._zeros_like(params)}
+
+    def apply(self, grads, state, params, iteration):
+        lr, d, omd, eps = f32_scalars(
+            [_lr_at(self.learning_rate, iteration), self.rms_decay,
+             1 - self.rms_decay, self.epsilon], _device_of(params))
+
+        def upd(p, g, g2):
+            g2_new = d * g2 + omd * (g * g)
+            return p - lr * g / (torch.sqrt(g2_new) + eps), g2_new
+
+        new_p, (g2,) = _map_leaves(upd, params, grads, state["g2"])
+        return new_p, {"g2": g2}
+
+
+@dataclass
+class AdaMax(Adam):
+    """Adam with the infinity norm; ``v`` holds ``u = max(beta2 u, |g|)``."""
+
+    def apply(self, grads, state, params, iteration):
+        sc = self._scalars(iteration, _device_of(params))
+        lr, b1, b2, eps, bc1, omb1 = sc[0], sc[1], sc[2], sc[3], sc[4], sc[6]
+
+        def upd(p, g, m, u):
+            m_new = b1 * m + omb1 * g
+            u_new = torch.maximum(b2 * u, torch.abs(g))
+            return p - lr * (m_new / bc1) / (u_new + eps), m_new, u_new
+
+        new_p, (m, v) = _map_leaves(upd, params, grads, state["m"],
+                                    state["v"])
+        return new_p, {"m": m, "v": v}
+
+
+@dataclass
+class Nadam(Adam):
+    """Adam with Nesterov momentum."""
+
+    def apply(self, grads, state, params, iteration):
+        lr, b1, b2, eps, bc1, bc2, omb1, omb2 = self._scalars(
+            iteration, _device_of(params))
+
+        def upd(p, g, m, v):
+            m_new = b1 * m + omb1 * g
+            v_new = b2 * v + omb2 * (g * g)
+            m_hat = b1 * m_new / bc1 + omb1 * g / bc1
+            return (p - lr * m_hat / (torch.sqrt(v_new / bc2) + eps),
+                    m_new, v_new)
+
+        new_p, (m, v) = _map_leaves(upd, params, grads, state["m"],
+                                    state["v"])
+        return new_p, {"m": m, "v": v}
+
+
+@dataclass
+class AMSGrad(Adam):
+    """Adam with the running maximum of ``v`` (``vhat``) in the
+    denominator."""
+
+    def init(self, params):
+        return {"m": self._zeros_like(params),
+                "v": self._zeros_like(params),
+                "vhat": self._zeros_like(params)}
+
+    def apply(self, grads, state, params, iteration):
+        lr, b1, b2, eps, bc1, bc2, omb1, omb2 = self._scalars(
+            iteration, _device_of(params))
+
+        def upd(p, g, m, v, vh):
+            m_new = b1 * m + omb1 * g
+            v_new = b2 * v + omb2 * (g * g)
+            vh_new = torch.maximum(vh, v_new)
+            return (p - lr * (m_new / bc1) / (torch.sqrt(vh_new / bc2) + eps),
+                    m_new, v_new, vh_new)
+
+        new_p, (m, v, vh) = _map_leaves(upd, params, grads, state["m"],
+                                        state["v"], state["vhat"])
+        return new_p, {"m": m, "v": v, "vhat": vh}
+
+
+_BY_NAME = {
+    "sgd": Sgd, "adam": Adam, "adamw": AdamW, "nesterovs": Nesterovs,
+    "adagrad": AdaGrad, "adadelta": AdaDelta, "adamax": AdaMax,
+    "nadam": Nadam, "amsgrad": AMSGrad, "rmsprop": RmsProp, "noop": NoOp,
+}
+
+
+def updater_from_name(name: str, **kwargs) -> GradientUpdater:
+    """The updater of lower-case ``name`` (the JAX package's names)."""
+    return _BY_NAME[name.lower()](**kwargs)

@@ -16,17 +16,26 @@ step reads and replaces, and the invariants that tie that state together:
   the counterpart of the JAX networks' ``_step_core``
   (``multilayer.py:386-484``, ``graph.py:747-808``);
 - :meth:`~TrainableNetwork.generator`: the network's own generator for
-  dropout and stochastic-rounding bits.
+  dropout and stochastic-rounding bits;
+- :meth:`~TrainableNetwork._run_fit`: the fit loop both networks share:
+  the resume cursor (``util/checkpoint.begin_fit_cursor``), the updater
+  state, the flat buckets, then one unpadded step per DataSet
+  (:meth:`~TrainableNetwork._fit_serial`) or the input pipeline
+  (``data/pipeline.run_epochs``), with the listeners told of every step
+  and epoch. Each network binds a batch (``_bind_batch``), places it
+  (``_place_batch``) and steps on it (``_step``).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
-from ..common.dtypes import torch_dtype
-from ..learning.precision import apply_updater
+from ..common.dtypes import tensor_from_numpy, torch_dtype
+from ..data import pipeline as _pipe
+from ..learning.precision import apply_updater, note_state_bytes
 from ..parallel.sharding import leaf_paths
 from ._fused import FlatStore, apply_fused_flat, fused_flat_plan
 from .gradnorm import normalize_gradients_
@@ -50,6 +59,12 @@ class TrainableNetwork:
         self._flat: Optional[FlatStore] = None
         self._cast_cache = None
         self._generator: Optional[torch.Generator] = None
+        self._listeners: List[Any] = []
+        self._last_batch_size: Optional[int] = None
+        self._steps_in_epoch = 0
+
+    #: whether fit takes MultiDataSets (the graph's)
+    _allow_multi = False
 
     @property
     def score_value(self) -> float:
@@ -60,6 +75,139 @@ class TrainableNetwork:
     def _check_init(self) -> None:
         if not self._initialized:
             raise ValueError("call init() first")
+
+    def set_listeners(self, *listeners) -> None:
+        """The listeners every step and epoch is told of; a checkpoint
+        listener gets the whole list (``bind_group``) to save its peers'
+        state for an exact resume."""
+        for lst in listeners:
+            if hasattr(lst, "telemetry_done"):
+                raise NotImplementedError(
+                    f"{type(lst).__name__}: the telemetry listeners (in-step "
+                    f"telemetry aux and the NaN guard) are not ported yet")
+        self._listeners = list(listeners)
+        for lst in self._listeners:
+            bind = getattr(lst, "bind_group", None)
+            if callable(bind):
+                bind(self._listeners)
+
+    setListeners = set_listeners
+
+    # --- parameters ----------------------------------------------------------
+    def _leaves(self) -> List[torch.Tensor]:
+        return [self._params[n][k] for n, k in leaf_paths(self._params)]
+
+    def params(self) -> torch.Tensor:
+        """All parameters as one flat vector, in the JAX network's order."""
+        leaves = self._leaves()
+        if not leaves:
+            return torch.zeros((0,), device=self.device)
+        with torch.no_grad():
+            return torch.cat([t.reshape(-1) for t in leaves])
+
+    def num_params(self) -> int:
+        return sum(int(t.numel()) for t in self._leaves())
+
+    def _gradient_and_score(self, loss_fn):
+        """``(grads, score)`` of ``loss_fn(params)`` by autograd, the
+        gradients as ``{node: {name: tensor}}``; the score is published as
+        ``score_value``."""
+        paths = leaf_paths(self._params)
+        leaves = [self._params[n][k].detach().requires_grad_(True)
+                  for n, k in paths]
+        params = {n: {} for n in self._params}
+        for (n, k), t in zip(paths, leaves):
+            params[n][k] = t
+        with torch.enable_grad():
+            loss = loss_fn(params)
+            flat = torch.autograd.grad(loss, leaves)
+        grads = {n: {} for n in self._params}
+        for (n, k), g in zip(paths, flat):
+            grads[n][k] = g
+        self._score = loss.detach()
+        return grads, float(self._score)
+
+    # --- placement -----------------------------------------------------------
+    def _to_device(self, v) -> torch.Tensor:
+        if isinstance(v, torch.Tensor):
+            return v.to(self.device)
+        return tensor_from_numpy(np.asarray(v), self.device)
+
+    def _place_array(self, a):
+        """An array (numpy or tensor; None passes) on the network's device:
+        from pinned host memory with a non-blocking copy on the card, so
+        the pipeline's copies run ahead of the steps."""
+        if a is None:
+            return None
+        if not isinstance(a, torch.Tensor):
+            a = tensor_from_numpy(np.asarray(a))
+        if self.device.type == "cuda" and a.device.type == "cpu":
+            return a.pin_memory().to(self.device, non_blocking=True)
+        return a.to(self.device)
+
+    # --- the fit loop --------------------------------------------------------
+    def _begin_fit(self, resume_from: Optional[str]):
+        from ..util.checkpoint import begin_fit_cursor
+
+        return begin_fit_cursor(self, resume_from, listeners=self._listeners)
+
+    def _on_epoch(self) -> None:
+        self._epoch += 1
+        self._steps_in_epoch = 0
+        for lst in self._listeners:
+            if hasattr(lst, "epoch_done"):
+                lst.epoch_done(self, self._epoch)
+
+    def _run_fit(self, data, epochs: int, batch_size: Optional[int], *,
+                 pad_partial: bool, drop_remainder: bool, prefetch: int,
+                 steps_per_dispatch: int, host_prefetch: int,
+                 resume_from: Optional[str], serial: bool) -> None:
+        self._check_init()
+        if host_prefetch:
+            raise NotImplementedError("fit(host_prefetch=...) is not ported "
+                                      "yet (ROADMAP A6)")
+        skip = self._begin_fit(resume_from)
+        if self._updater_state is None:
+            self._updater_state = self.conf.global_conf.updater.init(
+                self._params)
+        store = self._flat_store()
+        note_state_bytes(self._updater_state)
+        if serial:
+            self._fit_serial(data, epochs, store, skip)
+            return
+
+        def dispatch(group):
+            losses = [self._step(store, b, self._iteration + j)
+                      for j, b in enumerate(group)]
+            _pipe.note_steps(self, self._listeners, losses)
+
+        _pipe.run_epochs(
+            data, epochs, batch_size, pad_partial=pad_partial,
+            drop_remainder=drop_remainder, prefetch=prefetch,
+            steps_per_dispatch=steps_per_dispatch, bind=self._bind_batch,
+            place=self._place_batch, dispatch=dispatch,
+            on_epoch=self._on_epoch, allow_multi=self._allow_multi,
+            skip=skip)
+
+    def _fit_serial(self, data, epochs: int, store, skip) -> None:
+        """One unpadded step per DataSet (the loss's plain mean); a resume
+        cursor skips the steps the checkpoint had taken."""
+        skip_epochs, skip_steps = skip if skip is not None else (0, 0)
+        for e in range(max(1, epochs)):
+            batches = _pipe.iter_datasets(data, None, self._allow_multi)
+            if e < skip_epochs:
+                for _ in batches:
+                    pass
+                continue
+            to_skip = skip_steps if e == skip_epochs else 0
+            for ds in batches:
+                if to_skip:
+                    to_skip -= 1
+                    continue
+                batch = self._place_batch(self._bind_batch(ds, None))
+                loss = self._step(store, batch, self._iteration)
+                _pipe.note_steps(self, self._listeners, [loss])
+            self._on_epoch()
 
     def generator(self) -> torch.Generator:
         """The network's own generator for dropout and stochastic-rounding

@@ -25,6 +25,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from ...learning import schedules as _schedules
 from ...learning import updaters as _updaters
 from ...learning.updaters import GradientUpdater, Sgd
 from .. import losses as _losses
@@ -302,7 +303,7 @@ class MultiLayerConfiguration:
 
 def _registry() -> Dict[str, type]:
     classes: Dict[str, type] = {"GlobalConf": GlobalConf}
-    for mod in (L, _inputs, _updaters):
+    for mod in (L, _inputs, _updaters, _schedules):
         for name in dir(mod):
             obj = getattr(mod, name)
             if isinstance(obj, type) and dataclasses.is_dataclass(obj):

@@ -2,48 +2,66 @@
 
 Counterpart of ``deeplearning4j_tpu/nn/graph.py``: the same configuration
 objects (``GraphBuilder``, ``ComputationGraphConfiguration`` with
-``set_input_types``), the same node names and parameter layouts, and the
-same walk. Inference collapses the resnet block tail ``BN(identity) → add →
-relu`` into one kernel launch (the fused-epilogue plan, with its dense
-replay when the gate refuses). PyTorch runs the walk eagerly, node by node;
-there is no trace to cache.
+``set_input_types`` and ``to_json``/``from_json`` in the JAX package's
+format), the same vertices (Merge, ElementWise, DotProduct, Subset, Scale,
+Shift, L2Normalize, Stack, Unstack, Reshape), the same node names and
+parameter layouts, and the same walk. Inference collapses the resnet block
+tail ``BN(identity) → add → relu`` into one kernel launch (the
+fused-epilogue plan, with its dense replay when the gate refuses). PyTorch
+runs the walk eagerly, node by node; there is no trace to cache.
 
-Training (``fit``) takes one step per ``DataSet``: the forward with batch
-statistics (no fusion plan), the loss head in float32 under
-``compute_dtype``, l1/l2 regularisation (not on ``b``/``beta``), backward
-through autograd, the gradient normalization the configuration names
-(``nn/gradnorm.py``), then the updater. With ``GlobalConf.fused_update`` the
-parameters live in flat per-dtype buckets (``nn/_fused.FlatStore``), the
-gradients are born in a flat bucket, and the update is one launch of the
-``csrc/fused_update.cu`` kernel per float32 bucket; otherwise the per-leaf
-``learning.precision.apply_updater`` runs. Random bits for dropout and for
-stochastic rounding come from the graph's own ``torch.Generator``.
+Training runs one step per batch: the forward with batch statistics (no
+fusion plan), the loss head in float32 under ``compute_dtype``, l1/l2
+regularisation (not on ``b``/``beta``), backward through autograd, the
+gradient normalization the configuration names (``nn/gradnorm.py``), then
+the updater (``nn/_train.TrainableNetwork._train_step``). With
+``GlobalConf.fused_update`` the parameters live in flat per-dtype buckets
+(``nn/_fused.FlatStore``), the gradients are born in a flat bucket, and the
+update is one launch of the ``csrc/fused_update.cu`` kernel per float32
+bucket; otherwise the per-leaf ``learning.precision.apply_updater`` runs.
+Random bits for dropout and for stochastic rounding come from the graph's
+own ``torch.Generator``.
+
+``fit`` has the JAX signature (``graph.py:853``). A ``DataSet`` or a
+``MultiDataSet`` without ``batch_size`` takes one unpadded step
+(``bench.py``'s loop); anything else goes through the input pipeline
+(``data/pipeline.py``, shared with ``MultiLayerNetwork``): shape-stable
+batches whose padded rows carry example weight 0 in every output's loss,
+``prefetch`` batches placed ahead, ``steps_per_dispatch``. Listeners
+(``set_listeners``) hear of every step; ``CheckpointListener`` writes
+checkpoints that ``fit(resume_from=)`` continues bitwise
+(``util/checkpoint.py``), and ``save``/``load`` write and read the JAX
+package's model zip (``util/model_serializer.py``). ``host_prefetch``
+raises ``NotImplementedError`` (ROADMAP A6).
 
 ``ComputationGraph.init`` places parameters on the card unless the caller
-asks for another device (``device="cpu"``). ``output`` takes one array per
-network input (or a dict by name) and returns a list of tensors, one per
-network output. Under ``compute_dtype`` only floating inputs are cast, so
-integer inputs (token ids, positions) stay integers.
+asks for another device (``device="cpu"``); so does ``load``. ``output``
+takes one array per network input (or a dict by name) and returns a list of
+tensors, one per network output. Under ``compute_dtype`` only floating
+inputs are cast, so integer inputs (token ids, positions) stay integers.
 """
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
-from typing import Any, Dict, Iterable, List, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
-from ..common.dtypes import tensor_from_numpy, torch_dtype
+from ..common.dtypes import torch_dtype
 from ..common.environment import resolve_device
-from ..data.dataset import DataSet
-from ..learning.precision import note_state_bytes
+from ..data import pipeline as _pipe
+from ..data.dataset import DataSet, MultiDataSet
 from ..ops.epilogue import bn_act
 from ._fused import FlatStore
 from ._train import TrainableNetwork
 from .conf import layers as L
-from .conf.builder import GlobalConf, apply_layer_defaults
-from .conf.inputs import CNNInput, FFInput, InputType, cnn_to_ff
+from .conf.builder import (_CLASSES, GlobalConf, _deser_obj, _ser_obj,
+                           apply_layer_defaults)
+from .conf.inputs import (CNNFlatInput, CNNInput, FFInput, InputType,
+                          RNNInput, cnn_to_ff, flat_to_cnn)
+from .multilayer import _fold_weights
 
 
 # --- graph vertices -----------------------------------------------------------
@@ -68,6 +86,8 @@ class MergeVertex(GraphVertex):
             return CNNInput(sum(t.channels for t in ts), t0.height, t0.width)
         if isinstance(t0, FFInput):
             return FFInput(sum(t.size for t in ts))
+        if isinstance(t0, RNNInput):
+            return RNNInput(sum(t.size for t in ts), t0.timesteps)
         raise ValueError(f"cannot merge {ts}")
 
     def apply(self, *inputs):
@@ -112,6 +132,118 @@ class ElementWiseVertex(GraphVertex):
         raise ValueError(f"unknown elementwise op {self.op!r}")
 
 
+@dataclass
+class DotProductVertex(GraphVertex):
+    """Batched dot product of two FF inputs over the feature axis,
+    optionally L2-normalized first (cosine proximity); output ``[B, 1]``."""
+
+    normalize: bool = False
+
+    def output_type(self, *ts):
+        if len(ts) != 2 or not all(isinstance(t, FFInput) for t in ts):
+            raise ValueError("DotProductVertex needs two FF inputs")
+        if ts[0].size != ts[1].size:
+            raise ValueError(f"DotProductVertex inputs differ: {ts[0].size} "
+                             f"vs {ts[1].size}")
+        return FFInput(1)
+
+    def apply(self, a, b):
+        if self.normalize:
+            a = a / torch.clamp_min(_l2(a, (-1,)), 1e-12)
+            b = b / torch.clamp_min(_l2(b, (-1,)), 1e-12)
+        return torch.sum(a * b, dim=-1, keepdim=True)
+
+
+@dataclass
+class SubsetVertex(GraphVertex):
+    """Feature-dim slice ``[from_idx, to_idx]``, inclusive."""
+
+    from_idx: int = 0
+    to_idx: int = 0
+
+    def output_type(self, *ts):
+        n = self.to_idx - self.from_idx + 1
+        t = ts[0]
+        if isinstance(t, FFInput):
+            return FFInput(n)
+        if isinstance(t, CNNInput):
+            return CNNInput(n, t.height, t.width)
+        if isinstance(t, RNNInput):
+            return RNNInput(n, t.timesteps)
+        raise ValueError(f"subset of {t}")
+
+    def apply(self, *inputs):
+        x = inputs[0]
+        sl = slice(self.from_idx, self.to_idx + 1)
+        return x[:, sl] if x.ndim == 4 else x[..., sl]
+
+
+@dataclass
+class ScaleVertex(GraphVertex):
+    scale: float = 1.0
+
+    def apply(self, *inputs):
+        return inputs[0] * self.scale
+
+
+@dataclass
+class ShiftVertex(GraphVertex):
+    shift: float = 0.0
+
+    def apply(self, *inputs):
+        return inputs[0] + self.shift
+
+
+@dataclass
+class L2NormalizeVertex(GraphVertex):
+    eps: float = 1e-8
+
+    def apply(self, *inputs):
+        x = inputs[0]
+        return x / torch.clamp_min(_l2(x, tuple(range(1, x.ndim))), self.eps)
+
+
+@dataclass
+class StackVertex(GraphVertex):
+    """Stack along the batch dim."""
+
+    def apply(self, *inputs):
+        return torch.cat(inputs, dim=0)
+
+
+@dataclass
+class UnstackVertex(GraphVertex):
+    from_idx: int = 0
+    stack_size: int = 1
+
+    def apply(self, *inputs):
+        x = inputs[0]
+        n = x.shape[0] // self.stack_size
+        return x[self.from_idx * n:(self.from_idx + 1) * n]
+
+
+@dataclass
+class ReshapeVertex(GraphVertex):
+    shape: Tuple[int, ...] = ()
+
+    def apply(self, *inputs):
+        return inputs[0].reshape((inputs[0].shape[0],) + tuple(self.shape))
+
+
+def _l2(x: torch.Tensor, dims) -> torch.Tensor:
+    """``sqrt(sum(x * x))`` over ``dims``, kept (``jnp.linalg.norm``'s and
+    the JAX vertex's spelling)."""
+    return torch.sqrt(torch.sum(x * x, dim=dims, keepdim=True))
+
+
+# the vertices take part in the configuration JSON as the layers do: the
+# JAX package's list (graph.py:201-203), which leaves DotProductVertex out
+for _v in (GraphVertex, MergeVertex, ElementWiseVertex, SubsetVertex,
+           ScaleVertex, ShiftVertex, L2NormalizeVertex, StackVertex,
+           UnstackVertex, ReshapeVertex):
+    _CLASSES[_v.__name__] = _v
+
+
 # --- graph node wiring ----------------------------------------------------------
 
 
@@ -148,7 +280,11 @@ class ComputationGraphConfiguration:
         for name in self.order:
             node = self.nodes[name]
             if node.kind == "input":
-                self.node_output_types[name] = self.input_types[name]
+                t = self.input_types[name]
+                if isinstance(t, CNNFlatInput):
+                    node.preprocessors[0] = flat_to_cnn(t)
+                    t = node.preprocessors[0].out_type
+                self.node_output_types[name] = t
                 continue
             in_types = [self.node_output_types[i] for i in node.inputs]
             if node.kind == "vertex":
@@ -161,6 +297,47 @@ class ComputationGraphConfiguration:
                 node.preprocessors[0] = cnn_to_ff(t)
                 t = node.preprocessors[0].out_type
             self.node_output_types[name] = node.layer.set_input_type(t)
+
+
+    # --- serde ------------------------------------------------------------
+    def to_json(self) -> str:
+        """The JAX package's format (``format_version`` 1), so a graph
+        configuration written by one package reads in the other."""
+        return json.dumps({
+            "format_version": 1,
+            "global": _ser_obj(self.global_conf),
+            "inputs": self.network_inputs,
+            "outputs": self.network_outputs,
+            "order": self.order,
+            "nodes": [
+                {"name": n.name, "kind": n.kind,
+                 "layer": _ser_obj(n.layer) if n.layer else None,
+                 "vertex": _ser_obj(n.vertex) if n.vertex else None,
+                 "inputs": n.inputs}
+                for n in (self.nodes[nm] for nm in self.order)],
+            "input_types": {k: _ser_obj(v)
+                            for k, v in self.input_types.items()},
+        }, indent=2)
+
+    @staticmethod
+    def from_json(s: str) -> "ComputationGraphConfiguration":
+        """Read :meth:`to_json`'s format; a field the port lacks reads only
+        when it is inert (``nn/conf/builder._deser_obj``)."""
+        d = json.loads(s)
+        conf = ComputationGraphConfiguration(_deser_obj(d["global"]))
+        conf.network_inputs = d["inputs"]
+        conf.network_outputs = d["outputs"]
+        for nd in d["nodes"]:
+            node = _Node(nd["name"], nd["kind"],
+                         _deser_obj(nd["layer"]) if nd["layer"] else None,
+                         _deser_obj(nd["vertex"]) if nd["vertex"] else None,
+                         nd["inputs"])
+            conf.nodes[node.name] = node
+            conf.order.append(node.name)
+        if d.get("input_types"):
+            conf.set_input_types(*[_deser_obj(v)
+                                   for v in d["input_types"].values()])
+        return conf
 
 
 class GraphBuilder:
@@ -235,6 +412,9 @@ class GraphBuilder:
 class ComputationGraph(TrainableNetwork):
     """Runtime twin of the configuration."""
 
+    #: the graph's batches may be MultiDataSets
+    _allow_multi = True
+
     def __init__(self, conf: ComputationGraphConfiguration):
         super().__init__(conf)
 
@@ -260,10 +440,6 @@ class ComputationGraph(TrainableNetwork):
                 self._states[name] = node.layer.init_state(self.device)
         self._initialized = True
         return self
-
-    def num_params(self) -> int:
-        return sum(int(t.numel()) for p in self._params.values()
-                   for t in p.values())
 
     # --- forward -----------------------------------------------------------
     def _epilogue_fusion_plan(self):
@@ -357,7 +533,10 @@ class ComputationGraph(TrainableNetwork):
         for name in self.conf.order:
             node = self.conf.nodes[name]
             if node.kind == "input":
-                acts[name] = inputs[name]
+                x = inputs[name]
+                if 0 in node.preprocessors:
+                    x = node.preprocessors[0](x)
+                acts[name] = x
                 continue
             if plan is not None and node.kind == "vertex" \
                     and name in plan["add"]:
@@ -395,6 +574,7 @@ class ComputationGraph(TrainableNetwork):
                 continue
             if to_preout and name in out_set \
                     and isinstance(node.layer, L.OutputLayer):
+                x = node.layer._maybe_dropout(x, training, gen)
                 head_params = params.get(name, {})
                 if cd:
                     # the head matmul and the loss in float32 (from the
@@ -421,11 +601,6 @@ class ComputationGraph(TrainableNetwork):
                                     training)
         return [acts[o] for o in self.conf.network_outputs]
 
-    def _to_device(self, v) -> torch.Tensor:
-        if isinstance(v, torch.Tensor):
-            return v.to(self.device)
-        return tensor_from_numpy(np.asarray(v), self.device)
-
     def _bind_inputs(self, inputs) -> Dict[str, torch.Tensor]:
         names = self.conf.network_inputs
         if len(inputs) == 1 and isinstance(inputs[0], dict):
@@ -440,21 +615,41 @@ class ComputationGraph(TrainableNetwork):
         return [o for o in self.conf.network_outputs
                 if isinstance(self.conf.nodes[o].layer, L.OutputLayer)]
 
-    def _bind_dataset(self, ds: DataSet):
+    def _bind_batch(self, ds, w) -> tuple:
+        """A DataSet or MultiDataSet as the step's ``(inputs, labels,
+        masks, w)`` dicts by node name, not yet placed (``w``: the
+        pipeline's example weights, or None for the plain mean)."""
+        self._last_batch_size = ds.num_examples()
+        in_names, out_names = self.conf.network_inputs, self._output_names()
+        if isinstance(ds, MultiDataSet):
+            masks = {n: m for n, m in zip(out_names, ds.labels_masks or ())
+                     if m is not None}
+            return (dict(zip(in_names, ds.features)),
+                    dict(zip(out_names, ds.labels)), masks, w)
         if not isinstance(ds, DataSet):
-            raise TypeError(f"expected a DataSet, got {type(ds).__name__}")
-        out = self._output_names()
-        inputs = {self.conf.network_inputs[0]: self._to_device(ds.features)}
-        labels = {out[0]: self._to_device(ds.labels)}
-        masks = {}
-        if ds.labels_mask is not None:
-            masks = {out[0]: self._to_device(ds.labels_mask)}
-        return inputs, labels, masks
+            raise TypeError(f"expected a DataSet or MultiDataSet, got "
+                            f"{type(ds).__name__}")
+        masks = ({out_names[0]: ds.labels_mask}
+                 if ds.labels_mask is not None else {})
+        return ({in_names[0]: ds.features}, {out_names[0]: ds.labels},
+                masks, w)
+
+    def _place_batch(self, b) -> tuple:
+        inputs, labels, masks, w = b
+        put = lambda d: {k: self._place_array(v)  # noqa: E731
+                         for k, v in d.items()}
+        return (put(inputs), put(labels), put(masks),
+                None if w is None else self._place_array(w))
+
+    def _bind_dataset(self, ds):
+        return self._place_batch(self._bind_batch(ds, None))[:3]
 
     def _loss(self, params, states, inputs, labels, masks,
-              training: bool):
-        """Mean loss over the outputs plus l1/l2 regularisation (leaving
-        out ``b`` and ``beta``), and the new layer states."""
+              training: bool, w=None):
+        """Mean loss over the outputs (with the example weights ``w``:
+        ``sum(w * loss) / max(sum(w), 1)`` per output, so padded rows count
+        for nothing) plus l1/l2 regularisation (leaving out ``b`` and
+        ``beta``), and the new layer states."""
         acts, new_states = self._forward(params, states, inputs, training,
                                          to_preout=True)
         total = 0.0
@@ -465,9 +660,16 @@ class ComputationGraph(TrainableNetwork):
             if self.conf.global_conf.compute_dtype \
                     and pre.is_floating_point():
                 pre = pre.to(torch.float32)
-            total = total + layer.loss.compute_score(
-                labels[out_name], pre, layer.activation,
-                masks.get(out_name) if masks else None, average=True)
+            mask = masks.get(out_name) if masks else None
+            if w is None:
+                total = total + layer.loss.compute_score(
+                    labels[out_name], pre, layer.activation, mask,
+                    average=True)
+            else:
+                s = layer.loss.compute_score(
+                    labels[out_name], pre, layer.activation,
+                    _fold_weights(mask, w), average=False)
+                total = total + s / torch.clamp_min(w.sum(), 1.0)
         gc = self.conf.global_conf
         reg = 0.0
         for lname in sorted(params):
@@ -477,14 +679,14 @@ class ComputationGraph(TrainableNetwork):
             for pname in sorted(params[lname]):
                 if pname in ("b", "beta"):
                     continue
-                w = params[lname][pname]
+                t = params[lname][pname]
                 if l2:
-                    reg = reg + 0.5 * l2 * torch.sum(w * w)
+                    reg = reg + 0.5 * l2 * torch.sum(t * t)
                 if l1:
-                    reg = reg + l1 * torch.sum(torch.abs(w))
+                    reg = reg + l1 * torch.sum(torch.abs(t))
         return total + reg, new_states
 
-    def score(self, ds: DataSet, training: bool = False) -> float:
+    def score(self, ds, training: bool = False) -> float:
         """The loss on ``ds`` (regularisation included), without a step."""
         self._check_init()
         inputs, labels, masks = self._bind_dataset(ds)
@@ -493,30 +695,90 @@ class ComputationGraph(TrainableNetwork):
                                  masks, training)
         return float(loss)
 
+    def compute_gradient_and_score(self, ds):
+        """``(gradients, score)`` in inference mode, the gradients as
+        ``{node: {name: tensor}}``."""
+        self._check_init()
+        inputs, labels, masks = self._bind_dataset(ds)
+        return self._gradient_and_score(
+            lambda p: self._loss(p, self._states, inputs, labels, masks,
+                                 False)[0])
+
     # --- training ----------------------------------------------------------
-    def _step(self, store: Optional[FlatStore], inputs, labels,
-              masks) -> torch.Tensor:
-        """One training step: forward, loss, backward, update (through
-        ``store`` on the fused path). Returns the loss (detached)."""
+    def _step(self, store: Optional[FlatStore], batch,
+              iteration: int) -> torch.Tensor:
+        """One training step on a placed batch ``(inputs, labels, masks,
+        w)``: forward, loss, backward, update (through ``store`` on the
+        fused path). Returns the loss (detached)."""
+        inputs, labels, masks, w = batch
         loss, self._states = self._train_step(
             store, lambda p: self._loss(p, self._states, inputs, labels,
-                                        masks, training=True),
-            self._iteration)
+                                        masks, True, w), iteration)
         return loss
 
-    def fit(self, data: Union[DataSet, Iterable[DataSet]],
-            epochs: int = 1) -> None:
-        """Train on ``data`` (a DataSet, or an iterable of them), one step
-        per DataSet, for ``epochs`` passes."""
-        self._check_init()
-        gc = self.conf.global_conf
-        if self._updater_state is None:
-            self._updater_state = gc.updater.init(self._params)
-        store = self._flat_store()
-        note_state_bytes(self._updater_state)
-        for _ in range(max(1, epochs)):
-            for ds in ([data] if isinstance(data, DataSet) else data):
-                inputs, labels, masks = self._bind_dataset(ds)
-                self._score = self._step(store, inputs, labels, masks)
-                self._iteration += 1
-            self._epoch += 1
+    def fit(self, data, epochs: int = 1, batch_size: Optional[int] = None,
+            *, pad_partial: Optional[bool] = None,
+            drop_remainder: bool = False, prefetch: int = 2,
+            steps_per_dispatch: int = 1, host_prefetch: int = 0,
+            resume_from: Optional[str] = None) -> None:
+        """Train on ``data`` for ``epochs`` passes: a DataSet or
+        MultiDataSet without ``batch_size`` takes one unpadded step, the
+        rest goes through the input pipeline (see the module docstring;
+        ``pad_partial`` defaults to True). ``resume_from``: a checkpoint
+        written by ``CheckpointListener``; the call must be given the same
+        data, epochs and batch arguments as the run that wrote it, and
+        continues it bitwise (``util/checkpoint.restore_training_state``)."""
+        self._run_fit(data, epochs, batch_size,
+                      pad_partial=True if pad_partial is None
+                      else pad_partial, drop_remainder=drop_remainder,
+                      prefetch=prefetch,
+                      steps_per_dispatch=steps_per_dispatch,
+                      host_prefetch=host_prefetch, resume_from=resume_from,
+                      serial=isinstance(data, (DataSet, MultiDataSet))
+                      and batch_size is None)
+
+    # --- evaluation and persistence ------------------------------------------
+    def evaluate(self, data):
+        """Classification metrics of the first output over ``data``."""
+        from ..eval.evaluation import Evaluation
+
+        ev = Evaluation()
+        for ds in _pipe.iter_datasets(data, None, allow_multi=True):
+            if isinstance(ds, MultiDataSet):
+                out = self.output(*ds.features)[0]
+                ev.eval(ds.labels[0], out)
+            else:
+                out = self.output(ds.features)[0]
+                ev.eval(ds.labels, out, ds.labels_mask)
+        return ev
+
+    def save(self, path: str, save_updater: bool = False) -> None:
+        """The model zip in the JAX package's format
+        (``util/model_serializer.write_model``)."""
+        from ..util.model_serializer import write_model
+
+        write_model(self, path, save_updater)
+
+    @staticmethod
+    def load(path: str, load_updater: bool = False,
+             device=None) -> "ComputationGraph":
+        """A graph from a model zip (either package's), on ``device``: the
+        card unless the caller asks for another."""
+        from ..util.model_serializer import restore_computation_graph
+
+        return restore_computation_graph(path, load_updater, device)
+
+    def summary(self) -> str:
+        lines = [f"{'node':<28}{'kind':<10}{'out type':<34}{'params':<10}"]
+        total = 0
+        for name in self.conf.order:
+            node = self.conf.nodes[name]
+            n = (sum(int(t.numel()) for t in self._params.get(name, {})
+                     .values()) if self._initialized else 0)
+            total += n
+            ot = self.conf.node_output_types.get(name, "?")
+            kind = node.kind if node.kind != "layer" \
+                else type(node.layer).__name__
+            lines.append(f"{name:<28}{kind[:24]:<10}{str(ot):<34}{n:<10}")
+        lines.append(f"Total params: {total}")
+        return "\n".join(lines)

@@ -4,7 +4,8 @@ Counterpart of ``deeplearning4j_tpu/nn/multilayer.py``, with its API:
 ``init``, ``fit``, ``output``, ``feed_forward``, ``score``,
 ``compute_gradient_and_score``, ``evaluate``, ``evaluate_regression``,
 ``params``/``set_params``/``num_params``, ``param_table``, ``summary``,
-``clone``, ``set_listeners``.
+``clone``, ``set_listeners``, ``get_layer``, ``n_layers``, ``save``/
+``load`` (the JAX package's model zip, ``util/model_serializer.py``).
 
 Parameters are a dict keyed by the layer's zero-padded index (``"0000"``,
 ``"0001"``, ...) of per-layer dicts, so the order of the leaves (layer by
@@ -41,19 +42,22 @@ memory and non-blocking copies on the card), and ``steps_per_dispatch=K``
 runs K steps before the listeners hear of them, as the JAX package's
 ``lax.scan`` chunk does.
 
+``fit(resume_from=)`` continues a run from a checkpoint that
+``CheckpointListener`` wrote, bitwise (``util/checkpoint.py``).
+
 ``init`` places the parameters on the card unless the caller asks for
-another device (``device="cpu"``). Not ported yet, each raising
-``NotImplementedError``: truncated BPTT (``backprop_type="TruncatedBPTT"``)
-and ``rnn_time_step``, ``pretrain``, ``set_remat_policy`` and any
-rematerialization policy, the telemetry listeners and the NaN guard,
-``save``/``load``, ``fit(host_prefetch=, resume_from=)``, weight noise and
+another device (``device="cpu"``); so does ``load``. Not ported yet, each
+raising ``NotImplementedError``: truncated BPTT
+(``backprop_type="TruncatedBPTT"``) and ``rnn_time_step``, ``pretrain``,
+``set_remat_policy`` and any rematerialization policy, the telemetry
+listeners and the NaN guard, ``fit(host_prefetch=)``, weight noise and
 frozen layers. The fleet's per-call ``hyper`` overrides have no entry here.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -62,8 +66,6 @@ from ..common.dtypes import tensor_from_numpy, torch_dtype
 from ..common.environment import resolve_device
 from ..data import pipeline as _pipe
 from ..data.dataset import DataSet
-from ..learning.precision import note_state_bytes
-from ..parallel.sharding import leaf_paths
 from ._fused import FlatStore
 from ._train import TrainableNetwork
 from .conf import layers as L
@@ -87,8 +89,6 @@ class MultiLayerNetwork(TrainableNetwork):
         super().__init__(conf)
         self.layers = conf.layers
         self._keys = [layer_key(i) for i in range(len(conf.layers))]
-        self._listeners: List[Any] = []
-        self._last_batch_size: Optional[int] = None
 
     # --- set-up ------------------------------------------------------------
     def init(self, seed: Optional[int] = None,
@@ -120,35 +120,11 @@ class MultiLayerNetwork(TrainableNetwork):
         self._initialized = True
         return self
 
-    def set_listeners(self, *listeners) -> None:
-        for lst in listeners:
-            if hasattr(lst, "telemetry_done"):
-                raise NotImplementedError(
-                    f"{type(lst).__name__}: the telemetry listeners (in-step "
-                    f"telemetry aux and the NaN guard) are not ported yet")
-        self._listeners = list(listeners)
-
-    setListeners = set_listeners
-
     def set_remat_policy(self, policy) -> None:
         raise NotImplementedError("rematerialization policies are not "
                                   "ported yet")
 
     # --- parameter access --------------------------------------------------
-    def _leaves(self) -> List[torch.Tensor]:
-        return [self._params[n][k] for n, k in leaf_paths(self._params)]
-
-    def params(self) -> torch.Tensor:
-        """All parameters as one flat vector, in the JAX network's order."""
-        leaves = self._leaves()
-        if not leaves:
-            return torch.zeros((0,), device=self.device)
-        with torch.no_grad():
-            return torch.cat([t.reshape(-1) for t in leaves])
-
-    def num_params(self) -> int:
-        return sum(int(t.numel()) for t in self._leaves())
-
     def set_params(self, flat) -> None:
         """Load a flat vector (numpy or tensor, e.g. the JAX network's
         ``params()``) into the parameters, in place: the fused update's
@@ -171,6 +147,12 @@ class MultiLayerNetwork(TrainableNetwork):
 
     def param_table(self, layer_idx: int) -> Dict[str, torch.Tensor]:
         return dict(self._params[self._keys[layer_idx]])
+
+    def get_layer(self, idx: int) -> L.Layer:
+        return self.layers[idx]
+
+    def n_layers(self) -> int:
+        return len(self.layers)
 
     def summary(self) -> str:
         lines = [f"{'idx':<4}{'layer':<28}{'out type':<28}{'params':<10}"]
@@ -246,19 +228,11 @@ class MultiLayerNetwork(TrainableNetwork):
         return x, new_states
 
     def _place(self, arrays: Tuple) -> Tuple:
-        """Arrays (numpy, tensors or None) on the network's device: from
-        pinned host memory with non-blocking copies on the card."""
-        out = []
-        for a in arrays:
-            if a is not None:
-                if not isinstance(a, torch.Tensor):
-                    a = tensor_from_numpy(np.asarray(a))
-                if self.device.type == "cuda" and a.device.type == "cpu":
-                    a = a.pin_memory().to(self.device, non_blocking=True)
-                else:
-                    a = a.to(self.device)
-            out.append(a)
-        return tuple(out)
+        """Arrays (numpy, tensors or None) on the network's device
+        (``_place_array``)."""
+        return tuple(self._place_array(a) for a in arrays)
+
+    _place_batch = _place
 
     def output(self, x, training: bool = False, fmask=None) -> torch.Tensor:
         """Inference (``training=True``: with dropout and batch
@@ -348,21 +322,10 @@ class MultiLayerNetwork(TrainableNetwork):
         dict per layer (the JAX network's list)."""
         self._check_init()
         x, y, mask, fmask = self._bind_dataset(dataset)
-        paths = leaf_paths(self._params)
-        leaves = [self._params[n][k].detach().requires_grad_(True)
-                  for n, k in paths]
-        params = {n: {} for n in self._params}
-        for (n, k), t in zip(paths, leaves):
-            params[n][k] = t
-        with torch.enable_grad():
-            loss, _ = self._loss(params, self._states, x, y, mask, False,
-                                 fmask)
-            flat = torch.autograd.grad(loss, leaves)
-        grads = {n: {} for n in self._params}
-        for (n, k), g in zip(paths, flat):
-            grads[n][k] = g
-        self._score = loss.detach()
-        return [grads[key] for key in self._keys], float(self._score)
+        grads, score = self._gradient_and_score(
+            lambda p: self._loss(p, self._states, x, y, mask, False,
+                                 fmask)[0])
+        return [grads[key] for key in self._keys], score
 
     # --- training ----------------------------------------------------------
     def _apply_constraints(self) -> None:
@@ -393,8 +356,7 @@ class MultiLayerNetwork(TrainableNetwork):
             self._apply_constraints()
         return loss
 
-    def _refuse_unported(self, host_prefetch: int,
-                         resume_from: Optional[str]) -> None:
+    def _refuse_unported(self) -> None:
         gc = self.conf.global_conf
         if self.conf.backprop_type == "TruncatedBPTT":
             raise NotImplementedError("truncated BPTT is not ported yet (it "
@@ -403,12 +365,6 @@ class MultiLayerNetwork(TrainableNetwork):
                                                                 "none"):
             raise NotImplementedError("rematerialization policies are not "
                                       "ported yet")
-        if host_prefetch:
-            raise NotImplementedError("fit(host_prefetch=...) is not ported "
-                                      "yet")
-        if resume_from is not None:
-            raise NotImplementedError("fit(resume_from=...) (checkpoints) is "
-                                      "not ported yet")
 
     def fit(self, data, epochs: int = 1, batch_size: Optional[int] = None,
             *, pad_partial: bool = True,
@@ -416,49 +372,24 @@ class MultiLayerNetwork(TrainableNetwork):
             steps_per_dispatch: int = 1, host_prefetch: int = 0,
             resume_from: Optional[str] = None) -> None:
         """Train on ``data`` for ``epochs`` passes (see the module
-        docstring for the two loops)."""
+        docstring for the two loops). ``resume_from``: a checkpoint written
+        by ``CheckpointListener``; the call must be given the same data,
+        epochs and batch arguments as the run that wrote it."""
         self._check_init()
-        self._refuse_unported(host_prefetch, resume_from)
-        if self._updater_state is None:
-            self._updater_state = self.conf.global_conf.updater.init(
-                self._params)
-        store = self._flat_store()
-        note_state_bytes(self._updater_state)
-        if isinstance(data, (DataSet, tuple)) and batch_size is None:
-            self._fit_serial(data, epochs, store)
-            return
+        self._refuse_unported()
+        self._run_fit(data, epochs, batch_size, pad_partial=pad_partial,
+                      drop_remainder=drop_remainder, prefetch=prefetch,
+                      steps_per_dispatch=steps_per_dispatch,
+                      host_prefetch=host_prefetch, resume_from=resume_from,
+                      serial=isinstance(data, (DataSet, tuple))
+                      and batch_size is None)
 
-        def dispatch(group):
-            losses = [self._step(store, b, self._iteration + j)
-                      for j, b in enumerate(group)]
-            _pipe.note_steps(self, self._listeners, losses)
-
-        _pipe.run_epochs(
-            data, epochs, batch_size, pad_partial=pad_partial,
-            drop_remainder=drop_remainder, prefetch=prefetch,
-            steps_per_dispatch=steps_per_dispatch, bind=self._bind_batch,
-            place=self._place, dispatch=dispatch, on_epoch=self._on_epoch)
-
-    def _on_epoch(self) -> None:
-        self._epoch += 1
-        for lst in self._listeners:
-            if hasattr(lst, "epoch_done"):
-                lst.epoch_done(self, self._epoch)
-
-    def _fit_serial(self, data, epochs: int, store) -> None:
-        """One unpadded step per DataSet (the loss's plain mean)."""
-        for _ in range(max(1, epochs)):
-            for ds in _pipe.iter_datasets(data):
-                x, y, mask, fmask = self._bind_dataset(ds)
-                self._last_batch_size = ds.num_examples()
-                loss = self._step(store, (x, y, mask, fmask, None),
-                                  self._iteration)
-                _pipe.note_steps(self, self._listeners, [loss])
-            self._on_epoch()
-
-    def _bind_batch(self, ds: DataSet, w: np.ndarray) -> Tuple:
-        """A pipeline batch as the step's tuple ``(x, y, mask, fmask, w)``,
-        not yet placed."""
+    def _bind_batch(self, ds: DataSet, w) -> Tuple:
+        """A batch as the step's tuple ``(x, y, mask, fmask, w)``, not yet
+        placed (``w``: the pipeline's example weights, or None for the
+        plain mean)."""
+        if not isinstance(ds, DataSet):
+            raise TypeError(f"expected a DataSet, got {type(ds).__name__}")
         self._last_batch_size = ds.num_examples()
         return (ds.features, ds.labels, ds.labels_mask, ds.features_mask, w)
 
@@ -470,12 +401,22 @@ class MultiLayerNetwork(TrainableNetwork):
         raise NotImplementedError("rnn_time_step is not ported yet (it "
                                   "comes with the recurrent layers)")
 
+    # --- persistence ---------------------------------------------------------
     def save(self, path: str, save_updater: bool = False) -> None:
-        raise NotImplementedError("model serialization is not ported yet")
+        """The model zip in the JAX package's format
+        (``util/model_serializer.write_model``)."""
+        from ..util.model_serializer import write_model
+
+        write_model(self, path, save_updater)
 
     @staticmethod
-    def load(path: str, load_updater: bool = False) -> "MultiLayerNetwork":
-        raise NotImplementedError("model serialization is not ported yet")
+    def load(path: str, load_updater: bool = False,
+             device=None) -> "MultiLayerNetwork":
+        """A network from a model zip (either package's), on ``device``:
+        the card unless the caller asks for another."""
+        from ..util.model_serializer import restore_multi_layer_network
+
+        return restore_multi_layer_network(path, load_updater, device)
 
     # --- evaluation ----------------------------------------------------------
     def evaluate(self, data, batch_size: Optional[int] = None):

@@ -141,7 +141,8 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               causal: bool = False,
                               bias: Optional[torch.Tensor] = None,
                               block_k: int = DEFAULT_BLOCK_K,
-                              with_lse: bool = False):
+                              with_lse: bool = False,
+                              with_f32: bool = False):
     """Plain PyTorch version of the kernels: q, k, v ``[B, H, T, D]`` or
     ``[B*H, T, D]``, any strides and floating dtype, ``bias`` None or
     ``[B, H, T, T]`` (any strides). An online softmax over k blocks of
@@ -151,7 +152,9 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     ``alpha`` is 0 where the old max is not finite; the output is
     ``acc / max(l, 1e-30)``, returned in q's dtype. With ``with_lse`` it
     returns ``(out, lse)``, ``lse = safe + log(max(l, 1e-30))`` float32 of
-    q's shape without D: finite even for a row masked everywhere."""
+    q's shape without D: finite even for a row masked everywhere.
+    ``with_f32`` appends the output before its cast to q's dtype (float32,
+    q's shape), as the kernel's float32 output."""
     f32 = torch.float32
     qf, kf, vf = (t.to(f32) for t in (q, k, v))
     T = q.shape[-2]
@@ -174,10 +177,11 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
         acc = acc * alpha[..., None] + p @ _keys(vf, k0, k1)
         m = m_new
     den = l.clamp_min(1e-30)
-    out = (acc / den[..., None]).to(q.dtype)
-    if with_lse:
-        return out, safe + torch.log(den)
-    return out
+    o32 = acc / den[..., None]
+    out = o32.to(q.dtype)
+    result = (out,) + ((safe + torch.log(den),) if with_lse else ()) + \
+        ((o32,) if with_f32 else ())
+    return result if len(result) > 1 else out
 
 
 def flash_attention_backward(q, k, v, o, do, lse, scale: float,
@@ -371,8 +375,8 @@ def _bind_bf16(lib: ctypes.CDLL):
     fn = lib.dl4j_flash_attention_bf16_fwd
     if fn.argtypes is None:
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, ll, ll, ll, ll, p, p, ctypes.c_float,
-                       i, p]
+        fn.argtypes = [p, p, p, p, p, ll, ll, ll, ll, p, p, p,
+                       ctypes.c_float, i, p]
         fn.restype = i
     return fn
 
@@ -390,28 +394,35 @@ def flash_attention_bf16_cuda(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, scale: float,
                               causal: bool = False,
                               bias: Optional[torch.Tensor] = None,
-                              with_lse: bool = False):
+                              with_lse: bool = False,
+                              with_f32: bool = False):
     """Launch the bf16 kernel of ``csrc/flash_attention.cu`` (wgmma, TMA)
     on PyTorch's current stream: q, k, v bf16 ``[B, H, T, D]`` views read
     through their strides (:func:`bf16_kernel_takes`), ``bias`` None or a
     float32 ``[B, H, T, T]`` view. Returns ``out``, a bf16 ``[B, H, T, D]``
     view of a ``[B, T, H, D]`` buffer (:func:`heads_view`), or ``(out,
-    lse)`` with ``lse`` float32 ``[B*H, T]``. Raises on anything the kernel
-    does not take, and when the launch fails."""
+    lse)`` with ``lse`` float32 ``[B*H, T]``; ``with_f32`` appends the
+    output before its rounding to bf16, float32 ``[B*H, T, D]`` (what the
+    backward reads). Raises on anything the kernel does not take, and when
+    the launch fails."""
     why = _bf16_refusal(q, k, v)
     if why is not None:
         raise ValueError(f"the bf16 flash_attention kernel {why}")
-    return _launch_bf16(q, k, v, scale, causal, bias, with_lse)
+    return _launch_bf16(q, k, v, scale, causal, bias, with_lse, with_f32)
 
 
-def _launch_bf16(q, k, v, scale, causal, bias, with_lse):
+def _launch_bf16(q, k, v, scale, causal, bias, with_lse, with_f32=False):
     b, h, T, d = q.shape
     _check_bias(bias, b * h, T, q.device)
     out = heads_view(b, h, T, d, torch.bfloat16, q.device)
     lse = torch.empty((b * h, T), dtype=torch.float32, device=q.device) \
         if with_lse else None
+    o32 = torch.empty((b * h, T, d), dtype=torch.float32, device=q.device) \
+        if with_f32 else None
+    result = (out,) + ((lse,) if with_lse else ()) + \
+        ((o32,) if with_f32 else ())
     if out.numel() == 0:
-        return (out, lse) if with_lse else out
+        return result if len(result) > 1 else out
     lib = cuda_lib.load(KERNEL_NAME)
     fn = _bind_bf16(lib)
     geom = (ctypes.c_longlong * 16)(
@@ -421,12 +432,13 @@ def _launch_bf16(q, k, v, scale, causal, bias, with_lse):
     with _on(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), geom, bptr,
                  *strides, out.data_ptr(),
-                 None if lse is None else lse.data_ptr(), float(scale),
+                 None if lse is None else lse.data_ptr(),
+                 None if o32 is None else o32.data_ptr(), float(scale),
                  int(causal), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         _raise_launch(lib, err)
     _count("attention/flash_bf16")
-    return (out, lse) if with_lse else out
+    return result if len(result) > 1 else out
 
 
 def bf16_layout_check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -459,16 +471,25 @@ def bf16_layout_check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 
 # --- the autograd function and the entry ----------------------------------------
 
-def _forward(q, k, v, bias, scale, causal, block_k):
-    """q, k, v ``[B, H, T, D]`` (any strides) to ``(out, lse)``: ``out`` in
-    q's dtype as a :func:`heads_view`, ``lse`` float32 ``[B*H, T]``. CPU
-    tensors take the plain version; bf16 CUDA tensors that the bf16 kernel
-    takes go to it as they lie; other CUDA tensors are cast to contiguous
-    float32 ``[B*H, T, D]`` for the float32 kernel."""
+def _forward(q, k, v, bias, scale, causal, block_k, with_f32=False):
+    """q, k, v ``[B, H, T, D]`` (any strides) to ``(out, lse, o32)``:
+    ``out`` in q's dtype as a :func:`heads_view`, ``lse`` float32 ``[B*H,
+    T]``, and with ``with_f32`` the output before its cast to q's dtype,
+    float32 (None without, or when ``out`` is float32 already). CPU tensors
+    take the plain version; bf16 CUDA tensors that the bf16 kernel takes go
+    to it as they lie; other CUDA tensors are cast to contiguous float32
+    ``[B*H, T, D]`` for the float32 kernel."""
     b, h, T, d = q.shape
     if q.device.type == "cuda" and bf16_kernel_takes(q, k, v):
-        return _launch_bf16(q, k, v, scale, causal, bias, True)
-    if q.device.type == "cpu":
+        if with_f32:
+            return _launch_bf16(q, k, v, scale, causal, bias, True, True)
+        return _launch_bf16(q, k, v, scale, causal, bias, True) + (None,)
+    if q.device.type == "cpu" and with_f32 and q.dtype != torch.float32:
+        # the float32 result, cast into ``out`` below as the kernels cast
+        _, lse, o = flash_attention_reference(q, k, v, scale, causal, bias,
+                                              block_k, with_lse=True,
+                                              with_f32=True)
+    elif q.device.type == "cpu":
         o, lse = flash_attention_reference(q, k, v, scale, causal, bias,
                                            block_k, with_lse=True)
     elif q.device.type == "cuda":
@@ -482,19 +503,25 @@ def _forward(q, k, v, bias, scale, causal, block_k):
                          f"{q.device}")
     out = heads_view(b, h, T, d, q.dtype, q.device)
     out.copy_(o.view(b, h, T, d))
-    return out, lse.reshape(b * h, T)
+    o32 = o.view(b * h, T, d) if with_f32 and q.dtype != torch.float32 \
+        else None
+    return out, lse.reshape(b * h, T), o32
 
 
 class _FlashAttention(torch.autograd.Function):
     """q, k, v ``[B, H, T, D]`` (any strides, one floating dtype) and an
-    optional float32 ``[B, H, T, T]`` bias; saves the log-sum-exp for the
-    blockwise backward of the JAX package."""
+    optional float32 ``[B, H, T, T]`` bias; saves the log-sum-exp and the
+    float32 output for the blockwise backward of the JAX package, whose
+    residual is the float32 output of the upcast inputs
+    (``pallas_attention.py:345-347``): for bf16 inputs the backward's ``D =
+    sum(dO * O)`` reads O before its rounding to bf16."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, scale: float, causal: bool,
                 block_k: int):
-        o, lse = _forward(q, k, v, bias, scale, causal, block_k)
-        ctx.save_for_backward(q, k, v, o, bias, lse)
+        o, lse, o32 = _forward(q, k, v, bias, scale, causal, block_k,
+                               with_f32=True)
+        ctx.save_for_backward(q, k, v, o if o32 is None else o32, bias, lse)
         ctx.scale, ctx.causal, ctx.block_k = scale, causal, block_k
         return o
 
@@ -503,8 +530,8 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, bias, lse = ctx.saved_tensors
         need_dbias = bias is not None and ctx.needs_input_grad[3]
         grads = flash_attention_backward(
-            q, k, v, o, do, lse.view(q.shape[:-1]), ctx.scale, ctx.causal,
-            ctx.block_k, bias, need_dbias)
+            q, k, v, o.view(q.shape), do, lse.view(q.shape[:-1]), ctx.scale,
+            ctx.causal, ctx.block_k, bias, need_dbias)
         dbias = grads[3] if need_dbias else None
         return grads[0], grads[1], grads[2], dbias, None, None, None
 
@@ -548,7 +575,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                   int(block_k))
     else:                        # nothing to differentiate: no autograd node
         o = _forward(q, k, v, bf, float(scale), bool(causal),
-                     int(block_k))[0]
+                     int(block_k))[0]     # no float32 output: no extra bytes
     if o.dtype != in_dtype:
         o = o.to(in_dtype)
     return o[:, 0] if squeeze else o

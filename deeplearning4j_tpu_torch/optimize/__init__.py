@@ -1,3 +1,4 @@
-from .listeners import (CollectScoresIterationListener, EvaluativeListener,
-                        PerformanceListener, ScoreIterationListener,
+from .listeners import (CheckpointListener, CollectScoresIterationListener,
+                        EvaluativeListener, PerformanceListener,
+                        PipelineMetricsListener, ScoreIterationListener,
                         TimeIterationListener, TrainingListener)

@@ -313,14 +313,26 @@ def test_lse_matches_jax_row_stats(name):
         assert np.allclose(got[:, 7], np.log(np.float32(1e-30)))
 
 
+def _bf16_ulp(w: np.ndarray) -> np.ndarray:
+    """One bf16 ulp of each element of ``w`` (8 significant bits; 0 at 0)."""
+    _, e = np.frexp(np.abs(w))
+    return np.where(w == 0, 0.0, np.ldexp(1.0, e - 8))
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_bf16_inputs_give_bf16_gradients_close_to_jax(causal):
-    """bf16 q, k, v: the gradients come back in bf16 (the backward runs on
-    the float32 upcast, as the JAX package's does, and rounds once) and
-    match ``jax.grad`` through the JAX op on the same bf16 inputs within 1%
-    of the largest gradient. They are not bitwise: the port's backward
-    reads the forward's output as rounded to bf16, the JAX package's the
-    float32 output before its cast."""
+    """bf16 q, k, v: the gradients come back in bf16 and match ``jax.grad``
+    through the JAX op on the same bf16 inputs up to their own bf16
+    rounding. Both packages compute the same thing: the inputs upcast to
+    float32, a float32 forward, a backward that takes ``D = sum(dO * O)``
+    from the float32 output (the port saves the output before its rounding
+    to bf16, as the JAX package's residual is), and one rounding of each
+    gradient to bf16. What differs is the order of the float32 sums (the
+    port's k blocks of 64 and the forward's log-sum-exp against JAX's blocks
+    and recomputed row statistics), which can move a value across a bf16
+    rounding boundary. So each element is held to 1 bf16 ulp of itself plus
+    2^-20 of the largest gradient (the float32 term: about 8 float32 ulp of
+    the largest, for the sums' order, which shows on elements near 0)."""
     B, H, T, D = 1, 2, 128, 32
     q, k, v, tgt = _arrays(*[(B, H, T, D)] * 4, seed=16)
     jb = [jnp.asarray(a, dtype=jnp.bfloat16) for a in (q, k, v)]
@@ -338,8 +350,9 @@ def test_bf16_inputs_give_bf16_gradients_close_to_jax(causal):
     for g, w in zip(got, want):
         assert g.dtype == torch.bfloat16
         w = np.asarray(w.astype(jnp.float32))
-        np.testing.assert_allclose(g.float().numpy(), w, rtol=0,
-                                   atol=1e-2 * np.abs(w).max())
+        bound = _bf16_ulp(w) + 2.0 ** -20 * np.abs(w).max()
+        excess = np.abs(g.float().numpy() - w) - bound
+        assert excess.max() <= 0, excess.max()
 
 
 def test_backward_takes_the_forwards_lse():

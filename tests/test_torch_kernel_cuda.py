@@ -514,6 +514,34 @@ def test_flash_bf16_kernel_matches_plain_version(B, H, T, D, causal, bias,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,H,T,D", [(32, 12, 128, 64), (2, 3, 200, 64),
+                                     (2, 3, 64, 128)])
+@pytest.mark.parametrize("bias", [None, "masked_row"])
+def test_flash_bf16_float32_output_is_the_unrounded_output(B, H, T, D,
+                                                            bias):
+    """The float32 output that autograd's forward asks for: the bf16
+    output is exactly its rounding (the kernel rounds that float once), and
+    it is within 2e-5 of the plain version's float32 output (the float32
+    route's bound, chip_smoke's FA_TOL); a row masked everywhere 0."""
+    dev = _card()
+    q, k, v = _bf16_qkv(B, H, T, D, dev, T + D, "strided")
+    bt = _bias(bias, B, H, T, dev, T)
+    scale = D ** -0.5
+    got, lse, o32 = attention.flash_attention_bf16_cuda(
+        q, k, v, scale, False, bt, with_lse=True, with_f32=True)
+    _, want_lse, want = attention.flash_attention_reference(
+        q, k, v, scale, False, bt, with_lse=True, with_f32=True)
+    torch.cuda.synchronize()
+    assert o32.dtype == torch.float32 and o32.shape == (B * H, T, D)
+    o = o32.view(B, H, T, D)
+    assert torch.equal(o.bfloat16(), got)
+    assert (o - want).abs().max().item() <= 2e-5
+    assert (lse - want_lse.reshape(B * H, T)).abs().max().item() <= 1e-5
+    if bias == "masked_row":
+        assert not o[:, :, _masked_row(T)].any()
+
+
+@pytest.mark.cuda
 def test_flash_bf16_entry_takes_the_bf16_route_without_copies():
     """bf16 permuted views through the entry: one launch on the bf16 route,
     none on the float32 route, and the output's head merge is a view."""
