@@ -26,7 +26,9 @@ Phases (each fails the run with a nonzero exit if it fails):
                1001, 5; indices past both ends), and its bf16 route bitwise
                at [8192, 10] and PV-DM's [8192, 11] bags of a [10000, 100]
                bf16 table and at D 1, 3, 102, 128, 256, 300 (each vector
-               width), W 0, 13, 33, 40, offset tables. Then each kernel,
+               width), W 0, 13, 33, 40, offset tables, and the edges of its
+               paired layout (two bags a warp: W 11, 12, 16, 17; B 1, 15,
+               17, 8191; D 100, 102, 128, 300). Then each kernel,
                its plain version, the unfused PyTorch path and, where one
                PyTorch call computes the same function, that call, timed
                with CUDA events and a cold L2 after a 2 ms spin of the card
@@ -35,14 +37,18 @@ Phases (each fails the run with a nonzero exit if it fails):
                embedding_bag also warm (the L2 its previous launch left),
                with its host time per launch, at a wide shape (V
                3,000,000, D 300), and on its bf16 route at the CBOW path's
-               and PV-DM's shapes beside F.embedding_bag on the bf16 table;
-               flash_attention's float32 kernel within 2e-5 at the encoder
-               path's [384, 128, 64] (non-causal, causal, the MHA mask bias,
+               and PV-DM's shapes beside F.embedding_bag on the bf16 table
+               and the float32 route on the same values;
+               flash_attention's float32 kernel (3xTF32 on wgmma) within
+               2e-5 at the encoder path's [384, 128, 64] (non-causal,
+               causal, the MHA mask bias,
                a full [B, H, T, T] bias, a row masked everywhere, which must
                give 0), T 200 (a tail tile) and T 512 with D 32, 64 and 128,
                timed at the path's shape and at [96, 512, 64] beside
                F.scaled_dot_product_attention and the unfused matmul +
-               softmax + matmul. Its bf16 kernel (wgmma, TMA) against the
+               softmax + matmul, its bound restated for three TF32
+               products (the FFMA bound beside it). Its bf16 kernel
+               (wgmma, TMA) against the
                plain version in float32 on the upcast inputs (``want``) at
                the path's [32, 12, 128, 64] as the MHA op hands it over
                (permuted views of [B, T, H, D]; non-causal, causal, mask
@@ -286,6 +292,7 @@ SEED = 1234
 BATCH = 32
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12            # H100 SXM float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12          # H100 SXM TF32 tensor cores, dense
 TIMED_RUNS = 30
 WARMUP_RUNS = 5
 SPIN_CYCLES = 4_000_000             # about 2 ms at the H100's 1.98 GHz
@@ -616,8 +623,9 @@ def time_embedding_bag(B, W, V, D, dev, gen, flush, dist, bf16=False,
     """Kernel, plain version, F.embedding_bag (the one PyTorch call for the
     same function) and the unfused expression at one shape, beside the
     least bytes: indices, mask, counts, output, each distinct row once.
-    ``bf16``: the bf16 route (table, mask, counts and output in bf16; the
-    arithmetic in float32 registers, so the float32 peak bounds it).
+    ``bf16``: the bf16 route (table, mask, counts and output in bf16; its
+    operations counted at the float32 peak, which the bytes bound exceeds),
+    and the float32 route on the same values beside it (``f32_ms``).
     ``case``: a (table, indices, mask, counts) to time instead of a random
     one drawn as ``dist``."""
     import torch.nn.functional as F
@@ -627,9 +635,17 @@ def time_embedding_bag(B, W, V, D, dev, gen, flush, dist, bf16=False,
     table, idx, mask, counts = (case if case is not None else
                                 _bag_case(B, W, V, D, dev, gen, dist=dist))
     esize = 4
+    f32_route = {}
     if bf16:
         table, mask, counts = _to_bf16_route(table, mask)
         esize = 2
+        # the float32 route on the same values (each exact in float32)
+        f32_case = (table.float(), idx, mask.float(), counts.float())
+        f32_kernel = lambda: embeddings.embedding_bag_cuda(  # noqa: E731
+            *f32_case, True)
+        f32_route = {"f32_ms": _time_ms(f32_kernel, flush),
+                     "f32_ms_warm": _time_ms(f32_kernel, flush, cold=False)}
+        del f32_case
     c2 = counts[:, None]
     idx64 = idx.long()
     kernel = lambda: embeddings.embedding_bag_cuda(  # noqa: E731
@@ -668,7 +684,7 @@ def time_embedding_bag(B, W, V, D, dev, gen, flush, dist, bf16=False,
            "distinct_rows": distinct, "shape": [B, W, V, D],
            "indices": dist, "dtype": "bfloat16" if bf16 else "float32",
            "hottest_row_share": torch.bincount(idx.view(-1).long()).max()
-           .item() / (B * W)}
+           .item() / (B * W), **f32_route}
     del table, idx, mask, counts, idx64
     return out
 
@@ -703,6 +719,14 @@ def phase_embedding_bag(smi: str, dev):
     cases16 += [(257, 10, 1000, 128, 1), (257, 10, 1000, 100, 2),
                 (257, 33, 1000, 128, 0), (257, 40, 1000, 256, 0),
                 (8191, 13, V, D, 0), (9, 0, 1000, 100, 0)]
+    # the paired layout's edges: W at its 11 rows in flight (11, 12) and at
+    # the layout's limit (16, and 17 on the float route's loop), B not a
+    # multiple of its 2 bags a warp or 16 a block (1, 15, 17, 8191), rows of
+    # 25 and 32 vectors (D 100, 128; a table 4 elements into its buffer
+    # keeps the 8-byte vectors) and those it leaves to the loop (102, 300)
+    cases16 += [(b, w, 1000, d, off)
+                for b, w in ((1, 12), (15, 16), (17, 11), (8191, 17))
+                for d in (100, 102, 128, 300) for off in (0, 4)]
     err16 = 0.0
     for b, w, v, d, off in cases16:
         err16 = max(err16, compare_embedding_bag_bf16(b, w, v, d, dev, gen,
@@ -710,8 +734,8 @@ def phase_embedding_bag(smi: str, dev):
     log(f"[kernels] embedding_bag bf16 route vs plain: {2 * len(cases16)} "
         f"comparisons (mean and sum; [{B},{W}] and PV-DM's [{B},11] x "
         f"[{V},{D}], D 1/3/100/102/128/256/300 (16-, 8-, 4- and 2-byte "
-        f"vectors), W 0/10/11/13/33/40, offset tables) all bitwise; "
-        f"max_abs_err {err16}")
+        f"vectors), W 0/10/11/12/13/16/17/33/40, B 1/9/15/17/257/8191/8192, "
+        f"offset tables) all bitwise; max_abs_err {err16}")
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     timing = {"path": time_embedding_bag(B, W, V, D, dev, gen, flush,
                                          "subsampled"),
@@ -725,6 +749,13 @@ def phase_embedding_bag(smi: str, dev):
                                                "subsampled", bf16=True)}
     timing["bf16"]["max_abs_err"] = err16
     torch.cuda.empty_cache()
+    for name in ("bf16", "bf16_pv_dm"):
+        t = timing[name]
+        log(f"[kernels] embedding_bag {name} {t['shape']}: bf16 route "
+            f"{t['ms']:.4f} ms cold, {t['ms_warm']:.4f} ms warm; the float32 "
+            f"route on the same values {t['f32_ms']:.4f} ms cold, "
+            f"{t['f32_ms_warm']:.4f} ms warm; bound {t['bound_ms']:.5f} ms "
+            f"({t['bound_by']}); {smi}")
     for name, t in timing.items():
         log(f"[kernels] embedding_bag {name} {t['dtype']} {t['shape']} (B, W, "
             f"V, D; "
@@ -808,9 +839,12 @@ def compare_flash(bh, T, D, causal, bias, dev, gen):
 def time_flash(bh, T, D, dev, gen, flush):
     """Kernel, plain version, F.scaled_dot_product_attention (the one
     PyTorch call for the same function, on the same float32 tensors) and
-    the unfused matmul + softmax + matmul, beside the least time: the
-    larger of q, k, v read once and out written once over 3.35 TB/s and
-    4*BH*T*T*D float32 operations over 67 TFLOP/s."""
+    the unfused matmul + softmax + matmul, beside the least time for the
+    kernel's instruction mix: the larger of q, k, v read once and out
+    written once over 3.35 TB/s and three TF32 products of 4*BH*T*T*D
+    operations (3xTF32) over 495 TFLOP/s; and beside it the FFMA bound
+    of the kernel's first design, 4*BH*T*T*D float32 operations over 67
+    TFLOP/s."""
     import torch.nn.functional as F
 
     from deeplearning4j_tpu_torch.ops import attention
@@ -832,8 +866,9 @@ def time_flash(bh, T, D, dev, gen, flush):
     nbytes = 4 * bh * T * D * 4
     flops = 4 * bh * T * T * D
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    ops_ms = 3 * flops / TF32_FLOPS_PER_S * 1e3
     return {"shape": [bh, T, D], "ms": _time_ms(kernel, flush),
+            "ffma_bound_ms": max(bytes_ms, flops / F32_FLOPS_PER_S * 1e3),
             "plain_ms": _time_ms(plain, flush),
             "library_ms": _time_ms(library, flush),
             "unfused_ms": _time_ms(unfused, flush),
@@ -869,8 +904,9 @@ def phase_flash_attention(smi: str, dev):
             f"float32: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
             f"ms, F.scaled_dot_product_attention {t['library_ms']:.4f} ms, "
             f"unfused matmul+softmax+matmul {t['unfused_ms']:.4f} ms, bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['flops']} flops at "
-            f"67 TFLOP/s, {t['bytes']} B at 3.35 TB/s); median of "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}: 3 x {t['flops']} TF32 "
+            f"flops at 495 TFLOP/s, {t['bytes']} B at 3.35 TB/s; the FFMA "
+            f"bound {t['ffma_bound_ms']:.4f} ms at 67 TFLOP/s); median of "
             f"{TIMED_RUNS} (CUDA events, cold L2); {smi}")
     timing["bitwise_share"] = share
     return err, timing
@@ -4431,8 +4467,13 @@ def main(argv=None) -> int:
                 "library_ms", "unfused_ms", "bound_ms", "bound_by", "bytes",
                 "max_abs_err")},
             launches=cbow16["fit"]["bf16_launches"],
+            f32_ms=bag_timing["bf16"]["f32_ms"],
+            f32_ms_warm=bag_timing["bf16"]["f32_ms_warm"],
             pv_dm_width=bag_timing["bf16_pv_dm"]["shape"],
             pv_dm_ms=bag_timing["bf16_pv_dm"]["ms"],
+            pv_dm_ms_warm=bag_timing["bf16_pv_dm"]["ms_warm"],
+            pv_dm_f32_ms=bag_timing["bf16_pv_dm"]["f32_ms"],
+            pv_dm_f32_ms_warm=bag_timing["bf16_pv_dm"]["f32_ms_warm"],
             pv_dm_bound_ms=bag_timing["bf16_pv_dm"]["bound_ms"])})
     keys = ("shape", "layout", "ms", "ms_with_lse", "ms_with_f32", "plain_ms",
             "library_ms",
@@ -4466,9 +4507,11 @@ def main(argv=None) -> int:
         "launches_samediff_bert": bert["launches"]["flash_attention"],
         "dtype": "float32", "ms": fp["ms"], "plain_ms": fp["plain_ms"],
         "bound_ms": fp["bound_ms"], "bound_by": fp["bound_by"],
+        "ffma_bound_ms": fp["ffma_bound_ms"],
         "library_ms": fp["library_ms"], "unfused_ms": fp["unfused_ms"],
         "long": {k: fl[k] for k in ("shape", "ms", "plain_ms", "library_ms",
-                                    "unfused_ms", "bound_ms", "bound_by")}})
+                                    "unfused_ms", "bound_ms", "bound_by",
+                                    "ffma_bound_ms")}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"train": {k: v for k, v in train.items()
                                 if k != "counters"},

@@ -55,21 +55,55 @@
 // nvcc from contracting the multiply-add into an FMA. Masked terms are
 // computed as well (row * 0), as the plain version does.
 //
-// The bf16 route (dl4j_embedding_bag_bf16): a bf16 table, mask and counts,
-// bf16 output, as the Pallas kernel runs in the table's dtype. The sum stays
-// in float registers but holds bf16 values: each product and each sum is
-// rounded to bf16 (round to nearest even) before the next step, and so is
-// the quotient, as PyTorch's bf16 operations in the plain version round
-// them. A product of two bf16 values is exact in float; a float sum or
-// quotient of bf16 values rounded once more to bf16 is the correctly
-// rounded bf16 result (the float result never lands on a bf16 tie that the
-// exact one is not on), so kernel and plain version agree bit for bit.
-// Rows are read as 16-byte vectors of 8 bf16 values when D % 8 == 0 and the
-// table and output are 16-byte aligned, else 8-byte vectors of 4 (D % 4 ==
-// 0: the CBOW path's D = 100, whose 200-byte rows are only 8-byte aligned),
-// 4-byte pairs or single values, kept packed (two bf16 a 32-bit register)
-// until they are summed. The index chunk, the rows in flight and the passes
-// are the float route's.
+// The bf16 route (dl4j_embedding_bag_bf16), in its own design: a bf16
+// table, mask and counts, bf16 output, as the Pallas kernel runs in the
+// table's dtype. Each product and each sum is rounded to bf16 (round to
+// nearest even) before the next step, and so is the quotient, as PyTorch's
+// bf16 operations in the plain version round them: the product of two bf16
+// values and a float sum or quotient of bf16 values, rounded once more to
+// bf16, are the correctly rounded bf16 results (the float result never
+// lands on a bf16 tie that the exact one is not on), so kernel and plain
+// version agree bit for bit.
+// - Bound: the bytes, half the float route's (1.17 us at the CBOW path's
+//   [8192, 10] x [10000, 100]); a launch's fixed cost of about 3.7 us sits
+//   inside every timed launch. Built on the float route's loop it took
+//   0.0140 ms against the float route's 0.0112 at the same shape: a term
+//   was multiply, round, add, round in float registers, six instructions
+//   an element where the float route spends two, and at D = 100 the
+//   200-byte rows (8-byte aligned) take 25 lanes of 8-byte loads, as many
+//   loads as the float route's 16-byte ones, four rows in flight a warp.
+// - Arithmetic: the values stay packed, two a 32-bit word, from the load
+//   to the store; a term is mul.rn.bf16x2 then add.rn.bf16x2 (the
+//   correctly rounded product and sum), one instruction for every two
+//   elements and steps; the mask travels as its bf16 in both halves. Only
+//   the mean's quotient unpacks (float division, rounded to bf16).
+//   Measurement builds: DL4J_BAG_PAIRS=0 runs every shape on the float
+//   route's loops, DL4J_BAG_PAIR_WORDS sets the registers of rows in flight
+//   in the paired layout (44: 11 rows of D = 100).
+// - Layout (W <= 16 and at most 32 row vectors: the CBOW path, PV-DM's W =
+//   11): two bags a warp, 16 lanes each (embedding_bag_pairs_kernel). A
+//   lane covers vectors l and l + 16 of its row, the warp's two index
+//   chunks arrive in one coalesced load of 2W indices, and each half keeps
+//   all of a W <= 11 chunk's rows in flight (44 registers of rows) before
+//   its first sum, where the float route's loop kept 4. Two bags a warp
+//   halve the warps, so the CBOW path's 8192 bags still run in one wave at
+//   that register count. Wider rows and W > 16 keep the float route's
+//   loops (kPasses, kChunks), on the packed arithmetic.
+// - Rows are read as 16-byte vectors of 8 bf16 values when D % 8 == 0 and
+//   the table and output are 16-byte aligned, else 8-byte vectors of 4 (D %
+//   4 == 0: the CBOW path's D = 100), 4-byte pairs or single values.
+// Measured (profile_port.py --bag, NVIDIA H100 80GB HBM3, 700 W; cold L2,
+// then warm): at [8192, 10] x [10000, 100] 0.0097 / 0.0089 ms against the
+// float route's loop on bf16 values' 0.0141 / 0.0133 and the float32
+// route's 0.0111 / 0.0101 on the same values; the bag's time in a
+// bf16-table CBOW block of 64 rounds 0.325 ms against 0.610. Measurement
+// builds, each slower (profile_port.py --bag --levers): DL4J_BAG_PAIRS=0,
+// one bag a warp on the float route's loop with the packed arithmetic
+// (0.0104 / 0.0098: the arithmetic is most of the gain);
+// DL4J_BAG_PAIR_WORDS=24, 6 rows in flight (0.0103 / 0.0096); 64, 16 rows
+// (0.0121 / 0.0109: fewer warps resident). The chosen build's timeline
+// (--timeline) shows a bag's rows arriving 2.3 us after its indices at the
+// median, against 3.8 us on the float32 route.
 //
 // Indices are clamped to [0, V-1] and row offsets are 64-bit.
 //
@@ -95,6 +129,12 @@ namespace {
 #ifndef DL4J_BAG_STREAM
 #define DL4J_BAG_STREAM 0
 #endif
+#ifndef DL4J_BAG_PAIRS
+#define DL4J_BAG_PAIRS 1
+#endif
+#ifndef DL4J_BAG_PAIR_WORDS
+#define DL4J_BAG_PAIR_WORDS 44
+#endif
 
 constexpr int kWarp = 32;
 constexpr int kThreads = 256;
@@ -103,6 +143,8 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kRows = DL4J_BAG_ROWS;  // row loads in flight per lane
 constexpr int kVec = DL4J_BAG_VEC;    // floats per lane load, vector route
 constexpr long long kKeepBytes = DL4J_BAG_L2_KEEP_BYTES;
+constexpr bool kPairs = DL4J_BAG_PAIRS != 0;  // the bf16 route's two bags a warp
+constexpr int kPairWords = DL4J_BAG_PAIR_WORDS;  // its registers for rows in flight
 static_assert(kVec == 4 || kVec == 2, "vector route: float4 or float2");
 static_assert(kRows >= 1, "rows in flight");
 
@@ -202,67 +244,93 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return (__float_as_uint(lo) >> 16) | (__float_as_uint(hi) & 0xffff0000u);
 }
 
-// VEC bf16-valued floats (every one already rounded to bf16, so the low 16
-// bits are zero) stored as bf16
+// VEC bf16 values, packed two a word as they were loaded, stored
 template <int VEC>
-__device__ __forceinline__ void store_out(uint16_t* p, const float (&a)[VEC]) {
+__device__ __forceinline__ void store_out(uint16_t* p, const uint32_t (&a)[(VEC + 1) / 2]) {
   if constexpr (VEC == 8) {
-    st_once(reinterpret_cast<uint4*>(p),
-            make_uint4(pack_bf16(a[0], a[1]), pack_bf16(a[2], a[3]),
-                       pack_bf16(a[4], a[5]), pack_bf16(a[6], a[7])));
+    st_once(reinterpret_cast<uint4*>(p), make_uint4(a[0], a[1], a[2], a[3]));
   } else if constexpr (VEC == 4) {
-    st_once(reinterpret_cast<uint2*>(p),
-            make_uint2(pack_bf16(a[0], a[1]), pack_bf16(a[2], a[3])));
+    st_once(reinterpret_cast<uint2*>(p), make_uint2(a[0], a[1]));
   } else if constexpr (VEC == 2) {
-    st_once(reinterpret_cast<unsigned int*>(p), pack_bf16(a[0], a[1]));
+    st_once(reinterpret_cast<unsigned int*>(p), a[0]);
   } else {
-    st_once(reinterpret_cast<unsigned short*>(p),
-            (unsigned short)(__float_as_uint(a[0]) >> 16));
+    st_once(reinterpret_cast<unsigned short*>(p), (unsigned short)(a[0] & 0xffffu));
   }
 }
 
 // The arithmetic of each route on one lane's vector of VEC elements: the
-// registers a row vector takes (Word x kWords), element e of it as a float,
-// one term of the sum and the quotient. The float route rounds each step to
-// float, the bf16 route each step to bf16 (see Numerics above).
+// registers a row vector takes (Word x kWords), the accumulator (Acc x
+// kAcc), a mask value as the sum takes it (Mask), one term of the sum and
+// the quotient. The float route rounds each step to float; the bf16 route
+// keeps its values packed, two a word, and rounds each step to bf16 by the
+// bf16x2 instructions (see Numerics above).
 template <typename T, int VEC>
 struct Lane;
 
 template <int VEC>
 struct Lane<float, VEC> {
   using Word = float;
+  using Acc = float;
+  using Mask = float;
   static constexpr int kWords = VEC;
-  static __device__ __forceinline__ float elem(const float (&t)[VEC],
-                                               int e) {
-    return t[e];
+  static constexpr int kAcc = VEC;
+  static __device__ __forceinline__ Mask mask(float m) { return m; }
+  static __device__ __forceinline__ void add(float (&acc)[VEC], const float (&t)[VEC],
+                                             float m) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] = __fadd_rn(acc[e], __fmul_rn(t[e], m));
   }
-  static __device__ __forceinline__ float add(float acc, float x, float m) {
-    return __fadd_rn(acc, __fmul_rn(x, m));
-  }
-  static __device__ __forceinline__ float div(float a, float c) {
-    return __fdiv_rn(a, c);
+  static __device__ __forceinline__ void div(float (&acc)[VEC], float c) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] = __fdiv_rn(acc[e], c);
   }
 };
+
+// a * b and a + b on two bf16 values a word, each rounded to bf16 (round to
+// nearest even): the correctly rounded results, which the float product
+// (exact) and the float sum of bf16 values rounded once more to bf16 equal
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// the bf16 value of a word's low or high half, as a float: exact
+__device__ __forceinline__ float lo_half(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float hi_half(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
 
 template <int VEC>
 struct Lane<uint16_t, VEC> {
   using Word = uint32_t;
+  using Acc = uint32_t;
+  using Mask = uint32_t;           // the mask's bf16 in both halves
   static constexpr int kWords = (VEC + 1) / 2;
-  static __device__ __forceinline__ float elem(const uint32_t (&t)[kWords],
-                                               int e) {
-    const uint32_t w = t[e / 2];
-    return (e & 1) ? __uint_as_float(w & 0xffff0000u)
-                   : __uint_as_float(w << 16);
+  static constexpr int kAcc = kWords;
+  static __device__ __forceinline__ Mask mask(uint16_t m) {
+    return static_cast<uint32_t>(m) | (static_cast<uint32_t>(m) << 16);
   }
-  static __device__ __forceinline__ float add(float acc, float x, float m) {
-    return round_bf16(__fadd_rn(acc, round_bf16(__fmul_rn(x, m))));
+  // (with VEC = 1 the high halves hold 0 and stay 0)
+  static __device__ __forceinline__ void add(uint32_t (&acc)[kWords],
+                                             const uint32_t (&t)[kWords], uint32_t m) {
+#pragma unroll
+    for (int w = 0; w < kWords; ++w) acc[w] = add_bf16x2(acc[w], mul_bf16x2(t[w], m));
   }
-  static __device__ __forceinline__ float div(float a, float c) {
-    return round_bf16(__fdiv_rn(a, c));
+  static __device__ __forceinline__ void div(uint32_t (&acc)[kWords], float c) {
+#pragma unroll
+    for (int w = 0; w < kWords; ++w)
+      acc[w] = pack_bf16(round_bf16(__fdiv_rn(lo_half(acc[w]), c)),
+                         round_bf16(__fdiv_rn(hi_half(acc[w]), c)));
   }
 };
 
-// a mask or count value as a float: float as it is, bf16 (its bits) exactly
+// a count value as a float: float as it is, bf16 (its bits) exactly
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(uint16_t v) {
   return bf16_bits_to_float(v);
@@ -270,17 +338,18 @@ __device__ __forceinline__ float to_float(uint16_t v) {
 
 // lane ``lane``'s entry of the index chunk starting at w0: the clamped row
 // (fits an int: V - 1 is taken only when idx >= V, so V - 1 < 2^31) and the
-// mask value; 0 and 0 past W
-template <typename T>
+// mask value as the route's sum takes it; 0 and 0 past W
+template <typename T, int VEC>
 __device__ __forceinline__ void load_chunk(const int* bidx, const T* bmask,
                                            int w0, int W, int lane,
-                                           long long V, int& r, float& m) {
+                                           long long V, int& r,
+                                           typename Lane<T, VEC>::Mask& m) {
   r = 0;
-  m = 0.f;
+  m = 0;
   if (w0 + lane < W) {
     const int i = ld_once(bidx + w0 + lane);
     r = i < 0 ? 0 : ((long long)i >= V ? (int)(V - 1) : i);
-    m = to_float(ld_once(bmask + w0 + lane));
+    m = Lane<T, VEC>::mask(ld_once(bmask + w0 + lane));
   }
 }
 
@@ -299,6 +368,11 @@ __device__ __forceinline__ unsigned long long now_after(int& v) {
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t), "+r"(v));
   return t;
 }
+__device__ __forceinline__ unsigned long long now_after(uint32_t& v) {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t), "+r"(v));
+  return t;
+}
 __device__ __forceinline__ unsigned long long now_after(float& v) {
   unsigned long long t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t), "+f"(v));
@@ -309,15 +383,24 @@ __device__ __forceinline__ unsigned long long now() {
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t) : : "memory");
   return t;
 }
-__device__ __forceinline__ void put_stamp(long long bag, int lane, int k,
+__device__ __forceinline__ void put_stamp(long long bag, bool lead, int k,
                                           unsigned long long t) {
-  if (lane == 0 && g_stamps) g_stamps[bag * 5 + k] = t;
+  if (lead && g_stamps) g_stamps[bag * 5 + k] = t;
 }
-#define DL4J_STAMP(k) put_stamp(bag, lane, k, now())
-#define DL4J_STAMP_AFTER(k, var) put_stamp(bag, lane, k, now_after(var))
+__device__ __forceinline__ void put_sm(long long bag, bool lead) {
+  if (lead && g_stamps) {
+    unsigned sm;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+    g_stamps[bag * 5 + 4] = sm;
+  }
+}
+#define DL4J_STAMP(k) put_stamp(bag, lead, k, now())
+#define DL4J_STAMP_AFTER(k, var) put_stamp(bag, lead, k, now_after(var))
+#define DL4J_STAMP_SM() put_sm(bag, lead)
 #else
 #define DL4J_STAMP(k) ((void)0)
 #define DL4J_STAMP_AFTER(k, var) ((void)0)
+#define DL4J_STAMP_SM() ((void)0)
 #endif
 
 // The bag's rows in chunks of kRows: kRows row loads in flight, then the
@@ -325,9 +408,10 @@ __device__ __forceinline__ void put_stamp(long long bag, int lane, int k,
 // mask m); n of them are live. A source lane past 31 wraps (shuffle
 // semantics) and its value goes unused.
 template <typename T, int VEC>
-__device__ __forceinline__ void sum_rows(const T* col, int D, uint64_t pol,
-                                         bool live, int r, float m, int n,
-                                         float (&acc)[VEC]) {
+__device__ __forceinline__ void sum_rows(
+    const T* col, int D, uint64_t pol, bool live, int r,
+    typename Lane<T, VEC>::Mask m, int n,
+    typename Lane<T, VEC>::Acc (&acc)[Lane<T, VEC>::kAcc]) {
   using L = Lane<T, VEC>;
   for (int k0 = 0; k0 < n; k0 += kRows) {
     typename L::Word t[kRows][L::kWords] = {};
@@ -339,12 +423,8 @@ __device__ __forceinline__ void sum_rows(const T* col, int D, uint64_t pol,
     }
 #pragma unroll
     for (int k = 0; k < kRows; ++k) {
-      const float mk = __shfl_sync(kFull, m, k0 + k);
-      if (k0 + k < n) {
-#pragma unroll
-        for (int e = 0; e < VEC; ++e)
-          acc[e] = L::add(acc[e], L::elem(t[k], e), mk);
-      }
+      const typename L::Mask mk = __shfl_sync(kFull, m, k0 + k);
+      if (k0 + k < n) L::add(acc, t[k], mk);
     }
   }
 }
@@ -362,12 +442,12 @@ enum Mode { kOne, kPasses, kChunks };
 // kernel fits 32 registers a thread, 64 warps on each SM, so the CBOW path's
 // 8192 bags run in one wave. Measurement builds with more rows ask for
 // proportionally fewer blocks. The bf16 route counts its packed row words
-// and the accumulators its wider vectors add (16-byte rows: 16 + 8 words).
+// and its packed accumulators.
 template <typename T, int VEC>
 constexpr int min_blocks(Mode mode) {
   const int base = mode == kOne ? 8 : mode == kPasses ? 6 : 4;
   const int words = sizeof(T) == 4 ? kRows * VEC
-                                   : kRows * ((VEC + 1) / 2) + VEC;
+                                   : (kRows + 1) * ((VEC + 1) / 2);
   const int regs = words < 16 ? 16 : words;
   return base * 16 / regs < 1 ? 1 : base * 16 / regs;
 }
@@ -382,19 +462,21 @@ __global__ void __launch_bounds__(kThreads, min_blocks<T, VEC>(MODE))
                          const T* __restrict__ counts,
                          T* __restrict__ out, long long B, int W, int D,
                          long long V, bool keep) {
+  using L = Lane<T, VEC>;
   const long long bag =
       (long long)blockIdx.x * kBagsPerBlock + threadIdx.x / kWarp;
   if (bag >= B) return;  // the whole warp: shuffles below see all 32 lanes
   const int lane = threadIdx.x % kWarp;
+  const bool lead = lane == 0;
   DL4J_STAMP(0);
   const uint64_t pol = l2_policy(keep);
   const int* bidx = idx + bag * W;
   const T* bmask = mask + bag * W;
   const float count = MEAN ? to_float(ld_once(counts + bag)) : 1.f;
   int r = 0;
-  float m = 0.f;
+  typename L::Mask m = 0;
   if constexpr (MODE != kChunks) {
-    load_chunk(bidx, bmask, 0, W, lane, V, r, m);
+    load_chunk<T, VEC>(bidx, bmask, 0, W, lane, V, r, m);
     DL4J_STAMP_AFTER(1, r);
   }
   const int nvec = D / VEC;
@@ -403,12 +485,12 @@ __global__ void __launch_bounds__(kThreads, min_blocks<T, VEC>(MODE))
   for (int v = lane; v - lane < nvec; v += kWarp) {
     const bool live = v < nvec;
     const T* col = table + (long long)v * VEC;
-    float acc[VEC];
+    typename L::Acc acc[L::kAcc];
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+    for (int e = 0; e < L::kAcc; ++e) acc[e] = 0;
     if constexpr (MODE == kChunks) {
       for (int w0 = 0; w0 < W; w0 += kWarp) {
-        load_chunk(bidx, bmask, w0, W, lane, V, r, m);
+        load_chunk<T, VEC>(bidx, bmask, w0, W, lane, V, r, m);
         sum_rows<T, VEC>(col, D, pol, live, r, m, min(kWarp, W - w0),
                          acc);
       }
@@ -417,22 +499,99 @@ __global__ void __launch_bounds__(kThreads, min_blocks<T, VEC>(MODE))
     }
     DL4J_STAMP_AFTER(2, acc[0]);
     if (live) {
-      if (MEAN) {
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[e] = Lane<T, VEC>::div(acc[e], count);
-      }
+      if (MEAN) L::div(acc, count);
       store_out<VEC>(out + bag * D + (long long)v * VEC, acc);
     }
     if constexpr (MODE == kOne) break;
   }
   DL4J_STAMP(3);
-#ifdef DL4J_BAG_TIMELINE
-  if (lane == 0 && g_stamps) {
-    unsigned sm;
-    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
-    g_stamps[bag * 5 + 4] = sm;
+  DL4J_STAMP_SM();
+}
+
+// The bf16 route's own layout, for W <= 16 and rows of at most 32 vectors
+// (the CBOW path's [8192, 10] x D = 100, PV-DM's W = 11): two bags a warp,
+// a half-warp of 16 lanes each. Lane l of a half covers vectors l and
+// l + 16 of the row (U of them; at D = 100, 25 vectors of 8 bytes), so a
+// warp loads its two bags' index chunks at once (2W consecutive indices)
+// and keeps kPairRows rows of each in flight before its first sum, where
+// one bag a warp kept 4 (the float route's count). The sums run in W order
+// on the packed words, as above.
+template <int VEC, int U>
+__host__ __device__ constexpr int pair_rows() {
+  const int per_row = U * ((VEC + 1) / 2);          // registers a row takes
+  const int rows = kPairWords / per_row;
+  return rows > 16 ? 16 : rows;
+}
+
+template <int VEC, int U>
+__host__ __device__ constexpr int pair_min_blocks() {
+  // the rows, the accumulators, the indices and addresses: about 16 more
+  const int regs = (pair_rows<VEC, U>() + 1) * U * ((VEC + 1) / 2) + 16;
+  const int blocks = 65536 / (kThreads * regs);
+  return blocks < 1 ? 1 : blocks;
+}
+
+template <int VEC, int U, bool MEAN>
+__global__ void __launch_bounds__(kThreads, pair_min_blocks<VEC, U>())
+    embedding_bag_pairs_kernel(const uint16_t* __restrict__ table,
+                               const int* __restrict__ idx,
+                               const uint16_t* __restrict__ mask,
+                               const uint16_t* __restrict__ counts,
+                               uint16_t* __restrict__ out, long long B,
+                               int W, int D, long long V, bool keep) {
+  using L = Lane<uint16_t, VEC>;
+  constexpr int K = pair_rows<VEC, U>();
+  const int lane = threadIdx.x % kWarp, hl = lane % 16;
+  const long long bag0 = ((long long)blockIdx.x * kBagsPerBlock + threadIdx.x / kWarp) * 2;
+  if (bag0 >= B) return;  // the whole warp
+  const long long bag = bag0 + lane / 16;
+  const bool live_bag = bag < B;
+  const bool lead = hl == 0 && live_bag;
+  DL4J_STAMP(0);
+  const uint64_t pol = l2_policy(keep);
+  const float count = MEAN && live_bag ? to_float(ld_once(counts + bag)) : 1.f;
+  int r = 0;
+  typename L::Mask m = 0;
+  if (live_bag) load_chunk<uint16_t, VEC>(idx + bag * W, mask + bag * W, 0, W, hl, V, r, m);
+  DL4J_STAMP_AFTER(1, r);
+  const int nvec = D / VEC;
+  bool live[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) live[u] = live_bag && hl + 16 * u < nvec;
+  uint32_t acc[U][L::kWords];
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+#pragma unroll
+    for (int w = 0; w < L::kWords; ++w) acc[u][w] = 0;
+  for (int k0 = 0; k0 < W; k0 += K) {
+    uint32_t t[K][U][L::kWords] = {};
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int rk = __shfl_sync(kFull, r, k0 + k, 16);
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (live[u] && k0 + k < W)
+          load_row<VEC>(table + (long long)rk * D + (long long)(hl + 16 * u) * VEC, pol,
+                        t[k][u]);
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const uint32_t mk = __shfl_sync(kFull, m, k0 + k, 16);
+      if (k0 + k < W) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) L::add(acc[u], t[k][u], mk);
+      }
+    }
   }
-#endif
+  DL4J_STAMP_AFTER(2, acc[0][0]);
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (live[u]) {
+      if (MEAN) L::div(acc[u], count);
+      store_out<VEC>(out + bag * D + (long long)(hl + 16 * u) * VEC, acc[u]);
+    }
+  DL4J_STAMP(3);
+  DL4J_STAMP_SM();
 }
 
 template <typename T, int VEC, Mode MODE>
@@ -463,6 +622,34 @@ void launch_mode(const T* table, const int* idx, const T* mask,
   else
     launch<T, VEC, kOne>(table, idx, mask, counts, out, B, W, D, V, mean,
                          keep, stream);
+}
+
+template <int VEC, int U>
+void launch_pairs(const uint16_t* table, const int* idx, const uint16_t* mask,
+                  const uint16_t* counts, uint16_t* out, long long B, int W, int D,
+                  long long V, bool mean, bool keep, cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((B + 2 * kBagsPerBlock - 1) / (2 * kBagsPerBlock));
+  if (mean)
+    embedding_bag_pairs_kernel<VEC, U, true>
+        <<<blocks, kThreads, 0, stream>>>(table, idx, mask, counts, out, B, W, D, V, keep);
+  else
+    embedding_bag_pairs_kernel<VEC, U, false>
+        <<<blocks, kThreads, 0, stream>>>(table, idx, mask, counts, out, B, W, D, V, keep);
+}
+
+// The bf16 route at one vector width: the paired layout where it fits (W
+// <= 16, at most 32 vectors a row), else the float route's loops.
+template <int VEC>
+void launch_bf16(const uint16_t* table, const int* idx, const uint16_t* mask,
+                 const uint16_t* counts, uint16_t* out, long long B, int W, int D,
+                 long long V, bool mean, bool keep, cudaStream_t stream) {
+  const int nvec = D / VEC;
+  if (kPairs && W <= 16 && nvec <= 16)
+    launch_pairs<VEC, 1>(table, idx, mask, counts, out, B, W, D, V, mean, keep, stream);
+  else if (kPairs && W <= 16 && nvec <= 32)
+    launch_pairs<VEC, 2>(table, idx, mask, counts, out, B, W, D, V, mean, keep, stream);
+  else
+    launch_mode<uint16_t, VEC>(table, idx, mask, counts, out, B, W, D, V, mean, keep, stream);
 }
 
 }  // namespace
@@ -516,13 +703,13 @@ int dl4j_embedding_bag_bf16(const void* table, const void* idx,
   uint16_t* o = static_cast<uint16_t*>(out);
   const bool md = mean != 0;
   if (D % 8 == 0 && align % 16 == 0)
-    launch_mode<uint16_t, 8>(t, i, m, c, o, B, W, D, V, md, keep, st);
+    launch_bf16<8>(t, i, m, c, o, B, W, D, V, md, keep, st);
   else if (D % 4 == 0 && align % 8 == 0)
-    launch_mode<uint16_t, 4>(t, i, m, c, o, B, W, D, V, md, keep, st);
+    launch_bf16<4>(t, i, m, c, o, B, W, D, V, md, keep, st);
   else if (D % 2 == 0 && align % 4 == 0)
-    launch_mode<uint16_t, 2>(t, i, m, c, o, B, W, D, V, md, keep, st);
+    launch_bf16<2>(t, i, m, c, o, B, W, D, V, md, keep, st);
   else
-    launch_mode<uint16_t, 1>(t, i, m, c, o, B, W, D, V, md, keep, st);
+    launch_bf16<1>(t, i, m, c, o, B, W, D, V, md, keep, st);
   return (int)cudaGetLastError();
 }
 

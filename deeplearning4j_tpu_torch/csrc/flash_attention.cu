@@ -77,34 +77,83 @@
 //    walks only the tiles that hold keys past T or, when causal, above the
 //    diagonal.
 //
-// 2. flash_fwd_kernel, float32 (the parity path, and inputs that the bf16
-//    kernel does not take, cast by the wrapper), this kernel's first
-//    design, unchanged but for the optional log-sum-exp output.
-//    Bound: at T = 128, D = 64 the work is 4*T*T*D float32 operations per
-//    (batch, head) against 4*T*D*4 bytes moved, about 32 operations per
-//    byte: above the float32 ridge (67 TFLOP/s / 3.35 TB/s = 20), so the
-//    FFMA rate bounds it. It uses plain FFMA (no tensor cores, no TMA):
-//    its speed is the register micro-tile below.
-//// Layout of the f32 work: 256 threads as a 16 x 16 grid (ty = tid / 16, tx = tid
-// % 16). For the scores, thread (ty, tx) owns q rows 4ty..4ty+3 and k columns
-// 4tx..4tx+3 of the 64 x 64 tile: per d one 16-byte shared load of q (from
-// the transposed Qt) and one of k (from the transposed Kt) feed 16 FMAs. A
-// row's 64 scores live in the 16 threads of one half-warp, so the row max
-// and row sum are 4 shuffles. p goes to shared memory (transposed, Pt), and
-// for p.v thread (ty, tx) owns rows 4ty..4ty+3 and d columns 4tx + 64u
-// (u < NU = D/64 rounded up): per k one 16-byte load of p and one of v per u
-// feed 16 FMAs each. Each tile is loaded with 16-byte coalesced reads; rows
-// past T load as zeros and their scores are -inf (the tail tile is masked).
+// 2. flash_fwd_kernel, float32 (the parity path, and every input that the
+//    bf16 kernel does not take, cast by the wrapper: float32 is DL4J's
+//    default dtype): split float32 on the TF32 tensor cores (3xTF32),
+//    redesigned from a plain-FFMA kernel.
+//    Bound: on FFMA the work is 4*B*H*T*T*D operations at 67 TFLOP/s
+//    (24.0 us at [384, 128, 64], 96.2 us at [96, 512, 64]); the old kernel
+//    reached 28% and 33% of that and lost to SDPA. Only the tensor cores
+//    beat it, and TF32 keeps 11 of float32's 24 bits. So each float32
+//    operand x is split into hi = tf32(x) and lo = tf32(x - hi) (rounded
+//    as cvt.rna rounds, to nearest, ties away, by an integer add and mask;
+//    lo taken from the rounded hi, so hi + lo is x to 2^-22 of |x|), and
+//    each product is three TF32 products:
+//        S = Ql Kh^T + Qh Kl^T + Qh Kh^T,   O += Pl Vh + Ph Vl + Ph Vh,
+//    small terms first, float32 accumulators. The dropped lo*lo term is
+//    below 2^-22 of each product: float32's order, far inside the 2e-5 the
+//    gates hold it to. Restated bound: three TF32 products of 4*B*H*T*T*D
+//    at 495 TFLOP/s (9.8 us at the encoder's shape, 39.0 us at T = 512),
+//    or q, k, v and out once over 3.35 TB/s (15.0 us / 15.0 us), whichever
+//    is larger: bytes at T = 128, the tensor cores at T = 512.
+//    - One warpgroup (128 threads) owns one 64-row q tile of one (batch,
+//      head) and walks the 64-key tiles. All threads load each tile with
+//      16-byte cp.async (rows past T and head-size elements past D arrive
+//      zero-filled) into 128-byte-swizzled [64 rows][32 floats] chunks:
+//      the row of 32 floats is the swizzle row, so D = 64 takes two
+//      chunks and D = 128 four.
+//    - The warps split the tiles in shared memory. q is multiplied by the
+//      scale before its split (the JAX kernel scales q before the
+//      product). Q and K stay where they landed as hi, their lo beside
+//      them: both are K-major for S = Q K^T as they lie (head size
+//      contiguous), which is all a TF32 wgmma takes from shared memory
+//      (there is no transpose bit for 32-bit types).
+//    - V is not: for P V the reduction runs over keys and V lies [keys,
+//      D]. The warps transpose it while they split it, into [D rows][64
+//      keys] hi and lo tiles (lane = key, so each scalar store of a warp
+//      hits 32 banks).
+//    - P never leaves registers. The S accumulator of a thread holds keys
+//      2t and 2t + 1 of each 8-key step (t = lane % 4); the TF32 A fragment
+//      wants keys t and t + 4. Rather than shuffle, the transposed V tile
+//      is written with its keys permuted to match (key 2t at k-position t,
+//      2t + 1 at t + 4), so P's fragments are its accumulator registers as
+//      they are, split into hi and lo in place.
+//    - The online softmax runs on the accumulator fragments with the bf16
+//      kernel's code (_fa_kernel's guards term for term; exp as ex2.approx
+//      of a fused multiply-add, about 2^-22 relative; out as o times the
+//      reciprocal of max(l, 1e-30), within a float32 ulp of the quotient).
+//    - Loads overlap the products: the next tile's V lands in a raw
+//      buffer of its own as soon as this tile's V is split, its K where
+//      its hi part will be as soon as S has read this tile's K.
+//    - Shared memory at D <= 64: Q, K and V^T hi and lo and the raw V
+//      tile, 113 KB: two blocks fill an SM's 228 KB (the carveout is set
+//      to all shared memory), 264 q tiles at once (768 at both timed
+//      shapes: three waves). At D <= 32 73 KB (three blocks); at D <= 128
+//      225 KB (one).
+//    Measured (chip_smoke.py and profile_port.py --flash --levers, NVIDIA
+//    H100 80GB HBM3, 700 W; PERF.md has the numbers): faster than SDPA in
+//    float32 at both timed shapes. The splits are a block's largest phase,
+//    about a third of its cycles, ahead of the softmax with P's split and
+//    of each product; waiting for loads takes a quarter at T = 128 and
+//    little at T = 512 (the measurement build DL4J_FLASH_PHASES counts each
+//    phase's cycles). Tried and kept out: cvt.rna.tf32.f32 for the
+//    rounding (the measurement build DL4J_FLASH_CVT_RNA=1: bitwise the
+//    same, 13-19% slower).
+//    The FFMA design (4 x 4 register micro-tiles on 256 threads, tiles
+//    transposed into shared memory by scalar stores, P through shared
+//    memory, accurate expf and division) measured 0.0860 ms at [384, 128,
+//    64] and 0.2924 ms at [96, 512, 64] (PERF.md, NVIDIA H100 80GB HBM3,
+//    700 W), 1.16x and 1.34x SDPA's time.
 //
 // Numerics follow _fa_kernel: q is multiplied by the scale before the
 // product; the bias is added, then causal positions qpos < kpos become -inf
 // and k tiles entirely above the diagonal are skipped; safe = m if finite
 // else 0, p = 0 where s is not finite, alpha = 0 where the old max is not
 // finite; the output is acc / max(l, 1e-30), so a row that is -inf
-// everywhere gives 0, not NaN. expf and the division are the accurate ones
-// (no fast math); the plain version (ops/attention.py,
-// flash_attention_reference) sums in another order, so the two agree within
-// a tolerance, not bitwise.
+// everywhere gives 0, not NaN. Both kernels take exp as ex2.approx and the
+// quotient as a product with the reciprocal; the plain version
+// (ops/attention.py, flash_attention_reference) sums in another order, so
+// they agree within a tolerance, not bitwise.
 //
 // The bias is read through element strides of a [B, H, T, T] view (zero
 // strides for broadcast dimensions), so a padding mask is never expanded in
@@ -123,11 +172,13 @@
 
 #include <algorithm>
 
+#ifndef DL4J_FLASH_CVT_RNA
+#define DL4J_FLASH_CVT_RNA 0
+#endif
+
 namespace {
 
-constexpr int kTile = 64;           // q rows and k rows per tile
-constexpr int kThreads = 256;       // 16 x 16
-constexpr int kLd = kTile + 4;      // row length of Qt, Kt, Pt (16-byte rows)
+constexpr int kTile = 64;           // q rows and keys per tile, both kernels
 constexpr int kMaxD = 128;
 
 struct Bias {
@@ -136,277 +187,10 @@ struct Bias {
   int H;
 };
 
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// A [kTile, D] tile of rows row0.. of a [T, D] matrix into shared memory,
-// transposed (dst[d * kLd + row]) and multiplied by mul; rows past T are 0.
-__device__ __forceinline__ void load_transposed(float* dst, const float* src, int row0,
-                                                int T, int D, float mul) {
-  const int n4 = D / 4;
-  for (int i = threadIdx.x; i < kTile * n4; i += kThreads) {
-    const int row = i / n4, c = (i % n4) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + row < T)
-      x = *reinterpret_cast<const float4*>(src + (long long)(row0 + row) * D + c);
-    dst[(c + 0) * kLd + row] = x.x * mul;
-    dst[(c + 1) * kLd + row] = x.y * mul;
-    dst[(c + 2) * kLd + row] = x.z * mul;
-    dst[(c + 3) * kLd + row] = x.w * mul;
-  }
-}
-
-// The same tile as it lies (dst[row * D + d]); rows past T are 0.
-__device__ __forceinline__ void load_rows(float* dst, const float* src, int row0, int T,
-                                          int D) {
-  const int n4 = D / 4;
-  for (int i = threadIdx.x; i < kTile * n4; i += kThreads) {
-    const int row = i / n4, c = (i % n4) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + row < T)
-      x = *reinterpret_cast<const float4*>(src + (long long)(row0 + row) * D + c);
-    *reinterpret_cast<float4*>(dst + row * D + c) = x;
-  }
-}
-
-template <int NU, bool CAUSAL, bool HAS_BIAS>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, Bias bias, float* __restrict__ out,
-                     float* __restrict__ lse, int T, int D, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* Qt = smem;                 // [D][kLd]     q * scale, transposed
-  float* Kt = Qt + D * kLd;         // [D][kLd]     k tile, transposed
-  float* Vs = Kt + D * kLd;         // [kTile][D]   v tile
-  float* Pt = Vs + kTile * D;       // [kTile][kLd] p, transposed (k-major)
-
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const long long bh = blockIdx.x;
-  const int q0 = blockIdx.y * kTile;
-  const long long base = bh * T * D;
-  const float* qb = q + base;
-  const float* kb = k + base;
-  const float* vb = v + base;
-  const float* bias_bh = nullptr;
-  if (HAS_BIAS) bias_bh = bias.ptr + (bh / bias.H) * bias.sb + (bh % bias.H) * bias.sh;
-
-  load_transposed(Qt, qb, q0, T, D, scale);
-
-  float m[4], l[4], acc[4][4 * NU];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * NU; ++c) acc[i][c] = 0.f;
-  }
-
-  int n_k = (T + kTile - 1) / kTile;
-  if (CAUSAL) n_k = min(n_k, (q0 + kTile - 1) / kTile + 1);   // skip tiles above the diagonal
-  for (int kt = 0; kt < n_k; ++kt) {
-    const int k0 = kt * kTile;
-    load_transposed(Kt, kb, k0, T, D, 1.f);
-    load_rows(Vs, vb, k0, T, D);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(Qt + d * kLd + 4 * ty);
-      const float4 b = *reinterpret_cast<const float4*>(Kt + d * kLd + 4 * tx);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + 4 * ty + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + 4 * tx + j;
-        if (kj >= T) {
-          s[i][j] = -INFINITY;
-        } else {
-          if (HAS_BIAS && qi < T) s[i][j] += bias_bh[qi * bias.sq + kj * bias.sk];
-          if (CAUSAL && qi < kj) s[i][j] = -INFINITY;
-        }
-      }
-      float mb = s[i][0];
-#pragma unroll
-      for (int j = 1; j < 4; ++j) mb = fmaxf(mb, s[i][j]);
-      const float m_new = fmaxf(m[i], half_warp_max(mb));
-      const float safe = isfinite(m_new) ? m_new : 0.f;
-      const float alpha = isfinite(m[i]) ? expf(m[i] - safe) : 0.f;
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = isfinite(s[i][j]) ? expf(s[i][j] - safe) : 0.f;
-        rs += s[i][j];
-      }
-      l[i] = l[i] * alpha + half_warp_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < 4 * NU; ++c) acc[i][c] *= alpha;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(Pt + (4 * tx + j) * kLd + 4 * ty) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kTile; ++kk) {
-      const float4 p4 = *reinterpret_cast<const float4*>(Pt + kk * kLd + 4 * ty);
-      const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
-#pragma unroll
-      for (int u = 0; u < NU; ++u) {
-        const int dc = 4 * tx + 64 * u;
-        if (dc < D) {
-          const float4 w = *reinterpret_cast<const float4*>(Vs + kk * D + dc);
-          const float wv[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int c = 0; c < 4; ++c)
-              acc[i][4 * u + c] = fmaf(pv[i], wv[c], acc[i][4 * u + c]);
-        }
-      }
-    }
-    __syncthreads();    // Kt, Vs and Pt are overwritten by the next tile
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + 4 * ty + i;
-    if (qi >= T) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-    if (lse != nullptr && tx == 0)
-      lse[bh * T + qi] = (isfinite(m[i]) ? m[i] : 0.f) + logf(den);
-    float* orow = out + base + (long long)qi * D;
-#pragma unroll
-    for (int u = 0; u < NU; ++u) {
-      const int dc = 4 * tx + 64 * u;
-      if (dc < D)
-        *reinterpret_cast<float4*>(orow + dc) =
-            make_float4(acc[i][4 * u] / den, acc[i][4 * u + 1] / den,
-                        acc[i][4 * u + 2] / den, acc[i][4 * u + 3] / den);
-    }
-  }
-}
-
-size_t smem_bytes(int D) { return sizeof(float) * (2 * D * kLd + kTile * D + kTile * kLd); }
-
-template <int NU, bool CAUSAL, bool HAS_BIAS>
-int launch(const float* q, const float* k, const float* v, Bias bias, float* out, float* lse,
-           int BH, int T, int D, float scale, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<NU, CAUSAL, HAS_BIAS>;
-  const size_t bytes = smem_bytes(D);
-  if (bytes > 48 * 1024) {
-    // above 48 KB only after the opt-in, which holds per device
-    cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid((unsigned)BH, (unsigned)((T + kTile - 1) / kTile));
-  kernel<<<grid, kThreads, bytes, stream>>>(q, k, v, bias, out, lse, T, D, scale);
-  return (int)cudaGetLastError();
-}
-
-template <bool CAUSAL, bool HAS_BIAS>
-int dispatch_nu(const float* q, const float* k, const float* v, Bias bias, float* out,
-                float* lse, int BH, int T, int D, float scale, cudaStream_t stream) {
-  if (D <= 64)
-    return launch<1, CAUSAL, HAS_BIAS>(q, k, v, bias, out, lse, BH, T, D, scale, stream);
-  return launch<2, CAUSAL, HAS_BIAS>(q, k, v, bias, out, lse, BH, T, D, scale, stream);
-}
-
-// ---------------------------------------------------------------------------
-// The bf16 route: wgmma tensor cores, TMA loads, mbarriers (see the note at
-// the top of the file).
-// ---------------------------------------------------------------------------
-
-namespace bf16 {
-
-constexpr int kRows = 64;                  // q rows per block (one warpgroup)
-constexpr int kKeys = 64;                  // keys per k tile
-constexpr int kChunk = 64;                 // head-size elements per 128-byte row
-constexpr int kStages = 2;                 // k/v tiles in flight
-constexpr int kThreads = 128;              // one warpgroup
-constexpr int kTileBytes = kRows * kChunk * 2;   // one [64, 64] bf16 tile: 8 KB
-
-// Where t, h and b sit among the TMA coordinates 1..3 of one tensor map
-// (coordinate 0 is the head dimension): the launcher orders the three
-// outer dimensions by stride.
-struct Coords {
-  int t, h, b;
-};
-
-struct Maps {
-  Coords q, k, v;
-};
+// --- shared by both kernels: wgmma, the score tile's softmax ----------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// One [64 rows, 64 elements] box of a 4-D tensor map into shared memory,
-// 128-byte swizzled; rows and elements past the tensor's end arrive as 0.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// Box of head-size chunk c at row t0 of (b, h) in a map whose outer
-// coordinates are ordered as co says.
-__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, Coords co,
-                                         uint32_t bar, int c, int t0, int h, int b) {
-  auto at = [&](int i) { return co.t == i ? t0 : co.h == i ? h : b; };
-  tma_load(dst, map, bar, c * kChunk, at(1), at(2), at(3));
 }
 
 // wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
@@ -454,6 +238,146 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[4]) {
 #define DL4J_D32                                                                            \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
   "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x by the special-function unit (relative error about 2^-22; -inf
+// gives 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The online softmax of one 64 x 64 score tile in the f32 accumulator
+// layout of wgmma (s[4c + e] is row e < 2 ? r0 : r1, key k0 + 8c + cp +
+// (e & 1); a row's other columns lie in the three other lanes of the
+// quad), turned into p in place: the bias is added, keys past T and, when
+// causal, above the diagonal become -inf (only the tiles that hold such
+// keys are walked for it), then _fa_kernel's guards term for term; m and l
+// of the thread's two rows are updated and alpha, the factor the caller
+// rescales its accumulator by, is returned. exp(x - safe) is 2^(x log2 e -
+// safe log2 e), one FFMA and one ex2.approx.
+template <bool CAUSAL, bool HAS_BIAS>
+__device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], int q0, int k0, int r0,
+                                             int r1, int cp, const float* bias_bh,
+                                             const Bias& bias, int T) {
+  if (HAS_BIAS) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = e < 2 ? r0 : r1;
+        const int key = k0 + 8 * c + cp + (e & 1);
+        if (row < T && key < T) s[4 * c + e] += bias_bh[row * bias.sq + key * bias.sk];
+      }
+  }
+  if (k0 + kTile > T || (CAUSAL && k0 + kTile - 1 > q0)) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = e < 2 ? r0 : r1;
+        const int key = k0 + 8 * c + cp + (e & 1);
+        if (key >= T || (CAUSAL && row < key)) s[4 * c + e] = -INFINITY;
+      }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  float rs[2] = {0.f, 0.f}, neg_safe_l2[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float m_new = fmaxf(m[i], quad_max(mx[i]));
+    const float safe = isfinite(m_new) ? m_new : 0.f;
+    neg_safe_l2[i] = -safe * kLog2e;
+    alpha[i] = isfinite(m[i]) ? exp2_approx(fmaf(m[i], kLog2e, neg_safe_l2[i])) : 0.f;
+    m[i] = m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const float x = s[i];
+    const float p = isfinite(x) ? exp2_approx(fmaf(x, kLog2e, neg_safe_l2[(i >> 1) & 1])) : 0.f;
+    s[i] = p;
+    rs[(i >> 1) & 1] += p;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(rs[i]);
+}
+
+namespace bf16 {
+
+constexpr int kRows = 64;                  // q rows per block (one warpgroup)
+constexpr int kKeys = kTile;               // keys per k tile
+constexpr int kChunk = 64;                 // head-size elements per 128-byte row
+constexpr int kStages = 2;                 // k/v tiles in flight
+constexpr int kThreads = 128;              // one warpgroup
+constexpr int kTileBytes = kRows * kChunk * 2;   // one [64, 64] bf16 tile: 8 KB
+
+// Where t, h and b sit among the TMA coordinates 1..3 of one tensor map
+// (coordinate 0 is the head dimension): the launcher orders the three
+// outer dimensions by stride.
+struct Coords {
+  int t, h, b;
+};
+
+struct Maps {
+  Coords q, k, v;
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One [64 rows, 64 elements] box of a 4-D tensor map into shared memory,
+// 128-byte swizzled; rows and elements past the tensor's end arrive as 0.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Box of head-size chunk c at row t0 of (b, h) in a map whose outer
+// coordinates are ordered as co says.
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, Coords co,
+                                         uint32_t bar, int c, int t0, int h, int b) {
+  auto at = [&](int i) { return co.t == i ? t0 : co.h == i ? h : b; };
+  tma_load(dst, map, bar, c * kChunk, at(1), at(2), at(3));
+}
 
 // d[64 x 64] (+)= A[64 x 16] B[16 x 64], both from shared memory, both
 // K-major (the reduced dimension contiguous). scale_d 0 overwrites d.
@@ -519,26 +443,6 @@ __device__ __forceinline__ void split_p(const float (&p)[32], uint32_t (&hi)[4][
   }
 }
 
-constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x by the special-function unit (relative error about 2^-22; -inf
-// gives 0)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 struct Out {
   __nv_bfloat16* ptr;
   long long sb, sh, st;             // element strides of the [B, H, T, D] output view
@@ -575,54 +479,12 @@ __device__ __forceinline__ void attend_tile(float (&o)[NC][32], float (&m)[2], f
   wgmma_wait_all();
   fence_regs(s);
 
-  // scale and bias; -inf for keys past T and, when causal, above the
-  // diagonal (only the tiles that hold such keys are walked for it)
+  // scale (the JAX kernel scales q before the product: about an f32 ulp
+  // apart), then the bias, the masks and the online softmax
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] *= scale;
-  if (HAS_BIAS) {
-#pragma unroll
-    for (int c = 0; c < 8; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? r0 : r1;
-        const int key = k0 + 8 * c + cp + (e & 1);
-        if (row < T && key < T) s[4 * c + e] += bias_bh[row * bias.sq + key * bias.sk];
-      }
-  }
-  if (k0 + kKeys > T || (CAUSAL && k0 + kKeys - 1 > q0)) {
-#pragma unroll
-    for (int c = 0; c < 8; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? r0 : r1;
-        const int key = k0 + 8 * c + cp + (e & 1);
-        if (key >= T || (CAUSAL && row < key)) s[4 * c + e] = -INFINITY;
-      }
-  }
-
-  // the online softmax per row, on _fa_kernel's guards; exp(x - safe)
-  // as 2^(x log2 e - safe log2 e), one FFMA and one ex2.approx
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
-  float alpha[2], rs[2] = {0.f, 0.f}, neg_safe_l2[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float m_new = fmaxf(m[i], quad_max(mx[i]));
-    const float safe = isfinite(m_new) ? m_new : 0.f;
-    neg_safe_l2[i] = -safe * kLog2e;
-    alpha[i] = isfinite(m[i]) ? exp2_approx(fmaf(m[i], kLog2e, neg_safe_l2[i])) : 0.f;
-    m[i] = m_new;
-  }
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const float x = s[i];
-    const float p = isfinite(x) ? exp2_approx(fmaf(x, kLog2e, neg_safe_l2[(i >> 1) & 1])) : 0.f;
-    s[i] = p;
-    rs[(i >> 1) & 1] += p;
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(rs[i]);
+  float alpha[2];
+  softmax_tile<CAUSAL, HAS_BIAS>(s, m, l, alpha, q0, k0, r0, r1, cp, bias_bh, bias, T);
 #pragma unroll
   for (int c = 0; c < NC; ++c)
 #pragma unroll
@@ -955,6 +817,411 @@ int dispatch_nc(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap&
 
 }  // namespace bf16
 
+// ---------------------------------------------------------------------------
+// The float32 route: 3xTF32 on wgmma, cp.async loads (see the note at the
+// top of the file).
+// ---------------------------------------------------------------------------
+
+namespace f32 {
+
+constexpr int kThreads = 128;              // one warpgroup, one 64-row q tile
+constexpr int kChunkBytes = kTile * 128;   // [64 rows][32 floats]: 8 KB
+
+// Byte offset of float e (0..31) of row ``row`` in a [rows][32 floats]
+// chunk with the 128-byte swizzle that the wgmma descriptors name: the
+// 16-byte unit e / 4 of each row XORed with row % 8.
+__device__ __forceinline__ uint32_t swz(int row, int e) {
+  return row * 128 + ((((e >> 2) ^ row) & 7) << 4) + (e & 3) * 4;
+}
+
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
+// from zero; the 13 low bits cleared), as a float: half the kept last place
+// added to the sign-magnitude bits, the rest cleared. Bitwise the same as
+// cvt.rna on the card, which issues on the slower conversion pipe (the
+// measurement build DL4J_FLASH_CVT_RNA=1 takes cvt.rna).
+__device__ __forceinline__ float tf32(float x) {
+#if DL4J_FLASH_CVT_RNA
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+#else
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+#endif
+}
+
+#ifdef DL4J_FLASH_PHASES
+// Measurement build only (profile_port.py --flash --levers): thread 0 of
+// each block adds up the clock64 cycles of the k-tile loop's phases (the
+// loads' wait and the barrier; the splits; S; the softmax and P's split;
+// O) and stores them in phases[block * 5 + 0..4].
+__device__ long long* g_phases = nullptr;
+
+__device__ __forceinline__ long long clock_now() {
+  long long t;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t)::"memory");
+  return t;
+}
+#define DL4J_PHASE_START() \
+  long long phase_t0 = clock_now(), phase_sum[5] = {0, 0, 0, 0, 0}
+#define DL4J_PHASE(i)                    \
+  do {                                   \
+    const long long t = clock_now();     \
+    phase_sum[i] += t - phase_t0;        \
+    phase_t0 = t;                        \
+  } while (0)
+#define DL4J_PHASE_STORE()                                                          \
+  do {                                                                              \
+    if (g_phases != nullptr && threadIdx.x == 0)                                    \
+      for (int i = 0; i < 5; ++i) g_phases[blockIdx.x * 5LL + i] = phase_sum[i];   \
+  } while (0)
+#else
+#define DL4J_PHASE_START() ((void)0)
+#define DL4J_PHASE(i) ((void)0)
+#define DL4J_PHASE_STORE() ((void)0)
+#endif
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// wgmma's reads of shared memory (the async proxy) see the threads' stores
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d[64 x 64] (+)= A[64 x 8] B[8 x 64] in TF32, both from shared memory,
+// K-major (the only layout a 32-bit wgmma operand takes). scale_d 0
+// overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " DL4J_D32
+      ", %32, %33, p, 1, 1;\n"
+      "}\n"
+      : DL4J_ACC32(d)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 64] += A[64 x 8] B[8 x 64] in TF32, A from registers (the m64k8
+// fragment: a0 row r, k t; a1 row r + 8, k t; a2 row r, k t + 4; a3 row
+// r + 8, k t + 4), B K-major from shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " DL4J_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : DL4J_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// K-major step kk (8 floats of the reduced dimension) of a chunk: 32 kk
+// bytes into its rows, 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t desc(uint32_t chunk, int kk) {
+  return smem_desc(chunk + 32 * kk, 16, 1024);
+}
+
+// A [64, D] tile of rows row0.. of a [T, D] float32 matrix into NC chunks
+// at dst, 16 bytes a cp.async, consecutive threads on consecutive bytes;
+// rows past T and elements past D arrive as 0. The caller commits and
+// waits.
+template <int NC>
+__device__ __forceinline__ void load_tile(uint32_t dst, const float* src, int row0, int T,
+                                          int D) {
+  constexpr int kGroups = NC * 8;          // 16-byte groups of a row
+#pragma unroll
+  for (int i = 0; i < 4 * NC; ++i) {
+    const int idx = i * kThreads + threadIdx.x;
+    const int row = idx / kGroups, g = idx % kGroups;
+    const bool ok = row0 + row < T && 4 * g < D;
+    const float* p = ok ? src + static_cast<long long>(row0 + row) * D + 4 * g : src;
+    cp_async16(dst + (g / 8) * kChunkBytes + swz(row, 4 * (g % 8)), p, ok ? 16 : 0);
+  }
+}
+
+// This thread's share of a tile in the splits: row (q row or key) ``row``
+// and the 16-byte groups g0, g0 + 2, ... (lane = row: the 8 lanes of a
+// 16-byte access hit 8 different units, and the transposed scalar stores of
+// V 32 different banks).
+//
+// The split of a Q or K tile in place: x * mul as hi where it landed, its
+// lo at the same offset of ``lo``.
+template <int NC>
+__device__ __forceinline__ void split_rows(uint8_t* hi, uint8_t* lo, int row, int g0,
+                                           float mul) {
+#pragma unroll
+  for (int i = 0; i < 4 * NC; ++i) {
+    const int g = g0 + 2 * i;
+    const uint32_t off = (g / 8) * kChunkBytes + swz(row, 4 * (g % 8));
+    const float4 x = *reinterpret_cast<const float4*>(hi + off);
+    const float4 xs = make_float4(x.x * mul, x.y * mul, x.z * mul, x.w * mul);
+    const float4 h = make_float4(tf32(xs.x), tf32(xs.y), tf32(xs.z), tf32(xs.w));
+    *reinterpret_cast<float4*>(hi + off) = h;
+    *reinterpret_cast<float4*>(lo + off) = make_float4(
+        tf32(xs.x - h.x), tf32(xs.y - h.y), tf32(xs.z - h.z), tf32(xs.w - h.w));
+  }
+}
+
+// k-position of key o (0..31) of a 32-key chunk in the transposed V tile:
+// step o / 8, and in it 2t -> t, 2t + 1 -> t + 4, so that the P fragment
+// of step kk is the S accumulator's registers 4kk, 4kk + 2, 4kk + 1, 4kk +
+// 3 as they are (a thread holds keys 2t and 2t + 1 of each 8-key step)
+__device__ __forceinline__ int v_pos(int o) {
+  return (o & ~7) + ((o & 7) >> 1) + 4 * (o & 1);
+}
+
+// Byte offset of (head-size element d, key) in the transposed V tile: NO
+// column blocks of 64 d rows, each two 32-key chunks.
+__device__ __forceinline__ uint32_t vt_off(int d, int key) {
+  return ((d >> 6) * 2 + (key >> 5)) * kChunkBytes + swz(d & 63, v_pos(key & 31));
+}
+
+// The split of a V tile that landed as rows in ``raw`` into its
+// transposed hi (``vt_hi``) and lo (``vt_lo``) tiles.
+template <int NC>
+__device__ __forceinline__ void split_v(const uint8_t* raw, uint8_t* vt_hi, uint8_t* vt_lo,
+                                        int key, int g0) {
+#pragma unroll
+  for (int i = 0; i < 4 * NC; ++i) {
+    const int g = g0 + 2 * i;
+    const float4 x = *reinterpret_cast<const float4*>(
+        raw + (g / 8) * kChunkBytes + swz(key, 4 * (g % 8)));
+    const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float h = tf32(xs[e]);
+      const uint32_t off = vt_off(4 * g + e, key);
+      *reinterpret_cast<float*>(vt_hi + off) = h;
+      *reinterpret_cast<float*>(vt_lo + off) = tf32(xs[e] - h);
+    }
+  }
+}
+
+// hi and lo parts of x as TF32 bit patterns
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  const float h = tf32(x);
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(tf32(x - h));
+}
+
+// Q, K hi and lo, V^T hi and lo, and the raw V tile in flight: at D <= 64
+// 1024 + 14 x 8 KB = 113 KB, two blocks on an SM's 228 KB with their 1 KB
+// each
+size_t smem_bytes(int nc) {
+  const int no = nc == 4 ? 2 : 1;
+  return 1024 + static_cast<size_t>(kChunkBytes) * (5 * nc + 4 * no);
+}
+
+// One 64-row q tile of one (batch, head) per block; NC 32-float chunks of
+// the head size (1, 2 or 4), NO 64-column blocks of the output.
+template <int NC, bool CAUSAL, bool HAS_BIAS>
+__global__ void __launch_bounds__(kThreads, NC == 4 ? 1 : 2)
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, Bias bias, float* __restrict__ out,
+                     float* __restrict__ lse, int T, int D, float scale) {
+  constexpr int NO = NC == 4 ? 2 : 1;
+  extern __shared__ uint8_t smem_raw[];
+  // chunks 1024-byte aligned (the 128-byte swizzle repeats every 8 rows)
+  uint8_t* sm = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  const uint32_t base = smem_addr(sm);
+  constexpr uint32_t oQh = 0, oQl = NC * kChunkBytes;
+  constexpr uint32_t oKh = 2 * NC * kChunkBytes, oKl = 3 * NC * kChunkBytes;
+  constexpr uint32_t oVh = 4 * NC * kChunkBytes, oVl = oVh + 2 * NO * kChunkBytes;
+  constexpr uint32_t oVr = oVl + 2 * NO * kChunkBytes;      // the raw V tile
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int n_q = (T + kTile - 1) / kTile;
+  const long long bh = blockIdx.x / n_q;
+  const int q0 = static_cast<int>(blockIdx.x % n_q) * kTile;
+  const long long off = bh * T * D;
+  const float* bias_bh = nullptr;
+  if (HAS_BIAS) bias_bh = bias.ptr + (bh / bias.H) * bias.sb + (bh % bias.H) * bias.sh;
+
+  const int n_kv = (T + kTile - 1) / kTile;
+  const int n_k = CAUSAL ? min(n_kv, q0 / kTile + 1) : n_kv;   // skip tiles above the diagonal
+
+  // the splits' share (split_rows), and this thread's rows of a 64-row
+  // accumulator and its column pair in each 8-column chunk
+  const int srow = 32 * (warp & 1) + lane, sg0 = warp >> 1;
+  const int r0 = q0 + 16 * warp + lane / 4, r1 = r0 + 8;
+  const int cp = 2 * (lane % 4);
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[NO][32];
+#pragma unroll
+  for (int c = 0; c < NO; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+
+  // K lands where its hi part will be, V in a buffer of its own; the next
+  // tile's V is loaded while this one's products run, its K once S is done
+  DL4J_PHASE_START();
+  load_tile<NC>(base + oQh, q + off, q0, T, D);
+  load_tile<NC>(base + oKh, k + off, 0, T, D);
+  load_tile<NC>(base + oVr, v + off, 0, T, D);
+  cp_async_commit();
+  for (int j = 0; j < n_k; ++j) {
+    const int k0 = j * kTile;
+    const bool more = j + 1 < n_k;
+    cp_async_wait_all();
+    __syncthreads();                       // tile j has landed; tile j - 1 is done
+    DL4J_PHASE(0);
+    if (j == 0) split_rows<NC>(sm + oQh, sm + oQl, srow, sg0, scale);
+    split_rows<NC>(sm + oKh, sm + oKl, srow, sg0, 1.f);
+    split_v<NC>(sm + oVr, sm + oVh, sm + oVl, srow, sg0);
+    fence_proxy_async();
+    __syncthreads();
+    if (more) {
+      load_tile<NC>(base + oVr, v + off, k0 + kTile, T, D);
+      cp_async_commit();
+    }
+    DL4J_PHASE(1);
+
+    // S = Ql Kh^T + Qh Kl^T + Qh Kh^T over NC chunks of 4 k8 steps
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t qc = base + c * kChunkBytes, kc = qc + oKh;
+        wgmma_ss(s, desc(qc + oQl, kk), desc(kc, kk), (c | kk) != 0);
+        wgmma_ss(s, desc(qc + oQh, kk), desc(kc + NC * kChunkBytes, kk), 1);
+      }
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t qc = base + c * kChunkBytes;
+        wgmma_ss(s, desc(qc + oQh, kk), desc(qc + oKh, kk), 1);
+      }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    __syncthreads();                       // every warp's S has read K
+    if (more) {
+      load_tile<NC>(base + oKh, k + off, k0 + kTile, T, D);
+      cp_async_commit();
+    }
+    DL4J_PHASE(2);
+
+    float alpha[2];
+    softmax_tile<CAUSAL, HAS_BIAS>(s, m, l, alpha, q0, k0, r0, r1, cp, bias_bh, bias, T);
+#pragma unroll
+    for (int c = 0; c < NO; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[c][i] *= alpha[(i >> 1) & 1];
+
+    // O += Pl Vh + Ph Vl + Ph Vh: P's fragments are its accumulator
+    // registers (see v_pos), split in place
+    uint32_t ph[8][4], pl[8][4];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      split(s[4 * kk], ph[kk][0], pl[kk][0]);
+      split(s[4 * kk + 2], ph[kk][1], pl[kk][1]);
+      split(s[4 * kk + 1], ph[kk][2], pl[kk][2]);
+      split(s[4 * kk + 3], ph[kk][3], pl[kk][3]);
+    }
+#pragma unroll
+    for (int c = 0; c < NO; ++c) fence_regs(o[c]);
+    DL4J_PHASE(3);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int c = 0; c < NO; ++c) {
+        const uint32_t vc = base + (c * 2 + kk / 4) * kChunkBytes;
+        wgmma_rs(o[c], pl[kk], desc(vc + oVh, kk % 4));
+        wgmma_rs(o[c], ph[kk], desc(vc + oVl, kk % 4));
+      }
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int c = 0; c < NO; ++c) {
+        const uint32_t vc = base + (c * 2 + kk / 4) * kChunkBytes;
+        wgmma_rs(o[c], ph[kk], desc(vc + oVh, kk % 4));
+      }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int c = 0; c < NO; ++c) fence_regs(o[c]);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      fence_regs(ph[kk]);
+      fence_regs(pl[kk]);
+    }
+    DL4J_PHASE(4);
+  }
+  DL4J_PHASE_STORE();
+
+  // out = o / max(l, 1e-30) (as o times the reciprocal), float32 [B*H, T, D]
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = i == 0 ? r0 : r1;
+    if (row >= T) continue;
+    const float den = fmaxf(l[i], 1e-30f);
+    const float inv = 1.f / den;
+    float* orow = out + off + static_cast<long long>(row) * D;
+#pragma unroll
+    for (int c = 0; c < NO; ++c)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int col = 64 * c + 8 * n + cp;
+        if (col < D)
+          *reinterpret_cast<float2*>(orow + col) =
+              make_float2(o[c][4 * n + 2 * i] * inv, o[c][4 * n + 2 * i + 1] * inv);
+      }
+    if (lse != nullptr && lane % 4 == 0)
+      lse[bh * T + row] = (isfinite(m[i]) ? m[i] : 0.f) + logf(den);
+  }
+}
+
+template <int NC, bool CAUSAL, bool HAS_BIAS>
+int launch(const float* q, const float* k, const float* v, Bias bias, float* out, float* lse,
+           long long BH, int T, int D, float scale, cudaStream_t stream) {
+  auto kernel = flash_fwd_kernel<NC, CAUSAL, HAS_BIAS>;
+  const size_t bytes = smem_bytes(NC);
+  // above 48 KB only after the opt-in, which holds per device
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  // all of the SM's 228 KB to shared memory: two blocks need every byte
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks = BH * ((T + kTile - 1) / kTile);
+  kernel<<<(unsigned)blocks, kThreads, bytes, stream>>>(q, k, v, bias, out, lse, T, D, scale);
+  return (int)cudaGetLastError();
+}
+
+template <bool CAUSAL, bool HAS_BIAS>
+int dispatch_nc(const float* q, const float* k, const float* v, Bias bias, float* out,
+                float* lse, long long BH, int T, int D, float scale, cudaStream_t stream) {
+  if (D <= 32) return launch<1, CAUSAL, HAS_BIAS>(q, k, v, bias, out, lse, BH, T, D, scale, stream);
+  if (D <= 64) return launch<2, CAUSAL, HAS_BIAS>(q, k, v, bias, out, lse, BH, T, D, scale, stream);
+  return launch<4, CAUSAL, HAS_BIAS>(q, k, v, bias, out, lse, BH, T, D, scale, stream);
+}
+
+}  // namespace f32
+
+
 }  // namespace
 
 extern "C" {
@@ -970,7 +1237,7 @@ int dl4j_flash_attention_fwd(const void* q, const void* k, const void* v, const 
                              int causal, void* stream) {
   if (BH <= 0 || T <= 0) return 0;
   if (D < 4 || D > kMaxD || D % 4 != 0 || H <= 0 || BH % H != 0 ||
-      (T + kTile - 1) / kTile > 65535)
+      static_cast<long long>(BH) * ((T + kTile - 1) / kTile) >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* qp = static_cast<const float*>(q);
@@ -980,11 +1247,11 @@ int dl4j_flash_attention_fwd(const void* q, const void* k, const void* v, const 
   float* lp = static_cast<float*>(lse);
   Bias b{static_cast<const float*>(bias), sb, sh, sq, sk, H};
   if (b.ptr) {
-    if (causal) return dispatch_nu<true, true>(qp, kp, vp, b, op, lp, BH, T, D, scale, st);
-    return dispatch_nu<false, true>(qp, kp, vp, b, op, lp, BH, T, D, scale, st);
+    if (causal) return f32::dispatch_nc<true, true>(qp, kp, vp, b, op, lp, BH, T, D, scale, st);
+    return f32::dispatch_nc<false, true>(qp, kp, vp, b, op, lp, BH, T, D, scale, st);
   }
-  if (causal) return dispatch_nu<true, false>(qp, kp, vp, b, op, lp, BH, T, D, scale, st);
-  return dispatch_nu<false, false>(qp, kp, vp, b, op, lp, BH, T, D, scale, st);
+  if (causal) return f32::dispatch_nc<true, false>(qp, kp, vp, b, op, lp, BH, T, D, scale, st);
+  return f32::dispatch_nc<false, false>(qp, kp, vp, b, op, lp, BH, T, D, scale, st);
 }
 
 // q, k, v: bf16 [B, H, T, D] views, each with its own element strides
@@ -1046,6 +1313,13 @@ int dl4j_flash_bf16_layout_check(const void* q, const void* k, const void* v, vo
       tq, tk, tv, maps, static_cast<float*>(s_out), static_cast<float*>(o_out));
   return (int)cudaGetLastError();
 }
+
+#ifdef DL4J_FLASH_PHASES
+// phases: [blocks * 5] 64-bit words on the card, or null to stop
+int dl4j_flash_phases(void* phases) {
+  return (int)cudaMemcpyToSymbol(f32::g_phases, &phases, sizeof(phases));
+}
+#endif
 
 const char* dl4j_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -25,8 +25,9 @@ kernel ``csrc/flash_attention.cu`` replaces its TPU kernel ``_fa_kernel``
     result once to bf16.
   - other CUDA inputs (float32; fp16; bf16 the gate refuses): cast to
     contiguous float32 ``[B*H, T, D]`` for the float32 kernel
-    (:func:`flash_attention_cuda`), the result cast back, as the JAX
-    package casts.
+    (:func:`flash_attention_cuda`: each operand split into TF32 hi and lo
+    parts, three TF32 tensor-core products a product), the result cast
+    back, as the JAX package casts.
   - CPU tensors: the plain version (:func:`flash_attention_reference`), in
     float32 on the upcast.
 - :class:`_FlashAttention` is the ``torch.autograd.Function``. Its forward
@@ -244,7 +245,7 @@ def _check_cuda_args(q, k, v, bias) -> None:
         raise ValueError(f"the flash_attention kernel takes a head size that "
                          f"is a multiple of 4 up to {MAX_HEAD_SIZE}, got "
                          f"T={T}, D={d}")
-    if bh >= 2 ** 31 or (T + TILE - 1) // TILE > 65535:
+    if bh * ((T + TILE - 1) // TILE) >= 2 ** 31:
         raise ValueError(f"tensor too large for the flash_attention kernel "
                          f"(B*H={bh}, T={T})")
     _check_bias(bias, bh, T, q.device)

@@ -9,10 +9,11 @@ one encoder forward of the port spends its time, on the card.
     python3 profile_port.py --fasttext  # one FastText block (phase 20)
     python3 profile_port.py --glove     # one GloVe block (phase 21)
     python3 profile_port.py --encoder   # one encoder forward (phase 9)
-    python3 profile_port.py --flash     # the bf16 flash kernel as B*H grows
+    python3 profile_port.py --flash [--levers]  # flash: bf16, then float32
     python3 profile_port.py --bert      # one SameDiff BERT-base step
     python3 profile_port.py --bag [--levers] [--timeline]  # embedding_bag
     python3 profile_port.py --package DIR --bag  # DIR's port, this code
+    python3 profile_port.py --alternate DIR --flash  # DIR's port and this
     python3 profile_port.py --bag-build "-DDL4J_BAG_STREAM=1" --word2vec
 
 ``--package DIR`` imports ``deeplearning4j_tpu_torch`` from DIR (a checkout
@@ -21,7 +22,10 @@ beside this script, and builds DIR's kernels into DIR: parent and change are
 then measured by the same code, in turns, in one call. ``--bag-build OPTS``
 builds ``csrc/embedding_bag.cu`` with the -D options OPTS (the measurement
 settings its header lists) and has ``embedding_bag_cuda`` launch that build
-in whatever mode follows.
+in whatever mode follows. ``--alternate DIR`` runs one mode (``--flash`` or
+``--bag``) as processes of their own on DIR's package and on this one in
+turns (parent, change, change, parent, ...; ``--rounds`` each, 3 by
+default) and prints the medians of each run's summary side by side.
 
 Builds the model ``chip_smoke.py`` serves (full-size ResNet-50, seeded random
 weights, calibrated BN statistics, bf16 compute) and prints, beside the
@@ -96,10 +100,15 @@ and the casts or copies around it, which should be none. The trace goes to
 With ``--bag`` it times the embedding_bag kernel as chip_smoke.py phase 3
 does, at the CBOW path's [8192, 10] x [10000, 100] with subsampled-zipf
 indices and at the wide [8192, 10] x [3,000,000, 300]: cold and warm L2,
-host time per launch, plain version, F.embedding_bag and the bound. With
-``--levers`` also the kernel as each measurement build of BAG_LEVERS (the
-design's levers undone or pushed, one -D option each) computes it, and with
-``--timeline`` the warp timeline of a build stamped with %globaltimer.
+host time per launch, plain version, F.embedding_bag and the bound; its
+bf16 route at [8192, 10] and PV-DM's [8192, 11] beside the float32 route
+on the same values; and chip_smoke phase 16's bf16-table CBOW: a fit's
+words/s, then one block's device time, bag time, host enqueue and
+completion (trace ``chiprun_out/profile_port_cbow_bf16_trace.json.gz``).
+With ``--levers`` also the kernel as each measurement build of BAG_LEVERS
+and BAG16_LEVERS (the designs' levers undone or pushed, -D options)
+computes it, and with ``--timeline`` the per-bag timeline of a build
+stamped with %globaltimer.
 
 With ``--bert`` it imports the BERT-base frozen graph ``chip_smoke.py``
 phase 18 fine-tunes (``bench.py --config bert``: batch 32, T 128, float32,
@@ -116,7 +125,14 @@ step's elementwise time it names. Traces go to
 
 With ``--flash`` it times the bf16 flash kernel beside
 F.scaled_dot_product_attention on the same bf16 tensors at T 128 for B*H
-from 12 to 768, and at [96, 512, 64].
+from 12 to 768, and at [96, 512, 64]; then the float32 kernel (3xTF32) at
+[384, 128, 64] and [96, 512, 64] beside SDPA in float32 and its bound, and
+one float32 encoder forward at batch 32 (12 float32 flash launches; trace
+``chiprun_out/profile_port_encoder_f32_trace.json.gz``). With ``--levers``
+also the float32 kernel's measurement builds (FLASH_LEVERS: the TF32
+rounding by cvt.rna, and a build that counts each loop phase's clock64
+cycles per block), each bitwise-checked against the shipped build and
+timed in turns with it.
 
 The last line is one JSON object with the numbers.
 """
@@ -586,24 +602,32 @@ def skipgram_block(dev, smi: str, sents) -> dict:
     return out
 
 
-def word2vec_main(dev, smi: str, name: str) -> int:
-    sents = cs.zipf_sentences(cs.W2V_WORDS)
-    sg = skipgram_block(dev, smi, sents)
-    w2v = cs.bench_word2vec(dev, sents)
-    w2v.fit()
+def cbow_block(w2v, dev):
+    """One CBOW block of the fitted model ``w2v`` from the stream's start
+    (64 rounds), on copies of its tables in the model's table dtype:
+    (block, start tables, working tables)."""
     R, W = w2v.MAX_BLOCK_ROUNDS, w2v.window
     span = w2v._cbow_centers * R
     ids, sent, n_valid, gen = _stream(w2v, dev, span)
     b = torch.randint(1, W + 1, (span,), generator=gen, device=dev)
     negpool = w2v._negpool()
     lrs = torch.full((R,), 0.0125, dtype=torch.float32, device=dev)
-    start = [torch.from_numpy(w2v.lookup_table.syn0).to(dev),
-             torch.from_numpy(w2v.lookup_table.syn1neg).to(dev)]
+    start = list(w2v._tables_to_device())
     tables = [t.clone() for t in start]
 
     def block():
         return w2v._cbow_block(tables[0], tables[1], ids, sent, n_valid,
                                negpool, 0, lrs, b, 0)
+    return block, start, tables
+
+
+def word2vec_main(dev, smi: str, name: str) -> int:
+    sents = cs.zipf_sentences(cs.W2V_WORDS)
+    sg = skipgram_block(dev, smi, sents)
+    w2v = cs.bench_word2vec(dev, sents)
+    w2v.fit()
+    R = w2v.MAX_BLOCK_ROUNDS
+    block, start, tables = cbow_block(w2v, dev)
 
     def repeat_is_bitwise():
         outs = []
@@ -754,13 +778,17 @@ def encoder_main(dev, smi: str, name: str) -> int:
     return 0
 
 
-def flash_main(dev, smi: str, name: str) -> int:
+def flash_main(dev, smi: str, name: str, levers: bool = False) -> int:
     """The bf16 flash kernel and F.scaled_dot_product_attention on the same
     bf16 tensors (the MHA op's strided views, T 128, D 64) as B*H grows,
     timed as chip_smoke times them (cold L2, the card spun first): what a
     launch costs at the smallest size, how the time grows per (batch,
     head), and where the grid needs a second wave (768 blocks of 64 q rows
-    at B*H 384, against 660 resident)."""
+    at B*H 384, against 660 resident). Then the float32 kernel at the
+    encoder path's [384, 128, 64] and at [96, 512, 64] beside SDPA on the
+    same float32 tensors (chip_smoke's time_flash), and one float32
+    encoder forward (encoder_f32_forward). With ``levers`` also the
+    measurement builds of FLASH_LEVERS (flash_levers)."""
     import torch.nn.functional as F
 
     from deeplearning4j_tpu_torch.ops import attention
@@ -779,9 +807,132 @@ def flash_main(dev, smi: str, name: str) -> int:
         rows.append({"bh": bh, "T": T, "ms": ms, "sdpa_ms": sdpa})
         print(f"[flash] B*H {bh} T {T} D 64 bf16 strided: kernel {ms:.5f} "
               f"ms, SDPA {sdpa:.5f} ms; {smi}", flush=True)
-    print(json.dumps({"device": name, "nvidia_smi": smi, "flash": rows}),
-          flush=True)
+    summary = {}
+    f32 = []
+    for shape in (cs.FA_PATH, cs.FA_LONG):
+        t = cs.time_flash(*shape, dev, gen, flush)
+        f32.append(t)
+        bh, T, _ = shape
+        summary[f"f32_{bh}x{T}_ms"] = t["ms"]
+        summary[f"f32_{bh}x{T}_sdpa_ms"] = t["library_ms"]
+        print(f"[flash] float32 route {t['shape']}: kernel {t['ms']:.5f} ms, "
+              f"SDPA {t['library_ms']:.5f} ms, bound {t['bound_ms']:.5f} ms "
+              f"({t['bound_by']}; FFMA bound {t['ffma_bound_ms']:.5f} ms); "
+              f"{smi}", flush=True)
+    enc = encoder_f32_forward(dev, smi)
+    summary.update(encoder_f32_forward_ms=enc["forward_ms"],
+                   encoder_f32_flash_ms=enc["flash_ms"])
+    result = {"device": name, "nvidia_smi": smi, "flash": rows,
+              "float32": f32, "encoder_f32": enc, "summary": summary}
+    if levers:
+        result["levers"] = flash_levers(dev, smi, flush)
+    print(json.dumps(result), flush=True)
     return 0
+
+
+#: the float32 flash kernel's measurement builds (``--flash --levers``)
+FLASH_LEVERS = (("TF32 rounding by cvt.rna.tf32.f32",
+                 ("-DDL4J_FLASH_CVT_RNA=1",)),
+                ("phases (clock64 per block)", ("-DDL4J_FLASH_PHASES",)))
+FLASH_PHASES = ("the loads' wait and the barrier", "the splits",
+                "S and the barrier", "the softmax and P's split", "O")
+
+
+def flash_levers(dev, smi: str, flush) -> list:
+    """The float32 kernel as each build of FLASH_LEVERS computes it, at
+    [384, 128, 64] and [96, 512, 64]: bitwise against the shipped build,
+    timed in turns with it (shipped, lever, lever, shipped), and for the
+    phases build the cycles of each phase of the k-tile loop per block
+    (thread 0's clock64; two blocks share an SM, so a phase's cycles
+    include the other block's issue)."""
+    from deeplearning4j_tpu_torch.ops import attention
+
+    paths = measurement_builds({f"lever{n}": d for n, (_, d) in
+                        enumerate(FLASH_LEVERS)}, kernel="flash_attention")
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    rows = []
+    for n, (label, defines) in enumerate(FLASH_LEVERS):
+        lib = ctypes.CDLL(paths[f"lever{n}"])
+        fn = attention._bind(lib)
+
+        def launch(q, k, v):
+            out = torch.empty_like(q)
+            bh, T, D = q.shape
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, 0, 0, 0,
+                     0, 1, out.data_ptr(), None, bh, T, D, D ** -0.5, 0,
+                     torch.cuda.current_stream().cuda_stream)
+            cs.check(err == 0, f"{label}: launch failed ({err})")
+            return out
+
+        for shape in (cs.FA_PATH, cs.FA_LONG):
+            q, k, v, _ = cs._fa_case(*shape, dev, gen)
+            shipped = lambda: attention.flash_attention_cuda(  # noqa: E731
+                q, k, v, shape[2] ** -0.5)
+            bitwise = torch.equal(launch(q, k, v), shipped())
+            times = {"shipped": [], "lever": []}
+            for side in ("shipped", "lever", "lever", "shipped"):
+                times[side].append(cs._time_ms(
+                    shipped if side == "shipped" else
+                    (lambda: launch(q, k, v)), flush))
+            row = {"setting": label, "defines": list(defines),
+                   "shape": list(shape), "bitwise_to_shipped": bitwise,
+                   "ms": statistics.median(times["lever"]),
+                   "shipped_ms": statistics.median(times["shipped"])}
+            if "-DDL4J_FLASH_PHASES" in defines:
+                bh, T, _ = shape
+                blocks = bh * -(-T // attention.TILE)
+                buf = torch.zeros(blocks * 5, dtype=torch.int64, device=dev)
+                lib.dl4j_flash_phases.argtypes = [ctypes.c_void_p]
+                cs.check(lib.dl4j_flash_phases(buf.data_ptr()) == 0,
+                         "phases: buffer not set")
+                launch(q, k, v)
+                torch.cuda.synchronize()
+                lib.dl4j_flash_phases(None)
+                cycles = buf.view(blocks, 5).double().mean(0).tolist()
+                row["cycles_per_block"] = dict(zip(FLASH_PHASES, cycles))
+                print(f"[flash] phases per block at {list(shape)} (mean "
+                      f"clock64 cycles, {-(-T // attention.TILE)} k tiles): "
+                      + ", ".join(f"{p} {c:.0f} ({100 * c / sum(cycles):.1f}%)"
+                                  for p, c in zip(FLASH_PHASES, cycles))
+                      + f"; {smi}", flush=True)
+            rows.append(row)
+            print(f"[flash] {label} at {list(shape)}: {row['ms']:.5f} ms "
+                  f"against the shipped build's {row['shipped_ms']:.5f} ms "
+                  f"(in turns), bitwise {bitwise}; {smi}", flush=True)
+    return rows
+
+
+def encoder_f32_forward(dev, smi: str) -> dict:
+    """The encoder chip_smoke serves, in float32 compute at its batch of
+    32: one ComputationGraph.output forward (median of 10 after 3
+    warm-ups), the float32 flash kernel's launches in one forward (12, one
+    a layer) and its device time per forward (torch.profiler, 3
+    forwards)."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.ops import attention
+
+    model = ComputationGraph(cs.encoder_conf()).init(seed=cs.SEED, device=dev)
+    model.conf.global_conf.compute_dtype = "float32"
+    feed = tuple(torch.from_numpy(a).to(dev)
+                 for a in cs.encoder_inputs(cs.ENC_BATCH, cs.SEED + 20))
+    ms = forward_ms(model, *feed)
+    before = attention.flash_attention_launches
+    model.output(*feed)
+    torch.cuda.synchronize()
+    launches = attention.flash_attention_launches - before
+    cs.check(launches == cs.BERT["layers"], f"float32 encoder forward: "
+             f"{launches} flash launches, want {cs.BERT['layers']}")
+    prof = _profile(lambda: model.output(*feed), 3,
+                    f"encoder forward batch {cs.ENC_BATCH} float32", smi,
+                    "profile_port_encoder_f32_trace.json.gz")
+    fa_ms = prof["device_ms_by_category"].get("flash_attention", 0.0)
+    print(f"[flash] float32 encoder forward at batch {cs.ENC_BATCH}: "
+          f"{ms:.3f} ms, {launches} float32 flash launches taking {fa_ms:.4f}"
+          f" ms of device time; {smi}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return {"forward_ms": ms, "flash_launches": launches, "flash_ms": fa_ms,
+            "device_ms": prof["device_ms"]}
 
 
 #: the design's levers undone or pushed one at a time (``--bag --levers``):
@@ -795,75 +946,99 @@ BAG_LEVERS = (("chosen (float4, 4 rows in flight, default caching)", ()),
               ("streaming hints", ("-DDL4J_BAG_STREAM=1",)),
               ("L2 evict_last and streaming hints",
                ("-DDL4J_BAG_L2_KEEP_BYTES=26214400", "-DDL4J_BAG_STREAM=1")))
+#: the same for the bf16 route's design (``--bag --levers``, at the CBOW
+#: path's shape and PV-DM's [8192, 11])
+BAG16_LEVERS = (("chosen (two bags a warp, 11 rows in flight, bf16x2)", ()),
+                ("one bag a warp (the float route's loop, bf16x2)",
+                 ("-DDL4J_BAG_PAIRS=0",)),
+                ("two bags a warp, 6 rows in flight",
+                 ("-DDL4J_BAG_PAIR_WORDS=24",)),
+                ("two bags a warp, 16 rows in flight",
+                 ("-DDL4J_BAG_PAIR_WORDS=64",)))
 BAG_WIDE = (8192, 10, 3_000_000, 300)
+BAG_PV_DM = (8192, 11, cs.W2V_VOCAB, 100)
 
 
-def bag_builds(variants: dict) -> dict:
-    """Build csrc/embedding_bag.cu once for each entry of ``variants`` (a
-    tag and its -D options), all at once, into _build/ as libraries of
-    their own; return each tag's library path."""
+def measurement_builds(variants: dict,
+                       kernel: str = "embedding_bag") -> dict:
+    """Build csrc/<kernel>.cu once for each entry of ``variants`` (a tag
+    and its -D options), all at once, into _build/ as libraries of their
+    own; return each tag's library path."""
     from deeplearning4j_tpu_torch.ops import cuda_lib
 
     cuda_lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     running = {}
     for tag, defines in variants.items():
-        path = str(cuda_lib.BUILD_DIR / f"libembedding_bag_{tag}.so")
-        cmd = cuda_lib._command("embedding_bag", path)
+        path = str(cuda_lib.BUILD_DIR / f"lib{kernel}_{tag}.so")
+        cmd = cuda_lib._command(kernel, path)
         running[tag] = (path, subprocess.Popen(
             cmd[:1] + list(defines) + cmd[1:], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     paths = {}
     for tag, (path, proc) in running.items():
         log, _ = proc.communicate()
-        cs.check(proc.returncode == 0, f"embedding_bag build {tag}: {log}")
+        cs.check(proc.returncode == 0, f"{kernel} build {tag}: {log}")
         paths[tag] = path
     return paths
 
 
 def use_bag_build(path):
     """Make embedding_bag_cuda launch the library at ``path`` (a build of
-    bag_builds), or the package's own build for None; return the loaded
-    library."""
+    measurement_builds), or the package's own build for None; return the
+    loaded library."""
     from deeplearning4j_tpu_torch.ops import embeddings
 
     if path is None:
-        embeddings._LAUNCHER = None
+        embeddings._LAUNCHER = embeddings._LAUNCHER_BF16 = None
         return None
     lib = ctypes.CDLL(path)
-    embeddings._LAUNCHER = (embeddings.bind(lib.dl4j_embedding_bag),
-                            torch._C._cuda_getCurrentRawStream)
+    stream = torch._C._cuda_getCurrentRawStream
+    embeddings._LAUNCHER = (embeddings.bind(lib.dl4j_embedding_bag), stream)
+    embeddings._LAUNCHER_BF16 = (
+        embeddings.bind(lib.dl4j_embedding_bag_bf16), stream)
     return lib
 
 
-def _bag_inputs(dev, shape, dist):
+def _bag_inputs(dev, shape, dist, bf16=False):
     gen = torch.Generator(device=dev).manual_seed(cs.SEED + 5)
-    return cs._bag_case(*shape, dev, gen, dist=dist)
+    table, idx, mask, counts = cs._bag_case(*shape, dev, gen, dist=dist)
+    if bf16:
+        table, mask, counts = cs._to_bf16_route(table, mask)
+    return table, idx, mask, counts
 
 
 def bag_levers(dev, smi: str, flush) -> list:
     """The kernel under each build of BAG_LEVERS, cold and warm, through
     embedding_bag_cuda (bitwise checked), at the CBOW path's shape
-    (subsampled-zipf indices) and at the wide one."""
+    (subsampled-zipf indices) and at the wide one; and the bf16 route under
+    each build of BAG16_LEVERS at the CBOW path's and PV-DM's shapes."""
     from deeplearning4j_tpu_torch.ops import embeddings
 
-    paths = bag_builds({f"lever{n}": d
-                        for n, (_, d) in enumerate(BAG_LEVERS) if d})
+    levers = {f"lever{n}": d for n, (_, d) in enumerate(BAG_LEVERS) if d}
+    levers.update({f"lever16_{n}": d
+                   for n, (_, d) in enumerate(BAG16_LEVERS) if d})
+    paths = measurement_builds(levers)
     rows = []
-    for shape, dist in ((cs.BAG_PATH, "subsampled"), (BAG_WIDE, "uniform")):
-        case = _bag_inputs(dev, shape, dist)
+    for shape, dist, bf16 in ((cs.BAG_PATH, "subsampled", False),
+                              (BAG_WIDE, "uniform", False),
+                              (cs.BAG_PATH, "subsampled", True),
+                              (BAG_PV_DM, "subsampled", True)):
+        case = _bag_inputs(dev, shape, dist, bf16)
         want = embeddings.embedding_bag_reference(*case, True)
-        for n, (label, defines) in enumerate(BAG_LEVERS):
-            use_bag_build(paths.get(f"lever{n}"))
+        for n, (label, defines) in enumerate(BAG16_LEVERS if bf16
+                                             else BAG_LEVERS):
+            use_bag_build(paths.get(f"lever16_{n}" if bf16 else f"lever{n}"))
             launch = lambda: embeddings.embedding_bag_cuda(  # noqa: E731
                 *case, True)
             cs.check(torch.equal(launch(), want), f"{label}: not bitwise")
             row = {"setting": label, "defines": list(defines),
-                   "shape": list(shape), "ms": cs._time_ms(launch, flush),
+                   "shape": list(shape), "dtype": str(case[0].dtype),
+                   "ms": cs._time_ms(launch, flush),
                    "ms_warm": cs._time_ms(launch, flush, cold=False)}
             rows.append(row)
             print(f"[bag] {label}: {row['ms']:.5f} ms cold, "
-                  f"{row['ms_warm']:.5f} ms warm at {list(shape)} ({dist}); "
-                  f"{smi}", flush=True)
+                  f"{row['ms_warm']:.5f} ms warm at {list(shape)} "
+                  f"{row['dtype']} ({dist}); {smi}", flush=True)
         del case, want
         torch.cuda.empty_cache()
     use_bag_build(None)
@@ -872,20 +1047,23 @@ def bag_levers(dev, smi: str, flush) -> list:
 
 def bag_timeline(dev, smi: str, flush) -> list:
     """One cold launch at the CBOW path's shape of the kernel built with
-    ``-DDL4J_BAG_TIMELINE``: each warp's %globaltimer stamps (start, index
-    chunk arrived, rows arrived and summed, stored) and SM. Prints the
-    kernel's span, how many warps were in flight over it, each phase's
-    duration per warp, and whether bags with hotter rows wait longer (L2
-    hot-spotting), for subsampled-zipf and uniform indices."""
+    ``-DDL4J_BAG_TIMELINE``: each bag's %globaltimer stamps (start, index
+    chunk arrived, rows arrived and summed, stored) and SM, taken by the
+    lane that leads the bag. Prints the kernel's span, how many bags were
+    in flight over it, each phase's duration per bag, and whether bags with
+    hotter rows wait longer (L2 hot-spotting), for subsampled-zipf and
+    uniform indices on the float32 route and subsampled-zipf on the bf16
+    route."""
     from deeplearning4j_tpu_torch.ops import embeddings
 
-    lib = use_bag_build(bag_builds({"timeline": ("-DDL4J_BAG_TIMELINE",)})[
-        "timeline"])
+    lib = use_bag_build(measurement_builds(
+        {"timeline": ("-DDL4J_BAG_TIMELINE",)})["timeline"])
     lib.dl4j_embedding_bag_stamps.argtypes = [ctypes.c_void_p]
     B, W, V, D = cs.BAG_PATH
     rows = []
-    for dist in ("subsampled", "uniform"):
-        case = _bag_inputs(dev, cs.BAG_PATH, dist)
+    for dist, bf16 in (("subsampled", False), ("uniform", False),
+                       ("subsampled", True)):
+        case = _bag_inputs(dev, cs.BAG_PATH, dist, bf16)
         launch = lambda: embeddings.embedding_bag_cuda(  # noqa: E731
             *case, True)
         stamps = torch.zeros(B * 5, dtype=torch.int64, device=dev)
@@ -922,9 +1100,11 @@ def bag_timeline(dev, smi: str, flush) -> list:
                    wait[hot >= np.percentile(hot, 90)].mean()),
                "rows_wait_ns_coldest_decile": float(
                    wait[hot <= np.percentile(hot, 10)].mean()),
-               "row_bytes_per_s_over_span": B * W * D * 4 / (span * 1e-9)}
+               "row_bytes_per_s_over_span": B * W * D * case[0]
+               .element_size() / (span * 1e-9), "dtype": str(case[0].dtype)}
         rows.append(row)
-        print(f"[timeline] {dist}: span {span} ns on {row['sms']} SMs, at "
+        print(f"[timeline] {dist} {row['dtype']}: span {span} ns on "
+              f"{row['sms']} SMs, at "
               f"most {row['max_warps_in_flight']} warps in flight; per warp "
               f"(p10/p50/p90 ns): start {row['start_ns_p10_50_90']}, index "
               f"wait {row['index_wait_ns_p10_50_90']}, rows wait "
@@ -942,14 +1122,46 @@ def bag_timeline(dev, smi: str, flush) -> list:
     return rows
 
 
+def cbow_bf16_block(dev, smi: str) -> dict:
+    """chip_smoke phase 16's bf16-table CBOW (the word2vec-cbow model with
+    table_dtype bfloat16 on the bench corpus): one fit with its words/s and
+    bag launches, then one 64-round block from the stream's start profiled
+    (the --word2vec report): its device time, the bag's share, its host
+    enqueue time and its time to completion."""
+    w = cs.w2v_model(dev, algorithm="cbow", table_dtype="bfloat16")
+    w.set_sentence_iterator(cs.zipf_sentences(cs.W2V_WORDS))
+    fit = cs.fit_counted(w, "cold")
+    cs.check(fit["bf16_launches"] == fit["rounds"] == cs.W2V_ROUNDS_PER_FIT,
+             f"cbow bf16: {fit['bf16_launches']} bf16 launches, "
+             f"{fit['rounds']} rounds")
+    print(f"[bag] bf16-table CBOW fit: {fit['words_per_s']:.0f} words/s, "
+          f"{fit['bf16_launches']} bf16 bag launches; {smi}", flush=True)
+    block, _, _ = cbow_block(w, dev)
+    rep, _ = _block_report("one bf16-table CBOW block (64 rounds of 8192)",
+                           block, w.MAX_BLOCK_ROUNDS, smi,
+                           "profile_port_cbow_bf16_trace.json.gz")
+    del w
+    torch.cuda.empty_cache()
+    return {"fit_words_per_s": fit["words_per_s"],
+            "fit_launches": fit["bf16_launches"],
+            "block_ms": rep["block_ms"],
+            "block_enqueue_ms": rep["block_enqueue_ms"],
+            "block_device_ms": rep["device_ms"],
+            "block_embedding_bag_ms": rep["embedding_bag_ms_per_block"],
+            "device_busy_share": rep["device_busy_share"]}
+
+
 def bag_main(dev, smi: str, name: str, levers: bool,
              timeline: bool) -> int:
     """embedding_bag_cuda of the package imported (``--package``: another
     commit's) at the CBOW path's shape with subsampled-zipf indices and at
     the wide shape, as chip_smoke times it: cold, warm, host time per
-    launch, beside the plain version, F.embedding_bag and the bound. With
-    ``levers`` also the builds of BAG_LEVERS; with ``timeline`` a
-    stamped build's warp timeline (bag_timeline)."""
+    launch, beside the plain version, F.embedding_bag and the bound; its
+    bf16 route at the CBOW path's and PV-DM's shapes beside the float32
+    route on the same values; and phase 16's bf16-table CBOW block
+    (cbow_bf16_block). With ``levers`` also the builds of BAG_LEVERS and
+    BAG16_LEVERS; with ``timeline`` a stamped build's timeline
+    (bag_timeline)."""
     import deeplearning4j_tpu_torch
     from deeplearning4j_tpu_torch.ops import embeddings
 
@@ -969,8 +1181,30 @@ def bag_main(dev, smi: str, name: str, levers: bool,
               f"bound {t['bound_ms']:.5f} ms ({t['distinct_rows']} distinct "
               f"rows), no reuse {t['no_reuse_ms']:.5f} ms; package "
               f"{result['package']}; {smi}", flush=True)
+    for label, shape in (("bf16", (B, W, V, D)), ("bf16_pv_dm", BAG_PV_DM)):
+        t = cs.time_embedding_bag(*shape, dev, gen, flush, "subsampled",
+                                  bf16=True)
+        result[label] = t
+        print(f"[bag] {label} {t['shape']} (subsampled): bf16 route "
+              f"{t['ms']:.5f} ms cold, {t['ms_warm']:.5f} ms warm, host "
+              f"{t['host_us']:.2f} us per launch; the float32 route on the "
+              f"same values {t['f32_ms']:.5f} ms cold, {t['f32_ms_warm']:.5f}"
+              f" ms warm; bound {t['bound_ms']:.5f} ms; package "
+              f"{result['package']}; {smi}", flush=True)
     cs.check(embeddings.embedding_bag_launches > before,
              "the kernel was not launched")
+    result["cbow_bf16"] = cbow_bf16_block(dev, smi)
+    result["summary"] = {
+        "path_ms": result["path"]["ms"],
+        "path_ms_warm": result["path"]["ms_warm"],
+        "bf16_ms": result["bf16"]["ms"],
+        "bf16_ms_warm": result["bf16"]["ms_warm"],
+        "bf16_f32_route_ms": result["bf16"]["f32_ms"],
+        "bf16_pv_dm_ms": result["bf16_pv_dm"]["ms"],
+        "bf16_pv_dm_ms_warm": result["bf16_pv_dm"]["ms_warm"],
+        **{f"cbow_bf16_{k}": result["cbow_bf16"][k] for k in (
+            "block_device_ms", "block_embedding_bag_ms", "block_ms",
+            "block_enqueue_ms", "fit_words_per_s")}}
     if levers:
         result["levers"] = bag_levers(dev, smi, flush)
     if timeline:
@@ -979,10 +1213,60 @@ def bag_main(dev, smi: str, name: str, levers: bool,
     return 0
 
 
+def alternate_main(parent: str, rounds: int, args: list) -> int:
+    """Parent and change in turns, each run a process of its own: this
+    script with ``args`` (one mode, e.g. ``--flash``) on the package in
+    ``parent`` (``--package``) and on the package beside it, ``rounds``
+    times each in the order parent, change, change, parent, parent, ...
+    Each run's lines are echoed with its side; then the median of each
+    number in the runs' ``summary`` for both sides, and their ratio."""
+    order = []
+    for r in range(rounds):
+        order += ["parent", "change"] if r % 2 == 0 else ["change", "parent"]
+    runs = {"parent": [], "change": []}
+    for n, side in enumerate(order):
+        cmd = [sys.executable, os.path.abspath(__file__)] + (
+            ["--package", parent] if side == "parent" else []) + args
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        lines = proc.stdout.splitlines()
+        for line in lines[:-1]:
+            print(f"[{side} {n}] {line}", flush=True)
+        cs.check(proc.returncode == 0 and bool(lines),
+                 f"{side} run {n} failed (exit {proc.returncode})")
+        runs[side].append(json.loads(lines[-1])["summary"])
+    keys = [k for k in runs["change"][0] if k in runs["parent"][0]]
+    table = {}
+    for k in keys:
+        p = statistics.median(r[k] for r in runs["parent"])
+        c = statistics.median(r[k] for r in runs["change"])
+        table[k] = {"parent": p, "change": c, "change_over_parent": c / p,
+                    "parent_runs": [r[k] for r in runs["parent"]],
+                    "change_runs": [r[k] for r in runs["change"]]}
+        print(f"[alternate] {k}: parent {p:.5f}, change {c:.5f} "
+              f"(x{c / p:.3f}); parent runs {table[k]['parent_runs']}, "
+              f"change runs {table[k]['change_runs']}", flush=True)
+    print(json.dumps({"alternate": args, "parent": parent,
+                      "order": order, "medians": table}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_port: no CUDA card available", file=sys.stderr)
         return 2
+    if "--alternate" in sys.argv[1:]:
+        # parent against change, in turns, one process a run
+        argv = sys.argv[1:]
+        i = argv.index("--alternate")
+        parent = argv[i + 1]
+        rest = argv[:i] + argv[i + 2:]
+        rounds = 3
+        if "--rounds" in rest:
+            j = rest.index("--rounds")
+            rounds = int(rest[j + 1])
+            rest = rest[:j] + rest[j + 2:]
+        return alternate_main(parent, rounds, rest)
     if "--package" in sys.argv[1:]:
         # another checkout's deeplearning4j_tpu_torch (for parent-against-
         # change runs), measured by this script's code
@@ -999,7 +1283,7 @@ def main() -> int:
         # package's own (its -D options in one argument)
         defines = sys.argv[sys.argv.index("--bag-build") + 1].split()
         cs.phase_build()
-        use_bag_build(bag_builds({"variant": defines})["variant"])
+        use_bag_build(measurement_builds({"variant": defines})["variant"])
         print(f"[bag] embedding_bag built with {defines}", flush=True)
     if "--word2vec" in sys.argv[1:]:
         cs.phase_build()
@@ -1020,7 +1304,7 @@ def main() -> int:
         return encoder_main(dev, smi, name)
     if "--flash" in sys.argv[1:]:
         cs.phase_build()
-        return flash_main(dev, smi, name)
+        return flash_main(dev, smi, name, "--levers" in sys.argv[1:])
     if "--bert" in sys.argv[1:]:
         return bert_main(dev, smi, name)
     if "--bag" in sys.argv[1:]:

@@ -367,3 +367,130 @@ def test_backward_takes_the_forwards_lse():
                                             False, 64)
     assert not torch.allclose(g0[2], g1[2])
     torch.testing.assert_close(g1[2], g0[2] * np.e, rtol=1e-5, atol=1e-6)
+
+
+# --- the float32 kernel's arithmetic (3xTF32), emulated -----------------------
+
+#: the tolerance of the float32 kernel against its plain version on the card
+#: (chip_smoke.py FA_TOL, tests/test_torch_kernel_cuda.py), that of
+#: tests/test_pallas_attention.py's flash against dense
+FA_TOL = 2e-5
+LOG2E = 1.4426950408889634
+
+
+def _tf32(x):
+    """``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to nearest,
+    ties away from zero, the 13 low mantissa bits cleared. On the int32
+    view of the sign-magnitude bits, adding half of the kept last place and
+    clearing the rest rounds the magnitude half away from zero."""
+    b = x.contiguous().view(torch.int32).to(torch.int64)
+    b = (b + 0x1000) & 0xFFFFE000
+    b = torch.where(b >= 2 ** 31, b - 2 ** 32, b)
+    return b.to(torch.int32).view(torch.float32)
+
+
+def _split(x):
+    """hi = tf32(x), lo = tf32(x - hi): the kernel's operand split."""
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _emulate_f32_kernel(q, k, v, scale, causal=False, bias=None,
+                        passes=3):
+    """The float32 kernel's arithmetic in plain PyTorch, on ``[BH, T, D]``
+    float32 (``bias`` None or ``[BH, T, T]``): q scaled, then q, k, v split
+    into TF32 hi and lo parts; the kernel's 64-key tiles in order, each
+    ``S = Ql Kh^T + Qh Kl^T + Qh Kh^T`` (small terms first; the lo * lo
+    term dropped; products of TF32 values are exact in float32), the bias
+    and masks, the online softmax with exp as 2^(x log2 e - safe log2 e),
+    and ``O = alpha O + (Pl Vh + Ph Vl) + Ph Vh``; out as ``o`` times the
+    reciprocal of ``max(l, 1e-30)``. ``passes=1`` keeps the hi products
+    alone (one TF32 product, for contrast)."""
+    qh, ql = _split(q * scale)
+    kh, kl = _split(k)
+    vh, vl = _split(v)
+    BH, T, D = q.shape
+    m = torch.full((BH, T), float("-inf"))
+    l = torch.zeros(BH, T)
+    o = torch.zeros(BH, T, D)
+    zero = torch.zeros(())
+    for k0 in range(0, T, attention.TILE):
+        k1 = min(k0 + attention.TILE, T)
+        kth, ktl = kh[:, k0:k1].transpose(1, 2), kl[:, k0:k1].transpose(1, 2)
+        s = qh @ kth
+        if passes == 3:
+            s = (ql @ kth + qh @ ktl) + s
+        if bias is not None:
+            s = s + bias[:, :, k0:k1]
+        if causal:
+            qpos = torch.arange(T)[:, None]
+            s = s.masked_fill(qpos < torch.arange(k0, k1)[None, :],
+                              float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1))
+        safe = torch.where(torch.isfinite(m_new), m_new, zero)
+        p = torch.where(torch.isfinite(s), torch.exp2(
+            s * LOG2E - (safe * LOG2E)[..., None]), zero)
+        alpha = torch.where(torch.isfinite(m), torch.exp2(
+            m * LOG2E - safe * LOG2E), zero)
+        l = l * alpha + p.sum(-1)
+        ph, pl = _split(p)
+        pv = ph @ vh[:, k0:k1]
+        if passes == 3:
+            pv = (pl @ vh[:, k0:k1] + ph @ vl[:, k0:k1]) + pv
+        o = o * alpha[..., None] + pv
+        m = m_new
+    return o * (1.0 / l.clamp_min(1e-30))[..., None]
+
+
+def test_tf32_rounding_is_cvt_rna():
+    """Ties go away from zero, below a tie toward the nearer value, for
+    both signs; the low 13 bits are cleared; hi + lo is x to 2^-22."""
+    ulp = 2.0 ** -10                          # TF32's last place at 1.0
+    x = torch.tensor([1 + ulp / 2, 1 + ulp / 2 - 2 ** -23, 1 + 1.5 * ulp,
+                      -(1 + ulp / 2), 3.0, 0.0], dtype=torch.float32)
+    want = torch.tensor([1 + ulp, 1.0, 1 + 2 * ulp, -(1 + ulp), 3.0, 0.0])
+    assert torch.equal(_tf32(x), want)
+    y = torch.from_numpy(_arrays((4096,), seed=21, scale=10.0)[0])
+    hi, lo = _split(y)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert not (lo.view(torch.int32) & 0x1FFF).any()
+    assert ((hi + lo - y).abs() <= 2.0 ** -22 * y.abs()).all()
+
+
+EMULATION_CASES = {
+    # name: (B, H, T, D, causal, bias kind); T a multiple of 128 runs the
+    # JAX package's Pallas kernel in interpret mode, "tail" (T = 200, a
+    # 64-key tile of 8 keys at the end) its dense dot_product_attention,
+    # the forward it documents for T that its blocks do not divide
+    "encoder_shape": (2, 3, 128, 64, False, None),
+    "causal_full_bias": (1, 2, 256, 64, True, "full"),
+    "d100_mask_bias": (2, 2, 128, 100, False, "mask"),
+    "tail": (2, 2, 200, 32, False, "mask"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(EMULATION_CASES))
+def test_f32_kernel_arithmetic_holds_fa_tol_against_jax(name):
+    """The float32 kernel's 3xTF32 arithmetic, emulated on the CPU, against
+    the JAX package's forward within FA_TOL; one TF32 product alone is at
+    least ten times further off, so the lo terms are what hold it."""
+    B, H, T, D, causal, kind = EMULATION_CASES[name]
+    q, k, v = _arrays((B, H, T, D), (B, H, T, D), (B, H, T, D), seed=T + D)
+    bias = _bias_for(kind, B, H, T, seed=6)
+    if name == "tail":
+        keep = bias[:, :, :, :] == 0.0            # [B, 1, 1, T]
+        want = np.asarray(jnn.dot_product_attention(q, k, v, mask=keep))
+    else:
+        want = np.asarray(jfa.flash_attention(q, k, v, causal=causal,
+                                              bias=bias, interpret=True))
+    bt = None
+    if bias is not None:
+        bt = torch.from_numpy(np.broadcast_to(bias, (B, H, T, T)).reshape(
+            B * H, T, T).copy())
+    qt, kt, vt = (torch.from_numpy(a).reshape(B * H, T, D) for a in (q, k, v))
+    got = _emulate_f32_kernel(qt, kt, vt, D ** -0.5, causal, bt)
+    one = _emulate_f32_kernel(qt, kt, vt, D ** -0.5, causal, bt, passes=1)
+    want = torch.from_numpy(np.array(want)).reshape(B * H, T, D)
+    err = (got - want).abs().max().item()
+    assert torch.isfinite(got).all() and err <= FA_TOL
+    assert (one - want).abs().max().item() >= 10 * err

@@ -271,7 +271,15 @@ def _bf16_bag_inputs(B, W, V, D, dev, seed, offset=0, masked=()):
     (8192, 11, 10000, 100, 0),       # PV-DM's label column
     (33, 10, 50, 1, 0), (33, 10, 50, 3, 0), (33, 10, 50, 102, 0),
     (33, 10, 50, 128, 0), (33, 10, 50, 128, 1), (33, 10, 50, 300, 0),
-    (33, 33, 50, 128, 0), (33, 40, 50, 256, 0), (5, 0, 50, 8, 0)])
+    (33, 33, 50, 128, 0), (33, 40, 50, 256, 0), (5, 0, 50, 8, 0),
+    # the paired layout (two bags a warp, 16 a block, 11 rows in flight):
+    # W 11, 12, 16 and 17 (the float route's loop), B not a multiple of 2
+    # or 16 (5, 15, 17, 8191; the inputs mask rows 2 and 4), rows of 25 and
+    # 32 vectors (D 100, 128, a table 4 elements into its buffer), and D 102
+    # and 300, which keep the loop
+    (5, 12, 50, 100, 0), (15, 16, 50, 100, 4), (17, 11, 50, 128, 0),
+    (17, 16, 50, 128, 4), (8191, 17, 10000, 100, 0), (15, 11, 50, 102, 0),
+    (17, 12, 50, 300, 4), (5, 16, 50, 256, 0)])
 def test_embedding_bag_bf16_route_bitwise_against_plain_version(mean, B, W,
                                                                 V, D,
                                                                 offset):
@@ -333,7 +341,11 @@ def _bias(kind, B, H, T, dev, seed):
     (32, 12, 128, 64),               # the encoder path's [384, 128, 64]
     (2, 3, 200, 64),                 # a tail tile
     (1, 2, 512, 32), (1, 2, 512, 64), (1, 2, 512, 128),
-    (2, 2, 64, 4), (1, 1, 1, 8), (1, 2, 70, 100)])
+    (2, 2, 64, 4), (1, 1, 1, 8), (1, 2, 70, 100),
+    # the 3xTF32 kernel's tiles: a tail of 8 keys (T 200) and of 1 (513),
+    # one, two and four 32-float chunks of the head size, D 100 zero-filled
+    (2, 2, 200, 32), (2, 2, 200, 100), (2, 2, 513, 64), (1, 2, 513, 128),
+    (1, 2, 513, 100)])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("bias", [None, "mask", "full", "masked_row"])
 def test_flash_attention_kernel_matches_plain_version(B, H, T, D, causal,
@@ -357,16 +369,37 @@ def test_flash_attention_kernel_matches_plain_version(B, H, T, D, causal,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,H,T,D", [(32, 12, 128, 64), (2, 2, 513, 100),
+                                     (1, 2, 200, 32)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_kernel_lse_matches_plain_version(B, H, T, D, causal):
+    """The log-sum-exp the backward reads, within 1e-5 of the plain
+    version's, finite for a row masked everywhere."""
+    dev = _card()
+    q, k, v = _qkv(B * H, T, D, dev, T + D + 1)
+    bt = _bias("masked_row", B, H, T, dev, T)
+    got, lse = attention.flash_attention_cuda(q, k, v, D ** -0.5, causal, bt,
+                                              with_lse=True)
+    _, want = attention.flash_attention_reference(q, k, v, D ** -0.5, causal,
+                                                  bt, with_lse=True)
+    torch.cuda.synchronize()
+    assert lse.shape == (B * H, T) and bool(torch.isfinite(lse).all())
+    assert (lse - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,D", [(256, 64), (200, 100), (513, 32)])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("bias", [None, "full", "mask"])
-def test_flash_attention_gradients_through_the_kernel_match_dense(causal,
+def test_flash_attention_gradients_through_the_kernel_match_dense(T, D,
+                                                                  causal,
                                                                   bias):
     """dq, dk, dv (and dbias) through the kernel's forward and the blockwise
     backward against autograd through the dense attention, within 1e-4.
     The loss ``sum(out * tgt)`` makes the output's cotangent ``tgt`` itself,
     so the gradients are of order one."""
     dev = _card()
-    B, H, T, D = 2, 4, 256, 64
+    B, H = 2, 4
     q, k, v = (t.view(B, H, T, D).requires_grad_()
                for t in _qkv(B * H, T, D, dev, 9))
     bt = _bias(bias, B, H, T, dev, 10)
