@@ -65,7 +65,15 @@ Phases (each fails the run with a nonzero exit if it fails):
                1e-4; and bf16 gradients through the bf16 kernel (its
                float32 output saved for the backward) against the plain
                version at the path's [32, 12, 128, 64], within 1 bf16 ulp
-               + 2^-16 of the largest.
+               + 2^-16 of the largest. Last, bn_act at every launch shape of
+               one ResNet-50 serving forward (batch 32: 112x112 down to
+               7x7, 64 to 2048 channels) and of phase 24's served forwards
+               with BN (SimpleCNN, Xception, InceptionResNetV1,
+               FaceNetNN4Small2, NASNet at batch 16: 728 channels at
+               19x19, 1792 at 3x3, ...), each against its plain version in
+               float32 and bf16 and timed in bf16 beside its byte bound;
+               per forward the launch-weighted share of the bound (the
+               launches' bounds summed over their times summed).
 4. serving  -- full-size ResNet-50 (224x224x3, 1000 classes, bf16 compute,
                fused epilogue) behind ParallelInference (batched, batch limit
                32, 2 workers): 64 single-image requests from 8 client
@@ -127,6 +135,21 @@ Phases (each fails the run with a nonzero exit if it fails):
                bf16 kernel (none on the float32 kernel), no dense attention,
                finite outputs of shape (B, 2) whose rows sum to 1 within
                1e-2.
+9b. encoder-train -- the same encoder trained through
+               ComputationGraph.fit(MultiDataSet) at batch 32 on one seeded
+               batch: bf16 compute over float32 master parameters,
+               Adam(2e-5) (BERT's fine-tuning rate) in one fused_update
+               launch per step, float32 state; 2 warm-ups, 10 timed steps
+               each ended by a synchronize (samples/s, step median, p10,
+               p90, peak memory). Gates: 12 bf16 flash launches per step,
+               each writing the float32 output the backward takes D from,
+               none on the float32 kernel, no dense attention; 1
+               fused_update launch per step; finite losses, the last below
+               the first. Then hidden 256, 2 layers, 4 heads in float32
+               (TF32 off): one fit step from the same weights on the card
+               and the CPU, the loss within 1e-4 relative and every
+               parameter within 1e-4 of its leaf's scale. (Run after phase
+               10, whose model it replaces on the card.)
 10. encoder-parity -- the same encoder in float32 (TF32 off) at batch 2 on
                the card (the float32 kernel, 12 launches) against the same
                weights on the CPU (the plain version): probabilities within
@@ -266,6 +289,40 @@ Phases (each fails the run with a nonzero exit if it fails):
                within its six digits; a fit resumed from the skip-gram zip
                starts below the first fit's first block's loss.
 
+24. zoo-cnn -- the twelve CNNs of the zoo at their published defaults, in
+               full width and depth (SimpleCNN 48x48, AlexNet 227x227,
+               VGG19, SqueezeNet and Darknet19 224x224, UNet 128x128,
+               Xception 299x299, InceptionResNetV1 160x160,
+               FaceNetNN4Small2 and NASNet 96x96, TinyYOLO and YOLO2
+               416x416), each with its own updater, bf16 compute over
+               float32 master parameters and fused_update, on seeded pixels
+               in [0, 1] with one-hot labels, binary masks (UNet) or boxes
+               in the YOLO label format: 2 warm-ups and 5 timed fit(ds)
+               steps at batch 16 (images/s, step median; VGG19 at learning
+               rate 1e-3: at its published 0.01 it reaches NaN within 5
+               steps at this batch, in float32 as in bf16, which is logged
+               first and not gated), then one served
+               output of 16 images with fused_epilogue on. Gates: finite
+               losses, 1 fused_update launch per step, outputs finite and of
+               the JAX model's shape, bn_act launches per served forward
+               equal to the count read off the configuration (BN layers
+               with relu or identity, alone or heading a BN -> add -> relu
+               chain; Darknet19's and the YOLOs' BNs are leakyrelu and stay
+               dense). Then each model at the JAX tests' reduced sizes,
+               TF32 off, deterministic cuDNN, batch 2: the card against the
+               CPU from the same seeded weights, the served output in
+               float32 within 1e-4 of its scale, and from BN statistics set
+               to the batch's own one fit step in float64 (in float32 it is
+               ill-conditioned at these sizes; zoo_cpu_parity says why):
+               loss and BN statistics within 1e-4, every parameter whose
+               step is decided (gradient above 1% of its leaf's largest and
+               1e-5 of the model's, the same sign on the card) within 1e-4
+               of its leaf's scale, at most 1e-5 of the parameters with a
+               significant gradient of the other sign on the card, every
+               parameter finite; and SimpleCNN
+               fused against per-leaf for 3 steps, parameters and Adam's
+               moments within 2 float32 ulp.
+
 Then it prints the kernels line (one JSON object) and, last, the device line
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
 beside it, it exits nonzero and prints no result. Weights are random, made
@@ -396,6 +453,33 @@ def main_path_bn_cases(batch: int):
     return sorted(cases)
 
 
+def bn_launch_cases(conf, batch: int):
+    """{(shape, act, residual): launches} of one served forward of a
+    configuration with fused_epilogue on: every BN layer with relu or
+    identity, the heads of ``BN(identity) -> add -> relu`` chains as one
+    residual relu launch (for ResNet-50, the ``_bn3`` block tails)."""
+    from collections import Counter
+
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+
+    out = Counter()
+    if hasattr(conf, "nodes"):
+        items = [(n, conf.nodes[n].layer, conf.node_output_types[n])
+                 for n in conf.order if conf.nodes[n].kind == "layer"]
+    else:
+        items = list(zip(range(len(conf.layers)), conf.layers,
+                         conf.layer_output_types))
+    for name, layer, t in items:
+        act = (getattr(layer, "activation", None) or "identity").lower()
+        if not isinstance(layer, L.BatchNormalization) \
+                or act not in ("relu", "identity"):
+            continue
+        shape = (batch, t.channels, t.height, t.width)
+        tail = isinstance(name, str) and name.endswith("_bn3")
+        out[(shape, "relu" if tail else act, tail)] += 1
+    return out
+
+
 def _inputs(shape, dtype, residual, dev, gen):
     C = shape[1]
     x = torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -499,6 +583,78 @@ def time_bn_act(shape, dtype, dev, gen, flush):
     return out
 
 
+def time_bn_act_kernel(shape, act, residual, dtype, dev, gen, flush):
+    """The kernel's median cold-L2 time at one launch's shape and its
+    byte bound (x, the residual and the output once; scale and shift)."""
+    from deeplearning4j_tpu_torch.ops import epilogue
+
+    x, res, stats = _inputs(shape, dtype, residual, dev, gen)
+    scale, shift = epilogue.fold(*stats)
+    n = x.numel()
+    nbytes = (3 if residual else 2) * n * x.element_size() + 2 * shape[1] * 4
+    flops = (4 if residual else 3) * n
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    ms = _time_ms(lambda: epilogue.bn_act_cuda(x, scale, shift, res, act),
+                  flush)
+    return {"ms": ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes}
+
+
+#: the zoo models of phase 24 whose served forward launches bn_act, at
+#: their defaults, batch 16
+BN_ZOO_MODELS = ("SimpleCNN", "Xception", "InceptionResNetV1",
+                 "FaceNetNN4Small2", "NASNet")
+
+
+def bn_act_shape_bounds(smi: str, dev, gen, flush):
+    """bn_act at every launch shape of one ResNet-50 serving forward (batch
+    32) and of the served forwards of phase 24 (batch 16), bf16: each
+    compared with its plain version (f32 and bf16) and timed beside its
+    bound; per forward the launch-weighted share of the bound, the sum of
+    the launches' bounds over the sum of their times."""
+    from deeplearning4j_tpu_torch.models import ResNet50, zoo
+
+    forwards = {"ResNet50": bn_launch_cases(
+        ResNet50(num_classes=1000, image_size=224).conf(), BATCH)}
+    for name in BN_ZOO_MODELS:
+        forwards[name] = bn_launch_cases(getattr(zoo, name)().conf(),
+                                         ZOO_BATCH)
+    timed = {}
+    out = {}
+    for fwd, cases in forwards.items():
+        bound = ms = 0.0
+        rows = []
+        for case, count in sorted(cases.items()):
+            shape, act, residual = case
+            if case not in timed:
+                for dtype in (torch.float32, torch.bfloat16):
+                    compare_bn_act(shape, act, residual, dtype, dev, gen)
+                timed[case] = time_bn_act_kernel(shape, act, residual,
+                                                 torch.bfloat16, dev, gen,
+                                                 flush)
+            t = timed[case]
+            bound += count * t["bound_ms"]
+            ms += count * t["ms"]
+            rows.append({"shape": list(shape), "act": act,
+                         "residual": residual, "launches": count,
+                         "ms": t["ms"], "bound_ms": t["bound_ms"],
+                         "share": t["bound_ms"] / t["ms"]})
+        out[fwd] = {"launches": sum(cases.values()), "ms": ms,
+                    "bound_ms": bound, "share": bound / ms, "cases": rows}
+        log(f"[kernels] bn_act bf16 over one {fwd} served forward "
+            f"({out[fwd]['launches']} launches, {len(cases)} shapes): "
+            f"sum of times {ms:.4f} ms, of bounds {bound:.4f} ms, "
+            f"launch-weighted share of the bound {bound / ms:.3f}; {smi}")
+        for r in rows:
+            log(f"[kernels]   {fwd} bn_act {r['shape']} {r['act']} "
+                f"residual={r['residual']} x{r['launches']}: "
+                f"{r['ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+                f"({r['share']:.3f})")
+    return out
+
+
 def phase_kernels(smi: str, dev):
     cases = main_path_bn_cases(BATCH)
     ragged = [((3, 65, 7, 5), a, r) for a in ("relu", "identity")
@@ -529,6 +685,7 @@ def phase_kernels(smi: str, dev):
             f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
             f"{t['bytes']} B at 3.35 TB/s); median of {TIMED_RUNS} "
             f"(CUDA events, cold L2); {smi}")
+    timing["shapes"] = bn_act_shape_bounds(smi, dev, gen, flush)
     return errs, timing
 
 
@@ -4329,6 +4486,637 @@ def phase_serializer(smi: str, dev, sg, ft, sents):
     return out
 
 
+# --- phase 9b -------------------------------------------------------------------
+
+ENC_TRAIN_WARMUP = 2
+ENC_TRAIN_STEPS = 10
+ENC_TRAIN_LR = 2e-5                 # BERT's fine-tuning rate (bench.py bert)
+#: the card-against-CPU fit step's width (phase 10's reduced encoder)
+ENC_TRAIN_PARITY = {"hidden": 256, "layers": 2, "heads": 4, "ff": 1024,
+                    "vocab": 1000}
+
+
+def encoder_train_batch(batch: int, dev, seed: int, vocab=BERT["vocab"]):
+    """A seeded batch of int32 tokens and positions with one-hot labels
+    over 2 classes, as a MultiDataSet on ``dev``."""
+    from deeplearning4j_tpu_torch.data import MultiDataSet
+
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, vocab, (batch, SEQ_LEN)).astype(np.int32)
+    positions = np.tile(np.arange(SEQ_LEN, dtype=np.int32), (batch, 1))
+    labels = np.eye(2, dtype=np.float32)[rng.integers(0, 2, batch)]
+    return MultiDataSet([torch.from_numpy(a).to(dev)
+                         for a in (tokens, positions)],
+                        [torch.from_numpy(labels).to(dev)])
+
+
+def phase_encoder_train(smi: str, dev):
+    """The BERT-base-width encoder of phase 9 trained through
+    ComputationGraph.fit at batch 32: bf16 compute over float32 master
+    parameters, Adam(2e-5) in one fused_update launch per step with float32
+    state; 2 warm-ups, then 10 timed steps on one repeated batch, each
+    ended by a synchronize. Gates: 12 bf16 flash launches per step, each
+    with the float32 output the backward takes D from; no float32-kernel
+    launch and no dense attention; 1 fused_update launch per step; finite
+    losses, the last below the first. Then :func:`encoder_train_parity`."""
+    from deeplearning4j_tpu_torch.common.profiler import OpProfiler
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.ops import attention, update
+
+    torch.cuda.empty_cache()
+    model = ComputationGraph(encoder_conf()).init(seed=SEED, device=dev)
+    check(model.num_params() == BERT_PARAMS, f"encoder has "
+          f"{model.num_params()} parameters, want {BERT_PARAMS}")
+    gc = model.conf.global_conf
+    gc.compute_dtype = "bfloat16"
+    gc.updater = Adam(ENC_TRAIN_LR)
+    gc.fused_update = True
+    ds = encoder_train_batch(ENC_BATCH, dev, SEED + 30)
+    losses = []
+    for _ in range(ENC_TRAIN_WARMUP):
+        model.fit(ds)
+        losses.append(model.score_value)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launch_bf16 = attention._launch_bf16
+    with_f32 = []
+
+    def spy(*args, **kw):
+        with_f32.append(bool(args[7] if len(args) > 7
+                             else kw.get("with_f32", False)))
+        return launch_bf16(*args, **kw)
+
+    prof = OpProfiler.get()
+    prof.reset()
+    _reset_kernel_counts()
+    ms = []
+    attention._launch_bf16 = spy
+    try:
+        for _ in range(ENC_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            model.fit(ds)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(model.score_value)
+    finally:
+        attention._launch_bf16 = launch_bf16
+    counts = _kernel_counts()
+    counters = prof.get_counters()
+    peak = torch.cuda.max_memory_allocated()
+    want = BERT["layers"] * ENC_TRAIN_STEPS
+    check(counts["flash_attention"] == want
+          and counters.get("attention/flash_bf16", 0) == want
+          and counters.get("attention/flash_f32", 0) == 0,
+          f"flash launches {counts['flash_attention']}, routes {counters}: "
+          f"want {want} on the bf16 kernel, none on the float32 one")
+    check(len(with_f32) == want and all(with_f32), f"bf16 flash launches "
+          f"with the float32 output {sum(with_f32)} of {len(with_f32)}")
+    check(counters.get("attention/mha_dense", 0) == 0
+          and counters.get("attention/mha_flash", 0) == want,
+          f"attention routes {counters}")
+    check(counts["fused_update"] == ENC_TRAIN_STEPS
+          and counters.get("precision/fused_fallbacks", 0) == 0,
+          f"fused_update launched {counts['fused_update']} times in "
+          f"{ENC_TRAIN_STEPS} steps (want 1 per step, no fallback)")
+    check(counts["bn_act"] == 0 and counts["embedding_bag"] == 0,
+          f"kernel counts {counts}")
+    check(all(np.isfinite(losses)), f"non-finite encoder loss {losses}")
+    check(losses[-1] < losses[0], f"encoder loss did not fall on the "
+          f"repeated batch: {losses}")
+    result = {"params": BERT_PARAMS, "batch": ENC_BATCH,
+              "samples_per_s": ENC_BATCH * len(ms) / sum(ms) * 1e3,
+              **_ms_stats(ms), "peak_bytes": peak, "losses": losses,
+              "flash_launches": counts["flash_attention"],
+              "fused_update_launches": counts["fused_update"]}
+    log(f"[encoder-train] BERT-base width ({BERT_PARAMS} parameters), "
+        f"ComputationGraph.fit batch {ENC_BATCH}, T {SEQ_LEN}, bf16 compute, "
+        f"float32 master parameters, Adam({ENC_TRAIN_LR}) fused_update, "
+        f"float32 state: {result['samples_per_s']:.2f} samples/s, step ms "
+        f"median {result['step_ms_median']:.2f} p10 "
+        f"{result['step_ms_p10']:.2f} p90 {result['step_ms_p90']:.2f} "
+        f"({ENC_TRAIN_STEPS} steps after {ENC_TRAIN_WARMUP} warm-ups); peak "
+        f"device memory {peak} B; flash launches {counts['flash_attention']}"
+        f" (bf16, float32 output in each), fused_update "
+        f"{counts['fused_update']}; losses {losses[0]:.6f} -> "
+        f"{losses[-1]:.6f}; {smi}")
+    del model, ds
+    torch.cuda.empty_cache()
+    result["parity"] = encoder_train_parity(smi, dev)
+    return result
+
+
+def encoder_train_parity(smi: str, dev):
+    """One fit step of the encoder at ENC_TRAIN_PARITY's width, float32,
+    TF32 off, Adam(2e-5), from the same weights on the card (the float32
+    flash kernel, the fused update) and on the CPU (plain versions): the
+    loss within 1e-4 relative and every parameter within 1e-4 of its own
+    leaf's largest magnitude."""
+    from deeplearning4j_tpu_torch.common.environment import Environment
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    w = ENC_TRAIN_PARITY
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    Environment.get().set_tf32(False)
+    try:
+        nets = []
+        for where in (dev, "cpu"):
+            net = ComputationGraph(encoder_conf(
+                vocab=w["vocab"], hidden=w["hidden"], layers=w["layers"],
+                heads=w["heads"], ff=w["ff"])).init(seed=SEED + 31,
+                                                    device=where)
+            net.conf.global_conf.updater = Adam(ENC_TRAIN_LR)
+            net.conf.global_conf.fused_update = True
+            net.fit(encoder_train_batch(2, where, SEED + 32, w["vocab"]))
+            nets.append(net)
+        card, host = nets
+        loss_err = abs(card.score_value - host.score_value) \
+            / abs(host.score_value)
+        worst = 0.0
+        for n, d in host._params.items():
+            for k, v in d.items():
+                err = (card._params[n][k].detach().cpu() - v.detach()).abs()
+                worst = max(worst, err.max().item()
+                            / max(v.abs().max().item(), 1e-30))
+        check(loss_err <= 1e-4 and worst <= 1e-4, f"encoder fit card vs "
+              f"CPU: loss {loss_err}, parameters {worst} of their scale "
+              f"(want <= 1e-4)")
+        log(f"[encoder-train] parity: hidden {w['hidden']}, {w['layers']} "
+            f"layers, float32, TF32 off, one fit step card vs CPU: loss "
+            f"{card.score_value:.7f} vs {host.score_value:.7f} ({loss_err:.3e}"
+            f" relative), parameters within {worst:.3e} of their scale "
+            f"(<= 1e-4); {smi}")
+        return {"loss_rel_err": loss_err, "param_err": worst}
+    finally:
+        Environment.get().set_tf32(tf32)
+
+
+# --- phase 24 --------------------------------------------------------------------
+
+ZOO_BATCH = 16
+ZOO_WARMUP = 2
+ZOO_STEPS = 5
+ZOO_PARITY_BATCH = 2
+#: the twelve CNNs of phase 24 in the zoo's order, each with the output
+#: shape the JAX model gives at its defaults (its configuration's last
+#: output type; batch first)
+ZOO_MODELS = (
+    ("SimpleCNN", (10,)), ("AlexNet", (1000,)), ("VGG19", (1000,)),
+    ("SqueezeNet", (1000,)), ("Darknet19", (1000,)), ("UNet", (1, 128, 128)),
+    ("Xception", (1000,)), ("InceptionResNetV1", (128,)),
+    ("FaceNetNN4Small2", (100,)), ("NASNet", (1000,)),
+    ("TinyYOLO", (125, 14, 14)), ("YOLO2", (425, 13, 13)))
+#: the reduced sizes the JAX package's tests build (tests/test_graph.py);
+#: AlexNet and VGG19 take no size and run at their defaults
+ZOO_REDUCED = {
+    "SimpleCNN": {}, "AlexNet": {}, "VGG19": {},
+    "SqueezeNet": {"num_classes": 10},
+    "Darknet19": {"num_classes": 10, "image_size": 64},
+    "UNet": {"n_channels": 1, "n_classes": 1, "image_size": 32, "base": 8},
+    "Xception": {"num_classes": 10, "image_size": 96},
+    "InceptionResNetV1": {"num_classes": 16, "image_size": 96},
+    "FaceNetNN4Small2": {"num_classes": 5, "image_size": 64},
+    "NASNet": {"num_classes": 7, "image_size": 32, "cells_per_stack": 1},
+    "TinyYOLO": {"num_classes": 4, "image_size": 64},
+    "YOLO2": {"num_classes": 4, "image_size": 64}}
+ZOO_SIMPLECNN_STEPS = 3
+#: zoo models whose published learning rate diverges on this phase's batch,
+#: with the rate of their gated run: zoo VGG19's Nesterovs(0.01, 0.9) (no
+#: BN, 19 layers) reaches NaN within 5 steps at batch 16 on pixels in
+#: [0, 1], in float32 as in bf16, and not at 1e-3 (the as-is runs are
+#: logged first, ungated)
+ZOO_DIVERGES = {"VGG19": 1e-3}
+ZOO_AS_IS_STEPS = 5
+
+
+def _zoo_layers(conf):
+    if hasattr(conf, "nodes"):
+        return [conf.nodes[n].layer for n in conf.order
+                if conf.nodes[n].kind == "layer"]
+    return list(conf.layers)
+
+
+def zoo_io(conf):
+    """(input type, output type) of a zoo configuration."""
+    if hasattr(conf, "nodes"):
+        return (conf.input_types[conf.network_inputs[0]],
+                conf.node_output_types[conf.network_outputs[0]])
+    return conf.input_type, conf.layer_output_types[-1]
+
+
+def yolo_labels(rng, batch: int, classes: int, grid: int,
+                objects: int = 2) -> np.ndarray:
+    """YOLOv2 labels in the reference format ``[batch, 4 + classes, grid,
+    grid]``: per image ``objects`` distinct cells, each holding the corners
+    (x1, y1, x2, y2, grid units) of a box centred in it with sides in
+    [0.5, 3] and a one-hot class."""
+    lab = np.zeros((batch, 4 + classes, grid, grid), np.float32)
+    for b in range(batch):
+        for cell in rng.choice(grid * grid, size=objects, replace=False):
+            gy, gx = divmod(int(cell), grid)
+            cx, cy = gx + rng.uniform(0.1, 0.9), gy + rng.uniform(0.1, 0.9)
+            w, h = rng.uniform(0.5, 3.0, 2)
+            lab[b, :4, gy, gx] = (cx - w / 2, cy - h / 2, cx + w / 2,
+                                  cy + h / 2)
+            lab[b, 4 + rng.integers(0, classes), gy, gx] = 1.0
+    return lab
+
+
+def zoo_batch(conf, batch: int, seed: int):
+    """Seeded pixels in [0, 1] and labels in the model's format: one-hot
+    classes, binary masks (UNet's sigmoid head) or YOLO boxes (numpy)."""
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+
+    rng = np.random.default_rng(seed)
+    it, ot = zoo_io(conf)
+    x = rng.random((batch, it.channels, it.height, it.width),
+                   dtype=np.float32)
+    head = _zoo_layers(conf)[-1]
+    if isinstance(head, L.Yolo2OutputLayer):
+        classes = ot.channels // len(head.anchors) - 5
+        y = yolo_labels(rng, batch, classes, ot.height)
+    elif hasattr(ot, "channels"):
+        y = (rng.random((batch, ot.channels, ot.height, ot.width))
+             < 0.5).astype(np.float32)
+    else:
+        y = np.eye(ot.size, dtype=np.float32)[rng.integers(0, ot.size,
+                                                           batch)]
+    return x, y
+
+
+def expected_bn_launches(conf):
+    """bn_act launches one served forward makes, read off the
+    configuration: every BatchNormalization with relu or identity (the
+    gate takes any channel count) launches once, alone or as the head of
+    a ``BN(identity) -> add -> relu`` chain, whose one launch also does
+    the add and the relu; the gate refuses (and counts) every other BN
+    (leakyrelu), which runs dense. Returns (alone, chains, refused)."""
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+
+    fusable = lambda layer: (isinstance(layer, L.BatchNormalization)  # noqa: E731
+                             and (layer.activation or "identity").lower()
+                             in ("relu", "identity"))
+    refused = sum(1 for layer in _zoo_layers(conf)
+                  if isinstance(layer, L.BatchNormalization)
+                  and not fusable(layer))
+    if not hasattr(conf, "nodes"):
+        return sum(1 for layer in conf.layers if fusable(layer)), 0, refused
+    consumers = {}
+    for name in conf.order:
+        for i in conf.nodes[name].inputs:
+            consumers.setdefault(i, []).append(name)
+    outputs = set(conf.network_outputs)
+    chains = 0
+    for name in conf.order:
+        node = conf.nodes[name]
+        layer = node.layer
+        if not (fusable(layer) and layer.activation.lower() == "identity"
+                and name not in outputs
+                and len(consumers.get(name, ())) == 1):
+            continue
+        add = conf.nodes[consumers[name][0]]
+        if (add.kind != "vertex" or type(add.vertex).__name__
+                != "ElementWiseVertex" or add.vertex.op.lower() != "add"
+                or len(add.inputs) != 2 or add.inputs[0] == add.inputs[1]
+                or add.name in outputs
+                or len(consumers.get(add.name, ())) != 1):
+            continue
+        act = conf.nodes[consumers[add.name][0]].layer
+        if isinstance(act, L.ActivationLayer) \
+                and (act.activation or "").lower() == "relu":
+            chains += 1
+    total = sum(1 for layer in _zoo_layers(conf) if fusable(layer))
+    return total - chains, chains, refused
+
+
+def set_fused_epilogue(net, on: bool) -> None:
+    """The global knob plus the cascade onto every BN layer, for either
+    network."""
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+
+    net.conf.global_conf.fused_epilogue = on
+    for layer in _zoo_layers(net.conf):
+        if isinstance(layer, L.BatchNormalization):
+            layer.fused_epilogue = on
+
+
+def _no_dropout(net) -> None:
+    for layer in _zoo_layers(net.conf):
+        if hasattr(layer, "rate"):
+            layer.rate = 0.0
+        layer.dropout = 0.0
+
+
+def zoo_as_is(name, smi, dev):
+    """ZOO_AS_IS_STEPS fit steps of a ZOO_DIVERGES model at its published
+    learning rate, float32 and bf16, at phase 24's batch: the losses,
+    logged and not gated."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.models import zoo
+
+    out = {}
+    for cd in (None, "bfloat16"):
+        net = getattr(zoo, name)().init(device=dev)
+        net.conf.global_conf.compute_dtype = cd
+        net.conf.global_conf.fused_update = True
+        x, y = zoo_batch(net.conf, ZOO_BATCH, SEED + 40)
+        ds = DataSet(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+        losses = []
+        for _ in range(ZOO_AS_IS_STEPS):
+            net.fit(ds)
+            losses.append(net.score_value)
+        out[cd or "float32"] = losses
+        log(f"[zoo-cnn] {name} as published (learning rate "
+            f"{net.conf.global_conf.updater.learning_rate}), batch "
+            f"{ZOO_BATCH}, {cd or 'float32'}: losses {losses} (not gated); "
+            f"{smi}")
+        del net, ds
+        torch.cuda.empty_cache()
+    return out
+
+
+def zoo_fit_and_serve(name, want_out, smi, dev, batch=ZOO_BATCH, lr=None,
+                      **kw):
+    """One zoo model at its published defaults (``kw`` overrides them for
+    a rehearsal on the CPU): bf16 compute over float32 master parameters,
+    its own updater through fused_update; 2 warm-up and 5 timed fit(ds)
+    steps at batch 16, then one served output of 16 images with
+    fused_epilogue on. ``lr`` replaces the updater's learning rate."""
+    from deeplearning4j_tpu_torch.common.profiler import OpProfiler
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.models import zoo
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    net = getattr(zoo, name)(**kw).init(device=dev)
+    conf = net.conf
+    gc = conf.global_conf
+    gc.compute_dtype = "bfloat16"
+    gc.fused_update = True
+    if lr is not None:
+        gc.updater.learning_rate = lr
+    x, y = zoo_batch(conf, batch, SEED + 40)
+    ds = DataSet(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+    losses = []
+    for _ in range(ZOO_WARMUP):
+        net.fit(ds)
+        losses.append(net.score_value)
+    torch.cuda.synchronize()
+    prof = OpProfiler.get()
+    prof.reset()
+    _reset_kernel_counts()
+    ms = []
+    for _ in range(ZOO_STEPS):
+        t0 = time.perf_counter()
+        net.fit(ds)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(net.score_value)
+    counts = _kernel_counts()
+    fallbacks = prof.counter_value("precision/fused_fallbacks")
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)), f"{name}: non-finite loss {losses}")
+    check(counts["fused_update"] == ZOO_STEPS and not fallbacks,
+          f"{name}: fused_update launched {counts['fused_update']} times in "
+          f"{ZOO_STEPS} steps, fallbacks {fallbacks} (want 1 per step)")
+    alone, chains, want_refused = expected_bn_launches(conf)
+    set_fused_epilogue(net, True)
+    prof.reset()
+    _reset_kernel_counts()
+    out = net.output(ds.features)
+    out = (out[0] if isinstance(out, list) else out).float()
+    torch.cuda.synchronize()
+    counts = _kernel_counts()
+    refused = prof.counter_value("precision/epilogue_fallbacks")
+    check(tuple(out.shape) == (batch,) + want_out,
+          f"{name}: output shape {tuple(out.shape)}, want "
+          f"{(batch,) + want_out}")
+    check(bool(torch.isfinite(out).all()), f"{name}: output not finite")
+    check(counts["bn_act"] == alone + chains and refused == want_refused,
+          f"{name}: bn_act launches {counts['bn_act']} per served forward, "
+          f"gate refusals {refused}; want {alone + chains} launches ("
+          f"{alone} alone + {chains} chains) and {want_refused} refusals, "
+          f"read off the configuration")
+    it, _ = zoo_io(conf)
+    upd = f"{type(gc.updater).__name__}({gc.updater.learning_rate})"
+    result = {"params": net.num_params(), "input": [it.channels, it.height,
+                                                     it.width],
+              "updater": upd, "images_per_s":
+              batch * len(ms) / sum(ms) * 1e3, **_ms_stats(ms),
+              "peak_bytes": peak, "losses": losses,
+              "fused_update_launches": ZOO_STEPS,
+              "bn_act_launches": counts["bn_act"],
+              "bn_act_expected": [alone, chains],
+              "bn_act_refused": refused}
+    log(f"[zoo-cnn] {name} ({result['params']} parameters, input "
+        f"{it.channels}x{it.height}x{it.width}, {upd}), batch {batch}, "
+        f"bf16 compute, fused_update: {result['images_per_s']:.2f} "
+        f"images/s, step ms median {result['step_ms_median']:.2f} p10 "
+        f"{result['step_ms_p10']:.2f} p90 {result['step_ms_p90']:.2f} "
+        f"({ZOO_STEPS} steps after {ZOO_WARMUP} warm-ups); peak {peak} B; "
+        f"losses {losses[0]:.5f} -> {losses[-1]:.5f}; served output "
+        f"{tuple(out.shape)}, bn_act launches {counts['bn_act']} = "
+        f"{alone} alone + {chains} chains from the configuration, "
+        f"{refused} leakyrelu BNs refused by the gate (want "
+        f"{want_refused}); {smi}")
+    del net, ds, out
+    torch.cuda.empty_cache()
+    return result
+
+
+#: an element's step is decided (its gradient's sign far above the
+#: disagreement) where its gradient is above these shares of its leaf's
+#: largest and of the model's largest gradient
+ZOO_DECIDED = (1e-2, 1e-5)
+
+
+def _step_grads(net, ds):
+    """One fit step of ``net`` on ``ds``, returning the gradients its
+    per-leaf updater was handed (on the CPU)."""
+    from deeplearning4j_tpu_torch.nn import _train
+
+    got = []
+    real = _train.apply_updater
+
+    def spy(updater, grads, *args, **kw):
+        got.append({n: {k: v.detach().cpu() for k, v in d.items()}
+                    for n, d in grads.items()})
+        return real(updater, grads, *args, **kw)
+
+    _train.apply_updater = spy
+    try:
+        net.fit(ds)
+    finally:
+        _train.apply_updater = real
+    check(len(got) == 1, f"a fit step made {len(got)} per-leaf updates")
+    return got[0]
+
+
+def zoo_cpu_parity(name, dev):
+    """The model at the JAX tests' reduced size, TF32 off, deterministic
+    cuDNN, dropout off, the same seeded weights on the card and on the
+    CPU, batch 2. The served output in float32 within 1e-4 of its scale.
+    Then one fit step in float64 (the float32 draws widened; BN's
+    statistics stay float32, as in the JAX package), from BN running
+    statistics set to the batch's own: the loss and the BN running
+    statistics within 1e-4 (relative, of their scale), and each parameter
+    within 1e-4 of its leaf's largest magnitude wherever the CPU's
+    gradient is significant (above 1% of the leaf's largest and 1e-5 of
+    the model's largest, ZOO_DECIDED) and the card's has its sign, every
+    parameter finite, and significant gradients of the other sign on the
+    card for at most 1e-5 of the parameters. Where a gradient is zero in exact
+    arithmetic (a bias or a beta whose shift the next training-mode
+    BatchNormalization subtracts: whole leaves of NASNet's and
+    InceptionResNetV1's) only the rounding of BN's float32 reductions is
+    left, and Adam's first step lr * g / (|g| + eps) makes of it a step of
+    up to lr either way. A pre-activation within rounding of a relu kink
+    moves a weight's gradient by a whole term, and can turn its sign: in
+    float32 the step
+    is ill-conditioned at these sizes: the deep BN stacks end in sums over
+    a few positions (batch 2 at 2x2 or 3x3), where a pre-activation within
+    rounding of a relu or leakyrelu kink moves a weight's gradient by a
+    whole term (nudging the input by one float32 ulp moves the CPU's own
+    gradients by up to 2.7% of their norm, FaceNetNN4Small2)."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.util.calibrate import calibrate_batchnorm
+
+    def twins(dtype):
+        nets = []
+        for where in (dev, "cpu"):
+            conf = getattr(zoo, name)(**ZOO_REDUCED[name]).conf()
+            conf.global_conf.dtype = dtype
+            nets.append(zoo.network(conf).init(device=where))
+        for net in nets:
+            _no_dropout(net)
+        return nets
+
+    card, host = twins("float32")
+    x, y = zoo_batch(card.conf, ZOO_PARITY_BATCH, SEED + 41)
+    outs = []
+    for net in (card, host):
+        o = net.output(x)
+        outs.append((o[0] if isinstance(o, list) else o).detach().cpu())
+    scale = max(1.0, outs[1].abs().max().item())
+    out_err = (outs[0] - outs[1]).abs().max().item() / scale
+    check(out_err <= 1e-4, f"{name} card vs CPU output: {out_err} of its "
+          f"scale (want <= 1e-4)")
+    card, host = twins("float64")
+    x64, y64 = x.astype(np.float64), y.astype(np.float64)
+    calibrate_batchnorm(host, x64)
+    card._states = {n: {k: v.to(dev) for k, v in d.items()}
+                    for n, d in host._states.items()}
+    card_grads = _step_grads(card, DataSet(card._to_device(x64),
+                                           card._to_device(y64)))
+    grads = _step_grads(host, DataSet(x64, y64))
+    loss_err = abs(card.score_value - host.score_value) \
+        / abs(host.score_value)
+    st_err = 0.0
+    for n, d in host._states.items():
+        for k, v in d.items():
+            e = (card._states[n][k].cpu() - v).abs().max().item()
+            st_err = max(st_err, e / max(v.abs().max().item(), 1e-2))
+    p_err = 0.0
+    flips = undecided = total = 0
+    top = max(g.abs().max().item() for d in grads.values()
+              for g in d.values())
+    for n, d in host._params.items():
+        for k, v in d.items():
+            v = v.detach()
+            d_ = (card._params[n][k].detach().cpu() - v).abs()
+            g = grads[n][k].abs()
+            significant = (g > ZOO_DECIDED[0] * g.max()) \
+                & (g > ZOO_DECIDED[1] * top)
+            agree = torch.sign(grads[n][k]) == torch.sign(card_grads[n][k])
+            decided = significant & agree
+            flips += int((significant & ~agree).sum())
+            total += v.numel()
+            if bool(decided.any()):
+                p_err = max(p_err, d_[decided].max().item()
+                            / max(v.abs().max().item(), 1e-30))
+            undecided += int((~decided).sum())
+    finite = all(bool(torch.isfinite(t).all())
+                 for d in card._params.values() for t in d.values())
+    check(loss_err <= 1e-4 and st_err <= 1e-4 and p_err <= 1e-4 and finite
+          and flips <= max(1, 1e-5 * total),
+          f"{name} float64 fit step card vs CPU: loss {loss_err}, BN "
+          f"statistics {st_err}, decided parameters {p_err} of their scale "
+          f"(want <= 1e-4), finite {finite}; {flips} significant gradients "
+          f"of {total} parameters change sign (want <= 1e-5 of them)")
+    return {"output": out_err, "loss": loss_err, "bn_stats": st_err,
+            "params": p_err, "undecided": undecided, "sign_flips": flips}
+
+
+def simplecnn_fused_parity(dev):
+    """SimpleCNN, 3 steps through the fused kernel against 3 through the
+    per-leaf path, float32, TF32 off, deterministic cuDNN, from the same
+    seed (the same dropout masks from the same generators): parameters
+    and Adam's moments within 2 float32 ulp, phase 7's contract."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.models import SimpleCNN
+
+    x, y = zoo_batch(SimpleCNN().conf(), ZOO_BATCH, SEED + 42)
+    nets = []
+    for fused in (True, False):
+        net = SimpleCNN().init(device=dev)
+        net.conf.global_conf.fused_update = fused
+        ds = DataSet(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+        for _ in range(ZOO_SIMPLECNN_STEPS):
+            net.fit(ds)
+        torch.cuda.synchronize()
+        nets.append(net)
+    a, b = nets
+    wp, bp = _ulp_worst(a._params, b._params)
+    wm, bm = _ulp_worst(a._updater_state["m"], b._updater_state["m"])
+    wv, bv = _ulp_worst(a._updater_state["v"], b._updater_state["v"])
+    check(wp <= 2 and wm <= 2 and wv <= 2, f"SimpleCNN fused vs per-leaf "
+          f"after {ZOO_SIMPLECNN_STEPS} steps: params {wp}, m {wm}, v {wv} "
+          f"f32 ulp (want <= 2)")
+    return {"params_ulp": wp, "m_ulp": wm, "v_ulp": wv,
+            "bitwise": bool(bp and bm and bv)}
+
+
+def phase_zoo_cnn(smi: str, dev):
+    """Phase 24: the twelve zoo CNNs (see the module docstring)."""
+    from deeplearning4j_tpu_torch.common.environment import Environment
+
+    result = {}
+    for name, want_out in ZOO_MODELS:
+        as_is = zoo_as_is(name, smi, dev) if name in ZOO_DIVERGES else None
+        result[name] = zoo_fit_and_serve(name, want_out, smi, dev,
+                                         lr=ZOO_DIVERGES.get(name))
+        if as_is is not None:
+            result[name]["as_published"] = as_is
+    det = torch.backends.cudnn.deterministic
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.deterministic = True
+    Environment.get().set_tf32(False)
+    try:
+        for name, _ in ZOO_MODELS:
+            p = zoo_cpu_parity(name, dev)
+            result[name]["cpu_parity"] = p
+            log(f"[zoo-cnn] {name} {ZOO_REDUCED[name] or 'defaults'}, "
+                f"TF32 off, deterministic cuDNN, batch {ZOO_PARITY_BATCH}, "
+                f"card vs CPU: float32 output {p['output']:.3e} of its "
+                f"scale (<= 1e-4); one float64 fit step: loss "
+                f"{p['loss']:.3e} (<= 1e-4), BN statistics "
+                f"{p['bn_stats']:.3e} (<= 1e-4), parameters {p['params']:.3e}"
+                f" of their scale where the step is decided (<= 1e-4; "
+                f"{p['undecided']} parameters undecided), "
+                f"{p['sign_flips']} significant gradients changed sign")
+        sp = simplecnn_fused_parity(dev)
+        log(f"[zoo-cnn] SimpleCNN {ZOO_SIMPLECNN_STEPS} steps, float32, TF32 "
+            f"off, deterministic cuDNN: fused kernel vs per-leaf: params "
+            f"within {sp['params_ulp']:.2f} ulp, Adam m {sp['m_ulp']:.2f}, v "
+            f"{sp['v_ulp']:.2f} (bitwise {sp['bitwise']}); bound 2 ulp")
+        result["simplecnn_fused_parity"] = sp
+    finally:
+        torch.backends.cudnn.deterministic = det
+        Environment.get().set_tf32(tf32)
+    return result
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
@@ -4370,6 +5158,7 @@ def main(argv=None) -> int:
         enc["parity_max_abs_err"], f32_launches, enc["bf16_parity"] = \
             phase_encoder_parity(enc_model, smi, dev)
         del enc_model
+        enc_train = phase_encoder_train(smi, dev)
         lenet = phase_lenet(smi, dev)
         vgg = phase_vgg16(smi, dev)
         masked = phase_masked(smi, dev)
@@ -4389,6 +5178,8 @@ def main(argv=None) -> int:
         deepwalk = phase_deepwalk(smi, dev)
         ser = phase_serializer(smi, dev, host_sg, ft_model, sents)
         del sents, host_sg, ft_model
+        torch.cuda.empty_cache()
+        zoo_cnn = phase_zoo_cnn(smi, dev)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -4406,7 +5197,13 @@ def main(argv=None) -> int:
         "f32": {k: f32[k] for k in ("ms", "plain_ms", "unfused_ms",
                                     "bound_ms")},
         "batches": batches,
-        "launches_samediff_bert": bert["launches"]["bn_act"]})
+        "launches_samediff_bert": bert["launches"]["bn_act"],
+        "launches_zoo_cnn": {n: r["bn_act_launches"]
+                             for n, r in zoo_cnn.items()
+                             if "bn_act_launches" in r},
+        "forwards": {n: {k: f[k] for k in ("launches", "ms", "bound_ms",
+                                           "share")}
+                     for n, f in timing["shapes"].items()}})
     nb, ad = upd_timing["nesterovs_bf16"], upd_timing["adam_f32"]
     kernels.append({
         "name": "fused_update", "route": "cuda", "source": update.SOURCE,
@@ -4430,7 +5227,11 @@ def main(argv=None) -> int:
         "mln": {"lenet": dict(mln_upd["lenet"],
                               launches=lenet["fused"]["launches"]),
                 "vgg16": dict(mln_upd["vgg16"], launches=vgg["launches"])},
-        "launches_samediff_bert": bert["launches"]["fused_update"]})
+        "launches_samediff_bert": bert["launches"]["fused_update"],
+        "launches_encoder_train": enc_train["fused_update_launches"],
+        "launches_zoo_cnn": {n: r["fused_update_launches"]
+                             for n, r in zoo_cnn.items()
+                             if "fused_update_launches" in r}})
     bp = bag_timing["path"]
     kernels.append({
         "name": "embedding_bag", "route": "cuda",
@@ -4493,6 +5294,7 @@ def main(argv=None) -> int:
         "bound_by": bp["bound_by"], "library_ms": bp["library_ms"],
         "unfused_ms": bp["unfused_ms"], "host_us": fa16["host_us"],
         "masked_launches": masked["launches"],
+        "launches_encoder_train": enc_train["flash_launches"],
         "launches_samediff_bert": bert["launches"]["flash_attention"],
         **{name: {k: fa16[name][k] for k in keys}
            for name in ("path_contiguous", "long_strided",
@@ -4518,7 +5320,9 @@ def main(argv=None) -> int:
                       "train_parity": tparity,
                       "resnet50_pipeline": pipe, "core": core,
 
-                      "word2vec_cbow": w2v, "encoder": enc, "lenet": lenet,
+                      "word2vec_cbow": w2v, "encoder": enc,
+                      "encoder_train": enc_train, "zoo_cnn": zoo_cnn,
+                      "bn_act_forwards": timing["shapes"], "lenet": lenet,
                       "vgg16": vgg, "masked": masked, "skipgram": sg,
                       "word2vec_hs": hs, "cbow_bf16": cbow16,
                       "paragraph_vectors": pv,

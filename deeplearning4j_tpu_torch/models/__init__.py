@@ -1,1 +1,3 @@
-from .zoo import LeNet, ResNet50, VGG16, ZooModel
+from .zoo import (AlexNet, Darknet19, FaceNetNN4Small2, InceptionResNetV1,
+                  LeNet, NASNet, ResNet50, SimpleCNN, SqueezeNet, TinyYOLO,
+                  UNet, VGG16, VGG19, Xception, YOLO2, ZooModel)

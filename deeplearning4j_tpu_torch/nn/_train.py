@@ -120,10 +120,10 @@ class TrainableNetwork:
             params[n][k] = t
         with torch.enable_grad():
             loss = loss_fn(params)
-            flat = torch.autograd.grad(loss, leaves)
+            flat = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = {n: {} for n in self._params}
-        for (n, k), g in zip(paths, flat):
-            grads[n][k] = g
+        for (n, k), t, g in zip(paths, leaves, flat):
+            grads[n][k] = torch.zeros_like(t) if g is None else g
         self._score = loss.detach()
         return grads, float(self._score)
 
@@ -277,10 +277,13 @@ class TrainableNetwork:
             if store is not None:
                 loss.backward()             # into the store's gradient buckets
             else:
-                flat_grads = torch.autograd.grad(loss, leaves)
+                # a parameter outside the loss (a graph's center-loss
+                # centers) takes a zero gradient, as under jax.grad
+                flat_grads = torch.autograd.grad(loss, leaves,
+                                                 allow_unused=True)
                 grads = {n: {} for n in params}
-                for (n, k), g in zip(paths, flat_grads):
-                    grads[n][k] = g
+                for (n, k), t, g in zip(paths, leaves, flat_grads):
+                    grads[n][k] = torch.zeros_like(t) if g is None else g
         if gc.grad_normalization:
             # after the backward, before the update (the JAX networks'
             # order); on the fused path in place on the gradient bucket's

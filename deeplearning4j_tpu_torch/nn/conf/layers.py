@@ -28,8 +28,19 @@ attention keys.
 
 ``constraints`` (``layers_ext.MaxNormConstraint`` and kin) are projections
 that ``MultiLayerNetwork`` applies to the weights after each update.
-``weight_noise`` and ``convolution_mode="same"`` exist for configuration
-parity with the JAX package and are refused where they would act.
+``weight_noise`` exists for configuration parity with the JAX package and
+is refused where it would act.
+
+The convolution family takes ``convolution_mode="same"`` (TF's SAME
+padding, output ``ceil(in / stride)``; ``ops/nn.same_pads``) or
+``"truncate"`` with explicit padding: ``ConvolutionLayer``,
+``Deconvolution2D`` (W ``[I, O, kH, kW]``), ``DepthwiseConvolution2D`` (W
+``[mult, C, kH, kW]``), ``SeparableConvolution2D`` (``dW`` depthwise,
+``pW`` ``[O, C * mult, 1, 1]`` pointwise) and ``SubsamplingLayer`` (max,
+average, p-norm). The loss heads (``OutputLayer``, ``LossLayer`` and, in
+``layers_ext``, ``CenterLossOutputLayer`` and ``Yolo2OutputLayer``) carry
+``compute_score(params, x, labels, mask, average)``, the score of the
+head's input ``x``.
 """
 
 from __future__ import annotations
@@ -51,12 +62,14 @@ def _pair(v):
     return (v, v) if isinstance(v, int) else tuple(v)
 
 
-def _truncate_only(layer) -> None:
-    if str(layer.convolution_mode).lower() != "truncate":
-        raise NotImplementedError(
-            f"{type(layer).__name__}: convolution_mode "
-            f"{layer.convolution_mode!r} is not ported yet (only "
-            f"'truncate', with explicit padding)")
+def _same(layer) -> bool:
+    """Whether the layer's ``convolution_mode`` is SAME (else truncate)."""
+    mode = str(layer.convolution_mode).lower()
+    if mode not in ("same", "truncate"):
+        raise ValueError(f"{type(layer).__name__}: convolution_mode "
+                         f"{layer.convolution_mode!r} is 'truncate' or "
+                         f"'same'")
+    return mode == "same"
 
 
 @dataclass
@@ -140,25 +153,30 @@ class DenseLayer(Layer):
 
 @dataclass
 class ConvolutionLayer(Layer):
-    """2D convolution with explicit padding. W=[out,in,kH,kW]."""
+    """2D convolution, SAME or with explicit padding. W=[out,in,kH,kW]."""
 
     n_out: int = 0
     kernel_size: Tuple[int, int] = (3, 3)
     stride: Tuple[int, int] = (1, 1)
     padding: Tuple[int, int] = (0, 0)
     dilation: Tuple[int, int] = (1, 1)
-    convolution_mode: str = "truncate"   # "same" is not ported
+    convolution_mode: str = "truncate"   # truncate | same
     has_bias: bool = True
+
+    def _padding(self):
+        return "SAME" if _same(self) else self.padding
 
     def set_input_type(self, input_type):
         if not isinstance(input_type, CNNInput):
-            raise ValueError(f"ConvolutionLayer needs CNN input, got "
+            raise ValueError(f"{type(self).__name__} needs CNN input, got "
                              f"{input_type}")
-        _truncate_only(self)
         self.n_in = input_type.channels
         kh, kw = _pair(self.kernel_size)
         sh, sw = _pair(self.stride)
         dh, dw = _pair(self.dilation)
+        if _same(self):
+            return CNNInput(self.n_out, -(-input_type.height // sh),
+                            -(-input_type.width // sw))
         ph, pw = _pair(self.padding)
         oh = (input_type.height + 2 * ph - ((kh - 1) * dh + 1)) // sh + 1
         ow = (input_type.width + 2 * pw - ((kw - 1) * dw + 1)) // sw + 1
@@ -176,40 +194,142 @@ class ConvolutionLayer(Layer):
     def apply(self, params, x, state, training=False, *, generator=None):
         x = self._maybe_dropout(x, training, generator)
         out = ops.conv2d(x, params["W"], params.get("b"),
-                         strides=self.stride, padding=self.padding,
+                         strides=self.stride, padding=self._padding(),
                          dilation=self.dilation)
         return activation_fn(self.activation or "identity")(out), state
 
 
 @dataclass
+class Deconvolution2D(ConvolutionLayer):
+    """Transposed convolution, W=[in,out,kH,kW]; under SAME the output is
+    input x stride (``ops/nn.deconv2d``)."""
+
+    def set_input_type(self, input_type):
+        if not isinstance(input_type, CNNInput):
+            raise ValueError("Deconvolution2D needs CNN input")
+        self.n_in = input_type.channels
+        kh, kw = _pair(self.kernel_size)
+        sh, sw = _pair(self.stride)
+        if _same(self):
+            return CNNInput(self.n_out, input_type.height * sh,
+                            input_type.width * sw)
+        ph, pw = _pair(self.padding)
+        return CNNInput(self.n_out, sh * (input_type.height - 1) + kh - 2 * ph,
+                        sw * (input_type.width - 1) + kw - 2 * pw)
+
+    def init_params(self, gen, dtype=torch.float32, device=None):
+        kh, kw = _pair(self.kernel_size)
+        p = {"W": init_weights(gen, (self.n_in, self.n_out, kh, kw),
+                               self.weight_init or "xavier", dtype,
+                               device=device)}
+        if self.has_bias:
+            p["b"] = torch.zeros((self.n_out,), dtype=dtype, device=device)
+        return p
+
+    def apply(self, params, x, state, training=False, *, generator=None):
+        x = self._maybe_dropout(x, training, generator)
+        out = ops.deconv2d(x, params["W"], params.get("b"),
+                           strides=self.stride, padding=self._padding())
+        return activation_fn(self.activation or "identity")(out), state
+
+
+@dataclass
+class DepthwiseConvolution2D(ConvolutionLayer):
+    """Depthwise convolution, W=[mult,C,kH,kW]: C * mult output channels,
+    channel ``c * mult + m`` from input channel c (``ops/nn.
+    depthwise_conv2d``)."""
+
+    depth_multiplier: int = 1
+
+    def set_input_type(self, input_type):
+        out_type = ConvolutionLayer.set_input_type(self, input_type)
+        return CNNInput(self.n_in * self.depth_multiplier, out_type.height,
+                        out_type.width)
+
+    def init_params(self, gen, dtype=torch.float32, device=None):
+        kh, kw = _pair(self.kernel_size)
+        p = {"W": init_weights(gen, (self.depth_multiplier, self.n_in, kh, kw),
+                               self.weight_init or "xavier", dtype,
+                               device=device)}
+        if self.has_bias:
+            p["b"] = torch.zeros((self.n_in * self.depth_multiplier,),
+                                 dtype=dtype, device=device)
+        return p
+
+    def apply(self, params, x, state, training=False, *, generator=None):
+        x = self._maybe_dropout(x, training, generator)
+        out = ops.depthwise_conv2d(x, params["W"], params.get("b"),
+                                   strides=self.stride,
+                                   padding=self._padding(),
+                                   dilation=self.dilation)
+        return activation_fn(self.activation or "identity")(out), state
+
+
+@dataclass
+class SeparableConvolution2D(ConvolutionLayer):
+    """Depthwise (``dW`` [mult,C,kH,kW]) then pointwise (``pW``
+    [out,C*mult,1,1]) convolution, then the bias (``ops/nn.sconv2d``; the
+    dilation is not applied, as in the JAX layer)."""
+
+    depth_multiplier: int = 1
+
+    def init_params(self, gen, dtype=torch.float32, device=None):
+        kh, kw = _pair(self.kernel_size)
+        wi = self.weight_init or "xavier"
+        mult = self.depth_multiplier
+        p = {"dW": init_weights(gen, (mult, self.n_in, kh, kw), wi, dtype,
+                                device=device),
+             "pW": init_weights(gen, (self.n_out, self.n_in * mult, 1, 1),
+                                wi, dtype, device=device)}
+        if self.has_bias:
+            p["b"] = torch.zeros((self.n_out,), dtype=dtype, device=device)
+        return p
+
+    def apply(self, params, x, state, training=False, *, generator=None):
+        x = self._maybe_dropout(x, training, generator)
+        out = ops.sconv2d(x, params["dW"], params["pW"], params.get("b"),
+                          strides=self.stride, padding=self._padding())
+        return activation_fn(self.activation or "identity")(out), state
+
+
+@dataclass
 class SubsamplingLayer(Layer):
-    """Max pooling with explicit padding (avg/pnorm arrive with the models
-    that use them)."""
+    """Max, average or p-norm pooling, SAME or with explicit padding
+    (``ops/nn.maxpool2d``, ``avgpool2d``, ``pnormpool2d``)."""
 
     pooling_type: str = "max"
     kernel_size: Tuple[int, int] = (2, 2)
     stride: Tuple[int, int] = (2, 2)
     padding: Tuple[int, int] = (0, 0)
-    convolution_mode: str = "truncate"   # "same" is not ported
+    convolution_mode: str = "truncate"   # truncate | same
     pnorm: int = 2
 
     def set_input_type(self, input_type):
         if not isinstance(input_type, CNNInput):
             raise ValueError("SubsamplingLayer needs CNN input")
-        _truncate_only(self)
-        if self.pooling_type.lower() != "max":
-            raise NotImplementedError(
-                f"pooling {self.pooling_type!r} is not ported yet")
         kh, kw = _pair(self.kernel_size)
         sh, sw = _pair(self.stride)
+        if _same(self):
+            return CNNInput(input_type.channels, -(-input_type.height // sh),
+                            -(-input_type.width // sw))
         ph, pw = _pair(self.padding)
         oh = (input_type.height + 2 * ph - kh) // sh + 1
         ow = (input_type.width + 2 * pw - kw) // sw + 1
         return CNNInput(input_type.channels, oh, ow)
 
     def apply(self, params, x, state, training=False, *, generator=None):
-        return ops.maxpool2d(x, self.kernel_size, self.stride,
-                             self.padding), state
+        pad = "SAME" if _same(self) else self.padding
+        kind = self.pooling_type.lower()
+        if kind == "max":
+            out = ops.maxpool2d(x, self.kernel_size, self.stride, pad)
+        elif kind in ("avg", "average"):
+            out = ops.avgpool2d(x, self.kernel_size, self.stride, pad)
+        elif kind == "pnorm":
+            out = ops.pnormpool2d(x, self.kernel_size, self.stride, pad,
+                                  pnorm=self.pnorm)
+        else:
+            raise ValueError(f"unknown pooling type {self.pooling_type!r}")
+        return out, state
 
     @property
     def has_params(self):
@@ -276,6 +396,25 @@ class BatchNormalization(Layer):
         out = ops.batchnorm(x, mean.to(x.dtype), var.to(x.dtype), gamma,
                             beta, epsilon=self.eps, axis=axis)
         return activation_fn(self.activation or "identity")(out), state
+
+
+@dataclass
+class LocalResponseNormalization(Layer):
+    """``x / (k + alpha * sum(x^2 over n channels))^beta`` (DL4J's alpha,
+    on the window sum without Caffe's ``/ n``; ``ops/nn.lrn``)."""
+
+    n: int = 5
+    k: float = 2.0
+    alpha: float = 1e-4
+    beta: float = 0.75
+
+    def apply(self, params, x, state, training=False, *, generator=None):
+        return ops.lrn(x, depth=self.n, bias=self.k, alpha=self.alpha,
+                       beta=self.beta), state
+
+    @property
+    def has_params(self):
+        return False
 
 
 @dataclass
@@ -387,6 +526,42 @@ class OutputLayer(DenseLayer):
         x = self._maybe_dropout(x, training, generator)
         return activation_fn(self.activation)(self.pre_output(params, x)), \
             state
+
+    def compute_score(self, params, x, labels, mask=None,
+                      average: bool = True):
+        return self.loss.compute_score(labels, self.pre_output(params, x),
+                                       self.activation, mask, average)
+
+
+@dataclass
+class LossLayer(Layer):
+    """A loss head without parameters: the score of its input under its
+    activation (identity unless set) and loss (mcxent unless set)."""
+
+    loss: Union[str, ILossFunction, None] = None
+
+    def __post_init__(self):
+        if self.loss is None:
+            self.loss = LossMCXENT()
+        elif isinstance(self.loss, str):
+            self.loss = loss_from_name(self.loss)
+        if self.activation is None:
+            self.activation = "identity"
+
+    def pre_output(self, params, x):
+        return x
+
+    def apply(self, params, x, state, training=False, *, generator=None):
+        return activation_fn(self.activation)(x), state
+
+    def compute_score(self, params, x, labels, mask=None,
+                      average: bool = True):
+        return self.loss.compute_score(labels, x, self.activation, mask,
+                                       average)
+
+    @property
+    def has_params(self):
+        return False
 
 
 @dataclass
@@ -507,6 +682,8 @@ class EmbeddingSequenceLayer(EmbeddingLayer):
 #: the ``cnn_to_ff`` adapter (both builders)
 FF_LIKE: Tuple[Any, ...] = (DenseLayer, OutputLayer)
 
-from .layers_ext import (LayerNormalization, MaxNormConstraint,  # noqa: E402,F401
+from .layers_ext import (CenterLossOutputLayer,  # noqa: E402,F401
+                         LayerNormalization, MaxNormConstraint,
                          MinMaxNormConstraint, NonNegativeConstraint,
-                         TimeDistributed, UnitNormConstraint)
+                         SpaceToDepthLayer, TimeDistributed,
+                         UnitNormConstraint, Yolo2OutputLayer)

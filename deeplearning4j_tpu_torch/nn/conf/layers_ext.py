@@ -1,10 +1,12 @@
-"""Extended layers: layer normalization, the time-distributed wrapper and
-the parameter constraints.
+"""Extended layers: layer normalization, the time-distributed wrapper,
+space-to-depth, the center-loss and YOLOv2 heads, and the parameter
+constraints.
 
 Counterpart of the classes of ``deeplearning4j_tpu/nn/conf/layers_ext.py``
-that the self-attention encoder and ``MultiLayerNetwork`` use
-(``LayerNormalization``, ``TimeDistributed``, and ``MaxNormConstraint``,
-``MinMaxNormConstraint``, ``NonNegativeConstraint``,
+that the self-attention encoder, the zoo's CNNs and ``MultiLayerNetwork``
+use (``LayerNormalization``, ``TimeDistributed``, ``SpaceToDepthLayer``,
+``CenterLossOutputLayer``, ``Yolo2OutputLayer``, and
+``MaxNormConstraint``, ``MinMaxNormConstraint``, ``NonNegativeConstraint``,
 ``UnitNormConstraint``, ``layers_ext.py:721-765``); ``nn/conf/layers.py``
 re-exports them, as the JAX package's does. Sequence activations are
 ``[B, T, F]``.
@@ -13,13 +15,15 @@ re-exports them, as the JAX package's does. Sequence activations are
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from ...ops import nn as ops
+from ..losses import ILossFunction
 from .inputs import CNNInput, FFInput, RNNInput
-from .layers import Layer
+from .layers import Layer, OutputLayer
 
 
 @dataclass
@@ -95,6 +99,163 @@ class TimeDistributed(Layer):
 
 
 # --- parameter constraints ------------------------------------------------------
+
+
+
+@dataclass
+class SpaceToDepthLayer(Layer):
+    """Blocks of ``block_size`` x ``block_size`` pixels to channels, in the
+    JAX op's channel order (``ops/nn.space_to_depth``)."""
+
+    block_size: int = 2
+
+    def set_input_type(self, input_type):
+        self.n_in = input_type.channels
+        b = self.block_size
+        return CNNInput(self.n_in * b * b, input_type.height // b,
+                        input_type.width // b)
+
+    def apply(self, params, x, state, training=False, *, generator=None):
+        return ops.space_to_depth(x, self.block_size), state
+
+    @property
+    def has_params(self):
+        return False
+
+
+@dataclass
+class CenterLossOutputLayer(OutputLayer):
+    """The output layer's loss plus ``lambda_ / 2 * ||x - centers[y]||^2``
+    (``centers`` [n_out, n_in], zeros at init).
+
+    The JAX package's documented divergence from DL4J, kept: the centers
+    are ordinary parameters trained by the network's updater, not moved by
+    DL4J's alpha moving average (``alpha`` is kept for the configuration).
+    The center term is in :meth:`compute_score`, which
+    ``MultiLayerNetwork`` calls; a ``ComputationGraph`` scores its output
+    layers by their ``loss`` alone, as the JAX graph does, so there the
+    centers take no gradient."""
+
+    alpha: float = 0.05
+    lambda_: float = 0.5
+
+    def init_params(self, gen, dtype=torch.float32, device=None):
+        p = super().init_params(gen, dtype, device)
+        p["centers"] = torch.zeros((self.n_out, self.n_in), dtype=dtype,
+                                   device=device)
+        return p
+
+    def compute_score(self, params, x, labels, mask=None,
+                      average: bool = True):
+        base = super().compute_score(params, x, labels, mask, average)
+        centers = labels.to(params["centers"].dtype) @ params["centers"]
+        term = 0.5 * self.lambda_ * torch.sum((x - centers) ** 2, dim=1)
+        if mask is not None:
+            term = term * mask.reshape(term.shape).to(term.dtype)
+        return base + (term.mean() if average else term.sum())
+
+
+@dataclass
+class Yolo2OutputLayer(Layer):
+    """The YOLOv2 detection loss over ``[B, A * (5 + C), H, W]`` raw
+    activations (A anchors, C classes; ``layers_ext.py:1082-1203`` of the
+    JAX package). Labels ``[B, 4 + C, H, W]``: per grid cell the box
+    corners (x1, y1, x2, y2) in grid units, then the one-hot class; a cell
+    whose class vector is all zero holds no object.
+
+    Per object cell the responsible anchor is the one whose predicted box
+    has the best IoU with the cell's box (the first on a tie, as
+    ``argmax`` takes it); it takes ``lambda_coord`` times the squared error
+    of its centre within the cell and of the square roots of width and
+    height, the squared error of its confidence against that IoU (held
+    constant), and the softmax cross-entropy of its classes; every other
+    anchor takes ``lambda_no_obj`` times its squared confidence. The
+    forward is the identity."""
+
+    anchors: Tuple[Tuple[float, float], ...] = ((1.0, 1.0),)
+    lambda_coord: float = 5.0
+    lambda_no_obj: float = 0.5
+    loss: Union[str, ILossFunction, None] = None
+
+    def __post_init__(self):
+        self.anchors = tuple(tuple(map(float, a)) for a in self.anchors)
+
+    def set_input_type(self, input_type):
+        if not isinstance(input_type, CNNInput):
+            raise ValueError("Yolo2OutputLayer needs CNN input")
+        self.n_in = input_type.channels
+        a = len(self.anchors)
+        if input_type.channels % a:
+            raise ValueError(f"channels {input_type.channels} not divisible "
+                             f"by {a} anchors")
+        if input_type.channels // a - 5 < 0:
+            raise ValueError("channels must be anchors*(5+classes)")
+        return input_type
+
+    def apply(self, params, x, state, training=False, *, generator=None):
+        return x, state
+
+    @property
+    def has_params(self):
+        return False
+
+    def compute_score(self, params, x, labels, mask=None,
+                      average: bool = True):
+        b, ch, h, w = x.shape
+        a = len(self.anchors)
+        x = x.reshape(b, a, ch // a, h, w)
+        txy = torch.sigmoid(x[:, :, 0:2])
+        twh = x[:, :, 2:4]
+        conf = torch.sigmoid(x[:, :, 4])
+        cls_logits = x[:, :, 5:]
+        labels = labels.to(x.dtype)
+        anchors = torch.tensor(self.anchors, dtype=x.dtype, device=x.device)
+        gy, gx = torch.meshgrid(
+            torch.arange(h, dtype=x.dtype, device=x.device),
+            torch.arange(w, dtype=x.dtype, device=x.device), indexing="ij")
+        # predicted boxes in grid units
+        px = gx + txy[:, :, 0]
+        py = gy + txy[:, :, 1]
+        pw = anchors[None, :, 0, None, None] * torch.exp(twh[:, :, 0])
+        ph = anchors[None, :, 1, None, None] * torch.exp(twh[:, :, 1])
+
+        gt_x1, gt_y1, gt_x2, gt_y2 = (labels[:, i] for i in range(4))
+        gt_cls = labels[:, 4:]
+        obj = (gt_cls.sum(dim=1) > 0).to(x.dtype)              # [B, H, W]
+        gw, gh = gt_x2 - gt_x1, gt_y2 - gt_y1
+        gcx, gcy = 0.5 * (gt_x1 + gt_x2), 0.5 * (gt_y1 + gt_y2)
+
+        # IoU of each anchor's predicted box with the cell's box
+        ix1 = torch.maximum(px - pw / 2, gt_x1[:, None])
+        iy1 = torch.maximum(py - ph / 2, gt_y1[:, None])
+        ix2 = torch.minimum(px + pw / 2, gt_x2[:, None])
+        iy2 = torch.minimum(py + ph / 2, gt_y2[:, None])
+        inter = torch.clamp_min(ix2 - ix1, 0) * torch.clamp_min(iy2 - iy1, 0)
+        union = pw * ph + (gw * gh)[:, None] - inter
+        iou = (inter / torch.clamp_min(union, 1e-9)).detach()  # [B, A, H, W]
+        best = torch.argmax(iou, dim=1)                        # [B, H, W]
+        resp = F.one_hot(best, a).permute(0, 3, 1, 2).to(x.dtype) \
+            * obj[:, None]
+
+        tx, ty = gcx - gx, gcy - gy
+        xy_l = (txy[:, :, 0] - tx[:, None]) ** 2 \
+            + (txy[:, :, 1] - ty[:, None]) ** 2
+
+        def root(v):
+            return torch.sqrt(torch.clamp_min(v, 1e-9))
+
+        wh_l = (root(pw) - root(gw)[:, None]) ** 2 \
+            + (root(ph) - root(gh)[:, None]) ** 2
+        dims = (1, 2, 3)
+        coord = self.lambda_coord * torch.sum(resp * (xy_l + wh_l), dim=dims)
+        obj_l = torch.sum(resp * (conf - iou) ** 2, dim=dims)
+        noobj_l = self.lambda_no_obj * torch.sum((1.0 - resp) * conf ** 2,
+                                                 dim=dims)
+        logp = torch.log_softmax(cls_logits, dim=2)
+        ce = -torch.sum(gt_cls[:, None] * logp, dim=2)         # [B, A, H, W]
+        cls_l = torch.sum(resp * ce, dim=dims)
+        total = coord + obj_l + noobj_l + cls_l                 # [B]
+        return total.mean() if average else total.sum()
 
 
 class ParamConstraint:

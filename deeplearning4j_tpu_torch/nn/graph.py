@@ -11,7 +11,11 @@ fused-epilogue plan, with its dense replay when the gate refuses). PyTorch
 runs the walk eagerly, node by node; there is no trace to cache.
 
 Training runs one step per batch: the forward with batch statistics (no
-fusion plan), the loss head in float32 under ``compute_dtype``, l1/l2
+fusion plan), the loss heads in float32 under ``compute_dtype`` (an
+``OutputLayer`` or ``LossLayer`` scored by its ``loss`` alone, as the JAX
+graph scores it, so a ``CenterLossOutputLayer``'s centers take no gradient
+here; a ``Yolo2OutputLayer`` by its own ``compute_score``, where the JAX
+graph cannot bind its labels), l1/l2
 regularisation (not on ``b``/``beta``), backward through autograd, the
 gradient normalization the configuration names (``nn/gradnorm.py``), then
 the updater (``nn/_train.TrainableNetwork._train_step``). With
@@ -573,7 +577,7 @@ class ComputationGraph(TrainableNetwork):
                                     states.get(name, {}), node.layer)
                 continue
             if to_preout and name in out_set \
-                    and isinstance(node.layer, L.OutputLayer):
+                    and isinstance(node.layer, (L.OutputLayer, L.LossLayer)):
                 x = node.layer._maybe_dropout(x, training, gen)
                 head_params = params.get(name, {})
                 if cd:
@@ -612,8 +616,9 @@ class ComputationGraph(TrainableNetwork):
 
     # --- loss --------------------------------------------------------------
     def _output_names(self) -> List[str]:
+        """The outputs with a loss head, in order: they take labels."""
         return [o for o in self.conf.network_outputs
-                if isinstance(self.conf.nodes[o].layer, L.OutputLayer)]
+                if hasattr(self.conf.nodes[o].layer, "compute_score")]
 
     def _bind_batch(self, ds, w) -> tuple:
         """A DataSet or MultiDataSet as the step's ``(inputs, labels,
@@ -661,15 +666,21 @@ class ComputationGraph(TrainableNetwork):
                     and pre.is_floating_point():
                 pre = pre.to(torch.float32)
             mask = masks.get(out_name) if masks else None
-            if w is None:
-                total = total + layer.loss.compute_score(
-                    labels[out_name], pre, layer.activation, mask,
-                    average=True)
+            if w is not None:
+                mask = _fold_weights(mask, w)
+            if isinstance(layer, (L.OutputLayer, L.LossLayer)):
+                # the head's loss alone, as the JAX graph scores it (a
+                # CenterLossOutputLayer's center term is left out)
+                s = layer.loss.compute_score(labels[out_name], pre,
+                                             layer.activation, mask,
+                                             average=w is None)
             else:
-                s = layer.loss.compute_score(
-                    labels[out_name], pre, layer.activation,
-                    _fold_weights(mask, w), average=False)
-                total = total + s / torch.clamp_min(w.sum(), 1.0)
+                # another loss head (Yolo2OutputLayer), which the JAX graph
+                # cannot train: its own score of its input
+                s = layer.compute_score({}, pre, labels[out_name], mask,
+                                        average=w is None)
+            total = total + (s if w is None
+                             else s / torch.clamp_min(w.sum(), 1.0))
         gc = self.conf.global_conf
         reg = 0.0
         for lname in sorted(params):

@@ -15,8 +15,10 @@ fused update (``nn/_fused.FlatStore``, shared with ``ComputationGraph``) hold
 the elements in the JAX package's places.
 
 **The loss** (``multilayer.py:274-346``): the forward to the output head's
-input (in ``compute_dtype`` when set), the head's input dropout, the head
-and the loss in float32 from the float32 master parameters, the
+input (in ``compute_dtype`` when set), the head's input dropout, the head's
+``compute_score`` (``OutputLayer``, ``LossLayer``,
+``CenterLossOutputLayer`` with its center term, ``Yolo2OutputLayer``) in
+float32 from the float32 master parameters, the
 ``labels_mask``, and for the input pipeline's batches the example weights
 ``w`` (``sum(w * loss) / max(sum(w), 1)``, so the wrapped rows of a padded
 batch count for nothing), plus l1/l2 over every parameter but
@@ -267,9 +269,10 @@ class MultiLayerNetwork(TrainableNetwork):
     def _loss(self, params, states, x, labels, mask, training: bool,
               fmask=None, w=None):
         out_layer = self.layers[-1]
-        if not isinstance(out_layer, L.OutputLayer):
-            raise ValueError("the last layer must be an OutputLayer to "
-                             "train or score")
+        if not hasattr(out_layer, "compute_score"):
+            raise ValueError("the last layer must be a loss head "
+                             "(OutputLayer, LossLayer, Yolo2OutputLayer, ...) "
+                             "to train or score")
         pre_in, new_states = self._forward(params, states, x, training,
                                            fmask, to_preout=True)
         head = params[self._keys[-1]]
@@ -277,14 +280,13 @@ class MultiLayerNetwork(TrainableNetwork):
             # the head and the loss in float32, from the master parameters
             head = {k: t.to(torch.float32) for k, t in head.items()}
             pre_in = pre_in.to(torch.float32)
-        pre = out_layer.pre_output(head, pre_in)
         if w is None:
-            data_loss = out_layer.loss.compute_score(
-                labels, pre, out_layer.activation, mask, average=True)
+            data_loss = out_layer.compute_score(head, pre_in, labels, mask,
+                                                average=True)
         else:
-            total = out_layer.loss.compute_score(
-                labels, pre, out_layer.activation, _fold_weights(mask, w),
-                average=False)
+            total = out_layer.compute_score(head, pre_in, labels,
+                                            _fold_weights(mask, w),
+                                            average=False)
             data_loss = total / torch.clamp_min(w.sum(), 1.0)
         gc = self.conf.global_conf
         reg = 0.0

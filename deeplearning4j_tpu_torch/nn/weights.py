@@ -1,10 +1,13 @@
 """Weight initialization from an explicit ``torch.Generator``.
 
-Counterpart of ``deeplearning4j_tpu/nn/weights.py``: the schemes ResNet-50
-uses, with the same fan conventions (dense W=[nIn,nOut]; conv
-W=[out,in,kH,kW]). The draws come from the generator the caller passes, so a
-seed fixes the weights; they are not the JAX package's threefry numbers
-(tests carry weights across instead).
+Counterpart of ``deeplearning4j_tpu/nn/weights.py``: the schemes the ported
+models use, with the same fan conventions, read off the shape alone (dense
+W=[nIn,nOut]; 4-D W=[a, b, kH, kW] takes fan in ``b * kH * kW`` and fan out
+``a * kH * kW``, so the transposed convolution's [I, O, kH, kW] and the
+depthwise [mult, C, kH, kW] get the JAX package's fans too). The draws come
+from the generator the caller passes, so a seed fixes the weights; they are
+not the JAX package's threefry numbers (tests carry weights across
+instead).
 """
 
 from __future__ import annotations

@@ -1,14 +1,25 @@
-"""Neural-net ops of ResNet-50, LeNet, VGG16 and the self-attention
-encoder: convolution, pooling, batchnorm, layer norm, linear, dropout,
-attention.
+"""Neural-net ops of the zoo's CNNs and the self-attention encoder:
+convolution (plain, transposed, depthwise, separable), pooling (max,
+average, p-norm), batchnorm, local response normalization, layer norm,
+space-to-depth, linear, dropout, attention.
 
-Counterpart of the subset of ``deeplearning4j_tpu/ops/nn.py`` that ResNet-50
-inference and training and the self-attention encoder run. Layouts are the
-JAX package's: activations NCHW, conv weights OIHW. Convolutions and pooling
-go to ``F.conv2d`` and ``F.max_pool2d`` (cuDNN on the card), backward
-included through autograd, as the JAX package leaves them to XLA outside any
-Pallas kernel. Padding is explicit (``(ph, pw)``); the "same" convolution
-mode arrives with the models that use it.
+Counterpart of the subset of ``deeplearning4j_tpu/ops/nn.py`` (and
+``ops/shape.py``'s ``space_to_depth``) that the zoo models and the encoder
+run. Layouts are the JAX package's: activations NCHW, conv weights OIHW,
+transposed-conv weights ``[I, O, kH, kW]``, depthwise weights ``[mult, C,
+kH, kW]``. Convolutions and pooling go to ``F.conv2d``,
+``F.conv_transpose2d``, ``F.max_pool2d`` and ``F.avg_pool2d`` (cuDNN on the
+card), backward included through autograd, as the JAX package leaves them to
+XLA outside any Pallas kernel.
+
+Padding is explicit (``(ph, pw)``) or the string ``"SAME"``, the JAX
+package's ``lax`` padding: per spatial axis a total of ``max((ceil(in / s) -
+1) * s + k_eff - in, 0)`` with the smaller half first, so the output is
+``ceil(in / s)``. ``F.conv2d(padding="same")`` refuses a stride above 1 and
+pads the other way round, so :func:`same_pads` computes the amounts and
+``F.pad`` applies them: zeros for convolutions, average and p-norm pooling
+(which then divide by the kernel area, padding included, as the JAX
+package's ``reduce_window`` sum does), ``-inf`` for max pooling.
 
 :func:`batchnorm_train` is the training form with the JAX package's hand
 backward (a ``torch.autograd.Function``), not ``F.batch_norm(training=True)``:
@@ -48,25 +59,167 @@ def _pair(v) -> Tuple[int, int]:
     return (int(v), int(v))
 
 
-def conv2d(x: torch.Tensor, w: torch.Tensor, b=None, strides: Pair = (1, 1),
-           padding: Pair = (0, 0), dilation: Pair = (1, 1)) -> torch.Tensor:
-    """2D convolution. x: NCHW; w: OIHW (reference layout)."""
-    out = F.conv2d(x, w, None, stride=_pair(strides), padding=_pair(padding),
-                   dilation=_pair(dilation))
+def same_pads(size: int, kernel: int, stride: int,
+              dilation: int = 1) -> Tuple[int, int]:
+    """``(before, after)`` of TF's SAME padding on one axis (``lax``'s
+    ``padtype_to_pads`` over the dilated kernel)."""
+    k = (kernel - 1) * dilation + 1
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def _pad_same(x: torch.Tensor, kernel, strides, dilation=(1, 1),
+              value: float = 0.0) -> torch.Tensor:
+    (kh, kw), (sh, sw), (dh, dw) = _pair(kernel), _pair(strides), \
+        _pair(dilation)
+    top, bottom = same_pads(x.shape[2], kh, sh, dh)
+    left, right = same_pads(x.shape[3], kw, sw, dw)
+    if top or bottom or left or right:
+        x = F.pad(x, (left, right, top, bottom), value=value)
+    return x
+
+
+def _is_same(padding) -> bool:
+    if isinstance(padding, str):
+        if padding.upper() != "SAME":
+            raise ValueError(f"padding {padding!r}: 'SAME' or (ph, pw)")
+        return True
+    return False
+
+
+def _add_bias(out: torch.Tensor, b) -> torch.Tensor:
     if b is not None:
         out = out + b.reshape(1, -1, 1, 1).to(out.dtype)
-    return out.to(x.dtype)
+    return out
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, b=None, strides: Pair = (1, 1),
+           padding: Union[Pair, str] = (0, 0), dilation: Pair = (1, 1),
+           groups: int = 1) -> torch.Tensor:
+    """2D convolution. x: NCHW; w: OIHW (``[O, I / groups, kH, kW]``);
+    ``padding`` explicit or ``"SAME"``."""
+    if _is_same(padding):
+        x = _pad_same(x, w.shape[2:], strides, dilation)
+        padding = (0, 0)
+    out = F.conv2d(x, w, None, stride=_pair(strides), padding=_pair(padding),
+                   dilation=_pair(dilation), groups=int(groups))
+    return _add_bias(out, b).to(x.dtype)
+
+
+def deconv2d(x: torch.Tensor, w: torch.Tensor, b=None,
+             strides: Pair = (1, 1),
+             padding: Union[Pair, str] = (0, 0)) -> torch.Tensor:
+    """Transposed convolution, w ``[I, O, kH, kW]`` (``ops/nn.py:105-139``
+    of the JAX package). The JAX op is the lhs-dilated convolution with the
+    flipped kernel, padded ``(k - 1 - p, k - 1 - p)``, or under SAME
+    (output = input x stride) ``(k - 1 - pb, k - 1 - pe + max(s - k, 0))``
+    with ``pb, pe`` the halves of ``max(k - s, 0)``. ``F.conv_transpose2d``
+    without padding gives that convolution padded ``(k - 1, k - 1)``; the
+    difference is cropped (or, where the JAX padding reaches past the
+    input, zero-filled: no kernel tap meets the input there)."""
+    sh, sw = _pair(strides)
+    kh, kw = w.shape[2], w.shape[3]
+    pads = []
+    for k, s, p in ((kh, sh, 0), (kw, sw, 1)):
+        if _is_same(padding):
+            tot = max(k - s, 0)
+            lo, hi = k - 1 - tot // 2, k - 1 - (tot - tot // 2) + max(s - k, 0)
+        else:
+            lo = hi = k - 1 - _pair(padding)[p]
+        pads.append((lo - (k - 1), hi - (k - 1)))
+    out = F.conv_transpose2d(x, w, None, stride=(sh, sw))
+    (top, bottom), (left, right) = pads
+    if top or bottom or left or right:
+        out = F.pad(out, (left, right, top, bottom))
+    return _add_bias(out, b).to(x.dtype)
+
+
+def depthwise_conv2d(x: torch.Tensor, w: torch.Tensor, b=None,
+                     strides: Pair = (1, 1),
+                     padding: Union[Pair, str] = (0, 0),
+                     dilation: Pair = (1, 1)) -> torch.Tensor:
+    """Depthwise convolution, w ``[mult, C, kH, kW]``: the grouped
+    convolution of ``w.transpose(1, 0).reshape(C * mult, 1, kH, kW)``, so
+    output channel ``c * mult + m`` is input channel ``c`` under
+    ``w[m, c]`` (``ops/nn.py:143-162`` of the JAX package)."""
+    mult, c = w.shape[0], w.shape[1]
+    wg = w.transpose(0, 1).reshape(c * mult, 1, w.shape[2], w.shape[3])
+    return conv2d(x, wg, b, strides, padding, dilation, groups=c)
+
+
+def sconv2d(x: torch.Tensor, depth_w: torch.Tensor, point_w=None, b=None,
+            strides: Pair = (1, 1),
+            padding: Union[Pair, str] = (0, 0)) -> torch.Tensor:
+    """Separable convolution: depthwise, then the 1x1 pointwise ``point_w``
+    ``[O, C * mult, 1, 1]``, then the bias (``ops/nn.py:166-175``)."""
+    out = depthwise_conv2d(x, depth_w, None, strides, padding)
+    if point_w is not None:
+        out = conv2d(out, point_w)
+    return _add_bias(out, b)
+
+
+def _pool_pad(x, kernel, strides, padding, value):
+    if _is_same(padding):
+        return _pad_same(x, kernel, strides, value=value)
+    ph, pw = _pair(padding)
+    if ph or pw:
+        x = F.pad(x, (pw, pw, ph, ph), value=value)
+    return x
 
 
 def maxpool2d(x: torch.Tensor, kernel: Pair = (2, 2), strides: Pair = (2, 2),
-              padding: Pair = (0, 0)) -> torch.Tensor:
-    """Max pooling with explicit padding: padded cells are -inf, as in
-    the JAX package's ``reduce_window`` with a -inf init, so they never
-    win (the ResNet-50 stem uses kernel (3,3), stride (2,2), pad (1,1))."""
-    ph, pw = _pair(padding)
-    if ph or pw:
-        x = F.pad(x, (pw, pw, ph, ph), value=float("-inf"))
+              padding: Union[Pair, str] = (0, 0)) -> torch.Tensor:
+    """Max pooling: padded cells are -inf, as in the JAX package's
+    ``reduce_window`` with a -inf init, so they never win (the ResNet-50
+    stem uses kernel (3,3), stride (2,2), pad (1,1))."""
+    x = _pool_pad(x, kernel, strides, padding, float("-inf"))
     return F.max_pool2d(x, _pair(kernel), _pair(strides))
+
+
+def avgpool2d(x: torch.Tensor, kernel: Pair = (2, 2), strides: Pair = (2, 2),
+              padding: Union[Pair, str] = (0, 0)) -> torch.Tensor:
+    """Average pooling as the JAX package computes it (``ops/nn.py:178-
+    199``): the window sum over zero padding divided by ``kH * kW``, the
+    padding counted, under SAME too."""
+    x = _pool_pad(x, kernel, strides, padding, 0.0)
+    return F.avg_pool2d(x, _pair(kernel), _pair(strides))
+
+
+def pnormpool2d(x: torch.Tensor, kernel: Pair = (2, 2),
+                strides: Pair = (2, 2), padding: Union[Pair, str] = (0, 0),
+                pnorm: int = 2) -> torch.Tensor:
+    """``(sum |x|^p)^(1/p)`` over each window, zero padding
+    (``ops/nn.py:211-223``)."""
+    x = _pool_pad(x.abs() ** pnorm, kernel, strides, padding, 0.0)
+    s = F.avg_pool2d(x, _pair(kernel), _pair(strides), divisor_override=1)
+    return s ** (1.0 / pnorm)
+
+
+def lrn(x: torch.Tensor, depth: int = 5, bias: float = 1.0,
+        alpha: float = 1.0, beta: float = 0.5) -> torch.Tensor:
+    """Local response normalization across channels (NCHW), DL4J's form:
+    ``x / (bias + alpha * sum(x^2 over depth channels))^beta``, alpha on
+    the window sum itself (``F.local_response_norm`` divides it by
+    ``depth`` first: another function)."""
+    half = depth // 2
+    sq = F.pad(x * x, (0, 0, 0, 0, half, half))
+    c = x.shape[1]
+    windows = sq[:, 0:c]
+    for i in range(1, depth):
+        windows = windows + sq[:, i:i + c]
+    return x / torch.pow(bias + alpha * windows, beta)
+
+
+def space_to_depth(x: torch.Tensor, block_size: int) -> torch.Tensor:
+    """NCHW space-to-depth in the JAX op's channel order (``ops/shape.py:
+    409-418``, through NHWC): output channel ``(i * b + j) * C + c`` holds
+    input channel ``c`` at offset ``(i, j)`` of each block."""
+    n, c, h, w = x.shape
+    b = block_size
+    x = x.permute(0, 2, 3, 1).reshape(n, h // b, b, w // b, b, c)
+    x = x.permute(0, 1, 3, 2, 4, 5).reshape(n, h // b, w // b, b * b * c)
+    return x.permute(0, 3, 1, 2)
 
 
 def global_avgpool(x: torch.Tensor) -> torch.Tensor:

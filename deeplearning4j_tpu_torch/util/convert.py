@@ -4,10 +4,13 @@
 given as nested dicts of numpy arrays (``{node: {"W", "b", "gamma",
 "beta"}}`` and ``{node: {"mean", "var"}}``, e.g. ``jax.device_get`` of the
 JAX graph's ``_params`` and ``_states``), into a port graph. The layouts
-agree (conv W OIHW, dense W ``[nIn, nOut]``, embedding tables W
-``[vocab, nOut]``, LayerNormalization ``gain``/``bias``, self-attention
-``Wq``/``Wk``/``Wv`` ``[nIn, H*hs]`` and ``Wo`` ``[H*hs, nOut]``, a
-TimeDistributed layer's inner ``{W, b}``), so this is a checked copy:
+agree (conv W OIHW, transposed-conv W ``[I, O, kH, kW]``, depthwise W
+``[mult, C, kH, kW]``, separable ``dW`` (depthwise) and ``pW``
+(pointwise, ``[O, C * mult, 1, 1]``), dense W ``[nIn, nOut]``, a center-loss
+head's ``centers`` ``[nOut, nIn]``, embedding tables W ``[vocab, nOut]``,
+LayerNormalization ``gain``/``bias``, self-attention ``Wq``/``Wk``/``Wv``
+``[nIn, H*hs]`` and ``Wo`` ``[H*hs, nOut]``, a TimeDistributed layer's
+inner ``{W, b}``), so this is a checked copy:
 node names, entry names, shapes and dtypes must match the port graph's own,
 or it raises. Nothing here imports JAX.
 

@@ -9,6 +9,8 @@ one encoder forward of the port spends its time, on the card.
     python3 profile_port.py --fasttext  # one FastText block (phase 20)
     python3 profile_port.py --glove     # one GloVe block (phase 21)
     python3 profile_port.py --encoder   # one encoder forward (phase 9)
+    python3 profile_port.py --encoder-train  # one encoder fit step (9b)
+    python3 profile_port.py --zoo [NAME]  # a zoo CNN's step and forward (24)
     python3 profile_port.py --flash [--levers]  # flash: bf16, then float32
     python3 profile_port.py --bert      # one SameDiff BERT-base step
     python3 profile_port.py --bag [--levers] [--timeline]  # embedding_bag
@@ -44,6 +46,16 @@ prints the step time (median of 10 after 2 warm-ups) and a
 ``torch.profiler`` trace of 3 steps: device busy share, the kernels that take
 the most device time, and the ``fused_update`` kernel's share. The trace goes
 to ``chiprun_out/profile_port_train_trace.json.gz``.
+
+With ``--encoder-train`` it builds the encoder ``chip_smoke.py`` trains
+in phase 9b (BERT-base width, bf16 compute, Adam(2e-5) through
+fused_update, batch 32) and prints a ``torch.profiler`` trace of 3 fit
+steps by category (trace ``chiprun_out/profile_port_encoder_train_trace
+.json.gz``). With ``--zoo NAME`` (Xception unless named) it builds that
+zoo CNN as phase 24 trains and serves it (its defaults, bf16 compute,
+fused_update, batch 16) and prints the step time and a trace of 3 fit
+steps, then of 3 served forwards with fused_epilogue on, by category
+(traces ``chiprun_out/profile_port_zoo_<NAME>_{train,serve}.json.gz``).
 
 With ``--mln`` it builds the VGG16 ``MultiLayerNetwork`` that
 ``chip_smoke.py`` trains (zoo VGG16, 138,357,544 parameters, bf16 compute,
@@ -1251,6 +1263,63 @@ def alternate_main(parent: str, rounds: int, args: list) -> int:
     return 0
 
 
+def encoder_train_main(dev, smi: str, name: str) -> int:
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    model = ComputationGraph(cs.encoder_conf()).init(seed=cs.SEED,
+                                                     device=dev)
+    gc = model.conf.global_conf
+    gc.compute_dtype = "bfloat16"
+    gc.updater = Adam(cs.ENC_TRAIN_LR)
+    gc.fused_update = True
+    ds = cs.encoder_train_batch(cs.ENC_BATCH, dev, cs.SEED + 30)
+    for _ in range(cs.ENC_TRAIN_WARMUP):
+        model.fit(ds)
+    torch.cuda.synchronize()
+    prof = _profile(lambda: model.fit(ds), 3, f"encoder fit step batch "
+                    f"{cs.ENC_BATCH}", smi,
+                    "profile_port_encoder_train_trace.json.gz")
+    print(json.dumps({"device": name, "nvidia_smi": smi, **prof}),
+          flush=True)
+    return 0
+
+
+def zoo_main(dev, smi: str, name: str, model_name: str) -> int:
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.models import zoo
+
+    net = getattr(zoo, model_name)().init(device=dev)
+    gc = net.conf.global_conf
+    gc.compute_dtype = "bfloat16"
+    gc.fused_update = True
+    x, y = cs.zoo_batch(net.conf, cs.ZOO_BATCH, cs.SEED + 40)
+    ds = DataSet(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+    for _ in range(cs.ZOO_WARMUP):
+        net.fit(ds)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(cs.ZOO_STEPS):
+        t0 = time.perf_counter()
+        net.fit(ds)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    print(f"[zoo] {model_name} batch {cs.ZOO_BATCH} bf16, fused_update: "
+          f"step {ms:.3f} ms ({cs.ZOO_BATCH / ms * 1e3:.1f} images/s), "
+          f"median of {cs.ZOO_STEPS}; {smi}", flush=True)
+    train = _profile(lambda: net.fit(ds), 3, f"{model_name} fit step",
+                     smi, f"profile_port_zoo_{model_name}_train.json.gz")
+    cs.set_fused_epilogue(net, True)
+    serve = _profile(lambda: net.output(ds.features), 3,
+                     f"{model_name} served forward, fused epilogue", smi,
+                     f"profile_port_zoo_{model_name}_serve.json.gz")
+    print(json.dumps({"device": name, "nvidia_smi": smi, "model":
+                      model_name, "train_step_ms": ms, "train": train,
+                      "serve": serve}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_port: no CUDA card available", file=sys.stderr)
@@ -1299,9 +1368,17 @@ def main() -> int:
     if "--mln" in sys.argv[1:]:
         cs.phase_build()
         return mln_main(dev, smi, name)
+    if "--encoder-train" in sys.argv[1:]:
+        cs.phase_build()
+        return encoder_train_main(dev, smi, name)
     if "--encoder" in sys.argv[1:]:
         cs.phase_build()
         return encoder_main(dev, smi, name)
+    if "--zoo" in sys.argv[1:]:
+        rest = sys.argv[sys.argv.index("--zoo") + 1:]
+        cs.phase_build()
+        return zoo_main(dev, smi, name, rest[0] if rest and not
+                        rest[0].startswith("-") else "Xception")
     if "--flash" in sys.argv[1:]:
         cs.phase_build()
         return flash_main(dev, smi, name, "--levers" in sys.argv[1:])

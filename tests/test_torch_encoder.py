@@ -280,3 +280,73 @@ def test_attention_layer_refuses_training_dropout():
     with pytest.raises(ValueError, match="RNN"):
         TL.SelfAttentionLayer(n_out=8).set_input_type(
             TInputType.feed_forward(8))
+
+
+# --- training -------------------------------------------------------------------
+
+def _fit3(which, compute_dtype, start, tokens, positions, labels):
+    """Three ``fit`` steps with Adam(2e-5) from ``start``: (losses,
+    parameters as numpy)."""
+    from deeplearning4j_tpu.data.dataset import MultiDataSet as JMDS
+    from deeplearning4j_tpu_torch.data import MultiDataSet as TMDS
+
+    conf = encoder_conf(which, compute_dtype=compute_dtype,
+                        updater=lambda m: m.Adam(2e-5))
+    if which == "jax":
+        g = JGraph(conf).init()
+        g._params = {n: {k: jnp.asarray(v) for k, v in d.items()}
+                     for n, d in start.items()}
+        mds = JMDS
+    else:
+        g = TGraph(conf).init(device="cpu")
+        graph_state_from_numpy(g, start, {})
+        mds = TMDS
+    losses = []
+    for _ in range(3):
+        g.fit(mds([tokens, positions], [labels]))
+        losses.append(float(g.score_value))
+    return losses, {n: {k: np.asarray(v.detach() if hasattr(v, "detach")
+                                      else v) for k, v in d.items()}
+                    for n, d in g._params.items()}
+
+
+def _flat(tree):
+    return np.concatenate([tree[n][k].ravel() for n in sorted(tree)
+                           for k in sorted(tree[n])]).astype(np.float64)
+
+
+@pytest.mark.parametrize("compute_dtype", [None, "bfloat16"])
+def test_encoder_fit_three_steps_matches_jax(compute_dtype):
+    """Three ``fit`` steps of the encoder with Adam(2e-5) (BERT's
+    fine-tuning rate) from the same weights on the same batch, float32 and
+    bf16 compute over float32 parameters. float32: losses within 1e-5
+    relative, every parameter within 1e-5 of its own leaf's scale. bf16,
+    the bound of the bf16 forward above: losses within 1e-2 relative, and
+    the port's update over the three steps (the parameters less their
+    start) no further from the float32 update than the JAX package's bf16
+    update is, with 20% and 1e-3 of its norm to spare (Adam divides each
+    gradient by its own root mean square, so bf16 rounding moves the
+    updates of small gradients by whole steps, in both packages alike)."""
+    start = numpy_tree(JGraph(encoder_conf("jax")).init()._params)
+    tokens, positions = _feed(seed=5)
+    labels = np.eye(2, dtype=np.float32)[[0, 1]]
+    args = (start, tokens, positions, labels)
+    jl, jp = _fit3("jax", compute_dtype, *args)
+    tl, tp = _fit3("torch", compute_dtype, *args)
+    rtol = 1e-5 if compute_dtype is None else 1e-2
+    for got, want in zip(tl, jl):
+        assert abs(got - want) <= rtol * abs(want)
+    if compute_dtype is None:
+        for n, d in jp.items():
+            for k, v in d.items():
+                np.testing.assert_allclose(
+                    tp[n][k], v, rtol=0, atol=1e-5 * float(np.abs(v).max()),
+                    err_msg=f"{n}/{k}")
+        return
+    _, fp = _fit3("jax", None, *args)
+    s0 = _flat(start)
+    u32, ujax, uport = (_flat(t) - s0 for t in (fp, jp, tp))
+    n32 = np.linalg.norm(u32)
+    assert np.linalg.norm(uport - u32) <= \
+        1.2 * np.linalg.norm(ujax - u32) + 1e-3 * n32, (
+            np.linalg.norm(uport - u32), np.linalg.norm(ujax - u32), n32)

@@ -181,16 +181,20 @@ def f32_ulp_bound(ref: np.ndarray) -> float:
 def encoder_conf(which: str, vocab: int = 100, positions: int = 128,
                  seq_len: int = 128, hidden: int = 32, layers: int = 2,
                  heads: int = 4, ff: int = 64, classes: int = 2,
-                 eps: float = 1e-12, compute_dtype=None, seed: int = 11):
+                 eps: float = 1e-12, compute_dtype=None, seed: int = 11,
+                 updater=None):
     """A BERT-shaped self-attention encoder as a DL4J user builds it with
     the graph builder (chip_smoke.py's ``encoder_conf`` at full width):
     token and position embeddings added and layer-normed, ``layers`` blocks
     of self-attention + residual + LayerNorm and a GELU (erf) feed-forward
     pair of TimeDistributed dense layers + residual + LayerNorm, an average
     pool over time and a softmax head. Inputs ``tokens`` and ``positions``,
-    integer ``[B, seq_len]``."""
+    integer ``[B, seq_len]``. ``updater(m)`` makes the updater from the
+    package's modules ``m`` (default the builder's)."""
     m = modules(which)
     b = m.NeuralNetConfiguration.builder().seed(seed).data_type("float32")
+    if updater is not None:
+        b = b.updater(updater(m))
     if compute_dtype:
         b = b.compute_dtype(compute_dtype)
     gb = m.graph.ComputationGraphConfiguration.graph_builder(b) \
@@ -283,6 +287,63 @@ def vgg_conf(which: str, widths=None, dropout: float = 0.5,
             .set_input_type(m.InputType.convolutional(w["image"], w["image"],
                                                       3))
             .build())
+
+
+#: zoo AlexNet's widths (models/zoo.py:141-169 of the JAX package)
+ALEXNET_WIDTHS = {"convs": (96, 256, 384, 384, 256), "dense": 4096,
+                  "classes": 1000}
+
+
+def alexnet_conf(which: str, widths=None):
+    """Zoo AlexNet's configuration (227x227x3, single tower, LRN after the
+    first two convolutions) at ``widths`` (the five convolutions' channels,
+    ``dense``, ``classes``; ALEXNET_WIDTHS by default)."""
+    w = dict(ALEXNET_WIDTHS, **(widths or {}))
+    c1, c2, c3, c4, c5 = w["convs"]
+    m = modules(which)
+    L = m.L
+    return (m.NeuralNetConfiguration.builder().seed(123)
+            .updater(m.Nesterovs(learning_rate=1e-2, momentum=0.9))
+            .activation("relu").weight_init("relu")
+            .list()
+            .layer(L.ConvolutionLayer(n_out=c1, kernel_size=(11, 11),
+                                      stride=(4, 4)))
+            .layer(L.LocalResponseNormalization())
+            .layer(L.SubsamplingLayer(kernel_size=(3, 3), stride=(2, 2)))
+            .layer(L.ConvolutionLayer(n_out=c2, kernel_size=(5, 5),
+                                      padding=(2, 2)))
+            .layer(L.LocalResponseNormalization())
+            .layer(L.SubsamplingLayer(kernel_size=(3, 3), stride=(2, 2)))
+            .layer(L.ConvolutionLayer(n_out=c3, kernel_size=(3, 3),
+                                      padding=(1, 1)))
+            .layer(L.ConvolutionLayer(n_out=c4, kernel_size=(3, 3),
+                                      padding=(1, 1)))
+            .layer(L.ConvolutionLayer(n_out=c5, kernel_size=(3, 3),
+                                      padding=(1, 1)))
+            .layer(L.SubsamplingLayer(kernel_size=(3, 3), stride=(2, 2)))
+            .layer(L.DenseLayer(n_out=w["dense"], dropout=0.5))
+            .layer(L.DenseLayer(n_out=w["dense"], dropout=0.5))
+            .layer(L.OutputLayer(n_out=w["classes"]))
+            .set_input_type(m.InputType.convolutional(227, 227, 3))
+            .build())
+
+
+def yolo_labels(rng, batch: int, classes: int, grid: int,
+                objects: int = 2) -> np.ndarray:
+    """YOLOv2 labels in the reference format, ``[batch, 4 + classes, grid,
+    grid]``: ``objects`` distinct cells per image, each holding the corners
+    (x1, y1, x2, y2, grid units) of a box centred in that cell with sides
+    in [0.5, 3], and a one-hot class; the other cells hold zeros."""
+    lab = np.zeros((batch, 4 + classes, grid, grid), np.float32)
+    for b in range(batch):
+        for cell in rng.choice(grid * grid, size=objects, replace=False):
+            gy, gx = divmod(int(cell), grid)
+            cx, cy = gx + rng.uniform(0.1, 0.9), gy + rng.uniform(0.1, 0.9)
+            w, h = rng.uniform(0.5, 3.0, 2)
+            lab[b, :4, gy, gx] = (cx - w / 2, cy - h / 2, cx + w / 2,
+                                  cy + h / 2)
+            lab[b, 4 + rng.integers(0, classes), gy, gx] = 1.0
+    return lab
 
 
 def masked_conf(which: str, width: int = 32, heads: int = 4,
