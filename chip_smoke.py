@@ -323,6 +323,31 @@ Phases (each fails the run with a nonzero exit if it fails):
                fused against per-leaf for 3 steps, parameters and Adam's
                moments within 2 float32 ulp.
 
+25. sequences -- the zoo's TextGenerationLSTM at full width (two LSTM(256)
+               layers, a softmax RnnOutputLayer with mcxent over the
+               character set, Adam(2e-3)) trained through
+               MultiLayerNetwork.fit with truncated BPTT of 50 steps over
+               sequences of 1,000 characters at batch 32 (the sequence and
+               truncation lengths of dl4j-examples'
+               LSTMCharModellingExample), float32, fused_update, on the
+               characters of the repository's README.md and SURVEY.md
+               one-hot: 1 warm-up and 3 timed batches (characters/s, batch
+               median, peak memory). Gates: 20 segments and 20
+               fused_update launches per batch, no fallback, one iteration
+               per batch, finite losses, and a fixed 50-character segment's
+               loss lower after the 4 batches than before them. Then
+               streaming: 100 characters primed and 200 generated one
+               rnn_time_step each (ms per character); rnn_time_step in
+               chunks of 10 against output over 100 steps within rtol
+               1e-5, atol 1e-6. Then the card against the CPU, float32,
+               TF32 off: one TBPTT batch of 150 steps of the full-width
+               model, and a MaskingLayer + Bidirectional(LSTM) + GRU +
+               LastTimeStep(GRU) classifier fit through an iterator of two
+               zero-padded batches of variable lengths (TBPTT 10 over T
+               40: one fused_update launch per segment), every parameter
+               within 1e-4 of its leaf's scale; and a forward and a
+               backward of each 1D and 2D shape layer within 1e-5.
+
 Then it prints the kernels line (one JSON object) and, last, the device line
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
 beside it, it exits nonzero and prints no result. Weights are random, made
@@ -5117,6 +5142,366 @@ def phase_zoo_cnn(smi: str, dev):
     return result
 
 
+# --- phase 25 --------------------------------------------------------------------
+
+TEXT_HIDDEN = 256       # the zoo TextGenerationLSTM's default width
+TEXT_BATCH = 32
+TEXT_SEQ = 1000         # dl4j-examples LSTMCharModellingExample: 1000-char
+TEXT_TBPTT = 50         # sequences, truncated BPTT of 50 steps
+TEXT_WARMUP = 1
+TEXT_TIMED = 3
+TEXT_PRIME = 100
+TEXT_GENERATE = 200
+TEXT_STREAM_T = 100     # the streaming gate's sequence, in chunks of 10
+TEXT_PARITY_T = 150     # card against CPU: three segments
+#: the masked classifier of phase 25 (its widths are no published model's)
+SEQ_CLS = {"width": 64, "batch": 16, "T": 40, "tbptt": 10, "classes": 4,
+           "features": 8}
+
+
+def text_corpus():
+    """The characters of the repository's README.md and SURVEY.md as indices
+    into their sorted character set, and that set."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    text = "".join(open(os.path.join(root, n), encoding="utf-8").read()
+                   for n in ("README.md", "SURVEY.md"))
+    chars = sorted(set(text))
+    lut = {c: i for i, c in enumerate(chars)}
+    return np.array([lut[c] for c in text], dtype=np.int64), chars
+
+
+def text_batch(idx, vocab: int, batch: int, T: int, dev, seed: int):
+    """``batch`` windows of ``T + 1`` characters at seeded offsets, one-hot
+    on ``dev``: the first T as features, the next T as labels."""
+    rng = np.random.default_rng(seed)
+    starts = rng.integers(0, len(idx) - T - 1, batch)
+    win = torch.from_numpy(np.stack([idx[s:s + T + 1] for s in starts]))
+    hot = torch.nn.functional.one_hot(win.to(dev), vocab).to(torch.float32)
+    return hot[:, :-1].contiguous(), hot[:, 1:].contiguous()
+
+
+def text_generation_net(vocab: int, dev, fused: bool = True):
+    """The zoo's TextGenerationLSTM (two LSTM(256), softmax RnnOutputLayer
+    with mcxent, Adam(2e-3)) trained with truncated BPTT of TEXT_TBPTT
+    steps, float32, fused_update on."""
+    from deeplearning4j_tpu_torch.models import TextGenerationLSTM
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    conf = TextGenerationLSTM(vocab, TEXT_HIDDEN, seed=SEED).conf()
+    conf.backprop_type = "TruncatedBPTT"
+    conf.tbptt_fwd_length = conf.tbptt_back_length = TEXT_TBPTT
+    conf.global_conf.fused_update = fused
+    return MultiLayerNetwork(conf).init(device=dev)
+
+
+def _tree_err(card: dict, host: dict) -> float:
+    """The largest difference of any parameter, card against CPU, over its
+    own leaf's largest magnitude."""
+    from deeplearning4j_tpu_torch.common.tree import get_path, leaf_paths
+
+    worst = 0.0
+    for p in leaf_paths(host):
+        want = get_path(host, p).detach()
+        got = get_path(card, p).detach().cpu()
+        worst = max(worst, (got - want).abs().max().item()
+                    / max(want.abs().max().item(), 1e-30))
+    return worst
+
+
+def phase_sequences(smi: str, dev):
+    """The zoo's TextGenerationLSTM at full width trained with truncated
+    BPTT on the repository's own text, then served a character at a time;
+    the card against the CPU; the masked classifier; the shape layers."""
+    from deeplearning4j_tpu_torch.common.profiler import OpProfiler
+    from deeplearning4j_tpu_torch.data import DataSet
+
+    idx, chars = text_corpus()
+    vocab = len(chars)
+    torch.cuda.empty_cache()
+    net = text_generation_net(vocab, dev)
+    n_params = net.num_params()
+    h = TEXT_HIDDEN
+    check(n_params == 4 * h * (vocab + h + 1) + 4 * h * (2 * h + 1)
+          + h * vocab + vocab, f"TextGenerationLSTM has {n_params} "
+          f"parameters")
+    segments = -(-TEXT_SEQ // TEXT_TBPTT)
+    # a fixed segment's score before and after training: the batches'
+    # own losses are each a different batch's last segment
+    probe = DataSet(*text_batch(idx, vocab, TEXT_BATCH, TEXT_TBPTT, dev,
+                                SEED + 49))
+    score_before = net.score(probe)
+    losses = []
+    for i in range(TEXT_WARMUP):
+        net.fit(DataSet(*text_batch(idx, vocab, TEXT_BATCH, TEXT_SEQ, dev,
+                                    SEED + 50 + i)))
+        losses.append(net.score_value)
+    batches = [text_batch(idx, vocab, TEXT_BATCH, TEXT_SEQ, dev,
+                          SEED + 60 + i) for i in range(TEXT_TIMED)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prof = OpProfiler.get()
+    prof.reset()
+    _reset_kernel_counts()
+    ms = []
+    for x, y in batches:
+        t0 = time.perf_counter()
+        net.fit(DataSet(x, y))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(net.score_value)
+    counts = _kernel_counts()
+    counters = prof.get_counters()
+    peak = torch.cuda.max_memory_allocated()
+    check(counts["fused_update"] == segments * TEXT_TIMED
+          and counters.get("precision/fused_fallbacks", 0) == 0,
+          f"fused_update launched {counts['fused_update']} times in "
+          f"{TEXT_TIMED} batches of {segments} segments (want one per "
+          f"segment, no fallback)")
+    check(counts["bn_act"] == counts["embedding_bag"]
+          == counts["flash_attention"] == 0, f"kernel counts {counts}")
+    check(net._iteration == TEXT_WARMUP + TEXT_TIMED, f"iteration "
+          f"{net._iteration} after {TEXT_WARMUP + TEXT_TIMED} batches")
+    score_after = net.score(probe)
+    check(all(np.isfinite(losses)) and score_after < score_before,
+          f"TextGenerationLSTM loss did not fall: a fixed segment scores "
+          f"{score_before} -> {score_after}; batch losses {losses}")
+    chars_per_s = TEXT_BATCH * TEXT_SEQ * len(ms) / sum(ms) * 1e3
+    result = {"vocab": vocab, "params": n_params, "batch": TEXT_BATCH,
+              "seq": TEXT_SEQ, "tbptt": TEXT_TBPTT,
+              "segments_per_batch": segments,
+              "fused_update_launches": counts["fused_update"],
+              "fused_update_launches_per_batch":
+                  counts["fused_update"] / TEXT_TIMED,
+              "chars_per_s": chars_per_s, **_ms_stats(ms),
+              "segment_ms_median": statistics.median(ms) / segments,
+              "peak_bytes": peak, "losses": losses,
+              "probe_score": [score_before, score_after]}
+    log(f"[sequences] TextGenerationLSTM (hidden {h}, 2 LSTM layers, "
+        f"vocabulary {vocab}, {n_params} parameters), float32, "
+        f"Adam(2e-3) fused_update, truncated BPTT {TEXT_TBPTT} over "
+        f"{TEXT_SEQ} characters at batch {TEXT_BATCH}: "
+        f"{chars_per_s:.1f} characters/s, batch ms median "
+        f"{result['step_ms_median']:.2f} p10 {result['step_ms_p10']:.2f} "
+        f"p90 {result['step_ms_p90']:.2f} ({TEXT_TIMED} batches after "
+        f"{TEXT_WARMUP} warm-up); {segments} segments and "
+        f"{counts['fused_update'] / TEXT_TIMED:.0f} fused_update launches "
+        f"per batch; peak device memory {peak} B; a fixed segment's loss "
+        f"{score_before:.5f} -> {score_after:.5f} (batch losses "
+        f"{losses[0]:.5f} -> {losses[-1]:.5f}); {smi}")
+    result["streaming"] = text_streaming(net, idx, vocab, smi, dev)
+    del net, batches
+    torch.cuda.empty_cache()
+    result["parity"] = text_parity(idx, vocab, smi, dev)
+    result["classifier"] = seq_classifier_parity(smi, dev)
+    result["shape_layers"] = shape_layers_parity(smi, dev)
+    return result
+
+
+def text_streaming(net, idx, vocab: int, smi: str, dev) -> dict:
+    """Prime with TEXT_PRIME characters, then generate TEXT_GENERATE more,
+    one rnn_time_step each, sampled on the host from the softmax (seeded).
+    Gate: rnn_time_step over a sequence in chunks of 10 equals output on
+    the whole sequence within rtol 1e-5, atol 1e-6."""
+    hot = torch.nn.functional.one_hot(
+        torch.from_numpy(idx[:TEXT_STREAM_T]).to(dev), vocab).to(
+            torch.float32)[None].repeat(2, 1, 1)
+    full = net.output(hot)
+    net.rnn_clear_previous_state()
+    parts = torch.cat([net.rnn_time_step(hot[:, s:s + 10])
+                       for s in range(0, TEXT_STREAM_T, 10)], dim=1)
+    excess = ((parts - full).abs() - (1e-6 + 1e-5 * full.abs())).max().item()
+    check(excess <= 0, f"rnn_time_step in chunks of 10 against output: "
+          f"exceeds rtol 1e-5, atol 1e-6 by {excess}")
+    net.rnn_clear_previous_state()
+    rng = np.random.default_rng(SEED + 70)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = net.rnn_time_step(hot[:1, :TEXT_PRIME])
+    torch.cuda.synchronize()
+    prime_ms = (time.perf_counter() - t0) * 1e3
+    eye = torch.eye(vocab, device=dev)
+    picked = []
+    t0 = time.perf_counter()
+    for _ in range(TEXT_GENERATE):
+        p = out[0, -1].double().cpu().numpy()
+        c = int(rng.choice(vocab, p=p / p.sum()))
+        picked.append(c)
+        out = net.rnn_time_step(eye[c][None])
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t0) * 1e3 / TEXT_GENERATE
+    check(bool(torch.isfinite(out).all()) and out.shape == (1, 1, vocab),
+          f"generation output {tuple(out.shape)}")
+    log(f"[sequences] streaming: prime {TEXT_PRIME} characters in "
+        f"{prime_ms:.2f} ms, then {TEXT_GENERATE} generated one "
+        f"rnn_time_step each at {gen_ms:.3f} ms per character (host "
+        f"sampling included); chunks of 10 against output over "
+        f"{TEXT_STREAM_T} steps within rtol 1e-5, atol 1e-6 (margin "
+        f"{-excess:.3e}); {smi}")
+    return {"prime_ms": prime_ms, "ms_per_char": gen_ms,
+            "chunk_margin": -excess, "distinct_generated": len(set(picked))}
+
+
+def text_parity(idx, vocab: int, smi: str, dev) -> dict:
+    """One TBPTT batch (T TEXT_PARITY_T: three segments) of the full-width
+    TextGenerationLSTM on the card and on the CPU from the same seeded
+    parameters, float32, TF32 off: every parameter within 1e-4 of its
+    leaf's scale, and the loss within 1e-4 relative."""
+    from deeplearning4j_tpu_torch.data import DataSet
+
+    x, y = text_batch(idx, vocab, TEXT_BATCH, TEXT_PARITY_T, dev, SEED + 80)
+    nets = []
+    for where, xx, yy in ((dev, x, y), ("cpu", x.cpu(), y.cpu())):
+        net = text_generation_net(vocab, where)
+        net.fit(DataSet(xx, yy))
+        nets.append(net)
+    card, host = nets
+    err = _tree_err(card._params, host._params)
+    loss_err = abs(card.score_value - host.score_value) \
+        / abs(host.score_value)
+    check(err <= 1e-4 and loss_err <= 1e-4, f"TextGenerationLSTM TBPTT "
+          f"batch card vs CPU: parameters {err}, loss {loss_err} (want "
+          f"<= 1e-4)")
+    log(f"[sequences] parity: TextGenerationLSTM full width, one TBPTT "
+        f"batch of {TEXT_PARITY_T} steps (3 segments), card vs CPU: "
+        f"parameters within {err:.3e} of their scale, loss "
+        f"{card.score_value:.7f} vs {host.score_value:.7f} (<= 1e-4); "
+        f"{smi}")
+    return {"param_err": err, "loss_rel_err": loss_err}
+
+
+def seq_classifier_conf():
+    """MaskingLayer, Bidirectional(LSTM), GRU, LastTimeStep(GRU) and a
+    softmax head, trained with truncated BPTT (Adam(1e-3), fused_update)."""
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.builder import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+
+    c = SEQ_CLS
+    return (NeuralNetConfiguration.builder().seed(SEED).updater(Adam(1e-3))
+            .fused_update().list()
+            .layer(L.MaskingLayer())
+            .layer(L.Bidirectional(layer=L.LSTM(n_out=c["width"])))
+            .layer(L.GRU(n_out=c["width"]))
+            .layer(L.LastTimeStep(layer=L.GRU(n_out=c["width"] // 2,
+                                              reset_after=True)))
+            .layer(L.OutputLayer(n_out=c["classes"], loss="mcxent",
+                                 activation="softmax"))
+            .backprop_type("TruncatedBPTT").tbptt_length(c["tbptt"])
+            .set_input_type(InputType.recurrent(c["features"]))
+            .build())
+
+
+def seq_classifier_parity(smi: str, dev) -> dict:
+    """The masked classifier fit through an iterator of two batches with
+    variable lengths (zero-padded; the MaskingLayer derives the mask) on
+    the card and on the CPU from the same parameters: one fused_update
+    launch per segment on the card, every parameter within 1e-4 of its
+    leaf's scale."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.data.iterators import (
+        ExistingDataSetIterator)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    c = SEQ_CLS
+    rng = np.random.default_rng(SEED + 90)
+    data = []
+    for _ in range(2):
+        x = rng.normal(size=(c["batch"], c["T"], c["features"])).astype(
+            np.float32)
+        lengths = rng.integers(1, c["T"] + 1, c["batch"])
+        x[np.arange(c["T"])[None, :] >= lengths[:, None]] = 0.0
+        y = np.eye(c["classes"], dtype=np.float32)[
+            rng.integers(0, c["classes"], c["batch"])]
+        data.append((x, y))
+    nets = []
+    for where in (dev, "cpu"):
+        net = MultiLayerNetwork(seq_classifier_conf()).init(device=where)
+        _reset_kernel_counts()
+        net.fit(ExistingDataSetIterator([DataSet(x, y) for x, y in data]))
+        nets.append((net, _kernel_counts()["fused_update"]))
+    (card, launches), (host, _) = nets
+    segments = 2 * -(-c["T"] // c["tbptt"])
+    check(launches == segments, f"classifier fused_update launches "
+          f"{launches}, want {segments}")
+    err = _tree_err(card._params, host._params)
+    check(err <= 1e-4, f"masked classifier card vs CPU: parameters {err} "
+          f"of their scale (want <= 1e-4)")
+    log(f"[sequences] masked classifier (MaskingLayer, Bidirectional(LSTM "
+        f"{c['width']}), GRU, LastTimeStep(GRU), {card.num_params()} "
+        f"parameters) fit through an iterator of 2 batches, lengths 1 to "
+        f"{c['T']}, truncated BPTT {c['tbptt']}: {launches} fused_update "
+        f"launches; card vs CPU parameters within {err:.3e} of their scale "
+        f"(<= 1e-4); {smi}")
+    return {"param_err": err, "fused_update_launches": launches}
+
+
+#: the module's shape layers at phase 25's check, with their input shapes
+SHAPE_LAYERS = (
+    ("Convolution1DLayer", (4, 64, 16), dict(n_out=32, kernel_size=5,
+                                             stride=2, padding=2)),
+    ("Convolution1DLayer", (4, 64, 16), dict(n_out=32, kernel_size=4,
+                                             convolution_mode="same")),
+    ("Subsampling1DLayer", (4, 64, 16), dict(kernel_size=3, stride=2,
+                                             padding=1)),
+    ("Subsampling1DLayer", (4, 64, 16), dict(pooling_type="avg")),
+    ("Upsampling1D", (4, 64, 16), dict(size=3)),
+    ("ZeroPadding1DLayer", (4, 64, 16), dict(padding=(2, 3))),
+    ("Cropping1D", (4, 64, 16), dict(cropping=(3, 1))),
+    ("SeparableConvolution1D", (4, 64, 16), dict(n_out=24, kernel_size=3,
+                                                 depth_multiplier=2)),
+    ("Upsampling2D", (4, 8, 14, 10), dict(size=(2, 3))),
+    ("ZeroPaddingLayer", (4, 8, 14, 10), dict(padding=(1, 2, 3, 0))),
+    ("Cropping2D", (4, 8, 14, 10), dict(cropping=(2, 1, 0, 3))),
+    ("SpaceToBatchLayer", (4, 8, 14, 10), dict(block_size=2)))
+
+
+def shape_layers_parity(smi: str, dev) -> dict:
+    """A forward and a backward of each 1D and 2D shape layer, card
+    against CPU from the same seeded parameters and input, float32: the
+    output and the gradients of a seeded weighted sum within 1e-5 of each
+    array's scale."""
+    from deeplearning4j_tpu_torch.common.tree import (get_path, leaf_paths,
+                                                      tree_map)
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+
+    worst = {}
+    for i, (kind, shape, kw) in enumerate(SHAPE_LAYERS):
+        layer = getattr(L, kind)(**kw)
+        layer.weight_init, layer.activation = "xavier", "identity"
+        layer.set_input_type(InputType.recurrent(shape[2], shape[1])
+                             if len(shape) == 3 else
+                             InputType.convolutional(shape[2], shape[3],
+                                                     shape[1]))
+        gen = torch.Generator().manual_seed(SEED + i)
+        params = layer.init_params(gen) if layer.has_params else {}
+        x = torch.randn(shape, generator=gen)
+        results = []
+        for where in (dev, "cpu"):
+            p = tree_map(lambda t: t.to(where).requires_grad_(True), params)
+            xx = x.to(where).requires_grad_(True)
+            y, _ = layer.apply(p, xx, {}, False)
+            ct = torch.randn(y.shape, generator=torch.Generator()
+                             .manual_seed(SEED + 100 + i)).to(where)
+            paths = leaf_paths(p)
+            grads = torch.autograd.grad((y * ct).sum(), [xx] + [
+                get_path(p, q) for q in paths])
+            results.append([y.detach().cpu()] + [g.cpu() for g in grads])
+        err = max((a - b).abs().max().item()
+                  / max(b.abs().max().item(), 1e-30)
+                  for a, b in zip(*results))
+        name = f"{kind}{kw}"
+        worst[name] = err
+        check(err <= 1e-5, f"{name} card vs CPU: {err} of the scale (want "
+              f"<= 1e-5)")
+    log(f"[sequences] shape layers: {len(SHAPE_LAYERS)} 1D and 2D layers, "
+        f"forward and backward, card vs CPU within "
+        f"{max(worst.values()):.3e} of the scale (<= 1e-5); {smi}")
+    return worst
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
@@ -5180,6 +5565,8 @@ def main(argv=None) -> int:
         del sents, host_sg, ft_model
         torch.cuda.empty_cache()
         zoo_cnn = phase_zoo_cnn(smi, dev)
+        torch.cuda.empty_cache()
+        seq = phase_sequences(smi, dev)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -5231,7 +5618,8 @@ def main(argv=None) -> int:
         "launches_encoder_train": enc_train["fused_update_launches"],
         "launches_zoo_cnn": {n: r["fused_update_launches"]
                              for n, r in zoo_cnn.items()
-                             if "fused_update_launches" in r}})
+                             if "fused_update_launches" in r},
+        "launches_textgen": seq["fused_update_launches"]})
     bp = bag_timing["path"]
     kernels.append({
         "name": "embedding_bag", "route": "cuda",
@@ -5332,7 +5720,8 @@ def main(argv=None) -> int:
                       "fasttext": {k: v for k, v in ft.items()
                                    if k != "bag"},
                       "glove": glove, "deepwalk": deepwalk,
-                      "serializer": ser}, default=str), flush=True)
+                      "serializer": ser, "sequences": seq}, default=str),
+          flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -26,14 +26,15 @@ be a schedule (``learning/schedules.py``).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Sequence, Union
+from typing import Any, Dict, Sequence, Union
 
 import numpy as np
 import torch
 
 from ..common.dtypes import torch_dtype
+from ..common.tree import get_path, leaf_paths, set_path, skeleton, tree_map
 
-Tree = Dict[str, Dict[str, torch.Tensor]]
+Tree = Dict[str, Dict[str, Any]]
 
 
 def _lr_at(lr: Union[float, object], iteration: int) -> float:
@@ -50,17 +51,9 @@ def f32_scalars(values: Sequence[float], device) -> tuple:
     return tuple(torch.tensor(np.float32(v), device=device) for v in values)
 
 
-def tree_map(fn, *trees: Tree) -> Tree:
-    """``fn`` over matching leaves of ``{node: {name: tensor}}`` trees."""
-    first = trees[0]
-    return {n: {k: fn(*(t[n][k] for t in trees)) for k in d}
-            for n, d in first.items()}
-
-
 def _device_of(tree: Tree):
-    for d in tree.values():
-        for t in d.values():
-            return t.device
+    for p in leaf_paths(tree):
+        return get_path(tree, p).device
     return torch.device("cpu")
 
 
@@ -127,17 +120,14 @@ class Nesterovs(GradientUpdater):
         lr, mu, opmu = f32_scalars(
             [_lr_at(self.learning_rate, iteration), self.momentum,
              1.0 + self.momentum], _device_of(params))
-        new_p: Tree = {n: {} for n in params}
-        new_v: Tree = {n: {} for n in params}
         # reference Nesterovs: vPrev = v; v = mu*v - lr*g;
         # p += -mu*vPrev + (1+mu)*v
-        for n, d in params.items():
-            for k, p in d.items():
-                v = state["v"][n][k]
-                v_new = mu * v - lr * grads[n][k]
-                new_p[n][k] = p + (-mu * v + opmu * v_new)
-                new_v[n][k] = v_new
-        return new_p, {"v": new_v}
+        def upd(p, g, v):
+            v_new = mu * v - lr * g
+            return p + (-mu * v + opmu * v_new), v_new
+
+        new_p, (v,) = _map_leaves(upd, params, grads, state["v"])
+        return new_p, {"v": v}
 
 
 @dataclass
@@ -166,18 +156,15 @@ class Adam(GradientUpdater):
     def apply(self, grads, state, params, iteration):
         sc = self._scalars(iteration, _device_of(params))
         b1, b2, omb1, omb2 = sc[1], sc[2], sc[6], sc[7]
-        new_p: Tree = {n: {} for n in params}
-        new_m: Tree = {n: {} for n in params}
-        new_v: Tree = {n: {} for n in params}
-        for n, d in params.items():
-            for k, p in d.items():
-                g = grads[n][k]
-                m_new = b1 * state["m"][n][k] + omb1 * g
-                v_new = b2 * state["v"][n][k] + omb2 * (g * g)
-                new_p[n][k] = p - self._step(sc, p, m_new, v_new)
-                new_m[n][k] = m_new
-                new_v[n][k] = v_new
-        return new_p, {"m": new_m, "v": new_v}
+
+        def upd(p, g, m, v):
+            m_new = b1 * m + omb1 * g
+            v_new = b2 * v + omb2 * (g * g)
+            return p - self._step(sc, p, m_new, v_new), m_new, v_new
+
+        new_p, (m, v) = _map_leaves(upd, params, grads, state["m"],
+                                    state["v"])
+        return new_p, {"m": m, "v": v}
 
 
 @dataclass
@@ -199,14 +186,14 @@ class AdamW(Adam):
 def _map_leaves(fn, params: Tree, grads: Tree, *slots: Tree):
     """``fn(p, g, *slot_leaves) -> (new_p, *new_slot_leaves)`` over every
     leaf; returns ``(new_params, [new_slot_tree, ...])``."""
-    new_p: Tree = {n: {} for n in params}
-    new_s = [{n: {} for n in params} for _ in slots]
-    for n, d in params.items():
-        for k, p in d.items():
-            out = fn(p, grads[n][k], *(s[n][k] for s in slots))
-            new_p[n][k] = out[0]
-            for tree, leaf in zip(new_s, out[1:]):
-                tree[n][k] = leaf
+    new_p: Tree = skeleton(params)
+    new_s = [skeleton(params) for _ in slots]
+    for path in leaf_paths(params):
+        out = fn(get_path(params, path), get_path(grads, path),
+                 *(get_path(s, path) for s in slots))
+        set_path(new_p, path, out[0])
+        for tree, leaf in zip(new_s, out[1:]):
+            set_path(tree, path, leaf)
     return new_p, new_s
 
 

@@ -1,3 +1,4 @@
 from .zoo import (AlexNet, Darknet19, FaceNetNN4Small2, InceptionResNetV1,
-                  LeNet, NASNet, ResNet50, SimpleCNN, SqueezeNet, TinyYOLO,
-                  UNet, VGG16, VGG19, Xception, YOLO2, ZooModel)
+                  LeNet, NASNet, ResNet50, SimpleCNN, SqueezeNet,
+                  TextGenerationLSTM, TinyYOLO, UNet, VGG16, VGG19, Xception,
+                  YOLO2, ZooModel)

@@ -1,16 +1,16 @@
-"""Model zoo: the CNNs of the JAX package's zoo.
+"""Model zoo: the CNNs and the character-level LSTM of the JAX package's zoo.
 
 Counterpart of ``deeplearning4j_tpu/models/zoo.py``, each model with the JAX
 constructor's arguments and defaults and the JAX configuration letter for
 letter: the ``MultiLayerNetwork``s LeNet, SimpleCNN, AlexNet, VGG16, VGG19,
-Darknet19 and TinyYOLO (parameters carry across by layer), and the
+Darknet19, TinyYOLO and TextGenerationLSTM (parameters carry across by
+layer), and the
 ``ComputationGraph``s ResNet50, SqueezeNet, UNet, YOLO2, Xception,
 InceptionResNetV1, FaceNetNN4Small2 and NASNet, with the JAX package's node
 names (parameters carry across by name, ``util/convert.py``). ``conf()``
 builds the configuration without allocating; ``init(device=)`` the
 initialized network, on the card unless the caller asks for another device.
-TextGenerationLSTM (the recurrent layers) and pretrained weights are not
-ported yet.
+Pretrained weights are not ported yet.
 """
 
 from __future__ import annotations
@@ -425,6 +425,28 @@ class UNet(ZooModel):
         return (gb.set_outputs("output")
                 .set_input_types(InputType.convolutional(
                     self.image_size, self.image_size, self.n_channels))
+                .build())
+
+
+class TextGenerationLSTM(ZooModel):
+    """The zoo's character-level language model: two LSTM(hidden) layers and
+    a softmax RnnOutputLayer with mcxent over the vocabulary, Adam(2e-3),
+    one-hot characters in."""
+
+    def __init__(self, vocab_size: int, hidden: int = 256, seed: int = 123):
+        self.vocab_size = vocab_size
+        self.hidden = hidden
+        self.seed = seed
+
+    def conf(self) -> MultiLayerConfiguration:
+        return (NeuralNetConfiguration.builder()
+                .seed(self.seed).updater(Adam(2e-3))
+                .list()
+                .layer(L.LSTM(n_out=self.hidden))
+                .layer(L.LSTM(n_out=self.hidden))
+                .layer(L.RnnOutputLayer(n_out=self.vocab_size, loss="mcxent",
+                                        activation="softmax"))
+                .set_input_type(InputType.recurrent(self.vocab_size))
                 .build())
 
 

@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 
 from ..common.profiler import OpProfiler
+from ..common.tree import get_path, leaf_paths
 from ..ops.update import apply_flat_updater
 from ..parallel.sharding import Zero1Plan, is_flat_state
 
@@ -53,8 +54,8 @@ class FlatStore:
         with torch.no_grad():
             self.params = plan.flatten(params)
         self.param_views = plan.unflatten(self.params)
-        for n, k in plan.paths:
-            t = self.param_views[n][k]
+        for p in plan.paths:
+            t = get_path(self.param_views, p)
             if t.is_floating_point():
                 t.requires_grad_(True)
         self.grads = {k: torch.zeros_like(v) for k, v in self.params.items()}
@@ -65,11 +66,11 @@ class FlatStore:
         """True while ``params`` are still this store's views (a caller may
         have replaced the dict or single entries)."""
         views = self.param_views
-        if sum(len(d) for d in params.values()) != self.plan.n_leaves:
+        if len(leaf_paths(params)) != self.plan.n_leaves:
             return False
         try:
-            return all(params[n][k] is views[n][k]
-                       for n, k in self.plan.paths)
+            return all(get_path(params, p) is get_path(views, p)
+                       for p in self.plan.paths)
         except KeyError:
             return False
 
@@ -87,8 +88,8 @@ class FlatStore:
         view, so the next backward accumulates into the buckets."""
         for g in self.grads.values():
             g.zero_()
-        for n, k in self.plan.paths:
-            self.param_views[n][k].grad = self.grad_views[n][k]
+        for p in self.plan.paths:
+            get_path(self.param_views, p).grad = get_path(self.grad_views, p)
 
 
 def apply_fused_flat(store: FlatStore, updater, iteration: int,

@@ -34,15 +34,17 @@ import numpy as np
 import torch
 
 from ..common.dtypes import tensor_from_numpy, torch_dtype
+from ..common.tree import get_path, leaf_paths, set_path, skeleton, tree_map
 from ..data import pipeline as _pipe
-from ..learning.precision import apply_updater, note_state_bytes
-from ..parallel.sharding import leaf_paths
+from ..learning.precision import (apply_updater, cast_floating,
+                                  note_state_bytes)
 from ._fused import FlatStore, apply_fused_flat, fused_flat_plan
 from .gradnorm import normalize_gradients_
 
 
 class TrainableNetwork:
-    """Parameters (``{name: {key: tensor}}``), layer states, updater state,
+    """Parameters (``{name: {key: tensor}}``, one level deeper under a
+    wrapper layer: ``common/tree.py``), layer states, updater state,
     flat buckets, the inference cast cache and the generator of a network
     built from ``conf``."""
 
@@ -95,7 +97,7 @@ class TrainableNetwork:
 
     # --- parameters ----------------------------------------------------------
     def _leaves(self) -> List[torch.Tensor]:
-        return [self._params[n][k] for n, k in leaf_paths(self._params)]
+        return [get_path(self._params, p) for p in leaf_paths(self._params)]
 
     def params(self) -> torch.Tensor:
         """All parameters as one flat vector, in the JAX network's order."""
@@ -113,17 +115,17 @@ class TrainableNetwork:
         gradients as ``{node: {name: tensor}}``; the score is published as
         ``score_value``."""
         paths = leaf_paths(self._params)
-        leaves = [self._params[n][k].detach().requires_grad_(True)
-                  for n, k in paths]
-        params = {n: {} for n in self._params}
-        for (n, k), t in zip(paths, leaves):
-            params[n][k] = t
+        leaves = [get_path(self._params, p).detach().requires_grad_(True)
+                  for p in paths]
+        params = skeleton(self._params)
+        for p, t in zip(paths, leaves):
+            set_path(params, p, t)
         with torch.enable_grad():
             loss = loss_fn(params)
             flat = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = {n: {} for n in self._params}
-        for (n, k), t, g in zip(paths, leaves, flat):
-            grads[n][k] = torch.zeros_like(t) if g is None else g
+        grads = skeleton(self._params)
+        for p, t, g in zip(paths, leaves, flat):
+            set_path(grads, p, torch.zeros_like(t) if g is None else g)
         self._score = loss.detach()
         return grads, float(self._score)
 
@@ -173,7 +175,7 @@ class TrainableNetwork:
         store = self._flat_store()
         note_state_bytes(self._updater_state)
         if serial:
-            self._fit_serial(data, epochs, store, skip)
+            self._fit_serial(data, epochs, store, skip, batch_size)
             return
 
         def dispatch(group):
@@ -189,12 +191,15 @@ class TrainableNetwork:
             on_epoch=self._on_epoch, allow_multi=self._allow_multi,
             skip=skip)
 
-    def _fit_serial(self, data, epochs: int, store, skip) -> None:
-        """One unpadded step per DataSet (the loss's plain mean); a resume
-        cursor skips the steps the checkpoint had taken."""
+    def _fit_serial(self, data, epochs: int, store, skip,
+                    batch_size: Optional[int] = None) -> None:
+        """One unpadded step per DataSet (the loss's plain mean; a DataSet
+        re-batched by ``batch_size`` when given); a resume cursor skips the
+        steps the checkpoint had taken."""
         skip_epochs, skip_steps = skip if skip is not None else (0, 0)
         for e in range(max(1, epochs)):
-            batches = _pipe.iter_datasets(data, None, self._allow_multi)
+            batches = _pipe.iter_datasets(data, batch_size,
+                                          self._allow_multi)
             if e < skip_epochs:
                 for _ in batches:
                     pass
@@ -205,9 +210,14 @@ class TrainableNetwork:
                     to_skip -= 1
                     continue
                 batch = self._place_batch(self._bind_batch(ds, None))
-                loss = self._step(store, batch, self._iteration)
+                loss = self._serial_step(store, batch)
                 _pipe.note_steps(self, self._listeners, [loss])
             self._on_epoch()
+
+    def _serial_step(self, store, batch) -> torch.Tensor:
+        """The serial loop's step on a placed batch (a network may run it as
+        several, as truncated BPTT does)."""
+        return self._step(store, batch, self._iteration)
 
     def generator(self) -> torch.Generator:
         """The network's own generator for dropout and stochastic-rounding
@@ -224,13 +234,12 @@ class TrainableNetwork:
         kernel writes the bucket through raw pointers, which bumps no
         version."""
         ct = torch_dtype(self.conf.global_conf.compute_dtype)
-        leaves = [t for p in params.values() for t in p.values()]
+        leaves = [get_path(params, p) for p in leaf_paths(params)]
         key = (ct,) + tuple((id(t), t._version) for t in leaves)
         cached = self._cast_cache
         if cached is not None and cached[0] == key:
             return cached[1]
-        cast = {n: {k: (t.to(ct) if t.is_floating_point() else t)
-                    for k, t in p.items()} for n, p in params.items()}
+        cast = cast_floating(params, ct)
         # the cache holds the source tensors too, so their ids stay unique
         self._cast_cache = (key, cast, leaves)
         return cast
@@ -265,7 +274,7 @@ class TrainableNetwork:
         gc = self.conf.global_conf
         params = self._params
         paths = leaf_paths(params)
-        leaves = [params[n][k] for n, k in paths]
+        leaves = [get_path(params, p) for p in paths]
         if store is None:
             for t in leaves:
                 if t.is_floating_point() and not t.requires_grad:
@@ -281,15 +290,16 @@ class TrainableNetwork:
                 # centers) takes a zero gradient, as under jax.grad
                 flat_grads = torch.autograd.grad(loss, leaves,
                                                  allow_unused=True)
-                grads = {n: {} for n in params}
-                for (n, k), t, g in zip(paths, leaves, flat_grads):
-                    grads[n][k] = torch.zeros_like(t) if g is None else g
+                grads = skeleton(params)
+                for p, t, g in zip(paths, leaves, flat_grads):
+                    set_path(grads, p,
+                             torch.zeros_like(t) if g is None else g)
         if gc.grad_normalization:
             # after the backward, before the update (the JAX networks'
             # order); on the fused path in place on the gradient bucket's
             # leaf views
             tree = store.grad_views if store is not None else grads
-            normalize_gradients_([tree[n][k] for n, k in paths],
+            normalize_gradients_([get_path(tree, p) for p in paths],
                                  gc.grad_normalization, gc.grad_norm_threshold)
         with torch.no_grad():
             if store is not None:
@@ -299,11 +309,10 @@ class TrainableNetwork:
                 new_params, self._updater_state = apply_updater(
                     gc.updater, grads, self._updater_state, params,
                     iteration, self.generator())
-                for n, k in paths:
-                    params[n][k].copy_(new_params[n][k])
+                for p in paths:
+                    get_path(params, p).copy_(get_path(new_params, p))
         # the parameters changed in place: on the card the fused kernel
         # wrote them behind the versions that the cast cache's key reads
         self._cast_cache = None
-        new_states = {n: {k: v.detach() for k, v in d.items()}
-                      for n, d in new_states.items()}
+        new_states = tree_map(lambda v: v.detach(), new_states)
         return loss.detach(), new_states

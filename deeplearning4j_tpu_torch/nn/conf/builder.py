@@ -177,9 +177,8 @@ class ListBuilder:
     setInputType = set_input_type
 
     def backprop_type(self, bp: str) -> "ListBuilder":
-        """"Standard" or "TruncatedBPTT" (stored and validated as in the
-        JAX package; ``MultiLayerNetwork.fit`` refuses TBPTT until the
-        recurrent layers are ported)."""
+        """"Standard" or "TruncatedBPTT": ``MultiLayerNetwork.fit`` then
+        steps once per ``tbptt_length`` segment of each sequence batch."""
         if bp not in ("Standard", "TruncatedBPTT"):
             raise ValueError("backprop_type must be Standard|TruncatedBPTT")
         self._backprop_type = bp
@@ -217,7 +216,7 @@ class ListBuilder:
 
 def apply_layer_defaults(l: L.Layer, gc: GlobalConf) -> None:
     """Cascade global defaults onto a layer, and onto the layer a wrapper
-    (``TimeDistributed``) holds."""
+    (``TimeDistributed``, ``Bidirectional``, ``LastTimeStep``) holds."""
     if l.activation is None and not isinstance(l, L.OutputLayer):
         l.activation = gc.activation
     if l.weight_init is None:
@@ -266,7 +265,8 @@ class MultiLayerConfiguration:
                           layer: L.Layer) -> Optional[Preprocessor]:
         if isinstance(cur, CNNFlatInput):
             return flat_to_cnn(cur)
-        if isinstance(cur, CNNInput) and isinstance(layer, L.FF_LIKE):
+        if isinstance(cur, CNNInput) and isinstance(layer, L.FF_LIKE) \
+                and not isinstance(layer, L.RnnOutputLayer):
             return cnn_to_ff(cur)
         if isinstance(cur, RNNInput) and isinstance(layer, L.DenseLayer) \
                 and not isinstance(layer, L.OutputLayer):

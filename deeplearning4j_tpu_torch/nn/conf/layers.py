@@ -26,6 +26,16 @@ it: mask-oblivious layers ignore the mask; ``GlobalPoolingLayer`` leaves
 padded steps out of its pooling and ``SelfAttentionLayer`` masks the
 attention keys.
 
+The recurrent layers (``LSTM``, ``GravesLSTM``, ``GRU`` in both forms,
+``SimpleRnn``) run the ops of ``ops/recurrent.py`` over ``[B, T, F]``. With
+a feature mask their outputs at padded steps are zeroed; their carry does
+not stop there, as in the JAX package. ``is_rnn``, ``init_rnn_state`` and
+``apply_rnn`` carry the state across time chunks (truncated BPTT and
+``MultiLayerNetwork.rnn_time_step``). ``Bidirectional`` runs its layer
+forward and on the reversed sequence (parameters ``{"fwd": {...}, "bwd":
+{...}}``), ``LastTimeStep`` keeps its layer's last step, and
+``RnnOutputLayer`` is the dense head at every step.
+
 ``constraints`` (``layers_ext.MaxNormConstraint`` and kin) are projections
 that ``MultiLayerNetwork`` applies to the weights after each update.
 ``weight_noise`` exists for configuration parity with the JAX package and
@@ -52,6 +62,7 @@ import torch
 
 from ...ops import epilogue as _epilogue
 from ...ops import nn as ops
+from ...ops import recurrent as rnn_ops
 from ..activations import activation_fn
 from ..losses import ILossFunction, LossMCXENT, loss_from_name
 from ..weights import init_weights
@@ -121,6 +132,22 @@ class Layer:
     @property
     def has_params(self) -> bool:
         return True
+
+    # -- the recurrent carry of truncated BPTT and rnn_time_step --------
+    def is_rnn(self) -> bool:
+        return False
+
+    def init_rnn_state(self, batch: int, dtype=torch.float32, device=None):
+        """The zero carry of :meth:`apply_rnn`; None for a stateless
+        layer."""
+        return None
+
+    def apply_rnn(self, params, x, rnn_state, state, training=False, *,
+                  generator: Optional[torch.Generator] = None):
+        """Forward one time chunk from an explicit recurrent carry:
+        ``(y, new_rnn_state, new_state)``."""
+        y, st = self.apply(params, x, state, training, generator=generator)
+        return y, rnn_state, st
 
 
 @dataclass
@@ -508,6 +535,255 @@ class GlobalPoolingLayer(Layer):
         return False
 
 
+# --- recurrent ---------------------------------------------------------------
+
+
+@dataclass
+class _RecurrentLayer(Layer):
+    """What LSTM, GRU and SimpleRnn share: RNN input, the forward from an
+    optional carry (:meth:`_run`), outputs at padded steps zeroed under a
+    feature mask, and the carry across time chunks."""
+
+    n_out: int = 0
+
+    def set_input_type(self, input_type):
+        if not isinstance(input_type, RNNInput):
+            raise ValueError(f"{type(self).__name__} needs RNN input "
+                             f"[B, T, F]")
+        self.n_in = input_type.size
+        return RNNInput(self.n_out, input_type.timesteps)
+
+    def _run(self, params, x, carry):
+        """``(outputs, final carry)`` from ``carry`` (None: zeros)."""
+        raise NotImplementedError
+
+    def apply(self, params, x, state, training=False, *, generator=None):
+        x = self._maybe_dropout(x, training, generator)
+        return self._run(params, x, None)[0], state
+
+    def apply_masked(self, params, x, state, training, fmask, *,
+                     generator=None):
+        y, st = self.apply(params, x, state, training, generator=generator)
+        return y * fmask[:, :, None].to(y.dtype), st
+
+    def is_rnn(self):
+        return True
+
+    def init_rnn_state(self, batch, dtype=torch.float32, device=None):
+        return torch.zeros((batch, self.n_out), dtype=dtype, device=device)
+
+    def apply_rnn(self, params, x, rnn_state, state, training=False, *,
+                  generator=None):
+        x = self._maybe_dropout(x, training, generator)
+        ys, carry = self._run(params, x, rnn_state)
+        return ys, carry, state
+
+
+@dataclass
+class LSTM(_RecurrentLayer):
+    """The LSTM with the fused ``[nIn+nOut, 4*nOut]`` IFOG weight ``W`` and
+    bias ``b`` (forget-gate bias 1). The cell always uses tanh; another
+    configured activation (but identity) applies again to the outputs, as
+    in the JAX layer."""
+
+    def init_params(self, gen, dtype=torch.float32, device=None):
+        w = init_weights(gen, (self.n_in + self.n_out, 4 * self.n_out),
+                         self.weight_init or "xavier", dtype, device=device)
+        b = torch.zeros((4 * self.n_out,), dtype=dtype, device=device)
+        b[self.n_out:2 * self.n_out] = 1.0
+        return {"W": w, "b": b}
+
+    def _run(self, params, x, carry):
+        h0, c0 = carry if carry is not None else (None, None)
+        ys, carry = rnn_ops.lstm_layer(x, params["W"], params["b"], h0=h0,
+                                       c0=c0)
+        act = self.activation
+        if act and act.lower() not in ("tanh", "identity"):
+            ys = activation_fn(act)(ys)
+        return ys, carry
+
+    def init_rnn_state(self, batch, dtype=torch.float32, device=None):
+        z = torch.zeros((batch, self.n_out), dtype=dtype, device=device)
+        return (z, z)
+
+
+@dataclass
+class GravesLSTM(LSTM):
+    """GravesLSTM without peepholes (deprecated upstream): the LSTM."""
+
+
+@dataclass
+class GRU(_RecurrentLayer):
+    """The GRU: ``reset_after=False`` is the reference gruCell (the reset
+    applies before the recurrent product; ``W_ru``, ``W_c`` over
+    ``[x, h]``), ``reset_after=True`` the CuDNN/Keras form (``W_cx``,
+    ``W_ch`` apart, the reset on the recurrent product)."""
+
+    reset_after: bool = False
+
+    def init_params(self, gen, dtype=torch.float32, device=None):
+        wi = self.weight_init or "xavier"
+        nx, n = self.n_in, self.n_out
+        p = {"W_ru": init_weights(gen, (nx + n, 2 * n), wi, dtype,
+                                  device=device),
+             "b_ru": torch.zeros((2 * n,), dtype=dtype, device=device)}
+        if self.reset_after:
+            p["W_cx"] = init_weights(gen, (nx, n), wi, dtype, device=device)
+            p["W_ch"] = init_weights(gen, (n, n), wi, dtype, device=device)
+            p["b_cx"] = torch.zeros((n,), dtype=dtype, device=device)
+            p["b_ch"] = torch.zeros((n,), dtype=dtype, device=device)
+        else:
+            p["W_c"] = init_weights(gen, (nx + n, n), wi, dtype,
+                                    device=device)
+            p["b_c"] = torch.zeros((n,), dtype=dtype, device=device)
+        return p
+
+    def _run(self, params, x, carry):
+        if self.reset_after:
+            return rnn_ops.gru_layer_ra(
+                x, params["W_ru"], params["W_cx"], params["W_ch"],
+                params["b_ru"], params["b_cx"], params["b_ch"], h0=carry)
+        return rnn_ops.gru_layer(x, params["W_ru"], params["W_c"],
+                                 params["b_ru"], params["b_c"], h0=carry)
+
+
+@dataclass
+class SimpleRnn(_RecurrentLayer):
+    """``h_t = act(x_t W + h_{t-1} RW + b)`` with the configured activation
+    (tanh when none) inside the recurrence."""
+
+    def init_params(self, gen, dtype=torch.float32, device=None):
+        wi = self.weight_init or "xavier"
+        return {"W": init_weights(gen, (self.n_in, self.n_out), wi, dtype,
+                                  device=device),
+                "RW": init_weights(gen, (self.n_out, self.n_out), wi, dtype,
+                                   device=device),
+                "b": torch.zeros((self.n_out,), dtype=dtype, device=device)}
+
+    def _run(self, params, x, carry):
+        return rnn_ops.simple_rnn_layer(
+            x, params["W"], params["RW"], params["b"], h0=carry,
+            activation=activation_fn(self.activation or "tanh"))
+
+
+@dataclass
+class Bidirectional(Layer):
+    """Runs ``layer`` forward and on the time-reversed sequence (its own
+    parameters each, ``{"fwd": {...}, "bwd": {...}}``) and merges the two
+    by ``mode``: concat, add, mul, or else the average. Neither the mask
+    nor a carry reaches the wrapped layer, as in the JAX wrapper."""
+
+    layer: Optional[Layer] = None
+    mode: str = "concat"
+
+    def set_input_type(self, input_type):
+        out = self.layer.set_input_type(input_type)
+        if self.mode.lower() == "concat":
+            return RNNInput(out.size * 2, out.timesteps)
+        return out
+
+    def init_params(self, gen, dtype=torch.float32, device=None):
+        return {"fwd": self.layer.init_params(gen, dtype, device),
+                "bwd": self.layer.init_params(gen, dtype, device)}
+
+    def apply(self, params, x, state, training=False, *, generator=None):
+        fwd, _ = self.layer.apply(params["fwd"], x, {}, training,
+                                  generator=generator)
+        bwd, _ = self.layer.apply(params["bwd"], torch.flip(x, dims=(1,)),
+                                  {}, training, generator=generator)
+        mode = self.mode.lower()
+        if mode not in ("concat", "add", "mul"):
+            mode = "average"
+        return rnn_ops.merge_directions(fwd, torch.flip(bwd, dims=(1,)),
+                                        mode), state
+
+
+@dataclass
+class LastTimeStep(Layer):
+    """``layer`` over RNN input ``[B, T, F]``, then its last step: FF
+    ``[B, F]``. Under a feature mask it still takes step ``T - 1``, as the
+    JAX wrapper does."""
+
+    layer: Optional[Layer] = None
+
+    def set_input_type(self, input_type):
+        return FFInput(self.layer.set_input_type(input_type).size)
+
+    def init_params(self, gen, dtype=torch.float32, device=None):
+        return self.layer.init_params(gen, dtype, device)
+
+    def apply(self, params, x, state, training=False, *, generator=None):
+        ys, state = self.layer.apply(params, x, state, training,
+                                     generator=generator)
+        return ys[:, -1], state
+
+
+# --- shape layers on CNN input -----------------------------------------------
+
+
+@dataclass
+class Upsampling2D(Layer):
+    """Each pixel repeated ``size`` times along H and W
+    (``ops/nn.upsampling2d``)."""
+
+    size: Tuple[int, int] = (2, 2)
+
+    def set_input_type(self, input_type):
+        fh, fw = _pair(self.size)
+        return CNNInput(input_type.channels, input_type.height * fh,
+                        input_type.width * fw)
+
+    def apply(self, params, x, state, training=False, *, generator=None):
+        return ops.upsampling2d(x, factor=_pair(self.size)), state
+
+    @property
+    def has_params(self):
+        return False
+
+
+@dataclass
+class ZeroPaddingLayer(Layer):
+    """Zero rows and columns around NCHW input: ``padding`` is (top,
+    bottom, left, right)."""
+
+    padding: Tuple[int, int, int, int] = (1, 1, 1, 1)
+
+    def set_input_type(self, input_type):
+        t, b, l, r = self.padding
+        return CNNInput(input_type.channels, input_type.height + t + b,
+                        input_type.width + l + r)
+
+    def apply(self, params, x, state, training=False, *, generator=None):
+        t, b, l, r = self.padding
+        return torch.nn.functional.pad(x, (l, r, t, b)), state
+
+    @property
+    def has_params(self):
+        return False
+
+
+@dataclass
+class Cropping2D(Layer):
+    """Rows and columns cut off NCHW input: ``cropping`` is (top, bottom,
+    left, right)."""
+
+    cropping: Tuple[int, int, int, int] = (0, 0, 0, 0)
+
+    def set_input_type(self, input_type):
+        t, b, l, r = self.cropping
+        return CNNInput(input_type.channels, input_type.height - t - b,
+                        input_type.width - l - r)
+
+    def apply(self, params, x, state, training=False, *, generator=None):
+        t, b, l, r = self.cropping
+        h, w = x.shape[2], x.shape[3]
+        return x[:, :, t:h - b, l:w - r], state
+
+    @property
+    def has_params(self):
+        return False
+
+
 @dataclass
 class OutputLayer(DenseLayer):
     """Dense + loss head; the loss is held as configuration."""
@@ -531,6 +807,19 @@ class OutputLayer(DenseLayer):
                       average: bool = True):
         return self.loss.compute_score(labels, self.pre_output(params, x),
                                        self.activation, mask, average)
+
+
+@dataclass
+class RnnOutputLayer(OutputLayer):
+    """The dense head and its loss at every step of RNN input ``[B, T, F]``
+    (the product broadcasts over T)."""
+
+    def set_input_type(self, input_type):
+        if not isinstance(input_type, RNNInput):
+            raise ValueError(f"RnnOutputLayer needs RNN input, got "
+                             f"{input_type}")
+        self.n_in = input_type.size
+        return RNNInput(self.n_out, input_type.timesteps)
 
 
 @dataclass
@@ -683,7 +972,10 @@ class EmbeddingSequenceLayer(EmbeddingLayer):
 FF_LIKE: Tuple[Any, ...] = (DenseLayer, OutputLayer)
 
 from .layers_ext import (CenterLossOutputLayer,  # noqa: E402,F401
-                         LayerNormalization, MaxNormConstraint,
+                         Convolution1DLayer, Cropping1D, LayerNormalization,
+                         MaskingLayer, MaxNormConstraint,
                          MinMaxNormConstraint, NonNegativeConstraint,
-                         SpaceToDepthLayer, TimeDistributed,
-                         UnitNormConstraint, Yolo2OutputLayer)
+                         SeparableConvolution1D, SpaceToBatchLayer,
+                         SpaceToDepthLayer, Subsampling1DLayer,
+                         TimeDistributed, UnitNormConstraint, Upsampling1D,
+                         Yolo2OutputLayer, ZeroPadding1DLayer)

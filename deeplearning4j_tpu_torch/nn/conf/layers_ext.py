@@ -1,15 +1,19 @@
-"""Extended layers: layer normalization, the time-distributed wrapper,
-space-to-depth, the center-loss and YOLOv2 heads, and the parameter
-constraints.
+"""Extended layers: the 1D convolution family, layer normalization, the
+time-distributed wrapper, masking, space-to-depth and space-to-batch, the
+center-loss and YOLOv2 heads, and the parameter constraints.
 
 Counterpart of the classes of ``deeplearning4j_tpu/nn/conf/layers_ext.py``
-that the self-attention encoder, the zoo's CNNs and ``MultiLayerNetwork``
-use (``LayerNormalization``, ``TimeDistributed``, ``SpaceToDepthLayer``,
+that the self-attention encoder, the zoo's CNNs, the recurrent networks and
+``MultiLayerNetwork`` use (``Convolution1DLayer``, ``Subsampling1DLayer``,
+``Upsampling1D``, ``ZeroPadding1DLayer``, ``Cropping1D``,
+``SeparableConvolution1D``, ``LayerNormalization``, ``TimeDistributed``,
+``MaskingLayer``, ``SpaceToDepthLayer``, ``SpaceToBatchLayer``,
 ``CenterLossOutputLayer``, ``Yolo2OutputLayer``, and
 ``MaxNormConstraint``, ``MinMaxNormConstraint``, ``NonNegativeConstraint``,
 ``UnitNormConstraint``, ``layers_ext.py:721-765``); ``nn/conf/layers.py``
 re-exports them, as the JAX package's does. Sequence activations are
-``[B, T, F]``.
+``[B, T, F]``; the 1D layers act along T (``[B, F, T]`` inside, as the
+JAX layers do).
 """
 
 from __future__ import annotations
@@ -21,9 +25,204 @@ import torch
 import torch.nn.functional as F
 
 from ...ops import nn as ops
+from ...ops.shape import space_to_batch
+from ..activations import activation_fn
 from ..losses import ILossFunction
+from ..weights import init_weights
 from .inputs import CNNInput, FFInput, RNNInput
-from .layers import Layer, OutputLayer
+from .layers import Layer, OutputLayer, _pair
+
+
+def _is_same(mode: str) -> bool:
+    return str(mode).lower() == "same"
+
+
+# --- the 1D convolution family, on [B, T, F] sequences ----------------------
+
+
+@dataclass
+class Convolution1DLayer(Layer):
+    """1D convolution along T. W=[out, in, k]."""
+
+    n_out: int = 0
+    kernel_size: int = 3
+    stride: int = 1
+    padding: int = 0
+    dilation: int = 1
+    convolution_mode: str = "truncate"
+    has_bias: bool = True
+
+    def set_input_type(self, input_type):
+        if not isinstance(input_type, RNNInput):
+            raise ValueError("Convolution1DLayer needs RNN input [B, T, F]")
+        self.n_in = input_type.size
+        t = input_type.timesteps
+        if t is not None:
+            if _is_same(self.convolution_mode):
+                t = -(-t // self.stride)
+            else:
+                eff_k = (self.kernel_size - 1) * self.dilation + 1
+                t = (t + 2 * self.padding - eff_k) // self.stride + 1
+        return RNNInput(self.n_out, t)
+
+    def init_params(self, gen, dtype=torch.float32, device=None):
+        p = {"W": init_weights(gen, (self.n_out, self.n_in, self.kernel_size),
+                               self.weight_init or "xavier", dtype,
+                               device=device)}
+        if self.has_bias:
+            p["b"] = torch.zeros((self.n_out,), dtype=dtype, device=device)
+        return p
+
+    def apply(self, params, x, state, training=False, *, generator=None):
+        x = self._maybe_dropout(x, training, generator)
+        pad = "SAME" if _is_same(self.convolution_mode) else self.padding
+        out = ops.conv1d(x.transpose(1, 2), params["W"], params.get("b"),
+                         stride=self.stride, padding=pad,
+                         dilation=self.dilation)
+        return activation_fn(self.activation or "identity")(
+            out.transpose(1, 2)), state
+
+
+@dataclass
+class Subsampling1DLayer(Layer):
+    """Max or average pooling along T (the 2D pooling over ``[B, F, T,
+    1]``, as the JAX layer does)."""
+
+    kernel_size: int = 2
+    stride: int = 2
+    padding: int = 0
+    pooling_type: str = "max"
+
+    def set_input_type(self, input_type):
+        if not isinstance(input_type, RNNInput):
+            raise ValueError("Subsampling1DLayer needs RNN input")
+        self.n_in = input_type.size
+        t = input_type.timesteps
+        if t is not None:
+            t = (t + 2 * self.padding - self.kernel_size) // self.stride + 1
+        return RNNInput(self.n_in, t)
+
+    def apply(self, params, x, state, training=False, *, generator=None):
+        xc = x.transpose(1, 2)[..., None]
+        pool = (ops.maxpool2d if self.pooling_type.lower() == "max"
+                else ops.avgpool2d)
+        out = pool(xc, (self.kernel_size, 1), (self.stride, 1),
+                   (self.padding, 0))
+        return out[..., 0].transpose(1, 2), state
+
+    @property
+    def has_params(self):
+        return False
+
+
+@dataclass
+class Upsampling1D(Layer):
+    """Each step repeated ``size`` times."""
+
+    size: int = 2
+
+    def set_input_type(self, input_type):
+        self.n_in = input_type.size
+        t = input_type.timesteps
+        return RNNInput(self.n_in, t * self.size if t else None)
+
+    def apply(self, params, x, state, training=False, *, generator=None):
+        return x.repeat_interleave(self.size, dim=1), state
+
+    @property
+    def has_params(self):
+        return False
+
+
+@dataclass
+class ZeroPadding1DLayer(Layer):
+    """Zero steps before and after: ``padding`` (before, after) or one
+    count for both."""
+
+    padding: Tuple[int, int] = (1, 1)
+
+    def set_input_type(self, input_type):
+        self.n_in = input_type.size
+        t = input_type.timesteps
+        p = _pair(self.padding)
+        return RNNInput(self.n_in, t + p[0] + p[1] if t else None)
+
+    def apply(self, params, x, state, training=False, *, generator=None):
+        p = _pair(self.padding)
+        return F.pad(x, (0, 0, p[0], p[1])), state
+
+    @property
+    def has_params(self):
+        return False
+
+
+@dataclass
+class Cropping1D(Layer):
+    """Steps cut off the start and the end: ``cropping`` (start, end) or
+    one count for both."""
+
+    cropping: Tuple[int, int] = (1, 1)
+
+    def set_input_type(self, input_type):
+        self.n_in = input_type.size
+        t = input_type.timesteps
+        c = _pair(self.cropping)
+        return RNNInput(self.n_in, t - c[0] - c[1] if t else None)
+
+    def apply(self, params, x, state, training=False, *, generator=None):
+        c = _pair(self.cropping)
+        return x[:, c[0]:x.shape[1] - c[1]], state
+
+    @property
+    def has_params(self):
+        return False
+
+
+@dataclass
+class SeparableConvolution1D(Layer):
+    """Depthwise then pointwise 1D convolution along T (Keras
+    SeparableConv1D; the 2D separable convolution over ``[B, F, T, 1]``).
+    dW=[m, C, k, 1], pW=[F_out, C*m, 1, 1]."""
+
+    n_out: int = 0
+    kernel_size: int = 3
+    stride: int = 1
+    depth_multiplier: int = 1
+    convolution_mode: str = "truncate"
+    has_bias: bool = True
+
+    def set_input_type(self, input_type):
+        if not isinstance(input_type, RNNInput):
+            raise ValueError("SeparableConvolution1D needs RNN input")
+        self.n_in = input_type.size
+        t = input_type.timesteps
+        if t is not None:
+            if _is_same(self.convolution_mode):
+                t = -(-t // self.stride)
+            else:
+                t = (t - self.kernel_size) // self.stride + 1
+        return RNNInput(self.n_out, t)
+
+    def init_params(self, gen, dtype=torch.float32, device=None):
+        wi = self.weight_init or "xavier"
+        p = {"dW": init_weights(
+                gen, (self.depth_multiplier, self.n_in, self.kernel_size, 1),
+                wi, dtype, device=device),
+             "pW": init_weights(
+                gen, (self.n_out, self.n_in * self.depth_multiplier, 1, 1),
+                wi, dtype, device=device)}
+        if self.has_bias:
+            p["b"] = torch.zeros((self.n_out,), dtype=dtype, device=device)
+        return p
+
+    def apply(self, params, x, state, training=False, *, generator=None):
+        x = self._maybe_dropout(x, training, generator)
+        pad = "SAME" if _is_same(self.convolution_mode) else (0, 0)
+        out = ops.sconv2d(x.transpose(1, 2)[..., None], params["dW"],
+                          params["pW"], params.get("b"),
+                          strides=(self.stride, 1), padding=pad)
+        return activation_fn(self.activation or "identity")(
+            out[..., 0].transpose(1, 2)), state
 
 
 @dataclass
@@ -96,6 +295,38 @@ class TimeDistributed(Layer):
     @property
     def has_params(self):
         return self.layer.has_params
+
+
+@dataclass
+class MaskingLayer(Layer):
+    """Keras Masking: steps whose features all equal ``mask_value`` are
+    masked. The layer zeroes them; ``derive_mask`` gives the ``[B, T]``
+    feature mask that ``MultiLayerNetwork`` hands to the layers after it
+    and to a recurrent head's loss when no mask is given."""
+
+    mask_value: float = 0.0
+
+    def set_input_type(self, input_type):
+        if not isinstance(input_type, RNNInput):
+            raise ValueError("MaskingLayer needs RNN input [B, T, F]")
+        self.n_in = input_type.size
+        return input_type
+
+    def derive_mask(self, x):
+        return (x != self.mask_value).any(dim=-1).to(torch.float32)
+
+    def apply(self, params, x, state, training=False, *, generator=None):
+        m = self.derive_mask(x)
+        return x * m[:, :, None].to(x.dtype), state
+
+    def apply_masked(self, params, x, state, training, fmask, *,
+                     generator=None):
+        y, st = self.apply(params, x, state, training)
+        return y * fmask[:, :, None].to(y.dtype), st
+
+    @property
+    def has_params(self):
+        return False
 
 
 # --- parameter constraints ------------------------------------------------------
@@ -303,3 +534,27 @@ class UnitNormConstraint(ParamConstraint):
 
     def apply(self, w):
         return w / torch.clamp_min(_norms(w, self.axis), 1e-12)
+
+
+@dataclass
+class SpaceToBatchLayer(Layer):
+    """Blocks of ``block_size`` x ``block_size`` pixels to the batch: the
+    NHWC ``space_to_batch`` op between two transposes, as the JAX layer
+    computes it."""
+
+    block_size: int = 2
+
+    def set_input_type(self, input_type):
+        self.n_in = input_type.channels
+        b = self.block_size
+        return CNNInput(self.n_in, input_type.height // b,
+                        input_type.width // b)
+
+    def apply(self, params, x, state, training=False, *, generator=None):
+        b = self.block_size
+        out = space_to_batch(x.permute(0, 2, 3, 1), (b, b), ((0, 0), (0, 0)))
+        return out.permute(0, 3, 1, 2), state
+
+    @property
+    def has_params(self):
+        return False

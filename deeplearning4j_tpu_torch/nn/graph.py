@@ -55,8 +55,10 @@ import torch
 
 from ..common.dtypes import torch_dtype
 from ..common.environment import resolve_device
+from ..common.tree import get_path, leaf_paths
 from ..data import pipeline as _pipe
 from ..data.dataset import DataSet, MultiDataSet
+from ..learning.precision import cast_floating
 from ..ops.epilogue import bn_act
 from ._fused import FlatStore
 from ._train import TrainableNetwork
@@ -297,7 +299,8 @@ class ComputationGraphConfiguration:
                 continue
             # CNN → FF adapter where a conv output feeds a dense layer
             t = in_types[0]
-            if isinstance(t, CNNInput) and isinstance(node.layer, L.FF_LIKE):
+            if isinstance(t, CNNInput) and isinstance(node.layer, L.FF_LIKE) \
+                    and not isinstance(node.layer, L.RnnOutputLayer):
                 node.preprocessors[0] = cnn_to_ff(t)
                 t = node.preprocessors[0].out_type
             self.node_output_types[name] = node.layer.set_input_type(t)
@@ -519,9 +522,7 @@ class ComputationGraph(TrainableNetwork):
         if cd:
             ct = torch_dtype(cd)
             if training:
-                params = {n: {k: (t.to(ct) if t.is_floating_point() else t)
-                              for k, t in p.items()}
-                          for n, p in params.items()}
+                params = cast_floating(params, ct)
             else:
                 params = self._compute_params(params)
             inputs = {k: (v.to(ct) if v.is_floating_point() else v)
@@ -687,10 +688,10 @@ class ComputationGraph(TrainableNetwork):
             layer = self.conf.nodes[lname].layer
             l1 = layer.l1 if layer.l1 is not None else gc.l1
             l2 = layer.l2 if layer.l2 is not None else gc.l2
-            for pname in sorted(params[lname]):
-                if pname in ("b", "beta"):
+            for path in leaf_paths(params[lname]):
+                if path[-1] in ("b", "beta"):
                     continue
-                t = params[lname][pname]
+                t = get_path(params[lname], path)
                 if l2:
                     reg = reg + 0.5 * l2 * torch.sum(t * t)
                 if l1:
@@ -784,8 +785,9 @@ class ComputationGraph(TrainableNetwork):
         total = 0
         for name in self.conf.order:
             node = self.conf.nodes[name]
-            n = (sum(int(t.numel()) for t in self._params.get(name, {})
-                     .values()) if self._initialized else 0)
+            d = self._params.get(name, {})
+            n = (sum(int(get_path(d, p).numel()) for p in leaf_paths(d))
+                 if self._initialized else 0)
             total += n
             ot = self.conf.node_output_types.get(name, "?")
             kind = node.kind if node.kind != "layer" \

@@ -34,7 +34,21 @@ network's own ``torch.Generator``, seeded from the configuration.
 **A feature mask** (``DataSet.features_mask`` or ``output(x, fmask=)``,
 ``[B, T]``) routes every layer through ``apply_masked``
 (``multilayer.py:148-163``): self-attention masks its keys (the flash
-kernel's additive bias) and global pooling leaves padded steps out.
+kernel's additive bias), global pooling leaves padded steps out and the
+recurrent layers zero their outputs there. Without one, a ``MaskingLayer``
+derives it from its input and hands it to the layers after it, and (as the
+first layer) to the loss of a ``RnnOutputLayer`` head (``:190-225``).
+
+**Truncated BPTT** (``backprop_type("TruncatedBPTT").tbptt_length(k)``,
+``:825-866``): ``fit`` takes the serial loop, even for an iterator, and
+cuts each ``[B, T, F]`` batch into segments of ``k`` steps. Each segment
+is one ``_step`` (one ``fused_update`` launch per segment on the fused
+path), all at the batch's iteration; the recurrent carries run on from
+segment to segment, detached at each boundary, where the gradient stops.
+2-D labels serve every segment. The listeners hear one step per batch,
+with the last segment's loss. ``rnn_time_step`` (``:869-903``) serves a
+stream chunk by chunk from the carries it keeps (in the configuration's
+``dtype``), until ``rnn_clear_previous_state``.
 
 ``fit`` takes a DataSet or a ``(features, labels)`` tuple (one step each,
 unpadded: ``bench.py``'s loop), or an iterator or a ``batch_size``, which go
@@ -49,11 +63,10 @@ runs K steps before the listeners hear of them, as the JAX package's
 
 ``init`` places the parameters on the card unless the caller asks for
 another device (``device="cpu"``); so does ``load``. Not ported yet, each
-raising ``NotImplementedError``: truncated BPTT
-(``backprop_type="TruncatedBPTT"``) and ``rnn_time_step``, ``pretrain``,
-``set_remat_policy`` and any rematerialization policy, the telemetry
-listeners and the NaN guard, ``fit(host_prefetch=)``, weight noise and
-frozen layers. The fleet's per-call ``hyper`` overrides have no entry here.
+raising ``NotImplementedError``: ``pretrain``, ``set_remat_policy`` and any
+rematerialization policy, the telemetry listeners and the NaN guard,
+``fit(host_prefetch=)``, weight noise and frozen layers. The fleet's
+per-call ``hyper`` overrides have no entry here.
 """
 
 from __future__ import annotations
@@ -66,8 +79,10 @@ import torch
 
 from ..common.dtypes import tensor_from_numpy, torch_dtype
 from ..common.environment import resolve_device
+from ..common.tree import tree_map
 from ..data import pipeline as _pipe
 from ..data.dataset import DataSet
+from ..learning.precision import cast_floating
 from ._fused import FlatStore
 from ._train import TrainableNetwork
 from .conf import layers as L
@@ -91,6 +106,8 @@ class MultiLayerNetwork(TrainableNetwork):
         super().__init__(conf)
         self.layers = conf.layers
         self._keys = [layer_key(i) for i in range(len(conf.layers))]
+        # rnn_time_step's recurrent carries, by layer key
+        self._rnn_state_map: Optional[Dict[str, object]] = None
 
     # --- set-up ------------------------------------------------------------
     def init(self, seed: Optional[int] = None,
@@ -160,8 +177,9 @@ class MultiLayerNetwork(TrainableNetwork):
         lines = [f"{'idx':<4}{'layer':<28}{'out type':<28}{'params':<10}"]
         total = 0
         for i, layer in enumerate(self.layers):
-            n = (sum(int(t.numel()) for t in self._params[self._keys[i]]
-                     .values()) if self._initialized else 0)
+            n = (sum(int(t.numel()) for _, t in
+                     _named_leaves(self._params[self._keys[i]]))
+                 if self._initialized else 0)
             total += n
             ot = (self.conf.layer_output_types[i]
                   if i < len(self.conf.layer_output_types) else "?")
@@ -178,10 +196,9 @@ class MultiLayerNetwork(TrainableNetwork):
         net = MultiLayerNetwork(copy.deepcopy(self.conf))
         net.device = self.device
         with torch.no_grad():
-            net._params = {n: {k: t.detach().clone() for k, t in d.items()}
-                           for n, d in self._params.items()}
-            net._states = {n: {k: t.clone() for k, t in d.items()}
-                           for n, d in self._states.items()}
+            net._params = tree_map(lambda t: t.detach().clone(),
+                                   self._params)
+            net._states = tree_map(torch.clone, self._states)
         net._initialized = True
         return net
 
@@ -194,16 +211,18 @@ class MultiLayerNetwork(TrainableNetwork):
         if training:
             # inside autograd: the gradients flow back to the float32
             # master parameters through the cast
-            params = {n: {k: (t.to(ct) if t.is_floating_point() else t)
-                          for k, t in d.items()} for n, d in params.items()}
+            params = cast_floating(params, ct)
         else:
             params = self._compute_params(params)
         return params, (x.to(ct) if x.is_floating_point() else x)
 
     def _forward(self, params, states, x, training: bool, fmask=None,
-                 to_preout: bool = False):
+                 to_preout: bool = False, rnn=None):
         """``(y, new_states)``. ``to_preout``: stop at the output head's
-        input, after its input dropout (the loss applies the head)."""
+        input, after its input dropout (the loss applies the head). ``rnn``
+        (truncated BPTT): the recurrent layers' carries by layer key; those
+        layers start from them and leave their new carries there, and their
+        outputs are masked after them."""
         params, x = self._cast(params, x, training)
         gen = self.generator() if training else None
         new_states = dict(states)
@@ -213,7 +232,17 @@ class MultiLayerNetwork(TrainableNetwork):
             pre = self.conf.preprocessors.get(i)
             if pre is not None:
                 x = pre(x)
-            if fmask is not None:
+            if isinstance(layer, L.MaskingLayer) and fmask is None:
+                # Keras Masking: the mask derived here reaches the layers
+                # after this one
+                fmask = layer.derive_mask(x)
+            if rnn is not None and layer.is_rnn():
+                x, rnn[key], st = layer.apply_rnn(
+                    params[key], x, rnn[key], states[key], training,
+                    generator=gen)
+                if fmask is not None:
+                    x = x * fmask[:, :, None].to(x.dtype)
+            elif fmask is not None:
                 x, st = layer.apply_masked(params[key], x, states[key],
                                            training, fmask, generator=gen)
             else:
@@ -267,14 +296,23 @@ class MultiLayerNetwork(TrainableNetwork):
 
     # --- loss --------------------------------------------------------------
     def _loss(self, params, states, x, labels, mask, training: bool,
-              fmask=None, w=None):
+              fmask=None, w=None, rnn=None):
         out_layer = self.layers[-1]
         if not hasattr(out_layer, "compute_score"):
             raise ValueError("the last layer must be a loss head "
                              "(OutputLayer, LossLayer, Yolo2OutputLayer, ...) "
                              "to train or score")
+        if fmask is None and isinstance(self.layers[0], L.MaskingLayer):
+            # the mask of a leading MaskingLayer masks a recurrent head's
+            # loss too (derived here, before the compute-dtype cast)
+            pre0 = self.conf.preprocessors.get(0)
+            fmask = self.layers[0].derive_mask(pre0(x) if pre0 is not None
+                                               else x)
+        if mask is None and fmask is not None \
+                and isinstance(out_layer, L.RnnOutputLayer):
+            mask = fmask
         pre_in, new_states = self._forward(params, states, x, training,
-                                           fmask, to_preout=True)
+                                           fmask, to_preout=True, rnn=rnn)
         head = params[self._keys[-1]]
         if self.conf.global_conf.compute_dtype:
             # the head and the loss in float32, from the master parameters
@@ -293,7 +331,7 @@ class MultiLayerNetwork(TrainableNetwork):
         for key, layer in zip(self._keys, self.layers):
             l1 = layer.l1 if layer.l1 is not None else gc.l1
             l2 = layer.l2 if layer.l2 is not None else gc.l2
-            for name, t in params[key].items():
+            for name, t in _named_leaves(params[key]):
                 if name in _NO_REG:
                     continue
                 if l2:
@@ -336,7 +374,7 @@ class MultiLayerNetwork(TrainableNetwork):
         for key, layer in zip(self._keys, self.layers):
             if not layer.constraints:
                 continue
-            for name, t in self._params[key].items():
+            for name, t in _named_leaves(self._params[key]):
                 if name in _NO_CONSTRAINT:
                     continue
                 w = t
@@ -344,25 +382,54 @@ class MultiLayerNetwork(TrainableNetwork):
                     w = c.apply(w)
                 t.copy_(w)
 
-    def _step(self, store: Optional[FlatStore], batch,
-              iteration: int) -> torch.Tensor:
+    def _step(self, store: Optional[FlatStore], batch, iteration: int,
+              rnn=None) -> torch.Tensor:
         """One training step on a placed batch ``(x, y, mask, fmask, w)``:
         forward, loss, backward, gradient normalization, update (through
         ``store`` on the fused path), constraints. Returns the loss, a
-        detached device scalar."""
+        detached device scalar. ``rnn``: a truncated-BPTT segment's
+        recurrent carries (see :meth:`_forward`), left in place as the
+        segment's new carries, still attached to its graph."""
         x, y, mask, fmask, w = batch
         loss, self._states = self._train_step(
             store, lambda p: self._loss(p, self._states, x, y, mask, True,
-                                        fmask, w), iteration)
+                                        fmask, w, rnn), iteration)
         with torch.no_grad():
             self._apply_constraints()
         return loss
 
+    def _serial_step(self, store: Optional[FlatStore], batch) -> torch.Tensor:
+        if self.conf.backprop_type == "TruncatedBPTT" and batch[0].ndim == 3:
+            return self._fit_tbptt(store, batch)
+        return self._step(store, batch, self._iteration)
+
+    def _fit_tbptt(self, store: Optional[FlatStore], batch) -> torch.Tensor:
+        """Truncated BPTT over one placed batch: ``[B, T, F]`` in segments
+        of ``tbptt_fwd_length`` steps, one :meth:`_step` each at the
+        batch's iteration (Adam's bias correction sees the batch, not the
+        segment); the carries start at zero and are detached at each
+        boundary. Returns the last segment's loss."""
+        x, y, mask, fmask, w = batch
+        gc = self.conf.global_conf
+        dtype = torch_dtype(gc.compute_dtype or gc.dtype)
+        rnn = {key: layer.init_rnn_state(x.shape[0], dtype, self.device)
+               for key, layer in zip(self._keys, self.layers)
+               if layer.is_rnn()}
+        k = self.conf.tbptt_fwd_length
+        loss = None
+        for s0 in range(0, x.shape[1], k):
+            seg = slice(s0, s0 + k)
+            loss = self._step(store, (
+                x[:, seg], y[:, seg] if y.ndim == 3 else y,
+                mask[:, seg] if mask is not None and mask.ndim >= 2
+                else mask,
+                fmask[:, seg] if fmask is not None else None, w),
+                self._iteration, rnn)
+            rnn = {key: _detach(c) for key, c in rnn.items()}
+        return loss
+
     def _refuse_unported(self) -> None:
         gc = self.conf.global_conf
-        if self.conf.backprop_type == "TruncatedBPTT":
-            raise NotImplementedError("truncated BPTT is not ported yet (it "
-                                      "comes with the recurrent layers)")
         if gc.gradient_checkpointing or gc.remat_policy not in (None,
                                                                 "none"):
             raise NotImplementedError("rematerialization policies are not "
@@ -379,12 +446,14 @@ class MultiLayerNetwork(TrainableNetwork):
         epochs and batch arguments as the run that wrote it."""
         self._check_init()
         self._refuse_unported()
+        # truncated BPTT has its own segment loop: always the serial path
+        tbptt = self.conf.backprop_type == "TruncatedBPTT"
         self._run_fit(data, epochs, batch_size, pad_partial=pad_partial,
                       drop_remainder=drop_remainder, prefetch=prefetch,
                       steps_per_dispatch=steps_per_dispatch,
                       host_prefetch=host_prefetch, resume_from=resume_from,
-                      serial=isinstance(data, (DataSet, tuple))
-                      and batch_size is None)
+                      serial=tbptt or (isinstance(data, (DataSet, tuple))
+                                       and batch_size is None))
 
     def _bind_batch(self, ds: DataSet, w) -> Tuple:
         """A batch as the step's tuple ``(x, y, mask, fmask, w)``, not yet
@@ -395,13 +464,48 @@ class MultiLayerNetwork(TrainableNetwork):
         self._last_batch_size = ds.num_examples()
         return (ds.features, ds.labels, ds.labels_mask, ds.features_mask, w)
 
+    # --- streaming inference --------------------------------------------------
+    def rnn_time_step(self, x) -> torch.Tensor:
+        """Forward ``[B, T, F]`` (or ``[B, F]``, one step) from the stored
+        recurrent carries, which it then replaces: the outputs ``[B, T,
+        out]``. The carries start at zero, in the configuration's
+        ``dtype`` (not its compute dtype, as in the JAX package), and the
+        parameters are not cast."""
+        self._check_init()
+        (cur,) = self._place((x,))
+        if cur.ndim == 2:
+            cur = cur[:, None, :]
+        if self._rnn_state_map is None:
+            dtype = torch_dtype(self.conf.global_conf.dtype)
+            self._rnn_state_map = {
+                key: layer.init_rnn_state(cur.shape[0], dtype, self.device)
+                for key, layer in zip(self._keys, self.layers)
+                if layer.is_rnn()}
+        carries = self._rnn_state_map
+        with torch.inference_mode():
+            for i, (key, layer) in enumerate(zip(self._keys, self.layers)):
+                pre = self.conf.preprocessors.get(i)
+                if pre is not None:
+                    cur = pre(cur)
+                if layer.is_rnn():
+                    cur, carries[key], _ = layer.apply_rnn(
+                        self._params[key], cur, carries[key],
+                        self._states[key], False)
+                else:
+                    cur, _ = layer.apply(self._params[key], cur,
+                                         self._states[key], False)
+        return cur
+
+    rnnTimeStep = rnn_time_step
+
+    def rnn_clear_previous_state(self) -> None:
+        self._rnn_state_map = None
+
+    rnnClearPreviousState = rnn_clear_previous_state
+
     # --- refused paths ------------------------------------------------------
     def pretrain(self, data, epochs: int = 1) -> None:
         raise NotImplementedError("layerwise pretraining is not ported yet")
-
-    def rnn_time_step(self, x):
-        raise NotImplementedError("rnn_time_step is not ported yet (it "
-                                  "comes with the recurrent layers)")
 
     # --- persistence ---------------------------------------------------------
     def save(self, path: str, save_updater: bool = False) -> None:
@@ -437,6 +541,23 @@ class MultiLayerNetwork(TrainableNetwork):
         for ds in _pipe.iter_datasets(data, batch_size):
             ev.eval(ds.labels, self.output(ds.features))
         return ev
+
+
+def _named_leaves(tree):
+    """``(name, tensor)`` of every leaf of a layer's parameter dict, in
+    insertion order, through a wrapper's subtrees."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named_leaves(v)
+        else:
+            yield k, v
+
+
+def _detach(carry):
+    """A recurrent carry (a tensor or an LSTM's ``(h, c)``) detached."""
+    if isinstance(carry, tuple):
+        return tuple(c.detach() for c in carry)
+    return carry.detach()
 
 
 def _fold_weights(mask, w):

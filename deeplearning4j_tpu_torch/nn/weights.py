@@ -4,7 +4,8 @@ Counterpart of ``deeplearning4j_tpu/nn/weights.py``: the schemes the ported
 models use, with the same fan conventions, read off the shape alone (dense
 W=[nIn,nOut]; 4-D W=[a, b, kH, kW] takes fan in ``b * kH * kW`` and fan out
 ``a * kH * kW``, so the transposed convolution's [I, O, kH, kW] and the
-depthwise [mult, C, kH, kW] get the JAX package's fans too). The draws come
+depthwise [mult, C, kH, kW] get the JAX package's fans too; any other rank
+takes the element count for both). The draws come
 from the generator the caller passes, so a seed fixes the weights; they are
 not the JAX package's threefry numbers (tests carry weights across
 instead).
@@ -25,7 +26,12 @@ def _fans(shape: Sequence[int]) -> Tuple[float, float]:
     if len(shape) == 4:                      # conv OIHW [out, in, kh, kw]
         rf = shape[2] * shape[3]
         return float(shape[1] * rf), float(shape[0] * rf)
-    raise ValueError(f"no fan convention for shape {shape}")
+    if len(shape) == 1:
+        return float(shape[0]), float(shape[0])
+    # any other rank (the 1D convolution's [out, in, k]): both fans are
+    # the element count, as in the JAX package
+    n = int(np.prod(shape))
+    return float(n), float(n)
 
 
 def init_weights(gen: torch.Generator, shape: Sequence[int],

@@ -1,7 +1,8 @@
-"""Neural-net ops of the zoo's CNNs and the self-attention encoder:
-convolution (plain, transposed, depthwise, separable), pooling (max,
-average, p-norm), batchnorm, local response normalization, layer norm,
-space-to-depth, linear, dropout, attention.
+"""Neural-net ops of the zoo's CNNs, the sequence layers and the
+self-attention encoder: convolution (1D, 2D, transposed, depthwise,
+separable), pooling (max, average, p-norm), upsampling, batchnorm, local
+response normalization, layer norm, space-to-depth, linear, dropout,
+attention.
 
 Counterpart of the subset of ``deeplearning4j_tpu/ops/nn.py`` (and
 ``ops/shape.py``'s ``space_to_depth``) that the zoo models and the encoder
@@ -107,6 +108,17 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b=None, strides: Pair = (1, 1),
     return _add_bias(out, b).to(x.dtype)
 
 
+def conv1d(x: torch.Tensor, w: torch.Tensor, b=None, stride: int = 1,
+           padding: Union[int, str] = 0, dilation: int = 1) -> torch.Tensor:
+    """1D convolution. x: ``[N, C, W]``; w: ``[O, I, K]``; ``padding``
+    explicit or ``"SAME"``: the 2D convolution over a width-1 axis, as the
+    JAX op computes it (``ops/nn.py:71-86``)."""
+    pad = padding if isinstance(padding, str) else (int(padding), 0)
+    out = conv2d(x[..., None], w[..., None], b, strides=(stride, 1),
+                 padding=pad, dilation=(dilation, 1))
+    return out[..., 0]
+
+
 def deconv2d(x: torch.Tensor, w: torch.Tensor, b=None,
              strides: Pair = (1, 1),
              padding: Union[Pair, str] = (0, 0)) -> torch.Tensor:
@@ -194,6 +206,13 @@ def pnormpool2d(x: torch.Tensor, kernel: Pair = (2, 2),
     x = _pool_pad(x.abs() ** pnorm, kernel, strides, padding, 0.0)
     s = F.avg_pool2d(x, _pair(kernel), _pair(strides), divisor_override=1)
     return s ** (1.0 / pnorm)
+
+
+def upsampling2d(x: torch.Tensor, factor: Pair = (2, 2)) -> torch.Tensor:
+    """Nearest-neighbour upsampling of NCHW: each row repeated ``fh`` and
+    each column ``fw`` times."""
+    fh, fw = _pair(factor)
+    return x.repeat_interleave(fh, dim=2).repeat_interleave(fw, dim=3)
 
 
 def lrn(x: torch.Tensor, depth: int = 5, bias: float = 1.0,

@@ -6,8 +6,9 @@ registry's names, families and kwargs; ``exec_op`` runs one by name and
 records it as validated, and ``coverage_report`` lists the registered ops a
 test never ran.
 
-The port registers the ops its paths reach (the TF-imported BERT graph and
-the ``SDVariable`` arithmetic that fine-tunes it). :data:`JAX_OPS` names
+The port registers the ops its paths reach (the TF-imported BERT graph, the
+``SDVariable`` arithmetic that fine-tunes it, and the recurrent layers'
+ops). :data:`JAX_OPS` names
 every op of the JAX registry: ``get_op`` raises ``NotImplementedError``
 naming one that is not ported yet, and ``KeyError`` for a name neither
 registry has. Gradients come from autograd through each function, as
@@ -175,6 +176,7 @@ def _ensure_loaded() -> None:
         broadcastable,
         linalg,
         loss,
+        recurrent,
         reduce,
         shape,
         transforms,

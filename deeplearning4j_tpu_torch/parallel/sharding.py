@@ -2,14 +2,15 @@
 
 Counterpart of the single-device part of ``Zero1Plan`` in
 ``deeplearning4j_tpu/parallel/sharding.py``: a parameter tree
-``{node: {name: tensor}}`` is raveled into one 1-D buffer per dtype (a
+``{node: {name: tensor}}`` (one level deeper under a wrapper layer,
+``common/tree.py``) is raveled into one 1-D buffer per dtype (a
 "bucket", keyed ``flat::<dtype>``), zero-padded to a multiple of the shard
 count. The layout is a pure permutation, so an elementwise updater on the
 buckets equals the updater leaf by leaf.
 
-Leaf order is ``jax.tree.flatten``'s on the same dicts: node names sorted,
-then entry names sorted (never dict insertion order), and buckets in sorted
-dtype-name order. So a bucket here holds exactly the elements, in the same
+Leaf order is ``jax.tree.flatten``'s on the same dicts: keys sorted at
+every level (never dict insertion order), and buckets in sorted dtype-name
+order. So a bucket here holds exactly the elements, in the same
 places, as the JAX package's, and updater state carries across in either
 layout.
 
@@ -28,10 +29,11 @@ import numpy as np
 import torch
 
 from ..common.dtypes import dtype_name
+from ..common.tree import get_path, leaf_paths, set_path, skeleton, sort_tree
 
 FLAT_PREFIX = "flat::"   # bucket keys ("flat::float32") mark the flat layout
 
-Tree = Dict[str, Dict[str, torch.Tensor]]
+Tree = Dict[str, Dict[str, Any]]
 
 
 def groups(params) -> List[Any]:
@@ -41,11 +43,6 @@ def groups(params) -> List[Any]:
     if isinstance(params, dict):
         return [params[k] for k in sorted(params)]
     return list(params)
-
-
-def leaf_paths(tree: Tree) -> List[Tuple[str, str]]:
-    """``(node, name)`` of every leaf in ``jax.tree.flatten`` order."""
-    return [(n, k) for n in sorted(tree) for k in sorted(tree[n])]
 
 
 @dataclass(frozen=True)
@@ -67,11 +64,11 @@ class Zero1Plan:
 
     def __init__(self, params: Tree, n_shards: int = 1):
         self.paths = leaf_paths(params)
-        self.nodes = sorted(params)
+        self.skeleton = skeleton(params)
         self.n_shards = int(n_shards)
         self.n_leaves = len(self.paths)
         self.n_layers = len(groups(params))
-        leaves = [params[n][k] for n, k in self.paths]
+        leaves = [get_path(params, p) for p in self.paths]
         by_dtype: Dict[str, List[int]] = {}
         for i, leaf in enumerate(leaves):
             by_dtype.setdefault(dtype_name(leaf.dtype), []).append(i)
@@ -88,13 +85,14 @@ class Zero1Plan:
 
     def _leaves(self, tree) -> list:
         try:
-            leaves = [tree[n][k] for n, k in self.paths]
+            leaves = [get_path(tree, p) for p in self.paths]
         except KeyError as e:
             raise ValueError(f"tree does not match the plan: missing {e}") \
                 from None
-        if sum(len(d) for d in tree.values()) != self.n_leaves:
-            raise ValueError(f"tree has {sum(len(d) for d in tree.values())}"
-                             f" leaves, plan expects {self.n_leaves}")
+        n = len(leaf_paths(tree))
+        if n != self.n_leaves:
+            raise ValueError(f"tree has {n} leaves, plan expects "
+                             f"{self.n_leaves}")
         return leaves
 
     # -- layout transforms ------------------------------------------------
@@ -115,15 +113,14 @@ class Zero1Plan:
         """Views into ``flats`` (tensors, or numpy arrays on the host), one
         per leaf, in the params' tree shape (nodes without parameters map to
         empty dicts)."""
-        out: Tree = {n: {} for n in self.nodes}
+        out: Tree = skeleton(self.skeleton)
         for b in self.buckets:
             flat = flats[b.key]
             pos = 0
             for i, sz, shape in zip(b.leaf_idx, b.sizes, b.shapes):
-                n, k = self.paths[i]
-                out[n][k] = flat[pos:pos + sz].reshape(shape)
+                set_path(out, self.paths[i], flat[pos:pos + sz].reshape(shape))
                 pos += sz
-        return {n: dict(sorted(d.items())) for n, d in out.items()}
+        return sort_tree(out)
 
     # -- updater-state layout conversion ------------------------------------
     def _mirrors_params(self, v) -> bool:

@@ -10,7 +10,8 @@ agree (conv W OIHW, transposed-conv W ``[I, O, kH, kW]``, depthwise W
 head's ``centers`` ``[nOut, nIn]``, embedding tables W ``[vocab, nOut]``,
 LayerNormalization ``gain``/``bias``, self-attention ``Wq``/``Wk``/``Wv``
 ``[nIn, H*hs]`` and ``Wo`` ``[H*hs, nOut]``, a TimeDistributed layer's
-inner ``{W, b}``), so this is a checked copy:
+inner ``{W, b}``, a Bidirectional layer's ``{"fwd": {...}, "bwd":
+{...}}``), so this is a checked copy:
 node names, entry names, shapes and dtypes must match the port graph's own,
 or it raises. Nothing here imports JAX.
 
@@ -66,20 +67,32 @@ def _checked_copy(kind: str, src: NumpyTree,
             f"{sorted(dst_nodes - src_nodes)}")
     out: Dict[str, Dict[str, torch.Tensor]] = {n: {} for n in dst}
     for node in sorted(dst_nodes):
-        s, d = src[node], dst[node]
-        if set(s) != set(d):
-            raise ValueError(f"{kind}[{node!r}]: entries {sorted(s)} != "
-                             f"{sorted(d)}")
-        for key, ref in d.items():
-            a = np.asarray(s[key])
-            t = tensor_from_numpy(a)
-            if tuple(t.shape) != tuple(ref.shape):
-                raise ValueError(f"{kind}[{node!r}][{key!r}]: shape "
-                                 f"{tuple(t.shape)} != {tuple(ref.shape)}")
-            if t.dtype != ref.dtype:
-                raise ValueError(f"{kind}[{node!r}][{key!r}]: dtype "
-                                 f"{t.dtype} != {ref.dtype}")
-            out[node][key] = t.to(device).clone()
+        out[node] = _checked_entries(f"{kind}[{node!r}]", src[node],
+                                     dst[node], device)
+    return out
+
+
+def _checked_entries(where: str, s: Mapping, d: Mapping, device) -> dict:
+    """Copies of the entries of ``s`` onto ``device``, checked against
+    ``d``'s names, shapes and dtypes; a subtree (a wrapper layer's
+    ``{"fwd": {...}, "bwd": {...}}``) is checked entry by entry."""
+    if set(s) != set(d):
+        raise ValueError(f"{where}: entries {sorted(s)} != {sorted(d)}")
+    out = {}
+    for key, ref in d.items():
+        here = f"{where}[{key!r}]"
+        if isinstance(ref, dict) or isinstance(s[key], Mapping):
+            if not (isinstance(ref, dict) and isinstance(s[key], Mapping)):
+                raise ValueError(f"{here}: a subtree on one side only")
+            out[key] = _checked_entries(here, s[key], ref, device)
+            continue
+        t = tensor_from_numpy(np.asarray(s[key]))
+        if tuple(t.shape) != tuple(ref.shape):
+            raise ValueError(f"{here}: shape {tuple(t.shape)} != "
+                             f"{tuple(ref.shape)}")
+        if t.dtype != ref.dtype:
+            raise ValueError(f"{here}: dtype {t.dtype} != {ref.dtype}")
+        out[key] = t.to(device).clone()
     return out
 
 

@@ -49,6 +49,7 @@ import torch
 
 from ..common.dtypes import dtype_name, tensor_from_numpy
 from ..common.environment import resolve_device
+from ..common.tree import tree_map
 from ..parallel.sharding import unflatten_updater_state
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
@@ -195,8 +196,7 @@ def load_state_entries(zf: zipfile.ZipFile, model, load_updater: bool = True,
         model._updater_state = None
         return
     template = model.conf.global_conf.updater.init(
-        {n: {k: t.to("meta") for k, t in d.items()}
-         for n, d in model._params.items()})
+        tree_map(lambda t: t.to("meta"), model._params))
     want = tree_leaves(template)
     got = _checked("updater state", load_leaves(
         zf.read(UPDATER_ENTRY), "updater state", len(want)), want,

@@ -13,6 +13,7 @@ one encoder forward of the port spends its time, on the card.
     python3 profile_port.py --zoo [NAME]  # a zoo CNN's step and forward (24)
     python3 profile_port.py --flash [--levers]  # flash: bf16, then float32
     python3 profile_port.py --bert      # one SameDiff BERT-base step
+    python3 profile_port.py --textgen   # one TextGenerationLSTM TBPTT batch
     python3 profile_port.py --bag [--levers] [--timeline]  # embedding_bag
     python3 profile_port.py --package DIR --bag  # DIR's port, this code
     python3 profile_port.py --alternate DIR --flash  # DIR's port and this
@@ -56,6 +57,17 @@ zoo CNN as phase 24 trains and serves it (its defaults, bf16 compute,
 fused_update, batch 16) and prints the step time and a trace of 3 fit
 steps, then of 3 served forwards with fused_epilogue on, by category
 (traces ``chiprun_out/profile_port_zoo_<NAME>_{train,serve}.json.gz``).
+
+With ``--textgen`` it builds the TextGenerationLSTM of ``chip_smoke.py``
+phase 25 (hidden 256, float32, Adam(2e-3) through fused_update, truncated
+BPTT of 50 steps) and traces one fit of a batch of 32 sequences of 1,000
+characters (20 segments) after a warm-up and 3 timed fits: device time by
+class (cuBLAS, elementwise, reductions, ``fused_update``, copies), device
+launches per timestep (the batch's launches over its 1,000 steps), the
+host time per launch (the unprofiled batch time over the launches) and
+the busy share (device time over the unprofiled and the profiled wall);
+then the same trace for one ``rnn_time_step`` of one character. The
+trace goes to ``chiprun_out/profile_port_textgen_trace.json.gz``.
 
 With ``--mln`` it builds the VGG16 ``MultiLayerNetwork`` that
 ``chip_smoke.py`` trains (zoo VGG16, 138,357,544 parameters, bf16 compute,
@@ -1263,6 +1275,67 @@ def alternate_main(parent: str, rounds: int, args: list) -> int:
     return 0
 
 
+#: the recurrent step's classes (lower-case patterns, first match wins)
+TEXTGEN_CATEGORIES = (("fused_update", ("fused_update",)),
+                      ("cuBLAS (GEMM)", ("gemm", "cutlass", "sm90", "nvjet",
+                                         "xmma", "cublas")),
+                      ("reductions", ("reduce_kernel",)),
+                      ("copies (cat, memcpy, memset)", ("cat", "memcpy",
+                                                        "memset", "copy")),
+                      ("elementwise", ("elementwise",)))
+
+
+def textgen_main(dev, smi: str, name: str) -> int:
+    from deeplearning4j_tpu_torch.data import DataSet
+
+    idx, chars = cs.text_corpus()
+    vocab = len(chars)
+    net = cs.text_generation_net(vocab, dev)
+    x, y = cs.text_batch(idx, vocab, cs.TEXT_BATCH, cs.TEXT_SEQ, dev,
+                         cs.SEED + 60)
+    ds = DataSet(x, y)
+    net.fit(ds)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        net.fit(ds)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = statistics.median(times)
+
+    def category(kname):
+        return _category(kname, TEXTGEN_CATEGORIES, lower=True)
+
+    fit = _profile(lambda: net.fit(ds), 1, f"TextGenerationLSTM TBPTT "
+                   f"batch {cs.TEXT_BATCH} x {cs.TEXT_SEQ} characters "
+                   f"({cs.TEXT_SEQ // cs.TEXT_TBPTT} segments)", smi,
+                   "profile_port_textgen_trace.json.gz", category)
+    launches = fit["device_ops_per_call"]
+    fit["batch_ms"] = wall_ms
+    fit["launches_per_timestep"] = launches / cs.TEXT_SEQ
+    fit["host_us_per_launch"] = wall_ms * 1e3 / launches
+    fit["busy_share_unprofiled"] = fit["device_ms"] / wall_ms
+    print(f"[textgen] batch {wall_ms:.2f} ms unprofiled (median of 3); "
+          f"{launches:.0f} device launches per batch: "
+          f"{fit['launches_per_timestep']:.1f} per timestep, "
+          f"{fit['host_us_per_launch']:.2f} us of the unprofiled wall per "
+          f"launch; device time {fit['device_ms']:.3f} ms, "
+          f"{fit['busy_share_unprofiled']:.3f} of the unprofiled wall "
+          f"({fit['device_busy_share']:.3f} of the profiled); {smi}",
+          flush=True)
+    eye = torch.eye(vocab, device=dev)
+    net.rnn_clear_previous_state()
+    net.rnn_time_step(eye[:1])
+    torch.cuda.synchronize()
+    step = _profile(lambda: net.rnn_time_step(eye[:1]), 20,
+                    "rnn_time_step of one character", smi,
+                    "profile_port_textgen_stream_trace.json.gz", category)
+    print(json.dumps({"device": name, "nvidia_smi": smi, "fit": fit,
+                      "rnn_time_step": step}), flush=True)
+    return 0
+
+
 def encoder_train_main(dev, smi: str, name: str) -> int:
     from deeplearning4j_tpu_torch.learning.updaters import Adam
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
@@ -1368,6 +1441,9 @@ def main() -> int:
     if "--mln" in sys.argv[1:]:
         cs.phase_build()
         return mln_main(dev, smi, name)
+    if "--textgen" in sys.argv[1:]:
+        cs.phase_build()
+        return textgen_main(dev, smi, name)
     if "--encoder-train" in sys.argv[1:]:
         cs.phase_build()
         return encoder_train_main(dev, smi, name)

@@ -403,24 +403,14 @@ def test_unported_paths_raise():
     from deeplearning4j_tpu_torch.nn.conf import layers as L
     from deeplearning4j_tpu_torch.nn.conf.builder import (
         NeuralNetConfiguration)
-    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 
     net = LeNet().init(device="cpu")
     x, y = _mnist_like(4)
     for call in (lambda: net.set_remat_policy("full"),
                  lambda: net.pretrain(DataSet(x, y)),
-                 lambda: net.rnn_time_step(x),
                  lambda: net.fit(DataSet(x, y), host_prefetch=2)):
         with pytest.raises(NotImplementedError):
             call()
-    tbptt = (NeuralNetConfiguration.builder().list()
-             .layer(L.OutputLayer(n_out=2))
-             .backprop_type("TruncatedBPTT").tbptt_length(4)
-             .set_input_type(InputType.feed_forward(3)).build())
-    with pytest.raises(NotImplementedError, match="BPTT"):
-        MultiLayerNetwork(tbptt).init(device="cpu").fit(
-            DataSet(np.zeros((2, 3), np.float32),
-                    np.eye(2, dtype=np.float32)))
     with pytest.raises(ValueError, match="tbptt"):
         (NeuralNetConfiguration.builder().list()
          .layer(L.OutputLayer(n_out=2)).backprop_type("TruncatedBPTT")

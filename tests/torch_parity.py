@@ -95,9 +95,23 @@ def enable_fused(graph, which: str) -> None:
             node.layer.fused_epilogue = True
 
 
+def assert_scaled_close(got, want, what: str, tol: float = 1e-5) -> None:
+    """``got`` (a tensor or array) within ``tol`` of the largest magnitude
+    of ``want``, element by element, with ``want``'s shape and dtype."""
+    if hasattr(got, "detach"):
+        got = got.detach().cpu().numpy()
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape and got.dtype == want.dtype, \
+        (what, got.shape, want.shape, got.dtype, want.dtype)
+    scale = max(float(np.abs(want).max()), 1e-6)
+    err = float(np.abs(got - want).max()) / scale
+    assert err <= tol, f"{what}: {err} of the scale {scale}"
+
+
 def numpy_tree(tree):
-    return {n: {k: np.asarray(v) for k, v in d.items()}
-            for n, d in tree.items()}
+    """A (nested) dict of arrays as numpy arrays."""
+    return {k: (numpy_tree(v) if isinstance(v, dict) else np.asarray(v))
+            for k, v in tree.items()}
 
 
 def randomize_bn(params, states, seed: int = 7, stats=None):
@@ -386,9 +400,8 @@ def mln_twins(jax_conf, torch_conf, seed: int = 0):
 
     jn = JNet(jax_conf).init(seed)
     tn = TNet(torch_conf).init(device="cpu")
-    multilayer_state_from_numpy(
-        tn, [{k: np.asarray(v) for k, v in d.items()} for d in jn._params],
-        [{k: np.asarray(v) for k, v in d.items()} for d in jn._states])
+    multilayer_state_from_numpy(tn, [numpy_tree(d) for d in jn._params],
+                                [numpy_tree(d) for d in jn._states])
     return jn, tn
 
 
