@@ -339,14 +339,68 @@ Phases (each fails the run with a nonzero exit if it fails):
                streaming: 100 characters primed and 200 generated one
                rnn_time_step each (ms per character); rnn_time_step in
                chunks of 10 against output over 100 steps within rtol
-               1e-5, atol 1e-6. Then the card against the CPU, float32,
-               TF32 off: one TBPTT batch of 150 steps of the full-width
-               model, and a MaskingLayer + Bidirectional(LSTM) + GRU +
+               1e-5, atol 1e-6. Then the card against the CPU, TF32
+               off: one TBPTT batch of 150 steps of the full-width model
+               (in float64 through the per-leaf Adam: text_parity says
+               why), and in float32 a MaskingLayer + Bidirectional(LSTM) + GRU +
                LastTimeStep(GRU) classifier fit through an iterator of two
                zero-padded batches of variable lengths (TBPTT 10 over T
                40: one fused_update launch per segment), every parameter
                within 1e-4 of its leaf's scale; and a forward and a
                backward of each 1D and 2D shape layer within 1e-5.
+
+26. transfer -- zoo VGG16 at its published widths (138,357,544 parameters)
+               written as a model zip into a temporary pretrained cache
+               (DL4J_TPU_PRETRAINED_DIR) and read back through
+               VGG16().init_pretrained(), bitwise; re-headed as
+               dl4j-examples' EditLastLayerOthersFrozen does it
+               (TransferLearning: FineTuneConfiguration with Nesterovs(5e-5)
+               and seed 12345, set_feature_extractor through fc2, the
+               1000-way head replaced by a 5-class xavier softmax):
+               134,281,029 parameters, 20,485 trainable; fit at batch 15
+               (the example's) in bf16 compute with fused_update on seeded
+               pixels in [0, 1]: 2 warm-ups, 5 timed steps each ended by a
+               synchronize (images/s, step median, p10, p90, peak memory).
+               Gates: 1 fused_update launch per step over the whole bucket
+               (frozen ranges included), the frozen parameters bitwise
+               unchanged (a checksum before and after), the head's loss on
+               the batch lower after the steps. TransferLearningHelper:
+               featurize 4 batches through the frozen bottom (images/s),
+               fit_featurized the head, the full model's output equal to
+               the top network's over the features within 1e-5. The card
+               against the CPU from the same zip, float32, TF32 off, batch
+               2: one step with the same injected dropout masks (the frozen
+               dense layers drop out in fit), parameters within 1e-4 of
+               their scale. Last the zoo SimpleCNN re-headed the same way
+               (convolution stack frozen) served with fused_epilogue on: 3
+               bn_act launches per forward through the FrozenLayer-wrapped
+               BNs, the card against the CPU within 1e-4.
+27. pretrain, capsnet, layers -- a VariationalAutoencoder at dl4j-examples'
+               VaeMNISTAnomaly widths (784, encoder 256-256, 32 latents,
+               decoder 256-256, Bernoulli, leakyrelu, Adam 1e-3, l2 1e-4)
+               pretrained one epoch of the synthetic MNIST fallback at
+               batch 128 (samples/s, the negative ELBO first and last; it
+               must fall), then the card against the CPU over 2 batches
+               with injected eps (1e-4). CapsNet at Sabour et al. (2017)'s
+               widths (conv 256 9x9, 1,152 primary 8-D capsules, 10 routed
+               16-D capsules, 3 routings, lengths, softmax, negative
+               log-likelihood), Adam(1e-3) through fused_update at batch 32:
+               2 warm-ups, 5 timed steps (1 launch per step), then its
+               output, loss and gradients on the card against the CPU
+               (1e-4). Every other new layer class at its CPU test's size,
+               and C3D's first two blocks (Tran et al. 2015) on [4, 3, 16,
+               112, 112] with a 101-way head (UCF101), on the card against
+               the CPU: the forward and one SGD step with the same injected
+               draws, within 1e-4 of their scale.
+28. remat   -- phase 6's ResNet-50 training (bf16, fused_update, bf16
+               state) at batch 128, 3 steps under each rematerialization
+               policy ("none", "full", "dots_only",
+               "checkpoint_dots_with_no_batch_dims", and the selective list
+               [stem_bn, s0b0_bn1]), deterministic cuDNN: peak device memory
+               and step median per policy; gates: "full" peaks below "none",
+               losses and parameters within 1e-6 of the "none" run's
+               (whether bitwise is printed); then the TextGenerationLSTM's
+               TBPTT batch under "full" against "none", the same way.
 
 Then it prints the kernels line (one JSON object) and, last, the device line
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
@@ -358,6 +412,7 @@ perturbed (see deeplearning4j_tpu_torch/util/calibrate.py for why).
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import re
@@ -4716,10 +4771,14 @@ ZOO_AS_IS_STEPS = 5
 
 
 def _zoo_layers(conf):
+    """The layers of either network's configuration, a ``FrozenLayer``'s
+    inner layer in its place (it runs that layer's own ``apply``)."""
     if hasattr(conf, "nodes"):
         return [conf.nodes[n].layer for n in conf.order
                 if conf.nodes[n].kind == "layer"]
-    return list(conf.layers)
+    return [getattr(layer, "layer", None)
+            if type(layer).__name__ == "FrozenLayer" else layer
+            for layer in conf.layers]
 
 
 def zoo_io(conf):
@@ -4786,7 +4845,8 @@ def expected_bn_launches(conf):
                   if isinstance(layer, L.BatchNormalization)
                   and not fusable(layer))
     if not hasattr(conf, "nodes"):
-        return sum(1 for layer in conf.layers if fusable(layer)), 0, refused
+        return (sum(1 for layer in _zoo_layers(conf) if fusable(layer)), 0,
+                refused)
     consumers = {}
     for name in conf.order:
         for i in conf.nodes[name].inputs:
@@ -5180,10 +5240,11 @@ def text_batch(idx, vocab: int, batch: int, T: int, dev, seed: int):
     return hot[:, :-1].contiguous(), hot[:, 1:].contiguous()
 
 
-def text_generation_net(vocab: int, dev, fused: bool = True):
+def text_generation_net(vocab: int, dev, fused: bool = True,
+                        dtype: str = "float32"):
     """The zoo's TextGenerationLSTM (two LSTM(256), softmax RnnOutputLayer
     with mcxent, Adam(2e-3)) trained with truncated BPTT of TEXT_TBPTT
-    steps, float32, fused_update on."""
+    steps, parameters in ``dtype`` (float32), fused_update on."""
     from deeplearning4j_tpu_torch.models import TextGenerationLSTM
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 
@@ -5191,6 +5252,7 @@ def text_generation_net(vocab: int, dev, fused: bool = True):
     conf.backprop_type = "TruncatedBPTT"
     conf.tbptt_fwd_length = conf.tbptt_back_length = TEXT_TBPTT
     conf.global_conf.fused_update = fused
+    conf.global_conf.dtype = dtype
     return MultiLayerNetwork(conf).init(device=dev)
 
 
@@ -5344,14 +5406,22 @@ def text_streaming(net, idx, vocab: int, smi: str, dev) -> dict:
 def text_parity(idx, vocab: int, smi: str, dev) -> dict:
     """One TBPTT batch (T TEXT_PARITY_T: three segments) of the full-width
     TextGenerationLSTM on the card and on the CPU from the same seeded
-    parameters, float32, TF32 off: every parameter within 1e-4 of its
-    leaf's scale, and the loss within 1e-4 relative."""
+    parameters, in float64 through the per-leaf Adam: every parameter
+    within 1e-4 of its leaf's scale, and the loss within 1e-4 relative.
+    Float64, as phase 24's parity: Adam makes an element whose gradient is
+    near its eps (a character seen once in the batch) a step that float32
+    rounding moves, so in float32 the gap follows the corpus (3.0e-5 of
+    the scale on one text, 2.8e-4 once a character was added to it). The
+    fused kernel is held to the per-leaf update elsewhere (phases 7, 11,
+    24)."""
     from deeplearning4j_tpu_torch.data import DataSet
 
     x, y = text_batch(idx, vocab, TEXT_BATCH, TEXT_PARITY_T, dev, SEED + 80)
+    x, y = x.to(torch.float64), y.to(torch.float64)
     nets = []
     for where, xx, yy in ((dev, x, y), ("cpu", x.cpu(), y.cpu())):
-        net = text_generation_net(vocab, where)
+        net = text_generation_net(vocab, where, fused=False,
+                                  dtype="float64")
         net.fit(DataSet(xx, yy))
         nets.append(net)
     card, host = nets
@@ -5362,7 +5432,7 @@ def text_parity(idx, vocab: int, smi: str, dev) -> dict:
           f"batch card vs CPU: parameters {err}, loss {loss_err} (want "
           f"<= 1e-4)")
     log(f"[sequences] parity: TextGenerationLSTM full width, one TBPTT "
-        f"batch of {TEXT_PARITY_T} steps (3 segments), card vs CPU: "
+        f"batch of {TEXT_PARITY_T} steps (3 segments), float64, card vs CPU: "
         f"parameters within {err:.3e} of their scale, loss "
         f"{card.score_value:.7f} vs {host.score_value:.7f} (<= 1e-4); "
         f"{smi}")
@@ -5502,6 +5572,932 @@ def shape_layers_parity(smi: str, dev) -> dict:
     return worst
 
 
+# --- phase 26 --------------------------------------------------------------------
+
+TL_BATCH = 15            # dl4j-examples EditLastLayerOthersFrozen's batch
+TL_CLASSES = 5           # the flower-photos set's classes
+TL_FC2 = 19              # VGG16: 13 convolutions and 5 pools, fc1, fc2, out
+TL_PARAMS = 134_281_029  # VGG16 at 1000 classes, re-headed to 5
+TL_TRAINABLE = 4096 * TL_CLASSES + TL_CLASSES
+TL_WARMUP = 2
+TL_STEPS = 5
+TL_FEATURIZE = 4         # batches the helper featurizes
+TL_PARITY_BATCH = 2
+SCNN_FROZEN = 7          # SimpleCNN: its convolution stack, pools included
+SCNN_BATCH = 16
+
+
+def _tl_head(classes: int = TL_CLASSES):
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+
+    return L.OutputLayer(n_out=classes, weight_init="xavier",
+                         activation="softmax", loss="mcxent")
+
+
+def reheaded(src, frozen_until: int):
+    """dl4j-examples' EditLastLayerOthersFrozen on ``src``: Nesterovs(5e-5)
+    and seed 12345 through FineTuneConfiguration, layers ``0..
+    frozen_until`` frozen, the output layer replaced by a 5-class softmax
+    (xavier)."""
+    from deeplearning4j_tpu_torch.learning.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.nn.transfer import (FineTuneConfiguration,
+                                                      TransferLearning)
+
+    ft = (FineTuneConfiguration.builder()
+          .updater(Nesterovs(learning_rate=5e-5, momentum=0.9))
+          .seed(12345).build())
+    return (TransferLearning.builder(src).fine_tune_configuration(ft)
+            .set_feature_extractor(frozen_until).remove_output_layer()
+            .add_layer(_tl_head()).build())
+
+
+def _frozen_leaves(net):
+    """The parameter tensors of the network's FrozenLayer layers."""
+    from deeplearning4j_tpu_torch.common.tree import get_path
+
+    return [get_path(net._params, p) for p in net._frozen_paths()]
+
+
+def _checksum(tensors) -> int:
+    """The sum of the tensors' 32-bit words, as one integer: a bitwise
+    fingerprint that moves with any changed bit pattern."""
+    return int(sum(int(t.detach().contiguous().view(torch.int32)
+                       .to(torch.int64).sum()) for t in tensors))
+
+
+def transfer_batch(dev, seed: int, n: int = TL_BATCH):
+    """Seeded pixels in [0, 1] at 224x224x3 and one-hot labels over the
+    flower-photos set's 5 classes (which the repository does not hold),
+    placed on the card."""
+    from deeplearning4j_tpu_torch.data import DataSet
+
+    rng = np.random.default_rng(seed)
+    x = rng.random((n, 3, IMAGE, IMAGE), dtype=np.float32)
+    y = np.eye(TL_CLASSES, dtype=np.float32)[rng.integers(0, TL_CLASSES, n)]
+    return DataSet(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+
+
+class _InjectedMasks:
+    """``ops.nn.dropout_mask`` replaced by fixed seeded masks, one per
+    shape, on the device asked for: the card and the CPU draw the same
+    bits."""
+
+    def __init__(self, seed: int):
+        from deeplearning4j_tpu_torch.ops import nn as ops
+
+        self.ops, self.draw, self.seed, self.masks = ops, ops.dropout_mask, \
+            seed, {}
+
+    def __call__(self, shape, rate, generator, device):
+        key = (tuple(shape), rate)
+        if key not in self.masks:
+            rng = np.random.default_rng(self.seed + len(self.masks))
+            self.masks[key] = torch.from_numpy(rng.random(tuple(shape))
+                                               < 1.0 - rate)
+        return self.masks[key].to(device)
+
+    def __enter__(self):
+        self.ops.dropout_mask = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.dropout_mask = self.draw
+
+
+def transfer_cpu_parity(pre_path: str, dev) -> dict:
+    """The re-headed VGG16 from the same pretrained zip on the card and on
+    the CPU, float32, TF32 off, deterministic cuDNN: one fit step at batch
+    2 with the same injected dropout masks (the frozen dense layers drop
+    out in fit); every parameter within 1e-4 of its leaf's scale, the
+    frozen ones bitwise unchanged on both."""
+    from deeplearning4j_tpu_torch.common.environment import Environment
+    from deeplearning4j_tpu_torch.util.model_serializer import restore_model
+
+    det = torch.backends.cudnn.deterministic
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.deterministic = True
+    Environment.get().set_tf32(False)
+    try:
+        nets = []
+        ds = transfer_batch(torch.device("cpu"), SEED + 71, TL_PARITY_BATCH)
+        for d in (dev, torch.device("cpu")):
+            net = reheaded(restore_model(pre_path, device=d), TL_FC2)
+            frozen = [t.clone() for t in _frozen_leaves(net)]
+            from deeplearning4j_tpu_torch.data import DataSet
+
+            with _InjectedMasks(SEED + 72):
+                net.fit(DataSet(ds.features.to(d), ds.labels.to(d)))
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in
+                      zip(frozen, _frozen_leaves(net))),
+                  f"VGG16 transfer on {d}: frozen parameters changed in the "
+                  f"parity step")
+            nets.append(net)
+        card, host = nets
+        err = _tree_err(card._params, host._params)
+        loss_err = abs(card.score_value - host.score_value) \
+            / abs(host.score_value)
+    finally:
+        torch.backends.cudnn.deterministic = det
+        Environment.get().set_tf32(tf32)
+    check(err <= 1e-4 and loss_err <= 1e-4, f"VGG16 transfer, card vs CPU "
+          f"after one step: parameters {err:.3e} of their scale, loss "
+          f"{loss_err:.3e} (want <= 1e-4)")
+    return {"params": err, "loss": loss_err}
+
+
+def transfer_helper(net, smi: str, dev) -> dict:
+    """TransferLearningHelper over the fitted re-headed VGG16: featurize
+    TL_FEATURIZE batches through the frozen bottom (images/s), fit the head
+    on the features, and hold the full model's output against the top
+    network's over the features (1e-5)."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn.transfer import TransferLearningHelper
+
+    helper = TransferLearningHelper(net)
+    check(helper.frozen_until == TL_FC2, f"helper frozen_until "
+          f"{helper.frozen_until}")
+    batches = [transfer_batch(dev, SEED + 80 + i)
+               for i in range(TL_FEATURIZE)]
+    helper.featurize(batches[0])                      # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = [helper.featurize(b) for b in batches]
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    fx = torch.cat([f.features for f in feats])
+    fy = torch.cat([f.labels for f in feats])
+    top = helper.unfrozen_mln()
+    before = top.score(DataSet(fx, fy))
+    helper.fit_featurized(DataSet(fx, fy), epochs=3)
+    after = top.score(DataSet(fx, fy))
+    x = batches[0].features
+    full = net.output(x).float()
+    via_top = top.output(feats[0].features).float()
+    torch.cuda.synchronize()
+    err = (full - via_top).abs().max().item()
+    check(err <= 1e-5, f"VGG16 transfer: the full model's output differs "
+          f"from the helper's top over the features by {err:.3e} (want "
+          f"<= 1e-5)")
+    check(np.isfinite(after) and after < before, f"fit_featurized: the "
+          f"head's loss {before} -> {after}")
+    ips = len(batches) * TL_BATCH / sec
+    log(f"[transfer] TransferLearningHelper: featurize "
+        f"{len(batches) * TL_BATCH} images through the frozen bottom at "
+        f"{ips:.2f} images/s; fit_featurized 3 epochs of the head: loss "
+        f"{before:.5f} -> {after:.5f}; full model vs top over the features "
+        f"{err:.3e} (<= 1e-5); {smi}")
+    return {"featurize_images_per_s": ips, "head_loss": [before, after],
+            "output_err": err}
+
+
+def simplecnn_reheaded(smi: str, dev) -> dict:
+    """The zoo SimpleCNN re-headed as VGG16 is (its convolution stack
+    frozen, a 5-class head) and served with fused_epilogue on: 3 bn_act
+    launches per forward (the frozen BNs take their own route), and the
+    card against the CPU within 1e-4 of the output's scale (float32, TF32
+    off)."""
+    from deeplearning4j_tpu_torch.common.environment import Environment
+    from deeplearning4j_tpu_torch.models import SimpleCNN
+
+    rng = np.random.default_rng(SEED + 90)
+    x = rng.random((SCNN_BATCH, 3, 48, 48), dtype=np.float32)
+    outs, launches = [], None
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    Environment.get().set_tf32(False)
+    try:
+        for d in (dev, torch.device("cpu")):
+            net = reheaded(SimpleCNN(seed=SEED).init(device=d), SCNN_FROZEN)
+            set_fused_epilogue(net, True)
+            alone, _, _ = expected_bn_launches(net.conf)
+            _reset_kernel_counts()
+            out = net.output(x).float()
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+                launches = _kernel_counts()["bn_act"]
+            outs.append(out.cpu())
+    finally:
+        Environment.get().set_tf32(tf32)
+    scale = outs[1].abs().max().item()
+    err = (outs[0] - outs[1]).abs().max().item() / scale
+    check(alone == 3 and launches == 3, f"re-headed SimpleCNN: bn_act "
+          f"launches {launches} per served forward, {alone} read off the "
+          f"configuration (want 3)")
+    check(err <= 1e-4, f"re-headed SimpleCNN, card vs CPU: {err:.3e} of "
+          f"the output's scale (want <= 1e-4)")
+    log(f"[transfer] zoo SimpleCNN re-headed (layers 0-{SCNN_FROZEN} "
+        f"frozen, 5-class head), fused_epilogue on, batch {SCNN_BATCH}: "
+        f"{launches} bn_act launches per served forward through the "
+        f"FrozenLayer-wrapped BNs; card vs CPU {err:.3e} of the output's "
+        f"scale (<= 1e-4); {smi}")
+    return {"bn_act_launches": launches, "cpu_parity": err}
+
+
+def phase_transfer(smi: str, dev):
+    """Phase 26: zoo VGG16 at its published widths through the pretrained
+    cache, re-headed for 5 classes and fine-tuned (see the module
+    docstring)."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.common.profiler import OpProfiler
+    from deeplearning4j_tpu_torch.models import VGG16, PretrainedType
+
+    torch.cuda.empty_cache()
+    cache = tempfile.mkdtemp(prefix="pretrained-")
+    old = os.environ.get("DL4J_TPU_PRETRAINED_DIR")
+    os.environ["DL4J_TPU_PRETRAINED_DIR"] = cache
+    try:
+        zoo = VGG16(seed=SEED)
+        src = zoo.init(device=dev)
+        check(src.num_params() == VGG_PARAMS, f"VGG16 has "
+              f"{src.num_params()} parameters, want {VGG_PARAMS}")
+        t0 = time.perf_counter()
+        src.save(zoo.pretrained_path(PretrainedType.IMAGENET))
+        save_s = time.perf_counter() - t0
+        zip_bytes = os.path.getsize(zoo.pretrained_path())
+        t0 = time.perf_counter()
+        pre = VGG16().init_pretrained(PretrainedType.IMAGENET, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        check(torch.equal(pre.params(), src.params()), "VGG16 read back "
+              "through init_pretrained differs from the model written")
+        del src
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        net = reheaded(pre, TL_FC2)
+        del pre
+        trainable = sum(int(t.numel()) for k, layer in zip(net._keys,
+                                                           net.layers)
+                        if type(layer).__name__ != "FrozenLayer"
+                        for t in net._params[k].values())
+        check(net.num_params() == TL_PARAMS and trainable == TL_TRAINABLE,
+              f"re-headed VGG16 has {net.num_params()} parameters, "
+              f"{trainable} trainable; want {TL_PARAMS}, {TL_TRAINABLE}")
+        gc = net.conf.global_conf
+        gc.compute_dtype = "bfloat16"
+        gc.fused_update = True
+        ds = transfer_batch(dev, SEED + 70)
+        frozen = _frozen_leaves(net)
+        kept = [t.clone() for t in frozen]
+        sum_before = _checksum(frozen)
+        score_before = net.score(ds)
+        losses = []
+        for _ in range(TL_WARMUP):
+            net.fit(ds)
+            losses.append(net.score_value)
+        torch.cuda.synchronize()
+        prof = OpProfiler.get()
+        prof.reset()
+        _reset_kernel_counts()
+        ms = []
+        for _ in range(TL_STEPS):
+            t0 = time.perf_counter()
+            net.fit(ds)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(net.score_value)
+        counts = _kernel_counts()
+        fallbacks = prof.counter_value("precision/fused_fallbacks")
+        peak = torch.cuda.max_memory_allocated()
+        frozen = _frozen_leaves(net)
+        sum_after = _checksum(frozen)
+        same = all(torch.equal(a, b) for a, b in zip(kept, frozen))
+        del kept
+        score_after = net.score(ds)
+        bucket = sum(int(v.numel()) for v in net._flat.params.values())
+        check(counts["fused_update"] == TL_STEPS and not fallbacks,
+              f"VGG16 transfer: fused_update launched "
+              f"{counts['fused_update']} times in {TL_STEPS} steps, "
+              f"fallbacks {fallbacks} (want 1 per step)")
+        check(bucket == TL_PARAMS, f"the fused bucket holds {bucket} "
+              f"elements, want {TL_PARAMS} (frozen ranges included)")
+        check(same and sum_before == sum_after, f"VGG16 transfer: frozen "
+              f"parameters changed (checksum {sum_before} -> {sum_after})")
+        check(all(np.isfinite(losses)) and score_after < score_before,
+              f"VGG16 transfer: the head's loss did not fall: "
+              f"{score_before} -> {score_after}; step losses {losses}")
+        result = {"params": TL_PARAMS, "trainable": TL_TRAINABLE,
+                  "batch": TL_BATCH, "images_per_s":
+                  TL_BATCH * len(ms) / sum(ms) * 1e3, **_ms_stats(ms),
+                  "peak_bytes": peak, "losses": losses,
+                  "score": [score_before, score_after],
+                  "fused_update_launches": counts["fused_update"],
+                  "fused_update_elements": bucket,
+                  "frozen_checksum": sum_before, "zip_bytes": zip_bytes,
+                  "save_s": save_s, "load_s": load_s}
+        log(f"[transfer] zoo VGG16 ({VGG_PARAMS} parameters) saved as a "
+            f"model zip of {zip_bytes} B in {save_s:.2f} s, read back "
+            f"through VGG16().init_pretrained() in {load_s:.2f} s, bitwise; "
+            f"re-headed (layers 0-{TL_FC2} frozen, 5-class xavier softmax, "
+            f"Nesterovs(5e-5), seed 12345): {TL_PARAMS} parameters, "
+            f"{TL_TRAINABLE} trainable; batch {TL_BATCH}, bf16 compute, "
+            f"fused_update: {result['images_per_s']:.2f} images/s, step ms "
+            f"median {result['step_ms_median']:.2f} p10 "
+            f"{result['step_ms_p10']:.2f} p90 {result['step_ms_p90']:.2f} "
+            f"({TL_STEPS} steps after {TL_WARMUP} warm-ups); peak device "
+            f"memory {peak} B; fused_update {counts['fused_update'] / TL_STEPS:.0f} "
+            f"launch per step over {bucket} elements; frozen checksum "
+            f"{sum_before} before and {sum_after} after (bitwise); the "
+            f"head's loss on the batch {score_before:.5f} -> "
+            f"{score_after:.5f}; {smi}")
+        log(f"[transfer] losses {losses}")
+        result["helper"] = transfer_helper(net, smi, dev)
+        del net, ds
+        torch.cuda.empty_cache()
+        p = transfer_cpu_parity(zoo.pretrained_path(), dev)
+        result["cpu_parity"] = p
+        log(f"[transfer] re-headed VGG16, float32, TF32 off, batch "
+            f"{TL_PARITY_BATCH}, one fit step with the same injected dropout "
+            f"masks, card vs CPU: parameters {p['params']:.3e} of their "
+            f"scale, loss {p['loss']:.3e} (<= 1e-4); frozen parameters "
+            f"bitwise unchanged on both")
+    finally:
+        if old is None:
+            os.environ.pop("DL4J_TPU_PRETRAINED_DIR", None)
+        else:
+            os.environ["DL4J_TPU_PRETRAINED_DIR"] = old
+        import shutil
+
+        shutil.rmtree(cache, ignore_errors=True)
+    torch.cuda.empty_cache()
+    result["simplecnn"] = simplecnn_reheaded(smi, dev)
+    return result
+
+
+# --- phase 27 --------------------------------------------------------------------
+
+VAE = {"n_in": 784, "encoder": (256, 256), "latent": 32,
+       "decoder": (256, 256), "batch": 128, "lr": 1e-3, "l2": 1e-4}
+VAE_PARITY_BATCHES = 2
+CAPS_BATCH = 32
+CAPS_WARMUP = 2
+CAPS_STEPS = 5
+CAPS_PARITY_BATCH = 4
+C3D_INPUT = (4, 3, 16, 112, 112)    # C3D's clips: 16 frames of 112x112
+C3D_CLASSES = 101                   # UCF101
+
+
+def vae_net(dev, dtype: str = "float32"):
+    """dl4j-examples' VaeMNISTAnomaly: one VariationalAutoencoder (784 in,
+    encoder 256-256, 32 latents, decoder 256-256, Bernoulli, leakyrelu),
+    Adam(1e-3), l2 1e-4; parameters in ``dtype``."""
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.builder import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    conf = (NeuralNetConfiguration.builder().seed(SEED)
+            .updater(Adam(VAE["lr"])).l2(VAE["l2"]).data_type(dtype)
+            .list()
+            .layer(L.VariationalAutoencoder(
+                n_out=VAE["latent"], encoder_layer_sizes=VAE["encoder"],
+                decoder_layer_sizes=VAE["decoder"],
+                reconstruction_distribution="bernoulli",
+                activation="leakyrelu"))
+            .set_input_type(InputType.feed_forward(VAE["n_in"])).build())
+    return MultiLayerNetwork(conf).init(device=dev)
+
+
+class _InjectedNormals:
+    """``ops.nn.normal`` replaced by fixed seeded draws, one per shape."""
+
+    def __init__(self, seed: int):
+        from deeplearning4j_tpu_torch.ops import nn as ops
+
+        self.ops, self.draw, self.seed, self.cache = ops, ops.normal, seed, {}
+
+    def __call__(self, shape, generator, dtype, device):
+        key = tuple(shape)
+        if key not in self.cache:
+            rng = np.random.default_rng(self.seed + len(self.cache))
+            self.cache[key] = torch.from_numpy(
+                rng.normal(size=key).astype(np.float32))
+        return self.cache[key].to(device=device, dtype=dtype)
+
+    def __enter__(self):
+        self.ops.normal = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.normal = self.draw
+
+
+def phase_vae(smi: str, dev) -> dict:
+    """The VAE pretrained for one epoch of the synthetic MNIST fallback at
+    batch 128 (samples/s, the negative ELBO at the first and last step),
+    then the card against the CPU over VAE_PARITY_BATCHES batches with the
+    same injected eps, in float64: Adam turns a gradient within float32
+    rounding of 0 into a step of lr either way, so in float32 the two
+    devices' parameters may part by lr where a gradient is that small
+    (phase 24's zoo parity steps in float64 for the same reason)."""
+    from deeplearning4j_tpu_torch.common.environment import Environment
+    from deeplearning4j_tpu_torch.data import (DataSet,
+                                               MnistDataSetIterator)
+
+    it = MnistDataSetIterator(VAE["batch"], train=True)
+    net = vae_net(dev)
+    first = []
+
+    class _First:
+        """The iterator, noting the negative ELBO of the first step."""
+
+        def __init__(self, data):
+            self.data = data
+
+        def reset(self):
+            self.data.reset()
+
+        def __iter__(self):
+            for i, ds in enumerate(self.data):
+                yield ds
+                if i == 0:
+                    first.append(net.score_value)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.pretrain(_First(it), epochs=1)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    n = len(it.features)
+    last = net.score_value
+    check(np.isfinite(last) and last < first[0], f"VAE pretraining: the "
+          f"negative ELBO did not fall: {first[0]} -> {last}")
+    x = it.features
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    Environment.get().set_tf32(False)
+    try:
+        nets = []
+        for d in (dev, torch.device("cpu")):
+            twin = vae_net(d, "float64")
+            with _InjectedNormals(SEED + 100):
+                twin.pretrain([DataSet(x[i * VAE["batch"]:(i + 1)
+                                         * VAE["batch"]].astype(np.float64),
+                                       None)
+                               for i in range(VAE_PARITY_BATCHES)])
+            nets.append(twin)
+        err = _tree_err(nets[0]._params, nets[1]._params)
+        lerr = abs(nets[0].score_value - nets[1].score_value) \
+            / abs(nets[1].score_value)
+    finally:
+        Environment.get().set_tf32(tf32)
+    check(err <= 1e-4 and lerr <= 1e-4, f"VAE pretraining, card vs CPU: "
+          f"parameters {err:.3e} of their scale, negative ELBO {lerr:.3e} "
+          f"(want <= 1e-4)")
+    result = {"params": net.num_params(), "samples_per_s": n / sec,
+              "steps": -(-n // VAE["batch"]), "neg_elbo": [first[0], last],
+              "cpu_parity": {"params": err, "neg_elbo": lerr}}
+    log(f"[pretrain] VariationalAutoencoder at VaeMNISTAnomaly's widths "
+        f"({net.num_params()} parameters: 784 -> 256-256 -> 32 -> 256-256 "
+        f"-> 784, Bernoulli, leakyrelu, Adam(1e-3), l2 1e-4) pretrained "
+        f"one epoch of {n} synthetic MNIST images at batch {VAE['batch']}: "
+        f"{n / sec:.1f} samples/s; negative ELBO {first[0]:.4f} -> "
+        f"{last:.4f}; card vs CPU ({VAE_PARITY_BATCHES} batches, injected "
+        f"eps, float64): parameters {err:.3e} of their scale, negative "
+        f"ELBO {lerr:.3e} (<= 1e-4); {smi}")
+    return result
+
+
+def capsnet_conf():
+    """CapsNet at Sabour et al. (2017)'s widths on 28x28x1: convolution 256
+    9x9 ReLU, PrimaryCapsules 32 channels of 8-D capsules 9x9 stride 2
+    (1,152 capsules), CapsuleLayer 10 capsules of 16-D with 3 routings,
+    CapsuleStrengthLayer, softmax and negative log-likelihood;
+    Adam(1e-3)."""
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.builder import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+
+    return (NeuralNetConfiguration.builder().seed(SEED).updater(Adam(1e-3))
+            .list()
+            .layer(L.ConvolutionLayer(n_out=256, kernel_size=(9, 9),
+                                      activation="relu"))
+            .layer(L.PrimaryCapsules(capsule_dimensions=8, channels=32,
+                                     kernel_size=(9, 9), stride=(2, 2)))
+            .layer(L.CapsuleLayer(capsules=10, capsule_dimensions=16,
+                                  routings=3))
+            .layer(L.CapsuleStrengthLayer())
+            .layer(L.ActivationLayer(activation="softmax"))
+            .layer(L.LossLayer(loss="negativeloglikelihood"))
+            .set_input_type(InputType.convolutional(28, 28, 1)).build())
+
+
+def phase_capsnet(smi: str, dev) -> dict:
+    from deeplearning4j_tpu_torch.common.environment import Environment
+    from deeplearning4j_tpu_torch.common.profiler import OpProfiler
+    from deeplearning4j_tpu_torch.data import DataSet, MnistDataSetIterator
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    it = MnistDataSetIterator(CAPS_BATCH, train=True, num_examples=256,
+                              flatten=False)
+    conf = capsnet_conf()
+    check(conf.layers[1].capsules == 1152, f"primary capsules "
+          f"{conf.layers[1].capsules}, want 1152")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    net = MultiLayerNetwork(conf).init(device=dev)
+    net.conf.global_conf.fused_update = True
+    ds = DataSet(torch.from_numpy(it.features[:CAPS_BATCH]).to(dev),
+                 torch.from_numpy(it.labels[:CAPS_BATCH]).to(dev))
+    losses = []
+    for _ in range(CAPS_WARMUP):
+        net.fit(ds)
+        losses.append(net.score_value)
+    torch.cuda.synchronize()
+    prof = OpProfiler.get()
+    prof.reset()
+    _reset_kernel_counts()
+    ms = []
+    for _ in range(CAPS_STEPS):
+        t0 = time.perf_counter()
+        net.fit(ds)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(net.score_value)
+    counts = _kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(counts["fused_update"] == CAPS_STEPS
+          and not prof.counter_value("precision/fused_fallbacks"),
+          f"CapsNet: fused_update launched {counts['fused_update']} times in "
+          f"{CAPS_STEPS} steps (want 1 per step)")
+    check(all(np.isfinite(losses)), f"CapsNet: non-finite loss {losses}")
+    n_params = net.num_params()
+    del net
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    Environment.get().set_tf32(False)
+    try:
+        x = it.features[:CAPS_PARITY_BATCH]
+        y = it.labels[:CAPS_PARITY_BATCH]
+        res = []
+        for d in (dev, torch.device("cpu")):
+            twin = MultiLayerNetwork(capsnet_conf()).init(device=d)
+            grads, score = twin.compute_gradient_and_score(DataSet(x, y))
+            res.append(({str(i): g for i, g in enumerate(grads)}, score,
+                        twin.output(x).float().cpu()))
+        gerr = _tree_err(res[0][0], res[1][0])
+        lerr = abs(res[0][1] - res[1][1]) / abs(res[1][1])
+        oerr = (res[0][2] - res[1][2]).abs().max().item() \
+            / res[1][2].abs().max().item()
+    finally:
+        torch.backends.cudnn.deterministic = det
+        Environment.get().set_tf32(tf32)
+    check(max(gerr, lerr, oerr) <= 1e-4, f"CapsNet card vs CPU: gradients "
+          f"{gerr:.3e} of their scale, loss {lerr:.3e}, output {oerr:.3e} "
+          f"(want <= 1e-4)")
+    result = {"params": n_params, "batch": CAPS_BATCH,
+              "images_per_s": CAPS_BATCH * len(ms) / sum(ms) * 1e3,
+              **_ms_stats(ms), "peak_bytes": peak, "losses": losses,
+              "fused_update_launches": counts["fused_update"],
+              "cpu_parity": {"grads": gerr, "loss": lerr, "output": oerr}}
+    log(f"[capsnet] CapsNet at Sabour et al.'s widths ({n_params} "
+        f"parameters: conv 256 9x9, 1152 primary 8-D capsules, 10 routed "
+        f"16-D capsules, 3 routings), Adam(1e-3) fused_update, float32, "
+        f"batch {CAPS_BATCH}: step ms median {result['step_ms_median']:.2f}"
+        f" p10 {result['step_ms_p10']:.2f} p90 {result['step_ms_p90']:.2f}"
+        f" ({result['images_per_s']:.1f} images/s); peak {peak} B; "
+        f"fused_update {counts['fused_update'] / CAPS_STEPS:.0f} launch per "
+        f"step; losses {losses[0]:.5f} -> {losses[-1]:.5f}; card vs CPU "
+        f"(batch {CAPS_PARITY_BATCH}, TF32 off): gradients {gerr:.3e}, loss "
+        f"{lerr:.3e}, output {oerr:.3e} (<= 1e-4); {smi}")
+    return result
+
+
+def _layer_cases():
+    """(name, layers, input type) of each new class at its CPU test's size
+    (tests/test_torch_layers_rest.py), a loss head appended per output
+    type; the 3D family also at C3D's first two blocks."""
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType as T
+
+    ff, rnn, cnn = T.feed_forward, T.recurrent, T.convolutional
+    c3d = T.convolutional_3d
+    return [
+        ("PReLULayer", [L.PReLULayer()], cnn(4, 4, 3)),
+        ("ElementWiseMultiplicationLayer",
+         [L.ElementWiseMultiplicationLayer(activation="tanh")], ff(6)),
+        ("ThresholdedReLULayer", [L.DenseLayer(n_out=6, activation="tanh"),
+                                  L.ThresholdedReLULayer(theta=0.3)], ff(6)),
+        ("GroupNormalizationLayer", [L.GroupNormalizationLayer(groups=2)],
+         cnn(4, 4, 4)),
+        ("FlattenLayer", [L.FlattenLayer()], c3d(2, 3, 3, 2)),
+        ("Permute", [L.Permute(dims=(2, 1))], rnn(4, 5)),
+        ("ReshapeLayer", [L.ReshapeLayer(shape=(5, 4))], ff(20)),
+        ("RepeatVector", [L.RepeatVector(n=3)], ff(4)),
+        ("TimeDistributedLayer", [L.TimeDistributedLayer(
+            inner=L.DenseLayer(n_out=3, activation="tanh"))], rnn(4, 5)),
+        ("LambdaLayer", [L.LambdaLayer(fn=lambda v: v * 2.0 + 1.0,
+                                       name="chip_smoke_affine")], ff(6)),
+        ("Convolution3DLayer", [L.Convolution3DLayer(
+            n_out=2, kernel_size=(3, 3, 3), stride=(2, 2, 2),
+            convolution_mode="same")], c3d(5, 5, 4, 2)),
+        ("Subsampling3DLayer", [L.Subsampling3DLayer(
+            pooling_type="avg", kernel_size=(3, 3, 3), stride=(2, 2, 2),
+            padding=(1, 1, 1))], c3d(5, 5, 5, 2)),
+        ("Upsampling3D", [L.Upsampling3D(size=(1, 2, 3))], c3d(2, 3, 3, 2)),
+        ("ZeroPadding3DLayer", [L.ZeroPadding3DLayer(
+            padding=((1, 0), (0, 2), (1, 1)))], c3d(2, 3, 3, 2)),
+        ("Cropping3D", [L.Cropping3D(cropping=(1, 0, 1))], c3d(4, 4, 4, 2)),
+        ("LocallyConnected2D", [L.LocallyConnected2D(
+            n_out=3, kernel_size=(2, 3), stride=(1, 2), activation="tanh")],
+         cnn(5, 6, 2)),
+        ("LocallyConnected1D", [L.LocallyConnected1D(
+            n_out=3, kernel_size=3, stride=2)], rnn(4, 9)),
+        ("LearnedSelfAttentionLayer", [L.LearnedSelfAttentionLayer(
+            n_out=8, n_heads=2, n_queries=3)], rnn(8, 5)),
+        ("RecurrentAttentionLayer", [L.RecurrentAttentionLayer(
+            n_out=6, n_heads=2)], rnn(4, 5)),
+        ("ConvLSTM2DLayer", [L.ConvLSTM2DLayer(n_out=3, kernel_size=(3, 3))],
+         c3d(3, 5, 5, 2)),
+        ("AlphaDropoutLayer", [L.AlphaDropoutLayer(rate=0.3)], ff(6)),
+        ("GaussianDropoutLayer", [L.GaussianDropoutLayer(rate=0.3)], ff(6)),
+        ("GaussianNoiseLayer", [L.GaussianNoiseLayer(stddev=0.2)],
+         rnn(4, 5)),
+        ("SpatialDropoutLayer", [L.SpatialDropoutLayer(rate=0.4)],
+         cnn(3, 3, 4)),
+        ("DropConnect", [L.DenseLayer(n_out=7, activation="tanh",
+                                      weight_noise=L.DropConnect(0.7))],
+         ff(5)),
+        ("WeightNoise", [L.DenseLayer(n_out=7, activation="tanh",
+                                      weight_noise=L.WeightNoise(
+                                          stddev=0.1))], ff(5)),
+        ("FrozenLayer", [L.FrozenLayer(layer=L.DenseLayer(
+            n_out=6, activation="tanh", dropout=0.3)),
+            L.DenseLayer(n_out=5, activation="tanh")], ff(6)),
+        ("C3D", [L.Convolution3DLayer(n_out=64, kernel_size=(3, 3, 3),
+                                      padding=(1, 1, 1), activation="relu"),
+                 L.Subsampling3DLayer(kernel_size=(1, 2, 2),
+                                      stride=(1, 2, 2)),
+                 L.Convolution3DLayer(n_out=128, kernel_size=(3, 3, 3),
+                                      padding=(1, 1, 1), activation="relu"),
+                 L.Subsampling3DLayer(kernel_size=(2, 2, 2),
+                                      stride=(2, 2, 2))],
+         c3d(*C3D_INPUT[2:], C3D_INPUT[1])),
+    ]
+
+
+def _case_net(layers, in_type, dev, classes, dtype="float32"):
+    from deeplearning4j_tpu_torch.learning.updaters import Sgd
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.builder import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.inputs import RNNInput
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    def build(head=None):
+        lb = (NeuralNetConfiguration.builder().seed(SEED).updater(Sgd(0.1))
+              .data_type(dtype).list())
+        for layer in layers + ([head] if head is not None else []):
+            lb = lb.layer(copy.deepcopy(layer))
+        return lb.set_input_type(in_type).build()
+
+    out = build().layer_output_types[-1]
+    conf = build((L.RnnOutputLayer if isinstance(out, RNNInput)
+                  else L.OutputLayer)(n_out=classes, activation="softmax",
+                                      loss="mcxent"))
+    return MultiLayerNetwork(conf).init(device=dev), out
+
+
+def _case_batch(in_type, out, batch, classes, seed):
+    from deeplearning4j_tpu_torch.nn.conf.inputs import (CNN3DInput,
+                                                         CNNInput, FFInput,
+                                                         RNNInput)
+
+    rng = np.random.default_rng(seed)
+    shape = {FFInput: lambda t: (t.size,),
+             RNNInput: lambda t: (t.timesteps, t.size),
+             CNNInput: lambda t: (t.channels, t.height, t.width),
+             CNN3DInput: lambda t: (t.channels, t.depth, t.height,
+                                    t.width)}[type(in_type)](in_type)
+    x = rng.normal(size=(batch,) + shape).astype(np.float32)
+    lead = (batch, out.timesteps) if isinstance(out, RNNInput) else (batch,)
+    y = np.eye(classes, dtype=np.float32)[rng.integers(0, classes, lead)]
+    return x, y
+
+
+def c3d_step_ms(layers, in_type, dev) -> float:
+    """One float32 fit step of C3D's first two blocks on the card, after a
+    warm-up step (cuDNN's plans)."""
+    from deeplearning4j_tpu_torch.data import DataSet
+
+    net, o_t = _case_net(layers, in_type, dev, C3D_CLASSES)
+    x, y = _case_batch(in_type, o_t, C3D_INPUT[0], C3D_CLASSES, SEED + 113)
+    ds = DataSet(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+    net.fit(ds)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.fit(ds)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_layers(smi: str, dev) -> dict:
+    """Every other new class on the card against the CPU, float32, TF32
+    off: from the same seeded weights, the forward and one SGD fit step
+    (random draws injected: the same masks and normals on both), every
+    output and parameter within 1e-4 of its scale. C3D's first two blocks
+    at [4, 3, 16, 112, 112] (UCF101's 101 classes) are timed in float32
+    and compared in float64: their convolution biases' gradients sum
+    802,816 terms that cancel, which float32 leaves at about 2e-3 of the
+    step on one device against the other."""
+    from deeplearning4j_tpu_torch.common.environment import Environment
+    from deeplearning4j_tpu_torch.common.profiler import OpProfiler
+    from deeplearning4j_tpu_torch.data import DataSet
+
+    out = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    Environment.get().set_tf32(False)
+    try:
+        for name, layers, in_type in _layer_cases():
+            c3d = name == "C3D"
+            batch, classes = (C3D_INPUT[0], C3D_CLASSES) if c3d else (3, 3)
+            dtype = "float64" if c3d else "float32"
+            res = []
+            OpProfiler.get().reset()
+            for d in (dev, torch.device("cpu")):
+                net, o_t = _case_net(layers, in_type, d, classes, dtype)
+                x, y = _case_batch(in_type, o_t, batch, classes, SEED + 110)
+                ds = DataSet(torch.from_numpy(x).to(d, getattr(torch, dtype)),
+                             torch.from_numpy(y).to(d, getattr(torch, dtype)))
+                fwd = net.output(ds.features).cpu()
+                with _InjectedMasks(SEED + 111), _InjectedNormals(SEED + 112):
+                    net.fit(ds)
+                res.append((fwd, net._params, net.score_value))
+            ferr = (res[0][0] - res[1][0]).abs().max().item() \
+                / max(res[1][0].abs().max().item(), 1e-30)
+            perr = _tree_err(res[0][1], res[1][1])
+            lerr = abs(res[0][2] - res[1][2]) / abs(res[1][2])
+            check(max(ferr, perr, lerr) <= 1e-4, f"{name}, card vs CPU: "
+                  f"forward {ferr:.3e}, parameters after a step {perr:.3e}, "
+                  f"loss {lerr:.3e} (want <= 1e-4)")
+            out[name] = {"forward": ferr, "params": perr, "loss": lerr,
+                         "dtype": dtype}
+            routes = {k: v for k, v in OpProfiler.get().get_counters().items()
+                      if k.startswith("attention/mha_")}
+            if routes:
+                # the attention op's route for this layer's shapes, both
+                # devices' calls counted
+                out[name]["attention_routes"] = routes
+            del res
+    finally:
+        torch.backends.cudnn.deterministic = det
+        Environment.get().set_tf32(tf32)
+    c3d = [c for c in _layer_cases() if c[0] == "C3D"][0]
+    out["C3D"]["fit_step_ms"] = (c3d_step_ms(c3d[1], c3d[2], dev)
+                                 if dev.type == "cuda" else None)
+    worst = max(max(v["forward"], v["params"], v["loss"])
+                for v in out.values())
+    log(f"[layers] {len(out)} new layer classes and configurations, card vs "
+        f"CPU (float32, C3D float64; TF32 off, injected draws): forward and "
+        f"one SGD step "
+        f"within {worst:.3e} of their scale (<= 1e-4); C3D's first two "
+        f"blocks at {list(C3D_INPUT)} ({C3D_CLASSES} classes): fit step "
+        f"{out['C3D']['fit_step_ms']} ms on the card; attention routes "
+        f"{ {n: v['attention_routes'] for n, v in out.items() if 'attention_routes' in v} }; {smi}")
+    return out
+
+
+# --- phase 28 --------------------------------------------------------------------
+
+REMAT_STEPS = 3
+REMAT_SELECTIVE = ["stem_bn", "s0b0_bn1"]
+
+
+def remat_run(policy, ds, dev) -> dict:
+    """ResNet-50 as phase 6 trains it (bf16 compute, fused_update, bf16
+    state), REMAT_STEPS fit steps under ``policy``: losses, the peak
+    device memory of the steps, their times, the parameters."""
+    from deeplearning4j_tpu_torch.common.profiler import OpProfiler
+
+    torch.cuda.empty_cache()
+    model = train_model(dev, True, "bfloat16", "bfloat16")
+    model.set_remat_policy(policy)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    OpProfiler.get().reset()
+    _reset_kernel_counts()
+    losses, ms = [], []
+    for _ in range(REMAT_STEPS):
+        t0 = time.perf_counter()
+        model.fit(ds)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(model.score_value)
+    peak = torch.cuda.max_memory_allocated()
+    launches = _kernel_counts()["fused_update"]
+    params = model.params().detach().clone()
+    del model
+    torch.cuda.empty_cache()
+    return {"losses": losses, "peak_bytes": peak, "peak_above_start":
+            peak - base, "step_ms_median": statistics.median(ms),
+            "step_ms": ms, "params": params, "fused_update_launches":
+            launches}
+
+
+def _scaled_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+
+
+def phase_remat(smi: str, dev) -> dict:
+    """Phase 28: ResNet-50 training under each rematerialization policy,
+    and the TextGenerationLSTM's TBPTT batch under "full" (see the module
+    docstring)."""
+    from deeplearning4j_tpu_torch.data import DataSet
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    ds = synthetic_batch(TRAIN_BATCH, dev, SEED + 120)
+    runs = {}
+    try:
+        for name, pol in (("none", "none"), ("full", "full"),
+                          ("dots_only", "dots_only"),
+                          ("checkpoint_dots_with_no_batch_dims",
+                           "checkpoint_dots_with_no_batch_dims"),
+                          ("selective", REMAT_SELECTIVE)):
+            runs[name] = remat_run(pol, ds, dev)
+        ref = runs["none"]
+        result = {}
+        for name, r in runs.items():
+            perr = _scaled_err(r["params"], ref["params"])
+            lerr = max(abs(a - b) / abs(b) for a, b in zip(r["losses"],
+                                                          ref["losses"]))
+            bitwise = bool(torch.equal(r["params"], ref["params"])
+                           and r["losses"] == ref["losses"])
+            check(all(np.isfinite(r["losses"])) and perr <= 1e-6
+                  and lerr <= 1e-6, f"remat {name}: parameters {perr:.3e} "
+                  f"of their scale, losses {lerr:.3e} from the 'none' run "
+                  f"(want <= 1e-6)")
+            check(r["fused_update_launches"] == REMAT_STEPS,
+                  f"remat {name}: fused_update launched "
+                  f"{r['fused_update_launches']} times in {REMAT_STEPS} "
+                  f"steps")
+            result[name] = {k: v for k, v in r.items() if k != "params"}
+            result[name].update(params_err=perr, losses_err=lerr,
+                                bitwise=bitwise)
+            log(f"[remat] ResNet-50 batch {TRAIN_BATCH}, bf16 compute, "
+                f"fused_update, bf16 state, policy {name}"
+                f"{' ' + str(REMAT_SELECTIVE) if name == 'selective' else ''}"
+                f": peak device memory {r['peak_bytes']} B "
+                f"({r['peak_above_start']} above the parameters and state), "
+                f"step ms median {r['step_ms_median']:.2f} over "
+                f"{REMAT_STEPS} steps; against 'none': parameters "
+                f"{perr:.3e} of their scale, losses {lerr:.3e} (<= 1e-6), "
+                f"bitwise {bitwise}; {smi}")
+        check(runs["full"]["peak_bytes"] < ref["peak_bytes"], f"remat: "
+              f"'full' peaks at {runs['full']['peak_bytes']} B, not below "
+              f"'none' at {ref['peak_bytes']} B")
+        del runs, ds
+        torch.cuda.empty_cache()
+        idx, chars = text_corpus()
+        vocab = len(chars)
+        x, y = text_batch(idx, vocab, TEXT_BATCH, TEXT_SEQ, dev, SEED + 130)
+        tb = {}
+        for pol in ("none", "full"):
+            net = text_generation_net(vocab, dev)
+            net.set_remat_policy(pol)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            net.fit(DataSet(x, y))
+            torch.cuda.synchronize()
+            tb[pol] = {"ms": (time.perf_counter() - t0) * 1e3,
+                       "peak_bytes": torch.cuda.max_memory_allocated(),
+                       "loss": net.score_value,
+                       "params": net.params().detach().clone()}
+            del net
+        perr = _scaled_err(tb["full"]["params"], tb["none"]["params"])
+        lerr = abs(tb["full"]["loss"] - tb["none"]["loss"]) \
+            / abs(tb["none"]["loss"])
+        bitwise = bool(torch.equal(tb["full"]["params"],
+                                   tb["none"]["params"])
+                       and tb["full"]["loss"] == tb["none"]["loss"])
+        check(perr <= 1e-6 and lerr <= 1e-6, f"TBPTT under 'full': "
+              f"parameters {perr:.3e}, loss {lerr:.3e} from 'none' (want "
+              f"<= 1e-6)")
+        result["textgen_tbptt"] = {
+            p: {k: v for k, v in r.items() if k != "params"}
+            for p, r in tb.items()}
+        result["textgen_tbptt"].update(params_err=perr, loss_err=lerr,
+                                       bitwise=bitwise)
+        log(f"[remat] TextGenerationLSTM TBPTT batch ({TEXT_BATCH} x "
+            f"{TEXT_SEQ}, {TEXT_TBPTT}-step segments): 'none' "
+            f"{tb['none']['ms']:.2f} ms, peak {tb['none']['peak_bytes']} B; "
+            f"'full' {tb['full']['ms']:.2f} ms, peak "
+            f"{tb['full']['peak_bytes']} B; parameters {perr:.3e} of their "
+            f"scale, loss {lerr:.3e} (<= 1e-6), bitwise {bitwise}; {smi}")
+    finally:
+        torch.backends.cudnn.deterministic = det
+    return result
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
@@ -5567,6 +6563,14 @@ def main(argv=None) -> int:
         zoo_cnn = phase_zoo_cnn(smi, dev)
         torch.cuda.empty_cache()
         seq = phase_sequences(smi, dev)
+        torch.cuda.empty_cache()
+        transfer = phase_transfer(smi, dev)
+        torch.cuda.empty_cache()
+        rest = {"vae": phase_vae(smi, dev),
+                "capsnet": phase_capsnet(smi, dev),
+                "layers": phase_layers(smi, dev)}
+        torch.cuda.empty_cache()
+        remat = phase_remat(smi, dev)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -5588,6 +6592,8 @@ def main(argv=None) -> int:
         "launches_zoo_cnn": {n: r["bn_act_launches"]
                              for n, r in zoo_cnn.items()
                              if "bn_act_launches" in r},
+        "launches_simplecnn_reheaded":
+            transfer["simplecnn"]["bn_act_launches"],
         "forwards": {n: {k: f[k] for k in ("launches", "ms", "bound_ms",
                                            "share")}
                      for n, f in timing["shapes"].items()}})
@@ -5619,7 +6625,13 @@ def main(argv=None) -> int:
         "launches_zoo_cnn": {n: r["fused_update_launches"]
                              for n, r in zoo_cnn.items()
                              if "fused_update_launches" in r},
-        "launches_textgen": seq["fused_update_launches"]})
+        "launches_textgen": seq["fused_update_launches"],
+        "launches_vgg16_transfer": transfer["fused_update_launches"],
+        "vgg16_transfer_elements": transfer["fused_update_elements"],
+        "launches_capsnet": rest["capsnet"]["fused_update_launches"],
+        "launches_remat": {n: r["fused_update_launches"]
+                           for n, r in remat.items()
+                           if "fused_update_launches" in r}})
     bp = bag_timing["path"]
     kernels.append({
         "name": "embedding_bag", "route": "cuda",
@@ -5720,7 +6732,9 @@ def main(argv=None) -> int:
                       "fasttext": {k: v for k, v in ft.items()
                                    if k != "bag"},
                       "glove": glove, "deepwalk": deepwalk,
-                      "serializer": ser, "sequences": seq}, default=str),
+                      "serializer": ser, "sequences": seq,
+                      "transfer": transfer, "pretrain_and_layers": rest,
+                      "remat": remat}, default=str),
           flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -10,11 +10,13 @@ InceptionResNetV1, FaceNetNN4Small2 and NASNet, with the JAX package's node
 names (parameters carry across by name, ``util/convert.py``). ``conf()``
 builds the configuration without allocating; ``init(device=)`` the
 initialized network, on the card unless the caller asks for another device.
-Pretrained weights are not ported yet.
+``init_pretrained`` reads a model zip from the local cache of pretrained
+weights (``ZooModel``).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Sequence, Tuple
 
 from ..learning.updaters import Adam, Nesterovs
@@ -34,7 +36,25 @@ def network(conf):
     return MultiLayerNetwork(conf)
 
 
+class PretrainedType:
+    """The kinds of pretrained weights (reference
+    ``org.deeplearning4j.zoo.PretrainedType``)."""
+
+    IMAGENET = "imagenet"
+    MNIST = "mnist"
+    CIFAR10 = "cifar10"
+    VGGFACE = "vggface"
+
+
 class ZooModel:
+    """A zoo model: ``conf()``, ``init(device=)`` and the pretrained
+    weights of a local cache. ``$DL4J_TPU_PRETRAINED_DIR`` (default
+    ``~/.deeplearning4j_tpu/pretrained``, the JAX package's) holds one
+    model zip per model and kind, ``<ModelClass>_<kind>.zip``
+    (``util/model_serializer.write_model``); ``init_pretrained`` reads one.
+    Nothing is downloaded: a missing file raises with the path to fill, as
+    in the JAX package (``models/zoo.py:30-84``), where DL4J downloads."""
+
     def conf(self):
         raise NotImplementedError
 
@@ -42,6 +62,38 @@ class ZooModel:
         """The initialized network, on the card unless ``device`` says
         otherwise."""
         return network(self.conf()).init(device=device)
+
+    @staticmethod
+    def pretrained_cache_dir() -> str:
+        return os.environ.get(
+            "DL4J_TPU_PRETRAINED_DIR",
+            os.path.join(os.path.expanduser("~"), ".deeplearning4j_tpu",
+                         "pretrained"))
+
+    def pretrained_path(self, kind: str = PretrainedType.IMAGENET) -> str:
+        return os.path.join(self.pretrained_cache_dir(),
+                            f"{type(self).__name__}_{kind}.zip")
+
+    def pretrained_available(self,
+                             kind: str = PretrainedType.IMAGENET) -> bool:
+        return os.path.exists(self.pretrained_path(kind))
+
+    def init_pretrained(self, kind: str = PretrainedType.IMAGENET,
+                        device=None):
+        """The network of the cached model zip for ``kind``, on the card
+        unless ``device`` says otherwise."""
+        from ..util.model_serializer import restore_model
+
+        path = self.pretrained_path(kind)
+        if not os.path.exists(path):
+            raise RuntimeError(
+                f"{type(self).__name__}: no pretrained {kind!r} weights in "
+                f"the local cache ({path}). Nothing is downloaded: place a "
+                f"model zip at that path (or set DL4J_TPU_PRETRAINED_DIR), "
+                f"or train from scratch with init().")
+        return restore_model(path, device=device)
+
+    initPretrained = init_pretrained
 
 
 def _graph(seed: int, updater, activation: str = "relu",

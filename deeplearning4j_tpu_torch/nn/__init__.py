@@ -4,3 +4,5 @@ from .conf import layers
 from .graph import (ComputationGraph, ComputationGraphConfiguration,
                     ElementWiseVertex, GraphBuilder, MergeVertex)
 from .multilayer import MultiLayerNetwork
+from .transfer import (FineTuneConfiguration, TransferLearning,
+                       TransferLearningHelper)

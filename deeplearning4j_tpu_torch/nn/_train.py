@@ -42,6 +42,28 @@ from ._fused import FlatStore, apply_fused_flat, fused_flat_plan
 from .gradnorm import normalize_gradients_
 
 
+def frozen_ranges(store: FlatStore, paths) -> List[torch.Tensor]:
+    """Views of ``store``'s parameter buckets that hold the leaves at
+    ``paths``, adjacent leaves merged into one range."""
+    want = set(paths)
+    out = []
+    if not want:
+        return out
+    for b in store.plan.buckets:
+        flat = store.params[b.key]
+        pos, start = 0, None
+        for i, size in zip(b.leaf_idx, b.sizes):
+            if store.plan.paths[i] in want:
+                start = pos if start is None else start
+            elif start is not None:
+                out.append(flat[start:pos])
+                start = None
+            pos += size
+        if start is not None:
+            out.append(flat[start:pos])
+    return out
+
+
 class TrainableNetwork:
     """Parameters (``{name: {key: tensor}}``, one level deeper under a
     wrapper layer: ``common/tree.py``), layer states, updater state,
@@ -219,6 +241,11 @@ class TrainableNetwork:
         several, as truncated BPTT does)."""
         return self._step(store, batch, self._iteration)
 
+    def _frozen_paths(self) -> List[tuple]:
+        """The leaf paths whose parameters a step leaves unchanged (a
+        ``MultiLayerNetwork``'s ``FrozenLayer`` layers)."""
+        return []
+
     def generator(self) -> torch.Generator:
         """The network's own generator for dropout and stochastic-rounding
         bits, on its device, seeded from the configuration's seed."""
@@ -301,16 +328,27 @@ class TrainableNetwork:
             tree = store.grad_views if store is not None else grads
             normalize_gradients_([get_path(tree, p) for p in paths],
                                  gc.grad_normalization, gc.grad_norm_threshold)
+        frozen = self._frozen_paths()
         with torch.no_grad():
             if store is not None:
+                # the kernel updates the whole bucket, frozen ranges too (a
+                # zero gradient moves an element under decoupled weight
+                # decay): the frozen ranges are kept aside and written
+                # back, as the JAX step restores the frozen layers' tensors
+                # after its updater; their updater state evolves as there
+                kept = [(r, r.clone()) for r in frozen_ranges(store, frozen)]
                 apply_fused_flat(store, gc.updater, iteration,
                                  self.generator())
+                for r, v in kept:
+                    r.copy_(v)
             else:
                 new_params, self._updater_state = apply_updater(
                     gc.updater, grads, self._updater_state, params,
                     iteration, self.generator())
+                skip = set(frozen)
                 for p in paths:
-                    get_path(params, p).copy_(get_path(new_params, p))
+                    if p not in skip:
+                        get_path(params, p).copy_(get_path(new_params, p))
         # the parameters changed in place: on the card the fused kernel
         # wrote them behind the versions that the cast cache's key reads
         self._cast_cache = None

@@ -13,17 +13,26 @@ and read the JAX package's format (``format_version`` 1: every dataclass as
 ``{"__class__", "fields"}``, tuples as ``{"__tuple__"}``), so a
 configuration written by one package reads in the other. A field the JAX
 package has and the port does not (an embedding's ``table_sharding``) reads
-only when it is inert (None or False); otherwise ``from_json`` raises.
+only when it is inert (None or False); otherwise ``from_json`` raises. A
+``LambdaLayer`` is written by its name and read back through
+``imports/keras_import.resolve_lambda``; weight noise is written in the
+same form, which the JAX package can neither write nor read.
+
+:func:`remat_wrap` is the rematerialization both networks apply to their
+blocks (``builder.py:122-149`` of the JAX package, on
+``torch.utils.checkpoint``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from ...learning import schedules as _schedules
 from ...learning import updaters as _updaters
@@ -32,8 +41,9 @@ from .. import losses as _losses
 from ..losses import ILossFunction
 from . import inputs as _inputs
 from . import layers as L
-from .inputs import (CNNFlatInput, CNNInput, InputType, Preprocessor,
-                     RNNInput, cnn_to_ff, flat_to_cnn, rnn_to_ff)
+from .inputs import (CNN3DInput, CNNFlatInput, CNNInput, InputType,
+                     Preprocessor, RNNInput, cnn3d_to_ff, cnn_to_ff,
+                     flat_to_cnn, rnn_to_ff)
 
 
 @dataclass
@@ -49,9 +59,11 @@ class GlobalConf:
     # Mixed precision: forward compute dtype (e.g. "bfloat16") while the
     # parameters stay in `dtype`; BN running stats stay float32.
     compute_dtype: Optional[str] = None
-    # The JAX package's rematerialization knobs (jax.checkpoint around each
-    # layer). Kept for configuration parity; MultiLayerNetwork.fit refuses
-    # any policy but "none" until rematerialization is ported.
+    # Rematerialization (remat_wrap): each layer (graph node) of a training
+    # forward runs under torch.utils.checkpoint, per the policy: None or
+    # "none", "full", "dots_only", "checkpoint_dots_with_no_batch_dims" or
+    # a list of layer indices (graph node names); the legacy
+    # gradient_checkpointing=True means "full".
     gradient_checkpointing: bool = False
     remat_policy: Any = None
     # Fused inference epilogue (ops/epilogue): inference BatchNormalization
@@ -79,6 +91,119 @@ class GlobalConf:
     # (nn/gradnorm.py); None leaves the gradients as they are.
     grad_normalization: Optional[str] = None
     grad_norm_threshold: float = 1.0
+
+
+#: the named policies :func:`remat_wrap` resolves (a list of blocks is the
+#: fourth, open-ended form)
+REMAT_POLICIES = ("none", "full", "dots_only",
+                  "checkpoint_dots_with_no_batch_dims")
+
+
+def effective_remat_policy(gc: GlobalConf):
+    """The policy in force: ``remat_policy`` when set, else the legacy
+    ``gradient_checkpointing`` flag as "full" or "none"."""
+    if gc.remat_policy is not None:
+        return gc.remat_policy
+    return "full" if gc.gradient_checkpointing else "none"
+
+
+def _check_policy(policy) -> None:
+    if isinstance(policy, str) and policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {policy!r}; expected one of "
+                         f"{sorted(REMAT_POLICIES)} or a selective block list")
+
+
+class _Replay:
+    """Makes a checkpointed region draw the same random bits when the
+    backward recomputes it: the region's first run records ``generator``'s
+    state; a recompute runs from that state and then puts back the state
+    it found, so the draws after the region are not disturbed.
+    ``preserve_rng_state`` would restore only the global generators, and
+    every draw of the port comes from the network's own."""
+
+    def __init__(self, generator: Optional[torch.Generator]):
+        self.generator = generator
+        self.first: Optional[torch.Tensor] = None
+        self.found: Optional[torch.Tensor] = None
+
+    def __enter__(self):
+        if self.generator is None:
+            return
+        if self.first is None:
+            self.first = self.generator.get_state()
+        else:
+            self.found = self.generator.get_state()
+            self.generator.set_state(self.first)
+
+    def __exit__(self, *exc):
+        if self.found is not None:
+            self.generator.set_state(self.found)
+            self.found = None
+
+
+def _save_only(*ops):
+    """A selective-checkpoint context that keeps the outputs of ``ops``
+    and recomputes every other op of the region."""
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in ops
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
+def remat_wrap(gc: GlobalConf, fn: Callable, block=None,
+               generator: Optional[torch.Generator] = None) -> Callable:
+    """``fn`` (one block's training forward: a layer apply, a truncated-BPTT
+    recurrent segment or a graph node) under the configured policy
+    (``builder.py:122-149`` of the JAX package). ``block`` is the block's
+    identity for a selective list: the layer index (``MultiLayerNetwork``)
+    or the node name (``ComputationGraph``). "none" returns ``fn`` itself;
+    the others run it under ``torch.utils.checkpoint.checkpoint(
+    use_reentrant=False)``: "full" keeps only the block's inputs and
+    recomputes the rest in the backward, "dots_only" (JAX's
+    ``checkpoint_dots``) keeps the outputs of the matrix products
+    (``aten.mm``, ``addmm``, ``bmm``) and recomputes everything else,
+    convolutions included, "checkpoint_dots_with_no_batch_dims" keeps
+    those of ``mm`` and ``addmm`` only. Draws from ``generator`` replay
+    (:class:`_Replay`); a block returns new layer states (BatchNormalization's
+    running statistics) as values, which a recompute computes again and
+    drops, so they are applied once. An unknown policy raises here, when
+    the step is built."""
+    pol = effective_remat_policy(gc)
+    if pol == "none":
+        return fn
+    context_fn = None
+    if isinstance(pol, (list, tuple, set)):
+        if block not in pol:
+            return fn
+    elif pol == "dots_only":
+        aten = torch.ops.aten
+        context_fn = _save_only(aten.mm.default, aten.addmm.default,
+                                aten.bmm.default)
+    elif pol == "checkpoint_dots_with_no_batch_dims":
+        aten = torch.ops.aten
+        context_fn = _save_only(aten.mm.default, aten.addmm.default)
+    elif pol != "full":
+        _check_policy(pol)
+        raise ValueError(f"unknown remat policy {pol!r}")
+
+    def run(*args):
+        from torch.utils.checkpoint import checkpoint
+
+        replay = _Replay(generator)
+
+        def body(*a):
+            with replay:
+                return fn(*a)
+
+        kw = {} if context_fn is None else {"context_fn": context_fn}
+        return checkpoint(body, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+
+    return run
 
 
 class NeuralNetConfiguration:
@@ -133,6 +258,19 @@ class Builder:
 
     def compute_dtype(self, dtype: str) -> "Builder":
         self._conf.compute_dtype = dtype
+        return self
+
+    def gradient_checkpointing(self, v: bool = True) -> "Builder":
+        """Recompute each layer's activations in the backward (the legacy
+        form of ``remat_policy("full")``)."""
+        self._conf.gradient_checkpointing = bool(v)
+        return self
+
+    def remat_policy(self, policy) -> "Builder":
+        """A named rematerialization policy (``REMAT_POLICIES``) or a list
+        of blocks to recompute in full; see :func:`remat_wrap`."""
+        _check_policy(policy)
+        self._conf.remat_policy = policy
         return self
 
     def fused_update(self, v: bool = True) -> "Builder":
@@ -263,11 +401,18 @@ class MultiLayerConfiguration:
     @staticmethod
     def _preprocessor_for(cur: InputType,
                           layer: L.Layer) -> Optional[Preprocessor]:
+        # a frozen layer keeps its inner layer's input contract (a frozen
+        # dense layer after a convolution still gets cnn_to_ff)
+        if isinstance(layer, L.FrozenLayer) and layer.layer is not None:
+            layer = layer.layer
         if isinstance(cur, CNNFlatInput):
             return flat_to_cnn(cur)
         if isinstance(cur, CNNInput) and isinstance(layer, L.FF_LIKE) \
                 and not isinstance(layer, L.RnnOutputLayer):
             return cnn_to_ff(cur)
+        if isinstance(cur, CNN3DInput) and isinstance(layer, L.FF_LIKE) \
+                and not isinstance(layer, L.RnnOutputLayer):
+            return cnn3d_to_ff(cur)
         if isinstance(cur, RNNInput) and isinstance(layer, L.DenseLayer) \
                 and not isinstance(layer, L.OutputLayer):
             return rnn_to_ff(cur)
@@ -306,7 +451,9 @@ def _registry() -> Dict[str, type]:
     for mod in (L, _inputs, _updaters, _schedules):
         for name in dir(mod):
             obj = getattr(mod, name)
-            if isinstance(obj, type) and dataclasses.is_dataclass(obj):
+            if isinstance(obj, type) and (dataclasses.is_dataclass(obj)
+                                          or (issubclass(obj, L.IWeightNoise)
+                                              and obj is not L.IWeightNoise)):
                 classes[name] = obj
     for name in dir(_losses):
         obj = getattr(_losses, name)
@@ -328,14 +475,30 @@ def _ser_obj(obj: Any) -> Any:
         return [_ser_obj(v) for v in obj]
     if isinstance(obj, np.ndarray):
         return {"__ndarray__": obj.tolist(), "dtype": str(obj.dtype)}
-    if isinstance(obj, (ILossFunction, GradientUpdater)) \
+    if isinstance(obj, (ILossFunction, GradientUpdater, L.IWeightNoise)) \
             and not dataclasses.is_dataclass(obj):
+        # weight noise: the JAX package cannot write these (its _ser_obj
+        # raises TypeError) nor read them; the port writes them in the
+        # same {"__class__", "fields"} form (ROADMAP §C)
         return {"__class__": type(obj).__name__,
                 "fields": {k: _ser_obj(v) for k, v in obj.__dict__.items()}}
     if dataclasses.is_dataclass(obj):
-        return {"__class__": type(obj).__name__,
-                "fields": {f.name: _ser_obj(getattr(obj, f.name))
-                           for f in dataclasses.fields(obj)}}
+        fields = {}
+        for f in dataclasses.fields(obj):
+            v = getattr(obj, f.name)
+            if isinstance(obj, L.LambdaLayer) and f.name == "fn" \
+                    and callable(v):
+                # a function body does not serialize: its registered name
+                # does (imports/keras_import.register_lambda)
+                if not obj.name:
+                    raise TypeError(
+                        "cannot serialize an unnamed LambdaLayer: give it a "
+                        "unique name=... so that reading it back can look "
+                        "up the registered function")
+                fields[f.name] = {"__lambda__": obj.name}
+            else:
+                fields[f.name] = _ser_obj(v)
+        return {"__class__": type(obj).__name__, "fields": fields}
     raise TypeError(f"cannot serialize config object {type(obj)}")
 
 
@@ -348,6 +511,10 @@ def _deser_obj(d: Any) -> Any:
         return tuple(_deser_obj(v) for v in d["__tuple__"])
     if "__ndarray__" in d:
         return np.asarray(d["__ndarray__"], dtype=d["dtype"])
+    if "__lambda__" in d:
+        from ...imports.keras_import import resolve_lambda
+
+        return resolve_lambda(d["__lambda__"])
     if "__class__" not in d:
         return {k: _deser_obj(v) for k, v in d.items()}
     name = d["__class__"]

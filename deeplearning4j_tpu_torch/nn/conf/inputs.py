@@ -7,8 +7,9 @@ NCHW, feed-forward activations ``[batch, size]``, recurrent activations
 adapters: ``cnn_to_ff`` where a CNN output feeds a dense layer (flattened
 in NCHW order, ``C * H * W``, as ``inputs.py:94-97`` of the JAX package, so
 a dense ``W`` after a convolution carries across unchanged),
-``flat_to_cnn`` after a ``convolutional_flat`` input and ``rnn_to_ff``
-where a sequence feeds a dense layer.
+``flat_to_cnn`` after a ``convolutional_flat`` input, ``rnn_to_ff``
+where a sequence feeds a dense layer and ``cnn3d_to_ff`` where a volume
+(``CNN3DInput``, NCDHW) feeds one.
 """
 
 from __future__ import annotations
@@ -35,6 +36,11 @@ class InputType:
                            channels: int) -> "CNNFlatInput":
         return CNNFlatInput(channels, height, width)
 
+    @staticmethod
+    def convolutional_3d(depth: int, height: int, width: int,
+                         channels: int) -> "CNN3DInput":
+        return CNN3DInput(channels, depth, height, width)
+
 
 @dataclass(frozen=True)
 class FFInput(InputType):
@@ -50,6 +56,16 @@ class RNNInput(InputType):
 @dataclass(frozen=True)
 class CNNInput(InputType):
     channels: int
+    height: int
+    width: int
+
+
+@dataclass(frozen=True)
+class CNN3DInput(InputType):
+    """Volumes ``[batch, C, D, H, W]`` (NCDHW)."""
+
+    channels: int
+    depth: int
     height: int
     width: int
 
@@ -78,6 +94,13 @@ class Preprocessor:
 def cnn_to_ff(t: CNNInput) -> Preprocessor:
     size = t.channels * t.height * t.width
     return Preprocessor("CnnToFeedForward",
+                        lambda x: x.reshape(x.shape[0], -1), FFInput(size))
+
+
+def cnn3d_to_ff(t: CNN3DInput) -> Preprocessor:
+    """NCDHW flattened to ``[batch, C * D * H * W]``."""
+    size = t.channels * t.depth * t.height * t.width
+    return Preprocessor("Cnn3DToFeedForward",
                         lambda x: x.reshape(x.shape[0], -1), FFInput(size))
 
 

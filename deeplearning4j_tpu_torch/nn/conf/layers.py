@@ -37,9 +37,15 @@ forward and on the reversed sequence (parameters ``{"fwd": {...}, "bwd":
 ``RnnOutputLayer`` is the dense head at every step.
 
 ``constraints`` (``layers_ext.MaxNormConstraint`` and kin) are projections
-that ``MultiLayerNetwork`` applies to the weights after each update.
-``weight_noise`` exists for configuration parity with the JAX package and
-is refused where it would act.
+that ``MultiLayerNetwork`` applies to the weights after each update;
+``weight_noise`` (``layers_ext.DropConnect``, ``WeightNoise``) perturbs the
+layer's parameters before its ``apply`` in training.
+
+``FrozenLayer`` wraps a layer whose parameters take no update (transfer
+learning); ``PReLULayer``, ``ElementWiseMultiplicationLayer``,
+``LearnedSelfAttentionLayer`` (learned queries) and
+``RecurrentAttentionLayer`` (a Python loop over the steps, each attending
+over the whole input) complete the JAX module's classes.
 
 The convolution family takes ``convolution_mode="same"`` (TF's SAME
 padding, output ``ceil(in / stride)``; ``ops/nn.same_pads``) or
@@ -65,6 +71,7 @@ from ...ops import nn as ops
 from ...ops import recurrent as rnn_ops
 from ..activations import activation_fn
 from ..losses import ILossFunction, LossMCXENT, loss_from_name
+from ...common.tree import tree_map
 from ..weights import init_weights
 from .inputs import CNNInput, FFInput, InputType, RNNInput
 
@@ -97,7 +104,8 @@ class Layer:
     n_in: Optional[int] = None
     # post-update weight projections (layers_ext.ParamConstraint)
     constraints: Optional[list] = None
-    # training-time parameter noise: not ported, refused by the network
+    # training-time parameter noise (layers_ext.IWeightNoise), applied by
+    # MultiLayerNetwork before apply
     weight_noise: Optional[Any] = None
 
     def set_input_type(self, input_type: InputType) -> InputType:
@@ -893,29 +901,139 @@ class SelfAttentionLayer(Layer):
         return {k: init_weights(gen, shape, wi, dtype, device=device)
                 for k, shape in shapes.items()}
 
-    def _attend(self, params, x, fmask):
+    def _attend(self, params, q, kv, fmask):
         if self.project_input:
             return ops.multi_head_dot_product_attention(
-                x, x, x, params["Wq"], params["Wk"], params["Wv"],
+                q, kv, kv, params["Wq"], params["Wk"], params["Wv"],
                 params["Wo"], num_heads=self.n_heads, mask=fmask)
         m = fmask[:, None, :] if fmask is not None else None
-        return ops.dot_product_attention(x, x, x, mask=m)
+        return ops.dot_product_attention(q, kv, kv, mask=m)
 
     def apply(self, params, x, state, training=False, *, generator=None):
         x = self._maybe_dropout(x, training, generator)
-        return self._attend(params, x, None), state
+        return self._attend(params, x, x, None), state
 
     def apply_masked(self, params, x, state, training, fmask, *,
                      generator=None):
         """Attend with the key mask, then ``y * fmask[:, :, None]``
         (``layers.py:860-865`` of the JAX package)."""
         x = self._maybe_dropout(x, training, generator)
-        y = self._attend(params, x, fmask)
+        y = self._attend(params, x, x, fmask)
         return y * fmask[:, :, None].to(y.dtype), state
 
     @property
     def has_params(self):
         return self.project_input
+
+
+@dataclass
+class LearnedSelfAttentionLayer(SelfAttentionLayer):
+    """``n_queries`` learned query vectors ``Q`` ``[n_queries, n_in]``
+    attend over the sequence: the output is ``[B, n_queries, n_out]``
+    whatever the input's length (``layers.py:871-912``). The attention op
+    takes the route it picks for these shapes (dense unless ``n_queries``
+    equals the sequence length)."""
+
+    n_queries: int = 1
+
+    def set_input_type(self, input_type):
+        if not isinstance(input_type, RNNInput):
+            raise ValueError("LearnedSelfAttentionLayer needs RNN input")
+        self.n_in = input_type.size
+        if not self.project_input:
+            if self.n_heads != 1:
+                raise ValueError("project_input=False requires n_heads=1")
+            self.n_out = self.n_in
+        return RNNInput(self.n_out, self.n_queries)
+
+    def init_params(self, gen, dtype=torch.float32, device=None):
+        p = {"Q": init_weights(gen, (self.n_queries, self.n_in),
+                               self.weight_init or "xavier", dtype,
+                               device=device)}
+        p.update(super().init_params(gen, dtype, device))
+        return p
+
+    def _queries(self, params, x):
+        return params["Q"][None].expand((x.shape[0],)
+                                        + tuple(params["Q"].shape))
+
+    def apply(self, params, x, state, training=False, *, generator=None):
+        x = self._maybe_dropout(x, training, generator)
+        return self._attend(params, self._queries(params, x), x,
+                            None), state
+
+    def apply_masked(self, params, x, state, training, fmask, *,
+                     generator=None):
+        """The keys masked; the outputs are the learned queries', all
+        real."""
+        x = self._maybe_dropout(x, training, generator)
+        return self._attend(params, self._queries(params, x), x,
+                            fmask), state
+
+    @property
+    def has_params(self):
+        return True
+
+
+@dataclass
+class RecurrentAttentionLayer(Layer):
+    """``y_t = act(x_t Wx + a_t Wr + b)``, where ``a_t`` is multi-head
+    attention queried by ``y_{t-1}`` over the whole input sequence
+    (``layers.py:915-972``). The JAX ``lax.scan`` is a Python loop over the
+    steps here, as the recurrent layers' is; each step's attention goes
+    through the attention op (one query against T keys: its dense
+    route)."""
+
+    n_out: int = 0
+    n_heads: int = 1
+    head_size: Optional[int] = None
+
+    def set_input_type(self, input_type):
+        if not isinstance(input_type, RNNInput):
+            raise ValueError("RecurrentAttentionLayer needs RNN input")
+        self.n_in = input_type.size
+        return RNNInput(self.n_out, input_type.timesteps)
+
+    def _hs(self) -> int:
+        return self.head_size or self.n_out // self.n_heads
+
+    def init_params(self, gen, dtype=torch.float32, device=None):
+        width = self.n_heads * self._hs()
+        wi = self.weight_init or "xavier"
+        p = {}
+        for k, shape in (("Wx", (self.n_in, self.n_out)),
+                         ("Wr", (self.n_out, self.n_out)),
+                         ("Wq", (self.n_out, width)),
+                         ("Wk", (self.n_in, width)),
+                         ("Wv", (self.n_in, width)),
+                         ("Wo", (width, self.n_out))):
+            p[k] = init_weights(gen, shape, wi, dtype, device=device)
+        p["b"] = torch.zeros((self.n_out,), dtype=dtype, device=device)
+        return p
+
+    def _run(self, params, x, fmask):
+        act = activation_fn(self.activation or "tanh")
+        y = torch.zeros((x.shape[0], self.n_out), dtype=x.dtype,
+                        device=x.device)
+        ys = []
+        for t in range(x.shape[1]):
+            a = ops.multi_head_dot_product_attention(
+                y[:, None, :], x, x, params["Wq"], params["Wk"],
+                params["Wv"], params["Wo"], num_heads=self.n_heads,
+                mask=fmask)[:, 0]
+            y = act(x[:, t] @ params["Wx"] + a @ params["Wr"] + params["b"])
+            ys.append(y)
+        return torch.stack(ys, dim=1)
+
+    def apply(self, params, x, state, training=False, *, generator=None):
+        x = self._maybe_dropout(x, training, generator)
+        return self._run(params, x, None), state
+
+    def apply_masked(self, params, x, state, training, fmask, *,
+                     generator=None):
+        x = self._maybe_dropout(x, training, generator)
+        y = self._run(params, x, fmask)
+        return y * fmask[:, :, None].to(y.dtype), state
 
 
 @dataclass
@@ -967,15 +1085,121 @@ class EmbeddingSequenceLayer(EmbeddingLayer):
         return activation_fn(self.activation or "identity")(out), state
 
 
+@dataclass
+class ElementWiseMultiplicationLayer(Layer):
+    """``act(w * x + b)`` elementwise, ``w`` ones and ``b`` zeros
+    ``[n_in]`` at init."""
+
+    def set_input_type(self, input_type):
+        self.n_in = input_type.size
+        return input_type
+
+    def init_params(self, gen, dtype=torch.float32, device=None):
+        return {"w": torch.ones((self.n_in,), dtype=dtype, device=device),
+                "b": torch.zeros((self.n_in,), dtype=dtype, device=device)}
+
+    def apply(self, params, x, state, training=False, *, generator=None):
+        return activation_fn(self.activation or "identity")(
+            x * params["w"] + params["b"]), state
+
+
+def _frozen(params):
+    """The parameters cut from autograd: no gradient reaches them."""
+    return tree_map(lambda t: t.detach(), params)
+
+
+@dataclass
+class FrozenLayer(Layer):
+    """A layer whose parameters take no update (``layers.py:1074-1109``):
+    ``apply`` hands the inner layer its parameters detached (JAX's
+    ``stop_gradient``), and passes ``training`` through, so in ``fit`` a
+    frozen dense layer still drops out and a frozen BatchNormalization
+    still normalizes with batch statistics and updates its running ones,
+    as in the JAX package (DL4J's own FrozenLayer runs its layer in
+    inference mode; ROADMAP §C). ``MultiLayerNetwork`` leaves the wrapper
+    out of l1/l2 and restores its parameters after each update."""
+
+    layer: Optional[Layer] = None
+
+    def set_input_type(self, input_type):
+        return self.layer.set_input_type(input_type)
+
+    def init_params(self, gen, dtype=torch.float32, device=None):
+        return self.layer.init_params(gen, dtype, device)
+
+    def init_state(self, device=None):
+        return self.layer.init_state(device)
+
+    def apply(self, params, x, state, training=False, *, generator=None):
+        return self.layer.apply(_frozen(params), x, state, training,
+                                generator=generator)
+
+    def apply_masked(self, params, x, state, training, fmask, *,
+                     generator=None):
+        return self.layer.apply_masked(_frozen(params), x, state, training,
+                                       fmask, generator=generator)
+
+    def is_rnn(self):
+        return self.layer.is_rnn()
+
+    def init_rnn_state(self, batch, dtype=torch.float32, device=None):
+        return self.layer.init_rnn_state(batch, dtype, device)
+
+    def apply_rnn(self, params, x, rnn_state, state, training=False, *,
+                  generator=None):
+        return self.layer.apply_rnn(_frozen(params), x, rnn_state, state,
+                                    training, generator=generator)
+
+    @property
+    def has_params(self):
+        return self.layer.has_params
+
+
+@dataclass
+class PReLULayer(Layer):
+    """Leaky ReLU with a learned slope per feature or channel: ``alpha``
+    ``[n_in]``, zeros at init."""
+
+    def set_input_type(self, input_type):
+        if isinstance(input_type, FFInput):
+            self.n_in = input_type.size
+        elif isinstance(input_type, CNNInput):
+            self.n_in = input_type.channels
+        return input_type
+
+    def init_params(self, gen, dtype=torch.float32, device=None):
+        return {"alpha": torch.zeros((self.n_in,), dtype=dtype,
+                                     device=device)}
+
+    def apply(self, params, x, state, training=False, *, generator=None):
+        a = params["alpha"]
+        if x.ndim == 4:
+            a = a.reshape(1, -1, 1, 1)
+        return activation_fn("prelu")(x, a), state
+
+
 #: the layers that take feed-forward input: a CNN output feeding one gets
 #: the ``cnn_to_ff`` adapter (both builders)
-FF_LIKE: Tuple[Any, ...] = (DenseLayer, OutputLayer)
+FF_LIKE: Tuple[Any, ...] = (DenseLayer, OutputLayer,
+                            ElementWiseMultiplicationLayer)
 
-from .layers_ext import (CenterLossOutputLayer,  # noqa: E402,F401
-                         Convolution1DLayer, Cropping1D, LayerNormalization,
-                         MaskingLayer, MaxNormConstraint,
+from .layers_ext import (AlphaDropoutLayer,  # noqa: E402,F401
+                         CapsuleLayer, CapsuleStrengthLayer,
+                         CenterLossOutputLayer, Convolution1DLayer,
+                         Convolution3DLayer, ConvLSTM2DLayer, Cropping1D,
+                         Cropping3D, DropConnect, FlattenLayer,
+                         GaussianDropoutLayer, GaussianNoiseLayer,
+                         GroupNormalizationLayer, IWeightNoise, LambdaLayer,
+                         LayerNormalization, LocallyConnected1D,
+                         LocallyConnected2D, MaskingLayer, MaxNormConstraint,
                          MinMaxNormConstraint, NonNegativeConstraint,
-                         SeparableConvolution1D, SpaceToBatchLayer,
-                         SpaceToDepthLayer, Subsampling1DLayer,
-                         TimeDistributed, UnitNormConstraint, Upsampling1D,
-                         Yolo2OutputLayer, ZeroPadding1DLayer)
+                         ParamConstraint, Permute, PrimaryCapsules,
+                         RepeatVector, ReshapeLayer, SeparableConvolution1D,
+                         SpaceToBatchLayer, SpaceToDepthLayer,
+                         SpatialDropoutLayer, Subsampling1DLayer,
+                         Subsampling3DLayer, ThresholdedReLULayer,
+                         TimeDistributed, TimeDistributedLayer,
+                         UnitNormConstraint, Upsampling1D, Upsampling3D,
+                         VariationalAutoencoder, WeightNoise,
+                         Yolo2OutputLayer, ZeroPadding1DLayer,
+                         ZeroPadding3DLayer)

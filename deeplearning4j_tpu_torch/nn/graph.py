@@ -38,6 +38,13 @@ checkpoints that ``fit(resume_from=)`` continues bitwise
 package's model zip (``util/model_serializer.py``). ``host_prefetch``
 raises ``NotImplementedError`` (ROADMAP A6).
 
+Rematerialization: in training each layer node's forward runs under the
+configured policy (``GlobalConf.remat_policy`` or the legacy
+``gradient_checkpointing``; ``set_remat_policy``), through
+``conf.builder.remat_wrap`` with the node's name as its identity for a
+selective list, as the JAX graph wraps each vertex in ``jax.checkpoint``
+(``graph.py:606-614``).
+
 ``ComputationGraph.init`` places parameters on the card unless the caller
 asks for another device (``device="cpu"``); so does ``load``. ``output``
 takes one array per network input (or a dict by name) and returns a list of
@@ -63,8 +70,9 @@ from ..ops.epilogue import bn_act
 from ._fused import FlatStore
 from ._train import TrainableNetwork
 from .conf import layers as L
-from .conf.builder import (_CLASSES, GlobalConf, _deser_obj, _ser_obj,
-                           apply_layer_defaults)
+from .conf.builder import (_CLASSES, GlobalConf, _check_policy,
+                           _deser_obj, _ser_obj, apply_layer_defaults,
+                           remat_wrap)
 from .conf.inputs import (CNNFlatInput, CNNInput, FFInput, InputType,
                           RNNInput, cnn_to_ff, flat_to_cnn)
 from .multilayer import _fold_weights
@@ -448,6 +456,13 @@ class ComputationGraph(TrainableNetwork):
         self._initialized = True
         return self
 
+    def set_remat_policy(self, policy) -> None:
+        """Switch the rematerialization policy (``conf.builder.remat_wrap``:
+        a named policy, or a list of node names); the next training step
+        runs under it."""
+        _check_policy(policy)
+        self.conf.global_conf.remat_policy = policy
+
     # --- forward -----------------------------------------------------------
     def _epilogue_fusion_plan(self):
         """The resnet-block-tail chains ``BN(identity) →
@@ -589,9 +604,16 @@ class ComputationGraph(TrainableNetwork):
                     x = x.to(torch.float32)
                 acts[name] = node.layer.pre_output(head_params, x)
                 continue
-            y, st = node.layer.apply(params.get(name, {}), x,
-                                     states.get(name, {}), training,
-                                     generator=gen)
+            def run(lp, xx, st, _l=node.layer):
+                return _l.apply(lp, xx, st, training, generator=gen)
+
+            if training:
+                # this node's activations recomputed in the backward per
+                # the configured policy (graph.py:606-614 of the JAX
+                # package); a selective list names nodes
+                run = remat_wrap(self.conf.global_conf, run, block=name,
+                                 generator=gen)
+            y, st = run(params.get(name, {}), x, states.get(name, {}))
             acts[name] = y
             if st:
                 new_states[name] = st

@@ -61,12 +61,27 @@ runs K steps before the listeners hear of them, as the JAX package's
 ``fit(resume_from=)`` continues a run from a checkpoint that
 ``CheckpointListener`` wrote, bitwise (``util/checkpoint.py``).
 
+**Frozen layers** (``FrozenLayer``, ``nn/transfer.py``): the layer gets its
+parameters detached and ``training`` as given (its dropout and batch
+statistics act in ``fit``, as in the JAX package); l1/l2 leave it out, and
+the step writes its parameters back after the update
+(``multilayer.py:465-469``), so they end every step bitwise unchanged
+under any updater while their updater state evolves as the JAX step's.
+**Weight noise** (a layer's ``weight_noise``: ``DropConnect``,
+``WeightNoise``) perturbs the layer's parameters before its ``apply`` in
+training (``:159-161``). **Rematerialization** (``remat_policy``,
+``gradient_checkpointing``, ``set_remat_policy``): each layer's training
+forward, and each truncated-BPTT segment's recurrent layer, runs under
+``conf.builder.remat_wrap`` (``:166-167``, ``:212``). **Pretraining**
+(``pretrain``, ``:769-818``): each ``VariationalAutoencoder`` on the
+inference-mode output of the layers below it, with a fresh per-leaf
+updater.
+
 ``init`` places the parameters on the card unless the caller asks for
 another device (``device="cpu"``); so does ``load``. Not ported yet, each
-raising ``NotImplementedError``: ``pretrain``, ``set_remat_policy`` and any
-rematerialization policy, the telemetry listeners and the NaN guard,
-``fit(host_prefetch=)``, weight noise and frozen layers. The fleet's
-per-call ``hyper`` overrides have no entry here.
+raising ``NotImplementedError``: the telemetry listeners and the NaN guard,
+and ``fit(host_prefetch=)``. The fleet's per-call ``hyper`` overrides have
+no entry here.
 """
 
 from __future__ import annotations
@@ -79,14 +94,14 @@ import torch
 
 from ..common.dtypes import tensor_from_numpy, torch_dtype
 from ..common.environment import resolve_device
-from ..common.tree import tree_map
+from ..common.tree import leaf_paths, tree_map
 from ..data import pipeline as _pipe
 from ..data.dataset import DataSet
-from ..learning.precision import cast_floating
+from ..learning.precision import apply_updater, cast_floating
 from ._fused import FlatStore
 from ._train import TrainableNetwork
 from .conf import layers as L
-from .conf.builder import MultiLayerConfiguration
+from .conf.builder import MultiLayerConfiguration, _check_policy, remat_wrap
 
 #: parameter names that take no l1/l2 (biases and normalization)
 _NO_REG = ("b", "beta", "mean", "var")
@@ -118,11 +133,6 @@ class MultiLayerNetwork(TrainableNetwork):
         if self.conf.input_type is None:
             raise ValueError("configuration needs set_input_type(...) "
                              "before init()")
-        for layer in self.layers:
-            if layer.weight_noise is not None:
-                raise NotImplementedError(
-                    f"{type(layer).__name__}: weight noise is not ported "
-                    f"yet")
         self.device = resolve_device(device)
         gen = torch.Generator()
         gen.manual_seed(int(seed if seed is not None
@@ -140,8 +150,10 @@ class MultiLayerNetwork(TrainableNetwork):
         return self
 
     def set_remat_policy(self, policy) -> None:
-        raise NotImplementedError("rematerialization policies are not "
-                                  "ported yet")
+        """Switch the rematerialization policy (:func:`~.conf.builder.
+        remat_wrap`); the next training step runs under it."""
+        _check_policy(policy)
+        self.conf.global_conf.remat_policy = policy
 
     # --- parameter access --------------------------------------------------
     def set_params(self, flat) -> None:
@@ -237,17 +249,22 @@ class MultiLayerNetwork(TrainableNetwork):
                 # after this one
                 fmask = layer.derive_mask(x)
             if rnn is not None and layer.is_rnn():
-                x, rnn[key], st = layer.apply_rnn(
-                    params[key], x, rnn[key], states[key], training,
-                    generator=gen)
+                def run_rnn(lp, xx, carry, st, _l=layer):
+                    return _l.apply_rnn(lp, xx, carry, st, training,
+                                        generator=gen)
+
+                if training:
+                    # a truncated-BPTT segment's recurrence, where the
+                    # activations pile up: the same policy applies
+                    run_rnn = remat_wrap(self.conf.global_conf, run_rnn,
+                                         block=i, generator=gen)
+                x, rnn[key], st = run_rnn(params[key], x, rnn[key],
+                                          states[key])
                 if fmask is not None:
                     x = x * fmask[:, :, None].to(x.dtype)
-            elif fmask is not None:
-                x, st = layer.apply_masked(params[key], x, states[key],
-                                           training, fmask, generator=gen)
             else:
-                x, st = layer.apply(params[key], x, states[key], training,
-                                    generator=gen)
+                x, st = self._apply_layer(i, params[key], x, states[key],
+                                          training, gen, fmask)
             if st:
                 new_states[key] = st
         if to_preout:
@@ -257,6 +274,27 @@ class MultiLayerNetwork(TrainableNetwork):
                 x = pre(x)
             x = self.layers[i]._maybe_dropout(x, training, gen)
         return x, new_states
+
+    def _apply_layer(self, i: int, lp, x, st, training: bool, gen, fmask):
+        """Layer ``i``'s forward (``multilayer.py:148-167``): its weight
+        noise first (in training, with draws from ``gen``), then ``apply``
+        or, with a feature mask, ``apply_masked``; in training under the
+        configured rematerialization policy (the selective list matches
+        the layer's index)."""
+        layer = self.layers[i]
+
+        def run(lp, x, st, fmask):
+            if layer.weight_noise is not None:
+                lp = layer.weight_noise.apply(lp, gen, training)
+            if fmask is not None:
+                return layer.apply_masked(lp, x, st, training, fmask,
+                                          generator=gen)
+            return layer.apply(lp, x, st, training, generator=gen)
+
+        if training:
+            run = remat_wrap(self.conf.global_conf, run, block=i,
+                             generator=gen)
+        return run(lp, x, st, fmask)
 
     def _place(self, arrays: Tuple) -> Tuple:
         """Arrays (numpy, tensors or None) on the network's device
@@ -329,6 +367,8 @@ class MultiLayerNetwork(TrainableNetwork):
         gc = self.conf.global_conf
         reg = 0.0
         for key, layer in zip(self._keys, self.layers):
+            if isinstance(layer, L.FrozenLayer):
+                continue    # frozen parameters take no decay either
             l1 = layer.l1 if layer.l1 is not None else gc.l1
             l2 = layer.l2 if layer.l2 is not None else gc.l2
             for name, t in _named_leaves(params[key]):
@@ -428,12 +468,11 @@ class MultiLayerNetwork(TrainableNetwork):
             rnn = {key: _detach(c) for key, c in rnn.items()}
         return loss
 
-    def _refuse_unported(self) -> None:
-        gc = self.conf.global_conf
-        if gc.gradient_checkpointing or gc.remat_policy not in (None,
-                                                                "none"):
-            raise NotImplementedError("rematerialization policies are not "
-                                      "ported yet")
+    def _frozen_paths(self):
+        """The leaf paths of the ``FrozenLayer`` layers' parameters."""
+        return [(key,) + p for key, layer in zip(self._keys, self.layers)
+                if isinstance(layer, L.FrozenLayer)
+                for p in leaf_paths(self._params[key])]
 
     def fit(self, data, epochs: int = 1, batch_size: Optional[int] = None,
             *, pad_partial: bool = True,
@@ -445,7 +484,6 @@ class MultiLayerNetwork(TrainableNetwork):
         by ``CheckpointListener``; the call must be given the same data,
         epochs and batch arguments as the run that wrote it."""
         self._check_init()
-        self._refuse_unported()
         # truncated BPTT has its own segment loop: always the serial path
         tbptt = self.conf.backprop_type == "TruncatedBPTT"
         self._run_fit(data, epochs, batch_size, pad_partial=pad_partial,
@@ -503,9 +541,55 @@ class MultiLayerNetwork(TrainableNetwork):
 
     rnnClearPreviousState = rnn_clear_previous_state
 
-    # --- refused paths ------------------------------------------------------
+    # --- layerwise pretraining ---------------------------------------------------
+    def _below(self, idx: int, x):
+        """The inference-mode activations that feed layer ``idx`` (its
+        preprocessor applied), without the compute-dtype cast."""
+        for i in range(idx):
+            pre = self.conf.preprocessors.get(i)
+            if pre is not None:
+                x = pre(x)
+            x, _ = self.layers[i].apply(self._params[self._keys[i]], x,
+                                        self._states[self._keys[i]], False)
+        pre = self.conf.preprocessors.get(idx)
+        return pre(x) if pre is not None else x
+
     def pretrain(self, data, epochs: int = 1) -> None:
-        raise NotImplementedError("layerwise pretraining is not ported yet")
+        """Layerwise unsupervised pretraining (``multilayer.py:769-818``):
+        each pretrainable layer (``VariationalAutoencoder``: its negative
+        ELBO) in order, on the inference-mode activations of the layers
+        below it, one step per DataSet, with a fresh state of the
+        configured updater applied leaf by leaf (``apply_updater``, never
+        the fused buckets). The layer's parameters are updated in place;
+        draws come from the network's generator."""
+        self._check_init()
+        updater = self.conf.global_conf.updater
+        gen = self.generator()
+        for idx, layer in enumerate(self.layers):
+            if not getattr(layer, "is_pretrain_layer", lambda: False)():
+                continue
+            lp = self._params[self._keys[idx]]
+            upd_state = updater.init(lp)
+            it = 0
+            for _ in range(max(1, epochs)):
+                for ds in _pipe.iter_datasets(data, None):
+                    (x,) = self._place((ds.features,))
+                    with torch.no_grad():
+                        feats = self._below(idx, x)
+                    p = {k: t.detach().requires_grad_(True)
+                         for k, t in lp.items()}
+                    with torch.enable_grad():
+                        loss = layer.pretrain_loss(p, feats, gen)
+                        grads = dict(zip(p, torch.autograd.grad(
+                            loss, list(p.values()))))
+                    with torch.no_grad():
+                        new_lp, upd_state = apply_updater(
+                            updater, grads, upd_state, lp, it, gen)
+                        for k, t in lp.items():
+                            t.copy_(new_lp[k])
+                    it += 1
+                    self._score = loss.detach()
+        self._cast_cache = None
 
     # --- persistence ---------------------------------------------------------
     def save(self, path: str, save_updater: bool = False) -> None:

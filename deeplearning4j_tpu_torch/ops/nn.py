@@ -1,7 +1,8 @@
 """Neural-net ops of the zoo's CNNs, the sequence layers and the
 self-attention encoder: convolution (1D, 2D, transposed, depthwise,
-separable), pooling (max, average, p-norm), upsampling, batchnorm, local
-response normalization, layer norm, space-to-depth, linear, dropout,
+separable, 3D), pooling (max, average, p-norm; 2D and 3D), upsampling,
+batchnorm, local response normalization, layer norm, space-to-depth,
+linear, dropout and its variants (alpha, gaussian, additive noise),
 attention.
 
 Counterpart of the subset of ``deeplearning4j_tpu/ops/nn.py`` (and
@@ -12,6 +13,10 @@ kH, kW]``. Convolutions and pooling go to ``F.conv2d``,
 ``F.conv_transpose2d``, ``F.max_pool2d`` and ``F.avg_pool2d`` (cuDNN on the
 card), backward included through autograd, as the JAX package leaves them to
 XLA outside any Pallas kernel.
+
+Random draws (:func:`dropout_mask`, :func:`normal`) come from an explicit
+``torch.Generator``; they are module functions so that the tests can inject
+the JAX package's draws into both packages.
 
 Padding is explicit (``(ph, pw)``) or the string ``"SAME"``, the JAX
 package's ``lax`` padding: per spatial axis a total of ``max((ceil(in / s) -
@@ -442,3 +447,89 @@ def multi_head_dot_product_attention(q, k, v, wq, wk, wv, wo, mask=None,
         prof.count("attention/mha_dense")
     out = out.permute(0, 2, 1, 3).reshape(b, tq, -1)
     return out @ wo
+
+
+def conv3d(x: torch.Tensor, w: torch.Tensor, b=None, strides=(1, 1, 1),
+           padding: Union[Tuple[int, int, int], str] = (0, 0, 0),
+           dilation=(1, 1, 1)) -> torch.Tensor:
+    """3D convolution (``ops/nn.py:87-101`` of the JAX package). x: NCDHW;
+    w: ``[O, I, kD, kH, kW]``; ``padding`` explicit or ``"SAME"``."""
+    s = tuple(int(v) for v in strides)
+    d = tuple(int(v) for v in dilation)
+    if _is_same(padding):
+        pads = [same_pads(x.shape[2 + i], w.shape[2 + i], s[i], d[i])
+                for i in range(3)]
+        x = F.pad(x, (*pads[2], *pads[1], *pads[0]))
+        padding = (0, 0, 0)
+    out = F.conv3d(x, w, None, stride=s,
+                   padding=tuple(int(v) for v in padding), dilation=d)
+    if b is not None:
+        out = out + b.reshape(1, -1, 1, 1, 1).to(out.dtype)
+    return out.to(x.dtype)
+
+
+def _pool3d_pad(x, padding, value):
+    p = tuple(int(v) for v in padding)
+    if any(p):
+        x = F.pad(x, (p[2], p[2], p[1], p[1], p[0], p[0]), value=value)
+    return x
+
+
+def maxpool3d(x: torch.Tensor, kernel=(2, 2, 2), strides=(2, 2, 2),
+              padding=(0, 0, 0)) -> torch.Tensor:
+    """Max pooling over NCDHW, padded cells -inf (``reduce_window``)."""
+    x = _pool3d_pad(x, padding, float("-inf"))
+    return F.max_pool3d(x, tuple(kernel), tuple(strides))
+
+
+def avgpool3d(x: torch.Tensor, kernel=(2, 2, 2), strides=(2, 2, 2),
+              padding=(0, 0, 0)) -> torch.Tensor:
+    """The window sum over zero padding divided by the kernel volume."""
+    x = _pool3d_pad(x, padding, 0.0)
+    return F.avg_pool3d(x, tuple(kernel), tuple(strides))
+
+
+def upsampling3d(x: torch.Tensor, factor=(2, 2, 2)) -> torch.Tensor:
+    f = tuple(int(v) for v in factor)
+    return (x.repeat_interleave(f[0], dim=2)
+            .repeat_interleave(f[1], dim=3).repeat_interleave(f[2], dim=4))
+
+
+def normal(shape, generator: torch.Generator, dtype, device) -> torch.Tensor:
+    """Standard normal draws from ``generator`` in ``dtype`` (the JAX
+    package's ``jax.random.normal``: threefry; the bits differ, the law is
+    the same)."""
+    if generator is None:
+        raise ValueError("training-mode noise needs a torch.Generator (the "
+                         "network's own)")
+    return torch.randn(tuple(shape), generator=generator, dtype=dtype,
+                       device=device)
+
+
+def alpha_dropout(x: torch.Tensor, rate: float,
+                  generator: Optional[torch.Generator]) -> torch.Tensor:
+    """SELU-preserving dropout (``ops/nn.py:429-437``): dropped elements
+    take SELU's negative saturation, then the affine ``a * . + b`` that
+    keeps the mean and the variance."""
+    alpha_p = -1.7580993408473766
+    keep = 1.0 - rate
+    mask = dropout_mask(x.shape, rate, generator, x.device)
+    a = (keep + alpha_p ** 2 * keep * (1 - keep)) ** -0.5
+    b = -a * alpha_p * (1 - keep)
+    sat = torch.full((), alpha_p, dtype=x.dtype, device=x.device)
+    return (a * torch.where(mask, x, sat) + b).to(x.dtype)
+
+
+def gaussian_dropout(x: torch.Tensor, rate: float,
+                     generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Multiplicative ``N(1, rate / (1 - rate))`` noise."""
+    std = (rate / (1.0 - rate)) ** 0.5
+    return (x * (1.0 + std * normal(x.shape, generator, x.dtype,
+                                    x.device))).to(x.dtype)
+
+
+def gaussian_noise(x: torch.Tensor, stddev: float,
+                   generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Additive ``N(0, stddev)`` noise."""
+    return (x + stddev * normal(x.shape, generator, x.dtype,
+                                x.device)).to(x.dtype)

@@ -244,3 +244,12 @@ def restore_computation_graph(path: str, load_updater: bool = False,
 
     return _restore(path, ComputationGraph, ComputationGraphConfiguration,
                     load_updater, device)
+
+
+def restore_model(path: str, load_updater: bool = False, device=None):
+    """Either network, by the ``kind`` that ``meta.json`` records."""
+    with zipfile.ZipFile(path) as zf:
+        meta = json.loads(zf.read(META_ENTRY))
+    if meta.get("kind") == "ComputationGraph":
+        return restore_computation_graph(path, load_updater, device)
+    return restore_multi_layer_network(path, load_updater, device)

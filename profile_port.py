@@ -5,6 +5,7 @@ one encoder forward of the port spends its time, on the card.
     python3 profile_port.py          # serving forward; needs one card
     python3 profile_port.py --train  # training step (chip_smoke phase 6)
     python3 profile_port.py --mln    # VGG16 training step (phase 12)
+    python3 profile_port.py --transfer  # re-headed VGG16 step (phase 26)
     python3 profile_port.py --word2vec  # one skip-gram and one CBOW block
     python3 profile_port.py --fasttext  # one FastText block (phase 20)
     python3 profile_port.py --glove     # one GloVe block (phase 21)
@@ -419,6 +420,52 @@ def mln_main(dev, smi: str, name: str) -> int:
     result = {"device": name, "nvidia_smi": smi, "train_step_ms": ms,
               "images_per_s": cs.VGG_BATCH / ms * 1e3,
               "fused_update_ms_per_step": upd_ms, "input_losses": inputs,
+              **prof}
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+def transfer_main(dev, smi: str, name: str) -> int:
+    """One fit step of chip_smoke phase 26's re-headed VGG16 (layers 0-19
+    frozen, a 5-class head, bf16 compute, fused_update, batch 15) by
+    category: the frozen forward, the head, the update over all
+    134,281,029 elements, and the copies that keep the frozen ranges."""
+    from deeplearning4j_tpu_torch.models import VGG16
+
+    net = cs.reheaded(VGG16(seed=cs.SEED).init(device=dev), cs.TL_FC2)
+    torch.cuda.empty_cache()
+    gc = net.conf.global_conf
+    gc.compute_dtype = "bfloat16"
+    gc.fused_update = True
+    ds = cs.transfer_batch(dev, cs.SEED + 70)
+    for _ in range(cs.TL_WARMUP):
+        net.fit(ds)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(cs.TL_STEPS):
+        t0 = time.perf_counter()
+        net.fit(ds)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    print(f"[transfer] re-headed VGG16 ({net.num_params()} parameters, "
+          f"{cs.TL_TRAINABLE} trainable) batch {cs.TL_BATCH} bf16, "
+          f"fused_update: step {ms:.3f} ms ({cs.TL_BATCH / ms * 1e3:.1f} "
+          f"images/s), median of {cs.TL_STEPS}; {smi}", flush=True)
+    prof = _profile(lambda: net.fit(ds), 3, f"re-headed VGG16 fit step "
+                    f"batch {cs.TL_BATCH}", smi,
+                    "profile_port_transfer_trace.json.gz")
+    cats = prof["device_ms_by_category"]
+    upd = cats.get("fused_update", 0.0)
+    copies = cats.get("memcpy/memset", 0.0)
+    print(f"[profile] fused_update over {net.num_params()} elements: "
+          f"{upd:.3f} ms per step ({100 * upd / prof['device_ms']:.2f}% of "
+          f"device time); copies and fills (the frozen ranges kept aside "
+          f"and written back, the gradient bucket zeroed): {copies:.3f} ms "
+          f"({100 * copies / prof['device_ms']:.2f}%); {smi}", flush=True)
+    result = {"device": name, "nvidia_smi": smi, "step_ms": ms,
+              "images_per_s": cs.TL_BATCH / ms * 1e3,
+              "fused_update_ms_per_step": upd, "copies_ms_per_step": copies,
               **prof}
     print(json.dumps(result), flush=True)
     return 0
@@ -1441,6 +1488,9 @@ def main() -> int:
     if "--mln" in sys.argv[1:]:
         cs.phase_build()
         return mln_main(dev, smi, name)
+    if "--transfer" in sys.argv[1:]:
+        cs.phase_build()
+        return transfer_main(dev, smi, name)
     if "--textgen" in sys.argv[1:]:
         cs.phase_build()
         return textgen_main(dev, smi, name)

@@ -119,6 +119,17 @@ def test_import_in_fresh_process_pulls_no_jax():
             "from deeplearning4j_tpu_torch import native\n"
             "from deeplearning4j_tpu_torch.common.background import "
             "prefetch_iter\n"
+            "from deeplearning4j_tpu_torch.nn import (TransferLearning, "
+            "TransferLearningHelper, FineTuneConfiguration)\n"
+            "from deeplearning4j_tpu_torch.nn.conf.layers import ("
+            "FrozenLayer, VariationalAutoencoder, CapsuleLayer, "
+            "ConvLSTM2DLayer, LambdaLayer, DropConnect, WeightNoise)\n"
+            "from deeplearning4j_tpu_torch.nn.conf.builder import "
+            "remat_wrap\n"
+            "from deeplearning4j_tpu_torch.imports import keras_import\n"
+            "from deeplearning4j_tpu_torch.models import PretrainedType\n"
+            "from deeplearning4j_tpu_torch.util.model_serializer import "
+            "restore_model\n"
             "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', "
             "'tensorflow') or m == 'deeplearning4j_tpu' or m.startswith(("
             "'jax.', 'deeplearning4j_tpu.', 'tensorflow.', "

@@ -406,11 +406,16 @@ def test_unported_paths_raise():
 
     net = LeNet().init(device="cpu")
     x, y = _mnist_like(4)
-    for call in (lambda: net.set_remat_policy("full"),
-                 lambda: net.pretrain(DataSet(x, y)),
-                 lambda: net.fit(DataSet(x, y), host_prefetch=2)):
-        with pytest.raises(NotImplementedError):
-            call()
+    with pytest.raises(NotImplementedError):
+        net.fit(DataSet(x, y), host_prefetch=2)
+    # rematerialization and pretraining are ported: an unknown policy is
+    # refused, and pretraining a network without a pretrainable layer
+    # leaves it as it was
+    with pytest.raises(ValueError, match="remat"):
+        net.set_remat_policy("everything")
+    before = net.params().clone()
+    net.pretrain(DataSet(x, y))
+    assert torch.equal(net.params(), before)
     with pytest.raises(ValueError, match="tbptt"):
         (NeuralNetConfiguration.builder().list()
          .layer(L.OutputLayer(n_out=2)).backprop_type("TruncatedBPTT")

@@ -489,3 +489,177 @@ def one_torch_thread():
         yield
     finally:
         torch.set_num_threads(n)
+
+
+# --- the layers of the fifteenth slice: one layer, both packages -------------
+
+def inject_draws(monkeypatch, masks=(), normals=()):
+    """JAX's ``bernoulli`` and ``normal`` return the given numpy arrays by
+    shape, and so do the port's ``ops.nn.dropout_mask`` and
+    ``ops.nn.normal``: one draw per shape, shared by both packages."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import nn as tops
+
+    keep = {tuple(m.shape): m for m in masks}
+    gauss = {tuple(n.shape): n for n in normals}
+    monkeypatch.setattr(jax.random, "bernoulli",
+                        lambda key, p, shape: jnp.asarray(keep[tuple(shape)]))
+    monkeypatch.setattr(jax.random, "normal",
+                        lambda key, shape, dtype=jnp.float32: jnp.asarray(
+                            gauss[tuple(shape)], dtype))
+    monkeypatch.setattr(tops, "dropout_mask",
+                        lambda shape, rate, generator, device:
+                        torch.from_numpy(keep[tuple(shape)]).to(device))
+    monkeypatch.setattr(tops, "normal",
+                        lambda shape, generator, dtype, device:
+                        torch.from_numpy(gauss[tuple(shape)]).to(
+                            device=device, dtype=dtype))
+
+
+def input_array(t, batch: int, rng) -> np.ndarray:
+    """A seeded float32 batch of either package's input type ``t``."""
+    kind = type(t).__name__
+    shape = {"FFInput": lambda: (t.size,),
+             "RNNInput": lambda: (t.timesteps, t.size),
+             "CNNInput": lambda: (t.channels, t.height, t.width),
+             "CNN3DInput": lambda: (t.channels, t.depth, t.height,
+                                    t.width)}[kind]()
+    return rng.normal(size=(batch,) + shape).astype(np.float32)
+
+
+def seeded_params(layer, seed: int, scale: float = 0.5):
+    """The JAX layer's parameter tree (numpy), every leaf replaced by
+    seeded normals times ``scale`` (so zero-initialized slopes, gains and
+    biases take part in the comparison)."""
+    import jax
+
+    if not layer.has_params:
+        return {}
+    rng = np.random.default_rng(seed)
+
+    def fill(tree):
+        return {k: (fill(v) if isinstance(v, dict) else
+                    (rng.normal(size=np.shape(v)) * scale).astype(np.float32))
+                for k, v in tree.items()}
+
+    return fill(numpy_tree(layer.init_params(jax.random.PRNGKey(0))))
+
+
+def to_jax(tree):
+    import jax.numpy as jnp
+
+    return {k: (to_jax(v) if isinstance(v, dict) else jnp.asarray(v))
+            for k, v in tree.items()}
+
+
+def to_torch(tree, requires_grad: bool = False):
+    import torch
+
+    return {k: (to_torch(v, requires_grad) if isinstance(v, dict) else
+                torch.tensor(v, requires_grad=requires_grad))
+            for k, v in tree.items()}
+
+
+def flat_items(tree, prefix=()):
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from flat_items(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def layer_parity(make, in_type, batch: int = 3, seed: int = 0,
+                 training: bool = False, tol: float = 1e-5):
+    """One layer built by ``make(m)`` on ``in_type(m)`` in both packages,
+    the same seeded parameters and input: the forward and the gradients of
+    ``sum(y * r)`` (``r`` seeded) with respect to every parameter and the
+    input, each within ``tol`` of its largest magnitude. Returns the two
+    output types."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    mj, mt = modules("jax"), modules("torch")
+    jl, tl = make(mj), make(mt)
+    jt, tt = jl.set_input_type(in_type(mj)), tl.set_input_type(in_type(mt))
+    assert type(jt).__name__ == type(tt).__name__ \
+        and jt.__dict__ == tt.__dict__, (jt, tt)
+    rng = np.random.default_rng(seed)
+    x = input_array(in_type(mj), batch, rng)
+    params = seeded_params(jl, seed + 1)
+    state = numpy_tree(jl.init_state())
+
+    def jfwd(p, xx):
+        return jl.apply(p, xx, to_jax(state), training,
+                        jax.random.PRNGKey(1))[0]
+
+    want, vjp = jax.vjp(jfwd, to_jax(params), jnp.asarray(x))
+    tp = to_torch(params, requires_grad=True)
+    tx = torch.tensor(x, requires_grad=True)
+    got, _ = tl.apply(tp, tx, to_torch(state), training,
+                      generator=torch.Generator().manual_seed(0))
+    assert_scaled_close(got, np.asarray(want), "forward", tol)
+    r = rng.normal(size=np.shape(want)).astype(np.float32)
+    jg_p, jg_x = vjp(jnp.asarray(r))
+    leaves = [t for _, t in flat_items(tp)]
+    grads = torch.autograd.grad((got * torch.from_numpy(r)).sum(),
+                                leaves + [tx], allow_unused=True)
+    for (path, t), g, (_, jg) in zip(flat_items(tp), grads,
+                                     flat_items(numpy_tree(jg_p))):
+        # a parameter outside the forward takes a zero gradient in JAX
+        g = torch.zeros_like(t) if g is None else g
+        assert_scaled_close(g, np.asarray(jg), f"d{'/'.join(path)}", tol)
+    assert_scaled_close(grads[-1], np.asarray(jg_x), "dx", tol)
+    return jt, tt
+
+
+def head_for(m, out_type, n_classes: int = 3):
+    """The loss head a network with this output type ends in."""
+    if type(out_type).__name__ == "RNNInput":
+        return m.L.RnnOutputLayer(n_out=n_classes, activation="softmax",
+                                  loss="mcxent")
+    return m.L.OutputLayer(n_out=n_classes, activation="softmax",
+                           loss="mcxent")
+
+
+def labels_for(out_type, batch: int, rng, n_classes: int = 3):
+    if type(out_type).__name__ == "RNNInput":
+        return np.eye(n_classes, dtype=np.float32)[
+            rng.integers(0, n_classes, (batch, out_type.timesteps))]
+    return np.eye(n_classes, dtype=np.float32)[
+        rng.integers(0, n_classes, batch)]
+
+
+def stack_conf(which: str, make_layers, in_type, out_type, updater=None,
+               seed: int = 5, fused_update: bool = False, policy=None,
+               l2: float = 0.0):
+    """A MultiLayerNetwork configuration: the layers ``make_layers(m)``,
+    then the loss head for ``out_type``, on ``in_type(m)``."""
+    m = modules(which)
+    b = m.NeuralNetConfiguration.builder().seed(seed).updater(
+        updater(m) if updater is not None else m.Sgd(0.1)).l2(l2)
+    if fused_update:
+        b = b.fused_update()
+    if policy is not None:
+        b = b.remat_policy(policy)
+    lb = b.list()
+    for layer in make_layers(m):
+        lb = lb.layer(layer)
+    return (lb.layer(head_for(m, out_type))
+            .set_input_type(in_type(m)).build())
+
+
+def assert_trees_close(tn, jn, tol: float = 1e-5, what: str = "") -> None:
+    """Every parameter of the port network ``tn`` within ``tol`` of its
+    leaf's largest magnitude in the JAX network ``jn``."""
+    for i, key in enumerate(tn._keys):
+        want = dict(flat_items(numpy_tree(jn._params[i])))
+        got = dict(flat_items(tn._params[key]))
+        assert set(want) == set(got), (i, set(want), set(got))
+        for path, w in want.items():
+            assert_scaled_close(got[path], w, f"{what} layer {i} "
+                                f"{'/'.join(path)}", tol)
