@@ -402,6 +402,51 @@ Phases (each fails the run with a nonzero exit if it fails):
                (whether bitwise is printed); then the TextGenerationLSTM's
                TBPTT batch under "full" against "none", the same way.
 
+29. disk    -- ResNet-50 (phase 6's: bf16, fused_update, bf16 state) at
+               batch 64 trained from 768 synthetic JPEGs of 224x224 in ten
+               class folders (bench.py's resnet50-disk): ImageRecordReader
+               (PIL, os.cpu_count() decode threads) ->
+               RecordReaderDataSetIterator -> AsyncDataSetIterator(queue 8,
+               device_prefetch: pinned memory, a copy stream, an event);
+               one warm-up and 10 timed fit(ds) steps. Prints images/s,
+               step median/p10/p90, the wait on the queue per step, the
+               decode workers, the decoder, peak memory. Gates: 1
+               fused_update launch per step, finite losses, the first
+               batch bitwise the decoder's pixels / 255.
+30. container -- the same images as uint8 [3, 224, 224] + int32 labels in
+               the pre-decoded container (chunks of 64, written under a
+               temporary name, then renamed), read by
+               BinaryRecordDataSetIterator(raw_numpy) -> AsyncDataSetIterator
+               with uint8 -> float32 / 255 on the card (bench.py's
+               resnet50-predecoded); the same figures. Gates: the card's
+               features bitwise numpy's; one step from the pipeline's
+               batch bitwise the same batch given as a DataSet
+               (deterministic cuDNN); fit(iterator, host_prefetch=4)
+               bitwise host_prefetch=0 on ResNet-50 (3 steps) and LeNet
+               (one epoch).
+31. telemetry -- ResNet-50 at batch 64: the step time without telemetry,
+               with TelemetrySink and with NanSentinelListener("skip") too,
+               in turns; then 8 steps through fit(iterator) whose third
+               batch holds a NaN, under NanSentinelListener("skip", 4) and
+               TelemetrySink(InMemoryStatsStorage, 4), every step off a
+               drain boundary under torch.cuda.set_sync_debug_mode("error").
+               Gates: the poisoned step's parameters, moments and BN
+               statistics bitwise the pre-step ones, the next step trains,
+               skipped_updates 1 at that iteration only. The guard on phase
+               26's re-headed VGG16 (frozen ranges) runs in phase 26
+               (``[transfer] NaN guard``); here one TextGenerationLSTM
+               TBPTT batch with a NaN in its 11th segment (one segment
+               skipped, finite parameters) and the device kernels
+               telemetry adds per segment.
+32. early-stopping -- EarlyStoppingTrainer on LeNet over the synthetic
+               MNIST fallback (MaxEpochs(5), ScoreImprovement(2),
+               DataSetLossCalculator, LocalFileModelSaver): epochs, best
+               epoch, reason; the best model reloads bitwise. Then phase
+               29's model served (fused epilogue) over two batches of the
+               container's images into ROCMultiClass, EvaluationCalibration
+               and Evaluation: 53 bn_act launches per forward, the metrics
+               equal numpy's on the host.
+
 Then it prints the kernels line (one JSON object) and, last, the device line
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
 beside it, it exits nonzero and prints no result. Weights are random, made
@@ -5902,6 +5947,7 @@ def phase_transfer(smi: str, dev):
             f"head's loss on the batch {score_before:.5f} -> "
             f"{score_after:.5f}; {smi}")
         log(f"[transfer] losses {losses}")
+        result["guard"] = transfer_guard(net, ds, smi)
         result["helper"] = transfer_helper(net, smi, dev)
         del net, ds
         torch.cuda.empty_cache()
@@ -6498,6 +6544,691 @@ def phase_remat(smi: str, dev) -> dict:
     return result
 
 
+# --- phases 29-32: DataVec, telemetry, early stopping, evaluation -------------
+
+DV_BATCH = 64           # bench.py's resnet50-disk and resnet50-predecoded
+DV_STEPS = 10
+DV_IMAGES = (DV_STEPS + 2) * DV_BATCH   # bench.py:445: 768 images
+DV_QUEUE = 8
+DV_PREFETCH_STEPS = 3   # host_prefetch=4 against 0 on ResNet-50
+TELE_STEPS = 8          # the guard's gate run
+TELE_NAN_STEP = 3       # the step whose features hold a NaN
+TELE_EVERY = 4          # check_every_n and drain_every_n
+TELE_ROUNDS = 2
+TELE_TIMED = 5          # steps per setting and round
+TELE_NAN_T = 510        # the TBPTT batch's NaN: its 11th segment of 20
+TELE_COUNT_T = 100      # the TBPTT batch whose launches are counted
+ES_MAX_EPOCHS = 5
+ES_PATIENCE = 2
+EVAL_BATCHES = 2
+
+
+def write_jpegs(root: str, n: int, size: int, seed: int):
+    """bench.py's synthetic JPEGs (bench.py:448-460): uniform-noise pixels
+    from ``default_rng(seed)``, quality 85, image i in ``class_{i % 10}``;
+    saved on a thread per core. Returns the pixels written ([n, H, W, 3]
+    uint8), the container phase's images."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    pixels = np.stack([rng.integers(0, 255, (size, size, 3), dtype=np.uint8)
+                       for _ in range(n)])
+    for c in range(10):
+        os.makedirs(os.path.join(root, f"class_{c:02d}"), exist_ok=True)
+
+    def save(i):
+        Image.fromarray(pixels[i]).save(
+            os.path.join(root, f"class_{i % 10:02d}", f"{i:06d}.jpg"),
+            quality=85)
+
+    with ThreadPoolExecutor(os.cpu_count() or 8) as pool:
+        list(pool.map(save, range(n)))
+    return pixels
+
+
+def feed_steps(model, it, steps: int) -> tuple:
+    """bench.py's loop over ``it`` (one generator): one warm-up fit(ds),
+    then ``steps`` timed ones, each ending in a synchronize, with the wait
+    on the iterator per step. Returns the first batch and the figures."""
+    gen = iter(it)
+    t0 = time.perf_counter()
+    first = next(gen)
+    first_wait = (time.perf_counter() - t0) * 1e3
+    model.fit(first)
+    torch.cuda.synchronize()
+    ms, waits, losses = [], [], [model.score_value]
+    t_all = time.perf_counter()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        ds = next(gen)
+        t1 = time.perf_counter()
+        model.fit(ds)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        waits.append((t1 - t0) * 1e3)
+        losses.append(model.score_value)
+    total = time.perf_counter() - t_all
+    gen.close()
+    return first, {"images_per_s": DV_BATCH * steps / total, **_ms_stats(ms),
+                   "wait_ms_median": statistics.median(waits),
+                   "wait_ms_mean": sum(waits) / len(waits),
+                   "wait_share": sum(waits) / sum(ms),
+                   "first_wait_ms": first_wait, "losses": losses}
+
+
+def _dv_line(tag: str, r: dict, smi: str) -> str:
+    return (f"[{tag}] ResNet-50 {IMAGE}x{IMAGE}, 1000 classes, bf16, "
+            f"fused_update, bf16 state, batch {DV_BATCH}: "
+            f"{r['images_per_s']:.2f} images/s, step ms median "
+            f"{r['step_ms_median']:.2f} p10 {r['step_ms_p10']:.2f} p90 "
+            f"{r['step_ms_p90']:.2f} ({DV_STEPS} steps after 1 warm-up); "
+            f"wait on the queue {r['wait_ms_median']:.2f} ms median a step "
+            f"({100 * r['wait_share']:.1f}% of the steps' time; the first "
+            f"batch {r['first_wait_ms']:.1f} ms); peak device memory "
+            f"{r['peak_bytes']} B; fused_update launches "
+            f"{r['fused_update_launches']} ({DV_STEPS + 1} steps); {smi}")
+
+
+def phase_disk(smi: str, dev):
+    """Phase 29: ResNet-50 trained from JPEG files through DataVec
+    (bench.py:427-502). Returns the figures and the trained model, which
+    phase 32 serves."""
+    import tempfile
+
+    import PIL
+    from PIL import Image
+
+    from deeplearning4j_tpu_torch.data import (AsyncDataSetIterator,
+                                               FileSplit, ImageRecordReader,
+                                               RecordReaderDataSetIterator)
+
+    root = tempfile.mkdtemp(prefix="jpegs-")
+    try:
+        t0 = time.perf_counter()
+        pixels = write_jpegs(root, DV_IMAGES, IMAGE, 0)
+        write_s = time.perf_counter() - t0
+        workers = os.cpu_count() or 8
+        rr = ImageRecordReader(height=IMAGE, width=IMAGE, channels=3,
+                               workers=workers)
+        rr.initialize(FileSplit(root, allowed_extensions=[".jpg"]))
+        base = RecordReaderDataSetIterator(rr, batch_size=DV_BATCH,
+                                           label_index=1, num_classes=1000)
+        it = AsyncDataSetIterator(base, queue_size=DV_QUEUE,
+                                  device_prefetch=True, device=dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = train_model(dev, True, "bfloat16", "bfloat16")
+        _reset_kernel_counts()
+        first, r = feed_steps(model, it, DV_STEPS)
+        r["fused_update_launches"] = _kernel_counts()["fused_update"]
+        r["peak_bytes"] = torch.cuda.max_memory_allocated()
+        # the decoder's pixels of the first batch, as the reader makes them
+        paths = FileSplit(root, allowed_extensions=[".jpg"]).locations()
+        want, labels = [], []
+        for p in paths[:DV_BATCH]:
+            with Image.open(p) as im:
+                want.append((np.asarray(im.convert("RGB")).astype(np.float32)
+                             / 255.0).transpose(2, 0, 1))
+            labels.append(rr.labels.index(p.parent.name))
+        got = first.features.cpu()
+        same = torch.equal(got, torch.from_numpy(np.stack(want)))
+        lab_ok = first.labels.argmax(1).cpu().tolist() == labels
+        del first
+    finally:
+        import shutil
+
+        shutil.rmtree(root, ignore_errors=True)
+    check(all(np.isfinite(r["losses"])), f"disk: losses {r['losses']}")
+    check(r["fused_update_launches"] == DV_STEPS + 1, f"disk: fused_update "
+          f"launched {r['fused_update_launches']} times in {DV_STEPS + 1} "
+          f"steps (want 1 per step)")
+    check(same and lab_ok, f"disk: the first batch is not the decoder's "
+          f"pixels / 255 (features bitwise {same}, labels {lab_ok})")
+    r.update(decoder=f"PIL {PIL.__version__}", decode_workers=workers,
+             cpu_count=os.cpu_count(), images=DV_IMAGES,
+             jpeg_write_s=write_s, first_batch_bitwise=same)
+    log(f"[disk] {DV_IMAGES} JPEGs of {IMAGE}x{IMAGE} (quality 85, ten "
+        f"class folders) written in {write_s:.2f} s; ImageRecordReader "
+        f"(decoder {r['decoder']}, {workers} decode workers, os.cpu_count() "
+        f"{os.cpu_count()}) -> RecordReaderDataSetIterator -> "
+        f"AsyncDataSetIterator(queue {DV_QUEUE}, device_prefetch); the first "
+        f"batch bitwise the decoder's pixels / 255: {same}")
+    log(_dv_line("disk", r, smi))
+    log(f"[disk] losses {r['losses']}")
+    return r, model, pixels
+
+
+def _same_state(a, b) -> bool:
+    """Parameters, layer states and updater state of two networks
+    bitwise."""
+    from deeplearning4j_tpu_torch.common.tree import get_path, leaf_paths
+
+    def leaves(t):
+        return [get_path(t, p) for p in leaf_paths(t or {})]
+
+    return all(len(leaves(x)) == len(leaves(y)) and all(
+        torch.equal(u, v) for u, v in zip(leaves(x), leaves(y)))
+        for x, y in ((a._params, b._params), (a._states, b._states),
+                     (a._updater_state, b._updater_state)))
+
+
+def phase_container(smi: str, dev, pixels):
+    """Phase 30: ResNet-50 trained from the pre-decoded container
+    (bench.py:503-580), the pipeline's hand-over gates, and fit's
+    host_prefetch against none on both networks."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.data import (AsyncDataSetIterator,
+                                               BinaryRecordDataSetIterator,
+                                               DataSet, MnistDataSetIterator,
+                                               NDArrayDataSetIterator)
+    from deeplearning4j_tpu_torch.data.binary_records import \
+        BinaryRecordWriter
+    from deeplearning4j_tpu_torch.models import LeNet
+
+    root = tempfile.mkdtemp(prefix="container-")
+    det = torch.backends.cudnn.deterministic
+    try:
+        path = os.path.join(root, "images.d4tbin")
+        t0 = time.perf_counter()
+        with BinaryRecordWriter(
+                path + ".tmp", [("features", (3, IMAGE, IMAGE), "uint8"),
+                                ("label", (), "int32")],
+                chunk_records=DV_BATCH) as w:
+            for i in range(DV_IMAGES):
+                w.append(pixels[i].transpose(2, 0, 1), i % 10)
+        os.replace(path + ".tmp", path)
+        write_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        # the divisor a 0-d tensor on the card: PyTorch divides by a
+        # Python scalar as a multiplication by its reciprocal, by a tensor
+        # as IEEE division, as numpy does
+        d255 = torch.full((), 255.0, device=dev)
+        it = AsyncDataSetIterator(
+            BinaryRecordDataSetIterator(path, batch_size=DV_BATCH,
+                                        num_classes=1000, raw_numpy=True),
+            queue_size=DV_QUEUE, device_prefetch=True,
+            feature_transform=lambda x: x.float().div_(d255), device=dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = train_model(dev, True, "bfloat16", "bfloat16")
+        _reset_kernel_counts()
+        first, r = feed_steps(model, it, DV_STEPS)
+        r["fused_update_launches"] = _kernel_counts()["fused_update"]
+        r["peak_bytes"] = torch.cuda.max_memory_allocated()
+        del model
+        torch.cuda.empty_cache()
+        x0, y0 = next(iter(BinaryRecordDataSetIterator(
+            path, batch_size=DV_BATCH, num_classes=1000, raw_numpy=True)))
+        want = torch.from_numpy(x0.astype(np.float32) / 255)
+        scaled_same = torch.equal(first.features.cpu(), want) and \
+            torch.equal(first.labels.cpu(), torch.from_numpy(y0))
+        # one step from the pipeline's batch against the same batch given
+        # as a DataSet: the pipeline hands over exactly the data
+        torch.backends.cudnn.deterministic = True
+        a = train_model(dev, True, "bfloat16", "bfloat16")
+        a.fit(first)
+        b = train_model(dev, True, "bfloat16", "bfloat16")
+        b.fit(DataSet(want.numpy(), y0))
+        step_same = _same_state(a, b)
+        del a, b, first
+        torch.cuda.empty_cache()
+        # fit(iterator, host_prefetch=4) against host_prefetch=0
+        n = DV_PREFETCH_STEPS * DV_BATCH
+        raw = iter(BinaryRecordDataSetIterator(path, DV_BATCH,
+                                               raw_numpy=True))
+        xs = np.concatenate([next(raw)[0] for _ in range(
+            DV_PREFETCH_STEPS)]).astype(np.float32) / 255
+        ys = np.eye(1000, dtype=np.float32)[np.arange(n) % 10]
+        _reset_kernel_counts()
+        nets = []
+        for hp in (0, 4):
+            m = train_model(dev, True, "bfloat16", "bfloat16")
+            m.fit(NDArrayDataSetIterator(xs, ys, DV_BATCH), host_prefetch=hp)
+            nets.append(m)
+        resnet_same = _same_state(*nets)
+        del nets
+        torch.cuda.empty_cache()
+        lenets = []
+        for hp in (0, 4):
+            net = LeNet().init(device=dev)
+            net.conf.global_conf.fused_update = True
+            net.fit(MnistDataSetIterator(128, train=True, flatten=False),
+                    host_prefetch=hp)
+            lenets.append(net)
+        lenet_same = _same_state(*lenets)
+        prefetch_launches = _kernel_counts()["fused_update"]
+        lenet_steps = lenets[0]._iteration
+        del lenets
+    finally:
+        torch.backends.cudnn.deterministic = det
+        import shutil
+
+        shutil.rmtree(root, ignore_errors=True)
+    check(all(np.isfinite(r["losses"])), f"container: losses {r['losses']}")
+    check(r["fused_update_launches"] == DV_STEPS + 1, f"container: "
+          f"fused_update launched {r['fused_update_launches']} times in "
+          f"{DV_STEPS + 1} steps (want 1 per step)")
+    check(scaled_same, "container: the card's features are not numpy's "
+          "x.astype(float32) / 255 bitwise")
+    check(step_same, "container: a step from the pipeline's batch differs "
+          "from the same batch given as a DataSet")
+    want_launches = 2 * DV_PREFETCH_STEPS + 2 * lenet_steps
+    check(resnet_same and lenet_same and prefetch_launches == want_launches,
+          f"host_prefetch=4 against 0: ResNet-50 bitwise {resnet_same}, "
+          f"LeNet bitwise {lenet_same}; fused_update launches "
+          f"{prefetch_launches} (want {want_launches})")
+    r.update(container_bytes=size, write_s=write_s,
+             features_bitwise=scaled_same, step_bitwise=step_same,
+             host_prefetch={"resnet50_bitwise": resnet_same,
+                            "lenet_bitwise": lenet_same,
+                            "lenet_steps": lenet_steps,
+                            "fused_update_launches": prefetch_launches})
+    log(f"[container] {DV_IMAGES} images as uint8 [3, {IMAGE}, {IMAGE}] + "
+        f"int32 labels, chunks of {DV_BATCH}: {size} B written in "
+        f"{write_s:.2f} s (temporary name, then a rename); "
+        f"BinaryRecordDataSetIterator(raw_numpy) -> AsyncDataSetIterator("
+        f"queue {DV_QUEUE}, device_prefetch, uint8 -> float32 / 255 on the "
+        f"card); the card's features bitwise numpy's: {scaled_same}; one "
+        f"step from the pipeline's batch bitwise the same batch as a "
+        f"DataSet (deterministic cuDNN): {step_same}")
+    log(_dv_line("container", r, smi))
+    log(f"[container] losses {r['losses']}")
+    log(f"[container] fit(iterator, host_prefetch=4) bitwise "
+        f"host_prefetch=0: ResNet-50 ({DV_PREFETCH_STEPS} steps of "
+        f"{DV_BATCH}) {resnet_same}, LeNet (one epoch, {lenet_steps} steps) "
+        f"{lenet_same}; fused_update launches {prefetch_launches}; {smi}")
+    return r
+
+
+class _SyncGate:
+    """Puts the card in ``set_sync_debug_mode("error")`` for the steps off
+    a drain boundary: ``opener`` (the first listener) lifts it before the
+    telemetry listeners drain, ``closer`` (the last) sets it again."""
+
+    def __init__(self, every: int):
+        self.every = every
+        self.steps = 0
+        gate = self
+
+        class Opener:
+            def iteration_done(self, model, iteration, score):
+                gate.steps += 1
+                if gate.steps % gate.every == 0:
+                    torch.cuda.set_sync_debug_mode(0)
+
+        class Closer:
+            def iteration_done(self, model, iteration, score):
+                torch.cuda.set_sync_debug_mode("error")
+
+        self.opener, self.closer = Opener(), Closer()
+
+
+class _Snap:
+    """Device copies (no readback) of the fused buckets and the layer
+    states after given steps of a fit."""
+
+    def __init__(self, at):
+        self.at = set(at)
+        self.steps = 0
+        self.snaps = {}
+
+    def iteration_done(self, model, iteration, score):
+        from deeplearning4j_tpu_torch.optimize.telemetry import clone_tree
+
+        self.steps += 1
+        if self.steps in self.at:
+            store = model._flat
+            self.snaps[self.steps] = (
+                {k: v.clone() for k, v in store.params.items()},
+                {s: {k: v.clone() for k, v in d.items()}
+                 for s, d in store.state.items()},
+                clone_tree(model._states))
+
+
+def _snaps_equal(a, b) -> bool:
+    from deeplearning4j_tpu_torch.common.tree import get_path, leaf_paths
+
+    pa, sa, ta = a
+    pb, sb, tb = b
+    return (all(torch.equal(pa[k], pb[k]) for k in pa)
+            and all(torch.equal(sa[s][k], sb[s][k]) for s in sa
+                    for k in sa[s])
+            and all(torch.equal(get_path(ta, p), get_path(tb, p))
+                    for p in leaf_paths(ta)))
+
+
+def transfer_guard(net, ds, smi: str) -> dict:
+    """The NaN guard on phase 26's re-headed VGG16 (frozen ranges kept
+    aside in the bucket): a poisoned step leaves the bucket and the
+    moments bitwise, the next step trains and the frozen ranges stay."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.optimize import NanSentinelListener
+
+    sent = NanSentinelListener("skip", check_every_n=1)
+    net.set_listeners(sent)
+    bad = DataSet(ds.features.clone(), ds.labels)
+    bad.features[0, 0, 0, 0] = float("nan")
+    store = net._flat
+    frozen = _frozen_leaves(net)
+    sum_before = _checksum(frozen)
+    before = ({k: v.clone() for k, v in store.params.items()},
+              {s: {k: v.clone() for k, v in d.items()}
+               for s, d in store.state.items()})
+    net.fit(bad)
+    after = (store.params, store.state)
+    kept = all(torch.equal(before[0][k], after[0][k]) for k in before[0]) \
+        and all(torch.equal(before[1][s][k], after[1][s][k])
+                for s in before[1] for k in before[1][s])
+    net.fit(ds)
+    trained = not all(torch.equal(before[0][k], store.params[k])
+                      for k in before[0])
+    frozen_same = _checksum(_frozen_leaves(net)) == sum_before
+    net.set_listeners()
+    check(kept and trained and frozen_same and len(sent.events) == 1,
+          f"transfer guard: poisoned step kept bitwise {kept}, next step "
+          f"trained {trained}, frozen checksum kept {frozen_same}, events "
+          f"{sent.events}")
+    log(f"[transfer] NaN guard on the re-headed VGG16 (frozen ranges in the "
+        f"bucket): the poisoned step's bucket and moments bitwise the "
+        f"pre-step ones {kept}; the next step trains {trained}; frozen "
+        f"checksum unchanged {frozen_same}; {smi}")
+    return {"kept_bitwise": kept, "next_trains": trained,
+            "frozen_unchanged": frozen_same}
+
+
+def _cuda_kernels(fn) -> int:
+    """Device kernels that ``fn()`` launches, counted by the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith("Memcpy")
+               and not e.name.startswith("Memset"))
+
+
+def tbptt_guard(smi: str, dev) -> dict:
+    """The guard on one TextGenerationLSTM TBPTT batch with a NaN in a
+    middle segment, and the launches telemetry adds per segment."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.optimize import (NanSentinelListener,
+                                                   TelemetrySink)
+    from deeplearning4j_tpu_torch.ui import InMemoryStatsStorage
+
+    idx, chars = text_corpus()
+    vocab = len(chars)
+    x, y = text_batch(idx, vocab, TEXT_BATCH, TEXT_SEQ, dev, SEED + 95)
+    bad = x.clone()
+    bad[0, TELE_NAN_T] = float("nan")
+    net = text_generation_net(vocab, dev)
+    sent = NanSentinelListener("skip", check_every_n=1)
+    net.set_listeners(sent)
+    _reset_kernel_counts()
+    net.fit(DataSet(bad, y))
+    launches = _kernel_counts()["fused_update"]
+    aux = {k: v.cpu().tolist() for k, v in net._aux.items()}
+    finite = bool(torch.isfinite(net.params()).all())
+    segments = TEXT_SEQ // TEXT_TBPTT
+    check(launches == segments and aux["skipped"] == 1 and finite
+          and len(sent.events) == 1 and sent.events[0]["total"] > 0,
+          f"TBPTT guard: launches {launches} (want {segments}), skipped "
+          f"segments {aux['skipped']} (want 1), parameters finite {finite}, "
+          f"events {sent.events}")
+    xs, ys = x[:, :TELE_COUNT_T], y[:, :TELE_COUNT_T]
+    net.set_listeners()
+    net.fit(DataSet(xs, ys))
+    plain = _cuda_kernels(lambda: net.fit(DataSet(xs, ys)))
+    net.set_listeners(NanSentinelListener("skip", check_every_n=10),
+                      TelemetrySink(InMemoryStatsStorage(), 10))
+    net.fit(DataSet(xs, ys))
+    guarded = _cuda_kernels(lambda: net.fit(DataSet(xs, ys)))
+    n_seg = TELE_COUNT_T // TEXT_TBPTT
+    per_seg = (guarded - plain) / n_seg
+    log(f"[telemetry] TextGenerationLSTM TBPTT batch ({TEXT_BATCH} x "
+        f"{TEXT_SEQ}, {segments} segments) with a NaN at t {TELE_NAN_T} "
+        f"under 'skip': {aux['skipped']} segment skipped, non-finite total "
+        f"{aux['nonfinite_total']}, fused_update launches {launches}, "
+        f"parameters finite {finite}; device kernels per {TELE_COUNT_T}-"
+        f"step batch {plain} without telemetry, {guarded} with stats and "
+        f"the guard: {per_seg:.1f} more a segment; {smi}")
+    return {"skipped": aux["skipped"], "launches": launches,
+            "kernels_plain": plain, "kernels_guarded": guarded,
+            "added_per_segment": per_seg}
+
+
+def phase_telemetry(smi: str, dev) -> dict:
+    """Phase 31: ResNet-50 at batch 64 with TelemetrySink and
+    NanSentinelListener("skip"): the step time in turns without telemetry,
+    with stats and with the guard; a NaN at step 3 skipped bitwise with no
+    host synchronisation off the drain boundaries; the guard on the
+    re-headed VGG16 is phase 26's, the TBPTT batch's here."""
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.optimize import (NanSentinelListener,
+                                                   TelemetrySink)
+    from deeplearning4j_tpu_torch.ui import InMemoryStatsStorage
+
+    torch.cuda.empty_cache()
+    model = train_model(dev, True, "bfloat16", "bfloat16")
+    ds = synthetic_batch(DV_BATCH, dev, SEED + 90)
+    settings = {
+        "off": lambda: (),
+        "stats": lambda: (TelemetrySink(InMemoryStatsStorage(), 10),),
+        "guard": lambda: (NanSentinelListener("skip", 10),
+                          TelemetrySink(InMemoryStatsStorage(), 10))}
+    ms = {k: [] for k in settings}
+    for rnd in range(TELE_ROUNDS):
+        for name, make in settings.items():
+            model.set_listeners(*make())
+            model.fit(ds)           # the first step of a setting untimed
+            torch.cuda.synchronize()
+            for _ in range(TELE_TIMED):
+                t0 = time.perf_counter()
+                model.fit(ds)
+                torch.cuda.synchronize()
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    # the gate run: one fit over TELE_STEPS batches, the third poisoned
+    bad = DataSet(ds.features.clone(), ds.labels)
+    bad.features[0, 0, 0, 0] = float("nan")
+    storage = InMemoryStatsStorage()
+    sent = NanSentinelListener("skip", check_every_n=TELE_EVERY)
+    sink = TelemetrySink(storage, drain_every_n=TELE_EVERY)
+    gate = _SyncGate(TELE_EVERY)
+    snap = _Snap((TELE_NAN_STEP - 1, TELE_NAN_STEP, TELE_NAN_STEP + 1))
+    model.set_listeners(gate.opener, snap, sent, sink, gate.closer)
+    batches = [bad if s == TELE_NAN_STEP else ds
+               for s in range(1, TELE_STEPS + 1)]
+    it0 = model._iteration
+    _reset_kernel_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.fit(ExistingDataSetIterator(batches))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    launches = _kernel_counts()["fused_update"]
+    model.set_listeners()
+    pre, post, nxt = (snap.snaps[s] for s in (
+        TELE_NAN_STEP - 1, TELE_NAN_STEP, TELE_NAN_STEP + 1))
+    kept = _snaps_equal(pre, post)
+    trained = not all(torch.equal(post[0][k], nxt[0][k]) for k in post[0])
+    skipped = dict(storage.series("skipped_updates"))
+    want_skip = {it0 + s: (1.0 if s == TELE_NAN_STEP else 0.0)
+                 for s in range(1, TELE_STEPS + 1)}
+    check(kept, "telemetry: the poisoned step's parameters, moments or BN "
+          "statistics differ from the pre-step ones")
+    check(trained, "telemetry: the step after the poisoned one did not "
+          "train")
+    check(skipped == want_skip, f"telemetry: skipped_updates {skipped}, "
+          f"want {want_skip}")
+    check(launches == TELE_STEPS and len(sent.events) == 1
+          and sent.events[0]["iteration"] == it0 + TELE_NAN_STEP,
+          f"telemetry: launches {launches}, events {sent.events}")
+    tags = storage.tags()
+    result = {"step_ms": med, "step_ms_all": ms,
+              "stats_overhead": med["stats"] / med["off"] - 1,
+              "guard_overhead": med["guard"] / med["off"] - 1,
+              "kept_bitwise": kept, "next_trains": trained,
+              "skipped_updates": skipped, "fused_update_launches": launches,
+              "sync_free_steps": TELE_STEPS - TELE_STEPS // TELE_EVERY,
+              "series": len(tags)}
+    log(f"[telemetry] ResNet-50 batch {DV_BATCH}, bf16, fused_update: step "
+        f"ms median without telemetry {med['off']:.2f}, with stats "
+        f"{med['stats']:.2f} ({100 * result['stats_overhead']:+.1f}%), with "
+        f"stats and the NaN guard {med['guard']:.2f} "
+        f"({100 * result['guard_overhead']:+.1f}%); {TELE_ROUNDS} rounds of "
+        f"{TELE_TIMED} steps in turns; {smi}")
+    log(f"[telemetry] NaN in step {TELE_NAN_STEP}'s features under "
+        f"NanSentinelListener('skip', check_every_n={TELE_EVERY}) and "
+        f"TelemetrySink(InMemoryStatsStorage, {TELE_EVERY}): parameters, "
+        f"bf16 moments and BN statistics bitwise the pre-step ones {kept}; "
+        f"the next step trains {trained}; skipped_updates {skipped}; "
+        f"{result['sync_free_steps']} of {TELE_STEPS} steps under "
+        f"set_sync_debug_mode('error') (all but the drain steps); "
+        f"{len(tags)} series; fused_update launches {launches}")
+    del model, ds, bad
+    torch.cuda.empty_cache()
+    result["tbptt"] = tbptt_guard(smi, dev)
+    return result
+
+
+def _sorted_auc(y: np.ndarray, s: np.ndarray) -> float:
+    """The exact ROC's AUC on the host: scores sorted descending (stable),
+    the curve's cumulative rates, the trapezoid rule."""
+    y = y.astype(np.float64)[np.argsort(-s, kind="mergesort")]
+    tpr = np.concatenate([[0.0], np.cumsum(y) / y.sum()])
+    fpr = np.concatenate([[0.0], np.cumsum(1 - y) / (1 - y).sum()])
+    return float(np.sum(np.diff(fpr) * (tpr[1:] + tpr[:-1]) / 2))
+
+
+def phase_early_stopping(smi: str, dev, served, pixels) -> dict:
+    """Phase 32: EarlyStoppingTrainer on LeNet, then the disk-trained
+    ResNet-50 served over two container batches into ROCMultiClass,
+    EvaluationCalibration and Evaluation."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.data import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.eval import (Evaluation,
+                                               EvaluationCalibration,
+                                               ROCMultiClass)
+    from deeplearning4j_tpu_torch.models import LeNet
+    from deeplearning4j_tpu_torch.optimize.earlystopping import (
+        DataSetLossCalculator, EarlyStoppingConfiguration,
+        EarlyStoppingTrainer, LocalFileModelSaver,
+        MaxEpochsTerminationCondition,
+        ScoreImprovementEpochTerminationCondition)
+
+    class Saver(LocalFileModelSaver):
+        def save_best_model(self, model, score):
+            super().save_best_model(model, score)
+            self.best_params = model.params().detach().clone()
+
+    root = tempfile.mkdtemp(prefix="earlystop-")
+    try:
+        net = LeNet().init(device=dev)
+        net.conf.global_conf.fused_update = True
+        train = MnistDataSetIterator(128, train=True, flatten=False)
+        saver = Saver(root)
+        cfg = (EarlyStoppingConfiguration.builder()
+               .epoch_termination_conditions(
+                   MaxEpochsTerminationCondition(ES_MAX_EPOCHS),
+                   ScoreImprovementEpochTerminationCondition(ES_PATIENCE))
+               .score_calculator(DataSetLossCalculator(MnistDataSetIterator(
+                   128, train=False, flatten=False)))
+               .model_saver(saver).build())
+        _reset_kernel_counts()
+        t0 = time.perf_counter()
+        res = EarlyStoppingTrainer(cfg, net, train).fit()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = _kernel_counts()["fused_update"]
+        best = res.get_best_model()
+        reload_same = torch.equal(best.params(), saver.best_params)
+        steps = net._iteration
+    finally:
+        import shutil
+
+        shutil.rmtree(root, ignore_errors=True)
+    check(reload_same and res.total_epochs <= ES_MAX_EPOCHS
+          and launches == steps and np.isfinite(res.best_model_score),
+          f"early stopping: best model reloads bitwise {reload_same}, "
+          f"epochs {res.total_epochs}, launches {launches} for {steps} "
+          f"steps, best score {res.best_model_score}")
+    es = {"epochs": res.total_epochs, "best_epoch": res.best_model_epoch,
+          "best_score": res.best_model_score,
+          "reason": res.termination_reason,
+          "details": res.termination_details, "seconds": secs,
+          "steps": steps, "fused_update_launches": launches,
+          "best_reloads_bitwise": reload_same}
+    log(f"[early-stopping] LeNet on the synthetic MNIST fallback, "
+        f"MaxEpochs({ES_MAX_EPOCHS}) + ScoreImprovement(patience "
+        f"{ES_PATIENCE}), DataSetLossCalculator over the test set, "
+        f"LocalFileModelSaver: {res.total_epochs} epochs ({steps} steps, "
+        f"{secs:.2f} s), best epoch {res.best_model_epoch} (loss "
+        f"{res.best_model_score:.6f}), ended by {res.termination_reason}: "
+        f"{res.termination_details}; the best model reloads bitwise "
+        f"{reload_same}; fused_update launches {launches}; {smi}")
+    # the disk-trained ResNet-50 served over two container batches
+    set_fused(served, True)
+    roc, cal, ev = ROCMultiClass(), EvaluationCalibration(), Evaluation()
+    host = []
+    _reset_kernel_counts()
+    with torch.inference_mode():
+        for b in range(EVAL_BATCHES):
+            sel = np.arange(b * DV_BATCH, (b + 1) * DV_BATCH)
+            x = torch.from_numpy(pixels[sel].transpose(0, 3, 1, 2)).to(dev)
+            x = x.float().div_(torch.full((), 255.0, device=dev))
+            y = np.eye(1000, dtype=np.float32)[sel % 10]
+            out = served.output(x)[0].float()
+            for m in (roc, cal, ev):
+                m.eval(y, out)
+            host.append((y, out.cpu().numpy()))
+    bn = _kernel_counts()["bn_act"]
+    y_all = np.concatenate([h[0] for h in host])
+    p_all = np.concatenate([h[1] for h in host]).astype(np.float64)
+    acc = float((p_all.argmax(1) == y_all.argmax(1)).mean())
+    aucs = [_sorted_auc(y_all[:, c], p_all[:, c]) for c in range(10)]
+    got_aucs = [roc.calculate_auc(c) for c in range(10)]
+    conf = p_all.max(1)
+    rb = 10
+    bins = np.clip((p_all * rb).astype(np.int64), 0, rb - 1)
+    ece_num = ece_den = 0.0
+    for c in range(p_all.shape[1]):
+        cnt = np.bincount(bins[:, c], minlength=rb)
+        ps = np.bincount(bins[:, c], weights=p_all[:, c], minlength=rb)
+        pos = np.bincount(bins[:, c], weights=y_all[:, c], minlength=rb)
+        safe = np.maximum(cnt, 1)
+        ece_num += float(np.sum(cnt * np.abs(ps / safe - pos / safe)))
+        ece_den += float(cnt.sum())
+    ece = ece_num / max(ece_den, 1.0)
+    auc_err = max(abs(a - b) for a, b in zip(got_aucs, aucs))
+    ece_err = abs(cal.expected_calibration_error() - ece)
+    acc_err = abs(ev.accuracy() - acc)
+    want_bn = 53 * EVAL_BATCHES
+    check(bn == want_bn, f"evaluation forward: bn_act launched {bn} times, "
+          f"want {want_bn} (53 per forward)")
+    check(auc_err <= 1e-9 and ece_err <= 1e-9 and acc_err == 0.0,
+          f"evaluation: ROC AUC off by {auc_err}, ECE by {ece_err}, "
+          f"accuracy by {acc_err} from numpy on the host")
+    ev_r = {"bn_act_launches": bn, "accuracy": ev.accuracy(),
+            "average_auc_present_classes": float(np.mean(got_aucs)),
+            "ece": cal.expected_calibration_error(), "auc_err": auc_err,
+            "ece_err": ece_err, "mean_confidence": float(conf.mean())}
+    log(f"[evaluation] the disk-trained ResNet-50 served (fused epilogue, "
+        f"bf16) over {EVAL_BATCHES} container batches of {DV_BATCH}: "
+        f"bn_act {bn} launches ({bn / EVAL_BATCHES:.0f} per forward); "
+        f"accuracy {ev.accuracy():.4f}, mean AUC of the 10 present classes "
+        f"{ev_r['average_auc_present_classes']:.4f} (ROCMultiClass, exact; "
+        f"within {auc_err:.1e} of numpy's curve on the host), ECE "
+        f"{ev_r['ece']:.6f} (within {ece_err:.1e}); {smi}")
+    return {"early_stopping": es, "evaluation": ev_r}
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
@@ -6571,6 +7302,12 @@ def main(argv=None) -> int:
                 "layers": phase_layers(smi, dev)}
         torch.cuda.empty_cache()
         remat = phase_remat(smi, dev)
+        torch.cuda.empty_cache()
+        disk, disk_model, pixels = phase_disk(smi, dev)
+        container = phase_container(smi, dev, pixels)
+        tele = phase_telemetry(smi, dev)
+        es_eval = phase_early_stopping(smi, dev, disk_model, pixels)
+        del disk_model, pixels
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -6594,6 +7331,8 @@ def main(argv=None) -> int:
                              if "bn_act_launches" in r},
         "launches_simplecnn_reheaded":
             transfer["simplecnn"]["bn_act_launches"],
+        "launches_evaluation_forward":
+            es_eval["evaluation"]["bn_act_launches"],
         "forwards": {n: {k: f[k] for k in ("launches", "ms", "bound_ms",
                                            "share")}
                      for n, f in timing["shapes"].items()}})
@@ -6631,7 +7370,15 @@ def main(argv=None) -> int:
         "launches_capsnet": rest["capsnet"]["fused_update_launches"],
         "launches_remat": {n: r["fused_update_launches"]
                            for n, r in remat.items()
-                           if "fused_update_launches" in r}})
+                           if "fused_update_launches" in r},
+        "launches_disk": disk["fused_update_launches"],
+        "launches_container": container["fused_update_launches"],
+        "launches_host_prefetch":
+            container["host_prefetch"]["fused_update_launches"],
+        "launches_guarded": tele["fused_update_launches"],
+        "launches_guarded_tbptt": tele["tbptt"]["launches"],
+        "launches_early_stopping":
+            es_eval["early_stopping"]["fused_update_launches"]})
     bp = bag_timing["path"]
     kernels.append({
         "name": "embedding_bag", "route": "cuda",
@@ -6734,7 +7481,8 @@ def main(argv=None) -> int:
                       "glove": glove, "deepwalk": deepwalk,
                       "serializer": ser, "sequences": seq,
                       "transfer": transfer, "pretrain_and_layers": rest,
-                      "remat": remat}, default=str),
+                      "remat": remat, "disk": disk, "container": container,
+                      "telemetry": tele, **es_eval}, default=str),
           flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -34,10 +34,16 @@ Layer map (ported so far; see ROADMAP.md for what follows):
              (inference and fit)
   learning/  updaters (Sgd, Nesterovs, Adam, AdamW), mixed precision
              (bf16 updater state with stochastic rounding)
-  data/      DataSet, iterators (MNIST with its synthetic fallback),
-             normalizers, the input pipeline (padded batches, staged feed)
-  eval/      Evaluation, RegressionEvaluation
-  optimize/  training listeners
+  data/      DataSet, iterators (MNIST and the file iterators with their
+             synthetic fallbacks), normalizers with their JSON, the input
+             pipeline (padded batches, staged feed, host_prefetch) and
+             DataVec: record readers, ImageRecordReader, the pre-decoded
+             container, AsyncDataSetIterator (the card feed), schema,
+             reducers, sequences, analysis
+  eval/      Evaluation, RegressionEvaluation, the ROC family, calibration
+  optimize/  training listeners, in-step telemetry and the NaN guard,
+             early stopping
+  ui/        the stats storages that telemetry drains into
   models/    ResNet-50, LeNet, VGG16
   nlp/       Word2Vec (CBOW with negative sampling), tokenizers, vocabulary
   parallel/  ParallelInference (the request micro-batcher), the flat

@@ -8,7 +8,10 @@ max_pixel]`` to ``[min_range, max_range]``), each with ``fit``,
 ``transform``, ``pre_process`` (what an iterator's pre-processor runs) and
 ``revert``. Statistics are numpy arrays computed as the JAX package computes
 them; features may be numpy arrays or tensors, and a transform keeps the
-kind (a tensor stays on its device). JSON persistence is not ported yet.
+kind (a tensor stays on its device). ``to_json`` and
+:func:`normalizer_from_json` write and read the JAX package's JSON (the
+model zip's ``normalizer.json``, ``util/model_serializer.py``), so a
+normalizer crosses between the packages.
 """
 
 from __future__ import annotations
@@ -54,6 +57,9 @@ class Normalizer:
     def revert_features(self, x):
         raise NotImplementedError
 
+    def to_json(self) -> dict:
+        raise NotImplementedError
+
     def pre_process(self, ds: DataSet) -> None:
         self.transform(ds)
 
@@ -80,6 +86,10 @@ class NormalizerStandardize(Normalizer):
         shape = _channel_shape(x)
         return (x * _stat(self.std.reshape(shape), x)
                 + _stat(self.mean.reshape(shape), x))
+
+    def to_json(self) -> dict:
+        return {"type": "standardize", "mean": self.mean.tolist(),
+                "std": self.std.tolist()}
 
 
 class NormalizerMinMaxScaler(Normalizer):
@@ -112,6 +122,12 @@ class NormalizerMinMaxScaler(Normalizer):
         return ((x - self.min_range) / _stat(self._scale(), x)
                 + _stat(self.data_min, x))
 
+    def to_json(self) -> dict:
+        return {"type": "minmax",
+                "data_min": np.asarray(self.data_min).tolist(),
+                "data_max": np.asarray(self.data_max).tolist(),
+                "min_range": self.min_range, "max_range": self.max_range}
+
 
 class ImagePreProcessingScaler(Normalizer):
     """Raw pixels ``[0, max_pixel]`` to ``[min_range, max_range]``
@@ -136,6 +152,29 @@ class ImagePreProcessingScaler(Normalizer):
     def revert_features(self, x):
         return ((x - self.min_range) / (self.max_range - self.min_range)
                 * self.max_pixel)
+
+    def to_json(self) -> dict:
+        return {"type": "image", "min_range": self.min_range,
+                "max_range": self.max_range, "max_pixel": self.max_pixel}
+
+
+def normalizer_from_json(d: dict) -> Normalizer:
+    """A normalizer from its ``to_json`` dict (either package's)."""
+    t = d["type"]
+    if t == "standardize":
+        n = NormalizerStandardize()
+        n.mean = np.asarray(d["mean"])
+        n.std = np.asarray(d["std"])
+        return n
+    if t == "minmax":
+        n = NormalizerMinMaxScaler(d["min_range"], d["max_range"])
+        n.data_min = np.asarray(d["data_min"])
+        n.data_max = np.asarray(d["data_max"])
+        return n
+    if t == "image":
+        return ImagePreProcessingScaler(d["min_range"], d["max_range"],
+                                        d["max_pixel"])
+    raise ValueError(f"unknown normalizer type {t!r}")
 
 
 def _collect_features(data) -> np.ndarray:

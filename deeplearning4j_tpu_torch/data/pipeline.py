@@ -16,7 +16,10 @@ for both networks; the graph's batches may be ``MultiDataSet``s,
 - **the staged feed** (:func:`device_feed`): ``place`` (the network's move
   to its device: pinned host memory and ``non_blocking`` copies on the card)
   runs ``depth`` batches ahead of the step that consumes them, so the copy
-  of batch n+1 is queued before step n.
+  of batch n+1 is queued before step n. With ``host_prefetch=N`` the batch
+  assembly (the source's reads, padding, binding) runs on a worker thread
+  through an N-deep queue (``common/background.staged_iter``); ``place``
+  stays on the consumer's thread, as in the JAX package.
 - **multi-step dispatch** (:func:`chunked`): K batches per dispatch; the
   network runs them back to back and tells its listeners once per step
   afterwards (:func:`note_steps`), as the JAX package's ``lax.scan`` chunk
@@ -30,13 +33,12 @@ for both networks; the graph's batches may be ``MultiDataSet``s,
   that a checkpoint records.
 
 Counters (``common/profiler.OpProfiler``): ``pipeline/padded_batches``,
-``pipeline/dropped_batches``. Not ported: the host prefetch thread
-(``host_prefetch``), fault injection and the flight recorder.
+``pipeline/dropped_batches``. Not ported: fault injection and the flight
+recorder.
 """
 
 from __future__ import annotations
 
-from collections import deque
 from typing import Any, Iterable, Iterator, List, Optional, Tuple
 
 import logging
@@ -44,6 +46,7 @@ import logging
 import numpy as np
 import torch
 
+from ..common.background import staged_iter
 from ..common.profiler import OpProfiler
 from .dataset import DataSet, MultiDataSet
 
@@ -158,17 +161,13 @@ def stable_batches(data: Any, batch_size: Optional[int] = None,
             yield padded, w, n
 
 
-def device_feed(batches: Iterable, place, depth: int = 2) -> Iterator:
+def device_feed(batches: Iterable, place, depth: int = 2,
+                host_prefetch: int = 0) -> Iterator:
     """``place(batch)`` issued ``depth`` batches ahead of the consumer
-    (``depth=0``: placed as consumed)."""
-    src = iter(batches)
-    staged: deque = deque()
-    for b in src:
-        staged.append(place(b))
-        if len(staged) > depth:
-            yield staged.popleft()
-    while staged:
-        yield staged.popleft()
+    (``depth=0``: placed as consumed); ``host_prefetch > 0`` draws
+    ``batches`` on a worker thread through a queue of that size."""
+    return staged_iter(batches, stage=place, depth=depth,
+                       host_prefetch=host_prefetch)
 
 
 def chunked(it: Iterable, k: int) -> Iterator[List]:
@@ -189,12 +188,14 @@ def run_epochs(data: Any, epochs: int, batch_size: Optional[int],
                pad_partial: bool, drop_remainder: bool, prefetch: int,
                steps_per_dispatch: int, bind, place, dispatch,
                on_epoch, allow_multi: bool = False,
-               skip: Optional[Tuple[int, int]] = None) -> None:
+               skip: Optional[Tuple[int, int]] = None,
+               host_prefetch: int = 0) -> None:
     """The loop skeleton: per epoch, stable batches are bound
     (``bind(ds, w)``), placed ``prefetch`` ahead, and dispatched
     (``dispatch(group)``) in groups of ``steps_per_dispatch`` (the short
     tail group one by one, as the JAX package runs it); ``on_epoch()``
-    after each epoch. ``skip=(epochs_done, steps_in_epoch)`` replays the
+    after each epoch; ``host_prefetch``: see :func:`device_feed`.
+    ``skip=(epochs_done, steps_in_epoch)`` replays the
     host side up to a checkpoint's cursor (see the module docstring):
     completed epochs are drawn and dropped without ``on_epoch`` (its
     effects are in the restored state), then the resume epoch's first
@@ -217,14 +218,16 @@ def run_epochs(data: Any, epochs: int, batch_size: Optional[int],
                     "source produced %d batches; did the data change since "
                     "the checkpoint?", skip_steps, skipped)
         feed = device_feed((bind(ds, w) for ds, w, _n in gen), place,
-                           depth=max(0, int(prefetch)))
+                           depth=max(0, int(prefetch)),
+                           host_prefetch=max(0, int(host_prefetch)))
         for group in chunked(feed, k):
             for g in ([group] if len(group) == k else [[b] for b in group]):
                 dispatch(g)
         on_epoch()
 
 
-def note_steps(holder: Any, listeners: Iterable, losses) -> None:
+def note_steps(holder: Any, listeners: Iterable, losses,
+               auxes: Optional[List] = None) -> None:
     """After a dispatch of ``len(losses)`` steps: per step, advance the
     holder's iteration counter and its resume cursor (``_steps_in_epoch``,
     reset by the fit loops at each epoch's end), say whether its parameters
@@ -232,12 +235,18 @@ def note_steps(holder: Any, listeners: Iterable, losses) -> None:
     dispatch only the last step's are, so a checkpoint waits for it),
     publish the step's loss (a device scalar: listeners convert it, and so
     wait for the card, only when they need the number) and tell every
-    listener."""
+    listener; ``auxes`` (aligned with ``losses``) are the steps' telemetry
+    trees, handed unread to the listeners' ``telemetry_done``."""
     last = len(losses) - 1
     for i, loss in enumerate(losses):
         holder._iteration += 1
         holder._steps_in_epoch = getattr(holder, "_steps_in_epoch", 0) + 1
         holder._at_dispatch_boundary = i == last
         holder._score = loss
+        aux = auxes[i] if auxes is not None else None
         for lst in listeners:
             lst.iteration_done(holder, holder._iteration, loss)
+            if aux is not None:
+                cb = getattr(lst, "telemetry_done", None)
+                if cb is not None:
+                    cb(holder, holder._iteration, aux)

@@ -1,1 +1,2 @@
-from .evaluation import Evaluation, RegressionEvaluation
+from .evaluation import (Evaluation, EvaluationBinary, EvaluationCalibration,
+                         ROC, ROCBinary, ROCMultiClass, RegressionEvaluation)

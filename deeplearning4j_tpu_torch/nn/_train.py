@@ -23,7 +23,14 @@ step reads and replaces, and the invariants that tie that state together:
   (:meth:`~TrainableNetwork._fit_serial`) or the input pipeline
   (``data/pipeline.run_epochs``), with the listeners told of every step
   and epoch. Each network binds a batch (``_bind_batch``), places it
-  (``_place_batch``) and steps on it (``_step``).
+  (``_place_batch``) and steps on it (``_step_core``);
+- :meth:`~TrainableNetwork._step`: the step with the in-step telemetry
+  when a listener asks for it (``optimize/telemetry.py``): the pre-step
+  parameters (and, under the NaN guard, the updater state and the layer
+  states) copied in one launch per bucket or dtype, the aux computed after
+  the update, and under the guard the pre-step values written back with
+  ``torch.where`` on a device boolean: no host synchronisation (the JAX
+  step's ``layer_stats`` and ``apply_nan_guard``, ``multilayer.py:386-484``).
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from ..common.tree import get_path, leaf_paths, set_path, skeleton, tree_map
 from ..data import pipeline as _pipe
 from ..learning.precision import (apply_updater, cast_floating,
                                   note_state_bytes)
+from ..optimize import telemetry as _tel
 from ._fused import FlatStore, apply_fused_flat, fused_flat_plan
 from .gradnorm import normalize_gradients_
 
@@ -86,6 +94,11 @@ class TrainableNetwork:
         self._listeners: List[Any] = []
         self._last_batch_size: Optional[int] = None
         self._steps_in_epoch = 0
+        # the in-step telemetry the listeners ask for (None: off), the last
+        # step's aux and the gradients its update took
+        self._telemetry: Optional[_tel.TelemetryConfig] = None
+        self._aux: Optional[dict] = None
+        self._step_grads = None
 
     #: whether fit takes MultiDataSets (the graph's)
     _allow_multi = False
@@ -103,17 +116,15 @@ class TrainableNetwork:
     def set_listeners(self, *listeners) -> None:
         """The listeners every step and epoch is told of; a checkpoint
         listener gets the whole list (``bind_group``) to save its peers'
-        state for an exact resume."""
-        for lst in listeners:
-            if hasattr(lst, "telemetry_done"):
-                raise NotImplementedError(
-                    f"{type(lst).__name__}: the telemetry listeners (in-step "
-                    f"telemetry aux and the NaN guard) are not ported yet")
+        state for an exact resume. A telemetry listener (``TelemetrySink``,
+        ``NanSentinelListener``) turns the step's aux on, and the NaN guard
+        with the skip policy; the next step is the first with them."""
         self._listeners = list(listeners)
         for lst in self._listeners:
             bind = getattr(lst, "bind_group", None)
             if callable(bind):
                 bind(self._listeners)
+        self._telemetry = _tel.config_for(self._listeners)
 
     setListeners = set_listeners
 
@@ -187,9 +198,6 @@ class TrainableNetwork:
                  steps_per_dispatch: int, host_prefetch: int,
                  resume_from: Optional[str], serial: bool) -> None:
         self._check_init()
-        if host_prefetch:
-            raise NotImplementedError("fit(host_prefetch=...) is not ported "
-                                      "yet (ROADMAP A6)")
         skip = self._begin_fit(resume_from)
         if self._updater_state is None:
             self._updater_state = self.conf.global_conf.updater.init(
@@ -201,9 +209,12 @@ class TrainableNetwork:
             return
 
         def dispatch(group):
-            losses = [self._step(store, b, self._iteration + j)
-                      for j, b in enumerate(group)]
-            _pipe.note_steps(self, self._listeners, losses)
+            losses, auxes = [], []
+            for j, b in enumerate(group):
+                losses.append(self._step(store, b, self._iteration + j))
+                auxes.append(self._aux)
+            _pipe.note_steps(self, self._listeners, losses,
+                             auxes if self._telemetry else None)
 
         _pipe.run_epochs(
             data, epochs, batch_size, pad_partial=pad_partial,
@@ -211,7 +222,7 @@ class TrainableNetwork:
             steps_per_dispatch=steps_per_dispatch, bind=self._bind_batch,
             place=self._place_batch, dispatch=dispatch,
             on_epoch=self._on_epoch, allow_multi=self._allow_multi,
-            skip=skip)
+            skip=skip, host_prefetch=host_prefetch)
 
     def _fit_serial(self, data, epochs: int, store, skip,
                     batch_size: Optional[int] = None) -> None:
@@ -233,13 +244,65 @@ class TrainableNetwork:
                     continue
                 batch = self._place_batch(self._bind_batch(ds, None))
                 loss = self._serial_step(store, batch)
-                _pipe.note_steps(self, self._listeners, [loss])
+                _pipe.note_steps(self, self._listeners, [loss],
+                                 [self._aux] if self._telemetry else None)
             self._on_epoch()
 
     def _serial_step(self, store, batch) -> torch.Tensor:
         """The serial loop's step on a placed batch (a network may run it as
-        several, as truncated BPTT does)."""
+        several, as truncated BPTT does; its aux is then the batch's)."""
         return self._step(store, batch, self._iteration)
+
+    def _step(self, store: Optional[FlatStore], batch, iteration: int,
+              *extra) -> torch.Tensor:
+        """One step on a placed batch (``_step_core``; ``extra``: the
+        network's own step arguments, a truncated-BPTT segment's carries),
+        with the telemetry the listeners asked for: the aux in
+        ``self._aux`` (None when off) and, under the NaN guard, a poisoned
+        step's parameters, updater state and layer states put back to their
+        pre-step values on the card. Returns the loss."""
+        tele = self._telemetry
+        if tele is None:
+            self._aux = None
+            return self._step_core(store, batch, iteration, *extra)
+        guard = tele.nan_guard
+        with torch.no_grad():
+            if store is not None:
+                old_flat = {k: v.clone() for k, v in store.params.items()}
+                old_params = store.plan.unflatten(old_flat)
+                old_upd = ({s: {k: v.clone() for k, v in d.items()}
+                            for s, d in store.state.items()}
+                           if guard else None)
+            else:
+                old_params = _tel.clone_tree(self._params)
+                old_upd = self._updater_state
+            old_states = _tel.clone_tree(self._states) if guard else None
+        loss = self._step_core(store, batch, iteration, *extra)
+        with torch.no_grad():
+            aux = _tel.layer_stats(old_params, self._params,
+                                   self._step_grads, loss)
+            self._step_grads = None
+            if guard:
+                ok = aux["nonfinite_total"] == 0
+                aux["skipped"] = (~ok).to(torch.int32)
+                self._states = _tel.where_tree(ok, self._states, old_states)
+                if store is not None:
+                    for k, v in store.params.items():
+                        torch.where(ok, v, old_flat[k], out=v)
+                    for s, d in store.state.items():
+                        for k, v in d.items():
+                            torch.where(ok, v, old_upd[s][k], out=v)
+                else:
+                    paths = leaf_paths(self._params)
+                    kept = _tel.where_tree(ok, self._params, old_params)
+                    torch._foreach_copy_(
+                        [get_path(self._params, p) for p in paths],
+                        [get_path(kept, p) for p in paths])
+                    if self._updater_state:
+                        self._updater_state = _tel.where_tree(
+                            ok, self._updater_state, old_upd)
+        self._aux = aux
+        return loss
 
     def _frozen_paths(self) -> List[tuple]:
         """The leaf paths whose parameters a step leaves unchanged (a
@@ -321,13 +384,15 @@ class TrainableNetwork:
                 for p, t, g in zip(paths, leaves, flat_grads):
                     set_path(grads, p,
                              torch.zeros_like(t) if g is None else g)
+        tree = store.grad_views if store is not None else grads
         if gc.grad_normalization:
             # after the backward, before the update (the JAX networks'
             # order); on the fused path in place on the gradient bucket's
             # leaf views
-            tree = store.grad_views if store is not None else grads
             normalize_gradients_([get_path(tree, p) for p in paths],
                                  gc.grad_normalization, gc.grad_norm_threshold)
+        if self._telemetry is not None:
+            self._step_grads = tree     # what the update took, for the aux
         frozen = self._frozen_paths()
         with torch.no_grad():
             if store is not None:

@@ -35,8 +35,10 @@ batches whose padded rows carry example weight 0 in every output's loss,
 (``set_listeners``) hear of every step; ``CheckpointListener`` writes
 checkpoints that ``fit(resume_from=)`` continues bitwise
 (``util/checkpoint.py``), and ``save``/``load`` write and read the JAX
-package's model zip (``util/model_serializer.py``). ``host_prefetch``
-raises ``NotImplementedError`` (ROADMAP A6).
+package's model zip (``util/model_serializer.py``). ``host_prefetch=N``
+assembles the batches on a worker thread through an N-deep queue; the
+telemetry listeners (``TelemetrySink``, ``NanSentinelListener``) turn on
+the in-step aux and the NaN guard (``nn/_train.TrainableNetwork._step``).
 
 Rematerialization: in training each layer node's forward runs under the
 configured policy (``GlobalConf.remat_policy`` or the legacy
@@ -739,8 +741,8 @@ class ComputationGraph(TrainableNetwork):
                                  False)[0])
 
     # --- training ----------------------------------------------------------
-    def _step(self, store: Optional[FlatStore], batch,
-              iteration: int) -> torch.Tensor:
+    def _step_core(self, store: Optional[FlatStore], batch,
+                   iteration: int) -> torch.Tensor:
         """One training step on a placed batch ``(inputs, labels, masks,
         w)``: forward, loss, backward, update (through ``store`` on the
         fused path). Returns the loss (detached)."""

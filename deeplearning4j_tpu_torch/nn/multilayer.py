@@ -77,11 +77,16 @@ forward, and each truncated-BPTT segment's recurrent layer, runs under
 inference-mode output of the layers below it, with a fresh per-leaf
 updater.
 
+**Telemetry** (``set_listeners`` with ``TelemetrySink`` or
+``NanSentinelListener``, ``optimize/telemetry.py``): every step, on every
+loop (serial, pipeline, ``steps_per_dispatch``, truncated BPTT), computes
+the per-layer aux on the card, and the NaN guard keeps a poisoned step's
+pre-step values (``nn/_train.TrainableNetwork._step``). ``fit(host_prefetch=
+N)`` assembles the batches on a worker thread through an N-deep queue.
+
 ``init`` places the parameters on the card unless the caller asks for
-another device (``device="cpu"``); so does ``load``. Not ported yet, each
-raising ``NotImplementedError``: the telemetry listeners and the NaN guard,
-and ``fit(host_prefetch=)``. The fleet's per-call ``hyper`` overrides have
-no entry here.
+another device (``device="cpu"``); so does ``load``. The fleet's per-call
+``hyper`` overrides have no entry here.
 """
 
 from __future__ import annotations
@@ -98,6 +103,7 @@ from ..common.tree import leaf_paths, tree_map
 from ..data import pipeline as _pipe
 from ..data.dataset import DataSet
 from ..learning.precision import apply_updater, cast_floating
+from ..optimize import telemetry as _tel
 from ._fused import FlatStore
 from ._train import TrainableNetwork
 from .conf import layers as L
@@ -422,8 +428,8 @@ class MultiLayerNetwork(TrainableNetwork):
                     w = c.apply(w)
                 t.copy_(w)
 
-    def _step(self, store: Optional[FlatStore], batch, iteration: int,
-              rnn=None) -> torch.Tensor:
+    def _step_core(self, store: Optional[FlatStore], batch, iteration: int,
+                   rnn=None) -> torch.Tensor:
         """One training step on a placed batch ``(x, y, mask, fmask, w)``:
         forward, loss, backward, gradient normalization, update (through
         ``store`` on the fused path), constraints. Returns the loss, a
@@ -448,7 +454,10 @@ class MultiLayerNetwork(TrainableNetwork):
         of ``tbptt_fwd_length`` steps, one :meth:`_step` each at the
         batch's iteration (Adam's bias correction sees the batch, not the
         segment); the carries start at zero and are detached at each
-        boundary. Returns the last segment's loss."""
+        boundary. Returns the last segment's loss. With telemetry the
+        batch's aux has the last segment's norms and every segment's
+        non-finite counts and skips; under the NaN guard a skipped segment
+        also keeps its incoming carries (``multilayer.py:825-866``)."""
         x, y, mask, fmask, w = batch
         gc = self.conf.global_conf
         dtype = torch_dtype(gc.compute_dtype or gc.dtype)
@@ -456,9 +465,10 @@ class MultiLayerNetwork(TrainableNetwork):
                for key, layer in zip(self._keys, self.layers)
                if layer.is_rnn()}
         k = self.conf.tbptt_fwd_length
-        loss = None
+        loss, aux = None, None
         for s0 in range(0, x.shape[1], k):
             seg = slice(s0, s0 + k)
+            before = dict(rnn)
             loss = self._step(store, (
                 x[:, seg], y[:, seg] if y.ndim == 3 else y,
                 mask[:, seg] if mask is not None and mask.ndim >= 2
@@ -466,6 +476,13 @@ class MultiLayerNetwork(TrainableNetwork):
                 fmask[:, seg] if fmask is not None else None, w),
                 self._iteration, rnn)
             rnn = {key: _detach(c) for key, c in rnn.items()}
+            if self._aux is not None:
+                if "skipped" in self._aux:
+                    ok = self._aux["skipped"] == 0
+                    rnn = {key: _keep_carry(ok, c, before[key])
+                           for key, c in rnn.items()}
+                aux = _tel.merge_segment_aux(aux, self._aux)
+        self._aux = aux
         return loss
 
     def _frozen_paths(self):
@@ -642,6 +659,13 @@ def _detach(carry):
     if isinstance(carry, tuple):
         return tuple(c.detach() for c in carry)
     return carry.detach()
+
+
+def _keep_carry(ok, new, old):
+    """A recurrent carry where ``ok`` (a device boolean), else ``old``."""
+    if isinstance(new, tuple):
+        return tuple(torch.where(ok, n, o) for n, o in zip(new, old))
+    return torch.where(ok, new, old)
 
 
 def _fold_weights(mask, w):

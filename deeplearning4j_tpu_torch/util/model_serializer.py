@@ -15,10 +15,9 @@ holds:
   ``"<i>::bfloat16"``, as the JAX package writes it (numpy has no
   bfloat16, and the port does not depend on ``ml_dtypes``), and is read back
   through ``torch.int16`` to ``torch.bfloat16``: bit for bit;
-- ``meta.json``: iteration, epoch, the network's class, ``format_version``.
-
-The JAX package's ``normalizer.json`` entry waits for the normalizers'
-JSON (ROADMAP A6).
+- ``meta.json``: iteration, epoch, the network's class, ``format_version``;
+- ``normalizer.json`` (``write_model(normalizer=)``): the data
+  normalizer's ``to_json()``, read back by :func:`restore_normalizer`.
 
 So the JAX package reads the port's files and the other way round, every
 array bitwise. On disk the updater state is always the dense tree that
@@ -59,6 +58,7 @@ COEFF_ENTRY = "coefficients.npz"
 STATES_ENTRY = "states.npz"
 UPDATER_ENTRY = "updaterState.npz"
 META_ENTRY = "meta.json"
+NORMALIZER_ENTRY = "normalizer.json"
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
@@ -130,10 +130,12 @@ def dense_updater_state(model):
     return unflatten_updater_state(model._updater_state, model._params)
 
 
-def write_model(model, path: str, save_updater: bool = False) -> None:
-    """The shared writer of both networks. The zip is staged to
-    ``<path>.tmp`` and renamed into place, so a crash mid-save never leaves
-    a torn file at the target name."""
+def write_model(model, path: str, save_updater: bool = False,
+                normalizer=None) -> None:
+    """The shared writer of both networks (with ``normalizer``: its JSON as
+    ``normalizer.json``). The zip is staged to ``<path>.tmp`` and renamed
+    into place, so a crash mid-save never leaves a torn file at the target
+    name."""
     tmp = path + ".tmp"
     try:
         with zipfile.ZipFile(tmp, "w", zipfile.ZIP_DEFLATED) as zf:
@@ -147,6 +149,9 @@ def write_model(model, path: str, save_updater: bool = False) -> None:
             if save_updater and model._updater_state is not None:
                 zf.writestr(UPDATER_ENTRY, savez_leaves(
                     tree_leaves(dense_updater_state(model))))
+            if normalizer is not None:
+                zf.writestr(NORMALIZER_ENTRY,
+                            json.dumps(normalizer.to_json()))
         os.replace(tmp, path)
     except BaseException:
         try:
@@ -253,3 +258,13 @@ def restore_model(path: str, load_updater: bool = False, device=None):
     if meta.get("kind") == "ComputationGraph":
         return restore_computation_graph(path, load_updater, device)
     return restore_multi_layer_network(path, load_updater, device)
+
+
+def restore_normalizer(path: str):
+    """The normalizer a model zip holds (either package's), or None."""
+    from ..data.normalizers import normalizer_from_json
+
+    with zipfile.ZipFile(path) as zf:
+        if NORMALIZER_ENTRY not in zf.namelist():
+            return None
+        return normalizer_from_json(json.loads(zf.read(NORMALIZER_ENTRY)))

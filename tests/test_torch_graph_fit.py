@@ -232,5 +232,9 @@ def test_evaluate_score_gradients_and_summary_match_jax():
     _close_trees(tgrads, jgrads)
     assert tg.num_params() == jg.num_params() == 5 * 16 + 16 + 16 * 3 + 3
     assert tg.summary() == jg.summary()
-    with pytest.raises(NotImplementedError, match="A6"):
-        tg.fit(DataSet(x, y), host_prefetch=2)
+    # fit(host_prefetch=) is ported: the batches assembled on a worker
+    # thread give bitwise the steps of the serial feed
+    a, b = twins(dense_conf)[1], twins(dense_conf)[1]
+    a.fit(NDArrayDataSetIterator(x, y, 5), host_prefetch=2)
+    b.fit(NDArrayDataSetIterator(x, y, 5))
+    assert torch.equal(a.params(), b.params())

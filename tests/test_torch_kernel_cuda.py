@@ -687,3 +687,98 @@ def test_output_after_a_fused_fit_reads_the_new_parameters():
     fresh = net.output(x).float()
     assert not torch.equal(after, before)
     assert torch.equal(after, fresh)
+
+
+@pytest.mark.cuda
+def test_async_device_prefetch_stages_on_the_card():
+    """AsyncDataSetIterator stages raw uint8 batches on the card (pinned
+    memory, a copy stream, an event) and divides by 255 there: bitwise
+    numpy's ``x.astype(float32) / 255`` with a 0-d card tensor divisor."""
+    from deeplearning4j_tpu_torch.data import (AsyncDataSetIterator,
+                                               DataSetIterator)
+
+    dev = _card()
+    rng = np.random.default_rng(11)
+    raw = [(rng.integers(0, 255, (8, 3, 16, 16), dtype=np.uint8),
+            np.eye(4, dtype=np.float32)[rng.integers(0, 4, 8)])
+           for _ in range(6)]
+
+    class Raw(DataSetIterator):
+        def __iter__(self):
+            yield from raw
+
+    d255 = torch.full((), 255.0, device=dev)
+    it = AsyncDataSetIterator(Raw(), queue_size=3,
+                              feature_transform=lambda x: x.float().div_(
+                                  d255))
+    got = list(it)
+    torch.cuda.synchronize()
+    assert len(got) == 6
+    for g, (x, y) in zip(got, raw):
+        assert g.features.device.type == "cuda"
+        assert torch.equal(g.features.cpu(),
+                           torch.from_numpy(x.astype(np.float32) / 255))
+        assert torch.equal(g.labels.cpu(), torch.from_numpy(y))
+
+
+@pytest.mark.cuda
+def test_guarded_steps_do_not_synchronise():
+    """Fused steps with the telemetry aux and the NaN guard run under
+    ``set_sync_debug_mode("error")`` (the readback waits for the epoch's
+    end); the poisoned step keeps the pre-step parameters bitwise. (The
+    per-leaf updater copies its scalars to the card every step,
+    ``learning/updaters.f32_scalars``, which synchronises with or without
+    telemetry.)"""
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.builder import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.optimize import (NanSentinelListener,
+                                                   TelemetrySink)
+    from deeplearning4j_tpu_torch.ui import InMemoryStatsStorage
+
+    dev = _card()
+    b = NeuralNetConfiguration.builder().seed(3).updater(
+        updaters.Nesterovs(learning_rate=0.05, momentum=0.9)).fused_update()
+    net = MultiLayerNetwork(
+        b.list().layer(L.DenseLayer(n_out=16, activation="tanh"))
+        .layer(L.BatchNormalization())
+        .layer(L.OutputLayer(n_out=3, loss="mcxent", activation="softmax"))
+        .set_input_type(InputType.feed_forward(5)).build()).init(device=dev)
+    rng = np.random.default_rng(2)
+    batches = [DataSet(torch.from_numpy(rng.normal(size=(8, 5)).astype(
+        np.float32)).to(dev), torch.from_numpy(np.eye(3, dtype=np.float32)[
+            rng.integers(0, 3, 8)]).to(dev)) for _ in range(4)]
+    batches[2].features[1, 1] = float("nan")
+
+    class Lift:
+        def iteration_done(self, model, iteration, score):
+            pass
+
+        def epoch_done(self, model, epoch):
+            torch.cuda.set_sync_debug_mode(0)
+
+    class Snap:
+        def __init__(self):
+            self.seen = []
+
+        def iteration_done(self, model, iteration, score):
+            self.seen.append(model.params().detach().clone())
+
+    sent = NanSentinelListener("skip", check_every_n=100)
+    snap = Snap()
+    net.set_listeners(Lift(), snap, sent,
+                      TelemetrySink(InMemoryStatsStorage(), 100))
+    net.fit(batches[0])                  # builds the index caches
+    snap.seen.clear()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        net.fit(ExistingDataSetIterator(batches))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(snap.seen[1], snap.seen[2])
+    assert not torch.equal(snap.seen[2], snap.seen[3])
+    assert [e["iteration"] for e in sent.events] == [net._iteration - 1]
