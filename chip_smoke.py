@@ -477,6 +477,37 @@ Phases (each fails the run with a nonzero exit if it fails):
                [4, 12, 512, 64] (1 launch, 2e-5 of its plain version); the
                embedding_bag op at [8192, 10] x [10000, 100] (1 launch,
                bitwise its plain version).
+37. keras-resnet50 -- keras.applications.ResNet50(weights=None) as Keras 3
+               writes it to a legacy .h5 (177 layers, 25,636,712 values,
+               about 103 MB; ``import_fixtures.py``'s HDF5 writer, seeded
+               weights), imported with KerasModelImport through the port's
+               HDF5 reader onto the card (the first and a second import
+               timed), served at batch 32 with the fused epilogue (20 timed
+               batches after 3: images/s, p50/p99; bn_act launches per
+               forward gated at one per BatchNormalization, 53, and those
+               that add the residual at 16, the block tails), the card
+               against the port on the CPU at batch 2 (1e-4 of the largest
+               output),
+               fused against unfused on the card (1e-4), then Nesterovs
+               (1e-3, 0.9) with fused_update on the imported graph: 5 steps
+               at batch 32, one fused_update launch each (step median, peak
+               memory, finite losses).
+38. keras-lstm -- keras-io's character LSTM (Input((40, V)), LSTM(128),
+               softmax Dense(V); V the characters of phase 25's corpus) as
+               a Keras 3 .keras zip into a MultiLayerNetwork on the card:
+               the forward against the CPU at batch 128 (1e-4), 5 steps of
+               Adam(2e-3) with fused_update, one launch each.
+39. samediff-control-random -- a SameDiff graph with a cond and a
+               while_loop(max_iters=8), trained 5 steps on the card and on
+               the CPU in float64 (losses and variables within 1e-9
+               relative); an unbounded while_loop forward; each of the 13
+               random ops through SameDiff on the card from a seeded device
+               generator, 2^20 draws each: shape, dtype, device, mean and
+               variance within 6 standard errors of the distribution's
+               (the truncated normal's variance at two standard deviations
+               about 0.7737), multinomial rows against their logits,
+               dropout_bp's zeros at its rate; an NDArray view write on the
+               card reaches its base.
 
 Then it prints the kernels line (one JSON object) and, last, the device line
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
@@ -7646,6 +7677,457 @@ def phase_samediff_kernels(smi: str, dev):
     return res
 
 
+# --- phases 37-39: Keras import, SameDiff control flow and random ops --------------------
+
+KERAS_BATCH = 32
+KERAS_WARMUP, KERAS_TIMED = 3, 20
+KERAS_FIT_STEPS = 5
+KERAS_RESNET50_VALUES = 25_636_712
+KERAS_LSTM_BATCH = 128
+RANDOM_DRAWS = 1 << 20
+CONTROL_STEPS = 5
+
+
+def _fit_net(net, ds, steps: int) -> dict:
+    """``steps`` fits of one batch, each ended by a synchronise."""
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        net.fit(ds)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(net.score_value))
+    check(all(np.isfinite(losses)), f"non-finite loss {losses}")
+    return {"losses": losses, "step_ms_median": statistics.median(ms),
+            "step_ms": ms, "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def phase_keras_resnet50(smi: str, dev):
+    """Phase 37: Keras ResNet-50 from a legacy .h5 through the port's HDF5
+    reader and KerasModelImport, served with bn_act and fine-tuned with
+    fused_update."""
+    import tempfile
+
+    import import_fixtures as fx
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.imports import KerasModelImport
+    from deeplearning4j_tpu_torch.learning.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.ops import epilogue
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    data = fx.keras_resnet50_h5(SEED)
+    write_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "resnet50.h5")
+        with open(path, "wb") as fh:
+            fh.write(data)
+        t0 = time.perf_counter()
+        net = KerasModelImport.import_keras_model_and_weights(path,
+                                                              device=dev)
+        torch.cuda.synchronize()
+        import_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = KerasModelImport.import_keras_model_and_weights(path,
+                                                                device=dev)
+        torch.cuda.synchronize()
+        import_again_s = time.perf_counter() - t0
+        del again
+        cpu = KerasModelImport.import_keras_model_and_weights(path,
+                                                              device="cpu")
+    values = net.num_params() + sum(int(t.numel()) for st in
+                                    net._states.values()
+                                    for t in st.values())
+    check(values == KERAS_RESNET50_VALUES,
+          f"{values} imported values, want {KERAS_RESNET50_VALUES}")
+    bns = [n for n in net.conf.order if net.conf.nodes[n].kind == "layer"
+           and isinstance(net.conf.nodes[n].layer, L.BatchNormalization)]
+    check(len(bns) == 53 and all(net.conf.nodes[n].layer.eps ==
+                                 fx.KERAS_BN_EPS for n in bns),
+          f"{len(bns)} BatchNormalization layers or an epsilon that is not "
+          f"Keras's {fx.KERAS_BN_EPS}")
+    set_fused_epilogue(net, True)
+    tails = len(net._epilogue_fusion_plan()["act"])
+    check(tails == 16, f"the fusion plan collapses {tails} block tails, "
+          f"want 16")
+    g = torch.Generator(device=dev).manual_seed(SEED + 37)
+    x = torch.randn(KERAS_BATCH, IMAGE, IMAGE, 3, device=dev, generator=g)
+    for _ in range(KERAS_WARMUP):
+        net.output(x)
+    torch.cuda.synchronize()
+    _reset_kernel_counts()
+    ms = []
+    for _ in range(KERAS_TIMED):
+        t0 = time.perf_counter()
+        probs = net.output(x)[0]
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = _kernel_counts()
+    per_forward = counts["bn_act"] / KERAS_TIMED
+    residual = epilogue.bn_act_residual_launches / KERAS_TIMED
+    check(per_forward == len(bns) and counts["fused_update"] == 0,
+          f"bn_act launched {counts['bn_act']} times in {KERAS_TIMED} "
+          f"forwards, want {len(bns)} each")
+    check(residual == tails, f"bn_act added a residual "
+          f"{epilogue.bn_act_residual_launches} times in {KERAS_TIMED} "
+          f"forwards, want {tails} each")
+    check(tuple(probs.shape) == (KERAS_BATCH, 1000)
+          and bool(torch.isfinite(probs).all()), "Keras ResNet-50 outputs")
+    serve = {"images_per_s": KERAS_BATCH * len(ms) / sum(ms) * 1e3,
+             "p50_ms": _percentile(ms, 0.5), "p99_ms": _percentile(ms, 0.99),
+             "bn_act_launches_per_forward": per_forward,
+             "residual_launches_per_forward": residual}
+    log(f"[keras-resnet50] Keras ResNet-50 legacy .h5 ({len(data)} bytes, "
+        f"{values} values, written in {write_s:.2f} s): imported through "
+        f"the port's HDF5 reader onto the card in {import_s:.2f} s (again "
+        f"in {import_again_s:.2f} s); serve float32 batch {KERAS_BATCH}, "
+        f"fused epilogue: {serve['images_per_s']:.1f} images/s, p50 "
+        f"{serve['p50_ms']:.2f} ms p99 {serve['p99_ms']:.2f} ms "
+        f"({KERAS_TIMED} batches after {KERAS_WARMUP}); bn_act "
+        f"{per_forward:.0f} launches per forward ({residual:.0f} of them "
+        f"block tails with the residual); {smi}")
+
+    n = ONNX_GATE_BATCH
+    gate = _logit_gate(net.output(x[:n])[0], cpu.output(x[:n].cpu())[0],
+                       "keras-resnet50")
+    del cpu
+    set_fused_epilogue(net, False)
+    dense = net.output(x)[0]
+    set_fused_epilogue(net, True)
+    fused_err = (probs - dense).abs().max().item()
+    check(fused_err <= ONNX_GATE * dense.abs().max().item(),
+          f"fused against unfused on the card: {fused_err}")
+    log(f"[keras-resnet50] the card against the port on the CPU, batch {n}, "
+        f"TF32 off: max |err| {gate['max_abs_err']:.3e} of largest output "
+        f"{gate['max_abs_logit']:.4f} ({gate['rel_err']:.2e}, gate "
+        f"{ONNX_GATE}); fused against unfused epilogue on the card, batch "
+        f"{KERAS_BATCH}: max |err| {fused_err:.3e}")
+
+    net.conf.global_conf.updater = Nesterovs(learning_rate=1e-3,
+                                             momentum=0.9)
+    net.conf.global_conf.fused_update = True
+    y = torch.nn.functional.one_hot(torch.randint(
+        0, 1000, (KERAS_BATCH,), device=dev, generator=g), 1000).float()
+    _reset_kernel_counts()
+    fit = _fit_net(net, DataSet(x, y), KERAS_FIT_STEPS)
+    fcounts = _kernel_counts()
+    check(fcounts["fused_update"] == KERAS_FIT_STEPS,
+          f"fused_update launched {fcounts['fused_update']} times in "
+          f"{KERAS_FIT_STEPS} steps")
+    log(f"[keras-resnet50] fine-tune ComputationGraph.fit, Nesterovs(1e-3, "
+        f"0.9), fused_update, batch {KERAS_BATCH}, {net.num_params()} "
+        f"trainable: step median {fit['step_ms_median']:.2f} ms over "
+        f"{KERAS_FIT_STEPS} steps, peak device memory {fit['peak_bytes']} "
+        f"B; losses {fit['losses']}; kernel launches {fcounts}; {smi}")
+    seconds = time.perf_counter() - t_phase
+    del net
+    torch.cuda.empty_cache()
+    return {"bytes": len(data), "values": values, "write_s": write_s,
+            "import_s": import_s, "import_again_s": import_again_s,
+            "serve": serve, "gate": gate, "fused_max_abs_err": fused_err,
+            "fit": {k: v for k, v in fit.items() if k != "step_ms"},
+            "bn_act_launches": counts["bn_act"],
+            "fused_update_launches": fcounts["fused_update"],
+            "seconds": seconds}
+
+
+def phase_keras_lstm(smi: str, dev) -> dict:
+    """Phase 38: keras-io's character LSTM as a .keras zip, imported into a
+    MultiLayerNetwork on the card and trained with fused_update."""
+    import tempfile
+
+    import import_fixtures as fx
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.imports import KerasModelImport
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+
+    t_phase = time.perf_counter()
+    idx, chars = text_corpus()
+    vocab, maxlen = len(chars), fx.CHAR_LSTM["maxlen"]
+    data = fx.keras_char_lstm(vocab, SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "char_lstm.keras")
+        with open(path, "wb") as fh:
+            fh.write(data)
+        t0 = time.perf_counter()
+        net = KerasModelImport.import_keras_sequential_model_and_weights(
+            path, device=dev)
+        torch.cuda.synchronize()
+        import_s = time.perf_counter() - t0
+        cpu = KerasModelImport.import_keras_sequential_model_and_weights(
+            path, device="cpu")
+    check(type(net.layers[0]).__name__ == "LastTimeStep",
+          f"LSTM(128) imported as {type(net.layers[0]).__name__}")
+    rng = np.random.default_rng(SEED + 38)
+    starts = rng.integers(0, len(idx) - maxlen - 1, KERAS_LSTM_BATCH)
+    win = np.stack([idx[s:s + maxlen + 1] for s in starts])
+    eye = np.eye(vocab, dtype=np.float32)
+    x = torch.from_numpy(eye[win[:, :maxlen]]).to(dev)
+    y = torch.from_numpy(eye[win[:, maxlen]]).to(dev)
+    gate = _logit_gate(net.output(x), cpu.output(x.cpu()), "keras-lstm")
+    del cpu
+    net.conf.global_conf.updater = Adam(learning_rate=2e-3)
+    net.conf.global_conf.fused_update = True
+    ds = DataSet(x, y)
+    before = net.score(ds)
+    _reset_kernel_counts()
+    fit = _fit_net(net, ds, KERAS_FIT_STEPS)
+    counts = _kernel_counts()
+    check(counts["fused_update"] == KERAS_FIT_STEPS,
+          f"fused_update launched {counts['fused_update']} times in "
+          f"{KERAS_FIT_STEPS} steps")
+    after = net.score(ds)
+    check(after < before, f"the LSTM's loss did not fall: {before} -> "
+          f"{after}")
+    log(f"[keras-lstm] keras-io's character LSTM (.keras zip, {len(data)} "
+        f"bytes; V {vocab}, {net.num_params()} parameters) imported onto "
+        f"the card in {import_s:.2f} s; the card against the CPU, batch "
+        f"{KERAS_LSTM_BATCH}: max |err| {gate['max_abs_err']:.3e} of "
+        f"largest output {gate['max_abs_logit']:.4f}; Adam(2e-3) "
+        f"fused_update: step median {fit['step_ms_median']:.2f} ms over "
+        f"{KERAS_FIT_STEPS} steps, loss {before:.5f} -> {after:.5f}, "
+        f"peak device memory {fit['peak_bytes']} B; kernel launches "
+        f"{counts}; {smi}")
+    seconds = time.perf_counter() - t_phase
+    del net
+    torch.cuda.empty_cache()
+    return {"vocab": vocab, "bytes": len(data), "import_s": import_s,
+            "gate": gate, "loss": [before, after],
+            "fit": {k: v for k, v in fit.items() if k != "step_ms"},
+            "fused_update_launches": counts["fused_update"],
+            "seconds": seconds}
+
+
+def control_graph(device, dtype: str = "float64"):
+    """A SameDiff graph with a cond and a bounded while_loop: h = x @ w;
+    cond(sum(h) > 0, tanh(h), 0.5 * relu(h)); then v <- tanh(v @ u) + 0.5 v
+    while c < 5, bounded at 8 iterations; the head's squared error.
+    Variables seeded from numpy, Adam(1e-2)."""
+    from deeplearning4j_tpu_torch.autodiff.samediff import (SameDiff,
+                                                            TrainingConfig)
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+
+    rng = np.random.RandomState(SEED)
+    sd = SameDiff(device=device)
+    x = sd.placeholder("x", dtype=dtype)
+    y = sd.placeholder("y", dtype=dtype)
+    w = sd.var("w", init=rng.normal(0, 0.3, (16, 32)).astype(dtype))
+    u = sd.var("u", init=rng.normal(0, 0.2, (32, 32)).astype(dtype))
+    head = sd.var("head", init=rng.normal(0, 0.2, (32, 4)).astype(dtype))
+    h = x.mmul(w)
+    a = sd.cond(sd.math.greater(h.sum(), 0.0),
+                lambda s, v: s.math.tanh(v),
+                lambda s, v: s.math.multiply(s.math.relu(v), 0.5), h)
+    zero = sd.constant("zero", np.zeros((), dtype))
+    v_fin, _, _ = sd.while_loop(
+        lambda s, v, c, uu: s.math.less(c, 5.0),
+        lambda s, v, c, uu: (s.math.add(s.math.tanh(v.mmul(uu)),
+                                        s.math.multiply(v, 0.5)),
+                             s.math.add(c, 1.0), s.math.identity(uu)),
+        a, zero, u, max_iters=8)
+    sd.math.square(v_fin.mmul(head) - y).mean().rename("loss")
+    sd.set_loss_variables("loss")
+    sd.set_training_config(TrainingConfig(updater=Adam(1e-2),
+                                          loss_name="loss"))
+    return sd
+
+
+def _moments(name: str):
+    """(mean, variance, fourth central moment) of each random case."""
+    from math import erf, exp, pi, sqrt
+
+    def raw4(m1, m2, m3, m4):
+        return m4 - 4 * m3 * m1 + 6 * m2 * m1 ** 2 - 3 * m1 ** 4
+
+    if name == "random_uniform":            # U(-1, 2)
+        return 0.5, 9 / 12, 81 / 80
+    if name == "random_normal":             # N(1, 2^2)
+        return 1.0, 4.0, 48.0
+    if name == "random_truncated_normal":   # N(0, 1) cut at +-2, then x3
+        phi, z = exp(-2.0) / sqrt(2 * pi), erf(2 / sqrt(2))
+        v = 1 - 4 * phi / z
+        m4 = 3 - 2 * phi * (8 + 6) / z
+        return 0.0, 9 * v, 81 * m4
+    if name == "random_lognormal":          # exp(N(0, 0.5^2))
+        m = [exp(k * k * 0.25 / 2) for k in range(1, 5)]
+        return m[0], m[1] - m[0] ** 2, raw4(*m)
+    if name == "random_bernoulli":          # p 0.3
+        p = 0.3
+        return p, p * (1 - p), p * (1 - p) * (1 - 3 * p + 3 * p * p)
+    if name == "random_binomial":           # 5 trials, p 0.3
+        n, p = 5, 0.3
+        v = n * p * (1 - p)
+        return n * p, v, v * (1 + 3 * (n - 2) * p * (1 - p))
+    if name == "random_exponential":        # lam 2
+        return 0.5, 0.25, 9 / 16
+    if name == "random_gamma":              # alpha 2.5, rate 2
+        a, b = 2.5, 2.0
+        v = a / b ** 2
+        return a / b, v, (3 + 6 / a) * v * v
+    if name == "random_poisson":            # lam 3
+        return 3.0, 3.0, 3.0 * (1 + 3 * 3.0)
+    raise KeyError(name)
+
+
+def _six_se(x: torch.Tensor, name: str) -> dict:
+    m, v, mu4 = _moments(name)
+    n = x.numel()
+    xd = x.to(torch.float64)
+    mean, var = xd.mean().item(), xd.var(correction=0).item()
+    ok = (abs(mean - m) < 6 * (v / n) ** 0.5
+          and abs(var - v) < 6 * ((mu4 - v * v) / n) ** 0.5)
+    check(ok, f"{name}: mean {mean} variance {var}, want {m} and {v} within "
+          f"6 standard errors")
+    return {"mean": mean, "var": var, "want_mean": m, "want_var": v}
+
+
+def random_cases(sd, n: int):
+    """{name: (node, check)} of the 13 random ops on ``sd``."""
+    side = int(n ** 0.5)
+    shape = (side, n // side)
+    logits = np.log(np.array([[0.1, 0.2, 0.3, 0.4], [0.7, 0.1, 0.1, 0.1],
+                              [0.25, 0.25, 0.25, 0.25], [0.5, 0.5, 1e-9,
+                                                          1e-9]]))
+    ops = sd.random_ops
+    cases = {
+        "random_uniform": ops.random_uniform(shape, low=-1.0, high=2.0),
+        "random_normal": ops.random_normal(shape, mean=1.0, stddev=2.0),
+        "random_truncated_normal": ops.random_truncated_normal(
+            shape, stddev=3.0),
+        "random_lognormal": ops.random_lognormal(shape, stddev=0.5),
+        "random_bernoulli": ops.random_bernoulli(shape, p=0.3),
+        "random_binomial": ops.random_binomial(shape, 5, 0.3),
+        "random_exponential": ops.random_exponential(shape, lam=2.0),
+        "random_gamma": ops.random_gamma(shape, 2.5, beta=2.0),
+        "random_poisson": ops.random_poisson(shape, 3.0),
+        "random_multinomial": ops.random_multinomial(
+            sd.constant("logits", logits.astype(np.float32)), n // 4),
+        "random_shuffle": ops.random_shuffle(
+            sd.constant("seq", np.arange(n, dtype=np.float32)
+                        .reshape(shape)), axis=1),
+        "random_crop": ops.random_crop(
+            sd.constant("img", np.arange(64 * 64, dtype=np.float32)
+                        .reshape(64, 64)), (16, 24)),
+        "dropout_bp": ops.dropout_bp(
+            sd.constant("ones", np.ones(shape, np.float32)), 0.25),
+    }
+    return cases, shape, logits
+
+
+def phase_samediff_control_random(smi: str, dev) -> dict:
+    """Phase 39: SameDiff cond and while_loop trained on the card against
+    the CPU; an unbounded while_loop; the 13 random ops on the card; an
+    NDArray view write on the card."""
+    from deeplearning4j_tpu_torch import factory
+    from deeplearning4j_tpu_torch.autodiff.samediff import SameDiff
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(SEED + 39)
+    batches = [{"x": rng.normal(0, 1, (64, 16)),
+                "y": rng.normal(0, 1, (64, 4))} for _ in range(CONTROL_STEPS)]
+    card, host = control_graph(dev), control_graph("cpu")
+    t0 = time.perf_counter()
+    lc = [card.fit(b).final_loss() for b in batches]
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    lh = [host.fit(b).final_loss() for b in batches]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    var_err = max((card._vars[n].value.cpu() - host._vars[n].value)
+                  .abs().max().item() / host._vars[n].value.abs().max()
+                  .item() for n in card.variables())
+    check(loss_err <= 1e-9 and var_err <= 1e-9 and all(np.isfinite(lc)),
+          f"control-flow graph: the card's losses {lc} against the CPU's "
+          f"{lh} ({loss_err}), variables {var_err}")
+    ub = SameDiff(device=dev)
+    s = ub.placeholder("s", dtype="float32")
+    looped = ub.while_loop(lambda sb, v: sb.math.less(v, 10.0),
+                           lambda sb, v: sb.math.add(v, 3.0), s)
+    got = float(looped.eval({"s": np.array(0.0, np.float32)}))
+    check(got == 12.0, f"unbounded while_loop gave {got}, want 12")
+    log(f"[samediff-control-random] cond + while_loop(max_iters=8) graph, "
+        f"float64, Adam(1e-2): {CONTROL_STEPS} steps on the card in "
+        f"{fit_s:.3f} s, losses {lc[0]:.6f} -> {lc[-1]:.6f}, within "
+        f"{loss_err:.1e} of the CPU's, variables within {var_err:.1e}; "
+        f"unbounded while_loop forward 0 -> {got}; {smi}")
+
+    sd = SameDiff(device=dev)
+    sd._device_generator = torch.Generator(device=dev).manual_seed(SEED)
+    cases, shape, logits = random_cases(sd, RANDOM_DRAWS)
+    t0 = time.perf_counter()
+    out = sd.output({}, [v.name for v in cases.values()])
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    stats = {}
+    want_dtype = {"random_poisson": torch.int32,
+                  "random_multinomial": torch.int64}
+    for name, var in cases.items():
+        t = out[var.name]
+        check(t.device.type == dev.type and t.dtype == want_dtype.get(
+            name, torch.float32), f"{name}: {t.dtype} on {t.device}")
+        if name in ("random_multinomial", "random_crop"):
+            continue
+        check(tuple(t.shape) == shape, f"{name}: shape {tuple(t.shape)}")
+        if name == "random_shuffle":
+            base = torch.arange(RANDOM_DRAWS, dtype=torch.float32,
+                                device=dev).reshape(shape)
+            check(torch.equal(torch.sort(t, dim=1).values, base),
+                  "random_shuffle is not a permutation of each row")
+            continue
+        if name == "dropout_bp":
+            zeros = (t == 0).to(torch.float64)
+            check(bool(((t == 0) | (t == 1.0 / 0.75)).all()),
+                  "dropout_bp values")
+            stats[name] = {"zero_share": zeros.mean().item()}
+            p, n = 0.25, zeros.numel()
+            check(abs(zeros.mean().item() - p) < 6 * (p * (1 - p) / n)
+                  ** 0.5, f"dropout_bp zero share {zeros.mean().item()}")
+            continue
+        if name == "random_truncated_normal":
+            check(bool((t.abs() < 6.0).all()), "truncated normal bounds")
+        stats[name] = _six_se(t, name)
+    m = out[cases["random_multinomial"].name]
+    probs = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+    counts = torch.stack([(m == c).sum(dim=1) for c in range(4)], 1).cpu()
+    k = m.shape[1]
+    for i in range(4):
+        for c in range(4):
+            p = probs[i, c]
+            se = (p * (1 - p) / k) ** 0.5
+            check(abs(counts[i, c].item() / k - p) < 6 * se + 1e-12,
+                  f"multinomial row {i} class {c}: {counts[i, c].item() / k}"
+                  f" against {p}")
+    crop = out[cases["random_crop"].name]
+    r0, c0 = divmod(int(crop[0, 0].item()), 64)
+    want = torch.arange(64 * 64, dtype=torch.float32,
+                        device=dev).reshape(64, 64)[r0:r0 + 16, c0:c0 + 24]
+    check(torch.equal(crop, want), "random_crop is not a window")
+    stats["random_multinomial"] = {"rows": 4, "samples_per_row": k}
+    log(f"[samediff-control-random] the 13 random ops through SameDiff on "
+        f"the card, {RANDOM_DRAWS} draws each, in {draw_s:.3f} s: "
+        + "; ".join(f"{n} mean {v['mean']:.5f} var {v['var']:.5f}"
+                    for n, v in stats.items() if "mean" in v)
+        + f"; dropout_bp zero share {stats['dropout_bp']['zero_share']:.5f}"
+        f"; multinomial rows within 6 standard errors of their logits; "
+        f"{smi}")
+
+    a = factory.create(np.zeros((4, 4), np.float32), device=dev)
+    a[1].addi(5.0)
+    a[2][1:3].assign(7.0)
+    row = a.to_numpy()
+    check(a.device.type == dev.type and (row[1] == 5).all()
+          and row[2, 1] == row[2, 2] == 7 and row.sum() == 34,
+          f"NDArray view writes on the card: {row}")
+    log("[samediff-control-random] NDArray view writes on the card reach "
+        "their base")
+    return {"control": {"losses_card": lc, "losses_cpu": lh,
+                        "loss_rel_err": loss_err, "var_rel_err": var_err,
+                        "fit_s": fit_s, "unbounded": got},
+            "random": stats, "draw_s": draw_s,
+            "seconds": time.perf_counter() - t_phase}
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
@@ -7732,6 +8214,10 @@ def main(argv=None) -> int:
         del r50_params, r50_x, r50_logits
         onnx_enc = phase_onnx_encoder(smi, dev)
         sdk = phase_samediff_kernels(smi, dev)
+        torch.cuda.empty_cache()
+        keras_r50 = phase_keras_resnet50(smi, dev)
+        keras_lstm = phase_keras_lstm(smi, dev)
+        sd_ctl = phase_samediff_control_random(smi, dev)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -7757,6 +8243,7 @@ def main(argv=None) -> int:
             transfer["simplecnn"]["bn_act_launches"],
         "launches_evaluation_forward":
             es_eval["evaluation"]["bn_act_launches"],
+        "launches_keras_resnet50": keras_r50["bn_act_launches"],
         "forwards": {n: {k: f[k] for k in ("launches", "ms", "bound_ms",
                                            "share")}
                      for n, f in timing["shapes"].items()}})
@@ -7802,7 +8289,9 @@ def main(argv=None) -> int:
         "launches_guarded": tele["fused_update_launches"],
         "launches_guarded_tbptt": tele["tbptt"]["launches"],
         "launches_early_stopping":
-            es_eval["early_stopping"]["fused_update_launches"]})
+            es_eval["early_stopping"]["fused_update_launches"],
+        "launches_keras_resnet50": keras_r50["fused_update_launches"],
+        "launches_keras_lstm": keras_lstm["fused_update_launches"]})
     bp = bag_timing["path"]
     kernels.append({
         "name": "embedding_bag", "route": "cuda",
@@ -7912,7 +8401,9 @@ def main(argv=None) -> int:
                       "remat": remat, "disk": disk, "container": container,
                       "telemetry": tele, **es_eval,
                       "onnx_resnet50": onnx_r50, "tf_resnet50": tf_r50,
-                      "onnx_encoder": onnx_enc, "samediff_kernels": sdk},
+                      "onnx_encoder": onnx_enc, "samediff_kernels": sdk,
+                      "keras_resnet50": keras_r50, "keras_lstm": keras_lstm,
+                      "samediff_control_random": sd_ctl},
                      default=str),
           flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -17,17 +17,19 @@ Entry points run on the card unless the caller asks for the CPU
 
 Layer map (ported so far; see ROADMAP.md for what follows):
   common/    environment (device + TF32 policy), dtype table, counters
-  imports/   TF frozen-GraphDef import into SameDiff (the 21 TF ops of a
-             frozen BERT encoder), a protobuf wire-format GraphDef reader
-             and writer (no TensorFlow, no protobuf), the BERT GraphDef
-             writer that bench.py --config bert imports
+  imports/   TF frozen-GraphDef and ONNX import into SameDiff (protobuf
+             wire-format readers and writers: no TensorFlow, no onnx),
+             Keras .h5/.keras import into MultiLayerNetwork and
+             ComputationGraph through an HDF5 reader of its own (no
+             h5py), the BERT GraphDef writer that bench.py imports
   autodiff/  SameDiff: graphs of registered ops walked eagerly on the
-             device, autograd gradients, fit with the port's updaters
-  ops/       the op registry (the 20 ops the imported BERT graph and its
-             fine-tune head reach; the rest of the JAX registry raises by
-             name), conv2d, pooling, inference and training batchnorm, the
-             fused BN epilogue, the fused flat-bucket weight update, the
-             embedding bag and the CBOW round
+             device, cond/while_loop, autograd gradients, fit with the
+             port's updaters
+  ops/       the op registry (all 331 ops of the JAX registry, the
+             random family drawing from a torch.Generator), conv2d,
+             pooling, inference and training batchnorm, the fused BN
+             epilogue, the fused flat-bucket weight update, the embedding
+             bag and the CBOW round
   csrc/      hand-written CUDA kernels (bn_act, fused_update, embedding_bag)
   nn/        activations, weight init, losses, layer configs (dropout,
              feature masks), ComputationGraph and MultiLayerNetwork
@@ -50,11 +52,18 @@ Layer map (ported so far; see ROADMAP.md for what follows):
              bucket layout (Zero1Plan)
   util/      weight, updater-state and Word2Vec carry-over from the JAX
              package (graphs, multilayer networks and SameDiff graphs)
+  ndarray/   NDArray (in-place ops, views that write through), the
+             factory (Nd4j's creators, gemm, the .npy format) and the
+             per-thread random stream (get_random, set_default_seed)
 """
 
 from .common.dtypes import DataType
 from .common.environment import Environment
+from .ndarray import factory
+from .ndarray.ndarray import NDArray
+from .ndarray.rng import get_random, set_default_seed
 
 __version__ = "0.1.0"
 
-__all__ = ["DataType", "Environment"]
+__all__ = ["DataType", "Environment", "NDArray", "factory", "get_random",
+           "set_default_seed"]

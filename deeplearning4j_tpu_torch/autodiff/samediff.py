@@ -32,11 +32,32 @@ The dropout and noise ops (``dropout``, ``alpha_dropout``,
 ``gaussian_dropout``, ``gaussian_noise``) draw from the graph's generator on
 its device in training (``fit``, ``output(training=True)``) and are the
 identity outside it, as the JAX SameDiff passes them a fresh key or skips
-them.
+them. The registry's ``random`` ops draw from the same generator in every
+call, where the JAX SameDiff splits a fresh key for each.
 
-Not ported yet (each raises ``NotImplementedError`` naming ROADMAP.md):
-``cond``/``while_loop`` (and so a file holding their subgraphs), and the
-registry's 13 ``random`` ops.
+Structured control flow (reference ``SameDiff.ifCond``/``whileLoop``) is
+the JAX SameDiff's: each branch, condition and body is a nested SameDiff
+whose placeholders are its operands, saved as the node's ``control`` entry
+of ``graph.json``. Where the JAX package lowers them to ``lax.cond``,
+``lax.while_loop`` and ``lax.scan``, the walk here runs them:
+
+- ``cond`` reads its predicate on the host (one synchronisation a call)
+  and runs the taken branch only, so the gradient flows through that branch
+  alone (not both under ``torch.where``, whose gradient differs where the
+  other branch is not finite).
+- ``while_loop`` without ``max_iters`` reads its condition on the host
+  each iteration. It is forward-only, as in the JAX package (reverse mode
+  has no rule for an unbounded loop): a gradient through it raises the
+  ``ValueError`` the JAX package raises, in ``calculate_gradients`` and in
+  ``fit``.
+- ``while_loop(max_iters=n)`` runs condition and body ``n`` times and
+  holds the loop values by ``torch.where`` once the condition has failed:
+  differentiable, with no host synchronisation.
+- Random ops inside a control node draw from generators of its own, one for
+  a ``cond``'s branch and, for a loop, one for the condition and one for the
+  body (the JAX lowering's distinct per-iteration streams), seeded from the
+  graph's own host generator and made only for a branch that draws; each
+  iteration draws afresh.
 """
 
 from __future__ import annotations
@@ -91,6 +112,13 @@ class _Node:
     # Mixed positional spec: [("v", var_name) | ("s", static_value)]. Static
     # entries (shape tuples, axis ints) stay Python values.
     arg_spec: List[Tuple[str, Any]] = field(default_factory=list)
+    # Structured control flow (op_name "__cond__"/"__while__"): nested
+    # graphs by tag ("true"/"false" or "cond"/"body"), their placeholder
+    # and output names, and the bounded loop's length
+    subgraphs: Optional[Dict[str, "SameDiff"]] = None
+    sub_inputs: Optional[Dict[str, List[str]]] = None
+    sub_outputs: Optional[Dict[str, List[str]]] = None
+    max_iters: Optional[int] = None
 
 
 #: the outputs of the registry's multi-output ops, where the caller does
@@ -104,11 +132,8 @@ _N_OUTPUTS = {
 #: ops that draw in training and pass their input through outside it
 _TRAIN_ONLY = frozenset({"dropout", "alpha_dropout", "gaussian_dropout",
                          "gaussian_noise"})
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"SameDiff.{what} is not ported yet (see ROADMAP.md, queue A)")
+#: the control-flow nodes' op names
+_CONTROL = frozenset({"__cond__", "__while__"})
 
 
 def _upload(value, device: torch.device) -> torch.Tensor:
@@ -460,15 +485,133 @@ class SameDiff:
         outs = tuple(SDVariable(self, o) for o in out_names)
         return outs if n_out > 1 else outs[0]
 
-    def cond(self, *args, **kwargs):
-        _not_ported("cond")
+    # --- structured control flow ----------------------------------------
+    def _build_branch(self, fn, n_args: int, tag: str):
+        """Trace a branch body into a NESTED SameDiff whose placeholders are
+        the branch arguments. Branch bodies see ONLY their operands (pass
+        outer variables explicitly)."""
+        sub = SameDiff(self.device)
+        phs = [sub.placeholder(f"{tag}_arg{i}") for i in range(n_args)]
+        out = fn(sub, *phs)
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        for o in outs:
+            if o.sd is not sub:
+                raise ValueError(
+                    f"{tag} body must return variables built in its own "
+                    "scope (got one from the outer graph)")
+        return sub, [p.name for p in phs], [o.name for o in outs]
+
+    def _add_control(self, kind: str, inputs: List[SDVariable], subgraphs,
+                     sub_inputs, sub_outputs, n_out: int,
+                     name: Optional[str], max_iters: Optional[int] = None):
+        nid = len(self._nodes)
+        base = name or kind.strip("_")
+        out_names = [self._unique(base if i == 0 else f"{base}:{i}")
+                     for i in range(n_out)]
+        self._nodes.append(_Node(
+            nid, kind, [v.name for v in inputs], {}, out_names, n_out,
+            [("v", v.name) for v in inputs], subgraphs=subgraphs,
+            sub_inputs=sub_inputs, sub_outputs=sub_outputs,
+            max_iters=max_iters))
+        for i, out in enumerate(out_names):
+            self._vars[out] = _Var(out, VariableType.ARRAY, producer=nid,
+                                   out_index=i)
+        self._plans.clear()
+        outs = tuple(SDVariable(self, o) for o in out_names)
+        return outs if n_out > 1 else outs[0]
+
+    def cond(self, pred: SDVariable, true_fn, false_fn,
+             *operands: SDVariable, name: Optional[str] = None):
+        """``true_fn(sub_sd, *args)`` / ``false_fn(sub_sd, *args)`` build
+        their result from the operands; both return the same number of
+        outputs. Only the taken branch runs; differentiable through it."""
+        pred = self._lift(pred)
+        ops = [self._lift(o) for o in operands]
+        sub_t, in_t, out_t = self._build_branch(true_fn, len(ops), "true")
+        sub_f, in_f, out_f = self._build_branch(false_fn, len(ops), "false")
+        if len(out_t) != len(out_f):
+            raise ValueError(
+                f"branches return different arity: {len(out_t)} vs "
+                f"{len(out_f)}")
+        return self._add_control(
+            "__cond__", [pred] + ops, {"true": sub_t, "false": sub_f},
+            {"true": in_t, "false": in_f}, {"true": out_t, "false": out_f},
+            len(out_t), name)
 
     ifCond = cond
 
-    def while_loop(self, *args, **kwargs):
-        _not_ported("while_loop")
+    def while_loop(self, cond_fn, body_fn, *loop_vars: SDVariable,
+                   max_iters: Optional[int] = None,
+                   name: Optional[str] = None):
+        """``cond_fn(sub_sd, *vars) -> scalar bool``; ``body_fn(sub_sd,
+        *vars)`` returns the updated loop vars (same arity). Unbounded
+        loops are forward-only; ``max_iters`` makes a fixed-length masked
+        loop, which is differentiable."""
+        ops = [self._lift(v) for v in loop_vars]
+        sub_c, in_c, out_c = self._build_branch(cond_fn, len(ops), "cond")
+        if len(out_c) != 1:
+            raise ValueError("cond_fn must return exactly one scalar")
+        sub_b, in_b, out_b = self._build_branch(body_fn, len(ops), "body")
+        if len(out_b) != len(ops):
+            raise ValueError(
+                f"body_fn must return {len(ops)} loop vars, got {len(out_b)}")
+        return self._add_control(
+            "__while__", ops, {"cond": sub_c, "body": sub_b},
+            {"cond": in_c, "body": in_b}, {"cond": out_c, "body": out_b},
+            len(ops), name, max_iters=max_iters)
 
     whileLoop = while_loop
+
+    def _sub_generator(self, sub: "SameDiff", outs: Tuple[str, ...],
+                       training: bool) -> Optional[torch.Generator]:
+        """A generator on the graph's device for one stream of a control
+        node, seeded from the graph's own host generator (no
+        synchronisation); None when the branch draws nothing."""
+        if not any(kind == "random" or (training and kind == "train_only")
+                   for _, _, _, kind in sub._plan(outs)):
+            return None
+        seed = int(torch.randint(0, 2 ** 62, (1,),
+                                 generator=self._generator))
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def _lower_control(self, node: _Node, args: List[torch.Tensor],
+                       training: bool) -> Tuple[torch.Tensor, ...]:
+        def branch(tag: str):
+            sub = node.subgraphs[tag]
+            names = node.sub_inputs[tag]
+            outs = tuple(node.sub_outputs[tag])
+            gen = self._sub_generator(sub, outs, training)
+
+            def run(vs):
+                return sub._run(outs, dict(zip(names, vs)),
+                                training=training, generator=gen)
+
+            return run
+
+        def scalar(t: torch.Tensor) -> torch.Tensor:
+            return t.reshape(()).to(torch.bool)
+
+        if node.op_name == "__cond__":
+            # the predicate on the host: one synchronisation a call
+            taken = "true" if bool(scalar(args[0])) else "false"
+            return branch(taken)(tuple(args[1:]))
+        cond_run = branch("cond")
+        body_run = branch("body")
+        vs = tuple(args)
+        if node.max_iters is None:
+            if torch.is_grad_enabled() and any(v.requires_grad for v in vs):
+                raise ValueError(
+                    "Reverse-mode differentiation does not work for an "
+                    "unbounded while_loop; pass max_iters to make it a "
+                    "fixed-length masked loop")
+            while bool(scalar(cond_run(vs)[0])):
+                vs = body_run(vs)
+            return vs
+        for _ in range(int(node.max_iters)):
+            go = scalar(cond_run(vs)[0])
+            new = body_run(vs)
+            vs = tuple(torch.where(go, nv, v) for v, nv in zip(vs, new))
+        return vs
 
     # --- running the graph ------------------------------------------------
     def _topo_for(self, outputs: Sequence[str]) -> List[_Node]:
@@ -513,8 +656,15 @@ class SameDiff:
             for name, step in last.items():
                 if name not in outputs:
                     drops[step].append(name)
-            plan = [(get_op(n.op_name).fn, n, d)
-                    for n, d in zip(nodes, drops)]
+            plan = []
+            for n, d in zip(nodes, drops):
+                if n.op_name in _CONTROL:
+                    plan.append((None, n, d, "control"))
+                    continue
+                desc = get_op(n.op_name)
+                kind = ("random" if desc.family == "random" else
+                        "train_only" if n.op_name in _TRAIN_ONLY else "op")
+                plan.append((desc.fn, n, d, kind))
             self._plans[outputs] = plan
         return plan
 
@@ -537,10 +687,13 @@ class SameDiff:
 
     def _run(self, outputs: Tuple[str, ...], feeds: Dict[str, torch.Tensor],
              params: Optional[Dict[str, torch.Tensor]] = None,
-             training: bool = False) -> Tuple[torch.Tensor, ...]:
+             training: bool = False,
+             generator: Optional[torch.Generator] = None
+             ) -> Tuple[torch.Tensor, ...]:
         """Walk the nodes ``outputs`` need. ``params`` overrides the stored
         variable values (the leaves autograd differentiates). Outside
-        ``training`` the dropout and noise ops pass their input through."""
+        ``training`` the dropout and noise ops pass their input through.
+        ``generator``: the random and noise ops' (default the graph's)."""
         env: Dict[str, torch.Tensor] = dict(feeds)
         if params:
             env.update(params)
@@ -557,14 +710,21 @@ class SameDiff:
                         f"variable {name!r} has no value")
             return t
 
-        for fn, node, drops in self._plan(outputs):
-            args = [value(a) if kind == "v" else a
-                    for kind, a in node.arg_spec]
-            if node.op_name in _TRAIN_ONLY:
-                res = fn(args[0], self._rng(), *args[1:], **node.kwargs) \
-                    if training else args[0]
-            else:
+        for fn, node, drops, kind in self._plan(outputs):
+            args = [value(a) if k == "v" else a for k, a in node.arg_spec]
+            if kind == "op":
                 res = fn(*args, **node.kwargs)
+            elif kind == "control":
+                res = self._lower_control(node, args, training)
+                if node.n_outputs == 1:
+                    res = res[0]
+            elif kind == "random":
+                res = fn(generator or self._rng(), *args, **node.kwargs)
+            elif training:
+                res = fn(args[0], generator or self._rng(), *args[1:],
+                         **node.kwargs)
+            else:
+                res = args[0]
             if node.n_outputs > 1:
                 for out_name, r in zip(node.outputs, res):
                     env[out_name] = r
@@ -753,32 +913,14 @@ class SameDiff:
         from ..util.model_serializer import savez_leaves, tree_leaves
 
         arrays: Dict[str, np.ndarray] = {}
-        for n, v in self._vars.items():
-            if v.value is not None:
-                if v.value.dtype == torch.bfloat16:
-                    raise ValueError(f"variable {n!r} is bfloat16, which the "
-                                     f"SameDiff file format cannot hold")
-                arrays[n] = v.value.detach().cpu().numpy()
-        nodes = [{"id": n.id, "op": n.op_name, "inputs": n.inputs,
-                  "kwargs": _jsonify(n.kwargs), "outputs": n.outputs,
-                  "n_outputs": n.n_outputs,
-                  "arg_spec": [[k, _jsonify({"v": v})["v"]]
-                               for k, v in n.arg_spec]}
-                 for n in self._nodes]
-        graph = {
-            "format_version": _FORMAT_VERSION,
-            "variables": [
-                {"name": v.name, "type": v.vtype, "shape": v.shape,
-                 "dtype": v.dtype, "producer": v.producer,
-                 "out_index": v.out_index}
-                for v in self._vars.values()],
-            "nodes": nodes,
+        graph = self._graph_dict(arrays, "")
+        graph.update({
             "loss_var": self._loss_var,
             "iteration": self._iteration,
             "epoch": self._epoch,
             "training_config": (self._training_config.to_json()
                                 if self._training_config else None),
-        }
+        })
         # stored, not deflated (float values do not compress; the JAX
         # package deflates, and either package reads either)
         with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as zf:
@@ -791,37 +933,89 @@ class SameDiff:
                 zf.writestr("updater.npz",
                             savez_leaves(tree_leaves(self._updater_state)))
 
+    def _graph_dict(self, arrays: Dict[str, np.ndarray],
+                    prefix: str) -> Dict[str, Any]:
+        """The JSON graph structure, the values collected into ``arrays``
+        under ``prefix`` (a control node's graphs under
+        ``<prefix>n<id>.<tag>/``, so one npz holds every scope's values)."""
+        for n, v in self._vars.items():
+            if v.value is not None:
+                if v.value.dtype == torch.bfloat16:
+                    raise ValueError(f"variable {n!r} is bfloat16, which the "
+                                     f"SameDiff file format cannot hold")
+                arrays[prefix + n] = v.value.detach().cpu().numpy()
+        nodes = []
+        for n in self._nodes:
+            d = {"id": n.id, "op": n.op_name, "inputs": n.inputs,
+                 "kwargs": _jsonify(n.kwargs), "outputs": n.outputs,
+                 "n_outputs": n.n_outputs,
+                 "arg_spec": None if n.subgraphs is not None else
+                 [[k, _jsonify({"v": v})["v"]] for k, v in n.arg_spec]}
+            if n.subgraphs is not None:
+                d["control"] = {
+                    "max_iters": n.max_iters,
+                    "sub_inputs": n.sub_inputs,
+                    "sub_outputs": n.sub_outputs,
+                    "branches": {
+                        tag: sub._graph_dict(arrays,
+                                             f"{prefix}n{n.id}.{tag}/")
+                        for tag, sub in n.subgraphs.items()}}
+            nodes.append(d)
+        return {
+            "format_version": _FORMAT_VERSION,
+            "variables": [
+                {"name": v.name, "type": v.vtype, "shape": v.shape,
+                 "dtype": v.dtype, "producer": v.producer,
+                 "out_index": v.out_index}
+                for v in self._vars.values()],
+            "nodes": nodes,
+        }
+
+    @staticmethod
+    def _from_graph_dict(graph: Dict[str, Any], arrays, prefix: str,
+                         device) -> "SameDiff":
+        sd = SameDiff(device)
+        for v in graph["variables"]:
+            key = prefix + v["name"]
+            value = arrays[key] if key in arrays.files else None
+            sd._vars[v["name"]] = _Var(
+                v["name"], v["type"],
+                tuple(v["shape"]) if v["shape"] else None, v["dtype"],
+                None if value is None else _upload(value, sd.device),
+                v["producer"], v["out_index"])
+        for n in graph["nodes"]:
+            ctl = n.get("control")
+            if ctl is None:
+                get_op(n["op"])     # an unknown op raises here by name
+            spec = n.get("arg_spec")
+            spec = ([(k, tuple(a) if isinstance(a, list) and k == "s"
+                      else a) for k, a in spec] if spec is not None
+                    else [("v", i) for i in n["inputs"]])
+            node = _Node(n["id"], n["op"], n["inputs"], n["kwargs"],
+                         n["outputs"], n["n_outputs"], spec)
+            if ctl is not None:
+                node.max_iters = ctl.get("max_iters")
+                node.sub_inputs = ctl["sub_inputs"]
+                node.sub_outputs = ctl["sub_outputs"]
+                node.subgraphs = {
+                    tag: SameDiff._from_graph_dict(
+                        sub, arrays, f"{prefix}n{n['id']}.{tag}/", device)
+                    for tag, sub in ctl["branches"].items()}
+            sd._nodes.append(node)
+        return sd
+
     @staticmethod
     def load(path: str, device=None) -> "SameDiff":
         """A graph from :meth:`save`'s zip (either package's), its values on
         ``device``: the card unless the caller asks for another."""
         from ..util.model_serializer import load_leaves, tree_leaves
 
-        sd = SameDiff(device)
         with zipfile.ZipFile(path) as zf:
             graph = json.loads(zf.read("graph.json"))
             if graph["format_version"] > _FORMAT_VERSION:
                 raise ValueError("file written by a newer format version")
             arrays = np.load(io.BytesIO(zf.read("vars.npz")))
-            for v in graph["variables"]:
-                value = arrays[v["name"]] if v["name"] in arrays.files \
-                    else None
-                sd._vars[v["name"]] = _Var(
-                    v["name"], v["type"],
-                    tuple(v["shape"]) if v["shape"] else None, v["dtype"],
-                    None if value is None else _upload(value, sd.device),
-                    v["producer"], v["out_index"])
-            for n in graph["nodes"]:
-                if n.get("control") is not None:
-                    _not_ported("cond/while_loop subgraphs")
-                get_op(n["op"])     # an unported op raises here by name
-                spec = n.get("arg_spec")
-                spec = ([(k, tuple(a) if isinstance(a, list) and k == "s"
-                          else a) for k, a in spec] if spec is not None
-                        else [("v", i) for i in n["inputs"]])
-                sd._nodes.append(_Node(n["id"], n["op"], n["inputs"],
-                                       n["kwargs"], n["outputs"],
-                                       n["n_outputs"], spec))
+            sd = SameDiff._from_graph_dict(graph, arrays, "", device)
             sd._loss_var = graph.get("loss_var")
             sd._iteration = graph.get("iteration", 0)
             sd._epoch = graph.get("epoch", 0)

@@ -73,7 +73,7 @@ from ..activations import activation_fn
 from ..losses import ILossFunction, LossMCXENT, loss_from_name
 from ...common.tree import tree_map
 from ..weights import init_weights
-from .inputs import CNNInput, FFInput, InputType, RNNInput
+from .inputs import CNN3DInput, CNNInput, FFInput, InputType, RNNInput
 
 
 def _pair(v):
@@ -486,27 +486,27 @@ class ActivationLayer(Layer):
 
 @dataclass
 class GlobalPoolingLayer(Layer):
-    """Pools CNN spatial dims, or the time dim of RNN input [B, T, F], down
-    to FF: max, avg, sum or pnorm (the L2 norm, whatever ``pnorm`` the
-    JAX package's SubsamplingLayer carries). With a feature mask
-    (:meth:`apply_masked`) padded steps are left out."""
+    """Pools CNN spatial dims (2D or 3D), or the time dim of RNN input
+    [B, T, F], down to FF: max, avg, sum or pnorm (the L2 norm, whatever
+    ``pnorm`` the JAX package's SubsamplingLayer carries). With a feature
+    mask (:meth:`apply_masked`) padded steps are left out."""
 
     pooling_type: str = "max"
 
     def set_input_type(self, input_type):
-        if isinstance(input_type, CNNInput):
+        if isinstance(input_type, (CNNInput, CNN3DInput)):
             return FFInput(input_type.channels)
         if isinstance(input_type, RNNInput):
             return FFInput(input_type.size)
-        raise ValueError("GlobalPoolingLayer needs CNN or RNN input")
+        raise ValueError("GlobalPoolingLayer needs CNN/CNN3D/RNN input")
 
     def apply(self, params, x, state, training=False, *, generator=None):
         kind = self.pooling_type.lower()
-        dims = (2, 3) if x.ndim == 4 else (1,)
+        dims = {5: (2, 3, 4), 4: (2, 3)}.get(x.ndim, (1,))
         if kind == "max":
             out = torch.amax(x, dim=dims)
         elif kind in ("avg", "average"):
-            out = ops.global_avgpool(x) if x.ndim == 4 else x.mean(dim=1)
+            out = ops.global_avgpool(x) if x.ndim == 4 else x.mean(dim=dims)
         elif kind == "sum":
             out = x.sum(dim=dims)
         elif kind == "pnorm":

@@ -51,15 +51,18 @@ REPLACES = "deeplearning4j_tpu/ops/pallas_epilogue.py:75"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = ("relu", "identity")
 
-#: kernel launches made by :func:`bn_act_cuda` (and nothing else)
+#: kernel launches made by :func:`bn_act_cuda` (and nothing else), and
+#: those of them that add a residual
 bn_act_launches = 0
+bn_act_residual_launches = 0
 _LAUNCH_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    global bn_act_launches
+    global bn_act_launches, bn_act_residual_launches
     with _LAUNCH_LOCK:
         bn_act_launches = 0
+        bn_act_residual_launches = 0
 
 
 def fusable(x, axis: int, act: Optional[str]) -> bool:
@@ -144,7 +147,7 @@ def bn_act_cuda(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
                 act: str = "identity") -> torch.Tensor:
     """Launch ``csrc/bn_act.cu`` on PyTorch's current stream. Raises on
     anything the kernel does not take, and when the launch fails."""
-    global bn_act_launches
+    global bn_act_launches, bn_act_residual_launches
     _check_cuda_args(x, scale, shift, residual, act)
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
     if x.numel() == 0:
@@ -169,6 +172,7 @@ def bn_act_cuda(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
                            f"({cuda_lib.error_string(lib, err)})")
     with _LAUNCH_LOCK:
         bn_act_launches += 1
+        bn_act_residual_launches += residual is not None
     return out
 
 

@@ -6,15 +6,15 @@ registry's names, families and kwargs; ``exec_op`` runs one by name and
 records it as validated, and ``coverage_report`` lists the registered ops a
 test never ran.
 
-The port registers 318 of the JAX registry's 331 ops: every family but
-``random``, each in the module of the same name (``broadcastable``,
-``transforms``, ``reduce``, ``shape``, ``linalg``, ``loss``, ``nn``,
-``recurrent``, ``image``, ``bitwise``; ``embeddings`` holds the ``nlp``
-family and ``attention`` the ``flash_attention`` op). :data:`JAX_OPS` names
-every op of the JAX registry: ``get_op`` raises ``NotImplementedError``
-naming one of the 13 ``random`` ops (ROADMAP.md A5), and ``KeyError`` for a
-name neither registry has. Gradients come from autograd through each
-function, as ``jax.grad`` through the JAX ops.
+The port registers all 331 ops of the JAX registry, each family in the
+module of the same name (``broadcastable``, ``transforms``, ``reduce``,
+``shape``, ``linalg``, ``loss``, ``nn``, ``recurrent``, ``image``,
+``bitwise``, ``random``; ``embeddings`` holds the ``nlp`` family and
+``attention`` the ``flash_attention`` op). :data:`JAX_OPS` names every op
+of the JAX registry; ``get_op`` raises ``KeyError`` for any other name.
+The ``random`` ops take a ``torch.Generator`` where the JAX ops take a key.
+Gradients come from autograd through each function, as ``jax.grad``
+through the JAX ops.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Set
 
-#: every op of the JAX package's registry (331), ported or not
+#: every op of the JAX package's registry (331)
 JAX_OPS = frozenset("""
     abs absolute_difference_loss acos acosh add adjust_contrast adjust_gamma
     adjust_hue adjust_saturation all alpha_dropout any argamax argamin argmax
@@ -115,10 +115,6 @@ def op(name: str, family: str = "misc", differentiable: bool = True):
 def get_op(name: str) -> OpDescriptor:
     _ensure_loaded()
     if name not in _REGISTRY:
-        if name in JAX_OPS:
-            raise NotImplementedError(
-                f"op {name!r} is registered in the JAX package but not "
-                f"ported yet: the random family waits for ROADMAP.md A5")
         raise KeyError(f"unknown op: {name!r} (registered: {len(_REGISTRY)})")
     return _REGISTRY[name]
 
@@ -183,6 +179,7 @@ def _ensure_loaded() -> None:
         linalg,
         loss,
         nn,
+        random,
         recurrent,
         reduce,
         shape,

@@ -1,5 +1,6 @@
 """ONNX and TensorFlow graphs of ResNet-50 and of a BERT-base-width pre-LN
-encoder, written without ``onnx``, ``protobuf`` or TensorFlow.
+encoder, and Keras files of ResNet-50 and of a character LSTM, written
+without ``onnx``, ``protobuf``, TensorFlow, Keras or ``h5py``.
 
 The fixtures of ``chip_smoke.py``'s import phases (33-35) and of the port's
 CPU tests (``tests/test_torch_onnx_models.py``). They follow the node
@@ -26,6 +27,22 @@ serialized by the port's own wire-format writers
   Reshape back, the output projection and the residual Add, then
   LayerNormalization, a Gelu MLP and the second residual; ReduceMean over
   time and a Gemm head.
+
+The Keras files (``keras_resnet50_h5``, ``keras_char_lstm``) are written by
+:func:`write_hdf5`, a writer for the subset of HDF5 that the port's reader
+(``deeplearning4j_tpu_torch/imports/hdf5.py``) reads and that h5py writes
+by default: superblock version 0, version-1 object headers, groups as
+symbol tables (v1 B-trees of group nodes, local heaps, ``SNOD`` nodes),
+contiguous little-endian datasets and variable-length string attributes in
+global heap collections. ResNet-50 is ``keras.applications.ResNet50(
+weights=None)`` as Keras 3 saves it to a legacy ``.h5`` (its 177 layers,
+names, configuration fields and ``keras_history`` inbound nodes; the
+weights under ``model_weights/<layer>/<layer>/<variable>``); the LSTM is
+keras-io's character model (``examples/generative/
+lstm_character_level_text_generation.py``: ``Input((40, V))``,
+``LSTM(128)``, ``Dense(V, activation="softmax")``) as a Keras 3 ``.keras``
+zip (``config.json``, ``metadata.json``, ``model.weights.h5`` with
+``layers/<snake_name>/[cell/]vars/<i>``).
 
 Weights come from ``np.random.default_rng(seed)``: He-normal convolutions,
 BatchNorm statistics that are not the identity (running means about 0.1,
@@ -384,3 +401,532 @@ def encoder_onnx(params: Params, blocks: int = ENCODER["blocks"],
               make_node("Gemm", ["pooled", "head_w", "head_b"], ["logits"],
                         transB=1)]
     return make_model(nodes, [("x", [batch, t, d])], ["logits"], init)
+
+
+# --- HDF5 ------------------------------------------------------------------------------
+
+_UNDEF = b"\xff" * 8
+_LEAF_K, _NODE_K = 4, 16          # h5py's defaults: 8 links an SNOD, 32 a node
+
+
+class H5Group:
+    """A group to write: ``attrs`` by name (a ``str``, a list of strings,
+    or a numpy array) and ``members`` by name (an ``H5Group`` or a numpy
+    array, written as a contiguous dataset)."""
+
+    def __init__(self, attrs: Optional[Dict] = None,
+                 members: Optional[Dict] = None):
+        self.attrs = dict(attrs or {})
+        self.members = dict(members or {})
+
+    def group(self, path: str) -> "H5Group":
+        """The subgroup at ``path`` ("a/b"), made where missing."""
+        g = self
+        for part in path.split("/"):
+            g = g.members.setdefault(part, H5Group())
+        return g
+
+
+def _u(n: int, size: int = 8) -> bytes:
+    return int(n).to_bytes(size, "little")
+
+
+def _pad8(b: bytes) -> bytes:
+    return b + b"\0" * (-len(b) % 8)
+
+
+def _dtype_msg(dt: np.dtype) -> bytes:
+    """An HDF5 datatype message for a little-endian number."""
+    dt = np.dtype(dt)
+    if dt.kind == "f":
+        exp, man, bias = {2: (5, 10, 15), 4: (8, 23, 127),
+                          8: (11, 52, 1023)}[dt.itemsize]
+        bits = bytes([0x20, 8 * dt.itemsize - 1, 0])
+        return (bytes([0x11]) + bits + _u(dt.itemsize, 4) + _u(0, 2)
+                + _u(8 * dt.itemsize, 2) + bytes([man, exp, 0, man])
+                + _u(bias, 4))
+    if dt.kind in "iu":
+        bits = bytes([0x08 if dt.kind == "i" else 0, 0, 0])
+        return (bytes([0x10]) + bits + _u(dt.itemsize, 4) + _u(0, 2)
+                + _u(8 * dt.itemsize, 2))
+    raise ValueError(f"the fixture writer writes no {dt} data")
+
+
+def _vlen_str_type(utf8: bool) -> bytes:
+    base = bytes([0x10, 0, 0, 0]) + _u(1, 4) + _u(0, 2) + _u(8, 2)
+    return bytes([0x19, 0x01, 0x01 if utf8 else 0, 0]) + _u(16, 4) + base
+
+
+def _space_msg(shape: Tuple[int, ...]) -> bytes:
+    out = bytes([1, len(shape), 1 if shape else 0, 0]) + _u(0, 4)
+    dims = b"".join(_u(d) for d in shape)
+    return out + dims + dims
+
+
+class _H5Writer:
+    """Lays a tree out bottom-up: every object is written after the
+    objects it points to, so each address is known when it is needed."""
+
+    def __init__(self):
+        self.out = bytearray(96)            # the superblock, written last
+        self.strings: Dict[str, Tuple[int, int]] = {}
+
+    def alloc(self, data: bytes) -> int:
+        self.out += b"\0" * (-len(self.out) % 8)
+        at = len(self.out)
+        self.out += data
+        return at
+
+    # --- the global heap --------------------------------------------------------
+    def heap_strings(self, values: List[str]) -> None:
+        pending = [v for v in dict.fromkeys(values) if v not in self.strings]
+        while pending:
+            chunk, pending = pending[:60000], pending[60000:]
+            objs, at = [], 16
+            for i, v in enumerate(chunk, 1):
+                data = v.encode("utf-8")
+                objs.append(_u(i, 2) + _u(1, 2) + _u(0, 4) + _u(len(data))
+                            + _pad8(data))
+            body = b"".join(objs)
+            size = max(4096, 16 + len(body) + 16)
+            free = size - 16 - len(body)
+            blob = (b"GCOL" + bytes([1, 0, 0, 0]) + _u(size) + body
+                    + _u(0, 2) + _u(0, 2) + _u(0, 4) + _u(free)
+                    + b"\0" * (free - 16))
+            addr = self.alloc(blob)
+            for i, v in enumerate(chunk, 1):
+                self.strings[v] = (addr, i)
+
+    # --- object headers -----------------------------------------------------
+    def header(self, msgs: List[Tuple[int, bytes]]) -> int:
+        body = b""
+        for mtype, data in msgs:
+            data = _pad8(data)
+            if len(data) > 0xFFFF:
+                raise ValueError("an object header message over 64 KiB")
+            body += _u(mtype, 2) + _u(len(data), 2) + bytes(4) + data
+        return self.alloc(bytes([1, 0]) + _u(len(msgs), 2) + _u(1, 4)
+                          + _u(len(body), 4) + bytes(4) + body)
+
+    def attribute(self, name: str, value) -> bytes:
+        nm = name.encode("utf-8") + b"\0"
+        if isinstance(value, str) or (isinstance(value, (list, tuple))
+                                      and all(isinstance(v, (str, bytes))
+                                              for v in value) and value):
+            vals = [value] if isinstance(value, str) else [
+                v.decode() if isinstance(v, bytes) else v for v in value]
+            shape = () if isinstance(value, str) else (len(vals),)
+            utf8 = not all(v.isascii() for v in vals)
+            dt = _vlen_str_type(utf8)
+            data = b"".join(_u(len(v.encode("utf-8")), 4)
+                            + _u(self.strings[v][0])
+                            + _u(self.strings[v][1], 4) for v in vals)
+        else:
+            arr = np.ascontiguousarray(value)
+            shape, dt, data = arr.shape, _dtype_msg(arr.dtype), arr.tobytes()
+        space = _space_msg(tuple(shape))
+        return (bytes([1, 0]) + _u(len(nm), 2) + _u(len(dt), 2)
+                + _u(len(space), 2) + _pad8(nm) + _pad8(dt) + _pad8(space)
+                + data)
+
+    def attr_msgs(self, attrs: Dict) -> List[Tuple[int, bytes]]:
+        return [(0x0C, self.attribute(k, v)) for k, v in attrs.items()]
+
+    # --- objects --------------------------------------------------------------
+    def dataset(self, arr: np.ndarray) -> int:
+        arr = np.ascontiguousarray(arr)
+        if arr.dtype.byteorder == ">":
+            raise ValueError("the fixture writer writes little-endian data")
+        addr = self.alloc(arr.tobytes()) if arr.nbytes else None
+        layout = (bytes([3, 1]) + (_u(addr) if addr is not None else _UNDEF)
+                  + _u(arr.nbytes))
+        return self.header([(0x01, _space_msg(arr.shape)),
+                            (0x03, _dtype_msg(arr.dtype)),
+                            (0x08, layout)])
+
+    def group(self, g: H5Group) -> Tuple[int, int, int]:
+        """(object header, B-tree, local heap) addresses of ``g``."""
+        entries = []
+        for name in sorted(g.members, key=lambda n: n.encode("utf-8")):
+            m = g.members[name]
+            if isinstance(m, H5Group):
+                hdr, bt, hp = self.group(m)
+                entries.append((name, hdr, (bt, hp)))
+            else:
+                entries.append((name, self.dataset(m), None))
+        heap, offsets = b"\0" * 8, {}
+        for name, _, _ in entries:
+            offsets[name] = len(heap)
+            heap += _pad8(name.encode("utf-8") + b"\0")
+        heap_data = self.alloc(heap)
+        heap_addr = self.alloc(b"HEAP" + bytes(4) + _u(len(heap)) + _u(1)
+                               + _u(heap_data))
+        # the leaves: SNODs of up to 2K links, then B-tree levels of up to
+        # 2K children; each key is the heap offset of the last name on its
+        # left (key 0 the empty name)
+        level = []
+        for i in range(0, len(entries), 2 * _LEAF_K):
+            part = entries[i:i + 2 * _LEAF_K]
+            body = b""
+            for name, hdr, cache in part:
+                scratch = (_u(cache[0]) + _u(cache[1])) if cache else bytes(16)
+                body += (_u(offsets[name]) + _u(hdr)
+                         + _u(1 if cache else 0, 4) + bytes(4) + scratch)
+            body += bytes(40 * (2 * _LEAF_K - len(part)))
+            level.append((self.alloc(b"SNOD" + bytes([1, 0])
+                                     + _u(len(part), 2) + body),
+                          offsets[part[-1][0]]))
+        depth = 0
+        while True:
+            nodes = []
+            for i in range(0, max(len(level), 1), 2 * _NODE_K):
+                part = level[i:i + 2 * _NODE_K]
+                body = _u(0)
+                for child, last in part:
+                    body += _u(child) + _u(last)
+                body += bytes(16 * (2 * _NODE_K - len(part)))
+                nodes.append((self.alloc(b"TREE" + bytes([0, depth])
+                                         + _u(len(part), 2) + _UNDEF
+                                         + _UNDEF + body),
+                              part[-1][1] if part else 0))
+            if len(nodes) == 1:
+                btree = nodes[0][0]
+                break
+            level, depth = nodes, depth + 1
+        hdr = self.header([(0x11, _u(btree) + _u(heap_addr))]
+                          + self.attr_msgs(g.attrs))
+        return hdr, btree, heap_addr
+
+    def file(self, root: H5Group) -> bytes:
+        strings: List[str] = []
+
+        def gather(g: H5Group):
+            for v in g.attrs.values():
+                if isinstance(v, str):
+                    strings.append(v)
+                elif isinstance(v, (list, tuple)):
+                    strings.extend(x.decode() if isinstance(x, bytes) else x
+                                   for x in v)
+            for m in g.members.values():
+                if isinstance(m, H5Group):
+                    gather(m)
+
+        gather(root)
+        self.heap_strings(strings)
+        hdr, btree, heap = self.group(root)
+        self.out += b"\0" * (-len(self.out) % 8)
+        sb = (b"\x89HDF\r\n\x1a\n" + bytes([0, 0, 0, 0, 0, 8, 8, 0])
+              + _u(_LEAF_K, 2) + _u(_NODE_K, 2) + _u(0, 4)
+              + _u(0) + _UNDEF + _u(len(self.out)) + _UNDEF
+              + _u(0) + _u(hdr) + _u(1, 4) + bytes(4) + _u(btree) + _u(heap))
+        self.out[:96] = sb
+        return bytes(self.out)
+
+
+def write_hdf5(root: H5Group) -> bytes:
+    """The bytes of an HDF5 file holding ``root``'s tree."""
+    return _H5Writer().file(root)
+
+
+# --- Keras ResNet-50 (legacy .h5) ------------------------------------------------------
+
+KERAS_VERSION = "3.13.1"
+KERAS_BN_EPS = 1.001e-5
+#: a ``Sequential([Input((40, V)), LSTM(128), Dense(V, "softmax")])`` of
+#: keras-io's character model; V is the corpus's character count
+CHAR_LSTM = {"maxlen": 40, "units": 128}
+
+_DTYPE_POLICY = {"module": "keras", "class_name": "DTypePolicy",
+                 "config": {"name": "float32"}, "registered_name": None}
+
+
+def _init(cls: str, **config) -> Dict:
+    return {"module": "keras.initializers", "class_name": cls,
+            "config": config, "registered_name": None}
+
+
+def _ktensor(src: str, shape) -> Dict:
+    return {"class_name": "__keras_tensor__",
+            "config": {"shape": [None] + list(shape), "dtype": "float32",
+                       "keras_history": [src, 0, 0]}}
+
+
+class _KerasGraph:
+    """Keras 3's functional ``model_config`` as the legacy ``.h5`` holds
+    it: per layer ``class_name``, ``config``, ``name``, ``inbound_nodes``
+    (``keras_history`` tensors), in Keras's topological order."""
+
+    def __init__(self, image: int):
+        self.layers: List[Dict] = [{
+            "class_name": "InputLayer",
+            "config": {"batch_shape": [None, image, image, 3],
+                       "dtype": "float32", "sparse": False, "ragged": False,
+                       "name": "input_layer", "optional": False},
+            "name": "input_layer", "inbound_nodes": []}]
+        self.shape = {"input_layer": (image, image, 3)}
+
+    def add(self, cls: str, name: str, srcs: Sequence[str], shape,
+            kwargs: Optional[Dict] = None, **config) -> str:
+        tensors = [_ktensor(s, self.shape[s]) for s in srcs]
+        args = [tensors] if len(tensors) > 1 else tensors
+        self.layers.append({
+            "class_name": cls,
+            "config": {"name": name, "trainable": True,
+                       "dtype": dict(_DTYPE_POLICY), **config},
+            "name": name,
+            "inbound_nodes": [{"args": args, "kwargs": kwargs or {}}]})
+        self.shape[name] = tuple(shape)
+        return name
+
+    def conv(self, name: str, src: str, filters: int, k: int, stride: int,
+             padding: str = "valid") -> str:
+        h, w, _ = self.shape[src]
+        if padding == "valid":
+            h, w = (h - k) // stride + 1, (w - k) // stride + 1
+        else:
+            h, w = -(-h // stride), -(-w // stride)
+        return self.add(
+            "Conv2D", name, [src], (h, w, filters), filters=filters,
+            kernel_size=[k, k], strides=[stride, stride], padding=padding,
+            data_format="channels_last", dilation_rate=[1, 1], groups=1,
+            activation="linear", use_bias=True,
+            kernel_initializer=_init("GlorotUniform", seed=None),
+            bias_initializer=_init("Zeros"), kernel_regularizer=None,
+            bias_regularizer=None, activity_regularizer=None,
+            kernel_constraint=None, bias_constraint=None)
+
+    def bn(self, name: str, src: str) -> str:
+        return self.add(
+            "BatchNormalization", name, [src], self.shape[src],
+            kwargs={"mask": None}, axis=3, momentum=0.99,
+            epsilon=KERAS_BN_EPS, center=True, scale=True,
+            beta_initializer=_init("Zeros"), gamma_initializer=_init("Ones"),
+            moving_mean_initializer=_init("Zeros"),
+            moving_variance_initializer=_init("Ones"),
+            beta_regularizer=None, gamma_regularizer=None,
+            beta_constraint=None, gamma_constraint=None, synchronized=False)
+
+    def relu(self, name: str, src: str) -> str:
+        return self.add("Activation", name, [src], self.shape[src],
+                        activation="relu")
+
+    def pad(self, name: str, src: str, p: int) -> str:
+        h, w, c = self.shape[src]
+        return self.add("ZeroPadding2D", name, [src], (h + 2 * p, w + 2 * p,
+                                                      c),
+                        padding=[[p, p], [p, p]], data_format="channels_last")
+
+
+def _keras_blocks(blocks: Sequence[int], widths: Sequence[int]):
+    """(prefix, width, stride, conv shortcut) per block of Keras's
+    ``stack1``: the stride on the block's first 1x1 convolution and on its
+    shortcut."""
+    for si, (n, w) in enumerate(zip(blocks, widths)):
+        for bi in range(n):
+            yield (f"conv{si + 2}_block{bi + 1}", w,
+                   2 if si > 0 and bi == 0 else 1, bi == 0)
+
+
+def keras_resnet50_config(blocks=RESNET50_BLOCKS, widths=RESNET50_WIDTHS,
+                          image: int = 224, classes: int = 1000) -> Dict:
+    """The ``model_config`` of ``keras.applications.ResNet50(weights=None,
+    input_shape=(image, image, 3), classes=classes)`` as Keras 3 writes it
+    to a legacy ``.h5``."""
+    g = _KerasGraph(image)
+    h = g.pad("conv1_pad", "input_layer", 3)
+    h = g.conv("conv1_conv", h, widths[0], 7, 2)
+    h = g.relu("conv1_relu", g.bn("conv1_bn", h))
+    h = g.pad("pool1_pad", h, 1)
+    hh, ww, c = g.shape[h]
+    h = g.add("MaxPooling2D", "pool1_pool", [h],
+              ((hh - 3) // 2 + 1, (ww - 3) // 2 + 1, c), pool_size=[3, 3],
+              padding="valid", strides=[2, 2], data_format="channels_last")
+    for p, w, s, shortcut in _keras_blocks(blocks, widths):
+        x = g.relu(f"{p}_1_relu", g.bn(f"{p}_1_bn", g.conv(
+            f"{p}_1_conv", h, w, 1, s)))
+        x = g.relu(f"{p}_2_relu", g.bn(f"{p}_2_bn", g.conv(
+            f"{p}_2_conv", x, w, 3, 1, "same")))
+        if shortcut:
+            sc = g.conv(f"{p}_0_conv", h, 4 * w, 1, s)
+            x = g.conv(f"{p}_3_conv", x, 4 * w, 1, 1)
+            sc = g.bn(f"{p}_0_bn", sc)
+        else:
+            sc = h
+            x = g.conv(f"{p}_3_conv", x, 4 * w, 1, 1)
+        x = g.bn(f"{p}_3_bn", x)
+        x = g.add("Add", f"{p}_add", [sc, x], g.shape[x])
+        h = g.relu(f"{p}_out", x)
+    h = g.add("GlobalAveragePooling2D", "avg_pool", [h], (g.shape[h][-1],),
+              data_format="channels_last", keepdims=False)
+    g.add("Dense", "predictions", [h], (classes,), units=classes,
+          activation="softmax", use_bias=True,
+          kernel_initializer=_init("GlorotUniform", seed=None),
+          bias_initializer=_init("Zeros"), kernel_regularizer=None,
+          bias_regularizer=None, kernel_constraint=None,
+          bias_constraint=None, quantization_config=None)
+    return {"class_name": "Functional",
+            "config": {"name": "resnet50", "trainable": True,
+                       "layers": g.layers,
+                       "input_layers": ["input_layer", 0, 0],
+                       "output_layers": ["predictions", 0, 0]}}
+
+
+def keras_resnet50_weights(config: Dict, seed: int = 0) -> Dict[str, Dict]:
+    """Seeded weights by layer, in Keras's layouts and ``weight_names``
+    order: convolutions HWIO (He-normal) with small biases, BatchNorm's
+    gamma, beta, moving mean and variance (not the identity; gains of 0.1
+    to 0.3 on each block's last BatchNorm), the Dense kernel ``[in,
+    out]``."""
+    rng = np.random.default_rng(seed)
+    chans = {"input_layer": 3}
+    out: Dict[str, Dict[str, np.ndarray]] = {}
+    for l in config["config"]["layers"]:
+        name, c = l["name"], l["config"]
+        srcs = [t["config"]["keras_history"][0]
+                for node in l["inbound_nodes"] for a in node["args"]
+                for t in (a if isinstance(a, list) else [a])]
+        cin = chans.get(srcs[0]) if srcs else None
+        if l["class_name"] == "Conv2D":
+            k, o = c["kernel_size"][0], c["filters"]
+            out[name] = {
+                "kernel": (rng.standard_normal((k, k, cin, o),
+                                               dtype=np.float32)
+                           * np.float32(np.sqrt(2.0 / (cin * k * k)))),
+                "bias": (0.01 * rng.standard_normal(o)).astype(np.float32)}
+            chans[name] = o
+        elif l["class_name"] == "BatchNormalization":
+            gain = (0.1, 0.3) if name.endswith("_3_bn") else (0.8, 1.2)
+            out[name] = {
+                "gamma": rng.uniform(*gain, cin).astype(np.float32),
+                "beta": (0.1 * rng.standard_normal(cin)).astype(np.float32),
+                "moving_mean": (0.1 * rng.standard_normal(cin)
+                                ).astype(np.float32),
+                "moving_variance": rng.uniform(0.5, 1.5, cin
+                                               ).astype(np.float32)}
+            chans[name] = cin
+        elif l["class_name"] == "Dense":
+            o = c["units"]
+            out[name] = {
+                "kernel": (rng.standard_normal((cin, o), dtype=np.float32)
+                           * np.float32(np.sqrt(1.0 / cin))),
+                "bias": (0.01 * rng.standard_normal(o)).astype(np.float32)}
+            chans[name] = o
+        elif srcs:
+            chans[name] = cin
+    return out
+
+
+def keras_legacy_h5(config: Dict, weights: Dict[str, Dict]) -> bytes:
+    """A Keras 3 legacy ``.h5``: ``model_config`` and the weights under
+    ``model_weights/<layer>/<layer>/<variable>``, each layer group's
+    ``weight_names`` in order (an empty float64 array for a layer without
+    weights, as h5py stores Keras's empty list), and Keras's empty
+    ``top_level_model_weights`` group."""
+    import json
+
+    names = [l["name"] for l in config["config"]["layers"]]
+    root = H5Group({"backend": "tensorflow", "keras_version": KERAS_VERSION,
+                    "model_config": json.dumps(config)})
+    mw = root.group("model_weights")
+    mw.attrs.update({"backend": "tensorflow", "keras_version": KERAS_VERSION,
+                     "layer_names": names})
+    for name in names:
+        g = mw.group(name)
+        ws = weights.get(name, {})
+        g.attrs["weight_names"] = ([f"{name}/{k}" for k in ws] if ws
+                                   else np.zeros((0,), np.float64))
+        for k, v in ws.items():
+            g.group(name).members[k] = v
+    mw.group("top_level_model_weights").attrs["weight_names"] = np.zeros(
+        (0,), np.float64)
+    return write_hdf5(root)
+
+
+def keras_resnet50_h5(seed: int = 0, blocks=RESNET50_BLOCKS,
+                      widths=RESNET50_WIDTHS, image: int = 224,
+                      classes: int = 1000) -> bytes:
+    """Keras ResNet-50 (published widths by default) as a legacy ``.h5``."""
+    cfg = keras_resnet50_config(blocks, widths, image, classes)
+    return keras_legacy_h5(cfg, keras_resnet50_weights(cfg, seed))
+
+
+# --- keras-io's character LSTM (.keras zip) ----------------------------------------------
+
+
+def keras_char_lstm(vocab: int, seed: int = 0, maxlen: int = CHAR_LSTM["maxlen"],
+                    units: int = CHAR_LSTM["units"]) -> bytes:
+    """The character model as a Keras 3 ``.keras`` archive: the LSTM's
+    kernel ``[V, 4u]``, recurrent kernel ``[u, 4u]`` and bias (gates i, f,
+    c, o; the forget gate's bias 1, as ``unit_forget_bias``), the Dense
+    kernel ``[u, V]`` and bias; Glorot-uniform draws from ``seed``."""
+    import io
+    import json
+    import zipfile
+
+    rng = np.random.default_rng(seed)
+
+    def glorot(i, o):
+        lim = np.sqrt(6.0 / (i + o))
+        return rng.uniform(-lim, lim, (i, o)).astype(np.float32)
+
+    bias = np.zeros(4 * units, np.float32)
+    bias[units:2 * units] = 1.0
+
+    def layer(cls, name, **config):
+        return {"module": "keras.layers", "class_name": cls,
+                "config": {"name": name, "trainable": True,
+                           "dtype": dict(_DTYPE_POLICY), **config},
+                "registered_name": None}
+
+    lstm = layer("LSTM", "lstm", return_sequences=False, return_state=False,
+                 go_backwards=False, stateful=False, unroll=False,
+                 zero_output_for_mask=False, units=units, activation="tanh",
+                 recurrent_activation="sigmoid", use_bias=True,
+                 kernel_initializer=_init("GlorotUniform", seed=None),
+                 recurrent_initializer=_init("Orthogonal", seed=None,
+                                             gain=1.0),
+                 bias_initializer=_init("Zeros"), unit_forget_bias=True,
+                 kernel_regularizer=None, recurrent_regularizer=None,
+                 bias_regularizer=None, activity_regularizer=None,
+                 kernel_constraint=None, recurrent_constraint=None,
+                 bias_constraint=None, dropout=0.0, recurrent_dropout=0.0,
+                 seed=None)
+    lstm["build_config"] = {"input_shape": [None, maxlen, vocab]}
+    dense = layer("Dense", "dense", units=vocab, activation="softmax",
+                  use_bias=True,
+                  kernel_initializer=_init("GlorotUniform", seed=None),
+                  bias_initializer=_init("Zeros"), kernel_regularizer=None,
+                  bias_regularizer=None, kernel_constraint=None,
+                  bias_constraint=None, quantization_config=None)
+    dense["build_config"] = {"input_shape": [None, units]}
+    inp = {"module": "keras.layers", "class_name": "InputLayer",
+           "config": {"batch_shape": [None, maxlen, vocab],
+                      "dtype": "float32", "sparse": False, "ragged": False,
+                      "name": "input_layer", "optional": False},
+           "registered_name": None}
+    config = {"module": "keras", "class_name": "Sequential",
+              "config": {"name": "sequential", "trainable": True,
+                         "dtype": dict(_DTYPE_POLICY),
+                         "layers": [inp, lstm, dense],
+                         "build_input_shape": [None, maxlen, vocab]},
+              "registered_name": None,
+              "build_config": {"input_shape": [None, maxlen, vocab]},
+              "compile_config": {}}
+    root = H5Group()
+    root.group("vars").attrs["name"] = "sequential"
+    cell = root.group("layers/lstm/cell/vars")
+    cell.attrs["name"] = "lstm_cell"
+    cell.members.update({"0": glorot(vocab, 4 * units),
+                         "1": glorot(units, 4 * units), "2": bias})
+    root.group("layers/lstm/vars").attrs["name"] = "lstm"
+    dv = root.group("layers/dense/vars")
+    dv.attrs["name"] = "dense"
+    dv.members.update({"0": glorot(units, vocab),
+                       "1": np.zeros(vocab, np.float32)})
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w") as z:
+        z.writestr("metadata.json", json.dumps(
+            {"keras_version": KERAS_VERSION, "date_saved": "fixture"}))
+        z.writestr("config.json", json.dumps(config))
+        z.writestr("model.weights.h5", write_hdf5(root))
+    return buf.getvalue()

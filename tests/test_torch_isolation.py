@@ -1,6 +1,7 @@
 """The port stands alone: it never imports JAX or the JAX package, nor
-TensorFlow, protobuf or onnx (it reads and writes GraphDefs and ONNX models
-itself), and it runs on the card unless the caller asks for the CPU. The
+TensorFlow, Keras, protobuf, onnx or h5py (it reads and writes GraphDefs
+and ONNX models, and reads HDF5, itself), and it runs on the card unless
+the caller asks for the CPU. The
 scripts beside it (``chip_smoke.py``, ``profile_port.py`` and the import
 fixtures ``import_fixtures.py``) are held to the same."""
 
@@ -16,7 +17,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "deeplearning4j_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "deeplearning4j_tpu", "tensorflow",
-             "google.protobuf", "onnx")
+             "google.protobuf", "onnx", "h5py", "keras")
 
 
 def _forbidden(module: str) -> bool:
@@ -64,11 +65,15 @@ def test_scanner_catches_forbidden_imports(tmp_path):
                  "from google.protobuf import message\n"
                  "import google.protobufx\n"
                  "import onnx.helper\n"
-                 "import onnxruntime\n")
+                 "import onnxruntime\n"
+                 "import h5py\n"
+                 "from keras import layers\n"
+                 "import keras_nlp\n")
     found = [m for _, m in _imports(p) if _forbidden(m)]
     # (ast.walk visits the statements before the call inside one)
     assert found == ["jax", "deeplearning4j_tpu.nn", "tensorflow",
-                     "google.protobuf", "onnx.helper", "jax.numpy"]
+                     "google.protobuf", "onnx.helper", "h5py", "keras",
+                     "jax.numpy"]
 
 
 def test_import_in_fresh_process_pulls_no_jax():
@@ -139,12 +144,19 @@ def test_import_in_fresh_process_pulls_no_jax():
             "OnnxFrameworkImporter, supported_onnx_ops, onnx_ir, "
             "onnx_import)\n"
             "import import_fixtures\n"
+            "from deeplearning4j_tpu_torch.imports import (KerasModelImport, "
+            "import_functional, hdf5, keras_graph_import)\n"
+            "from deeplearning4j_tpu_torch import (NDArray, factory, "
+            "get_random, set_default_seed)\n"
+            "import deeplearning4j_tpu_torch.ops.random\n"
+            "import_fixtures.keras_char_lstm(vocab=5)\n"
             "import deeplearning4j_tpu_torch.ops.image, "
             "deeplearning4j_tpu_torch.ops.bitwise\n"
             "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', "
-            "'tensorflow') or m == 'deeplearning4j_tpu' or m.startswith(("
-            "'jax.', 'deeplearning4j_tpu.', 'tensorflow.', "
-            "'google.protobuf', 'onnx.')) or m == 'onnx']\n"
+            "'tensorflow', 'h5py', 'keras') or m == 'deeplearning4j_tpu' "
+            "or m.startswith(('jax.', 'deeplearning4j_tpu.', 'tensorflow.', "
+            "'google.protobuf', 'onnx.', 'h5py.', 'keras.')) "
+            "or m == 'onnx']\n"
             "assert not bad, bad\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))

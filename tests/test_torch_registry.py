@@ -19,9 +19,10 @@ The JAX package runs with x64 on, so ops that JAX computes in float64 on a
 Python scalar (``linspace``, float ``range``, ``eye``) are compared by
 value; the port returns float32 there.
 
-The ledger tests: the port's registry plus the 13 ``random`` ops is the JAX
-registry (318 + 13 = 331), each random op raises "not ported" naming
-ROADMAP A5, and every ported op has a case here or in the recurrent suite.
+The ledger tests: the port's registry is the JAX registry (331 ops), each
+of the 13 ``random`` ops runs from a generator to the JAX op's shape and
+dtype (their distributions are ``test_torch_random_ops.py``'s), and every
+other op has a case here or in the recurrent suite.
 """
 
 from __future__ import annotations
@@ -556,21 +557,52 @@ def test_op_parity(name, monkeypatch):
 
 
 def test_registry_is_jax_registry_but_random():
+    """The whole JAX registry: the 318 ops with parity cases and the 13
+    random ops, with the JAX families and differentiability."""
     ported = set(treg.all_ops())
-    assert len(ported) == 318
-    assert ported | RANDOM == set(jreg.all_ops())
-    assert not ported & RANDOM
-    assert treg.JAX_OPS == set(jreg.all_ops())
+    assert len(ported) == 331
+    assert ported == set(jreg.all_ops()) == treg.JAX_OPS
+    assert RANDOM <= ported and len(ported - RANDOM) == 318
     for name in ported:
         jd, td = jreg.get_op(name), treg.get_op(name)
         assert (td.family, td.differentiable) == (jd.family,
                                                   jd.differentiable), name
+    assert {n for n in ported if treg.get_op(n).family == "random"} == RANDOM
+
+
+_LOGITS = np.log(np.array([[0.1, 0.2, 0.3, 0.4, 0.0001]], np.float32))
+#: arguments after the key (the generator) of each random op
+RANDOM_ARGS = {
+    "random_uniform": (((3, 4),), {"low": -1.0, "high": 2.0}),
+    "random_normal": (((3, 4),), {"mean": 1.0, "stddev": 2.0}),
+    "random_truncated_normal": (((3, 4),), {}),
+    "random_lognormal": (((3, 4),), {}),
+    "random_bernoulli": (((3, 4),), {"p": 0.3}),
+    "random_binomial": (((3, 4), 5, 0.3), {}),
+    "random_exponential": (((3, 4),), {"lam": 2.0}),
+    "random_gamma": (((3, 4), 2.0), {"beta": 2.0}),
+    "random_poisson": (((3, 4), 3.0), {}),
+    "random_multinomial": ((_LOGITS, 7), {}),
+    "random_shuffle": ((r(4, 5, 3, seed=4),), {"axis": 1}),
+    "random_crop": ((r(4, 5, seed=5), (2, 3)), {}),
+    "dropout_bp": ((r(4, 5, seed=6), 0.3), {}),
+}
 
 
 @pytest.mark.parametrize("name", sorted(RANDOM))
 def test_random_ops_refuse_naming_roadmap(name):
-    with pytest.raises(NotImplementedError, match="A5"):
-        treg.get_op(name)
+    """Each random op runs through ``exec_op`` from a generator (where it
+    once refused, naming ROADMAP A5) to the JAX op's shape and dtype."""
+    args, kwargs = RANDOM_ARGS[name]
+    j = np.asarray(jreg.exec_op(name, jax.random.PRNGKey(0), *args,
+                                **kwargs))
+    g = torch.Generator().manual_seed(0)
+    t = treg.exec_op(name, g, *args, **kwargs)
+    assert tuple(t.shape) == j.shape, name
+    assert np.dtype(str(t.dtype).split(".")[-1]) == j.dtype, (t.dtype,
+                                                              j.dtype)
+    assert torch.isfinite(t.to(torch.float64)).all()
+    assert name in treg.validated_ops()
 
 
 def test_unknown_op_is_a_key_error():
@@ -579,4 +611,4 @@ def test_unknown_op_is_a_key_error():
 
 
 def test_every_ported_op_has_a_case():
-    assert set(treg.all_ops()) - RECURRENT == set(CASES)
+    assert set(treg.all_ops()) - RECURRENT - RANDOM == set(CASES)

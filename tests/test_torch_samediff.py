@@ -9,7 +9,7 @@ products and reductions sum in another order).
 Then a small SameDiff graph built in both packages from the same values:
 ``var``/``constant``/``convert_to_variables``/``output``/
 ``calculate_gradients``/``fit`` (Adam, dict batches and a ``(features,
-labels)`` tuple), and the parts not ported yet, which raise by name
+labels)`` tuple), and the parts once not ported, which run now
 (``save``/``load`` are ported: tests/test_torch_checkpoint.py).
 """
 
@@ -184,12 +184,12 @@ def test_registry_names_every_jax_op_and_ports_a_subset():
     jax_ops = jreg.all_ops()
     assert preg.JAX_OPS == frozenset(jax_ops)
     ported = preg.all_ops()
-    assert set(ported) <= preg.JAX_OPS and len(ported) == 318
+    assert set(ported) == preg.JAX_OPS and len(ported) == 331
     for n, d in ported.items():
         assert d.family == jax_ops[n].family, n
         assert d.differentiable == jax_ops[n].differentiable, n
     assert preg.has_op("batched_gemm") and preg.has_op("relu")
-    assert not preg.has_op("random_normal")
+    assert preg.has_op("random_normal")
     # every op of the parity cases above ran through exec_op (here, when
     # this test runs alone); tests/test_torch_registry.py runs the rest
     for name, args, kwargs in CASES.values():
@@ -198,8 +198,8 @@ def test_registry_names_every_jax_op_and_ports_a_subset():
     assert preg.validated_ops() >= cased
     report = preg.coverage_report()
     assert not set(report["missing"]) & cased
-    assert report["registered"] == 318
-    assert report["not_ported"] == len(jax_ops) - 318 == 13
+    assert report["registered"] == 331
+    assert report["not_ported"] == len(jax_ops) - 331 == 0
 
 
 # --- SameDiff ------------------------------------------------------------
@@ -294,19 +294,27 @@ def test_state_carry_over_resumes_the_jax_fit():
 
 
 def test_unported_parts_raise_by_name():
+    """What this file once listed as unported runs now: ``cond``,
+    ``while_loop`` and the random family (``tests/
+    test_torch_samediff_controlflow.py`` and ``test_torch_random_ops.py``
+    hold them to the JAX package); an unknown op still raises by name."""
     sd = _graph("torch")
     x = sd.get_variable("x")
-    for call, what in ((lambda: sd.cond(x, None, None), "cond"),
-                       (lambda: sd.while_loop(None, None, x), "while_loop")):
-        with pytest.raises(NotImplementedError, match=what):
-            call()
-    # the ops this file once listed as unported are ported now; the
-    # random family alone raises, naming ROADMAP A5
+    doubled = sd.cond(sd.math.greater(x.sum(), 0.0),
+                      lambda s, a: s.math.multiply(a, 2.0),
+                      lambda s, a: s.math.multiply(a, -2.0), x)
+    counted = sd.while_loop(lambda s, v: s.math.less(v, 3.0),
+                            lambda s, v: s.math.add(v, 1.0),
+                            sd.constant("zero", 0.0))
     for call in (lambda: -x, lambda: x ** 2, lambda: x.sum(),
                  lambda: sd.math.relu(x), lambda: sd.nn.dropout(x, 0.5)):
         call()
-    with pytest.raises(NotImplementedError, match="'random_normal'.*A5"):
-        sd.random_ops.random_normal
+    draw = sd.random_ops.random_normal((3, 2))
+    out = sd.output({"x": X}, [doubled.name, counted.name, draw.name])
+    want = X * (2.0 if X.sum() > 0 else -2.0)
+    np.testing.assert_allclose(out[doubled.name].numpy(), want, rtol=1e-6)
+    assert float(out[counted.name]) == 3.0
+    assert tuple(out[draw.name].shape) == (3, 2)
     with pytest.raises(KeyError, match="no_such_op"):
         preg.get_op("no_such_op")
     with pytest.raises(ValueError, match="not fed"):
