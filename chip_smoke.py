@@ -508,6 +508,50 @@ Phases (each fails the run with a nonzero exit if it fails):
                about 0.7737), multinomial rows against their logits,
                dropout_bp's zeros at its rate; an NDArray view write on the
                card reaches its base.
+40. parallel-resnet50 -- full-size ResNet-50 trained by ParallelWrapper
+               with four replicas on the one card (``Builder.devices``),
+               global batch 64 (16 a replica), fused_update on: (a) float32
+               Nesterovs state, 5 steps dense and 5 ZeRO-1
+               (ReduceScatterAccumulator) from the same parameters and
+               batches, deterministic cuDNN: losses and parameters bitwise
+               equal, 4 fused_update launches a step in each layout, ZeRO-1's
+               updater state a quarter (plus its padding) per replica by
+               the tensors, the zero1/* counters and memory_allocated around
+               the replicas' build; the variant (vector or scalar) each
+               replica's launch takes. A ZeRO-1 slice's launch timed beside
+               the whole bucket's (Nesterovs, bf16 state) and its bound.
+               (b) bf16 compute and state, 2 + 10 steps solo (model.fit at
+               batch 64), dense and ZeRO-1: images/s, step median, peak
+               memory, launches; after the steps every replica's parameters
+               (and, dense, updater state) bitwise the same. Four replicas
+               share one card: images/s is the wrapper's cost against the
+               solo fit, not a scaling figure. (c) two replicas, batch 8
+               at 64x64, two steps on the card and on the CPU from the
+               same parameters, float64 at Nesterovs 1e-3 (the per-leaf
+               updater), BN statistics set to the batch's own, TF32 off:
+               after the first step the parameters within 2e-3 of their
+               largest magnitude; the second step's difference reported
+               and held below its own size (PW_CPU_REL_TOL says why).
+41. parallel-encoded-elastic -- LeNet (bench.py's elastic smoke data: 8
+               batches of 64) with EncodedGradientsAccumulator(
+               AdaptiveThresholdAlgorithm()) at four replicas: the encode
+               density and the collective ledger after an epoch; stopped 3
+               steps into epoch 2, resize(3, lost_replicas=[1]): the
+               residual rows folded bitwise (survivors 0, 2, 3; row 1 added
+               onto row 0), their sum within 2 ulp; continued with
+               fit(resume_cursor=) to the end, grown back to 4 for an
+               epoch; finite losses; launches per replica per step. Then a
+               ZeRO-1 checkpoint written at 4 replicas (every 3 steps,
+               stopped after 5) resumed at 2 in ZeRO-1 and dense: bitwise
+               the same losses and parameters.
+42. parallel-integrity -- LeNet, four dense replicas, IntegrityListener
+               every 2 steps: bit 12 of replica 2's copy flipped after step
+               5 (apply_bitflip); caught at iteration 7 and attributed to
+               replica 2, the step discarded on every replica (their
+               digests as before it); resize(3, lost_replicas=[2]) and the
+               continuation bitwise equal to a fresh 3-replica run handed
+               the survivors' state; a digest on the card equals the same
+               bytes' on the host.
 
 Then it prints the kernels line (one JSON object) and, last, the device line
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
@@ -8128,6 +8172,660 @@ def phase_samediff_control_random(smi: str, dev) -> dict:
             "seconds": time.perf_counter() - t_phase}
 
 
+# --- phases 40-42: ParallelWrapper ---------------------------------------------
+
+PW_WORKERS = 4
+PW_BATCH = 64                 # bench.py's bench_zero1_smoke: 16 per replica
+PW_PARITY_STEPS = 5
+PW_WARMUP = 2
+PW_TIMED_STEPS = 10
+PW_CPU_BATCH = 8
+PW_CPU_STEPS = 2
+LENET_PW_BATCH = 64           # bench.py's bench_elastic_smoke
+LENET_PW_STEPS = 8            # batches per epoch
+
+
+class _Losses:
+    """The loss of every step as a float (a wait for the card each)."""
+
+    def __init__(self):
+        self.losses = []
+
+    def iteration_done(self, model, iteration, score):
+        self.losses.append(float(score))
+
+
+class _Interrupt(RuntimeError):
+    pass
+
+
+class _At:
+    """Calls ``fn(model)`` after iteration ``at``."""
+
+    def __init__(self, at: int, fn):
+        self.at = at
+        self.fn = fn
+
+    def iteration_done(self, model, iteration, score):
+        if iteration == self.at:
+            self.fn(model)
+
+
+def _interrupt(model):
+    raise _Interrupt(f"stopped after iteration {model._iteration}")
+
+
+def pw_wrapper(model, dev, acc=None, workers: int = PW_WORKERS):
+    """ParallelWrapper with ``workers`` replicas all on ``dev``."""
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+
+    b = ParallelWrapper.Builder(model).workers(workers).devices(
+        [dev] * workers)
+    if acc is not None:
+        b.gradients_accumulator(acc)
+    return b.build()
+
+
+def _bytes(tree) -> int:
+    from deeplearning4j_tpu_torch.util.model_serializer import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def replica_fps(pw, with_updater: bool) -> list:
+    """Each replica's digest of its parameters (and updater state)."""
+    from deeplearning4j_tpu_torch.common.integrity import (combine_fp,
+                                                           fingerprint_tree)
+
+    out = []
+    for r in range(pw.workers_count):
+        f = fingerprint_tree(pw.replica_params(r))
+        if with_updater:
+            f = combine_fp(f, fingerprint_tree(pw.replica_updater_state(r)))
+        out.append(int(f))
+    return out
+
+
+def shard_variants(pw) -> list:
+    """Which variant of fused_update each replica's launch takes: the
+    kernel's own alignment rule on the parameter slice it is given (the
+    gradient, moment and bit buffers are fresh allocations)."""
+    from deeplearning4j_tpu_torch.ops import update
+
+    plan = pw._plan
+    out = []
+    for r, rep in enumerate(pw._reps):
+        p = rep.store.params["flat::float32"]
+        if pw.accumulator.zero1:
+            p = plan.shard_slice(rep.store.params, r)["flat::float32"]
+        fresh = torch.empty(p.numel(), dtype=torch.float32, device=p.device)
+        head, vec = update._alignment(p, [fresh])
+        out.append({"elements": p.numel(), "offset_bytes":
+                    p.data_ptr() - rep.store.params["flat::float32"]
+                    .data_ptr(), "head": head,
+                    "variant": "vector" if vec else "scalar"})
+    return out
+
+
+def time_shard_update(dev, flush, shard: int, n_shards: int) -> dict:
+    """Nesterovs with bf16 state through the kernel on the last replica's
+    slice (``shard`` elements at ``(n_shards - 1) * shard`` into a bucket),
+    beside the same launch on the whole bucket, the plain version and the
+    bound (20 B/elem)."""
+    from deeplearning4j_tpu_torch.ops import update
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 40)
+    upd = _updater("nesterovs", "bfloat16")
+    sc = update._scalars(upd, "nesterovs", 3)
+    bucket = torch.randn(shard * n_shards, device=dev, generator=gen)
+    rows = {}
+    for name, p in (("shard", bucket[(n_shards - 1) * shard:]),
+                    ("whole", bucket[:RESNET50_PARAMS])):
+        n = p.numel()
+        g = torch.randn(n, device=dev, generator=gen).mul_(0.01)
+        v = torch.randn(n, device=dev, generator=gen).mul_(0.1).to(
+            torch.bfloat16)
+        bits = torch.randint(-2 ** 31, 2 ** 31, (n,), dtype=torch.int32,
+                             device=dev, generator=gen)
+        head, vec = update._alignment(p, [g, v, bits])
+        rows[name] = {
+            "elements": n, "head": head,
+            "variant": "vector" if vec else "scalar",
+            "ms": _time_ms(lambda: update.fused_update_cuda(
+                "nesterovs", sc, p, g, {"v": v}, bits, torch.bfloat16),
+                flush),
+            "plain_ms": _time_ms(lambda: update.fused_update_reference(
+                "nesterovs", sc, p, g, {"v": v}, bits, torch.bfloat16),
+                flush),
+            "bound_ms": 20 * n / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    return rows
+
+
+def _timed_fit(pw_or_model, ds, steps: int) -> list:
+    clock = StepClock()
+    pw_or_model.set_listeners(clock)
+    clock.start()
+    pw_or_model.fit(ds, epochs=steps)
+    return clock.step_ms(), clock.losses
+
+
+def phase_parallel_resnet50(smi: str, dev) -> dict:
+    """Phase 40: full-size ResNet-50 trained by four replicas on the card
+    (see the module docstring)."""
+    from deeplearning4j_tpu_torch.common.environment import Environment
+    from deeplearning4j_tpu_torch.common.profiler import OpProfiler
+    from deeplearning4j_tpu_torch.ops import update
+    from deeplearning4j_tpu_torch.parallel import ReduceScatterAccumulator
+
+    Environment.get().set_tf32(False)
+    prof = OpProfiler.get()
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    result = {"workers": PW_WORKERS, "batch": PW_BATCH}
+    try:
+        ds = synthetic_batch(PW_BATCH, dev, SEED + 40)
+        # (a) float32 state: dense against ZeRO-1, 5 steps from one init
+        runs = {}
+        for layout in ("dense", "zero1"):
+            torch.cuda.empty_cache()
+            model = train_model(dev, True, "bfloat16", None)
+            pw = pw_wrapper(model, dev, ReduceScatterAccumulator()
+                            if layout == "zero1" else None)
+            prof.reset()
+            torch.cuda.synchronize()
+            m0 = torch.cuda.memory_allocated()
+            pw._ensure_parallel_state()
+            torch.cuda.synchronize()
+            alloc = torch.cuda.memory_allocated() - m0
+            per = [_bytes(pw.replica_updater_state(r))
+                   for r in range(PW_WORKERS)]
+            variants = shard_variants(pw)
+            losses = _Losses()
+            pw.set_listeners(losses)
+            update.reset_launches()
+            pw.fit(ds, epochs=PW_PARITY_STEPS)
+            torch.cuda.synchronize()
+            runs[layout] = {
+                "losses": losses.losses,
+                "launches": update.fused_update_launches,
+                "alloc_bytes": alloc, "state_bytes_per_replica": per,
+                "zero1_counters": {k: v for k, v in
+                                   prof.get_counters().items()
+                                   if k.startswith("zero1/")},
+                "collectives": prof.collective_stats(),
+                "variants": variants,
+                "params": {n: {k: t.clone() for k, t in d.items()}
+                           for n, d in model._params.items()},
+                "init_fp": None}
+            pw.shutdown()
+            del pw, model
+        d, z = runs["dense"], runs["zero1"]
+        want = PW_WORKERS * PW_PARITY_STEPS
+        for layout, r in runs.items():
+            check(r["launches"] == want, f"[parallel-resnet50] {layout}: "
+                  f"fused_update launched {r['launches']} times in "
+                  f"{PW_PARITY_STEPS} steps (want {want}: one per replica)")
+            check(all(np.isfinite(r["losses"])), f"{layout} losses "
+                  f"{r['losses']}")
+        check(d["losses"] == z["losses"], f"ZeRO-1 losses {z['losses']} "
+              f"differ from dense {d['losses']}")
+        check(_same_bits(d["params"], z["params"]),
+              "ZeRO-1 parameters differ from dense after 5 steps")
+        dense_state, z_state = d["state_bytes_per_replica"], \
+            z["state_bytes_per_replica"]
+        check(len(set(z_state)) == 1 and len(set(dense_state)) == 1,
+              f"uneven state: {dense_state} {z_state}")
+        check(z["zero1_counters"].get("zero1/updater_state_bytes_per_replica")
+              == z_state[0], f"zero1 counters {z['zero1_counters']}")
+        pad = PW_WORKERS * z_state[0] - dense_state[0]
+        check(0 <= pad <= 16 * PW_WORKERS * 4, f"ZeRO-1 state {z_state[0]} B "
+              f"per replica is not a quarter of {dense_state[0]} B")
+        saved = sum(dense_state) - sum(z_state)
+        alloc_saved = d["alloc_bytes"] - z["alloc_bytes"]
+        # the caching allocator counts a large tensor's whole 2 MiB-rounded
+        # segment when the rest would be under 1 MiB: up to 2 MiB a replica
+        check(abs(alloc_saved - saved) <= 2 * 2 ** 20 * PW_WORKERS,
+              f"memory_allocated says ZeRO-1 saves {alloc_saved} B, the "
+              f"state sizes say {saved} B")
+        result["f32"] = {
+            "losses": d["losses"], "bitwise": True,
+            "launches_dense": d["launches"], "launches_zero1": z["launches"],
+            "state_bytes_per_replica_dense": dense_state[0],
+            "state_bytes_per_replica_zero1": z_state[0],
+            "alloc_bytes_dense": d["alloc_bytes"],
+            "alloc_bytes_zero1": z["alloc_bytes"],
+            "collectives_dense": d["collectives"],
+            "collectives_zero1": z["collectives"],
+            "variants_dense": d["variants"], "variants_zero1": z["variants"]}
+        log(f"[parallel-resnet50] (a) float32 Nesterovs state, {PW_WORKERS} "
+            f"replicas on one card, batch {PW_BATCH}: {PW_PARITY_STEPS} "
+            f"steps dense vs ZeRO-1 bitwise (losses {d['losses']}); "
+            f"fused_update launches {d['launches']} / {z['launches']}; "
+            f"updater state per replica {dense_state[0]} B dense, "
+            f"{z_state[0]} B ZeRO-1 (+{pad} B of padding over a quarter); "
+            f"memory_allocated for the replicas {d['alloc_bytes']} B vs "
+            f"{z['alloc_bytes']} B (saved {alloc_saved} B, state sizes say "
+            f"{saved} B); variants dense {[v['variant'] for v in d['variants']]}"
+            f" ZeRO-1 {[(v['offset_bytes'], v['variant']) for v in z['variants']]}; {smi}")
+        del runs, d, z
+        flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+        shard = result["f32"]["variants_zero1"][0]["elements"]
+        result["shard_update"] = time_shard_update(dev, flush, shard,
+                                                   PW_WORKERS)
+        su = result["shard_update"]
+        log(f"[parallel-resnet50] fused_update Nesterovs bf16 state: a "
+            f"ZeRO-1 slice of {su['shard']['elements']} elements "
+            f"({su['shard']['variant']} variant, head {su['shard']['head']})"
+            f" {su['shard']['ms']:.4f} ms (plain {su['shard']['plain_ms']:.4f}"
+            f", bound {su['shard']['bound_ms']:.4f}); the whole bucket of "
+            f"{su['whole']['elements']} ({su['whole']['variant']}) "
+            f"{su['whole']['ms']:.4f} ms (bound {su['whole']['bound_ms']:.4f});"
+            f" {smi}")
+        del flush
+        # (b) bf16 state: timed steps in each layout, beside the solo fit
+        timed = {}
+        for layout in ("solo", "dense", "zero1"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            model = train_model(dev, True, "bfloat16", "bfloat16")
+            target = model if layout == "solo" else pw_wrapper(
+                model, dev, ReduceScatterAccumulator()
+                if layout == "zero1" else None)
+            update.reset_launches()
+            ms, losses = _timed_fit(target, ds, PW_WARMUP + PW_TIMED_STEPS)
+            torch.cuda.synchronize()
+            ms = ms[PW_WARMUP:]
+            row = {"images_per_s": PW_BATCH * len(ms) / sum(ms) * 1e3,
+                   **_ms_stats(ms), "losses": losses,
+                   "peak_bytes": torch.cuda.max_memory_allocated(),
+                   "launches": update.fused_update_launches}
+            replicas = 1 if layout == "solo" else PW_WORKERS
+            check(row["launches"] == replicas * (PW_WARMUP + PW_TIMED_STEPS),
+                  f"[parallel-resnet50] bf16 {layout}: {row['launches']} "
+                  f"fused_update launches")
+            check(all(np.isfinite(losses)), f"bf16 {layout} losses {losses}")
+            if layout != "solo":
+                fps = replica_fps(target, layout == "dense")
+                row["replica_fps"] = fps
+                check(len(set(fps)) == 1, f"bf16 {layout}: replicas "
+                      f"disagree after {len(losses)} steps: {fps}")
+                target.shutdown()
+            timed[layout] = row
+            del target, model
+        result["bf16"] = timed
+        log(f"[parallel-resnet50] (b) bf16 compute and state, batch "
+            f"{PW_BATCH}: " + "; ".join(
+                f"{k} {v['images_per_s']:.2f} images/s, step median "
+                f"{v['step_ms_median']:.2f} ms (p10 {v['step_ms_p10']:.2f}, "
+                f"p90 {v['step_ms_p90']:.2f}), peak {v['peak_bytes']} B, "
+                f"fused_update {v['launches']}"
+                for k, v in timed.items())
+            + f"; replicas bitwise identical after the steps (dense: "
+            f"parameters and updater state; ZeRO-1: parameters); four "
+            f"replicas share the one card; {smi}")
+        # (c) the card against the port on the CPU, two replicas
+        result["cpu_parity"] = parallel_cpu_parity(dev)
+        cp = result["cpu_parity"]
+        log(f"[parallel-resnet50] (c) workers 2, batch {PW_CPU_BATCH} at "
+            f"{PW_CPU_IMAGE}x{PW_CPU_IMAGE}, Nesterovs {PW_CPU_LR}, float64, "
+            f"TF32 off, deterministic cuDNN, card vs CPU: after step 1 "
+            f"{cp['steps'][0]['rel']:.3e} of the largest |param| "
+            f"{cp['max_abs']:.4f} (bound {PW_CPU_REL_TOL}; the step moved "
+            f"them by {cp['steps'][0]['moved_rel']:.3e}), after step 2 "
+            f"{cp['steps'][1]['rel']:.3e} (moved {cp['steps'][1]['moved_rel']:.3e}"
+            f"); losses card {cp['losses_card']} CPU {cp['losses_cpu']}; "
+            f"{smi}")
+    finally:
+        torch.backends.cudnn.deterministic = det
+    torch.cuda.empty_cache()
+    return result
+
+
+#: phase 40 (c): the card's parameters against the CPU's after the first
+#: step, as a share of the largest parameter magnitude. ResNet-50 at
+#: random weights with 4 images a replica is chaotic, and BatchNorm sums
+#: its statistics in float32 in any dtype (as the JAX package does), so
+#: the card and the CPU differ at float32 rounding there (the first loss
+#: by 1.4e-7 relative). At 64x64 and Nesterovs 1e-3 in float64 the first
+#: step moves the parameters by 4.7e-2 of their largest and the card
+#: lands 4.0e-4 from the CPU (nudging the CPU's own input by 1e-7 moves
+#: them by 2.4e-5); the second step moves them by 7.6e-2 in all, and the
+#: card lands 2.8e-2 away (the nudge: 8.1e-3). At 224x224 or the model's
+#: 0.1 a nudge moves them more (max pooling's near-ties). So the first step
+#: is held to 2e-3 (4% of it: rounding meets it, a wrong exchange moves
+#: them by the step's order), and the second is reported and held below
+#: its own size (PERF.md, section 6).
+PW_CPU_REL_TOL = 2e-3
+PW_CPU_IMAGE = 64
+PW_CPU_LR = 1e-3
+
+
+def parallel_cpu_parity(dev) -> dict:
+    """Two replicas, batch 8 at 64x64, two steps on the card and on the
+    CPU from the same parameters, float64 (the per-leaf updater: the
+    kernel takes float32 buckets), BN's running statistics set to the
+    batch's own (the pivot of batchnorm_train's variance)."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.models import ResNet50, zoo
+    from deeplearning4j_tpu_torch.parallel.sharding import leaf_paths
+    from deeplearning4j_tpu_torch.util.calibrate import calibrate_batchnorm
+
+    rng = np.random.RandomState(SEED + 41)
+    x = rng.randn(PW_CPU_BATCH, 3, PW_CPU_IMAGE, PW_CPU_IMAGE)
+    y = np.eye(1000)[rng.randint(0, 1000, PW_CPU_BATCH)]
+    nets = {}
+    for where in ("card", "cpu"):
+        conf = ResNet50(num_classes=1000, image_size=PW_CPU_IMAGE,
+                        seed=SEED).conf()
+        gc = conf.global_conf
+        gc.dtype, gc.fused_update = "float64", False
+        gc.updater.learning_rate = PW_CPU_LR
+        nets[where] = zoo.network(conf).init(
+            device=dev if where == "card" else "cpu")
+    card, cpu = nets["card"], nets["cpu"]
+    with torch.no_grad():
+        for n, k in leaf_paths(cpu._params):
+            cpu._params[n][k].copy_(card._params[n][k])
+    calibrate_batchnorm(cpu, x)
+    card._states = {n: {k: v.to(dev) for k, v in d.items()}
+                    for n, d in cpu._states.items()}
+    init = {p: cpu._params[p[0]][p[1]].detach().clone()
+            for p in leaf_paths(cpu._params)}
+    top = max(t.abs().max().item() for t in init.values())
+    wrappers, losses = {}, {w: _Losses() for w in nets}
+    for where, net in nets.items():
+        wrappers[where] = pw_wrapper(
+            net, dev if where == "card" else torch.device("cpu"), workers=2)
+        wrappers[where].set_listeners(losses[where])
+    steps = []
+    for _ in range(PW_CPU_STEPS):
+        for pw in wrappers.values():
+            pw.fit(DataSet(x, y))        # one step; the next continues
+        a, b = nets["card"]._params, nets["cpu"]._params
+        diff = max((a[n][k].detach().cpu() - b[n][k]).abs().max().item()
+                   for n, k in leaf_paths(b))
+        moved = max((b[n][k] - init[(n, k)]).abs().max().item()
+                    for n, k in leaf_paths(b))
+        steps.append({"rel": diff / top, "moved_rel": moved / top})
+    for pw in wrappers.values():
+        pw.shutdown()
+    first, second = steps
+    msg = (f"[parallel-resnet50] card vs CPU by step: {steps}; losses card "
+           f"{losses['card'].losses} CPU {losses['cpu'].losses}")
+    check(first["rel"] <= PW_CPU_REL_TOL, msg + f" (first step > "
+          f"{PW_CPU_REL_TOL})")
+    check(second["rel"] < second["moved_rel"]
+          and all(np.isfinite(losses["card"].losses)), msg)
+    del nets, wrappers
+    return {"max_abs": top, "rel": first["rel"], "steps": steps,
+            "losses_card": losses["card"].losses,
+            "losses_cpu": losses["cpu"].losses}
+
+
+def lenet_pw_data(steps: int, seed: int = 0):
+    """bench.py's elastic smoke data: ``steps`` batches of random 28x28
+    images with one-hot labels of 10 classes."""
+    from deeplearning4j_tpu_torch.data import NDArrayDataSetIterator
+
+    rng = np.random.RandomState(seed)
+    n = steps * LENET_PW_BATCH
+    x = rng.randn(n, 1, 28, 28).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.randint(0, 10, n)]
+    return NDArrayDataSetIterator(x, y, batch_size=LENET_PW_BATCH)
+
+
+def lenet_pw_model(dev):
+    from deeplearning4j_tpu_torch.models import LeNet
+
+    net = LeNet().init(device=dev)
+    net.conf.global_conf.fused_update = True
+    return net
+
+
+def phase_parallel_encoded_elastic(smi: str, dev) -> dict:
+    """Phase 41: LeNet through the threshold-encoded exchange, shrunk and
+    grown online; a ZeRO-1 checkpoint from 4 replicas resumed at 2."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.common.environment import Environment
+    from deeplearning4j_tpu_torch.common.profiler import OpProfiler
+    from deeplearning4j_tpu_torch.common.tree import get_path, leaf_paths
+    from deeplearning4j_tpu_torch.ops import update
+    from deeplearning4j_tpu_torch.optimize.listeners import (
+        CheckpointListener)
+    from deeplearning4j_tpu_torch.parallel import (
+        AdaptiveThresholdAlgorithm, EncodedGradientsAccumulator,
+        ReduceScatterAccumulator)
+
+    Environment.get().set_tf32(False)
+    prof = OpProfiler.get()
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    result = {}
+    try:
+        it = lenet_pw_data(LENET_PW_STEPS)
+        model = lenet_pw_model(dev)
+        acc = EncodedGradientsAccumulator(
+            threshold_algorithm=AdaptiveThresholdAlgorithm())
+        pw = pw_wrapper(model, dev, acc)
+        prof.reset()
+        update.reset_launches()
+        losses = _Losses()
+        pw.set_listeners(losses, _At(LENET_PW_STEPS + 3, _interrupt))
+        t0 = time.perf_counter()
+        try:
+            pw.fit(it, epochs=3)
+            check(False, "the interrupting listener did not fire")
+        except _Interrupt:
+            pass
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches_4 = update.fused_update_launches
+        check(launches_4 == PW_WORKERS * (LENET_PW_STEPS + 3),
+              f"[parallel-encoded-elastic] {launches_4} fused_update "
+              f"launches in {LENET_PW_STEPS + 3} steps at 4 replicas")
+        stats = prof.collective_stats()
+        check(stats.get("encoded_steps") == LENET_PW_STEPS
+              and 0.0 < stats.get("encoded_density", 0) <= 1.0,
+              f"encoded ledger after one epoch: {stats}")
+        cursor = (model._epoch - model._fit_epoch0, model._steps_in_epoch)
+        check(cursor == (1, 3), f"cursor {cursor}")
+        before = pw._host_acc()
+        threshold = float(before["threshold"])
+        removed = pw.resize(3, lost_replicas=[1])
+        after = model._acc_state
+        worst_sum = 0.0
+        for p in leaf_paths(before["residual"]):
+            old = get_path(before["residual"], p)
+            new = get_path(after["residual"], p)
+            check(new.shape[0] == 3, f"residual rows {new.shape}")
+            check(torch.equal(new[0], old[0] + old[1])
+                  and torch.equal(new[1], old[2])
+                  and torch.equal(new[2], old[3]),
+                  f"residual rows of {p} not folded as survivors 0, 2, 3 "
+                  f"with lost row 1 added onto row 0")
+            d = (new.sum(0) - old.sum(0)).abs().max().item()
+            scale = old.abs().sum(0).max().item()
+            check(d <= 2 * 2.0 ** -24 * scale, f"residual sum of {p} moved "
+                  f"by {d} (> 2 ulp of {scale})")
+            worst_sum = max(worst_sum, d)
+        update.reset_launches()
+        pw.set_listeners(losses)
+        pw.fit(it, epochs=3, resume_cursor=cursor)
+        launches_3 = update.fused_update_launches
+        want3 = 3 * (LENET_PW_STEPS - 3 + LENET_PW_STEPS)
+        check(launches_3 == want3, f"{launches_3} fused_update launches at "
+              f"3 replicas (want {want3})")
+        pw.resize(4)
+        update.reset_launches()
+        pw.fit(it, epochs=1)
+        launches_grown = update.fused_update_launches
+        check(launches_grown == PW_WORKERS * LENET_PW_STEPS,
+              f"{launches_grown} fused_update launches after growing back")
+        check(all(np.isfinite(losses.losses)), f"losses {losses.losses}")
+        stats = prof.collective_stats()
+        result["encoded"] = {
+            "steps": len(losses.losses), "losses": losses.losses,
+            "density": stats.get("encoded_density"),
+            "collectives": stats, "threshold_at_shrink": threshold,
+            "final_threshold": float(model._acc_state["threshold"]),
+            "launches": {"4": launches_4, "3": launches_3,
+                         "4_again": launches_grown},
+            "removed": [repr(s) for s in removed],
+            "residual_sum_moved": worst_sum,
+            "elastic": prof.elastic_stats(), "first_fit_s": first_s}
+        log(f"[parallel-encoded-elastic] LeNet, encoded exchange "
+            f"(AdaptiveThresholdAlgorithm), batch {LENET_PW_BATCH}: density "
+            f"{stats.get('encoded_density'):.4f} over "
+            f"{stats.get('encoded_steps')} steps, threshold "
+            f"{threshold:.3e} at the shrink; 4 -> 3 (lost replica 1, cursor "
+            f"{cursor}): residual rows folded bitwise, row sums moved by "
+            f"{worst_sum:.3e}; 3 -> 4; {len(losses.losses)} finite losses "
+            f"(last {losses.losses[-1]:.4f}); fused_update launches "
+            f"{launches_4}/{launches_3}/{launches_grown}; ledger {stats}; "
+            f"elastic {prof.elastic_stats()}; {smi}")
+        pw.shutdown()
+        del pw, model
+        # a ZeRO-1 checkpoint at 4 replicas, resumed at 2: ZeRO-1 == dense
+        with tempfile.TemporaryDirectory(prefix="dl4j_pw_") as d:
+            model = lenet_pw_model(dev)
+            pw = pw_wrapper(model, dev, ReduceScatterAccumulator())
+            cl = CheckpointListener(d, save_every_n_iterations=3, keep_last=2)
+            pw.set_listeners(cl, _At(5, _interrupt))
+            try:
+                pw.fit(lenet_pw_data(LENET_PW_STEPS), epochs=2)
+            except _Interrupt:
+                pass
+            cl.close()
+            last = CheckpointListener.last_checkpoint(d)
+            check(last is not None, "no checkpoint committed")
+            pw.shutdown()
+            runs = {}
+            for layout in ("zero1", "dense"):
+                model = lenet_pw_model(dev)
+                pw = pw_wrapper(model, dev, ReduceScatterAccumulator()
+                                if layout == "zero1" else None, workers=2)
+                scores = _Losses()
+                pw.set_listeners(scores)
+                update.reset_launches()
+                pw.fit(lenet_pw_data(LENET_PW_STEPS), epochs=2,
+                       resume_from=last)
+                torch.cuda.synchronize()
+                runs[layout] = (scores.losses, model._params,
+                                update.fused_update_launches,
+                                model._ckpt_workers)
+                pw.shutdown()
+        (zl, zp, zn, zw), (dl, dp, dn, dw) = runs["zero1"], runs["dense"]
+        check(zl == dl and _same_bits(zp, dp), "ZeRO-1 resumed at 2 "
+              "replicas from a 4-replica checkpoint differs from the dense "
+              "resume")
+        check(zw == 4 and zn == dn == 2 * len(zl),
+              f"checkpoint workers {zw}; launches {zn} / {dn}")
+        result["resume_4_to_2"] = {"losses": zl, "bitwise": True,
+                                   "launches": zn, "checkpoint_workers": zw,
+                                   "checkpoint": os.path.basename(last)}
+        log(f"[parallel-encoded-elastic] ZeRO-1 checkpoint at 4 replicas "
+            f"({os.path.basename(last)}) resumed at 2: ZeRO-1 and dense "
+            f"continuations bitwise ({len(zl)} steps, losses {zl}); "
+            f"fused_update {zn} launches each; {smi}")
+    finally:
+        torch.backends.cudnn.deterministic = det
+    return result
+
+
+def phase_parallel_integrity(smi: str, dev) -> dict:
+    """Phase 42: the replica-consistency check on four LeNet replicas: a
+    flipped bit found and named, the step discarded, the replica evicted
+    and training continued bitwise like a fresh run from the survivors."""
+    from deeplearning4j_tpu_torch.common import integrity
+    from deeplearning4j_tpu_torch.common.environment import Environment
+    from deeplearning4j_tpu_torch.ops import update
+
+    Environment.get().set_tf32(False)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    flip_at, check_every, epochs = 5, 2, 2
+    try:
+        model = lenet_pw_model(dev)
+        pw = pw_wrapper(model, dev)
+        lst = integrity.IntegrityListener(check_every=check_every)
+        seen = {}
+
+        def flip(m):
+            integrity.apply_bitflip(m, pw.mesh, {"replica": 2, "bit": 12,
+                                                 "offset": 7})
+
+        def capture(m):
+            seen["fps"] = replica_fps(pw, True)
+
+        pw.set_listeners(_At(flip_at, flip), _At(flip_at + 1, capture), lst)
+        update.reset_launches()
+        err = None
+        try:
+            pw.fit(lenet_pw_data(LENET_PW_STEPS), epochs=epochs)
+        except integrity.ReplicaCorruptionError as e:
+            err = e
+        check(err is not None, "the flipped bit was not caught")
+        check(err.replica == 2 and err.iteration == flip_at + 2,
+              f"caught replica {err.replica} at iteration {err.iteration} "
+              f"(want 2 at {flip_at + 2})")
+        launches = update.fused_update_launches
+        check(launches == PW_WORKERS * (flip_at + 2),
+              f"{launches} fused_update launches")
+        frozen = replica_fps(pw, True)
+        check(frozen == seen["fps"], "the diverged step was not discarded "
+              "on every replica")
+        check(len(set(frozen[:2] + frozen[3:])) == 1 and frozen[2] !=
+              frozen[0], f"survivors {frozen}")
+        cursor = (model._epoch - model._fit_epoch0, model._steps_in_epoch)
+        snap = integrity.materialize_from_survivors(
+            [(pw.replica_params(r), pw.replica_states(r),
+              pw.replica_updater_state(r)) for r in range(PW_WORKERS)], [2])
+        gen_state = model.generator().get_state()
+        it_, ep = model._iteration, model._epoch
+        pw.resize(3, lost_replicas=[2])
+        pw.set_listeners()
+        pw.fit(lenet_pw_data(LENET_PW_STEPS), epochs=epochs,
+               resume_cursor=cursor)
+        fresh = lenet_pw_model(dev)
+        fresh._params = {n: {k: t.to(dev) for k, t in d.items()}
+                         for n, d in snap[0].items()}
+        fresh._states = {n: {k: t.to(dev) for k, t in d.items()}
+                         for n, d in snap[1].items()}
+        fresh._updater_state = snap[2]
+        fresh._iteration, fresh._epoch = it_, ep
+        fresh.generator().set_state(gen_state)
+        pw2 = pw_wrapper(fresh, dev, workers=3)
+        pw2.fit(lenet_pw_data(LENET_PW_STEPS), epochs=epochs,
+                resume_cursor=cursor)
+        check(_same_bits(model._params, fresh._params),
+              "the evicted run differs from a fresh 3-replica run from the "
+              "survivors' state")
+        card_fp = int(integrity.fingerprint_tree(pw.replica_params(0)))
+        host_fp = integrity.host_fingerprint(pw.replica_params(0))
+        check(card_fp == host_fp, f"fingerprint on the card {card_fp} vs "
+              f"host {host_fp}")
+        result = {"caught_replica": err.replica,
+                  "caught_iteration": err.iteration,
+                  "launches_to_detection": launches,
+                  "fingerprints": lst.fingerprints,
+                  "frozen_fps": frozen, "continued_bitwise": True,
+                  "card_fp": card_fp, "host_fp": host_fp}
+        log(f"[parallel-integrity] LeNet, 4 replicas, check every "
+            f"{check_every}: bit 12 of replica 2 flipped after iteration "
+            f"{flip_at}; caught at iteration {err.iteration}, replica "
+            f"{err.replica}; the step discarded on every replica; evicted "
+            f"(4 -> 3) and continued bitwise like a fresh 3-replica run from "
+            f"the survivors; fingerprint on the card {card_fp} = host "
+            f"{host_fp}; {smi}")
+        pw.shutdown()
+        pw2.shutdown()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    return result
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
@@ -8218,6 +8916,10 @@ def main(argv=None) -> int:
         keras_r50 = phase_keras_resnet50(smi, dev)
         keras_lstm = phase_keras_lstm(smi, dev)
         sd_ctl = phase_samediff_control_random(smi, dev)
+        torch.cuda.empty_cache()
+        pw_r50 = phase_parallel_resnet50(smi, dev)
+        pw_enc = phase_parallel_encoded_elastic(smi, dev)
+        pw_int = phase_parallel_integrity(smi, dev)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -8291,7 +8993,20 @@ def main(argv=None) -> int:
         "launches_early_stopping":
             es_eval["early_stopping"]["fused_update_launches"],
         "launches_keras_resnet50": keras_r50["fused_update_launches"],
-        "launches_keras_lstm": keras_lstm["fused_update_launches"]})
+        "launches_keras_lstm": keras_lstm["fused_update_launches"],
+        "launches_parallel": {
+            "resnet50_dense_f32": pw_r50["f32"]["launches_dense"],
+            "resnet50_zero1_f32": pw_r50["f32"]["launches_zero1"],
+            **{f"resnet50_{k}_bf16": v["launches"]
+               for k, v in pw_r50["bf16"].items()},
+            "lenet_encoded": pw_enc["encoded"]["launches"],
+            "lenet_zero1_resume": pw_enc["resume_4_to_2"]["launches"],
+            "lenet_integrity": pw_int["launches_to_detection"]},
+        "parallel_variants": {
+            "dense": [v["variant"] for v in pw_r50["f32"]["variants_dense"]],
+            "zero1": [v["variant"]
+                      for v in pw_r50["f32"]["variants_zero1"]]},
+        "parallel_shard": pw_r50["shard_update"]})
     bp = bag_timing["path"]
     kernels.append({
         "name": "embedding_bag", "route": "cuda",
@@ -8403,7 +9118,10 @@ def main(argv=None) -> int:
                       "onnx_resnet50": onnx_r50, "tf_resnet50": tf_r50,
                       "onnx_encoder": onnx_enc, "samediff_kernels": sdk,
                       "keras_resnet50": keras_r50, "keras_lstm": keras_lstm,
-                      "samediff_control_random": sd_ctl},
+                      "samediff_control_random": sd_ctl,
+                      "parallel_resnet50": pw_r50,
+                      "parallel_encoded_elastic": pw_enc,
+                      "parallel_integrity": pw_int},
                      default=str),
           flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -16,7 +16,8 @@ Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); without a card and without that request they raise.
 
 Layer map (ported so far; see ROADMAP.md for what follows):
-  common/    environment (device + TF32 policy), dtype table, counters
+  common/    environment (device + TF32 policy), dtype table, counters,
+             replica-consistency fingerprints (integrity)
   imports/   TF frozen-GraphDef and ONNX import into SameDiff (protobuf
              wire-format readers and writers: no TensorFlow, no onnx),
              Keras .h5/.keras import into MultiLayerNetwork and
@@ -48,7 +49,11 @@ Layer map (ported so far; see ROADMAP.md for what follows):
   ui/        the stats storages that telemetry drains into
   models/    ResNet-50, LeNet, VGG16
   nlp/       Word2Vec (CBOW with negative sampling), tokenizers, vocabulary
-  parallel/  ParallelInference (the request micro-batcher), the flat
+  parallel/  ParallelWrapper (data-parallel training, one replica per
+             worker: dense, ZeRO-1 and threshold-encoded gradient
+             exchanges, elastic resize, the replica-consistency check),
+             meshes of device slots, the collectives over replicas,
+             ParallelInference (the request micro-batcher), the flat
              bucket layout (Zero1Plan)
   util/      weight, updater-state and Word2Vec carry-over from the JAX
              package (graphs, multilayer networks and SameDiff graphs)

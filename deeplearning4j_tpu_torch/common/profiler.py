@@ -25,7 +25,13 @@ The counter part of ``deeplearning4j_tpu/common/profiler.py``'s
   of these;
 - gauges (levels, set not added): ``precision/grads_flat_in_step`` (1 when
   the step's gradients were born in the flat buckets) and
-  ``precision/updater_state_bytes_<dtype>`` / ``..._total``.
+  ``precision/updater_state_bytes_<dtype>`` / ``..._total``;
+- data-parallel training (``parallel/wrapper.py``): the gradient-exchange
+  ledger ``collective/*`` and ``zero1/*`` (:meth:`OpProfiler.collective_stats`),
+  the elastic ledger ``elastic/*`` (:meth:`OpProfiler.elastic_stats`) and
+  the replica-consistency ledger ``integrity/*``
+  (:meth:`OpProfiler.integrity_stats`), with the JAX package's names; and
+  wall-clock sections (:meth:`OpProfiler.time_section`).
 
 The port runs eagerly, so a counter counts calls, where the JAX package,
 counting at trace time, counts traces.
@@ -34,6 +40,8 @@ counting at trace time, counts traces.
 from __future__ import annotations
 
 import threading
+import time
+from contextlib import contextmanager
 from typing import Dict, Optional
 
 
@@ -43,6 +51,7 @@ class OpProfiler:
 
     def __init__(self) -> None:
         self._counters: Dict[str, int] = {}
+        self._sections: Dict[str, Dict[str, float]] = {}
         self._counter_lock = threading.Lock()
 
     @classmethod
@@ -68,6 +77,69 @@ class OpProfiler:
         with self._counter_lock:
             return dict(self._counters)
 
+    @contextmanager
+    def time_section(self, name: str):
+        """Wall-clock time of the ``with`` block under ``name``: count,
+        total and largest seconds (:meth:`get_statistics`)."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            with self._counter_lock:
+                s = self._sections.setdefault(
+                    name, {"count": 0, "total_s": 0.0, "max_s": 0.0})
+                s["count"] += 1
+                s["total_s"] += dt
+                s["max_s"] = max(s["max_s"], dt)
+
+    def get_statistics(self) -> Dict[str, Dict[str, float]]:
+        with self._counter_lock:
+            return {k: dict(v) for k, v in self._sections.items()}
+
+    def _with_prefix(self, prefix: str) -> Dict[str, float]:
+        with self._counter_lock:
+            return {k.split("/", 1)[1]: v for k, v in self._counters.items()
+                    if k.startswith(prefix)}
+
+    def collective_stats(self) -> Dict[str, float]:
+        """The gradient-exchange ledger (the JAX package's
+        ``collective_stats``): bytes per collective kind, the ZeRO-1
+        updater-state footprint, and the encoded exchange's element counts
+        with their density and the wire-format estimate (4-byte indices,
+        or a 2-bit bitmap when that is smaller)."""
+        out = self._with_prefix("collective/")
+        with self._counter_lock:
+            for ctr in ("zero1/updater_state_bytes_total",
+                        "zero1/updater_state_bytes_per_replica"):
+                n = self._counters.get(ctr)
+                if n:
+                    out[ctr.replace("/", "_")] = n
+        sent = out.get("encoded_elems_sent")
+        total = out.get("encoded_elems_total")
+        if total:
+            out["encoded_density"] = sent / total
+            out["encoded_bytes_est"] = int(min(4 * sent, total // 4))
+            out["encoded_dense_bytes_equiv"] = int(4 * total)
+        return out
+
+    def elastic_stats(self) -> Dict[str, float]:
+        """The elastic ledger: resizes, shrinks, grows, the live worker
+        count, and the resize section's seconds."""
+        out = self._with_prefix("elastic/")
+        with self._counter_lock:
+            s = self._sections.get("elastic/resize")
+            if s:
+                out["resize_s"] = s["total_s"]
+                out["resize_count"] = s["count"]
+        return out
+
+    def integrity_stats(self) -> Dict[str, float]:
+        """The replica-consistency ledger: checks, divergences and
+        injected bit flips."""
+        return self._with_prefix("integrity/")
+
     def reset(self) -> None:
         with self._counter_lock:
             self._counters.clear()
+            self._sections.clear()

@@ -136,28 +136,38 @@ def pad_dataset(ds: Any, target: int) -> Tuple[Any, np.ndarray]:
 
 def stable_batches(data: Any, batch_size: Optional[int] = None,
                    pad_partial: bool = True, drop_remainder: bool = False,
-                   allow_multi: bool = False
+                   allow_multi: bool = False, round_to_multiple_of: int = 1
                    ) -> Iterator[Tuple[Any, np.ndarray, int]]:
     """``(dataset, w, n_real)`` with one leading size: the target of
-    :func:`resolve_batch_size` (else the first batch's size). Smaller
-    batches are dropped (``drop_remainder``) or padded with zero-weight
-    wrapped rows; larger ones, or all with ``pad_partial=False``, pass
-    through with ones."""
+    :func:`resolve_batch_size` (else the first batch's size), rounded up to
+    a multiple of ``round_to_multiple_of`` (a data-parallel fit's replica
+    count). Smaller batches are dropped (``drop_remainder``, against the
+    unrounded target) or padded with zero-weight wrapped rows; larger ones,
+    or all with ``pad_partial=False``, pass through with ones, padded only
+    to the multiple (``pipeline.py:173-221`` of the JAX package)."""
     target = resolve_batch_size(data, batch_size)
     prof = OpProfiler.get()
+    m = max(1, int(round_to_multiple_of))
     for ds in iter_datasets(data, batch_size, allow_multi):
         n = ds.num_examples()
         if target is None:
             target = n
-        if n == target:
+        tgt = -(-target // m) * m
+        if n == tgt:
             yield ds, np.ones((n,), np.float32), n
         elif drop_remainder and n < target:
             prof.count("pipeline/dropped_batches")
-        elif n > target or not pad_partial:
-            yield ds, np.ones((n,), np.float32), n
+        elif n > tgt or not pad_partial:
+            tgt_n = -(-n // m) * m
+            if tgt_n == n:
+                yield ds, np.ones((n,), np.float32), n
+            else:
+                prof.count("pipeline/padded_batches")
+                padded, w = pad_dataset(ds, tgt_n)
+                yield padded, w, n
         else:
             prof.count("pipeline/padded_batches")
-            padded, w = pad_dataset(ds, target)
+            padded, w = pad_dataset(ds, tgt)
             yield padded, w, n
 
 
@@ -189,7 +199,7 @@ def run_epochs(data: Any, epochs: int, batch_size: Optional[int],
                steps_per_dispatch: int, bind, place, dispatch,
                on_epoch, allow_multi: bool = False,
                skip: Optional[Tuple[int, int]] = None,
-               host_prefetch: int = 0) -> None:
+               host_prefetch: int = 0, round_to_multiple_of: int = 1) -> None:
     """The loop skeleton: per epoch, stable batches are bound
     (``bind(ds, w)``), placed ``prefetch`` ahead, and dispatched
     (``dispatch(group)``) in groups of ``steps_per_dispatch`` (the short
@@ -199,7 +209,8 @@ def run_epochs(data: Any, epochs: int, batch_size: Optional[int],
     host side up to a checkpoint's cursor (see the module docstring):
     completed epochs are drawn and dropped without ``on_epoch`` (its
     effects are in the restored state), then the resume epoch's first
-    ``steps_in_epoch`` stable batches."""
+    ``steps_in_epoch`` stable batches. ``round_to_multiple_of``: see
+    :func:`stable_batches`."""
     k = max(1, int(steps_per_dispatch))
     skip_epochs, skip_steps = skip if skip is not None else (0, 0)
     for e in range(max(1, epochs)):
@@ -209,7 +220,8 @@ def run_epochs(data: Any, epochs: int, batch_size: Optional[int],
             continue
         gen = stable_batches(data, batch_size, pad_partial=pad_partial,
                              drop_remainder=drop_remainder,
-                             allow_multi=allow_multi)
+                             allow_multi=allow_multi,
+                             round_to_multiple_of=round_to_multiple_of)
         if e == skip_epochs and skip_steps:
             skipped = sum(1 for _ in zip(range(skip_steps), gen))
             if skipped < skip_steps:

@@ -675,11 +675,12 @@ class ComputationGraph(TrainableNetwork):
         return self._place_batch(self._bind_batch(ds, None))[:3]
 
     def _loss(self, params, states, inputs, labels, masks,
-              training: bool, w=None):
+              training: bool, w=None, w_denom=None):
         """Mean loss over the outputs (with the example weights ``w``:
         ``sum(w * loss) / max(sum(w), 1)`` per output, so padded rows count
-        for nothing) plus l1/l2 regularisation (leaving out ``b`` and
-        ``beta``), and the new layer states."""
+        for nothing; ``w_denom`` replaces that divisor, as in
+        ``MultiLayerNetwork._loss``) plus l1/l2 regularisation (leaving out
+        ``b`` and ``beta``), and the new layer states."""
         acts, new_states = self._forward(params, states, inputs, training,
                                          to_preout=True)
         total = 0.0
@@ -704,8 +705,9 @@ class ComputationGraph(TrainableNetwork):
                 # cannot train: its own score of its input
                 s = layer.compute_score({}, pre, labels[out_name], mask,
                                         average=w is None)
-            total = total + (s if w is None
-                             else s / torch.clamp_min(w.sum(), 1.0))
+            total = total + (s if w is None else s / (
+                w_denom if w_denom is not None
+                else torch.clamp_min(w.sum(), 1.0)))
         gc = self.conf.global_conf
         reg = 0.0
         for lname in sorted(params):

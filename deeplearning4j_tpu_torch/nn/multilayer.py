@@ -340,7 +340,13 @@ class MultiLayerNetwork(TrainableNetwork):
 
     # --- loss --------------------------------------------------------------
     def _loss(self, params, states, x, labels, mask, training: bool,
-              fmask=None, w=None, rnn=None):
+              fmask=None, w=None, rnn=None, w_denom=None):
+        """``(loss, new_states)``. With example weights ``w`` the data loss
+        is ``sum(w * loss) / max(sum(w), 1)``; ``w_denom`` replaces that
+        divisor (a data-parallel replica divides by the global count of
+        real rows over the replica count, so the mean over replicas is the
+        mean over the batch's real rows: ``multilayer.py:321-329`` of the
+        JAX package)."""
         out_layer = self.layers[-1]
         if not hasattr(out_layer, "compute_score"):
             raise ValueError("the last layer must be a loss head "
@@ -369,7 +375,8 @@ class MultiLayerNetwork(TrainableNetwork):
             total = out_layer.compute_score(head, pre_in, labels,
                                             _fold_weights(mask, w),
                                             average=False)
-            data_loss = total / torch.clamp_min(w.sum(), 1.0)
+            data_loss = total / (w_denom if w_denom is not None
+                                 else torch.clamp_min(w.sum(), 1.0))
         gc = self.conf.global_conf
         reg = 0.0
         for key, layer in zip(self._keys, self.layers):

@@ -291,6 +291,15 @@ class CheckpointListener(TrainingListener):
         self._note_commit(path)
         return path
 
+    def save_now(self, model, tag: str) -> str:
+        """Snapshot ``model`` and commit it synchronously, outside the
+        iteration cadence (after an elastic resize, say); returns the
+        committed path."""
+        from ..util import checkpoint as _ckpt
+
+        return self._commit_snapshot(
+            _ckpt.snapshot_training_state(model, listeners=self._group), tag)
+
     def _commit_snapshot(self, snapshot: dict, tag: str) -> str:
         from ..util import checkpoint as _ckpt
 

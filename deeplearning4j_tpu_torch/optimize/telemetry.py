@@ -23,9 +23,15 @@ Host side, two listeners drain the aux: :class:`TelemetrySink` (every
 ``drain_every_n`` iterations one batched readback into a ``StatsStorage``,
 ``ui/stats.py``) and :class:`NanSentinelListener` (warn, skip, cull, raise).
 Attaching either through ``set_listeners`` turns the aux on
-(``wants_telemetry``). ``sharded_layer_stats`` and the fleet half of
-``"cull"`` (the vmapped fleet's alive mask) are not ported; on one model
-``"cull"`` behaves as ``"skip"``, as in the JAX package.
+(``wants_telemetry``). The fleet half of ``"cull"`` (the vmapped fleet's
+alive mask) is not ported; on one model ``"cull"`` behaves as ``"skip"``,
+as in the JAX package.
+
+Data-parallel training (``parallel/wrapper.py``) takes the non-finite
+counts on each replica's own gradients before the exchange and sums them
+(:func:`nonfinite_counts`), and under ZeRO-1 assembles the per-layer norms
+from the replicas' flat slices (:func:`sharded_layer_stats`): no whole
+gradient or update tensor is put together for telemetry.
 """
 
 from __future__ import annotations
@@ -44,7 +50,8 @@ from .listeners import TrainingListener
 logger = logging.getLogger("deeplearning4j_tpu_torch")
 
 __all__ = ["TelemetryConfig", "config_for", "groups", "layer_names",
-           "nonfinite_counts", "layer_stats", "apply_nan_guard",
+           "nonfinite_counts", "layer_stats", "sharded_layer_stats",
+           "apply_nan_guard",
            "clone_tree", "where_tree", "TelemetrySink",
            "NanSentinelListener"]
 
@@ -259,6 +266,48 @@ def layer_stats(params, new_params, grads, loss: torch.Tensor,
     }
 
 
+def sharded_layer_stats(loss: torch.Tensor, parts, n_layers: int,
+                        nonfinite: Optional[torch.Tensor] = None
+                        ) -> Dict[str, torch.Tensor]:
+    """:func:`layer_stats` from flat slices (ZeRO-1): ``parts`` holds, for
+    every replica and bucket, ``(segment_ids, grad_slice, new_param_slice,
+    old_param_slice)``, ``segment_ids`` mapping each position to its layer
+    slot (``n_layers``: the pad tail, dropped). Each part's sums of squares
+    are segment-summed (``index_add_``) on its device, then summed over the
+    parts in order on ``loss``'s device (the JAX package's
+    ``segment_sum`` + ``psum``, ``telemetry.py:188``). ``nonfinite``: the
+    counts from the replicas' raw gradients."""
+    dev = loss.device
+    sums = []
+    for seg, g, pn, po in parts:
+        z = torch.zeros((3, n_layers + 1), dtype=torch.float32,
+                        device=g.device)
+        g32 = g.to(torch.float32)
+        d32 = (pn - po).to(torch.float32)
+        p32 = pn.to(torch.float32)
+        z[0].index_add_(0, seg, g32 * g32)
+        z[1].index_add_(0, seg, d32 * d32)
+        z[2].index_add_(0, seg, p32 * p32)
+        sums.append(z.to(dev))
+    tot = sums[0]
+    for z in sums[1:]:
+        tot = tot + z
+    grad_norm, update_norm, param_norm = tot[:, :n_layers].sqrt()
+    nf = nonfinite if nonfinite is not None else torch.zeros(
+        (n_layers,), dtype=torch.int32, device=dev)
+    total = nf.sum(dtype=torch.int32) \
+        + (~torch.isfinite(loss)).to(torch.int32)
+    return {
+        "loss": loss,
+        "grad_norm": grad_norm,
+        "update_norm": update_norm,
+        "param_norm": param_norm,
+        "update_ratio": update_norm / torch.clamp_min(param_norm, 1e-12),
+        "nonfinite": nf,
+        "nonfinite_total": total,
+    }
+
+
 def apply_nan_guard(aux, new_params, params, new_states, states,
                     new_upd, upd_state):
     """The skip policy on trees: where the step produced a non-finite
@@ -319,7 +368,8 @@ class TelemetrySink(TrainingListener):
     buffered per iteration and every ``drain_every_n`` iterations (and at
     each epoch's end) read back in one copy. ``keep_every_n`` subsamples.
     Scalars per drained iteration: ``loss``, ``nonfinite_total``
-    (``skipped_updates`` under the guard), ``{grad_norm, update_norm,
+    (``skipped_updates`` under the guard; ``exchange_density`` under an
+    encoded gradient exchange), ``{grad_norm, update_norm,
     param_norm, update_ratio}/<layer>`` and, where non-zero,
     ``nonfinite/<layer>``."""
 
@@ -361,6 +411,9 @@ class TelemetrySink(TrainingListener):
                 int(aux["nonfinite_total"]))
             if "skipped" in aux:
                 put(self.session, "skipped_updates", it, int(aux["skipped"]))
+            if "exchange_density" in aux:
+                put(self.session, "exchange_density", it,
+                    float(aux["exchange_density"]))
             for series in ("grad_norm", "update_norm", "param_norm",
                            "update_ratio"):
                 vec = aux[series]

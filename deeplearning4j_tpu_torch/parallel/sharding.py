@@ -1,7 +1,8 @@
-"""The flat per-dtype bucket layout behind the fused weight update.
+"""The flat per-dtype bucket layout behind the fused weight update and
+ZeRO-1.
 
-Counterpart of the single-device part of ``Zero1Plan`` in
-``deeplearning4j_tpu/parallel/sharding.py``: a parameter tree
+Counterpart of ``Zero1Plan`` in ``deeplearning4j_tpu/parallel/sharding.py``:
+a parameter tree
 ``{node: {name: tensor}}`` (one level deeper under a wrapper layer,
 ``common/tree.py``) is raveled into one 1-D buffer per dtype (a
 "bucket", keyed ``flat::<dtype>``), zero-padded to a multiple of the shard
@@ -18,6 +19,19 @@ layout.
 version returns new arrays): the port's fused step keeps each float32
 bucket as one persistent tensor, exposes the parameters as views of it and
 updates the bucket in place.
+
+**ZeRO-1** (``parallel/wrapper.py`` with ``ReduceScatterAccumulator``):
+replica ``i`` owns elements ``[i*shard, (i+1)*shard)`` of every bucket
+(:meth:`Zero1Plan.shard_slice`). The layout does not depend on the replica
+count, only the zero tail does, so a flat state padded for N replicas moves
+to M exactly (:meth:`Zero1Plan.reshard_state`). ``shard_align=a`` rounds
+each shard to a multiple of ``a`` elements: the wrapper asks for 4, so every
+float32 shard starts on 16 bytes and ``fused_update`` takes its vector path
+on each (the JAX layout pads to a multiple of the replica count only; the
+padding never reaches a checkpoint, whose layout is the dense tree).
+
+Tensor parallelism (``tp_param_specs``, ``tp_shardings``, ``apply_tp``) is
+not ported yet: those raise, naming ROADMAP A7.
 """
 
 from __future__ import annotations
@@ -62,26 +76,39 @@ class Zero1Plan:
     ``flatten``/``unflatten`` move no arithmetic: ravel + concatenate and
     slice + view."""
 
-    def __init__(self, params: Tree, n_shards: int = 1):
+    def __init__(self, params: Tree, n_shards: int = 1,
+                 shard_align: int = 1):
         self.paths = leaf_paths(params)
         self.skeleton = skeleton(params)
         self.n_shards = int(n_shards)
         self.n_leaves = len(self.paths)
+        node_slot = {k: i for i, k in enumerate(sorted(params))}
         self.n_layers = len(groups(params))
         leaves = [get_path(params, p) for p in self.paths]
         by_dtype: Dict[str, List[int]] = {}
         for i, leaf in enumerate(leaves):
             by_dtype.setdefault(dtype_name(leaf.dtype), []).append(i)
+        unit = self.n_shards * max(1, int(shard_align))
         self.buckets: List[_Bucket] = []
+        self._bounds: Dict[str, Tuple[int, ...]] = {}
+        self._interval_layers: Dict[str, Tuple[int, ...]] = {}
         for dt, idxs in sorted(by_dtype.items()):
             sizes = tuple(int(leaves[i].numel()) for i in idxs)
             total = sum(sizes)
-            padded = -(-total // self.n_shards) * self.n_shards
-            self.buckets.append(_Bucket(
+            padded = -(-total // unit) * unit
+            b = _Bucket(
                 key=FLAT_PREFIX + dt, dtype=leaves[idxs[0]].dtype,
                 leaf_idx=tuple(idxs), sizes=sizes,
                 shapes=tuple(tuple(leaves[i].shape) for i in idxs),
-                total=total, padded=padded, shard=padded // self.n_shards))
+                total=total, padded=padded, shard=padded // self.n_shards)
+            self.buckets.append(b)
+            # each leaf's flat start and its telemetry layer slot; the pad
+            # tail [total, padded) falls in the overflow slot n_layers
+            self._bounds[b.key] = tuple(int(v) for v in
+                                        np.cumsum((0,) + sizes))
+            self._interval_layers[b.key] = tuple(
+                node_slot[self.paths[i][0]] for i in idxs) \
+                + (self.n_layers,)
 
     def _leaves(self, tree) -> list:
         try:
@@ -121,6 +148,38 @@ class Zero1Plan:
                 set_path(out, self.paths[i], flat[pos:pos + sz].reshape(shape))
                 pos += sz
         return sort_tree(out)
+
+    # -- shards ---------------------------------------------------------------
+    def shard_slice(self, flats: Dict[str, torch.Tensor],
+                    idx: int) -> Dict[str, torch.Tensor]:
+        """Replica ``idx``'s slice of every bucket (views)."""
+        return {b.key: flats[b.key][idx * b.shard:(idx + 1) * b.shard]
+                for b in self.buckets}
+
+    def unpadded_views(self, flats: Dict[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+        """Each bucket's live prefix ``[:total]``: the pad tail's length
+        depends on the replica count, so a digest
+        (``common/integrity.fingerprint_flats``) folds only this."""
+        return {b.key: flats[b.key][:b.total] for b in self.buckets}
+
+    def shard_segment_ids(self, key: str, idx: int, shard: int,
+                          device=None) -> torch.Tensor:
+        """The telemetry layer slot of each position of replica ``idx``'s
+        slice of bucket ``key`` (int64, ascending; the pad tail maps to
+        slot ``n_layers``), from the bucket's leaf boundaries."""
+        bounds = torch.tensor(self._bounds[key], dtype=torch.int64,
+                              device=device)
+        layers = torch.tensor(self._interval_layers[key], dtype=torch.int64,
+                              device=device)
+        pos = idx * shard + torch.arange(shard, dtype=torch.int64,
+                                         device=device)
+        k = torch.searchsorted(bounds, pos, right=True) - 1
+        return layers[k.clamp_max(len(self._interval_layers[key]) - 1)]
+
+    def bucket_bytes(self) -> int:
+        return sum(b.padded * torch.empty((), dtype=b.dtype).element_size()
+                   for b in self.buckets)
 
     # -- updater-state layout conversion ------------------------------------
     def _mirrors_params(self, v) -> bool:
@@ -170,6 +229,26 @@ class Zero1Plan:
                 "model")
         return arr.reshape(-1)[:b.total]
 
+    def _repad(self, arr, b: _Bucket) -> torch.Tensor:
+        """One bucket saved under any shard count, with this plan's
+        padding: the live elements untouched, the zero tail cut or
+        grown."""
+        live = self._strip(arr, b)
+        if not isinstance(live, torch.Tensor):
+            live = torch.from_numpy(np.ascontiguousarray(live))
+        if b.padded > b.total:
+            live = torch.cat([live, live.new_zeros((b.padded - b.total,))])
+        return live
+
+    def reshard_state(self, state):
+        """A flat state (any previous shard count) or a dense tree → the
+        flat state padded for THIS plan (new tensors)."""
+        if is_flat_state(state):
+            return {k: ({b.key: self._repad(v[b.key], b)
+                         for b in self.buckets} if _is_flat_dict(v) else v)
+                    for k, v in state.items()}
+        return self.flatten_state(state)
+
 
 def _is_flat_dict(v) -> bool:
     return (isinstance(v, dict) and bool(v)
@@ -182,6 +261,16 @@ def is_flat_state(state) -> bool:
     if not isinstance(state, dict) or not state:
         return False
     return any(_is_flat_dict(v) for v in state.values())
+
+
+def tp_param_specs(params, mesh, axis: str = "model"):
+    """Tensor-parallel placement is not ported yet (ROADMAP A7)."""
+    raise NotImplementedError(
+        "tensor parallelism (tp_param_specs, tp_shardings, apply_tp) is not "
+        "ported yet (ROADMAP A7)")
+
+
+tp_shardings = apply_tp = tp_param_specs
 
 
 def unflatten_updater_state(state, params: Tree):

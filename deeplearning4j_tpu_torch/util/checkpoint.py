@@ -41,8 +41,15 @@ the file, and adds its own generator state under ``torch_generator``
 (the JAX package reads only the keys it knows), so a port-written
 checkpoint resumes bitwise in the port.
 
-Not ported here (ROADMAP A7): the accumulator entry, the fleet extras,
-quarantining and scrubbing, group commits.
+A data-parallel fit (``parallel/wrapper.py``) adds the accumulator entry
+(``accumulatorState.npz``: the encoded exchange's residuals, threshold and
+counters, in the JAX package's host layout) and the live worker count in
+``resume.json``'s cursor; the snapshot first asks the wrapper for its
+state (the model's ``_parallel_sync``). The updater state on disk is always
+the dense tree, so a ZeRO-1 checkpoint restores under any worker count.
+
+Not ported here (ROADMAP A7): the fleet extras, quarantining and
+scrubbing, group commits.
 """
 
 from __future__ import annotations
@@ -63,6 +70,7 @@ import torch
 
 from ..common.profiler import OpProfiler
 from ..learning.precision import state_dtype_of
+from ..parallel.sharding import is_flat_state, unflatten_updater_state
 from .model_serializer import (COEFF_ENTRY, CONF_ENTRY, META_ENTRY,
                                STATES_ENTRY, UPDATER_ENTRY,
                                dense_updater_state, load_state_entries,
@@ -72,6 +80,7 @@ logger = logging.getLogger("deeplearning4j_tpu_torch")
 
 MANIFEST_NAME = "checkpoint.json"
 RESUME_ENTRY = "resume.json"
+ACC_ENTRY = "accumulatorState.npz"
 MANIFEST_FORMAT = 2
 #: the port's own key in resume.json
 GENERATOR_KEY = "torch_generator"
@@ -115,13 +124,20 @@ def _seed_key(seed: int) -> List[int]:
 def snapshot_training_state(model, listeners=None) -> Dict[str, Any]:
     """Host snapshot of everything a resume needs, taken on the training
     thread at a step boundary, with one readback."""
+    sync = getattr(model, "_parallel_sync", None)
+    if callable(sync):
+        sync()      # a data-parallel fit's updater and accumulator state
     upd = dense_updater_state(model)
+    acc = getattr(model, "_acc_state", None) or None
     trees = (model._params, model._states, upd if upd is not None else {})
     counts = [len(tree_leaves(t)) for t in trees]
     host = _host_copy([leaf for t in trees for leaf in tree_leaves(t)])
     params = host[:counts[0]]
     states = host[counts[0]:counts[0] + counts[1]]
     updater = host[counts[0] + counts[1]:] if upd is not None else None
+    # the wrapper hands its accumulator state over as host tensors already
+    accumulator = ([t.detach().to("cpu", copy=True) for t in tree_leaves(acc)]
+                   if acc is not None else None)
     gen = model._generator
     conf_json = getattr(model, "_ckpt_conf_json", None)
     if conf_json is None:
@@ -133,6 +149,7 @@ def snapshot_training_state(model, listeners=None) -> Dict[str, Any]:
         "kind": type(model).__name__,
         "conf_json": conf_json,
         "params": params, "states": states, "updater": updater,
+        "accumulator": accumulator,
         "state_dtype": state_dtype_of(model.conf.global_conf.updater),
         "iteration": int(model._iteration),
         "epoch": int(model._epoch),
@@ -144,7 +161,7 @@ def snapshot_training_state(model, listeners=None) -> Dict[str, Any]:
         "cursor": {
             "epochs_done": int(model._epoch) - int(fit_epoch0),
             "steps_in_epoch": int(getattr(model, "_steps_in_epoch", 0)),
-            "workers": 1},
+            "workers": int(getattr(model, "_live_workers", 1))},
         "listener_state": gather_listener_state(listeners),
     }
 
@@ -186,6 +203,8 @@ def serialize_snapshot(snapshot: Dict[str, Any]) -> bytes:
         }))
         if snapshot["updater"] is not None:
             zf.writestr(UPDATER_ENTRY, savez_leaves(snapshot["updater"]))
+        if snapshot.get("accumulator"):
+            zf.writestr(ACC_ENTRY, savez_leaves(snapshot["accumulator"]))
         resume = {"rng": snapshot["rng"], "cursor": snapshot["cursor"],
                   "listener_state": snapshot["listener_state"]}
         if snapshot.get("generator") is not None:
@@ -542,22 +561,38 @@ def restore_training_state(model, path: str, listeners=None,
     with zipfile.ZipFile(path) as zf:
         load_state_entries(zf, model, load_updater=True,
                            convert_state_dtype=convert_state_dtype)
+        # the accumulator state stays raw bytes until a wrapper with the
+        # owning accumulator reads it against its own template
+        model._acc_blob = (zf.read(ACC_ENTRY)
+                           if ACC_ENTRY in zf.namelist() else None)
+        model._acc_state = None
     resume = read_resume_state(path)
     if restore_rng:
         _restore_generator(model, resume, path)
     if listeners and resume.get("listener_state"):
         restore_listener_state(listeners, resume["listener_state"])
     cursor = resume.get("cursor") or {}
+    if cursor.get("workers") is not None:
+        # informational: the on-disk layout does not depend on it
+        model._ckpt_workers = int(cursor["workers"])
+        logger.info("checkpoint %s was taken under %d data-parallel "
+                    "worker(s)", os.path.basename(path), model._ckpt_workers)
     return {"epochs_done": int(cursor.get("epochs_done", 0)),
             "steps_in_epoch": int(cursor.get("steps_in_epoch", 0))}
 
 
-def begin_fit_cursor(model, resume_from: Optional[str], listeners=None):
+def begin_fit_cursor(model, resume_from: Optional[str], listeners=None,
+                     keep_flat: bool = False):
     """The resume setup of every fit: restore ``resume_from`` into the
     model and anchor the cursor (``_fit_epoch0`` pins epoch counting to
     the logical run; ``_steps_in_epoch`` counts the steps taken in the
     current epoch). Returns the pipeline's ``skip`` tuple, or None for a
-    fresh fit."""
+    fresh fit. ``keep_flat``: a ZeRO-1 fit takes a flat updater state as
+    it is; every other fit gets a flat state (left by a ZeRO-1 fit) as
+    the dense tree first."""
+    if not keep_flat and is_flat_state(model._updater_state):
+        model._updater_state = unflatten_updater_state(
+            model._updater_state, model._params)
     if resume_from is None:
         model._fit_epoch0 = model._epoch
         model._steps_in_epoch = 0

@@ -19,6 +19,7 @@ one encoder forward of the port spends its time, on the card.
     python3 profile_port.py --package DIR --bag  # DIR's port, this code
     python3 profile_port.py --alternate DIR --flash  # DIR's port and this
     python3 profile_port.py --bag-build "-DDL4J_BAG_STREAM=1" --word2vec
+    python3 profile_port.py --parallel  # ParallelWrapper step (phase 40)
 
 ``--package DIR`` imports ``deeplearning4j_tpu_torch`` from DIR (a checkout
 of another commit, e.g. ``git archive`` of the parent) instead of from
@@ -158,6 +159,15 @@ also the float32 kernel's measurement builds (FLASH_LEVERS: the TF32
 rounding by cvt.rna, and a build that counts each loop phase's clock64
 cycles per block), each bitwise-checked against the shipped build and
 timed in turns with it.
+
+With ``--parallel`` it times ResNet-50 (bf16 compute and state, global
+batch 64) as phase 40 trains it: one solo ``fit`` step, then one
+``ParallelWrapper`` step with four replicas on the card, dense and ZeRO-1
+(the host clock around a step that ends in a synchronise, median of 5
+after 2 warm-ups), each profiled over 3 steps (traces
+``chiprun_out/profile_port_parallel_<layout>.json.gz``): wall time, device
+busy time and share, device time by category, and the host time of one
+replica's forward and backward alone.
 
 The last line is one JSON object with the numbers.
 """
@@ -354,6 +364,71 @@ def train_main(dev, smi: str, name: str) -> int:
     result = {"device": name, "nvidia_smi": smi, "train_step_ms": ms,
               "images_per_s": cs.TRAIN_BATCH / ms * 1e3,
               "fused_update_ms_per_step": upd_ms, **prof}
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+def parallel_main(dev, smi: str, name: str) -> int:
+    from deeplearning4j_tpu_torch.parallel import ReduceScatterAccumulator
+
+    ds = cs.synthetic_batch(cs.PW_BATCH, dev, cs.SEED + 40)
+    result = {"device": name, "nvidia_smi": smi, "batch": cs.PW_BATCH,
+              "workers": cs.PW_WORKERS}
+    for layout in ("solo", "dense", "zero1"):
+        torch.cuda.empty_cache()
+        model = cs.train_model(dev, True, "bfloat16", "bfloat16")
+        target = model if layout == "solo" else cs.pw_wrapper(
+            model, dev, ReduceScatterAccumulator()
+            if layout == "zero1" else None)
+        for _ in range(2):
+            target.fit(ds)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            target.fit(ds)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(times)
+        print(f"[parallel] {layout}: step {ms:.3f} ms "
+              f"({cs.PW_BATCH / ms * 1e3:.1f} images/s), median of 5; {smi}",
+              flush=True)
+        prof = _profile(lambda: target.fit(ds), 3, f"{layout} step batch "
+                        f"{cs.PW_BATCH}", smi,
+                        f"profile_port_parallel_{layout}.json.gz")
+        row = {"step_ms": ms, **{k: prof[k] for k in (
+            "profiled_wall_ms", "device_ms", "device_ops_per_call",
+            "device_busy_share", "device_ms_by_category")}}
+        if layout == "dense":
+            # one replica's forward and backward alone, the host clock
+            rep = target._reps[0]
+            batch = target._place_batch(target._bind_batch(ds, np.ones(
+                (cs.PW_BATCH,), np.float32)))[0]
+            denom = torch.tensor(float(cs.PW_BATCH // cs.PW_WORKERS),
+                                 device=dev)
+
+            def replica_pass():
+                rep.store.bind_grads()
+                with torch.enable_grad():
+                    loss, _ = target._replica_loss(rep, batch, denom)
+                    loss.backward()
+
+            for _ in range(2):
+                replica_pass()
+            torch.cuda.synchronize()
+            host = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                replica_pass()
+                host.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+            row["replica_pass_host_ms"] = statistics.median(host)
+            print(f"[parallel] one replica's forward and backward at batch "
+                  f"{cs.PW_BATCH // cs.PW_WORKERS}: {row['replica_pass_host_ms']:.3f}"
+                  f" ms of host time to enqueue; {smi}", flush=True)
+            target.shutdown()
+        result[layout] = row
+        del target, model
     print(json.dumps(result), flush=True)
     return 0
 
@@ -1488,6 +1563,9 @@ def main() -> int:
     if "--mln" in sys.argv[1:]:
         cs.phase_build()
         return mln_main(dev, smi, name)
+    if "--parallel" in sys.argv[1:]:
+        cs.phase_build()
+        return parallel_main(dev, smi, name)
     if "--transfer" in sys.argv[1:]:
         cs.phase_build()
         return transfer_main(dev, smi, name)

@@ -152,6 +152,14 @@ def test_import_in_fresh_process_pulls_no_jax():
             "import_fixtures.keras_char_lstm(vocab=5)\n"
             "import deeplearning4j_tpu_torch.ops.image, "
             "deeplearning4j_tpu_torch.ops.bitwise\n"
+            "from deeplearning4j_tpu_torch.parallel import (ParallelWrapper, "
+            "ReduceScatterAccumulator, EncodedGradientsAccumulator, "
+            "AdaptiveThresholdAlgorithm, make_mesh, elastic_pool, "
+            "shard_batch, Zero1Plan, unflatten_updater_state)\n"
+            "from deeplearning4j_tpu_torch.parallel import (mesh, "
+            "accumulator, wrapper, _collectives)\n"
+            "from deeplearning4j_tpu_torch.common.integrity import ("
+            "IntegrityListener, fingerprint_tree, apply_bitflip)\n"
             "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', "
             "'tensorflow', 'h5py', 'keras') or m == 'deeplearning4j_tpu' "
             "or m.startswith(('jax.', 'deeplearning4j_tpu.', 'tensorflow.', "
@@ -283,3 +291,20 @@ def test_kernel_build_is_lazy():
     assert "_build" in str(cuda_lib.BUILD_DIR)
     if not torch.cuda.is_available():
         assert not cuda_lib._LIBS
+
+
+def test_parallel_wrapper_defaults_to_the_cards_and_raises_without_one():
+    from deeplearning4j_tpu_torch.models import LeNet
+    from deeplearning4j_tpu_torch.parallel import (ParallelWrapper,
+                                                   device_pool, make_mesh)
+
+    if torch.cuda.is_available():
+        assert all(s.device.type == "cuda" for s in device_pool())
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh(data=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        device_pool()
+    model = LeNet().init(device="cpu")
+    pw = ParallelWrapper.Builder(model).workers(2).build()
+    assert {s.device.type for s in pw.mesh.devices.flat} == {"cpu"}
