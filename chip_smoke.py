@@ -552,6 +552,34 @@ Phases (each fails the run with a nonzero exit if it fails):
                continuation bitwise equal to a fresh 3-replica run handed
                the survivors' state; a digest on the card equals the same
                bytes' on the host.
+43. serving-tier -- full-size ResNet-50 (224x224x3, 1000 classes, bf16,
+               fused epilogue) served by ServingEngine over the ladder 1-32
+               with 2 workers pinned to two slots on the card, max_wait 2
+               ms, resurrection after 100 ms, SLO classes gold / silver /
+               batch. (a) trace/serving_infer = 6 x 2 after warmup and flat
+               to the end (serving/traces_after_warmup 0), warmup seconds
+               per bucket; requests of 1, 3, 5, 8, 13, 32 images bitwise the
+               served forward of their padded bucket, sliced, and within
+               SV_UNPADDED_BOUND of the unpadded forward; 40 images split 32
+               + 8 in order, refused under a reject ladder. (b) the closed-
+               loop images/s of 8 clients (1-8 images a request), then an
+               open-loop Poisson load at 70% of it (p50/p99, images/s, fill
+               ratio, pad waste; nothing fails), one dispatch's parts, and a
+               replica killed mid-load (nothing fails, a requeue, the pool
+               back to 2). (c) a class-mixed overload made deterministic by
+               a slow dispatch fault: no gold shed, batch first, one level
+               a step, Retry-After within [0.1, 30] s. (d) the autoscaler
+               (1-4 workers) up on a backlog, down when idle, no new
+               warmup. (e) two fused_update steps committed by
+               CheckpointListener; a forced serving/promote violation rolls
+               back bitwise, a publication promotes with every slot's
+               fingerprint the checkpoint's as cast, both pub<N> chains in
+               the flight recorder; a flipped byte quarantined by the
+               scrubber and skipped by last_checkpoint(require_scrubbed).
+               (f) UIServer: POST /api/infer bitwise engine.output, 413 /
+               400 / 429 with Retry-After, /api/health and /api/metrics.
+               bn_act 53 launches a bucket forward over the phase, no
+               fallback.
 
 Then it prints the kernels line (one JSON object) and, last, the device line
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
@@ -565,6 +593,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import logging
 import os
 import re
 import statistics
@@ -8826,6 +8855,672 @@ def phase_parallel_integrity(smi: str, dev) -> dict:
     return result
 
 
+# --- phase 43: the serving tier ------------------------------------------------
+
+SV_LADDER = (1, 2, 4, 8, 16, 32)
+SV_SLOTS = 2                       # two device slots on the one card
+SV_SIZES = (1, 3, 5, 8, 13, 32)    # requests held bitwise to the bucket
+SV_CLIENTS = 8
+SV_CLOSED_S = 3.0                  # the closed-loop measurement
+SV_LOAD_S = 4.0                    # the open-loop Poisson load
+SV_LOAD_FRAC = 0.7                 # of the closed-loop rate
+SV_DRILL_S = 3.0
+SV_REQ_MAX = 8                     # images per request, 1..8
+SV_SLOW_S = 0.05                   # the injected dispatch delay of (c), (d)
+SV_OVERLOAD_RPS = 500.0
+SV_OVERLOAD_S = 2.0
+SV_CLASS_MIX = ("batch",) * 5 + ("silver",) * 3 + ("gold",) * 2
+# the largest gap between a served answer (its padded bucket, sliced) and
+# the forward on the unpadded rows, in probability. cuDNN picks its
+# convolution algorithms by batch size, and in bf16 another summation
+# order moves a probability by a few bf16 ulp: 3.418e-3 measured on an
+# H100 (PERF.md §6); the bound is 2^-6, 4.6x that
+SV_UNPADDED_BOUND = 2.0 ** -6
+
+
+def _sv_classes():
+    from deeplearning4j_tpu_torch.parallel import SLOClass
+
+    return [SLOClass("gold", 2, 2000.0, queue_budget=1024),
+            SLOClass("silver", 1, 3000.0, queue_budget=512),
+            SLOClass("batch", 0, 5000.0, queue_budget=512)]
+
+
+def _sv_poisson(eng, images, rps: float, seconds: float, seed: int,
+                classes=None, threads: int = 4) -> dict:
+    """Open-loop Poisson arrivals of 1-8-image requests at ``rps`` from
+    ``threads`` client threads for ``seconds``. Sheds (Overloaded) are
+    counted per class with their Retry-After; admitted requests resolve
+    through done callbacks. Returns latencies, failures, sheds, images and
+    the wall time."""
+    from deeplearning4j_tpu_torch.parallel import Overloaded
+
+    lock = threading.Lock()
+    out = {"lat": [], "lat_by": {}, "fail": [], "shed": {}, "retry": [],
+           "images": 0, "admitted": 0}
+    pending = []
+
+    def client(k: int) -> None:
+        r = np.random.RandomState(seed * 100 + k)
+        t0 = time.monotonic()
+        t_next = t0
+        while True:
+            t_next += r.exponential(threads / rps)
+            if t_next - t0 > seconds:
+                return
+            d = t_next - time.monotonic()
+            if d > 0:
+                time.sleep(d)
+            n = int(r.randint(1, SV_REQ_MAX + 1))
+            cls = (classes[r.randint(0, len(classes))] if classes
+                   else None)
+            try:
+                fut = eng.output_async(images[:n], slo_class=cls)
+            except Overloaded as e:
+                with lock:
+                    out["shed"][cls] = out["shed"].get(cls, 0) + 1
+                    out["retry"].append(e.retry_after_s)
+                continue
+
+            def done(f, t_sub=t_next, c=cls, n=n):
+                with lock:
+                    if f.exception() is not None:
+                        out["fail"].append(repr(f.exception()))
+                    else:
+                        lat = time.monotonic() - t_sub
+                        out["lat"].append(lat)
+                        out["lat_by"].setdefault(c, []).append(lat)
+                        out["images"] += n
+
+            fut.add_done_callback(done)
+            with lock:
+                out["admitted"] += 1
+                pending.append(fut)
+
+    t0 = time.monotonic()
+    ts = [threading.Thread(target=client, args=(k,)) for k in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    for f in list(pending):
+        f.exception(timeout=120)       # resolve without raising
+    out["wall"] = time.monotonic() - t0
+    return out
+
+
+def _sv_sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _sv_pct(lat, q) -> float:
+    return float(np.percentile(np.asarray(lat) * 1e3, q)) if lat else 0.0
+
+
+def _sv_breakdown(eng, x: np.ndarray, dev, ref_launches, runs: int = 5
+                  ) -> dict:
+    """The parts of one bucket dispatch, timed one after another on an idle
+    engine (medians over ``runs``): the host's wrap padding, the copy to
+    the card, the forward's enqueue (host) and its time on the card (CUDA
+    events), and the answer's copy back. Its bn_act launches are counted
+    into ``ref_launches`` (a measurement, not the path)."""
+    from deeplearning4j_tpu_torch.data import pad_rows
+    from deeplearning4j_tpu_torch.ops import epilogue
+
+    before = epilogue.bn_act_launches
+    b = eng.ladder.bucket_batch(len(x))
+    rec = {k: [] for k in ("pad_ms", "h2d_ms", "launch_ms", "device_ms",
+                           "d2h_ms")}
+    for _ in range(runs):
+        _sv_sync(dev)
+        t0 = time.perf_counter()
+        padded, _w = pad_rows(x, b)
+        t1 = time.perf_counter()
+        xd = torch.from_numpy(np.ascontiguousarray(padded)).to(dev)
+        _sv_sync(dev)
+        t2 = time.perf_counter()
+        if dev.type == "cuda":
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            e0.record()
+        y = eng.forward_bucket(*eng._dev_params[0], xd)
+        t3 = time.perf_counter()
+        if dev.type == "cuda":
+            e1.record()
+            e1.synchronize()
+            rec["device_ms"].append(e0.elapsed_time(e1))
+        t4 = time.perf_counter()
+        y.cpu()
+        t5 = time.perf_counter()
+        rec["pad_ms"].append((t1 - t0) * 1e3)
+        rec["h2d_ms"].append((t2 - t1) * 1e3)
+        rec["launch_ms"].append((t3 - t2) * 1e3)
+        rec["d2h_ms"].append((t5 - t4) * 1e3)
+    ref_launches[0] += epilogue.bn_act_launches - before
+    return {k: (statistics.median(v) if v else None) for k, v in rec.items()}
+
+
+def phase_serving_tier(smi: str, dev) -> dict:
+    """Phase 43: full-size ResNet-50 (bf16, fused epilogue) served by
+    ServingEngine over the ladder 1-32 with two device slots on the card:
+    warmup and bucket parity, a closed-loop and an open-loop load with a
+    replica killed mid-load, SLO admission under an injected overload, the
+    autoscaler, canaried publication with a forced rollback and the
+    checkpoint scrubber, and the HTTP front door."""
+    import json as _json
+    import tempfile
+    import urllib.error
+    import urllib.request
+
+    from deeplearning4j_tpu_torch.common import faultinject, flightrec
+    from deeplearning4j_tpu_torch.common.integrity import (
+        CheckpointScrubber, _flip_file_byte, host_fingerprint)
+    from deeplearning4j_tpu_torch.common.profiler import OpProfiler
+    from deeplearning4j_tpu_torch.data import NDArrayDataSetIterator, pad_rows
+    from deeplearning4j_tpu_torch.learning.precision import cast_floating
+    from deeplearning4j_tpu_torch.ops import epilogue
+    from deeplearning4j_tpu_torch.optimize import CheckpointListener
+    from deeplearning4j_tpu_torch.parallel import (
+        AutoscalePolicy, Autoscaler, BucketLadder, OversizeRequest,
+        ServingEngine)
+    from deeplearning4j_tpu_torch.parallel.serving import (
+        next_publication_ordinal)
+    from deeplearning4j_tpu_torch.ui import UIServer
+    from deeplearning4j_tpu_torch.util import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    prof = OpProfiler.get()
+    faultinject.clear_plan()
+    # the drills fire hundreds of faults; their warnings stay off stderr
+    port_log = logging.getLogger("deeplearning4j_tpu_torch")
+    log_level = port_log.level
+    port_log.setLevel(logging.ERROR)
+    flightrec.configure(capacity=1 << 17)
+    flightrec.reset()
+    model = build_model(dev)
+    set_fused(model, True)
+    model.conf.global_conf.compute_dtype = "bfloat16"
+    classes = model.conf.nodes["output"].layer.n_out
+    rng = np.random.default_rng(SEED + 43)
+    images = rng.normal(size=(40, 3, IMAGE, IMAGE)).astype(np.float32)
+    ref_launches = [0]
+
+    def ref_forward(x: np.ndarray) -> torch.Tensor:
+        """The model's functional forward of ``x`` with slot 0's serving
+        params, called directly (comparison only: its bn_act launches are
+        not the path's)."""
+        before = epilogue.bn_act_launches
+        y = eng.forward_bucket(*eng._dev_params[0],
+                               torch.from_numpy(np.ascontiguousarray(x))
+                               .to(dev)).cpu()
+        _sv_sync(dev)
+        ref_launches[0] += epilogue.bn_act_launches - before
+        return y
+
+    tmp = tempfile.TemporaryDirectory(prefix="dl4j_serving_")
+    eng = scaler = ui = None
+    result = {}
+    try:
+        # every count set to 0 just before the path is driven
+        prof.reset()
+        _reset_kernel_counts()
+        t0 = time.perf_counter()
+        eng = (ServingEngine.Builder(model).buckets(SV_LADDER)
+               .input_shape((3, IMAGE, IMAGE)).workers(SV_SLOTS)
+               .max_wait_ms(2).bf16(True).pin_devices(True)
+               .devices([dev] * SV_SLOTS).queue_limit(1024)
+               .request_timeout_ms(120_000)
+               .resurrect_dead_replicas(True, backoff_ms=100)
+               .slo_classes(_sv_classes())
+               .brownout(interval_s=0.1, depth_trigger=32, clear_ticks=5)
+               .queue_hwm_window(0.5).build())
+        _sv_sync(dev)
+        build_s = time.perf_counter() - t0
+        n_exec = len(SV_LADDER) * SV_SLOTS
+        traces = prof.counter_value("trace/serving_infer")
+
+        def flat(where: str) -> None:
+            n = prof.counter_value("trace/serving_infer")
+            check(n == n_exec, f"trace/serving_infer {n} {where} (want "
+                  f"{n_exec}: buckets x slots)")
+            check(prof.counter_value("serving/traces_after_warmup") == 0,
+                  f"serving/traces_after_warmup "
+                  f"{prof.counter_value('serving/traces_after_warmup')} "
+                  f"{where}")
+
+        flat("after warmup")
+        warm = {k: round(v, 4) for k, v in eng.warmup_timings.items()}
+        log(f"[serving-tier] warmup: {n_exec} (bucket, slot) forwards in "
+            f"{sum(eng.warmup_timings.values()):.3f} s (build "
+            f"{build_s:.3f} s); per bucket {warm}; {smi}")
+
+        # (a) buckets: bitwise to the padded bucket's forward, sliced
+        gap = 0.0
+        for n in SV_SIZES:
+            x = images[:n]
+            got = eng.output(x)
+            b = eng.ladder.bucket_batch(n)
+            want = ref_forward(pad_rows(x, b)[0])[:n]
+            check(tuple(got.shape) == (n, classes)
+                  and got.dtype == torch.float32,
+                  f"{n} images: shape {tuple(got.shape)} {got.dtype}")
+            check(bool(torch.isfinite(got).all()), f"{n} images: not finite")
+            check(torch.equal(got, want),
+                  f"{n} images through bucket {b} differ from the padded "
+                  f"bucket's forward by "
+                  f"{(got - want).abs().max().item():.3e}")
+            if n != b:
+                gap = max(gap, (got - ref_forward(x)).abs().max().item())
+        log(f"[serving-tier] (a) requests of {list(SV_SIZES)} images: "
+            f"bitwise the model's forward on the same padded bucket, "
+            f"sliced; largest gap to the unpadded forward {gap:.3e} "
+            f"(bound {SV_UNPADDED_BOUND:.0e}, in probability)")
+        check(gap <= SV_UNPADDED_BOUND, f"unpadded gap {gap:.3e} over "
+              f"{SV_UNPADDED_BOUND:.0e}")
+        split0 = prof.counter_value("serving/oversize_split")
+        got = eng.output(images[:40])
+        want = torch.cat([ref_forward(images[:32]),
+                          ref_forward(pad_rows(images[32:40], 8)[0])])
+        check(torch.equal(got, want), "a 40-image request is not 32 + 8 "
+              "in order")
+        check(prof.counter_value("serving/oversize_split") == split0 + 1,
+              "the 40-image request was not split")
+        eng.ladder.oversize = "reject"
+        try:
+            try:
+                eng.output_async(images[:40])
+                check(False, "a 40-image request under a reject ladder was "
+                      "admitted")
+            except OversizeRequest:
+                pass
+        finally:
+            eng.ladder.oversize = "split"
+        result["warmup_s"] = sum(eng.warmup_timings.values())
+        result["warmup_per_bucket_s"] = eng.warmup_timings
+        result["unpadded_gap"] = gap
+
+        # (b) closed loop, then an open-loop Poisson load at 70%, then a
+        # replica killed mid-load
+        served = {"images": 0}
+        stop = threading.Event()
+        cl_lat, cl_err = [], []
+        lock = threading.Lock()
+
+        def closed(k: int) -> None:
+            r = np.random.RandomState(SEED + k)
+            while not stop.is_set():
+                n = int(r.randint(1, SV_REQ_MAX + 1))
+                t1 = time.monotonic()
+                try:
+                    eng.output(images[:n])
+                except Exception as e:      # counted, then gated
+                    cl_err.append(repr(e))
+                    return
+                with lock:
+                    served["images"] += n
+                    cl_lat.append(time.monotonic() - t1)
+
+        ts = [threading.Thread(target=closed, args=(k,))
+              for k in range(SV_CLIENTS)]
+        b0 = prof.get_counters()
+        t1 = time.monotonic()
+        for t in ts:
+            t.start()
+        time.sleep(SV_CLOSED_S)
+        stop.set()
+        for t in ts:
+            t.join()
+        closed_wall = time.monotonic() - t1
+        check(not cl_err, f"closed-loop errors: {cl_err[:3]}")
+        closed_ips = served["images"] / closed_wall
+        b1 = prof.get_counters()
+        log(f"[serving-tier] (b) closed loop, {SV_CLIENTS} clients, 1-8 "
+            f"images a request: {closed_ips:.2f} images/s, p50 "
+            f"{_sv_pct(cl_lat, 50):.2f} ms p99 {_sv_pct(cl_lat, 99):.2f} "
+            f"ms, {b1.get('serving/batches', 0) - b0.get('serving/batches', 0)}"
+            f" batches; {smi}")
+        rps = SV_LOAD_FRAC * closed_ips / ((1 + SV_REQ_MAX) / 2)
+        c0 = prof.get_counters()
+        load = _sv_poisson(eng, images, rps, SV_LOAD_S, seed=1)
+        c1 = prof.get_counters()
+        check(not load["fail"], f"load failures: {load['fail'][:3]}")
+
+        def fill(a, b):
+            cap = b.get("serving/capacity_rows", 0) - a.get(
+                "serving/capacity_rows", 0)
+            rows = b.get("serving/rows", 0) - a.get("serving/rows", 0)
+            return (rows / cap if cap else 0.0), cap - rows
+
+        fr, pad = fill(c0, c1)
+        load_ips = load["images"] / load["wall"]
+        log(f"[serving-tier] (b) Poisson load at {SV_LOAD_FRAC:.0%} of the "
+            f"closed loop ({rps:.1f} requests/s): {load['admitted']} "
+            f"requests, 0 failed, p50 {_sv_pct(load['lat'], 50):.2f} ms p99 "
+            f"{_sv_pct(load['lat'], 99):.2f} ms, {load_ips:.2f} images/s, "
+            f"fill ratio {fr:.4f}, pad waste {1 - fr:.4f} ({pad} rows); {smi}")
+        retired0 = prof.counter_value("inference/replica_retired")
+        req0 = prof.counter_value("serving/requeued")
+        kill_at = prof.counter_value("serving/batches") + 20
+        faultinject.set_plan(faultinject.FaultPlan(
+            [{"site": "serving/dispatch", "kind": "dead_replica",
+              "index": kill_at}]))
+        drill = _sv_poisson(eng, images, rps, SV_DRILL_S, seed=2)
+        faultinject.clear_plan()
+        check(not drill["fail"], f"kill-drill failures: {drill['fail'][:3]}")
+        check(prof.counter_value("inference/replica_retired")
+              == retired0 + 1, "the kill drill retired no replica")
+        requeued = prof.counter_value("serving/requeued") - req0
+        check(requeued >= 1, "the kill drill requeued nothing")
+        deadline = time.monotonic() + 10
+        while eng.alive_replicas() < SV_SLOTS \
+                and time.monotonic() < deadline:
+            time.sleep(0.02)
+        check(eng.alive_replicas() == SV_SLOTS
+              and prof.counter_value("inference/replica_resurrected") >= 1,
+              f"the pool is at {eng.alive_replicas()} after the drill")
+        log(f"[serving-tier] (b) kill drill (dead_replica at dispatch "
+            f"{kill_at}): {drill['admitted']} requests, 0 failed, "
+            f"{requeued} requeued, pool back to {eng.alive_replicas()} by "
+            f"resurrection; p50 {_sv_pct(drill['lat'], 50):.2f} ms p99 "
+            f"{_sv_pct(drill['lat'], 99):.2f} ms")
+        flat("after the load")
+        parts = _sv_breakdown(eng, images[:20], dev, ref_launches)
+        ms = {k: ("not measured" if v is None else f"{v:.3f}")
+              for k, v in parts.items()}
+        log(f"[serving-tier] (b) one dispatch of 20 images in bucket 32, "
+            f"the engine idle (medians of 5, ms): pad on the host "
+            f"{ms['pad_ms']}, copy to the card {ms['h2d_ms']}, forward "
+            f"enqueued {ms['launch_ms']} (on the card {ms['device_ms']}), "
+            f"answer back {ms['d2h_ms']}")
+        result["dispatch_breakdown_ms"] = parts
+        result.update(
+            closed_images_per_s=closed_ips,
+            closed_p50_ms=_sv_pct(cl_lat, 50),
+            closed_p99_ms=_sv_pct(cl_lat, 99), load_rps=rps,
+            load_images_per_s=load_ips,
+            load_p50_ms=_sv_pct(load["lat"], 50),
+            load_p99_ms=_sv_pct(load["lat"], 99), fill_ratio=fr,
+            pad_waste=1 - fr, drill_p99_ms=_sv_pct(drill["lat"], 99),
+            drill_requeued=requeued)
+
+        # (c) admission under an injected overload
+        faultinject.set_plan(faultinject.FaultPlan(
+            [{"site": "serving/dispatch", "kind": "slow",
+              "seconds": SV_SLOW_S, "times": 10 ** 6}]))
+        over = _sv_poisson(eng, images, SV_OVERLOAD_RPS, SV_OVERLOAD_S,
+                           seed=4, classes=SV_CLASS_MIX)
+        faultinject.clear_plan()
+        check(not over["fail"], f"overload failures: {over['fail'][:3]}")
+        check(over["shed"].get("gold", 0) == 0
+              and prof.counter_value("serving/shed/gold") == 0,
+              f"gold shed: {over['shed']}")
+        check(over["shed"].get("batch", 0) > 0,
+              f"the overload shed no batch request: {over['shed']}")
+        shed_ev = [e["attrs"] for e in flightrec.events("serving/shed")]
+        check(shed_ev and all(abs(a["level"] - a["prev"]) == 1
+                              for a in shed_ev),
+              f"level changes {[(a['prev'], a['level']) for a in shed_ev]}")
+        check(all("batch" in a["shed"] for a in shed_ev if a["shed"]),
+              "silver shed while batch was admitted")
+        first_up = next((a for a in shed_ev if a["level"] > a["prev"]),
+                        None)
+        check(first_up is not None and first_up["shed"] == ["batch"],
+              f"first shed {first_up}")
+        check(all(0.1 <= r <= 30.0 for r in over["retry"]),
+              f"Retry-After outside [0.1, 30]: "
+              f"{min(over['retry'])}-{max(over['retry'])}")
+        log(f"[serving-tier] (c) overload ({SV_OVERLOAD_RPS:.0f} "
+            f"requests/s, +{SV_SLOW_S * 1e3:.0f} ms a dispatch): sheds "
+            f"{over['shed']}, gold 0; levels "
+            f"{[(a['prev'], a['level']) for a in shed_ev]}; Retry-After "
+            f"{min(over['retry']):.2f}-{max(over['retry']):.2f} s; gold p99 "
+            f"{_sv_pct(over['lat_by'].get('gold', []), 99):.2f} ms")
+        result["overload_shed"] = over["shed"]
+        result["shed_levels"] = [(a["prev"], a["level"]) for a in shed_ev]
+
+        # (d) the autoscaler: up on a backlog, down when idle
+        flat("before the autoscaler")
+        scaler = Autoscaler(eng, AutoscalePolicy(
+            min_workers=1, max_workers=4, interval_s=0.1, up_queue_depth=8,
+            up_p99_frac=50.0, down_idle_s=0.5, cooldown_up_s=0.3,
+            cooldown_down_s=0.5)).start()
+        t_up = time.monotonic()
+        faultinject.set_plan(faultinject.FaultPlan(
+            [{"site": "serving/dispatch", "kind": "slow",
+              "seconds": SV_SLOW_S, "times": 10 ** 6}]))
+        backlog = _sv_poisson(eng, images, 300.0, 1.5, seed=3)
+        faultinject.clear_plan()
+        check(not backlog["fail"], f"backlog failures: {backlog['fail'][:3]}")
+        deadline = time.monotonic() + 15
+        while time.monotonic() < deadline and eng.alive_replicas() > 1:
+            time.sleep(0.05)
+        scaler.stop()
+        scales = [e["attrs"] for e in flightrec.events("autoscale/scale")
+                  if e["m"] >= t_up]
+        ups = [a for a in scales if a["to"] > a["frm"]]
+        downs = [a for a in scales if a["to"] < a["frm"]]
+        check(any(a["reason"].startswith("queue_hwm") for a in ups),
+              f"no scale-up on the backlog: {scales}")
+        check(downs and eng.alive_replicas() == 1,
+              f"no scale-down to 1 when idle: {scales}, alive "
+              f"{eng.alive_replicas()}")
+        flat("across the resizes")
+        log(f"[serving-tier] (d) autoscaler 1-4: "
+            f"{[(a['frm'], a['to'], a['reason']) for a in scales]}; "
+            f"trace/serving_infer flat at {n_exec}")
+        eng.scale_to(SV_SLOTS, reason="phase 43")
+        deadline = time.monotonic() + 5
+        while eng.alive_replicas() != SV_SLOTS \
+                and time.monotonic() < deadline:
+            time.sleep(0.02)
+        result["autoscale"] = [(a["frm"], a["to"], a["reason"])
+                               for a in scales]
+
+        # (e) publication: two fused_update steps committed, a forced
+        # rollback, a promote, the scrubber
+        tm = train_model(dev, True, "bfloat16", "bfloat16")
+        tm._params = {n: {k: t.detach().clone() for k, t in d.items()}
+                      for n, d in model._params.items()}
+        tm._states = {n: {k: t.detach().clone() for k, t in d.items()}
+                      for n, d in model._states.items()}
+        ck_dir = os.path.join(tmp.name, "ckpt")
+        cl = CheckpointListener(ck_dir, save_every_n_iterations=1,
+                                keep_last=3)
+        tm.set_listeners(cl)
+        xs = rng.normal(size=(32, 3, IMAGE, IMAGE)).astype(np.float32)
+        ys = np.eye(classes, dtype=np.float32)[rng.integers(0, classes, 32)]
+        fu0 = _kernel_counts()["fused_update"]
+        hits0 = prof.counter_value("precision/fused_hits")
+        tm.fit(NDArrayDataSetIterator(xs, ys, batch_size=16), epochs=1)
+        cl.close()
+        check(not cl.errors(), f"checkpoint errors {cl.errors()}")
+        fused = _kernel_counts()["fused_update"] - fu0
+        check(fused == (2 if dev.type == "cuda" else 0)
+              and prof.counter_value("precision/fused_hits") - hits0 == 2,
+              f"{fused} fused_update launches in 2 steps")
+        paths = ckpt.committed_checkpoints(ck_dir)
+        check(len(paths) == 2, f"{len(paths)} checkpoints committed")
+        del tm
+        stop_gold = threading.Event()
+        gold_err = []
+
+        def gold_traffic() -> None:
+            while not stop_gold.is_set():
+                try:
+                    eng.output(images[:2], slo_class="gold")
+                except Exception as e:      # gated below
+                    gold_err.append(repr(e))
+                    return
+
+        def publish(path, **kw):
+            stop_gold.clear()
+            ts = [threading.Thread(target=gold_traffic) for _ in range(2)]
+            for t in ts:
+                t.start()
+            try:
+                h = eng.publish_checkpoint(path, canary_window_s=1.0,
+                                           confirm_window_s=1.0,
+                                           check_interval_s=0.05, **kw)
+                outcome = h.result(timeout=60)
+            finally:
+                stop_gold.set()
+                for t in ts:
+                    t.join()
+            return h, outcome
+
+        def slot_bits():
+            return [[t.cpu().clone() for t in ckpt.tree_leaves(p)
+                     + ckpt.tree_leaves(st)]
+                    for p, st in (eng._dev_params[i]
+                                  for i in sorted(eng._dev_params))]
+
+        before = slot_bits()
+        ordinal = next_publication_ordinal()
+        faultinject.set_plan(faultinject.FaultPlan(
+            [{"site": "serving/promote", "kind": "transient",
+              "index": ordinal}]))
+        h_rb, out_rb = publish(paths[0])
+        faultinject.clear_plan()
+        check(out_rb == "rolled_back", f"the forced violation ended "
+              f"{out_rb!r}")
+        after = slot_bits()
+        check(all(len(a) == len(b) and all(torch.equal(x, y)
+                                           for x, y in zip(a, b))
+                  for a, b in zip(before, after)),
+              "a slot's params after the rollback differ from before")
+        chain_rb = [e["name"] for e in flightrec.events(corr=h_rb.corr)]
+        check(chain_rb == ["serving/canary", "serving/promote",
+                           "serving/rollback"],
+              f"{h_rb.corr} chain {chain_rb}: "
+              f"{[e['attrs'] for e in flightrec.events(corr=h_rb.corr)]}")
+        h_pr, out_pr = publish(paths[1])
+        check(out_pr == "promoted", f"the publication ended {out_pr!r}: "
+              f"{[e['attrs'] for e in flightrec.events(corr=h_pr.corr)]}")
+        want_p, _ = ckpt.read_checkpoint_params(paths[1], model._params,
+                                                model._states)
+        want_fp = host_fingerprint(cast_floating(want_p, torch.bfloat16))
+        got_fp = [host_fingerprint(eng._dev_params[s][0])
+                  for s in range(SV_SLOTS)]
+        check(all(fp == want_fp for fp in got_fp),
+              f"served slots {got_fp} against the checkpoint {want_fp}")
+        chain_pr = [e["name"] for e in flightrec.events(corr=h_pr.corr)]
+        check(chain_pr == ["serving/canary", "serving/promote"],
+              f"{h_pr.corr} chain {chain_pr}")
+        scrub = CheckpointScrubber(ck_dir)
+        first = scrub.scrub_now()
+        check(first["verified"] == 2, f"scrub {first}")
+        _flip_file_byte(paths[1], 4096, 3)
+        second = scrub.scrub_now()
+        check(second["quarantined"] == 1, f"scrub {second}")
+        chosen = ckpt.last_checkpoint(ck_dir, require_scrubbed=True)
+        check(chosen == paths[0], f"last_checkpoint(require_scrubbed) gave "
+              f"{chosen}")
+        log(f"[serving-tier] (e) 2 fused_update steps committed; "
+            f"{h_rb.corr} {chain_rb} -> {out_rb}, every slot bitwise as "
+            f"before; {h_pr.corr} {chain_pr} -> {out_pr}, both slots' "
+            f"fingerprint {got_fp[0]} = the checkpoint's as cast; a byte "
+            f"flipped: scrub {second}, last_checkpoint(require_scrubbed) "
+            f"-> {os.path.basename(chosen)}")
+        check(not gold_err, f"gold requests failed during the "
+              f"publications: {gold_err[:3]}")
+        flat("after the publications")
+
+        # (f) the HTTP front door
+        ui = UIServer().attach_serving(eng)
+        port = ui.enable(0)
+        base = f"http://127.0.0.1:{port}"
+
+        def post(raw: bytes):
+            req = urllib.request.Request(
+                base + "/api/infer", data=raw,
+                headers={"Content-Type": "application/json"})
+            return urllib.request.urlopen(req, timeout=120)
+
+        def code_of(raw: bytes):
+            try:
+                with post(raw):
+                    return 200, None
+            except urllib.error.HTTPError as e:
+                return e.code, e.headers.get("Retry-After")
+
+        x2 = images[:2]
+        with post(_json.dumps({"inputs": x2.tolist()}).encode()) as r:
+            body = _json.loads(r.read())
+        http_out = torch.tensor(body["outputs"], dtype=torch.float32)
+        check(torch.equal(http_out, eng.output(x2)),
+              "POST /api/infer differs from engine.output")
+        ladder = eng.ladder
+        eng.ladder = BucketLadder((1, 2), oversize="reject")
+        try:
+            c413, _ = code_of(_json.dumps(
+                {"inputs": np.zeros((3, 3, IMAGE, IMAGE), np.float32)
+                 .tolist()}).encode())
+        finally:
+            eng.ladder = ladder
+        c400, _ = code_of(b"{not json")
+        ticks = eng._brownout.clear_ticks
+        eng._brownout.clear_ticks = 10 ** 9    # hold the level for the probe
+        eng._adm.set_level(1, reason="phase 43 http drill")
+        try:
+            c429, retry = code_of(_json.dumps(
+                {"inputs": images[:1].tolist(),
+                 "slo_class": "batch"}).encode())
+        finally:
+            eng._adm.set_level(0, reason="phase 43 http drill over")
+            eng._brownout.clear_ticks = ticks
+        check((c413, c400, c429) == (413, 400, 429)
+              and retry is not None and 1 <= int(retry) <= 30,
+              f"codes 413/400/429: {c413}/{c400}/{c429}, Retry-After "
+              f"{retry}")
+        with urllib.request.urlopen(base + "/api/health", timeout=60) as r:
+            health = _json.loads(r.read())
+        with urllib.request.urlopen(base + "/api/metrics", timeout=60) as r:
+            metrics = r.read().decode()
+        check(health["serving"]["engines"] >= 1
+              and health["serving"]["requests"] > 0,
+              f"/api/health serving {list(health.get('serving', {}))}")
+        check("dl4j_serving_latency_ms" in metrics,
+              "/api/metrics has no dl4j_serving_latency_ms")
+        log(f"[serving-tier] (f) POST /api/infer 2 images bitwise "
+            f"engine.output; 413 / 400 / 429 (Retry-After {retry} s); "
+            f"/api/health serving section, /api/metrics latency rows")
+
+        # the path's kernel: 53 bn_act launches a bucket forward, no
+        # fallback, over the whole phase
+        flat("at the end")
+        launches = epilogue.bn_act_launches - ref_launches[0]
+        forwards = prof.counter_value("serving/forwards")
+        hits = prof.counter_value("precision/epilogue_hits")
+        check(forwards > 0 and launches == 53 * forwards,
+              f"bn_act launched {launches} times for {forwards} bucket "
+              f"forwards (want 53 each)")
+        check(hits == 53 * forwards + ref_launches[0],
+              f"epilogue hits {hits}")
+        check(prof.counter_value("precision/epilogue_fallbacks") == 0,
+              "epilogue fallbacks")
+        resid = epilogue.bn_act_residual_launches
+        seconds = time.perf_counter() - t_phase
+        log(f"[serving-tier] bn_act {launches} launches over {forwards} "
+            f"bucket forwards (53 each, {resid} with the residual incl. "
+            f"{ref_launches[0]} comparison launches' share), no fallback; "
+            f"phase {seconds:.1f} s; {smi}")
+        result.update(launches=launches, forwards=forwards,
+                      seconds=seconds,
+                      serving_ledger=prof.serving_stats())
+    finally:
+        faultinject.clear_plan()
+        if scaler is not None:
+            scaler.stop()
+        if ui is not None:
+            ui.stop()
+        if eng is not None:
+            eng.shutdown()
+        tmp.cleanup()
+        flightrec.configure(capacity=flightrec.DEFAULT_CAPACITY)
+        port_log.setLevel(log_level)
+    return result
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
@@ -8920,6 +9615,8 @@ def main(argv=None) -> int:
         pw_r50 = phase_parallel_resnet50(smi, dev)
         pw_enc = phase_parallel_encoded_elastic(smi, dev)
         pw_int = phase_parallel_integrity(smi, dev)
+        torch.cuda.empty_cache()
+        sv = phase_serving_tier(smi, dev)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -8946,6 +9643,7 @@ def main(argv=None) -> int:
         "launches_evaluation_forward":
             es_eval["evaluation"]["bn_act_launches"],
         "launches_keras_resnet50": keras_r50["bn_act_launches"],
+        "launches_serving_tier": sv["launches"],
         "forwards": {n: {k: f[k] for k in ("launches", "ms", "bound_ms",
                                            "share")}
                      for n, f in timing["shapes"].items()}})
@@ -9121,7 +9819,8 @@ def main(argv=None) -> int:
                       "samediff_control_random": sd_ctl,
                       "parallel_resnet50": pw_r50,
                       "parallel_encoded_elastic": pw_enc,
-                      "parallel_integrity": pw_int},
+                      "parallel_integrity": pw_int,
+                      "serving_tier": sv},
                      default=str),
           flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

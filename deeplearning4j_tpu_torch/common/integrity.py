@@ -26,19 +26,27 @@ into one 32-bit word and compares the words across replicas:
   between steps; :func:`materialize_from_survivors` copies training state
   from a replica that is not being evicted.
 
-The checkpoint scrubber and the ``integrity/fingerprint`` fault-injection
-site wait for their parts of ROADMAP A7 and A8; callers flip bits with
+- :class:`CheckpointScrubber` re-hashes the retained committed checkpoints
+  against their manifest sha256 on a cadence, stamps the passing entries
+  and quarantines the failing ones (``util/checkpoint.record_scrub``);
+  ``_flip_file_byte`` rots one byte of a file on disk for its drills.
+
+The ``integrity/fingerprint`` fault-injection site waits for the training
+path's fault sites (ROADMAP A7); callers flip bits with
 :func:`apply_bitflip` directly.
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from . import faultinject, flightrec
 from .profiler import OpProfiler
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
@@ -357,3 +365,106 @@ def materialize_from_survivors(replicas: Sequence[Any],
         return tree
 
     return host(replicas[survivor])
+
+
+# --- checkpoint scrubber ----------------------------------------------------
+
+def _flip_file_byte(path: str, offset: int, bit: int) -> None:
+    """Scrub-drill helper: rot one byte of an on-disk file in place."""
+    size = os.path.getsize(path)
+    if size == 0:
+        return
+    with open(path, "r+b") as f:
+        f.seek(offset % size)
+        byte = f.read(1)
+        f.seek(offset % size)
+        f.write(bytes([byte[0] ^ (1 << (bit % 8))]))
+
+
+class CheckpointScrubber:
+    """Background re-verification of retained committed checkpoints.
+
+    Walks the manifest on a cadence, re-hashes each non-quarantined
+    generation against its committed sha256, stamps passing entries with a
+    ``scrub`` record and quarantines failures in the manifest (the file is
+    never deleted). Manifest read-modify-writes go through
+    ``util/checkpoint``'s manifest lock, so the scrubber and the async
+    ``CheckpointWriter`` never tear each other's updates.
+
+    Fault site ``checkpoint/scrub`` fires once per entry per pass with a
+    rising ordinal: ``transient`` skips the entry this pass, ``bitflip``
+    rots the file on disk (``offset``, ``bit``) before hashing."""
+
+    def __init__(self, directory: str, interval_s: float = 30.0):
+        self.directory = directory
+        self.interval_s = max(0.05, float(interval_s))
+        self.passes = 0
+        self._ordinal = 0
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> "CheckpointScrubber":
+        if self._thread is None:
+            self._stop.clear()
+            self._thread = threading.Thread(
+                target=self._loop, name="ckpt-scrubber", daemon=True)
+            self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=10.0)
+            self._thread = None
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            try:
+                self.scrub_now()
+            except Exception:
+                logger.exception("integrity: scrub pass failed")
+
+    def scrub_now(self) -> Dict[str, int]:
+        """One scrub pass; returns {scanned, verified, quarantined,
+        skipped}."""
+        from ..util import checkpoint as _ckpt
+        prof = OpProfiler.get()
+        summary = {"scanned": 0, "verified": 0, "quarantined": 0,
+                   "skipped": 0}
+        for entry in _ckpt.read_manifest(self.directory):
+            if not isinstance(entry, dict) or "sha256" not in entry \
+                    or entry.get("quarantined"):
+                summary["skipped"] += 1
+                continue
+            ordinal = self._ordinal
+            self._ordinal += 1
+            try:
+                advisory = faultinject.fault_point("checkpoint/scrub",
+                                                   ordinal)
+            except faultinject.TransientFault:
+                prof.count("integrity/scrub_retries")
+                summary["skipped"] += 1
+                continue
+            path = os.path.join(self.directory, entry["file"])
+            for spec in advisory:
+                if spec.get("kind") == "bitflip":
+                    _flip_file_byte(path, int(spec.get("offset", 128)),
+                                    int(spec.get("bit", 0)))
+            summary["scanned"] += 1
+            try:
+                ok = _ckpt._sha256_file(path) == entry["sha256"]
+            except OSError:
+                ok = False
+            if ok:
+                _ckpt.record_scrub(self.directory, entry["file"], True)
+                prof.count("integrity/scrub_verified")
+                summary["verified"] += 1
+            else:
+                _ckpt.record_scrub(self.directory, entry["file"], False,
+                                   reason="sha256 mismatch on scrub")
+                summary["quarantined"] += 1
+        self.passes += 1
+        prof.count("integrity/scrub_passes")
+        flightrec.event("integrity/scrub", directory=self.directory,
+                        **summary)
+        return summary

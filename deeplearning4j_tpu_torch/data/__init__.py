@@ -24,5 +24,5 @@ from .sequence import (convert_to_sequence, reduce_sequence, window_sequence,
 from .analysis import AnalyzeLocal, ColumnAnalysis, DataAnalysis
 from .binary_records import (BinaryRecordDataSetIterator, BinaryRecordReader,
                              BinaryRecordWriter, write_records)
-from .pipeline import chunked, device_feed, pad_dataset, resolve_batch_size, \
-    stable_batches
+from .pipeline import chunked, device_feed, pad_dataset, pad_rows, \
+    resolve_batch_size, stable_batches

@@ -32,9 +32,12 @@ for both networks; the graph's batches may be ``MultiDataSet``s,
   discarded. :func:`note_steps` keeps the cursor (``_steps_in_epoch``)
   that a checkpoint records.
 
+:func:`pad_rows` is the same wrap for one array (numpy, or a tensor on
+its device): the serving tier pads a request up to its bucket with it.
+
 Counters (``common/profiler.OpProfiler``): ``pipeline/padded_batches``,
-``pipeline/dropped_batches``. Not ported: fault injection and the flight
-recorder.
+``pipeline/dropped_batches``. Not ported: the fit loop's fault-injection
+sites and flight-recorder events.
 """
 
 from __future__ import annotations
@@ -110,6 +113,26 @@ def _wrap_rows(a, idx: np.ndarray):
     if isinstance(a, torch.Tensor):
         return a[torch.as_tensor(idx, device=a.device)]
     return np.asarray(a)[idx]
+
+
+def pad_rows(arr, target: int, axis: int = 0):
+    """``arr`` padded to ``target`` entries along ``axis`` by wrapping real
+    rows (``row[i % n]``), the rule :func:`pad_dataset` applies to training
+    batches; the serving tier's bucket padding. Returns ``(padded, w)``,
+    ``w`` the [target] float32 example-weight vector (1 = real, 0 = pad).
+    A numpy array stays numpy; a tensor is gathered on its own device (no
+    copy to the host). A full ``arr`` is returned as it is."""
+    n = arr.shape[axis]
+    if n > target:
+        raise ValueError(f"{n} rows exceed the pad target {target}")
+    w = (np.arange(target) < n).astype(np.float32)
+    if n == target:
+        return arr, w
+    idx = np.arange(target) % n
+    if isinstance(arr, torch.Tensor):
+        return arr.index_select(
+            axis, torch.as_tensor(idx, device=arr.device)), w
+    return np.take(np.asarray(arr), idx, axis=axis), w
 
 
 def pad_dataset(ds: Any, target: int) -> Tuple[Any, np.ndarray]:

@@ -12,3 +12,7 @@ from .wrapper import ParallelWrapper
 from .sharding import (Zero1Plan, apply_tp, tp_param_specs, tp_shardings,
                        unflatten_updater_state)
 from .inference import ParallelInference
+from .serving import (AdmissionController, BrownoutController, BucketLadder,
+                      Overloaded, OversizeRequest, PublishHandle,
+                      ServingEngine, SLOClass, serving_health)
+from .autoscale import Autoscaler, AutoscalePolicy

@@ -48,8 +48,20 @@ counters, in the JAX package's host layout) and the live worker count in
 state (the model's ``_parallel_sync``). The updater state on disk is always
 the dense tree, so a ZeRO-1 checkpoint restores under any worker count.
 
-Not ported here (ROADMAP A7): the fleet extras, quarantining and
-scrubbing, group commits.
+The serving and scrub half: :func:`quarantine_checkpoint` marks a
+generation quarantined in the manifest (the file stays, as evidence; every
+reader skips it from then on), :func:`record_scrub` folds a scrub verdict
+in (a pass stamps ``scrub = {ok, t}``, a fail quarantines),
+``last_checkpoint(require_scrubbed=True)`` prefers the newest
+scrub-verified generation, and :func:`read_checkpoint_params` reads just
+(params, states) against templates, as ``parallel/serving``'s canaried
+publication does. ``common/integrity.CheckpointScrubber`` walks the
+manifest and calls :func:`record_scrub`. The ``checkpoint/pre_rename``
+fault site sits in the torn-write window of every commit, and each commit
+records a ``checkpoint/commit`` flight-recorder event.
+
+Not ported here (ROADMAP A7): the fleet extras
+(``commit_checkpoint(fleet=)`` raises ``TypeError``) and group commits.
 """
 
 from __future__ import annotations
@@ -68,13 +80,14 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from ..common import faultinject, flightrec
 from ..common.profiler import OpProfiler
 from ..learning.precision import state_dtype_of
 from ..parallel.sharding import is_flat_state, unflatten_updater_state
 from .model_serializer import (COEFF_ENTRY, CONF_ENTRY, META_ENTRY,
-                               STATES_ENTRY, UPDATER_ENTRY,
-                               dense_updater_state, load_state_entries,
-                               savez_leaves, tree_leaves)
+                               STATES_ENTRY, UPDATER_ENTRY, _checked,
+                               _unflatten, dense_updater_state, load_leaves,
+                               load_state_entries, savez_leaves, tree_leaves)
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
 
@@ -228,16 +241,19 @@ def _fsync_dir(directory: str) -> None:
         os.close(fd)
 
 
-def _atomic_write(path: str, data: bytes, durable: bool = True) -> None:
+def _atomic_write(path: str, data: bytes, seq: Optional[int] = None,
+                  durable: bool = True) -> None:
     """data → <path>.tmp → fsync → rename (``durable=False`` skips the
     fsyncs, still atomic: the manifest, whose loss the directory scan
-    recovers from)."""
+    recovers from). The ``checkpoint/pre_rename`` fault site sits in the
+    torn-write window the rename closes."""
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         f.write(data)
         if durable:
             f.flush()
             os.fsync(f.fileno())
+    faultinject.fault_point("checkpoint/pre_rename", seq)
     os.replace(tmp, path)
     if durable:
         _fsync_dir(os.path.dirname(path) or ".")
@@ -364,10 +380,12 @@ def _append_and_retain(directory: str, name: str, sha: str, iteration: int,
 
 def commit_checkpoint(directory: str, tag: str, data: bytes, iteration: int,
                       keep_last: int, max_total_bytes: Optional[int] = None,
+                      seq: Optional[int] = None,
                       incarnation: Optional[int] = None,
                       state_dtype: Optional[str] = None) -> str:
     """Commit one checkpoint atomically and fold it into the manifest with
-    retention; returns its path. One writer per directory."""
+    retention; returns its path. One writer per directory. ``seq`` is the
+    ``checkpoint/pre_rename`` fault index (the writer's commit ordinal)."""
     if incarnation is not None \
             and manifest_incarnation(directory) > int(incarnation):
         raise StaleIncarnationError(
@@ -375,7 +393,7 @@ def commit_checkpoint(directory: str, tag: str, data: bytes, iteration: int,
             f"claimed by incarnation {manifest_incarnation(directory)}")
     name = f"checkpoint_{tag}.zip"
     path = os.path.join(directory, name)
-    _atomic_write(path, data)
+    _atomic_write(path, data, seq=seq)
     _append_and_retain(directory, name, hashlib.sha256(data).hexdigest(),
                        iteration, keep_last, size=len(data),
                        max_total_bytes=max_total_bytes,
@@ -383,6 +401,8 @@ def commit_checkpoint(directory: str, tag: str, data: bytes, iteration: int,
     prof = OpProfiler.get()
     prof.count("checkpoint/committed")
     prof.count("checkpoint/bytes", len(data))
+    flightrec.event("checkpoint/commit", tag=tag, file=name,
+                    iteration=int(iteration), bytes=len(data))
     return path
 
 
@@ -484,10 +504,76 @@ def verify_checkpoint(directory: str, entry: Any) -> Optional[str]:
     return path
 
 
-def last_checkpoint(directory: str) -> Optional[str]:
+def _update_entry(directory: str, name: str, mutate) -> bool:
+    """Locked read-modify-write of one manifest entry (by file name).
+    Returns whether an entry was found and rewritten."""
+    with _MANIFEST_LOCK:
+        doc = read_manifest_doc(directory)
+        entries = doc.get("checkpoints", [])
+        if not isinstance(entries, list):
+            return False
+        hit = False
+        for e in entries:
+            if isinstance(e, dict) and e.get("file") == name:
+                mutate(e)
+                hit = True
+        if hit:
+            write_manifest(directory, entries)
+        return hit
+
+
+def quarantine_checkpoint(directory: str, name: str,
+                          reason: str = "") -> bool:
+    """Mark one generation quarantined in the manifest. The file is never
+    deleted (a rotten checkpoint is evidence), and every reader
+    (:func:`verify_checkpoint`, :func:`last_checkpoint`,
+    :func:`scan_newest_intact`) skips it from now on, even if a later
+    re-hash passes: quarantine is sticky."""
+    def mut(e):
+        e["quarantined"] = True
+        e["quarantine_reason"] = str(reason)[:200]
+        e["quarantine_t"] = time.time()
+    hit = _update_entry(directory, name, mut)
+    if hit:
+        OpProfiler.get().count("integrity/quarantined_checkpoints")
+        flightrec.event("integrity/quarantine", severity="warn",
+                        file=name, reason=str(reason)[:200])
+        logger.warning("checkpoint %s quarantined: %s", name, reason)
+    return hit
+
+
+def record_scrub(directory: str, name: str, ok: bool,
+                 reason: str = "") -> bool:
+    """Fold one scrub verdict into the manifest: a pass stamps the entry
+    with ``scrub = {ok, t}``; a fail quarantines the generation."""
+    if not ok:
+        return quarantine_checkpoint(
+            directory, name, reason or "scrub checksum mismatch")
+
+    def mut(e):
+        e["scrub"] = {"ok": True, "t": time.time()}
+    return _update_entry(directory, name, mut)
+
+
+def last_checkpoint(directory: str,
+                    require_scrubbed: bool = False) -> Optional[str]:
     """The newest checkpoint that proves intact: the manifest newest →
-    oldest, then the directory scan."""
-    for entry in reversed(read_manifest(directory)):
+    oldest (quarantined generations skipped), then the directory scan.
+    ``require_scrubbed`` prefers the newest scrub-verified generation and
+    falls back to the ordinary walk (which re-hashes at read time) with a
+    warning when no scrub pass has stamped anything yet."""
+    entries = read_manifest(directory)
+    if require_scrubbed:
+        for entry in reversed(entries):
+            if (isinstance(entry, dict) and not entry.get("quarantined")
+                    and (entry.get("scrub") or {}).get("ok")):
+                path = verify_checkpoint(directory, entry)
+                if path is not None:
+                    return path
+        logger.warning(
+            "no scrub-verified checkpoint in %s; falling back to the "
+            "newest checksum-verified generation", directory)
+    for entry in reversed(entries):
         path = verify_checkpoint(directory, entry)
         if path is not None:
             return path
@@ -528,6 +614,22 @@ def read_resume_state(path: str) -> Dict[str, Any]:
         if RESUME_ENTRY not in zf.namelist():
             return {}
         return json.loads(zf.read(RESUME_ENTRY))
+
+
+def read_checkpoint_params(path: str, params_template, states_template):
+    """Just (params, states) of a checkpoint or model zip, as CPU tensors
+    in the templates' tree shapes (leaf counts and shapes checked), without
+    touching a model: the serving tier's canaried publication reads its
+    candidate weights so. The caller owns device placement."""
+    with zipfile.ZipFile(path) as zf:
+        pt = tree_leaves(params_template)
+        params = _checked("coefficient", load_leaves(
+            zf.read(COEFF_ENTRY), "coefficient", len(pt)), pt, cast=False)
+        st = tree_leaves(states_template)
+        states = _checked("state", load_leaves(
+            zf.read(STATES_ENTRY), "state", len(st)), st, cast=False)
+    return _unflatten(params_template, params), _unflatten(states_template,
+                                                           states)
 
 
 def _restore_generator(model, resume: Dict[str, Any], path: str) -> None:
@@ -628,6 +730,7 @@ class CheckpointWriter:
         self._on_commit = on_commit
         self._q: "queue.Queue" = queue.Queue(maxsize=2)
         self._pending = 0
+        self._seq = 0
         self._cond = threading.Condition()
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="dl4j-ckpt-writer")
@@ -636,21 +739,23 @@ class CheckpointWriter:
     def submit(self, snapshot: Dict[str, Any], tag: str) -> None:
         with self._cond:
             self._pending += 1
-        self._q.put((snapshot, tag))
+            seq = self._seq
+            self._seq += 1
+        self._q.put((snapshot, tag, seq))
 
     def _run(self) -> None:
         while True:
             job = self._q.get()
             if job is None:
                 return
-            snapshot, tag = job
+            snapshot, tag, seq = job
             try:
                 t0 = time.perf_counter()
                 data = serialize_snapshot(snapshot)
                 path = commit_checkpoint(
                     self.dir, tag, data, snapshot["iteration"],
                     self.keep_last, max_total_bytes=self.max_total_bytes,
-                    incarnation=self.incarnation,
+                    seq=seq, incarnation=self.incarnation,
                     state_dtype=snapshot.get("state_dtype"))
                 self.commit_seconds.append(time.perf_counter() - t0)
                 if self._on_commit is not None:

@@ -415,3 +415,118 @@ def test_a_state_dtype_flip_is_refused(tmp_path):
     writer.close()
     assert len(writer.errors) == 1 and isinstance(
         writer.errors[0], tckpt.StaleIncarnationError)
+
+
+# --- the serving and scrub half ------------------------------------------------
+
+def test_read_checkpoint_params_of_a_jax_checkpoint(tmp_path):
+    """The serving tier's candidate weights: the port reads just (params,
+    states) of a JAX-written checkpoint, bitwise the JAX package's read,
+    without touching a model."""
+    from deeplearning4j_tpu.util import checkpoint as jckpt
+
+    x, y = _data()
+    jg = JGraph(_conf("jax")).init()
+    ck = JCheckpointListener(str(tmp_path), save_every_n_iterations=3,
+                             keep_last=2)
+    jg.set_listeners(ck)
+    jg.fit(JNDIter(x, y, batch_size=4))
+    (path,) = ck.saved
+    ck.close()
+    tg = TGraph(_conf("torch")).init(device="cpu")
+    before = {n: {k: v.clone() for k, v in d.items()}
+              for n, d in tg._params.items()}
+    tp, ts = tckpt.read_checkpoint_params(path, tg._params, tg._states)
+    jp, js = jckpt.read_checkpoint_params(path, jg._params, jg._states)
+    _assert_bitwise(tp, jp, "params")
+    _assert_bitwise(ts, js, "states")
+    assert all(t.device.type == "cpu" for d in tp.values()
+               for t in d.values())
+    _assert_bitwise(tg._params, numpy_tree(before), "model untouched")
+
+
+def test_read_checkpoint_params_refuses_a_mismatched_template(tmp_path):
+    saved = _three_checkpoints(tmp_path)
+    small = TGraph(residual_conf("torch", False, 8)).init(device="cpu")
+    with pytest.raises(ValueError, match="shape"):
+        tckpt.read_checkpoint_params(saved[-1], small._params, small._states)
+
+
+def _manifest_flags(ck, d):
+    return [(e["file"], bool(e.get("quarantined")),
+             e.get("quarantine_reason"),
+             bool((e.get("scrub") or {}).get("ok")))
+            for e in ck.read_manifest(d)]
+
+
+@pytest.mark.parametrize("ops", [
+    [("scrub", 0, True), ("scrub", 1, True)],
+    [("quarantine", 2, "operator drill")],
+    [("scrub", 1, True), ("scrub", 2, False)],
+    [("scrub", 0, True), ("quarantine", 0, "rot"), ("scrub", 1, True)],
+    []], ids=["stamped", "quarantined", "failed-scrub", "sticky", "none"])
+def test_quarantine_and_scrub_records_equal_jax(tmp_path, ops):
+    """``quarantine_checkpoint``, ``record_scrub`` and
+    ``last_checkpoint(require_scrubbed=)`` on twin directories: the same
+    manifest flags and the same generation chosen."""
+    import shutil
+
+    from deeplearning4j_tpu.util import checkpoint as jckpt
+
+    saved = _three_checkpoints(tmp_path / "t")
+    shutil.copytree(tmp_path / "t", tmp_path / "j")
+    names = [os.path.basename(p) for p in saved]
+    out = []
+    for ck, d in ((tckpt, str(tmp_path / "t")), (jckpt, str(tmp_path / "j"))):
+        hits = []
+        for op, i, arg in ops:
+            if op == "scrub":
+                hits.append(ck.record_scrub(d, names[i], arg))
+            else:
+                hits.append(ck.quarantine_checkpoint(d, names[i], arg))
+        hits.append(ck.quarantine_checkpoint(d, "checkpoint_none.zip"))
+        chosen = [os.path.basename(ck.last_checkpoint(d, **kw) or "")
+                  for kw in ({}, {"require_scrubbed": True})]
+        verified = [ck.verify_checkpoint(d, e) is not None
+                    for e in ck.read_manifest(d)]
+        out.append((hits, _manifest_flags(ck, d), chosen, verified))
+    assert out[0] == out[1]
+
+
+def test_quarantined_generation_is_skipped_by_every_reader(tmp_path):
+    saved = _three_checkpoints(tmp_path)
+    d = str(tmp_path)
+    name = os.path.basename(saved[-1])
+    assert tckpt.quarantine_checkpoint(d, name, "drill")
+    assert tckpt.last_checkpoint(d) == saved[-2]
+    os.remove(tmp_path / "checkpoint.json")
+    # without a manifest nothing is quarantined any more: the scan sees all
+    assert tckpt.scan_newest_intact(d) == saved[-1]
+
+
+def test_commit_fires_the_pre_rename_site_and_records_the_commit(tmp_path):
+    from deeplearning4j_tpu_torch.common import faultinject, flightrec
+
+    d = str(tmp_path)
+    faultinject.set_plan(faultinject.FaultPlan(
+        [{"site": "checkpoint/pre_rename", "kind": "crash", "index": 1}]))
+    try:
+        tckpt.commit_checkpoint(d, "a", b"first", iteration=1, keep_last=3,
+                                seq=0)
+        with pytest.raises(faultinject.SimulatedCrash):
+            tckpt.commit_checkpoint(d, "b", b"second", iteration=2,
+                                    keep_last=3, seq=1)
+    finally:
+        faultinject.clear_plan()
+    # the torn write left only its .tmp; the manifest names the first
+    assert [os.path.basename(p) for p in tckpt.committed_checkpoints(d)] \
+        == ["checkpoint_a.zip"]
+    assert (tmp_path / "checkpoint_b.zip.tmp").exists()
+    ev = flightrec.events("checkpoint/commit")[-1]["attrs"]
+    assert ev["file"] == "checkpoint_a.zip" and ev["iteration"] == 1
+
+
+def test_fleet_argument_is_still_refused(tmp_path):
+    with pytest.raises(TypeError):
+        tckpt.commit_checkpoint(str(tmp_path), "a", b"x", iteration=1,
+                                keep_last=1, fleet={"members": 2})

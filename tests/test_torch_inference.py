@@ -196,3 +196,171 @@ class TestServingSlice:
         finally:
             tpi.shutdown()
             jpi.shutdown()
+
+
+def _wait(cond, timeout=5.0):
+    deadline = time.monotonic() + timeout
+    while not cond() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    return cond()
+
+
+class _JaxDoubler:
+    """The JAX package's counterpart of _RecordingModel (NDArray out)."""
+
+    def output(self, batch):
+        from deeplearning4j_tpu.ndarray.ndarray import NDArray
+
+        return NDArray(2.0 * np.asarray(batch))
+
+
+class TestResurrection:
+    @pytest.fixture(autouse=True)
+    def _plans(self):
+        from deeplearning4j_tpu.common import faultinject as jfi
+        from deeplearning4j_tpu_torch.common import faultinject
+
+        faultinject.clear_plan()
+        jfi.clear_plan()
+        yield
+        faultinject.clear_plan()
+        jfi.clear_plan()
+
+    def test_retired_replica_is_replaced_like_the_jax_pool(self):
+        """The same drill (the replica serving request 1 dies) on both
+        packages' pools: the same census after the resurrection."""
+        from deeplearning4j_tpu.common import faultinject as jfi
+        from deeplearning4j_tpu_torch.common import faultinject, flightrec
+
+        spec = [{"site": "inference/worker", "kind": "dead_replica",
+                 "index": 1}]
+        stats = []
+        for fi, pi_cls, model in ((faultinject, ParallelInference,
+                                   _RecordingModel()),
+                                  (jfi, JaxPI, _JaxDoubler())):
+            fi.set_plan(fi.FaultPlan(spec))
+            pi = (pi_cls.Builder(model).batch_limit(1).max_wait_ms(1)
+                  .workers(2).resurrect_dead_replicas(True, backoff_ms=20)
+                  .build())
+            try:
+                outcomes = []
+                for i in range(3):
+                    fut = pi.output_async(_req(i))
+                    outcomes.append(type(fut.exception(timeout=10)).__name__)
+                assert _wait(lambda: pi.pool_stats()["resurrected"] == 1
+                             and pi.alive_replicas() == 2)
+                stats.append((outcomes, pi.pool_stats()))
+            finally:
+                pi.shutdown()
+        assert stats[0] == stats[1]
+        assert stats[0][0] == ["NoneType", "DeadReplicaFault", "NoneType"]
+        assert stats[0][1]["retired"] == 1
+        ev = flightrec.events("inference/resurrected")[-1]
+        assert ev["attrs"]["alive"] == 2
+
+    def test_failed_probes_back_off_then_resurrect(self):
+        from deeplearning4j_tpu_torch.common import faultinject
+
+        prof = OpProfiler.get()
+        faultinject.set_plan(faultinject.FaultPlan(
+            [{"site": "inference/worker", "kind": "dead_replica",
+              "index": 0},
+             {"site": "inference/probe", "kind": "transient", "times": 2}]))
+        pi = (ParallelInference.Builder(_RecordingModel()).batch_limit(1)
+              .max_wait_ms(1).workers(1)
+              .resurrect_dead_replicas(True, backoff_ms=20).build())
+        try:
+            assert isinstance(pi.output_async(_req(0)).exception(timeout=10),
+                              Exception)
+            assert _wait(lambda: pi.alive_replicas() == 1)
+            assert prof.counter_value("inference/probe_failures") == 2
+            assert prof.counter_value("inference/replica_resurrected") == 1
+            assert torch.equal(pi.output(_req(3)), torch.full((1, 4), 6.0))
+        finally:
+            pi.shutdown()
+
+    def test_last_replica_fails_fast_without_resurrection(self):
+        from deeplearning4j_tpu_torch.common import faultinject
+
+        gate = threading.Event()
+        faultinject.set_plan(faultinject.FaultPlan(
+            [{"site": "inference/worker", "kind": "dead_replica",
+              "index": 0}]))
+        pi = (ParallelInference.Builder(_RecordingModel(gate))
+              .batch_limit(1).max_wait_ms(1).workers(1)
+              .resurrect_dead_replicas(False).build())
+        try:
+            dead = pi.output_async(_req(0))
+            gate.set()
+            assert dead.exception(timeout=10) is not None
+            assert _wait(lambda: pi.alive_replicas() == 0)
+            late = pi.output_async(_req(1))
+            assert "retired" in str(late.exception(timeout=1))
+            assert pi.pool_stats()["resurrected"] == 0
+        finally:
+            pi.shutdown()
+
+    def test_resurrection_budget(self):
+        from deeplearning4j_tpu_torch.common import faultinject
+
+        faultinject.set_plan(faultinject.FaultPlan(
+            [{"site": "inference/worker", "kind": "dead_replica",
+              "index": i} for i in (0, 1)]))
+        pi = (ParallelInference.Builder(_RecordingModel()).batch_limit(1)
+              .max_wait_ms(1).workers(1)
+              .resurrect_dead_replicas(True, backoff_ms=10,
+                                       max_resurrections=1).build())
+        try:
+            pi.output_async(_req(0)).exception(timeout=10)
+            assert _wait(lambda: pi.alive_replicas() == 1)
+            pi.output_async(_req(1)).exception(timeout=10)
+            assert _wait(lambda: pi.pool_stats()["retired"] == 2)
+            time.sleep(0.1)
+            assert pi.alive_replicas() == 0
+            assert pi.pool_stats()["resurrected"] == 1
+        finally:
+            pi.shutdown()
+
+
+class TestPoolCensus:
+    def test_scale_to_and_pool_health(self):
+        from deeplearning4j_tpu_torch.parallel.inference import pool_health
+
+        prof = OpProfiler.get()
+        pi = (ParallelInference.Builder(_RecordingModel()).batch_limit(2)
+              .max_wait_ms(1).workers(1).build())
+        try:
+            base = pool_health()
+            assert pi.scale_to(3, reason="test") == 3
+            assert _wait(lambda: pi.alive_replicas() == 3)
+            assert pool_health()["alive"] == base["alive"] + 2
+            assert prof.counter_value("inference/workers_started") == 2
+            for i in range(6):
+                assert torch.equal(pi.output(_req(i)),
+                                   torch.full((1, 4), 2.0 * i))
+            pi.scale_to(1, reason="test")
+            assert _wait(lambda: pi.alive_replicas() == 1)
+            stats = pi.pool_stats()
+            assert stats == {"workers": 1, "alive": 1, "target": 1,
+                             "scaled_down": 2, "retired": 0,
+                             "resurrected": 0}
+            assert prof.counter_value("inference/workers_stopped") == 2
+        finally:
+            pi.shutdown()
+        assert pi.alive_replicas() == 0
+        assert all(not t.is_alive() for t in pi._workers)
+
+    def test_sequential_pool_cannot_scale(self):
+        pi = ParallelInference.Builder(_RecordingModel()) \
+            .inference_mode("sequential").build()
+        with pytest.raises(RuntimeError, match="batched"):
+            pi.scale_to(2)
+        pi.shutdown()
+
+    def test_builder_matches_the_jax_defaults(self):
+        t = ParallelInference.Builder(_RecordingModel())
+        j = JaxPI.Builder(_JaxDoubler())
+        for k in ("_resurrect", "_resurrect_backoff_ms",
+                  "_max_resurrections", "_batch_limit", "_queue_limit",
+                  "_max_wait_ms", "_workers"):
+            assert getattr(t, k) == getattr(j, k), k

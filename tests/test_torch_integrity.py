@@ -8,6 +8,9 @@ and a flipped bit caught and attributed. The JAX tests flip the bit
 through the ``integrity/fingerprint`` fault site before a dispatch; here a
 listener calls ``apply_bitflip`` at the same step boundary."""
 
+import os
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -311,3 +314,180 @@ class TestBitflipDetection:
             fingerprint_tree(pw.replica_params(0)))
         assert host_fingerprint(survivors) != int(
             fingerprint_tree(pw.replica_params(1)))
+
+
+# --- the checkpoint scrubber and the serving tier's publish verify ------------
+
+def _port_checkpoints(directory, n_epochs=2):
+    """Checkpoints written by the port's CheckpointListener."""
+    from deeplearning4j_tpu_torch.optimize import CheckpointListener
+    from deeplearning4j_tpu_torch.util import checkpoint as ckpt
+
+    m = small_model()
+    cl = CheckpointListener(str(directory), save_every_n_iterations=2,
+                            keep_last=6)
+    m.set_listeners(cl)
+    m.fit(make_iter(), epochs=n_epochs)
+    cl.close()
+    paths = ckpt.committed_checkpoints(str(directory))
+    assert len(paths) >= 2
+    return paths
+
+
+def _twin_dirs(tmp_path):
+    import shutil
+
+    paths = _port_checkpoints(tmp_path / "t")
+    shutil.copytree(tmp_path / "t", tmp_path / "j")
+    return str(tmp_path / "t"), str(tmp_path / "j"), paths
+
+
+def _flags(ckpt, d):
+    return [(e["file"], bool(e.get("quarantined")),
+             bool((e.get("scrub") or {}).get("ok")))
+            for e in ckpt.read_manifest(d)]
+
+
+class TestCheckpointScrubber:
+    @pytest.mark.parametrize("plan", [
+        [],
+        [{"site": "checkpoint/scrub", "index": 0, "kind": "transient"}],
+        [{"site": "checkpoint/scrub", "index": 1, "kind": "bitflip",
+          "offset": 300, "bit": 2}],
+        [{"site": "checkpoint/scrub", "index": 0, "kind": "transient"},
+         {"site": "checkpoint/scrub", "index": 3, "kind": "bitflip",
+          "offset": 77, "bit": 5}]],
+        ids=["clean", "transient", "bitflip", "both"])
+    def test_two_passes_equal_jax(self, tmp_path, plan):
+        from deeplearning4j_tpu.common import faultinject as jfi
+        from deeplearning4j_tpu.util import checkpoint as jckpt
+        from deeplearning4j_tpu_torch.common import faultinject as tfi
+        from deeplearning4j_tpu_torch.util import checkpoint as tckpt
+
+        dt, dj, _ = _twin_dirs(tmp_path)
+        out = []
+        for fi, integ, ck, d in ((tfi, integrity, tckpt, dt),
+                                 (jfi, jinteg, jckpt, dj)):
+            fi.set_plan(fi.FaultPlan(plan))
+            try:
+                scrub = integ.CheckpointScrubber(d)
+                passes = [scrub.scrub_now(), scrub.scrub_now()]
+            finally:
+                fi.clear_plan()
+            chosen = ck.last_checkpoint(d, require_scrubbed=True)
+            out.append((passes, _flags(ck, d), os.path.basename(chosen)))
+        assert out[0] == out[1]
+
+    def test_rotten_file_quarantined_not_deleted(self, tmp_path):
+        from deeplearning4j_tpu_torch.common import flightrec
+        from deeplearning4j_tpu_torch.util import checkpoint as ckpt
+
+        paths = _port_checkpoints(tmp_path)
+        d = str(tmp_path)
+        assert ckpt.last_checkpoint(d, require_scrubbed=True) == paths[-1]
+        first = integrity.CheckpointScrubber(d).scrub_now()
+        assert first["verified"] == len(paths)
+        integrity._flip_file_byte(paths[-1], offset=256, bit=3)
+        summary = integrity.CheckpointScrubber(d).scrub_now()
+        assert summary["quarantined"] == 1 and os.path.exists(paths[-1])
+        entry = [e for e in ckpt.read_manifest(d)
+                 if e["file"] == os.path.basename(paths[-1])][0]
+        assert entry["quarantined"] and "mismatch" in \
+            entry["quarantine_reason"]
+        assert ckpt.last_checkpoint(d) == paths[-2]
+        assert ckpt.last_checkpoint(d, require_scrubbed=True) == paths[-2]
+        assert ckpt.verify_checkpoint(d, entry) is None
+        assert ckpt.scan_newest_intact(d) != paths[-1]
+        prof = OpProfiler.get()
+        assert prof.counter_value("integrity/quarantined_checkpoints") == 1
+        assert prof.counter_value("integrity/scrub_passes") == 2
+        assert flightrec.events("integrity/quarantine")[-1]["attrs"][
+            "file"] == os.path.basename(paths[-1])
+        assert flightrec.events("integrity/scrub")[-1]["attrs"][
+            "quarantined"] == 1
+
+    def test_thread_cadence_and_stop(self, tmp_path):
+        _port_checkpoints(tmp_path)
+        scrub = integrity.CheckpointScrubber(str(tmp_path), interval_s=0.05)
+        scrub.start()
+        try:
+            deadline = time.monotonic() + 5
+            while scrub.passes < 2 and time.monotonic() < deadline:
+                time.sleep(0.02)
+            assert scrub.passes >= 2
+        finally:
+            scrub.stop()
+        assert scrub._thread is None
+
+    @pytest.mark.parametrize("offset,bit", [(0, 0), (5, 7), (10 ** 6, 3)])
+    def test_flip_file_byte_equals_jax(self, tmp_path, offset, bit):
+        data = bytes(range(256)) * 4
+        a, b = tmp_path / "a", tmp_path / "b"
+        a.write_bytes(data)
+        b.write_bytes(data)
+        integrity._flip_file_byte(str(a), offset, bit)
+        jinteg._flip_file_byte(str(b), offset, bit)
+        assert a.read_bytes() == b.read_bytes() != data
+
+
+class TestServingPublishVerify:
+    def _engine(self, workers=2):
+        from deeplearning4j_tpu_torch.parallel import ServingEngine, SLOClass
+
+        return (ServingEngine.Builder(small_model()).buckets((1, 2, 4))
+                .input_shape((4,)).workers(workers).max_wait_ms(2.0)
+                .pin_devices().devices(["cpu"] * workers)
+                .slo_classes([SLOClass("gold", 1, 250.0, queue_budget=64)])
+                .brownout(interval_s=60.0).build())
+
+    def test_clean_publish_runs_the_fleet_check_and_promotes(self, tmp_path):
+        path = _port_checkpoints(tmp_path)[-1]
+        eng = self._engine()
+        x = np.random.randn(2, 4).astype(np.float32)
+        try:
+            h = eng.publish_checkpoint(path, canary_window_s=0.2,
+                                       confirm_window_s=0.1,
+                                       check_interval_s=0.05)
+            deadline = time.monotonic() + 10
+            while not h.done and time.monotonic() < deadline:
+                eng.output(x, slo_class="gold")
+            assert h.result(timeout=10) == "promoted"
+            prof = OpProfiler.get()
+            assert prof.counter_value("integrity/publish_checks") == 1
+            assert prof.counter_value("integrity/publish_divergences") == 0
+            fps = {host_fingerprint(eng._dev_params[s][0]) for s in (0, 1)}
+            assert len(fps) == 1
+        finally:
+            eng.shutdown()
+
+    def test_torn_slot_is_named_in_the_rollback(self, tmp_path):
+        from deeplearning4j_tpu_torch.common import flightrec
+        from deeplearning4j_tpu_torch.util.checkpoint import tree_leaves
+
+        path = _port_checkpoints(tmp_path)[-1]
+        eng = self._engine()
+        x = np.random.randn(2, 4).astype(np.float32)
+        try:
+            prior = [t.clone() for t in tree_leaves(eng._dev_params[0][0])]
+            h = eng.publish_checkpoint(path, canary_window_s=0.4,
+                                       confirm_window_s=0.3,
+                                       check_interval_s=0.05)
+            # tear slot 1's candidate copy while the canary runs: the
+            # post-promote fleet digest must catch it
+            with eng._lock:
+                can = eng._canary
+            leaf = tree_leaves(can["new"][1][0])[0]
+            leaf.view(-1)[0] = leaf.view(-1)[0] + 1.0
+            deadline = time.monotonic() + 10
+            while not h.done and time.monotonic() < deadline:
+                eng.output(x, slo_class="gold")
+            assert h.result(timeout=10) == "rolled_back"
+            rb = flightrec.events("serving/rollback", corr=h.corr)[0]
+            assert "fingerprint mismatch on slot(s) [1]" in \
+                rb["attrs"]["reason"]
+            assert OpProfiler.get().counter_value(
+                "integrity/publish_divergences") == 1
+            after = tree_leaves(eng._dev_params[0][0])
+            assert all(torch.equal(a, b) for a, b in zip(after, prior))
+        finally:
+            eng.shutdown()
