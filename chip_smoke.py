@@ -580,6 +580,46 @@ Phases (each fails the run with a nonzero exit if it fails):
                400 / 429 with Retry-After, /api/health and /api/metrics.
                bn_act 53 launches a bucket forward over the phase, no
                fallback.
+44. fused-update-members -- the member-batched route of fused_update
+               (one launch over a contiguous [M, N] bucket, a rate per row
+               and a live mask) for sgd, nesterovs and adam, float32 and
+               bf16 state, at [4, 431,080], [4, 25,557,032], [3, 4097] and
+               [2, 1], row 1 masked: within 2 f32 ulp of its plain version
+               (bf16 moments bitwise), every row bitwise the single-bucket
+               kernel on it with its rate, the masked row unchanged; then
+               timed at the sweep's [8, 431,080] and at [4, 25,557,032]
+               beside its plain version, the single-bucket kernel launched M
+               times, torch.optim.SGD(nesterov, fused) over M parameter
+               groups, and the bandwidth bound.
+45. fleet-sweep -- FleetTrainer.from_sweep over LeNet at full width, 8
+               learning rates around 0.01, batch 64 a member, synthetic
+               MNIST, 20 timed steps: one member-batched launch a step and
+               no single-bucket launch, member 3 bitwise its solo twin, no
+               stacked buffer reallocated after step 1, the card within
+               1e-4 of the CPU after 3 steps; images/s, step median, p10,
+               p90, the member passes' host time against the step's device
+               time, peak memory; the same 8 members as 8 solo fits, in
+               turns with the fleet.
+46. fleet-lifecycle -- on fleet-smoke's 64-32-10 MLP and on LeNet: a NaN in
+               member 5's batch under "skip" (the others bitwise a clean
+               run) and "cull" (its alive bit dropped, its row frozen); cull
+               then spawn without reallocation; FleetEarlyStop culling from
+               the drained window; save_member restored into a solo network
+               continuing bitwise; save/restore of the whole fleet
+               continuing bitwise; the best member's checkpoint canaried and
+               promoted on a live ServingEngine, its params bitwise the
+               checkpoint's.
+47. fault-sites -- a FaultPlan with device/loss at dispatch 2 of a LeNet
+               fit raises DeviceLostError naming replica 1 and counts
+               faults/device/loss/device_loss; phase 42's bit flip driven
+               through the integrity/fingerprint site, caught at iteration 7
+               and named replica 2.
+48. rl      -- FleetDQNPopulation, 8 members on the in-process CartPole
+               (a learning-rate sweep), 300 environment steps: one
+               member-batched launch per TD step; QLearningDiscreteDense
+               with one fused_update per TD step; A3C and async n-step Q on
+               SameDiff networks, two workers, 400 steps each; finite
+               losses, counted steps and episodes.
 
 Then it prints the kernels line (one JSON object) and, last, the device line
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
@@ -3888,6 +3928,7 @@ def _kernel_counts():
 
     return {"bn_act": epilogue.bn_act_launches,
             "fused_update": update.fused_update_launches,
+            "fused_update_members": update.fused_update_member_launches,
             "embedding_bag": embeddings.embedding_bag_launches,
             "flash_attention": attention.flash_attention_launches}
 
@@ -9521,6 +9562,844 @@ def phase_serving_tier(smi: str, dev) -> dict:
     return result
 
 
+# --- phases 44-48: fleet training ------------------------------------------------
+
+FLEET_M = 8
+FLEET_BATCH = 64                    # images per member and step
+#: the sweep's learning rates, around LeNet's published 0.01
+FLEET_RATES = (0.005, 0.0065, 0.008, 0.009, 0.01, 0.011, 0.0125, 0.015)
+FLEET_WARMUP = 3
+FLEET_TIMED = 20
+FLEET_ROUNDS = 2                    # fleet and eight solo fits, in turns
+FLEET_CPU_STEPS = 3
+FLEET_CPU_TOL = 1e-4                # of each leaf's largest |value|
+FLEET_TWIN = 3                      # the member held to its solo twin
+FLEET_POISON = 5                    # the member fed a NaN in the drills
+MEMBERS_KERNEL_M = 4
+MEMBERS_MASKED = 1                  # the masked row of the kernel gates
+#: bench.py --config fleet-smoke's MLP and batch (bench.py:4630-4650)
+FLEET_MLP = {"n_in": 64, "hidden": 32, "n_out": 10, "batch": 64, "lr": 1e-3}
+RL_MEMBERS = 8
+RL_STEPS = 300
+RL_UPDATE_START = 64
+RL_RATES = (2e-4, 3e-4, 5e-4, 7e-4, 1e-3, 1.5e-3, 2e-3, 3e-3)
+RL_ASYNC_STEPS = 400
+
+
+def _members_case(kind, m, n, bf16, dev, gen, masked=True):
+    """``[m, n]`` buckets, the rates and the live mask of one
+    member-batched case on the card (row MEMBERS_MASKED masked)."""
+    from deeplearning4j_tpu_torch.ops import update
+
+    p = torch.randn((m, n), generator=gen, device=dev)
+    g = torch.randn((m, n), generator=gen, device=dev).mul_(0.01)
+    sdt = torch.bfloat16 if bf16 else torch.float32
+    slots = {}
+    for s in update.SLOTS[kind]:
+        t = torch.randn((m, n), generator=gen, device=dev)
+        t = t.abs_().mul_(1e-3) if (s == "v" and kind != "nesterovs") \
+            else t.mul_(0.1)
+        slots[s] = t.to(sdt)
+    bits = (torch.randint(-2 ** 31, 2 ** 31, (m, n), dtype=torch.int32,
+                          generator=gen, device=dev)
+            if bf16 and update.SLOTS[kind] else None)
+    lr = torch.tensor([FLEET_RATES[i % len(FLEET_RATES)] for i in range(m)],
+                      dtype=torch.float32, device=dev)
+    live = torch.ones((m,), dtype=torch.int32, device=dev)
+    if masked and m > MEMBERS_MASKED:
+        live[MEMBERS_MASKED] = 0
+    return p, g, slots, bits, lr, live
+
+
+def compare_members(kind, m, n, bf16, dev, gen):
+    """The member-batched kernel against (a) its plain version: parameters
+    and float32 moments within 2 float32 ulp, bfloat16 moments bitwise;
+    (b) the single-bucket kernel launched on each live row with that row's
+    rate: bitwise; (c) the masked row: bitwise unchanged. Returns (max
+    param err, max moment err, bitwise against the plain version)."""
+    from deeplearning4j_tpu_torch.ops import update
+
+    p, g, slots, bits, lr, live = _members_case(kind, m, n, bf16, dev, gen)
+    sr = torch.bfloat16 if bf16 else None
+    sc = update._scalars(_updater(kind, "bfloat16" if bf16 else None), kind,
+                         3)
+    want_p, want_s = update.fused_update_members_reference(
+        kind, sc, p, g, slots, bits, sr, lr, live)
+    solo_p = p.clone()
+    solo_s = {k: v.clone() for k, v in slots.items()}
+    rates = lr.tolist()
+    alive = live.tolist()
+    for r in range(m):
+        if alive[r]:
+            update.fused_update_cuda(
+                kind, (rates[r],) + tuple(sc[1:]), solo_p[r], g[r],
+                {k: v[r] for k, v in solo_s.items()},
+                None if bits is None else bits[r], sr)
+    old_p = p.clone()
+    old_s = {k: v.clone() for k, v in slots.items()}
+    update.fused_update_members_cuda(kind, sc, p, g, slots, bits, sr, lr,
+                                     live)
+    torch.cuda.synchronize()
+    what = f"members {kind} [{m}, {n}] bf16={bf16}"
+    perr = (p - want_p).abs().max().item()
+    ptol = 2.0 ** -22 * (want_p.abs().max().item() + 1.0)
+    check(perr <= ptol, f"{what}: param err {perr} > {ptol}")
+    serr = 0.0
+    for k in slots:
+        d = (slots[k].float() - want_s[k].float()).abs().max().item()
+        serr = max(serr, d)
+        ok = (torch.equal(slots[k], want_s[k]) if bf16 else
+              d <= 2.0 ** -22 * (want_s[k].float().abs().max().item() + 1.0))
+        check(ok, f"{what}: moment {k} err {d} against the plain version")
+    check(torch.equal(p, solo_p) and all(torch.equal(slots[k], solo_s[k])
+                                         for k in slots),
+          f"{what}: a row differs from the single-bucket kernel on it")
+    for r in range(m):
+        if not alive[r]:
+            check(torch.equal(p[r], old_p[r]) and all(
+                torch.equal(slots[k][r], old_s[k][r]) for k in slots),
+                f"{what}: masked row {r} changed")
+    bitwise = torch.equal(p, want_p) and all(torch.equal(slots[k], want_s[k])
+                                             for k in slots)
+    return perr, serr, bitwise
+
+
+def time_members(dev, gen, flush):
+    """Nesterovs with float32 state (LeNet's updater) at the sweep's
+    ``[8, 431,080]`` and at ``[4, 25,557,032]``: the member-batched kernel,
+    its plain version, the single-bucket kernel launched once per member,
+    and torch.optim.SGD(momentum=0.9, nesterov=True, fused=True) over one
+    parameter group per member (a yardstick only). Bound: every input read
+    once and every output written once (p, g, v in; p, v out: 20 B an
+    element) over 3.35 TB/s, against 6 float32 operations an element."""
+    from deeplearning4j_tpu_torch.ops import update
+
+    kind = "nesterovs"
+    rows = {}
+    for tag, m, n in (("lenet_sweep", FLEET_M, LENET_PARAMS),
+                      ("resnet50", MEMBERS_KERNEL_M, RESNET50_PARAMS)):
+        p, g, slots, _, lr, live = _members_case(kind, m, n, False, dev, gen,
+                                                 masked=False)
+        sc = update._scalars(_updater(kind), kind, 3)
+        rates = lr.tolist()
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in [p, g] + list(slots.values())) \
+            + sum(t.numel() * t.element_size()
+                  for t in [p] + list(slots.values())) \
+            + lr.numel() * 4 + live.numel() * 4
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = 6 * m * n / F32_FLOPS_PER_S * 1e3
+
+        def solo():
+            for r in range(m):
+                update.fused_update_cuda(kind, (rates[r],) + tuple(sc[1:]),
+                                         p[r], g[r], {"v": slots["v"][r]})
+
+        row = {
+            "shape": [m, n], "kind": kind, "state_dtype": "float32",
+            "ms": _time_ms(lambda: update.fused_update_members_cuda(
+                kind, sc, p, g, slots, None, None, lr, live), flush),
+            "plain_ms": _time_ms(
+                lambda: update.fused_update_members_reference(
+                    kind, sc, p, g, slots, None, None, lr, live), flush),
+            "solo_x_m_ms": _time_ms(solo, flush),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes}
+        lib = [p[r].clone() for r in range(m)]
+        for r, t in enumerate(lib):
+            t.grad = g[r].clone()
+        opt = torch.optim.SGD([{"params": [t], "lr": rates[r]}
+                               for r, t in enumerate(lib)], lr=0.01,
+                              momentum=0.9, nesterov=True, fused=True)
+        opt.step()                   # makes its momentum buffers
+        row["library_ms"] = _time_ms(opt.step, flush)
+        row["library"] = (f"torch.optim.SGD(momentum=0.9, nesterov=True, "
+                          f"fused=True), {m} parameter groups")
+        rows[tag] = row
+        del p, g, slots, lib, opt
+    return rows
+
+
+def phase_fused_update_members(smi: str, dev):
+    """Phase 44: the member-batched route of fused_update held to its plain
+    version, to the single-bucket kernel row by row, and to a masked row,
+    then timed."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 44)
+    perr = serr = 0.0
+    n_cases = n_bitwise = 0
+    cases = [(MEMBERS_KERNEL_M, LENET_PARAMS), (MEMBERS_KERNEL_M,
+                                                RESNET50_PARAMS),
+             (3, 4097), (2, 1)]
+    for kind in ("sgd", "nesterovs", "adam"):
+        for bf16 in ((False,) if kind == "sgd" else (False, True)):
+            for m, n in cases:
+                pe, se, bw = compare_members(kind, m, n, bf16, dev, gen)
+                perr, serr = max(perr, pe), max(serr, se)
+                n_cases += 1
+                n_bitwise += int(bw)
+    torch.cuda.empty_cache()
+    log(f"[kernels] fused_update members vs plain: {n_cases} comparisons "
+        f"(sgd, nesterovs, adam; float32 and bf16 state; [M, N] "
+        f"{cases}; row {MEMBERS_MASKED} masked) within 2 f32 ulp, bf16 "
+        f"moments bitwise; every row bitwise the single-bucket kernel on "
+        f"it, the masked row unchanged; {n_bitwise} of {n_cases} bitwise to "
+        f"the plain version; max param err {perr}, max moment err {serr}")
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    timing = time_members(dev, gen, flush)
+    for tag, t in timing.items():
+        log(f"[kernels] fused_update members {tag} {t['shape']} nesterovs "
+            f"f32 state: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+            f"ms, single-bucket kernel x {t['shape'][0]} "
+            f"{t['solo_x_m_ms']:.4f} ms, {t['library']} "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}, {t['bytes']} B at 3.35 TB/s); median of "
+            f"{TIMED_RUNS} (CUDA events, cold L2); {smi}")
+    torch.cuda.empty_cache()
+    return {"max_err_param": perr, "max_err_moment": serr,
+            "bitwise": n_bitwise, "cases": n_cases}, timing
+
+
+def lenet_fleet(dev, drain_every_n: int = 10):
+    """The sweep: LeNet as bench.py builds it (fused_update on), one member
+    per rate of FLEET_RATES, one shared init."""
+    from deeplearning4j_tpu_torch.models import LeNet
+    from deeplearning4j_tpu_torch.parallel import FleetTrainer
+
+    net = LeNet().init(device=dev)
+    net.conf.global_conf.fused_update = True
+    check(net.num_params() == LENET_PARAMS, f"LeNet has {net.num_params()} "
+          f"parameters")
+    return FleetTrainer.from_sweep(net, {"lr": list(FLEET_RATES)},
+                                   same_init=True,
+                                   drain_every_n=drain_every_n)
+
+
+def fleet_batches(n: int, dev, seed: int):
+    """``n`` batches of FLEET_BATCH synthetic MNIST images on ``dev``."""
+    from deeplearning4j_tpu_torch.data import MnistDataSetIterator
+
+    it = MnistDataSetIterator(FLEET_BATCH, train=True,
+                              num_examples=n * FLEET_BATCH, seed=seed,
+                              flatten=False)
+    return [(torch.from_numpy(ds.features).to(dev),
+             torch.from_numpy(ds.labels).to(dev)) for ds in it]
+
+
+def _member_bits(fleet, m: int) -> list:
+    """Member ``m``'s parameters and moments, as host copies."""
+    from deeplearning4j_tpu_torch.common.tree import get_path, leaf_paths
+
+    p, _, u = fleet.stacked_views()
+    trees = [p] + [u[s] for s in sorted(u)]
+    return [get_path(t, q)[m].detach().cpu().clone() for t in trees
+            for q in leaf_paths(t)]
+
+
+def _solo_bits(net) -> list:
+    from deeplearning4j_tpu_torch.common.tree import get_path, leaf_paths
+    from deeplearning4j_tpu_torch.util.model_serializer import \
+        dense_updater_state
+
+    u = dense_updater_state(net) or {}
+    trees = [net._params] + [u[s] for s in sorted(u)]
+    return [get_path(t, q).detach().cpu().clone() for t in trees
+            for q in leaf_paths(t)]
+
+
+def _bits_equal(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+class _Deterministic:
+    """cuDNN's deterministic algorithms for the block (bitwise gates
+    between runs), TF32 off."""
+
+    def __enter__(self):
+        from deeplearning4j_tpu_torch.common.environment import Environment
+
+        Environment.get().set_tf32(False)
+        self.prev = (torch.backends.cudnn.deterministic,
+                     torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        return self
+
+    def __exit__(self, *exc):
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = self.prev
+        return False
+
+
+def _fmt_ms(v) -> str:
+    return "not measured" if v is None else f"{v:.3f} ms"
+
+
+def fleet_busy_ms(fleet, batches):
+    """The card's busy time a fleet step: torch.profiler's device time of
+    every kernel over ``batches`` steps, per step (None when the profiler
+    sees no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for x, y in batches:
+            fleet.step(x, y)
+        torch.cuda.synchronize()
+    total_us = sum(getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0))
+                   for e in prof.key_averages())
+    return total_us / 1e3 / len(batches) if total_us > 0 else None
+
+
+def phase_fleet_sweep(smi: str, dev) -> dict:
+    """Phase 45: the LeNet learning-rate sweep at full width, M = 8 members
+    at batch 64 each through FleetTrainer.from_sweep: one member-batched
+    fused_update launch per step, member 3 bitwise its solo twin, no
+    stacked buffer reallocated after step 1, the card against the CPU, and
+    the same eight members trained as eight solo fits, in turns."""
+    from deeplearning4j_tpu_torch.common.profiler import OpProfiler
+    from deeplearning4j_tpu_torch.common.tree import get_path, leaf_paths
+    from deeplearning4j_tpu_torch.data import DataSet
+
+    prof = OpProfiler.get()
+    with _Deterministic():
+        batches = fleet_batches(FLEET_WARMUP + FLEET_TIMED, dev, SEED + 45)
+        prof.reset()
+        fleet = lenet_fleet(dev)
+        twin = fleet.solo_twin(FLEET_TWIN)
+        for x, y in batches[:FLEET_WARMUP]:
+            fleet.step(x, y)
+        torch.cuda.synchronize()
+        ptrs = fleet.buffer_ptrs()
+        builds = prof.counter_value("trace/fleet_step")
+        # the main path: every count set to 0 just before, read just after
+        _reset_kernel_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)    # earlier phases' too
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        step_ms, dev_ms, pass_ms = [], [], []
+        for x, y in batches[FLEET_WARMUP:]:
+            t0 = time.perf_counter()
+            start.record()
+            fleet.step(x, y)
+            end.record()
+            end.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            dev_ms.append(start.elapsed_time(end))
+            pass_ms.append(fleet.last_step_timing["passes_host_s"] * 1e3)
+        counts = _kernel_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        stacked = sum(v.numel() * v.element_size() for v in
+                      list(fleet._P.values()) + list(fleet._G.values())
+                      + [t for d in fleet._S.values() for t in d.values()])
+        check(counts["fused_update_members"] == FLEET_TIMED,
+              f"{counts['fused_update_members']} member-batched launches in "
+              f"{FLEET_TIMED} fleet steps")
+        check(counts["fused_update"] == 0, f"{counts['fused_update']} "
+              f"single-bucket fused_update launches in the fleet's steps")
+        check(fleet.buffer_ptrs() == ptrs, "a stacked buffer was "
+              "reallocated after the first step")
+        check(builds == 1, f"trace/fleet_step {builds}")
+        losses = fleet._score_dev.cpu().numpy()
+        check(np.isfinite(losses).all(), f"losses {losses}")
+        for x, y in batches:
+            twin.fit(DataSet(x, y))
+        check(_bits_equal(_member_bits(fleet, FLEET_TWIN), _solo_bits(twin)),
+              f"member {FLEET_TWIN} differs from its solo twin after "
+              f"{len(batches)} steps")
+        busy_ms = fleet_busy_ms(fleet, batches[FLEET_WARMUP:][:3])
+        # throughput in turns: the fleet, then the eight members as eight
+        # solo networks stepping one after another, twice
+        solos = [fleet.solo_twin(m) for m in range(FLEET_M)]
+        timed = batches[FLEET_WARMUP:]
+        for s in solos:
+            s.fit(DataSet(*batches[0]))
+        rounds = {"fleet": [], "solo": []}
+        for _ in range(FLEET_ROUNDS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for x, y in timed:
+                fleet.step(x, y)
+            torch.cuda.synchronize()
+            rounds["fleet"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            for x, y in timed:
+                ds = DataSet(x, y)
+                for s in solos:
+                    s.fit(ds)
+            torch.cuda.synchronize()
+            rounds["solo"].append(time.perf_counter() - t0)
+        images = FLEET_M * FLEET_BATCH * len(timed)
+        ips = {k: images / statistics.median(v) for k, v in rounds.items()}
+        del solos
+        # the card against the CPU after FLEET_CPU_STEPS steps
+        card, host = lenet_fleet(dev), lenet_fleet(torch.device("cpu"))
+        for x, y in batches[:FLEET_CPU_STEPS]:
+            card.step(x, y)
+            host.step(x.cpu(), y.cpu())
+        pc, ph = card.stacked_views()[0], host.stacked_views()[0]
+        worst = 0.0
+        for q in leaf_paths(ph):
+            a, b = get_path(pc, q).cpu(), get_path(ph, q)
+            worst = max(worst, ((a - b).abs().max()
+                                / b.abs().max().clamp_min(1e-30)).item())
+        check(worst <= FLEET_CPU_TOL, f"fleet card vs CPU after "
+              f"{FLEET_CPU_STEPS} steps: {worst} of a leaf's largest value "
+              f"> {FLEET_CPU_TOL}")
+    r = {"members": FLEET_M, "batch_per_member": FLEET_BATCH,
+         "rates": list(FLEET_RATES), "steps": FLEET_TIMED,
+         "images_per_s": FLEET_M * FLEET_BATCH * FLEET_TIMED
+         / sum(step_ms) * 1e3,
+         **_ms_stats(step_ms),
+         "device_ms_median": statistics.median(dev_ms),
+         "passes_host_ms_median": statistics.median(pass_ms),
+         "host_share": statistics.median(pass_ms)
+         / statistics.median(step_ms),
+         "device_busy_ms": busy_ms,
+         "idle_share": (None if busy_ms is None else
+                        1.0 - busy_ms / statistics.median(dev_ms)),
+         "peak_bytes": peak, "peak_above_start": peak - held,
+         "stacked_bytes": stacked,
+         "launches": counts["fused_update_members"],
+         "solo_launches": counts["fused_update"],
+         "turns_images_per_s": ips, "rounds_s": rounds,
+         "last_losses": losses.tolist(), "twin_bitwise": True,
+         "cpu_max_rel_err": worst}
+    log(f"[fleet-sweep] LeNet (431,080 parameters) x {FLEET_M} members, "
+        f"lr {list(FLEET_RATES)}, batch {FLEET_BATCH} each, synthetic "
+        f"MNIST: {r['images_per_s']:.1f} images/s over {FLEET_TIMED} steps; "
+        f"step ms median {r['step_ms_median']:.3f} p10 "
+        f"{r['step_ms_p10']:.3f} p90 {r['step_ms_p90']:.3f} (host clock, "
+        f"waiting each step); device time (CUDA events around the step) "
+        f"median {r['device_ms_median']:.3f} ms, of which the card is "
+        f"busy {_fmt_ms(busy_ms)} (torch.profiler's kernel time a step); "
+        f"the {FLEET_M} member passes' host time median "
+        f"{r['passes_host_ms_median']:.3f} ms; "
+        f"peak {peak} B, {peak - held} B above the phase's start (the "
+        f"stacked parameters, gradients and moments {stacked} B); "
+        f"{r['launches']} member-batched launches, "
+        f"{r['solo_launches']} single-bucket; member {FLEET_TWIN} bitwise "
+        f"its solo twin; no buffer reallocated; card vs CPU after "
+        f"{FLEET_CPU_STEPS} steps within {worst:.3e} (<= {FLEET_CPU_TOL}); "
+        f"{smi}")
+    log(f"[fleet-sweep] in turns ({FLEET_ROUNDS} rounds of {FLEET_TIMED} "
+        f"steps): fleet {ips['fleet']:.1f} images/s, the same {FLEET_M} "
+        f"members as {FLEET_M} solo fits one after another "
+        f"{ips['solo']:.1f} images/s; {smi}")
+    return r
+
+
+def fleet_mlp(dev, updater=None, seed: int = 7):
+    """bench.py fleet-smoke's 64-32-10 MLP (Adam 1e-3, tanh, MSE), with
+    fused_update."""
+    from deeplearning4j_tpu_torch.learning import Adam
+    from deeplearning4j_tpu_torch.nn import (InputType, MultiLayerNetwork,
+                                             NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+
+    c = FLEET_MLP
+    conf = (NeuralNetConfiguration.builder().seed(seed)
+            .updater(updater if updater is not None else Adam(c["lr"]))
+            .activation("tanh").weight_init("xavier").fused_update().list()
+            .layer(L.DenseLayer(n_out=c["hidden"]))
+            .layer(L.OutputLayer(n_out=c["n_out"], loss="mse",
+                                 activation="identity"))
+            .set_input_type(InputType.feed_forward(c["n_in"])).build())
+    return MultiLayerNetwork(conf).init(device=dev)
+
+
+def _nan_drills(label, make, x, y, dev) -> dict:
+    """A NaN poured into member FLEET_POISON's batch: under "skip" every
+    other member ends bitwise as in a clean run and the member keeps its
+    pre-step bits at that step; under "cull" its alive bit drops on the
+    device and its row stays frozen from then on."""
+    from deeplearning4j_tpu_torch.optimize import NanSentinelListener
+
+    M = FLEET_M
+    xs = x.expand((M,) + tuple(x.shape)).clone()
+    ys = y.expand((M,) + tuple(y.shape)).clone()
+    bad = xs.clone()
+    bad[FLEET_POISON] = float("nan")
+    out = {}
+    for policy in ("skip", "cull"):
+        def run(poison):
+            fleet = make()
+            fleet.set_listeners(NanSentinelListener(policy,
+                                                    check_every_n=50))
+            fleet.step(x, y)
+            pre = _member_bits(fleet, FLEET_POISON)
+            fleet.step(bad if poison else xs, ys, per_member=True)
+            kept = _bits_equal(_member_bits(fleet, FLEET_POISON), pre)
+            for _ in range(2):
+                fleet.step(x, y)
+            fleet.drain()
+            return fleet, pre, kept
+
+        clean, _, _ = run(False)
+        drill, pre, kept = run(True)
+        others = all(_bits_equal(_member_bits(clean, m),
+                                 _member_bits(drill, m))
+                     for m in range(M) if m != FLEET_POISON)
+        check(kept, f"{label} {policy}: the poisoned step moved member "
+              f"{FLEET_POISON}")
+        check(others, f"{label} {policy}: another member differs from the "
+              f"clean run")
+        alive = drill.alive_mask().tolist()
+        if policy == "skip":
+            check(alive == [1] * M, f"{label} skip: alive {alive}")
+            check(not _bits_equal(_member_bits(drill, FLEET_POISON), pre),
+                  f"{label} skip: member {FLEET_POISON} stopped training")
+        else:
+            want = [int(m != FLEET_POISON) for m in range(M)]
+            check(alive == want, f"{label} cull: alive {alive}")
+            check(_bits_equal(_member_bits(drill, FLEET_POISON), pre),
+                  f"{label} cull: the culled row moved")
+        out[policy] = {"alive": alive, "others_bitwise": True}
+    return out
+
+
+def _cull_spawn(label, make, x, y) -> dict:
+    fleet = make()
+    fleet.step(x, y)
+    ptrs = fleet.buffer_ptrs()
+    fleet.cull(2, reason="drill")
+    frozen = _member_bits(fleet, 2)
+    fleet.step(x, y)
+    check(_bits_equal(_member_bits(fleet, 2), frozen), f"{label}: the culled "
+          f"member moved")
+    fleet.spawn(2)
+    fleet.step(x, y)
+    check(fleet.buffer_ptrs() == ptrs, f"{label}: cull/spawn reallocated a "
+          f"stacked buffer")
+    check(fleet.alive_mask().tolist() == [1] * FLEET_M, f"{label}: alive "
+          f"{fleet.alive_mask().tolist()}")
+    return {"no_realloc": True}
+
+
+def phase_fleet_lifecycle(smi: str, dev) -> dict:
+    """Phase 46: the lifecycle drills on fleet-smoke's MLP and on LeNet:
+    NaN isolation under "skip" and "cull", cull then spawn in place,
+    FleetEarlyStop from the drained window, save_member into a solo network
+    continuing bitwise, save/restore of the whole fleet continuing bitwise,
+    and the best member's checkpoint canaried and promoted onto a live
+    ServingEngine."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.common import flightrec
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.learning import Sgd
+    from deeplearning4j_tpu_torch.models import LeNet
+    from deeplearning4j_tpu_torch.optimize import NanSentinelListener
+    from deeplearning4j_tpu_torch.parallel import (FleetEarlyStop,
+                                                   FleetTrainer,
+                                                   ServingEngine)
+    from deeplearning4j_tpu_torch.util import checkpoint as ckpt
+    from deeplearning4j_tpu_torch.util.model_serializer import tree_leaves
+
+    rng = np.random.RandomState(SEED + 46)
+    c = FLEET_MLP
+    mx = torch.from_numpy(rng.randn(c["batch"], c["n_in"]).astype(
+        np.float32)).to(dev)
+    my = torch.from_numpy(rng.randn(c["batch"], c["n_out"]).astype(
+        np.float32)).to(dev)
+    lx, ly = fleet_batches(1, dev, SEED + 46)[0]
+    makers = {"mlp": (lambda: FleetTrainer(fleet_mlp(dev), FLEET_M,
+                                           seed=7), mx, my),
+              "lenet": (lambda: lenet_fleet(dev), lx, ly)}
+    out = {}
+    t0 = time.perf_counter()
+    with _Deterministic(), tempfile.TemporaryDirectory(
+            prefix="dl4j_fleet_") as tmp:
+        for label, (make, x, y) in makers.items():
+            out[label] = {"nan": _nan_drills(label, make, x, y, dev),
+                          "cull_spawn": _cull_spawn(label, make, x, y)}
+        # early stop: lr 0 never improves, so every member goes stale
+        flightrec.reset()
+        es = FleetTrainer(fleet_mlp(dev, Sgd(0.0)), FLEET_M, seed=7,
+                          drain_every_n=3)
+        es.set_listeners(NanSentinelListener("warn"),
+                         FleetEarlyStop(patience=2))
+        for _ in range(9):
+            es.step(mx, my)
+        es.drain()
+        check(es.alive_mask().tolist() == [0] * FLEET_M,
+              f"early stop: alive {es.alive_mask().tolist()}")
+        reasons = {e["attrs"]["reason"] for e in flightrec.events(
+            "fleet/cull")}
+        check(reasons == {"early_stop"}, f"early stop culls {reasons}")
+        # save_member -> a solo network continuing bitwise (LeNet sweep)
+        fleet = lenet_fleet(dev, drain_every_n=2)
+        for _ in range(2):
+            fleet.step(lx, ly)
+        path = fleet.save_member(FLEET_TWIN, os.path.join(tmp, "member"))
+        solo = type(fleet.model)(fleet.member_conf(FLEET_TWIN)).init(
+            device=dev)
+        ckpt.restore_training_state(solo, path)
+        check(_bits_equal(_member_bits(fleet, FLEET_TWIN), _solo_bits(solo)),
+              "save_member: the restored solo network differs")
+        for _ in range(2):
+            fleet.step(lx, ly)
+            solo.fit(DataSet(lx, ly))
+        check(_bits_equal(_member_bits(fleet, FLEET_TWIN), _solo_bits(solo)),
+              "save_member: the solo continuation differs from the member")
+        # save/restore of the whole fleet, continuing bitwise
+        fleet.cull(6)
+        fpath = fleet.save(os.path.join(tmp, "fleet"))
+        resumed = lenet_fleet(dev, drain_every_n=2)
+        resumed.restore(fpath)
+        for _ in range(2):
+            fleet.step(lx, ly)
+            resumed.step(lx, ly)
+        check(all(_bits_equal(_member_bits(fleet, m),
+                              _member_bits(resumed, m))
+                  for m in range(FLEET_M)),
+              "fleet save/restore: a member differs after the resume")
+        check(resumed.alive_mask().tolist()[6] == 0, "restored alive mask")
+        manifest = [e.get("fleet") for e in ckpt.read_manifest(
+            os.path.join(tmp, "fleet"))]
+        # the serving handoff: the best member onto a live engine
+        fleet.set_listeners(NanSentinelListener("warn", check_every_n=2))
+        for _ in range(2):
+            fleet.step(lx, ly)
+        best = fleet.best_member()
+        exported = fleet.export_member(best)
+        bpath = fleet.save_member(best, os.path.join(tmp, "best"))
+        engine = (ServingEngine.Builder(LeNet().init(device=dev))
+                  .buckets((1, 8, 32)).input_shape((1, 28, 28)).workers(1)
+                  .max_wait_ms(2).build())
+        try:
+            xs = lx[:8].cpu().numpy()
+            engine.output(xs)
+            handle = engine.publish_checkpoint(bpath, canary_window_s=0.3,
+                                               confirm_window_s=0.3,
+                                               check_interval_s=0.05)
+            deadline = time.monotonic() + 30
+            while not handle.done and time.monotonic() < deadline:
+                engine.output(xs)
+            outcome = handle.result(timeout=30)
+            check(outcome == "promoted", f"the member's publication ended "
+                  f"{outcome!r}")
+            want_p, want_s = ckpt.read_checkpoint_params(
+                bpath, engine.model._params, engine.model._states)
+            got_p, got_s = engine._dev_params[0]
+            got = [t.cpu() for t in tree_leaves(got_p) + tree_leaves(got_s)]
+            want = [t.cpu() for t in tree_leaves(want_p)
+                    + tree_leaves(want_s)]
+            check(_bits_equal(got, want), "the promoted params differ from "
+                  "the checkpoint's")
+            check(_bits_equal([t.cpu() for t in tree_leaves(want_p)],
+                              [t.detach().cpu()
+                               for t in tree_leaves(exported._params)]),
+                  "the checkpoint differs from export_member")
+            served = torch.as_tensor(engine.output(xs)).cpu()
+            direct = exported.output(lx[:8]).cpu()
+            serve_err = ((served - direct).abs().max()
+                         / direct.abs().max()).item()
+            check(serve_err <= 1e-5, f"the engine serves {serve_err} of the "
+                  f"largest output away from the exported member")
+        finally:
+            engine.shutdown()
+    out["early_stop"] = {"culled": FLEET_M, "reasons": sorted(reasons)}
+    out["checkpoints"] = {"member_continuation_bitwise": True,
+                          "fleet_resume_bitwise": True,
+                          "manifest": manifest}
+    out["handoff"] = {"best_member": best, "outcome": outcome,
+                      "served_rel_err": serve_err}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[fleet-lifecycle] fleet-smoke MLP (64-32-10, Adam) and LeNet, "
+        f"{FLEET_M} members each: a NaN in member {FLEET_POISON}'s batch "
+        f"under skip left the other {FLEET_M - 1} bitwise as a clean run, "
+        f"under cull dropped its alive bit and froze its row; cull then "
+        f"spawn without reallocation; FleetEarlyStop culled all "
+        f"{FLEET_M} (lr 0) from the drained window; save_member({FLEET_TWIN})"
+        f" restored into a solo LeNet continuing bitwise; save/restore of "
+        f"the whole fleet continuing bitwise (manifest {manifest}); member "
+        f"{best}'s checkpoint {outcome} on a live ServingEngine, its params "
+        f"bitwise the checkpoint's; {out['seconds']:.1f} s; {smi}")
+    return out
+
+
+def phase_fault_sites(smi: str, dev) -> dict:
+    """Phase 47: the training path's fault sites: device/loss at step 2 of
+    a LeNet fit raises DeviceLostError naming the replica; phase 42's bit
+    flip driven through the integrity/fingerprint site is caught and
+    named."""
+    from deeplearning4j_tpu_torch.common import (faultinject, flightrec,
+                                                 integrity)
+    from deeplearning4j_tpu_torch.common.profiler import OpProfiler
+
+    prof = OpProfiler.get()
+    prof.reset()
+    flightrec.reset()
+    net = lenet_pw_model(dev)
+    faultinject.set_plan(faultinject.FaultPlan(
+        [{"site": "device/loss", "kind": "device_loss", "index": 2,
+          "replica": 1}]))
+    err = None
+    try:
+        net.fit(lenet_pw_data(LENET_PW_STEPS))
+    except faultinject.DeviceLostError as e:
+        err = e
+    finally:
+        faultinject.clear_plan()
+    check(err is not None and err.replica == 1 and "replica 1" in str(err),
+          f"device/loss: {err!r}")
+    check(net._iteration == 2, f"device/loss fired after {net._iteration} "
+          f"steps")
+    lost = prof.fault_stats().get("faults/device/loss/device_loss", 0)
+    check(lost == 1, f"faults/device/loss/device_loss {lost}")
+    flip_at = 5
+    with _Deterministic():
+        model = lenet_pw_model(dev)
+        pw = pw_wrapper(model, dev)
+        lst = integrity.IntegrityListener(check_every=2)
+        pw.set_listeners(lst)
+        faultinject.set_plan(faultinject.FaultPlan(
+            [{"site": "integrity/fingerprint", "kind": "bitflip",
+              "index": flip_at, "replica": 2, "bit": 12, "offset": 7}]))
+        caught = None
+        try:
+            pw.fit(lenet_pw_data(LENET_PW_STEPS), epochs=2)
+        except integrity.ReplicaCorruptionError as e:
+            caught = e
+        finally:
+            faultinject.clear_plan()
+            pw.shutdown()
+    check(caught is not None and caught.replica == 2
+          and caught.iteration == flip_at + 2,
+          f"the site's bit flip: {caught!r}")
+    div = flightrec.events("integrity/divergence")
+    check(bool(div) and div[0]["attrs"]["replica"] == 2,
+          f"integrity/divergence events {div}")
+    r = {"device_loss": {"replica": err.replica, "steps": net._iteration,
+                         "counted": lost},
+         "bitflip_site": {"replica": caught.replica,
+                          "iteration": caught.iteration,
+                          "divergence_events": len(div)}}
+    log(f"[fault-sites] LeNet fit: device/loss at dispatch 2 raised "
+        f"DeviceLostError ({err}) after 2 steps, counted {lost}; phase 42's "
+        f"flip through integrity/fingerprint (replica 2, bit 12, at "
+        f"iteration {flip_at}) caught at iteration {caught.iteration} and "
+        f"named replica {caught.replica}, {len(div)} integrity/divergence "
+        f"event(s); {smi}")
+    return r
+
+
+def rl_qnet(dev, hidden: int = 64, lr: float = 1e-3):
+    """The CartPole Q-network: 4 - 64 - 64 - 2, ReLU, an MSE head, Adam,
+    fused_update."""
+    from deeplearning4j_tpu_torch.learning import Adam
+    from deeplearning4j_tpu_torch.nn import (InputType, MultiLayerNetwork,
+                                             NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+
+    conf = (NeuralNetConfiguration.builder().seed(3).updater(Adam(lr))
+            .activation("relu").weight_init("xavier").fused_update().list()
+            .layer(L.DenseLayer(n_out=hidden))
+            .layer(L.DenseLayer(n_out=hidden))
+            .layer(L.OutputLayer(n_out=2, loss="mse", activation="identity"))
+            .set_input_type(InputType.feed_forward(4)).build())
+    return MultiLayerNetwork(conf).init(device=dev)
+
+
+def phase_rl(smi: str, dev) -> dict:
+    """Phase 48: the RL package on the card: FleetDQNPopulation (M = 8 on
+    the in-process CartPole, a learning-rate sweep) with one member-batched
+    update per TD step; QLearningDiscreteDense with one fused_update per TD
+    step; A3C and async n-step Q on SameDiff networks, two workers each."""
+    from deeplearning4j_tpu_torch import rl
+    from deeplearning4j_tpu_torch.optimize import NanSentinelListener
+
+    out = {}
+    conf = rl.QLConfiguration(seed=3, max_step=RL_STEPS, max_epoch_step=200,
+                              batch_size=32, update_start=RL_UPDATE_START,
+                              target_dqn_update_freq=50,
+                              epsilon_nb_step=RL_STEPS)
+    pop = rl.FleetDQNPopulation(
+        lambda i: rl.CartPole(seed=i, max_steps=200), rl_qnet(dev), conf,
+        n_members=RL_MEMBERS, grid={"lr": list(RL_RATES)},
+        listeners=(NanSentinelListener("warn", check_every_n=25),))
+    _reset_kernel_counts()
+    t0 = time.perf_counter()
+    rewards = pop.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _kernel_counts()
+    want = RL_STEPS - RL_UPDATE_START + 1
+    check(pop.learn_steps == want, f"population TD steps {pop.learn_steps}, "
+          f"want {want}")
+    check(counts["fused_update_members"] == pop.learn_steps
+          and counts["fused_update"] == 0,
+          f"population launches {counts} for {pop.learn_steps} TD steps")
+    check(all(len(r) >= 1 for r in rewards), f"episodes per member "
+          f"{[len(r) for r in rewards]}")
+    losses = pop.fleet._last_losses
+    check(losses is not None and np.isfinite(losses).all(),
+          f"population TD losses {losses}")
+    out["population"] = {"members": RL_MEMBERS, "env_steps": RL_STEPS,
+                         "td_steps": pop.learn_steps,
+                         "member_launches": counts["fused_update_members"],
+                         "episodes": [len(r) for r in rewards],
+                         "mean_reward": [float(np.mean(r)) for r in rewards],
+                         "last_losses": losses.tolist(), "seconds": wall}
+    ql_conf = rl.QLConfiguration(seed=5, max_step=RL_STEPS,
+                                 max_epoch_step=200, batch_size=32,
+                                 update_start=RL_UPDATE_START,
+                                 target_dqn_update_freq=50)
+    net = rl_qnet(dev)
+    ql = rl.QLearningDiscreteDense(rl.CartPole(seed=11, max_steps=200), net,
+                                   ql_conf)
+    _reset_kernel_counts()
+    ql_rewards = ql.train()
+    counts = _kernel_counts()
+    check(counts["fused_update"] == ql.learn_steps == want,
+          f"QLearningDiscreteDense: {counts['fused_update']} launches, "
+          f"{ql.learn_steps} TD steps")
+    check(len(ql_rewards) >= 1 and np.isfinite(net.score_value),
+          f"QLearningDiscreteDense: {len(ql_rewards)} episodes, loss "
+          f"{net.score_value}")
+    out["dqn"] = {"td_steps": ql.learn_steps, "episodes": len(ql_rewards),
+                  "last_loss": net.score_value}
+    a3c = rl.A3CDiscreteDense(
+        lambda: rl.CartPole(seed=21, max_steps=200),
+        rl.ActorCriticNetwork(4, 2, hidden=(64, 64), seed=2, device=dev),
+        rl.A3CConfiguration(seed=2, max_step=RL_ASYNC_STEPS,
+                            max_epoch_step=200, num_threads=2, nstep=8))
+    a3c_rewards = a3c.train()
+    nq = rl.AsyncNStepQLearningDiscreteDense(
+        lambda: rl.CartPole(seed=31, max_steps=200),
+        rl.SameDiffQNetwork(4, 2, hidden=(64, 64), lr=1e-3, seed=4,
+                            device=dev),
+        rl.AsyncQLConfiguration(seed=4, max_step=RL_ASYNC_STEPS,
+                                max_epoch_step=200, num_threads=2, nstep=5,
+                                target_dqn_update_freq=20))
+    nq_rewards = nq.train()
+    for label, learner, rw in (("a3c", a3c, a3c_rewards),
+                               ("async_nstep_q", nq, nq_rewards)):
+        check(learner.step_count >= RL_ASYNC_STEPS and len(rw) >= 1
+              and learner.losses and np.isfinite(learner.losses).all(),
+              f"{label}: {learner.step_count} steps, {len(rw)} episodes, "
+              f"{len(learner.losses)} updates")
+        out[label] = {"env_steps": learner.step_count, "episodes": len(rw),
+                      "updates": len(learner.losses),
+                      "last_loss": float(learner.losses[-1])}
+    p = out["population"]
+    log(f"[rl] FleetDQNPopulation, {RL_MEMBERS} members on CartPole (lr "
+        f"{list(RL_RATES)}): {RL_STEPS} env steps, {p['td_steps']} TD steps "
+        f"with {p['member_launches']} member-batched fused_update launches "
+        f"(one each) in {wall:.2f} s; episodes {p['episodes']}; finite TD "
+        f"losses; QLearningDiscreteDense {ql.learn_steps} TD steps, one "
+        f"fused_update each, {len(ql_rewards)} episodes; A3C "
+        f"{a3c.step_count} steps / {len(a3c_rewards)} episodes / "
+        f"{len(a3c.losses)} updates; async n-step Q {nq.step_count} steps / "
+        f"{len(nq_rewards)} episodes / {len(nq.losses)} updates; {smi}")
+    return out
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
@@ -9617,6 +10496,12 @@ def main(argv=None) -> int:
         pw_int = phase_parallel_integrity(smi, dev)
         torch.cuda.empty_cache()
         sv = phase_serving_tier(smi, dev)
+        torch.cuda.empty_cache()
+        mem_errs, mem_timing = phase_fused_update_members(smi, dev)
+        fleet = phase_fleet_sweep(smi, dev)
+        fleet_life = phase_fleet_lifecycle(smi, dev)
+        faults = phase_fault_sites(smi, dev)
+        rl_r = phase_rl(smi, dev)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -9791,6 +10676,25 @@ def main(argv=None) -> int:
         "long": {k: fl[k] for k in ("shape", "ms", "plain_ms", "library_ms",
                                     "unfused_ms", "bound_ms", "bound_by",
                                     "ffma_bound_ms")}})
+    ms = mem_timing["lenet_sweep"]
+    kernels.append({
+        "name": update.MEMBERS_KERNEL_NAME, "route": "cuda",
+        "source": update.SOURCE, "replaces": update.REPLACES,
+        "under": "jax.vmap over the fleet's members",
+        "launches": fleet["launches"],
+        "max_abs_err": max(mem_errs["max_err_param"],
+                           mem_errs["max_err_moment"]),
+        "max_err_param": mem_errs["max_err_param"],
+        "max_err_moment": mem_errs["max_err_moment"],
+        "bitwise_cases": f"{mem_errs['bitwise']}/{mem_errs['cases']}",
+        "shape": ms["shape"], "kind": ms["kind"],
+        "state_dtype": ms["state_dtype"],
+        "ms": ms["ms"], "plain_ms": ms["plain_ms"],
+        "bound_ms": ms["bound_ms"], "bound_by": ms["bound_by"],
+        "library_ms": ms["library_ms"], "library": ms["library"],
+        "solo_x_m_ms": ms["solo_x_m_ms"], "bytes": ms["bytes"],
+        "resnet50": mem_timing["resnet50"],
+        "launches_rl_population": rl_r["population"]["member_launches"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"train": {k: v for k, v in train.items()
                                 if k != "counters"},
@@ -9820,7 +10724,9 @@ def main(argv=None) -> int:
                       "parallel_resnet50": pw_r50,
                       "parallel_encoded_elastic": pw_enc,
                       "parallel_integrity": pw_int,
-                      "serving_tier": sv},
+                      "serving_tier": sv, "fleet_sweep": fleet,
+                      "fleet_lifecycle": fleet_life, "fault_sites": faults,
+                      "rl": rl_r},
                      default=str),
           flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -27,10 +27,13 @@ Spec fields: ``{"site": ..., "kind": ..., "index": k}`` plus ``times``
 
 The port reaches ``serving/enqueue``, ``serving/dispatch``,
 ``serving/admission``, ``serving/promote``, ``autoscale/decide``,
-``inference/worker``, ``inference/probe`` and ``checkpoint/scrub``. The
-other sites belong to modules it does not have yet (the supervisor,
-pipeline parallelism, the cluster runtime, the watchtower) or to paths
-that do not call them yet; their specs are parsed and validated alike.
+``inference/worker``, ``inference/probe``, ``checkpoint/scrub``,
+``checkpoint/pre_rename``, the fit loop's ``pipeline/bind``,
+``pipeline/place``, ``train/step``, ``train/wedge`` and ``device/loss``
+(``data/pipeline.run_epochs``) and the data-parallel wrapper's
+``integrity/fingerprint``. The other sites belong to modules it does not
+have yet (the supervisor, pipeline parallelism, the cluster runtime, the
+watchtower); their specs are parsed and validated alike.
 
 Every fired fault bumps an ``OpProfiler`` counter
 (``faults/<site>/<kind>``) and records a ``fault/fired`` flight-recorder

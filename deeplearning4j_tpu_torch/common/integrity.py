@@ -31,9 +31,12 @@ into one 32-bit word and compares the words across replicas:
   and quarantines the failing ones (``util/checkpoint.record_scrub``);
   ``_flip_file_byte`` rots one byte of a file on disk for its drills.
 
-The ``integrity/fingerprint`` fault-injection site waits for the training
-path's fault sites (ROADMAP A7); callers flip bits with
-:func:`apply_bitflip` directly.
+The ``integrity/fingerprint`` fault-injection site (``parallel/
+wrapper.py``'s dispatch) flips bits through :func:`apply_bitflip`; callers
+may also call it directly. The listener records the flight-recorder events
+``integrity/divergence`` (each divergent check) and
+``integrity/fingerprint`` (the last checked fingerprint of a drained
+window), as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -249,14 +252,18 @@ class IntegrityListener:
                 a["integrity_replica"].to(torch.int64),
                 a["integrity_fp"].to(torch.int64)]) for _, a in buf])
             vals = rows.cpu().tolist()
+        last_fp = None
         for (it, _), (checked, diverged, replica, fp) in zip(buf, vals):
             if not checked:
                 continue
             prof.count("integrity/checks")
-            self.fingerprints.append((it, int(fp)))
+            last_fp = (it, int(fp))
+            self.fingerprints.append(last_fp)
             if diverged:
                 rep = int(replica)
                 prof.count("integrity/divergences")
+                flightrec.event("integrity/divergence", severity="error",
+                                iteration=it, replica=rep, fp=int(fp))
                 self.divergences.append(
                     {"iteration": it, "replica": rep, "fp": int(fp)})
                 who = rep if rep >= 0 else "unattributable"
@@ -268,6 +275,9 @@ class IntegrityListener:
                 logger.warning(
                     "integrity: fingerprint divergence at iteration %d "
                     "(replica %s), policy=warn, training continues", it, who)
+        if last_fp is not None:
+            flightrec.event("integrity/fingerprint", iteration=last_fp[0],
+                            fp=last_fp[1], checks=len(self.fingerprints))
 
     def state_dict(self) -> dict:
         return {"fingerprints": [[i, f] for i, f in self.fingerprints[-64:]]}

@@ -334,7 +334,8 @@ class OpProfiler:
         return self._with_prefix("autoscale/")
 
     def fleet_stats(self) -> Dict[str, float]:
-        """Vmapped fleets (not ported yet: empty)."""
+        """Fleet training (``parallel/fleet.py``): the live ``members``
+        gauge, culls, spawns, NaN culls and telemetry drains."""
         return self._with_prefix("fleet/")
 
     def precision_stats(self) -> Dict[str, float]:

@@ -21,6 +21,15 @@
 // view into a buffer at an odd offset), the wrapper launches the scalar
 // variant instead (vec == 0).
 //
+// The member-batched route (dl4j_fused_update_members): a fleet of M
+// same-architecture members keeps each bucket as one contiguous [M, n]
+// tensor, and one launch updates every row: the grid's y dimension is the
+// member, each row reads its own learning rate from a float32 [M] (the
+// sweep's) and an int32 [M] live mask, and a block whose member is masked
+// returns at once. This is what jax.vmap makes of the TPU kernel under the
+// fleet (parallel/fleet.py, ops/pallas_update.py:191 under vmap). Bound: the
+// same bytes per element as the single bucket, times M live rows.
+//
 // In place: p and the moment buffers are read and written at the same
 // index by the same thread; the wrapper (ops/update.py) passes views of the
 // persistent buckets, so the graph's parameters change with them.
@@ -178,15 +187,16 @@ __device__ __forceinline__ void one(const Scalars& sc, float* __restrict__ p,
   if constexpr (NS >= 2) State<S>::store(s1, i, b, r >> 16);
 }
 
+// The whole bucket [0, n) of one update, grid-stride from thread `tid` with
+// `stride` threads: the body both kernels run.
 template <int KIND, typename S, bool VEC>
-__global__ void fused_update_kernel(Scalars sc, float* __restrict__ p,
-                                    const float* __restrict__ g,
-                                    S* __restrict__ s0, S* __restrict__ s1,
-                                    const uint32_t* __restrict__ bits,
-                                    long long n, long long head) {
+__device__ __forceinline__ void bucket(const Scalars& sc, float* __restrict__ p,
+                                       const float* __restrict__ g,
+                                       S* __restrict__ s0, S* __restrict__ s1,
+                                       const uint32_t* __restrict__ bits,
+                                       long long n, long long head,
+                                       long long tid, long long stride) {
   constexpr int NS = NSlots<KIND>::n;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long stride = (long long)gridDim.x * blockDim.x;
   if constexpr (!VEC) {
     for (long long i = tid; i < n; i += stride)
       one<KIND, S>(sc, p, g, s0, s1, bits, i);
@@ -222,13 +232,58 @@ __global__ void fused_update_kernel(Scalars sc, float* __restrict__ p,
   }
 }
 
+template <int KIND, typename S, bool VEC>
+__global__ void fused_update_kernel(Scalars sc, float* __restrict__ p,
+                                    const float* __restrict__ g,
+                                    S* __restrict__ s0, S* __restrict__ s1,
+                                    const uint32_t* __restrict__ bits,
+                                    long long n, long long head) {
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  bucket<KIND, S, VEC>(sc, p, g, s0, s1, bits, n, head, tid, stride);
+}
+
+// The member-batched route: row m = blockIdx.y of a contiguous [M, n]
+// bucket (every buffer's rows `row` elements apart), the row's own learning
+// rate lr[m] when `lr` is given, and nothing at all for a row whose
+// live[m] is 0: its parameters and moments keep their bits and its random
+// bits are not read. The element math is the single bucket's, so each row
+// is bitwise the solo kernel's update of that row with its scalars.
+template <int KIND, typename S, bool VEC>
+__global__ void fused_update_members_kernel(
+    Scalars sc, float* __restrict__ p, const float* __restrict__ g,
+    S* __restrict__ s0, S* __restrict__ s1, const uint32_t* __restrict__ bits,
+    long long n, long long row, long long head, const float* __restrict__ lr,
+    const int* __restrict__ live) {
+  constexpr int NS = NSlots<KIND>::n;
+  const long long m = blockIdx.y;
+  if (live != nullptr && live[m] == 0) return;
+  if (lr != nullptr) sc.v[0] = lr[m];
+  const long long off = m * row;
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  bucket<KIND, S, VEC>(sc, p + off, g + off, NS >= 1 ? s0 + off : s0,
+                       NS >= 2 ? s1 + off : s1,
+                       bits != nullptr ? bits + off : bits, n, head, tid,
+                       stride);
+}
+
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 132LL * 16;
+
+// members == 0: the single bucket (fused_update_kernel); members >= 1: the
+// member-batched kernel over `members` rows.
+struct Rows {
+  int members;
+  long long row;
+  const float* lr;
+  const int* live;
+};
 
 template <int KIND, typename S>
 void launch(const Scalars& sc, void* p, const void* g, void* s0, void* s1,
             const void* bits, long long n, long long head, int vec,
-            cudaStream_t stream) {
+            const Rows& rows, cudaStream_t stream) {
   const long long work = vec ? (n - head) / 4 : n;
   long long blocks = (work + kThreads - 1) / kThreads;
   if (blocks < 1) blocks = 1;
@@ -238,25 +293,58 @@ void launch(const Scalars& sc, void* p, const void* g, void* s0, void* s1,
   S* a = static_cast<S*>(s0);
   S* b = static_cast<S*>(s1);
   const uint32_t* r = static_cast<const uint32_t*>(bits);
-  if (vec)
+  if (rows.members > 0) {
+    const dim3 grid((unsigned)blocks, (unsigned)rows.members);
+    if (vec)
+      fused_update_members_kernel<KIND, S, true><<<grid, kThreads, 0, stream>>>(
+          sc, pp, gp, a, b, r, n, rows.row, head, rows.lr, rows.live);
+    else
+      fused_update_members_kernel<KIND, S, false><<<grid, kThreads, 0, stream>>>(
+          sc, pp, gp, a, b, r, n, rows.row, 0, rows.lr, rows.live);
+  } else if (vec) {
     fused_update_kernel<KIND, S, true><<<(unsigned)blocks, kThreads, 0, stream>>>(
         sc, pp, gp, a, b, r, n, head);
-  else
+  } else {
     fused_update_kernel<KIND, S, false><<<(unsigned)blocks, kThreads, 0, stream>>>(
         sc, pp, gp, a, b, r, n, 0);
+  }
 }
 
 template <int KIND>
 int dispatch_state(int bf16_state, const Scalars& sc, void* p, const void* g,
                    void* s0, void* s1, const void* bits, long long n,
-                   long long head, int vec, cudaStream_t stream) {
+                   long long head, int vec, const Rows& rows,
+                   cudaStream_t stream) {
   if (bf16_state) {
     if (bits == nullptr) return (int)cudaErrorInvalidValue;
-    launch<KIND, uint16_t>(sc, p, g, s0, s1, bits, n, head, vec, stream);
+    launch<KIND, uint16_t>(sc, p, g, s0, s1, bits, n, head, vec, rows, stream);
   } else {
-    launch<KIND, float>(sc, p, g, s0, s1, nullptr, n, head, vec, stream);
+    launch<KIND, float>(sc, p, g, s0, s1, nullptr, n, head, vec, rows, stream);
   }
   return 0;
+}
+
+int dispatch_kind(int kind, int bf16_state, const Scalars& sc, void* p,
+                  const void* g, void* s0, void* s1, const void* bits,
+                  long long n, long long head, int vec, const Rows& rows,
+                  cudaStream_t st) {
+  switch (kind) {
+    case kSgd:
+      launch<kSgd, float>(sc, p, g, nullptr, nullptr, nullptr, n, head, vec,
+                          rows, st);
+      return 0;
+    case kNesterovs:
+      return dispatch_state<kNesterovs>(bf16_state, sc, p, g, s0, s1, bits, n,
+                                        head, vec, rows, st);
+    case kAdam:
+      return dispatch_state<kAdam>(bf16_state, sc, p, g, s0, s1, bits, n,
+                                   head, vec, rows, st);
+    case kAdamW:
+      return dispatch_state<kAdamW>(bf16_state, sc, p, g, s0, s1, bits, n,
+                                    head, vec, rows, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -276,27 +364,36 @@ int dl4j_fused_update(int kind, void* p, const void* g, void* s0, void* s1,
   if (n <= 0) return 0;
   if (head < 0 || head > n || (vec && head > 3)) return (int)cudaErrorInvalidValue;
   const Scalars sc = {{a0, a1, a2, a3, a4, a5, a6, a7, a8}};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int bad = 0;
-  switch (kind) {
-    case kSgd:
-      launch<kSgd, float>(sc, p, g, nullptr, nullptr, nullptr, n, head, vec, st);
-      break;
-    case kNesterovs:
-      bad = dispatch_state<kNesterovs>(bf16_state, sc, p, g, s0, s1, bits, n,
-                                       head, vec, st);
-      break;
-    case kAdam:
-      bad = dispatch_state<kAdam>(bf16_state, sc, p, g, s0, s1, bits, n, head,
-                                  vec, st);
-      break;
-    case kAdamW:
-      bad = dispatch_state<kAdamW>(bf16_state, sc, p, g, s0, s1, bits, n, head,
-                                   vec, st);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const Rows single = {0, 0, nullptr, nullptr};
+  const int bad = dispatch_kind(kind, bf16_state, sc, p, g, s0, s1, bits, n,
+                                head, vec, single,
+                                static_cast<cudaStream_t>(stream));
+  if (bad) return bad;
+  return (int)cudaGetLastError();
+}
+
+// The member-batched route: `members` rows of n elements, row m at element
+// offset m * row of every buffer (p, g, s0, s1, bits), one launch. lr:
+// float32 [members], each row's learning rate (NULL: a0 for every row);
+// live: int32 [members], 0 leaves the row untouched (NULL: every row). head
+// and vec as for dl4j_fused_update, the same for every row: the caller
+// passes vec = 1 only when every row start keeps the alignment.
+int dl4j_fused_update_members(int kind, void* p, const void* g, void* s0,
+                              void* s1, const void* bits, long long n,
+                              long long row, int members, const void* lr,
+                              const void* live, int bf16_state, int head,
+                              int vec, float a0, float a1, float a2, float a3,
+                              float a4, float a5, float a6, float a7,
+                              float a8, void* stream) {
+  if (n <= 0 || members <= 0) return 0;
+  if (members > 65535 || row < n) return (int)cudaErrorInvalidValue;
+  if (head < 0 || head > n || (vec && head > 3)) return (int)cudaErrorInvalidValue;
+  const Scalars sc = {{a0, a1, a2, a3, a4, a5, a6, a7, a8}};
+  const Rows rows = {members, row, static_cast<const float*>(lr),
+                     static_cast<const int*>(live)};
+  const int bad = dispatch_kind(kind, bf16_state, sc, p, g, s0, s1, bits, n,
+                                head, vec, rows,
+                                static_cast<cudaStream_t>(stream));
   if (bad) return bad;
   return (int)cudaGetLastError();
 }

@@ -35,9 +35,20 @@ for both networks; the graph's batches may be ``MultiDataSet``s,
 :func:`pad_rows` is the same wrap for one array (numpy, or a tensor on
 its device): the serving tier pads a request up to its bucket with it.
 
+**Fault sites and events** (``common/faultinject.py``, as in the JAX
+package's ``run_epochs``, ``pipeline.py:324-405``): ``bind`` and ``place``
+run under ``retry_call`` (transient faults retry with backoff, counted
+under ``pipeline/retries``) behind the sites ``pipeline/bind`` (indexed by
+the fit call's batch ordinal; a ``nan`` spec poisons the bound batch's
+features) and ``pipeline/place``; before each dispatch the sites
+``train/step``, ``train/wedge`` and ``device/loss`` fire at every step's
+dispatch ordinal (a ``device_loss`` spec raises ``DeviceLostError`` naming
+the replica), then the ``pipeline/dispatch`` flight-recorder event
+(``ordinal``, and ``steps`` under ``steps_per_dispatch`` > 1). Each epoch
+is a ``pipeline/epoch`` span.
+
 Counters (``common/profiler.OpProfiler``): ``pipeline/padded_batches``,
-``pipeline/dropped_batches``. Not ported: the fit loop's fault-injection
-sites and flight-recorder events.
+``pipeline/dropped_batches``, ``pipeline/retries``.
 """
 
 from __future__ import annotations
@@ -49,6 +60,7 @@ import logging
 import numpy as np
 import torch
 
+from ..common import faultinject, flightrec
 from ..common.background import staged_iter
 from ..common.profiler import OpProfiler
 from .dataset import DataSet, MultiDataSet
@@ -236,29 +248,92 @@ def run_epochs(data: Any, epochs: int, batch_size: Optional[int],
     :func:`stable_batches`."""
     k = max(1, int(steps_per_dispatch))
     skip_epochs, skip_steps = skip if skip is not None else (0, 0)
+    n_bound = [0]       # batch ordinal within this fit call
+    n_placed = [0]
+    n_dispatched = 0    # dispatch ordinal within this fit call
+
+    def guarded_bind(ds, w):
+        ordinal = n_bound[0]
+        n_bound[0] += 1
+
+        def attempt():
+            advisory = faultinject.fault_point("pipeline/bind", ordinal)
+            b = bind(ds, w)
+            for spec in advisory:
+                if spec["kind"] == "nan":
+                    b = poison_nan(b)
+            return b
+
+        return faultinject.retry_call(attempt, "pipeline/bind")
+
+    def guarded_place(b):
+        ordinal = n_placed[0]
+        n_placed[0] += 1
+
+        def attempt():
+            faultinject.fault_point("pipeline/place", ordinal)
+            return place(b)
+
+        return faultinject.retry_call(attempt, "pipeline/place")
+
     for e in range(max(1, epochs)):
         if e < skip_epochs:
             for _ in iter_datasets(data, batch_size, allow_multi):
                 pass
             continue
-        gen = stable_batches(data, batch_size, pad_partial=pad_partial,
-                             drop_remainder=drop_remainder,
-                             allow_multi=allow_multi,
-                             round_to_multiple_of=round_to_multiple_of)
-        if e == skip_epochs and skip_steps:
-            skipped = sum(1 for _ in zip(range(skip_steps), gen))
-            if skipped < skip_steps:
-                logger.warning(
-                    "resume cursor wants %d steps into the epoch but the "
-                    "source produced %d batches; did the data change since "
-                    "the checkpoint?", skip_steps, skipped)
-        feed = device_feed((bind(ds, w) for ds, w, _n in gen), place,
-                           depth=max(0, int(prefetch)),
-                           host_prefetch=max(0, int(host_prefetch)))
-        for group in chunked(feed, k):
-            for g in ([group] if len(group) == k else [[b] for b in group]):
-                dispatch(g)
-        on_epoch()
+        with flightrec.span("pipeline/epoch", epoch=e):
+            gen = stable_batches(data, batch_size, pad_partial=pad_partial,
+                                 drop_remainder=drop_remainder,
+                                 allow_multi=allow_multi,
+                                 round_to_multiple_of=round_to_multiple_of)
+            if e == skip_epochs and skip_steps:
+                skipped = sum(1 for _ in zip(range(skip_steps), gen))
+                if skipped < skip_steps:
+                    logger.warning(
+                        "resume cursor wants %d steps into the epoch but "
+                        "the source produced %d batches; did the data "
+                        "change since the checkpoint?", skip_steps, skipped)
+            feed = device_feed((guarded_bind(ds, w) for ds, w, _n in gen),
+                               guarded_place, depth=max(0, int(prefetch)),
+                               host_prefetch=max(0, int(host_prefetch)))
+            for group in chunked(feed, k):
+                for j in range(len(group)):
+                    faultinject.fault_point("train/step", n_dispatched + j)
+                    # a wedge here is a hung dispatch; a device_loss a
+                    # replica dying between dispatches, the holder's
+                    # state at a step boundary
+                    faultinject.fault_point("train/wedge", n_dispatched + j)
+                    faultinject.fault_point("device/loss", n_dispatched + j)
+                if k == 1:
+                    flightrec.event("pipeline/dispatch", ordinal=n_dispatched)
+                else:
+                    flightrec.event("pipeline/dispatch", ordinal=n_dispatched,
+                                    steps=len(group))
+                n_dispatched += len(group)
+                for g in ([group] if len(group) == k
+                          else [[b] for b in group]):
+                    dispatch(g)
+            on_epoch()
+
+
+def poison_nan(batch):
+    """An injected ``nan`` fault: every floating array of the bound batch's
+    first element (the features: an array, or a list of them) multiplied by
+    NaN, which makes the step's loss and gradients non-finite as a corrupt
+    record would."""
+    def nanify(a):
+        if isinstance(a, torch.Tensor):
+            return a * float("nan") if a.is_floating_point() else a
+        if isinstance(a, np.ndarray) and np.issubdtype(a.dtype, np.floating):
+            return a * np.float32("nan")
+        return a
+
+    first = batch[0]
+    if isinstance(first, (list, tuple)):
+        first = type(first)(nanify(a) for a in first)
+    else:
+        first = nanify(first)
+    return (first,) + tuple(batch[1:])
 
 
 def note_steps(holder: Any, listeners: Iterable, losses,

@@ -25,6 +25,7 @@ be a schedule (``learning/schedules.py``).
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 from typing import Any, Dict, Sequence, Union
 
@@ -43,6 +44,15 @@ def _lr_at(lr: Union[float, object], iteration: int) -> float:
     if hasattr(lr, "value_at"):
         return lr.value_at(iteration)
     return lr
+
+
+def with_learning_rate(updater, lr: float):
+    """A copy of ``updater`` whose learning rate is the constant ``lr``
+    (every other setting kept, ``state_dtype`` included): the ``hyper``
+    hook's and a fleet member's rate."""
+    out = copy.copy(updater)
+    out.learning_rate = float(lr)
+    return out
 
 
 def f32_scalars(values: Sequence[float], device) -> tuple:

@@ -10,9 +10,11 @@ step reads and replaces, and the invariants that tie that state together:
   ``fused_update`` (``nn/_fused.FlatStore``), made or remade when the
   parameters or the updater state were replaced;
 - :meth:`~TrainableNetwork._train_step`: one step after the forward: the
-  backward, the gradient normalization (``nn/gradnorm.py``), and the
-  update, through the buckets (one ``csrc/fused_update.cu`` launch per
-  float32 bucket) or leaf by leaf (``learning/precision.apply_updater``);
+  backward and the gradient normalization (``nn/gradnorm.py``), which
+  :meth:`~TrainableNetwork._backward` runs alone for a fleet member
+  (``parallel/fleet.py``), and the update, through the buckets (one
+  ``csrc/fused_update.cu`` launch per float32 bucket) or leaf by leaf
+  (``learning/precision.apply_updater``);
   the counterpart of the JAX networks' ``_step_core``
   (``multilayer.py:386-484``, ``graph.py:747-808``);
 - :meth:`~TrainableNetwork.generator`: the network's own generator for
@@ -45,6 +47,7 @@ from ..common.tree import get_path, leaf_paths, set_path, skeleton, tree_map
 from ..data import pipeline as _pipe
 from ..learning.precision import (apply_updater, cast_floating,
                                   note_state_bytes)
+from ..learning.updaters import with_learning_rate
 from ..optimize import telemetry as _tel
 from ._fused import FlatStore, apply_fused_flat, fused_flat_plan
 from .gradnorm import normalize_gradients_
@@ -355,12 +358,14 @@ class TrainableNetwork:
         self._cast_cache = None
         return store
 
-    def _train_step(self, store: Optional[FlatStore], loss_fn: Callable,
-                    iteration: int):
-        """Backward of ``loss_fn(params) -> (loss, new_states)``, gradient
-        normalization and the update of the parameters in place (through
-        ``store`` when given). Returns ``(loss, new_states)``, both
-        detached."""
+    def _backward(self, store, loss_fn: Callable):
+        """The first half of a step: forward and loss (``loss_fn(params) ->
+        (loss, new_states)``), the backward (into ``store``'s gradient
+        buckets when given: a :class:`~._fused.FlatStore`, or any object
+        with its ``bind_grads`` and ``grad_views``, as a fleet member's
+        rows of the stacked buckets) and the gradient normalization, in
+        place. Returns ``(loss, new_states, grads)``: the loss still
+        attached, the gradients as the parameters' tree."""
         gc = self.conf.global_conf
         params = self._params
         paths = leaf_paths(params)
@@ -391,6 +396,21 @@ class TrainableNetwork:
             # leaf views
             normalize_gradients_([get_path(tree, p) for p in paths],
                                  gc.grad_normalization, gc.grad_norm_threshold)
+        return loss, new_states, tree
+
+    def _train_step(self, store: Optional[FlatStore], loss_fn: Callable,
+                    iteration: int, lr: Optional[float] = None):
+        """Backward of ``loss_fn(params) -> (loss, new_states)``, gradient
+        normalization and the update of the parameters in place (through
+        ``store`` when given). ``lr``: a learning rate that replaces the
+        updater's (the ``hyper`` hook). Returns ``(loss, new_states)``,
+        both detached."""
+        gc = self.conf.global_conf
+        updater = gc.updater if lr is None \
+            else with_learning_rate(gc.updater, lr)
+        params = self._params
+        paths = leaf_paths(params)
+        loss, new_states, tree = self._backward(store, loss_fn)
         if self._telemetry is not None:
             self._step_grads = tree     # what the update took, for the aux
         frozen = self._frozen_paths()
@@ -402,13 +422,12 @@ class TrainableNetwork:
                 # back, as the JAX step restores the frozen layers' tensors
                 # after its updater; their updater state evolves as there
                 kept = [(r, r.clone()) for r in frozen_ranges(store, frozen)]
-                apply_fused_flat(store, gc.updater, iteration,
-                                 self.generator())
+                apply_fused_flat(store, updater, iteration, self.generator())
                 for r, v in kept:
                     r.copy_(v)
             else:
                 new_params, self._updater_state = apply_updater(
-                    gc.updater, grads, self._updater_state, params,
+                    updater, tree, self._updater_state, params,
                     iteration, self.generator())
                 skip = set(frozen)
                 for p in paths:

@@ -57,10 +57,16 @@ average, p-norm). The loss heads (``OutputLayer``, ``LossLayer`` and, in
 ``layers_ext``, ``CenterLossOutputLayer`` and ``Yolo2OutputLayer``) carry
 ``compute_score(params, x, labels, mask, average)``, the score of the
 head's input ``x``.
+
+:func:`dropout_rate_override` replaces the input-dropout rate of every
+layer whose dropout is on, for the forwards run inside it on this thread
+(a fleet member's swept ``dropout``, ``parallel/fleet.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple, Union
 
@@ -73,6 +79,23 @@ from ..activations import activation_fn
 from ..losses import ILossFunction, LossMCXENT, loss_from_name
 from ...common.tree import tree_map
 from ..weights import init_weights
+
+# the input-dropout rate that dropout_rate_override installs (None: each
+# layer's own), per thread
+_DROPOUT_OVERRIDE = threading.local()
+
+
+@contextlib.contextmanager
+def dropout_rate_override(rate: float):
+    """Within the block, every layer whose input dropout is on drops at
+    ``rate`` instead of its own (``layers.py:53-63`` of the JAX package);
+    layers without dropout stay without."""
+    prev = getattr(_DROPOUT_OVERRIDE, "rate", None)
+    _DROPOUT_OVERRIDE.rate = float(rate)
+    try:
+        yield
+    finally:
+        _DROPOUT_OVERRIDE.rate = prev
 from .inputs import CNN3DInput, CNNInput, FFInput, InputType, RNNInput
 
 
@@ -134,7 +157,9 @@ class Layer:
         """Inverted dropout of the layer's input at rate ``dropout``, in
         training only (``ops/nn.dropout``)."""
         if training and self.dropout and self.dropout > 0.0:
-            return ops.dropout(x, self.dropout, generator)
+            rate = getattr(_DROPOUT_OVERRIDE, "rate", None)
+            return ops.dropout(x, self.dropout if rate is None else rate,
+                               generator)
         return x
 
     @property

@@ -84,9 +84,19 @@ the per-layer aux on the card, and the NaN guard keeps a poisoned step's
 pre-step values (``nn/_train.TrainableNetwork._step``). ``fit(host_prefetch=
 N)`` assembles the batches on a worker thread through an N-deep queue.
 
+**The ``hyper`` hook** (``_step_core(..., hyper=)``, ``:386-430``): per-call
+overrides of ``lr`` (the updater's learning rate, a constant), ``l2`` (an
+additive loss term ``0.5 * (l2 - base) * sum(w^2)`` per layer, under the
+exclusions of the base regularization, left out where it is 0) and
+``dropout`` (the rate of every layer whose input dropout is on). An
+override equal to the configured value gives the plain step, bitwise.
+:meth:`_grad_core` is the step's first half alone (forward, loss, backward
+into the caller's gradient rows, gradient normalization): a fleet
+(``parallel/fleet.py``) runs it for each member and leaves the update to
+one member-batched launch.
+
 ``init`` places the parameters on the card unless the caller asks for
-another device (``device="cpu"``); so does ``load``. The fleet's per-call
-``hyper`` overrides have no entry here.
+another device (``device="cpu"``); so does ``load``.
 """
 
 from __future__ import annotations
@@ -435,21 +445,57 @@ class MultiLayerNetwork(TrainableNetwork):
                     w = c.apply(w)
                 t.copy_(w)
 
+    def _loss_fn(self, batch, rnn=None, hyper=None):
+        """``loss_fn(params) -> (loss, new_states)`` of a placed batch in
+        training, with the ``l2`` and ``dropout`` overrides of ``hyper``
+        (see the module docstring)."""
+        x, y, mask, fmask, w = batch
+        hp = hyper or {}
+        states = self._states
+
+        def loss_fn(p):
+            if "dropout" in hp:
+                with L.dropout_rate_override(hp["dropout"]):
+                    loss, new_states = self._loss(p, states, x, y, mask,
+                                                  True, fmask, w, rnn)
+            else:
+                loss, new_states = self._loss(p, states, x, y, mask, True,
+                                              fmask, w, rnn)
+            if "l2" in hp:
+                delta = _l2_delta(self, p, float(hp["l2"]))
+                if delta is not None:
+                    loss = loss + delta
+            return loss, new_states
+
+        return loss_fn
+
     def _step_core(self, store: Optional[FlatStore], batch, iteration: int,
-                   rnn=None) -> torch.Tensor:
+                   rnn=None, hyper=None) -> torch.Tensor:
         """One training step on a placed batch ``(x, y, mask, fmask, w)``:
         forward, loss, backward, gradient normalization, update (through
         ``store`` on the fused path), constraints. Returns the loss, a
         detached device scalar. ``rnn``: a truncated-BPTT segment's
         recurrent carries (see :meth:`_forward`), left in place as the
-        segment's new carries, still attached to its graph."""
-        x, y, mask, fmask, w = batch
+        segment's new carries, still attached to its graph. ``hyper``:
+        per-call overrides (see the module docstring)."""
+        lr = (hyper or {}).get("lr")
         loss, self._states = self._train_step(
-            store, lambda p: self._loss(p, self._states, x, y, mask, True,
-                                        fmask, w, rnn), iteration)
+            store, self._loss_fn(batch, rnn, hyper), iteration,
+            lr=None if lr is None else float(lr))
         with torch.no_grad():
             self._apply_constraints()
         return loss
+
+    def _grad_core(self, store, batch, hyper=None):
+        """The step's first half on a placed batch: forward, loss, backward
+        into ``store``'s gradient views, gradient normalization. The layer
+        states advance; the parameters do not (the update and the
+        constraints are the caller's). Returns ``(loss, grads)``, the loss
+        detached."""
+        loss, new_states, grads = self._backward(
+            store, self._loss_fn(batch, None, hyper))
+        self._states = tree_map(lambda v: v.detach(), new_states)
+        return loss.detach(), grads
 
     def _serial_step(self, store: Optional[FlatStore], batch) -> torch.Tensor:
         if self.conf.backprop_type == "TruncatedBPTT" and batch[0].ndim == 3:
@@ -649,6 +695,29 @@ class MultiLayerNetwork(TrainableNetwork):
         for ds in _pipe.iter_datasets(data, batch_size):
             ev.eval(ds.labels, self.output(ds.features))
         return ev
+
+
+def _l2_delta(net, params, l2: float):
+    """The ``l2`` override as a term added to the loss: ``0.5 * (l2 -
+    base) * sum(w^2)`` for every layer whose effective l2 ``base`` differs
+    from ``l2``, under the exclusions of ``_loss`` (``multilayer.py:1050``
+    of the JAX package); None when no layer differs, so an override equal
+    to the configuration leaves the loss's graph as it was."""
+    gc = net.conf.global_conf
+    delta = None
+    for key, layer in zip(net._keys, net.layers):
+        if isinstance(layer, L.FrozenLayer):
+            continue
+        base = layer.l2 if layer.l2 is not None else gc.l2
+        coef = 0.5 * (l2 - (base or 0.0))
+        if coef == 0.0:
+            continue
+        for name, t in _named_leaves(params[key]):
+            if name in _NO_REG:
+                continue
+            term = coef * torch.sum(torch.square(t))
+            delta = term if delta is None else delta + term
+    return delta
 
 
 def _named_leaves(tree):

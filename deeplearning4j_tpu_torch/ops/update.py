@@ -19,6 +19,17 @@ kernels per leaf.
 - :func:`apply_flat_updater` sends an updater without a kernel through the
   per-leaf math on the buckets, counted under ``precision/fused_fallbacks``.
 
+**The member-batched route** (a fleet's, ``parallel/fleet.py``): every
+bucket is one contiguous ``[M, N]`` tensor, row m member m's bucket.
+:func:`fused_apply_members` updates all M rows with one launch per bucket
+(:func:`fused_update_members_cuda`, ``dl4j_fused_update_members``), each row
+with its own learning rate (a float32 ``[M]`` on the device, the sweep's)
+and under an int32 ``[M]`` live mask: a row whose entry is 0 keeps its
+parameters and moments bitwise. The bits of a bfloat16 state are drawn row
+by row from each member's generator, in the single bucket's order.
+:func:`fused_update_members_reference` is the plain version. Row m of the
+result is bitwise the single-bucket update of row m with its scalars.
+
 **In place.** The JAX version returns new arrays; here the parameter bucket
 and the moment buckets are updated in place (the kernel writes through
 their pointers, the plain version copies its result back), and
@@ -76,15 +87,21 @@ SLOTS = {"sgd": (), "nesterovs": ("v",), "adam": ("m", "v"),
          "adamw": ("m", "v")}
 _N_SCALARS = 9
 
+#: the member-batched route's name in the kernel table
+MEMBERS_KERNEL_NAME = "fused_update_members"
+
 #: kernel launches made by :func:`fused_update_cuda` (and nothing else)
 fused_update_launches = 0
+#: launches made by :func:`fused_update_members_cuda` (and nothing else)
+fused_update_member_launches = 0
 _LAUNCH_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    global fused_update_launches
+    global fused_update_launches, fused_update_member_launches
     with _LAUNCH_LOCK:
         fused_update_launches = 0
+        fused_update_member_launches = 0
 
 
 def supports_fused(updater) -> bool:
@@ -254,6 +271,172 @@ def fused_update_cuda(kind: str, sc: Tuple[float, ...], p: torch.Tensor,
                            f"{err} ({cuda_lib.error_string(lib, err)})")
     with _LAUNCH_LOCK:
         fused_update_launches += 1
+
+
+# --- the member-batched route ---------------------------------------------
+
+def fused_update_members_reference(kind: str, sc: Tuple[float, ...], p, g,
+                                   slots, bits=None, sr_dtype=None, lr=None,
+                                   live=None):
+    """Plain version of the member-batched route on ``[M, N]`` buckets:
+    returns ``(new_p, new_slots)`` as new tensors. ``lr``: float32 ``[M]``
+    (replaces ``sc[0]`` row by row), ``live``: int32 ``[M]`` (a 0 row keeps
+    its values)."""
+    sct = [torch.tensor(np.float32(v), device=p.device) for v in sc]
+    if lr is not None:
+        sct[0] = lr.to(device=p.device, dtype=torch.float32).reshape(-1, 1)
+    new_p, new_slots = _update_math(kind, tuple(sct), p, g, slots, bits,
+                                    sr_dtype)
+    if live is not None:
+        ok = (live.to(p.device) != 0).reshape(-1, 1)
+        new_p = torch.where(ok, new_p, p)
+        new_slots = {k: torch.where(ok, v, slots[k])
+                     for k, v in new_slots.items()}
+    return new_p, new_slots
+
+
+def _check_member_args(kind, p, g, slots, bits, sr_dtype, lr, live) -> None:
+    if p.device.type != "cuda":
+        raise ValueError(f"fused_update_members_cuda needs CUDA tensors, got "
+                         f"{p.device}")
+    if p.dim() != 2 or not p.is_contiguous():
+        raise ValueError(f"the member-batched route takes contiguous [M, N] "
+                         f"buckets, got {tuple(p.shape)}")
+    m, n = p.shape
+    if m > 65535:
+        raise ValueError(f"at most 65535 members per launch, got {m}")
+    names = SLOTS[kind]
+    rows = [("g", g)] + [(s, slots[s]) for s in names]
+    if bits is not None:
+        rows.append(("bits", bits))
+    for name, t in rows:
+        if t.device != p.device or tuple(t.shape) != (m, n) \
+                or not t.is_contiguous():
+            raise ValueError(f"member-batched fused_update needs {name} as "
+                             f"a contiguous [{m}, {n}] tensor on {p.device}, "
+                             f"got {tuple(t.shape)} on {t.device}")
+    # the dtype checks of the single bucket, on row 0
+    _check_cuda_args(kind, p[0], g[0], {s: slots[s][0] for s in names},
+                     None if bits is None else bits[0], sr_dtype)
+    for name, t, dt in (("lr", lr, torch.float32), ("live", live,
+                                                     torch.int32)):
+        if t is None:
+            continue
+        if t.device != p.device or t.dtype != dt or tuple(t.shape) != (m,) \
+                or not t.is_contiguous():
+            raise ValueError(f"member-batched fused_update needs {name} as "
+                             f"a contiguous {dt} [{m}] on {p.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _bind_members(lib: ctypes.CDLL):
+    fn = lib.dl4j_fused_update_members
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = ([i, p, p, p, p, p, ll, ll, i, p, p, i, i, i]
+                       + [ctypes.c_float] * _N_SCALARS + [p])
+        fn.restype = i
+    return fn
+
+
+def fused_update_members_cuda(kind: str, sc: Tuple[float, ...],
+                              p: torch.Tensor, g: torch.Tensor,
+                              slots: Dict[str, torch.Tensor],
+                              bits: Optional[torch.Tensor] = None,
+                              sr_dtype=None, lr: Optional[torch.Tensor] = None,
+                              live: Optional[torch.Tensor] = None) -> None:
+    """Launch the member-batched route of ``csrc/fused_update.cu`` on
+    PyTorch's current stream: every live row of the ``[M, N]`` buckets ``p``
+    and ``slots`` updated in place, one launch. Raises on anything the
+    kernel does not take, and when the launch fails: it never falls back to
+    the single-bucket kernel or the plain version."""
+    global fused_update_member_launches
+    names = SLOTS[kind]
+    if not names:
+        bits = None
+    _check_member_args(kind, p, g, slots, bits, sr_dtype, lr, live)
+    m, n = p.shape
+    if n == 0 or m == 0:
+        return
+    lib = cuda_lib.load(KERNEL_NAME)
+    fn = _bind_members(lib)
+    s = [slots[k] for k in names] + [None] * (2 - len(names))
+    others = [t for t in [g] + s + [bits] if t is not None]
+    head, vec = _alignment(p, others)
+    if n % 4:
+        # rows after the first start at another alignment: scalar variant
+        head, vec = 0, 0
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    scal = list(sc) + [0.0] * (_N_SCALARS - len(sc))
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        err = fn(_KIND_CODES[kind], p.data_ptr(), g.data_ptr(), ptr(s[0]),
+                 ptr(s[1]), ptr(bits), n, n, m, ptr(lr), ptr(live),
+                 int(sr_dtype is not None and bool(names)), head, vec,
+                 *scal, stream)
+    if err != 0:
+        raise RuntimeError(f"member-batched fused_update launch failed: "
+                           f"cudaError {err} "
+                           f"({cuda_lib.error_string(lib, err)})")
+    with _LAUNCH_LOCK:
+        fused_update_member_launches += 1
+
+
+def update_members_bucket(kind: str, sc: Tuple[float, ...], p, g, slots,
+                          bits, sr_dtype, lr=None, live=None) -> None:
+    """One ``[M, N]`` bucket in place: the member-batched kernel for a CUDA
+    bucket, the plain version for a CPU one."""
+    prof = OpProfiler.get()
+    if p.device.type == "cuda":
+        fused_update_members_cuda(kind, sc, p, g, slots, bits, sr_dtype, lr,
+                                  live)
+        prof.count("precision/fused_member_buckets_kernel")
+        return
+    if p.device.type != "cpu":
+        raise ValueError(f"fused_update has no implementation for "
+                         f"{p.device}")
+    new_p, new_slots = fused_update_members_reference(
+        kind, sc, p, g, slots, bits, sr_dtype, lr, live)
+    p.copy_(new_p)
+    for k, v in new_slots.items():
+        slots[k].copy_(v)
+    prof.count("precision/fused_member_buckets_plain")
+
+
+def fused_apply_members(updater, params: Dict[str, torch.Tensor],
+                        grads: Dict[str, torch.Tensor], state: dict,
+                        iteration: int, generators, lr=None, live=None,
+                        draw=None, bits_buf: Optional[Dict[str, torch.Tensor]]
+                        = None) -> None:
+    """One member-batched update of ``[M, N]`` buckets, in place, one launch
+    per bucket. ``generators``: the members' ``torch.Generator``s (bits of a
+    bfloat16 state, row by row into ``bits_buf[key]``, an int32 ``[M, N]``
+    the caller keeps); ``draw``: the members that draw (the others' rows are
+    masked out by ``live`` and consume nothing); ``lr``/``live``: see
+    :func:`fused_update_members_reference`."""
+    kind = _KINDS.get(type(updater))
+    if kind is None:
+        raise NotImplementedError(
+            f"no fused kernel for {type(updater).__name__}")
+    sd = state_dtype_of(updater)
+    sr_dtype = torch_dtype(sd) if sd else None
+    names = SLOTS[kind]
+    sc = _scalars(updater, kind, iteration)
+    prof = OpProfiler.get()
+    for bkey, p in sorted(params.items()):
+        g = grads[bkey]
+        slots = {nm: state[nm][bkey] for nm in names}
+        b = None
+        if sr_dtype is not None and names:
+            b = bits_buf[bkey]
+            n = p.shape[1]
+            for m, gen in enumerate(generators):
+                if draw is None or draw[m]:
+                    torch.randint(-2 ** 31, 2 ** 31, (n,), dtype=torch.int32,
+                                  generator=gen, out=b[m])
+                    prof.count("precision/sr_draws", int(n))
+        update_members_bucket(kind, sc, p, g, slots, b, sr_dtype, lr, live)
+        prof.count("precision/fused_hits")
 
 
 def update_bucket(kind: str, sc: Tuple[float, ...], p, g, slots, bits,

@@ -70,7 +70,8 @@ class CollectScoresIterationListener(TrainingListener):
 class PerformanceListener(TrainingListener):
     """Iterations/s, milliseconds per iteration and samples/s over each
     ``frequency`` iterations, by the host clock (steps that end without a
-    wait for the card are counted when the host queued them)."""
+    wait for the card are counted when the host queued them); each rate is
+    a ``perf/rate`` flight-recorder event."""
 
     def __init__(self, frequency: int = 10, report_batch: bool = True):
         self.frequency = max(1, frequency)
@@ -100,6 +101,14 @@ class PerformanceListener(TrainingListener):
             if logger.isEnabledFor(logging.INFO):
                 logger.info("iteration %d: %.1f iter/s, score=%s",
                             iteration, ips, float(score))
+            from ..common import flightrec
+
+            flightrec.event(
+                "perf/rate", iteration=iteration,
+                iterations_per_sec=round(ips, 3),
+                iteration_ms=round(self.last_iteration_ms, 3),
+                **({"samples_per_sec": round(self.last_samples_per_sec, 1)}
+                   if batch else {}))
         self._last_time, self._last_iter = now, iteration
 
 

@@ -23,9 +23,9 @@ Host side, two listeners drain the aux: :class:`TelemetrySink` (every
 ``drain_every_n`` iterations one batched readback into a ``StatsStorage``,
 ``ui/stats.py``) and :class:`NanSentinelListener` (warn, skip, cull, raise).
 Attaching either through ``set_listeners`` turns the aux on
-(``wants_telemetry``). The fleet half of ``"cull"`` (the vmapped fleet's
-alive mask) is not ported; on one model ``"cull"`` behaves as ``"skip"``,
-as in the JAX package.
+(``wants_telemetry``). Under a fleet (``parallel/fleet.py``) ``"cull"``
+also drops the poisoned member's alive bit on the device, for good; on one
+model ``"cull"`` behaves as ``"skip"``, as in the JAX package.
 
 Data-parallel training (``parallel/wrapper.py``) takes the non-finite
 counts on each replica's own gradients before the exchange and sums them

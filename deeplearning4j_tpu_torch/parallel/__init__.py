@@ -16,3 +16,4 @@ from .serving import (AdmissionController, BrownoutController, BucketLadder,
                       Overloaded, OversizeRequest, PublishHandle,
                       ServingEngine, SLOClass, serving_health)
 from .autoscale import Autoscaler, AutoscalePolicy
+from .fleet import FleetEarlyStop, FleetStatsSink, FleetTrainer

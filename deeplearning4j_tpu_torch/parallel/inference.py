@@ -370,17 +370,19 @@ class ParallelInference:
     def _retire(self, worker_id: int, exc: BaseException, futures) -> None:
         """Shared bookkeeping of every way a worker dies: fail its batch,
         drop it from the pool, fail everything queued when it was the last
-        replica, and schedule a replacement."""
-        for fut in futures:
-            if not fut.done():
-                fut.set_exception(exc if isinstance(exc, Exception)
-                                  else RuntimeError(f"inference replica "
-                                                    f"died: {exc}"))
+        replica, and schedule a replacement. The pool shrinks before the
+        batch's futures fail, so a caller that sees the failure also sees
+        the smaller pool."""
         OpProfiler.get().count("inference/replica_retired")
         with self._lock:
             self._alive -= 1
             self._retired_total += 1
             last = self._alive == 0
+        for fut in futures:
+            if not fut.done():
+                fut.set_exception(exc if isinstance(exc, Exception)
+                                  else RuntimeError(f"inference replica "
+                                                    f"died: {exc}"))
         logger.warning("inference replica %d retired (%s); %d replicas "
                        "remain", worker_id, exc, self.alive_replicas())
         if last:
@@ -467,16 +469,21 @@ class ParallelInference:
                     self._workers.append(t)
                     self._alive += 1
                     self._resurrected_total += 1
+                    # counted, and the census the event records read, with
+                    # the pool's growth: a caller that sees the replica
+                    # alive also sees it counted, and a shutdown racing the
+                    # event cannot lower its census
+                    prof.count("inference/replica_resurrected")
+                    alive_now = self._alive
             if superseded:
                 prof.count("inference/resurrection_superseded")
                 return
             t.start()
-            prof.count("inference/replica_resurrected")
             flightrec.event("inference/resurrected", worker=worker_id,
-                            alive=self.alive_replicas())
+                            alive=alive_now)
             logger.warning("inference replica %d resurrected; %d/%d "
-                           "replicas alive", worker_id,
-                           self.alive_replicas(), self._pool_size)
+                           "replicas alive", worker_id, alive_now,
+                           self._pool_size)
             return
 
     # --- the drain loop ---------------------------------------------------

@@ -57,10 +57,17 @@ the end of a fit (and after :meth:`resize`) the model gets its own copies,
 so a single-device ``fit`` afterwards cannot touch a replica; the next
 wrapper fit keeps its replicas only if those copies are untouched.
 
+**Fault injection and events.** The fit runs the shared input pipeline,
+so the fit loop's fault sites and its ``pipeline/dispatch`` events apply
+(``data/pipeline.run_epochs``); before each dispatch the
+``integrity/fingerprint`` site (indexed by the iteration the dispatch
+starts at) takes a ``bitflip`` spec and flips one bit of the named
+replica's parameter copy (``common/integrity.apply_bitflip``), for the
+consistency check to catch (JAX ``parallel/wrapper.py:1000``).
+
 Not carried over from the JAX package: the per-worker-count compile cache
-(nothing compiles), the flight recorder (``OpProfiler`` sections instead,
-until ROADMAP A8) and fault injection. Like the JAX step, this step applies
-neither gradient normalization nor weight constraints (ROADMAP §C).
+(nothing compiles). Like the JAX step, this step applies neither gradient
+normalization nor weight constraints (ROADMAP §C).
 ``model_axis`` > 1 (tensor parallelism, ``table_sharding``) raises,
 naming ROADMAP A7; ``training_mode("averaging")`` and
 ``averaging_frequency`` are accepted and run the same synchronous program,
@@ -81,6 +88,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from ..common import faultinject
 from ..common import integrity as _integ
 from ..common.profiler import OpProfiler
 from ..common.tree import get_path, leaf_paths, set_path, skeleton
@@ -781,9 +789,19 @@ class ParallelWrapper:
             prof.count("collective/encoded_steps", steps - p_steps)
         self._drained_encoded = (nnz, elems, steps)
 
+    def _inject_faults(self) -> None:
+        """The ``integrity/fingerprint`` site before a dispatch: a
+        ``bitflip`` spec corrupts one replica's parameter copy between
+        steps."""
+        for spec in faultinject.fault_point("integrity/fingerprint",
+                                            int(self.model._iteration)):
+            if spec.get("kind") == "bitflip":
+                _integ.apply_bitflip(self, self.mesh, spec)
+
     def _dispatch(self, group) -> None:
         model = self.model
         prof = OpProfiler.get()
+        self._inject_faults()
         losses, auxes = [], []
         with prof.time_section("pipeline/dispatch"):
             for j, b in enumerate(group):

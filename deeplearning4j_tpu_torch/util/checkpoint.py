@@ -60,8 +60,15 @@ manifest and calls :func:`record_scrub`. The ``checkpoint/pre_rename``
 fault site sits in the torn-write window of every commit, and each commit
 records a ``checkpoint/commit`` flight-recorder event.
 
-Not ported here (ROADMAP A7): the fleet extras
-(``commit_checkpoint(fleet=)`` raises ``TypeError``) and group commits.
+The fleet extras (``parallel/fleet.py``): ``commit_checkpoint(fleet=)``
+records ``{"members": M}`` (a whole fleet) or ``{"member": k, "members":
+M}`` (one member saved as a solo checkpoint) on the manifest entry, and a
+snapshot's ``fleet`` entry (alive mask, member seeds, the members'
+generator states, the sweep's hyperparameters) rides in ``resume.json``
+under ``fleet``, as the JAX package's does (its threefry ``keys`` aside).
+Every restore records a ``checkpoint/restore`` flight-recorder event.
+
+Not ported here (ROADMAP A7): group commits.
 """
 
 from __future__ import annotations
@@ -222,6 +229,9 @@ def serialize_snapshot(snapshot: Dict[str, Any]) -> bytes:
                   "listener_state": snapshot["listener_state"]}
         if snapshot.get("generator") is not None:
             resume[GENERATOR_KEY] = snapshot["generator"]
+        if snapshot.get("fleet") is not None:
+            # a stacked fleet's extras; solo readers never look for them
+            resume["fleet"] = snapshot["fleet"]
         zf.writestr(RESUME_ENTRY, json.dumps(resume))
     return buf.getvalue()
 
@@ -336,10 +346,12 @@ def _append_and_retain(directory: str, name: str, sha: str, iteration: int,
                        keep_last: int, size: Optional[int] = None,
                        max_total_bytes: Optional[int] = None,
                        incarnation: Optional[int] = None,
-                       state_dtype: Optional[str] = None) -> None:
+                       state_dtype: Optional[str] = None,
+                       fleet: Optional[Dict[str, Any]] = None) -> None:
     """Fold one committed file into the manifest, then retention: count
     (``keep_last``) and bytes (``max_total_bytes``; the newest always
-    stays). The manifest stops naming a file before it is unlinked."""
+    stays). The manifest stops naming a file before it is unlinked.
+    ``fleet``: the entry's fleet provenance."""
     with _MANIFEST_LOCK:
         doc = read_manifest_doc(directory)
         current = int(doc.get("incarnation", 0) or 0)
@@ -358,6 +370,8 @@ def _append_and_retain(directory: str, name: str, sha: str, iteration: int,
             entry["bytes"] = int(size)
         if state_dtype is not None:
             entry["state_dtype"] = str(state_dtype)
+        if fleet is not None:
+            entry["fleet"] = {k: int(v) for k, v in fleet.items()}
         entries.append(entry)
         retained, dropped = entries, []
         if keep_last and len(entries) > keep_last:
@@ -382,10 +396,13 @@ def commit_checkpoint(directory: str, tag: str, data: bytes, iteration: int,
                       keep_last: int, max_total_bytes: Optional[int] = None,
                       seq: Optional[int] = None,
                       incarnation: Optional[int] = None,
-                      state_dtype: Optional[str] = None) -> str:
+                      state_dtype: Optional[str] = None,
+                      fleet: Optional[Dict[str, Any]] = None) -> str:
     """Commit one checkpoint atomically and fold it into the manifest with
     retention; returns its path. One writer per directory. ``seq`` is the
-    ``checkpoint/pre_rename`` fault index (the writer's commit ordinal)."""
+    ``checkpoint/pre_rename`` fault index (the writer's commit ordinal).
+    ``fleet``: provenance of a fleet's commit, recorded on the manifest
+    entry (``{"members": M}``, plus ``"member": k`` for one member)."""
     if incarnation is not None \
             and manifest_incarnation(directory) > int(incarnation):
         raise StaleIncarnationError(
@@ -397,7 +414,8 @@ def commit_checkpoint(directory: str, tag: str, data: bytes, iteration: int,
     _append_and_retain(directory, name, hashlib.sha256(data).hexdigest(),
                        iteration, keep_last, size=len(data),
                        max_total_bytes=max_total_bytes,
-                       incarnation=incarnation, state_dtype=state_dtype)
+                       incarnation=incarnation, state_dtype=state_dtype,
+                       fleet=fleet)
     prof = OpProfiler.get()
     prof.count("checkpoint/committed")
     prof.count("checkpoint/bytes", len(data))
@@ -679,6 +697,9 @@ def restore_training_state(model, path: str, listeners=None,
         model._ckpt_workers = int(cursor["workers"])
         logger.info("checkpoint %s was taken under %d data-parallel "
                     "worker(s)", os.path.basename(path), model._ckpt_workers)
+    flightrec.event("checkpoint/restore", file=os.path.basename(path),
+                    epochs_done=int(cursor.get("epochs_done", 0)),
+                    steps_in_epoch=int(cursor.get("steps_in_epoch", 0)))
     return {"epochs_done": int(cursor.get("epochs_done", 0)),
             "steps_in_epoch": int(cursor.get("steps_in_epoch", 0))}
 

@@ -28,6 +28,12 @@ list (``{"v": [{...}, ...]}``) or is flat. The port network keys its layers
 order, so ``set_params`` with the JAX network's ``params()`` vector gives
 the same network too.
 
+``fleet_state_from_numpy`` does it for a ``parallel/fleet.FleetTrainer``:
+the JAX fleet's ``stacked_state()`` (per-layer lists with a leading member
+axis, as numpy) and, when given, its stacked ``_updater_state`` go into the
+port fleet's ``[M, N]`` buckets in place, so both packages start from the
+same members.
+
 ``samediff_state_from_numpy`` carries a JAX SameDiff's variable values
 (``{name: ndarray}``) and its updater state into a port SameDiff, checked
 against the port graph's own variables.
@@ -48,6 +54,7 @@ import numpy as np
 import torch
 
 from ..common.dtypes import tensor_from_numpy
+from ..common.tree import get_path, leaf_paths, set_path, skeleton
 from ..nlp.lookup_table import InMemoryLookupTable
 from ..nlp.vocab import VocabCache, VocabWord, build_huffman
 from ..parallel.sharding import Zero1Plan, is_flat_state
@@ -156,6 +163,59 @@ def multilayer_state_from_numpy(net, params: Sequence[Mapping[str, np.ndarray]],
         state = {k: _by_layer(v) for k, v in dict(updater_state).items()}
         updater_state_from_numpy(net, state, device)
     return net
+
+
+def _copy_stacked(kind: str, src, dst) -> None:
+    """Checked in-place copy of a numpy tree into a tree of tensor views:
+    the same paths, shapes and dtypes."""
+    want, got = leaf_paths(dst), leaf_paths(src)
+    if want != got:
+        raise ValueError(f"{kind}: leaf paths {got} != the fleet's {want}")
+    for p in want:
+        t, a = get_path(dst, p), np.asarray(get_path(src, p))
+        if tuple(a.shape) != tuple(t.shape):
+            raise ValueError(f"{kind} {p}: shape {a.shape} != "
+                             f"{tuple(t.shape)}")
+        v = tensor_from_numpy(np.ascontiguousarray(a), t.device)
+        if v.dtype != t.dtype:
+            raise ValueError(f"{kind} {p}: dtype {v.dtype} != {t.dtype}")
+        with torch.no_grad():
+            t.copy_(v)
+
+
+def fleet_state_from_numpy(fleet, params: Sequence[Mapping[str, np.ndarray]],
+                           states: Sequence[Mapping[str, np.ndarray]],
+                           updater_state=None):
+    """Install the JAX fleet's stacked ``params`` and ``states`` (per-layer
+    lists of dicts of ``[M, ...]`` numpy arrays, its ``stacked_state()``)
+    and, when given, its stacked dense ``updater_state`` (``{slot: [...]}``)
+    into the port ``fleet``'s buffers, in place (no buffer is replaced);
+    returns ``fleet``."""
+    n = len(fleet.model.layers)
+    if len(params) != n or len(states) != n:
+        raise ValueError(f"{len(params)} parameter and {len(states)} state "
+                         f"dicts for {n} layers")
+    p_views, member_states, u_views = fleet.stacked_views()
+    _copy_stacked("fleet params", _by_layer(params), p_views)
+    st = _by_layer(states)
+    for m, tree in enumerate(member_states):
+        _copy_stacked("fleet states", _row_tree(st, m), tree)
+    if updater_state is not None:
+        upd = {k: _by_layer(v) for k, v in dict(updater_state).items()}
+        if set(upd) != set(u_views):
+            raise ValueError(f"fleet updater state slots {sorted(upd)} != "
+                             f"{sorted(u_views)}")
+        for k in upd:
+            _copy_stacked(f"fleet updater state {k}", upd[k], u_views[k])
+    return fleet
+
+
+def _row_tree(tree, m: int):
+    """Member ``m``'s slice of a stacked numpy tree."""
+    out = skeleton(tree)
+    for p in leaf_paths(tree):
+        set_path(out, p, np.asarray(get_path(tree, p))[m])
+    return out
 
 
 def _vocab_from(kind: str, words: Sequence[str], counts) -> VocabCache:

@@ -527,6 +527,18 @@ def test_commit_fires_the_pre_rename_site_and_records_the_commit(tmp_path):
 
 
 def test_fleet_argument_is_still_refused(tmp_path):
-    with pytest.raises(TypeError):
-        tckpt.commit_checkpoint(str(tmp_path), "a", b"x", iteration=1,
-                                keep_last=1, fleet={"members": 2})
+    """The fleet argument (once refused, before the fleet was ported) is
+    taken now: a fleet's provenance on the manifest entry, as the JAX
+    package records it."""
+    from deeplearning4j_tpu.util import checkpoint as jckpt
+
+    for pkg, sub in ((tckpt, "port"), (jckpt, "jax")):
+        (tmp_path / sub).mkdir()
+        pkg.commit_checkpoint(str(tmp_path / sub), "a", b"x", iteration=1,
+                              keep_last=1, fleet={"members": 2})
+        pkg.commit_checkpoint(str(tmp_path / sub), "b", b"y", iteration=2,
+                              keep_last=3, fleet={"member": 1, "members": 2})
+    got = [e["fleet"] for e in tckpt.read_manifest(str(tmp_path / "port"))]
+    assert got == [e["fleet"] for e in
+                   jckpt.read_manifest(str(tmp_path / "jax"))]
+    assert got == [{"members": 2}, {"member": 1, "members": 2}]
