@@ -620,6 +620,40 @@ Phases (each fails the run with a nonzero exit if it fails):
                with one fused_update per TD step; A3C and async n-step Q on
                SameDiff networks, two workers, 400 steps each; finite
                losses, counted steps and episodes.
+49. pipeline -- the 12-block SelfAttentionLayer(768, 12 heads) stack
+               (BERT-base's attention widths) at T 128, batch 32, through
+               PipelineTrainer(4 stages, 8 microbatches) on ["cuda:0"] * 4
+               with bf16 compute and Adam(2e-5): 5 steps under 1F1B, under
+               GPipe and as a single-slot microbatched fit, losses and final
+               parameters bitwise across the three; flash_attention.cu
+               (bf16 route) launched 12 x 8 x 2 = 192 times a step (forward
+               and recompute), the kernel against its plain version at the
+               stage shape [4, 12, 128, 64]; step median/p10/p90, samples/s,
+               the ledger's bubble against (S-1)/(M+S-1), peak memory; the
+               card (float32, TF32 off) against the CPU (float64) at the
+               same configuration, 2 Sgd steps.
+50. kill-a-stage -- bench.py's pipeline-parallel-smoke stack (12 x Dense
+               32, 4 stages x 2 data, M 8, batch 64): a pipeline/stage
+               device_loss mid epoch 2, remap(3), the fit continued from the
+               cursor: no microbatch lost, the losses after it bitwise a
+               fresh 3-stage run's, one build per (stage count, schedule).
+51. vgg16-pipeline -- zoo VGG16 cut into 4 stages by pipeline_from_mln(
+               cuts=...), forward at batch 16 against model.output (1e-4
+               of the largest output, float32), 3 train_steps.
+52. sharded-word2vec -- Word2Vec(mesh=make_mesh(data=1, model=4)) at bench.py
+               --config word2vec: one block's tables within 1e-6 of the
+               unsharded block's, cold and warm fits beside phase 14's
+               (last loss within 2%), the cluster gates.
+53. tensor-parallel -- apply_tp over 2 slots on zoo VGG16's forward at batch
+               16 (1e-5 of the largest output, float32); ParallelWrapper
+               workers(8).model_axis(4) on the embedding model of
+               tests/test_parallel_extras.py:203 against its replicated
+               run, 3 steps, 1e-3.
+54. ring-attention -- ring_self_attention at F 768, 12 heads, T 4096 over 4
+               slots, batch 2, causal and not, against dense attention
+               (2e-5 + 1e-4 |dense|) and its gradients (1e-4 of their
+               largest |value| + 1e-3 |dense|), ms per call beside the
+               dense op's.
 
 Then it prints the kernels line (one JSON object) and, last, the device line
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
@@ -634,6 +668,7 @@ import argparse
 import copy
 import json
 import logging
+import math
 import os
 import re
 import statistics
@@ -10400,6 +10435,760 @@ def phase_rl(smi: str, dev) -> dict:
     return out
 
 
+# --- phases 49-54: model parallelism ---------------------------------------------------
+PP_BLOCKS = 12                    # BERT-base's layers (BASELINE.json configs[2])
+PP_STAGES = 4
+PP_MICRO = 8
+PP_BATCH = 32
+PP_STEPS = 5
+PP_LR = 2e-5                      # BERT's fine-tuning rate
+# the card against the CPU: phase 49's stack, batch and schedule, in
+# float32 on the card and float64 on the CPU (seconds there), 2 Sgd steps
+PP_PARITY = {"blocks": PP_BLOCKS, "width": BERT["hidden"],
+             "heads": BERT["heads"], "batch": PP_BATCH, "micro": PP_MICRO,
+             "stages": PP_STAGES, "steps": 2, "lr": 0.1}
+#: the parity's bounds: loss relative, parameters of their largest |value|
+#: (an H100 at 700 W read 1.3e-7 and 7.8e-8; the bounds sit about 13x above)
+PP_PARITY_LOSS_TOL = 2e-6
+PP_PARITY_PARAM_TOL = 1e-6
+PP_SMOKE = {"layers": 12, "feat": 32, "stages": 4, "data": 2, "micro": 8,
+            "batch": 64, "steps": 4, "lr": 0.02, "seed": 77}
+VGG_PIPE_BATCH = 16
+VGG_PIPE_MICRO = 4
+VGG_PIPE_STEPS = 3
+W2V_SHARDS = 4
+W2V_ONE_BLOCK_SENTS = 4000        # 80,000 words: less than one span
+TP_SLOTS = 2
+TABLE_WORKERS, TABLE_AXIS, TABLE_STEPS = 8, 4, 3
+RING = {"batch": 2, "T": 4096, "F": 768, "heads": 12, "slots": 4}
+#: the device every slot of these phases' pools names: one card
+CARD = "cuda:0"
+
+
+def attention_stack_conf(blocks: int, width: int, heads: int, T: int,
+                         updater, compute_dtype=None):
+    """``blocks`` identical SelfAttentionLayer(width, heads) blocks over
+    [B, T, width] (tests/test_parallel_extras.py:361's stack)."""
+    from deeplearning4j_tpu_torch.nn import (InputType,
+                                             NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+
+    b = NeuralNetConfiguration.builder().seed(SEED).updater(updater).list()
+    for _ in range(blocks):
+        b.layer(L.SelfAttentionLayer(n_out=width, n_heads=heads))
+    conf = b.set_input_type(InputType.recurrent(width, T)).build()
+    conf.global_conf.compute_dtype = compute_dtype
+    return conf
+
+
+def _tree_bits(model) -> list:
+    return [model._params[k][n] for k in sorted(model._params)
+            for n in sorted(model._params[k])]
+
+
+def microbatched_reference(model, x, y, n_micro: int, steps: int,
+                           batch: int):
+    """A single-slot microbatched fit of an identical-blocks model with the
+    pipeline's arithmetic: per microbatch, autograd through every block
+    (layer 0's program, the compute dtype cast as each stage casts), the
+    weighted MSE over the global real rows, the gradients added in
+    ascending microbatch order, then the per-leaf updater. Returns (losses,
+    parameter trees)."""
+    from deeplearning4j_tpu_torch.common.dtypes import torch_dtype
+    from deeplearning4j_tpu_torch.learning.precision import (apply_updater,
+                                                             cast_floating)
+    from deeplearning4j_tpu_torch.parallel.pipeline import _weighted_mse
+
+    layer0 = model.conf.layers[0]
+    keys = list(model._keys)
+    cd = model.conf.global_conf.compute_dtype
+    ct = torch_dtype(cd) if cd else None
+    params = {k: {n: a.detach().clone() for n, a in model._params[k].items()}
+              for k in keys}
+    upd = model.conf.global_conf.updater
+    state = upd.init(params)
+    dev = x.device
+    losses = []
+    for i in range(steps):
+        xb, yb = x[i * batch:(i + 1) * batch], y[i * batch:(i + 1) * batch]
+        w = torch.ones(batch, device=dev)
+        denom = torch.clamp_min(w.sum(), 1.0)
+        mb = batch // n_micro
+        dp, loss = None, None
+        for m in range(n_micro):
+            sl = slice(m * mb, (m + 1) * mb)
+            leaves = {k: {n: a.detach().requires_grad_(True)
+                          for n, a in params[k].items()} for k in keys}
+            with torch.enable_grad():
+                h = xb[sl]
+                trees = [leaves[k] for k in keys]
+                if ct is not None:
+                    trees = [cast_floating(t, ct) for t in trees]
+                    h = h.to(ct)
+                for t in trees:
+                    h = layer0.apply(t, h, {}, False)[0]
+                l_m = _weighted_mse(h.to(torch.float32), yb[sl],
+                                    w[sl]) / denom
+                flat = [leaves[k][n] for k in keys for n in sorted(leaves[k])]
+                gs = iter(torch.autograd.grad(l_m, flat))
+            g = {k: {n: next(gs) for n in sorted(leaves[k])} for k in keys}
+            dp = g if dp is None else {k: {n: torch.add(dp[k][n], g[k][n])
+                                           for n in g[k]} for k in keys}
+            loss = l_m.detach() if loss is None else loss + l_m.detach()
+        with torch.no_grad():
+            params, state = apply_updater(upd, dp, state, params, i,
+                                          model.generator())
+        losses.append(float(loss))
+    return losses, params
+
+
+class _PipeClock:
+    """A listener: each step's loss, and its wall time ended by the loss's
+    readback (which waits for the card)."""
+
+    def __init__(self):
+        self.losses, self.ms = [], []
+        self.t0 = time.perf_counter()
+
+    def iteration_done(self, model, iteration, score):
+        self.losses.append(float(score))
+        t = time.perf_counter()
+        self.ms.append((t - self.t0) * 1e3)
+        self.t0 = t
+
+
+def pipeline_fit(model, schedule: str, x, y, steps: int, devices,
+                 stages: int = PP_STAGES, n_micro: int = PP_MICRO,
+                 batch: int = PP_BATCH):
+    from deeplearning4j_tpu_torch.data import NDArrayDataSetIterator
+    from deeplearning4j_tpu_torch.parallel import PipelineTrainer
+
+    tr = PipelineTrainer(model, stages=stages, n_micro=n_micro,
+                         schedule=schedule, devices=devices)
+    clock = _PipeClock()
+    tr.set_listeners(clock)
+    n = steps * batch
+    data = NDArrayDataSetIterator(x[:n].cpu().numpy(), y[:n].cpu().numpy(),
+                                  batch_size=batch)
+    clock.t0 = time.perf_counter()
+    tr.fit(data, epochs=1, batch_size=batch)
+    return tr, clock
+
+
+def phase_pipeline_attention(smi: str, dev):
+    """Phase 49: the 12-block SelfAttentionLayer(768, 12 heads) stack
+    (BERT-base's attention widths) at T 128, global batch 32, through
+    PipelineTrainer(4 stages, 8 microbatches) on [CARD] * 4, bf16
+    compute (the encoder fit's flash route), Adam(2e-5): 5 steps under 1F1B
+    and under GPipe and a single-slot microbatched fit, bitwise in losses
+    and parameters; flash_attention.cu launched blocks x microbatches x
+    (forward + recompute) times a step; the kernel against its plain
+    version at the stage shape; the card (float32) against the CPU
+    (float64) at the same configuration after 2 steps."""
+    from deeplearning4j_tpu_torch.common.profiler import OpProfiler
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import attention
+
+    hidden, heads = BERT["hidden"], BERT["heads"]
+    mb = PP_BATCH // PP_MICRO
+    gen = torch.Generator(device=dev).manual_seed(SEED + 49)
+    err, share, lse_err = compare_flash_bf16(mb, heads, SEQ_LEN,
+                                             hidden // heads, False, None,
+                                             "strided", dev, gen)
+    log(f"[model-parallel] flash_attention bf16 kernel at the stage shape "
+        f"[{mb}, {heads}, {SEQ_LEN}, {hidden // heads}] (strided, as the "
+        f"MHA op hands it over) against its plain version on the upcast: "
+        f"max_abs_err {err:.3e}, bitwise share {share:.4f}, lse error "
+        f"{lse_err:.3e} (tolerance 2^-8 |want| + 2e-5, share >= "
+        f"{FA_BF16_SHARE}); {smi}")
+    conf = attention_stack_conf(PP_BLOCKS, hidden, heads, SEQ_LEN,
+                                Adam(PP_LR), "bfloat16")
+    g = torch.Generator(device=dev).manual_seed(SEED + 50)
+    n = PP_STEPS * PP_BATCH
+    x = torch.randn((n, SEQ_LEN, hidden), generator=g, device=dev)
+    y = torch.randn((n, SEQ_LEN, hidden), generator=g, device=dev) * 0.5
+    pool = [CARD] * PP_STAGES
+    predicted = PP_BLOCKS * PP_MICRO * 2      # forward + recompute, a step
+    runs = {}
+    with _Deterministic():
+        for schedule in ("1f1b", "gpipe"):
+            model = MultiLayerNetwork(conf).init(seed=SEED, device=dev)
+            prof = OpProfiler.get()
+            prof.reset()
+            _reset_kernel_counts()
+            torch.cuda.reset_peak_memory_stats()
+            tr, clock = pipeline_fit(model, schedule, x, y, PP_STEPS, pool)
+            torch.cuda.synchronize()
+            counters = prof.get_counters()
+            runs[schedule] = {
+                "losses": clock.losses, "ms": clock.ms, "model": model,
+                "launches": attention.flash_attention_launches,
+                "bf16": counters.get("attention/flash_bf16", 0),
+                "f32": counters.get("attention/flash_f32", 0),
+                "dense": counters.get("attention/mha_dense", 0),
+                "builds": counters.get("trace/pipeline_fit_step", 0),
+                "ledger": prof.pipeline_stats(),
+                "peak": torch.cuda.max_memory_allocated()}
+        ref_model = MultiLayerNetwork(conf).init(seed=SEED, device=dev)
+        ref_losses, ref_params = microbatched_reference(
+            ref_model, x, y, PP_MICRO, PP_STEPS, PP_BATCH)
+    a, b = runs["1f1b"], runs["gpipe"]
+    check(a["losses"] == b["losses"] == ref_losses,
+          f"pipeline losses not bitwise: 1f1b {a['losses']}, gpipe "
+          f"{b['losses']}, single slot {ref_losses}")
+    ref_bits = [ref_params[k][n] for k in sorted(ref_params)
+                for n in sorted(ref_params[k])]
+    for name in ("1f1b", "gpipe"):
+        bits = _tree_bits(runs[name]["model"])
+        check(len(bits) == len(ref_bits)
+              and all(torch.equal(p, q) for p, q in zip(bits, ref_bits)),
+              f"{name}: final parameters not bitwise the single-slot fit's")
+        r = runs[name]
+        check(r["launches"] == r["bf16"] == predicted * PP_STEPS
+              and r["f32"] == 0 and r["dense"] == 0,
+              f"{name}: flash launches {r['launches']} (bf16 route "
+              f"{r['bf16']}, f32 {r['f32']}, dense MHA {r['dense']}), want "
+              f"{predicted} a step x {PP_STEPS}")
+        check(r["builds"] == 1, f"{name}: {r['builds']} step builds")
+        check(all(np.isfinite(r["losses"])), f"{name}: losses {r['losses']}")
+    bound = (PP_STAGES - 1) / (PP_MICRO + PP_STAGES - 1)
+    led = a["ledger"]
+    check(abs(led["bubble_fraction"] - bound) < 1e-12,
+          f"bubble {led['bubble_fraction']} against (S-1)/(M+S-1) {bound}")
+    out = {"blocks": PP_BLOCKS, "width": hidden, "heads": heads,
+           "T": SEQ_LEN, "batch": PP_BATCH, "stages": PP_STAGES,
+           "micro": PP_MICRO, "compute_dtype": "bfloat16",
+           "flash_launches_per_step": a["launches"] / PP_STEPS,
+           "flash_launches_per_step_gpipe": b["launches"] / PP_STEPS,
+           "flash_launches": a["launches"], "losses": a["losses"],
+           "flash_max_abs_err": err, "flash_bitwise_share": share,
+           "bubble": led["bubble_fraction"], "bubble_bound": bound}
+    for name, r in runs.items():
+        ms = r["ms"][1:]          # the first step pays the first launches
+        out[name] = {**_ms_stats(ms), "samples_per_s":
+                     PP_BATCH * len(ms) / sum(ms) * 1e3,
+                     "first_step_ms": r["ms"][0], "peak_bytes": r["peak"]}
+        log(f"[model-parallel] pipeline {name}: {PP_BLOCKS} x "
+            f"SelfAttentionLayer({hidden}, {heads} heads), T {SEQ_LEN}, "
+            f"batch {PP_BATCH}, {PP_STAGES} stages x {PP_MICRO} "
+            f"microbatches on one card, bf16 compute: step ms median "
+            f"{out[name]['step_ms_median']:.2f} p10 "
+            f"{out[name]['step_ms_p10']:.2f} p90 "
+            f"{out[name]['step_ms_p90']:.2f} (steps 2-{PP_STEPS}; step 1 "
+            f"{r['ms'][0]:.2f} ms), {out[name]['samples_per_s']:.1f} "
+            f"samples/s; flash_attention launches {r['launches']}, "
+            f"{r['launches'] / PP_STEPS:g} a step (predicted {predicted}: "
+            f"{PP_BLOCKS} blocks x {PP_MICRO} microbatches x forward + "
+            f"recompute), all on the bf16 route; "
+            f"peak device memory {r['peak']} B; {smi}")
+    log(f"[model-parallel] pipeline losses bitwise across 1F1B, GPipe and a "
+        f"single-slot microbatched fit, final parameters too: "
+        f"{a['losses']}; bubble {led['bubble_fraction']:.6f} from the "
+        f"pipeline ledger against (S-1)/(M+S-1) = {bound:.6f}; {smi}")
+    for r in runs.values():
+        del r["model"]
+    del runs, ref_model, ref_params, x, y
+    torch.cuda.empty_cache()
+    out["cpu_parity"] = pipeline_cpu_parity(smi, dev)
+    return out
+
+
+def pipeline_cpu_parity(smi: str, dev) -> dict:
+    """The card against the CPU at phase 49's configuration (12 x
+    SelfAttentionLayer(768, 12 heads), T 128, batch 32, 4 stages x 8
+    microbatches): 2 Sgd steps through a 1F1B pipeline on each from the
+    same float32 draws, on the card in float32 (TF32 off: the float32
+    flash kernel), on the CPU in float64 (the parameters and data
+    widened; the plain attention; the trainer's loss in float32 as ever),
+    so the reference's own rounding is far below the card's."""
+    from deeplearning4j_tpu_torch.learning.updaters import Sgd
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import attention
+
+    p = PP_PARITY
+    rng = np.random.default_rng(SEED + 51)
+    n = p["steps"] * p["batch"]
+    xh = rng.standard_normal((n, SEQ_LEN, p["width"])).astype(np.float32)
+    yh = (rng.standard_normal((n, SEQ_LEN, p["width"])) * 0.5).astype(
+        np.float32)
+    res = {}
+    draws = None
+    with _Deterministic():
+        for where, dt in (("cuda", torch.float32), ("cpu", torch.float64)):
+            d = dev if where == "cuda" else torch.device("cpu")
+            conf = attention_stack_conf(p["blocks"], p["width"], p["heads"],
+                                        SEQ_LEN, Sgd(p["lr"]))
+            conf.global_conf.dtype = "float64" if where == "cpu" \
+                else "float32"
+            model = MultiLayerNetwork(conf).init(seed=SEED, device=d)
+            if draws is None:
+                draws = {k: {n_: t.detach().cpu() for n_, t in v.items()}
+                         for k, v in model._params.items()}
+            model._params = {k: {n_: t.to(d, dt) for n_, t in v.items()}
+                             for k, v in draws.items()}
+            _reset_kernel_counts()
+            t0 = time.perf_counter()
+            _, clock = pipeline_fit(
+                model, "1f1b", torch.from_numpy(xh).to(d, dt),
+                torch.from_numpy(yh).to(d, dt), p["steps"],
+                [CARD if where == "cuda" else "cpu"] * p["stages"],
+                stages=p["stages"], n_micro=p["micro"], batch=p["batch"])
+            res[where] = (clock.losses, [t.detach().cpu().double() for t in
+                                         _tree_bits(model)],
+                          attention.flash_attention_launches,
+                          time.perf_counter() - t0)
+    (lc, pc, launches, s_card), (lh, ph, _, s_cpu) = res["cuda"], res["cpu"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    scale = max(t.abs().max().item() for t in ph)
+    err = max((a - b).abs().max().item() for a, b in zip(pc, ph))
+    want = p["blocks"] * p["micro"] * 2 * p["steps"]
+    check(launches == want, f"parity run: {launches} flash launches, want "
+          f"{want}")
+    check(loss_rel <= PP_PARITY_LOSS_TOL
+          and err <= PP_PARITY_PARAM_TOL * scale,
+          f"pipeline card against CPU: loss rel {loss_rel} (bound "
+          f"{PP_PARITY_LOSS_TOL}), parameter error {err} against "
+          f"{PP_PARITY_PARAM_TOL} of {scale}")
+    log(f"[model-parallel] pipeline card against CPU ({p['blocks']} x "
+        f"SelfAttentionLayer({p['width']}, {p['heads']}), T {SEQ_LEN}, batch "
+        f"{p['batch']}, {p['stages']} stages x {p['micro']}, Sgd({p['lr']}), "
+        f"{p['steps']} steps; card float32 with TF32 off, CPU float64): "
+        f"losses within {loss_rel:.3e} relative (bound "
+        f"{PP_PARITY_LOSS_TOL:g}), parameters within {err:.3e} = "
+        f"{err / scale:.3e} of the largest |param| {scale:.4f} (bound "
+        f"{PP_PARITY_PARAM_TOL:g}); {launches} float32 flash launches; "
+        f"card {s_card:.2f} s, CPU {s_cpu:.2f} s; {smi}")
+    return {"loss_rel": loss_rel, "param_err": err, "param_scale": scale,
+            "param_err_rel": err / scale, "flash_launches": launches,
+            "cpu_s": s_cpu}
+
+
+def _dense_stack(dev, layers: int, feat: int, lr: float, seed: int):
+    from deeplearning4j_tpu_torch.learning.updaters import Sgd
+    from deeplearning4j_tpu_torch.nn import (InputType, MultiLayerNetwork,
+                                             NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+
+    b = (NeuralNetConfiguration.builder().seed(seed)
+         .updater(Sgd(learning_rate=lr)).list())
+    for _ in range(layers):
+        b.layer(L.DenseLayer(n_out=feat, activation="tanh"))
+    return MultiLayerNetwork(b.set_input_type(
+        InputType.feed_forward(feat)).build()).init(seed=seed, device=dev)
+
+
+def phase_pipeline_remap(smi: str, dev) -> dict:
+    """Phase 50: bench.py's pipeline-parallel-smoke stack (12 Dense layers
+    32 wide, 4 stages x 2 data, 8 microbatches, batch 64, 1F1B) on
+    [CARD] * 8: a warm-up epoch (one build, the bubble at its bound),
+    a pipeline/stage device_loss mid epoch 2, remap(3) over the survivors
+    and the fit continued from the cursor: no microbatch lost, the losses
+    after the remap bitwise a fresh 3-stage run's from the same state and
+    cursor, one build per (stage count, schedule); then epochs at 4 and 3
+    stages in turns."""
+    from deeplearning4j_tpu_torch.common import faultinject
+    from deeplearning4j_tpu_torch.common.profiler import OpProfiler
+    from deeplearning4j_tpu_torch.data import NDArrayDataSetIterator
+    from deeplearning4j_tpu_torch.parallel import PipelineTrainer
+
+    c = PP_SMOKE
+    S, D, M, batch, steps = (c["stages"], c["data"], c["micro"], c["batch"],
+                             c["steps"])
+    rng = np.random.RandomState(0)
+    x = rng.randn(steps * batch, c["feat"]).astype(np.float32)
+    y = (np.tanh(x) * 0.5).astype(np.float32)
+    pool = [CARD] * (S * D)
+
+    def make_it():
+        return NDArrayDataSetIterator(x, y, batch_size=batch)
+
+    def build(stages, model=None):
+        model = model or _dense_stack(dev, c["layers"], c["feat"], c["lr"],
+                                      c["seed"])
+        tr = PipelineTrainer(model, stages=stages, n_micro=M,
+                             schedule="1f1b", data=D, devices=pool)
+        clock = _PipeClock()
+        tr.set_listeners(clock)
+        return model, tr, clock
+
+    prof = OpProfiler.get()
+    prof.reset()
+    model, tr, clock = build(S)
+    tr.fit(make_it(), epochs=1, batch_size=batch)
+    led = prof.pipeline_stats()
+    bound = (S - 1) / (M + S - 1)
+    check(prof.counter_value("trace/pipeline_fit_step") == 1
+          and abs(led["bubble_fraction"] - bound) < 1e-12,
+          f"warm-up: builds {prof.counter_value('trace/pipeline_fit_step')}"
+          f", bubble {led['bubble_fraction']} against {bound}")
+    micro0 = prof.counter_value("pipeline/microbatches")
+    kill_at = steps + steps // 2
+    faultinject.set_plan(faultinject.FaultPlan(
+        [{"site": "pipeline/stage", "kind": "device_loss",
+          "index": kill_at, "stage": 1}]))
+    err = None
+    try:
+        tr.fit(make_it(), epochs=2, batch_size=batch)
+    except faultinject.DeviceLostError as e:
+        err = e
+    finally:
+        faultinject.clear_plan()
+    check(err is not None and err.stage == 1, f"device_loss: {err!r}")
+    cursor = (int(model._epoch - model._fit_epoch0),
+              int(model._steps_in_epoch))
+    snap = {k: {n: a.detach().clone() for n, a in v.items()}
+            for k, v in model._params.items()}
+    it_ep = (model._iteration, model._epoch)
+    n_before = len(clock.losses)
+    t0 = time.perf_counter()
+    removed = tr.remap(S - 1, lost_stages=[1])
+    remap_s = time.perf_counter() - t0
+    check(len(removed) == D and not (set(removed)
+                                     & set(tr.mesh.devices.flat)),
+          f"remap removed {removed}")
+    tr.fit(make_it(), epochs=2, batch_size=batch, resume_cursor=cursor)
+    post = clock.losses[n_before:]
+    micro_seen = prof.counter_value("pipeline/microbatches") - micro0
+    check(micro_seen == 2 * steps * M,
+          f"kill-a-stage drill: {micro_seen} microbatches, want "
+          f"{2 * steps * M}")
+    builds = prof.counter_value("trace/pipeline_fit_step")
+    check(builds == 2, f"{builds} builds after the remap, want 2")
+    fresh = _dense_stack(dev, c["layers"], c["feat"], c["lr"], c["seed"])
+    fresh._params = snap
+    fresh._iteration, fresh._epoch = it_ep
+    _, tr2, clock2 = build(S - 1, fresh)
+    tr2.fit(make_it(), epochs=2, batch_size=batch, resume_cursor=cursor)
+    check(post == clock2.losses and all(np.isfinite(post)),
+          f"post-remap losses {post} not bitwise the fresh 3-stage run's "
+          f"{clock2.losses}")
+    check(all(torch.equal(p, q) for p, q in zip(_tree_bits(model),
+                                                 _tree_bits(fresh))),
+          "post-remap parameters not bitwise the fresh 3-stage run's")
+    builds_all = prof.counter_value("trace/pipeline_fit_step")
+    times = {S: [], S - 1: []}
+    for _ in range(3):
+        for s in (S, S - 1):
+            tr.remap(s)
+            t0 = time.perf_counter()
+            tr.fit(make_it(), epochs=1, batch_size=batch)
+            float(model._score)
+            times[s].append((time.perf_counter() - t0) / steps * 1e3)
+    check(prof.counter_value("trace/pipeline_fit_step") == builds_all,
+          "the rounds at 4 and 3 stages built a step again")
+    out = {"kill_at": kill_at, "cursor": list(cursor),
+           "microbatches_after_kill": micro_seen, "builds": builds,
+           "remap_s": remap_s, "post_remap_losses": post,
+           "bubble": led["bubble_fraction"], "bubble_bound": bound,
+           "step_ms_4": statistics.median(times[S]),
+           "step_ms_3": statistics.median(times[S - 1])}
+    log(f"[model-parallel] kill a stage: {c['layers']} x Dense({c['feat']}) "
+        f"at {S} stages x {D} data, {M} microbatches, batch {batch}; "
+        f"pipeline/stage device_loss at dispatch {kill_at} (stage 1), "
+        f"remap({S - 1}) in {remap_s * 1e3:.2f} ms, fit continued from "
+        f"cursor {cursor}: {micro_seen} microbatches = {2 * steps * M} "
+        f"(none lost), post-remap losses bitwise a fresh {S - 1}-stage "
+        f"run's ({post}), {builds} builds; step ms median "
+        f"{out['step_ms_4']:.2f} at {S} stages, {out['step_ms_3']:.2f} at "
+        f"{S - 1}; bubble {led['bubble_fraction']:.6f} against "
+        f"{bound:.6f}; {smi}")
+    return out
+
+
+def phase_pipeline_vgg16(smi: str, dev):
+    """Phase 51: zoo VGG16 at its published widths cut into 4 stages by
+    pipeline_from_mln(cuts=...) on [CARD] * 4, float32 with TF32 off:
+    its forward at batch 16 (4 microbatches) against model.output, then 3
+    train_steps with finite losses. Returns the model for phase 53."""
+    from deeplearning4j_tpu_torch.models import VGG16
+    from deeplearning4j_tpu_torch.parallel import (make_pipeline_mesh,
+                                                   pipeline_from_mln)
+
+    torch.cuda.empty_cache()
+    net = VGG16(seed=SEED).init(device=dev)
+    n = len(net.conf.layers)
+    cuts = [n // 4, n // 2, 3 * n // 4]
+    ds = vgg_batch(dev, SEED + 51)
+    x, y = ds.features[:VGG_PIPE_BATCH], ds.labels[:VGG_PIPE_BATCH]
+    with _Deterministic():
+        want = net.output(x)
+        pp = pipeline_from_mln(net, make_pipeline_mesh(
+            1, 4, [CARD] * 4), n_micro=VGG_PIPE_MICRO, cuts=cuts,
+            example_input=tuple(x.shape))
+        got = pp.forward(x)
+        torch.cuda.synchronize()
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        check(err <= 1e-4 * scale, f"VGG16 pipeline forward: max abs error "
+              f"{err} against 1e-4 of {scale}")
+        t0 = time.perf_counter()
+        losses = [float(pp.train_step(x, y, lr=0.01))
+                  for _ in range(VGG_PIPE_STEPS)]
+        step_ms = (time.perf_counter() - t0) / VGG_PIPE_STEPS * 1e3
+    check(all(np.isfinite(losses)), f"VGG16 pipeline losses {losses}")
+    out = {"layers": n, "cuts": cuts, "in_shapes": pp.in_shapes,
+           "forward_max_abs_err": err, "output_scale": scale,
+           "losses": losses, "train_step_ms": step_ms}
+    log(f"[model-parallel] heterogeneous pipeline: zoo VGG16 ({n} layers) cut "
+        f"at {cuts} into 4 stages (inputs {pp.in_shapes}), batch "
+        f"{VGG_PIPE_BATCH} in {VGG_PIPE_MICRO} microbatches, float32: "
+        f"forward within {err:.3e} of model.output (largest {scale:.4e}); "
+        f"{VGG_PIPE_STEPS} train_steps, losses {losses}, "
+        f"{step_ms:.1f} ms a step; {smi}")
+    del pp
+    torch.cuda.empty_cache()
+    return out, net, x
+
+
+def _one_block_tables(dev, sents, mesh=None):
+    w = w2v_model(dev, **({} if mesh is None else {"mesh": mesh}))
+    w.set_sentence_iterator(sents)
+    f = fit_counted(w, "one block")
+    check(f["blocks"] == 1, f"one-block fit ran {f['blocks']} blocks")
+    return w.lookup_table.syn0, w.lookup_table.syn1neg
+
+
+def _tables_err(a, b) -> float:
+    return max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+
+
+def phase_sharded_word2vec(smi: str, dev, unsharded) -> dict:
+    """Phase 52: Word2Vec with syn0/syn1neg row-sharded over 4 slots of one
+    card (make_mesh(data=1, model=4, devices=["cuda:0"] * 4)) at bench.py
+    --config word2vec: one block's tables against the unsharded block's
+    (index_add_ sums a row's duplicates with atomics, in no fixed order:
+    the spread of two unsharded blocks is printed beside the difference,
+    and the 1e-6 gate runs under torch.use_deterministic_algorithms, where
+    index_add_ adds a row's duplicates in index order), the whole fit cold
+    and warm beside phase 14's unsharded fits of this call (last loss
+    within 2%), and the cluster gates of phase 14."""
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+
+    sents = zipf_sentences(W2V_WORDS)
+    mesh = make_mesh(data=1, model=W2V_SHARDS,
+                     devices=[CARD] * W2V_SHARDS)
+    one = sents[:W2V_ONE_BLOCK_SENTS]
+    base1 = _one_block_tables(dev, one)
+    spread = _tables_err(base1, _one_block_tables(dev, one))
+    atomic_err = _tables_err(base1, _one_block_tables(dev, one, mesh))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        det = _one_block_tables(dev, one)
+        det_spread = _tables_err(det, _one_block_tables(dev, one))
+        block_err = _tables_err(det, _one_block_tables(dev, one, mesh))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(block_err <= 1e-6, f"one sharded block's tables differ from the "
+          f"unsharded block's by {block_err} (> 1e-6) under deterministic "
+          f"algorithms")
+    log(f"[model-parallel] sharded word2vec, one block ({len(one)} "
+        f"sentences): tables within {block_err:.3e} of the unsharded "
+        f"block's with deterministic index_add_ (two unsharded blocks: "
+        f"{det_spread:.3e}); with the default atomics {atomic_err:.3e}, "
+        f"where two unsharded blocks differ by {spread:.3e}; {smi}")
+    w = w2v_model(dev, mesh=mesh)
+    w.set_sentence_iterator(sents)
+    fits = [fit_counted(w, label) for label in ("cold", "warm")]
+    check_tables(w, "sharded skipgram")
+    base = unsharded["fits"]
+    for f, u in zip(fits, base):
+        check(f["rounds"] == f["sum_ceil_count_over_b"] > 0,
+              f"sharded {f['fit']} fit: rounds {f['rounds']}")
+        check(np.isfinite(f["last_loss"]), f"sharded {f['fit']} loss")
+        _log_fit("model-parallel] [sharded-w2v", f, smi)
+    rel = abs(fits[0]["last_loss"] - base[0]["last_loss"]) / abs(
+        base[0]["last_loss"])
+    check(rel <= 0.02, f"sharded last loss {fits[0]['last_loss']} against "
+          f"the unsharded {base[0]['last_loss']}: {rel:.4f} > 2%")
+    del w, sents
+    cluster = cluster_gate(dev, "model-parallel] [sharded-w2v", 0.4, 1500,
+                           near=True, layer_size=32, seed=42, window=3,
+                           negative=5, epochs=3, batch_size=256, mesh=mesh)
+    out = {"shards": W2V_SHARDS, "one_block_max_abs_err": block_err,
+           "one_block_spread_deterministic": det_spread,
+           "one_block_err_atomics": atomic_err,
+           "one_block_spread_atomics": spread,
+           "fits": fits, "last_loss_rel_to_unsharded": rel,
+           "cluster": cluster,
+           "words_per_s": {"sharded_cold": fits[0]["words_per_s"],
+                           "sharded_warm": fits[1]["words_per_s"],
+                           "unsharded_cold": base[0]["words_per_s"],
+                           "unsharded_warm": base[1]["words_per_s"]}}
+    log(f"[model-parallel] sharded word2vec over {W2V_SHARDS} slots of one "
+        f"card: words/s cold {fits[0]['words_per_s']:.1f} warm "
+        f"{fits[1]['words_per_s']:.1f} against unsharded cold "
+        f"{base[0]['words_per_s']:.1f} warm {base[1]['words_per_s']:.1f} "
+        f"(phase 14, this call); last loss {fits[0]['last_loss']:.6f} "
+        f"against {base[0]['last_loss']:.6f} ({100 * rel:.3f}%); {smi}")
+    return out
+
+
+def phase_tp_and_tables(smi: str, dev, net, x) -> dict:
+    """Phase 53: apply_tp over 2 model slots of one card on zoo VGG16's
+    forward at batch 16 (float32, TF32 off) against the replicated forward
+    (1e-5 relative); ParallelWrapper.Builder(m).workers(8).model_axis(4)
+    on tests/test_parallel_extras.py's embedding model against its
+    replicated run (1e-3, the JAX test's bound), 3 steps."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.nn import (InputType, MultiLayerNetwork,
+                                             NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.parallel import (ParallelWrapper,
+                                                   ShardedTensor, apply_tp,
+                                                   make_mesh)
+
+    with _Deterministic():
+        want = net.output(x)
+        replicated = net._params
+        net._params = apply_tp(replicated, make_mesh(
+            data=1, model=TP_SLOTS, devices=[CARD] * TP_SLOTS))
+        n_sharded = sum(isinstance(t, ShardedTensor)
+                        for v in net._params.values() for t in v.values())
+        t0 = time.perf_counter()
+        got = net.output(x)
+        torch.cuda.synchronize()
+        tp_ms = (time.perf_counter() - t0) * 1e3
+        net._params = replicated
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    check(n_sharded > 0 and err <= 1e-5 * scale,
+          f"VGG16 tensor-parallel forward: max abs error {err} against 1e-5 "
+          f"of {scale} ({n_sharded} sharded leaves)")
+
+    def emb_model(table_sharding):
+        conf = (NeuralNetConfiguration.builder().seed(7)
+                .updater(Adam(learning_rate=0.01)).list()
+                .layer(L.EmbeddingSequenceLayer(
+                    n_out=16, table_sharding=table_sharding))
+                .layer(L.GlobalPoolingLayer(pooling_type="avg"))
+                .layer(L.OutputLayer(n_out=4, activation="softmax",
+                                     loss="mcxent"))
+                .set_input_type(InputType.recurrent(64, 6)).build())
+        return MultiLayerNetwork(conf).init(device=dev)
+
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(TABLE_STEPS):
+        c = rng.integers(0, 4, size=32)
+        batches.append(DataSet(
+            (c[:, None] * 16 + rng.integers(0, 16, size=(32, 6))).astype(
+                np.float32), np.eye(4, dtype=np.float32)[c]))
+    pool = [CARD] * TABLE_WORKERS
+    m_ref, m_sh = emb_model(None), emb_model("model")
+    pw_ref = ParallelWrapper.Builder(m_ref).workers(TABLE_WORKERS) \
+        .devices(pool).build()
+    pw_sh = ParallelWrapper.Builder(m_sh).workers(TABLE_WORKERS) \
+        .model_axis(TABLE_AXIS).devices(pool).build()
+    for ds in batches:
+        pw_ref.fit(ds)
+        pw_sh.fit(ds)
+    shards = [tuple(t.shape) for t in pw_sh._reps[0].tables["0000"]]
+    tab_err = max((m_sh._params[k]["W"] - m_ref._params[k]["W"]).abs().max()
+                  .item() for k in ("0000", "0002"))
+    check(tab_err <= 1e-3 and len(shards) == TABLE_AXIS,
+          f"model-axis wrapper against replicated: {tab_err} (shards "
+          f"{shards})")
+    out = {"vgg16_tp": {"slots": TP_SLOTS, "sharded_leaves": n_sharded,
+                        "max_abs_err": err, "output_scale": scale,
+                        "forward_ms": tp_ms},
+           "wrapper_tables": {"workers": TABLE_WORKERS,
+                              "model_axis": TABLE_AXIS, "shards": shards,
+                              "max_abs_err": tab_err,
+                              "losses": [float(m_sh._score)]}}
+    log(f"[model-parallel] tensor parallel: zoo VGG16 forward at batch "
+        f"{x.shape[0]} with apply_tp over {TP_SLOTS} slots ({n_sharded} "
+        f"sharded leaves, column-parallel conv and dense, the softmax head "
+        f"gathered) within {err:.3e} of the replicated forward (largest "
+        f"{scale:.4e}), {tp_ms:.1f} ms; ParallelWrapper workers "
+        f"{TABLE_WORKERS} model_axis {TABLE_AXIS}: the table in shards "
+        f"{shards} per data row, {TABLE_STEPS} steps within {tab_err:.3e} "
+        f"of the replicated run; {smi}")
+    return out
+
+
+def phase_ring_attention(smi: str, dev) -> dict:
+    """Phase 54: ring_self_attention at F 768, 12 heads, T 4096 over 4
+    slots of one card, batch 2, causal and not, float32 with TF32 off,
+    against dense attention (the projections, then
+    ops.nn.dot_product_attention) at atol 2e-5 / rtol 1e-4, and the
+    gradients of sum(out^2) (the JAX test's loss) for wq, wk, wv, wo at
+    rtol 1e-3 and an atol of 1e-4 of the dense gradients' largest |value|
+    (the JAX test's 1e-4 against its gradients' 0.82); ms per call against
+    the dense op's."""
+    from deeplearning4j_tpu_torch.ops import nn as tnn
+    from deeplearning4j_tpu_torch.parallel import (make_mesh,
+                                                   ring_self_attention)
+
+    r = RING
+    B, T, F, H = r["batch"], r["T"], r["F"], r["heads"]
+    g = torch.Generator(device=dev).manual_seed(SEED + 54)
+    x = torch.randn((B, T, F), generator=g, device=dev)
+    ws = [torch.randn(shape, generator=g, device=dev) / math.sqrt(F)
+          for shape in ((F, F),) * 4]
+    mesh = make_mesh(data=r["slots"], devices=[CARD] * r["slots"])
+
+    def dense(wq, wk, wv, wo, causal):
+        def heads(w):
+            return (x @ w).reshape(B, T, H, -1).permute(0, 2, 1, 3)
+
+        q, k, v = heads(wq), heads(wk), heads(wv)
+        mask = (torch.tril(torch.ones((T, T), dtype=torch.bool,
+                                      device=dev))[None, None]
+                if causal else None)
+        ctx = tnn.dot_product_attention(q, k, v, mask)
+        return ctx.permute(0, 2, 1, 3).reshape(B, T, -1) @ wo
+
+    def ring(wq, wk, wv, wo, causal):
+        return ring_self_attention(x, wq, wk, wv, wo, H, mesh, "data",
+                                   causal=causal)
+
+    out = {}
+    with _Deterministic():
+        for causal in (False, True):
+            res = {}
+            for name, fn in (("ring", ring), ("dense", dense)):
+                leaves = [w.clone().requires_grad_(True) for w in ws]
+                y = fn(*leaves, causal)
+                (y ** 2).sum().backward()
+                res[name] = (y.detach(), [w.grad for w in leaves])
+                with torch.no_grad():
+                    fn(*ws, causal)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(3):
+                        fn(*ws, causal)
+                    torch.cuda.synchronize()
+                res[name] += ((time.perf_counter() - t0) / 3 * 1e3,)
+            (yr, gr, ms_r), (yd, gd, ms_d) = res["ring"], res["dense"]
+            tag = "causal" if causal else "full"
+            excess = ((yr - yd).abs() - 1e-4 * yd.abs()).max().item()
+            check(excess <= 2e-5, f"ring ({tag}) against dense: "
+                  f"|ring - dense| exceeds 1e-4 |dense| by {excess}")
+            g_excess = max(((a - b).abs() - 1e-3 * b.abs()).max().item()
+                           for a, b in zip(gr, gd))
+            g_scale = max(b.abs().max().item() for b in gd)
+            check(g_excess <= 1e-4 * g_scale, f"ring ({tag}) gradients: "
+                  f"exceed 1e-3 |dense| by {g_excess}, against 1e-4 of "
+                  f"{g_scale}")
+            out[tag] = {"max_abs_err": (yr - yd).abs().max().item(),
+                        "excess_over_rtol": excess,
+                        "grad_excess_over_rtol": g_excess,
+                        "grad_scale": g_scale,
+                        "ms": ms_r, "dense_ms": ms_d}
+            log(f"[model-parallel] ring attention ({tag}): batch {B}, T {T} "
+                f"over {r['slots']} slots of one card, F {F}, {H} heads, "
+                f"float32, TF32 off: max abs error "
+                f"{out[tag]['max_abs_err']:.3e} against dense attention, "
+                f"max(|ring - dense| - 1e-4 |dense|) {excess:.3e} (gate "
+                f"<= 2e-5); gradients: max(|ring - dense| - 1e-3 |dense|) "
+                f"{g_excess:.3e} (gate <= 1e-4 x {g_scale:.4e}, the dense "
+                f"gradients' largest |value|); {ms_r:.2f} ms a forward "
+                f"against the dense op's {ms_d:.2f} ms; {smi}")
+    return out
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
@@ -10502,6 +11291,18 @@ def main(argv=None) -> int:
         fleet_life = phase_fleet_lifecycle(smi, dev)
         faults = phase_fault_sites(smi, dev)
         rl_r = phase_rl(smi, dev)
+        torch.cuda.empty_cache()
+        t_mp = time.perf_counter()
+        mp = {"pipeline": phase_pipeline_attention(smi, dev),
+              "kill_a_stage": phase_pipeline_remap(smi, dev)}
+        mp["vgg16_pipeline"], vgg_net, vgg_x = phase_pipeline_vgg16(smi, dev)
+        mp["tensor_parallel"] = phase_tp_and_tables(smi, dev, vgg_net, vgg_x)
+        del vgg_net, vgg_x
+        torch.cuda.empty_cache()
+        mp["sharded_word2vec"] = phase_sharded_word2vec(smi, dev, sg)
+        mp["ring_attention"] = phase_ring_attention(smi, dev)
+        mp["seconds"] = time.perf_counter() - t_mp
+        log(f"[model-parallel] phases 49-54 took {mp['seconds']:.1f} s")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -10656,6 +11457,11 @@ def main(argv=None) -> int:
         "launches_encoder_train": enc_train["flash_launches"],
         "launches_samediff_bert": bert["launches"]["flash_attention"],
         "launches_samediff_mha": sdk["mha_bf16"]["launches_per_call"],
+        "launches_pipeline": mp["pipeline"]["flash_launches"],
+        "launches_pipeline_per_step":
+            mp["pipeline"]["flash_launches_per_step"],
+        "launches_pipeline_per_step_gpipe":
+            mp["pipeline"]["flash_launches_per_step_gpipe"],
         **{name: {k: fa16[name][k] for k in keys}
            for name in ("path_contiguous", "long_strided",
                         "long_contiguous")}})
@@ -10726,7 +11532,7 @@ def main(argv=None) -> int:
                       "parallel_integrity": pw_int,
                       "serving_tier": sv, "fleet_sweep": fleet,
                       "fleet_lifecycle": fleet_life, "fault_sites": faults,
-                      "rl": rl_r},
+                      "rl": rl_r, "model_parallel": mp},
                      default=str),
           flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

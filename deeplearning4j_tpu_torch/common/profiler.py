@@ -296,7 +296,11 @@ class OpProfiler:
         return out
 
     def pipeline_stats(self) -> Dict[str, float]:
-        """Pipeline parallelism (not ported yet: empty)."""
+        """The pipeline trainer's ledger (``parallel/pipeline.py``): the
+        live ``stages``, ``remaps`` and their seconds, ``microbatches``
+        dispatched and the schedule's tick occupancy (``busy_ticks`` of
+        ``tick_slots``, read off the tick tables the step runs) with the
+        derived ``bubble_fraction``."""
         out: Dict[str, float] = {}
         self._counters_into(out, (("pipeline/stages", "stages"),
                                   ("pipeline/remaps", "remaps"),

@@ -234,7 +234,8 @@ def run_epochs(data: Any, epochs: int, batch_size: Optional[int],
                steps_per_dispatch: int, bind, place, dispatch,
                on_epoch, allow_multi: bool = False,
                skip: Optional[Tuple[int, int]] = None,
-               host_prefetch: int = 0, round_to_multiple_of: int = 1) -> None:
+               host_prefetch: int = 0, round_to_multiple_of: int = 1,
+               pre_dispatch=None) -> None:
     """The loop skeleton: per epoch, stable batches are bound
     (``bind(ds, w)``), placed ``prefetch`` ahead, and dispatched
     (``dispatch(group)``) in groups of ``steps_per_dispatch`` (the short
@@ -245,7 +246,9 @@ def run_epochs(data: Any, epochs: int, batch_size: Optional[int],
     completed epochs are drawn and dropped without ``on_epoch`` (its
     effects are in the restored state), then the resume epoch's first
     ``steps_in_epoch`` stable batches. ``round_to_multiple_of``: see
-    :func:`stable_batches`."""
+    :func:`stable_batches`. ``pre_dispatch(ordinal)``: a hook run before
+    each step's dispatch, after the fit loop's fault sites (the pipeline
+    trainer's ``pipeline/stage`` site)."""
     k = max(1, int(steps_per_dispatch))
     skip_epochs, skip_steps = skip if skip is not None else (0, 0)
     n_bound = [0]       # batch ordinal within this fit call
@@ -304,6 +307,8 @@ def run_epochs(data: Any, epochs: int, batch_size: Optional[int],
                     # state at a step boundary
                     faultinject.fault_point("train/wedge", n_dispatched + j)
                     faultinject.fault_point("device/loss", n_dispatched + j)
+                    if pre_dispatch is not None:
+                        pre_dispatch(n_dispatched + j)
                 if k == 1:
                     flightrec.event("pipeline/dispatch", ordinal=n_dispatched)
                 else:

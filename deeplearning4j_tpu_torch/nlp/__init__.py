@@ -20,7 +20,8 @@ vectors (DeepWalk, Node2Vec), trained on the device.
 
 The training rounds and the ``embedding_bag`` kernel that CBOW, PV-DM and
 FastText launch live in ``ops/embeddings.py``. Sharded tables (``mesh=``)
-are not ported: asking for them raises ``NotImplementedError``.
+train Word2Vec's negative-sampling skip-gram (``word2vec.py``); the other
+paths refuse a mesh, as in the JAX package.
 """
 
 from .fasttext import FastText, char_ngrams, fasttext_hash

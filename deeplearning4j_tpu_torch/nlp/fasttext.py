@@ -184,7 +184,7 @@ class FastText(SequenceVectors):
                 raise ValueError("empty vocabulary after pruning")
         corpus = self._encode_corpus(self._token_stream())
         self.last_fit_timing = {"prepare": time.perf_counter() - t0}
-        if self.device_corpus and not self.use_hs:
+        if self.device_corpus and not self.use_hs and self.mesh is None:
             # the skip-gram sizing and branch of the windowed loop drive
             # _sg_round above; "cbow" stays the host path's stream format
             old = self.algorithm

@@ -136,8 +136,13 @@ class ParagraphVectors(SequenceVectors):
                 doc_labels.append(lbl)
         total = sum(len(s) for s in corpus) * self.epochs * self.iterations
         self.last_fit_timing = {"prepare": time.perf_counter() - t0}
-        if self.device_corpus:
+        if self.device_corpus and self.mesh is None:
             return self._train_windowed_pv(corpus, doc_labels, total)
+        if self.mesh is not None:
+            raise ValueError(
+                "sharded tables (mesh=...) are implemented for the "
+                "Word2Vec windowed paths only — ParagraphVectors would "
+                "silently train unsharded")
         self._train_encoded(corpus, stream_factory=self._host_stream(
             corpus, doc_labels), total_words=total)
 

@@ -71,8 +71,19 @@ _host_block`) draws the block's negatives on the device (:func:`
 bulk_targets`) and runs its rounds: skip-gram or CBOW (one ``embedding_bag``
 launch per round), negative sampling or hierarchical softmax.
 
-Not ported here, and refused with an error rather than substituted: sharded
-tables (``mesh=``). ROADMAP.md lists them.
+**Sharded tables** (``mesh=``, ``table_sharding_axis=``; the builder's
+``sharded_tables(mesh, axis)``; JAX ``word2vec.py:170-177``, ``:528``,
+``:768-790``): syn0 and syn1neg live row-sharded over the mesh axis (a
+``common/tree.ShardedTensor`` each), one shard per slot
+(``parallel/mesh.axis_slots``), zero-padded to a multiple of the shard
+count; the corpus, the packing and the negatives stay on ``device``
+(replicated in the JAX program), and each skip-gram round is
+``ops/embeddings.sharded_skipgram``: the rows assembled from the shards'
+masked gathers, summed in slot order, and each shard's owned rows updated.
+On the CPU the sharded fit is bitwise the unsharded one. As in the JAX
+package, sharded tables train negative-sampling skip-gram on the
+device-windowed path only: hierarchical softmax, CBOW, the host pair path,
+ParagraphVectors and FastText refuse a mesh.
 """
 
 from __future__ import annotations
@@ -87,6 +98,7 @@ from .. import native
 from ..common.background import prefetch_iter
 from ..common.environment import resolve_device
 from ..common.profiler import OpProfiler
+from ..common.tree import ShardedTensor
 from ..ops import embeddings as E
 from .lookup_table import InMemoryLookupTable
 from .text import (CollectionSentenceIterator, DefaultTokenizerFactory,
@@ -98,13 +110,6 @@ from .vocab import (VocabCache, VocabConstructor, build_huffman,
 #: the boundary check exact (it compares positions at most W < 65535 apart)
 SENT_PAD = 65535
 _U32 = 0xFFFFFFFF
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to deeplearning4j_tpu_torch yet: this port "
-        f"trains on one device from the device-resident corpus (see "
-        f"ROADMAP.md, 'Modules to port')")
 
 
 class WordVectors:
@@ -217,8 +222,9 @@ class SequenceVectors(WordVectors):
         if table_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"table_dtype must be float32|bfloat16, "
                              f"got {table_dtype!r}")
-        if mesh is not None:
-            raise _not_ported("sharded tables (mesh=...)")
+        if mesh is not None and use_hierarchic_softmax:
+            raise ValueError("sharded tables support negative sampling "
+                             "only (use_hierarchic_softmax=False)")
         if not 0 < window < SENT_PAD:
             raise ValueError(f"window must be in [1, {SENT_PAD - 1}], got "
                              f"{window}")
@@ -238,6 +244,9 @@ class SequenceVectors(WordVectors):
         # device, not spread over host threads
         self.workers = workers
         self.table_dtype = table_dtype
+        #: row-sharded tables over ``mesh``'s ``table_sharding_axis``
+        self.mesh = mesh
+        self.table_sharding_axis = table_sharding_axis
         self._special_tokens = list(special_tokens)
         #: False trains through the host pair path (``_train_encoded``), as
         #: in the JAX package
@@ -393,20 +402,33 @@ class SequenceVectors(WordVectors):
 
     def _tables_to_device(self):
         """syn0 and the output table (syn1 under hierarchical softmax, else
-        syn1neg) on the device, in the table dtype."""
+        syn1neg) on the device, in the table dtype; with a mesh, each a
+        ``ShardedTensor`` of row shards, zero-padded to a multiple of the
+        shard count, shard ``j`` on slot ``j``'s device."""
         tdt = (torch.bfloat16 if self.table_dtype == "bfloat16"
                else torch.float32)
         out = (self.lookup_table.syn1 if self.use_hs
                else self.lookup_table.syn1neg)
-        return tuple(
-            torch.from_numpy(np.array(t, dtype=np.float32)).to(self.device,
-                                                                tdt)
-            for t in (self.lookup_table.syn0, out))
+        tables = [torch.from_numpy(np.array(t, dtype=np.float32))
+                  for t in (self.lookup_table.syn0, out)]
+        if self.mesh is None:
+            return tuple(t.to(self.device, tdt) for t in tables)
+        from ..parallel.mesh import axis_slots
 
-    def _tables_from_device(self, syn0: torch.Tensor,
-                            syn1: torch.Tensor) -> None:
-        """The trained tables back into the lookup table, as float32."""
-        self.table_device = syn0.device
+        devices = [s.device for s in axis_slots(self.mesh,
+                                                self.table_sharding_axis)]
+        return tuple(ShardedTensor.split(t.to(tdt), devices, pad=True)
+                     for t in tables)
+
+    def _tables_from_device(self, syn0, syn1) -> None:
+        """The trained tables back into the lookup table, as float32 (the
+        shards joined and the padding dropped, with a mesh)."""
+        if isinstance(syn0, ShardedTensor):
+            self.table_device = syn0.shards[0].device
+            V = len(self.vocab)
+            syn0, syn1 = (t.gather("cpu")[:V] for t in (syn0, syn1))
+        else:
+            self.table_device = syn0.device
         self.lookup_table.syn0 = syn0.float().cpu().numpy()
         out = syn1.float().cpu().numpy()
         if self.use_hs:
@@ -532,7 +554,7 @@ class SequenceVectors(WordVectors):
         mask zeroes the slots past ``count``."""
         B = self._round_pairs
         rounds = -(-count // B)
-        dev = syn0.device
+        dev = self.device
         lab, hs = self._round_inputs(B)
         lrs = torch.from_numpy(sg_round_rates(lr0, lr1, B, count)).to(dev)
         ones = torch.ones(B, dtype=torch.float32, device=dev)
@@ -566,6 +588,9 @@ class SequenceVectors(WordVectors):
         negs = _pool_negs(negpool, blk_id, r, c.shape[0], self.negative,
                           len(self.vocab), x)
         tgt = torch.cat([x[:, None], negs], dim=1)
+        if isinstance(syn0, ShardedTensor):
+            return E.sharded_skipgram(syn0.shards, syn1.shards, c, tgt, lab,
+                                      lr, pm)
         return E.skipgram(syn0, syn1, c, tgt, lab, lr, pm)
 
     def _sg_pass(self, syn0, syn1, ids, sent, n_valid, negpool, gen,
@@ -575,7 +600,7 @@ class SequenceVectors(WordVectors):
         the previous block's rounds are enqueued, so reading its count back
         never waits for training."""
         W, S = self.window, self._window_span
-        dev = syn0.device
+        dev = self.device
 
         def pack(p0):
             b = torch.randint(1, W + 1, (S,), generator=gen, device=dev)
@@ -604,6 +629,9 @@ class SequenceVectors(WordVectors):
             total_words = raw_words * self.epochs * self.iterations
         W, R = self.window, self.MAX_BLOCK_ROUNDS
         is_cbow = self.algorithm == "cbow"
+        if is_cbow and self.mesh is not None:
+            raise ValueError("sharded tables support the skip-gram "
+                             "windowed path only (no sharded CBOW kernel)")
         span = self._cbow_centers * R if is_cbow else self._window_span
         gen = torch.Generator(device=dev)
         gen.manual_seed(self.seed)
@@ -803,6 +831,12 @@ class SequenceVectors(WordVectors):
         makes, buffers and stages the blocks, this thread trains them."""
         if stream_factory is None and self.device_corpus:
             return self._train_windowed(corpus, total_words)
+        if self.mesh is not None:
+            raise ValueError(
+                "sharded tables (mesh=...) are implemented for the "
+                "device-windowed paths only — custom streams "
+                "(ParagraphVectors) and device_corpus=False would "
+                "silently train unsharded")
         if stream_factory is None:
             stream_factory = self._default_stream(corpus)
         dev = self.device
@@ -1183,6 +1217,7 @@ class Word2Vec(SequenceVectors):
         def device(self, v): self._kw["device"] = v; return self
 
         def sharded_tables(self, mesh, axis: str = "model"):
+            """Row-shard syn0/syn1neg over ``axis`` of ``mesh``."""
             self._kw["mesh"] = mesh
             self._kw["table_sharding_axis"] = axis
             return self

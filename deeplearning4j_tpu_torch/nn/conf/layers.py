@@ -77,7 +77,7 @@ from ...ops import nn as ops
 from ...ops import recurrent as rnn_ops
 from ..activations import activation_fn
 from ..losses import ILossFunction, LossMCXENT, loss_from_name
-from ...common.tree import tree_map
+from ...common.tree import ShardedTensor, tree_map
 from ..weights import init_weights
 
 # the input-dropout rate that dropout_rate_override installs (None: each
@@ -1064,12 +1064,19 @@ class RecurrentAttentionLayer(Layer):
 @dataclass
 class EmbeddingLayer(Layer):
     """Integer index [B] (or one-hot [B, vocab]) to [B, nOut]: a row of the
-    table W = [vocab, nOut]. The JAX package's ``table_sharding`` (a mesh
-    axis) is not ported. Indices outside the table raise, where the JAX
-    package's gather fills them. The layer never applies its dropout, in
-    training or not, as the JAX embedding layers never do."""
+    table W = [vocab, nOut]. ``table_sharding`` names a mesh axis to
+    row-shard the table over: under ``ParallelWrapper`` with a model axis
+    the layer's ``W`` arrives as its row shards (a
+    ``common/tree.ShardedTensor`` on dimension 0) and the lookup is
+    ``sharded_rows_lookup`` (masked local gathers summed in slot order;
+    the gradient reaches each shard's owned rows only); anywhere else the
+    layer is the dense one. Indices outside the table raise on either
+    path, where the JAX package's gather fills them. The layer never
+    applies its dropout, in training or not, as the JAX embedding layers
+    never do."""
 
     n_out: int = 0
+    table_sharding: Optional[str] = None
 
     def set_input_type(self, input_type):
         self.n_in = input_type.size  # vocabulary size
@@ -1081,7 +1088,20 @@ class EmbeddingLayer(Layer):
                                   device=device)}
 
     def _lookup(self, W, idx):
-        return W[idx.to(torch.int64)]
+        idx = idx.to(torch.int64)
+        if isinstance(W, ShardedTensor):
+            from ...ops.embeddings import sharded_rows_lookup
+
+            # as the dense gather: a negative index counts from the end,
+            # one outside the table raises (the masked gathers would give
+            # a zero row)
+            v = W.shape[0]
+            idx = torch.where(idx < 0, idx + v, idx)
+            if idx.numel() and not bool(((idx >= 0) & (idx < v)).all()):
+                raise IndexError(f"embedding index outside the table of "
+                                 f"{v} rows")
+            return sharded_rows_lookup(W.shards, idx)[0]
+        return W[idx]
 
     def apply(self, params, x, state, training=False, *, generator=None):
         if x.is_floating_point() and x.ndim == 2 and x.shape[-1] == self.n_in:

@@ -109,7 +109,7 @@ import torch
 
 from ..common.dtypes import tensor_from_numpy, torch_dtype
 from ..common.environment import resolve_device
-from ..common.tree import leaf_paths, tree_map
+from ..common.tree import ShardedTensor, ShardedTree, leaf_paths, tree_map
 from ..data import pipeline as _pipe
 from ..data.dataset import DataSet
 from ..learning.precision import apply_updater, cast_floating
@@ -250,7 +250,14 @@ class MultiLayerNetwork(TrainableNetwork):
         input, after its input dropout (the loss applies the head). ``rnn``
         (truncated BPTT): the recurrent layers' carries by layer key; those
         layers start from them and leave their new carries there, and their
-        outputs are masked after them."""
+        outputs are masked after them. A ``ShardedTree`` (from
+        ``parallel/sharding.apply_tp``) runs each layer through
+        ``parallel/sharding.tp_layer_fn``."""
+        apply_layer = self._apply_layer
+        if type(params) is ShardedTree:
+            from ..parallel.sharding import tp_layer_fn
+
+            apply_layer = tp_layer_fn(self, training)
         params, x = self._cast(params, x, training)
         gen = self.generator() if training else None
         new_states = dict(states)
@@ -279,8 +286,8 @@ class MultiLayerNetwork(TrainableNetwork):
                 if fmask is not None:
                     x = x * fmask[:, :, None].to(x.dtype)
             else:
-                x, st = self._apply_layer(i, params[key], x, states[key],
-                                          training, gen, fmask)
+                x, st = apply_layer(i, params[key], x, states[key],
+                                    training, gen, fmask)
             if st:
                 new_states[key] = st
         if to_preout:
@@ -397,10 +404,15 @@ class MultiLayerNetwork(TrainableNetwork):
             for name, t in _named_leaves(params[key]):
                 if name in _NO_REG:
                     continue
+                # a table under a model axis arrives as its row shards
+                sharded = isinstance(t, ShardedTensor)
                 if l2:
-                    reg = reg + 0.5 * l2 * torch.sum(torch.square(t))
+                    reg = reg + 0.5 * l2 * (
+                        t.sumsq(pre_in.device) if sharded
+                        else torch.sum(torch.square(t)))
                 if l1:
-                    reg = reg + l1 * torch.sum(torch.abs(t))
+                    reg = reg + l1 * (t.sumabs(pre_in.device) if sharded
+                                      else torch.sum(torch.abs(t)))
         return data_loss + reg, new_states
 
     def _bind_dataset(self, ds: DataSet):

@@ -378,6 +378,72 @@ def cbow_hs(syn0: torch.Tensor, syn1: torch.Tensor, contexts: torch.Tensor,
     return loss
 
 
+# --- row-sharded tables ---------------------------------------------------------------
+#
+# The JAX package's ``sharded_*`` helpers (``ops/embeddings.py:220-263``)
+# run inside ``shard_map`` on one table shard and ``psum`` over the mesh
+# axis. Here they take a sharded table as the list of its row shards (a
+# ``common/tree.ShardedTensor``'s ``shards``), shard ``j`` holding rows
+# ``[j*v, (j+1)*v)`` on its slot's device (``parallel/mesh.axis_slots``):
+# a lookup gathers on every shard with the rows it does not own masked to
+# zero and sums the shards' results in slot order (the psum: "the one real
+# row plus zeros", so it is exact), an update adds into each shard only the
+# rows it owns (the others get exact zeros at a clipped offset, as the JAX
+# ``at[local].add`` of the masked gradient).
+
+
+def sharded_local_offsets(shards, ids: torch.Tensor, j: int):
+    """Global ids to (clipped local offsets, ownership mask) for shard
+    ``j`` of ``shards``, on that shard's device, in the ids' integer dtype
+    (``index_add_`` on the CPU accumulates a bf16 table's duplicates
+    differently for int32 and int64 indices, so a sharded update keeps the
+    unsharded one's)."""
+    v_local = shards[j].shape[0]
+    local = ids.to(shards[j].device) - j * v_local
+    hit = (local >= 0) & (local < v_local)
+    return local.clamp(0, v_local - 1), hit
+
+
+def sharded_rows_lookup(shards, ids: torch.Tensor, device=None):
+    """Global ids ``[...]`` to (rows ``[..., D]`` on ``device``, default the
+    ids' device; the per-shard ``(local, hit)``). Differentiable: the
+    gradient reaches each shard's owned rows only."""
+    dev = ids.device if device is None else torch.device(device)
+    rows, aux = None, []
+    for j, t in enumerate(shards):
+        local, hit = sharded_local_offsets(shards, ids, j)
+        part = (t[local] * hit[..., None].to(t.dtype)).to(dev)
+        rows = part if rows is None else rows + part
+        aux.append((local, hit))
+    return rows, aux
+
+
+def sharded_rows_add(shards, aux, grads: torch.Tensor) -> None:
+    """In place: ``grads`` ``[N, D]`` added into the owned rows of each
+    shard (duplicates sum), in the shard's dtype."""
+    for t, (local, hit) in zip(shards, aux):
+        g = grads.to(t.device) * hit.reshape(-1, 1).to(grads.dtype)
+        t.index_add_(0, local.reshape(-1), g.to(t.dtype))
+
+
+def sharded_skipgram(syn0_shards, syn1_shards, centers: torch.Tensor,
+                     targets: torch.Tensor, labels: torch.Tensor,
+                     lr: torch.Tensor, pair_mask: torch.Tensor
+                     ) -> torch.Tensor:
+    """:func:`skipgram` with syn0 and syn1neg as lists of row shards: the
+    round runs on the ids' device from the assembled rows, and each shard
+    takes only its own rows' updates, so the tables after the round are
+    the unsharded round's."""
+    h, aux_c = sharded_rows_lookup(syn0_shards, centers)
+    b, k1 = targets.shape
+    u_flat, aux_t = sharded_rows_lookup(syn1_shards, targets.reshape(-1))
+    u = u_flat.reshape(b, k1, -1)
+    grad_h, grad_u, loss = _neg_round(h, u, labels, lr, pair_mask)
+    sharded_rows_add(syn0_shards, aux_c, grad_h)
+    sharded_rows_add(syn1_shards, aux_t, grad_u.reshape(b * k1, -1))
+    return loss
+
+
 # --- the registry's nlp family ------------------------------------------------------
 #
 # The JAX package's five ``nlp`` ops with its signatures. The rounds there

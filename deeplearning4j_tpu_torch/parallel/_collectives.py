@@ -18,6 +18,12 @@ each on its replica's device, and a collective is plain tensor arithmetic:
 - receivers on one device share one result (the sum is the same bits
   whichever replica asks for it).
 
+The model-parallel tier (``ring_attention.py``, ``pipeline.py``,
+``sharding.apply_tp``, the row-sharded tables) uses the rest: a
+``ppermute`` to the next neighbour is :func:`rotate` (a rotation of the
+per-slot list), an ``all_gather`` is :func:`concat_to` (a concatenation in
+slot order), a ``psum`` over the model axis is :func:`sum_to`.
+
 NCCL (``torch.distributed`` or ``torch.cuda.nccl``) is not used yet: it
 waits for the first run on four cards, where it can be measured against
 these copies (ROADMAP A7).
@@ -108,3 +114,19 @@ def sum_to(values: Sequence[torch.Tensor], device=None) -> torch.Tensor:
     for v in values[1:]:
         acc = acc + v.to(dev)
     return acc
+
+
+def rotate(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The ring step of a ``ppermute`` to the next neighbour: slot ``i``
+    receives slot ``i-1``'s tensor (slot 0 the last one's), on its own
+    device. Differentiable."""
+    n = len(tensors)
+    return [tensors[(i - 1) % n].to(tensors[i].device) for i in range(n)]
+
+
+def concat_to(tensors: Sequence[torch.Tensor], dim: int = 0,
+              device=None) -> torch.Tensor:
+    """The ``all_gather`` of per-slot pieces: concatenated along ``dim`` in
+    slot order on ``device`` (default: the first piece's)."""
+    dev = tensors[0].device if device is None else device
+    return torch.cat([t.to(dev) for t in tensors], dim=dim)

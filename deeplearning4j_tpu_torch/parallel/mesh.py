@@ -1,4 +1,4 @@
-"""Device meshes for data-parallel training.
+"""Device meshes for data-, model- and pipeline-parallel training.
 
 Counterpart of ``deeplearning4j_tpu/parallel/mesh.py``. There a mesh is a
 ``jax.sharding.Mesh`` over the chips, and a replica is a shard of one SPMD
@@ -15,7 +15,8 @@ times, the counterpart of the JAX test harness's 8 virtual CPU devices
 their place in the pool, so an elastic resize can exclude a lost replica's
 slot while its device still serves the other slots.
 
-Axis convention as in the JAX package: ``data`` (batch), ``model``.
+Axis convention as in the JAX package: ``data`` (batch), ``model``
+(tensor parallelism, row-sharded tables), ``stage`` (pipeline stages).
 """
 
 from __future__ import annotations
@@ -73,7 +74,8 @@ def device_pool(device=None) -> List[DeviceSlot]:
 
 
 class Mesh:
-    """A ``(data, model)`` grid of device slots."""
+    """A grid of device slots, one axis per name: ``(data, model)``
+    (:func:`make_mesh`) or ``(data, stage)`` (:func:`make_pipeline_mesh`)."""
 
     def __init__(self, devices: np.ndarray,
                  axis_names=("data", "model")) -> None:
@@ -107,11 +109,39 @@ def make_mesh(data: Optional[int] = None, model: int = 1,
     return Mesh(arr.reshape(data, model))
 
 
-def make_pipeline_mesh(data: int, stages: int, devices=None) -> Mesh:
-    """Pipeline parallelism is not ported yet (ROADMAP A7)."""
-    raise NotImplementedError(
-        "make_pipeline_mesh belongs to pipeline parallelism, which is not "
-        "ported yet (ROADMAP A7)")
+def make_pipeline_mesh(data: int, stages: int,
+                       devices: Optional[Sequence] = None) -> Mesh:
+    """A ``(data, stage)`` mesh for pipeline-parallel training
+    (``parallel/pipeline.py``): stage columns hold the layer runs, the
+    data axis replicates the pipeline over batch shards. Its own
+    constructor, as in the JAX package, because the stage axis resizes by
+    remap, not by the data-axis elastic resize."""
+    devs = as_slots(devices) if devices is not None else device_pool()
+    data, stages = int(data), int(stages)
+    if data < 1 or stages < 1:
+        raise ValueError(f"need data >= 1 and stages >= 1, got "
+                         f"({data}, {stages})")
+    n = data * stages
+    if n > len(devs):
+        raise ValueError(f"need {n} devices for a ({data} x {stages}) "
+                         f"pipeline mesh, have {len(devs)}")
+    arr = np.empty((n,), dtype=object)
+    for i, d in enumerate(devs[:n]):
+        arr[i] = d
+    return Mesh(arr.reshape(data, stages), ("data", "stage"))
+
+
+def axis_slots(mesh: Mesh, axis: str) -> List[DeviceSlot]:
+    """The slots along ``axis``, at place 0 of every other axis: the
+    shards of a table row-sharded over ``axis``, or the blocks of a
+    sequence split over it."""
+    if axis not in mesh.axis_names:
+        raise ValueError(f"{axis!r} is not a mesh axis of "
+                         f"{mesh.axis_names}")
+    k = mesh.axis_names.index(axis)
+    idx = tuple(slice(None) if i == k else 0
+                for i in range(mesh.devices.ndim))
+    return list(mesh.devices[idx])
 
 
 def elastic_pool(mesh: Mesh, exclude: Sequence = (),

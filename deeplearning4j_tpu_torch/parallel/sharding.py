@@ -30,8 +30,21 @@ float32 shard starts on 16 bytes and ``fused_update`` takes its vector path
 on each (the JAX layout pads to a multiple of the replica count only; the
 padding never reaches a checkpoint, whose layout is the dense tree).
 
-Tensor parallelism (``tp_param_specs``, ``tp_shardings``, ``apply_tp``) is
-not ported yet: those raise, naming ROADMAP A7.
+**Tensor parallelism** (``tp_param_specs``, ``tp_shardings``,
+``apply_tp``; JAX ``sharding.py:35-67``): the same spec rules (a dense
+``[in, out]`` splits on ``out``, a convolution OIHW on ``O``, a 1-D leaf
+when its length is at least twice the axis size; whatever does not divide
+stays replicated), with the port's own :class:`PartitionSpec`. There a
+spec is a compiler annotation and GSPMD inserts the collectives. Here
+:func:`apply_tp` returns a ``common/tree.ShardedTree`` whose sharded
+leaves are ``ShardedTensor`` s (one shard per slot of the axis, each on its
+slot's device), and ``MultiLayerNetwork``'s forward takes such a tree
+(:func:`tp_layer_fn`, chosen once a forward by the tree's type): a Dense
+or Convolution layer with an elementwise activation runs column-parallel
+(each slot multiplies by its slice of the output dimension, the slices
+joined in slot order); any other layer gets its sharded leaves gathered
+first. Weight noise and a rematerialization policy act on whole leaves and
+are refused in a tensor-parallel training forward.
 """
 
 from __future__ import annotations
@@ -43,7 +56,8 @@ import numpy as np
 import torch
 
 from ..common.dtypes import dtype_name
-from ..common.tree import get_path, leaf_paths, set_path, skeleton, sort_tree
+from ..common.tree import (ShardedTensor, ShardedTree, get_path, leaf_paths,
+                           set_path, skeleton, sort_tree)
 
 FLAT_PREFIX = "flat::"   # bucket keys ("flat::float32") mark the flat layout
 
@@ -263,14 +277,182 @@ def is_flat_state(state) -> bool:
     return any(_is_flat_dict(v) for v in state.values())
 
 
+class PartitionSpec(tuple):
+    """The port's ``jax.sharding.PartitionSpec``: one entry per leading
+    dimension, a mesh axis name or None; ``PartitionSpec()`` replicates."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+def _map_leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
 def tp_param_specs(params, mesh, axis: str = "model"):
-    """Tensor-parallel placement is not ported yet (ROADMAP A7)."""
-    raise NotImplementedError(
-        "tensor parallelism (tp_param_specs, tp_shardings, apply_tp) is not "
-        "ported yet (ROADMAP A7)")
+    """A :class:`PartitionSpec` per leaf of ``params`` for tensor-parallel
+    placement over ``axis``; what does not divide evenly is replicated."""
+    size = mesh.shape[axis]
+
+    def spec_for(leaf):
+        shape = tuple(leaf.shape)
+        if len(shape) == 2 and shape[1] % size == 0 and shape[1] >= size:
+            return P(None, axis)                    # dense [in, out]
+        if len(shape) == 4 and shape[0] % size == 0 and shape[0] >= size:
+            return P(axis, None, None, None)        # conv OIHW [out, ...]
+        if len(shape) == 1 and shape[0] % size == 0 and shape[0] >= 2 * size:
+            return P(axis)                          # bias / per-channel
+        return P()
+
+    return _map_leaves(spec_for, params)
 
 
-tp_shardings = apply_tp = tp_param_specs
+class NamedSharding:
+    """A placement: ``spec`` over ``mesh`` (the JAX type's counterpart)."""
+
+    def __init__(self, mesh, spec: PartitionSpec):
+        self.mesh, self.spec = mesh, spec
+
+    def place(self, t: torch.Tensor):
+        """``t`` as a :class:`ShardedTensor` over the spec's axis, or
+        itself when the spec replicates it."""
+        from .mesh import axis_slots
+
+        for dim, name in enumerate(self.spec):
+            if name is not None:
+                return ShardedTensor.split(
+                    t, [s.device for s in axis_slots(self.mesh, name)],
+                    dim, spec=self.spec)
+        return t
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.mesh}, {self.spec})"
+
+
+def tp_shardings(params, mesh, axis: str = "model"):
+    """A :class:`NamedSharding` per leaf (:func:`tp_param_specs`)."""
+    return _map_leaves(lambda s: NamedSharding(mesh, s),
+                       tp_param_specs(params, mesh, axis))
+
+
+def apply_tp(params, mesh, axis: str = "model") -> ShardedTree:
+    """``params`` with tensor-parallel placement, as a
+    :class:`ShardedTree`: every leaf its spec splits becomes a
+    :class:`ShardedTensor`; the others stay as they are."""
+    specs = tp_param_specs(params, mesh, axis)
+
+    def walk(p, s):
+        if isinstance(p, dict):
+            return {k: walk(p[k], s[k]) for k in p}
+        return NamedSharding(mesh, s).place(p)
+
+    return ShardedTree(walk(params, specs))
+
+
+def _gathered(tree, device):
+    return _map_leaves(lambda t: t.gather(device)
+                       if isinstance(t, ShardedTensor) else t, tree)
+
+
+def _column_parallel(layer, lp) -> bool:
+    """Whether ``layer`` runs column-parallel on ``lp``: a Dense or
+    Convolution layer (not a subclass, so no output head), an elementwise
+    activation, its W split on the output dimension and any other sharded
+    leaf split alike."""
+    from ..nn.conf import layers as L
+
+    w = lp.get("W")
+    if type(layer) is L.DenseLayer:
+        out_dim = 1
+    elif type(layer) is L.ConvolutionLayer:
+        out_dim = 0
+    else:
+        return False
+    act = (layer.activation or "").lower()
+    if act in ("softmax", "logsoftmax", "log_softmax") \
+            or not isinstance(w, ShardedTensor) or w.dim != out_dim:
+        return False
+    n = len(w.shards)
+    return all(not isinstance(t, ShardedTensor)
+               or (t.dim == 0 and len(t.shards) == n)
+               for k, t in lp.items() if k != "W")
+
+
+def tp_layer_fn(net, training: bool):
+    """``net``'s per-layer forward on a :class:`ShardedTree`, with
+    ``MultiLayerNetwork._apply_layer``'s signature: :func:`tp_apply_layer`.
+    In training a layer's weight noise or a rematerialization policy would
+    act on whole leaves; both are refused."""
+    from ..nn.conf.builder import effective_remat_policy
+
+    if training:
+        noisy = [i for i, layer in enumerate(net.layers)
+                 if layer.weight_noise is not None]
+        if noisy:
+            raise ValueError(f"tensor-parallel training forward: layers "
+                             f"{noisy} have weight noise, which needs "
+                             "whole leaves")
+        pol = effective_remat_policy(net.conf.global_conf)
+        if pol != "none":
+            raise ValueError(f"tensor-parallel training forward: remat "
+                             f"policy {pol!r} is not supported on sharded "
+                             "leaves")
+
+    def apply(i, lp, x, st, training, gen, fmask):
+        return tp_apply_layer(net.layers[i], lp, x, st, training, gen, fmask)
+
+    return apply
+
+
+def tp_apply_layer(layer, lp, x: torch.Tensor, state, training: bool,
+                   generator=None, fmask=None):
+    """A layer's forward on a parameter tree with :class:`ShardedTensor`
+    leaves: column-parallel where :func:`_column_parallel` allows (slot
+    ``j`` applies the layer to its slices, a replicated bias sliced alike;
+    the outputs joined along dimension 1 in slot order on ``x``'s device),
+    otherwise on the gathered tree."""
+    def run(p, xx):
+        if fmask is not None:
+            return layer.apply_masked(p, xx, state, training, fmask,
+                                      generator=generator)
+        return layer.apply(p, xx, state, training, generator=generator)
+
+    def in_dtype(p):
+        # a gathered or sliced leaf missed the compute-dtype cast of the
+        # replicated ones: it takes the input's floating dtype
+        if not x.is_floating_point():
+            return p
+        return _map_leaves(lambda v: v.to(x.dtype)
+                           if v.is_floating_point() else v, p)
+
+    if not _column_parallel(layer, lp):
+        return run(in_dtype(_gathered(lp, x.device)), x)
+    w = lp["W"]
+    outs = []
+    for j, wj in enumerate(w.shards):
+        dev = wj.device
+        n_out = wj.shape[w.dim]
+        pj = {}
+        for k, t in lp.items():
+            if isinstance(t, ShardedTensor):
+                pj[k] = t.shards[j]
+            elif k == "b":
+                pj[k] = t.narrow(0, j * n_out, n_out).to(dev)
+            else:
+                pj[k] = t.to(dev)
+        y, _ = run(in_dtype(pj), x.to(dev))
+        outs.append(y)
+    from ._collectives import concat_to
+
+    return concat_to(outs, 1, x.device), state
 
 
 def unflatten_updater_state(state, params: Tree):

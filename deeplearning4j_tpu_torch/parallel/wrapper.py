@@ -65,13 +65,27 @@ starts at) takes a ``bitflip`` spec and flips one bit of the named
 replica's parameter copy (``common/integrity.apply_bitflip``), for the
 consistency check to catch (JAX ``parallel/wrapper.py:1000``).
 
+**The model axis** (``model_axis(m)``, m > 1; JAX ``wrapper.py:466-500``):
+the mesh is ``(data, model)``, a replica is a data row, and each layer with
+``table_sharding="model"`` (the ``EmbeddingLayer`` family) keeps its table
+row-sharded over the row's model slots (``rep.tables``: one shard per
+slot, on its device; ``ops/embeddings.sharded_rows_lookup`` in the
+forward) with its updater state split alike; every other leaf is
+replicated, held and computed once per row (its model slots would do the
+same arithmetic). The table shards' gradients are averaged over the data
+rows shard by shard, as the rest is by the dense exchange, and the
+per-leaf updater runs on each shard. The vocabulary must divide by the
+axis size. As in the JAX wrapper, ZeRO-1, the encoded exchange, the
+integrity fingerprints, a ``ComputationGraph`` with a sharded table and
+the online resize refuse a model axis. The model's view during a fit, its
+copies after one and a checkpoint's snapshot hold the whole tables (the
+shards joined in slot order).
+
 Not carried over from the JAX package: the per-worker-count compile cache
 (nothing compiles). Like the JAX step, this step applies neither gradient
 normalization nor weight constraints (ROADMAP §C).
-``model_axis`` > 1 (tensor parallelism, ``table_sharding``) raises,
-naming ROADMAP A7; ``training_mode("averaging")`` and
-``averaging_frequency`` are accepted and run the same synchronous program,
-as the JAX package documents.
+``training_mode("averaging")`` and ``averaging_frequency`` are accepted
+and run the same synchronous program, as the JAX package documents.
 
 ``Builder.devices(list)`` (a port extension, ROADMAP §C) places the
 replicas on the given devices, repeats allowed: four replicas on one card
@@ -91,7 +105,8 @@ import torch
 from ..common import faultinject
 from ..common import integrity as _integ
 from ..common.profiler import OpProfiler
-from ..common.tree import get_path, leaf_paths, set_path, skeleton
+from ..common.tree import (ShardedTensor, get_path, leaf_paths, set_path,
+                           skeleton)
 from ..data import pipeline as _pipe
 from ..learning.precision import apply_updater, note_state_bytes
 # a module reference: nn/_fused imports parallel/sharding, which runs
@@ -154,16 +169,29 @@ class _Replica:
     parameter and gradient buckets with their views), ``states`` (layer
     states) and ``upd`` (dense layout: the flat state buckets on the fused
     path, the dense tree on the per-leaf path; ZeRO-1: its slice of each
-    flat state bucket)."""
+    flat state bucket). With a model axis: ``tables`` (layer key to its
+    table's row shards, one per model slot of the row) and ``tupd`` (layer
+    key to each shard's updater state ``{name: tensor}``); the store then
+    holds every other leaf."""
 
-    __slots__ = ("slot", "device", "store", "states", "upd")
+    __slots__ = ("slot", "device", "store", "states", "upd", "tables",
+                 "tupd")
 
-    def __init__(self, slot, store, states, upd) -> None:
+    def __init__(self, slot, store, states, upd, tables=None,
+                 tupd=None) -> None:
         self.slot = slot
         self.device = slot.device
         self.store = store
         self.states = states
         self.upd = upd
+        self.tables = tables or {}
+        self.tupd = tupd or {}
+
+
+def _without(tree: dict, keys) -> dict:
+    """A model tree without the ``W`` of each layer in ``keys``."""
+    return {k: ({n: t for n, t in v.items() if n != "W"} if k in keys
+                else v) for k, v in tree.items()}
 
 
 class ParallelWrapper:
@@ -183,8 +211,9 @@ class ParallelWrapper:
             return self
 
         def model_axis(self, m: int) -> "ParallelWrapper.Builder":
-            """Devices along the mesh's ``model`` axis; more than 1 raises
-            at ``fit`` (tensor parallelism is ROADMAP A7)."""
+            """Devices along the mesh's ``model`` axis (workers must divide
+            by it). Layers with ``table_sharding`` (the EmbeddingLayer
+            family) shard their tables over this axis."""
             self._model_axis = int(m)
             return self
 
@@ -253,6 +282,8 @@ class ParallelWrapper:
         self._drained_encoded = (0.0, 0.0, 0)
         self._seg_ids: Dict[tuple, torch.Tensor] = {}
         self._gens: Dict[str, torch.Generator] = {}
+        self._tables: Dict[str, str] = {}     # table layer key -> axis
+        self._live_params = None
 
     def set_listeners(self, *ls) -> None:
         self._listeners = list(ls)
@@ -287,7 +318,7 @@ class ParallelWrapper:
         """Whether the model's fields are the replicas' live state (inside
         a fit)."""
         return (self._reps is not None
-                and self.model._params is self._reps[0].store.param_views)
+                and self.model._params is self._live_params)
 
     def _current(self) -> bool:
         if self._reps is None or len(self._reps) != self.workers_count:
@@ -309,11 +340,16 @@ class ParallelWrapper:
         model = self.model
         acc = self.accumulator
         updater = model.conf.global_conf.updater
-        if self.model_axis != 1:
+        self._tables = self._table_layers()
+        if acc.zero1 and (self.model_axis != 1 or self._tables):
             raise NotImplementedError(
-                "model_axis > 1 (tensor parallelism, table_sharding) is not "
-                "ported yet (ROADMAP A7); ZeRO-1, the integrity check and "
-                "the replicas all assume replicated params")
+                "ZeRO-1 sharding assumes replicated params: it cannot "
+                "compose with model_axis/table_sharding yet")
+        if acc.stateful and self.model_axis != 1:
+            raise NotImplementedError(
+                "the encoded exchange keeps per-replica residuals of "
+                "replicated params: it cannot compose with model_axis/"
+                "table_sharding yet")
         if acc.zero1 and not getattr(updater, "elementwise", False):
             raise NotImplementedError(
                 f"{type(updater).__name__} does not declare "
@@ -327,6 +363,17 @@ class ParallelWrapper:
         n = len(slots)
         params, states = model._params, model._states
         upd = model._updater_state
+        tabs = self._tables
+        full_params = params
+        if tabs:
+            if is_flat_state(upd):
+                upd = unflatten_updater_state(upd, params)
+            if upd is None:
+                upd = updater.init(params)
+            full_upd = upd
+            params = _without(params, tabs)
+            upd = {k: _without(v, tabs) for k, v in upd.items()} \
+                if isinstance(upd, dict) else upd
         if acc.zero1:
             plan = Zero1Plan(params, n, shard_align=4)
             if upd is None:
@@ -340,7 +387,7 @@ class ParallelWrapper:
             if upd is None:
                 upd = updater.init(params)
         self._plan = plan
-        self._fused = not acc.zero1 and _fused.fused_flat_plan(
+        self._fused = not acc.zero1 and not tabs and _fused.fused_flat_plan(
             model.conf, params) is not None
         reps = []
         for r, slot in enumerate(slots):
@@ -357,7 +404,20 @@ class ParallelWrapper:
             else:
                 store = _fused.FlatStore(plan, p_r, None)
                 u = _to(upd, dev, copy=True)
-            reps.append(_Replica(slot, store, _to(states, dev, copy=True), u))
+            tables, tupd = {}, {}
+            row = [sl.device for sl in self.mesh.devices[r, :]]
+            for key in tabs:
+                tables[key] = ShardedTensor.split(
+                    full_params[key]["W"].detach(), row).shards
+                for t in tables[key]:
+                    t.requires_grad_(True)
+                per_slot = {name: ShardedTensor.split(
+                    v[key]["W"].detach(), row).shards
+                    for name, v in (full_upd or {}).items()}
+                tupd[key] = [{name: sh[j] for name, sh in per_slot.items()}
+                             for j in range(len(row))]
+            reps.append(_Replica(slot, store, _to(states, dev, copy=True), u,
+                                 tables, tupd))
         self._reps = reps
         self._seg_ids = {}
         if acc.zero1:
@@ -401,13 +461,78 @@ class ParallelWrapper:
                       for k in self._reps[0].upd[s]}
         return out
 
+    # --- the row-sharded tables --------------------------------------------
+    def _table_layers(self) -> Dict[str, str]:
+        """Layer key to ``table_sharding`` axis of every sharded-table
+        layer that the model axis splits, validated as the JAX wrapper's
+        ``_param_specs`` validates them."""
+        model = self.model
+        if not hasattr(model.conf, "layers"):          # ComputationGraph
+            for node in getattr(model.conf, "nodes", {}).values():
+                if getattr(getattr(node, "layer", None), "table_sharding",
+                           None):
+                    raise NotImplementedError(
+                        "table_sharding through ParallelWrapper is wired "
+                        "for MultiLayerNetwork; ComputationGraph tables "
+                        "are not routed yet")
+            return {}
+        out = {}
+        for key, layer in zip(model._keys, model.conf.layers):
+            ax = getattr(layer, "table_sharding", None)
+            if not ax:
+                continue
+            if ax not in self.mesh.shape:
+                raise ValueError(f"table_sharding={ax!r} is not a mesh "
+                                 f"axis of {tuple(self.mesh.shape)}")
+            if ax != "model":
+                raise ValueError(f"table_sharding={ax!r}: tables shard "
+                                 "over the model axis only")
+            n_sh = self.mesh.shape[ax]
+            if layer.n_in is None or layer.n_in % n_sh:
+                raise ValueError(
+                    f"embedding vocab {layer.n_in} must be divisible by "
+                    f"the {ax!r} axis size {n_sh} (pad the vocab)")
+            if n_sh > 1:
+                out[key] = ax
+        return out
+
+    def _replica_params(self, rep: _Replica):
+        """The tree a replica's forward takes: its store's views, with each
+        sharded table's ``W`` its list of row shards."""
+        views = rep.store.param_views
+        if not rep.tables:
+            return views
+        out = dict(views)
+        for key, shards in rep.tables.items():
+            out[key] = dict(views[key], W=ShardedTensor(shards))
+        return out
+
+    def _full_tree(self, tree, rep: _Replica, what: str):
+        """``tree`` (the replica's store layout) with each table's whole
+        ``W`` joined in slot order: ``what`` "params" (detached) or an
+        updater-state name."""
+        if not rep.tables:
+            return tree
+        out = dict(tree)
+        for key, shards in rep.tables.items():
+            parts = ([t.detach() for t in shards] if what == "params"
+                     else [st[what] for st in rep.tupd[key]])
+            out[key] = dict(tree[key],
+                            W=ShardedTensor(parts).gather(rep.device))
+        return out
+
     def _publish_live(self) -> None:
         model = self.model
         rep = self._reps[0]
-        model._params = rep.store.param_views
+        model._params = self._full_tree(rep.store.param_views, rep,
+                                        "params")
+        self._live_params = model._params
         model._states = rep.states
         if not self.accumulator.zero1:
-            model._updater_state = self._dense_upd(rep)
+            upd = self._dense_upd(rep)
+            model._updater_state = (
+                {n: self._full_tree(v, rep, n) for n, v in upd.items()}
+                if rep.tables and isinstance(upd, dict) else upd)
         model._flat = None
         model._cast_cache = None
 
@@ -434,12 +559,16 @@ class ParallelWrapper:
         with torch.no_grad():
             buckets = {k: v.detach().clone()
                        for k, v in rep.store.params.items()}
-            model._params = self._plan.unflatten(buckets)
+            model._params = self._full_tree(
+                self._plan.unflatten(buckets), rep, "params")
             model._states = _clone(rep.states)
             if self.accumulator.zero1:
                 model._updater_state = self._gathered_upd()
             else:
-                model._updater_state = _clone(self._dense_upd(rep))
+                upd = _clone(self._dense_upd(rep))
+                model._updater_state = (
+                    {n: self._full_tree(v, rep, n) for n, v in upd.items()}
+                    if rep.tables and isinstance(upd, dict) else upd)
             model._acc_state = (self._host_acc()
                                 if self.accumulator.stateful else None)
         model._flat = None
@@ -559,7 +688,7 @@ class ParallelWrapper:
     # --- the step ------------------------------------------------------------
     def _replica_loss(self, rep: _Replica, batch, denom):
         model = self.model
-        p = rep.store.param_views
+        p = self._replica_params(rep)
         if hasattr(model.conf, "network_inputs"):
             inputs, labels, masks, w = batch
             return model._loss(p, rep.states, inputs, labels, masks, True, w,
@@ -611,12 +740,22 @@ class ParallelWrapper:
             if stats and not zero1 and old_p is None:
                 old_p = [{k: v.clone() for k, v in
                           reps[0].store.params.items()}]
+            # the table shards and their updater state (a model axis)
+            old_t = ([{k: [t.detach().clone() for t in sh]
+                       for k, sh in rep.tables.items()} for rep in reps]
+                     if self._tables and (keep_old or stats) else None)
+            old_tu = ([{k: [dict(st) for st in sts]
+                        for k, sts in rep.tupd.items()} for rep in reps]
+                      if self._tables and keep_old else None)
         old_states = [rep.states for rep in reps]
 
         # 1. forward and backward, replica by replica
         losses, new_states, raw_nf = [], [], []
         for rep, b in zip(reps, batch):
             rep.store.bind_grads()
+            for sh in rep.tables.values():
+                for t in sh:
+                    t.grad = None
             with self._draws(rep.device):
                 with torch.enable_grad():
                     loss, st = self._replica_loss(rep, b,
@@ -649,6 +788,12 @@ class ParallelWrapper:
                 red = [{k: v[r] for k, v in sh.items()} for r in range(n)]
             else:
                 red = acc.exchange(raw, None)[0]
+            # the table shards' gradients: the mean over the data rows,
+            # shard by shard (tred[key][j][r]: replica r's copy)
+            tred = {k: [all_reduce_mean([rep.tables[k][j].grad
+                                         for rep in reps])
+                        for j in range(len(reps[0].tables[k]))]
+                    for k in self._tables}
 
             # 3. the update
             if zero1:
@@ -680,6 +825,7 @@ class ParallelWrapper:
                             for p in plan.paths:
                                 get_path(views, p).copy_(
                                     get_path(new_p, p))
+                        self._update_tables(updater, rep, r, tred, it, g)
 
             # 4. telemetry, the NaN guard, the consistency verdict
             aux = None
@@ -697,6 +843,21 @@ class ParallelWrapper:
                     aux = _tel.sharded_layer_stats(
                         loss, parts, plan.n_layers,
                         nonfinite=sum_to(raw_nf, dev0))
+                elif self._tables:
+                    # the whole tables in the trees; non-finite counts
+                    # from the exchanged gradients
+                    r0 = reps[0]
+                    old_full = dict(plan.unflatten(old_p[0]))
+                    grads_full = dict(plan.unflatten(red[0]))
+                    for k in self._tables:
+                        old_full[k] = dict(old_full[k], W=torch.cat(
+                            [t.to(dev0) for t in old_t[0][k]]))
+                        grads_full[k] = dict(grads_full[k], W=torch.cat(
+                            [g_[0].to(dev0) for g_ in tred[k]]))
+                    aux = _tel.layer_stats(
+                        old_full, self._full_tree(r0.store.param_views, r0,
+                                                  "params"),
+                        grads_full, loss)
                 else:
                     aux = _tel.layer_stats(
                         plan.unflatten(old_p[0]), reps[0].store.param_views,
@@ -707,7 +868,8 @@ class ParallelWrapper:
                 if guard:
                     ok = aux["nonfinite_total"] == 0
                     aux["skipped"] = (~ok).to(torch.int32)
-                    self._keep_pre_step(ok, old_p, old_u, old_states)
+                    self._keep_pre_step(ok, old_p, old_u, old_states,
+                                        old_t, old_tu)
                 if integ:
                     if do_check:
                         mism = ([self._transport_mismatch(j)
@@ -746,10 +908,33 @@ class ParallelWrapper:
                     mine[k], theirs[k].to(reps[j].device))
         return out.to(torch.int32)
 
-    def _keep_pre_step(self, ok, old_p, old_u, old_states) -> None:
+    def _update_tables(self, updater, rep: _Replica, r: int, tred, it: int,
+                       gen) -> None:
+        """The per-leaf updater on each of replica ``r``'s table shards,
+        with the data rows' mean gradient."""
+        for key, shards in rep.tables.items():
+            for j, t in enumerate(shards):
+                new_p, st = apply_updater(
+                    updater, {"W": tred[key][j][r]},
+                    {n: {"W": v} for n, v in rep.tupd[key][j].items()},
+                    {"W": t.detach()}, it, gen)
+                t.detach().copy_(new_p["W"])
+                rep.tupd[key][j] = {n: v["W"] for n, v in st.items()}
+
+    def _keep_pre_step(self, ok, old_p, old_u, old_states, old_t=None,
+                       old_tu=None) -> None:
         """Every replica back to its pre-step state where ``ok`` is false
         (a device boolean: no host synchronisation)."""
         for r, rep in enumerate(self._reps):
+            for k, sh in rep.tables.items():
+                for j, t in enumerate(sh):
+                    td = t.detach()
+                    torch.where(ok.to(td.device), td, old_t[r][k][j],
+                                out=td)
+                    rep.tupd[k][j] = {
+                        n: torch.where(ok.to(v.device), v,
+                                       old_tu[r][k][j][n])
+                        for n, v in rep.tupd[k][j].items()}
             for k, v in rep.store.params.items():
                 torch.where(ok.to(v.device), v, old_p[r][k], out=v)
             if isinstance(rep.upd, dict) and rep.upd:
@@ -848,6 +1033,13 @@ class ParallelWrapper:
                                     listeners=self._listeners,
                                     keep_flat=self.accumulator.zero1)
         self._ensure_parallel_state()
+        tele = self._telemetry
+        if tele is not None and tele.integrity_every \
+                and (self.model_axis != 1 or self._tables):
+            raise NotImplementedError(
+                "integrity fingerprints police the replicated-state "
+                "invariant — model-sharded params have no replica copies "
+                "to compare")
         self._publish_live()
         prof = OpProfiler.get()
 
@@ -892,8 +1084,8 @@ class ParallelWrapper:
             raise ValueError(f"workers must be >= 1, got {workers}")
         if self.model_axis != 1:
             raise NotImplementedError(
-                "online elastic resize is a data-axis operation; model_axis "
-                "> 1 is not ported yet (ROADMAP A7)")
+                "online elastic resize is a data-axis operation; it does "
+                "not compose with model_axis/table_sharding yet")
         old_n = self.workers_count
         lost = sorted({int(r) for r in (lost_replicas or ())})
         if any(r < 0 or r >= old_n for r in lost):

@@ -67,6 +67,8 @@ snapshot's ``fleet`` entry (alive mask, member seeds, the members'
 generator states, the sweep's hyperparameters) rides in ``resume.json``
 under ``fleet``, as the JAX package's does (its threefry ``keys`` aside).
 Every restore records a ``checkpoint/restore`` flight-recorder event.
+A pipeline trainer's snapshot records its live stage count in the cursor
+(``stages``, informational: the layout on disk is per layer).
 
 Not ported here (ROADMAP A7): group commits.
 """
@@ -181,7 +183,9 @@ def snapshot_training_state(model, listeners=None) -> Dict[str, Any]:
         "cursor": {
             "epochs_done": int(model._epoch) - int(fit_epoch0),
             "steps_in_epoch": int(getattr(model, "_steps_in_epoch", 0)),
-            "workers": int(getattr(model, "_live_workers", 1))},
+            "workers": int(getattr(model, "_live_workers", 1)),
+            **({"stages": int(model._live_stages)}
+               if hasattr(model, "_live_stages") else {})},
         "listener_state": gather_listener_state(listeners),
     }
 
@@ -697,6 +701,11 @@ def restore_training_state(model, path: str, listeners=None,
         model._ckpt_workers = int(cursor["workers"])
         logger.info("checkpoint %s was taken under %d data-parallel "
                     "worker(s)", os.path.basename(path), model._ckpt_workers)
+    if cursor.get("stages") is not None:
+        # informational too: the pipeline's layout on disk is per layer
+        model._ckpt_stages = int(cursor["stages"])
+        logger.info("checkpoint %s was taken under %d pipeline stage(s)",
+                    os.path.basename(path), model._ckpt_stages)
     flightrec.event("checkpoint/restore", file=os.path.basename(path),
                     epochs_done=int(cursor.get("epochs_done", 0)),
                     steps_in_epoch=int(cursor.get("steps_in_epoch", 0)))
@@ -716,6 +725,10 @@ def begin_fit_cursor(model, resume_from: Optional[str], listeners=None,
     if not keep_flat and is_flat_state(model._updater_state):
         model._updater_state = unflatten_updater_state(
             model._updater_state, model._params)
+    # the stage count is per-fit metadata: a later fit that is not a
+    # pipeline's must not stamp it (PipelineTrainer.fit sets it again)
+    if hasattr(model, "_live_stages"):
+        del model._live_stages
     if resume_from is None:
         model._fit_epoch0 = model._epoch
         model._steps_in_epoch = 0

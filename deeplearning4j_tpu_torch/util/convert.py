@@ -34,6 +34,17 @@ axis, as numpy) and, when given, its stacked ``_updater_state`` go into the
 port fleet's ``[M, N]`` buckets in place, so both packages start from the
 same members.
 
+The model-parallel objects: ``sharded_embedding_from_numpy`` puts a JAX
+``ShardedEmbedding``'s table (its ``to_numpy()``, or the padded table) into
+a port ``ShardedEmbedding``'s row shards;
+``pipeline_trainer_state_from_numpy`` carries a JAX ``PipelineTrainer``'s
+stacked ``[stages * rows, ...]`` parameters (and its stacked updater
+state), pad rows included, into the port trainer's model as per-layer
+trees, rows read off ``stage_partition`` as the JAX trainer lays them out;
+``heterogeneous_pipeline_state_from_numpy`` carries a JAX
+``HeterogeneousPipeline``'s stage trees (its ``stage_params(s)``) into the
+port pipeline's stages.
+
 ``samediff_state_from_numpy`` carries a JAX SameDiff's variable values
 (``{name: ndarray}``) and its updater state into a port SameDiff, checked
 against the port graph's own variables.
@@ -163,6 +174,71 @@ def multilayer_state_from_numpy(net, params: Sequence[Mapping[str, np.ndarray]],
         state = {k: _by_layer(v) for k, v in dict(updater_state).items()}
         updater_state_from_numpy(net, state, device)
     return net
+
+
+def sharded_embedding_from_numpy(emb, table: np.ndarray):
+    """A ``[vocab, D]`` (or padded) numpy table into ``emb``'s shards, the
+    pad rows zero; returns ``emb``."""
+    a = np.asarray(table)
+    if a.dtype != np.float32:
+        raise ValueError(f"sharded table dtype {a.dtype} != float32")
+    if a.ndim != 2 or a.shape[1] != emb.dim \
+            or a.shape[0] not in (emb.vocab_size, emb._padded):
+        raise ValueError(f"sharded table shape {a.shape} != "
+                         f"({emb.vocab_size} or {emb._padded}, {emb.dim})")
+    emb._place(a)
+    return emb
+
+
+def pipeline_trainer_state_from_numpy(trainer, stacked_params,
+                                      stacked_updater=None):
+    """Install a JAX ``PipelineTrainer``'s stacked state (numpy trees with
+    a leading ``[stages * rows]`` axis: layer ``l`` of stage ``s``'s run
+    ``[lo, hi)`` at row ``s * rows + l - lo``, ``rows`` the longest run)
+    into the port ``trainer``'s model, checked as
+    :func:`multilayer_state_from_numpy` checks; the trainer places it at
+    its next fit. Returns ``trainer``."""
+    from ..parallel.pipeline import stage_partition
+
+    model = trainer.model
+    runs = stage_partition(len(model.layers), trainer.stages_count)
+    rows = max(hi - lo for lo, hi in runs)
+    row_of = [s * rows + (i - lo) for s, (lo, hi) in enumerate(runs)
+              for i in range(lo, hi)]
+
+    def per_layer(tree):
+        lead = {int(np.shape(get_path(tree, p))[0]) for p in leaf_paths(tree)}
+        if lead != {len(runs) * rows}:
+            raise ValueError(f"stacked leading axes {sorted(lead)} != "
+                             f"{len(runs)} stages x {rows} rows")
+        out = []
+        for r in row_of:
+            t = skeleton(tree)
+            for p in leaf_paths(tree):
+                set_path(t, p, np.ascontiguousarray(
+                    np.asarray(get_path(tree, p))[r]))
+            out.append(t)
+        return out
+
+    upd = None
+    if stacked_updater is not None:
+        upd = {k: per_layer(v) for k, v in dict(stacked_updater).items()}
+    model._params = {k: dict(v) for k, v in model._params.items()}
+    multilayer_state_from_numpy(model, per_layer(stacked_params),
+                                [{} for _ in model.layers], upd)
+    return trainer
+
+
+def heterogeneous_pipeline_state_from_numpy(pp, stage_trees):
+    """Install a JAX ``HeterogeneousPipeline``'s stage trees (``[{layer
+    index: {name: array}}]``, its ``stage_params(s)``) into the port
+    pipeline's stages, checked; returns ``pp``."""
+    if len(stage_trees) != len(pp.params):
+        raise ValueError(f"{len(stage_trees)} stage trees for "
+                         f"{len(pp.params)} stages")
+    for s, (src, dst) in enumerate(zip(stage_trees, pp.params)):
+        _copy_stacked(f"stage {s}", src, dst)
+    return pp
 
 
 def _copy_stacked(kind: str, src, dst) -> None:

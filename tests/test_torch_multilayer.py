@@ -354,9 +354,6 @@ def test_list_configuration_json_in_the_jax_format(which):
             "masked": masked_conf}[which]
     jconf, tconf = make("jax"), make("torch")
     jd, td = _json(jconf), _json(tconf)
-    for d in (jd, td):      # fields the port does not carry, inert
-        for layer in d["layers"]:
-            layer["fields"].pop("table_sharding", None)
     assert td == jd
     # each package reads the other's
     back = TMLC.from_json(jconf.to_json())

@@ -388,23 +388,32 @@ def test_state_carry_over_refuses_mismatches():
                                   syn.astype(np.float64))
 
 
+def _cbow_mesh_fit():
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+
+    w = tw2v.Word2Vec(algorithm="cbow", device="cpu", min_word_frequency=1,
+                      mesh=make_mesh(data=1, model=2, devices=["cpu"] * 2))
+    w.set_sentence_iterator(["a b c a b", "b c a c"])
+    w.fit()
+
+
 @pytest.mark.parametrize("make,exc,match", [
-    (lambda: tw2v.Word2Vec(device="cpu", mesh=object()),
-     NotImplementedError, "mesh"),
-    (lambda: tw2v.Word2Vec(algorithm="cbow", device="cpu", mesh=object()),
-     NotImplementedError, "mesh"),
+    (lambda: tw2v.Word2Vec(device="cpu", mesh=object(),
+                           use_hierarchic_softmax=True, negative=0),
+     ValueError, "negative sampling only"),
+    (_cbow_mesh_fit, ValueError, "skip-gram windowed path only"),
     (lambda: tw2v.Word2Vec(device="cpu", use_hierarchic_softmax=True,
                            negative=3), ValueError, "negative=0"),
 ], ids=["skipgram-mesh", "cbow-mesh", "hs-with-negative-3"])
 def test_unported_configurations_raise(make, exc, match):
-    """What stays unported (sharded tables) is refused by name, pointing at
-    ROADMAP; HS with negatives other than the default 5 is refused as the
-    JAX package refuses it. (The host pair path is ported:
+    """What the JAX package refuses, the port refuses with its words:
+    sharded tables (``mesh=``) train negative-sampling skip-gram only, so
+    hierarchical softmax and CBOW with a mesh raise; HS with negatives other
+    than the default 5 is refused. (Sharded tables:
+    tests/test_torch_sharded_embeddings.py; the host pair path:
     tests/test_torch_word2vec_host.py.)"""
-    with pytest.raises(exc, match=match) as e:
+    with pytest.raises(exc, match=match):
         make()
-    if exc is NotImplementedError:
-        assert "ROADMAP" in str(e.value)
 
 
 def test_host_pair_path_and_bad_configurations_raise():
@@ -760,8 +769,8 @@ def test_hs_state_carry_over_and_resume():
 
 
 def test_nlp_refuses_the_unported_models_by_name():
-    """Every NLP name of the JAX package imports from the port now; only
-    sharded tables (``mesh=``) are refused, by name."""
+    """Every NLP name of the JAX package imports from the port now, and
+    Word2Vec takes a mesh (sharded tables) as the JAX class does."""
     import deeplearning4j_tpu.nlp as jnlp
     import deeplearning4j_tpu_torch.nlp as tnlp
 
@@ -772,7 +781,8 @@ def test_nlp_refuses_the_unported_models_by_name():
                  "read_paragraph_vectors", "write_paragraph_vectors"):
         assert name in jnlp.__all__ and name in tnlp.__all__
         assert callable(getattr(tnlp, name))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tnlp.Word2Vec(device="cpu", mesh=object())
+    mesh = object()
+    assert tnlp.Word2Vec(device="cpu", mesh=mesh).mesh is mesh
+    assert jnlp.Word2Vec(mesh=mesh).mesh is mesh
     with pytest.raises(AttributeError):
         tnlp.NoSuchThing
