@@ -655,6 +655,49 @@ Phases (each fails the run with a nonzero exit if it fails):
                largest |value| + 1e-3 |dense|), ms per call beside the
                dense op's.
 
+55. supervised-resnet50 -- ResNet-50 as bench.py trains it (bf16 compute,
+               Nesterovs with fused_update, bf16 state), batch 32, a
+               shuffled seeded iterator of 6 batches, 2 epochs, under
+               TrainingSupervisor(save_every_n_iterations=2): a train/step
+               crash at dispatch 5 and a train/wedge hang (watchdog 3 s)
+               each heal by checkpoint-restart with losses, parameters, BN
+               statistics and momentum bitwise an unsupervised fit's and
+               one fused_update launch per dispatched step (replays
+               included); a preempt fault's real SIGTERM gives a
+               "preempted" result and a second fit(resume="auto") finishes
+               bitwise; the step medians of the plain fit, the plain fit
+               with a CheckpointListener at the same cadence and the
+               supervised fit, in turns; the checkpoint's bytes, snapshot
+               ms and commit seconds.
+56. supervised-elastic -- ResNet-50 on 4 replicas of one card (ZeRO-1,
+               batch 64): a device/loss of replica 2 at dispatch 3 shrinks
+               to 3 replicas in memory, bitwise a fresh 3-replica wrapper
+               resumed from the same state and cursor; a loss at dispatch 1
+               shrinks and the grow-back probe rejoins the slot; LeNet's
+               flipped bit on replica 2 quarantined (the check names it).
+57. supervised-pipeline -- phase 49's stack under the supervisor: a
+               pipeline/stage loss of stage 1 at dispatch 2 remaps 4 -> 3
+               stages with no microbatch lost, the losses after it bitwise
+               a fresh 3-stage run's from the cursor, 192 bf16 flash
+               launches a step; a 2-stage pipeline's loss is refused by the
+               remap gate and healed by checkpoint-restart, bitwise.
+58. process-group -- supervise_processes launches 2 ranks of this script
+               (--group-worker) on the card over gloo; each rank runs
+               distributed.initialize and SharedTrainingMaster with
+               ResNet-50, batch 32 a rank, 8 steps, a group commit every 3;
+               rank 1 exits at step 5 in attempt 0, the group is reaped and
+               relaunched from the step-3 commit, and both ranks' final
+               parameters are bitwise an uninterrupted 2-rank run's, with
+               one fused_update launch a rank a step; a barrier names the
+               missing rank with its heartbeat staleness; a dead
+               coordinator fails inside its 3 s deadline with the whole
+               diagnosis; no process of the run survives (a sweep of the
+               process table for the run's token). Prints rank 0's steady
+               step time (no commit in it) and the exchange's share of it
+               (staging, the wait for the peer, the all_gather; the drain
+               of the rank's queued work apart), the steps with a group
+               commit and the first step.
+
 Then it prints the kernels line (one JSON object) and, last, the device line
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
 beside it, it exits nonzero and prints no result. Weights are random, made
@@ -11189,6 +11232,837 @@ def phase_ring_attention(smi: str, dev) -> dict:
     return out
 
 
+# --- phases 55-58: the supervisor and the process group -------------------------
+
+SV_BATCH = 32                 # bench.py's resnet50 batch per card
+SV_BATCHES = 6                # an epoch
+SV_EPOCHS = 2
+SV_EVERY = 2                  # checkpoint cadence, iterations
+SV_CRASH_AT = 5               # dispatch ordinals of the drills
+SV_WEDGE_AT = 7
+SV_PREEMPT_AT = 7
+SV_HANG_S = 3.0               # the watchdog's deadline (a step is ~0.1 s)
+SV_GRACE_S = 60.0             # before an attempt's first step
+EL_BATCHES = 6                # phase 56: one epoch of batch 64
+EL_LOSS_AT = 3
+EL_GROW_LOSS_AT = 1
+PR_STEPS = 5                  # phase 57
+PR_LOSS_AT = 2
+PR_REFUSED_STEPS = 3
+PR_REFUSED_AT = 1
+PG_WORLD = 2                  # phase 58
+PG_BATCH = 32                 # per rank
+PG_STEPS = 8
+PG_EVERY = 3
+PG_CRASH_ORDINAL = 4          # rank 1 leaves at step 5's dispatch
+
+
+def _sv_arrays(n: int, seed: int, classes: int = 1000):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, 3, IMAGE, IMAGE).astype(np.float32)
+    y = np.eye(classes, dtype=np.float32)[rng.randint(0, classes, n)]
+    return x, y
+
+
+def _tree_clone(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_clone(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    return tree
+
+
+def _step_ms(clock, t0) -> list:
+    ends = [t0] + clock.t
+    return [(b - a) * 1e3 for a, b in zip(ends, ends[1:])]
+
+
+class _Count:
+    """Counts every step it hears of, replays included (no state_dict, so
+    no checkpoint rewinds it)."""
+
+    def __init__(self):
+        self.n = 0
+
+    def iteration_done(self, model, iteration, score):
+        self.n += 1
+
+
+def _sv_drill(dev, make, tmp: str, plan, **opts) -> dict:
+    """One supervised ResNet-50 fit of ``make``'s batches under ``plan``."""
+    from deeplearning4j_tpu_torch.common import faultinject
+    from deeplearning4j_tpu_torch.common.profiler import OpProfiler
+    from deeplearning4j_tpu_torch.ops import update
+    from deeplearning4j_tpu_torch.optimize import (
+        CollectScoresIterationListener)
+    from deeplearning4j_tpu_torch.parallel import TrainingSupervisor
+
+    torch.cuda.empty_cache()
+    model = train_model(dev, True, "bfloat16", "bfloat16")
+    scores, count = CollectScoresIterationListener(), _Count()
+    model.set_listeners(scores, count)
+    prof = OpProfiler.get()
+    prof.reset()
+    update.reset_launches()
+    faultinject.set_plan(faultinject.FaultPlan(plan) if plan else None)
+    try:
+        sup = TrainingSupervisor(model, tmp, save_every_n_iterations=SV_EVERY,
+                                 backoff_base_s=0.05, **opts)
+        res = sup.fit(make, epochs=SV_EPOCHS, resume="never")
+    finally:
+        faultinject.clear_plan()
+    torch.cuda.synchronize()
+    return {"model": model, "sup": sup, "res": res,
+            "losses": [s for _, s in scores.scores], "steps": count.n,
+            "launches": update.fused_update_launches,
+            "stats": prof.supervisor_stats()}
+
+
+def _same_model(a, b) -> bool:
+    return (_same_bits(a._params, b._params)
+            and _same_bits(a._states, b._states)
+            and _same_bits(a._updater_state["v"], b._updater_state["v"]))
+
+
+def phase_supervised_resnet50(smi: str, dev) -> dict:
+    """Phase 55: ResNet-50 under TrainingSupervisor (see the module
+    docstring)."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.data import NDArrayDataSetIterator
+    from deeplearning4j_tpu_torch.optimize import (
+        CheckpointListener, CollectScoresIterationListener)
+    from deeplearning4j_tpu_torch.parallel import TrainingSupervisor
+
+    t_phase = time.perf_counter()
+    x, y = _sv_arrays(SV_BATCH * SV_BATCHES, SEED + 55)
+
+    def make():
+        return NDArrayDataSetIterator(x, y, batch_size=SV_BATCH,
+                                      shuffle=True, seed=SEED + 55)
+
+    steps = SV_EPOCHS * SV_BATCHES
+    out = {"batch": SV_BATCH, "steps": steps, "every": SV_EVERY}
+    with _Deterministic():
+        base = train_model(dev, True, "bfloat16", "bfloat16")
+        scores = CollectScoresIterationListener()
+        base.set_listeners(scores)
+        base.fit(make(), epochs=SV_EPOCHS)
+        want = [s for _, s in scores.scores]
+        check(len(want) == steps and all(np.isfinite(want)),
+              f"unsupervised losses {want}")
+        drills = {
+            "crash": ([{"site": "train/step", "index": SV_CRASH_AT,
+                        "kind": "crash"}], {}),
+            "wedge": ([{"site": "train/wedge", "index": SV_WEDGE_AT,
+                        "kind": "wedge"}],
+                      {"hang_deadline_s": SV_HANG_S,
+                       "hang_startup_grace_s": SV_GRACE_S}),
+        }
+        for name, (plan, opts) in drills.items():
+            with tempfile.TemporaryDirectory(prefix="dl4j_sv_") as tmp:
+                r = _sv_drill(dev, make, tmp, plan, **opts)
+            res, st = r["res"], r["stats"]
+            want_class = "device_failure" if name == "crash" else "hang"
+            check(res.status == "completed" and res.restarts == 1
+                  and [h["class"] for h in res.history] == [want_class],
+                  f"{name} drill: {res} history {res.history}")
+            check(r["losses"] == want, f"{name} drill: healed losses "
+                  f"{r['losses']} differ from the unsupervised {want}")
+            check(_same_model(r["model"], base), f"{name} drill: final "
+                  "parameters, BN statistics or momentum not bitwise the "
+                  "unsupervised fit's")
+            check(r["launches"] == r["steps"] > steps,
+                  f"{name} drill: fused_update launched {r['launches']} "
+                  f"times for {r['steps']} dispatched steps (want one a "
+                  f"step, replays included)")
+            check(st.get("restarts") == 1 and st.get("attempts") == 2
+                  and (name != "wedge" or st.get("watchdog_fires") == 1),
+                  f"{name} drill: supervisor ledger {st}")
+            out[name] = {"steps_dispatched": r["steps"],
+                         "launches": r["launches"], "ledger": st,
+                         "history": res.history}
+            log(f"[supervised-resnet50] {name} drill at dispatch "
+                f"{plan[0]['index']}: {want_class} -> restart from the "
+                f"last checkpoint; {r['steps']} steps dispatched ({steps} "
+                f"+ {r['steps'] - steps} replayed), fused_update launches "
+                f"{r['launches']}; losses, parameters, BN statistics and "
+                f"momentum bitwise the unsupervised fit's; ledger {st}; "
+                f"{smi}")
+            del r
+        # preemption: a real SIGTERM, a resumable result, a second fit
+        with tempfile.TemporaryDirectory(prefix="dl4j_sv_") as tmp:
+            r = _sv_drill(dev, make, tmp, [{"site": "train/step",
+                                             "index": SV_PREEMPT_AT,
+                                             "kind": "preempt"}])
+            res = r["res"]
+            check(res.status == "preempted" and res.resumable
+                  and res.restarts == 0
+                  and os.path.basename(res.resume_from or "").startswith(
+                      "checkpoint_preempt_"),
+                  f"preempt drill: {res} history {res.history}")
+            first = r["losses"]
+            del r
+            torch.cuda.empty_cache()
+            model = train_model(dev, True, "bfloat16", "bfloat16")
+            scores2 = CollectScoresIterationListener()
+            model.set_listeners(scores2)
+            res2 = TrainingSupervisor(model, tmp,
+                                      save_every_n_iterations=SV_EVERY,
+                                      backoff_base_s=0.05).fit(
+                make, epochs=SV_EPOCHS, resume="auto")
+            torch.cuda.synchronize()
+            got = [s for _, s in scores2.scores]
+            check(res2.status == "completed" and got == want
+                  and _same_model(model, base),
+                  f"preempt drill: the resumed fit ({res2}) is not bitwise "
+                  f"the unsupervised fit: {got} vs {want}")
+            out["preempt"] = {"preempted_after": len(first),
+                              "resume_from": os.path.basename(
+                                  res.resume_from)}
+            log(f"[supervised-resnet50] preempt drill: SIGTERM at dispatch "
+                f"{SV_PREEMPT_AT}, preempted after {len(first)} steps with "
+                f"{os.path.basename(res.resume_from)}; a second fit "
+                f"(resume='auto') finished bitwise the unsupervised fit; "
+                f"{smi}")
+            del model
+        # the supervised and the plain fit's steps, in turns, and the plain
+        # fit with the same checkpoint cadence (what the supervisor adds
+        # beyond its checkpoints)
+        ms = {"plain": [], "checkpointed": [], "supervised": []}
+        ck = {}
+        for turn in ("plain", "checkpointed", "supervised", "supervised",
+                     "checkpointed", "plain"):
+            torch.cuda.empty_cache()
+            model = train_model(dev, True, "bfloat16", "bfloat16")
+            clock = _StepClock(dev)
+            model.set_listeners(clock)
+            with tempfile.TemporaryDirectory(prefix="dl4j_sv_") as tmp:
+                t0 = time.perf_counter()
+                if turn == "plain":
+                    model.fit(make(), epochs=SV_EPOCHS)
+                elif turn == "checkpointed":
+                    cl = CheckpointListener(
+                        tmp, save_every_n_iterations=SV_EVERY)
+                    model.set_listeners(cl, clock)
+                    model.fit(make(), epochs=SV_EPOCHS)
+                    cl.close()
+                else:
+                    sup = TrainingSupervisor(
+                        model, tmp, save_every_n_iterations=SV_EVERY)
+                    sup.fit(make, epochs=SV_EPOCHS, resume="never")
+                    cl = sup.checkpoint_listener
+                    last = cl.saved[-1]
+                    ck = {"bytes": os.path.getsize(last),
+                          "commit_s": list(cl.commit_seconds),
+                          "snapshot_ms": list(cl.snapshot_ms)}
+            ms[turn] += _step_ms(clock, t0)[1:]
+            del model
+        out["step_ms_median"] = {k: statistics.median(v)
+                                 for k, v in ms.items()}
+        out["checkpoint"] = ck
+        log(f"[supervised-resnet50] steps 2-{steps} of two fits each, in "
+            f"turns (plain, checkpointed, supervised, supervised, "
+            f"checkpointed, plain): median "
+            f"{out['step_ms_median']['plain']:.2f} ms plain, "
+            f"{out['step_ms_median']['checkpointed']:.2f} ms with a "
+            f"CheckpointListener alone, "
+            f"{out['step_ms_median']['supervised']:.2f} ms supervised "
+            f"(a checkpoint every {SV_EVERY} steps: "
+            f"{ck['bytes']} B, commit s median "
+            f"{statistics.median(ck['commit_s']):.3f}, snapshot ms median "
+            f"{statistics.median(ck['snapshot_ms']):.2f}); {smi}")
+    del base
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def phase_supervised_elastic(smi: str, dev) -> dict:
+    """Phase 56: ResNet-50 through four replicas on the card under the
+    supervisor: shrink on a lost replica, bitwise a fresh 3-replica resume;
+    the grow-back; LeNet's flipped bit quarantined."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.common import faultinject, flightrec
+    from deeplearning4j_tpu_torch.common import integrity
+    from deeplearning4j_tpu_torch.data import NDArrayDataSetIterator
+    from deeplearning4j_tpu_torch.ops import update
+    from deeplearning4j_tpu_torch.parallel import (ReduceScatterAccumulator,
+                                                   TrainingSupervisor)
+
+    t_phase = time.perf_counter()
+    x, y = _sv_arrays(PW_BATCH * EL_BATCHES, SEED + 56)
+
+    def make():
+        return NDArrayDataSetIterator(x, y, batch_size=PW_BATCH)
+
+    def loss_plan(at):
+        return faultinject.FaultPlan([{"site": "device/loss", "index": at,
+                                       "kind": "device_loss",
+                                       "replica": 2}])
+
+    out = {"workers": PW_WORKERS, "batch": PW_BATCH, "steps": EL_BATCHES}
+    with _Deterministic(), tempfile.TemporaryDirectory(
+            prefix="dl4j_el_") as tmp:
+        # (a) the supervised shrink
+        torch.cuda.empty_cache()
+        m1 = train_model(dev, True, "bfloat16", None)
+        pw1 = pw_wrapper(m1, dev, ReduceScatterAccumulator())
+        count = _Losses()
+        pw1.set_listeners(count)
+        update.reset_launches()
+        faultinject.set_plan(loss_plan(EL_LOSS_AT))
+        try:
+            res = TrainingSupervisor(pw1, os.path.join(tmp, "a"),
+                                     elastic_grow=False).fit(make, epochs=1)
+        finally:
+            faultinject.clear_plan()
+        torch.cuda.synchronize()
+        launches = update.fused_update_launches
+        want_l = (PW_WORKERS * EL_LOSS_AT
+                  + (PW_WORKERS - 1) * (EL_BATCHES - EL_LOSS_AT))
+        check(res.status == "completed" and res.restarts == 0
+              and [h["policy"] for h in res.history]
+              == ["shrink_and_continue"] and pw1.workers_count == 3,
+              f"supervised shrink: {res} {res.history}, workers "
+              f"{pw1.workers_count}")
+        check(len(count.losses) == EL_BATCHES
+              and all(np.isfinite(count.losses)) and launches == want_l,
+              f"supervised shrink: losses {count.losses}, fused_update "
+              f"launches {launches} (want {want_l}: one per replica per "
+              f"step)")
+        pw1.shutdown()
+        del pw1
+        # (b) by hand to the same boundary, then a fresh 3-replica wrapper
+        m2 = train_model(dev, True, "bfloat16", None)
+        pw2 = pw_wrapper(m2, dev, ReduceScatterAccumulator())
+        faultinject.set_plan(loss_plan(EL_LOSS_AT))
+        try:
+            pw2.fit(make(), epochs=1)
+            check(False, "the device loss did not fire")
+        except faultinject.DeviceLostError:
+            pass
+        finally:
+            faultinject.clear_plan()
+        cursor = (m2._epoch - m2._fit_epoch0, m2._steps_in_epoch)
+        pw2.shutdown()
+        snap = (_tree_clone(m2._params), _tree_clone(m2._states),
+                _tree_clone(m2._updater_state), m2._iteration, m2._epoch,
+                m2.generator().get_state())
+        del pw2, m2
+        torch.cuda.empty_cache()
+        m3 = train_model(dev, True, "bfloat16", None)
+        (m3._params, m3._states, m3._updater_state, m3._iteration,
+         m3._epoch, gen) = snap
+        m3.generator().set_state(gen)
+        pw3 = pw_wrapper(m3, dev, ReduceScatterAccumulator(), workers=3)
+        pw3.fit(make(), epochs=1, resume_cursor=cursor)
+        torch.cuda.synchronize()
+        check(_same_bits(m1._params, m3._params)
+              and _same_bits(m1._states, m3._states),
+              "the shrunk run differs from a fresh 3-replica run resumed "
+              "from the same state and cursor")
+        out["shrink"] = {"cursor": list(cursor), "launches": launches,
+                         "history": res.history, "bitwise": True}
+        log(f"[supervised-elastic] ResNet-50, {PW_WORKERS} replicas on one "
+            f"card, batch {PW_BATCH}, ZeRO-1: device/loss of replica 2 at "
+            f"dispatch {EL_LOSS_AT} -> shrink_and_continue to 3 replicas in "
+            f"memory from cursor {cursor}, no restart; the {EL_BATCHES - EL_LOSS_AT} "
+            f"steps after it bitwise a fresh 3-replica wrapper resumed from "
+            f"the same state; fused_update launches {launches}; {smi}")
+        pw3.shutdown()
+        del pw3, m3, m1, snap
+        torch.cuda.empty_cache()
+        # (c) the grow-back
+        m4 = train_model(dev, True, "bfloat16", None)
+        pw4 = pw_wrapper(m4, dev, ReduceScatterAccumulator())
+        count = _Count()
+        pw4.set_listeners(count)
+        faultinject.set_plan(loss_plan(EL_GROW_LOSS_AT))
+        try:
+            res = TrainingSupervisor(pw4, os.path.join(tmp, "c"),
+                                     elastic_grow=True,
+                                     grow_probe_base_s=0.0,
+                                     poll_s=0.01).fit(make, epochs=1)
+        finally:
+            faultinject.clear_plan()
+        pols = [h["policy"] for h in res.history]
+        check(res.status == "completed" and res.restarts == 0
+              and pols[0] == "shrink_and_continue"
+              and "grow_and_continue" in pols
+              and pw4.workers_count == PW_WORKERS and count.n == EL_BATCHES,
+              f"grow-back: {res} policies {pols}, workers "
+              f"{pw4.workers_count}, steps {count.n}")
+        out["grow_back"] = {"policies": pols, "steps": count.n}
+        log(f"[supervised-elastic] grow-back: device/loss at dispatch "
+            f"{EL_GROW_LOSS_AT}, shrunk to 3, the probe found the slot "
+            f"healthy and the wrapper grew back to {PW_WORKERS} at the next "
+            f"boundary; {count.n} steps, none lost or doubled; {smi}")
+        pw4.shutdown()
+        del pw4, m4
+        torch.cuda.empty_cache()
+        # (d) LeNet: a flipped bit quarantined
+        model = lenet_pw_model(dev)
+        pw = pw_wrapper(model, dev)
+        lst = integrity.IntegrityListener(check_every=1)
+        pw.set_listeners(lst)
+        faultinject.set_plan(faultinject.FaultPlan(
+            [{"site": "integrity/fingerprint", "index": 5,
+              "kind": "bitflip", "replica": 2, "bit": 12, "offset": 7}]))
+        try:
+            res = TrainingSupervisor(pw, os.path.join(tmp, "d"),
+                                     elastic_grow=False).fit(
+                lambda: lenet_pw_data(LENET_PW_STEPS), epochs=2)
+        finally:
+            faultinject.clear_plan()
+        q = flightrec.events("integrity/quarantine")
+        check(res.status == "completed" and res.restarts == 0
+              and [(h["class"], h["policy"]) for h in res.history]
+              == [("silent_corruption", "quarantine_and_continue")]
+              and pw.workers_count == 3 and q
+              and q[-1]["attrs"]["replica"] == 2
+              and lst.divergences and lst.divergences[0]["replica"] == 2,
+              f"quarantine drill: {res} {res.history}, workers "
+              f"{pw.workers_count}, divergences {lst.divergences}")
+        out["quarantine"] = {"replica": 2, "history": res.history}
+        log(f"[supervised-elastic] LeNet, 4 replicas: bit 12 of replica 2 "
+            f"flipped before iteration 6; the check named replica "
+            f"{lst.divergences[0]['replica']}; quarantine_and_continue on 3 "
+            f"replicas, no restart; {smi}")
+        pw.shutdown()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def phase_supervised_pipeline(smi: str, dev) -> dict:
+    """Phase 57: phase 49's stack under the supervisor: a lost stage
+    remapped (4 -> 3) bitwise a fresh 3-stage run; a 2-stage pipeline's
+    loss refused by the gate and healed by checkpoint-restart."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.common import faultinject
+    from deeplearning4j_tpu_torch.common.profiler import OpProfiler
+    from deeplearning4j_tpu_torch.data import NDArrayDataSetIterator
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import attention
+    from deeplearning4j_tpu_torch.parallel import (PipelineTrainer,
+                                                   TrainingSupervisor)
+
+    t_phase = time.perf_counter()
+    hidden, heads = BERT["hidden"], BERT["heads"]
+    conf = attention_stack_conf(PP_BLOCKS, hidden, heads, SEQ_LEN,
+                                Adam(PP_LR), "bfloat16")
+    rng = np.random.RandomState(SEED + 57)
+    n = PR_STEPS * PP_BATCH
+    x = rng.randn(n, SEQ_LEN, hidden).astype(np.float32)
+    y = (rng.randn(n, SEQ_LEN, hidden) * 0.5).astype(np.float32)
+
+    def make(steps=PR_STEPS):
+        k = steps * PP_BATCH
+        return NDArrayDataSetIterator(x[:k], y[:k], batch_size=PP_BATCH)
+
+    def stage_loss(at):
+        return faultinject.FaultPlan([{"site": "pipeline/stage",
+                                       "index": at, "kind": "device_loss",
+                                       "stage": 1}])
+
+    per_step = PP_BLOCKS * PP_MICRO * 2
+    prof = OpProfiler.get()
+    out = {"stages": PP_STAGES, "micro": PP_MICRO, "steps": PR_STEPS}
+    with _Deterministic(), tempfile.TemporaryDirectory(
+            prefix="dl4j_pr_") as tmp:
+        # (a) the supervised remap
+        model = MultiLayerNetwork(conf).init(seed=SEED, device=dev)
+        tr = PipelineTrainer(model, PP_STAGES, PP_MICRO,
+                             devices=[CARD] * PP_STAGES)
+        clock = _PipeClock()
+        tr.set_listeners(clock)
+        prof.reset()
+        _reset_kernel_counts()
+        faultinject.set_plan(stage_loss(PR_LOSS_AT))
+        try:
+            res = TrainingSupervisor(tr, os.path.join(tmp, "a"),
+                                     elastic_grow=False).fit(make, epochs=1)
+        finally:
+            faultinject.clear_plan()
+        torch.cuda.synchronize()
+        launches = attention.flash_attention_launches
+        bf16 = prof.counter_value("attention/flash_bf16")
+        micro = prof.counter_value("pipeline/microbatches")
+        check(res.status == "completed" and res.restarts == 0
+              and [h["policy"] for h in res.history]
+              == ["remap_and_continue"] and tr.stages_count == 3,
+              f"supervised remap: {res} {res.history}, stages "
+              f"{tr.stages_count}")
+        check(len(clock.losses) == PR_STEPS and micro == PR_STEPS * PP_MICRO,
+              f"microbatches lost: {len(clock.losses)} steps, {micro} "
+              f"microbatches (want {PR_STEPS} and {PR_STEPS * PP_MICRO})")
+        check(launches == bf16 == per_step * PR_STEPS,
+              f"flash launches {launches} (bf16 route {bf16}), want "
+              f"{per_step} a step")
+        # (b) by hand to the same boundary, then a fresh 3-stage run
+        ref = MultiLayerNetwork(conf).init(seed=SEED, device=dev)
+        rtr = PipelineTrainer(ref, PP_STAGES, PP_MICRO,
+                              devices=[CARD] * PP_STAGES)
+        faultinject.set_plan(stage_loss(PR_LOSS_AT))
+        try:
+            rtr.fit(make(), epochs=1)
+            check(False, "the stage loss did not fire")
+        except faultinject.DeviceLostError:
+            pass
+        finally:
+            faultinject.clear_plan()
+        cursor = (ref._epoch - ref._fit_epoch0, ref._steps_in_epoch)
+        fresh = MultiLayerNetwork(conf).init(seed=SEED, device=dev)
+        fresh._params = _tree_clone(ref._params)
+        fresh._updater_state = _tree_clone(ref._updater_state)
+        fresh._iteration, fresh._epoch = ref._iteration, ref._epoch
+        rtr.shutdown()
+        del rtr, ref
+        tr3 = PipelineTrainer(fresh, PP_STAGES - 1, PP_MICRO,
+                              devices=[CARD] * (PP_STAGES - 1))
+        c3 = _PipeClock()
+        tr3.set_listeners(c3)
+        tr3.fit(make(), epochs=1, resume_cursor=cursor)
+        torch.cuda.synchronize()
+        check(clock.losses[PR_LOSS_AT:] == c3.losses
+              and _same_bits(model._params, fresh._params),
+              f"the remapped run's losses {clock.losses[PR_LOSS_AT:]} are "
+              f"not bitwise a fresh 3-stage run's {c3.losses}")
+        out["remap"] = {"cursor": list(cursor), "losses": clock.losses,
+                        "flash_launches": launches,
+                        "flash_launches_per_step": launches / PR_STEPS,
+                        "step_ms": clock.ms, "history": res.history}
+        log(f"[supervised-pipeline] {PP_BLOCKS} x SelfAttentionLayer("
+            f"{hidden}, {heads} heads), T {SEQ_LEN}, batch {PP_BATCH}, bf16, "
+            f"{PP_STAGES} stages x {PP_MICRO} microbatches on one card: "
+            f"pipeline/stage loss of stage 1 at dispatch {PR_LOSS_AT} -> "
+            f"remap_and_continue to 3 stages, no restart, {micro} "
+            f"microbatches in {PR_STEPS} steps (none lost); the losses after "
+            f"the remap bitwise a fresh 3-stage run's from cursor {cursor}; "
+            f"bf16 flash launches {launches} ({launches / PR_STEPS:g} a "
+            f"step); {smi}")
+        tr.shutdown()
+        tr3.shutdown()
+        del tr, tr3, model, fresh
+        torch.cuda.empty_cache()
+        # (c) the refused remap: 2 stages, one lost
+        model = MultiLayerNetwork(conf).init(seed=SEED, device=dev)
+        tr = PipelineTrainer(model, 2, PP_MICRO, devices=[CARD] * 2)
+        clock = _PipeClock()
+        tr.set_listeners(clock)
+        faultinject.set_plan(stage_loss(PR_REFUSED_AT))
+        try:
+            res = TrainingSupervisor(tr, os.path.join(tmp, "c"),
+                                     backoff_base_s=0.05,
+                                     elastic_grow=False).fit(
+                lambda: make(PR_REFUSED_STEPS), epochs=1)
+        finally:
+            faultinject.clear_plan()
+        ref = MultiLayerNetwork(conf).init(seed=SEED, device=dev)
+        rtr = PipelineTrainer(ref, 2, PP_MICRO, devices=[CARD] * 2)
+        rc = _PipeClock()
+        rtr.set_listeners(rc)
+        rtr.fit(make(PR_REFUSED_STEPS), epochs=1)
+        torch.cuda.synchronize()
+        check(res.status == "completed" and res.restarts == 1
+              and [h["policy"] for h in res.history] == ["restart"]
+              and tr.stages_count == 2
+              and clock.losses[-PR_REFUSED_STEPS:] == rc.losses
+              and _same_bits(model._params, ref._params),
+              f"refused remap: {res} {res.history}, stages "
+              f"{tr.stages_count}, losses {clock.losses} vs {rc.losses}")
+        out["refused"] = {"history": res.history}
+        log(f"[supervised-pipeline] 2 stages, stage 1 lost at dispatch "
+            f"{PR_REFUSED_AT}: one survivor is below the remap gate -> "
+            f"checkpoint-restart from the anchor; healed bitwise the "
+            f"uninterrupted 2-stage run; {smi}")
+        tr.shutdown()
+        rtr.shutdown()
+        del tr, rtr, model, ref
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def _params_sha(model) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(model._params):
+        for n in sorted(model._params[k]):
+            t = model._params[k][n].detach().contiguous()
+            h.update(t.view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+class _GatherClock:
+    """Each step's milliseconds in the process group's exchange, by part
+    (the route's running totals at each step's end; the wrapper is the
+    model's ``_parallel``): ``drain`` (the card finishing this rank's
+    queued forward and backward), ``stage`` (gloo's copies through host
+    memory), ``wait`` (a one-element all_gather: the wait for the peer),
+    ``transport`` (the payload's all_gather)."""
+
+    PARTS = ("drain", "stage", "wait", "transport")
+
+    def __init__(self):
+        self.totals = [dict.fromkeys(self.PARTS, 0.0)]
+
+    def iteration_done(self, model, iteration, score):
+        route = model._parallel._route
+        self.totals.append({p: getattr(route, p + "_seconds")
+                            for p in self.PARTS})
+
+    def step_ms(self) -> dict:
+        return {p: [(b[p] - a[p]) * 1e3
+                    for a, b in zip(self.totals, self.totals[1:])]
+                for p in self.PARTS}
+
+
+def group_worker(argv) -> int:
+    """One rank of phase 58 (``chip_smoke.py --group-worker <run dir>
+    <rank> <token>``): ResNet-50 through SharedTrainingMaster over the
+    process group the environment names, a group checkpoint every
+    ``PG_EVERY`` steps; the result goes to ``<run dir>/result-a<attempt>-
+    r<rank>.json``."""
+    run_dir, rank = argv[0], int(argv[1])
+    os.environ["DL4J_TPU_PROC_ID"] = str(rank)
+    if not torch.cuda.is_available():
+        print(f"group worker {rank}: no CUDA card", file=sys.stderr)
+        return 3
+    from deeplearning4j_tpu_torch.common import faultinject
+    from deeplearning4j_tpu_torch.data import NDArrayDataSetIterator
+    from deeplearning4j_tpu_torch.ops import update
+    from deeplearning4j_tpu_torch.parallel import (SharedTrainingMaster,
+                                                   distributed)
+
+    attempt = int(os.environ.get("DL4J_ATTEMPT", "0"))
+    rt = distributed.initialize(init_deadline_s=60.0)
+    dev = rt.device
+    if dev.type != "cuda":
+        print(f"group worker {rank}: formed on {dev}", file=sys.stderr)
+        return 3
+    plan = os.environ.get("DL4J_SMOKE_FAULT_PLAN")
+    if plan and os.environ.get("DL4J_SMOKE_FAULT_RANK") == str(rank):
+        faultinject.set_plan(faultinject.FaultPlan.from_json(plan))
+    x, y = _sv_arrays(PG_STEPS * PG_BATCH, SEED + 58 + rank)
+    with _Deterministic():
+        model = train_model(dev, True, "bfloat16", "bfloat16")
+        clock = _StepClock(dev)
+        gathers = _GatherClock()
+        model.set_listeners(clock, gathers)
+        update.reset_launches()
+        master = (SharedTrainingMaster.Builder(PG_BATCH)
+                  .checkpoint(os.environ["DL4J_SMOKE_CKPT"], PG_EVERY)
+                  .build())
+        t0 = time.perf_counter()
+        master.fit(model, NDArrayDataSetIterator(x, y, batch_size=PG_BATCH),
+                   epochs=1)
+        torch.cuda.synchronize()
+    route = master.wrapper._route
+    res = {"rank": rank, "attempt": attempt, "device": str(dev),
+           "kind": torch.cuda.get_device_name(dev), "backend": rt.backend,
+           "world": rt.world, "status": master.last_result.status,
+           "iteration": int(model._iteration), "steps": len(clock.t),
+           "launches": update.fused_update_launches,
+           "step_ms": _step_ms(clock, t0), "gather_s": route.seconds,
+           "gather_ms": gathers.step_ms(), "gather_calls": route.calls,
+           "params_sha": _params_sha(model)}
+    with open(os.path.join(run_dir, f"result-a{attempt}-r{rank}.json"),
+              "w") as f:
+        json.dump(res, f)
+    distributed.shutdown()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _orphans(token: str) -> list:
+    """Processes whose command line holds ``token`` (this one aside)."""
+    found = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit() or int(pid) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                if token.encode() in f.read():
+                    found.append(int(pid))
+        except OSError:
+            continue
+    return found
+
+
+def phase_process_group(smi: str, dev) -> dict:
+    """Phase 58: two ranks on the card over gloo under supervise_processes
+    (see the module docstring)."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.parallel import cluster
+    from deeplearning4j_tpu_torch.parallel.distributed import (
+        supervise_processes)
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    token = f"dl4j-pg-{os.getpid()}-{time.time_ns()}"
+    script = os.path.abspath(__file__)
+    out = {"world": PG_WORLD, "batch_per_rank": PG_BATCH,
+           "steps": PG_STEPS, "every": PG_EVERY}
+    with tempfile.TemporaryDirectory(prefix="dl4j_pg_") as tmp:
+        def run(name, fault):
+            run_dir = os.path.join(tmp, name)
+            os.makedirs(run_dir)
+
+            def make_env(attempt):
+                e = {"DL4J_TPU_COORDINATOR": f"127.0.0.1:{_free_port()}",
+                     "DL4J_TPU_NUM_PROCS": str(PG_WORLD),
+                     "DL4J_TPU_CLUSTER_DIR": os.path.join(run_dir, "cd"),
+                     "DL4J_TPU_COLLECTIVE_TIMEOUT_S": "120",
+                     "DL4J_ATTEMPT": str(attempt),
+                     "DL4J_SMOKE_CKPT": os.path.join(run_dir, "ck")}
+                if fault and attempt == 0:
+                    e["DL4J_SMOKE_FAULT_RANK"] = "1"
+                    e["DL4J_SMOKE_FAULT_PLAN"] = json.dumps(
+                        [{"site": "train/step", "index": PG_CRASH_ORDINAL,
+                          "kind": "crash", "mode": "exit", "code": 1}])
+                return e
+
+            t0 = time.perf_counter()
+            summary = supervise_processes(
+                [[sys.executable, script, "--group-worker", run_dir, str(r),
+                  token] for r in range(PG_WORLD)],
+                make_env=make_env, max_restarts=2 if fault else 0,
+                backoff_base_s=1.0, kill_grace_s=10.0,
+                storm_min_uptime_s=0.0,
+                cluster_dir=os.path.join(run_dir, "cd"),
+                heartbeat_stale_s=120.0, timeout_s=400.0)
+            wall = time.perf_counter() - t0
+            last = summary["attempts"] - 1
+            results = []
+            for r in range(PG_WORLD):
+                path = os.path.join(run_dir, f"result-a{last}-r{r}.json")
+                check(os.path.exists(path), f"{name}: rank {r} left no "
+                      f"result (summary {summary})")
+                with open(path) as f:
+                    results.append(json.load(f))
+            return summary, results, wall, run_dir
+
+        base, bres, bwall, _ = run("uninterrupted", False)
+        check(base["status"] == "completed" and base["restarts"] == 0,
+              f"uninterrupted group: {base}")
+        sup, sres, swall, sdir = run("restarted", True)
+        check(sup["status"] == "completed" and sup["restarts"] == 1
+              and sup["history"][0]["failed_rank"] == 1
+              and sup["history"][0]["classes"][1] == "crash",
+              f"restarted group: {sup}")
+        for r, (b, s) in enumerate(zip(bres, sres)):
+            check(b["kind"] == s["kind"] and "cuda" in b["device"]
+                  and b["backend"] == s["backend"] == "gloo",
+                  f"rank {r}: {b['device']} {b['backend']}, {s['device']} "
+                  f"{s['backend']}")
+            check(b["status"] == s["status"] == "completed"
+                  and b["iteration"] == s["iteration"] == PG_STEPS,
+                  f"rank {r}: {b['status']} at {b['iteration']}, "
+                  f"{s['status']} at {s['iteration']}")
+            check(b["launches"] == b["steps"] == PG_STEPS
+                  and s["launches"] == s["steps"] == PG_STEPS - PG_EVERY,
+                  f"rank {r}: fused_update launches {b['launches']} in "
+                  f"{b['steps']} steps, after the restart {s['launches']} "
+                  f"in {s['steps']} (want one a step)")
+        shas = {r["params_sha"] for r in bres + sres}
+        check(len(shas) == 1, f"final parameters differ: {shas}")
+        # the barrier diagnosis over the finished group's heartbeats
+        rt0 = cluster.ClusterRuntime(os.path.join(sdir, "cd"), 0, PG_WORLD)
+        try:
+            rt0.barrier("drill", deadline_s=1.0)
+            check(False, "the barrier did not time out")
+        except cluster.BarrierTimeout as e:
+            check(e.missing == [1] and e.staleness.get(1) is not None
+                  and "rank 1: heartbeat" in str(e),
+                  f"barrier diagnosis: {e}")
+            barrier_msg = str(e)
+        # a dead coordinator: the whole diagnosis inside the deadline
+        cd2 = os.path.join(tmp, "dead")
+        port = _free_port()
+        rt1 = cluster.ClusterRuntime(cd2, 1, PG_WORLD,
+                                     coordinator=f"127.0.0.1:{port}",
+                                     init_deadline_s=3.0)
+        t0 = time.perf_counter()
+        try:
+            rt1.form()
+            check(False, "a dead coordinator formed a group")
+        except cluster.ClusterInitError as e:
+            dead_s = time.perf_counter() - t0
+            check(dead_s < 3.0 + 5.0 and f"127.0.0.1:{port}" in str(e)
+                  and "ranks that reported a heartbeat: [1]" in str(e),
+                  f"dead coordinator after {dead_s:.1f} s: {e}")
+            dead_msg = str(e)
+        finally:
+            rt1.shutdown()
+        orphans = _orphans(token)
+        check(not orphans, f"orphan processes of the run: {orphans}")
+    # steady steps: after the first (launch setup, the peers' start) and
+    # without a group commit (a synchronous snapshot and write, timed into
+    # the step after the commit's iteration: the clock hears of a step
+    # before the checkpoint listener)
+    steady = [i for i in range(1, PG_STEPS) if i % PG_EVERY]
+    ms = [bres[0]["step_ms"][i] for i in steady]
+    parts = {p: statistics.median(bres[0]["gather_ms"][p][i]
+                                  for i in steady)
+             for p in _GatherClock.PARTS}
+    # the exchange proper: the staging copies, the wait for the peer and
+    # the all_gather (the drain is this rank's own work finishing)
+    g_ms = [sum(bres[0]["gather_ms"][p][i]
+                for p in ("stage", "wait", "transport")) for i in steady]
+    gather_share = statistics.median(g_ms) / statistics.median(ms)
+    commit_ms = [bres[0]["step_ms"][i] for i in range(1, PG_STEPS)
+                 if not i % PG_EVERY]
+    out.update({
+        "uninterrupted": {"wall_s": bwall, "ranks": bres},
+        "restarted": {"wall_s": swall, "ranks": sres,
+                      "history": sup["history"]},
+        "params_bitwise": True, "step_ms_median": statistics.median(ms),
+        "gather_ms_median": statistics.median(g_ms),
+        "gather_parts_ms_median": parts,
+        "commit_step_ms": commit_ms, "first_step_ms": bres[0]["step_ms"][0],
+        "gather_share": gather_share, "barrier": barrier_msg,
+        "dead_coordinator": dead_msg, "dead_coordinator_s": dead_s,
+        "orphans": 0, "seconds": time.perf_counter() - t_phase})
+    log(f"[process-group] ResNet-50, {PG_WORLD} ranks on one card over "
+        f"gloo, batch {PG_BATCH} a rank, {PG_STEPS} steps, a group commit "
+        f"every {PG_EVERY}: uninterrupted {bwall:.1f} s; rank 1 exited at "
+        f"step {PG_CRASH_ORDINAL + 1}, the group was reaped and relaunched "
+        f"from the step-{PG_EVERY} commit ({swall:.1f} s); final parameters "
+        f"bitwise the uninterrupted group's on both ranks; fused_update one "
+        f"launch a rank a step; rank 0's steady steps (2-{PG_STEPS} "
+        f"without a commit) median {statistics.median(ms):.2f} ms, the "
+        f"exchange {statistics.median(g_ms):.2f} ms of it "
+        f"({gather_share:.3f}: staging {parts['stage']:.2f} ms, the wait "
+        f"for the peer {parts['wait']:.2f} ms, all_gather "
+        f"{parts['transport']:.2f} ms), and before it the drain of this "
+        f"rank's queued work {parts['drain']:.2f} ms; the steps with a "
+        f"group commit "
+        f"{', '.join(f'{v:.1f}' for v in commit_ms)} ms; the first "
+        f"{bres[0]['step_ms'][0]:.1f} ms; {smi}")
+    log(f"[process-group] barrier: {barrier_msg}")
+    log(f"[process-group] dead coordinator ({dead_s:.2f} s): {dead_msg}")
+    log(f"[process-group] no process of the run survived (token {token})")
+    return out
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
@@ -11303,6 +12177,14 @@ def main(argv=None) -> int:
         mp["ring_attention"] = phase_ring_attention(smi, dev)
         mp["seconds"] = time.perf_counter() - t_mp
         log(f"[model-parallel] phases 49-54 took {mp['seconds']:.1f} s")
+        torch.cuda.empty_cache()
+        t_sv = time.perf_counter()
+        heal = {"resnet50": phase_supervised_resnet50(smi, dev),
+                "elastic": phase_supervised_elastic(smi, dev),
+                "pipeline": phase_supervised_pipeline(smi, dev),
+                "process_group": phase_process_group(smi, dev)}
+        heal["seconds"] = time.perf_counter() - t_sv
+        log(f"[supervisor] phases 55-58 took {heal['seconds']:.1f} s")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -11390,7 +12272,18 @@ def main(argv=None) -> int:
             "dense": [v["variant"] for v in pw_r50["f32"]["variants_dense"]],
             "zero1": [v["variant"]
                       for v in pw_r50["f32"]["variants_zero1"]]},
-        "parallel_shard": pw_r50["shard_update"]})
+        "parallel_shard": pw_r50["shard_update"],
+        "launches_supervised": {
+            "resnet50_crash": heal["resnet50"]["crash"]["launches"],
+            "resnet50_wedge": heal["resnet50"]["wedge"]["launches"],
+            "resnet50_shrink_4_to_3":
+                heal["elastic"]["shrink"]["launches"],
+            "process_group_per_rank": [
+                r["launches"]
+                for r in heal["process_group"]["uninterrupted"]["ranks"]],
+            "process_group_after_restart_per_rank": [
+                r["launches"]
+                for r in heal["process_group"]["restarted"]["ranks"]]}})
     bp = bag_timing["path"]
     kernels.append({
         "name": "embedding_bag", "route": "cuda",
@@ -11462,6 +12355,10 @@ def main(argv=None) -> int:
             mp["pipeline"]["flash_launches_per_step"],
         "launches_pipeline_per_step_gpipe":
             mp["pipeline"]["flash_launches_per_step_gpipe"],
+        "launches_supervised_pipeline":
+            heal["pipeline"]["remap"]["flash_launches"],
+        "launches_supervised_pipeline_per_step":
+            heal["pipeline"]["remap"]["flash_launches_per_step"],
         **{name: {k: fa16[name][k] for k in keys}
            for name in ("path_contiguous", "long_strided",
                         "long_contiguous")}})
@@ -11532,7 +12429,8 @@ def main(argv=None) -> int:
                       "parallel_integrity": pw_int,
                       "serving_tier": sv, "fleet_sweep": fleet,
                       "fleet_lifecycle": fleet_life, "fault_sites": faults,
-                      "rl": rl_r, "model_parallel": mp},
+                      "rl": rl_r, "model_parallel": mp,
+                      "supervisor": heal},
                      default=str),
           flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -11543,4 +12441,6 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--group-worker"]:
+        sys.exit(group_worker(sys.argv[2:]))
     sys.exit(main())

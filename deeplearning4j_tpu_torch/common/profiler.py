@@ -259,7 +259,11 @@ class OpProfiler:
         return out
 
     def supervisor_stats(self) -> Dict[str, float]:
-        """The training supervisor's counters (not ported yet: empty)."""
+        """The training supervisor's ledger (``parallel/distributed``):
+        attempts, restarts, watchdog fires, preemptions, shrinks, remaps,
+        quarantines, storm trips and give-ups (the ``supervisor/*``
+        counters), plus the backoff's seconds; empty when no supervisor
+        ran."""
         out = self._with_prefix("supervisor/")
         self._sections_into(out, (("supervisor/backoff", "backoff_s"),))
         return out

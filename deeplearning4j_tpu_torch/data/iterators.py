@@ -1,7 +1,9 @@
 """DataSetIterator and the iterators the fit loops take, with MNIST.
 
 Counterpart of ``deeplearning4j_tpu/data/iterators.py:29-243``:
-``DataSetIterator`` (with ``set_pre_processor``), ``NDArrayDataSetIterator``,
+``DataSetIterator`` (with ``set_pre_processor`` and the supervised-restart
+protocol ``source_state`` / ``restore_source_state``),
+``NDArrayDataSetIterator``,
 ``ExistingDataSetIterator``, ``MultipleEpochsIterator`` and
 ``MnistDataSetIterator``.
 
@@ -56,6 +58,18 @@ class DataSetIterator:
             pre.pre_process(ds)
         return ds
 
+    # --- the supervised-restart protocol (parallel/distributed) ---------
+    # A source with state across epochs (the per-epoch shuffle) exposes it:
+    # the TrainingSupervisor takes source_state() when its fit begins and
+    # hands it back before every restarted attempt, so the checkpoint
+    # cursor's host replay sees the epochs and shuffles the failed attempt
+    # saw. A source that is the same every epoch needs neither.
+    def source_state(self) -> Optional[dict]:
+        return None
+
+    def restore_source_state(self, state: dict) -> None:
+        pass
+
 
 class NDArrayDataSetIterator(DataSetIterator):
     """(features, labels) arrays in minibatches; with ``shuffle`` a new
@@ -75,6 +89,14 @@ class NDArrayDataSetIterator(DataSetIterator):
 
     def batch(self) -> int:
         return self.batch_size
+
+    def source_state(self) -> dict:
+        # the shuffle of an epoch is RandomState(seed + epoch): rewinding
+        # the epoch is all a restarted attempt needs to replay it
+        return {"epoch": self._epoch}
+
+    def restore_source_state(self, state: dict) -> None:
+        self._epoch = int(state.get("epoch", 0))
 
     def __iter__(self):
         idx = np.arange(len(self.features))

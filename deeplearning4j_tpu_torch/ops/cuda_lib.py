@@ -7,17 +7,22 @@ for Hopper (``-gencode arch=compute_90a,code=sm_90a``) into
 when a module is imported, and nothing here runs for CPU tensors.
 
 A library is rebuilt when its source is newer than the built file. Builds of
-several sources run in parallel (one ``nvcc`` each, :func:`build`).
+several sources run in parallel (one ``nvcc`` each, :func:`build`). Every
+build and every check before a load holds ``_build/.lock`` (``flock``), so
+processes started together (the ranks of a process group) load what one of
+them built instead of compiling the same sources at once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
 import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
@@ -67,11 +72,28 @@ def _command(name: str, out: Path) -> List[str]:
             "-o", str(out), str(source_path(name))]
 
 
+@contextmanager
+def _build_lock():
+    """The build directory's lock, across processes."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(names: Iterable[str], force: bool = False) -> Dict[str, float]:
     """Compile the named sources, all at once (one ``nvcc`` each), and
     return each build's wall time in seconds (0.0 when up to date). Raises
     with the compiler's output when one fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    names = list(names)
+    with _build_lock():
+        return _build_locked(names, force)
+
+
+def _build_locked(names: List[str], force: bool) -> Dict[str, float]:
     running = {}
     for name in names:
         if not force and _up_to_date(name):
@@ -102,9 +124,10 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            if not _up_to_date(name):
-                build([name])
-            lib = ctypes.CDLL(str(library_path(name)))
+            with _build_lock():
+                if not _up_to_date(name):
+                    _build_locked([name], False)
+                lib = ctypes.CDLL(str(library_path(name)))
             _LIBS[name] = lib
         return lib
 

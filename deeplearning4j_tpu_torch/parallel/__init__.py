@@ -20,6 +20,16 @@ from .autoscale import Autoscaler, AutoscalePolicy
 from .fleet import FleetEarlyStop, FleetStatsSink, FleetTrainer
 from .ring_attention import ring_attention, ring_self_attention
 from .sharded_embeddings import ShardedEmbedding
+from .distributed import (AbandonedAttempt, ElasticResizeRequested,
+                          HangDetected, Preempted, RestartBudgetExceeded,
+                          RestartStorm, SharedTrainingMaster,
+                          SupervisedFitResult, TrainingSupervisor,
+                          classify_failure, initialize, shutdown,
+                          supervise_processes)
+from .cluster import (BarrierTimeout, ClusterInitError, ClusterRuntime,
+                      GroupCommitError,
+                      cpu_multiprocess_collectives_available,
+                      merge_rank_blackboxes, read_heartbeats, stale_ranks)
 from .pipeline import (HeterogeneousPipeline, PipelineParallel,
                        PipelineTrainer, pipeline_apply, pipeline_from_mln,
                        schedule_meta, stack_stage_params, stage_partition)

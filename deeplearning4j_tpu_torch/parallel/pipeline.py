@@ -35,8 +35,9 @@ the next tick, as a ``ppermute`` delivers it.
   runs in the parameters' dtype.
 - Self-healing: :meth:`PipelineTrainer.remap` re-cuts the layers over the
   surviving slots between dispatches, and the fit continues from the
-  cursor; the supervisor's ``remap_and_continue`` policy that calls it
-  automatically waits for ``cluster.py`` (ROADMAP A7.6).
+  cursor; ``parallel/distributed.TrainingSupervisor``'s
+  ``remap_and_continue`` policy calls it on a lost stage, and falls back
+  to checkpoint-restart when fewer than 2 stages would survive.
 
 Nothing compiles here: "one compile per (stage count, schedule)" is one
 *build* per (stage count, schedule) of the step (its tick tables, layer

@@ -87,6 +87,33 @@ normalization nor weight constraints (ROADMAP §C).
 ``training_mode("averaging")`` and ``averaging_frequency`` are accepted
 and run the same synchronous program, as the JAX package documents.
 
+**Across processes** (``Builder.process_group()``, a port extension that
+``parallel/distributed.SharedTrainingMaster`` uses when a process group is
+up): each rank holds its own replicas (``workers`` of them, one by
+default) and feeds them from its own data source, and the global worker
+count is ``world x workers``. The exchange goes through
+``parallel/_collectives.ProcessGroupRoute``: the step's losses, floating
+layer states and gradient buckets of every replica are all-gathered (one
+buffer per dtype), and each rank sums them in global replica order, rank 0
+first, so a two-rank step is bitwise the one-process two-replica step on
+the same rows. ZeRO-1 reduces each rank's own slices from the gathered
+buckets and all-gathers the updated slices; with bfloat16 state each rank
+first steps its generator past the lower ranks' rounding bits (the fused
+kernel's draws), so the bits match one process's too. Each replica's
+forward (dropout) draws from a stream of its own, seeded from the network
+generator's state at the step's start and the replica's global index (the
+JAX wrapper folds the replica index into the step's key), so a rank draws
+what one process draws for the same replica. Every rank must produce the
+same number of batches per epoch. The step's first gather also carries
+each rank's stop flag (``stop_event``, the supervisor's preemption
+signal): ``group_stop`` turns true on every rank after the same step, so
+the group stops at one boundary. The encoded exchange, the model axis,
+the integrity fingerprints and the online resize refuse a process group
+(a lost rank is the process supervisor's:
+``parallel/distributed.supervise_processes`` relaunches the group). In one
+process the same code runs over ``_collectives.LocalRoute``, a world of
+one whose gather hands the tensors back.
+
 ``Builder.devices(list)`` (a port extension, ROADMAP §C) places the
 replicas on the given devices, repeats allowed: four replicas on one card
 are ``devices(["cuda:0"] * 4)``. Without it the pool is the visible cards
@@ -96,7 +123,9 @@ the pool raises, as the JAX ``make_mesh`` does.
 
 from __future__ import annotations
 
+import hashlib
 import logging
+import threading
 from contextlib import contextmanager
 from typing import Any, Dict, List, Optional
 
@@ -108,21 +137,31 @@ from ..common.profiler import OpProfiler
 from ..common.tree import (ShardedTensor, get_path, leaf_paths, set_path,
                            skeleton)
 from ..data import pipeline as _pipe
-from ..learning.precision import apply_updater, note_state_bytes
+from ..learning.precision import (apply_updater, note_state_bytes,
+                                  state_dtype_of)
 # a module reference: nn/_fused imports parallel/sharding, which runs
 # this package's __init__
 from ..nn import _fused
 from ..ops.update import apply_flat_updater
 from ..optimize import telemetry as _tel
 from ..util.model_serializer import load_leaves, tree_leaves
-from ._collectives import (_count, all_gather_, all_reduce_mean,
-                           reduce_scatter_mean, sum_to)
+from ._collectives import (LocalRoute, ProcessGroupRoute, _count,
+                           _mean_into, all_reduce_mean, reduce_scatter_mean,
+                           sum_to)
 from .accumulator import DenseAllReduceAccumulator, GradientsAccumulator
 from .mesh import (as_slots, device_pool, elastic_pool, make_mesh,
                    probe_device, shard_batch)
 from .sharding import Zero1Plan, is_flat_state, unflatten_updater_state
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
+
+
+def _fold(state: torch.Tensor, index: int) -> int:
+    """A seed from a generator's state and an index, on the host (the
+    JAX ``fold_in`` of a replica index into the step's key)."""
+    h = hashlib.blake2b(state.numpy().tobytes(), digest_size=8)
+    h.update(int(index).to_bytes(8, "little", signed=True))
+    return int.from_bytes(h.digest(), "little") >> 1
 
 
 def _to(tree, device, copy: bool = False):
@@ -205,6 +244,7 @@ class ParallelWrapper:
             self._averaging_frequency = 1
             self._model_axis = 1
             self._devices = None
+            self._process_group = False
 
         def workers(self, n: int) -> "ParallelWrapper.Builder":
             self._workers = n
@@ -245,20 +285,31 @@ class ParallelWrapper:
             self._devices = list(devices)
             return self
 
+        def process_group(self) -> "ParallelWrapper.Builder":
+            """Join the default ``torch.distributed`` process group:
+            ``workers`` becomes the replica count of this rank, one unless
+            set (a port extension; see the module docstring)."""
+            self._process_group = True
+            return self
+
         def build(self) -> "ParallelWrapper":
             return ParallelWrapper(self._model, self._workers, self._mode,
                                    self._accumulator
                                    or DenseAllReduceAccumulator(),
                                    model_axis=self._model_axis,
                                    prefetch=self._prefetch,
-                                   devices=self._devices)
+                                   devices=self._devices,
+                                   process_group=self._process_group)
 
     def __init__(self, model, workers: Optional[int], mode: str,
                  accumulator: GradientsAccumulator, model_axis: int = 1,
-                 prefetch: int = 2, devices=None):
+                 prefetch: int = 2, devices=None,
+                 process_group: bool = False):
         self.model = model
         self._pool = (as_slots(devices) if devices is not None
                       else device_pool(model.device))
+        if process_group and workers is None:
+            workers = 1
         n = workers or len(self._pool)
         if n % model_axis:
             raise ValueError(
@@ -284,6 +335,34 @@ class ParallelWrapper:
         self._gens: Dict[str, torch.Generator] = {}
         self._tables: Dict[str, str] = {}     # table layer key -> axis
         self._live_params = None
+        #: where the replicas' tensors are exchanged: this process alone,
+        #: or the process group
+        self._route = LocalRoute(self.workers_count)
+        #: across a process group: the stop signal each rank contributes
+        #: to every step's first gather (set by the supervisor), and
+        #: whether any rank's was set (the same on every rank)
+        self.stop_event: Optional[threading.Event] = None
+        self.group_stop = False
+        if process_group:
+            if model_axis != 1:
+                raise NotImplementedError(
+                    "a process group spans the data axis only; model_axis "
+                    "> 1 does not compose with it")
+            if accumulator.stateful:
+                raise NotImplementedError(
+                    "the encoded exchange keeps per-replica residuals in "
+                    "one process; it does not run across a process group")
+            self._route = ProcessGroupRoute(local=self.workers_count)
+
+    @property
+    def global_workers(self) -> int:
+        """Replicas across every rank (``workers_count`` in one process)."""
+        return self._route.n_global
+
+    @property
+    def spans_processes(self) -> bool:
+        """Whether the replicas' exchange crosses processes."""
+        return self._route.world > 1
 
     def set_listeners(self, *ls) -> None:
         self._listeners = list(ls)
@@ -361,6 +440,7 @@ class ParallelWrapper:
         prof = OpProfiler.get()
         slots = list(self.mesh.devices[:, 0])
         n = len(slots)
+        n_all, lo = self.global_workers, self._route.lo
         params, states = model._params, model._states
         upd = model._updater_state
         tabs = self._tables
@@ -375,7 +455,7 @@ class ParallelWrapper:
             upd = {k: _without(v, tabs) for k, v in upd.items()} \
                 if isinstance(upd, dict) else upd
         if acc.zero1:
-            plan = Zero1Plan(params, n, shard_align=4)
+            plan = Zero1Plan(params, n_all, shard_align=4)
             if upd is None:
                 full = updater.init(plan.flatten(_to(params, None)))
             else:
@@ -395,7 +475,8 @@ class ParallelWrapper:
             p_r = _to(params, dev)
             if acc.zero1:
                 store = _fused.FlatStore(plan, p_r, None)
-                u = {s: {b.key: d[b.key][r * b.shard:(r + 1) * b.shard]
+                g = lo + r
+                u = {s: {b.key: d[b.key][g * b.shard:(g + 1) * b.shard]
                          .to(dev, copy=True) for b in plan.buckets}
                      for s, d in full.items()}
             elif self._fused:
@@ -431,8 +512,8 @@ class ParallelWrapper:
             note_state_bytes(reps[0].upd)
         self._acc = self._place_acc() if acc.stateful else None
         model._acc_blob = None
-        model._live_workers = n
-        prof.gauge("elastic/workers", n)
+        model._live_workers = n_all
+        prof.gauge("elastic/workers", n_all)
         param_bytes = sum(t.numel() * t.element_size()
                           for t in tree_leaves(params))
         if acc.zero1:
@@ -452,13 +533,17 @@ class ParallelWrapper:
 
     def _gathered_upd(self, device=None):
         """ZeRO-1: the full flat state (this plan's padding) from every
-        replica's slices, on ``device`` (default replica 0's)."""
+        replica's slices, on ``device`` (default replica 0's); across a
+        process group, every rank's slices (a collective)."""
         dev = self._reps[0].device if device is None else device
-        out = {}
-        for s in self._reps[0].upd:
-            out[s] = {k: torch.cat([rep.upd[s][k].to(dev)
-                                    for rep in self._reps])
-                      for k in self._reps[0].upd[s]}
+        names = [(s, k) for s in self._reps[0].upd
+                 for k in self._reps[0].upd[s]]
+        per = self._route.gather([[rep.upd[s][k] for s, k in names]
+                                  for rep in self._reps])
+        out: Dict[str, Dict[str, torch.Tensor]] = {}
+        for i, (s, k) in enumerate(names):
+            out.setdefault(s, {})[k] = torch.cat([p[i].to(dev)
+                                                  for p in per])
         return out
 
     # --- the row-sharded tables --------------------------------------------
@@ -547,12 +632,27 @@ class ParallelWrapper:
         if self.accumulator.stateful:
             self.model._acc_state = self._host_acc()
 
-    def _release(self) -> None:
+    def _release(self, collective: bool = True) -> None:
         """Hand the model copies of replica 0's state (ZeRO-1: the gathered
         flat updater state), so nothing outside a fit aliases a replica,
         and remember them to know whether the replicas are still
-        current."""
+        current. ``collective=False`` (a process-group fit unwinding from
+        an error, its peers maybe gone): no cross-rank gather, and a
+        ZeRO-1 model is left without updater state."""
         if self._reps is None:
+            return
+        if not collective and self.spans_processes \
+                and self.accumulator.zero1:
+            model = self.model
+            model._params = self._full_tree(self._plan.unflatten(
+                {k: v.detach().clone()
+                 for k, v in self._reps[0].store.params.items()}),
+                self._reps[0], "params")
+            model._states = _clone(self._reps[0].states)
+            model._updater_state = None
+            model._flat = None
+            model._cast_cache = None
+            self._reps = None
             return
         model = self.model
         rep = self._reps[0]
@@ -685,6 +785,28 @@ class ParallelWrapper:
             model._generator = gen
             gen.set_state(g.get_state())
 
+    @contextmanager
+    def _replica_draws(self, device, step_state: torch.Tensor, g: int,
+                       drew: list):
+        """Global replica ``g``'s forward on its own stream: a generator on
+        ``device`` seeded from ``step_state`` (the network generator's
+        state at the step's start) and ``g``, standing in for the
+        network's generator. Appends to ``drew`` whether the forward drew
+        from it."""
+        model = self.model
+        key = "fork:" + str(device)
+        fork = self._gens.get(key)
+        if fork is None:
+            fork = self._gens[key] = torch.Generator(device=device)
+        fork.manual_seed(_fold(step_state, g))
+        seeded = fork.get_state()
+        gen, model._generator = model._generator, fork
+        try:
+            yield
+        finally:
+            model._generator = gen
+        drew.append(not torch.equal(fork.get_state(), seeded))
+
     # --- the step ------------------------------------------------------------
     def _replica_loss(self, rep: _Replica, batch, denom):
         model = self.model
@@ -711,6 +833,8 @@ class ParallelWrapper:
         model, acc, plan, reps = self.model, self.accumulator, self._plan, \
             self._reps
         n = len(reps)
+        route = self._route
+        n_all, lo = self.global_workers, route.lo
         updater = model.conf.global_conf.updater
         zero1 = acc.zero1
         tele = self._telemetry
@@ -720,9 +844,17 @@ class ParallelWrapper:
         do_check = bool(integ) and it % integ == 0
         dev0 = reps[0].device
 
-        # the global divisor: real rows of the whole batch over n
-        real = sum_to([b[-1].sum() for b in batch], dev0)
-        denom = torch.clamp_min(real, 1.0) / _count(n, real.dtype, dev0)
+        # the global divisor: real rows of the whole batch over n; beside
+        # it, across a process group, each rank's stop flag
+        ev = self.stop_event
+        got = route.gather([[r] if ev is None else [r, torch.full(
+            (), float(ev.is_set()), dtype=r.dtype, device=r.device)]
+            for r in (b[-1].sum() for b in batch)])
+        reals = [v[0] for v in got]
+        if ev is not None and not self.group_stop:
+            self.group_stop = bool(sum_to([v[1] for v in got], dev0) > 0)
+        real = sum_to(reals, dev0)
+        denom = torch.clamp_min(real, 1.0) / _count(n_all, real.dtype, dev0)
 
         # the consistency fingerprints of the step's input state
         if do_check:
@@ -749,14 +881,17 @@ class ParallelWrapper:
                       if self._tables and keep_old else None)
         old_states = [rep.states for rep in reps]
 
-        # 1. forward and backward, replica by replica
-        losses, new_states, raw_nf = [], [], []
-        for rep, b in zip(reps, batch):
+        # 1. forward and backward, replica by replica, each on its own
+        # stream; the network's generator moves on only if they drew
+        losses, new_states, raw_nf, drew = [], [], [], []
+        gen = model.generator()
+        step_state = gen.get_state()
+        for j, (rep, b) in enumerate(zip(reps, batch)):
             rep.store.bind_grads()
             for sh in rep.tables.values():
                 for t in sh:
                     t.grad = None
-            with self._draws(rep.device):
+            with self._replica_draws(rep.device, step_state, lo + j, drew):
                 with torch.enable_grad():
                     loss, st = self._replica_loss(rep, b,
                                                   denom.to(rep.device))
@@ -765,29 +900,51 @@ class ParallelWrapper:
             new_states.append(st)
             if stats:
                 raw_nf.append(_tel.nonfinite_counts(rep.store.grad_views))
+        if any(drew):
+            gen.manual_seed(_fold(step_state, -1))
 
         # 2. the exchange; the losses and floating layer states averaged
         with torch.no_grad():
-            loss = sum_to(losses, dev0) / _count(n, losses[0].dtype, dev0)
-            for p in leaf_paths(new_states[0]):
-                vals = [get_path(s, p).detach() for s in new_states]
-                if vals[0].is_floating_point():
-                    vals = all_reduce_mean(vals)
-                for s, v in zip(new_states, vals):
-                    set_path(s, p, v)
+            raw = [rep.store.grads for rep in reps]
+            s_paths = [p for p in leaf_paths(new_states[0])
+                       if get_path(new_states[0], p).is_floating_point()]
+            # every replica's losses, states and gradients, in global
+            # replica order (this rank's own as they are)
+            gkeys = list(raw[0])
+            per = route.gather([
+                [losses[j]]
+                + [get_path(new_states[j], p).detach() for p in s_paths]
+                + [raw[j][k] for k in gkeys]
+                + ([raw_nf[j]] if stats else [])
+                for j in range(n)])
+            ns = len(s_paths)
+            losses = [a[0] for a in per]
+            s_vals = {p: [a[1 + i] for a in per]
+                      for i, p in enumerate(s_paths)}
+            raw_all = [{k: a[1 + ns + i] for i, k in enumerate(gkeys)}
+                       for a in per]
+            if stats:
+                raw_nf = [a[-1] for a in per]
+            loss = sum_to(losses, dev0) / _count(n_all, losses[0].dtype,
+                                                 dev0)
+            for p in s_paths:
+                vals = all_reduce_mean(s_vals[p])[lo:lo + n]
+                for st, v in zip(new_states, vals):
+                    set_path(st, p, v)
             for rep, st in zip(reps, new_states):
                 rep.states = st
-            raw = [rep.store.grads for rep in reps]
             density = None
             if acc.stateful:
                 red, self._acc, density = acc.exchange(raw, self._acc)
             elif zero1:
-                sh = {b.key: reduce_scatter_mean([g[b.key] for g in raw],
-                                                 b.shard)
+                sh = {b.key: reduce_scatter_mean(
+                    [g[b.key] for g in raw_all], b.shard,
+                    only=range(lo, lo + n),
+                    devices=[rep.device for rep in reps])
                       for b in plan.buckets}
                 red = [{k: v[r] for k, v in sh.items()} for r in range(n)]
             else:
-                red = acc.exchange(raw, None)[0]
+                red = acc.exchange(raw_all, None)[0][lo:lo + n]
             # the table shards' gradients: the mean over the data rows,
             # shard by shard (tred[key][j][r]: replica r's copy)
             tred = {k: [all_reduce_mean([rep.tables[k][j].grad
@@ -797,19 +954,21 @@ class ParallelWrapper:
 
             # 3. the update
             if zero1:
-                old_sh = ([plan.shard_slice(old_p[r], r) for r in range(n)]
+                old_sh = ([plan.shard_slice(old_p[r], lo + r)
+                           for r in range(n)]
                           if old_p is not None and len(old_p) == n else
                           [{k: v.clone() for k, v in plan.shard_slice(
-                              rep.store.params, r).items()}
+                              rep.store.params, lo + r).items()}
                            for r, rep in enumerate(reps)] if stats else None)
+                self._skip_rounding_bits(lo, reps[0].device)
                 for r, rep in enumerate(reps):
                     with self._draws(rep.device) as g:
                         apply_flat_updater(
-                            updater, plan.shard_slice(rep.store.params, r),
+                            updater,
+                            plan.shard_slice(rep.store.params, lo + r),
                             red[r], rep.upd, it, g)
-                for b in plan.buckets:
-                    all_gather_([rep.store.params[b.key] for rep in reps],
-                                b.shard)
+                self._skip_rounding_bits(n_all - lo - n, reps[-1].device)
+                self._gather_slices()
             else:
                 start = model.generator().get_state()
                 for r, rep in enumerate(reps):
@@ -833,10 +992,11 @@ class ParallelWrapper:
                 if not stats:
                     aux = {"loss": loss}
                 elif zero1:
-                    parts = [(self._segment_ids(b.key, r, b.shard,
+                    parts = [(self._segment_ids(b.key, lo + r, b.shard,
                                                 rep.device),
                               red[r][b.key],
-                              plan.shard_slice(rep.store.params, r)[b.key],
+                              plan.shard_slice(rep.store.params,
+                                               lo + r)[b.key],
                               old_sh[r][b.key])
                              for r, rep in enumerate(reps)
                              for b in plan.buckets]
@@ -891,6 +1051,42 @@ class ParallelWrapper:
                     aux["integrity_fp"] = fp
         self._publish_live()
         return loss, aux
+
+    def _skip_rounding_bits(self, replicas: int, device) -> None:
+        """ZeRO-1: step the network's generator past ``replicas`` slices'
+        stochastic-rounding bits, as the fused kernel's updaters draw them
+        (one int32 per element of each bucket's slice, buckets in key
+        order), so each rank of a process group draws its own slices' bits
+        where one process would."""
+        from ..learning.precision import random_bits
+        from ..ops.update import SLOTS, _KINDS
+
+        updater = self.model.conf.global_conf.updater
+        kind = _KINDS.get(type(updater))
+        if replicas <= 0 or kind is None \
+                or not SLOTS[kind] or not state_dtype_of(updater):
+            return
+        with self._draws(device) as g:
+            for _ in range(replicas):
+                for b in sorted(self._plan.buckets, key=lambda b: b.key):
+                    random_bits(b.shard, g, device)
+
+    def _gather_slices(self) -> None:
+        """ZeRO-1: every replica's updated slice (across a process group,
+        every rank's) into every local replica's buckets."""
+        plan, reps, route = self._plan, self._reps, self._route
+        lo = route.lo
+        keys = [b.key for b in plan.buckets]
+        own = [[plan.shard_slice(rep.store.params, lo + j)[k] for k in keys]
+               for j, rep in enumerate(reps)]
+        per = route.gather(own)
+        for j, rep in enumerate(reps):
+            for g, slices in enumerate(per):
+                if g == lo + j:
+                    continue
+                dst = plan.shard_slice(rep.store.params, g)
+                for k, src in zip(keys, slices):
+                    dst[k].copy_(src, non_blocking=True)
 
     def _transport_mismatch(self, j: int) -> torch.Tensor:
         """Whether replica ``j``'s copy of any other replica's slice
@@ -1035,12 +1231,18 @@ class ParallelWrapper:
         self._ensure_parallel_state()
         tele = self._telemetry
         if tele is not None and tele.integrity_every \
+                and self.spans_processes:
+            raise NotImplementedError(
+                "integrity fingerprints compare replica copies in one "
+                "process; they do not run across a process group")
+        if tele is not None and tele.integrity_every \
                 and (self.model_axis != 1 or self._tables):
             raise NotImplementedError(
                 "integrity fingerprints police the replicated-state "
                 "invariant — model-sharded params have no replica copies "
                 "to compare")
         self._publish_live()
+        self.group_stop = False
         prof = OpProfiler.get()
 
         def on_epoch():
@@ -1063,8 +1265,15 @@ class ParallelWrapper:
                 allow_multi=hasattr(model.conf, "network_inputs"),
                 skip=skip, host_prefetch=host_prefetch,
                 round_to_multiple_of=self.workers_count)
-        finally:
-            self._release()
+        except BaseException as e:
+            from .distributed import Preempted
+
+            # a stop the group agreed on: every rank unwinds at the same
+            # boundary, so the release may gather
+            self._release(collective=self.group_stop
+                          and isinstance(e, Preempted))
+            raise
+        self._release()
 
     # --- online elastic resize -----------------------------------------------
     def resize(self, workers: int, *, lost_replicas=None) -> List[Any]:
@@ -1082,6 +1291,11 @@ class ParallelWrapper:
         n = int(workers)
         if n < 1:
             raise ValueError(f"workers must be >= 1, got {workers}")
+        if self.spans_processes:
+            raise NotImplementedError(
+                "a process group does not resize in place; "
+                "supervise_processes relaunches the group (shrunk with "
+                "make_commands)")
         if self.model_axis != 1:
             raise NotImplementedError(
                 "online elastic resize is a data-axis operation; it does "
@@ -1123,6 +1337,7 @@ class ParallelWrapper:
             new_devs = set(self.mesh.devices.flat)
             removed = [d for d in mesh_devs if d not in new_devs]
             self.workers_count = n
+            self._route = LocalRoute(n)
             model._params, model._states = params, states
             model._updater_state, model._acc_state = upd, acc_st
             self._reps = None

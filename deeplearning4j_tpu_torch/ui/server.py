@@ -465,8 +465,8 @@ class UIServer:
                    for label, attr in OpProfiler.LEDGERS
                    if label != "serving"}
         ledgers["serving"] = serving_health()
-        # no watchtower and no supervisor blackbox in the port yet: no
-        # incident to point at
+        # the supervisor's counters ride the ledgers above; the incident
+        # pointer waits for the watchtower (ROADMAP A8)
         return {"status": "ok",
                 "last_incident": None,
                 "uptime_s": round(time.time() - self._t0, 1),

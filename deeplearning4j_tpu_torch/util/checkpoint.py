@@ -70,7 +70,11 @@ Every restore records a ``checkpoint/restore`` flight-recorder event.
 A pipeline trainer's snapshot records its live stage count in the cursor
 (``stages``, informational: the layout on disk is per layer).
 
-Not ported here (ROADMAP A7): group commits.
+Group commits (``parallel/cluster.ClusterRuntime.commit_group_checkpoint``):
+rank 0 commits through :func:`commit_checkpoint` under its incarnation
+fence, and every other rank checks :func:`verify_group_commit` after the
+publish barrier: only the manifest publishes a group commit, and a
+generation the scrubber quarantined is refused.
 """
 
 from __future__ import annotations
@@ -602,6 +606,20 @@ def last_checkpoint(directory: str,
     return scan_newest_intact(directory)
 
 
+def verify_group_commit(directory: str, tag: str) -> Optional[str]:
+    """A non-zero rank's check after a group commit's publish barrier: the
+    manifest names ``checkpoint_<tag>.zip`` and its checksum verifies.
+    Returns the verified path, or None (absent from the manifest, torn, or
+    quarantined: :func:`verify_checkpoint` refuses quarantined
+    generations). The directory scan is not consulted: a group commit is
+    published by the manifest alone."""
+    name = f"checkpoint_{tag}.zip"
+    for entry in reversed(read_manifest(directory)):
+        if _entry_name(entry) == name:
+            return verify_checkpoint(directory, entry)
+    return None
+
+
 def scan_newest_intact(directory: str) -> Optional[str]:
     """Without a manifest: the intact ``checkpoint_*.zip`` (zip CRC and
     meta entry) with the highest iteration (newest mtime on a tie),
@@ -722,9 +740,8 @@ def begin_fit_cursor(model, resume_from: Optional[str], listeners=None,
     fresh fit. ``keep_flat``: a ZeRO-1 fit takes a flat updater state as
     it is; every other fit gets a flat state (left by a ZeRO-1 fit) as
     the dense tree first."""
-    if not keep_flat and is_flat_state(model._updater_state):
-        model._updater_state = unflatten_updater_state(
-            model._updater_state, model._params)
+    if not keep_flat:
+        _ensure_dense_updater_layout(model)
     # the stage count is per-fit metadata: a later fit that is not a
     # pipeline's must not stamp it (PipelineTrainer.fit sets it again)
     if hasattr(model, "_live_stages"):
@@ -737,6 +754,15 @@ def begin_fit_cursor(model, resume_from: Optional[str], listeners=None,
     model._fit_epoch0 = model._epoch - cursor["epochs_done"]
     model._steps_in_epoch = cursor["steps_in_epoch"]
     return (cursor["epochs_done"], cursor["steps_in_epoch"])
+
+
+def _ensure_dense_updater_layout(model) -> None:
+    """A flat (ZeRO-1) updater state left on the model by a wrapper fit,
+    turned back into the dense tree like the parameters; a no-op for a
+    dense state or None."""
+    if is_flat_state(getattr(model, "_updater_state", None)):
+        model._updater_state = unflatten_updater_state(
+            model._updater_state, model._params)
 
 
 # --------------------------------------------------------------------------

@@ -595,3 +595,17 @@ class TestLedgerAndTelemetry:
         dens = [v for _, v in storage.series("exchange_density")]
         assert len(dens) > 0
         assert all(0.0 <= v <= 1.0 for v in dens)
+
+
+class TestMasterRoute:
+    def test_master_builder_forwards_accumulator(self):
+        from deeplearning4j_tpu_torch.parallel import SharedTrainingMaster
+
+        master = (SharedTrainingMaster.Builder(16)
+                  .gradients_accumulator(ReduceScatterAccumulator())
+                  .build())
+        m = small_model()
+        master.fit(m, make_iter(), epochs=1)
+        assert master.wrapper.accumulator.zero1
+        assert is_flat_state(m._updater_state)
+        assert np.isfinite(float(m._score))

@@ -5,7 +5,8 @@ through a resize (compared with the JAX ``resize_state`` on the same
 arrays), and bitwise parity of a shrunk or grown continuation with a fresh
 run handed the same state, cursor and random stream. A lost device is
 simulated by a listener that stops the fit at a step boundary, where the
-JAX tests inject ``device/loss``."""
+JAX tests inject ``device/loss``; the supervisor's drills
+(``TestSupervisorElastic``) inject ``device/loss`` as the JAX tests do."""
 
 import json
 import zipfile
@@ -16,15 +17,21 @@ import torch
 
 from deeplearning4j_tpu.parallel import (
     EncodedGradientsAccumulator as JEncoded)
+from deeplearning4j_tpu_torch.common import faultinject
 from deeplearning4j_tpu_torch.common.profiler import OpProfiler
 from deeplearning4j_tpu_torch.common.tree import get_path, leaf_paths
 from deeplearning4j_tpu_torch.data import NDArrayDataSetIterator
-from deeplearning4j_tpu_torch.optimize.listeners import CheckpointListener
+from deeplearning4j_tpu_torch.optimize.listeners import (
+    CheckpointListener, CollectScoresIterationListener)
 from deeplearning4j_tpu_torch.parallel import (EncodedGradientsAccumulator,
                                                ParallelWrapper,
                                                ReduceScatterAccumulator,
+                                               TrainingSupervisor,
+                                               classify_failure,
                                                device_pool, elastic_pool,
                                                make_mesh)
+from deeplearning4j_tpu_torch.parallel.distributed import (CLASS_DEVICE,
+                                                           DEFAULT_POLICIES)
 from torch_parity import mln_twins, modules
 
 
@@ -319,3 +326,208 @@ class TestResizeParity:
         pw2.fit(make_iter(), epochs=3, resume_from=path)
         assert m2._ckpt_workers == 3
         assert bitwise(m1._params, m2._params)
+
+
+# ---------------------------------------------------------------------------
+# the supervisor's shrink-and-continue and grow-back (tests/test_elastic.py
+# TestSupervisorElastic and the classification of a device loss)
+# ---------------------------------------------------------------------------
+
+def run_to_device_loss(pw, step, replica, epochs=3, **fit_kwargs):
+    """Fit until the injected device loss fires; return the live cursor
+    and the generator state at the boundary the fit unwound at."""
+    faultinject.set_plan(faultinject.FaultPlan(
+        [{"site": "device/loss", "index": step, "kind": "device_loss",
+          "replica": replica}]))
+    try:
+        with pytest.raises(faultinject.DeviceLostError) as ei:
+            pw.fit(make_iter(), epochs=epochs, **fit_kwargs)
+    finally:
+        faultinject.clear_plan()
+    m = pw.model
+    assert ei.value.replica == replica
+    return ((m._epoch - m._fit_epoch0, m._steps_in_epoch),
+            m.generator().get_state())
+
+
+@pytest.fixture
+def _no_plan():
+    faultinject.clear_plan()
+    yield
+    faultinject.clear_plan()
+
+
+@pytest.mark.usefixtures("_no_plan")
+class TestSupervisorElastic:
+    def test_device_loss_classifies_as_device_failure(self):
+        exc = faultinject.DeviceLostError("gone", replica=1)
+        assert classify_failure(exc) == CLASS_DEVICE
+        assert DEFAULT_POLICIES[CLASS_DEVICE] == "shrink_and_continue"
+
+    def test_supervised_shrink_drill_bitwise_parity(self, tmp_path):
+        """device/loss kills 1 of 4 workers mid epoch: the supervised run
+        completes with no restart, and its final parameters are bitwise a
+        run resized by hand and a fresh 3-worker run from the same
+        state."""
+        m1 = small_model()
+        pw = build_wrapper(m1, workers=4)
+        faultinject.set_plan(faultinject.FaultPlan(
+            [{"site": "device/loss", "index": 5, "kind": "device_loss",
+              "replica": 1}]))
+        sup = TrainingSupervisor(pw, checkpoint_dir=str(tmp_path),
+                                 elastic_grow=False)
+        res = sup.fit(make_iter, epochs=3)
+        faultinject.clear_plan()
+        assert res.status == "completed"
+        assert res.restarts == 0
+        assert [h["policy"] for h in res.history] == ["shrink_and_continue"]
+        assert pw.workers_count == 3
+        stats = OpProfiler.get().elastic_stats()
+        assert stats["shrinks"] == 1 and stats["workers"] == 3
+        assert OpProfiler.get().counter_value("supervisor/shrinks") == 1
+
+        m2 = small_model()
+        pw2 = build_wrapper(m2, workers=4)
+        cursor, gen = run_to_device_loss(pw2, step=5, replica=1)
+        snap = host_state(m2)
+        it, ep = m2._iteration, m2._epoch
+        pw2.resize(3, lost_replicas=[1])
+        pw2.fit(make_iter(), epochs=3, resume_cursor=cursor)
+        assert bitwise(m1._params, m2._params)
+        m3 = fresh_run(snap, it, ep, gen, cursor, workers=3)
+        assert bitwise(m1._params, m3._params)
+        assert bitwise(m1._updater_state, m3._updater_state)
+
+    def test_shrink_counts_as_progress_never_storms(self, tmp_path):
+        pw = build_wrapper(small_model(), workers=4)
+        faultinject.set_plan(faultinject.FaultPlan(
+            [{"site": "device/loss", "index": 3, "kind": "device_loss",
+              "replica": 3}]))
+        sup = TrainingSupervisor(pw, checkpoint_dir=str(tmp_path),
+                                 max_restarts=0, storm_threshold=1,
+                                 elastic_grow=False)
+        res = sup.fit(make_iter, epochs=2)
+        faultinject.clear_plan()
+        assert res.status == "completed"
+        assert res.restarts == 0
+        assert pw.workers_count == 3
+
+    def test_fallback_to_restart_without_resize_target(self, tmp_path):
+        model = small_model()
+        faultinject.set_plan(faultinject.FaultPlan(
+            [{"site": "device/loss", "index": 3, "kind": "device_loss"}]))
+        sup = TrainingSupervisor(model, checkpoint_dir=str(tmp_path),
+                                 backoff_base_s=0.01)
+        res = sup.fit(make_iter, epochs=2)
+        faultinject.clear_plan()
+        assert res.status == "completed"
+        assert res.restarts == 1
+        assert [h["policy"] for h in res.history] == ["restart"]
+
+    def test_resize_never_reinstates_dead_device_from_cache(
+            self, monkeypatch):
+        pw = build_wrapper(small_model(), workers=4)
+        pw.fit(make_iter(), epochs=1)
+        dead = list(pw.mesh.devices.flat)[1]
+        pw.resize(3, lost_replicas=[1])
+        from deeplearning4j_tpu_torch.parallel import wrapper as wmod
+
+        monkeypatch.setattr(wmod, "probe_device", lambda d: d is not dead)
+        pw.resize(4)
+        assert pw.workers_count == 4
+        assert dead not in set(pw.mesh.devices.flat)   # a spare took over
+
+    def test_grow_failure_limit_gives_up_and_stays_shrunk(
+            self, tmp_path, monkeypatch):
+        pw = build_wrapper(small_model(), workers=4)
+        orig = pw.resize
+
+        def flaky(n, **kw):
+            if n > pw.workers_count and not kw.get("lost_replicas"):
+                raise RuntimeError("placement OOM on returning device")
+            return orig(n, **kw)
+
+        monkeypatch.setattr(pw, "resize", flaky)
+        faultinject.set_plan(faultinject.FaultPlan(
+            [{"site": "device/loss", "index": 2, "kind": "device_loss",
+              "replica": 1},
+             # steps slow enough that the probes land mid-run
+             {"site": "pipeline/bind", "kind": "slow", "seconds": 0.02,
+              "times": 1000}]))
+        sup = TrainingSupervisor(pw, checkpoint_dir=str(tmp_path),
+                                 poll_s=0.01, grow_probe_base_s=0.0,
+                                 grow_probe_max_s=0.01,
+                                 grow_failure_limit=2)
+        res = sup.fit(make_iter, epochs=6)
+        faultinject.clear_plan()
+        assert res.status == "completed"
+        assert res.restarts == 0
+        assert pw.workers_count == 3
+        policies = [h["policy"] for h in res.history]
+        assert policies.count("grow_failed") == 2
+        assert "grow_and_continue" not in policies
+        assert OpProfiler.get().counter_value("elastic/grow_abandoned") == 1
+
+    def test_second_loss_disarms_pending_grow_and_merges(self, tmp_path):
+        pw = build_wrapper(small_model(), workers=4)
+        pw.fit(make_iter(), epochs=1)
+        sup = TrainingSupervisor(pw, checkpoint_dir=str(tmp_path))
+        removed_a = sup._apply_shrink([2])
+        assert sup._grow["target"] == 4
+        sup._resize_request = 4            # the probe found A healthy
+        removed_b = sup._apply_shrink([0])
+        assert sup._resize_request is None
+        assert sup._grow["target"] == 4
+        assert set(map(id, sup._grow["devices"])) == \
+            set(map(id, removed_a + removed_b))
+        assert pw.workers_count == 2
+
+    def test_supervised_growback_drill(self, tmp_path):
+        """Shrink on a device loss, then the grow-back probe returns the
+        device at the next dispatch boundary; every step still lands."""
+        m = small_model()
+        scores = CollectScoresIterationListener()
+        pw = build_wrapper(m, workers=4)
+        pw.set_listeners(scores)
+        faultinject.set_plan(faultinject.FaultPlan(
+            [{"site": "device/loss", "index": 3, "kind": "device_loss",
+              "replica": 2},
+             {"site": "pipeline/bind", "kind": "slow", "seconds": 0.02,
+              "times": 1000}]))
+        sup = TrainingSupervisor(pw, checkpoint_dir=str(tmp_path),
+                                 elastic_grow=True, grow_probe_base_s=0.0,
+                                 poll_s=0.01)
+        res = sup.fit(make_iter, epochs=6)
+        faultinject.clear_plan()
+        assert res.status == "completed"
+        assert res.restarts == 0
+        assert pw.workers_count == 4
+        classes = [h["class"] for h in res.history]
+        assert classes[0] == "device_failure"
+        assert "elastic_grow" in classes
+        assert len(scores.scores) == 6 * 4      # no step lost or doubled
+        stats = OpProfiler.get().elastic_stats()
+        assert stats["shrinks"] == 1 and stats["grows"] >= 1
+        assert stats["workers"] == 4
+
+    def test_grow_probe_failure_backoff(self, tmp_path):
+        pw = build_wrapper(small_model(), workers=4)
+        faultinject.set_plan(faultinject.FaultPlan([
+            {"site": "device/loss", "index": 2, "kind": "device_loss",
+             "replica": 0},
+            {"site": "elastic/probe", "kind": "dead_replica", "times": 2},
+            # steps slow enough that the backed-off probes land mid-run
+            {"site": "pipeline/bind", "kind": "slow", "seconds": 0.02,
+             "times": 1000},
+        ]))
+        sup = TrainingSupervisor(pw, checkpoint_dir=str(tmp_path),
+                                 elastic_grow=True,
+                                 grow_probe_base_s=0.05,
+                                 grow_probe_max_s=0.1)
+        res = sup.fit(make_iter, epochs=8)
+        faultinject.clear_plan()
+        assert res.status == "completed"
+        assert pw.workers_count == 4
+        prof = OpProfiler.get()
+        assert prof.counter_value("elastic/probe_failures") == 2
+        assert prof.counter_value("elastic/probes") >= 3

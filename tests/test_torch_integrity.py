@@ -29,9 +29,15 @@ from deeplearning4j_tpu_torch.common.integrity import (IntegrityListener,
                                                        host_fingerprint)
 from deeplearning4j_tpu_torch.common.profiler import OpProfiler
 from deeplearning4j_tpu_torch.data import NDArrayDataSetIterator
+from deeplearning4j_tpu.parallel import distributed as jdist
+from deeplearning4j_tpu_torch.common import faultinject, flightrec
+from deeplearning4j_tpu_torch.common.tree import get_path, leaf_paths
 from deeplearning4j_tpu_torch.parallel import (ParallelWrapper,
                                                ReduceScatterAccumulator,
-                                               Zero1Plan)
+                                               TrainingSupervisor,
+                                               Zero1Plan, classify_failure)
+from deeplearning4j_tpu_torch.parallel.distributed import (CLASS_CORRUPTION,
+                                                           DEFAULT_POLICIES)
 from torch_parity import mln_twins, modules
 
 
@@ -491,3 +497,133 @@ class TestServingPublishVerify:
             assert all(torch.equal(a, b) for a, b in zip(after, prior))
         finally:
             eng.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# the supervisor's quarantine-and-continue (tests/test_integrity.py
+# TestQuarantine and the classification of a corruption)
+# ---------------------------------------------------------------------------
+
+def _bits_equal(a, b) -> bool:
+    return leaf_paths(a) == leaf_paths(b) and all(
+        torch.equal(get_path(a, p), get_path(b, p)) for p in leaf_paths(a))
+
+
+def _host(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    return tree
+
+
+def run_to_corruption(pw, step, replica, epochs=3):
+    """Fit until the injected bitflip is caught; return the live cursor,
+    the generator state at the boundary and the error."""
+    faultinject.set_plan(faultinject.FaultPlan(
+        [{"site": "integrity/fingerprint", "index": step,
+          "kind": "bitflip", "replica": replica}]))
+    try:
+        with pytest.raises(ReplicaCorruptionError) as ei:
+            pw.fit(make_iter(), epochs=epochs)
+    finally:
+        faultinject.clear_plan()
+    m = pw.model
+    return ((m._epoch - m._fit_epoch0, m._steps_in_epoch),
+            m.generator().get_state(), ei.value)
+
+
+class TestQuarantine:
+    def test_corruption_error_classifies_for_quarantine(self):
+        exc = ReplicaCorruptionError("diverged", replica=2, iteration=9)
+        assert classify_failure(exc) == CLASS_CORRUPTION
+        assert DEFAULT_POLICIES[CLASS_CORRUPTION] == \
+            "quarantine_and_continue"
+        assert jdist.classify_failure(jinteg.ReplicaCorruptionError(
+            "diverged", replica=2, iteration=9)) == CLASS_CORRUPTION
+
+    def test_supervised_quarantine_drill_bitwise_parity(self, tmp_path):
+        """A bitflip on replica 1 of 4 is caught, the supervisor
+        quarantines that replica (no restart used), training completes on
+        3 workers, and the final parameters are bitwise a fresh 3-worker
+        run handed the majority's state."""
+        m1 = small_model()
+        pw, _ = build_wrapper(m1, workers=4, zero1=True)
+        faultinject.set_plan(faultinject.FaultPlan(
+            [{"site": "integrity/fingerprint", "index": 5,
+              "kind": "bitflip", "replica": 1}]))
+        try:
+            res = TrainingSupervisor(pw, checkpoint_dir=str(tmp_path),
+                                     elastic_grow=False).fit(make_iter,
+                                                             epochs=3)
+        finally:
+            faultinject.clear_plan()
+        assert res.status == "completed"
+        assert res.restarts == 0
+        assert [h["class"] for h in res.history] == ["silent_corruption"]
+        assert [h["policy"] for h in res.history] \
+            == ["quarantine_and_continue"]
+        assert pw.workers_count == 3
+        assert OpProfiler.get().counter_value("supervisor/quarantines") == 1
+        q = flightrec.events("integrity/quarantine")[-1]
+        assert q["attrs"]["replica"] == 1
+        assert q["sev"] == "warn"
+
+        # by hand: the same flip caught, the survivors' state, a resize
+        m2 = small_model()
+        pw2, _ = build_wrapper(m2, workers=4, zero1=True)
+        cursor, gen, exc = run_to_corruption(pw2, step=5, replica=1)
+        assert exc.replica == 1
+        params = integrity.materialize_from_survivors(
+            [pw2.replica_params(r) for r in range(4)], [1])
+        snap = (params, _host(m2._states), _host(m2._updater_state))
+        it, ep = m2._iteration, m2._epoch
+        pw2.resize(3, lost_replicas=[1])
+        pw2.fit(make_iter(), epochs=3, resume_cursor=cursor)
+        assert _bits_equal(m1._params, m2._params)
+
+        # a brand-new 3-worker wrapper handed the survivors' state
+        m3 = small_model()
+        m3._params, m3._states, m3._updater_state = snap
+        m3._iteration, m3._epoch = it, ep
+        m3.generator().set_state(gen)
+        pw3, _ = build_wrapper(m3, workers=3, zero1=True)
+        pw3.fit(make_iter(), epochs=3, resume_cursor=cursor)
+        assert _bits_equal(m1._params, m3._params)
+        assert _bits_equal(m1._updater_state, m3._updater_state)
+
+    def test_survivor_materialization_skips_poisoned_shard_zero(self):
+        m = small_model()
+        pw, _ = build_wrapper(m, workers=4)
+        pw.fit(make_iter(), epochs=1)
+        clean = host_fingerprint(m._params)
+        integrity.apply_bitflip(m, pw.mesh, {"replica": 0, "bit": 12})
+        naive = _host(pw.replica_params(0))        # the "shard 0" read
+        majority = integrity.materialize_from_survivors(
+            [pw.replica_params(r) for r in range(4)], [0])
+        assert host_fingerprint(naive) != clean
+        assert host_fingerprint(majority) == clean
+
+    def test_two_way_split_falls_back_to_restart(self, tmp_path):
+        """N=2: the vote cannot name a side, the error carries
+        replica=None, the quarantine gate refuses, and the supervisor
+        restarts from a checkpoint."""
+        m = small_model()
+        pw, _ = build_wrapper(m, workers=2, zero1=True)
+        faultinject.set_plan(faultinject.FaultPlan(
+            [{"site": "integrity/fingerprint", "index": 9,
+              "kind": "bitflip", "replica": 1}]))
+        try:
+            res = TrainingSupervisor(pw, checkpoint_dir=str(tmp_path),
+                                     backoff_base_s=0.01,
+                                     elastic_grow=False).fit(make_iter,
+                                                             epochs=4)
+        finally:
+            faultinject.clear_plan()
+        assert res.status == "completed"
+        assert res.restarts == 1
+        assert [h["class"] for h in res.history] == ["silent_corruption"]
+        assert [h["policy"] for h in res.history] == ["restart"]
+        assert pw.workers_count == 2
+        assert OpProfiler.get().counter_value(
+            "supervisor/quarantines") == 0

@@ -456,3 +456,29 @@ def test_graph_through_the_wrapper_matches_jax():
             np.testing.assert_allclose(tg._states[n][k].numpy(),
                                        np.asarray(v), rtol=1e-5, atol=1e-6,
                                        err_msg=f"{n}/{k}")
+
+
+class TestSharedTrainingMaster:
+    def test_fit_and_kill_resume(self, tmp_path):
+        """Checkpoint, 'kill', resume from the newest: a fresh model with
+        another seed is overwritten and keeps counting."""
+        from deeplearning4j_tpu_torch.optimize.listeners import (
+            CheckpointListener)
+        from deeplearning4j_tpu_torch.parallel import SharedTrainingMaster
+
+        model = port_model()
+        master = (SharedTrainingMaster.Builder(batch_size_per_worker=18)
+                  .checkpoint(str(tmp_path), every_n_iterations=1)
+                  .build())
+        master.fit(model, IrisDataSetIterator(batch_size=144), epochs=2)
+        assert master.wrapper.workers_count == 8   # the CPU pool
+        last = CheckpointListener.last_checkpoint(str(tmp_path))
+        assert last is not None
+        fresh = port_model(seed=99)
+        resumed = master.fit(fresh, IrisDataSetIterator(batch_size=144),
+                             epochs=1)
+        assert resumed._iteration > 2
+        # the checkpoint's weights, not the fresh seed's, went on training
+        assert not torch.equal(get_path(fresh._params, ("0000", "W")),
+                               get_path(port_model(seed=99)._params,
+                                        ("0000", "W")))

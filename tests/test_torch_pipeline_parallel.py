@@ -3,9 +3,8 @@
 Port counterparts of ``tests/test_parallel_extras.py``'s pipeline classes
 (``TestPipelineParallel``, ``TestPipelineFromMLN``,
 ``TestHeterogeneousPipeline``) and of ``tests/test_pipeline_parallel.py``
-(all but ``test_supervised_remap_and_continue`` and
-``test_remap_refused_falls_back_to_restart``, which need the supervisor's
-``remap_and_continue`` policy, ROADMAP A7.6), plus parity with the JAX
+(the supervisor's ``remap_and_continue`` drills in ``TestKillAStage``),
+plus parity with the JAX
 objects on the same parameters: the JAX side on its 8 virtual CPU devices,
 the port on ``["cpu"] * n`` slots. Inputs come from numpy seeds.
 
@@ -760,6 +759,101 @@ class TestKillAStage:
         tr2.fit(make_it(), epochs=2, batch_size=batch, resume_cursor=cursor)
         assert post == c2.losses
         assert params_equal(model, model2)
+
+    def test_supervised_remap_and_continue(self, tmp_path):
+        """The supervisor heals a lost stage by remap: no restart used, no
+        microbatch lost, and the losses after the remap bitwise a fresh
+        3-stage run's from the same state and cursor."""
+        from deeplearning4j_tpu_torch.parallel import TrainingSupervisor
+
+        x, y = synth(4 * 32)
+
+        def make_it():
+            return NDArrayDataSetIterator(x, y, batch_size=32)
+
+        os.environ[faultinject.ENV_PLAN] = json.dumps(
+            [{"site": "pipeline/stage", "kind": "device_loss",
+              "index": 2, "stage": 1}])
+        faultinject.clear_plan()
+        model = dense_stack(4)
+        tr = PipelineTrainer(model, stages=4, n_micro=4, data=2)
+        c = Collect()
+        tr.set_listeners(c)
+        sup = TrainingSupervisor(tr, str(tmp_path),
+                                 save_every_n_iterations=2,
+                                 elastic_grow=False)
+        res = sup.fit(make_it, epochs=2)
+        assert res.status == "completed"
+        assert res.restarts == 0
+        assert [h["policy"] for h in res.history] == ["remap_and_continue"]
+        assert res.history[0]["class"] == "device_failure"
+        assert tr.stages_count == 3
+        prof = OpProfiler.get()
+        assert prof.counter_value("supervisor/remaps") >= 1
+        assert prof.counter_value("pipeline/remaps") >= 1
+        spans = flightrec.events(prefix="pipeline/remap")
+        assert any(e["ph"] == "B" and e["attrs"].get("stages_to") == 3
+                   for e in spans)
+        assert len(c.losses) == 2 * 4          # no step lost or doubled
+
+        # the reference: the same kill by hand, then a fresh 3-stage run
+        # handed the state and cursor at the boundary
+        faultinject.clear_plan()
+        os.environ.pop(faultinject.ENV_PLAN)
+        ref = dense_stack(4)
+        rtr = PipelineTrainer(ref, stages=4, n_micro=4, data=2)
+        faultinject.set_plan(faultinject.FaultPlan(
+            [{"site": "pipeline/stage", "kind": "device_loss",
+              "index": 2, "stage": 1}]))
+        with pytest.raises(faultinject.DeviceLostError):
+            rtr.fit(make_it(), epochs=2, batch_size=32)
+        faultinject.clear_plan()
+        cursor = (int(ref._epoch - ref._fit_epoch0),
+                  int(ref._steps_in_epoch))
+        fresh = dense_stack(4)
+        fresh._params = {k: {n: a.detach().clone() for n, a in v.items()}
+                         for k, v in ref._params.items()}
+        fresh._updater_state = None
+        fresh._iteration, fresh._epoch = ref._iteration, ref._epoch
+        tr3 = PipelineTrainer(fresh, stages=3, n_micro=4, data=2)
+        c3 = Collect()
+        tr3.set_listeners(c3)
+        tr3.fit(make_it(), epochs=2, batch_size=32, resume_cursor=cursor)
+        assert c.losses[2:] == c3.losses
+        assert params_equal(model, fresh)
+
+    def test_remap_refused_falls_back_to_restart(self, tmp_path):
+        """One surviving stage is below the remap gate: checkpoint-restart
+        owns the recovery."""
+        from deeplearning4j_tpu_torch.parallel import TrainingSupervisor
+
+        x, y = synth(4 * 32)
+
+        def make_it():
+            return NDArrayDataSetIterator(x, y, batch_size=32)
+
+        faultinject.set_plan(faultinject.FaultPlan(
+            [{"site": "pipeline/stage", "kind": "device_loss",
+              "index": 2, "stage": 1}]))
+        model = dense_stack(4)
+        tr = PipelineTrainer(model, stages=2, n_micro=4, data=1)
+        c = Collect()
+        tr.set_listeners(c)
+        res = TrainingSupervisor(tr, str(tmp_path),
+                                 save_every_n_iterations=2,
+                                 elastic_grow=False).fit(make_it, epochs=1)
+        assert res.status == "completed"
+        assert res.restarts == 1
+        assert [h["policy"] for h in res.history] == ["restart"]
+        assert tr.stages_count == 2   # never remapped
+        # the healed run's losses are bitwise an uninterrupted run's
+        ref = dense_stack(4)
+        rtr = PipelineTrainer(ref, stages=2, n_micro=4, data=1)
+        rc = Collect()
+        rtr.set_listeners(rc)
+        rtr.fit(make_it(), epochs=1, batch_size=32)
+        assert c.losses[-4:] == rc.losses
+        assert params_equal(model, ref)
 
     def test_slow_and_wedge_stage_kinds(self):
         x, y = synth(2 * 32)
