@@ -697,6 +697,46 @@ Phases (each fails the run with a nonzero exit if it fails):
                (staging, the wait for the peer, the all_gather; the drain
                of the rank's queued work apart), the steps with a group
                commit and the first step.
+59. observed-resnet50-fit -- ResNet-50 as bench.py trains it (bf16 compute,
+               Nesterovs with fused_update, bf16 state), batch 32, 10
+               steps through ComputationGraph.fit with the executable census
+               on (common/xprof.py) and a StatsListener collecting every 4
+               iterations: graph/fit_step one generation after the first
+               step and one call a step; pallas/update_bucket's analytic
+               bytes for 25,557,032 elements (16 B each) and one
+               fused_update launch a step; steps 3-10 in a steady_state
+               region (common/tracecheck.py) with no compile, no trace/*
+               delta and no more synchronizing CUDA calls than the
+               listener's counted readbacks; a batch of 16 inside a second
+               region raises SteadyStateViolation; the fit watermark above 0
+               and under max_memory_allocated; the census's flops for one
+               step exactly 16 x FlopCounterMode's count of the same step on
+               the CPU at batch 2. Prints, with no limit, the census's cost
+               in turns (on, off, five each) and the roofline row with its
+               MFU against 989 TFLOP/s from the fenced step median.
+60. observed-serving -- phase 43's ResNet-50 behind ServingEngine (bf16,
+               two slots, the ladder 1-32) under the census, the default SLOs
+               and a gold p99 SLO (1 s over a 2 s window) on a watchtower
+               evaluating every 0.1 s: serving/bucket one variant a (shape,
+               slot) after warmup and a serving_warmup watermark; a
+               closed-loop burst (4 clients x 10 gold requests) inside a
+               steady_state region with no new generation, trace/serving_infer
+               flat and 53 bn_act launches a bucket forward; an overload
+               burst (+1.2 s a dispatch) pages the p99 SLO, whose incident
+               GET /api/incidents and ?id= serve, with a dl4j_alert_state
+               row of 2 in /api/metrics and last_incident in /api/health;
+               after the load, manual evaluations clear the page on the
+               clear_ticks-th; the incident's chain starts at the injected
+               fault and the page (printed whole).
+61. observed-supervisor -- phase 55's supervised ResNet-50 at one epoch of 6
+               batches of 32, a train/step crash at dispatch 3, a watchtower
+               installed: one incident whose chain runs cause -> detection
+               -> mitigation -> recovery; memcensus.json beside
+               blackbox.jsonl with the card's allocator figures; the healed
+               run bitwise the unsupervised one; a StatsListener into a
+               TensorBoardStatsStorage writes event files whose scores
+               read back as float32. Prints CrashReportingUtil's report
+               (its totals) at batch 32 beside the card's measured peak.
 
 Then it prints the kernels line (one JSON object) and, last, the device line
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
@@ -12063,6 +12103,603 @@ def phase_process_group(smi: str, dev) -> dict:
     return out
 
 
+# --- phases 59-61: observability ---------------------------------------------
+OB_BATCH = 32                 # bench.py's resnet50 batch per card
+OB_STEPS = 10
+OB_COLLECT = 4                # StatsListener's cadence in the steady region
+OB_CPU_BATCH = 2              # the CPU flop count's batch
+OB_TURNS = 5                  # census on and off, alternating, five each
+BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
+OB_CLIENTS = 4                # the steady closed-loop burst
+OB_REQS = 10                  # requests a client
+# the burst SLO's rolling p99 window: long enough to hold a gold answer
+# while slowed dispatches land one a slot every OB_SLOW_S, so the reading
+# (from one answer up) stays bad through the burst and its drain
+OB_P99_WINDOW_S = 2.0
+# ... and its ceiling: far above a closed loop's tail (phase 43 prints its
+# p99; one slow answer in a window is that window's p99, and it pages), so
+# steady load on a slower host stays clear of it
+OB_P99_MS = 1000.0
+# the overload's injected dispatch delay, longer than the ceiling: every
+# answer of the burst waits out one such dispatch, so the page fires
+# whatever the host's speed
+OB_SLOW_S = 1.2
+OB_BURST_S = 1.5
+OB_CLEAR = 3                  # clear_ticks of every SLO of phase 60
+OB_CRASH_AT = 3               # phase 61's crash, a dispatch ordinal
+
+
+def phase_observed_fit(smi: str, dev) -> dict:
+    """Phase 59: ResNet-50 trained as bench.py trains it, under the
+    executable census and a steady-state region (see the module
+    docstring)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from deeplearning4j_tpu_torch.common import flightrec, tracecheck, xprof
+    from deeplearning4j_tpu_torch.common.profiler import OpProfiler
+    from deeplearning4j_tpu_torch.ops import update
+    from deeplearning4j_tpu_torch.ui import InMemoryStatsStorage, StatsListener
+
+    t_phase = time.perf_counter()
+    out = {"batch": OB_BATCH, "steps": OB_STEPS}
+    # the flops of the same step on the CPU at batch 2, counted apart from
+    # the census (it is off for this fit)
+    xprof.configure(enabled=False)
+    try:
+        cpu = torch.device("cpu")
+        cm = train_model(cpu, True, "bfloat16", "bfloat16")
+        ds2 = synthetic_batch(OB_CPU_BATCH, cpu, SEED + 59)
+        t0 = time.perf_counter()
+        with FlopCounterMode(display=False) as fc:
+            cm.fit(ds2, batch_size=OB_CPU_BATCH)
+        cpu_flops = int(fc.get_total_flops())
+        cpu_s = time.perf_counter() - t0
+        del cm, ds2
+    finally:
+        xprof.configure(enabled=True)
+    check(cpu_flops > 0, "FlopCounterMode counted no flops on the CPU")
+
+    xprof.reset()
+    flightrec.reset()
+    prof = OpProfiler.get()
+    prof.reset()
+    torch.cuda.empty_cache()
+    model = train_model(dev, True, "bfloat16", "bfloat16")
+    storage = InMemoryStatsStorage()
+    model.set_listeners(StatsListener(storage, collect_every_n=OB_COLLECT,
+                                      collect_timing=False))
+    ds = synthetic_batch(OB_BATCH, dev, SEED + 59)
+    # every count set to 0 just before the path is driven
+    _reset_kernel_counts()
+    model.fit(ds, batch_size=OB_BATCH)
+    first = xprof.census()["graph/fit_step"]
+    check(first["generations"] == 1 and first["calls"] == 1,
+          f"graph/fit_step after the first step: {first}")
+    model.fit(ds, batch_size=OB_BATCH)
+    with tracecheck.steady_state(
+            "observed fit, steps 3-10",
+            max_host_syncs=(OB_STEPS - 2) // OB_COLLECT) as region:
+        for _ in range(OB_STEPS - 2):
+            model.fit(ds, batch_size=OB_BATCH)
+    torch.cuda.synchronize()
+    launches = update.fused_update_launches
+    rep = region.report()
+    census = xprof.census()
+    fit_row, upd_row = census["graph/fit_step"], census["pallas/update_bucket"]
+    check(fit_row["generations"] == 1 and fit_row["calls"] == OB_STEPS,
+          f"graph/fit_step after {OB_STEPS} steps: {fit_row}")
+    check(launches == OB_STEPS,
+          f"fused_update launched {launches} times in {OB_STEPS} steps")
+    want_bytes = 16 * RESNET50_PARAMS   # p, g read, p written (f32), v r/w
+    check(upd_row["cost"] == {"flops": 5.0 * RESNET50_PARAMS,
+                              "bytes_accessed": float(want_bytes)}
+          and upd_row["calls"] == OB_STEPS,
+          f"pallas/update_bucket {upd_row} (want {want_bytes} bytes)")
+    check(rep["compiles"] == 0 and not rep["counter_deltas"]
+          and rep["readbacks"] == (OB_STEPS - 2) // OB_COLLECT
+          and rep["sync_warnings"] <= rep["readbacks"],
+          f"steady region: {rep}")
+    gpu_flops = int(fit_row["cost"]["flops"])
+    ratio = OB_BATCH // OB_CPU_BATCH
+    check(gpu_flops == ratio * cpu_flops,
+          f"the census counted {gpu_flops} flops a step at batch "
+          f"{OB_BATCH}; FlopCounterMode on the CPU at batch {OB_CPU_BATCH} "
+          f"{cpu_flops} (x{ratio} = {ratio * cpu_flops})")
+    out.update(census_fit=fit_row, census_update=upd_row,
+               launches=launches, region=rep, cpu_flops=cpu_flops,
+               cpu_flop_count_s=cpu_s)
+    log(f"[observed-fit] {OB_STEPS} steps at batch {OB_BATCH}: "
+        f"graph/fit_step {fit_row['calls']} calls, 1 generation (first "
+        f"call {fit_row['compile_s']:.3f} s, counted); "
+        f"pallas/update_bucket {upd_row['cost']['bytes_accessed']:.0f} B "
+        f"and {upd_row['cost']['flops']:.0f} flops a launch, "
+        f"{launches} fused_update launches; steps 3-10 steady: 0 compiles, "
+        f"no trace/* delta, {rep['sync_warnings']} synchronizing CUDA calls "
+        f"against {rep['readbacks']} counted readbacks; {gpu_flops} flops a "
+        f"step = {ratio} x {cpu_flops} on the CPU at batch {OB_CPU_BATCH} "
+        f"({cpu_s:.1f} s)")
+
+    # the census's cost, in turns: on against off, one fenced step each
+    model.set_listeners()
+    turns = {True: [], False: []}
+    host = {True: [], False: []}
+    for k in range(2 * OB_TURNS):
+        on = k % 2 == 0
+        xprof.configure(enabled=on)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.fit(ds, batch_size=OB_BATCH)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        turns[on].append((t2 - t0) * 1e3)
+        host[on].append((t1 - t0) * 1e3)
+    xprof.configure(enabled=True)
+    med = {on: statistics.median(v) for on, v in turns.items()}
+    hmed = {on: statistics.median(v) for on, v in host.items()}
+    # the census's own cost a dispatch (host time): a no-op through a
+    # census wrapper against the bare call on one card tensor, and one
+    # memory watermark (a fit's per-epoch sample), each in turns, on a
+    # census of their own so the phase's rows stay as they are
+    probe = torch.zeros(OB_BATCH, device=dev)
+    side = xprof.ExecutableCensus()
+    bare = lambda t: t  # noqa: E731
+    wrapped = side.register_jit("graph/fit_step", bare)
+    per = {True: [], False: []}
+    wm_us = []
+    for k in range(2 * OB_TURNS):
+        f = wrapped if k % 2 == 0 else bare
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            f(probe)
+        per[k % 2 == 0].append((time.perf_counter() - t0) * 1e3)
+        if k % 2 == 0:
+            t0 = time.perf_counter()
+            side.memory_watermark("probe")
+            wm_us.append((time.perf_counter() - t0) * 1e6)
+    dispatch_us = statistics.median(per[True]) - statistics.median(
+        per[False])
+    out.update(census_dispatch_us=dispatch_us,
+               watermark_us=statistics.median(wm_us))
+    xprof.note_measured("graph/fit_step", med[True] / 1e3)
+    row = xprof.roofline()["graph/fit_step"]
+    mfu = row.get("mfu", 0.0)
+    out.update(step_ms_census_on=turns[True], step_ms_census_off=turns[False],
+               host_ms_census_on=host[True], host_ms_census_off=host[False],
+               roofline=row)
+    log(f"[observed-fit] the census in turns (on, off x {OB_TURNS}): fenced "
+        f"step median {med[True]:.3f} ms on "
+        f"[{min(turns[True]):.3f}-{max(turns[True]):.3f}], "
+        f"{med[False]:.3f} ms off "
+        f"[{min(turns[False]):.3f}-{max(turns[False]):.3f}]; the "
+        f"fit call's host time {hmed[True]:.3f} ms on, {hmed[False]:.3f} ms "
+        f"off; the wrapper alone {dispatch_us:.2f} us a dispatch, one "
+        f"memory watermark {statistics.median(wm_us):.1f} us (medians of "
+        f"{OB_TURNS} turns each); {smi}")
+    log(f"[observed-fit] roofline graph/fit_step: {row['step_s'] * 1e3:.3f} "
+        f"ms fenced, {fit_row['cost']['flops']:.4g} flops (aten operators, "
+        f"counted on the first call), "
+        f"{row.get('effective_flops_per_s', 0):.4g} flop/s, MFU {mfu:.4f} "
+        f"against {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s "
+        f"(bf16 peak), arithmetic intensity "
+        f"{row.get('arithmetic_intensity', 0):.1f} ({row.get('bound')}); "
+        f"{smi}")
+
+    # a new batch size inside a region: a new generation, a violation
+    ds16 = synthetic_batch(OB_BATCH // 2, dev, SEED + 60)
+    raised = None
+    try:
+        with tracecheck.steady_state("observed fit, a new batch size"):
+            model.fit(ds16, batch_size=OB_BATCH // 2)
+    except tracecheck.SteadyStateViolation as e:
+        raised = e
+    check(raised is not None and raised.report["compiles"] >= 1,
+          "a batch of 16 inside a steady-state region raised nothing")
+    check(any(e["attrs"]["label"] == "observed fit, a new batch size"
+              for e in flightrec.events("tracecheck/violation")),
+          "no tracecheck/violation event")
+    torch.cuda.synchronize()
+    wm = xprof.watermarks().get("fit", {})
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(0 < wm.get("peak_live_bytes", 0) <= peak,
+          f"fit watermark {wm} against max_memory_allocated {peak}")
+    out.update(violation=str(raised).splitlines()[0], watermark=wm,
+               max_memory_allocated=peak)
+    log(f"[observed-fit] a batch of {OB_BATCH // 2} in a region: "
+        f"{str(raised).splitlines()[0]}; fit watermark peak "
+        f"{wm['peak_live_bytes']} B over {wm['samples']} samples (the "
+        f"allocator's peak {peak} B)")
+    del model, ds, ds16
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def _ob_get(port: int, path: str):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=30) as r:
+        return r.read()
+
+
+def phase_observed_serving(smi: str, dev) -> dict:
+    """Phase 60: ResNet-50 behind ServingEngine as in phase 43, under the
+    census, a steady-state region and the SLO watchtower (see the module
+    docstring)."""
+    import json as _json
+    import tempfile
+
+    from deeplearning4j_tpu_torch.common import (faultinject, flightrec,
+                                                 tracecheck, watchtower, xprof)
+    from deeplearning4j_tpu_torch.common.profiler import OpProfiler
+    from deeplearning4j_tpu_torch.common.watchtower import (
+        OK, PAGE, SLO, Watchtower, threshold_sampler)
+    from deeplearning4j_tpu_torch.ops import epilogue
+    from deeplearning4j_tpu_torch.parallel import ServingEngine
+    from deeplearning4j_tpu_torch.ui import UIServer
+
+    t_phase = time.perf_counter()
+    prof = OpProfiler.get()
+    faultinject.clear_plan()
+    port_log = logging.getLogger("deeplearning4j_tpu_torch")
+    log_level = port_log.level
+    port_log.setLevel(logging.ERROR)
+    flightrec.configure(capacity=1 << 17)
+    flightrec.reset()
+    xprof.reset()
+    model = build_model(dev)
+    set_fused(model, True)
+    model.conf.global_conf.compute_dtype = "bfloat16"
+    rng = np.random.default_rng(SEED + 60)
+    images = rng.normal(size=(SV_REQ_MAX, 3, IMAGE, IMAGE)).astype(
+        np.float32)
+    tmp = tempfile.TemporaryDirectory(prefix="dl4j_observed_")
+    eng = tower = ui = None
+    out = {}
+    try:
+        # every count set to 0 just before the path is driven
+        prof.reset()
+        _reset_kernel_counts()
+        eng = (ServingEngine.Builder(model).buckets(SV_LADDER)
+               .input_shape((3, IMAGE, IMAGE)).workers(SV_SLOTS)
+               .max_wait_ms(2).bf16(True).pin_devices(True)
+               .devices([dev] * SV_SLOTS).queue_limit(1024)
+               .request_timeout_ms(120_000).slo_classes(_sv_classes())
+               .brownout(interval_s=0.1, depth_trigger=32, clear_ticks=5)
+               .build())
+        n_exec = len(SV_LADDER) * SV_SLOTS
+        row = xprof.census()["serving/bucket"]
+        wm = xprof.watermarks().get("serving_warmup", {})
+        check(row["variants"] == row["generations"] == n_exec
+              and row["fingerprint"]["last_variant"].endswith(
+                  f"/dev{SV_SLOTS - 1}"),
+              f"serving/bucket after warmup: {row} (want {n_exec} "
+              f"variants, one a (shape, slot))")
+        check(wm.get("samples", 0) >= 1 and wm.get("peak_live_bytes", 0) > 0,
+              f"serving_warmup watermark {wm}")
+        log(f"[observed-serving] warmup: serving/bucket {row['variants']} "
+            f"variants (buckets x slots), first forwards "
+            f"{row['compile_s']:.3f} s, {row['cost'].get('flops', 0):.4g} "
+            f"aten flops over the ladder (bn_act not counted); "
+            f"serving_warmup watermark {wm['peak_live_bytes']} B")
+
+        burst = SLO("latency-burst", threshold_sampler(
+            lambda: eng.class_recent_p99("gold", window_s=OB_P99_WINDOW_S,
+                                         min_samples=1),
+            OB_P99_MS), budget=0.1, fast_s=1.0, mid_s=2.0, slow_s=4.0,
+            page_burn=2.0, warn_burn=1e9, clear_ticks=OB_CLEAR,
+            period_s=10.0,
+            description=f"gold rolling p99 under {OB_P99_MS:g} ms")
+        slos = watchtower.default_slos(engine=eng, fast_s=1.0, mid_s=2.0,
+                                       slow_s=4.0, period_s=10.0,
+                                       clear_ticks=OB_CLEAR) + [burst]
+        tower = watchtower.install(Watchtower(
+            slos, interval_s=0.1,
+            incident_dir=os.path.join(tmp.name, "incidents"))).start()
+        ui = UIServer()
+        port = ui.enable(0)
+
+        # a closed-loop burst in steady state: no new generation, no
+        # trace/serving_infer; the syncs allowed are a dispatch's two
+        # copies (the request to the card from pageable memory, the answer
+        # back), at most one dispatch a request
+        gens0 = xprof.census()["serving/bucket"]["generations"]
+        f0, bn0 = prof.counter_value("serving/forwards"), \
+            epilogue.bn_act_launches
+        errs, lats = [], []
+
+        def client(k: int) -> None:
+            r = np.random.RandomState(SEED + 600 + k)
+            for _ in range(OB_REQS):
+                t_req = time.monotonic()
+                try:
+                    eng.output(images[:int(r.randint(1, SV_REQ_MAX + 1))],
+                               slo_class="gold")
+                except Exception as e:          # counted, then gated
+                    errs.append(repr(e))
+                    return
+                lats.append((time.monotonic() - t_req) * 1e3)
+
+        n_req = OB_CLIENTS * OB_REQS
+        t0 = time.monotonic()
+        with tracecheck.steady_state("observed serving, closed loop",
+                                     max_host_syncs=2 * n_req) as region:
+            ts = [threading.Thread(target=client, args=(k,))
+                  for k in range(OB_CLIENTS)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join()
+        wall = time.monotonic() - t0
+        rep = region.report()
+        lat_ms = (np.percentile(lats, [50, 99]).tolist() + [max(lats)]
+                  if lats else [float("nan")] * 3)
+        forwards = prof.counter_value("serving/forwards") - f0
+        bn = epilogue.bn_act_launches - bn0
+        check(not errs, f"closed-loop errors: {errs[:3]}")
+        check(xprof.census()["serving/bucket"]["generations"] == gens0
+              and rep["compiles"] == 0 and not rep["counter_deltas"],
+              f"steady serving region: {rep}")
+        check(forwards > 0 and bn == 53 * forwards,
+              f"{bn} bn_act launches over {forwards} bucket forwards "
+              f"(want 53 each)")
+        check(tower.alert_states()["latency-burst"] == OK,
+              f"the steady load tripped the burst SLO: "
+              f"{tower.alert_states()}; its answers' p50/p99/max "
+              f"{lat_ms} ms against the {OB_P99_MS:g} ms ceiling")
+        out.update(steady_region=rep, steady_forwards=forwards,
+                   bn_act_launches=bn, steady_wall_s=wall,
+                   steady_p50_p99_max_ms=lat_ms)
+        log(f"[observed-serving] steady closed loop ({OB_CLIENTS} clients x "
+            f"{OB_REQS} gold requests of 1-8 images, {wall:.2f} s, answers "
+            f"in {lat_ms[0]:.1f} / {lat_ms[1]:.1f} / {lat_ms[2]:.1f} ms "
+            f"p50/p99/max against the {OB_P99_MS:g} ms ceiling): "
+            f"{forwards} bucket forwards, {bn} bn_act launches (53 each), "
+            f"no new generation, trace/serving_infer flat, "
+            f"{rep['sync_warnings']} synchronizing CUDA calls (allowed "
+            f"{2 * n_req}); {smi}")
+
+        # the overload burst: a slow dispatch breaks the gold p99 SLO
+        faultinject.set_plan(faultinject.FaultPlan(
+            [{"site": "serving/dispatch", "kind": "slow",
+              "seconds": OB_SLOW_S, "times": 10 ** 6}]))
+        result = {}
+        bt = threading.Thread(target=lambda: result.update(over=_sv_poisson(
+            eng, images, SV_OVERLOAD_RPS, OB_BURST_S, seed=60,
+            classes=SV_CLASS_MIX)))
+        t_burst = time.monotonic()
+        bt.start()
+        paged = None
+        try:
+            deadline = time.monotonic() + OB_BURST_S + 10.0
+            while time.monotonic() < deadline:
+                if tower.alert_states().get("latency-burst") == PAGE:
+                    paged = time.monotonic() - t_burst
+                    break
+                time.sleep(0.02)
+            check(paged is not None, f"the burst paged no alert: "
+                  f"{tower.alert_states()}")
+            # while it pages: the incident and the alert row over HTTP
+            incs = [i for i in watchtower.incidents()
+                    if i["slo"] == "latency-burst"]
+            check(len(incs) == 1, f"incidents {watchtower.incidents()}")
+            iid = incs[0]["id"]
+            index = _json.loads(_ob_get(port, "/api/incidents"))
+            check(any(i["id"] == iid for i in index),
+                  f"/api/incidents lacks {iid}: {index}")
+            rep_http = _json.loads(_ob_get(port, f"/api/incidents?id={iid}"))
+            check(rep_http["slo"] == "latency-burst"
+                  and rep_http["chain"]["detection"]["name"]
+                  == "watchtower/alert",
+                  f"incident {iid} over HTTP: {rep_http.get('chain')}")
+            metrics = _ob_get(port, "/api/metrics").decode()
+            check('dl4j_alert_state{slo="latency-burst"} 2' in metrics,
+                  "/api/metrics has no paging dl4j_alert_state row")
+            health = _json.loads(_ob_get(port, "/api/health"))
+            li = health.get("last_incident") or {}
+            check(li.get("id") in {i["id"] for i in watchtower.incidents()},
+                  f"/api/health last_incident {li}")
+        finally:
+            bt.join()
+            faultinject.clear_plan()
+        over = result["over"]
+        check(not over["fail"], f"burst failures: {over['fail'][:3]}")
+
+        # the load stopped: with the evaluator stopped, manual ticks after
+        # the p99 window has emptied clear the page on the clear_ticks-th
+        tower.stop()
+        time.sleep(OB_P99_WINDOW_S + 0.5)
+        states = [tower.evaluate_now()["states"]["latency-burst"]["state"]
+                  for _ in range(OB_CLEAR)]
+        check(states == [PAGE] * (OB_CLEAR - 1) + [OK],
+              f"the page cleared as {states} (want {OB_CLEAR - 1} held "
+              f"ticks, then ok)")
+        report = _json.loads(_ob_get(port, f"/api/incidents?id={iid}"))
+        names = {k: (report["chain"][k] or {}).get("name") for k in
+                 ("cause", "detection", "mitigation", "recovery")}
+        check(names["cause"] == "fault/fired"
+              and names["detection"] == "watchtower/alert",
+              f"incident {iid}'s chain {names}")
+        out.update(paged_after_s=paged, burst=over["shed"],
+                   clear_states=states, incident=iid, chain=names,
+                   complete=report["complete"],
+                   incidents=len(tower.incidents()))
+        log(f"[observed-serving] overload burst ({SV_OVERLOAD_RPS:.0f} "
+            f"requests/s, +{OB_SLOW_S * 1e3:.0f} ms a dispatch, "
+            f"{OB_BURST_S:g} s): latency-burst paged after {paged:.2f} s; "
+            f"incident {iid} over /api/incidents and ?id=, "
+            f"dl4j_alert_state row 2, /api/health last_incident; sheds "
+            f"{over['shed']}; cleared on manual tick {OB_CLEAR} (states "
+            f"{states}); chain {names} (complete: {report['complete']}); "
+            f"{out['incidents']} incidents in all; {smi}")
+    finally:
+        faultinject.clear_plan()
+        watchtower.uninstall()
+        if ui is not None:
+            ui.stop()
+        if eng is not None:
+            eng.shutdown()
+        port_log.setLevel(log_level)
+        tmp.cleanup()
+    del model
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def phase_observed_supervisor(smi: str, dev) -> dict:
+    """Phase 61: phase 55's supervised ResNet-50 at a smaller depth, with
+    a watchtower installed and a StatsListener into TensorBoard event
+    files (see the module docstring)."""
+    import glob
+    import tempfile
+
+    from deeplearning4j_tpu_torch.common import faultinject, watchtower, xprof
+    from deeplearning4j_tpu_torch.common.watchtower import Watchtower
+    from deeplearning4j_tpu_torch.data import NDArrayDataSetIterator
+    from deeplearning4j_tpu_torch.ops import update
+    from deeplearning4j_tpu_torch.optimize import (
+        CollectScoresIterationListener)
+    from deeplearning4j_tpu_torch.parallel import TrainingSupervisor
+    from deeplearning4j_tpu_torch.ui import (StatsListener,
+                                             TensorBoardStatsStorage,
+                                             read_scalar_events)
+    from deeplearning4j_tpu_torch.util import CrashReportingUtil
+
+    t_phase = time.perf_counter()
+    x, y = _sv_arrays(SV_BATCH * SV_BATCHES, SEED + 61)
+
+    def make():
+        return NDArrayDataSetIterator(x, y, batch_size=SV_BATCH,
+                                      shuffle=True, seed=SEED + 61)
+
+    out = {"batch": SV_BATCH, "steps": SV_BATCHES, "crash_at": OB_CRASH_AT}
+    with _Deterministic(), tempfile.TemporaryDirectory(
+            prefix="dl4j_observed_") as tmp:
+        base = train_model(dev, True, "bfloat16", "bfloat16")
+        scores = CollectScoresIterationListener()
+        base.set_listeners(scores)
+        base.fit(make(), epochs=1)
+        want = [s for _, s in scores.scores]
+        check(len(want) == SV_BATCHES and all(np.isfinite(want)),
+              f"unsupervised losses {want}")
+        xprof.reset()
+        tower = watchtower.install(Watchtower(
+            [], interval_s=0.1, incident_dir=os.path.join(tmp, "incidents")))
+        ck = os.path.join(tmp, "ckpt")
+        tb = os.path.join(tmp, "tb")
+        try:
+            torch.cuda.empty_cache()
+            model = train_model(dev, True, "bfloat16", "bfloat16")
+            storage = TensorBoardStatsStorage(tb)
+            healed, count = CollectScoresIterationListener(), _Count()
+            model.set_listeners(healed, count, StatsListener(
+                storage, collect_every_n=1, collect_timing=False))
+            torch.cuda.reset_peak_memory_stats(dev)
+            # every count set to 0 just before the path is driven
+            _reset_kernel_counts()
+            faultinject.set_plan(faultinject.FaultPlan(
+                [{"site": "train/step", "index": OB_CRASH_AT,
+                  "kind": "crash"}]))
+            try:
+                sup = TrainingSupervisor(model, ck,
+                                         save_every_n_iterations=SV_EVERY,
+                                         backoff_base_s=0.05)
+                res = sup.fit(make, epochs=1, resume="never")
+            finally:
+                faultinject.clear_plan()
+            torch.cuda.synchronize()
+            launches = update.fused_update_launches
+            peak = torch.cuda.max_memory_allocated(dev)
+            storage.close()
+            check(res.status == "completed" and res.restarts == 1,
+                  f"supervised fit: {res} history {res.history}")
+            check(launches == count.n > SV_BATCHES,
+                  f"fused_update launched {launches} times for {count.n} "
+                  f"dispatched steps (want one a step, replays included)")
+            got = [s for _, s in healed.scores]
+            check(got == want and _same_model(model, base),
+                  f"the healed run is not bitwise the unsupervised one: "
+                  f"{got} vs {want}")
+            tower.evaluate_now()
+            incs = tower.incidents()
+            check(len(incs) == 1, f"incidents: {incs}")
+            with open(incs[0]["path"]) as f:
+                rep = json.load(f)
+            chain = rep["chain"]
+            names = {k: (chain[k] or {}).get("name") for k in
+                     ("cause", "detection", "mitigation", "recovery")}
+            check(rep["complete"] and incs[0]["finalized"]
+                  and names["cause"] == "fault/fired"
+                  and names["detection"] == "supervisor/attempt_failed"
+                  and names["mitigation"] == "supervisor/restart"
+                  and names["recovery"] in ("supervisor/attempt_start",
+                                            "checkpoint/restore"),
+                  f"incident chain {names}")
+            seqs = [chain[k]["seq"] for k in
+                    ("cause", "detection", "mitigation", "recovery")]
+            check(seqs == sorted(seqs), f"chain out of order: {seqs}")
+            mc = sup.memcensus_path()
+            check(os.path.dirname(mc) == os.path.dirname(sup.blackbox_path())
+                  and os.path.exists(mc) and os.path.exists(
+                      sup.blackbox_path()),
+                  f"memcensus.json {mc} beside {sup.blackbox_path()}")
+            with open(mc) as f:
+                blob = json.load(f)
+            devs = blob["census"].get("devices", [])
+            check(devs and devs[0].get("bytes_in_use", 0) > 0
+                  and devs[0].get("bytes_limit", 0) > 0
+                  and "peak_bytes_in_use" in devs[0],
+                  f"memcensus has no allocator figures: {blob['census']}")
+            files = glob.glob(os.path.join(tb, "events.out.tfevents.*"))
+            events = [e for p in files for e in read_scalar_events(p)]
+            by_step = {}
+            for step, tag, v in events:
+                if tag == "score":
+                    by_step.setdefault(step, set()).add(v)
+            check(files and sorted(by_step) == [i for i, _ in healed.scores]
+                  and all(vals == {float(np.float32(s))}
+                          for (i, s), vals in zip(
+                              healed.scores,
+                              (by_step[i] for i, _ in healed.scores))),
+                  f"TensorBoard scores {by_step} against {healed.scores}")
+            report = CrashReportingUtil.generate_memory_status_report(
+                model, minibatch=SV_BATCH)
+        finally:
+            watchtower.uninstall()
+    keep = [ln for ln in report.splitlines()
+            if ln.startswith(("=== deeplearning4j", "device 0",
+                              "total parameters", "activation estimate"))]
+    act = re.search(r"activation estimate \(fwd, minibatch \d+\): "
+                    r"([0-9.]+) MiB", report)
+    check(act is not None, "the crash report has no activation estimate")
+    out.update(launches=launches, incident_chain=names, peak_bytes=peak,
+               activation_estimate_mib=float(act.group(1)),
+               report_lines=len(report.splitlines()),
+               tensorboard_scalars=len(events))
+    log(f"[observed-supervisor] a train/step crash at dispatch "
+        f"{OB_CRASH_AT}: one incident, "
+        f"{' -> '.join(names[k] for k in ('cause', 'detection', 'mitigation', 'recovery'))}; "
+        f"memcensus.json beside blackbox.jsonl (device 0: "
+        f"{devs[0]['bytes_in_use']} B in use of {devs[0]['bytes_limit']}); "
+        f"losses, parameters, BN statistics and momentum bitwise the "
+        f"unsupervised fit's; {launches} fused_update launches; "
+        f"{len(events)} scalars read back from {len(files)} event file(s), "
+        f"the scores as float32; {smi}")
+    for ln in keep:
+        log(f"[observed-supervisor] report: {ln}")
+    log(f"[observed-supervisor] report ({len(report.splitlines())} lines): "
+        f"activation estimate {float(act.group(1)):.2f} MiB at batch "
+        f"{SV_BATCH} (forward, bf16) beside the card's measured peak over "
+        f"the supervised fit {peak / 2 ** 20:.2f} MiB "
+        f"(max_memory_allocated); {smi}")
+    del model, base
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
@@ -12185,6 +12822,13 @@ def main(argv=None) -> int:
                 "process_group": phase_process_group(smi, dev)}
         heal["seconds"] = time.perf_counter() - t_sv
         log(f"[supervisor] phases 55-58 took {heal['seconds']:.1f} s")
+        torch.cuda.empty_cache()
+        t_ob = time.perf_counter()
+        observed = {"fit": phase_observed_fit(smi, dev)}
+        observed["serving"] = phase_observed_serving(smi, dev)
+        observed["supervisor"] = phase_observed_supervisor(smi, dev)
+        observed["seconds"] = time.perf_counter() - t_ob
+        log(f"[observability] phases 59-61 took {observed['seconds']:.1f} s")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -12212,6 +12856,7 @@ def main(argv=None) -> int:
             es_eval["evaluation"]["bn_act_launches"],
         "launches_keras_resnet50": keras_r50["bn_act_launches"],
         "launches_serving_tier": sv["launches"],
+        "launches_observed_serving": observed["serving"]["bn_act_launches"],
         "forwards": {n: {k: f[k] for k in ("launches", "ms", "bound_ms",
                                            "share")}
                      for n, f in timing["shapes"].items()}})
@@ -12283,7 +12928,11 @@ def main(argv=None) -> int:
                 for r in heal["process_group"]["uninterrupted"]["ranks"]],
             "process_group_after_restart_per_rank": [
                 r["launches"]
-                for r in heal["process_group"]["restarted"]["ranks"]]}})
+                for r in heal["process_group"]["restarted"]["ranks"]]},
+        "launches_observed": {
+            "resnet50_fit_census": observed["fit"]["launches"],
+            "resnet50_supervised_watchtower":
+                observed["supervisor"]["launches"]}})
     bp = bag_timing["path"]
     kernels.append({
         "name": "embedding_bag", "route": "cuda",
@@ -12430,7 +13079,7 @@ def main(argv=None) -> int:
                       "serving_tier": sv, "fleet_sweep": fleet,
                       "fleet_lifecycle": fleet_life, "fault_sites": faults,
                       "rl": rl_r, "model_parallel": mp,
-                      "supervisor": heal},
+                      "supervisor": heal, "observability": observed},
                      default=str),
           flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

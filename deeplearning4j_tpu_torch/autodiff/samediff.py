@@ -66,11 +66,13 @@ import io
 import json
 import zipfile
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
 
+from ..common import xprof
 from ..common.dtypes import tensor_from_numpy, torch_dtype
 from ..common.environment import resolve_device
 from ..learning.updaters import Adam, GradientUpdater
@@ -739,10 +741,16 @@ class SameDiff:
         """Reference sd.output(map, names): run the graph for ``outputs``;
         ``training`` turns the dropout and noise ops on."""
         outputs = tuple(outputs)
+        # one census wrapper per (outputs, training): the JAX jit cache key
+        run = xprof.censused(
+            self, "samediff/exec",
+            lambda feeds: self._run(outputs, feeds, training=training),
+            key=(outputs, training))
         with torch.inference_mode():
-            res = self._run(outputs, self._feeds(placeholders),
-                            training=training)
+            res = run(self._feeds(placeholders))
         return dict(zip(outputs, res))
+
+
 
     def batch_output(self, placeholders=None, outputs=None):
         return self.output(placeholders or {}, outputs or [])
@@ -755,10 +763,17 @@ class SameDiff:
         trainable variable), by autograd over the walk (reference
         sd.calculateGradients)."""
         wrt = tuple(wrt) if wrt is not None else tuple(self.variables())
+        grad = xprof.censused(
+            self, "samediff/grad",
+            lambda feeds: self._gradients(feeds, loss, wrt), key=(loss, wrt))
+        return grad(self._feeds(placeholders))
+
+    def _gradients(self, feeds, loss: str, wrt: Tuple[str, ...]
+                   ) -> Dict[str, torch.Tensor]:
         leaves = {n: self._vars[n].value.detach().requires_grad_(True)
                   for n in wrt}
         with torch.enable_grad():
-            out = self._run((loss,), self._feeds(placeholders), leaves)[0]
+            out = self._run((loss,), feeds, leaves)[0]
             grads = torch.autograd.grad(torch.sum(out), list(leaves.values()),
                                         allow_unused=True)
         return {n: torch.zeros_like(leaves[n]) if g is None else g
@@ -864,7 +879,8 @@ class SameDiff:
         if self._updater_state is None:
             self._updater_state = self._training_config.updater.init(
                 {TREE: params})
-        step = self._train_step_fn(loss_name)
+        step = xprof.register_jit("samediff/fit_step",
+                                  self._train_step_fn(loss_name))
         history = History()
         listeners = listeners or []
         for _ in range(epochs):

@@ -24,10 +24,10 @@ trace event format: spans as B/E pairs, instants as ``i``,
 ``OpProfiler.time_section`` durations as complete ``X`` events, one lane
 per thread), ``GET /api/trace`` and ``GET /api/metrics`` on
 ``ui/server.UIServer``, and :func:`dump_blackbox` (the last N events as
-JSONL). The port emits ``serving/*``, ``inference/resurrected``,
-``autoscale/*``, ``fault/fired``, ``checkpoint/commit``,
-``integrity/scrub``, ``integrity/quarantine`` and ``profiler/section``;
-the other registered names belong to modules it does not have yet.
+JSONL). Among the emitters: the serving tier, the supervisor and the
+cluster runtime, fault injection, checkpoints, the executable census
+(``xprof/*``), the steady-state check (``tracecheck/violation``) and the
+SLO watchtower (``watchtower/*``).
 
 Stdlib only, so every module (the profiler included) can emit without an
 import cycle.
@@ -446,7 +446,7 @@ class FlightRecorder:
         """Write :meth:`chrome_trace` atomically (tmp + rename).
         Returns the number of trace events written."""
         doc = self.chrome_trace(corr=corr)
-        tmp = path + ".tmp"
+        tmp = tmp_path(path)
         with open(tmp, "w", encoding="utf-8") as f:
             json.dump(doc, f)
         os.replace(tmp, path)
@@ -461,12 +461,20 @@ class FlightRecorder:
         evs = self.snapshot()
         if last_n is not None:
             evs = evs[-max(0, int(last_n)):]
-        tmp = path + ".tmp"
+        tmp = tmp_path(path)
         with open(tmp, "w", encoding="utf-8") as f:
             for e in evs:
                 f.write(json.dumps(e, default=str) + "\n")
         os.replace(tmp, path)
         return path
+
+
+def tmp_path(path: str) -> str:
+    """The temporary name an atomic write of ``path`` goes through: one of
+    its own for each process and thread, so two writers of one file (the
+    ranks of a group share a checkpoint directory) never rename each
+    other's half-written file away."""
+    return f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
 
 
 # -- the process-wide recorder + module-level facade ----------------------

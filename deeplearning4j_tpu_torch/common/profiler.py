@@ -43,9 +43,8 @@ The counterpart of ``deeplearning4j_tpu/common/profiler.py``'s
 
 :data:`OpProfiler.LEDGERS` lists every derived ledger, the one list that
 :meth:`OpProfiler.print_statistics`, ``/api/health`` and ``/api/metrics``
-iterate. The ledgers of modules the port does not have yet read their
-counters all the same and are empty (``xla`` and ``watchtower`` read no
-counters and are always empty).
+iterate; ``xla`` reads the executable census (``common/xprof.py``) and
+``watchtower`` the installed SLO watchtower (``common/watchtower.py``).
 
 :meth:`OpProfiler.start` / :meth:`OpProfiler.stop` (or ``with
 trace(logdir)``) run ``torch.profiler`` over CPU and CUDA activity and
@@ -352,11 +351,21 @@ class OpProfiler:
         return self._with_prefix("precision/")
 
     def xla_stats(self) -> Dict[str, float]:
-        """The JAX package's executable census (xprof, not ported): empty."""
-        return {}
+        """The executable census (``common/xprof.py``): per-executable
+        calls, mean dispatch ms, generations, first-call wall, counted
+        flops/bytes, arithmetic intensity, MFU and the compute-vs-memory
+        verdict, plus the census totals and the per-phase memory
+        watermarks, under slash-keys. Empty until a step registers."""
+        try:
+            from . import xprof
+
+            return xprof.ledger()
+        except Exception:       # census failure: ledger-silent
+            return {}
 
     def tracecheck_stats(self) -> Dict[str, float]:
-        """Steady-state regions (not ported yet: empty)."""
+        """Steady-state regions (``common/tracecheck.py``): regions armed
+        and regions that tripped."""
         return self._with_prefix("tracecheck/")
 
     def fault_stats(self) -> Dict[str, float]:
@@ -374,8 +383,16 @@ class OpProfiler:
         return out
 
     def watchtower_stats(self) -> Dict[str, float]:
-        """The SLO watchtower (not ported): empty."""
-        return {}
+        """The SLO watchtower (``common/watchtower.py``): per-SLO alert
+        state (0 ok / 1 warn / 2 page), fast-window burn rate and error
+        budget remaining, plus evaluation/incident totals. Empty until a
+        ``Watchtower`` is installed."""
+        try:
+            from . import watchtower
+
+            return watchtower.stats()
+        except Exception:   # watchtower absent/uninstalled: ledger-silent
+            return {}
 
     def integrity_stats(self) -> Dict[str, float]:
         """Replica consistency and the checkpoint scrubber: checks,

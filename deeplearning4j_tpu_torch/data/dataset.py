@@ -34,6 +34,17 @@ def _take(a, idx):
     return np.asarray(a)[idx]
 
 
+def _span(a, start: int, stop: int):
+    """Rows ``start:stop`` of a numpy array or a tensor, as a copy. A
+    tensor's rows are sliced and copied on its device: an index tensor
+    would travel from the host and synchronise with the card."""
+    if a is None:
+        return None
+    if isinstance(a, torch.Tensor):
+        return a[start:stop].clone()
+    return np.asarray(a)[start:stop].copy()
+
+
 def _concat(parts):
     if parts[0] is None:
         return None
@@ -78,7 +89,8 @@ class DataSet:
         if drop_remainder:
             n = (n // batch_size) * batch_size
         for i in range(0, n, batch_size):
-            yield self._rows(np.arange(i, min(i + batch_size, n)))
+            yield DataSet(*(_span(a, i, min(i + batch_size, n))
+                            for a in self._arrays()))
 
     @staticmethod
     def merge(datasets: Sequence["DataSet"]) -> "DataSet":

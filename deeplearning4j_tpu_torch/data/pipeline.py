@@ -60,7 +60,7 @@ import logging
 import numpy as np
 import torch
 
-from ..common import faultinject, flightrec
+from ..common import faultinject, flightrec, xprof
 from ..common.background import staged_iter
 from ..common.profiler import OpProfiler
 from .dataset import DataSet, MultiDataSet
@@ -319,6 +319,9 @@ def run_epochs(data: Any, epochs: int, batch_size: Optional[int],
                           else [[b] for b in group]):
                     dispatch(g)
             on_epoch()
+            # one memory census per epoch (the walk /api/health serves)
+            # feeds the per-phase peak gauges: epoch cadence, never per step
+            xprof.memory_watermark("fit")
 
 
 def poison_nan(batch):

@@ -34,6 +34,7 @@ from typing import Iterator, List, Optional
 import numpy as np
 import torch
 
+from ..common import xprof
 from ..common.background import prefetch_iter
 from ..common.environment import resolve_device
 from .dataset import DataSet
@@ -266,7 +267,9 @@ class AsyncDataSetIterator(DataSetIterator):
             staged = [None if t is None else t.to(self.device)
                       for t in item]
         if self.feature_transform is not None and staged[0] is not None:
-            staged[0] = self.feature_transform(staged[0])
+            staged[0] = xprof.censused(
+                self, "data/feature_transform", self.feature_transform)(
+                staged[0])
         return DataSet(*staged)
 
     def __iter__(self) -> Iterator[DataSet]:

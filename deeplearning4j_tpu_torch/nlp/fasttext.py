@@ -61,6 +61,8 @@ def char_ngrams(word: str, minn: int, maxn: int) -> List[str]:
 
 
 class FastText(SequenceVectors):
+    _HOST_BLOCK_SITE = "nlp/fasttext_block"
+
     class Builder:
         def __init__(self):
             self._kw = {}

@@ -33,6 +33,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..common import xprof
 from ..common.environment import resolve_device
 from .lookup_table import InMemoryLookupTable
 from .text import (CollectionSentenceIterator, DefaultTokenizerFactory,
@@ -287,11 +288,11 @@ class Glove(WordVectors):
         trip = [torch.from_numpy(a).to(dev) for a in host_trip]
         t1 = time.perf_counter()
         losses = []
+        block = xprof.censused(self, "nlp/glove_block", self._block)
         for _ep in range(self.epochs):
             cols = self._epoch_columns(trip, rng)
             for r0 in range(0, cols[0].shape[0], R):
-                losses.append(self._block(tables, *(c[r0:r0 + R]
-                                                    for c in cols)))
+                losses.append(block(tables, *(c[r0:r0 + R] for c in cols)))
         vals = (torch.stack([losses[0]] + losses[-20:]).cpu().numpy()
                 if losses else np.zeros(2, np.float32))
         w, wc, b, bc = (t.cpu().numpy() for t in tables[:4])

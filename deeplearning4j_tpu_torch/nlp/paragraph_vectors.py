@@ -39,6 +39,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..common import xprof
 from ..ops import embeddings as E
 from .text import DefaultTokenizerFactory, LabelAwareIterator, TokenizerFactory
 from .vocab import huffman_arrays, subsample_keep_probs, unigram_table
@@ -298,8 +299,9 @@ class ParagraphVectors(SequenceVectors):
         for _epoch in range(self.epochs):
             if self.sampling > 0:
                 u = torch.rand(ids_full.shape[0], generator=gen, device=dev)
-                slot, n_valid = _subsample_slots(ids_full, keep_dev, n_raw,
-                                                 u, W)
+                slot, n_valid = xprof.censused(
+                    self, "nlp/pv_subsample", _subsample_slots)(
+                    ids_full, keep_dev, n_raw, u, W)
                 ids_dev, sent_dev, labs_dev = (
                     _compact(ids_full, slot, 0),
                     _compact(sent_full, slot, SENT_PAD),
@@ -310,7 +312,8 @@ class ParagraphVectors(SequenceVectors):
             pos_map = None
             if not is_dm:
                 u = torch.rand(npad + pv_span, generator=gen, device=dev)
-                pos_map = _pos_map(n_valid, u)
+                pos_map = xprof.censused(self, "nlp/pv_pos_map",
+                                         _pos_map)(n_valid, u)
             for _it in range(self.iterations):
                 def ends(p0, span, seen=words_seen):
                     return span_rates(*rates, seen, p0, span, n_loop, n_exp,
@@ -330,11 +333,13 @@ class ParagraphVectors(SequenceVectors):
                     if is_dm:
                         b = torch.randint(1, W + 1, (pv_span,),
                                           generator=gen, device=dev)
-                        stats.add(*self._dm_block(
+                        stats.add(*xprof.censused(
+                            self, "nlp/pv_dm_block", self._dm_block)(
                             syn0, syn1, ids_dev, sent_dev, labs_dev, n_valid,
                             negpool, p0, lrs, b, n_blocks))
                     else:
-                        stats.add(*self._dbow_block(
+                        stats.add(*xprof.censused(
+                            self, "nlp/pv_dbow_block", self._dbow_block)(
                             syn0, syn1, ids_dev, labs_dev, pos_map, n_valid,
                             negpool, p0, lrs, n_blocks))
                     n_blocks += 1

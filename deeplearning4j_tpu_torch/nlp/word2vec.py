@@ -95,6 +95,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..common import xprof
 from ..common.background import prefetch_iter
 from ..common.environment import resolve_device
 from ..common.profiler import OpProfiler
@@ -192,6 +193,8 @@ class SequenceVectors(WordVectors):
     #: Huffman root, so one round sums that many updates into its row (the
     #: JAX package's stability cap; larger rounds reach NaN there)
     HS_MAX_ROUND = 128
+    #: the executable-census site of the host pair block (FastText's own)
+    _HOST_BLOCK_SITE = "nlp/w2v_sg_block"
 
     def __init__(self, *, layer_size: int = 100, window: int = 5,
                  learning_rate: float = 0.025, min_learning_rate: float = 1e-4,
@@ -606,6 +609,8 @@ class SequenceVectors(WordVectors):
             b = torch.randint(1, W + 1, (S,), generator=gen, device=dev)
             return self._sg_pack(ids, sent, n_valid, p0, b)
 
+        sg_block = xprof.censused(self, "nlp/w2v_table_block",
+                                  self._sg_block)
         nxt = pack(blocks[0][0]) if blocks else None
         for i, (_p0, lr0, lr1, blk_id) in enumerate(blocks):
             packed_c, packed_x, pending = nxt
@@ -614,8 +619,8 @@ class SequenceVectors(WordVectors):
             count = pending.get()
             stats.readback_wait += time.perf_counter() - t0
             stats.readbacks += 1
-            stats.add(*self._sg_block(syn0, syn1, packed_c, packed_x, count,
-                                      negpool, lr0, lr1, blk_id))
+            stats.add(*sg_block(syn0, syn1, packed_c, packed_x, count,
+                                negpool, lr0, lr1, blk_id))
 
     # -- the fit -------------------------------------------------------------
     def _train_windowed(self, corpus: List[np.ndarray],
@@ -655,7 +660,8 @@ class SequenceVectors(WordVectors):
         for _epoch in range(self.epochs):
             if self.sampling > 0:
                 u = torch.rand(ids_full.shape[0], generator=gen, device=dev)
-                ids_dev, sent_dev, n_valid = _subsample(
+                ids_dev, sent_dev, n_valid = xprof.censused(
+                    self, "nlp/w2v_subsample", _subsample)(
                     ids_full, sent_full, keep_dev, n_raw, u, W)
             else:
                 ids_dev, sent_dev, n_valid = ids_full, sent_full, n_raw
@@ -671,7 +677,8 @@ class SequenceVectors(WordVectors):
                 for p0 in starts:
                     b = torch.randint(1, W + 1, (span,), generator=gen,
                                       device=dev)
-                    stats.add(*self._cbow_block(
+                    stats.add(*xprof.censused(
+                        self, "nlp/w2v_cbow_block", self._cbow_block)(
                         syn0, syn1, ids_dev, sent_dev, n_valid, negpool, p0,
                         lrs_all[n_blocks], b, n_blocks))
                     n_blocks += 1
@@ -924,7 +931,9 @@ class SequenceVectors(WordVectors):
                 bits = None
                 if not self.use_hs:
                     bits = self._host_bits((R, B, K), n_blocks, gen)
-                stats.add(*self._host_block(syn0, syn1, cols, bits))
+                stats.add(*xprof.censused(
+                    self, self._HOST_BLOCK_SITE, self._host_block)(
+                    syn0, syn1, cols, bits))
                 n_blocks += 1
         finally:
             blocks.close()

@@ -42,6 +42,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..common import xprof as _xprof
 from ..common.dtypes import tensor_from_numpy, torch_dtype
 from ..common.tree import get_path, leaf_paths, set_path, skeleton, tree_map
 from ..data import pipeline as _pipe
@@ -265,9 +266,12 @@ class TrainableNetwork:
         step's parameters, updater state and layer states put back to their
         pre-step values on the card. Returns the loss."""
         tele = self._telemetry
+        # the step under the census: a truncated-BPTT segment is its own
+        core = self._census_fn("tbptt_step" if extra else "fit_step",
+                               self._step_core)
         if tele is None:
             self._aux = None
-            return self._step_core(store, batch, iteration, *extra)
+            return core(store, batch, iteration, *extra)
         guard = tele.nan_guard
         with torch.no_grad():
             if store is not None:
@@ -280,7 +284,7 @@ class TrainableNetwork:
                 old_params = _tel.clone_tree(self._params)
                 old_upd = self._updater_state
             old_states = _tel.clone_tree(self._states) if guard else None
-        loss = self._step_core(store, batch, iteration, *extra)
+        loss = core(store, batch, iteration, *extra)
         with torch.no_grad():
             aux = _tel.layer_stats(old_params, self._params,
                                    self._step_grads, loss)
@@ -306,6 +310,15 @@ class TrainableNetwork:
                             ok, self._updater_state, old_upd)
         self._aux = aux
         return loss
+
+    def _census_fn(self, what: str, fn: Callable, static=None):
+        """``fn`` under the executable census as ``<kind>/<what>``
+        (``common/xprof.py``; ``kind`` is ``mln`` or ``graph``), one
+        wrapper per network and name, so each network's argument
+        signatures are its own generations; ``static``: keyword arguments
+        whose values enter the signature."""
+        return _xprof.censused(self, f"{self._CENSUS_KIND}/{what}", fn,
+                               static_argnames=static)
 
     def _frozen_paths(self) -> List[tuple]:
         """The leaf paths whose parameters a step leaves unchanged (a

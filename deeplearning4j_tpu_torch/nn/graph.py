@@ -429,6 +429,7 @@ class GraphBuilder:
 class ComputationGraph(TrainableNetwork):
     """Runtime twin of the configuration."""
 
+    _CENSUS_KIND = "graph"
     #: the graph's batches may be MultiDataSets
     _allow_multi = True
 
@@ -626,9 +627,14 @@ class ComputationGraph(TrainableNetwork):
         self._check_init()
         feed = self._bind_inputs(inputs)
         with torch.inference_mode():
-            acts, _ = self._forward(self._params, self._states, feed,
-                                    training)
+            acts = self._census_fn("infer", self._infer, ("training",))(
+                feed, training=training)
         return [acts[o] for o in self.conf.network_outputs]
+
+    def _infer(self, feed, training: bool = False):
+        """The inference forward ``output`` runs (census ``graph/infer``):
+        every vertex's activation."""
+        return self._forward(self._params, self._states, feed, training)[0]
 
     def _bind_inputs(self, inputs) -> Dict[str, torch.Tensor]:
         names = self.conf.network_inputs

@@ -107,6 +107,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..common import xprof as _xprof
 from ..common.dtypes import tensor_from_numpy, torch_dtype
 from ..common.environment import resolve_device
 from ..common.tree import ShardedTensor, ShardedTree, leaf_paths, tree_map
@@ -131,6 +132,8 @@ def layer_key(i: int) -> str:
 
 
 class MultiLayerNetwork(TrainableNetwork):
+    _CENSUS_KIND = "mln"
+
     def __init__(self, conf: MultiLayerConfiguration):
         if len(conf.layers) > 9999:
             raise ValueError("at most 9999 layers")
@@ -333,9 +336,13 @@ class MultiLayerNetwork(TrainableNetwork):
         self._check_init()
         x, fmask = self._place((x, fmask))
         with torch.inference_mode():
-            out, _ = self._forward(self._params, self._states, x, training,
-                                   fmask)
-        return out
+            return self._census_fn("infer", self._infer, ("training",))(
+                x, fmask, training=training)
+
+    def _infer(self, x, fmask, training: bool = False) -> torch.Tensor:
+        """The inference forward ``output`` runs (census ``mln/infer``)."""
+        return self._forward(self._params, self._states, x, training,
+                             fmask)[0]
 
     def feed_forward(self, x, training: bool = False) -> List[torch.Tensor]:
         """Every layer's activation, the input first (in the parameters'
@@ -652,26 +659,35 @@ class MultiLayerNetwork(TrainableNetwork):
                 continue
             lp = self._params[self._keys[idx]]
             upd_state = updater.init(lp)
+            step = _xprof.censused(self, "mln/pretrain_step",
+                                   self._pretrain_step, key=idx)
             it = 0
             for _ in range(max(1, epochs)):
                 for ds in _pipe.iter_datasets(data, None):
                     (x,) = self._place((ds.features,))
                     with torch.no_grad():
                         feats = self._below(idx, x)
-                    p = {k: t.detach().requires_grad_(True)
-                         for k, t in lp.items()}
-                    with torch.enable_grad():
-                        loss = layer.pretrain_loss(p, feats, gen)
-                        grads = dict(zip(p, torch.autograd.grad(
-                            loss, list(p.values()))))
-                    with torch.no_grad():
-                        new_lp, upd_state = apply_updater(
-                            updater, grads, upd_state, lp, it, gen)
-                        for k, t in lp.items():
-                            t.copy_(new_lp[k])
+                    loss, upd_state = step(layer, lp, upd_state, feats, it,
+                                           gen)
                     it += 1
                     self._score = loss.detach()
         self._cast_cache = None
+
+    def _pretrain_step(self, layer, lp, upd_state, feats, it: int, gen):
+        """One pretraining step of ``layer`` (census
+        ``mln/pretrain_step``): its loss on ``feats``, the gradient, the
+        update written into ``lp`` in place. Returns ``(loss,
+        upd_state)``."""
+        p = {k: t.detach().requires_grad_(True) for k, t in lp.items()}
+        with torch.enable_grad():
+            loss = layer.pretrain_loss(p, feats, gen)
+            grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+        with torch.no_grad():
+            new_lp, upd_state = apply_updater(
+                self.conf.global_conf.updater, grads, upd_state, lp, it, gen)
+            for k, t in lp.items():
+                t.copy_(new_lp[k])
+        return loss, upd_state
 
     # --- persistence ---------------------------------------------------------
     def save(self, path: str, save_updater: bool = False) -> None:

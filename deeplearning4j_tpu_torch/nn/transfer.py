@@ -33,6 +33,7 @@ from typing import List, Optional
 
 import torch
 
+from ..common import xprof
 from ..common.tree import get_path, leaf_paths, tree_map
 from ..data.dataset import DataSet
 from .conf import layers as L
@@ -220,8 +221,13 @@ class TransferLearningHelper:
         """The frozen bottom's output on ``ds``'s features, in inference
         mode (in ``compute_dtype`` when set), with ``ds``'s labels: the
         input of :meth:`fit_featurized`."""
+        (x,) = self.model._place((ds.features,))
+        x = xprof.censused(self, "transfer/featurize", self._bottom)(x)
+        return DataSet(x, ds.labels, labels_mask=ds.labels_mask)
+
+    def _bottom(self, x: torch.Tensor) -> torch.Tensor:
+        """The frozen bottom's forward (census ``transfer/featurize``)."""
         model = self.model
-        (x,) = model._place((ds.features,))
         # no_grad, not inference_mode: the features feed autograd later
         with torch.no_grad():
             params, x = model._cast(model._params, x, False)
@@ -232,7 +238,7 @@ class TransferLearningHelper:
                 x, _ = model.layers[i].apply(params[model._keys[i]], x,
                                              model._states[model._keys[i]],
                                              False)
-        return DataSet(x, ds.labels, labels_mask=ds.labels_mask)
+        return x
 
     def fit_featurized(self, ds: DataSet, epochs: int = 1) -> None:
         """Train the top network on featurized data, then copy its

@@ -10,7 +10,9 @@ A library is rebuilt when its source is newer than the built file. Builds of
 several sources run in parallel (one ``nvcc`` each, :func:`build`). Every
 build and every check before a load holds ``_build/.lock`` (``flock``), so
 processes started together (the ranks of a process group) load what one of
-them built instead of compiling the same sources at once.
+them built instead of compiling the same sources at once. Every ``nvcc``
+run is reported to ``common/tracecheck.note_compile``: a kernel build
+inside a steady-state region is a violation.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import time
 from contextlib import contextmanager
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
+
+from ..common import tracecheck
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -99,6 +103,7 @@ def _build_locked(names: List[str], force: bool) -> Dict[str, float]:
         if not force and _up_to_date(name):
             continue
         tmp = BUILD_DIR / f"lib{name}.so.{os.getpid()}.tmp"
+        tracecheck.note_compile(f"nvcc {name}")
         proc = subprocess.Popen(_command(name, tmp), stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         running[name] = (proc, tmp, time.perf_counter())

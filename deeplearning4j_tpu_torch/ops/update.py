@@ -68,6 +68,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..common import xprof
 from ..common.dtypes import torch_dtype
 from ..common.profiler import OpProfiler
 from ..learning.precision import (apply_updater, random_bits, state_dtype_of,
@@ -82,6 +83,9 @@ REPLACES = "deeplearning4j_tpu/ops/pallas_update.py:143"
 # exact-type match: a subclass of Adam with other apply() math must not
 # take Adam's kernel
 _KINDS = {Sgd: "sgd", Nesterovs: "nesterovs", Adam: "adam", AdamW: "adamw"}
+#: analytic flops per element of one update (``ops/pallas_update.py``'s
+#: table in the JAX package)
+_FLOPS_PER_ELEM = {"sgd": 2, "nesterovs": 5, "adam": 12, "adamw": 14}
 _KIND_CODES = {"sgd": 0, "nesterovs": 1, "adam": 2, "adamw": 3}
 SLOTS = {"sgd": (), "nesterovs": ("v",), "adam": ("m", "v"),
          "adamw": ("m", "v")}
@@ -437,6 +441,7 @@ def fused_apply_members(updater, params: Dict[str, torch.Tensor],
                     prof.count("precision/sr_draws", int(n))
         update_members_bucket(kind, sc, p, g, slots, b, sr_dtype, lr, live)
         prof.count("precision/fused_hits")
+    _note_census(kind, params, state, names, kernel="members")
 
 
 def update_bucket(kind: str, sc: Tuple[float, ...], p, g, slots, bits,
@@ -495,7 +500,25 @@ def fused_apply(updater, flat_params: Dict[str, torch.Tensor],
                 p.numel(), generator, p.device)
         update_bucket(kind, sc, p, g, slots, b, sr_dtype)
         prof.count("precision/fused_hits")
+    _note_census(kind, flat_params, state, names, kernel="flat")
     return flat_params, ({} if not names else state)
+
+
+def _note_census(kind: str, params: Dict[str, torch.Tensor], state: dict,
+                 names, kernel: str) -> None:
+    """The census's counted sub-executable ``pallas/update_bucket``: the
+    analytic flops and bytes of one update of these buckets, as the JAX
+    package counts them (``ops/pallas_update.py:293-305``): p and g read
+    and p written in p's dtype, each state slot read and written."""
+    elems = sum(p.numel() for p in params.values())
+    nbytes = sum(3 * p.numel() * p.element_size() for p in params.values())
+    for n in names:
+        nbytes += sum(2 * v.numel() * v.element_size()
+                      for v in state[n].values())
+    xprof.note_subexec("pallas/update_bucket",
+                       flops=float(_FLOPS_PER_ELEM.get(kind, 4) * elems),
+                       bytes_accessed=float(nbytes), kind=kind,
+                       kernel=kernel, buckets=len(params))
 
 
 def apply_flat_updater(updater, flat_params, flat_grads, state,

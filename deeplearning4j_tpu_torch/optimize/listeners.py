@@ -13,9 +13,10 @@ reads the batch size the fit loop bound last (``model._last_batch_size``,
 the padded size of a padded batch, as in the JAX package). A listener opts
 into an exact resume with ``state_dict``/``load_state_dict``
 (``CollectScoresIterationListener`` does); ``CheckpointListener`` saves its
-peers' state beside the network's. Not ported yet: the stats storage and
-the flight recorder that ``PerformanceListener`` feeds, and the telemetry
-listeners.
+peers' state beside the network's. ``PerformanceListener(storage=)``
+publishes its rates into a ``ui/stats.StatsStorage``. Each conversion of
+the score is a host readback, counted by
+``common/tracecheck.note_host_sync`` so a steady-state region sees it.
 """
 
 from __future__ import annotations
@@ -26,9 +27,16 @@ import threading
 import time
 from typing import Any, List, Optional
 
+from ..common import tracecheck
 from ..common.profiler import OpProfiler
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
+
+
+def _read_score(score) -> float:
+    """``float(score)``: one host readback of the device scalar."""
+    tracecheck.note_host_sync("listener/score")
+    return float(score)
 
 
 class TrainingListener:
@@ -46,7 +54,8 @@ class ScoreIterationListener(TrainingListener):
     def iteration_done(self, model, iteration, score):
         if (iteration % self.print_iterations == 0
                 and logger.isEnabledFor(logging.INFO)):
-            logger.info("Score at iteration %d is %s", iteration, float(score))
+            logger.info("Score at iteration %d is %s", iteration,
+                        _read_score(score))
 
 
 class CollectScoresIterationListener(TrainingListener):
@@ -56,7 +65,7 @@ class CollectScoresIterationListener(TrainingListener):
 
     def iteration_done(self, model, iteration, score):
         if iteration % self.frequency == 0:
-            self.scores.append((iteration, float(score)))
+            self.scores.append((iteration, _read_score(score)))
 
     # the checkpoint protocol: a resumed run's history continues the
     # killed run's
@@ -71,11 +80,16 @@ class PerformanceListener(TrainingListener):
     """Iterations/s, milliseconds per iteration and samples/s over each
     ``frequency`` iterations, by the host clock (steps that end without a
     wait for the card are counted when the host queued them); each rate is
-    a ``perf/rate`` flight-recorder event."""
+    a ``perf/rate`` flight-recorder event and, with ``storage``, the
+    scalars ``iterations_per_sec`` / ``iteration_ms`` / ``samples_per_sec``
+    of session ``session_id`` in that ``ui/stats.StatsStorage``."""
 
-    def __init__(self, frequency: int = 10, report_batch: bool = True):
+    def __init__(self, frequency: int = 10, report_batch: bool = True,
+                 storage=None, session_id: str = "performance"):
         self.frequency = max(1, frequency)
         self.report_batch = report_batch
+        self.storage = storage
+        self.session_id = session_id
         self._last_time = None
         self._last_iter = None
         self.last_iterations_per_sec = 0.0
@@ -100,7 +114,16 @@ class PerformanceListener(TrainingListener):
                 self.last_samples_per_sec = ips * batch
             if logger.isEnabledFor(logging.INFO):
                 logger.info("iteration %d: %.1f iter/s, score=%s",
-                            iteration, ips, float(score))
+                            iteration, ips, _read_score(score))
+            if self.storage is not None:
+                self.storage.put_scalar(self.session_id,
+                                        "iterations_per_sec", iteration, ips)
+                self.storage.put_scalar(self.session_id, "iteration_ms",
+                                        iteration, self.last_iteration_ms)
+                if batch:
+                    self.storage.put_scalar(self.session_id,
+                                            "samples_per_sec", iteration,
+                                            self.last_samples_per_sec)
             from ..common import flightrec
 
             flightrec.event(

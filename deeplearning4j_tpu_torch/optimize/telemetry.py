@@ -42,6 +42,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from ..common import tracecheck
 from ..common.profiler import OpProfiler
 from ..common.tree import get_path, leaf_paths, set_path, skeleton
 from ..parallel.sharding import groups
@@ -346,6 +347,7 @@ def readback(auxes: List[dict]) -> List[Dict[str, Any]]:
     rows = torch.stack([
         torch.cat([a[k].detach().reshape(-1).to(torch.float64)
                    for k in keys]) for a in auxes])
+    tracecheck.note_host_sync("telemetry/readback")
     host = rows.cpu().numpy()
     out = []
     for r in host:

@@ -55,9 +55,13 @@ the process (the peers are inside a collective): :class:`SharedTrainingMaster`
 supervises with no in-process restarts there, and its checkpoints are
 group commits (:meth:`cluster.ClusterRuntime.commit_group_checkpoint`).
 
-The watchtower and the xprof memory census (ROADMAP A8) are not ported:
-their hooks here are no-ops, as the JAX code is with no watchtower
-installed.
+Every blackbox dump is reported to the watchtower
+(``common/watchtower.note_blackbox``) and carries the memory census
+(``memcensus.json``, ``common/xprof.dump_memory_census``) beside it; every
+failure classification opens or joins an incident on the installed
+watchtower (``note_supervisor_failure``), and a lost rank of a supervised
+process group opens one carrying the merged per-rank blackboxes. With no
+watchtower installed the hooks cost nothing.
 """
 
 from __future__ import annotations
@@ -69,6 +73,8 @@ import time
 from typing import Any, Callable, Dict, List, Optional
 
 from ..common import faultinject, flightrec
+from ..common import watchtower as _watchtower
+from ..common import xprof as _xprof
 from ..common.profiler import OpProfiler
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
@@ -77,6 +83,7 @@ logger = logging.getLogger("deeplearning4j_tpu_torch")
 #: failure classification and on the preemption path: the flight
 #: recorder's last events as JSONL
 BLACKBOX_NAME = "blackbox.jsonl"
+MEMCENSUS_NAME = "memcensus.json"
 
 #: the runtime :func:`initialize` formed (None: no process group of ours)
 _RUNTIME = None
@@ -805,19 +812,31 @@ class TrainingSupervisor:
     def blackbox_path(self) -> str:
         return os.path.join(self.dir, BLACKBOX_NAME)
 
+    def memcensus_path(self) -> str:
+        return os.path.join(self.dir, MEMCENSUS_NAME)
+
     def _dump_blackbox(self) -> Optional[str]:
         """The flight recorder's tail beside the checkpoints, on every
         failure classification, restart, preemption and give-up, so the
-        newest dump tells the latest story. (The JAX package also hands it
-        to the watchtower and writes the xprof memory census beside it:
-        ROADMAP A8.)"""
+        newest dump tells the latest story. It is reported to the
+        watchtower (incident reports and ``/api/health``'s
+        ``last_incident`` find it there), and the memory census (per-phase
+        watermarks + a fresh allocator census) rides along as
+        ``memcensus.json``."""
         try:
             os.makedirs(self.dir, exist_ok=True)
-            return flightrec.dump_blackbox(self.blackbox_path())
+            path = flightrec.dump_blackbox(self.blackbox_path())
         except OSError:
             logger.warning("supervisor: black-box dump to %s failed",
                            self.blackbox_path(), exc_info=True)
             return None
+        _watchtower.note_blackbox(path)
+        try:
+            _xprof.dump_memory_census(self.memcensus_path())
+        except Exception:   # census failure must not mask the blackbox
+            logger.warning("supervisor: memory-census dump to %s failed",
+                           self.memcensus_path(), exc_info=True)
+        return path
 
     def _attach_blackbox(self, exc: "RestartBudgetExceeded",
                          reason: str) -> None:
@@ -1076,8 +1095,10 @@ class TrainingSupervisor:
                                 error=repr(exc)[:300],
                                 steps=run.heartbeat.steps)
                 self._dump_blackbox()
-                # (the JAX package opens a watchtower incident here:
-                # ROADMAP A8)
+                # every failure classification opens or joins an incident
+                # on the installed watchtower (no-op when none is)
+                _watchtower.note_supervisor_failure(
+                    failure_class=cls, policy=policy, error=repr(exc)[:200])
                 # the policy decides; a grace-window timeout always exits
                 if policy == "exit" or outcome == "preempt_timeout":
                     prof.count("supervisor/preemptions")
@@ -1298,8 +1319,10 @@ def supervise_processes(commands: List[List[str]], *,
     With ``cluster_dir``, a lost rank also merges every rank's dumped
     blackbox (``cluster.merge_rank_blackboxes``) and records
     ``cluster/rank_lost`` and ``cluster/group_restart``; the relaunched
-    group's heartbeats record ``cluster/form``. (The JAX package opens one
-    watchtower incident from them: ROADMAP A8.)
+    group's heartbeats record ``cluster/form``. With a watchtower
+    installed, a lost rank opens one incident carrying the merged per-rank
+    events (``cluster/rank_lost`` the cause, ``cluster/form`` the
+    recovery).
 
     With ``shrink_to_survivors=True`` and ``make_commands(world,
     attempt)``, a crashed or hung rank shrinks the group: the relaunch runs
@@ -1425,11 +1448,11 @@ def supervise_processes(commands: List[List[str]], *,
                        "%.2fs", failed_rank, cls,
                        failed_code if not hung else "none/heartbeat-stale",
                        uptime)
+        merged = None
         if cluster_dir is not None:
-            # the per-rank story, joined (the watchtower incident that
-            # would carry it is ROADMAP A8)
-            history[-1]["rank_blackbox_rows"] = len(
-                _cluster.merge_rank_blackboxes(cluster_dir))
+            # the per-rank story, joined; the incident below carries it
+            merged = _cluster.merge_rank_blackboxes(cluster_dir)
+            history[-1]["rank_blackbox_rows"] = len(merged)
         prof.count(f"cluster/rank_{cls}")
         flightrec.event("cluster/rank_lost", severity="error",
                         rank=failed_rank, code=failed_code,
@@ -1441,6 +1464,16 @@ def supervise_processes(commands: List[List[str]], *,
             return {"status": "preempted", "resumable": True,
                     "attempts": attempt, "restarts": restarts,
                     "world": world, "history": history}
+        tower = _watchtower.get()
+        if tower is not None:
+            tower.assemble_incident(
+                "rank_lost",
+                f"rank {failed_rank} {cls} "
+                f"(exit {'heartbeat-stale' if hung else failed_code})",
+                attachments={"lost_rank": failed_rank, "class": cls,
+                             "world": world,
+                             "rank_blackboxes": merged} if merged else
+                {"lost_rank": failed_rank, "class": cls, "world": world})
         consec_fast = consec_fast + 1 if uptime < storm_min_uptime_s else 0
         if consec_fast >= storm_threshold:
             prof.count("supervisor/storm_trips")

@@ -24,7 +24,9 @@ one ``jit``; here the member axis lives in the buckets:
 - **Shape-stable lifecycle.** After the first step no ``step``, ``cull``,
   ``spawn`` or NaN cull reallocates a stacked buffer: ``spawn`` writes the
   slice in place and the masks are written in place.
-  ``trace/fleet_step`` counts the buffers' build, once per fleet.
+  ``trace/fleet_step`` counts the buffers' build, once per fleet. The
+  step and the inference run under the executable census
+  (``common/xprof.py``) as ``fleet/step`` and ``fleet/infer``.
 - **Per-member NaN isolation without a host sync.** With a
   ``NanSentinelListener("skip")`` each member's non-finite evidence (its
   gradient row and its loss) is folded into the live mask on the device: a
@@ -68,7 +70,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..common import flightrec
+from ..common import flightrec, xprof
 from ..common.dtypes import torch_dtype
 from ..common.profiler import OpProfiler
 from ..common.tree import get_path, leaf_paths, set_path, skeleton, tree_map
@@ -514,7 +516,10 @@ class FleetTrainer:
             if not self._built:
                 self._build()
             with prof.time_section("pipeline/dispatch"):
-                aux = self._step_locked(xv, yv, per_member)
+                aux = xprof.censused(
+                    self, "fleet/step", self._step_locked,
+                    static_argnames=("per_member",))(
+                    xv, yv, per_member=per_member)
             self._iteration += 1
             it_done = self._iteration
             losses = self._score_dev
@@ -983,17 +988,22 @@ class FleetTrainer:
         ``(params, states)`` pair of stacked trees (:meth:`stacked_state`)
         instead of the live state, as a frozen target network."""
         xv = self._place(x)
-        outs = []
         with self._lock, torch.inference_mode():
-            for m, net in enumerate(self._members):
-                if params is None:
-                    p, s = net._params, self._states[m]
-                else:
-                    p = tree_map(lambda t, _m=m: t[_m], params[0])
-                    s = tree_map(lambda t, _m=m: t[_m], params[1])
-                out, _ = net._forward(p, s, xv[m] if per_member else xv,
-                                      False)
-                outs.append(out)
+            return xprof.censused(
+                self, "fleet/infer", self._infer,
+                static_argnames=("per_member",))(
+                xv, params, per_member=per_member)
+
+    def _infer(self, xv, params, per_member: bool) -> torch.Tensor:
+        outs = []
+        for m, net in enumerate(self._members):
+            if params is None:
+                p, s = net._params, self._states[m]
+            else:
+                p = tree_map(lambda t, _m=m: t[_m], params[0])
+                s = tree_map(lambda t, _m=m: t[_m], params[1])
+            out, _ = net._forward(p, s, xv[m] if per_member else xv, False)
+            outs.append(out)
         return torch.stack(outs)
 
     def stacked_state(self):

@@ -41,9 +41,11 @@ the next tick, as a ``ppermute`` delivers it.
 
 Nothing compiles here: "one compile per (stage count, schedule)" is one
 *build* per (stage count, schedule) of the step (its tick tables, layer
-runs and slots), counted by ``trace/pipeline_fit_step``. The JAX module
-registers its jits with ``xprof``; the port has no jit to register
-(``common/xprof.py`` is ROADMAP A8).
+runs and slots), counted by ``trace/pipeline_fit_step``. The steps and
+forwards run under the executable census (``common/xprof.py``) with the
+JAX names: ``pipeline/fit_step`` (one generation per (stage count,
+schedule) and batch shape), ``pipeline/legacy_fwd`` / ``legacy_step`` and
+``pipeline/hetero_fwd`` / ``hetero_step``.
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..common import faultinject, flightrec
+from ..common import faultinject, flightrec, xprof
 from ..common.dtypes import tensor_from_numpy, torch_dtype
 from ..common.profiler import OpProfiler
 from ..learning.precision import apply_updater, cast_floating
@@ -239,12 +241,19 @@ class PipelineParallel(_ModelCheckpoint):
                       self._devs, self.n_micro)
 
     def forward(self, x) -> torch.Tensor:
+        return xprof.censused(self, "pipeline/legacy_fwd", self._forward)(x)
+
+    def _forward(self, x) -> torch.Tensor:
         with torch.no_grad():
             return self._run(self.stage_params, x)
 
     def train_step(self, x, y, lr: float = 1e-2) -> torch.Tensor:
         """One SGD step of the mean squared error through the pipeline;
         returns the loss (a 0-dim tensor)."""
+        return xprof.censused(self, "pipeline/legacy_step",
+                              self._train_step)(x, y, lr)
+
+    def _train_step(self, x, y, lr: float) -> torch.Tensor:
         trees = [_requiring_grad(p) for p in self.stage_params]
         with torch.enable_grad():
             out = self._run(trees, x)
@@ -316,10 +325,17 @@ class HeterogeneousPipeline(_ModelCheckpoint):
                       self.n_micro, out_dtype=torch.float32)
 
     def forward(self, x) -> torch.Tensor:
+        return xprof.censused(self, "pipeline/hetero_fwd", self._forward)(x)
+
+    def _forward(self, x) -> torch.Tensor:
         with torch.no_grad():
             return self._run(self.params, x)
 
     def train_step(self, x, y, lr: float = 1e-2) -> torch.Tensor:
+        return xprof.censused(self, "pipeline/hetero_step",
+                              self._train_step)(x, y, lr)
+
+    def _train_step(self, x, y, lr: float) -> torch.Tensor:
         trees = [_requiring_grad(p) for p in self.params]
         with torch.enable_grad():
             out = self._run(trees, x)
@@ -832,9 +848,10 @@ class PipelineTrainer:
             out.setdefault(str(self._layer_device(k)), []).append(k)
         return out
 
-    def _run_step(self, xs, ys, ws):
+    def _run_step(self, xs, ys, ws, build=None):
         """The schedule on every data row, the row sums, the update;
-        returns (loss, aux)."""
+        returns (loss, aux). ``build``: the (stage count, schedule) the
+        step was built for, a static argument of the census entry."""
         step, model = self._step, self.model
         D = self.data_axis
         dev0 = step.devs[0][0]
@@ -968,7 +985,10 @@ class PipelineTrainer:
             meta = self._meta
             t0 = time.monotonic()
             with prof.time_section("pipeline/dispatch"):
-                loss, aux = self._run_step(xs, ys, ws)
+                loss, aux = xprof.censused(
+                    self, "pipeline/fit_step", self._run_step,
+                    static_argnames=("build",))(
+                    xs, ys, ws, build=(self.stages_count, self.schedule))
             self._publish()
             prof.count("pipeline/microbatches", self.n_micro)
             prof.count("pipeline/busy_ticks", meta["busy_ticks"])

@@ -19,9 +19,8 @@ Numerics are the JAX block step's (``_block_attend``): an online softmax
 with a running max and normalizer, the guards for a fully masked block
 (max ``-inf``) included; a causal mask uses global block offsets. No Pallas
 kernel backs the ring in the JAX package (its block step is einsums), and
-none backs it here. The JAX ``ring_self_attention`` jits a ``shard_map``
-per call; the port has no jit to register (``common/xprof.py`` is ROADMAP
-A8).
+none backs it here. Neither package registers the ring with the
+executable census (``common/xprof.py`` has no site for it).
 """
 
 from __future__ import annotations

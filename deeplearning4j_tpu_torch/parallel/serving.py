@@ -63,10 +63,10 @@ an SLO-clean window, verifies every slot's copy by fingerprint, and rolls
 back bitwise on a violation; the ``pub<N>`` correlation id chains canary ->
 promote / rollback in the flight recorder.
 
-HTTP serving lives on ``ui/server.UIServer`` (``POST /api/infer``). Not
-ported: the JAX package's executable census and memory watermark
-(``xprof.register_aot``, ``xprof.memory_watermark``), which wait for xprof
-(ROADMAP A8).
+HTTP serving lives on ``ui/server.UIServer`` (``POST /api/infer``). The
+executable census (``common/xprof.py``) records each (bucket shape, slot)'s
+first forward as a ``serving/bucket`` variant, and the warmup takes the
+``serving_warmup`` memory watermark.
 """
 
 from __future__ import annotations
@@ -83,7 +83,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..common import faultinject, flightrec
+from ..common import faultinject, flightrec, xprof
 from ..common import integrity as _integ
 from ..common.profiler import OpProfiler
 from ..common.tree import tree_map
@@ -454,7 +454,7 @@ class BrownoutController:
                 return
             try:
                 self.evaluate(
-                    eng._class_recent_p99(self.adm.top.name),
+                    eng.class_recent_p99(self.adm.top.name),
                     eng.queue_depth_hwm())
             except Exception:
                 logger.warning("brownout evaluation failed", exc_info=True)
@@ -838,6 +838,9 @@ class ServingEngine(ParallelInference):
                                              for t, w in seq_out.items())
         self._traces_seen = self._trace_cell[0]
         self._warm = True
+        # the warmup placed every slot's params and ran every bucket: the
+        # serving tier's steady-state memory footprint starts here
+        xprof.memory_watermark("serving_warmup")
         return timings
 
     def _run_bucket(self, padded, dev_idx: int = 0,
@@ -845,13 +848,24 @@ class ServingEngine(ParallelInference):
         """One padded bucket through the slot's params; a float32 CPU
         tensor out (the one device-to-host copy of a dispatch)."""
         slot = dev_idx % len(self._devices)
-        self._compile_bucket(tuple(padded.shape), slot)
+        first = self._compile_bucket(tuple(padded.shape), slot)
         if not self._aot:                     # a model without _forward
             return _to_cpu_f32(self.model.output(padded))
         params, states = self._params_for(worker_id, slot)
         x = torch.from_numpy(np.ascontiguousarray(
             padded, dtype=self._in_dtype)).to(self._slot_device(slot))
         OpProfiler.get().count("serving/forwards")
+        if first and xprof.enabled():
+            # the census's counterpart of an AOT executable: the shape's
+            # first forward, counted (flops, bytes, memory) and timed
+            t0 = time.perf_counter()
+            out, record = xprof.count_call(self.forward_bucket, params,
+                                           states, x)
+            out = out.cpu()
+            xprof.register_aot("serving/bucket", record,
+                               variant=f"{tuple(padded.shape)}/dev{slot}",
+                               compile_s=time.perf_counter() - t0)
+            return out
         return self.forward_bucket(params, states, x).cpu()
 
     def _run(self, batch) -> torch.Tensor:
@@ -1059,8 +1073,11 @@ class ServingEngine(ParallelInference):
             return None
         return float(np.percentile(np.asarray(vals) * 1e3, 99))
 
-    def _class_recent_p99(self, name: str, window_s: float = 5.0,
-                          min_samples: int = 5) -> Optional[float]:
+    def class_recent_p99(self, name: str, window_s: float = 5.0,
+                         min_samples: int = 5) -> Optional[float]:
+        """Windowed per-class p99 (ms), the brownout's and the
+        watchtower's latency signal; None until ``min_samples`` land in
+        the window."""
         now = time.monotonic()
         with self._lat_lock:
             dq = self._class_lats.get(name)
@@ -1069,12 +1086,6 @@ class ServingEngine(ParallelInference):
         if len(vals) < min_samples:
             return None
         return float(np.percentile(np.asarray(vals) * 1e3, 99))
-
-    def class_recent_p99(self, name: str, window_s: float = 5.0,
-                         min_samples: int = 5) -> Optional[float]:
-        """Windowed per-class p99 (ms); None until ``min_samples`` land."""
-        return self._class_recent_p99(name, window_s=window_s,
-                                      min_samples=min_samples)
 
     def slo_classes(self) -> List[SLOClass]:
         """The configured SLO classes, highest priority first."""

@@ -14,8 +14,9 @@ A table whose row count does not divide the shard count is zero-padded to a
 multiple of it; the pad rows are unreachable (ids < ``vocab_size``). The
 initial table is drawn with numpy's ``default_rng(seed)`` exactly as the
 JAX class draws it, so both packages start from the same table bit for
-bit. The JAX class registers its two jitted programs with ``xprof``; the
-port has no jit to register (``common/xprof.py`` is ROADMAP A8).
+bit. The gather and the scatter-update run under the executable census
+(``common/xprof.py``) as ``embeddings/lookup`` and ``embeddings/update``,
+the JAX class's two registered programs.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..common import xprof
 from ..common.dtypes import tensor_from_numpy
 from ..common.tree import ShardedTensor
 from ..ops.embeddings import (sharded_local_offsets, sharded_rows_add,
@@ -68,7 +70,8 @@ class ShardedEmbedding:
         device."""
         ids = torch.as_tensor(ids, dtype=torch.int64,
                               device=self.slots[0].device)
-        return sharded_rows_lookup(self.shards, ids)[0]
+        return xprof.censused(self, "embeddings/lookup",
+                              self._lookup_rows)(self.shards, ids)
 
     def apply_gradients(self, ids, grads) -> None:
         """Add ``grads`` ``[B, D]`` into rows ``ids`` (duplicates sum);
@@ -76,9 +79,18 @@ class ShardedEmbedding:
         dev = self.slots[0].device
         ids = torch.as_tensor(ids, dtype=torch.int64, device=dev)
         grads = torch.as_tensor(grads, dtype=torch.float32, device=dev)
-        aux = [sharded_local_offsets(self.shards, ids, j)
-               for j in range(len(self.shards))]
-        sharded_rows_add(self.shards, aux, grads)
+        xprof.censused(self, "embeddings/update", self._update_rows)(
+            self.shards, ids, grads)
+
+    @staticmethod
+    def _lookup_rows(shards, ids) -> torch.Tensor:
+        return sharded_rows_lookup(shards, ids)[0]
+
+    @staticmethod
+    def _update_rows(shards, ids, grads) -> None:
+        aux = [sharded_local_offsets(shards, ids, j)
+               for j in range(len(shards))]
+        sharded_rows_add(shards, aux, grads)
 
     @property
     def table(self) -> torch.Tensor:

@@ -131,7 +131,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from ..common import faultinject
+from ..common import faultinject, xprof
 from ..common import integrity as _integ
 from ..common.profiler import OpProfiler
 from ..common.tree import (ShardedTensor, get_path, leaf_paths, set_path,
@@ -1184,9 +1184,11 @@ class ParallelWrapper:
         prof = OpProfiler.get()
         self._inject_faults()
         losses, auxes = [], []
+        # the data-parallel step (dense and ZeRO-1) under the census
+        step = xprof.censused(self, "pw/fit_step", self._train_step)
         with prof.time_section("pipeline/dispatch"):
             for j, b in enumerate(group):
-                loss, aux = self._train_step(b, model._iteration + j)
+                loss, aux = step(b, model._iteration + j)
                 losses.append(loss)
                 auxes.append(aux)
         self._count_collectives(prof, len(group))

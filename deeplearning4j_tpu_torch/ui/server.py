@@ -14,16 +14,17 @@ background thread serving:
 - ``/api/health``       — uptime, sources, every profiler ledger (the
                           ``serving`` section is
                           ``parallel/serving.serving_health``), the
+                          newest incident (``last_incident``), the
                           flight recorder's totals, the inference-pool
                           census and ``common/system_info.memory_summary``
 - ``/api/metrics``      — Prometheus text exposition
                           (:func:`prometheus_text`)
 - ``/api/trace``        — the flight recorder as a Chrome trace
                           (``?corr=`` narrows to one correlation id)
-- ``/api/incidents``    — incident reports; the port has no watchtower
-                          yet, so this is ``[]`` (and ``?id=`` a 404), as
-                          the JAX server answers with no watchtower
-                          installed
+- ``/api/incidents``    — the installed watchtower's incident index
+                          (``common/watchtower.py``; ``[]`` with none);
+                          ``?id=`` serves one ``incident-<id>.json``
+                          (404 for an unknown id)
 - ``/api/infer``        — POST ``{"inputs": [[...], ...]}`` (optional
                           ``"slo_class"``) → the attached
                           ``parallel/serving.ServingEngine``; the response
@@ -147,10 +148,15 @@ def prometheus_text() -> str:
            "rolling serving latency quantiles across live engines "
            "(fleet-wide, and per SLO class when classified)",
            latency_samples)
-    # no watchtower in the port yet: the alert family has no rows, as the
-    # JAX server's has with no watchtower installed
+    try:
+        from ..common import watchtower
+
+        alert_rows = sorted(watchtower.alert_states().items())
+    except Exception:          # watchtower failure: no rows
+        alert_rows = []
     family("dl4j_alert_state", "gauge",
-           "watchtower SLO alert state (0 ok / 1 warn / 2 page)", [])
+           "watchtower SLO alert state (0 ok / 1 warn / 2 page)",
+           [({"slo": slo}, state) for slo, state in alert_rows])
     fr = flightrec.stats()
     family("dl4j_flightrec_events_total", "counter",
            "flight-recorder events ever appended", [({}, fr["events_total"])])
@@ -465,10 +471,16 @@ class UIServer:
                    for label, attr in OpProfiler.LEDGERS
                    if label != "serving"}
         ledgers["serving"] = serving_health()
-        # the supervisor's counters ride the ledgers above; the incident
-        # pointer waits for the watchtower (ROADMAP A8)
+        # operators find the evidence from here: the newest incident
+        # report (or blackbox when no watchtower ever assembled one)
+        try:
+            from ..common import watchtower
+
+            last_incident = watchtower.last_incident()
+        except Exception:
+            last_incident = None
         return {"status": "ok",
-                "last_incident": None,
+                "last_incident": last_incident,
                 "uptime_s": round(time.time() - self._t0, 1),
                 "stores": len(self._stores),
                 "paths": len(self._paths),
@@ -576,14 +588,30 @@ class UIServer:
                         json.dumps(flightrec.chrome_trace(corr=corr)).encode(),
                         "application/json")
                 elif u.path == "/api/incidents":
-                    # no watchtower yet: no incidents (ROADMAP A8)
+                    from ..common import watchtower
+
                     q = parse_qs(u.query)
                     iid = q.get("id", [None])[0]
                     if iid is None:
-                        self._send(b"[]", "application/json")
+                        self._send(
+                            json.dumps(watchtower.incidents()).encode(),
+                            "application/json")
                     else:
-                        self._send(f"no incident {iid!r}".encode(),
-                                   "text/plain", 404)
+                        match = [i for i in watchtower.incidents()
+                                 if i["id"] == iid]
+                        if not match:
+                            self._send(f"no incident {iid!r}".encode(),
+                                       "text/plain", 404)
+                        else:
+                            try:
+                                with open(match[0]["path"], "rb") as f:
+                                    body = f.read()
+                            except OSError as e:
+                                self._send(f"incident file unreadable: "
+                                           f"{e}".encode(), "text/plain",
+                                           500)
+                            else:
+                                self._send(body, "application/json")
                 else:
                     self._send(b"not found", "text/plain", 404)
 

@@ -10,10 +10,10 @@ barrier timeout names the missing ranks with their heartbeat staleness,
 the supervisor classifies 75 as preempted and a stale-while-alive rank as
 a hang, a torn group commit leaves the previous generation restorable, and
 a shrink-to-survivors relaunch resumes bitwise against a fresh (N-1)-rank
-run through ``Zero1Plan``'s replica-count-independent layout. The JAX
-hang drill also checks the watchtower's incident; the port has no
-watchtower yet (ROADMAP A8), so its drill checks the events the incident
-is built from.
+run through ``Zero1Plan``'s replica-count-independent layout. The hang
+drill also checks the watchtower's incident, as the JAX drill does: one
+incident whose chain runs from the lost rank to the relaunched group's
+formation, the merged per-rank blackboxes attached.
 
 Every subprocess has a timeout and is reaped in ``finally``.
 """
@@ -30,7 +30,7 @@ from pathlib import Path
 import pytest
 
 from deeplearning4j_tpu.parallel import cluster as jcluster
-from deeplearning4j_tpu_torch.common import faultinject, flightrec
+from deeplearning4j_tpu_torch.common import faultinject, flightrec, watchtower
 from deeplearning4j_tpu_torch.parallel import cluster
 from deeplearning4j_tpu_torch.parallel.distributed import supervise_processes
 from deeplearning4j_tpu_torch.util import checkpoint as ckpt_util
@@ -44,6 +44,7 @@ def _clean_faults():
     yield
     faultinject.clear_plan()
     faultinject.release_wedges()
+    watchtower.uninstall()
 
 
 def _plan(*specs):
@@ -414,6 +415,9 @@ class TestSuperviseContract:
         # so in a marker) can read as hung
         script = _write_worker(tmp_path, _SUP_WORKER)
         cd, ck = str(tmp_path / "cd"), str(tmp_path / "ck")
+        tower = watchtower.install(watchtower.Watchtower(
+            [], incident_dir=str(tmp_path / "inc"), interval_s=0.05,
+            finalize_after_s=60.0))
         cmds = [[sys.executable, str(script), cd, ck, str(r), "2", "hang"]
                 for r in range(2)]
         summary = supervise_processes(
@@ -435,14 +439,30 @@ class TestSuperviseContract:
         restart = _last_event("cluster/group_restart")
         assert restart["attrs"]["world_from"] == 2
         assert restart["attrs"]["world_to"] == 2
-        # the incident's chain: cause, mitigation, then the relaunched
-        # group's formation (the incident itself is ROADMAP A8)
+        # the events the incident is built from: cause, mitigation, then
+        # the relaunched group's formation
         names = [e["name"] for e in flightrec.get().snapshot()]
         i = names.index("cluster/rank_lost")
         assert "cluster/group_restart" in names[i:]
         assert "cluster/form" in names[names.index(
             "cluster/group_restart", i):]
         assert row["rank_blackbox_rows"] > 0
+        # ONE incident, finalized once the recovery landed, with the
+        # merged per-rank blackboxes attached
+        tower.evaluate_now()
+        incs = tower.incidents()
+        assert len(incs) == 1
+        report = json.loads(Path(incs[0]["path"]).read_text())
+        assert report["complete"] is True
+        assert report["chain"]["cause"]["name"] == "cluster/rank_lost"
+        assert report["chain"]["cause"]["attrs"]["rank"] == 1
+        assert report["chain"]["mitigation"]["name"] == \
+            "cluster/group_restart"
+        assert report["chain"]["recovery"]["name"] == "cluster/form"
+        att = report["attachments"]
+        assert att["lost_rank"] == 1 and att["class"] == "hang"
+        ranks = {r.get("rank") for r in att["rank_blackboxes"]}
+        assert 0 in ranks or 1 in ranks
 
 
 # ---------------------------------------------------------------------------

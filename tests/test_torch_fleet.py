@@ -418,6 +418,30 @@ class TestLifecycle:
         assert fleet.buffer_ptrs() == ptrs
         assert OpProfiler.get().counter_value("trace/fleet_step") == 1
 
+    def test_cull_and_spawn_do_not_retrace(self, batch):
+        """The JAX drill's steady-state region (``tests/test_fleet.py``):
+        after the warmup of each path, steps, a cull and a spawn run with
+        no new census generation, no trace/* move and no host sync."""
+        from deeplearning4j_tpu_torch.common import tracecheck, xprof
+
+        x, y = batch
+        xprof.reset()
+        fleet = FleetTrainer(mlp(fused=True), 3, seed=7)
+        fleet.step(x, y)
+        fleet.cull(2)
+        fleet.step(x, y)
+        fleet.spawn(2)
+        fleet.step(x, y)
+        with tracecheck.steady_state("fleet cull/spawn") as region:
+            fleet.step(x, y)
+            fleet.cull(1)
+            fleet.step(x, y)
+            fleet.spawn(1)
+            fleet.step(x, y)
+        assert region.compiles == 0 and region.host_syncs == 0
+        e = xprof.census()["fleet/step"]
+        assert e["generations"] == 1 and e["calls"] == 6
+
     def test_spawn_reinitializes_slice_in_place(self, batch):
         x, y = batch
         fleet = FleetTrainer(mlp(), 3, seed=7)

@@ -133,8 +133,19 @@ class TestConsumers:
         docs = [r.chrome_trace(corr=corr) for r in recs]
 
         def shape(doc):
-            return [{k: v for k, v in e.items() if k not in ("ts", "dur")}
-                    for e in doc["traceEvents"]]
+            # a thread's tid is its OS ident, which differs between the
+            # two drives unless the OS happens to reuse it: compare thread
+            # lanes by order of first appearance, synthetic lanes (< 0) as
+            # they are
+            order = {}
+            out = []
+            for e in doc["traceEvents"]:
+                e = {k: v for k, v in e.items() if k not in ("ts", "dur")}
+                tid = e.get("tid")
+                if isinstance(tid, int) and tid >= 0:
+                    e["tid"] = order.setdefault(tid, len(order))
+                out.append(e)
+            return out
 
         assert docs[0]["displayTimeUnit"] == docs[1]["displayTimeUnit"]
         assert shape(docs[0]) == shape(docs[1])
@@ -161,3 +172,31 @@ class TestConsumers:
         assert len(lines[0]) == len(lines[1]) == 5
         assert [_strip(json.loads(x)) for x in lines[0]] == \
             [_strip(json.loads(x)) for x in lines[1]]
+
+    def test_concurrent_blackbox_writers_of_one_file(self, tmp_path):
+        # the ranks of a group dump into one checkpoint directory: writers
+        # of one path must not rename each other's temporary file away
+        rec = tfr.FlightRecorder(256)
+        _drive(tfr, rec)
+        path = str(tmp_path / "blackbox.jsonl")
+        errors = []
+
+        def writer():
+            try:
+                for _ in range(200):
+                    rec.dump_blackbox(path)
+            except OSError as e:
+                errors.append(repr(e))
+
+        ts = [threading.Thread(target=writer) for _ in range(4)]
+        try:
+            for t in ts:
+                t.start()
+        finally:
+            for t in ts:
+                t.join()
+        assert not errors, errors[:3]
+        lines = open(path).read().splitlines()
+        assert len(lines) == len(rec.snapshot())
+        assert sorted(p.name for p in tmp_path.iterdir()) == \
+            ["blackbox.jsonl"]

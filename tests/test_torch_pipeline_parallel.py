@@ -657,6 +657,29 @@ class TestFitSurface:
                batch_size=32)
         assert prof.counter_value("trace/pipeline_fit_step") == before + 2
 
+    def test_grown_back_fit_is_steady_state(self):
+        """The JAX drill's region (``tests/test_pipeline_parallel.py``):
+        after a remap cycle back to a built stage count the fit builds
+        nothing, adds no census generation and reads nothing back."""
+        from deeplearning4j_tpu_torch.common import tracecheck, xprof
+
+        xprof.reset()
+        x, y = synth(2 * 32)
+        tr = PipelineTrainer(dense_stack(4), stages=4, n_micro=4, data=2)
+        for stages in (4, 3):
+            if stages != 4:
+                tr.remap(stages)
+            tr.fit(NDArrayDataSetIterator(x, y, batch_size=32), epochs=1,
+                   batch_size=32)
+        tr.remap(4)
+        with tracecheck.steady_state("pipeline steady") as region:
+            tr.fit(NDArrayDataSetIterator(x, y, batch_size=32), epochs=1,
+                   batch_size=32)
+        assert region.compiles == 0 and region.counter_deltas == {}
+        e = xprof.census()["pipeline/fit_step"]
+        # one generation per (stage count, schedule) and batch shape
+        assert e["generations"] == 2 and e["calls"] == 6
+
     def test_telemetry_aux(self):
         class Sink:
             wants_telemetry = True

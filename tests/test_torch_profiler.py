@@ -70,8 +70,23 @@ class TestLedgers:
         assert getattr(t, attr)()
 
     def test_unported_ledgers_are_empty(self):
+        # the census and the watchtower ledgers read no counters: empty
+        # until a step registers and a watchtower is installed
+        from deeplearning4j_tpu_torch.common import watchtower, xprof
+
+        xprof.reset()
+        watchtower.uninstall()
         t = _filled(TProf)
         assert t.xla_stats() == {} and t.watchtower_stats() == {}
+        try:
+            xprof.note_subexec("pallas/update_bucket", flops=1.0,
+                               bytes_accessed=4.0)
+            watchtower.install(watchtower.Watchtower([]))
+            assert t.xla_stats()["pallas/update_bucket/flops"] == 1.0
+            assert t.watchtower_stats()["slos"] == 0
+        finally:
+            xprof.reset()
+            watchtower.uninstall()
 
     def test_gauges_traces_and_statistics(self, capsys):
         t, j = _filled(TProf), _filled(JProf)

@@ -244,6 +244,27 @@ def test_set_remat_policy_switches_the_next_step():
     assert net.conf.global_conf.remat_policy == "full"
 
 
+def test_policy_flip_then_refit_is_steady_state():
+    """The JAX drill's region (``tests/test_remat_policies.py``): after a
+    policy flip the refit loop is steady state. The port rebuilds nothing
+    on a flip (the policy is read at the step), so the census keeps one
+    generation across it."""
+    from deeplearning4j_tpu_torch.common import tracecheck, xprof
+
+    xprof.reset()
+    x, y = fit_data()
+    net = _net(None)
+    net.fit(NDArrayDataSetIterator(x, y, batch_size=32), epochs=2)
+    net.set_remat_policy("dots_only")
+    net.fit(NDArrayDataSetIterator(x, y, batch_size=32), epochs=1)
+    with tracecheck.steady_state("post-flip refit",
+                                 max_host_syncs=None) as region:
+        net.fit(NDArrayDataSetIterator(x, y, batch_size=32), epochs=2)
+    assert region.compiles == 0 and region.counter_deltas == {}
+    e = xprof.census()["mln/fit_step"]
+    assert e["generations"] == 1 and e["calls"] == 10
+
+
 @pytest.mark.parametrize("policy", POLICIES[:3] + [[2]],
                          ids=POLICY_IDS[:3] + ["selective"])
 def test_policy_matches_jax_under_the_same_policy(policy):

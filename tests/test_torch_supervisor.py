@@ -550,7 +550,10 @@ class TestReplicaResurrection:
         h = UIServer().health()
         assert h["supervisor"]["restarts"] == 2
         assert h["supervisor"]["shrinks"] == 1
-        assert h["last_incident"] is None       # the watchtower is A8
+        # the newest incident, else the newest blackbox (None before any)
+        from deeplearning4j_tpu_torch.common import watchtower
+
+        assert h["last_incident"] == watchtower.last_incident()
         assert set(h["inference"]) == {"pools", "workers", "alive",
                                        "retired", "resurrected"}
         assert "faults" in h

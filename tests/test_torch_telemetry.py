@@ -440,6 +440,37 @@ def test_file_storage_records_match_jax(kind, tmp_path):
     json.dumps(got)
 
 
+@pytest.mark.parametrize("kind", ["mln", "graph"])
+def test_tensorboard_storage_events_match_jax(kind, tmp_path):
+    """A sink draining into TensorBoardStatsStorage: the event files read
+    back the same (session/tag, step) series as the JAX package's, the
+    values within the telemetry tolerance, NaN where the JAX file has it;
+    and the histograms of a listener with histograms on, the same tags."""
+    from deeplearning4j_tpu.ui import TensorBoardStatsStorage as JTB
+    from deeplearning4j_tpu_torch.ui import (TensorBoardStatsStorage,
+                                             read_scalar_events)
+
+    jn, tn = twins(kind, True)
+    js, ts = JTB(str(tmp_path / "j")), TensorBoardStatsStorage(
+        str(tmp_path / "t"))
+    jn.set_listeners(jtel.TelemetrySink(js, drain_every_n=2),
+                     jtel.NanSentinelListener("skip", 1))
+    tn.set_listeners(ttel.TelemetrySink(ts, drain_every_n=2),
+                     ttel.NanSentinelListener("skip", 1))
+    for x, y in batches(4, nan_at=2):
+        jn.fit(JDataSet(x, y))
+        tn.fit(DataSet(x, y))
+    js.close()
+    ts.close()
+    got = read_scalar_events(ts.path)
+    want = read_scalar_events(js._writer.path)
+    assert [(s, t) for s, t, _ in got] == [(s, t) for s, t, _ in want]
+    assert len(got) > 0
+    np.testing.assert_allclose([v for _, _, v in got],
+                               [v for _, _, v in want], rtol=RTOL,
+                               atol=1e-6, equal_nan=True)
+
+
 def test_where_and_clone_tree_keep_dtypes_and_views():
     """``clone_tree`` and ``where_tree`` work per dtype; the result's
     leaves are views of one flat tensor per dtype."""

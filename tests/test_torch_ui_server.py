@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from deeplearning4j_tpu.ui import server as jserver
-from deeplearning4j_tpu_torch.common import faultinject, flightrec
+from deeplearning4j_tpu_torch.common import faultinject, flightrec, watchtower
 from deeplearning4j_tpu_torch.common.profiler import OpProfiler
 from deeplearning4j_tpu_torch.parallel import ServingEngine, SLOClass
 from deeplearning4j_tpu_torch.ui import (FileStatsStorage,
@@ -152,7 +152,9 @@ class TestObservability:
         eng, base = served
         eng.output(np.zeros((2, 4), np.float32))
         h = json.loads(get(base, "/api/health"))
-        assert h["status"] == "ok" and h["last_incident"] is None
+        # with no watchtower: the newest blackbox, None before any
+        assert h["status"] == "ok"
+        assert h["last_incident"] == watchtower.last_incident()
         assert h["serving"]["engines"] >= 1 and h["serving"]["requests"] >= 1
         assert h["inference"]["pools"] >= 1
         assert {"flightrec", "host", "devices", "backend"} <= set(h)
@@ -173,6 +175,46 @@ class TestObservability:
         assert "# TYPE dl4j_flightrec_events_total counter" in text
         assert "dl4j_alert_state" not in text      # no watchtower rows
         assert "dl4j_counter_total" in prometheus_text()
+
+    def test_watchtower_alerts_incidents_and_last_incident(self, served,
+                                                            tmp_path):
+        """With a watchtower installed: the ``dl4j_alert_state`` rows as the
+        JAX server writes them, ``/api/incidents`` and ``?id=`` serving the
+        alert's report, ``/api/health``'s ``last_incident`` and its
+        ``watchtower`` ledger."""
+        from deeplearning4j_tpu.common import watchtower as jwt
+
+        eng, base = served
+        texts = {}
+        for mod, prom in ((jwt, jserver.prometheus_text),
+                          (watchtower, tserver.prometheus_text)):
+            slo = mod.SLO("gold-p99", mod.threshold_sampler(
+                lambda: 1e9, 250.0), budget=0.1, fast_s=10.0, mid_s=30.0,
+                slow_s=60.0, page_burn=2.0, warn_burn=1.5, clear_ticks=2,
+                period_s=100.0)
+            tower = mod.install(mod.Watchtower(
+                [slo], incident_dir=str(tmp_path / mod.__name__)))
+            for i in range(2):
+                tower.evaluate_now(now=float(i))
+            texts[mod] = [ln for ln in prom().splitlines()
+                          if "dl4j_alert_state" in ln]
+        try:
+            assert texts[watchtower] == texts[jwt]
+            assert 'dl4j_alert_state{slo="gold-p99"} 2' in texts[watchtower]
+            metrics = get(base, "/api/metrics").decode()
+            assert 'dl4j_alert_state{slo="gold-p99"} 2' in metrics
+            idx = json.loads(get(base, "/api/incidents"))
+            assert [i["slo"] for i in idx] == ["gold-p99"]
+            rep = json.loads(get(base, f"/api/incidents?id={idx[0]['id']}"))
+            assert rep["chain"]["detection"]["name"] == "watchtower/alert"
+            assert rep["chain"]["detection"]["attrs"]["to"] == "page"
+            h = json.loads(get(base, "/api/health"))
+            assert h["last_incident"]["id"] == idx[0]["id"]
+            assert h["watchtower"]["state/gold-p99"] == 2
+        finally:
+            jwt.uninstall()
+            watchtower.uninstall()
+        assert "dl4j_alert_state{" not in get(base, "/api/metrics").decode()
 
     def test_trace_and_incidents(self, served):
         eng, base = served
