@@ -12,10 +12,13 @@ Phases (each fails the run with a nonzero exit if it fails):
                ``-Xptxas -v`` (registers, spills) of each.
 3. kernels  -- each kernel's wrapper against its plain PyTorch version on
                the card: bn_act at every shape the serving path gives it
-               (ResNet-50, batch 32) plus ragged shapes, float32 and
-               bfloat16; fused_update for sgd, nesterovs, adam and adamw,
-               float32 state and bfloat16 state with identical random bits
-               (bfloat16 moments must match bitwise), at the main path's
+               (ResNet-50, batch 32) plus ragged shapes (HW 1, HW below a
+               vector, 5x5 and 7x7 planes, odd C, odd numel), float32 and
+               bfloat16, and once past 2^31 elements (bf16 [1, 2, 32768,
+               32770], the 64-bit index route); fused_update for sgd,
+               nesterovs, adam and adamw, float32 state and bfloat16 state
+               with identical random bits (bfloat16 moments must match
+               bitwise), at the main path's
                bucket (25,557,032 elements), ragged sizes
                (1, 5, 4097) and views that start 1 element into a buffer
                (the head path and the scalar variant); embedding_bag bitwise
@@ -73,7 +76,9 @@ Phases (each fails the run with a nonzero exit if it fails):
                19x19, 1792 at 3x3, ...), each against its plain version in
                float32 and bf16 and timed in bf16 beside its byte bound;
                per forward the launch-weighted share of the bound (the
-               launches' bounds summed over their times summed).
+               launches' bounds summed over their times summed), beside
+               the launch floor (the kernel at [1, 8], one vector); and
+               the identity launches against F.batch_norm (library_ms).
 4. serving  -- full-size ResNet-50 (224x224x3, 1000 classes, bf16 compute,
                fused epilogue) behind ParallelInference (batched, batch limit
                32, 2 workers): 64 single-image requests from 8 client
@@ -826,10 +831,12 @@ def phase_device():
 
 # --- phase 2 -------------------------------------------------------------------
 
-def phase_build():
+def phase_build(names=None):
+    """Build every csrc/*.cu (or the named sources), all at once."""
     from deeplearning4j_tpu_torch.ops import cuda_lib
 
-    names = sorted(p.stem for p in cuda_lib.CSRC_DIR.glob("*.cu"))
+    if names is None:
+        names = sorted(p.stem for p in cuda_lib.CSRC_DIR.glob("*.cu"))
     t0 = time.perf_counter()
     times = cuda_lib.build(names, force=True)
     wall = time.perf_counter() - t0
@@ -923,6 +930,17 @@ def compare_bn_act(shape, act, residual, dtype, dev, gen):
     got = epilogue.bn_act_cuda(x, scale, shift, res, act).float()
     want = epilogue.bn_act_reference(x, scale, shift, res, act).float()
     torch.cuda.synchronize()
+    max_err, ok, tol_s = _bn_act_within_tolerance(got, want, x, scale, shift,
+                                                  res, dtype)
+    check(ok, f"bn_act {tuple(shape)} {act} res={residual} {dtype}: "
+              f"max_abs_err {max_err} not {tol_s}")
+    return max_err
+
+
+def _bn_act_within_tolerance(got, want, x, scale, shift, res, dtype):
+    """(max_abs_err, within the tolerance, the tolerance in words) of the
+    kernel's output ``got`` against the plain version's ``want`` (both
+    upcast to float32) on the inputs x, scale, shift and res."""
     err = (got - want).abs()
     max_err = err.max().item()
     if dtype == torch.float32:
@@ -942,9 +960,7 @@ def compare_bn_act(shape, act, residual, dtype, dev, gen):
             + 2.0 ** -22 * terms
         ok = bool(err.le(tol).all())
         tol_s = "<= 1 bf16 ulp + 2 f32 ulp of the terms, elementwise"
-    check(ok, f"bn_act {tuple(shape)} {act} res={residual} {dtype}: "
-              f"max_abs_err {max_err} not {tol_s}")
-    return max_err
+    return max_err, ok, tol_s
 
 
 def _time_ms(fn, flush, cold: bool = True) -> float:
@@ -987,51 +1003,55 @@ def time_bn_act(shape, dtype, dev, gen, flush):
     plain = lambda: epilogue.bn_act_reference(x, scale, shift, res, "relu")  # noqa: E731
     unfused = lambda: torch.relu(F.batch_norm(  # noqa: E731
         x, mean_c, var_c, gamma_c, beta_c, training=False, eps=1e-5) + res)
-    n = x.numel()
-    elem = x.element_size()
-    nbytes = 3 * n * elem + 2 * shape[1] * 4     # x, res, out; scale, shift
-    flops = 4 * n                                # fma (2), add, max
+    return {"ms": _time_ms(kernel, flush), "plain_ms": _time_ms(plain, flush),
+            "unfused_ms": _time_ms(unfused, flush),
+            **bn_act_bound(shape, True, x.element_size())}
+
+
+def bn_act_bound(shape, residual: bool, elem_size: int) -> dict:
+    """The least time of one bn_act launch: the bytes of x, the residual
+    and the output once plus scale and shift over 3.35 TB/s, or its float32
+    operations (fma 2, add, max) over 67 TFLOP/s, the larger."""
+    n = math.prod(shape)
+    nbytes = (3 if residual else 2) * n * elem_size + 2 * shape[1] * 4
+    flops = (4 if residual else 3) * n
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / F32_FLOPS_PER_S * 1e3
-    out = {"ms": _time_ms(kernel, flush), "plain_ms": _time_ms(plain, flush),
-           "unfused_ms": _time_ms(unfused, flush),
-           "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "bytes": nbytes}
-    return out
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes}
 
 
 def time_bn_act_kernel(shape, act, residual, dtype, dev, gen, flush):
     """The kernel's median cold-L2 time at one launch's shape and its
-    byte bound (x, the residual and the output once; scale and shift)."""
+    bound (bn_act_bound)."""
     from deeplearning4j_tpu_torch.ops import epilogue
 
     x, res, stats = _inputs(shape, dtype, residual, dev, gen)
     scale, shift = epilogue.fold(*stats)
-    n = x.numel()
-    nbytes = (3 if residual else 2) * n * x.element_size() + 2 * shape[1] * 4
-    flops = (4 if residual else 3) * n
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / F32_FLOPS_PER_S * 1e3
     ms = _time_ms(lambda: epilogue.bn_act_cuda(x, scale, shift, res, act),
                   flush)
-    return {"ms": ms, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": nbytes}
+    return {"ms": ms, **bn_act_bound(shape, residual, x.element_size())}
 
 
 #: the zoo models of phase 24 whose served forward launches bn_act, at
 #: their defaults, batch 16
 BN_ZOO_MODELS = ("SimpleCNN", "Xception", "InceptionResNetV1",
                  "FaceNetNN4Small2", "NASNet")
+#: one bf16 vector: the kernel's launch floor
+BN_FLOOR_SHAPE = (1, 8)
+#: the identity launches without a residual of one ResNet-50 forward, the
+#: ones a single PyTorch call (F.batch_norm) computes
+BN_IDENTITY_SHAPES = ((BATCH, 256, 56, 56), (BATCH, 512, 28, 28),
+                      (BATCH, 1024, 14, 14), (BATCH, 2048, 7, 7))
+#: past 2**31 elements (the 64-bit index route): bf16, 4.3 GB a tensor
+BN_WIDE_SHAPE = (1, 2, 32768, 32770)
 
 
-def bn_act_shape_bounds(smi: str, dev, gen, flush):
-    """bn_act at every launch shape of one ResNet-50 serving forward (batch
-    32) and of the served forwards of phase 24 (batch 16), bf16: each
-    compared with its plain version (f32 and bf16) and timed beside its
-    bound; per forward the launch-weighted share of the bound, the sum of
-    the launches' bounds over the sum of their times."""
+def bn_act_forwards():
+    """{forward: {(shape, act, residual): launches}} of one ResNet-50
+    serving forward (batch 32) and of the served forwards of phase 24
+    (batch 16)."""
     from deeplearning4j_tpu_torch.models import ResNet50, zoo
 
     forwards = {"ResNet50": bn_launch_cases(
@@ -1039,9 +1059,18 @@ def bn_act_shape_bounds(smi: str, dev, gen, flush):
     for name in BN_ZOO_MODELS:
         forwards[name] = bn_launch_cases(getattr(zoo, name)().conf(),
                                          ZOO_BATCH)
+    return forwards
+
+
+def bn_act_shape_bounds(smi: str, dev, gen, flush, floor_ms: float):
+    """bn_act at every launch shape of bn_act_forwards, bf16: each compared
+    with its plain version (f32 and bf16) and timed beside its bound; per
+    forward the launch-weighted share of the bound, the sum of the
+    launches' bounds over the sum of their times, beside the launch floor
+    times the launches."""
     timed = {}
     out = {}
-    for fwd, cases in forwards.items():
+    for fwd, cases in bn_act_forwards().items():
         bound = ms = 0.0
         rows = []
         for case, count in sorted(cases.items()):
@@ -1059,12 +1088,16 @@ def bn_act_shape_bounds(smi: str, dev, gen, flush):
                          "residual": residual, "launches": count,
                          "ms": t["ms"], "bound_ms": t["bound_ms"],
                          "share": t["bound_ms"] / t["ms"]})
-        out[fwd] = {"launches": sum(cases.values()), "ms": ms,
-                    "bound_ms": bound, "share": bound / ms, "cases": rows}
+        launches = sum(cases.values())
+        out[fwd] = {"launches": launches, "ms": ms, "bound_ms": bound,
+                    "share": bound / ms, "floor_ms": launches * floor_ms,
+                    "cases": rows}
         log(f"[kernels] bn_act bf16 over one {fwd} served forward "
-            f"({out[fwd]['launches']} launches, {len(cases)} shapes): "
+            f"({launches} launches, {len(cases)} shapes): "
             f"sum of times {ms:.4f} ms, of bounds {bound:.4f} ms, "
-            f"launch-weighted share of the bound {bound / ms:.3f}; {smi}")
+            f"launch-weighted share of the bound {bound / ms:.3f}; the "
+            f"launch floor ({floor_ms:.4f} ms) x {launches} = "
+            f"{launches * floor_ms:.4f} ms; {smi}")
         for r in rows:
             log(f"[kernels]   {fwd} bn_act {r['shape']} {r['act']} "
                 f"residual={r['residual']} x{r['launches']}: "
@@ -1073,12 +1106,93 @@ def bn_act_shape_bounds(smi: str, dev, gen, flush):
     return out
 
 
+def time_bn_act_library(shape, dev, gen, flush):
+    """The kernel against the one PyTorch call that computes an identity
+    launch without a residual, ``F.batch_norm`` with mean 0, variance
+    1 - 2^-20 and eps 2^-20 (it refuses eps 0; the two sum to 1 exactly)
+    and the folded scale and shift as its affine, bf16 x (float32
+    parameters, as the kernel takes them)."""
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.ops import epilogue
+
+    x, _, stats = _inputs(shape, torch.bfloat16, False, dev, gen)
+    scale, shift = epilogue.fold(*stats)
+    eps = 2.0 ** -20
+    zeros = torch.zeros_like(scale)
+    var = torch.full_like(scale, 1.0 - eps)
+    library = lambda: F.batch_norm(  # noqa: E731
+        x, zeros, var, scale, shift, training=False, eps=eps)
+    got = epilogue.bn_act_cuda(x, scale, shift, None, "identity").float()
+    err = (library().float() - got).abs().max().item()
+    torch.cuda.synchronize()
+    return {"shape": list(shape),
+            "ms": _time_ms(lambda: epilogue.bn_act_cuda(x, scale, shift,
+                                                        None, "identity"),
+                           flush),
+            "library_ms": _time_ms(library, flush),
+            "library_max_abs_diff": err}
+
+
+def compare_bn_act_misaligned(shape, dtype, dev, gen):
+    """bn_act (relu, with the residual) on x and a residual that start one
+    element into their buffers, so no base pointer is 16-byte aligned and
+    the kernel takes its scalar route, against the plain version."""
+    from deeplearning4j_tpu_torch.ops import epilogue
+
+    n = math.prod(shape)
+    x, res = (torch.randn(n + 1, generator=gen, device=dev).to(dtype)[1:]
+              .view(shape) for _ in range(2))
+    _, _, stats = _inputs((1, shape[1]), dtype, False, dev, gen)
+    scale, shift = epilogue.fold(*stats)
+    got = epilogue.bn_act_cuda(x, scale, shift, res, "relu").float()
+    want = epilogue.bn_act_reference(x, scale, shift, res, "relu").float()
+    max_err, ok, tol_s = _bn_act_within_tolerance(got, want, x, scale, shift,
+                                                  res, dtype)
+    check(ok, f"bn_act {shape} {dtype} one element into its buffers: "
+              f"max_abs_err {max_err} not {tol_s}")
+    return max_err
+
+
+def compare_bn_act_wide(dev, gen):
+    """bf16 bn_act (relu, no residual) on BN_WIDE_SHAPE, past 2**31
+    elements, against the plain version in float32, a slab of rows at a
+    time (the plain version of the whole would need tens of GB)."""
+    from deeplearning4j_tpu_torch.ops import epilogue
+
+    t0 = time.perf_counter()
+    shape = BN_WIDE_SHAPE
+    C = shape[1]
+    x = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    scale = torch.rand(C, generator=gen, device=dev) + 0.5
+    shift = torch.randn(C, generator=gen, device=dev)
+    out = epilogue.bn_act_cuda(x, scale, shift, None, "relu")
+    torch.cuda.synchronize()
+    max_err = 0.0
+    rows = 2048
+    for h in range(0, shape[2], rows):
+        xs = x[:, :, h:h + rows]
+        want = epilogue.bn_act_reference(xs, scale, shift, None,
+                                         "relu").float()
+        e, ok, tol_s = _bn_act_within_tolerance(
+            out[:, :, h:h + rows].float(), want, xs, scale, shift, None,
+            torch.bfloat16)
+        check(ok, f"bn_act {shape} (64-bit route) rows {h}-{h + rows}: "
+                  f"max_abs_err {e} not {tol_s}")
+        max_err = max(max_err, e)
+    del x, out
+    torch.cuda.empty_cache()
+    return {"shape": list(shape), "elements": math.prod(shape),
+            "max_abs_err": max_err, "seconds": time.perf_counter() - t0}
+
+
 def phase_kernels(smi: str, dev):
     cases = main_path_bn_cases(BATCH)
-    ragged = [((3, 65, 7, 5), a, r) for a in ("relu", "identity")
-              for r in (False, True)]
-    ragged += [((17, 130), a, r) for a in ("relu", "identity")
-               for r in (False, True)]
+    ragged = [(shape, a, r)
+              for shape in ((3, 65, 7, 5), (17, 130), (3, 5, 1, 1),
+                            (2, 3, 1, 3), (4, 512, 7, 7), (2, 192, 5, 5),
+                            (5, 33), (3, 7, 5, 3))
+              for a in ("relu", "identity") for r in (False, True)]
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
@@ -1092,8 +1206,19 @@ def phase_kernels(smi: str, dev):
         f"({len(cases)} main-path cases at batch {BATCH} + {len(ragged)} "
         f"ragged, f32 and bf16) ok; max_abs_err f32 {errs[torch.float32]} "
         f"bf16 {errs[torch.bfloat16]}")
+    for dtype in (torch.float32, torch.bfloat16):
+        e = compare_bn_act_misaligned((4, 512, 7, 7), dtype, dev, gen)
+        errs[dtype] = max(errs[dtype], e)
+    log(f"[kernels] bn_act vs plain on x and residual one element into "
+        f"their buffers (the scalar route), [4, 512, 7, 7], f32 and bf16: "
+        f"ok")
+    wide = compare_bn_act_wide(dev, gen)
+    errs[torch.bfloat16] = max(errs[torch.bfloat16], wide["max_abs_err"])
+    log(f"[kernels] bn_act bf16 {wide['shape']} ({wide['elements']} "
+        f"elements, the 64-bit index route) vs plain in float32: ok, "
+        f"max_abs_err {wide['max_abs_err']}; {wide['seconds']:.2f} s")
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
-    timing = {}
+    timing = {"wide": wide}
     for dtype in (torch.float32, torch.bfloat16):
         t = time_bn_act((BATCH, 256, 56, 56), dtype, dev, gen, flush)
         timing[dtype] = t
@@ -1103,7 +1228,27 @@ def phase_kernels(smi: str, dev):
             f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
             f"{t['bytes']} B at 3.35 TB/s); median of {TIMED_RUNS} "
             f"(CUDA events, cold L2); {smi}")
-    timing["shapes"] = bn_act_shape_bounds(smi, dev, gen, flush)
+    floor = time_bn_act_kernel(BN_FLOOR_SHAPE, "relu", False, torch.bfloat16,
+                               dev, gen, flush)
+    floor["empty_launch_ms"] = _time_ms(lambda: torch.cuda._sleep(0), flush)
+    timing["floor"] = floor
+    log(f"[kernels] bn_act launch floor: {floor['ms']:.4f} ms at "
+        f"{list(BN_FLOOR_SHAPE)} bf16 (one vector; bound "
+        f"{floor['bound_ms']:.7f} ms), timed as every shape; an empty "
+        f"launch (torch.cuda._sleep(0)) {floor['empty_launch_ms']:.4f} ms; "
+        f"{smi}")
+    timing["library"] = []
+    for shape in BN_IDENTITY_SHAPES:
+        t = time_bn_act_library(shape, dev, gen, flush)
+        timing["library"].append(t)
+        log(f"[kernels] bn_act identity {t['shape']} bf16: kernel "
+            f"{t['ms']:.4f} ms, F.batch_norm (mean 0, variance 1 - 2^-20, "
+            f"eps 2^-20, the folded affine) {t['library_ms']:.4f} ms (the "
+            f"kernel "
+            f"{'no slower' if t['ms'] <= t['library_ms'] else 'SLOWER'}; "
+            f"outputs within {t['library_max_abs_diff']:.3g}); {smi}")
+    timing["shapes"] = bn_act_shape_bounds(smi, dev, gen, flush,
+                                           floor["ms"])
     return errs, timing
 
 
@@ -12845,6 +12990,8 @@ def main(argv=None) -> int:
         "library_ms": None, "unfused_ms": bf["unfused_ms"],
         "f32": {k: f32[k] for k in ("ms", "plain_ms", "unfused_ms",
                                     "bound_ms")},
+        "floor_ms": timing["floor"]["ms"],
+        "identity_library": timing["library"], "wide": timing["wide"],
         "batches": batches,
         "launches_samediff_bert": bert["launches"]["bn_act"],
         "launches_zoo_cnn": {n: r["bn_act_launches"]

@@ -5,40 +5,90 @@
 // _launch, entry bn_act). Same function, not a block-by-block copy: the TPU
 // kernel streams a channels-last [rows, C] view in 256x128 tiles because of
 // the TPU's 128-lane tiling, so the JAX package transposes NCHW around it.
-// Here the kernel reads contiguous NCHW directly, so there is no transpose
-// and no C % 128 gate.
+// Here the kernel reads contiguous NCHW (or [N, C]) as it lies, so there is
+// no transpose and no C % 128 gate.
 //
 // Bound: memory bandwidth. Per element it does one FMA, at most one add and
 // one max, against 2 or 3 tensors x N*C*H*W x element size of traffic (x,
-// residual when present, out); at 3.35 TB/s that is the whole cost. The
-// design therefore touches each byte once: one read of x, one read of the
-// residual, one write of out, with 16-byte loads and stores per thread
-// wherever alignment allows; scale and shift (float32, C values each) are
-// read once per (n, c) plane.
+// the residual when present, out); at 3.35 TB/s that is the whole cost. At
+// the small shapes of a forward (7x7, 5x5 planes, under 2 MB a launch) the
+// cost is the launch and one trip to memory, so the design also keeps the
+// per-launch work small.
 //
-// Layout of the work:
-//   4-D NCHW: a block is blockDim.y planes x blockDim.x threads. Each row
-//   of threads walks one (n, c) plane, loads that channel's scale and shift
-//   once, and covers the plane's 16-byte-aligned body with vector loads;
-//   the few elements before the first aligned address and after the last
-//   whole vector (a plane of H*W elements need not start on a 16-byte
-//   boundary) are done one at a time by the row of gridDim.y index 0.
-//   2-D [N, C]: a grid-stride loop over flat vectors; channel = i % C.
+// Design: one flat pass. x, the residual and out are flat arrays of
+// N*C*H*W elements ([N, C] is H*W = 1), cut into 16-byte vectors (8 bf16 or
+// 4 float32), neighbouring threads on neighbouring vectors. Only the three
+// base pointers need 16-byte alignment (the wrapper checks them; otherwise
+// it takes the scalar route, vectors of one element). The numel % VEC
+// elements at the end are done one at a time by block 0. A thread issues
+// the loads of its `per_thread` (1-4) vectors, x and the residual, before its
+// first FMA, then computes, then stores. The wrapper sizes the grid: one
+// pass of ceil(vectors / (256 * per_thread)) blocks, per_thread halved
+// until the grid covers the SMs; past 64 blocks an SM the grid strides.
+// __launch_bounds__(256, 4) keeps registers at 64 or fewer (none spilled),
+// so at least 4 blocks are resident on an SM. On an H100 one pass took
+// 2-4% less than a grid of 4 blocks an SM that strides at the large
+// shapes, and matches copy_ on the same bytes (PERF.md, section 6).
+//
+// The port's first design gave each (n, c) plane a row of at least one
+// warp and did the misaligned head and tail of every plane one element at
+// a time; a plane of 49 bf16 (98 B) or 196 (392 B) is misaligned whenever
+// its byte length is not a multiple of 16. Every 7x7 and 14x14 launch of
+// ResNet-50 (29 of 53) ran mostly idle warps and scalar loads: [32,512,7,7]
+// took 0.0102 ms against a bound of 0.00096, a forward's 53 launches 1.0081
+// ms against 0.5100 (PERF.md, section 6). Most of what remains at the small
+// shapes is the launch itself: timed the same way, an empty launch takes
+// about 0.0048 ms and this kernel at one vector 0.0055 (PERF.md).
+//
+// Channels: for a vector's first element e, (plane, r) = divmod(e, HW) and
+// c = plane mod C, once per vector; then the channel steps with the
+// elements. Where HW >= VEC a vector spans at most two channels: both
+// channels' scale and shift are read and each element picks one by
+// comparing k with HW - r. Where HW < VEC (HW = 1 for [N, C]) each element
+// steps r and c and reads its own. Index routes, chosen by the wrapper from
+// numel: below 2^31 elements, 32-bit indices and a multiply-high divmod
+// with magic numbers computed on the host (n / d = umulhi(2n, mul) >> shr
+// for n < 2^31; ops/epilogue.py:divmod_magic); from 2^31 on, 64-bit indices
+// and the hardware's division (off the main path).
+//
+// scale and shift (float32, at most 2 x 2048 values on the main paths) are
+// read through the read-only path (__ldg): the L1 holds them, and a warp's
+// 32 vectors touch a few neighbouring channels, so these are broadcasts.
+//
+// Cache policy: x and the residual are dead after this kernel; out is read
+// next by the following convolution. DL4J_BN_STREAM=1 (the default) loads
+// x and the residual evict-first (__ldcs), 0 through the read-only path
+// (__ldg); out is stored with the default policy either way. In the served
+// ResNet-50 forward (batch 32, bf16, on an H100) the forward's kernels took
+// 0.01-0.04 ms less device time with evict-first loads in three calls
+// (3.29-3.30 ms against 3.30-3.35), about what this kernel's 53 launches
+// saved; timed alone from a cold L2 the two are equal (profile_port.py
+// --bn; PERF.md).
 //
 // Numerics: x and residual are upcast to float32; y = fmaf(x, scale, shift),
 // plus the residual, then the activation; the result is rounded once, on
-// the store. scale and shift stay float32 (the JAX package's bf16 path
-// rounds them to bf16 first; see ops/epilogue.py for the bound).
+// the store: the same expression as the first design's, so the output is
+// bitwise the same. scale and shift stay float32 (the JAX package's bf16
+// path rounds them to bf16 first; see ops/epilogue.py for the bound).
 //
 // The wrapper (ops/epilogue.py) allocates out, checks shapes, dtypes,
-// contiguity and 16-byte alignment, launches on PyTorch's current stream,
+// contiguity and 16-byte alignment, plans the launch (route, vector width,
+// per_thread, blocks, magic numbers), launches on PyTorch's current stream,
 // and raises when the launch function returns a nonzero cudaError_t.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#ifndef DL4J_BN_STREAM
+#define DL4J_BN_STREAM 1
+#endif
+
 namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxPerThread = 4;
+constexpr int kMinBlocksPerSm = 4;
 
 template <typename T>
 struct VecWidth;
@@ -46,6 +96,22 @@ template <>
 struct VecWidth<float> { static constexpr int kN = 4; };
 template <>
 struct VecWidth<__nv_bfloat16> { static constexpr int kN = 8; };
+
+// what one thread loads and stores at once: 16 bytes, or one element on
+// the scalar route
+template <typename T, int VEC>
+struct Pack { using type = uint4; };
+template <typename T>
+struct Pack<T, 1> { using type = T; };
+
+template <typename P>
+__device__ __forceinline__ P load_dead(const P* p) {
+#if DL4J_BN_STREAM
+  return __ldcs(p);
+#else
+  return __ldg(p);
+#endif
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -68,203 +134,183 @@ __device__ __forceinline__ float activate(float y) {
 }
 
 template <typename T, bool RELU, bool RES>
-__device__ __forceinline__ void one(const T* __restrict__ x,
-                                    const T* __restrict__ res,
-                                    T* __restrict__ out, long long i, float s,
-                                    float b) {
-  float y = fmaf(to_f32(x[i]), s, b);
-  if (RES) y += to_f32(res[i]);
-  out[i] = from_f32<T>(activate<RELU>(y));
+__device__ __forceinline__ T epilogue(T xe, T re, float s, float b) {
+  float y = fmaf(to_f32(xe), s, b);
+  if (RES) y += to_f32(re);
+  return from_f32<T>(activate<RELU>(y));
 }
 
-// VEC elements starting at element i, which is 16-byte aligned; one
-// channel for all of them
-template <typename T, int VEC, bool RELU, bool RES>
-__device__ __forceinline__ void vec_same_channel(const T* __restrict__ x,
-                                                 const T* __restrict__ res,
-                                                 T* __restrict__ out,
-                                                 long long i, float s,
-                                                 float b) {
-  if constexpr (VEC == 1) {
-    one<T, RELU, RES>(x, res, out, i, s, b);
-  } else {
-    static_assert(VEC * sizeof(T) == 16, "16-byte vectors");
-    uint4 xv = *reinterpret_cast<const uint4*>(x + i);
-    uint4 rv = make_uint4(0, 0, 0, 0);
-    if (RES) rv = *reinterpret_cast<const uint4*>(res + i);
-    const T* xe = reinterpret_cast<const T*>(&xv);
-    const T* re = reinterpret_cast<const T*>(&rv);
-    uint4 ov;
-    T* oe = reinterpret_cast<T*>(&ov);
+struct Params {
+  const void* x;
+  const float* scale;
+  const float* shift;
+  const void* res;
+  void* out;
+  long long total;        // elements
+  long long hw;           // H*W (1 for [N, C])
+  long long C;
+  int per_thread;         // vectors a thread loads before computing, 1-4
+  uint32_t hw_mul, hw_shr, c_mul, c_shr;   // the 32-bit route's divmods
+};
+
+// (plane, r) = divmod(e, hw); c = plane mod C
+__device__ __forceinline__ void channel_of(uint32_t e, const Params& p,
+                                           uint32_t& r, uint32_t& c) {
+  const uint32_t hw = (uint32_t)p.hw, C = (uint32_t)p.C;
+  const uint32_t plane = __umulhi(e << 1, p.hw_mul) >> p.hw_shr;
+  r = e - plane * hw;
+  const uint32_t q = __umulhi(plane << 1, p.c_mul) >> p.c_shr;
+  c = plane - q * C;
+}
+
+__device__ __forceinline__ void channel_of(uint64_t e, const Params& p,
+                                           uint64_t& r, uint64_t& c) {
+  const uint64_t plane = e / (uint64_t)p.hw;
+  r = e - plane * (uint64_t)p.hw;
+  c = plane % (uint64_t)p.C;
+}
+
+// one vector of VEC elements starting at element e (VEC-aligned)
+template <typename T, typename I, int VEC, bool SPAN2, bool RELU, bool RES>
+__device__ __forceinline__ typename Pack<T, VEC>::type vector_epilogue(
+    const typename Pack<T, VEC>::type& xv,
+    const typename Pack<T, VEC>::type& rv, I e, const Params& p) {
+  using P = typename Pack<T, VEC>::type;
+  const T* xe = reinterpret_cast<const T*>(&xv);
+  const T* re = reinterpret_cast<const T*>(&rv);
+  P ov;
+  T* oe = reinterpret_cast<T*>(&ov);
+  I r, c;
+  channel_of(e, p, r, c);
+  if constexpr (SPAN2) {
+    // hw >= VEC: channel c for the first hw - r elements, then c + 1
+    const float s0 = __ldg(p.scale + c), b0 = __ldg(p.shift + c);
+    float s1 = s0, b1 = b0;
+    const I split = (I)p.hw - r;
+    if (VEC > 1 && split < (I)VEC) {
+      const I c1 = (c + 1 == (I)p.C) ? 0 : c + 1;
+      s1 = __ldg(p.scale + c1);
+      b1 = __ldg(p.shift + c1);
+    }
 #pragma unroll
     for (int k = 0; k < VEC; ++k) {
-      float y = fmaf(to_f32(xe[k]), s, b);
-      if (RES) y += to_f32(re[k]);
-      oe[k] = from_f32<T>(activate<RELU>(y));
+      const bool first = (I)k < split;
+      oe[k] = epilogue<T, RELU, RES>(xe[k], RES ? re[k] : xe[k],
+                                     first ? s0 : s1, first ? b0 : b1);
     }
-    *reinterpret_cast<uint4*>(out + i) = ov;
-  }
-}
-
-template <typename T, int VEC, bool RELU, bool RES>
-__global__ void bn_act_nchw_kernel(const T* __restrict__ x,
-                                   const float* __restrict__ scale,
-                                   const float* __restrict__ shift,
-                                   const T* __restrict__ res,
-                                   T* __restrict__ out, long long planes,
-                                   long long hw, int C) {
-  const long long plane =
-      (long long)blockIdx.x * blockDim.y + threadIdx.y;
-  if (plane >= planes) return;
-  const int c = (int)(plane % C);
-  const float s = scale[c];
-  const float b = shift[c];
-  const long long base = plane * hw;
-  long long head = 0;
-  if (VEC > 1) {
-    // the base pointers are 16-byte aligned (checked by the wrapper), so
-    // the plane's misalignment follows from its element offset alone
-    const long long mis = (base * (long long)sizeof(T)) & 15;
-    head = mis ? (16 - mis) / (long long)sizeof(T) : 0;
-    if (head > hw) head = hw;
-  }
-  const long long nvec = (hw - head) / VEC;
-  const long long stride = (long long)gridDim.y * blockDim.x;
-  for (long long v = (long long)blockIdx.y * blockDim.x + threadIdx.x;
-       v < nvec; v += stride) {
-    vec_same_channel<T, VEC, RELU, RES>(x, res, out, base + head + v * VEC,
-                                        s, b);
-  }
-  if (VEC > 1 && blockIdx.y == 0) {
-    for (long long i = threadIdx.x; i < head; i += blockDim.x)
-      one<T, RELU, RES>(x, res, out, base + i, s, b);
-    for (long long i = head + nvec * VEC + threadIdx.x; i < hw;
-         i += blockDim.x)
-      one<T, RELU, RES>(x, res, out, base + i, s, b);
-  }
-}
-
-template <typename T, int VEC, bool RELU, bool RES>
-__global__ void bn_act_rows_kernel(const T* __restrict__ x,
-                                   const float* __restrict__ scale,
-                                   const float* __restrict__ shift,
-                                   const T* __restrict__ res,
-                                   T* __restrict__ out, long long total,
-                                   int C) {
-  const long long nvec = total / VEC;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long v = tid; v < nvec; v += stride) {
-    const long long i = v * VEC;
-    if constexpr (VEC == 1) {
-      const int c = (int)(i % C);
-      one<T, RELU, RES>(x, res, out, i, scale[c], shift[c]);
-    } else {
-      uint4 xv = *reinterpret_cast<const uint4*>(x + i);
-      uint4 rv = make_uint4(0, 0, 0, 0);
-      if (RES) rv = *reinterpret_cast<const uint4*>(res + i);
-      const T* xe = reinterpret_cast<const T*>(&xv);
-      const T* re = reinterpret_cast<const T*>(&rv);
-      uint4 ov;
-      T* oe = reinterpret_cast<T*>(&ov);
-      int c = (int)(i % C);
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) {
-        float y = fmaf(to_f32(xe[k]), scale[c], shift[c]);
-        if (RES) y += to_f32(re[k]);
-        oe[k] = from_f32<T>(activate<RELU>(y));
-        c = (c + 1 == C) ? 0 : c + 1;
-      }
-      *reinterpret_cast<uint4*>(out + i) = ov;
-    }
-  }
-  for (long long i = nvec * VEC + tid; i < total; i += stride) {
-    const int c = (int)(i % C);
-    one<T, RELU, RES>(x, res, out, i, scale[c], shift[c]);
-  }
-}
-
-constexpr int kThreads = 256;
-
-template <typename T, int VEC, bool RELU, bool RES>
-void launch_nchw(const void* x, const float* scale, const float* shift,
-                 const void* res, void* out, long long planes, long long hw,
-                 int C, cudaStream_t stream) {
-  const long long per_plane = (hw + VEC - 1) / VEC;
-  int tx = (int)(((per_plane + 31) / 32) * 32);
-  if (tx > kThreads) tx = kThreads;
-  if (tx < 32) tx = 32;
-  const int ty = kThreads / tx;
-  long long gx = (planes + ty - 1) / ty;
-  long long gy = (per_plane + tx - 1) / tx;
-  if (gy > 65535) gy = 65535;
-  if (gy < 1) gy = 1;
-  dim3 grid((unsigned)gx, (unsigned)gy, 1);
-  dim3 block(tx, ty, 1);
-  bn_act_nchw_kernel<T, VEC, RELU, RES><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(x), scale, shift, static_cast<const T*>(res),
-      static_cast<T*>(out), planes, hw, C);
-}
-
-template <typename T, int VEC, bool RELU, bool RES>
-void launch_rows(const void* x, const float* scale, const float* shift,
-                 const void* res, void* out, long long total, int C,
-                 cudaStream_t stream) {
-  long long blocks = (total / VEC + kThreads - 1) / kThreads;
-  if (blocks < 1) blocks = 1;
-  if (blocks > 132 * 32) blocks = 132 * 32;
-  bn_act_rows_kernel<T, VEC, RELU, RES><<<(unsigned)blocks, kThreads, 0,
-                                           stream>>>(
-      static_cast<const T*>(x), scale, shift, static_cast<const T*>(res),
-      static_cast<T*>(out), total, C);
-}
-
-template <typename T, bool RELU, bool RES>
-void dispatch_vec(int rows, int vec, const void* x, const float* scale,
-                  const float* shift, const void* res, void* out, long long a,
-                  long long hw, int C, cudaStream_t stream) {
-  constexpr int V = VecWidth<T>::kN;
-  if (rows) {
-    if (vec) launch_rows<T, V, RELU, RES>(x, scale, shift, res, out, a, C, stream);
-    else launch_rows<T, 1, RELU, RES>(x, scale, shift, res, out, a, C, stream);
   } else {
-    if (vec) launch_nchw<T, V, RELU, RES>(x, scale, shift, res, out, a, hw, C, stream);
-    else launch_nchw<T, 1, RELU, RES>(x, scale, shift, res, out, a, hw, C, stream);
+    // hw < VEC: the channel may change at every element
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      oe[k] = epilogue<T, RELU, RES>(xe[k], RES ? re[k] : xe[k],
+                                     __ldg(p.scale + c), __ldg(p.shift + c));
+      if (++r == (I)p.hw) {
+        r = 0;
+        c = (c + 1 == (I)p.C) ? 0 : c + 1;
+      }
+    }
   }
+  return ov;
+}
+
+template <typename T, typename I, int VEC, bool SPAN2, bool RELU, bool RES>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
+    bn_act_kernel(const Params p) {
+  using P = typename Pack<T, VEC>::type;
+  const P* __restrict__ x = static_cast<const P*>(p.x);
+  const P* __restrict__ res = static_cast<const P*>(p.res);
+  P* __restrict__ out = static_cast<P*>(p.out);
+  const I nvec = (I)(p.total / VEC);
+  const I chunk = (I)kThreads * (I)p.per_thread;
+  const I step = chunk * (I)gridDim.x;
+  for (I v0 = (I)blockIdx.x * chunk + threadIdx.x; v0 < nvec; v0 += step) {
+    P xv[kMaxPerThread], rv[kMaxPerThread];
+#pragma unroll
+    for (int u = 0; u < kMaxPerThread; ++u) {
+      const I v = v0 + (I)(u * kThreads);
+      if (u < p.per_thread && v < nvec) {
+        xv[u] = load_dead(x + v);
+        if (RES) rv[u] = load_dead(res + v);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kMaxPerThread; ++u) {
+      const I v = v0 + (I)(u * kThreads);
+      if (u < p.per_thread && v < nvec)
+        out[v] = vector_epilogue<T, I, VEC, SPAN2, RELU, RES>(
+            xv[u], RES ? rv[u] : xv[u], v * (I)VEC, p);
+    }
+  }
+  if (VEC > 1 && blockIdx.x == 0) {
+    // the ragged end: numel % VEC elements, one a thread
+    const I e = nvec * (I)VEC + threadIdx.x;
+    if (e < (I)p.total) {
+      const T* xs = static_cast<const T*>(p.x);
+      const T* rs = static_cast<const T*>(p.res);
+      I r, c;
+      channel_of(e, p, r, c);
+      static_cast<T*>(p.out)[e] = epilogue<T, RELU, RES>(
+          xs[e], RES ? rs[e] : xs[e], __ldg(p.scale + c), __ldg(p.shift + c));
+    }
+  }
+}
+
+template <typename T, typename I, int VEC, bool SPAN2>
+void launch_act(const Params& p, int relu, int blocks, cudaStream_t st) {
+  const bool r = p.res != nullptr;
+  if (relu) {
+    if (r) bn_act_kernel<T, I, VEC, SPAN2, true, true><<<blocks, kThreads, 0, st>>>(p);
+    else bn_act_kernel<T, I, VEC, SPAN2, true, false><<<blocks, kThreads, 0, st>>>(p);
+  } else {
+    if (r) bn_act_kernel<T, I, VEC, SPAN2, false, true><<<blocks, kThreads, 0, st>>>(p);
+    else bn_act_kernel<T, I, VEC, SPAN2, false, false><<<blocks, kThreads, 0, st>>>(p);
+  }
+}
+
+template <typename T, typename I>
+void launch_vec(const Params& p, int vec, int relu, int blocks,
+                cudaStream_t st) {
+  constexpr int V = VecWidth<T>::kN;
+  if (!vec) launch_act<T, I, 1, true>(p, relu, blocks, st);
+  else if (p.hw >= V) launch_act<T, I, V, true>(p, relu, blocks, st);
+  else launch_act<T, I, V, false>(p, relu, blocks, st);
 }
 
 template <typename T>
-void dispatch(int rows, int relu, int vec, const void* x, const float* scale,
-              const float* shift, const void* res, void* out, long long a,
-              long long hw, int C, cudaStream_t stream) {
-  if (relu) {
-    if (res) dispatch_vec<T, true, true>(rows, vec, x, scale, shift, res, out, a, hw, C, stream);
-    else dispatch_vec<T, true, false>(rows, vec, x, scale, shift, res, out, a, hw, C, stream);
-  } else {
-    if (res) dispatch_vec<T, false, true>(rows, vec, x, scale, shift, res, out, a, hw, C, stream);
-    else dispatch_vec<T, false, false>(rows, vec, x, scale, shift, res, out, a, hw, C, stream);
-  }
+void launch_route(const Params& p, int wide, int vec, int relu, int blocks,
+                  cudaStream_t st) {
+  if (wide) launch_vec<T, uint64_t>(p, vec, relu, blocks, st);
+  else launch_vec<T, uint32_t>(p, vec, relu, blocks, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// rows == 0: x is NCHW with `a` = N*C planes of `hw` = H*W elements.
-// rows == 1: x is [N, C] with `a` = N*C elements (hw unused).
-// dtype: 0 float32, 1 bfloat16. res may be NULL. vec: 1 when every base
-// pointer is 16-byte aligned. Returns the launch's cudaError_t.
+// x, res (may be NULL) and out: contiguous, `total` elements, `hw` = H*W
+// (1 for [N, C]) elements a plane, C channels; scale, shift: C float32.
+// dtype: 0 float32, 1 bfloat16. vec: 1 when every base pointer is 16-byte
+// aligned. wide: 1 for the 64-bit index route (required from 2^31
+// elements on). per_thread (1-4) and blocks: the grid the wrapper planned;
+// hw_mul, hw_shr, c_mul, c_shr: the 32-bit route's divmods by hw and C.
+// Returns the launch's cudaError_t.
 int dl4j_bn_act(const void* x, const void* scale, const void* shift,
-                const void* res, void* out, long long a, long long hw, int C,
-                int rows, int dtype, int relu, int vec, void* stream) {
-  if (a <= 0) return 0;
+                const void* res, void* out, long long total, long long hw,
+                long long C, int dtype, int relu, int vec, int wide,
+                int per_thread, int blocks, unsigned hw_mul, unsigned hw_shr,
+                unsigned c_mul, unsigned c_shr, void* stream) {
+  if (total <= 0) return 0;
+  if (hw <= 0 || C <= 0 || blocks <= 0 || per_thread < 1 ||
+      per_thread > kMaxPerThread || (!wide && total >= (1LL << 31)))
+    return (int)cudaErrorInvalidValue;
+  Params p{x, static_cast<const float*>(scale),
+           static_cast<const float*>(shift), res, out, total, hw, C,
+           per_thread, hw_mul, hw_shr, c_mul, c_shr};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* s = static_cast<const float*>(scale);
-  const float* b = static_cast<const float*>(shift);
   if (dtype == 0) {
-    dispatch<float>(rows, relu, vec, x, s, b, res, out, a, hw, C, st);
+    launch_route<float>(p, wide, vec, relu, blocks, st);
   } else if (dtype == 1) {
-    dispatch<__nv_bfloat16>(rows, relu, vec, x, s, b, res, out, a, hw, C, st);
+    launch_route<__nv_bfloat16>(p, wide, vec, relu, blocks, st);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -10,7 +10,8 @@ a single read of ``x`` and ``residual`` and one write.
   ``None`` when the gate refuses (the caller keeps its dense path; the
   refusal is counted under ``precision/epilogue_fallbacks``).
 - :func:`bn_act_cuda` launches the hand-written kernel ``csrc/bn_act.cu``
-  for a CUDA tensor; it never falls back.
+  for a CUDA tensor; it never falls back. :func:`launch_plan` picks the
+  kernel's index route, vector width and grid from the tensor's size.
 - :func:`bn_act_reference` is the plain PyTorch version of the same math,
   used only for a tensor on the CPU (and by the checks on the card).
 
@@ -36,8 +37,9 @@ two roundings by at most 2 ulp of the output scale.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -133,13 +135,94 @@ def _check_cuda_args(x, scale, shift, residual, act) -> None:
         raise ValueError("tensor too large for the bn_act kernel")
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.dl4j_bn_act
-    if fn.argtypes is None:
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, ll, ll, i, i, i, i, i, p]
-        fn.restype = i
+#: threads a block (the kernel's kThreads), the most vectors a thread
+#: loads before it computes (kMaxPerThread), and the most blocks a launch
+#: gives each SM before the grid strides. Every launch of the forwards the
+#: port serves is one pass: on an H100 one pass took 2-4% less than a grid
+#: of 4 blocks an SM that strides, at the large shapes (PERF.md, §6).
+THREADS = 256
+MAX_PER_THREAD = 4
+BLOCKS_PER_SM = 64
+#: from this many elements on, the kernel takes its 64-bit index route
+WIDE_AT = 2 ** 31
+
+
+class LaunchPlan(NamedTuple):
+    wide: bool          # 64-bit indices (numel >= WIDE_AT)
+    vec: int            # elements a vector: 16 bytes, or 1 (scalar route)
+    per_thread: int     # vectors a thread loads before computing
+    blocks: int
+    hw_magic: Tuple[int, int]   # divmod_magic(hw); (0, 0) on the wide route
+    c_magic: Tuple[int, int]
+
+
+def divmod_magic(d: int) -> Tuple[int, int]:
+    """``(mul, shr)`` such that ``n // d == umulhi(2 * n, mul) >> shr`` for
+    every ``0 <= n < 2**31`` (``umulhi``: the high 32 bits of the 64-bit
+    product): ``shr = ceil(log2 d)``, ``mul = ceil(2**(31 + shr) / d)``
+    (Granlund and Montgomery's round-up method for 31-bit dividends)."""
+    if not 1 <= d < 2 ** 31:
+        raise ValueError(f"divisor {d} outside [1, 2**31)")
+    shr = (d - 1).bit_length()
+    mul = -(-(1 << (31 + shr)) // d)
+    return mul, shr
+
+
+@functools.lru_cache(maxsize=4096)
+def launch_plan(numel: int, hw: int, C: int, elem_size: int, aligned: bool,
+                sms: int) -> LaunchPlan:
+    """The kernel's launch for a contiguous tensor of ``numel`` elements of
+    ``elem_size`` bytes, ``hw`` a plane and ``C`` channels, on a card of
+    ``sms`` SMs: the index route, the vector width (16-byte vectors when
+    every base pointer is ``aligned``), the vectors a thread loads at once
+    (4, halved while one pass would leave SMs without a block) and the
+    blocks (one pass, up to BLOCKS_PER_SM an SM; a grid-stride loop past
+    that)."""
+    vec = 16 // elem_size if aligned else 1
+    nvec = numel // vec
+    per_thread = MAX_PER_THREAD
+    while per_thread > 1 and -(-nvec // (THREADS * per_thread)) < sms:
+        per_thread //= 2
+    blocks = min(-(-nvec // (THREADS * per_thread)), sms * BLOCKS_PER_SM)
+    wide = numel >= WIDE_AT
+    zero = (0, 0)
+    return LaunchPlan(wide, vec, per_thread, max(blocks, 1),
+                      zero if wide else divmod_magic(hw),
+                      zero if wide else divmod_magic(C))
+
+
+_SMS = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _SMS[index]
+
+
+def bind(fn):
+    """Set the argument types of a loaded ``dl4j_bn_act``."""
+    p, ll, i, u = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_uint)
+    fn.argtypes = [p, p, p, p, p, ll, ll, ll, i, i, i, i, i, i, u, u, u, u, p]
+    fn.restype = i
     return fn
+
+
+#: the loaded library and its bound entry, made at the first launch (a
+#: measurement build may be put here in their place)
+_LAUNCHER = None
+
+
+def _launcher():
+    global _LAUNCHER
+    if _LAUNCHER is None:
+        lib = cuda_lib.load(KERNEL_NAME)
+        _LAUNCHER = (lib, bind(lib.dl4j_bn_act))
+    return _LAUNCHER
 
 
 def bn_act_cuda(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
@@ -150,23 +233,24 @@ def bn_act_cuda(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     global bn_act_launches, bn_act_residual_launches
     _check_cuda_args(x, scale, shift, residual, act)
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
-    if x.numel() == 0:
+    n = x.numel()
+    if n == 0:
         return out
-    lib = cuda_lib.load(KERNEL_NAME)
-    fn = _bind(lib)
+    lib, fn = _launcher()
     C = int(x.shape[1])
-    if x.ndim == 4:
-        a, hw, rows = x.shape[0] * C, x.shape[2] * x.shape[3], 0
-    else:
-        a, hw, rows = x.numel(), 1, 1
+    hw = x.shape[2] * x.shape[3] if x.ndim == 4 else 1
     tensors = [x, out] + ([residual] if residual is not None else [])
-    vec = int(all(t.data_ptr() % 16 == 0 for t in tensors))
+    aligned = all(t.data_ptr() % 16 == 0 for t in tensors)
+    plan = launch_plan(n, hw, C, x.element_size(), aligned,
+                       _sm_count(x.device))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
                  residual.data_ptr() if residual is not None else None,
-                 out.data_ptr(), a, hw, C, rows, _DTYPE_CODES[x.dtype],
-                 int(act == "relu"), vec, stream)
+                 out.data_ptr(), n, hw, C, _DTYPE_CODES[x.dtype],
+                 int(act == "relu"), int(plan.vec > 1), int(plan.wide),
+                 plan.per_thread, plan.blocks, *plan.hw_magic,
+                 *plan.c_magic, stream)
     if err != 0:
         raise RuntimeError(f"bn_act kernel launch failed: cudaError {err} "
                            f"({cuda_lib.error_string(lib, err)})")

@@ -16,8 +16,10 @@ one encoder forward of the port spends its time, on the card.
     python3 profile_port.py --bert      # one SameDiff BERT-base step
     python3 profile_port.py --textgen   # one TextGenerationLSTM TBPTT batch
     python3 profile_port.py --bag [--levers] [--timeline]  # embedding_bag
+    python3 profile_port.py --bn [--levers]  # bn_act at every launch shape
     python3 profile_port.py --package DIR --bag  # DIR's port, this code
     python3 profile_port.py --alternate DIR --flash  # DIR's port and this
+    python3 profile_port.py --alternate DIR --bn
     python3 profile_port.py --bag-build "-DDL4J_BAG_STREAM=1" --word2vec
     python3 profile_port.py --parallel  # ParallelWrapper step (phase 40)
 
@@ -27,10 +29,10 @@ beside this script, and builds DIR's kernels into DIR: parent and change are
 then measured by the same code, in turns, in one call. ``--bag-build OPTS``
 builds ``csrc/embedding_bag.cu`` with the -D options OPTS (the measurement
 settings its header lists) and has ``embedding_bag_cuda`` launch that build
-in whatever mode follows. ``--alternate DIR`` runs one mode (``--flash`` or
-``--bag``) as processes of their own on DIR's package and on this one in
-turns (parent, change, change, parent, ...; ``--rounds`` each, 3 by
-default) and prints the medians of each run's summary side by side.
+in whatever mode follows. ``--alternate DIR`` runs one mode (``--flash``,
+``--bag`` or ``--bn``) as processes of their own on DIR's package and on
+this one in turns (parent, change, change, parent, ...; ``--rounds`` each,
+3 by default) and prints the medians of each run's summary side by side.
 
 Builds the model ``chip_smoke.py`` serves (full-size ResNet-50, seeded random
 weights, calibrated BN statistics, bf16 compute) and prints, beside the
@@ -149,6 +151,22 @@ Adam alone (its kernels, launches and device time), whose share of the
 step's elementwise time it names. Traces go to
 ``chiprun_out/profile_port_bert_{forward,step}_trace.json.gz``.
 
+With ``--bn`` it times bn_act (bf16, cold L2) at every launch shape of
+one ResNet-50 serving forward (batch 32) and of the five zoo forwards that
+launch it (batch 16), beside each shape's bound, with the sha256 of each
+shape's output on inputs from a fixed seed (and, in the summary, a 52-bit
+prefix of the hash over all of them and the float32 route's: parent and
+change must agree); each
+forward's sums of times and bounds and its launch-weighted share; the
+float32 route at [32,256,56,56]; the launch floor (one bf16 vector); and
+the device time of one served ResNet-50 forward at batch 32 (fused
+epilogue on, a torch.profiler trace of 3) with bn_act's share, with the
+shipped build and with each cache policy of BN_POLICIES (x and the
+residual loaded through the read-only path or evict-first) built as a
+measurement build, in turns. With ``--levers`` also the kernel at a few
+shapes beside ``copy_`` and ``torch.add`` on the same bytes, under each
+grid the planner could choose and each cache policy (bn_levers).
+
 With ``--flash`` it times the bf16 flash kernel beside
 F.scaled_dot_product_attention on the same bf16 tensors at T 128 for B*H
 from 12 to 768, and at [96, 512, 64]; then the float32 kernel (3xTF32) at
@@ -175,6 +193,8 @@ The last line is one JSON object with the numbers.
 from __future__ import annotations
 
 import ctypes
+import functools
+import hashlib
 import json
 import os
 import statistics
@@ -1359,6 +1379,232 @@ def bag_main(dev, smi: str, name: str, levers: bool,
     return 0
 
 
+#: the cache policies of bn_act's loads of x and the residual, as
+#: measurement builds (``--bn``): through the read-only path, or evict-first
+BN_POLICIES = {"plain": ("-DDL4J_BN_STREAM=0",),
+               "stream": ("-DDL4J_BN_STREAM=1",)}
+
+
+def use_bn_build(path):
+    """Make bn_act_cuda launch the library at ``path`` (a build of
+    measurement_builds), or the package's own build for None."""
+    from deeplearning4j_tpu_torch.ops import epilogue
+
+    if path is None:
+        epilogue._LAUNCHER = None
+        return
+    lib = ctypes.CDLL(path)
+    epilogue._LAUNCHER = (lib, epilogue.bind(lib.dl4j_bn_act))
+
+
+def _shape_key(shape, act: str, residual: bool) -> str:
+    return ("x".join(map(str, shape)) + f"_{act}"
+            + ("_res" if residual else ""))
+
+
+def _bn_case(shape, act, residual, dtype, dev, flush):
+    """bn_act on inputs made from a fixed seed: the sha256 of its output's
+    bits and its cold-L2 time beside the bound."""
+    from deeplearning4j_tpu_torch.ops import epilogue
+
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    x, res, stats = cs._inputs(shape, dtype, residual, dev, gen)
+    scale, shift = epilogue.fold(*stats)
+    out = epilogue.bn_act_cuda(x, scale, shift, res, act)
+    bits = out.view(torch.int16 if dtype == torch.bfloat16 else torch.int32)
+    digest = hashlib.sha256(bits.cpu().numpy().tobytes()).hexdigest()
+    ms = cs._time_ms(lambda: epilogue.bn_act_cuda(x, scale, shift, res, act),
+                     flush)
+    return {"sha256": digest, "ms": ms,
+            **cs.bn_act_bound(shape, residual, x.element_size())}
+
+
+def _served_forward(model, x32, smi: str, label: str) -> dict:
+    """Device time of one served ResNet-50 forward (a trace of 3), its
+    kernels' time (the device time less memcpy/memset: the copy of the
+    pageable input, which varies with the host, takes 2.8-3.9 ms of it on
+    an H100) and bn_act's part of the kernels' time."""
+    forward_ms(model, x32, runs=1, warmup=2)
+    prof = _profile(lambda: model.output(x32), 3, label, smi,
+                    "profile_port_bn_served.json.gz")
+    cats = prof["device_ms_by_category"]
+    kernels = prof["device_ms"] - cats.get("memcpy/memset", 0.0)
+    bn = cats.get("bn_act", 0.0)
+    return {"device_ms": prof["device_ms"], "kernels_ms": kernels,
+            "bn_act_ms": bn, "bn_act_share": bn / kernels,
+            "busy_share": prof["device_busy_share"]}
+
+
+#: the launch shapes ``--bn --levers`` times under each lever
+BN_LEVER_SHAPES = (((32, 256, 56, 56), "relu", True),
+                   ((32, 256, 56, 56), "identity", False),
+                   ((32, 64, 112, 112), "relu", False),
+                   ((32, 2048, 7, 7), "relu", True),
+                   ((32, 512, 7, 7), "relu", False))
+
+
+def bn_levers(dev, smi: str, flush) -> list:
+    """bn_act at BN_LEVER_SHAPES (bf16, cold L2) beside two yardsticks that
+    move the same bytes (``copy_`` of x, and ``torch.add`` of x and the
+    residual), under each grid the planner could choose (the most vectors
+    a thread loads at once, and the blocks an SM before the grid strides;
+    64 is one pass) and under each cache policy's measurement build."""
+    from deeplearning4j_tpu_torch.ops import epilogue
+
+    cases = []
+    for shape, act, residual in BN_LEVER_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+        x, res, stats = cs._inputs(shape, torch.bfloat16, residual, dev, gen)
+        scale, shift = epilogue.fold(*stats)
+        out = torch.empty_like(x)
+        row = {"shape": list(shape), "act": act, "residual": residual,
+               "copy_ms": cs._time_ms(lambda: out.copy_(x), flush),
+               **cs.bn_act_bound(shape, residual, 2)}
+        if residual:
+            row["add_ms"] = cs._time_ms(lambda: torch.add(x, res, out=out),
+                                        flush)
+        cases.append((row, functools.partial(epilogue.bn_act_cuda, x, scale,
+                                             shift, res, act)))
+    saved = epilogue.MAX_PER_THREAD, epilogue.BLOCKS_PER_SM
+    for per_thread in (1, 2, 4):
+        for per_sm in (4, 8, 64):
+            epilogue.MAX_PER_THREAD, epilogue.BLOCKS_PER_SM = per_thread, \
+                per_sm
+            epilogue.launch_plan.cache_clear()
+            for row, launch in cases:
+                row[f"grid_{per_thread}x{per_sm}_ms"] = cs._time_ms(launch,
+                                                                    flush)
+    epilogue.MAX_PER_THREAD, epilogue.BLOCKS_PER_SM = saved
+    epilogue.launch_plan.cache_clear()
+    paths = measurement_builds(BN_POLICIES, epilogue.KERNEL_NAME)
+    for tag in ("plain", "stream", "stream", "plain"):
+        use_bn_build(paths[tag])
+        for row, launch in cases:
+            row.setdefault(f"{tag}_ms", []).append(cs._time_ms(launch,
+                                                               flush))
+    use_bn_build(None)
+    rows = [row for row, _ in cases]
+    for row in rows:
+        print(f"[bn-levers] {row['shape']} {row['act']} residual="
+              f"{row['residual']}: bound {row['bound_ms']:.5f} ms, copy_ "
+              f"{row['copy_ms']:.5f}, add {row.get('add_ms', 0):.5f}; "
+              + ", ".join(f"{k[:-3]} {v}" for k, v in row.items()
+                          if k.endswith("_ms") and k not in (
+                              "bound_ms", "copy_ms", "add_ms"))
+              + f"; {smi}", flush=True)
+    return rows
+
+
+def bn_main(dev, smi: str, name: str, levers: bool = False) -> int:
+    """bn_act of the package imported (``--package``: another commit's):
+    at every launch shape of chip_smoke's bn_act_forwards (ResNet-50 at
+    batch 32, the five zoo forwards at batch 16), bf16, cold L2, beside its
+    bound, with the sha256 of its output on inputs from a fixed seed; each
+    forward's sums of times and bounds and its launch-weighted share; the
+    float32 route at [32,256,56,56] with the residual; the launch floor
+    (one bf16 vector); then the device time of one served ResNet-50
+    forward at batch 32 (fused epilogue on) and bn_act's share of it, with
+    the package's build and, where its source has the setting, with each
+    cache policy of BN_POLICIES as a measurement build, in turns."""
+    import deeplearning4j_tpu_torch
+    from deeplearning4j_tpu_torch.ops import cuda_lib, epilogue
+
+    package = os.path.dirname(deeplearning4j_tpu_torch.__file__)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    bf16 = torch.bfloat16
+    before = epilogue.bn_act_launches
+    cases = {}
+    forwards = {}
+    for fwd, counts in cs.bn_act_forwards().items():
+        ms = bound = 0.0
+        for case, n in sorted(counts.items()):
+            if case not in cases:
+                cases[case] = _bn_case(*case, bf16, dev, flush)
+            c = cases[case]
+            ms += n * c["ms"]
+            bound += n * c["bound_ms"]
+        forwards[fwd] = {"launches": sum(counts.values()), "ms": ms,
+                         "bound_ms": bound, "share": bound / ms}
+        print(f"[bn] {fwd}: {forwards[fwd]['launches']} launches, sum of "
+              f"times {ms:.4f} ms, of bounds {bound:.4f} ms, share "
+              f"{bound / ms:.3f}; {smi}", flush=True)
+    for (shape, act, residual), c in sorted(cases.items()):
+        print(f"[bn] {list(shape)} {act} residual={residual}: {c['ms']:.5f} "
+              f"ms, bound {c['bound_ms']:.5f} ms "
+              f"({c['bound_ms'] / c['ms']:.3f}); sha256 {c['sha256']}",
+              flush=True)
+    f32 = _bn_case((cs.BATCH, 256, 56, 56), "relu", True, torch.float32,
+                   dev, flush)
+    floor = _bn_case(cs.BN_FLOOR_SHAPE, "relu", False, bf16, dev, flush)
+    floor["empty_launch_ms"] = cs._time_ms(lambda: torch.cuda._sleep(0),
+                                           flush)
+    print(f"[bn] float32 [32,256,56,56] relu residual: {f32['ms']:.5f} ms, "
+          f"bound {f32['bound_ms']:.5f} ms; sha256 {f32['sha256']}; launch "
+          f"floor {floor['ms']:.5f} ms at {list(cs.BN_FLOOR_SHAPE)} bf16, an "
+          f"empty launch {floor['empty_launch_ms']:.5f} ms; "
+          f"package {package}; {smi}", flush=True)
+    cs.check(epilogue.bn_act_launches > before, "the kernel was not launched")
+    digest = _digest_prefix([c["sha256"] for _, c in sorted(cases.items())]
+                            + [f32["sha256"]])
+    model = cs.build_model(dev)
+    model.conf.global_conf.compute_dtype = "bfloat16"
+    cs.set_fused(model, True)
+    x32 = np.random.default_rng(cs.SEED + 3).normal(
+        size=(cs.BATCH, 3, 224, 224)).astype(np.float32)
+    _served_forward(model, x32, smi, "served ResNet-50 forward, batch 32, "
+                    "warm-up trace (discarded)")
+    served = {"shipped": _served_forward(model, x32, smi, "served ResNet-50 "
+                                         "forward, batch 32, shipped build")}
+    source = cuda_lib.source_path(epilogue.KERNEL_NAME).read_text()
+    if "DL4J_BN_STREAM" in source:
+        paths = measurement_builds(BN_POLICIES, epilogue.KERNEL_NAME)
+        runs = {tag: [] for tag in BN_POLICIES}
+        for tag in ("plain", "stream", "stream", "plain"):
+            use_bn_build(paths[tag])
+            runs[tag].append(_served_forward(
+                model, x32, smi, f"served ResNet-50 forward, batch 32, "
+                f"{tag} loads"))
+        use_bn_build(None)
+        for tag, rs in runs.items():
+            served[tag] = {k: statistics.median(r[k] for r in rs)
+                           for k in rs[0]}
+    for tag, r in served.items():
+        print(f"[bn] served forward ({tag}): device {r['device_ms']:.3f} ms, "
+              f"kernels {r['kernels_ms']:.3f} ms (less the input's copy), "
+              f"bn_act {r['bn_act_ms']:.4f} ms ({r['bn_act_share']:.4f} of "
+              f"the kernels), busy {r['busy_share']:.3f} of the wall; {smi}",
+              flush=True)
+    summary = {f"{k}_{fwd}": f[k] for fwd, f in forwards.items()
+               for k in ("ms", "share")}
+    summary.update({f"{_shape_key(*case)}_ms": c["ms"]
+                    for case, c in sorted(cases.items())})
+    summary.update(f32_32x256x56x56_relu_res_ms=f32["ms"],
+                   floor_ms=floor["ms"],
+                   empty_launch_ms=floor["empty_launch_ms"],
+                   outputs_sha256_prefix=digest,
+                   **{f"served_{tag}_{k}": r[k] for tag, r in served.items()
+                      for k in ("device_ms", "kernels_ms", "bn_act_ms",
+                                "bn_act_share")})
+    result = {
+        "device": name, "nvidia_smi": smi, "package": package,
+        "forwards": forwards, "float32": f32, "floor": floor,
+        "served": served,
+        "cases": [{"shape": list(s), "act": a, "residual": r, **c}
+                  for (s, a, r), c in sorted(cases.items())],
+        "summary": summary}
+    if levers:
+        result["levers"] = bn_levers(dev, smi, flush)
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+def _digest_prefix(digests) -> int:
+    """The first 52 bits of the sha256 over ``digests`` as an integer (a
+    float holds it exactly, so ``--alternate``'s medians show it as is)."""
+    h = hashlib.sha256("".join(digests).encode()).hexdigest()
+    return int(h[:13], 16)
+
+
 def alternate_main(parent: str, rounds: int, args: list) -> int:
     """Parent and change in turns, each run a process of its own: this
     script with ``args`` (one mode, e.g. ``--flash``) on the package in
@@ -1588,6 +1834,9 @@ def main() -> int:
         return flash_main(dev, smi, name, "--levers" in sys.argv[1:])
     if "--bert" in sys.argv[1:]:
         return bert_main(dev, smi, name)
+    if "--bn" in sys.argv[1:]:
+        cs.phase_build(["bn_act"])
+        return bn_main(dev, smi, name, "--levers" in sys.argv[1:])
     if "--bag" in sys.argv[1:]:
         cs.phase_build()
         return bag_main(dev, smi, name, "--levers" in sys.argv[1:],

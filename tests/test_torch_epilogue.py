@@ -64,7 +64,9 @@ def _fresh_counters():
 
 
 class TestPlainVersionVsJax:
-    @pytest.mark.parametrize("shape", [(2, 256, 7, 7), (16, 128)])
+    @pytest.mark.parametrize("shape", [(2, 256, 7, 7), (16, 128),
+                                       (2, 256, 5, 5), (1, 128, 1, 1),
+                                       (3, 128, 14, 14)])
     @pytest.mark.parametrize("residual", [False, True])
     @pytest.mark.parametrize("act", ["relu", "identity"])
     @pytest.mark.parametrize("mode", ["xla", "interpret"])
@@ -74,7 +76,9 @@ class TestPlainVersionVsJax:
         got = _port(x, stats, res, act)
         assert np.max(np.abs(got - ref)) <= f32_ulp_bound(ref)
 
-    @pytest.mark.parametrize("shape", [(2, 256, 7, 7), (16, 128)])
+    @pytest.mark.parametrize("shape", [(2, 256, 7, 7), (16, 128),
+                                       (2, 256, 5, 5), (1, 128, 1, 1),
+                                       (3, 128, 14, 14)])
     @pytest.mark.parametrize("residual", [False, True])
     def test_bf16_within_2_bf16_ulp(self, shape, residual):
         """The port computes in f32 and rounds once; JAX's bf16 path rounds
@@ -185,3 +189,129 @@ class TestDispatch:
         want = epilogue.bn_act_reference(xb.float(), scale, shift,
                                          rb.float(), "relu")
         assert torch.equal(got, want.to(torch.bfloat16))
+
+
+def _umulhi(a: np.ndarray, b: int) -> np.ndarray:
+    """The high 32 bits of the 64-bit product, as the card's __umulhi."""
+    return (a.astype(np.uint64) * np.uint64(b)) >> np.uint64(32)
+
+
+def _kernel_divmod(n: np.ndarray, d: int):
+    """The kernel's 32-bit divmod: q = umulhi(2n, mul) >> shr."""
+    mul, shr = epilogue.divmod_magic(d)
+    q = _umulhi(n.astype(np.uint64) << np.uint64(1), mul) >> np.uint64(shr)
+    return q, n - q * np.uint64(d)
+
+
+class TestLaunchPlan:
+    """The wrapper's launch planning and the kernel's index arithmetic,
+    emulated on the CPU (the kernel itself runs only on the card)."""
+
+    @pytest.mark.parametrize("d", [1, 2, 3, 7, 8, 9, 25, 33, 49, 100, 196,
+                                   361, 3136, 12544, 22500, 2048,
+                                   2 ** 30, 2 ** 30 + 1, 2 ** 31 - 1])
+    def test_divmod_magic_is_floor_division_below_2_31(self, d):
+        rng = np.random.default_rng(d)
+        n = np.concatenate([
+            rng.integers(0, 2 ** 31, size=20000, dtype=np.uint64),
+            np.arange(0, 4 * d, max(d // 64, 1), dtype=np.uint64)[:5000],
+            np.array([0, 1, d - 1, d, d + 1, 2 ** 31 - 2, 2 ** 31 - 1],
+                     dtype=np.uint64)])
+        n = n[n < 2 ** 31]
+        mul, _ = epilogue.divmod_magic(d)
+        assert 0 < mul < 2 ** 32
+        q, r = _kernel_divmod(n, d)
+        np.testing.assert_array_equal(q, n // np.uint64(d))
+        np.testing.assert_array_equal(r, n % np.uint64(d))
+
+    def test_divmod_magic_refuses_divisors_past_31_bits(self):
+        for d in (0, 2 ** 31):
+            with pytest.raises(ValueError):
+                epilogue.divmod_magic(d)
+
+    def test_index_route_switches_at_2_31_elements(self):
+        below = epilogue.launch_plan(2 ** 31 - 1, 2 ** 31 - 1, 1, 2, True,
+                                     132)
+        at = epilogue.launch_plan(2 ** 31, 2 ** 30, 2, 2, True, 132)
+        assert not below.wide and below.hw_magic == \
+            epilogue.divmod_magic(2 ** 31 - 1)
+        assert at.wide and at.hw_magic == at.c_magic == (0, 0)
+        assert epilogue.launch_plan(2 ** 40, 2 ** 32, 256, 4, True,
+                                    132).wide
+
+    @pytest.mark.parametrize("elem,aligned,vec", [(4, True, 4), (2, True, 8),
+                                                  (4, False, 1),
+                                                  (2, False, 1)])
+    def test_vector_width_is_16_bytes_or_one_element(self, elem, aligned,
+                                                     vec):
+        assert epilogue.launch_plan(32 * 512 * 49, 49, 512, elem, aligned,
+                                    132).vec == vec
+
+    @pytest.mark.parametrize("shape,per_thread,blocks", [
+        ((32, 256, 56, 56), 4, 3136),       # one pass
+        ((256, 256, 112, 112), 4, 132 * epilogue.BLOCKS_PER_SM),  # strides
+        ((32, 256, 14, 14), 4, 196),
+        ((32, 512, 7, 7), 2, 196),          # halved: 98 blocks < 132 SMs
+        ((16, 192, 5, 5), 1, 38),
+        ((1, 8), 1, 1),                     # the launch floor: one vector
+        ((3, 5, 1, 1), 1, 1),               # fewer elements than a vector
+    ])
+    def test_grid_bf16(self, shape, per_thread, blocks):
+        n = int(np.prod(shape))
+        hw = int(np.prod(shape[2:])) if len(shape) == 4 else 1
+        plan = epilogue.launch_plan(n, hw, shape[1], 2, True, 132)
+        assert (plan.per_thread, plan.blocks) == (per_thread, blocks)
+
+    def test_grid_covers_every_vector_in_one_pass_below_the_cap(self):
+        rng = np.random.default_rng(0)
+        cap = 132 * epilogue.BLOCKS_PER_SM
+        for n in list(rng.integers(1, 2 ** 28, size=300)) + [1, 7, 8, 9]:
+            plan = epilogue.launch_plan(int(n), 1, 1, 2, True, 132)
+            nvec = int(n) // plan.vec
+            assert 1 <= plan.blocks <= cap
+            assert 1 <= plan.per_thread <= epilogue.MAX_PER_THREAD
+            if plan.blocks < cap:
+                assert plan.blocks * epilogue.THREADS * plan.per_thread \
+                    >= nvec
+            if plan.per_thread > 1:   # halving stopped once SMs are covered
+                assert -(-nvec // (epilogue.THREADS * plan.per_thread)) \
+                    >= 132
+
+    @pytest.mark.parametrize("shape", [(3, 5, 1, 1), (2, 3, 1, 3),
+                                       (4, 512, 7, 7), (2, 192, 5, 5),
+                                       (5, 33), (3, 7, 5, 3), (3, 65, 7, 5),
+                                       (2, 256, 14, 14), (2, 3, 4, 2)])
+    @pytest.mark.parametrize("vec", [1, 4, 8])
+    def test_channel_walk_gives_every_element_its_channel(self, shape, vec):
+        """The kernel's channel for each element of each vector: divmod of
+        the vector's first element by HW and C, then the two-channel split
+        (HW >= VEC) or the element-by-element step (HW < VEC); the ragged
+        end by divmod. It must be (i // HW) % C for every element i."""
+        n = int(np.prod(shape))
+        hw = int(np.prod(shape[2:])) if len(shape) == 4 else 1
+        C = shape[1]
+        i = np.arange(n, dtype=np.uint64)
+        want = (i // np.uint64(hw)) % np.uint64(C)
+        nvec = n // vec
+        e = np.arange(nvec, dtype=np.uint64) * np.uint64(vec)
+        plane, r = _kernel_divmod(e, hw)
+        _, c = _kernel_divmod(plane, C)
+        got = np.empty(n, dtype=np.uint64)
+        if hw >= vec:
+            split = np.uint64(hw) - r
+            c1 = np.where(c + np.uint64(1) == np.uint64(C), np.uint64(0),
+                          c + np.uint64(1))
+            for k in range(vec):
+                got[e + np.uint64(k)] = np.where(np.uint64(k) < split, c, c1)
+        else:
+            for k in range(vec):
+                got[e + np.uint64(k)] = c
+                r = r + np.uint64(1)
+                wrap = r == np.uint64(hw)
+                r = np.where(wrap, np.uint64(0), r)
+                c = np.where(wrap, np.where(c + np.uint64(1) == np.uint64(C),
+                                            np.uint64(0), c + np.uint64(1)),
+                             c)
+        tail = np.arange(nvec * vec, n, dtype=np.uint64)
+        got[tail] = _kernel_divmod(_kernel_divmod(tail, hw)[0], C)[1]
+        np.testing.assert_array_equal(got, want)

@@ -36,7 +36,9 @@ def _case(shape, seed=3):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(3, 65, 7, 5), (17, 130), (4, 256, 14, 14),
-                                   (2, 64, 112, 112)])
+                                   (2, 64, 112, 112), (3, 5, 1, 1),
+                                   (2, 3, 1, 3), (4, 512, 7, 7),
+                                   (2, 192, 5, 5), (5, 33), (3, 7, 5, 3)])
 @pytest.mark.parametrize("act", ["relu", "identity"])
 @pytest.mark.parametrize("residual", [False, True])
 def test_bn_act_kernel_matches_plain_version(dtype, shape, act, residual):
