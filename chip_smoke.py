@@ -87,6 +87,25 @@ Phases (each fails the run with a nonzero exit if it fails):
                launched bn_act 53 times per batch served, with no fallback.
 5. parity   -- the same model in float32 with TF32 off, batch 8, fused
                epilogue on against off: rtol 1e-4, atol 1e-6.
+5b. kernel-routes -- every route the JAX package computes off its kernels
+               (a dtype the kernel does not take, a gradient) on the card
+               against the CPU, TF32 off, each with 0 kernel launches and its
+               plain_on_card count (ops/routing.py): LeNet
+               MultiLayerNetwork.fit with fused_update, 3 steps, in float64
+               (1e-10 of a leaf's largest) and bfloat16 (2^-5 of it plus a
+               quarter of the leaf's step), plain 3, then float32 (1e-5)
+               with 3 launches and plain 0; the fleet's member
+               route on a float64 [8, 431,080] bucket (1e-10); bn_act float64
+               and float16 at [8, 256, 56, 56] with relu and residual (1e-12;
+               one float16 rounding); compute_gradient_and_score with the
+               fused epilogue for ResNet-50 at its published widths (64x64,
+               batch 2, float64, 53 plain BNs, 1e-9 of each tensor's largest)
+               and the two-block conv/BN net (float32, 1e-4), no gradient
+               zero where the CPU's is not; embedding_bag's table gradient at
+               the CBOW path's shape, directly and through SameDiff (1e-5),
+               and a float64 table's forward (1e-12). Then phase 4's model
+               again: one served forward, 53 bn_act launches, plain 0; one
+               float32 training step, 1 fused_update launch, plain 0.
 6. train    -- full-size ResNet-50 training as bench.py configures it
                (bf16 compute, float32 master params, Nesterovs(0.1, 0.9),
                l2 1e-4, fused_update, bf16 updater state with stochastic
@@ -2263,6 +2282,9 @@ def phase_serving(model, smi: str, dev):
           f"epilogue hits {counters.get('precision/epilogue_hits')}")
     check(counters.get("precision/epilogue_fallbacks", 0) == 0,
           f"epilogue fallbacks {counters.get('precision/epilogue_fallbacks')}")
+    plain = counters.get(PLAIN_ON_CARD["bn_act"], 0)
+    check(plain == 0, f"bn_act took its plain route on the card {plain} "
+          f"times")
     lat = sorted(latency)
     p50 = lat[len(lat) // 2] * 1e3
     p99 = lat[min(len(lat) - 1, int(round(0.99 * (len(lat) - 1))))] * 1e3
@@ -2271,9 +2293,9 @@ def phase_serving(model, smi: str, dev):
         f"epilogue: "
         f"64 requests from 8 clients in {batches} batches, "
         f"{64 / wall:.2f} images/s, latency p50 {p50:.2f} ms p99 "
-        f"{p99:.2f} ms; bn_act launches {launches} (53 x {batches}); "
-        f"largest probability {top:.4f}; {smi}")
-    return launches, batches
+        f"{p99:.2f} ms; bn_act launches {launches} (53 x {batches}), plain "
+        f"on the card {plain}; largest probability {top:.4f}; {smi}")
+    return launches, batches, plain
 
 
 def phase_parity(model, dev):
@@ -2302,6 +2324,502 @@ def phase_parity(model, dev):
     log(f"[parity] float32 batch 8, TF32 off: fused vs dense max abs diff "
         f"{diff} (rtol 1e-4, atol 1e-6); largest probability "
         f"{fused.max().item():.4f}")
+
+
+# --- phase 5b: the routes the JAX package computes off its kernels ----------
+
+#: the OpProfiler counter of each kernel's plain route on the card: a CUDA
+#: tensor of a dtype its kernel does not take, or one that needs a gradient
+#: (deeplearning4j_tpu_torch/ops/routing.py). flash_attention has no such
+#: route: it casts other dtypes to float32 and differentiates through its
+#: own autograd function, as the JAX package does.
+PLAIN_ON_CARD = {"bn_act": "precision/epilogue_plain_on_card",
+                 "fused_update": "precision/fused_buckets_plain_on_card",
+                 "fused_update_members":
+                     "precision/fused_member_buckets_plain_on_card",
+                 "embedding_bag": "nlp/embedding_bag_plain_on_card"}
+ROUTE_STEPS = 3                      # LeNet fit steps of each dtype
+#: LeNet's parameters, the card against the CPU, over each leaf's own
+#: largest magnitude: float64 rounding; float32 with TF32 off (phase 10's
+#: LeNet bound). bfloat16: 4 bf16 ulp of the leaf's largest, plus a quarter
+#: of the leaf's largest step (ROUTE_STEP_REL). The card's and the CPU's
+#: bf16 convolutions and sums round apart, so the gradients differ in
+#: their last bits: a parameter near a rounding boundary lands ulps away,
+#: and a bias, which starts at 0 and is all step, by a share of its step
+#: (on an H100 the dense layer's bias lands 4.5e-2 of its largest away,
+#: a tenth of its step; a wrong update misses by the whole step)
+ROUTE_REL = {"float64": 1e-10, "float32": 1e-5, "bfloat16": 2.0 ** -5}
+ROUTE_STEP_REL = {"bfloat16": 0.25}
+#: gradients, card against CPU, each tensor over its own largest: float64
+#: through ResNet-50's 53 BNs; float32 through two (TF32 off)
+ROUTE_GRAD_REL = {"float64": 1e-9, "float32": 1e-4}
+#: the bag's table gradient: the card's index_add sums a row's duplicates
+#: with atomics in any order
+ROUTE_BAG_GRAD_REL = 1e-5
+ROUTE_IMAGE, ROUTE_BATCH = 64, 2     # ResNet-50 at its published widths
+ROUTE_BN_SHAPE = (8, 256, 56, 56)    # a stage-1 tail of ResNet-50, batch 8
+ROUTE_M = 8                          # members of the float64 fleet bucket
+
+
+def plain_on_card() -> dict:
+    from deeplearning4j_tpu_torch.common.profiler import OpProfiler
+
+    prof = OpProfiler.get()
+    return {k: prof.counter_value(v) for k, v in PLAIN_ON_CARD.items()}
+
+
+def _routed(fn):
+    """``fn()`` with every launch count and plain_on_card counter set to 0
+    just before it and read just after: ``(result, launches, plain)``."""
+    from deeplearning4j_tpu_torch.common.profiler import OpProfiler
+
+    OpProfiler.get().reset()
+    _reset_kernel_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, _kernel_counts(), plain_on_card()
+
+
+def _route_gate(what: str, launches: dict, plain: dict, want_launches: dict,
+                want_plain: dict) -> None:
+    """Exactly these launches and plain routes on the card, no other."""
+    got_l = {k: v for k, v in launches.items() if v}
+    got_p = {k: v for k, v in plain.items() if v}
+    check(got_l == {k: v for k, v in want_launches.items() if v}
+          and got_p == {k: v for k, v in want_plain.items() if v},
+          f"{what}: launches {got_l}, plain on the card {got_p} (want "
+          f"{want_launches} and {want_plain})")
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """:func:`_scaled_err` of a card tensor against a CPU one, in float64."""
+    return _scaled_err(got.detach().cpu().double(), want.detach().double())
+
+
+def _grads_gate(what: str, card, host, rel: float) -> dict:
+    """Every gradient tensor within ``rel`` of its own largest, and none
+    zero on the card where the CPU's is not (a route that dropped the
+    graph gives exact zeros)."""
+    from deeplearning4j_tpu_torch.common.tree import get_path, leaf_paths
+
+    if isinstance(host, list):
+        card, host = ({str(i): d for i, d in enumerate(t)}
+                      for t in (card, host))
+    worst, zero, paths = 0.0, [], leaf_paths(host)
+    for p in paths:
+        want, got = get_path(host, p), get_path(card, p)
+        if want.abs().max().item() > 0 and got.abs().max().item() == 0:
+            zero.append(p)
+        worst = max(worst, _rel(got, want))
+    check(not zero, f"{what}: {len(zero)} gradient tensors are zero on the "
+          f"card where the CPU's are not: {zero[:5]}")
+    check(worst <= rel, f"{what}: gradients card vs CPU {worst} of a "
+          f"tensor's largest > {rel}")
+    return {"tensors": len(paths), "max_rel_err": worst,
+            "zero_on_card": len(zero)}
+
+
+def _carry(src, dst) -> None:
+    """``src``'s parameters into ``dst`` (the same configuration)."""
+    from deeplearning4j_tpu_torch.common.tree import get_path, leaf_paths
+
+    with torch.no_grad():
+        for p in leaf_paths(dst._params):
+            get_path(dst._params, p).copy_(get_path(src._params, p))
+
+
+def route_lenet(dev) -> dict:
+    """LeNet at its full width through MultiLayerNetwork.fit with
+    fused_update, float64, bfloat16 and float32, on the card and on the CPU
+    from the same parameters: the float64 and bfloat16 buckets take the
+    plain update on the card (the JAX package's xla math), the float32 one
+    the kernel."""
+    from deeplearning4j_tpu_torch.common.tree import get_path, leaf_paths
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.models import LeNet, zoo
+
+    batches = lenet_batches(ROUTE_STEPS, dev, SEED + 26)
+    out = {}
+    for dt in ("float64", "bfloat16", "float32"):
+        tdt = getattr(torch, dt)
+        nets = []
+        for where in (dev, "cpu"):
+            conf = LeNet().conf()
+            conf.global_conf.dtype, conf.global_conf.fused_update = dt, True
+            nets.append(zoo.network(conf).init(device=where))
+        card, cpu = nets
+        _carry(card, cpu)
+        init = {p: get_path(cpu._params, p).clone()
+                for p in leaf_paths(cpu._params)}
+        data = [DataSet(ds.features.to(tdt), ds.labels.to(tdt))
+                for ds in batches]
+
+        def fit(net=card, data=data):
+            for ds in data:
+                net.fit(ds)
+
+        _, launches, plain = _routed(fit)
+        for ds in data:
+            cpu.fit(DataSet(ds.features.cpu(), ds.labels.cpu()))
+        kernel = dt == "float32"
+        _route_gate(f"LeNet {dt} fused fit", launches, plain,
+                    {"fused_update": ROUTE_STEPS if kernel else 0},
+                    {"fused_update": 0 if kernel else ROUTE_STEPS})
+        leaves = {}
+        for p, v in init.items():
+            want = get_path(cpu._params, p).double()
+            got = get_path(card._params, p).detach().cpu().double()
+            leaves[".".join(p)] = ((got - want).abs().max().item(),
+                                   want.abs().max().item(),
+                                   (want - v.double()).abs().max().item())
+        bound = {n: ROUTE_REL[dt] * top + ROUTE_STEP_REL.get(dt, 0) * step
+                 for n, (_, top, step) in leaves.items()}
+        worst = max(leaves, key=lambda n: leaves[n][0]
+                    / max(bound[n], 1e-300))
+        err = max(e / top for e, top, _ in leaves.values())
+        moved = max(step for _, _, step in leaves.values())
+        buckets = sorted(card._flat.params)
+        check(buckets == [f"flat::{dt}"], f"LeNet {dt}: buckets {buckets}")
+        check(np.isfinite(card.score_value) and moved > 0,
+              f"LeNet {dt}: loss {card.score_value}, moved {moved}")
+        check(leaves[worst][0] <= bound[worst], f"LeNet {dt} fused fit: "
+              f"card vs CPU on {worst} (difference, largest, step) "
+              f"{leaves[worst]} above its bound {bound[worst]}")
+        out[dt] = {"launches": launches["fused_update"],
+                   "plain_on_card": plain["fused_update"],
+                   "max_rel_err": err, "moved_abs": moved,
+                   "worst_leaf": {"name": worst,
+                                  "diff_largest_step": leaves[worst],
+                                  "bound": bound[worst]},
+                   "loss_card": card.score_value,
+                   "loss_cpu": cpu.score_value}
+        del nets, card, cpu
+    return out
+
+
+def route_members(dev) -> dict:
+    """The fleet's member route (fused_apply_members) on a float64
+    [8, 431,080] bucket, Nesterovs, a learning rate a row and one masked
+    row, on the card and on the CPU."""
+    from deeplearning4j_tpu_torch.learning.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.ops import update
+
+    gen = torch.Generator().manual_seed(SEED + 27)
+    shape = (ROUTE_M, LENET_PARAMS)
+    host = {"p": torch.randn(shape, generator=gen, dtype=torch.float64),
+            "g": torch.randn(shape, generator=gen, dtype=torch.float64)
+            * 0.01,
+            "v": torch.randn(shape, generator=gen, dtype=torch.float64)
+            * 0.1}
+    lr = torch.linspace(1e-3, 1e-1, ROUTE_M)
+    live = torch.ones(ROUTE_M, dtype=torch.int32)
+    live[3] = 0
+    key = "flat::float64"
+
+    def apply(where):
+        t = {k: v.to(where, copy=True) for k, v in host.items()}
+        update.fused_apply_members(
+            Nesterovs(0.01, momentum=0.9), {key: t["p"]}, {key: t["g"]},
+            {"v": {key: t["v"]}}, 3, [None] * ROUTE_M, lr.to(where),
+            live.to(where))
+        return t
+
+    card, launches, plain = _routed(lambda: apply(dev))
+    cpu = apply("cpu")
+    _route_gate("fleet member route float64", launches, plain, {},
+                {"fused_update_members": 1})
+    err = max(_rel(card[k], cpu[k]) for k in ("p", "v"))
+    held = all(torch.equal(card[k][3].cpu(), host[k][3]) for k in ("p", "v"))
+    check(err <= ROUTE_REL["float64"] and held,
+          f"fleet member route float64: card vs CPU {err}, masked row "
+          f"held {held}")
+    return {"shape": list(shape), "plain_on_card": 1, "max_rel_err": err,
+            "bitwise": all(torch.equal(card[k].cpu(), cpu[k])
+                           for k in ("p", "v"))}
+
+
+def route_bn_act(dev) -> dict:
+    """bn_act in float64 and float16 (relu, residual) at a stage-1 tail's
+    shape: the plain version on the card against it on the CPU."""
+    from deeplearning4j_tpu_torch.ops import epilogue
+
+    rng = np.random.default_rng(SEED + 28)
+    C = ROUTE_BN_SHAPE[1]
+    x = rng.normal(size=ROUTE_BN_SHAPE)
+    res = rng.normal(size=ROUTE_BN_SHAPE)
+    stats = [torch.from_numpy(s.astype(np.float32)) for s in (
+        rng.normal(size=C), rng.uniform(0.5, 2.0, C),
+        rng.normal(1.0, 0.1, C), rng.normal(size=C))]
+    out = {}
+    for dt in (torch.float64, torch.float16):
+        xt, rt = torch.from_numpy(x).to(dt), torch.from_numpy(res).to(dt)
+        xd, rd = xt.to(dev), rt.to(dev)
+        sd = [s.to(dev) for s in stats]
+        y, launches, plain = _routed(lambda: epilogue.bn_act(
+            xd, *sd, act="relu", residual=rd))
+        want = epilogue.bn_act(xt, *stats, act="relu", residual=rt)
+        _route_gate(f"bn_act {dt}", launches, plain, {}, {"bn_act": 1})
+        got = y.cpu()
+        if dt == torch.float64:
+            ok = _rel(got, want) <= 1e-12
+        else:   # one float16 rounding of the same float32 value
+            ok = bool(((got.float() - want.float()).abs()
+                       <= want.float().abs() * 2.0 ** -10 + 2.0 ** -24)
+                      .all())
+        name = str(dt).replace("torch.", "")
+        check(got.dtype == dt and ok, f"bn_act {name} on the card vs the "
+              f"CPU: {_rel(got, want)} of the largest")
+        out[name] = {"plain_on_card": plain["bn_act"],
+                     "max_rel_err": _rel(got, want),
+                     "bitwise": torch.equal(got, want)}
+    return out
+
+
+def two_block_net(device):
+    """Two conv -> BN(relu) blocks and a softmax head with the fused
+    epilogue on (tests/test_torch_serving.py's two_block_conf)."""
+    from deeplearning4j_tpu_torch.learning.updaters import Sgd
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.builder import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    b = (NeuralNetConfiguration.builder().seed(3).updater(Sgd(0.01))
+         .fused_epilogue().list())
+    for _ in range(2):
+        b = b.layer(L.ConvolutionLayer(
+            n_out=8, kernel_size=(3, 3), padding=(1, 1),
+            activation="identity")).layer(
+            L.BatchNormalization(activation="relu"))
+    conf = (b.layer(L.OutputLayer(n_out=5, activation="softmax",
+                                  loss="mcxent"))
+            .set_input_type(InputType.convolutional(6, 6, 3)).build())
+    return MultiLayerNetwork(conf).init(device=device)
+
+
+def route_gradients(dev) -> dict:
+    """compute_gradient_and_score with the fused epilogue on, card against
+    CPU from the same parameters and BN statistics: ResNet-50 at its
+    published widths (64x64, batch 2, float64, statistics calibrated on the
+    batch) and the two-block net (float32, BN affine and statistics
+    seeded). In inference mode every BN takes the epilogue; the gradients
+    need its plain version."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.models import ResNet50, zoo
+    from deeplearning4j_tpu_torch.util.calibrate import calibrate_batchnorm
+
+    out = {}
+    rng = np.random.RandomState(SEED + 29)
+    x = rng.randn(ROUTE_BATCH, 3, ROUTE_IMAGE, ROUTE_IMAGE)
+    y = np.eye(1000)[rng.randint(0, 1000, ROUTE_BATCH)]
+    nets = []
+    for where in (dev, "cpu"):
+        conf = ResNet50(num_classes=1000, image_size=ROUTE_IMAGE,
+                        seed=SEED).conf()
+        conf.global_conf.dtype = "float64"
+        nets.append(zoo.network(conf).init(device=where))
+    card, cpu = nets
+    _carry(card, cpu)
+    calibrate_batchnorm(cpu, x)
+    card._states = {n: {k: v.to(dev) for k, v in d.items()}
+                    for n, d in cpu._states.items()}
+    for net in (card, cpu):
+        set_fused(net, True)
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y)
+    (g_card, s_card), launches, plain = _routed(
+        lambda: card.compute_gradient_and_score(
+            DataSet(xt.to(dev), yt.to(dev))))
+    g_cpu, s_cpu = cpu.compute_gradient_and_score(DataSet(xt, yt))
+    _route_gate("ResNet-50 float64 gradients", launches, plain, {},
+                {"bn_act": BN_ACT_PER_FORWARD})
+    r = _grads_gate("ResNet-50 float64 gradients", g_card, g_cpu,
+                    ROUTE_GRAD_REL["float64"])
+    check(abs(s_card - s_cpu) <= 1e-10 * abs(s_cpu),
+          f"ResNet-50 float64 score {s_card} vs {s_cpu}")
+    out["resnet50_float64"] = dict(r, plain_on_card=plain["bn_act"],
+                                   score_card=s_card, score_cpu=s_cpu)
+    del nets, card, cpu, g_card, g_cpu
+
+    card, cpu = two_block_net(dev), two_block_net("cpu")
+    gen = torch.Generator().manual_seed(SEED + 30)
+    for key in sorted(cpu._states):
+        st, p = cpu._states[key], cpu._params[key]
+        if "mean" in st:
+            c = st["mean"].shape[0]
+            p["gamma"].copy_(1.0 + 0.1 * torch.randn(c, generator=gen))
+            p["beta"].copy_(0.1 * torch.randn(c, generator=gen))
+            st["mean"] = 0.1 * torch.randn(c, generator=gen)
+            st["var"] = 0.5 + 1.5 * torch.rand(c, generator=gen)
+    _carry(cpu, card)
+    card._states = {n: {k: v.to(dev) for k, v in d.items()}
+                    for n, d in cpu._states.items()}
+    x = torch.randn(4, 3, 6, 6, generator=gen)
+    y = torch.eye(5)[torch.randint(0, 5, (4,), generator=gen)]
+    (g_card, s_card), launches, plain = _routed(
+        lambda: card.compute_gradient_and_score(DataSet(x.to(dev),
+                                                        y.to(dev))))
+    g_cpu, s_cpu = cpu.compute_gradient_and_score(DataSet(x, y))
+    _route_gate("two-block float32 gradients", launches, plain, {},
+                {"bn_act": 2})
+    r = _grads_gate("two-block float32 gradients", g_card, g_cpu,
+                    ROUTE_GRAD_REL["float32"])
+    out["two_block_float32"] = dict(r, plain_on_card=plain["bn_act"],
+                                    score_card=s_card, score_cpu=s_cpu)
+    return out
+
+
+def route_embedding_bag(dev) -> dict:
+    """embedding_bag at the CBOW path's shape: the gradient of a float32
+    table, directly and through SameDiff.calculate_gradients over
+    sd.nn.embedding_bag, and a float64 table's forward, each on the card
+    against the CPU."""
+    from deeplearning4j_tpu_torch.autodiff.samediff import SameDiff
+    from deeplearning4j_tpu_torch.ops import embeddings
+
+    B, W, V, D = BAG_PATH
+    rng = np.random.default_rng(SEED + 31)
+    table = rng.normal(size=(V, D)).astype(np.float32)
+    idx = rng.integers(0, V, size=(B, W)).astype(np.int32)
+    mask = (rng.random((B, W)) < 0.8).astype(np.float32)
+    up = rng.normal(size=(B, D)).astype(np.float32)
+    out = {}
+
+    def grad(where):
+        t = torch.from_numpy(table).to(where).requires_grad_(True)
+        h = embeddings.embedding_bag(t, torch.from_numpy(idx).to(where),
+                                     torch.from_numpy(mask).to(where))
+        (h * torch.from_numpy(up).to(where)).sum().backward()
+        return t.grad
+
+    g, launches, plain = _routed(lambda: grad(dev))
+    want = grad("cpu")
+    _route_gate("embedding_bag gradient", launches, plain, {},
+                {"embedding_bag": 1})
+    err = _rel(g, want)
+    check(err <= ROUTE_BAG_GRAD_REL and g.abs().max().item() > 0,
+          f"embedding_bag gradient card vs CPU {err} of the largest")
+    out["grad_float32"] = {"shape": [B, W, V, D], "max_rel_err": err,
+                           "plain_on_card": plain["embedding_bag"]}
+
+    def sd_grad(where):
+        sd = SameDiff(where)
+        t = sd.var("t", init=table)
+        bag = sd.nn.embedding_bag(t, sd.constant("i", idx),
+                                  sd.constant("m", mask), mode="mean")
+        bag.mul(sd.constant("u", up)).sum().rename("loss")
+        return sd.calculate_gradients({}, "loss", ["t"])["t"]
+
+    g, launches, plain = _routed(lambda: sd_grad(dev))
+    want = sd_grad("cpu")
+    _route_gate("SameDiff embedding_bag gradient", launches, plain, {},
+                {"embedding_bag": 1})
+    err = _rel(g, want)
+    check(err <= ROUTE_BAG_GRAD_REL and g.abs().max().item() > 0,
+          f"SameDiff embedding_bag gradient card vs CPU {err}")
+    out["samediff_grad"] = {"max_rel_err": err,
+                            "plain_on_card": plain["embedding_bag"]}
+
+    t64 = torch.from_numpy(table.astype(np.float64))
+    it, mt = torch.from_numpy(idx), torch.from_numpy(mask)
+    h, launches, plain = _routed(lambda: embeddings.embedding_bag(
+        t64.to(dev), it.to(dev), mt.to(dev)))
+    want = embeddings.embedding_bag(t64, it, mt)
+    _route_gate("embedding_bag float64", launches, plain, {},
+                {"embedding_bag": 1})
+    err = _rel(h, want)
+    check(h.dtype == torch.float64 and err <= 1e-12,
+          f"embedding_bag float64 card vs CPU {err}")
+    out["forward_float64"] = {"max_rel_err": err,
+                              "bitwise": torch.equal(h.cpu(), want),
+                              "plain_on_card": plain["embedding_bag"]}
+    return out
+
+
+def route_main_paths(model, dev) -> dict:
+    """After the routes above, the main paths untouched: one served
+    ResNet-50 forward (bf16, fused epilogue, batch 32) and one float32
+    training step of the same model with fused_update."""
+    from deeplearning4j_tpu_torch.data import DataSet
+
+    size = model.conf.node_output_types["input"].height
+    x = np.random.default_rng(SEED + 32).normal(
+        size=(BATCH, 3, size, size)).astype(np.float32)
+    set_fused(model, True)
+    gc = model.conf.global_conf
+    gc.compute_dtype = "bfloat16"
+    model.output(x)                       # the bf16 parameter copies
+    _, launches, plain = _routed(lambda: model.output(x))
+    _route_gate("served ResNet-50 forward", launches, plain,
+                {"bn_act": BN_ACT_PER_FORWARD}, {})
+    gc.compute_dtype, gc.fused_update = None, True
+    classes = model.conf.nodes["output"].layer.n_out
+    ds = DataSet(torch.from_numpy(x[:8]).to(dev), torch.eye(classes)[
+        torch.randint(0, classes, (8,), generator=torch.Generator()
+                      .manual_seed(SEED + 33))].to(dev))
+    _, launches2, plain2 = _routed(lambda: model.fit(ds))
+    _route_gate("float32 ResNet-50 training step", launches2, plain2,
+                {"fused_update": 1}, {})
+    check(np.isfinite(model.score_value), f"training loss "
+          f"{model.score_value}")
+    return {"served_forward": {"bn_act_launches": launches["bn_act"],
+                               "plain_on_card": plain["bn_act"]},
+            "train_step": {"fused_update_launches":
+                           launches2["fused_update"],
+                           "plain_on_card": plain2["fused_update"],
+                           "loss": model.score_value}}
+
+
+def phase_kernel_routes(smi: str, dev, model) -> dict:
+    """Phase 5b: every route that the JAX package computes off its kernels
+    (another dtype, a gradient), on the card against the CPU, then the main
+    paths' launches untouched."""
+    t0 = time.perf_counter()
+    with _Deterministic():
+        r = {"lenet_fused_fit": route_lenet(dev),
+             "fleet_member_route": route_members(dev),
+             "bn_act": route_bn_act(dev),
+             "gradients_fused_epilogue": route_gradients(dev),
+             "embedding_bag": route_embedding_bag(dev)}
+        torch.cuda.empty_cache()
+        r["main_paths"] = route_main_paths(model, dev)
+    r["seconds"] = time.perf_counter() - t0
+    for dt, f in r["lenet_fused_fit"].items():
+        log(f"[kernel-routes] LeNet {dt} fused fit, {ROUTE_STEPS} steps: "
+            f"fused_update launches {f['launches']}, plain on the card "
+            f"{f['plain_on_card']}; card vs CPU {f['max_rel_err']:.3e} of a "
+            f"leaf's largest, the worst leaf against its bound "
+            f"{f['worst_leaf']}, the largest step {f['moved_abs']:.3e}; "
+            f"losses {f['loss_card']} / {f['loss_cpu']}; {smi}")
+    m = r["fleet_member_route"]
+    log(f"[kernel-routes] fleet member route float64 {m['shape']}: plain on "
+        f"the card 1, card vs CPU {m['max_rel_err']:.3e} (bitwise "
+        f"{m['bitwise']}); {smi}")
+    for dt, b in r["bn_act"].items():
+        log(f"[kernel-routes] bn_act {dt} {list(ROUTE_BN_SHAPE)} relu + "
+            f"residual: plain on the card, vs the CPU {b['max_rel_err']:.3e} "
+            f"(bitwise {b['bitwise']}); {smi}")
+    for name, g in r["gradients_fused_epilogue"].items():
+        log(f"[kernel-routes] compute_gradient_and_score {name}, fused "
+            f"epilogue: bn_act plain on the card {g['plain_on_card']}, 0 "
+            f"launches; {g['tensors']} gradient tensors within "
+            f"{g['max_rel_err']:.3e} of their largest, {g['zero_on_card']} "
+            f"zero; scores {g['score_card']} / {g['score_cpu']}; {smi}")
+    e = r["embedding_bag"]
+    log(f"[kernel-routes] embedding_bag {e['grad_float32']['shape']}: table "
+        f"gradient card vs CPU {e['grad_float32']['max_rel_err']:.3e}, "
+        f"through SameDiff {e['samediff_grad']['max_rel_err']:.3e}, float64 "
+        f"forward {e['forward_float64']['max_rel_err']:.3e} (bitwise "
+        f"{e['forward_float64']['bitwise']}); each plain on the card; {smi}")
+    mp = r["main_paths"]
+    log(f"[kernel-routes] after them: served ResNet-50 forward "
+        f"{mp['served_forward']['bn_act_launches']} bn_act launches, plain "
+        f"{mp['served_forward']['plain_on_card']}; float32 training step "
+        f"{mp['train_step']['fused_update_launches']} fused_update launch, "
+        f"plain {mp['train_step']['plain_on_card']}; phase "
+        f"{r['seconds']:.1f} s; {smi}")
+    print(json.dumps({"kernel_routes": r}, default=str), flush=True)
+    return r
 
 
 # --- phases 6 and 7 -----------------------------------------------------------
@@ -2368,6 +2886,9 @@ def phase_train(smi: str, dev):
           f"kernel buckets {counters.get('precision/fused_buckets_kernel')}")
     check(counters.get("precision/fused_fallbacks", 0) == 0,
           f"fused fallbacks {counters.get('precision/fused_fallbacks')}")
+    check(counters.get(PLAIN_ON_CARD["fused_update"], 0) == 0,
+          f"plain updates on the card "
+          f"{counters.get(PLAIN_ON_CARD['fused_update'])}")
     check(counters.get("precision/grads_flat_in_step") == 1,
           "gradients were not born flat")
     state_bytes = counters.get("precision/updater_state_bytes_bfloat16", 0)
@@ -2984,6 +3505,9 @@ def phase_word2vec(smi: str, dev):
             "prepare_s": timing["prepare"], "train_s": timing["train"],
             "ms_per_block": timing["train"] / max(timing["blocks"], 1) * 1e3})
     launches = embeddings.embedding_bag_launches
+    plain = prof.counter_value(PLAIN_ON_CARD["embedding_bag"])
+    check(plain == 0, f"embedding_bag took its plain route on the card "
+          f"{plain} times")
     vocab = len(w2v.vocab)
     syn0, syn1 = w2v.lookup_table.syn0, w2v.lookup_table.syn1neg
     check(len(w2v.vocab) == W2V_VOCAB, f"vocabulary {len(w2v.vocab)}, want "
@@ -3031,7 +3555,8 @@ def phase_word2vec(smi: str, dev):
           f"above diff {diff} + 0.4")
     log(f"[word2vec-cbow] cluster corpus on the card: same {same:.4f}, diff "
         f"{diff:.4f} (gate same > diff + 0.4), last loss {w.last_loss:.4f}")
-    return {"fits": fits, "launches": launches, "vocab": vocab,
+    return {"fits": fits, "launches": launches, "plain_on_card": plain,
+            "vocab": vocab,
             "cluster_same": same, "cluster_diff": diff}
 
 
@@ -8836,9 +9361,11 @@ PW_CPU_LR = 1e-3
 
 def parallel_cpu_parity(dev) -> dict:
     """Two replicas, batch 8 at 64x64, two steps on the card and on the
-    CPU from the same parameters, float64 (the per-leaf updater: the
-    kernel takes float32 buckets), BN's running statistics set to the
-    batch's own (the pivot of batchnorm_train's variance)."""
+    CPU from the same parameters, float64 with the per-leaf updater, BN's
+    running statistics set to the batch's own (the pivot of
+    batchnorm_train's variance). With fused_update on, a float64 bucket
+    would take the plain update on the card as on the CPU (phase 5b holds
+    that route); this parity holds the per-leaf one."""
     from deeplearning4j_tpu_torch.data import DataSet
     from deeplearning4j_tpu_torch.models import ResNet50, zoo
     from deeplearning4j_tpu_torch.parallel.sharding import leaf_paths
@@ -8852,6 +9379,8 @@ def parallel_cpu_parity(dev) -> dict:
         conf = ResNet50(num_classes=1000, image_size=PW_CPU_IMAGE,
                         seed=SEED).conf()
         gc = conf.global_conf
+        # the per-leaf updater (a float64 bucket's fused route is phase
+        # 5b's)
         gc.dtype, gc.fused_update = "float64", False
         gc.updater.learning_rate = PW_CPU_LR
         nets[where] = zoo.network(conf).init(
@@ -10155,6 +10684,8 @@ def phase_fleet_sweep(smi: str, dev) -> dict:
             dev_ms.append(start.elapsed_time(end))
             pass_ms.append(fleet.last_step_timing["passes_host_s"] * 1e3)
         counts = _kernel_counts()
+        member_plain = prof.counter_value(
+            PLAIN_ON_CARD["fused_update_members"])
         peak = torch.cuda.max_memory_allocated(dev)
         stacked = sum(v.numel() * v.element_size() for v in
                       list(fleet._P.values()) + list(fleet._G.values())
@@ -10164,6 +10695,8 @@ def phase_fleet_sweep(smi: str, dev) -> dict:
               f"{FLEET_TIMED} fleet steps")
         check(counts["fused_update"] == 0, f"{counts['fused_update']} "
               f"single-bucket fused_update launches in the fleet's steps")
+        check(member_plain == 0, f"{member_plain} member buckets took the "
+              f"plain route on the card")
         check(fleet.buffer_ptrs() == ptrs, "a stacked buffer was "
               "reallocated after the first step")
         check(builds == 1, f"trace/fleet_step {builds}")
@@ -10228,6 +10761,7 @@ def phase_fleet_sweep(smi: str, dev) -> dict:
          "peak_bytes": peak, "peak_above_start": peak - held,
          "stacked_bytes": stacked,
          "launches": counts["fused_update_members"],
+         "plain_on_card": member_plain,
          "solo_launches": counts["fused_update"],
          "turns_images_per_s": ips, "rounds_s": rounds,
          "last_losses": losses.tolist(), "twin_bitwise": True,
@@ -12873,8 +13407,9 @@ def main(argv=None) -> int:
         fa16 = phase_flash_attention_bf16(smi, dev)
         fa_grad_err, fa_grad_bf16_err = phase_flash_grad(smi, dev)
         model = build_model(dev)
-        launches, batches = phase_serving(model, smi, dev)
+        launches, batches, bn_plain = phase_serving(model, smi, dev)
         phase_parity(model, dev)
+        routes = phase_kernel_routes(smi, dev, model)
         del model
         torch.cuda.empty_cache()
         train = phase_train(smi, dev)
@@ -12981,6 +13516,7 @@ def main(argv=None) -> int:
     kernels.append({
         "name": "bn_act", "route": "cuda", "source": epilogue.SOURCE,
         "replaces": epilogue.REPLACES, "launches": launches,
+        "plain_on_card": bn_plain,
         "max_abs_err": max(errs.values()),
         "max_err_f32": errs[torch.float32],
         "max_err_bf16": errs[torch.bfloat16],
@@ -13011,6 +13547,8 @@ def main(argv=None) -> int:
     kernels.append({
         "name": "fused_update", "route": "cuda", "source": update.SOURCE,
         "replaces": update.REPLACES, "launches": train["launches"],
+        "plain_on_card": train["counters"].get(
+            PLAIN_ON_CARD["fused_update"], 0),
         "max_abs_err": max(upd_errs["max_err_param"],
                            upd_errs["max_err_moment"],
                            *(mln_upd[m][k] for m in ("lenet", "vgg16")
@@ -13084,7 +13622,8 @@ def main(argv=None) -> int:
     kernels.append({
         "name": "embedding_bag", "route": "cuda",
         "source": embeddings.SOURCE, "replaces": embeddings.REPLACES,
-        "launches": w2v["launches"], "max_abs_err": bag_err,
+        "launches": w2v["launches"], "plain_on_card": w2v["plain_on_card"],
+        "max_abs_err": bag_err,
         "shape": bp["shape"], "dtype": "float32",
         "ms": bp["ms"], "ms_warm": bp["ms_warm"], "host_us": bp["host_us"],
         "plain_ms": bp["plain_ms"],
@@ -13132,7 +13671,7 @@ def main(argv=None) -> int:
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": attention.SOURCE, "replaces": attention.REPLACES,
-        "launches": enc["bf16_route_launches"],
+        "launches": enc["bf16_route_launches"], "plain_on_card": 0,
         "max_abs_err": fa16["max_abs_err"],
         "bitwise_share": fa16["bitwise_share"], "lse_err": fa16["lse_err"],
         "bf16_grad_max_abs_err": fa_grad_bf16_err,
@@ -13162,7 +13701,7 @@ def main(argv=None) -> int:
     kernels.append({
         "name": "flash_attention_f32", "route": "cuda",
         "source": attention.SOURCE, "replaces": attention.REPLACES,
-        "launches": f32_launches, "max_abs_err": fa_err,
+        "launches": f32_launches, "plain_on_card": 0, "max_abs_err": fa_err,
         "bitwise_share": fa_timing["bitwise_share"],
         "grad_max_abs_err": fa_grad_err, "shape": fp["shape"],
         "launches_samediff_bert": bert["launches"]["flash_attention"],
@@ -13181,6 +13720,7 @@ def main(argv=None) -> int:
         "source": update.SOURCE, "replaces": update.REPLACES,
         "under": "jax.vmap over the fleet's members",
         "launches": fleet["launches"],
+        "plain_on_card": fleet["plain_on_card"],
         "max_abs_err": max(mem_errs["max_err_param"],
                            mem_errs["max_err_moment"]),
         "max_err_param": mem_errs["max_err_param"],
@@ -13197,7 +13737,7 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"train": {k: v for k, v in train.items()
                                 if k != "counters"},
-                      "train_parity": tparity,
+                      "train_parity": tparity, "kernel_routes": routes,
                       "resnet50_pipeline": pipe, "core": core,
 
                       "word2vec_cbow": w2v, "encoder": enc,

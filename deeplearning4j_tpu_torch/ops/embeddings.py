@@ -11,10 +11,10 @@ stay plain PyTorch operations here.
   that each bag gathers. ``counts = max(mask.sum(1), 1)`` is computed once,
   as in the JAX package, and handed to the kernel or the plain version.
 - :func:`embedding_bag_cuda` launches the kernel for CUDA tensors and never
-  falls back; :func:`embedding_bag_reference` is the plain PyTorch version,
-  used for CPU tensors and by the checks on the card. Both accumulate in W
-  order, ``acc = acc + row * mask`` from zero, then divide by the counts,
-  rounding each step in the table's dtype, so they agree bit for bit.
+  falls back; :func:`embedding_bag_reference` is the plain PyTorch version.
+  Both accumulate in W order, ``acc = acc + row * mask`` from zero, then
+  divide by the counts, rounding each step in the table's dtype, so they
+  agree bit for bit.
   Indices are clamped to ``[0, V-1]`` in both (the JAX package's gather
   clamps too).
 - Two routes, by the table's dtype, as the Pallas kernel runs in the
@@ -24,8 +24,13 @@ stay plain PyTorch operations here.
   block). ``embedding_bag_launches`` counts both, ``embedding_bag_bf16_
   launches`` the bf16 route alone.
 - The kernel is forward-only, as the Pallas one is: the CBOW rounds apply
-  their updates by hand. :func:`embedding_bag` refuses a table that
-  requires grad while grad mode is on.
+  their updates by hand, under no gradient, and launch it. Where a
+  gradient is needed through the table (or the mask), or the table is
+  neither float32 nor bfloat16, :func:`embedding_bag` takes the plain
+  version (``ops/routing.use_kernel``), which is differentiable, as the JAX op
+  differentiates through its ``xla`` lowering; on the card that is counted
+  under ``nlp/embedding_bag_plain_on_card``. :func:`embedding_bag_cuda`
+  itself refuses a table that requires grad under grad mode.
 - :func:`skipgram`, :func:`skipgram_hs`, :func:`cbow` and :func:`cbow_hs`
   are one training round each: ``_neg_round`` (logits clamped at +-6, the
   ascent direction pre-scaled by the learning rate, a monitoring loss) over
@@ -56,11 +61,15 @@ from typing import Optional
 
 import torch
 
-from . import cuda_lib
+from ..common.profiler import OpProfiler
+from . import cuda_lib, routing
 
 KERNEL_NAME = "embedding_bag"
 SOURCE = "deeplearning4j_tpu_torch/csrc/embedding_bag.cu"
 REPLACES = "deeplearning4j_tpu/ops/embeddings.py:69"
+
+#: the table dtypes the kernel takes (its float32 and bf16 routes)
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 #: kernel launches made by :func:`embedding_bag_cuda` (and nothing else),
 #: both routes; :data:`embedding_bag_bf16_launches` the bf16 route's alone
@@ -220,14 +229,16 @@ def _refuse_grad(table: torch.Tensor) -> None:
 
 def _bag(table: torch.Tensor, indices: torch.Tensor, mask: torch.Tensor,
          counts: torch.Tensor, mean: bool) -> torch.Tensor:
-    """The plain version for a CPU table, the kernel for a CUDA table."""
-    if table.device.type == "cpu":
-        return embedding_bag_reference(table, indices, mask, counts, mean)
-    if table.device.type == "cuda":
+    """The kernel for a float32 or bfloat16 CUDA table when no gradient is
+    needed; the plain version otherwise (``ops/routing.use_kernel``), on
+    the card counted under ``nlp/embedding_bag_plain_on_card``."""
+    if routing.use_kernel(table.device, table.dtype in KERNEL_DTYPES, table,
+                          mask):
         return embedding_bag_cuda(table, indices, mask, counts.reshape(-1),
                                   mean)
-    raise ValueError(f"embedding_bag has no implementation for "
-                     f"{table.device}")
+    if table.is_cuda:
+        OpProfiler.get().count("nlp/embedding_bag_plain_on_card")
+    return embedding_bag_reference(table, indices, mask, counts, mean)
 
 
 def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
@@ -235,10 +246,10 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
                   mode: str = "mean") -> torch.Tensor:
     """Pooled embedding lookup: ``table [V, D]``, ``indices [B, W]``,
     optional ``mask [B, W]`` (0 = pad) -> ``[B, D]`` masked mean or sum of
-    the gathered rows. Forward-only."""
+    the gathered rows. Differentiable: a gradient takes the plain version
+    (:func:`_bag`)."""
     if mode not in ("mean", "sum"):
         raise ValueError(f"embedding_bag mode {mode!r}")
-    _refuse_grad(table)
     if mask is None:
         mask = torch.ones(indices.shape, dtype=table.dtype,
                           device=table.device)
@@ -461,9 +472,11 @@ def _lr(lr, like: torch.Tensor) -> torch.Tensor:
 @op("embedding_bag", "nlp")
 def embedding_bag_op(table, indices, mask=None, mode: str = "mean",
                      impl: Optional[str] = None):
-    """:func:`embedding_bag`: the kernel for a CUDA table, its plain
-    version for a CPU one. ``impl`` (the JAX op's choice among its XLA and
-    Pallas lowerings) has no meaning here and is ignored."""
+    """:func:`embedding_bag`: the kernel for a CUDA table it takes with no
+    gradient needed, its plain version otherwise (a table that requires
+    grad differentiates on either device). ``impl`` (the JAX op's choice
+    among its XLA and Pallas lowerings) has no meaning here and is
+    ignored."""
     return embedding_bag(table, torch.as_tensor(indices,
                                                 device=table.device),
                          mask, mode)

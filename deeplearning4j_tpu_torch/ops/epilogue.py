@@ -9,11 +9,18 @@ a single read of ``x`` and ``residual`` and one write.
   counts the hit, and hands the tensor to :func:`bn_act_apply`, or returns
   ``None`` when the gate refuses (the caller keeps its dense path; the
   refusal is counted under ``precision/epilogue_fallbacks``).
+- :func:`bn_act_apply` picks the version by ``ops/routing.use_kernel``: the
+  kernel for a float32 or bfloat16 CUDA tensor when no gradient is needed
+  through ``x``, ``scale``/``shift`` or the residual; otherwise the plain
+  version, on the card counted under ``precision/epilogue_plain_on_card``.
+  The JAX package has no backward kernel for this op either: it
+  differentiates through its ``xla`` mode, and the plain version under
+  autograd is that mode's counterpart.
 - :func:`bn_act_cuda` launches the hand-written kernel ``csrc/bn_act.cu``
-  for a CUDA tensor; it never falls back. :func:`launch_plan` picks the
+  for a CUDA tensor; it never falls back, and refuses an input that needs
+  a gradient (its output has no ``grad_fn``). :func:`launch_plan` picks the
   kernel's index route, vector width and grid from the tensor's size.
-- :func:`bn_act_reference` is the plain PyTorch version of the same math,
-  used only for a tensor on the CPU (and by the checks on the card).
+- :func:`bn_act_reference` is the plain PyTorch version of the same math.
 
 The gate (:func:`fusable`) differs from the TPU's on purpose: the TPU kernel
 needs ``C % 128 == 0`` (its lane width), the Hopper kernel reads NCHW
@@ -25,13 +32,16 @@ BN+relu, 4 shortcut BNs), against 46 in the JAX package, which refuses the
 seven 64-channel BNs (``stem_bn`` and ``bn1``/``bn2`` of the three stage-0
 blocks).
 
-Numerics: ``scale``/``shift`` stay float32; ``x`` and ``residual`` are
-upcast to float32, ``act(x*scale + shift [+ res])`` is computed there and
-rounded once to ``x.dtype``. The JAX package's bf16 path instead rounds
-``scale``/``shift`` to bf16 and computes in bf16; the two agree within
-2 bf16 ulp of the output's magnitude (tests/test_torch_epilogue.py). In
-float32 the kernel's fused multiply-add differs from the plain version's
-two roundings by at most 2 ulp of the output scale.
+Numerics: ``scale``/``shift`` are folded in float32; ``x`` and
+``residual`` are upcast to float32, ``act(x*scale + shift [+ res])`` is
+computed there and rounded once to ``x.dtype``. A float64 ``x`` is computed
+in float64 instead, with ``scale``/``shift`` cast up from their float32
+fold, as the JAX package's ``xla`` mode computes it. The JAX package's bf16
+path instead rounds ``scale``/``shift`` to bf16 and computes in bf16; the
+two agree within 2 bf16 ulp of the output's magnitude
+(tests/test_torch_epilogue.py). In float32 the kernel's fused multiply-add
+differs from the plain version's two roundings by at most 2 ulp of the
+output scale.
 """
 
 from __future__ import annotations
@@ -44,13 +54,15 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..common.profiler import OpProfiler
-from . import cuda_lib
+from . import cuda_lib, routing
 
 KERNEL_NAME = "bn_act"
 SOURCE = "deeplearning4j_tpu_torch/csrc/bn_act.cu"
 REPLACES = "deeplearning4j_tpu/ops/pallas_epilogue.py:75"
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the dtypes the kernel takes
+KERNEL_DTYPES = tuple(_DTYPE_CODES)
 _ACTS = ("relu", "identity")
 
 #: kernel launches made by :func:`bn_act_cuda` (and nothing else), and
@@ -78,11 +90,21 @@ def fusable(x, axis: int, act: Optional[str]) -> bool:
     return (nd == 4 and axis % 4 == 1) or (nd == 2 and axis % 2 == 1)
 
 
-def fold(mean, var, gamma=None, beta=None,
-         epsilon: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Inference BN as a float32 per-channel affine (scale, shift)."""
+def fold(mean, var, gamma=None, beta=None, epsilon: float = 1e-5,
+         exact: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inference BN as a float32 per-channel affine (scale, shift).
+
+    ``exact`` (:func:`bn_act` sets it for a dtype the kernel does not take)
+    takes ``1/sqrt(var + eps)`` in float64, where square root and division
+    are correctly rounded on every device, and rounds it once to float32.
+    float32 ``rsqrt`` is within an ulp on the card and on the CPU but not
+    the same ulp, which would keep a float64 network's card and CPU runs
+    1e-7 apart. The kernel's dtypes keep the one ``rsqrt``."""
     f32 = torch.float32
-    scale = torch.rsqrt(var.to(f32) + epsilon)
+    if exact:
+        scale = (1.0 / torch.sqrt((var.to(f32) + epsilon).double())).to(f32)
+    else:
+        scale = torch.rsqrt(var.to(f32) + epsilon)
     if gamma is not None:
         scale = gamma.to(f32) * scale
     shift = -mean.to(f32) * scale
@@ -94,12 +116,14 @@ def fold(mean, var, gamma=None, beta=None,
 def bn_act_reference(x: torch.Tensor, scale: torch.Tensor,
                      shift: torch.Tensor, residual: Optional[torch.Tensor] = None,
                      act: str = "identity") -> torch.Tensor:
-    """Plain PyTorch version of the kernel: float32 math, one rounding."""
+    """Plain PyTorch version of the kernel: float32 math, one rounding
+    (float64 math for a float64 ``x``). Differentiable."""
     shape = [1] * x.ndim
     shape[1] = x.shape[1]
-    y = x.to(torch.float32) * scale.reshape(shape) + shift.reshape(shape)
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+    y = x.to(ct) * scale.reshape(shape).to(ct) + shift.reshape(shape).to(ct)
     if residual is not None:
-        y = y + residual.to(torch.float32)
+        y = y + residual.to(ct)
     if act == "relu":
         y = torch.relu(y)
     return y.to(x.dtype)
@@ -229,8 +253,15 @@ def bn_act_cuda(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
                 residual: Optional[torch.Tensor] = None,
                 act: str = "identity") -> torch.Tensor:
     """Launch ``csrc/bn_act.cu`` on PyTorch's current stream. Raises on
-    anything the kernel does not take, and when the launch fails."""
+    anything the kernel does not take (an input that needs a gradient
+    first), and when the launch fails."""
     global bn_act_launches, bn_act_residual_launches
+    if routing.needs_grad(x, scale, shift, residual):
+        raise RuntimeError(
+            "the bn_act kernel has no backward (the JAX package "
+            "differentiates through its xla mode): call it under "
+            "torch.no_grad() or on tensors that do not require grad; "
+            "bn_act_apply takes the plain version there")
     _check_cuda_args(x, scale, shift, residual, act)
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
     n = x.numel()
@@ -263,12 +294,15 @@ def bn_act_cuda(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
 def bn_act_apply(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
                  residual: Optional[torch.Tensor] = None,
                  act: str = "identity") -> torch.Tensor:
-    """The plain version for a CPU tensor, the kernel for a CUDA tensor."""
-    if x.device.type == "cpu":
-        return bn_act_reference(x, scale, shift, residual, act)
-    if x.device.type == "cuda":
+    """The kernel for a float32 or bfloat16 CUDA tensor when no gradient is
+    needed; the plain version otherwise (``ops/routing.use_kernel``), on
+    the card counted under ``precision/epilogue_plain_on_card``."""
+    if routing.use_kernel(x.device, x.dtype in KERNEL_DTYPES, x, scale,
+                          shift, residual):
         return bn_act_cuda(x, scale, shift, residual, act)
-    raise ValueError(f"bn_act has no implementation for {x.device}")
+    if x.is_cuda:
+        OpProfiler.get().count("precision/epilogue_plain_on_card")
+    return bn_act_reference(x, scale, shift, residual, act)
 
 
 def bn_act(x: torch.Tensor, mean, var, gamma=None, beta=None, *,
@@ -288,7 +322,8 @@ def bn_act(x: torch.Tensor, mean, var, gamma=None, beta=None, *,
     if not fusable(x, axis, act):
         prof.count("precision/epilogue_fallbacks")
         return None
-    scale, shift = fold(mean, var, gamma, beta, epsilon)
+    scale, shift = fold(mean, var, gamma, beta, epsilon,
+                        exact=x.dtype not in KERNEL_DTYPES)
     if residual is not None:
         residual = residual.to(x.dtype).contiguous()
     prof.count("precision/epilogue_hits")

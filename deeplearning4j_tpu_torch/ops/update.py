@@ -12,10 +12,17 @@ kernels per leaf.
   (Python float, then one cast to float32, as the JAX package computes
   them), random bits drawn per bucket from the graph's ``torch.Generator``
   when the moments are stored in bfloat16, then one update per bucket.
+- :func:`update_bucket` picks the version by ``ops/routing.use_kernel``, as
+  the JAX ``fused_apply`` launches its kernel only for a float32 bucket:
+  the kernel for a float32 CUDA bucket, the plain version for any other
+  (a float64 or bfloat16 network's), on the card counted under
+  ``precision/fused_buckets_plain_on_card``, the result written back in
+  the stored dtypes.
 - :func:`fused_update_cuda` launches the kernel for CUDA tensors and never
   falls back; :func:`fused_update_reference` is the plain PyTorch version
-  (:func:`_update_math`), used for CPU tensors and by the checks on the
-  card.
+  (:func:`_update_math`). It computes in float32, or in float64 for a
+  float64 bucket: the JAX package's float32 scalars promote a bfloat16
+  bucket's math to float32.
 - :func:`apply_flat_updater` sends an updater without a kernel through the
   per-leaf math on the buckets, counted under ``precision/fused_fallbacks``.
 
@@ -74,7 +81,7 @@ from ..common.profiler import OpProfiler
 from ..learning.precision import (apply_updater, random_bits, state_dtype_of,
                                   stochastic_round)
 from ..learning.updaters import Adam, AdamW, Nesterovs, Sgd, _lr_at
-from . import cuda_lib
+from . import cuda_lib, routing
 
 KERNEL_NAME = "fused_update"
 SOURCE = "deeplearning4j_tpu_torch/csrc/fused_update.cu"
@@ -90,6 +97,8 @@ _KIND_CODES = {"sgd": 0, "nesterovs": 1, "adam": 2, "adamw": 3}
 SLOTS = {"sgd": (), "nesterovs": ("v",), "adam": ("m", "v"),
          "adamw": ("m", "v")}
 _N_SCALARS = 9
+#: the bucket dtypes the kernel takes (the JAX kernel's: float32)
+KERNEL_DTYPES = (torch.float32,)
 
 #: the member-batched route's name in the kernel table
 MEMBERS_KERNEL_NAME = "fused_update_members"
@@ -174,9 +183,18 @@ def _update_math(kind: str, sc, p, g, slots: Dict[str, torch.Tensor],
 def fused_update_reference(kind: str, sc: Tuple[float, ...], p, g, slots,
                            bits=None, sr_dtype=None):
     """Plain version of the kernel: returns ``(new_p, new_slots)`` as new
-    tensors (the inputs are not touched)."""
+    tensors (the inputs are not touched), in :func:`_compute_dtype`."""
     sct = tuple(torch.tensor(np.float32(v), device=p.device) for v in sc)
-    return _update_math(kind, sct, p, g, slots, bits, sr_dtype)
+    ct = _compute_dtype(p)
+    return _update_math(kind, sct, p.to(ct), g.to(ct), slots, bits,
+                        sr_dtype)
+
+
+def _compute_dtype(p) -> torch.dtype:
+    """The dtype of the JAX package's update math for bucket ``p``: its
+    float32 scalars promote a narrower bucket to float32 (PyTorch's 0-dim
+    rule would keep it narrow), a float64 bucket stays float64."""
+    return torch.promote_types(p.dtype, torch.float32)
 
 
 def _check_cuda_args(kind, p, g, slots, bits, sr_dtype) -> None:
@@ -289,8 +307,9 @@ def fused_update_members_reference(kind: str, sc: Tuple[float, ...], p, g,
     sct = [torch.tensor(np.float32(v), device=p.device) for v in sc]
     if lr is not None:
         sct[0] = lr.to(device=p.device, dtype=torch.float32).reshape(-1, 1)
-    new_p, new_slots = _update_math(kind, tuple(sct), p, g, slots, bits,
-                                    sr_dtype)
+    ct = _compute_dtype(p)
+    new_p, new_slots = _update_math(kind, tuple(sct), p.to(ct), g.to(ct),
+                                    slots, bits, sr_dtype)
     if live is not None:
         ok = (live.to(p.device) != 0).reshape(-1, 1)
         new_p = torch.where(ok, new_p, p)
@@ -388,23 +407,20 @@ def fused_update_members_cuda(kind: str, sc: Tuple[float, ...],
 
 def update_members_bucket(kind: str, sc: Tuple[float, ...], p, g, slots,
                           bits, sr_dtype, lr=None, live=None) -> None:
-    """One ``[M, N]`` bucket in place: the member-batched kernel for a CUDA
-    bucket, the plain version for a CPU one."""
+    """One ``[M, N]`` bucket in place: the member-batched kernel for a
+    float32 CUDA bucket, the plain version otherwise (``ops/routing``;
+    counted apart on the card), written back in the stored dtypes."""
     prof = OpProfiler.get()
-    if p.device.type == "cuda":
+    if _use_kernel(p):
         fused_update_members_cuda(kind, sc, p, g, slots, bits, sr_dtype, lr,
                                   live)
         prof.count("precision/fused_member_buckets_kernel")
         return
-    if p.device.type != "cpu":
-        raise ValueError(f"fused_update has no implementation for "
-                         f"{p.device}")
     new_p, new_slots = fused_update_members_reference(
         kind, sc, p, g, slots, bits, sr_dtype, lr, live)
-    p.copy_(new_p)
-    for k, v in new_slots.items():
-        slots[k].copy_(v)
-    prof.count("precision/fused_member_buckets_plain")
+    _write_back(p, slots, new_p, new_slots)
+    prof.count("precision/fused_member_buckets_plain_on_card" if p.is_cuda
+               else "precision/fused_member_buckets_plain")
 
 
 def fused_apply_members(updater, params: Dict[str, torch.Tensor],
@@ -446,23 +462,33 @@ def fused_apply_members(updater, params: Dict[str, torch.Tensor],
 
 def update_bucket(kind: str, sc: Tuple[float, ...], p, g, slots, bits,
                   sr_dtype) -> None:
-    """One bucket in place: the kernel for a CUDA float32 bucket, the plain
-    version for a CPU one. Raises for a CUDA bucket the kernel does not
-    take."""
+    """One bucket in place: the kernel for a float32 CUDA bucket, the plain
+    version otherwise (``ops/routing``; counted apart on the card), written
+    back in the stored dtypes."""
     prof = OpProfiler.get()
-    if p.device.type == "cuda":
+    if _use_kernel(p):
         fused_update_cuda(kind, sc, p, g, slots, bits, sr_dtype)
         prof.count("precision/fused_buckets_kernel")
         return
-    if p.device.type != "cpu":
-        raise ValueError(f"fused_update has no implementation for "
-                         f"{p.device}")
     new_p, new_slots = fused_update_reference(kind, sc, p, g, slots, bits,
                                               sr_dtype)
+    _write_back(p, slots, new_p, new_slots)
+    prof.count("precision/fused_buckets_plain_on_card" if p.is_cuda
+               else "precision/fused_buckets_plain")
+
+
+def _use_kernel(p) -> bool:
+    """The kernel takes float32 buckets; the update is applied in place and
+    never differentiated, so no gradient is needed through it."""
+    return routing.use_kernel(p.device, p.dtype in KERNEL_DTYPES)
+
+
+def _write_back(p, slots, new_p, new_slots) -> None:
+    """The plain version's result into the buckets, in their stored dtypes
+    (``copy_`` casts), as the JAX package casts it back."""
     p.copy_(new_p)
     for k, v in new_slots.items():
         slots[k].copy_(v)
-    prof.count("precision/fused_buckets_plain")
 
 
 def fused_apply(updater, flat_params: Dict[str, torch.Tensor],

@@ -22,6 +22,9 @@ one encoder forward of the port spends its time, on the card.
     python3 profile_port.py --alternate DIR --bn
     python3 profile_port.py --bag-build "-DDL4J_BAG_STREAM=1" --word2vec
     python3 profile_port.py --parallel  # ParallelWrapper step (phase 40)
+    python3 profile_port.py --served    # served forward: host and device
+    python3 profile_port.py --alternate DIR --served
+    python3 profile_port.py --smoke-phases DIR  # chip_smoke, this, then DIR
 
 ``--package DIR`` imports ``deeplearning4j_tpu_torch`` from DIR (a checkout
 of another commit, e.g. ``git archive`` of the parent) instead of from
@@ -30,7 +33,7 @@ then measured by the same code, in turns, in one call. ``--bag-build OPTS``
 builds ``csrc/embedding_bag.cu`` with the -D options OPTS (the measurement
 settings its header lists) and has ``embedding_bag_cuda`` launch that build
 in whatever mode follows. ``--alternate DIR`` runs one mode (``--flash``,
-``--bag`` or ``--bn``) as processes of their own on DIR's package and on
+``--bag``, ``--bn`` or ``--served``) as processes of their own on DIR's package and on
 this one in turns (parent, change, change, parent, ...; ``--rounds`` each,
 3 by default) and prints the medians of each run's summary side by side.
 
@@ -186,6 +189,28 @@ after 2 warm-ups), each profiled over 3 steps (traces
 ``chiprun_out/profile_port_parallel_<layout>.json.gz``): wall time, device
 busy time and share, device time by category, and the host time of one
 replica's forward and backward alone.
+
+With ``--served`` it builds the model chip_smoke phase 4 serves
+(full-size ResNet-50, bf16 compute, fused epilogue on) and times
+SERVED_FORWARDS forwards at each batch of SERVED_BATCHES from an input
+already on the card, each started on an idle card: the host's time to
+enqueue the forward (until ``output`` returns), the wall to its end, and
+the card's span between CUDA events recorded around it (medians); the
+bn_act launches and plain-on-card routes per forward; and the device time
+of a torch.profiler trace of 3 forwards (traces
+``chiprun_out/profile_port_served_b<batch>.json.gz``). Then the host's
+time per call of ``bn_act_apply`` and of ``bn_act`` as the forward calls
+them, on a tensor small enough that the card keeps up
+(served_dispatch_us).
+
+With ``--smoke-phases DIR`` it runs ``python3 chip_smoke.py`` from this
+script's directory, then, if that passed, from DIR (e.g. ``git archive``
+of the parent), and times each line of their output on the host clock as
+it arrives: a line's time is the time since the line before it, and is
+summed under the line's ``[tag]`` (``(untagged)`` otherwise; most phases
+print their lines as they end). It prints both runs' seconds per tag side
+by side, largest difference first. Each run's output goes to
+``chiprun_out/smoke_phases_<side>.log``.
 
 The last line is one JSON object with the numbers.
 """
@@ -1632,12 +1657,14 @@ def alternate_main(parent: str, rounds: int, args: list) -> int:
     for k in keys:
         p = statistics.median(r[k] for r in runs["parent"])
         c = statistics.median(r[k] for r in runs["change"])
-        table[k] = {"parent": p, "change": c, "change_over_parent": c / p,
+        ratio = c / p if p else None
+        table[k] = {"parent": p, "change": c, "change_over_parent": ratio,
                     "parent_runs": [r[k] for r in runs["parent"]],
                     "change_runs": [r[k] for r in runs["change"]]}
         print(f"[alternate] {k}: parent {p:.5f}, change {c:.5f} "
-              f"(x{c / p:.3f}); parent runs {table[k]['parent_runs']}, "
-              f"change runs {table[k]['change_runs']}", flush=True)
+              f"(x{'-' if ratio is None else f'{ratio:.3f}'}); parent runs "
+              f"{table[k]['parent_runs']}, change runs "
+              f"{table[k]['change_runs']}", flush=True)
     print(json.dumps({"alternate": args, "parent": parent,
                       "order": order, "medians": table}), flush=True)
     return 0
@@ -1760,6 +1787,161 @@ def zoo_main(dev, smi: str, name: str, model_name: str) -> int:
                       "serve": serve}), flush=True)
     return 0
 
+#: forwards timed in each ``--served`` run, at each batch
+SERVED_FORWARDS = 60
+SERVED_BATCHES = (1, 32)
+
+
+def served_main(dev, smi: str, name: str) -> int:
+    from deeplearning4j_tpu_torch.common.profiler import OpProfiler
+    from deeplearning4j_tpu_torch.ops import epilogue
+
+    model = cs.build_model(dev)
+    cs.set_fused(model, True)
+    model.conf.global_conf.compute_dtype = "bfloat16"
+    rng = np.random.default_rng(cs.SEED + 3)
+    x32 = torch.from_numpy(rng.normal(size=(32, 3, 224, 224)).astype(
+        np.float32)).to(dev)
+    prof = OpProfiler.get()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    result, summary = {}, {}
+    for b in SERVED_BATCHES:
+        x = x32[:b]
+        forward_ms(model, x, runs=1, warmup=3)
+        prof.reset()
+        launches = epilogue.bn_act_launches
+        host, wall, span = [], [], []
+        for _ in range(SERVED_FORWARDS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            model.output(x)
+            t1 = time.perf_counter()
+            end.record()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            host.append((t1 - t0) * 1e3)
+            wall.append((t2 - t0) * 1e3)
+            span.append(start.elapsed_time(end))
+        r = {"host_ms": statistics.median(host),
+             "wall_ms": statistics.median(wall),
+             "span_ms": statistics.median(span),
+             "bn_act_launches": (epilogue.bn_act_launches - launches)
+             / SERVED_FORWARDS,
+             "plain_on_card": prof.counter_value(
+                 "precision/epilogue_plain_on_card") / SERVED_FORWARDS}
+        trace = _profile(lambda: model.output(x), 3, f"served ResNet-50 "
+                         f"forward, batch {b}", smi,
+                         f"profile_port_served_b{b}.json.gz")
+        r["device_ms"] = trace["device_ms"]
+        print(f"[served] batch {b}: host enqueue {r['host_ms']:.3f} ms, wall "
+              f"{r['wall_ms']:.3f} ms, card span {r['span_ms']:.3f} ms "
+              f"(medians of {SERVED_FORWARDS}), device time "
+              f"{r['device_ms']:.3f} ms; bn_act launches "
+              f"{r['bn_act_launches']:.0f}, plain on the card "
+              f"{r['plain_on_card']:.0f} per forward; {smi}", flush=True)
+        result[f"b{b}"] = r
+        summary.update({f"b{b}_{k}": v for k, v in r.items()})
+    result["dispatch"] = served_dispatch_us(dev, smi)
+    summary.update({f"{k}_host_us": v for k, v in result["dispatch"].items()})
+    print(json.dumps({"device": name, "nvidia_smi": smi, **result,
+                      "summary": summary}), flush=True)
+    return 0
+
+
+#: calls a ``served_dispatch_us`` repeat times, and its repeats
+DISPATCH_CALLS, DISPATCH_REPEATS = 2000, 5
+
+
+def served_dispatch_us(dev, smi: str) -> dict:
+    """The host's time per call of ``bn_act_apply`` (the dispatch and one
+    launch) and of ``bn_act`` (the gate, the fold and that) as the served
+    forward calls them, under inference mode, on a [1, 64, 8, 8] bf16
+    tensor whose kernel is shorter than the host's call: the median of
+    DISPATCH_REPEATS runs of DISPATCH_CALLS calls, timed to the last
+    call's return."""
+    from deeplearning4j_tpu_torch.ops import epilogue
+
+    x = torch.randn(1, 64, 8, 8, device=dev).to(torch.bfloat16)
+    mean, var, gamma, beta = (torch.rand(64, device=dev) + 0.5
+                              for _ in range(4))
+    scale, shift = epilogue.fold(mean, var, gamma, beta)
+    calls = {"bn_act_apply": lambda: epilogue.bn_act_apply(
+                 x, scale, shift, None, "relu"),
+             "bn_act": lambda: epilogue.bn_act(x, mean, var, gamma, beta,
+                                               act="relu")}
+    out = {}
+    with torch.inference_mode():
+        for key, call in calls.items():
+            runs = []
+            for _ in range(DISPATCH_REPEATS + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(DISPATCH_CALLS):
+                    call()
+                runs.append((time.perf_counter() - t0) / DISPATCH_CALLS
+                            * 1e6)
+            out[key] = statistics.median(runs[1:])   # the first warms up
+    torch.cuda.synchronize()
+    print(f"[served] host per call under inference mode: bn_act_apply "
+          f"{out['bn_act_apply']:.3f} us, bn_act {out['bn_act']:.3f} us "
+          f"(medians of {DISPATCH_REPEATS} x {DISPATCH_CALLS}); {smi}",
+          flush=True)
+    return out
+
+
+def _timed_smoke(root: str, side: str) -> tuple:
+    """``python3 chip_smoke.py`` from ``root``: its exit code and the
+    seconds of each output line's tag, in order of first appearance."""
+    import re
+
+    os.makedirs("chiprun_out", exist_ok=True)
+    tags, t_last = {}, time.perf_counter()
+    t0 = t_last
+    with open(os.path.join("chiprun_out", f"smoke_phases_{side}.log"),
+              "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "chip_smoke.py"], cwd=root, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            env=dict(os.environ, PYTHONUNBUFFERED="1"))
+        for line in proc.stdout:
+            now = time.perf_counter()
+            m = re.match(r"\[([^\]]+)\]", line)
+            tag = m.group(1) if m else "(untagged)"
+            tags[tag] = tags.get(tag, 0.0) + now - t_last
+            t_last = now
+            log.write(f"{now - t0:9.2f} {line}")
+        rc = proc.wait()
+    tags["(after the last line)"] = time.perf_counter() - t_last
+    print(f"[smoke-phases] {side} ({root}): exit {rc}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return rc, tags
+
+
+def smoke_phases_main(parent: str, smi: str) -> int:
+    here = os.path.dirname(os.path.abspath(__file__))
+    rc, change = _timed_smoke(here, "change")
+    cs.check(rc == 0, f"chip_smoke.py failed here (exit {rc}); the parent "
+             f"is not run")
+    rc_p, par = _timed_smoke(os.path.abspath(parent), "parent")
+    rows = []
+    for tag in dict.fromkeys(list(change) + list(par)):
+        c, p = change.get(tag, 0.0), par.get(tag, 0.0)
+        rows.append({"tag": tag, "parent_s": p, "change_s": c,
+                     "change_minus_parent_s": c - p})
+    rows.sort(key=lambda r: -abs(r["change_minus_parent_s"]))
+    for r in rows:
+        print(f"[smoke-phases] {r['tag']:<28} parent {r['parent_s']:9.2f} s, "
+              f"change {r['change_s']:9.2f} s, change - parent "
+              f"{r['change_minus_parent_s']:+9.2f} s", flush=True)
+    total = {k: sum(r[k] for r in rows) for k in ("parent_s", "change_s")}
+    print(f"[smoke-phases] whole run: parent {total['parent_s']:.1f} s "
+          f"(exit {rc_p}), change {total['change_s']:.1f} s; {smi}",
+          flush=True)
+    print(json.dumps({"smoke_phases": rows, "total": total,
+                      "parent_exit": rc_p, "nvidia_smi": smi}), flush=True)
+    return 0
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1777,6 +1959,16 @@ def main() -> int:
             rounds = int(rest[j + 1])
             rest = rest[:j] + rest[j + 2:]
         return alternate_main(parent, rounds, rest)
+    if "--smoke-phases" in sys.argv[1:]:
+        # chip_smoke here, then in another checkout, each line timed (no
+        # CUDA context in this process: the runs have the card to
+        # themselves)
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+        return smoke_phases_main(
+            sys.argv[sys.argv.index("--smoke-phases") + 1], smi)
     if "--package" in sys.argv[1:]:
         # another checkout's deeplearning4j_tpu_torch (for parent-against-
         # change runs), measured by this script's code
@@ -1837,6 +2029,9 @@ def main() -> int:
     if "--bn" in sys.argv[1:]:
         cs.phase_build(["bn_act"])
         return bn_main(dev, smi, name, "--levers" in sys.argv[1:])
+    if "--served" in sys.argv[1:]:
+        cs.phase_build(["bn_act"])
+        return served_main(dev, smi, name)
     if "--bag" in sys.argv[1:]:
         cs.phase_build()
         return bag_main(dev, smi, name, "--levers" in sys.argv[1:],

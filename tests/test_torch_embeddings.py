@@ -137,15 +137,43 @@ def test_embedding_bag_mask_weights_and_int64_indices():
 
 
 def test_embedding_bag_is_forward_only():
+    """The kernel is forward-only, as the Pallas one is: its wrapper
+    refuses a table that requires grad under grad mode. Under no gradient
+    the entry's output carries no graph."""
     table = torch.randn(6, 4, requires_grad=True)
     idx = torch.zeros(2, 3, dtype=torch.int32)
     with pytest.raises(RuntimeError, match="forward-only"):
-        temb.embedding_bag(table, idx)
+        temb.embedding_bag_cuda(table, idx, torch.ones(2, 3), torch.ones(2),
+                                True)
     with torch.no_grad():
         out = temb.embedding_bag(table, idx)
     assert out.shape == (2, 4) and not out.requires_grad
     with pytest.raises(ValueError, match="mode"):
         temb.embedding_bag(table.detach(), idx, mode="max")
+
+
+def test_embedding_bag_gradient_is_the_plain_expressions():
+    """A table that requires grad takes the plain version under autograd,
+    and its gradient is the plain expression's, ``(table[idx] * mask)
+    .sum(1) / counts`` (the JAX op's ``xla`` lowering), bitwise."""
+    rng = np.random.default_rng(6)
+    table = torch.from_numpy(rng.normal(size=(6, 4)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, 6, size=(5, 3)).astype(np.int32))
+    mask = torch.from_numpy((rng.random((5, 3)) < 0.7).astype(np.float32))
+    mask[2] = 0.0
+    up = torch.from_numpy(rng.normal(size=(5, 4)).astype(np.float32))
+    for mode in ("mean", "sum"):
+        got_t = table.clone().requires_grad_(True)
+        out = temb.embedding_bag(got_t, idx, mask, mode=mode)
+        assert out.requires_grad
+        (out * up).sum().backward()
+        want_t = table.clone().requires_grad_(True)
+        want = (want_t[idx.long()] * mask[..., None]).sum(1)
+        if mode == "mean":
+            want = want / mask.sum(1, keepdim=True).clamp_min(1.0)
+        (want * up).sum().backward()
+        np.testing.assert_array_equal(got_t.grad.numpy(),
+                                      want_t.grad.numpy())
 
 
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing():

@@ -903,3 +903,131 @@ def test_import_onnx_defaults_to_the_card():
     assert sd.device.type == dev.type
     y = sd.output({"x": np.ones((4, 3), np.float32)}, sd.onnx_outputs)
     assert y[sd.onnx_outputs[0]].device.type == "cuda"
+
+
+# --- the routes the JAX package computes off its kernels (ops/routing.py) ----
+
+def _plain_on_card(name):
+    from deeplearning4j_tpu_torch.common.profiler import OpProfiler
+
+    return OpProfiler.get().counter_value(name)
+
+
+@pytest.mark.cuda
+def test_float64_lenet_fused_fit_on_the_card_matches_the_cpu():
+    """A float64 bucket takes the plain update on the card (the JAX
+    package's xla math), no launch, and lands where the CPU's fit does."""
+    from deeplearning4j_tpu_torch.common.tree import get_path, leaf_paths
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.models import LeNet, zoo
+
+    dev = _card()
+    nets = []
+    for where in (dev, "cpu"):
+        conf = LeNet().conf()
+        conf.global_conf.dtype, conf.global_conf.fused_update = \
+            "float64", True
+        nets.append(zoo.network(conf).init(device=where))
+    card, cpu = nets
+    with torch.no_grad():
+        for p in leaf_paths(cpu._params):
+            get_path(cpu._params, p).copy_(get_path(card._params, p))
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.random((16, 1, 28, 28)))
+    y = torch.eye(10, dtype=torch.float64)[rng.integers(0, 10, 16)]
+    launches = update.fused_update_launches
+    plain = _plain_on_card("precision/fused_buckets_plain_on_card")
+    for _ in range(2):
+        card.fit(DataSet(x.to(dev), y.to(dev)))
+        cpu.fit(DataSet(x, y))
+    assert update.fused_update_launches == launches
+    assert _plain_on_card("precision/fused_buckets_plain_on_card") \
+        == plain + 2
+    for p in leaf_paths(cpu._params):
+        want = get_path(cpu._params, p)
+        got = get_path(card._params, p).detach().cpu()
+        assert got.dtype == torch.float64
+        assert (got - want).abs().max() <= 1e-10 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float16])
+def test_bn_act_of_other_dtypes_takes_the_plain_version_on_the_card(dtype):
+    dev = _card()
+    x, res, stats = _case((3, 65, 7, 5))
+    xt, rt = (torch.from_numpy(a).to(dtype) for a in (x, res))
+    st = [torch.from_numpy(s) for s in stats]
+    launches = epilogue.bn_act_launches
+    plain = _plain_on_card("precision/epilogue_plain_on_card")
+    got = epilogue.bn_act(xt.to(dev), *(s.to(dev) for s in st), act="relu",
+                          residual=rt.to(dev))
+    assert epilogue.bn_act_launches == launches
+    assert _plain_on_card("precision/epilogue_plain_on_card") == plain + 1
+    want = epilogue.bn_act(xt, *st, act="relu", residual=rt)
+    assert got.dtype == dtype and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_gradients_through_bn_act_on_the_card():
+    """A gradient through x, gamma/beta and the residual takes the plain
+    version on the card: the same gradients as on the CPU, none zero."""
+    dev = _card()
+    x, res, stats = _case((4, 256, 14, 14))
+    up = np.random.default_rng(4).normal(size=x.shape).astype(np.float32)
+
+    def grads(where):
+        xt, rt = (torch.from_numpy(a).to(where).requires_grad_()
+                  for a in (x, res))
+        mean, var, gamma, beta = (torch.from_numpy(s).to(where)
+                                  for s in stats)
+        gamma.requires_grad_()
+        beta.requires_grad_()
+        y = epilogue.bn_act(xt, mean, var, gamma, beta, act="relu",
+                            residual=rt)
+        (y * torch.from_numpy(up).to(where)).sum().backward()
+        return [t.grad.cpu() for t in (xt, rt, gamma, beta)]
+
+    launches = epilogue.bn_act_launches
+    card = grads(dev)
+    assert epilogue.bn_act_launches == launches
+    for got, want in zip(card, grads("cpu")):
+        assert got.abs().max() > 0
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_gradients_through_embedding_bag_on_the_card():
+    dev = _card()
+    table, idx, mask, _ = _bag_inputs(256, 10, 300, 32, dev, 8)
+    up = torch.randn(256, 32, generator=torch.Generator().manual_seed(8))
+
+    def grad(t, i, m):
+        t = t.detach().clone().requires_grad_()
+        (embeddings.embedding_bag(t, i, m) * up.to(t.device)).sum().backward()
+        return t.grad.cpu()
+
+    launches = embeddings.embedding_bag_launches
+    got = grad(table, idx, mask)
+    assert embeddings.embedding_bag_launches == launches
+    want = grad(table.cpu(), idx.cpu(), mask.cpu())
+    assert got.abs().max() > 0
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    with torch.no_grad():      # no gradient: the kernel again
+        embeddings.embedding_bag(table.clone().requires_grad_(), idx, mask)
+    assert embeddings.embedding_bag_launches == launches + 1
+
+
+@pytest.mark.cuda
+def test_bn_act_kernel_refuses_an_input_that_needs_a_gradient():
+    dev = _card()
+    x = torch.zeros(2, 8, 3, 3, device=dev)
+    s = torch.ones(8, device=dev)
+    launches = epilogue.bn_act_launches
+    for args in ((x.clone().requires_grad_(), s, s),
+                 (x, s.clone().requires_grad_(), s),
+                 (x, s, s, x.clone().requires_grad_())):
+        with pytest.raises(RuntimeError, match="no backward"):
+            epilogue.bn_act_cuda(*args)
+    with torch.no_grad():
+        epilogue.bn_act_cuda(x.clone().requires_grad_(), s, s)
+    assert epilogue.bn_act_launches == launches + 1
