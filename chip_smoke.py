@@ -106,6 +106,27 @@ Phases (each fails the run with a nonzero exit if it fails):
                and a float64 table's forward (1e-12). Then phase 4's model
                again: one served forward, 53 bn_act launches, plain 0; one
                float32 training step, 1 fused_update launch, plain 0.
+5c. environment -- the Environment's switches on the card. NAN_PANIC
+               (set_check_nan) on: log(-1) raises FloatingPointError naming
+               aten.log; each kernel, fed a NaN at its main path's shape
+               (bn_act bf16 [32, 256, 56, 56] + residual, fused_update
+               Nesterovs over 25,557,032 elements, embedding_bag [8192, 10]
+               of [10000, 100], flash float32 [384, 128, 64] and bf16 [32,
+               12, 128, 64]), raises naming the kernel; a LeNet fit step
+               with one NaN in its batch, a backward pass that makes a NaN
+               and a ParallelInference request with a NaN image fail the
+               same way. Off again: no dispatch mode left, and phase 4's
+               served forward (53 bn_act launches) and float32 step (1
+               fused_update launch) make as many host syncs in a
+               tracecheck.steady_state region as before the phase. Two
+               processes with DL4J_TPU_COMPILE_CACHE on a fresh directory:
+               the first builds bn_act into it under its hashed name, the
+               second runs no nvcc and its bn_act output is bitwise the
+               first's, and creates float64 arrays on the card under
+               DL4J_TPU_DTYPE=float64; an edited copy of the source hashes
+               to another name. allow_pallas off: the encoder's float32
+               forward (BERT-base width, batch 2) takes the dense route, 0
+               flash launches, within 1e-4 of the flash forward.
 6. train    -- full-size ResNet-50 training as bench.py configures it
                (bf16 compute, float32 master params, Nesterovs(0.1, 0.9),
                l2 1e-4, fused_update, bf16 updater state with stochastic
@@ -2819,6 +2840,329 @@ def phase_kernel_routes(smi: str, dev, model) -> dict:
         f"plain {mp['train_step']['plain_on_card']}; phase "
         f"{r['seconds']:.1f} s; {smi}")
     print(json.dumps({"kernel_routes": r}, default=str), flush=True)
+    return r
+
+
+# --- phase 5c -------------------------------------------------------------------
+
+#: one process of the build-cache check: bn_act on a fixed input through
+#: the cache that DL4J_TPU_COMPILE_CACHE names, and the factories' dtype
+CACHE_WORKER = """
+import hashlib, json, torch
+from deeplearning4j_tpu_torch.ndarray import factory
+from deeplearning4j_tpu_torch.ops import cuda_lib, epilogue
+g = torch.Generator().manual_seed(11)
+x = torch.randn(32, 256, 56, 56, generator=g).cuda()
+s, b = (torch.randn(256, generator=g).cuda() for _ in range(2))
+out = epilogue.bn_act_cuda(x, s, b, x, "relu")
+a = factory.create([[1.0, 2.0]])
+print(json.dumps({"nvcc_runs": cuda_lib.nvcc_runs,
+                  "library": str(cuda_lib.library_path("bn_act")),
+                  "sha256": hashlib.sha256(out.cpu().numpy().tobytes())
+                  .hexdigest(), "create_dtype": str(a.value.dtype),
+                  "create_device": str(a.value.device)}))
+"""
+#: the encoder's float32 forward with flash against the dense route
+#: (allow_pallas off): phase 9's card-against-CPU bound on probabilities
+ALLOW_PALLAS_TOL = 1e-4
+
+
+def _cache_worker(cache: str, **env):
+    root = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen(
+        [sys.executable, "-c", CACHE_WORKER], cwd=root, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        env=dict(os.environ, DL4J_TPU_COMPILE_CACHE=cache,
+                 PYTHONPATH=root, **env))
+
+
+def _cache_result(proc, what: str) -> dict:
+    try:
+        out, err = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise PhaseError(f"{what}: the build-cache process hung")
+    check(proc.returncode == 0, f"{what}: exit {proc.returncode}: "
+          f"{err[-2000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def nan_kernel_case(kernel: str, dev):
+    """Inputs for one launch of ``kernel`` at its main path's shape, with a
+    NaN that reaches what it writes (fused_update: the parameters and the
+    moment it updates in place); returns the launch. Built before NAN_PANIC
+    is on, since writing the NaN is itself an operation that makes one."""
+    from deeplearning4j_tpu_torch.learning.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.ops import (attention, embeddings,
+                                              epilogue, update)
+
+    nan = float("nan")
+    g = torch.Generator(device=dev).manual_seed(SEED + 51)
+    if kernel == "bn_act":
+        x = torch.randn(BATCH, 256, 56, 56, device=dev, generator=g,
+                        dtype=torch.bfloat16)
+        x[7, 100, 20, 30] = nan
+        s = torch.ones(256, device=dev)
+        return lambda: epilogue.bn_act_cuda(x, s, s, x, "relu")
+    if kernel == "fused_update":
+        n = RESNET50_PARAMS
+        p = torch.randn(n, device=dev, generator=g)
+        grad = torch.randn(n, device=dev, generator=g) * 1e-3
+        grad[n - 5] = nan
+        slots = {"v": torch.zeros(n, device=dev)}
+        sc = update._scalars(Nesterovs(0.1, momentum=0.9), "nesterovs", 0)
+        return lambda: update.fused_update_cuda("nesterovs", sc, p, grad,
+                                                slots)
+    if kernel == "embedding_bag":
+        B, W, V, D = BAG_PATH
+        table = torch.randn(V, D, device=dev, generator=g)
+        idx = torch.randint(0, V, (B, W), device=dev, generator=g,
+                            dtype=torch.int32)
+        mask = torch.ones(B, W, device=dev)
+        table[int(idx[B // 2, 3])] = nan
+        counts = mask.sum(1)
+        return lambda: embeddings.embedding_bag_cuda(table, idx, mask,
+                                                     counts, True)
+    b, h, T, d = ENC_BATCH, BERT["heads"], SEQ_LEN, \
+        BERT["hidden"] // BERT["heads"]
+    dt = torch.float32 if kernel == "flash_attention" else torch.bfloat16
+    q, k, v = (torch.randn(b, h, T, d, device=dev, generator=g) * 0.3
+               for _ in range(3))
+    v[3, 5, 100, 7] = nan
+    if kernel == "flash_attention":
+        q, k, v = (t.reshape(b * h, T, d) for t in (q, k, v))
+        return lambda: attention.flash_attention_cuda(q, k, v, d ** -0.5)
+    q, k, v = (t.to(dt) for t in (q, k, v))
+    return lambda: attention.flash_attention_bf16_cuda(q, k, v, d ** -0.5)
+
+
+#: the kernel each NaN case must name
+NAN_KERNELS = {"bn_act": "bn_act", "fused_update": "fused_update",
+               "embedding_bag": "embedding_bag",
+               "flash_attention": "flash_attention",
+               "flash_attention_bf16": "flash_attention"}
+
+
+def _raises_nan(fn, name: str, what: str) -> str:
+    """``fn()`` must raise FloatingPointError naming ``name``; returns the
+    message."""
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except FloatingPointError as e:
+        check(name in str(e), f"{what}: the error names {e}, not {name}")
+        return str(e)
+    raise PhaseError(f"{what}: no FloatingPointError under NAN_PANIC")
+
+
+def _main_path_syncs(model, dev) -> dict:
+    """One served ResNet-50 forward (bf16, fused epilogue) and one float32
+    training step of phase 4's model, each in a tracecheck steady_state
+    region that counts and does not police: the launches and host syncs
+    of each."""
+    from deeplearning4j_tpu_torch.common import tracecheck
+    from deeplearning4j_tpu_torch.data import DataSet
+
+    size = model.conf.node_output_types["input"].height
+    x = np.random.default_rng(SEED + 52).normal(
+        size=(BATCH, 3, size, size)).astype(np.float32)
+    classes = model.conf.nodes["output"].layer.n_out
+    ds = DataSet(torch.from_numpy(x[:8]).to(dev), torch.eye(classes)[
+        torch.randint(0, classes, (8,), generator=torch.Generator()
+                      .manual_seed(SEED + 53))].to(dev))
+    gc = model.conf.global_conf
+    set_fused(model, True)
+    out = {}
+    for name, dtype, fused, fn in (
+            ("served_forward", "bfloat16", False, lambda: model.output(x)),
+            ("train_step", None, True, lambda: model.fit(ds))):
+        gc.compute_dtype, gc.fused_update = dtype, fused
+        fn()                                  # the dtype's copies, warm
+        torch.cuda.synchronize()
+        with tracecheck.steady_state(f"environment {name}",
+                                     allow_compiles=1 << 20,
+                                     max_host_syncs=None) as region:
+            _, launches, plain = _routed(fn)
+        out[name] = {"launches": launches, "plain": plain,
+                     "host_syncs": region.host_syncs,
+                     "sync_sites": dict(region.sync_sites)}
+    check(np.isfinite(model.score_value), f"training loss "
+          f"{model.score_value}")
+    return out
+
+
+def _allow_pallas_forwards(dev) -> dict:
+    """The encoder at BERT-base width, float32, batch 2: its forward with
+    flash, then with allow_pallas off (the dense route, no launch)."""
+    from deeplearning4j_tpu_torch.common.environment import Environment
+    from deeplearning4j_tpu_torch.common.profiler import OpProfiler
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    model = ComputationGraph(encoder_conf()).init(seed=SEED + 54, device=dev)
+    feed = [torch.from_numpy(a).to(dev) for a in encoder_inputs(2, SEED + 55)]
+    prof, env = OpProfiler.get(), Environment.get()
+    outs, routes = {}, {}
+    for allow in (True, False):
+        env.set_allow_pallas(allow)
+        try:
+            out, launches, _ = _routed(lambda: model.output(*feed)[0])
+        finally:
+            env.set_allow_pallas(True)
+        counters = prof.get_counters()
+        outs[allow] = out.float()
+        routes[allow] = {"flash_launches": launches["flash_attention"],
+                         "mha_flash": counters.get("attention/mha_flash", 0),
+                         "mha_dense": counters.get("attention/mha_dense", 0)}
+    L = BERT["layers"]
+    check(routes[True] == {"flash_launches": L, "mha_flash": L,
+                           "mha_dense": 0}, f"allow_pallas on: {routes[True]}")
+    check(routes[False] == {"flash_launches": 0, "mha_flash": 0,
+                            "mha_dense": L}, f"allow_pallas off: "
+          f"{routes[False]}")
+    err = (outs[True] - outs[False]).abs().max().item()
+    check(bool(torch.isfinite(outs[False]).all()) and err <= ALLOW_PALLAS_TOL,
+          f"dense against flash: max abs err {err} not <= "
+          f"{ALLOW_PALLAS_TOL}")
+    return {"routes": {"on": routes[True], "off": routes[False]},
+            "max_abs_err": err}
+
+
+def phase_environment(smi: str, dev, model) -> dict:
+    """Phase 5c: the Environment's switches on the card. NAN_PANIC raises
+    FloatingPointError naming the aten op, each kernel, a LeNet step's op,
+    a backward op and a ParallelInference future's; turned off, phase 4's
+    model keeps its launches and host syncs. Two processes share a build
+    cache (the second builds nothing, bitwise output, the factories in
+    float64 under DL4J_TPU_DTYPE); allow_pallas off takes the dense route."""
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.common import build_cache, nan_panic
+    from deeplearning4j_tpu_torch.common.environment import Environment
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.models import LeNet
+    from deeplearning4j_tpu_torch.ops import cuda_lib
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    t0 = time.perf_counter()
+    env = Environment.get()
+    cache = tempfile.mkdtemp(prefix="dl4j-build-cache-")
+    procs = [_cache_worker(cache)]
+    try:
+        with _Deterministic():
+            before = _main_path_syncs(model, dev)
+            r = {"nan_panic": {}}
+            # every input is made before the flag is on: writing a NaN is
+            # itself an operation that makes one
+            minus = torch.tensor([-1.0, 4.0], device=dev)
+            cases = {k: nan_kernel_case(k, dev) for k in sorted(NAN_KERNELS)}
+            net = LeNet().init(device=dev)
+            ds = lenet_batches(1, dev)[0]
+            ds.features[5, 0, 14, 14] = float("nan")
+            env.set_check_nan(True)
+            try:
+                r["nan_panic"]["aten"] = _raises_nan(
+                    lambda: torch.log(minus), "aten.log", "log(-1)")
+                for k, launch in cases.items():
+                    r["nan_panic"][k] = _raises_nan(
+                        launch, f"the {NAN_KERNELS[k]} kernel", k)
+                r["nan_panic"]["lenet_fit"] = _raises_nan(
+                    lambda: net.fit(ds), "NAN_PANIC", "LeNet fit")
+                w = torch.zeros(8, device=dev, requires_grad=True)
+                r["nan_panic"]["backward"] = _raises_nan(
+                    lambda: (torch.sqrt(w) * 0.0).sum().backward(),
+                    "NAN_PANIC", "backward")
+                size = model.conf.node_output_types["input"].height
+                bad = np.full((1, 3, size, size), np.nan, np.float32)
+                pi = (ParallelInference.Builder(model)
+                      .inference_mode("batched").batch_limit(BATCH)
+                      .workers(1).max_wait_ms(1).build())
+                try:
+                    fut = pi.output_async(bad)
+                    r["nan_panic"]["inference_future"] = _raises_nan(
+                        lambda: fut.result(timeout=120), "NAN_PANIC",
+                        "ParallelInference future")
+                finally:
+                    pi.shutdown()
+            finally:
+                env.set_check_nan(False)
+            check(not env.is_check_nan() and not any(
+                isinstance(m, nan_panic.NanPanicMode)
+                for m in _get_current_dispatch_mode_stack()),
+                  "NAN_PANIC left a mode pushed after it was turned off")
+            first = _cache_result(procs[0], "first build-cache process")
+            procs.append(_cache_worker(cache, DL4J_TPU_DTYPE="float64"))
+            pallas = _allow_pallas_forwards(dev)
+            after = _main_path_syncs(model, dev)
+        second = _cache_result(procs[1], "second build-cache process")
+        edited = os.path.join(cache, "edited", "bn_act.cu")
+        os.makedirs(os.path.dirname(edited))
+        shutil.copy(cuda_lib.source_path("bn_act"), edited)
+        with open(edited, "a") as f:
+            f.write("\n// edited\n")
+        edited_name = build_cache.cached_name(
+            "libbn_act", edited, cuda_lib.FLAGS, cuda_lib.nvcc_path())
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        shutil.rmtree(cache, ignore_errors=True)
+    for name, want in (("served_forward", {"bn_act": BN_ACT_PER_FORWARD}),
+                       ("train_step", {"fused_update": 1})):
+        for when, m in (("before", before), ("after", after)):
+            got = {k: m[name]["launches"][k] for k in want}
+            check(got == want and not any(m[name]["plain"].values()),
+                  f"{name} {when} the phase: launches {got}, plain "
+                  f"{m[name]['plain']}, want {want}")
+        check(after[name]["host_syncs"] == before[name]["host_syncs"],
+              f"{name}: {after[name]['host_syncs']} host syncs after the "
+              f"phase, {before[name]['host_syncs']} before "
+              f"({after[name]['sync_sites']} / {before[name]['sync_sites']})")
+    lib = os.path.basename(first["library"])
+    check(first["nvcc_runs"] == 1 and os.path.dirname(first["library"])
+          == cache and lib.startswith("libbn_act-"),
+          f"first process: {first}")
+    check(second["nvcc_runs"] == 0 and second["library"] == first["library"],
+          f"second process built {second['nvcc_runs']} times or found "
+          f"{second['library']}")
+    check(second["sha256"] == first["sha256"], "the cached bn_act's output "
+          "is not bitwise the first process's")
+    check(edited_name != lib, "an edited source kept the library's name")
+    check(first["create_dtype"] == "torch.float32"
+          and second["create_dtype"] == "torch.float64"
+          and second["create_device"].startswith("cuda"),
+          f"Nd4j.create: {first['create_dtype']} by default, "
+          f"{second['create_dtype']} on {second['create_device']} under "
+          f"DL4J_TPU_DTYPE=float64")
+    r["main_paths"] = {"before": before, "after": after}
+    r["build_cache"] = {"library": lib, "first_nvcc_runs": first["nvcc_runs"],
+                        "second_nvcc_runs": second["nvcc_runs"],
+                        "bitwise": True, "edited_library": edited_name}
+    r["default_dtype"] = {"unset": first["create_dtype"],
+                          "float64": second["create_dtype"]}
+    r["allow_pallas"] = pallas
+    r["seconds"] = time.perf_counter() - t0
+    for k, msg in r["nan_panic"].items():
+        log(f"[environment] NAN_PANIC {k}: FloatingPointError: {msg}; {smi}")
+    for name in ("served_forward", "train_step"):
+        b, a = before[name], after[name]
+        log(f"[environment] NAN_PANIC off: {name} launches "
+            f"{ {k: v for k, v in a['launches'].items() if v} }, host syncs "
+            f"{a['host_syncs']} (before the phase {b['host_syncs']}); {smi}")
+    log(f"[environment] build cache: the first process built {lib} "
+        f"({first['nvcc_runs']} nvcc run), the second ran "
+        f"{second['nvcc_runs']} and its bn_act output is bitwise the "
+        f"first's; an edited source is {edited_name}; Nd4j.create "
+        f"{first['create_dtype']} unset, {second['create_dtype']} under "
+        f"DL4J_TPU_DTYPE=float64; {smi}")
+    log(f"[environment] allow_pallas off: encoder float32 batch 2 routes "
+        f"{pallas['routes']['off']} (on: {pallas['routes']['on']}), dense "
+        f"against flash max abs err {pallas['max_abs_err']:.3e} "
+        f"(<= {ALLOW_PALLAS_TOL}); phase {r['seconds']:.1f} s; {smi}")
+    print(json.dumps({"environment": r}, default=str), flush=True)
     return r
 
 
@@ -13410,6 +13754,7 @@ def main(argv=None) -> int:
         launches, batches, bn_plain = phase_serving(model, smi, dev)
         phase_parity(model, dev)
         routes = phase_kernel_routes(smi, dev, model)
+        environment = phase_environment(smi, dev, model)
         del model
         torch.cuda.empty_cache()
         train = phase_train(smi, dev)
@@ -13738,6 +14083,9 @@ def main(argv=None) -> int:
     print(json.dumps({"train": {k: v for k, v in train.items()
                                 if k != "counters"},
                       "train_parity": tparity, "kernel_routes": routes,
+                      "environment": {k: environment[k] for k in (
+                          "build_cache", "default_dtype", "allow_pallas",
+                          "seconds")},
                       "resnet50_pipeline": pipe, "core": core,
 
                       "word2vec_cbow": w2v, "encoder": enc,

@@ -7,7 +7,8 @@ find; inside, it is plain PyTorch: explicit ``torch.device``s, explicit
 
 Every Pallas kernel of the JAX package that a ported path runs becomes a CUDA
 kernel written by hand (``csrc/``), built at first use with ``nvcc`` into
-``_build/`` and bound with ``ctypes``. Beside each kernel sits a plain PyTorch
+``_build/`` (or the build cache that ``DL4J_TPU_COMPILE_CACHE`` names) and
+bound with ``ctypes``. Beside each kernel sits a plain PyTorch
 version of the same math; a wrapper takes the plain version only for a tensor
 on the CPU (what the CPU tests run), and for a CUDA tensor launches the kernel
 or raises.
@@ -16,8 +17,10 @@ Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); without a card and without that request they raise.
 
 Layer map (ported so far; see ROADMAP.md for what follows):
-  common/    environment (device + TF32 policy), dtype table, counters,
-             replica-consistency fingerprints (integrity)
+  common/    environment (device, TF32 policy, the JAX package's switches:
+             NAN_PANIC in nan_panic, allow_pallas, the default dtype, the
+             persistent build cache in build_cache), dtype table,
+             counters, replica-consistency fingerprints (integrity)
   imports/   TF frozen-GraphDef and ONNX import into SameDiff (protobuf
              wire-format readers and writers: no TensorFlow, no onnx),
              Keras .h5/.keras import into MultiLayerNetwork and

@@ -16,6 +16,8 @@ import queue
 import threading
 from typing import Callable, Iterable, Iterator, List, Optional, TypeVar
 
+from . import nan_panic
+
 T = TypeVar("T")
 U = TypeVar("U")
 
@@ -30,7 +32,10 @@ def prefetch_iter(source: Iterable[T], maxsize: int = 8) -> Iterator[T]:
     the producer's traceback, where the consumer reads, after the items
     produced before it: a failing producer never looks like one that has
     finished. Abandoning the returned iterator (``break``, ``close``,
-    garbage collection) stops and joins the producer."""
+    garbage collection) stops and joins the producer. While NAN_PANIC is
+    on when the producer starts, it checks the producer's operations
+    (``common/nan_panic.py``); its ``FloatingPointError`` reaches the
+    consumer so."""
     q: "queue.Queue" = queue.Queue(maxsize=maxsize)
     stop = threading.Event()
     err: List[BaseException] = []
@@ -46,9 +51,10 @@ def prefetch_iter(source: Iterable[T], maxsize: int = 8) -> Iterator[T]:
 
     def worker():
         try:
-            for item in source:
-                if stop.is_set() or not _put(item):
-                    return
+            with nan_panic.scope():
+                for item in source:
+                    if stop.is_set() or not _put(item):
+                        return
         except BaseException as e:  # re-raised on the consumer's side
             err.append(e)
         finally:

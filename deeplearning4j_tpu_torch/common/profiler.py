@@ -125,6 +125,9 @@ class OpProfiler:
             with self._counter_lock:
                 self._trace = self._trace_dir = None
             raise
+        from .environment import Environment
+
+        Environment.get().set_profiling(True)
 
     def stop(self) -> Optional[str]:
         """End the trace; returns the Chrome trace's path (None when no
@@ -134,6 +137,9 @@ class OpProfiler:
             self._trace = self._trace_dir = None
         if prof is None:
             return None
+        from .environment import Environment
+
+        Environment.get().set_profiling(False)
         prof.__exit__(None, None, None)
         os.makedirs(logdir, exist_ok=True)
         path = os.path.join(logdir, f"trace_{os.getpid()}_"

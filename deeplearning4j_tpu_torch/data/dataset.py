@@ -11,8 +11,12 @@ as the JAX package does, so one seed gives the same order in both packages;
 without a seed it draws from a fresh, unseeded ``RandomState`` (never from
 numpy's global one). ``MultiDataSet`` holds N feature arrays and M label
 arrays, with optional mask lists, for a ``ComputationGraph`` with several
-inputs or outputs. DataSet serialization (``save``/``load``) is not ported
-yet.
+inputs or outputs.
+
+``save``/``load`` use the JAX package's file: one ``.npz`` with the keys
+``features``, ``labels``, ``features_mask`` and ``labels_mask`` (those that
+are set), the suffix added when the path lacks it, so a file that either
+package saves loads in the other. ``load`` gives numpy arrays.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..common.dtypes import DataType
 
 _FIELDS = ("features", "labels", "features_mask", "labels_mask")
 
@@ -64,6 +70,12 @@ class DataSet:
     def num_examples(self) -> int:
         return int(self.features.shape[0]) if self.features is not None else 0
 
+    def get_features(self):
+        return self.features
+
+    def get_labels(self):
+        return self.labels
+
     def _arrays(self):
         return [getattr(self, f) for f in _FIELDS]
 
@@ -97,10 +109,37 @@ class DataSet:
         return DataSet(*(_concat([getattr(d, f) for d in datasets])
                          for f in _FIELDS))
 
+    def save(self, path: str) -> None:
+        np.savez(_npz(path), **{f: _host(a) for f, a in
+                                zip(_FIELDS, self._arrays()) if a is not None})
+
+    @staticmethod
+    def load(path: str) -> "DataSet":
+        with np.load(_npz(path)) as z:
+            return DataSet(*(z[f] if f in z else None for f in _FIELDS))
+
     def __repr__(self) -> str:
         f = tuple(self.features.shape) if self.features is not None else None
         lab = tuple(self.labels.shape) if self.labels is not None else None
         return f"DataSet(features={f}, labels={lab})"
+
+
+def _npz(path) -> str:
+    path = str(path)
+    # np.savez appends the suffix; keep save and load symmetric
+    return path if path.endswith(".npz") else path + ".npz"
+
+
+def _host(a) -> np.ndarray:
+    """A numpy copy of an array or a tensor (a bfloat16 tensor as
+    ``ml_dtypes.bfloat16``, the JAX package's host type)."""
+    if not isinstance(a, torch.Tensor):
+        return np.asarray(a)
+    t = a.detach().cpu()
+    if t.dtype is torch.bfloat16:
+        return t.view(torch.uint16).numpy().view(
+            DataType.BFLOAT16.to_np())
+    return t.numpy()
 
 
 class MultiDataSet:

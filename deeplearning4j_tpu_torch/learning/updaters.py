@@ -104,6 +104,10 @@ class GradientUpdater:
         raise NotImplementedError(
             f"{type(self).__name__}.apply is not ported yet")
 
+    def update(self, grads, state, params, iteration):
+        """The JAX package's alias of :meth:`apply`."""
+        return self.apply(grads, state, params, iteration)
+
 
 @dataclass
 class Sgd(GradientUpdater):

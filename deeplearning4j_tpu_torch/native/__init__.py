@@ -4,12 +4,24 @@ Counterpart of ``deeplearning4j_tpu/native/``. ``datavec_native.cpp`` here
 is the port's own copy of the JAX package's source, so one seed gives both
 packages the same pairs. It is compiled with ``g++`` into
 ``deeplearning4j_tpu_torch/_build/libdatavec_native.so`` at first use (never
-when this module is imported) and rebuilt when the source is newer.
+when this module is imported) and rebuilt when the source is newer. Under
+the persistent build cache (``DL4J_TPU_COMPILE_CACHE``,
+``common/build_cache.py``) it is built into the cache's directory under a
+name that carries the hash of its source, its flags and ``g++``'s version,
+and found there by later processes without a build.
+
+Sanitizer flavor (the JAX package's, after libnd4j's ``SD_SANITIZE``):
+``DL4J_TPU_NATIVE_SANITIZE=address|undefined`` builds ``-O1 -g
+-fsanitize=<flavor> -fno-omit-frame-pointer`` into a library named after the
+flavor (``libdatavec_native_address.so``). The process that loads it needs
+the sanitizer's runtime preloaded (``LD_PRELOAD=$(g++
+-print-file-name=libasan.so)``).
 
 There is no fallback: the JAX package trains on a numpy pair stream, which
 draws other pairs, when its helper is missing; here a failed build raises
 with the compiler's output, so a fit never trains on another stream than the
-one asked for.
+one asked for. :func:`available` says whether the helper builds and loads;
+it brings no stand-in back.
 """
 
 from __future__ import annotations
@@ -23,24 +35,63 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from ..common import build_cache
+
 SOURCE = Path(__file__).resolve().parent / "datavec_native.cpp"
 BUILD_DIR = SOURCE.parent.parent / "_build"
 LIBRARY = BUILD_DIR / "libdatavec_native.so"
+SANITIZERS = ("address", "undefined")
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 #: the loaded library's sg_pairs calls, for checks that the host path ran
 sg_pairs_calls = 0
+#: ``g++`` runs of this process
+builds = 0
 
 
-def _build() -> None:
-    """Compile the source into :data:`LIBRARY` (a temporary file renamed
-    into place, so that processes building at once never load half a file).
+def sanitize_flavor() -> str:
+    """``DL4J_TPU_NATIVE_SANITIZE``'s flavor, "" for the plain build."""
+    flavor = os.environ.get("DL4J_TPU_NATIVE_SANITIZE", "")
+    if flavor and flavor not in SANITIZERS:
+        raise ValueError(f"DL4J_TPU_NATIVE_SANITIZE={flavor!r}: the flavors "
+                         f"are {SANITIZERS}")
+    return flavor
+
+
+def _flags() -> List[str]:
+    flavor = sanitize_flavor()
+    opt = (["-O1", "-g", f"-fsanitize={flavor}", "-fno-omit-frame-pointer"]
+           if flavor else ["-O3"])
+    return [*opt, "-shared", "-fPIC", "-std=c++17"]
+
+
+def library_path() -> Path:
+    """Where the helper is built and found: :data:`LIBRARY` (or its
+    sanitizer flavor's file beside it), or its hashed name in the build
+    cache."""
+    flavor = sanitize_flavor()
+    stem = LIBRARY.stem + (f"_{flavor}" if flavor else "")
+    d = build_cache.cache_dir()
+    if d is not None:
+        return d / build_cache.cached_name(stem, SOURCE, _flags(), "g++")
+    return LIBRARY.with_name(stem + LIBRARY.suffix)
+
+
+def _up_to_date(lib: Path) -> bool:
+    if build_cache.cache_dir() is not None:
+        return lib.exists()          # the name carries the source's hash
+    return lib.exists() and lib.stat().st_mtime >= SOURCE.stat().st_mtime
+
+
+def _build(lib: Path) -> None:
+    """Compile the source into ``lib`` (a temporary file renamed into
+    place, so that processes building at once never load half a file).
     Raises with the compiler's output when it fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIBRARY.with_name(f"{LIBRARY.name}.{os.getpid()}.tmp")
-    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", str(SOURCE),
-           "-o", str(tmp)]
+    global builds
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = ["g++", *_flags(), str(SOURCE), "-o", str(tmp)]
+    builds += 1
     try:
         r = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     except (OSError, subprocess.TimeoutExpired) as e:
@@ -49,7 +100,7 @@ def _build() -> None:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"g++ failed for {SOURCE} (exit {r.returncode}):"
                            f"\n{r.stdout}{r.stderr}")
-    os.replace(tmp, LIBRARY)
+    os.replace(tmp, lib)
 
 
 def load() -> ctypes.CDLL:
@@ -58,10 +109,11 @@ def load() -> ctypes.CDLL:
     global _LIB
     with _LOCK:
         if _LIB is None:
-            if (not LIBRARY.exists()
-                    or LIBRARY.stat().st_mtime < SOURCE.stat().st_mtime):
-                _build()
-            lib = ctypes.CDLL(str(LIBRARY))
+            lib_path = library_path()
+            with build_cache.dir_lock(lib_path.parent):
+                if not _up_to_date(lib_path):
+                    _build(lib_path)
+            lib = ctypes.CDLL(str(lib_path))
             i32p = ctypes.POINTER(ctypes.c_int32)
             i64p = ctypes.POINTER(ctypes.c_int64)
             lib.sg_pairs.restype = ctypes.c_int64
@@ -73,6 +125,16 @@ def load() -> ctypes.CDLL:
                 ctypes.c_char_p, ctypes.c_int64, i64p, i64p, ctypes.c_int64]
             _LIB = lib
         return _LIB
+
+
+def available() -> bool:
+    """Whether the helper builds and loads. The callers do not ask: they
+    call and raise when it is missing."""
+    try:
+        load()
+    except (RuntimeError, OSError):
+        return False
+    return True
 
 
 def sg_pairs(ids: np.ndarray, offsets: np.ndarray, window: int,

@@ -4,8 +4,8 @@ Counterpart of ``deeplearning4j_tpu/ndarray/factory.py`` (reference nd4j-api
 ``org.nd4j.linalg.factory.Nd4j``: create/zeros/ones/rand/randn/arange/
 linspace/valueArrayOf/eye/concat/stack/gemm/write/read). Every creator takes
 ``device``: the card unless the caller asks for another (``device="cpu"``).
-``dtype`` is a :class:`DataType`, a torch dtype or a numpy name, float32 by
-default. ``write``/``read`` are the JAX package's file format byte for byte
+``dtype`` is a :class:`DataType`, a torch dtype or a numpy name; by default
+``Environment.default_dtype()`` (``DL4J_TPU_DTYPE``, float32 when unset). ``write``/``read`` are the JAX package's file format byte for byte
 (numpy's ``.npy``), so a file written by either package reads in the other.
 """
 
@@ -17,14 +17,14 @@ import numpy as np
 import torch
 
 from ..common.dtypes import DataType, tensor_from_numpy, torch_dtype
-from ..common.environment import resolve_device
+from ..common.environment import Environment, resolve_device
 from .ndarray import NDArray, _as_tensor, _normalize_shape
 from .rng import get_random
 
 
 def _dtype(dtype) -> torch.dtype:
     if dtype is None:
-        return torch.float32
+        return torch_dtype(Environment.get().default_dtype())
     if isinstance(dtype, DataType):
         return dtype.to_torch()
     if isinstance(dtype, torch.dtype):

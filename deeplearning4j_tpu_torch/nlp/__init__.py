@@ -33,9 +33,11 @@ from .serializer import (read_paragraph_vectors, read_word2vec_model,
                          read_word_vectors, write_paragraph_vectors,
                          write_word2vec_model, write_word_vectors)
 from .text import (CollectionSentenceIterator, CommonPreprocessor,
-                   DefaultTokenizerFactory, LabelAwareIterator,
-                   LineSentenceIterator, LowCasePreProcessor, SentenceIterator,
-                   Tokenizer, TokenizerFactory, TokenPreProcess)
+                   DefaultTokenizerFactory, FileSentenceIterator,
+                   LabelAwareIterator, LineSentenceIterator,
+                   LowCasePreProcessor, NGramTokenizerFactory,
+                   SentenceIterator, Tokenizer, TokenizerFactory,
+                   TokenPreProcess)
 from .vocab import (VocabCache, VocabConstructor, VocabWord, build_huffman,
                     huffman_arrays, subsample_keep_probs, unigram_int_table,
                     unigram_table)
@@ -43,9 +45,10 @@ from .word2vec import SequenceVectors, Word2Vec, WordVectors
 
 __all__ = [
     "CollectionSentenceIterator", "CommonPreprocessor", "DeepWalk",
-    "DefaultTokenizerFactory", "FastText", "Glove", "Graph",
-    "InMemoryLookupTable", "LabelAwareIterator", "LineSentenceIterator",
-    "LowCasePreProcessor", "Node2Vec", "ParagraphVectors", "SentenceIterator",
+    "DefaultTokenizerFactory", "FastText", "FileSentenceIterator", "Glove",
+    "Graph", "InMemoryLookupTable", "LabelAwareIterator",
+    "LineSentenceIterator", "LowCasePreProcessor", "NGramTokenizerFactory",
+    "Node2Vec", "ParagraphVectors", "SentenceIterator",
     "SequenceVectors", "TokenPreProcess", "Tokenizer", "TokenizerFactory",
     "VocabCache", "VocabConstructor", "VocabWord", "Word2Vec", "WordVectors",
     "build_huffman", "char_ngrams", "fasttext_hash", "huffman_arrays",

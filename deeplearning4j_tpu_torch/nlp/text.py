@@ -75,6 +75,23 @@ class DefaultTokenizerFactory(TokenizerFactory):
         return Tokenizer(sentence.split(), self._pre)
 
 
+class NGramTokenizerFactory(TokenizerFactory):
+    """Every n-gram for n in ``[min_n, max_n]``, its words joined by one
+    space, after the pre-processor (the n-grams themselves are not
+    pre-processed)."""
+
+    def __init__(self, min_n: int, max_n: int):
+        super().__init__()
+        self.min_n, self.max_n = min_n, max_n
+
+    def create(self, sentence: str) -> Tokenizer:
+        base = Tokenizer(sentence.split(), self._pre).get_tokens()
+        grams = [" ".join(base[i:i + n])
+                 for n in range(self.min_n, self.max_n + 1)
+                 for i in range(len(base) - n + 1)]
+        return Tokenizer(grams, None)
+
+
 class SentenceIterator:
     """SPI: a restartable stream of sentences. Subclasses implement
     ``__iter__``; ``reset()`` restarts the stream so the vocabulary pass and
@@ -107,6 +124,18 @@ class LineSentenceIterator(SentenceIterator):
                 line = line.strip()
                 if line:
                     yield line
+
+
+class FileSentenceIterator(SentenceIterator):
+    """Every file under a directory, in sorted path order, one sentence per
+    non-empty line."""
+
+    def __init__(self, root: str | Path):
+        self._root = Path(root)
+
+    def __iter__(self) -> Iterator[str]:
+        for p in sorted(p for p in self._root.rglob("*") if p.is_file()):
+            yield from LineSentenceIterator(p)
 
 
 class LabelAwareIterator(SentenceIterator):

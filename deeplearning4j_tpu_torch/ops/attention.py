@@ -69,6 +69,7 @@ from typing import Optional
 
 import torch
 
+from ..common import nan_panic
 from ..common.profiler import OpProfiler
 from . import cuda_lib
 
@@ -331,6 +332,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         _raise_launch(lib, err)
     _count("attention/flash_f32")
+    nan_panic.check_kernel(KERNEL_NAME, out, lse)
     return (out, lse) if with_lse else out
 
 
@@ -439,6 +441,7 @@ def _launch_bf16(q, k, v, scale, causal, bias, with_lse, with_f32=False):
     if err != 0:
         _raise_launch(lib, err)
     _count("attention/flash_bf16")
+    nan_panic.check_kernel(KERNEL_NAME, *result)
     return result if len(result) > 1 else out
 
 

@@ -6,48 +6,64 @@ for Hopper (``-gencode arch=compute_90a,code=sm_90a``) into
 ``ctypes``; pointers and the stream travel as ``c_void_p``. Nothing is built
 when a module is imported, and nothing here runs for CPU tensors.
 
-A library is rebuilt when its source is newer than the built file. Builds of
-several sources run in parallel (one ``nvcc`` each, :func:`build`). Every
-build and every check before a load holds ``_build/.lock`` (``flock``), so
-processes started together (the ranks of a process group) load what one of
-them built instead of compiling the same sources at once. Every ``nvcc``
-run is reported to ``common/tracecheck.note_compile``: a kernel build
-inside a steady-state region is a violation.
+A library is rebuilt when its source is newer than the built file. Under
+the persistent build cache (``DL4J_TPU_COMPILE_CACHE``,
+``common/build_cache.py``) the libraries live in the cache's directory
+instead, each under a name that carries the hash of its source, its flags
+and ``nvcc``'s version, and a library found there is loaded without a
+build. Builds of several sources run in parallel (one ``nvcc`` each,
+:func:`build`). Every build and every check before a load holds the build
+directory's ``.lock`` (``flock``), so processes started together (the ranks
+of a process group) load what one of them built instead of compiling the
+same sources at once. Every ``nvcc`` run is reported to
+``common/tracecheck.note_compile`` (a kernel build inside a steady-state
+region is a violation) and counted in :data:`nvcc_runs`.
 """
 
 from __future__ import annotations
 
 import ctypes
-import fcntl
 import os
 import shutil
 import subprocess
 import threading
 import time
-from contextlib import contextmanager
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
-from ..common import tracecheck
+from ..common import build_cache, tracecheck
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+         "-Xptxas", "-v"]
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: compiler output of the last build of each library (``-Xptxas -v``:
 #: registers, shared memory and spills per kernel)
 BUILD_LOGS: Dict[str, str] = {}
+#: ``nvcc`` runs of this process
+nvcc_runs = 0
 
 
 def source_path(name: str) -> Path:
     return CSRC_DIR / f"{name}.cu"
 
 
+def build_dir() -> Path:
+    """The build cache's directory, else the package's ``_build/``."""
+    return build_cache.cache_dir() or BUILD_DIR
+
+
 def library_path(name: str) -> Path:
-    return BUILD_DIR / f"lib{name}.so"
+    d = build_cache.cache_dir()
+    if d is None:
+        return BUILD_DIR / f"lib{name}.so"
+    return d / build_cache.cached_name(f"lib{name}", source_path(name),
+                                       FLAGS, nvcc_path())
 
 
 def nvcc_path() -> str:
@@ -66,26 +82,18 @@ def nvcc_path() -> str:
 
 def _up_to_date(name: str) -> bool:
     lib = library_path(name)
+    if build_cache.cache_dir() is not None:
+        return lib.exists()          # the name carries the source's hash
     return (lib.exists()
             and lib.stat().st_mtime >= source_path(name).stat().st_mtime)
 
 
 def _command(name: str, out: Path) -> List[str]:
-    return [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-            "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-o", str(out), str(source_path(name))]
+    return [nvcc_path(), *FLAGS, "-o", str(out), str(source_path(name))]
 
 
-@contextmanager
 def _build_lock():
-    """The build directory's lock, across processes."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / ".lock", "a") as f:
-        fcntl.flock(f, fcntl.LOCK_EX)
-        try:
-            yield
-        finally:
-            fcntl.flock(f, fcntl.LOCK_UN)
+    return build_cache.dir_lock(build_dir())
 
 
 def build(names: Iterable[str], force: bool = False) -> Dict[str, float]:
@@ -98,12 +106,14 @@ def build(names: Iterable[str], force: bool = False) -> Dict[str, float]:
 
 
 def _build_locked(names: List[str], force: bool) -> Dict[str, float]:
+    global nvcc_runs
     running = {}
     for name in names:
         if not force and _up_to_date(name):
             continue
-        tmp = BUILD_DIR / f"lib{name}.so.{os.getpid()}.tmp"
+        tmp = build_dir() / f"lib{name}.so.{os.getpid()}.tmp"
         tracecheck.note_compile(f"nvcc {name}")
+        nvcc_runs += 1
         proc = subprocess.Popen(_command(name, tmp), stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         running[name] = (proc, tmp, time.perf_counter())

@@ -61,6 +61,7 @@ from typing import Optional
 
 import torch
 
+from ..common import nan_panic
 from ..common.profiler import OpProfiler
 from . import cuda_lib, routing
 
@@ -216,6 +217,7 @@ def embedding_bag_cuda(table: torch.Tensor, indices: torch.Tensor,
         embedding_bag_launches += 1
         if bf16:
             embedding_bag_bf16_launches += 1
+    nan_panic.check_kernel(KERNEL_NAME, out)
     return out
 
 

@@ -53,6 +53,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..common import nan_panic
 from ..common.profiler import OpProfiler
 from . import cuda_lib, routing
 
@@ -288,6 +289,7 @@ def bn_act_cuda(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     with _LAUNCH_LOCK:
         bn_act_launches += 1
         bn_act_residual_launches += residual is not None
+    nan_panic.check_kernel(KERNEL_NAME, out)
     return out
 
 

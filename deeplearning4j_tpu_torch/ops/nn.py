@@ -35,7 +35,8 @@ that one recentres differently and feeds the running variance the unbiased
 batch variance, where the JAX package uses the biased one.
 
 :func:`multi_head_dot_product_attention` keeps the JAX package's dispatch:
-self-attention (``tq == tk``) that the Hopper gate takes goes to
+self-attention (``tq == tk``) that the Hopper gate takes goes, while
+``Environment.allow_pallas()`` is on (``DL4J_TPU_ALLOW_PALLAS``), to
 ``ops/attention.flash_attention`` (a mask becomes the additive bias
 ``where(mask, 0, -1e9)``), everything else to the dense
 :func:`dot_product_attention`. The JAX package also requires its TPU
@@ -55,6 +56,7 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from ..common.environment import Environment
 from ..common.profiler import OpProfiler
 from .attention import flash_attention, supports_flash
 
@@ -422,7 +424,9 @@ def multi_head_dot_product_attention(q, k, v, wq, wk, wv, wo, mask=None,
     """q, k, v ``[B, T, dModel]``; per-head projections ``[dModel, H*dh]``,
     attention, then ``wo`` ``[H*dh, nOut]``. ``mask`` ``[B, Tk]`` masks keys.
     Self-attention that :func:`~.attention.supports_flash` takes runs
-    through flash attention, the rest densely (see the module docstring)."""
+    through flash attention while ``Environment.allow_pallas()`` (the JAX
+    package's switch for its flash kernel) is on, the rest densely (see the
+    module docstring)."""
     b, tq, _ = q.shape
     tk = k.shape[1]
 
@@ -433,7 +437,8 @@ def multi_head_dot_product_attention(q, k, v, wq, wk, wv, wo, mask=None,
     qh, kh, vh = split_heads(q, wq), split_heads(k, wk), split_heads(v, wv)
     dh = qh.shape[-1]
     prof = OpProfiler.get()
-    if tq == tk and supports_flash(tq, dh):
+    if (tq == tk and Environment.get().allow_pallas()
+            and supports_flash(tq, dh)):
         scale = dh ** -0.5 if scaled else 1.0
         bias = None
         if mask is not None:

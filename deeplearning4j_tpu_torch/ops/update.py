@@ -75,7 +75,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..common import xprof
+from ..common import nan_panic, xprof
 from ..common.dtypes import torch_dtype
 from ..common.profiler import OpProfiler
 from ..learning.precision import (apply_updater, random_bits, state_dtype_of,
@@ -293,6 +293,7 @@ def fused_update_cuda(kind: str, sc: Tuple[float, ...], p: torch.Tensor,
                            f"{err} ({cuda_lib.error_string(lib, err)})")
     with _LAUNCH_LOCK:
         fused_update_launches += 1
+    nan_panic.check_kernel(KERNEL_NAME, p, *s)
 
 
 # --- the member-batched route ---------------------------------------------
@@ -403,6 +404,7 @@ def fused_update_members_cuda(kind: str, sc: Tuple[float, ...],
                            f"({cuda_lib.error_string(lib, err)})")
     with _LAUNCH_LOCK:
         fused_update_member_launches += 1
+    nan_panic.check_kernel(MEMBERS_KERNEL_NAME, p, *s)
 
 
 def update_members_bucket(kind: str, sc: Tuple[float, ...], p, g, slots,

@@ -190,8 +190,12 @@ class PipelineMetricsListener(TrainingListener):
     """Per-epoch snapshots of the input pipeline's counters
     (``pipeline/padded_batches``, ``pipeline/dropped_batches``, from
     ``common/profiler.OpProfiler``). The JAX package's snapshot also holds
-    its trace counts and overlap ledger; the port compiles no step and
-    times no pipeline section, so it has neither."""
+    its trace counts and overlap ledger; the port compiles no step and its
+    fit loop times no pipeline section, so the snapshot has neither.
+    :meth:`trace_count` and :meth:`overlap_stats` read what the port does
+    count: the ``trace/*`` counters of the steps that note their first
+    call (``serving_infer``, ``fleet_step``, ``pipeline_fit_step``) and the
+    ``pipeline/dispatch`` section of the wrapper, fleet and pipeline fits."""
 
     def __init__(self, frequency_epochs: int = 1):
         self.frequency = max(1, frequency_epochs)
@@ -205,6 +209,13 @@ class PipelineMetricsListener(TrainingListener):
             "epoch": epoch,
             "counters": {k: v for k, v in counters.items()
                          if k.startswith("pipeline/")}})
+
+    def trace_count(self, step_name: str) -> int:
+        """The ``trace/<step_name>`` counter, e.g. ``fleet_step``."""
+        return OpProfiler.get().counter_value(f"trace/{step_name}")
+
+    def overlap_stats(self) -> dict:
+        return OpProfiler.get().overlap_stats()
 
 
 class CheckpointListener(TrainingListener):

@@ -65,8 +65,10 @@ class GradientsAccumulator:
     """How per-replica gradients become the reduced update. Stateless
     accumulators implement :meth:`reduce_gradients`; stateful ones
     (``stateful = True``) also ``init_state``, ``state_specs``,
-    ``exchange`` and ``resize_state``."""
+    ``exchange`` and ``resize_state``. ``axis_name`` names the replicas'
+    axis of the mesh, as in the JAX package."""
 
+    axis_name: str = "data"
     stateful: bool = False
     zero1: bool = False
 

@@ -52,7 +52,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..common import faultinject, flightrec
+from ..common import faultinject, flightrec, nan_panic
 from ..common.profiler import OpProfiler
 from .mesh import probe_device
 
@@ -440,7 +440,8 @@ class ParallelInference:
             if self._shutdown:
                 return
             try:
-                self._probe()
+                with nan_panic.scope():
+                    self._probe()
             except Exception as e:
                 prof.count("inference/probe_failures")
                 probes += 1
@@ -512,7 +513,8 @@ class ParallelInference:
             with self._lock:
                 self._busy += 1
             try:
-                self._serve_batch(worker_id, batch, prof)
+                with nan_panic.scope():
+                    self._serve_batch(worker_id, batch, prof)
             except faultinject.DeadReplicaFault:
                 return            # retired inside _serve_batch
             finally:

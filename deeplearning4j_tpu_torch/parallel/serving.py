@@ -83,7 +83,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..common import faultinject, flightrec, xprof
+from ..common import faultinject, flightrec, nan_panic, xprof
 from ..common import integrity as _integ
 from ..common.profiler import OpProfiler
 from ..common.tree import tree_map
@@ -1163,7 +1163,8 @@ class ServingEngine(ParallelInference):
             with self._lock:
                 self._busy += 1
             try:
-                self._dispatch(worker_id, batch, rows, prof)
+                with nan_panic.scope():
+                    self._dispatch(worker_id, batch, rows, prof)
             except faultinject.DeadReplicaFault:
                 return          # replica retired inside _dispatch
             finally:

@@ -18,6 +18,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..common import nan_panic
 from .dqn import to_numpy
 from .mdp import MDP
 from .networks import ActorCriticNetwork, SameDiffQNetwork
@@ -93,7 +94,8 @@ class _AsyncBase:
 
         def run(tid):
             try:
-                self._worker(tid)
+                with nan_panic.scope():
+                    self._worker(tid)
             except BaseException as e:   # surface on the caller, not a
                 errors.append(e)         # silently-dead daemon thread
 

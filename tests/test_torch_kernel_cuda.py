@@ -1031,3 +1031,111 @@ def test_bn_act_kernel_refuses_an_input_that_needs_a_gradient():
     with torch.no_grad():
         epilogue.bn_act_cuda(x.clone().requires_grad_(), s, s)
     assert epilogue.bn_act_launches == launches + 1
+
+
+def _nan_case(kernel, dev):
+    """Inputs with a NaN that reaches the output of ``kernel`` (for
+    fused_update, the parameters it writes), made before NAN_PANIC is on;
+    returns the launch. Flash's NaN goes into v: a NaN in q or k makes a
+    score that is not finite, which both flash kernels weight 0, as
+    ``_fa_kernel`` does, so it never reaches the output."""
+    nan = float("nan")
+    if kernel == "bn_act":
+        x = torch.ones(2, 8, 3, 3, device=dev)
+        x[1, 2, 0, 0] = nan
+        s = torch.ones(8, device=dev)
+        return lambda: epilogue.bn_act_cuda(x, s, s, None, "relu")
+    if kernel == "fused_update":
+        p = torch.ones(4097, device=dev)
+        g = torch.zeros(4097, device=dev)
+        g[4000] = nan
+        slots = {"v": torch.zeros(4097, device=dev)}
+        sc = update._scalars(_UPDATERS["nesterovs"](), "nesterovs", 0)
+        return lambda: update.fused_update_cuda("nesterovs", sc, p, g, slots)
+    if kernel == "embedding_bag":
+        table, idx, mask, counts = _bag_inputs(16, 4, 30, 12, dev, 5)
+        table[int(idx[0, 0])] = nan
+        mask[0, 0] = 1.0
+        return lambda: embeddings.embedding_bag_cuda(table, idx, mask, counts,
+                                                     True)
+    if kernel == "flash_attention":
+        q, k, v = _qkv(4, 64, 64, dev, 2)
+        v[1, 7, 3] = nan
+        return lambda: attention.flash_attention_cuda(q, k, v, 0.125)
+    q, k, v = (t.view(2, 2, 64, 64).to(torch.bfloat16)
+               for t in _qkv(4, 64, 64, dev, 2))
+    v[0, 1, 5, 0] = nan
+    return lambda: attention.flash_attention_bf16_cuda(q, k, v, 0.125)
+
+
+_NAN_KERNELS = {"bn_act": "bn_act", "fused_update": "fused_update",
+                "embedding_bag": "embedding_bag",
+                "flash_attention": "flash_attention",
+                "flash_attention_bf16": "flash_attention"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(_NAN_KERNELS))
+def test_nan_panic_names_the_kernel_that_wrote_the_nan(kernel):
+    """The kernels launch through ctypes, past the dispatch mode: under
+    NAN_PANIC each launcher checks what its kernel wrote. Off, the same
+    launch returns its NaN."""
+    from deeplearning4j_tpu_torch.common.environment import Environment
+
+    dev = _card()
+    env = Environment.get()
+    launch = _nan_case(kernel, dev)
+    env.set_check_nan(True)
+    try:
+        with pytest.raises(FloatingPointError,
+                           match=f"the {_NAN_KERNELS[kernel]} kernel"):
+            launch()
+    finally:
+        env.set_check_nan(False)
+    out = launch()
+    out = out[0] if isinstance(out, tuple) else out
+    torch.cuda.synchronize()
+    if out is not None:
+        assert bool(torch.isnan(out).any())
+
+
+_CACHED_BN_ACT = """
+import hashlib, json, torch
+from deeplearning4j_tpu_torch.ops import cuda_lib, epilogue
+g = torch.Generator().manual_seed(11)
+x = torch.randn(4, 64, 7, 7, generator=g).cuda()
+s, b = (torch.randn(64, generator=g).cuda() for _ in range(2))
+out = epilogue.bn_act_cuda(x, s, b, None, "relu")
+print(json.dumps({"nvcc_runs": cuda_lib.nvcc_runs,
+                  "library": str(cuda_lib.library_path("bn_act")),
+                  "sha256": hashlib.sha256(out.cpu().numpy().tobytes())
+                  .hexdigest()}))
+"""
+
+
+@pytest.mark.cuda
+def test_a_second_process_reuses_the_cached_kernel(tmp_path):
+    """Under DL4J_TPU_COMPILE_CACHE the first process builds bn_act into the
+    cache under its hashed name; the second runs no nvcc and its output is
+    bitwise the first's."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    _card()
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, DL4J_TPU_COMPILE_CACHE=str(tmp_path),
+               PYTHONPATH=str(root))
+    runs = []
+    for _ in range(2):
+        p = subprocess.run([sys.executable, "-c", _CACHED_BN_ACT], env=env,
+                           cwd=root, capture_output=True, text=True,
+                           timeout=600)
+        assert p.returncode == 0, p.stderr[-3000:]
+        runs.append(json.loads(p.stdout.splitlines()[-1]))
+    assert runs[0]["nvcc_runs"] == 1 and runs[1]["nvcc_runs"] == 0
+    assert runs[0]["library"] == runs[1]["library"]
+    assert Path(runs[0]["library"]).parent == tmp_path
+    assert runs[0]["sha256"] == runs[1]["sha256"]
